@@ -1,0 +1,103 @@
+"""Fused classification heads + argmax: kernel K3 and its plain version.
+
+Greedy sampling needs only the argmax of the command head ``[D, 7]`` and of
+each of the 11 argument slots of the argument head ``[D, 11*257]``. The
+kernel never stores the logits: it returns ``ids [R, 12]`` int32 (column 0
+the command, columns 1..11 the arguments), ties to the smallest index.
+
+Both versions read the head in a per-slot padded layout that
+:func:`pack_head` builds once when the weights are loaded: the command slot
+is padded to 16 rows and each 257-row argument slot to 272, so every slot
+is a whole number of 16-column tensor-core tiles; padded columns are masked.
+
+Kernel note (``csrc/head.cu``). Replaces the Pallas kernel
+``deepsvg_tpu/ops/head.py:_head_kernel`` (wrapper ``fused_head_argmax``).
+At the flagship's N=1024 (R = 1024*8*31 = 253,952 rows) the heads are
+2*R*256*2834 = 368 GFLOP, 0.37 ms at 989 TFLOP/s bf16; the inputs are 130
+MB (0.04 ms). The bound is the tensor cores. A block keeps 128 rows of
+``x`` in shared memory, stages the head in 64-column chunks through shared
+memory shared by its 8 warps, multiplies with ``nvcuda::wmma`` (bf16, f32
+accumulate), adds the bias in f32 and folds each chunk into a running
+(max, first index) per row and slot.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+TILE = 16
+
+
+def _round_up(n: int, m: int = TILE) -> int:
+    return -(-n // m) * m
+
+
+def pack_head(wc, bc, wa, ba, n_args: int):
+    """Command head ``wc [n_cmd, D]``, ``bc [n_cmd]`` and argument head
+    ``wa [n_args*vocab, D]``, ``ba`` (``nn.Linear`` layout) -> the padded
+    per-slot layout ``w [C, D]`` and ``b [C]``, both in the weights' dtype
+    (the bias is added in float32 inside the kernel)."""
+    n_cmd, d = wc.shape
+    vocab = wa.shape[0] // n_args
+    cw, aw = _round_up(n_cmd), _round_up(vocab)
+    w = torch.zeros(cw + n_args * aw, d, dtype=wc.dtype, device=wc.device)
+    b = torch.zeros(cw + n_args * aw, dtype=wc.dtype, device=wc.device)
+    w[:n_cmd], b[:n_cmd] = wc, bc
+    for i in range(n_args):
+        o = cw + i * aw
+        w[o:o + vocab] = wa[i * vocab:(i + 1) * vocab]
+        b[o:o + vocab] = ba[i * vocab:(i + 1) * vocab]
+    return w, b
+
+
+def head_argmax_reference(x, w_packed, b_packed, n_commands: int, n_args: int,
+                          args_vocab: int):
+    """Plain version of :func:`fused_head_argmax` (same arguments)."""
+    logits = torch.matmul(x.float(), w_packed.float().t()) + b_packed.float()
+    cw, aw = _round_up(n_commands), _round_up(args_vocab)
+    ids = [logits[:, :n_commands].argmax(dim=-1)]
+    for i in range(n_args):
+        o = cw + i * aw
+        ids.append(logits[:, o:o + args_vocab].argmax(dim=-1))
+    return torch.stack(ids, dim=1).to(torch.int32)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def fused_head_argmax(x, w_packed, b_packed, n_commands: int, n_args: int,
+                      args_vocab: int):
+    """``x [R, D]`` decoder states -> ``ids [R, 1 + n_args]`` int32.
+
+    A CPU tensor takes :func:`head_argmax_reference`; a CUDA tensor launches
+    the kernel (bfloat16 ``x`` and head) or raises.
+    """
+    if x.device.type == "cpu":
+        return head_argmax_reference(x, w_packed, b_packed, n_commands, n_args,
+                                     args_vocab)
+    if x.device.type != "cuda":
+        raise ValueError(f"no head kernel for device {x.device}")
+    dev = x.device
+    r, d = x.shape
+    c = _round_up(n_commands) + n_args * _round_up(args_vocab)
+    if d % TILE:
+        raise ValueError(f"head kernel takes D a multiple of {TILE}, got {d}")
+    _build.require(x, "x", dev, torch.bfloat16, (r, d))
+    _build.require(w_packed, "w_packed", dev, torch.bfloat16, (c, d))
+    _build.require(b_packed, "b_packed", dev, torch.bfloat16, (c,))
+    ids = torch.empty((r, 1 + n_args), dtype=torch.int32, device=dev)
+    if r == 0:
+        return ids
+    fn = _build.kernel_function("dsvg_head_argmax", _ARGTYPES)
+    rc = fn(x.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(), ids.data_ptr(),
+            r, d, n_commands, n_args, args_vocab,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "head")
+    fused_head_argmax.launches += 1
+    return ids
+
+
+fused_head_argmax.launches = 0
