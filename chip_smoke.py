@@ -3,20 +3,35 @@
     python3 chip_smoke.py
 
 In order: print the card and its power limit; build the port's CUDA kernels
-from ``deepsvg_tpu_torch/ops/csrc``; hold each kernel against its plain
-PyTorch version on the card at the flagship's inference shapes; load the
-trained flagship checkpoint and run greedy one-shot encode+decode at N=1024,
-checking that the main path launched every kernel and that its output is
-valid; compare the kernel path with the plain path at N=64; time each
-kernel, its plain version, a PyTorch yardstick where one exists, and the
-whole encode+decode. The second-to-last line is ``{"kernels": [...]}``, the
-last ``{"ok": true, "device": {...}}``; the full record goes to
-``chiprun_out/chip_smoke.json``. Any failed check raises, and the script
-exits non-zero, as it does without a CUDA card or without the repo.
+from ``deepsvg_tpu_torch/ops/csrc``; load the trained flagship checkpoint;
+then two paths.
+
+*Inference* (greedy one-shot encode+decode, N=1024): each kernel (K1
+embedding, K2 fused layer in its bfloat16 and float32 forms, K3 head+argmax)
+against its plain PyTorch version at the path's shapes; one counted run of
+``one_shot_sample`` whose output is validated; the kernel path against the
+plain path at N=64 with a control that must fail; timings.
+
+*Training* (one step = forward with dropout, loss, backward, clip, AdamW;
+B=128, bfloat16 compute, float32 masters): K4 (the fused layer's forward and
+each of its twelve gradients, at the four stacks' shapes, without and with
+dropout, causal, with a fully masked sequence), K5 (argument cross-entropy and
+its three gradients) and K6 (the embedding tables' gradients) against their
+plain versions; one step on the kernel path against the same step on the
+plain path at B=16 and dropout 0 (loss terms, every leaf's gradient, the
+global norm); one counted step; 23 steps on one batch at dropout 0.1 whose
+loss must stay finite and fall, the last 20 timed; timings of each kernel, its
+plain version and a PyTorch yardstick where one exists.
+
+The second-to-last line is ``{"kernels": [...]}``, the last ``{"ok": true,
+"device": {...}}``; the full record goes to ``chiprun_out/chip_smoke.json``.
+Any failed check raises, and the script exits non-zero, as it does without a
+CUDA card or without the repo.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -30,8 +45,15 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "docs", "artifacts", "full_run_final_params.msgpack")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-N_MAIN = 1024          # bench.py's batch
+N_MAIN = 1024          # bench.py's inference batch
 N_AGREE = 64
+B_TRAIN = 128          # bench.py's training batch
+B_STEP_CHECK = 16      # kernel-path step against plain-path step
+TRAIN_STEPS = 23       # 3 warm-up steps, then 20 timed ones
+LR = 1e-3
+DROPOUT = 0.1
+LOSS_WEIGHTS = dict(loss_visibility_weight=1.0, loss_cmd_weight=1.0, loss_args_weight=2.0)
+MODEL_ARGS = ["commands", "args", "commands", "args"]
 # kernel path vs plain path: the greedy head ids (command and each argument
 # slot) must agree on at least AGREEMENT_MIN of the slots whose two best
 # logits, on the plain path, differ by at least AGREE_MARGIN. Both paths
@@ -43,9 +65,10 @@ AGREE_MARGIN = 1e-2
 AGREEMENT_MIN = 0.995
 CONTROL_DROP_BITS = 3
 ITERS = 20
-# H100 SXM published peaks (dense): tensor-core bf16, float32 outside the
-# tensor cores, HBM3 bandwidth
+# H100 SXM published peaks (dense): tensor-core bf16 and TF32, float32 outside
+# the tensor cores, HBM3 bandwidth
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
 TOL_EMBED = 1e-2               # one bf16 rounding of an exact f32 sum
@@ -61,12 +84,76 @@ TOL_EMBED = 1e-2               # one bf16 rounding of an exact f32 sum
 TOL_LAYER_ATOL = 0.1
 TOL_LAYER_RTOL = 2.0 ** -7
 TOL_LAYER_RMS = 1e-3
+# the float32 form multiplies in TF32: weights whose values are bf16 enter
+# exactly, each activation operand is rounded to 10 mantissa bits (2^-11
+# relative); its plain version multiplies in full float32
+TOL_F32_ATOL = 2e-2
+TOL_F32_RTOL = 2e-3
 TOL_HEAD_MARGIN = 1e-2         # ids may differ only below this top-2 logit gap
+# K4's gradients. bfloat16: the kernel rounds df, dhpre, da, dctx, ds and dqkv
+# to bf16 before their products as the TPU kernel did, the plain version's
+# autograd does not; each rounding is 2^-9 relative (0.0011 RMS), six of them
+# chain, and dropout's 1/(1-rate) scale and the LayerNorm and softmax
+# cancellations amplify them. float32: TF32 operands (2^-11) at every product
+# of forward and backward against full float32. In both, the plain version's
+# weight gradients are rounded to bf16 once on their way back through its cast
+# of the master weights (0.0016 RMS); the kernel's are not. And in both, the
+# two forward passes differ in their last bits, so a few FF pre-activations
+# next to zero fall on the other side of the ReLU: such a unit's whole
+# gradient term is there in one version and not in the other. That last cause
+# is measured, not assumed: every case is compared twice, against the plain
+# version as it is and against the plain version made to pass the kernel's
+# own FF units (``relu_gate``), and both readings are printed. With the units
+# aligned bfloat16 reads up to 0.0096 (dln1 at D2, rate 0.1; 0.0058 elsewhere)
+# and float32 0.0023 (the roundings alone); as they are, 0.0096 and, over six
+# runs, 0.011 to 0.020 (dw1 and db1 at E2, whose 1,024 rows average the
+# flipped units' terms least). Limits, 1.5 to 2 times those readings: the
+# relative RMS error of each gradient at most TOL_GRAD_RMS[activation type],
+# and at most TOL_GRAD_RMS_SAME_GATE with the ReLU units aligned; at most
+# TOL_GRAD_OUTLIERS of the elements (or TOL_GRAD_OUTLIER_COUNT of them, in a
+# small tensor) outside the band
+# |err| <= TOL_GRAD_ATOL * max|ref| + TOL_GRAD_RTOL * |ref|; and no element
+# off by more than TOL_GRAD_WORST * max|ref| (a flipped unit; read up to
+# 0.10), nor by more than TOL_GRAD_WORST_SAME_GATE with the units aligned
+# (read up to 0.015).
+TOL_GRAD_RMS = {torch.bfloat16: 1.5e-2, torch.float32: 4e-2}
+TOL_GRAD_RMS_SAME_GATE = {torch.bfloat16: 1.5e-2, torch.float32: 5e-3}
+TOL_GRAD_ATOL = 2e-2
+TOL_GRAD_RTOL = 2.0 ** -6
+TOL_GRAD_OUTLIERS = 1e-3
+TOL_GRAD_OUTLIER_COUNT = 8
+TOL_GRAD_WORST = 0.2
+TOL_GRAD_WORST_SAME_GATE = 0.03
+# K5: the loss is a float32 sum of exact bf16 products in another order; dlg is
+# rounded to bf16 in both versions, dW and db also once more in the plain
+# version's cast (0.0016 RMS)
+TOL_CE = 1e-3
+TOL_CE_GRAD_RMS = 1e-2
+# K6: exact float32 sums of the bf16 dy rows in another order (atomics)
+TOL_EMBED_BWD = 1e-5           # of the table gradient's largest entry
+# kernel-path step against plain-path step, bf16, dropout 0, B=16: the two
+# forward passes differ by summation order amplified through 16 layers, the
+# backward passes also by the six roundings above
+TOL_STEP_LOSS = 2e-2           # each loss term: relative, plus 1e-4 absolute
+TOL_STEP_NORM = 5e-2           # relative, global gradient norm
+TOL_STEP_COSINE = 0.999        # whole gradient, kernel path vs plain path
+TOL_STEP_LEAF_RMS = 0.16       # each leaf's gradient, relative RMS (sound runs read 0.08)
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+FAILED: list = []
+
+
+def check_later(ok: bool, what: str) -> None:
+    """A tolerance check that lets the run go on, so that one run shows every
+    reading; :func:`main` raises at its end if any failed."""
+    if not ok:
+        print(f"CHECK FAILED: {what}", flush=True)
+        FAILED.append(what)
 
 
 def card_line() -> str:
@@ -117,6 +204,10 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def rel_rms(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
 def head_slots(fcn):
     """(offset, width) of the command slot and each argument slot in the
     packed head."""
@@ -159,59 +250,158 @@ def id_agreement(ids, ids_ref, margins_ref, min_margin: float) -> dict:
 
 @contextlib.contextmanager
 def truncated_weights(layer, drop_bits: int):
-    """Clear the low ``drop_bits`` mantissa bits of the layer's four bf16
-    weight matrices (a control: one layer's products in a lower precision)."""
+    """Clear the low ``drop_bits`` mantissa bits that the layer's four weight
+    matrices keep in bfloat16 (a control: one layer's products in a lower
+    precision). The masters are float32; the cut is made on their bfloat16
+    values, which is what the layer reads."""
     mats = [layer.qkv.weight, layer.out_proj.weight, layer.ff1.weight, layer.ff2.weight]
     saved = [w.detach().clone() for w in mats]
-    for w in mats:
-        w.detach().view(torch.int16).bitwise_and_(~((1 << drop_bits) - 1))
+    with torch.no_grad():
+        for w in mats:
+            cut = w.to(torch.bfloat16)
+            cut.view(torch.int16).bitwise_and_(~((1 << drop_bits) - 1))
+            w.copy_(cut.float())
     try:
         yield
     finally:
-        for w, orig in zip(mats, saved):
-            w.detach().copy_(orig)
+        with torch.no_grad():
+            for w, orig in zip(mats, saved):
+                w.copy_(orig)
 
 
 @contextlib.contextmanager
-def plain_path(emb_ops, layer_ops, head_ops):
+def plain_path(emb_ops, layer_ops, head_ops, layer_vjp=None, ce_ops=None):
     """Route the model through the kernels' plain versions, on the card."""
-    saved = emb_ops.fused_embedding, layer_ops.fused_layer, head_ops.fused_head_argmax
-    emb_ops.fused_embedding = emb_ops.embedding_reference
-    layer_ops.fused_layer = layer_ops.layer_reference
-    head_ops.fused_head_argmax = head_ops.head_argmax_reference
+    saved = [(emb_ops, "fused_embedding", emb_ops.embedding_reference),
+             (layer_ops, "fused_layer", layer_ops.layer_reference),
+             (head_ops, "fused_head_argmax", head_ops.head_argmax_reference)]
+    if layer_vjp is not None:
+        saved += [(emb_ops, "fused_embedding_train", emb_ops.embedding_reference),
+                  (layer_vjp, "fused_layer_train", layer_vjp.plain_layer_train),
+                  (ce_ops, "args_ce", ce_ops.plain_args_ce)]
+    saved = [(mod, name, getattr(mod, name), plain) for mod, name, plain in saved]
+    for mod, name, _, plain in saved:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        emb_ops.fused_embedding, layer_ops.fused_layer, head_ops.fused_head_argmax = saved
+        for mod, name, kernel, _ in saved:
+            setattr(mod, name, kernel)
 
 
 def layer_args(layer, x, mask, seq_bias=None, causal=False):
-    return (x, seq_bias, layer.norm1, layer.qkv.weight, layer.qkv.bias,
-            layer.out_proj.weight, layer.out_proj.bias, layer.norm2, layer.ff1.weight,
-            layer.ff1.bias, layer.ff2.weight, layer.ff2.bias, mask, layer.n_heads, causal)
+    """The arguments of ``fused_layer`` for ``layer`` on ``x``: the weights
+    rounded to the compute type, held in ``x``'s type."""
+    return (x, seq_bias, *layer.weights(x.dtype), mask, layer.n_heads, causal)
+
+
+def layer_ops_count(b, s, d, f):
+    """Operations of one layer forward: four products and the attention."""
+    return 2.0 * b * s * (3 * d * d + d * d + 2 * d * f) + 4.0 * b * s * s * d
 
 
 def layer_cost(args):
     x, seq_bias, *weights, mask, n_heads, _ = args
     b, s, d = x.shape
-    f = weights[6].shape[0]
-    ops = 2.0 * b * s * (3 * d * d + d * d + 2 * d * f) + 4.0 * b * s * s * d
-    return bound(2 * nbytes(x) + nbytes(seq_bias, mask, *weights), ops, PEAK_BF16)
+    peak = PEAK_TF32 if x.dtype == torch.float32 else PEAK_BF16
+    return bound(2 * nbytes(x) + nbytes(seq_bias, mask, *weights),
+                 layer_ops_count(b, s, d, weights[6].shape[0]), peak)
+
+
+def compare_grad(name, got, want, same_gate, act_dtype) -> dict:
+    """Hold one gradient to TOL_GRAD_*; return its readings. ``want`` is the
+    plain version's gradient, ``same_gate`` the plain version's with the
+    kernel's ReLU units; ``act_dtype`` the layer's activation type."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    scale = max(want.abs().max().item(), 1e-30)
+    outliers = (diff > TOL_GRAD_ATOL * scale + TOL_GRAD_RTOL * want.abs()).float().mean().item()
+    worst = diff.max().item() / scale
+    rms, rms_gate = rel_rms(got, want), rel_rms(got, same_gate)
+    worst_gate = (got - same_gate.float()).abs().max().item() / scale
+    lim, lim_gate = TOL_GRAD_RMS[act_dtype], TOL_GRAD_RMS_SAME_GATE[act_dtype]
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{name}: shape or non-finite values")
+    allowed = max(TOL_GRAD_OUTLIERS, TOL_GRAD_OUTLIER_COUNT / want.numel())
+    check_later(rms <= lim and rms_gate <= lim_gate and outliers <= allowed
+                and worst <= TOL_GRAD_WORST and worst_gate <= TOL_GRAD_WORST_SAME_GATE,
+                f"{name}: relative RMS err {rms} (limit {lim}), {rms_gate} with the ReLU "
+                f"units aligned (limit {lim_gate}), {outliers} of the elements outside the "
+                f"band (limit {allowed}), the worst off by {worst} of the largest entry "
+                f"(limit {TOL_GRAD_WORST}), {worst_gate} with the units aligned (limit "
+                f"{TOL_GRAD_WORST_SAME_GATE})")
+    return {"rms": rms, "rms_same_gate": rms_gate, "outliers": outliers, "worst": worst,
+            "worst_same_gate": worst_gate, "max_abs_err": diff.max().item()}
+
+
+GRAD_NAMES = ("x", "seq_bias", "ln1", "wqkv", "bqkv", "wo", "bo", "ln2", "w1", "b1", "w2", "b2")
+
+
+def check_layer_train(layer_vjp, what, layer, x, seq_bias, mask, causal, rate, seed=1234):
+    """K4 forward and its twelve gradients against autograd through the plain
+    version with the same hash masks, as it is and with the kernel's ReLU
+    units. Returns the readings."""
+    masters = layer.masters()
+    x = x.detach().requires_grad_()
+    bias = None if seq_bias is None else seq_bias.detach().requires_grad_()
+    g = torch.randn(x.shape, device=x.device).to(x.dtype)
+    leaves = [t for t in (x, bias, *masters) if t is not None]
+    names = [n for n, t in zip(GRAD_NAMES, (x, bias, *masters)) if t is not None]
+    call = (x, bias, *masters, mask, seed, layer.n_heads, causal, rate, layer.compute_dtype)
+    out = layer_vjp.fused_layer_train(*call)
+    gate = layer_vjp.kernel_relu_gate(out)
+    grads = torch.autograd.grad(out, leaves, g)
+    ref = layer_vjp.plain_layer_train(*call)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+    gate_grads = torch.autograd.grad(layer_vjp.plain_layer_train(*call, relu_gate=gate),
+                                     leaves, g)
+    diff = (out.float() - ref.float()).abs()
+    f32 = x.dtype == torch.float32
+    atol, rtol = (TOL_F32_ATOL, TOL_F32_RTOL) if f32 else (TOL_LAYER_ATOL, TOL_LAYER_RTOL)
+    excess = (diff - rtol * ref.float().abs()).max().item()
+    rms = rel_rms(out, ref)
+    check(bool(torch.isfinite(out).all()), f"K4 {what}: non-finite output")
+    check_later(excess <= atol and rms <= TOL_LAYER_RMS,
+          f"K4 {what} forward: an element is off by {excess} beyond {rtol} x |out| "
+          f"(limit {atol}), relative RMS err {rms}")
+    readings = {n: compare_grad(f"K4 {what} d{n}", a, w, wg, x.dtype)
+                for n, a, w, wg in zip(names, grads, ref_grads, gate_grads)}
+    worst = max(readings, key=lambda n: readings[n]["rms"])
+    worst_gate = max(readings, key=lambda n: readings[n]["rms_same_gate"])
+    print(f"K4 {what} rate {rate}: forward max abs err {diff.max().item():.3g}, relative RMS "
+          f"{rms:.3g}; gradients' relative RMS err at most {readings[worst]['rms']:.3g} "
+          f"(d{worst}; limit {TOL_GRAD_RMS[x.dtype]}), with the ReLU units aligned "
+          f"{readings[worst_gate]['rms_same_gate']:.3g} (d{worst_gate}; limit "
+          f"{TOL_GRAD_RMS_SAME_GATE[x.dtype]}); at most "
+          f"{max(r['outliers'] for r in readings.values()):.3g} of a gradient's elements "
+          f"outside the band (limit {TOL_GRAD_OUTLIERS}, or {TOL_GRAD_OUTLIER_COUNT} elements), "
+          f"the worst element off by "
+          f"{max(r['worst'] for r in readings.values()):.3g} of the largest entry "
+          f"(limit {TOL_GRAD_WORST}), with the ReLU units aligned "
+          f"{max(r['worst_same_gate'] for r in readings.values()):.3g} (limit "
+          f"{TOL_GRAD_WORST_SAME_GATE})", flush=True)
+    return {"forward_max_abs_err": diff.max().item(), "forward_rms": rms, "grads": readings}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    import torch.nn.functional as F
+
     from deepsvg_tpu_torch.data import generate_batch
     from deepsvg_tpu_torch.models import gpu_fast, hierarchical_ordered, load_model, one_shot_sample
     from deepsvg_tpu_torch.models.layers import key_padding_to_additive
     from deepsvg_tpu_torch.ops import _build
+    from deepsvg_tpu_torch.ops import ce as ce_ops
     from deepsvg_tpu_torch.ops import embedding as emb_ops
     from deepsvg_tpu_torch.ops import head as head_ops
     from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.ops import layer_vjp
     from deepsvg_tpu_torch.svgtensor import masks as M
     from deepsvg_tpu_torch.svgtensor.constants import CMD_ARGS_MASK, PAD_VAL
+    from deepsvg_tpu_torch.training import (
+        constant, create_train_state, make_optimizer, train_step)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     record: dict = {}
@@ -219,8 +409,29 @@ def main() -> int:
     print(card, flush=True)
     record["card"] = card
     dev = torch.device("cuda")
-    wrappers = {"embedding": emb_ops.fused_embedding, "layer": layer_ops.fused_layer,
-                "head": head_ops.fused_head_argmax}
+    bf16 = torch.bfloat16
+    torch.manual_seed(0)             # every random input of the checks, run after run
+    t_start = time.perf_counter()
+
+    def reset_counts():
+        emb_ops.fused_embedding.launches = 0
+        emb_ops.embedding_backward.launches = 0
+        layer_ops.fused_layer.launches = layer_ops.fused_layer.float32_launches = 0
+        head_ops.fused_head_argmax.launches = 0
+        layer_vjp.fused_layer_train.launches = 0
+        layer_vjp.fused_layer_train.backward_launches = 0
+        ce_ops.args_ce.launches = ce_ops.args_ce.backward_launches = 0
+
+    def read_counts() -> dict:
+        f32 = layer_ops.fused_layer.float32_launches
+        return {"embedding": emb_ops.fused_embedding.launches,
+                "layer": layer_ops.fused_layer.launches - f32, "layer_f32": f32,
+                "head": head_ops.fused_head_argmax.launches,
+                "layer_train_fwd": layer_vjp.fused_layer_train.launches,
+                "layer_train_bwd": layer_vjp.fused_layer_train.backward_launches,
+                "args_ce_fwd": ce_ops.args_ce.launches,
+                "args_ce_bwd": ce_ops.args_ce.backward_launches,
+                "embedding_bwd": emb_ops.embedding_backward.launches}
 
     # ---- build
     t0 = time.perf_counter()
@@ -237,6 +448,8 @@ def main() -> int:
     # ---- model and main-path inputs
     cfg = gpu_fast(hierarchical_ordered())
     model = load_model(CHECKPOINT, cfg, device=dev)
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "the parameters are not float32 masters")
     batch = generate_batch(np.random.default_rng(0), N_MAIN, cfg.max_num_groups,
                            cfg.max_seq_len)
     commands = torch.from_numpy(batch["commands"]).to(dev)
@@ -244,17 +457,29 @@ def main() -> int:
     n, g, s_enc = commands.shape
     cmd_f, args_f = commands.reshape(n * g, s_enc), args.reshape(n * g, s_enc, -1)
     emb = model.encoder.embedding
-    dec = model.decoder
+    enc, dec = model.encoder, model.decoder
     fcn = dec.fcn
+    d_model = cfg.d_model
+    zeros = lambda b, s: torch.zeros((b, s), dtype=torch.float32, device=dev)  # noqa: E731
+    l_e1, l_e2 = enc.encoder.layers[0], enc.hierarchical_encoder.layers[0]
+    l_d1, l_d2 = dec.decoder.layers[0], dec.hierarchical_decoder.layers[0]
+
+    def glob_bias(layer, z):
+        return F.linear(z.to(bf16), layer.glob.weight.to(bf16), layer.glob.bias.to(bf16))
 
     kernels = {}
     with torch.no_grad():
-        arg_tables = emb_ops.fold_arg_tables(emb.arg_embed, emb.embed_fcn.weight,
-                                             emb.embed_fcn.bias, emb.n_args)
-        emb_in = (cmd_f, args_f, None, emb.command_embed, arg_tables, None,
-                  emb.pos_embed[:s_enc])
+        cmd_table, arg_tables, pos_table = emb.tables()
+        emb_in = (cmd_f, args_f, None, cmd_table, arg_tables, None, pos_table[:s_enc])
         x_e1 = emb_ops.fused_embedding(*emb_in)
         key_pad = key_padding_to_additive(M.key_padding_mask(cmd_f))
+        vis = M.visibility_mask(commands)
+        memory = enc.encoder(x_e1, key_pad)
+        pooled = (memory.float() * M.padding_mask(cmd_f)[..., None]).sum(1) \
+            / M.padding_mask(cmd_f).sum(1, keepdim=True).clamp_min(1.0)
+        x_e2 = enc.hierarchical_PE(pooled.reshape(n, g, -1))          # float32
+        check(x_e2.dtype == torch.float32, "E2's input is not float32")
+        mask_e2 = key_padding_to_additive(~vis)
         z = model.encode(commands, args)
         out_d2 = dec.hierarchical_decoder(dec.hierarchical_embedding(n), z)
         _, z_groups = dec.hierarchical_fcn(out_d2)
@@ -272,9 +497,9 @@ def main() -> int:
         small_c, small_a = cmd_f[:4].clone(), args_f[:4].clone()
         small_c[0, 3], small_a[1, 2, 4], small_a[2, 5, 0] = 9, 300.0, -3.0
         groups = M.group_mask(small_c)
-        group_table = torch.randn(12, emb.command_embed.shape[1], device=dev).to(torch.bfloat16)
-        small = (small_c, small_a, groups, emb.command_embed, arg_tables, group_table,
-                 emb.pos_embed[:s_enc], True)
+        group_table = torch.randn(12, d_model, device=dev).to(bf16)
+        small = (small_c, small_a, groups, cmd_table, arg_tables, group_table,
+                 pos_table[:s_enc], True)
         err_small = (emb_ops.fused_embedding(*small).float()
                      - emb_ops.embedding_reference(*small).float()).abs().max().item()
         check(err_small <= TOL_EMBED, f"embedding (groups, bad ids) err {err_small}")
@@ -283,24 +508,19 @@ def main() -> int:
         kernels["embedding"] = {"max_abs_err": max(err, err_small), "tolerance": TOL_EMBED}
 
         # ---- K2: kernel vs plain at the main path's shapes
-        l_e1, l_d1, l_d2 = (model.encoder.encoder.layers[0], dec.decoder.layers[0],
-                            dec.hierarchical_decoder.layers[0])
         mask_e1 = key_pad.clone()
         mask_e1[0] = float("-inf")                       # one fully masked sequence
-        zeros = lambda b, s: torch.zeros((b, s), dtype=torch.float32, device=dev)  # noqa: E731
-        bias_d1 = torch.nn.functional.linear(zb, l_d1.glob.weight, l_d1.glob.bias)
-        bias_d2 = torch.nn.functional.linear(z, l_d2.glob.weight, l_d2.glob.bias)
-        x_causal = torch.randn(64, 31, x_d1.shape[-1], device=dev).to(torch.bfloat16)
-        x_e2 = torch.randn(n, 8, x_d1.shape[-1], device=dev).to(torch.bfloat16)
-        mask_e2 = torch.where(torch.rand(n, 8, device=dev) < 0.3, float("-inf"), 0.0)
-        mask_e2[:, 0], mask_e2[0] = 0.0, float("-inf")   # the first sequence fully masked
+        bias_d1, bias_d2 = glob_bias(l_d1, zb), glob_bias(l_d2, z)
+        x_causal = torch.randn(64, 31, d_model, device=dev).to(bf16)
+        x_rand8 = torch.randn(n, 8, d_model, device=dev).to(bf16)
+        mask_rand8 = torch.where(torch.rand(n, 8, device=dev) < 0.3, float("-inf"), 0.0)
+        mask_rand8[:, 0], mask_rand8[0] = 0.0, float("-inf")   # the first sequence fully masked
         layer_cases = {
             "E1 encoder S=32, key pad": layer_args(l_e1, x_e1, mask_e1),
             "D1 decoder S=31, seq_bias": layer_args(l_d1, x_d1, zeros(n * g, 31), bias_d1),
             "D2 decoder S=8, seq_bias": layer_args(l_d2, dec.hierarchical_embedding(n),
                                                    zeros(n, 8), bias_d2),
-            "E2 encoder S=8, random x, key pad": layer_args(
-                model.encoder.hierarchical_encoder.layers[0], x_e2, mask_e2),
+            "encoder S=8, random x, key pad": layer_args(l_e2, x_rand8, mask_rand8),
             "causal S=31": layer_args(l_d1, x_causal, zeros(64, 31), bias_d1[:64], True),
         }
         layer_err = 0.0
@@ -324,6 +544,35 @@ def main() -> int:
         kernels["layer"] = {"max_abs_err": layer_err, "atol_needed": layer_atol,
                             "tolerance": {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL,
                                           "rms": TOL_LAYER_RMS}}
+
+        # ---- K2, float32 form: E2 on the float32 pooled E1 output, and a
+        # fully masked sequence, a seq_bias and S=31 causal beside it
+        mask_e2m = mask_e2.clone()
+        mask_e2m[0] = float("-inf")
+        f32_cases = {
+            "E2 encoder S=8, key pad": layer_args(l_e2, x_e2, mask_e2m),
+            "S=31 causal, seq_bias": layer_args(l_d1, x_causal.float() * 1.001, zeros(64, 31),
+                                                bias_d1[:64].float(), True),
+        }
+        f32_err, f32_excess = 0.0, 0.0
+        for what, la in f32_cases.items():
+            out_k = layer_ops.fused_layer(*la)
+            out_p = layer_ops.layer_reference(*la)
+            diff = (out_k - out_p).abs()
+            excess = (diff - TOL_F32_RTOL * out_p.abs()).max().item()
+            rms = rel_rms(out_k, out_p)
+            check(out_k.dtype == torch.float32 and bool(torch.isfinite(out_k).all()),
+                  f"float32 layer {what}: dtype or non-finite output")
+            check(excess <= TOL_F32_ATOL and rms <= TOL_LAYER_RMS,
+                  f"float32 layer {what}: an element is off by {excess} beyond "
+                  f"{TOL_F32_RTOL} x |out|, relative RMS err {rms}")
+            f32_err, f32_excess = max(f32_err, diff.max().item()), max(f32_excess, excess)
+            print(f"K2 float32 layer {what}: max abs err {diff.max().item():.3g}; largest "
+                  f"excess over {TOL_F32_RTOL} x |out| {excess:.3g} (limit {TOL_F32_ATOL}); "
+                  f"relative RMS err {rms:.3g} (limit {TOL_LAYER_RMS})", flush=True)
+        kernels["layer_f32"] = {"max_abs_err": f32_err, "atol_needed": f32_excess,
+                                "tolerance": {"atol": TOL_F32_ATOL, "rtol": TOL_F32_RTOL,
+                                              "rms": TOL_LAYER_RMS}}
 
         # ---- K3: kernel vs plain at D1 output shapes
         head_in = (x_head, fcn.w_packed, fcn.b_packed, fcn.n_commands, fcn.n_args,
@@ -351,16 +600,17 @@ def main() -> int:
                            "ids_differing": mismatches, "rows": x_head.shape[0]}
         torch.cuda.synchronize()
 
-        # ---- the slice: one run of the main path, counted
-        for w in wrappers.values():
-            w.launches = 0
+        # ---- the inference path: one run, counted
+        reset_counts()
         torch.cuda.reset_peak_memory_stats()
         out_c, out_a = one_shot_sample(model, commands, args)
         torch.cuda.synchronize()
-        launches = {k: w.launches for k, w in wrappers.items()}
-        print(f"main path N={N_MAIN}: launches {launches}", flush=True)
-        check(launches == {"embedding": 1, "layer": 16, "head": 1},
-              f"launches per forward {launches}, expected embedding 1, layer 16, head 1")
+        launches = read_counts()
+        print(f"inference path N={N_MAIN}: launches {launches}", flush=True)
+        check(launches == dict.fromkeys(launches, 0) | {"embedding": 1, "layer": 12,
+                                                        "layer_f32": 4, "head": 1},
+              f"launches per forward {launches}, expected embedding 1, layer 12 bfloat16 + 4 "
+              f"float32, head 1, and no training kernel")
         record["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
         check(tuple(out_c.shape) == (N_MAIN, 8, 31) and tuple(out_a.shape) == (N_MAIN, 8, 31, 11),
               f"output shapes {tuple(out_c.shape)}, {tuple(out_a.shape)}")
@@ -385,7 +635,7 @@ def main() -> int:
         with plain_path(emb_ops, layer_ops, head_ops):
             ids_p, margins_p, res_p = head_ids_and_margins(model, c64, a64)
             sample_p = one_shot_sample(model, c64, a64)
-            with truncated_weights(model.encoder.encoder.layers[0], CONTROL_DROP_BITS):
+            with truncated_weights(l_e1, CONTROL_DROP_BITS):
                 ids_c, _, _ = head_ids_and_margins(model, c64, a64)
         agree = id_agreement(ids_k, ids_p, margins_p, AGREE_MARGIN)
         control = id_agreement(ids_c, ids_p, margins_p, AGREE_MARGIN)
@@ -411,17 +661,17 @@ def main() -> int:
                                "control": control, "every_id": every_id,
                                "sampled": sampled, "visibility_max_abs_err": vis_err}
 
-        # ---- timing at the main path's shapes
+        # ---- timing at the inference path's shapes
         yardstick = {}
         # K1, and one embedding_bag call over the same rows of one stacked table
-        n_cmd, vocab = emb.command_embed.shape[0], arg_tables.shape[0] // emb.n_args
-        table_all = torch.cat([emb.command_embed, arg_tables, emb.pos_embed[:s_enc]])
+        n_cmd, vocab = cmd_table.shape[0], arg_tables.shape[0] // emb.n_args
+        table_all = torch.cat([cmd_table, arg_tables, pos_table[:s_enc]])
         idx = torch.cat([
             cmd_f.long()[..., None],
             n_cmd + vocab * torch.arange(emb.n_args, device=dev) + args_f.long() + 1,
             (n_cmd + vocab * emb.n_args + torch.arange(s_enc, device=dev))
             .expand(cmd_f.shape)[..., None]], dim=-1).reshape(-1, 2 + emb.n_args)
-        bag = lambda: torch.nn.functional.embedding_bag(idx, table_all, mode="sum")  # noqa: E731
+        bag = lambda: F.embedding_bag(idx, table_all, mode="sum")  # noqa: E731
         yardstick["embedding"] = (bag().float().reshape(x_e1.shape)
                                   - x_e1.float()).abs().max().item()
         rows = cmd_f.numel()
@@ -429,17 +679,17 @@ def main() -> int:
             ms=cuda_ms(lambda: emb_ops.fused_embedding(*emb_in)),
             plain_ms=cuda_ms(lambda: emb_ops.embedding_reference(*emb_in)),
             library_ms=cuda_ms(bag))
-        b_ms, b_by = bound(nbytes(cmd_f, args_f, emb.command_embed, arg_tables,
-                                  emb.pos_embed[:s_enc], x_e1),
+        b_ms, b_by = bound(nbytes(cmd_f, args_f, cmd_table, arg_tables, pos_table[:s_enc], x_e1),
                            rows * x_e1.shape[-1] * (1.0 + emb.n_args), PEAK_F32)
         kernels["embedding"].update(bound_ms=b_ms, bound_by=b_by)
+        del idx, table_all
 
-        # K2 at each stage's shapes; the E1 layer is the kernel's row, with
-        # torch.nn.TransformerEncoderLayer (same function, no seq_bias) as yardstick
+        # K2 at each stage's shapes; the E1 layer is the bfloat16 kernel's row,
+        # with torch.nn.TransformerEncoderLayer (same function, no seq_bias) as
+        # yardstick; the E2 layer is the float32 form's row
         stages = {
             "E1": (layer_args(l_e1, x_e1, key_pad), 4),
-            "E2": (layer_args(model.encoder.hierarchical_encoder.layers[0],
-                              dec.hierarchical_embedding(n), zeros(n, 8)), 4),
+            "E2 (float32)": (layer_args(l_e2, x_e2, mask_e2), 4),
             "D2": (layer_cases["D2 decoder S=8, seq_bias"], 4),
             "D1": (layer_cases["D1 decoder S=31, seq_bias"], 4),
         }
@@ -451,20 +701,25 @@ def main() -> int:
                 "ms": cuda_ms(lambda la=la: layer_ops.fused_layer(*la)),
                 "plain_ms": cuda_ms(lambda la=la: layer_ops.layer_reference(*la)),
                 "bound_ms": b_ms, "bound_by": b_by}
-        lib = torch.nn.TransformerEncoderLayer(
-            l_e1.qkv.in_features, l_e1.n_heads, l_e1.ff1.out_features, dropout=0.0,
-            activation="relu", batch_first=True, norm_first=True, device=dev,
-            dtype=torch.bfloat16).eval()
-        lib.self_attn.in_proj_weight.copy_(l_e1.qkv.weight)
-        lib.self_attn.in_proj_bias.copy_(l_e1.qkv.bias)
-        lib.self_attn.out_proj.weight.copy_(l_e1.out_proj.weight)
-        lib.self_attn.out_proj.bias.copy_(l_e1.out_proj.bias)
-        for dst, src in ((lib.linear1, l_e1.ff1), (lib.linear2, l_e1.ff2)):
-            dst.weight.copy_(src.weight)
-            dst.bias.copy_(src.bias)
-        for dst, src in ((lib.norm1, l_e1.norm1), (lib.norm2, l_e1.norm2)):
-            dst.weight.copy_(src[0])
-            dst.bias.copy_(src[1])
+
+        def library_layer(layer, dtype, train=False):
+            lib = torch.nn.TransformerEncoderLayer(
+                layer.qkv.in_features, layer.n_heads, layer.ff1.out_features, dropout=0.0,
+                activation="relu", batch_first=True, norm_first=True, device=dev, dtype=dtype)
+            with torch.no_grad():
+                lib.self_attn.in_proj_weight.copy_(layer.qkv.weight)
+                lib.self_attn.in_proj_bias.copy_(layer.qkv.bias)
+                lib.self_attn.out_proj.weight.copy_(layer.out_proj.weight)
+                lib.self_attn.out_proj.bias.copy_(layer.out_proj.bias)
+                for dst, src in ((lib.linear1, layer.ff1), (lib.linear2, layer.ff2)):
+                    dst.weight.copy_(src.weight)
+                    dst.bias.copy_(src.bias)
+                for dst, src in ((lib.norm1, layer.norm1), (lib.norm2, layer.norm2)):
+                    dst.weight.copy_(src[0])
+                    dst.bias.copy_(src[1])
+            return lib.train() if train else lib.eval()
+
+        lib = library_layer(l_e1, bf16)
         pad_bool = M.key_padding_mask(cmd_f)
         lib_run = lambda: lib(x_e1, src_key_padding_mask=pad_bool)  # noqa: E731
         valid = ~pad_bool
@@ -474,6 +729,15 @@ def main() -> int:
         kernels["layer"].update(ms=e1["ms"], plain_ms=e1["plain_ms"],
                                 library_ms=cuda_ms(lib_run), bound_ms=e1["bound_ms"],
                                 bound_by=e1["bound_by"], stages=per_stage)
+        lib32 = library_layer(l_e2, torch.float32)
+        pad_e2 = ~vis
+        lib32_run = lambda: lib32(x_e2, src_key_padding_mask=pad_e2)  # noqa: E731
+        yardstick["layer_f32"] = ((lib32_run() - layer_ops.fused_layer(
+            *stages["E2 (float32)"][0])).abs()[vis].max().item())
+        e2 = per_stage["E2 (float32)"]
+        kernels["layer_f32"].update(ms=e2["ms"], plain_ms=e2["plain_ms"],
+                                    library_ms=cuda_ms(lib32_run), bound_ms=e2["bound_ms"],
+                                    bound_by=e2["bound_by"])
 
         # K3
         r, d = x_head.shape
@@ -484,10 +748,8 @@ def main() -> int:
             ms=cuda_ms(lambda: head_ops.fused_head_argmax(*head_in)),
             plain_ms=cuda_ms(lambda: head_ops.head_argmax_reference(*head_in), iters=5),
             library_ms=None, bound_ms=b_ms, bound_by=b_by)
-        print(f"yardstick agreement (max abs diff vs the kernel): {yardstick}", flush=True)
-        record["yardstick_max_abs_diff"] = yardstick
 
-        # the slice, end to end
+        # the inference path, end to end
         slice_ms = cuda_median_ms(lambda: one_shot_sample(model, commands, args))
         with plain_path(emb_ops, layer_ops, head_ops):
             plain_slice_ms = cuda_median_ms(lambda: one_shot_sample(model, commands, args),
@@ -503,21 +765,413 @@ def main() -> int:
         print(f"  layer {stage} B={st['B']} S={st['S']}: {st['ms']:.4f} ms (plain "
               f"{st['plain_ms']:.4f}, bound {st['bound_ms']:.4f} by {st['bound_by']}) x "
               f"{st['launches_per_forward']} per forward")
+    record["inference_launches"] = launches
+    record["inference_s"] = time.perf_counter() - t_start
+    del x_e1, memory, pooled, x_d1, y_d1, x_head, out_d2, zb, z_groups, layer_cases, stages
+    del bias_d1, out_k, out_p, diff, ids_k, ids_p
+    torch.cuda.empty_cache()
 
-    source = {"embedding": ("embedding.cu", "deepsvg_tpu/ops/embedding.py:34"),
-              "layer": ("layer.cu", "deepsvg_tpu/ops/layer.py:108"),
-              "head": ("head.cu", "deepsvg_tpu/ops/head.py:32")}
+    # =================================================================== training
+    tb = generate_batch(np.random.default_rng(0), B_TRAIN, cfg.max_num_groups, cfg.max_seq_len)
+    t_commands = torch.from_numpy(tb["commands"]).to(dev)
+    t_args = torch.from_numpy(tb["args"]).to(dev)
+    nb = B_TRAIN * g                                           # sequences of E1 and D1
+    tc_f, ta_f = t_commands.reshape(nb, s_enc), t_args.reshape(nb, s_enc, -1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    randn = lambda *shape: torch.randn(shape, device=dev, generator=gen)  # noqa: E731
+
+    # ---- K4 against its plain version at the four stacks' shapes (B=128)
+    with torch.no_grad():
+        xt_e1 = emb_ops.fused_embedding(tc_f, ta_f, None, cmd_table, arg_tables, None,
+                                        pos_table[:s_enc])
+        kp_e1 = key_padding_to_additive(M.key_padding_mask(tc_f))
+        kp_e1[0] = float("-inf")                               # one fully masked sequence
+        t_vis = M.visibility_mask(t_commands)
+        kp_e2 = key_padding_to_additive(~t_vis)
+        kp_e2[0] = float("-inf")
+        xt_e2 = enc.hierarchical_PE(randn(B_TRAIN, g, d_model))          # float32
+        xt_d1, xt_d2 = dec.embedding(nb), dec.hierarchical_embedding(B_TRAIN)
+        sb_d1 = glob_bias(l_d1, 0.5 * randn(nb, cfg.dim_z))
+        sb_d2 = glob_bias(l_d2, 0.5 * randn(B_TRAIN, cfg.dim_z))
+    train_cases = {
+        "E1 S=32 key pad": (l_e1, xt_e1, None, kp_e1, False),
+        "D1 S=31 seq_bias": (l_d1, xt_d1, sb_d1, zeros(nb, 31), False),
+        "E2 S=8 float32 key pad": (l_e2, xt_e2, None, kp_e2, False),
+        "D2 S=8 seq_bias": (l_d2, xt_d2, sb_d2, zeros(B_TRAIN, 8), False),
+    }
+    k4 = {}
+    for what, (layer, x, sb, mask, causal) in train_cases.items():
+        for rate in (0.0, DROPOUT):
+            k4[f"{what} rate {rate}"] = check_layer_train(layer_vjp, what, layer, x, sb, mask,
+                                                          causal, rate)
+    k4["causal S=31 rate 0.1"] = check_layer_train(
+        layer_vjp, "causal S=31 seq_bias", l_d1, randn(64, 31, d_model).to(bf16), sb_d1[:64],
+        zeros(64, 31), True, DROPOUT)
+    # a fully masked sequence: zero attention output forward, and the rows'
+    # gradient is the residual's alone (checked through the comparisons above,
+    # which include sequence 0 of E1 and E2); here, that it stays finite
+    kernels["layer_train_fwd"] = {
+        "max_abs_err": max(v["forward_max_abs_err"] for v in k4.values()),
+        "tolerance": {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL, "rms": TOL_LAYER_RMS}}
+    kernels["layer_train_bwd"] = {
+        "max_abs_err": max(r["max_abs_err"] for v in k4.values() for r in v["grads"].values()),
+        "max_rms": max(r["rms"] for v in k4.values() for r in v["grads"].values()),
+        "max_rms_same_gate": max(r["rms_same_gate"] for v in k4.values()
+                                 for r in v["grads"].values()),
+        "max_outliers": max(r["outliers"] for v in k4.values() for r in v["grads"].values()),
+        "max_worst": max(r["worst"] for v in k4.values() for r in v["grads"].values()),
+        "tolerance": {"rms": {str(k): v for k, v in TOL_GRAD_RMS.items()},
+                      "rms_same_gate": {str(k): v for k, v in TOL_GRAD_RMS_SAME_GATE.items()},
+                      "atol_of_max": TOL_GRAD_ATOL, "rtol": TOL_GRAD_RTOL,
+                      "outliers": TOL_GRAD_OUTLIERS, "worst_of_max": TOL_GRAD_WORST,
+                      "worst_of_max_same_gate": TOL_GRAD_WORST_SAME_GATE}}
+    record["layer_train_cases"] = k4
+
+    # ---- K5 against its plain version at the training path's shape
+    r_ce = nb * 31
+    wa, ba = fcn.args_fcn.weight, fcn.args_fcn.bias
+    y_ce = randn(r_ce, d_model).to(bf16).requires_grad_()
+    tgt_ce = (t_args[..., 1:, :] + 1).to(torch.int32).reshape(r_ce, -1)
+    g_ce = (torch.rand(r_ce, fcn.n_args, device=dev, generator=gen) / r_ce)
+    ce_k = ce_ops.args_ce(y_ce, wa, ba, tgt_ce, bf16)
+    grads_k = torch.autograd.grad(ce_k, [y_ce, wa, ba], g_ce)
+    ce_p = ce_ops.plain_args_ce(y_ce, wa, ba, tgt_ce, bf16)
+    grads_p = torch.autograd.grad(ce_p, [y_ce, wa, ba], g_ce)
+    ce_err = (ce_k - ce_p).abs().max().item()
+    check(tuple(ce_k.shape) == (r_ce, fcn.n_args) and ce_err <= TOL_CE,
+          f"K5 cross-entropy max abs err {ce_err} > {TOL_CE}")
+    ce_rms = {}
+    for name, a, w in zip(("dy", "dWa", "dba"), grads_k, grads_p):
+        ce_rms[name] = rel_rms(a, w)
+        check_later(a.shape == w.shape and bool(torch.isfinite(a).all())
+                    and ce_rms[name] <= TOL_CE_GRAD_RMS,
+              f"K5 {name}: relative RMS err {ce_rms[name]} > {TOL_CE_GRAD_RMS}")
+    ce_grad_err = max((a.float() - w.float()).abs().max().item()
+                      for a, w in zip(grads_k, grads_p))
+    print(f"K5 args_ce R={r_ce}: ce max abs err {ce_err:.3g} (limit {TOL_CE}); gradients' "
+          f"relative RMS err {ce_rms} (limit {TOL_CE_GRAD_RMS})", flush=True)
+    kernels["args_ce_fwd"] = {"max_abs_err": ce_err, "tolerance": TOL_CE}
+    kernels["args_ce_bwd"] = {"max_abs_err": ce_grad_err, "rms": ce_rms,
+                              "tolerance": TOL_CE_GRAD_RMS}
+    del ce_p, grads_p, grads_k, ce_k
+
+    # ---- K6 against its plain version: the batch's tokens (mostly PAD
+    # arguments), then groups and out-of-range ids
+    def check_embedding_bwd(what, c, a, grp, use_group):
+        tables = [t.float().requires_grad_() for t in
+                  (cmd_table, arg_tables, torch.zeros(12, d_model, device=dev),
+                   pos_table[:c.shape[1]])]
+        dy = randn(*c.shape, d_model).to(bf16)
+        got = emb_ops.embedding_backward(c, a, grp, dy, n_cmd, vocab, 12, use_group)
+        ref = emb_ops.embedding_reference(c, a, grp, tables[0], tables[1], tables[2],
+                                          tables[3], use_group)
+        want = torch.autograd.grad(ref, tables, dy.float(), allow_unused=True)
+        worst, err_abs = 0.0, 0.0
+        for name, a_, w_ in zip(("dcmd", "darg", "dgroup", "dpos"), got, want):
+            if w_ is None:
+                check(not bool(a_.any()), f"K6 {what} {name}: not zero without groups")
+                continue
+            err = (a_ - w_).abs().max().item()
+            worst = max(worst, err / max(w_.abs().max().item(), 1e-30))
+            err_abs = max(err_abs, err)
+        check_later(worst <= TOL_EMBED_BWD,
+                    f"K6 {what}: err {worst} of the largest entry > {TOL_EMBED_BWD}")
+        return worst, err_abs
+
+    pad_share = (ta_f < 0).float().mean().item()
+    k6_main = check_embedding_bwd("B=128", tc_f, ta_f, None, False)
+    bad_c, bad_a = tc_f[:8].clone(), ta_f[:8].clone()
+    bad_c[0, 3], bad_a[1, 2, 4], bad_a[2, 5, 0] = 9, 300.0, -3.0
+    bad_g = M.group_mask(bad_c)
+    bad_g[3, 5] = 12
+    k6_small = check_embedding_bwd("groups, out-of-range ids", bad_c, bad_a, bad_g, True)
+    print(f"K6 embedding backward: largest err {k6_main[0]:.3g} of the table gradient's "
+          f"largest entry at B={B_TRAIN} ({pad_share:.3f} of the arguments are PAD), "
+          f"{k6_small[0]:.3g} with groups and out-of-range ids (limit {TOL_EMBED_BWD})",
+          flush=True)
+    kernels["embedding_bwd"] = {"max_abs_err": max(k6_main[1], k6_small[1]),
+                                "tolerance": TOL_EMBED_BWD}
+
+    # ---- (a) one step, kernel path against plain path, B=16, dropout 0
+    def new_state(dropout):
+        m = load_model(CHECKPOINT, dataclasses.replace(cfg, dropout=dropout), device=dev)
+        optimizer = make_optimizer(constant(LR))
+        return create_train_state(m, optimizer, init=False), optimizer
+
+    def batch_of(b):
+        return {"commands": t_commands[:b], "args": t_args[:b]}
+
+    def one_step(dropout, b):
+        state, optimizer = new_state(dropout)
+        state, res = train_step(state, batch_of(b), LOSS_WEIGHTS, optimizer, MODEL_ARGS)
+        names = [k for k, _ in state.model.named_parameters()]
+        return res, dict(zip(names, [p.grad.detach().clone() for p in state.parameters()]))
+
+    res_k, grads_k = one_step(0.0, B_STEP_CHECK)
+    with plain_path(emb_ops, layer_ops, head_ops, layer_vjp, ce_ops):
+        res_p, grads_p = one_step(0.0, B_STEP_CHECK)
+    step_cmp = {}
+    for k in ("loss", "loss_visibility", "loss_cmd", "loss_args"):
+        a, b_ = float(res_k[k]), float(res_p[k])
+        step_cmp[k] = (a, b_)
+        check_later(np.isfinite(a) and abs(a - b_) <= TOL_STEP_LOSS * abs(b_) + 1e-4,
+              f"step {k}: kernel path {a}, plain path {b_}")
+    norm_k, norm_p = float(res_k["grad_norm"]), float(res_p["grad_norm"])
+    check_later(abs(norm_k - norm_p) <= TOL_STEP_NORM * norm_p,
+          f"step grad_norm: kernel path {norm_k}, plain path {norm_p}")
+    leaf_rms = {k: rel_rms(grads_k[k], grads_p[k]) for k in grads_p}
+    flat_k = torch.cat([grads_k[k].flatten() for k in grads_p]).double()
+    flat_p = torch.cat([grads_p[k].flatten() for k in grads_p]).double()
+    cosine = float(flat_k @ flat_p / flat_k.norm() / flat_p.norm())
+    worst_leaf = max(leaf_rms, key=leaf_rms.get)
+    check(len(leaf_rms) == 210 and all(np.isfinite(v) for v in leaf_rms.values()),
+          "a leaf's gradient is missing or not finite")
+    check_later(cosine >= TOL_STEP_COSINE and leaf_rms[worst_leaf] <= TOL_STEP_LEAF_RMS,
+          f"step gradients: cosine {cosine} (limit {TOL_STEP_COSINE}), worst leaf "
+          f"{worst_leaf} relative RMS err {leaf_rms[worst_leaf]} (limit {TOL_STEP_LEAF_RMS})")
+    print(f"one step B={B_STEP_CHECK} dropout 0, kernel path vs plain path: losses (kernel, "
+          f"plain) {step_cmp}; grad norm {norm_k:.5g} vs {norm_p:.5g}; whole-gradient cosine "
+          f"{cosine:.6f}; per-leaf relative RMS err median "
+          f"{statistics.median(leaf_rms.values()):.3g}, worst {leaf_rms[worst_leaf]:.3g} "
+          f"({worst_leaf}) over {len(leaf_rms)} leaves", flush=True)
+    record["step_vs_plain"] = {"losses": step_cmp, "grad_norm": (norm_k, norm_p),
+                               "cosine": cosine, "leaf_rms_worst": leaf_rms[worst_leaf],
+                               "leaf_rms_worst_leaf": worst_leaf,
+                               "leaf_rms_median": statistics.median(leaf_rms.values())}
+    del grads_k, grads_p, flat_k, flat_p
+    torch.cuda.empty_cache()
+
+    # ---- (b), (c), (d): the training path at B=128, dropout 0.1
+    state, optimizer = new_state(DROPOUT)
+    full = batch_of(B_TRAIN)
+    before = [p.detach().clone() for p in state.parameters()]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    events, losses = [], []
+    for i in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, res = train_step(state, full, LOSS_WEIGHTS, optimizer, MODEL_ARGS)
+        end.record()
+        events.append((start, end))
+        losses.append(res)
+        if i == 0:
+            torch.cuda.synchronize()
+            train_launches = read_counts()
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"training path B={B_TRAIN}: launches in one step {train_launches}", flush=True)
+    check(train_launches == {"embedding": 1, "layer": 0, "layer_f32": 0, "head": 0,
+                             "layer_train_fwd": 16, "layer_train_bwd": 16, "args_ce_fwd": 1,
+                             "args_ce_bwd": 1, "embedding_bwd": 1},
+          f"launches per training step {train_launches}, expected embedding 1, layer_train "
+          f"16 forward and 16 backward, args_ce 1 and 1, embedding_bwd 1, no inference kernel")
+    loss_values = [float(r["loss"]) for r in losses]
+    check(all(np.isfinite(float(v)) for r in losses for v in r.values()),
+          f"a training loss or gradient norm is not finite: {loss_values}")
+    check(loss_values[-1] < loss_values[0],
+          f"the loss did not fall over {TRAIN_STEPS} steps on one batch: {loss_values}")
+    moved = sum(not torch.equal(p, old) for p, old in zip(state.parameters(), before))
+    check(moved == 210 and state.step == TRAIN_STEPS
+          and all(p.dtype == torch.float32 for p in state.parameters()),
+          f"{moved} of 210 leaves moved; step {state.step}")
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in events[3:])
+    record["train"] = {"B": B_TRAIN, "steps": TRAIN_STEPS, "losses": loss_values,
+                       "grad_norms": [float(r["grad_norm"]) for r in losses],
+                       "median_ms_per_step": step_ms, "samples_per_s": B_TRAIN / step_ms * 1e3,
+                       "peak_memory_gib": train_peak, "launches_per_step": train_launches}
+    print(f"training B={B_TRAIN} dropout {DROPOUT} bf16, lr {LR}: loss {loss_values[0]:.4f} -> "
+          f"{loss_values[-1]:.4f} over {TRAIN_STEPS} steps on one batch, all finite; "
+          f"{step_ms:.3f} ms/step median of {TRAIN_STEPS - 3}, {B_TRAIN / step_ms * 1e3:.1f} "
+          f"samples/s, peak memory {train_peak:.2f} GiB on {card}", flush=True)
+    del state, before, losses
+    torch.cuda.empty_cache()
+
+    # ---- timing at the training path's shapes
+    def k4_runs(layer, x, sb, mask, plain=False):
+        fn = layer_vjp.plain_layer_train if plain else layer_vjp.fused_layer_train
+        x = x.detach().requires_grad_()
+        gy = torch.randn(x.shape, device=dev).to(x.dtype)
+        call = (x, sb, *layer.masters(), mask, 7, layer.n_heads, False, DROPOUT,
+                layer.compute_dtype)
+        leaves = [x, *layer.masters()]
+
+        def fwd():
+            with torch.no_grad():
+                return fn(*call)
+
+        def both():
+            return torch.autograd.grad(fn(*call), leaves, gy)
+        return fwd, both
+
+    def k4_bound(x, sb, f, backward):
+        """The bound of the function, not of this implementation: x, the
+        mask, the injection and the weights as the kernel reads them in,
+        out (forward) or g in and dx, dseq_bias and the float32 weight
+        gradients out (backward). What the forward keeps for the backward
+        is a choice of the kernel and is reported apart."""
+        b, s, d = x.shape
+        rows, es = b * s, x.element_size()
+        peak = PEAK_TF32 if x.dtype == torch.float32 else PEAK_BF16
+        w_elems = 4 * d * d + 2 * d * f + 9 * d + f
+        common = rows * d * es + b * s * 4 + w_elems * es
+        sb_elems = 0 if sb is None else b * d
+        if not backward:
+            return bound(common + rows * d * es + sb_elems * es, layer_ops_count(b, s, d, f),
+                         peak)
+        ops = 2 * (layer_ops_count(b, s, d, f) - 4.0 * b * s * s * d) + 8.0 * b * s * s * d
+        return bound(common + 2 * rows * d * es + w_elems * 4 + sb_elems * 4, ops, peak)
+
+    def k4_saved_bytes(x, f):
+        b, s, d = x.shape
+        rows, es = b * s, x.element_size()
+        return rows * (3 * d + d + f) * es + b * (d // 32) * s * s * es + rows * d * 4
+
+    train_stages = {}
+    for what, (layer, x, sb, mask, _) in train_cases.items():
+        fwd, both = k4_runs(layer, x, sb, mask)
+        pfwd, pboth = k4_runs(layer, x, sb, mask, plain=True)
+        f_ms, fb_ms = cuda_ms(fwd), cuda_ms(both)
+        pf_ms, pfb_ms = cuda_ms(pfwd, iters=5, warmup=1), cuda_ms(pboth, iters=5, warmup=1)
+        ffn = layer.ff1.out_features
+        bf_ms, bf_by = k4_bound(x, sb, ffn, False)
+        bb_ms, bb_by = k4_bound(x, sb, ffn, True)
+        saved = k4_saved_bytes(x, ffn)
+        train_stages[what] = {
+            "B": x.shape[0], "S": x.shape[1], "launches_per_step": 4,
+            "fwd_ms": f_ms, "bwd_ms": fb_ms - f_ms, "plain_fwd_ms": pf_ms,
+            "plain_bwd_ms": pfb_ms - pf_ms, "fwd_bound_ms": bf_ms, "fwd_bound_by": bf_by,
+            "bwd_bound_ms": bb_ms, "bwd_bound_by": bb_by, "saved_bytes": saved}
+    # the yardstick: torch.nn.TransformerEncoderLayer, training mode at rate 0
+    # (its dropout is not this one), forward and backward on the E1 inputs
+    lib_t = library_layer(l_e1, bf16, train=True)
+    x_lib = xt_e1.detach().requires_grad_()
+    g_lib = torch.randn_like(x_lib)
+    pad_t = M.key_padding_mask(tc_f)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return lib_t(x_lib, src_key_padding_mask=pad_t)
+
+    def lib_both():
+        return torch.autograd.grad(lib_t(x_lib, src_key_padding_mask=pad_t),
+                                   [x_lib, *lib_t.parameters()], g_lib)
+    lib_f_ms, lib_fb_ms = cuda_ms(lib_fwd), cuda_ms(lib_both)
+    e1t = train_stages["E1 S=32 key pad"]
+    kernels["layer_train_fwd"].update(
+        ms=e1t["fwd_ms"], plain_ms=e1t["plain_fwd_ms"], library_ms=lib_f_ms,
+        bound_ms=e1t["fwd_bound_ms"], bound_by=e1t["fwd_bound_by"], stages=train_stages)
+    kernels["layer_train_bwd"].update(
+        ms=e1t["bwd_ms"], plain_ms=e1t["plain_bwd_ms"], library_ms=lib_fb_ms - lib_f_ms,
+        bound_ms=e1t["bwd_bound_ms"], bound_by=e1t["bwd_bound_by"])
+
+    # K5, and F.linear + F.cross_entropy as its yardstick
+    n_cls = fcn.n_args * fcn.args_dim
+    tgt_lib = tgt_ce.long().reshape(-1)
+
+    def ce_runs(fn):
+        def fwd():
+            with torch.no_grad():
+                return fn(y_ce, wa, ba, tgt_ce, bf16)
+
+        def both():
+            return torch.autograd.grad(fn(y_ce, wa, ba, tgt_ce, bf16), [y_ce, wa, ba], g_ce)
+        return fwd, both
+
+    wa16, ba16 = wa.detach().to(bf16).requires_grad_(), ba.detach().to(bf16).requires_grad_()
+
+    def lib_ce(grad):
+        with torch.enable_grad() if grad else torch.no_grad():
+            logits = F.linear(y_ce, wa16, ba16).reshape(-1, fcn.args_dim)
+            ce = F.cross_entropy(logits, tgt_lib, reduction="none").reshape(r_ce, -1)
+            if grad:
+                return torch.autograd.grad(ce, [y_ce, wa16, ba16], g_ce.to(ce.dtype))
+            return ce
+    yardstick["args_ce"] = (lib_ce(False).float()
+                            - ce_ops.args_ce(y_ce, wa, ba, tgt_ce, bf16)).abs().max().item()
+    (fwd, both), (pfwd, pboth) = ce_runs(ce_ops.args_ce), ce_runs(ce_ops.plain_args_ce)
+    f_ms, fb_ms = cuda_ms(fwd), cuda_ms(both)
+    pf_ms, pfb_ms = cuda_ms(pfwd, iters=5, warmup=1), cuda_ms(pboth, iters=5, warmup=1)
+    lf_ms, lfb_ms = cuda_ms(lambda: lib_ce(False)), cuda_ms(lambda: lib_ce(True))
+    ops_ce = 2.0 * r_ce * d_model * n_cls
+    head_bytes = n_cls * d_model * 2 + n_cls * 2
+    b_ms, b_by = bound(nbytes(y_ce, tgt_ce) + head_bytes + r_ce * fcn.n_args * 4, ops_ce,
+                       PEAK_BF16)
+    kernels["args_ce_fwd"].update(ms=f_ms, plain_ms=pf_ms, library_ms=lf_ms, bound_ms=b_ms,
+                                  bound_by=b_by)
+    b_ms, b_by = bound(2 * nbytes(y_ce) + nbytes(tgt_ce) + head_bytes + 2 * r_ce * fcn.n_args * 4
+                       + (n_cls * d_model + n_cls) * 4, 3 * ops_ce, PEAK_BF16)
+    kernels["args_ce_bwd"].update(ms=fb_ms - f_ms, plain_ms=pfb_ms - pf_ms,
+                                  library_ms=lfb_ms - lf_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # K6, and one index_add_ of the expanded dy rows into one stacked table as
+    # its yardstick (the expansion is made beforehand and not timed)
+    dy = randn(nb, s_enc, d_model).to(bf16)
+    tokens = nb * s_enc
+    idx = torch.cat([
+        tc_f.long()[..., None],
+        n_cmd + vocab * torch.arange(emb.n_args, device=dev) + ta_f.long() + 1,
+        (n_cmd + vocab * emb.n_args + torch.arange(s_enc, device=dev))
+        .expand(tc_f.shape)[..., None]], dim=-1).reshape(-1)
+    src = dy.float().reshape(tokens, 1, d_model).expand(-1, 2 + emb.n_args, -1) \
+        .reshape(-1, d_model).contiguous()
+    stacked = torch.zeros(n_cmd + vocab * emb.n_args + s_enc, d_model, device=dev)
+    tables32 = [t.float().requires_grad_() for t in (cmd_table, arg_tables, pos_table[:s_enc])]
+
+    def plain_k6():
+        out = emb_ops.embedding_reference(tc_f, ta_f, None, tables32[0], tables32[1], None,
+                                          tables32[2])
+        return torch.autograd.grad(out, tables32, dy.float())
+    b_ms, b_by = bound(nbytes(tc_f, dy) + tokens * emb.n_args * 4 + stacked.numel() * 4,
+                       tokens * d_model * (2.0 + emb.n_args), PEAK_F32)
+    kernels["embedding_bwd"].update(
+        ms=cuda_ms(lambda: emb_ops.embedding_backward(tc_f, ta_f, None, dy, n_cmd, vocab, 0,
+                                                      False)),
+        plain_ms=cuda_ms(plain_k6, iters=5, warmup=1),
+        library_ms=cuda_ms(lambda: stacked.index_add_(0, idx, src)), bound_ms=b_ms,
+        bound_by=b_by)
+    print(f"yardstick agreement (max abs diff vs the kernel): {yardstick}", flush=True)
+    record["yardstick_max_abs_diff"] = yardstick
+    for what, st in train_stages.items():
+        print(f"  layer_train {what} B={st['B']}: forward {st['fwd_ms']:.4f} ms (plain "
+              f"{st['plain_fwd_ms']:.4f}, bound {st['fwd_bound_ms']:.4f} by "
+              f"{st['fwd_bound_by']}), backward {st['bwd_ms']:.4f} ms (plain "
+              f"{st['plain_bwd_ms']:.4f}, bound {st['bwd_bound_ms']:.4f} by "
+              f"{st['bwd_bound_by']}), saved for the backward {st['saved_bytes'] / 2**20:.1f} "
+              f"MiB, x 4 per step")
+    for name in ("args_ce_fwd", "args_ce_bwd", "embedding_bwd"):
+        k = kernels[name]
+        print(f"  {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
+              f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by {k['bound_by']})")
+
+    csrc = "deepsvg_tpu_torch/ops/csrc/"
+    source = {
+        "embedding": (csrc + "embedding.cu", "deepsvg_tpu/ops/embedding.py:34"),
+        "layer": (csrc + "layer.cu", "deepsvg_tpu/ops/layer.py:108"),
+        "layer_f32": (csrc + "layer.cu", "deepsvg_tpu/ops/layer.py:108"),
+        "head": (csrc + "head.cu", "deepsvg_tpu/ops/head.py:32"),
+        "layer_train_fwd": (csrc + "layer.cu", "deepsvg_tpu/ops/layer_vjp.py:179"),
+        "layer_train_bwd": (csrc + "layer_bwd.cu", "deepsvg_tpu/ops/layer_vjp.py:298"),
+        "args_ce_fwd": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:30"),
+        "args_ce_bwd": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:81"),
+        "embedding_bwd": (csrc + "embedding_bwd.cu", "deepsvg_tpu/ops/embedding.py:133"),
+    }
     line = []
     for name, k in kernels.items():
-        src, replaces = source[name]
+        src_file, replaces = source[name]
+        count = launches[name] if launches[name] else train_launches[name]
         line.append({
-            "name": name, "route": "cuda", "source": f"deepsvg_tpu_torch/ops/csrc/{src}",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": k["max_abs_err"],
-            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+            "name": name, "route": "cuda", "source": src_file, "replaces": replaces,
+            "launches": count, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"]})
     record["kernels"] = kernels
+    record["total_s"] = time.perf_counter() - t_start
+    print(f"chip_smoke: {record['total_s']:.1f} s after the card line", flush=True)
+    record["failed_checks"] = FAILED
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
+    check(not FAILED, f"{len(FAILED)} tolerance checks failed: {FAILED}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Data sources of the port: the synthetic icon generator."""
+"""Data sources of the port: the synthetic icon generator and the wire format."""
+from .loader import decompress_batch
 from .synthetic import generate_batch, generate_icon
 
-__all__ = ["generate_batch", "generate_icon"]
+__all__ = ["decompress_batch", "generate_batch", "generate_icon"]

@@ -1,7 +1,8 @@
 """Model hyperparameters: a frozen-dataclass counterpart of
 ``deepsvg_tpu/models/config.py:ModelConfig`` with the fields the port reads.
 
-The port runs the flagship ``hierarchical_ordered`` inference path; the
+The port runs the flagship ``hierarchical_ordered`` model (inference and the
+training step); the
 variants it does not run yet are still expressible here so that a config
 read from the JAX side keeps its meaning, and the model raises
 ``NotImplementedError`` on them (see ``models/model.py``).
@@ -45,13 +46,15 @@ class ModelConfig:
     d_model: int = 256
 
     dim_z: int = 256
+    dropout: float = 0.1
 
     max_num_groups: int = 8
     max_seq_len: int = 30
     num_groups_proposal: int | None = None
 
-    # activations and weights in this dtype; LayerNorm, softmax and the
-    # residual stream are computed in float32 inside the kernels
+    # activations and weights are used in this dtype (the parameters stay
+    # float32 and are cast at use); LayerNorm, softmax and the residual stream
+    # are computed in float32 inside the kernels
     compute_dtype: str = "float32"
 
     @property

@@ -1,13 +1,21 @@
-"""Transformer building blocks (batch-first ``[B, S, D]``), inference only.
+"""Transformer building blocks (batch-first ``[B, S, D]``).
 
 Counterparts of ``deepsvg_tpu/models/layers.py``: the pre-LN encoder layer,
 the decoder layer with the latent injected as a per-layer linear broadcast
 (no cross-attention), the stacks with their final LayerNorm, and the
-learned positional table. Each layer runs as one fused kernel
-(``ops/layer.py``); on CPU tensors that is the plain version.
+learned positional table. Each layer runs as one fused kernel: at inference
+(``deterministic=True``) K2 (``ops/layer.py``), when training K4
+(``ops/layer_vjp.py``) with dropout inside the kernel and the dropout of the
+per-sequence injection outside it. On CPU tensors those are the plain
+versions.
 
-Only the deterministic inference branches are ported; dropout, the
-training kernels and the KV-cached decode step come with later slices.
+Parameters are float32; ``compute_dtype`` is applied at use (``cast.py``).
+A layer's activations keep the type they come in: the hierarchical encoder
+gets the float32 pooled output of the first stage and runs float32
+activations against weights rounded to ``compute_dtype``. A stack's final
+LayerNorm computes in float32 from float32 parameters and returns
+``compute_dtype``. The stack-fused training kernel for short sequences and
+the KV-cached decode step come with later slices.
 """
 from __future__ import annotations
 
@@ -16,14 +24,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import layer as layer_ops
+from ..ops import layer_vjp
 from ..ops.layer import LN_EPS
+from .cast import DropoutRng, cast_at_use
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = LN_EPS) -> torch.Tensor:
-    """LayerNorm computed in float32, returned in ``x``'s dtype."""
+               eps: float = LN_EPS, out_dtype=None) -> torch.Tensor:
+    """LayerNorm computed in float32, returned in ``out_dtype`` (default
+    ``x``'s)."""
     return F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(),
-                        eps).to(x.dtype)
+                        eps).to(out_dtype or x.dtype)
 
 
 def key_padding_to_additive(key_padding_mask: torch.Tensor | None):
@@ -36,20 +47,28 @@ def key_padding_to_additive(key_padding_mask: torch.Tensor | None):
 
 
 class LayerNorm(nn.LayerNorm):
-    """A stack's final LayerNorm (flax ``norm/{scale,bias}``), in float32."""
+    """A stack's final LayerNorm (flax ``norm/{scale,bias}``): float32
+    parameters and arithmetic, output in ``compute_dtype``."""
+
+    def __init__(self, d_model: int, eps: float, compute_dtype=torch.float32):
+        super().__init__(d_model, eps=eps)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        return layer_norm(x, self.weight, self.bias, self.eps)
+        return layer_norm(x, self.weight, self.bias, self.eps, self.compute_dtype)
 
 
 class EncoderLayerImproved(nn.Module):
     """Pre-LN encoder layer. ``norm1``/``norm2`` are stacked ``[2, D]``
     (row 0 scale, row 1 bias); ``qkv`` holds q|k|v fused."""
 
-    def __init__(self, d_model: int, n_heads: int, dim_feedforward: int):
+    def __init__(self, d_model: int, n_heads: int, dim_feedforward: int,
+                 dropout: float = 0.0, compute_dtype=torch.float32):
         super().__init__()
         d = d_model
         self.n_heads = n_heads
+        self.dropout = dropout
+        self.compute_dtype = compute_dtype
         self.norm1 = nn.Parameter(torch.stack([torch.ones(d), torch.zeros(d)]))
         self.qkv = nn.Linear(d, 3 * d)
         self.out_proj = nn.Linear(d, d)
@@ -57,50 +76,70 @@ class EncoderLayerImproved(nn.Module):
         self.ff1 = nn.Linear(d, dim_feedforward)
         self.ff2 = nn.Linear(dim_feedforward, d)
 
-    def attention_weights(self):
+    def masters(self):
+        """The ten float32 parameters in the fused layer's argument order."""
         return (self.norm1, self.qkv.weight, self.qkv.bias, self.out_proj.weight,
-                self.out_proj.bias)
+                self.out_proj.bias, self.norm2, self.ff1.weight, self.ff1.bias,
+                self.ff2.weight, self.ff2.bias)
 
-    def ff_weights(self):
-        return (self.norm2, self.ff1.weight, self.ff1.bias, self.ff2.weight,
-                self.ff2.bias)
+    def weights(self, act_dtype):
+        """The parameters as the inference kernel reads them: rounded to
+        ``compute_dtype``, stored in the activations' type (cached)."""
+        return tuple(cast_at_use(self, str(i), p, self.compute_dtype, act_dtype)
+                     for i, p in enumerate(self.masters()))
 
-    def forward(self, src, mask):
+    def _run(self, x, seq_bias, mask, causal, deterministic, rng):
+        if deterministic:
+            return layer_ops.fused_layer(x, seq_bias, *self.weights(x.dtype), mask,
+                                         self.n_heads, causal)
+        rate = self.dropout if rng is not None else 0.0
+        seed = rng.seed() if rate > 0.0 else 0
+        return layer_vjp.fused_layer_train(x, seq_bias, *self.masters(), mask, seed,
+                                           self.n_heads, causal, rate, self.compute_dtype)
+
+    def forward(self, src, mask, deterministic: bool = True, rng: DropoutRng | None = None):
         """``mask [B, S]``: additive float32 over keys."""
-        return layer_ops.fused_encoder_layer(
-            src, *self.attention_weights(), *self.ff_weights(), mask, self.n_heads)
+        return self._run(src, None, mask, False, deterministic, rng)
 
 
 class DecoderLayerGlobalImproved(EncoderLayerImproved):
     """Pre-LN decoder layer: ``tgt += glob(z)`` broadcast over the sequence
-    after the attention block, in place of cross-attention."""
+    after the attention block, in place of cross-attention. The injection is
+    a small ``[B, D]`` product left to ``F.linear`` (the JAX wrapper leaves it
+    to XLA); when training, its dropout is applied here, outside the kernel,
+    and its gradient comes back as the kernel's ``dseq_bias``."""
 
-    def __init__(self, d_model: int, n_heads: int, dim_feedforward: int,
-                 dim_z: int):
-        super().__init__(d_model, n_heads, dim_feedforward)
+    def __init__(self, d_model: int, n_heads: int, dim_feedforward: int, dim_z: int,
+                 dropout: float = 0.0, compute_dtype=torch.float32):
+        super().__init__(d_model, n_heads, dim_feedforward, dropout, compute_dtype)
         self.glob = nn.Linear(dim_z, d_model)
 
-    def forward(self, tgt, z, mask):
-        return layer_ops.fused_decoder_layer(
-            tgt, z, *self.attention_weights(), self.glob.weight, self.glob.bias,
-            *self.ff_weights(), mask, self.n_heads)
+    def forward(self, tgt, z, mask, causal: bool = False, deterministic: bool = True,
+                rng: DropoutRng | None = None):
+        dt = self.compute_dtype
+        wg = cast_at_use(self, "wg", self.glob.weight, dt, deterministic=deterministic)
+        bg = cast_at_use(self, "bg", self.glob.bias, dt, deterministic=deterministic)
+        seq_bias = F.linear(z.to(dt), wg, bg)
+        if not deterministic and rng is not None:
+            seq_bias = rng.dropout(seq_bias, self.dropout)
+        return self._run(tgt, seq_bias.to(tgt.dtype), mask, causal, deterministic, rng)
 
 
 class EncoderStack(nn.Module):
     """N encoder layers + final LayerNorm."""
 
     def __init__(self, n_layers: int, d_model: int, n_heads: int,
-                 dim_feedforward: int):
+                 dim_feedforward: int, dropout: float = 0.0, compute_dtype=torch.float32):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayerImproved(d_model, n_heads, dim_feedforward)
+            EncoderLayerImproved(d_model, n_heads, dim_feedforward, dropout, compute_dtype)
             for _ in range(n_layers))
-        self.norm = LayerNorm(d_model, eps=LN_EPS)
+        self.norm = LayerNorm(d_model, LN_EPS, compute_dtype)
 
-    def forward(self, src, mask):
+    def forward(self, src, mask, deterministic: bool = True, rng: DropoutRng | None = None):
         """``mask [B, S]``: additive float32 over keys."""
         for layer in self.layers:
-            src = layer(src, mask)
+            src = layer(src, mask, deterministic, rng)
         return self.norm(src)
 
 
@@ -108,28 +147,39 @@ class DecoderStack(nn.Module):
     """N latent-conditioned decoder layers + final LayerNorm."""
 
     def __init__(self, n_layers: int, d_model: int, n_heads: int,
-                 dim_feedforward: int, dim_z: int):
+                 dim_feedforward: int, dim_z: int, dropout: float = 0.0,
+                 compute_dtype=torch.float32):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayerGlobalImproved(d_model, n_heads, dim_feedforward, dim_z)
+            DecoderLayerGlobalImproved(d_model, n_heads, dim_feedforward, dim_z, dropout,
+                                       compute_dtype)
             for _ in range(n_layers))
-        self.norm = LayerNorm(d_model, eps=LN_EPS)
+        self.norm = LayerNorm(d_model, LN_EPS, compute_dtype)
 
-    def forward(self, tgt, z):
+    def forward(self, tgt, z, deterministic: bool = True, rng: DropoutRng | None = None):
         """The one-shot decoders attend over every query position."""
         mask = torch.zeros(tgt.shape[:2], dtype=torch.float32, device=tgt.device)
         for layer in self.layers:
-            tgt = layer(tgt, z, mask)
+            tgt = layer(tgt, z, mask, False, deterministic, rng)
         return self.norm(tgt)
 
 
 class PositionalEncodingLUT(nn.Module):
-    """Learned positional table added to the input (dropout is identity at
-    inference)."""
+    """Learned positional table added to the input, then dropout."""
 
-    def __init__(self, max_len: int, d_model: int):
+    def __init__(self, max_len: int, d_model: int, dropout: float = 0.0,
+                 compute_dtype=torch.float32):
         super().__init__()
+        self.dropout = dropout
+        self.compute_dtype = compute_dtype
         self.pos_embed = nn.Parameter(torch.zeros(max_len, d_model))
 
-    def forward(self, x):
-        return x + self.pos_embed[:x.shape[-2]].to(x.dtype)
+    def table(self, deterministic: bool = True):
+        return cast_at_use(self, "pos_embed", self.pos_embed, self.compute_dtype,
+                           deterministic=deterministic)
+
+    def forward(self, x, deterministic: bool = True, rng: DropoutRng | None = None):
+        x = x + self.table(deterministic)[:x.shape[-2]]
+        if not deterministic and rng is not None:
+            x = rng.dropout(x, self.dropout)
+        return x

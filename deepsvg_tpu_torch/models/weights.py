@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's flax parameter tree -> the port's modules.
+"""Weight bridge: the JAX package's flax parameter tree <-> the port's modules.
 
 The layouts differ in three ways:
 
@@ -111,14 +111,31 @@ def load_flax_params(model: SVGTransformer, tree: dict) -> int:
             raise ValueError(f"{path}: shape {value.shape} (after transpose: "
                              f"{transpose}) does not fit {tuple(param.shape)}")
         param.copy_(torch.from_numpy(np.ascontiguousarray(value)))
-    model.decoder.fcn.pack()
     return len(names)
+
+
+def to_flax_params(model: SVGTransformer, grads: bool = False) -> dict:
+    """The inverse of :func:`load_flax_params`: the model's parameters (or,
+    with ``grads``, their gradients) as the flax tree of float32 numpy arrays,
+    so that parameters and gradients compare leaf by leaf with the JAX
+    package's. A parameter without a gradient gives zeros."""
+    tree: dict = {}
+    for path, param, transpose in _name_map(model):
+        value = param.grad if grads else param
+        value = (torch.zeros_like(param) if value is None else value.detach()).float().cpu().numpy()
+        node = tree
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(value.T if transpose else value)
+    return tree
 
 
 def load_model(path: str, cfg: ModelConfig, device=None) -> SVGTransformer:
     """Build ``SVGTransformer(cfg)``, load the weights file that
     ``deepsvg_tpu/training/checkpoint.py:save_model`` writes, and place the
-    model on ``device`` in ``cfg.compute_dtype``, in eval mode. ``device=None``
+    model on ``device``, in eval mode. The parameters stay float32;
+    ``cfg.compute_dtype`` is applied where they are used. ``device=None``
     means the CUDA card and raises when PyTorch sees none, instead of carrying
     on on the CPU."""
     if device is None:
@@ -129,4 +146,4 @@ def load_model(path: str, cfg: ModelConfig, device=None) -> SVGTransformer:
         device = "cuda"
     model = SVGTransformer(cfg)
     load_flax_params(model, load_params(path))
-    return model.to(device=device, dtype=getattr(torch, cfg.compute_dtype)).eval()
+    return model.to(device=device).eval()

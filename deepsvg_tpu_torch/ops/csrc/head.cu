@@ -16,11 +16,8 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int HEAD_ROWS = 128;
-constexpr int NWARPS = HEAD_ROWS / 16;
-constexpr int NTHREADS = NWARPS * 32;
+constexpr int HEAD_ROWS = NWARPS * 16;
 constexpr int CHUNK_TILES = 4;  // 64 head columns per staged chunk
-constexpr int SPAD = 8;
 constexpr int SCR_LD = CHUNK_TILES * 16 + 4;
 
 __host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }

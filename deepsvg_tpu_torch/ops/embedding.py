@@ -17,6 +17,18 @@ same order as the one-hot matmuls, one bf16 store.
 
 An id outside ``[0, vocab)`` matches no one-hot column in the Pallas kernel
 and so contributes zero; the kernel and the plain version do the same.
+
+Backward: kernel K6 (``csrc/embedding_bwd.cu``) replaces the Pallas kernel
+``deepsvg_tpu/ops/embedding.py:_embed_bwd_kernel`` (wrapper
+``fused_embedding_train``), which formed the table gradients as transposed
+one-hot matmuls because scatters are slow on the TPU. Here they are what they
+are, a scatter-add of the ``dy`` rows, bound by reading ``dy`` once (16.8 MB
+at B=128, 5 us). The rows that most tokens hit (the 7 command rows, the S
+position rows, each slot's PAD row) are summed per block in shared memory
+first, without atomics; the remaining argument rows and the group rows go to
+the tables with float32 ``atomicAdd``. So K6's sums change in their last
+bits from run to run (K4 and K5 have no atomics). Its plain version is
+autograd through :func:`embedding_reference`.
 """
 from __future__ import annotations
 
@@ -120,3 +132,80 @@ def fused_embedding(commands, args, groups, cmd_table, arg_tables, group_table,
 
 
 fused_embedding.launches = 0
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+                 + [ctypes.c_void_p])
+
+
+def embedding_backward(commands, args, groups, dy, n_cmd: int, vocab: int, n_group: int,
+                       use_group: bool):
+    """Kernel K6: ``dy [B, S, D]`` (bfloat16 or float32, CUDA) -> float32
+    ``dcmd [n_cmd, D]``, ``darg [n_args*vocab, D]``, ``dgroup [n_group, D]``,
+    ``dpos [S, D]``."""
+    dev = dy.device
+    b, s, d = dy.shape
+    n_args = args.shape[-1]
+    if dy.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"dy has dtype {dy.dtype}, expected bfloat16 or float32")
+    dy = dy.contiguous()
+    cmd32 = commands.to(torch.int32).contiguous()
+    args32 = args.to(torch.int32).contiguous()
+    groups32 = groups.to(torch.int32).contiguous() if use_group else cmd32
+    _build.require(cmd32, "commands", dev, shape=(b, s))
+    _build.require(args32, "args", dev, shape=(b, s, n_args))
+    _build.require(groups32, "groups", dev, shape=(b, s))
+    zeros = lambda n: torch.zeros((n, d), dtype=torch.float32, device=dev)  # noqa: E731
+    dcmd, darg, dgroup, dpos = zeros(n_cmd), zeros(n_args * vocab), zeros(max(n_group, 1)), zeros(s)
+    if dy.numel():
+        fn = _build.kernel_function("dsvg_embedding_bwd", _BWD_ARGTYPES)
+        rc = fn(cmd32.data_ptr(), args32.data_ptr(), groups32.data_ptr(), dy.data_ptr(),
+                dcmd.data_ptr(), darg.data_ptr(), dgroup.data_ptr(), dpos.data_ptr(),
+                b * s, s, d, n_args, vocab, n_cmd, n_group if use_group else 0,
+                int(use_group), int(dy.dtype == torch.float32),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check_launch(rc, "embedding_bwd")
+        embedding_backward.launches += 1
+    return dcmd, darg, dgroup[:n_group], dpos
+
+
+embedding_backward.launches = 0
+
+
+class _FusedEmbeddingTrain(torch.autograd.Function):
+    """K1 forward, K6 backward, on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, commands, args, groups, cmd_table, arg_tables, group_table,
+                pos_table, use_group):
+        tables = [t.detach().contiguous() for t in (cmd_table, arg_tables, pos_table)]
+        gt = group_table.detach().contiguous() if use_group else None
+        out = fused_embedding(commands, args, groups, tables[0], tables[1], gt, tables[2],
+                              use_group)
+        ctx.save_for_backward(commands, args, groups if use_group else commands)
+        ctx.meta = (cmd_table.shape[0], arg_tables.shape[0] // args.shape[-1],
+                    group_table.shape[0] if use_group else 0, use_group,
+                    cmd_table.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        commands, args, groups = ctx.saved_tensors
+        n_cmd, vocab, n_group, use_group, dt = ctx.meta
+        dcmd, darg, dgroup, dpos = embedding_backward(
+            commands, args, groups, dy, n_cmd, vocab, n_group, use_group)
+        return (None, None, None, dcmd.to(dt), darg.to(dt),
+                dgroup.to(dt) if use_group else None, dpos.to(dt), None)
+
+
+def fused_embedding_train(commands, args, groups, cmd_table, arg_tables, group_table,
+                          pos_table, use_group: bool = False):
+    """Differentiable :func:`fused_embedding`: gradients flow to the four
+    tables (in their dtype, summed in float32). A CPU tensor takes
+    :func:`embedding_reference` under autograd; a CUDA tensor runs kernel K1
+    forward and kernel K6 backward."""
+    if commands.device.type == "cpu":
+        return embedding_reference(commands, args, groups, cmd_table, arg_tables,
+                                   group_table, pos_table, use_group)
+    return _FusedEmbeddingTrain.apply(commands, args, groups, cmd_table, arg_tables,
+                                      group_table, pos_table, use_group)

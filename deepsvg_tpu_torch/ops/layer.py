@@ -5,6 +5,15 @@ One layer per launch: LN1 -> QKV -> per-head masked softmax(QK^T/sqrt(hd))V
 residual. The residual stream, both LayerNorms and the softmax are float32;
 matmul inputs are in the activation dtype with float32 accumulation.
 
+Two activation types. bfloat16 is the serving profile's E1, D1 and D2. In
+float32 (E2 of that profile, whose input is the float32 pooled E1 output, and
+every stack of a float32 model) the kernel takes float32 activations and
+float32 weights and multiplies on the tensor cores in TF32: the operands are
+rounded to 10 mantissa bits, three more than bfloat16 keeps, so weights whose
+values were rounded to bfloat16 enter exactly and only the activations lose
+bits (about 2^-11 relative each). The plain version multiplies in full
+float32.
+
 Kernel note (``csrc/layer.cu``). Replaces the Pallas kernel
 ``deepsvg_tpu/ops/layer.py:_layer_kernel`` (wrapper ``fused_layer``, used
 through ``fused_encoder_layer`` / ``fused_decoder_layer``). On the H100 the
@@ -79,9 +88,34 @@ def layer_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
     return xf.to(dt)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 MAX_SEQ = 32
 HEAD_DIM = 32
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                       n_heads: int) -> None:
+    """Raise unless the layer kernels take these CUDA tensors: activations
+    and weights of one type (bfloat16 or float32), S <= 32, head dim 32."""
+    dev, dt = x.device, x.dtype
+    b, s, d = x.shape
+    f = w1.shape[0]
+    if dt not in KERNEL_DTYPES:
+        raise ValueError(f"x has dtype {dt}, expected bfloat16 or float32")
+    if d != n_heads * HEAD_DIM or not 1 <= s <= MAX_SEQ or d % 16 or f % 16:
+        raise ValueError(
+            f"layer kernel takes head dim {HEAD_DIM}, 1 <= S <= {MAX_SEQ} and "
+            f"D, F multiples of 16; got D={d}, heads={n_heads}, S={s}, F={f}")
+    for name, t, shape in (
+            ("x", x, (b, s, d)), ("ln1", ln1, (2, d)), ("wqkv", wqkv, (3 * d, d)),
+            ("bqkv", bqkv, (3 * d,)), ("wo", wo, (d, d)), ("bo", bo, (d,)),
+            ("ln2", ln2, (2, d)), ("w1", w1, (f, d)), ("b1", b1, (f,)),
+            ("w2", w2, (d, f)), ("b2", b2, (d,))):
+        _build.require(t, name, dev, dt, shape)
+    _build.require(mask, "mask", dev, torch.float32, (b, s))
+    if seq_bias is not None:
+        _build.require(seq_bias, "seq_bias", dev, dt, (b, d))
 
 
 def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
@@ -94,7 +128,8 @@ def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
     ``mask [B, S]`` additive float32 over keys.
 
     A CPU tensor takes :func:`layer_reference`; a CUDA tensor launches the
-    kernel (bfloat16, S <= 32, head dim 32) or raises.
+    kernel (activations and weights both bfloat16 or both float32, S <= 32,
+    head dim 32) or raises.
     """
     if x.device.type == "cpu":
         return layer_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1,
@@ -104,20 +139,8 @@ def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
     dev = x.device
     b, s, d = x.shape
     f = w1.shape[0]
-    bf16 = torch.bfloat16
-    if d != n_heads * HEAD_DIM or not 1 <= s <= MAX_SEQ or d % 16 or f % 16:
-        raise ValueError(
-            f"layer kernel takes head dim {HEAD_DIM}, 1 <= S <= {MAX_SEQ} and "
-            f"D, F multiples of 16; got D={d}, heads={n_heads}, S={s}, F={f}")
-    for name, t, shape in (
-            ("x", x, (b, s, d)), ("ln1", ln1, (2, d)), ("wqkv", wqkv, (3 * d, d)),
-            ("bqkv", bqkv, (3 * d,)), ("wo", wo, (d, d)), ("bo", bo, (d,)),
-            ("ln2", ln2, (2, d)), ("w1", w1, (f, d)), ("b1", b1, (f,)),
-            ("w2", w2, (d, f)), ("b2", b2, (d,))):
-        _build.require(t, name, dev, bf16, shape)
-    _build.require(mask, "mask", dev, torch.float32, (b, s))
-    if seq_bias is not None:
-        _build.require(seq_bias, "seq_bias", dev, bf16, (b, d))
+    check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                       n_heads)
     out = torch.empty_like(x)
     if b == 0:
         return out
@@ -127,13 +150,15 @@ def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
             bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln2.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             mask.data_ptr(), out.data_ptr(), b, s, d, f, n_heads, int(causal),
-            HEAD_DIM ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+            int(x.dtype == torch.float32), HEAD_DIM ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "layer")
     fused_layer.launches += 1
+    fused_layer.float32_launches += x.dtype == torch.float32
     return out
 
 
-fused_layer.launches = 0
+fused_layer.launches = 0            # every launch
+fused_layer.float32_launches = 0    # those of the float32 form
 
 
 def fused_encoder_layer(x, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,

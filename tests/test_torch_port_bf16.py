@@ -7,11 +7,16 @@ Pallas path (the kernels ``tpu_fast`` selects, in interpret mode) and on the
 XLA path, on the same batch. The packages round at different points, so the
 limits are statistical: the RMS and largest difference of the logits, and
 the agreement of the greedy ids wherever JAX's two best logits differ by at
-least ``MARGIN``. Known differences (ROADMAP.md, "Faults"): the port runs
-E2 with a bfloat16 input and residual stream where JAX keeps them in
-float32, and it keeps the stacks' final LayerNorm parameters in bfloat16
-where flax keeps them in float32. For scale, JAX's own float32 forward
-differs from its bfloat16 one by an argument-logit RMS of about 0.02.
+least ``MARGIN``. The port keeps float32 master parameters and casts at use,
+runs E2 on the float32 pooled E1 output as JAX does, and keeps the stacks'
+final LayerNorm parameters in float32 as flax does; what is left is the
+order of the float32 sums before each rounding. Readings: largest logit
+difference 0.25 (Pallas path) and 0.375 (XLA path), three bfloat16 steps of
+a logit of that size; argument-logit RMS 0.0187 and 0.0213; ids equal at
+99.30%. (Before E2 and the LayerNorm parameters followed JAX's types the
+readings were 0.5 and 0.0227, under limits of 1.0, 0.05 and 98%.) For
+scale, JAX's own float32 forward differs from its bfloat16 one by an
+argument-logit RMS of about 0.02.
 """
 import jax
 import jax.numpy as jnp
@@ -28,9 +33,9 @@ from deepsvg_tpu_torch.models import gpu_fast, hierarchical_ordered, load_model
 ARTIFACT = "docs/artifacts/full_run_final_params.msgpack"
 N = 4
 MARGIN = 0.1
-MAX_ABS = 1.0          # largest logit difference, any head
-ARGS_RMS = 0.05        # RMS of the argument-logit difference
-ID_AGREEMENT = 0.98    # ids equal where JAX's top-2 margin >= MARGIN
+MAX_ABS = 0.5          # largest logit difference, any head
+ARGS_RMS = 0.03        # RMS of the argument-logit difference
+ID_AGREEMENT = 0.99    # ids equal where JAX's top-2 margin >= MARGIN
 
 
 def _top2_margin(logits):
@@ -52,7 +57,7 @@ def batch():
 @pytest.fixture(scope="module")
 def port_logits(batch):
     model = load_model(ARTIFACT, gpu_fast(hierarchical_ordered()), device="cpu")
-    assert next(model.parameters()).dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())   # masters, cast at use
     with torch.no_grad():
         res = model(torch.from_numpy(batch[0]), torch.from_numpy(batch[1]))
     return {k: v.float().numpy() for k, v in res.items()}

@@ -15,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from deepsvg_tpu_torch.ops import ce as ce_ops
 from deepsvg_tpu_torch.ops import embedding as emb_ops
 from deepsvg_tpu_torch.ops import head as head_ops
 from deepsvg_tpu_torch.ops import layer as layer_ops
+from deepsvg_tpu_torch.ops import layer_vjp
 
 pytestmark = pytest.mark.cuda
 
@@ -106,11 +108,167 @@ def test_head_kernel_matches_plain(cuda):
     assert (gap.abs()[ids != ref] < 1e-2).all()
 
 
-def test_kernels_refuse_float32_on_the_card(cuda):
+def _layer_weights(rng, dev, dtype):
+    """The ten layer weights with bfloat16-representable values, in ``dtype``."""
+    ln = lambda: torch.stack([1 + _bf16(rng, dev, D, scale=0.1),  # noqa: E731
+                              _bf16(rng, dev, D, scale=0.1)]).contiguous()
+    ws = (ln(), _bf16(rng, dev, 3 * D, D, scale=D ** -0.5), _bf16(rng, dev, 3 * D, scale=0.1),
+          _bf16(rng, dev, D, D, scale=D ** -0.5), _bf16(rng, dev, D, scale=0.1), ln(),
+          _bf16(rng, dev, F_FF, D, scale=D ** -0.5), _bf16(rng, dev, F_FF, scale=0.1),
+          _bf16(rng, dev, D, F_FF, scale=F_FF ** -0.5), _bf16(rng, dev, D, scale=0.1))
+    return tuple(w.to(dtype) for w in ws)
+
+
+def _key_mask(rng, dev, b, s):
+    lengths = torch.from_numpy(rng.integers(1, s + 1, b)).to(dev)
+    lengths[0] = 0                                     # one fully masked sequence
+    return torch.where(torch.arange(s, device=dev)[None] < lengths[:, None], 0.0,
+                       float("-inf")).to(torch.float32)
+
+
+def _rel_rms(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("s,seq_bias,causal", [(8, False, False), (8, True, False),
+                                               (31, True, True)])
+def test_layer_kernel_float32_matches_plain(cuda, s, seq_bias, causal):
+    """K2's float32 form multiplies in TF32 (activations rounded to 10 mantissa
+    bits); the plain version in full float32."""
+    rng = np.random.default_rng(40 + s + seq_bias)
+    b = 13
+    weights = _layer_weights(rng, cuda, torch.float32)
+    x = _bf16(rng, cuda, b, s, D).float() + 1e-3 * _bf16(rng, cuda, b, s, D).float()
+    bias = _bf16(rng, cuda, b, D).float() if seq_bias else None
+    inputs = (x, bias, *weights, _key_mask(rng, cuda, b, s), H, causal)
+    out = layer_ops.fused_layer(*inputs)
+    ref = layer_ops.layer_reference(*inputs)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    print("K2-f32 rel rms", _rel_rms(out, ref), "max", (out - ref).abs().max().item())
+    assert _rel_rms(out, ref) <= 1e-3
+    assert ((out - ref).abs() <= 2e-2 + 2e-3 * ref.abs()).all()
+
+
+# K4's gradients, relative RMS error: (against the plain version as it is,
+# with the ReLU units aligned), about twice the largest readings of the cases
+# below on an H100: bfloat16 (0.0091, 0.0050), float32 (0.0129, 0.0018)
+GRAD_RMS_LIMITS = {BF16: (1.5e-2, 1e-2), torch.float32: (3e-2, 4e-3)}
+TRAIN_NAMES = ("x", "seq_bias", "ln1", "wqkv", "bqkv", "wo", "bo", "ln2", "w1", "b1", "w2", "b2")
+
+
+@pytest.mark.parametrize("dtype,s,b,causal,rate", [
+    (BF16, 32, 9, False, 0.0), (BF16, 32, 9, False, 0.1), (BF16, 31, 7, False, 0.1),
+    (BF16, 8, 21, False, 0.1), (BF16, 8, 21, False, 0.0), (BF16, 31, 7, True, 0.0),
+    (torch.float32, 8, 21, False, 0.0), (torch.float32, 8, 21, False, 0.1),
+    (torch.float32, 16, 5, True, 0.1)])
+def test_layer_train_kernel_matches_plain(cuda, dtype, s, b, causal, rate):
+    """K4 forward and its twelve gradients against autograd through the plain
+    version with the same hash masks, by each gradient's relative RMS error.
+    bfloat16 differs by the rounding of df, dhpre, da, dctx, ds and dqkv,
+    which the plain version's autograd does not do. float32 runs TF32
+    products, forward and backward, against full float32. In both, the plain
+    version's weight gradients are rounded to bfloat16 once on their way back
+    through its cast of the master weights (0.0016 RMS), and a few FF
+    pre-activations next to zero fall on the other side of the ReLU in one
+    version, which moves dln2, dw1 and db1 most where the rows are few. So
+    each gradient is held twice: to the plain version as it is, and, more
+    tightly, to the plain version made to pass the kernel's own FF units."""
+    rng = np.random.default_rng(s + b)
+    masters = [w.requires_grad_() for w in _layer_weights(rng, cuda, torch.float32)]
+    x = _bf16(rng, cuda, b, s, D).to(dtype).requires_grad_()
+    bias = _bf16(rng, cuda, b, D).to(dtype).requires_grad_()
+    mask = _key_mask(rng, cuda, b, s)
+    g = _bf16(rng, cuda, b, s, D).to(dtype)
+    seed = 1234
+    leaves = [x, bias, *masters]
+    before = (layer_vjp.fused_layer_train.launches, layer_vjp.fused_layer_train.backward_launches)
+    out = layer_vjp.fused_layer_train(x, bias, *masters, mask, seed, H, causal, rate, BF16)
+    gate = layer_vjp.kernel_relu_gate(out)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert (layer_vjp.fused_layer_train.launches,
+            layer_vjp.fused_layer_train.backward_launches) == (before[0] + 1, before[1] + 1)
+    call = (x, bias, *masters, mask, seed, H, causal, rate, BF16)
+    ref = layer_vjp.plain_layer_train(*call)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+    gate_grads = torch.autograd.grad(layer_vjp.plain_layer_train(*call, relu_gate=gate),
+                                     leaves, g)
+    grad_lim, gate_lim = GRAD_RMS_LIMITS[dtype]
+    print(f"K4 {dtype} S={s} rate={rate}: fwd rel rms {_rel_rms(out, ref):.3g}")
+    assert torch.isfinite(out).all() and _rel_rms(out, ref) <= 1e-3
+    for name, got, want, want_gate in zip(TRAIN_NAMES, grads, ref_grads, gate_grads):
+        assert got.shape == want.shape and torch.isfinite(got).all(), name
+        print(f"  d{name}: rel rms {_rel_rms(got, want):.3g}, with the ReLU units aligned "
+              f"{_rel_rms(got, want_gate):.3g}")
+        assert _rel_rms(got, want) <= grad_lim, name
+        assert _rel_rms(got, want_gate) <= gate_lim, name
+    again = torch.autograd.grad(
+        layer_vjp.fused_layer_train(x, bias, *masters, mask, seed, H, causal, rate, BF16),
+        leaves, g)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))   # no atomics in K4
+
+
+def test_ce_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(5)
+    r = 1000                                            # a ragged last row tile
+    y = _bf16(rng, cuda, r, D).requires_grad_()
+    wa = _bf16(rng, cuda, N_ARGS * VOCAB, D, scale=D ** -0.5).float().requires_grad_()
+    ba = _bf16(rng, cuda, N_ARGS * VOCAB).float().requires_grad_()
+    tgt = torch.from_numpy(rng.integers(0, VOCAB, (r, N_ARGS)).astype(np.int32)).to(cuda)
+    tgt[3, 2], tgt[4, 0] = VOCAB + 3, -1                # match no class
+    g = torch.from_numpy(rng.random((r, N_ARGS)).astype(np.float32)).to(cuda) / r
+    ce = ce_ops.args_ce(y, wa, ba, tgt, BF16)
+    grads = torch.autograd.grad(ce, [y, wa, ba], g)
+    ref = ce_ops.args_ce_reference(y, wa.to(BF16), ba.to(BF16), tgt, N_ARGS)
+    ref_grads = torch.autograd.grad(ref, [y, wa, ba], g)
+    print("K5 ce max abs err", (ce - ref).abs().max().item())
+    assert ce.shape == (r, N_ARGS) and (ce - ref).abs().max().item() <= 1e-3
+    for name, got, want in zip(("dy", "dWa", "dba"), grads, ref_grads):
+        print(f"  {name}: rel rms {_rel_rms(got, want):.3g}")
+        assert got.shape == want.shape and _rel_rms(got, want) <= 1e-2, name
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("use_group", [False, True])
+def test_embedding_backward_kernel_matches_plain(cuda, dtype, use_group):
+    rng = np.random.default_rng(6)
+    b, s, n_group = 40, 32, 10
+    commands = torch.from_numpy(rng.integers(0, N_CMD, (b, s)).astype(np.int32)).to(cuda)
+    args = rng.integers(-1, VOCAB - 1, (b, s, N_ARGS)).astype(np.float32)
+    args[rng.random(args.shape) < 0.8] = -1            # mostly PAD
+    args = torch.from_numpy(args).to(cuda)
+    groups = torch.from_numpy(rng.integers(0, n_group, (b, s)).astype(np.int32)).to(cuda)
+    commands[1, 2], args[1, 3, 4], args[2, 1, 0], groups[3, 5] = N_CMD + 2, VOCAB + 5, -3, n_group
+    tables = [_bf16(rng, cuda, n, D).to(dtype).requires_grad_()
+              for n in (N_CMD, N_ARGS * VOCAB, n_group, s)]
+    dy = _bf16(rng, cuda, b, s, D).to(dtype)
+    got = emb_ops.embedding_backward(commands, args, groups, dy, N_CMD, VOCAB, n_group, use_group)
+    ref = emb_ops.embedding_reference(commands, args, groups, tables[0], tables[1], tables[2],
+                                      tables[3], use_group)
+    want = torch.autograd.grad(ref, tables, dy, allow_unused=True)
+    for name, a, w in zip(("dcmd", "darg", "dgroup", "dpos"), got, want):
+        if w is None:
+            assert not use_group and not a.any()
+            continue
+        err = (a - w.float()).abs().max().item()
+        print(f"K6 {name}: max abs err {err:.3g} of max {w.abs().max().item():.3g}")
+        # exact products, float32 sums in another order; the plain version
+        # returns the table's dtype
+        assert err <= (2.0 ** -7 if dtype == BF16 else 1e-5) * w.abs().max().item() + 1e-5
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
     f32 = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
-    with pytest.raises(ValueError, match="dtype"):
-        layer_ops.fused_layer(f32(2, 8, D), None, f32(2, D), f32(3 * D, D), f32(3 * D),
+    with pytest.raises(ValueError, match="dtype"):        # mixed activation and weight types
+        layer_ops.fused_layer(f32(2, 8, D).to(BF16), None, f32(2, D), f32(3 * D, D), f32(3 * D),
                               f32(D, D), f32(D), f32(2, D), f32(F_FF, D), f32(F_FF),
                               f32(D, F_FF), f32(D), f32(2, 8), H)
     with pytest.raises(ValueError, match="dtype"):
         head_ops.fused_head_argmax(f32(8, D), f32(16, D), f32(16), N_CMD, N_ARGS, VOCAB)
+    x32 = f32(2, 32, D).requires_grad_()
+    with pytest.raises(ValueError, match="S <= 16"):      # float32 training tiles are 16 rows
+        layer_vjp.fused_layer_train(x32, None, f32(2, D), f32(3 * D, D), f32(3 * D), f32(D, D),
+                                    f32(D), f32(2, D), f32(F_FF, D), f32(F_FF), f32(D, F_FF),
+                                    f32(D), f32(2, 32), 0, H)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ce_ops.args_ce(f32(8, D), f32(N_ARGS * VOCAB, D), f32(N_ARGS * VOCAB),
+                       torch.zeros(8, N_ARGS, dtype=torch.int32, device=cuda))
