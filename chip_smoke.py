@@ -4,7 +4,7 @@
 
 In order: print the card and its power limit; build the port's CUDA kernels
 from ``deepsvg_tpu_torch/ops/csrc``; load the trained flagship checkpoint;
-then two paths.
+then three paths.
 
 *Inference* (greedy one-shot encode+decode, N=1024): each kernel (K1
 embedding, K2 fused layer in its bfloat16 and float32 forms, K3 head+argmax)
@@ -21,7 +21,18 @@ plain versions; one step on the kernel path against the same step on the
 plain path at B=16 and dropout 0 (loss terms, every leaf's gradient, the
 global norm); one counted step; 23 steps on one batch at dropout 0.1 whose
 loss must stay finite and fall, the last 20 timed; timings of each kernel, its
-plain version and a PyTorch yardstick where one exists.
+plain version and a PyTorch yardstick where one exists. The B=16 step takes
+K7 at E2 and D2 (16 x 8 rows is under the stack gate's 512); B=128 does not.
+
+*The recipe's training run* (B=60, where E2 and D2 take the fused stack K7):
+K7's forward, layer by layer, and its twelve gradients against its plain
+version at E2 and D2 shapes, at B=60 and at the gate's edge B=64, dropout 0
+and 0.1, and to the bit against the chain of four K4 calls; the step at B=60
+(counted, timed); the training CLI's ``train()`` on the flagship config with
+the synthetic dataset resident on the card: a first run with an asynchronous
+checkpoint, then a resumed run (step count, finite falling loss, the
+checkpoint's parameters and the resumed ones equal to the bit, launches per
+step); K7 and the K4 chain timed at 480 and 1,024 rows.
 
 The second-to-last line is ``{"kernels": [...]}``, the last ``{"ok": true,
 "device": {...}}``; the full record goes to ``chiprun_out/chip_smoke.json``.
@@ -138,6 +149,24 @@ TOL_STEP_LOSS = 2e-2           # each loss term: relative, plus 1e-4 absolute
 TOL_STEP_NORM = 5e-2           # relative, global gradient norm
 TOL_STEP_COSINE = 0.999        # whole gradient, kernel path vs plain path
 TOL_STEP_LEAF_RMS = 0.16       # each leaf's gradient, relative RMS (sound runs read 0.08)
+# K7, four layers at S=8. Its forward is held layer by layer, each layer from
+# the kernel's own input to it, to K4's forward limits above. The whole
+# stack's output and its twelve gradients go through four layers, where each
+# layer's last-bit differences feed the next: the card test
+# (tests/test_torch_port_cuda.py) read up to 0.0029 for the output and, for
+# the gradients, 0.017 as they are and 0.0065 with the ReLU units aligned;
+# limits about twice those readings, as K4's. And to the bit against the
+# chain of four K4 calls with the per-layer seeds.
+TOL_STACK_RMS = 5e-3
+TOL_STACK_GRAD_RMS = 3e-2
+TOL_STACK_GRAD_RMS_SAME_GATE = 1.5e-2
+B_RECIPE = 60          # configs_tpu/hierarchical_ordered.py at one device
+B_GATE_EDGE = 64       # the largest batch the stack gate takes (512 rows)
+CLI_ICONS = 480        # the CLI run's synthetic dataset: 8 batches of 60
+CLI_STEPS = (24, 56)   # the first run's step budget, then the resumed run's
+CLI_LOG_EVERY = 8
+CLI_CKPT_EVERY = 16
+CLI_WARMUP = 16        # the recipe warms up over 500 steps; the run is 56
 
 
 def check(ok: bool, what: str) -> None:
@@ -270,7 +299,7 @@ def truncated_weights(layer, drop_bits: int):
 
 
 @contextlib.contextmanager
-def plain_path(emb_ops, layer_ops, head_ops, layer_vjp=None, ce_ops=None):
+def plain_path(emb_ops, layer_ops, head_ops, layer_vjp=None, ce_ops=None, stack_vjp=None):
     """Route the model through the kernels' plain versions, on the card."""
     saved = [(emb_ops, "fused_embedding", emb_ops.embedding_reference),
              (layer_ops, "fused_layer", layer_ops.layer_reference),
@@ -279,6 +308,8 @@ def plain_path(emb_ops, layer_ops, head_ops, layer_vjp=None, ce_ops=None):
         saved += [(emb_ops, "fused_embedding_train", emb_ops.embedding_reference),
                   (layer_vjp, "fused_layer_train", layer_vjp.plain_layer_train),
                   (ce_ops, "args_ce", ce_ops.plain_args_ce)]
+    if stack_vjp is not None:
+        saved += [(stack_vjp, "fused_stack_train", stack_vjp.plain_stack_train)]
     saved = [(mod, name, getattr(mod, name), plain) for mod, name, plain in saved]
     for mod, name, _, plain in saved:
         setattr(mod, name, plain)
@@ -308,10 +339,11 @@ def layer_cost(args):
                  layer_ops_count(b, s, d, weights[6].shape[0]), peak)
 
 
-def compare_grad(name, got, want, same_gate, act_dtype) -> dict:
+def compare_grad(name, got, want, same_gate, act_dtype, rms_limits=None) -> dict:
     """Hold one gradient to TOL_GRAD_*; return its readings. ``want`` is the
     plain version's gradient, ``same_gate`` the plain version's with the
-    kernel's ReLU units; ``act_dtype`` the layer's activation type."""
+    kernel's ReLU units; ``act_dtype`` the layer's activation type;
+    ``rms_limits`` (as it is, aligned) replaces K4's RMS limits."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     scale = max(want.abs().max().item(), 1e-30)
@@ -319,7 +351,7 @@ def compare_grad(name, got, want, same_gate, act_dtype) -> dict:
     worst = diff.max().item() / scale
     rms, rms_gate = rel_rms(got, want), rel_rms(got, same_gate)
     worst_gate = (got - same_gate.float()).abs().max().item() / scale
-    lim, lim_gate = TOL_GRAD_RMS[act_dtype], TOL_GRAD_RMS_SAME_GATE[act_dtype]
+    lim, lim_gate = rms_limits or (TOL_GRAD_RMS[act_dtype], TOL_GRAD_RMS_SAME_GATE[act_dtype])
     check(got.shape == want.shape and bool(torch.isfinite(got).all()),
           f"{name}: shape or non-finite values")
     allowed = max(TOL_GRAD_OUTLIERS, TOL_GRAD_OUTLIER_COUNT / want.numel())
@@ -383,6 +415,233 @@ def check_layer_train(layer_vjp, what, layer, x, seq_bias, mask, causal, rate, s
     return {"forward_max_abs_err": diff.max().item(), "forward_rms": rms, "grads": readings}
 
 
+def stacked_masters(layers):
+    """The ten float32 masters of ``layers`` stacked ``[L, ...]``, leaves."""
+    return [torch.stack(ws).detach().requires_grad_()
+            for ws in zip(*(layer.masters() for layer in layers))]
+
+
+def k4_chain(layer_vjp, x, bias, *rest):
+    """What K7 computes, as L successive K4 calls with the per-layer seeds."""
+    from deepsvg_tpu_torch.ops.dropout import stack_layer_seed
+    masters, (mask, seed, n_heads, causal, rate, dt) = rest[:10], rest[10:]
+    for layer in range(masters[0].shape[0]):
+        x = layer_vjp.fused_layer_train(x, bias[layer], *[w[layer] for w in masters], mask,
+                                        stack_layer_seed(seed, layer), n_heads, causal, rate, dt)
+    return x
+
+
+def check_stack_train(stack_vjp, layer_vjp, what, layers, x, biases, mask, rate, seed=4321):
+    """K7 against its plain version with the same hash masks (the forward
+    layer by layer from the kernel's own inputs, then the whole stack and its
+    twelve gradients, as they are and with the kernel's ReLU units), and
+    against the chain of K4 calls, to the bit. Returns the readings."""
+    from deepsvg_tpu_torch.ops.dropout import stack_layer_seed
+    dt, n_heads = layers[0].compute_dtype, layers[0].n_heads
+    masters = stacked_masters(layers)
+    x = x.detach().to(dt).requires_grad_()
+    bias = biases.detach().to(dt).requires_grad_()
+    g = torch.randn(x.shape, device=x.device).to(dt)
+    leaves = [x, bias, *masters]
+    call = (x, bias, *masters, mask, seed, n_heads, False, rate, dt)
+    out = stack_vjp.fused_stack_train(*call)
+    gates = stack_vjp.kernel_relu_gates(out)
+    inputs = stack_vjp.kernel_layer_inputs(out)
+    grads = torch.autograd.grad(out, leaves, g)
+    check(bool(torch.isfinite(out).all()), f"K7 {what}: non-finite output")
+    layer_rms, layer_excess = [], []
+    with torch.no_grad():
+        for layer, (x_l, y_l) in enumerate(zip(inputs, inputs[1:] + [out])):
+            ref_l = layer_vjp.plain_layer_train(
+                x_l, bias[layer], *[w[layer] for w in masters], mask,
+                stack_layer_seed(seed, layer), n_heads, False, rate, dt).float()
+            layer_rms.append(rel_rms(y_l, ref_l))
+            layer_excess.append(((y_l.float() - ref_l).abs() - TOL_LAYER_RTOL * ref_l.abs())
+                                .max().item())
+    check_later(max(layer_excess) <= TOL_LAYER_ATOL and max(layer_rms) <= TOL_LAYER_RMS,
+                f"K7 {what} forward, layer by layer from the kernel's inputs: an element is "
+                f"off by {max(layer_excess)} beyond {TOL_LAYER_RTOL} x |out| (limit "
+                f"{TOL_LAYER_ATOL}), relative RMS err {max(layer_rms)} (limit {TOL_LAYER_RMS})")
+    ref = stack_vjp.plain_stack_train(*call)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+    gate_grads = torch.autograd.grad(stack_vjp.plain_stack_train(*call, relu_gates=gates),
+                                     leaves, g)
+    diff = (out.float() - ref.float()).abs()
+    rms = rel_rms(out, ref)
+    check_later(rms <= TOL_STACK_RMS,
+                f"K7 {what} whole-stack forward: relative RMS err {rms} (limit {TOL_STACK_RMS})")
+    readings = {n: compare_grad(f"K7 {what} d{n}", a, w, wg, dt,
+                                (TOL_STACK_GRAD_RMS, TOL_STACK_GRAD_RMS_SAME_GATE))
+                for n, a, w, wg in zip(GRAD_NAMES, grads, ref_grads, gate_grads)}
+    chain = k4_chain(layer_vjp, *call)
+    chain_grads = torch.autograd.grad(chain, leaves, g)
+    same = torch.equal(out, chain) and all(torch.equal(a, c) for a, c in zip(grads, chain_grads))
+    check_later(same, f"K7 {what}: not equal to the bit to the chain of {len(layers)} K4 calls")
+    worst = max(readings, key=lambda n: readings[n]["rms"])
+    worst_gate = max(readings, key=lambda n: readings[n]["rms_same_gate"])
+    print(f"K7 {what} rate {rate}: forward layer by layer relative RMS at most "
+          f"{max(layer_rms):.3g} (limit {TOL_LAYER_RMS}); whole stack max abs err "
+          f"{diff.max().item():.3g}, relative RMS {rms:.3g} (limit {TOL_STACK_RMS}); gradients' "
+          f"relative RMS err at most {readings[worst]['rms']:.3g} (d{worst}; limit "
+          f"{TOL_STACK_GRAD_RMS}), with the ReLU units aligned "
+          f"{readings[worst_gate]['rms_same_gate']:.3g} (d{worst_gate}; limit "
+          f"{TOL_STACK_GRAD_RMS_SAME_GATE}); the worst element off by "
+          f"{max(r['worst'] for r in readings.values()):.3g} of the largest entry (limit "
+          f"{TOL_GRAD_WORST}), aligned {max(r['worst_same_gate'] for r in readings.values()):.3g} "
+          f"(limit {TOL_GRAD_WORST_SAME_GATE}); equal to the K4 chain to the bit: {same}",
+          flush=True)
+    return {"layer_rms": layer_rms, "layer_excess": layer_excess, "forward_rms": rms,
+            "forward_max_abs_err": diff.max().item(), "grads": readings, "equals_k4_chain": same}
+
+
+def run_cli(dev, reset_counts, read_counts, per_step: dict) -> dict:
+    """The training CLI's ``train()`` on the flagship config at one card
+    (B=60, bfloat16, dropout 0.1), the synthetic dataset resident on the
+    card: a first run of CLI_STEPS[0] steps with an asynchronous checkpoint,
+    then a resumed run to CLI_STEPS[1]. Checks the step counts, the loss, the
+    checkpoint's and the resumed parameters (to the bit) and the launches
+    (``per_step`` x steps, counted over the first run). Its console output
+    goes to ``cli_train.log`` in OUT_DIR. Returns the readings."""
+    import tempfile
+
+    from deepsvg_tpu_torch.training import train as train_mod
+    from deepsvg_tpu_torch.training.config import load_config
+    from deepsvg_tpu_torch.training.trainer import create_train_state
+
+    def config():
+        cfg = load_config("deepsvg_tpu_torch.configs.hierarchical_ordered", 1)
+        cfg.dataloader_module = "deepsvg_tpu_torch.data.synthetic"
+        cfg.synthetic_size = CLI_ICONS
+        cfg.log_every, cfg.ckpt_every, cfg.warmup_steps = CLI_LOG_EVERY, CLI_CKPT_EVERY, CLI_WARMUP
+        return cfg
+
+    # the parameters at the moment a background save begins, and those a
+    # resumed run starts from
+    snapshots, resumed = {}, {}
+    begin_save, load_ckpt = train_mod.begin_save, train_mod.load_ckpt
+
+    def spy_begin_save(checkpoint_dir, state, *args, step=None, **kwargs):
+        snapshots[step] = [p.detach().clone() for p in state.parameters()]
+        return begin_save(checkpoint_dir, state, *args, step=step, **kwargs)
+
+    def spy_load_ckpt(*args, **kwargs):
+        state, found = load_ckpt(*args, **kwargs)
+        resumed.update(step=state.step, found=found,
+                       params=[p.detach().clone() for p in state.parameters()])
+        return state, found
+
+    out = {}
+    with open(os.path.join(OUT_DIR, "cli_train.log"), "w") as log, \
+            tempfile.TemporaryDirectory() as log_dir:
+        ckpt_dir = os.path.join(log_dir, "models", "hierarchical_ordered", "smoke")
+        train_mod.begin_save, train_mod.load_ckpt = spy_begin_save, spy_load_ckpt
+        try:
+            with contextlib.redirect_stdout(log):
+                reset_counts()
+                t0 = time.perf_counter()
+                state1, stats1 = train_mod.train(config(), "hierarchical_ordered", "smoke",
+                                                 log_dir=log_dir, max_steps=CLI_STEPS[0],
+                                                 device=dev)
+                torch.cuda.synchronize()
+                out["first_run_s"] = time.perf_counter() - t0
+                counts = read_counts()
+                final1 = [p.detach().clone() for p in state1.parameters()]
+                files = sorted(os.listdir(ckpt_dir))
+                # the background checkpoint, read back into a fresh state
+                cfg = config()
+                fresh = create_train_state(cfg.make_model().to(dev), cfg.make_optimizer(8))
+                fresh, found = load_ckpt(os.path.join(ckpt_dir, f"{CLI_CKPT_EVERY:06d}.ckpt"),
+                                         fresh)
+                t0 = time.perf_counter()
+                state2, stats2 = train_mod.train(config(), "hierarchical_ordered", "smoke",
+                                                 log_dir=log_dir, resume=True,
+                                                 max_steps=CLI_STEPS[1], device=dev)
+                torch.cuda.synchronize()
+                out["resumed_run_s"] = time.perf_counter() - t0
+        finally:
+            train_mod.begin_save, train_mod.load_ckpt = begin_save, load_ckpt
+    n1 = CLI_STEPS[0]
+    expected = {k: v * n1 for k, v in per_step.items()}
+    check(counts == expected, f"CLI run: launches over {n1} steps {counts}, expected {expected}")
+    check(state1.step == n1 and state2.step == CLI_STEPS[1],
+          f"CLI steps {state1.step}, {state2.step}; expected {CLI_STEPS}")
+    check(files == [f"{CLI_CKPT_EVERY:06d}.ckpt", f"{n1:06d}.ckpt", "best.ckpt"],
+          f"CLI checkpoints {files}")
+    snap = snapshots.get(CLI_CKPT_EVERY)
+    check(found and snap is not None
+          and all(torch.equal(a, b) for a, b in zip(snap, fresh.parameters()))
+          and fresh.step == CLI_CKPT_EVERY,
+          "the background checkpoint does not hold the parameters of its step")
+    check(any(not torch.equal(a, b) for a, b in zip(snap, final1)),
+          "the parameters did not move after the background checkpoint")
+    check(resumed.get("found") and resumed["step"] == n1
+          and all(torch.equal(a, b) for a, b in zip(resumed["params"], final1)),
+          f"the resumed run did not start from the saved step {n1} and its parameters")
+    losses = list(stats1.stats["train"]["loss"].deque) + list(stats2.stats["train"]["loss"].deque)
+    windows = CLI_STEPS[1] // CLI_LOG_EVERY
+    check(len(losses) == windows and all(np.isfinite(v) for v in losses),
+          f"CLI logged losses {losses}, expected {windows} finite windows")
+    check(losses[-1] < losses[0], f"the CLI run's loss did not fall: {losses}")
+    # wall time per step over the resumed run's windows after its first
+    # (which holds the set-up): the loop's host clock between log windows.
+    # The loop does not synchronise; once the launch queue is full the host
+    # keeps the device's pace, or the device waits for the host.
+    wall = [1e3 * t for t in list(stats2.stats["train"]["time"].deque)[1:]]
+    # the loop's own steps without train()'s threads and cadences:
+    # train_resident_multi_step over the same corpus, host clock around
+    # 3 x 8 steps that end in a synchronize
+    from deepsvg_tpu_torch.data.resident import build_resident_arrays
+    from deepsvg_tpu_torch.training.trainer import train_resident_multi_step
+    cfg = config()
+    data, _, n_augs = build_resident_arrays(train_mod.load_dataset(cfg), cfg.model_args)
+    shapes = {k: v.shape[1:] for k, v in data.items()}
+    data = {k: torch.from_numpy(np.ascontiguousarray(v.reshape(len(v), -1))).to(dev)
+            for k, v in data.items()}
+    idx = torch.arange(8 * B_RECIPE, device=dev, dtype=torch.int32).reshape(8, B_RECIPE)
+    optimizer = cfg.make_optimizer(8)
+
+    def weights_fn(step):
+        return cfg.get_weights(step, 0)
+    train_resident_multi_step(state2, data, idx, weights_fn, optimizer, cfg.model_args,
+                              n_augs, shapes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        train_resident_multi_step(state2, data, idx, weights_fn, optimizer, cfg.model_args,
+                                  n_augs, shapes)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / 24
+    out.update(steps=list(CLI_STEPS), launches_first_run=counts, checkpoints=files,
+               losses=losses, wall_ms_per_step=wall,
+               wall_ms_per_step_mean=statistics.mean(wall),
+               resident_multi_step_ms_per_step=loop_ms)
+    print(f"CLI train() B={B_RECIPE}, {CLI_ICONS} synthetic icons resident on the card: "
+          f"{CLI_STEPS[0]} steps, background checkpoint at {CLI_CKPT_EVERY} (its parameters "
+          f"equal those of its step, bit for bit), resumed from {resumed['step']} (parameters "
+          f"equal, bit for bit) to {CLI_STEPS[1]}; logged loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"over {windows} windows; launches over the first run {counts}; wall "
+          f"{out['wall_ms_per_step_mean']:.3f} ms/step over the resumed run's windows "
+          f"{[round(w, 3) for w in wall]} (checkpoints begin at {CLI_STEPS[0] + 8} and "
+          f"{CLI_STEPS[0] + 24}); train_resident_multi_step alone {loop_ms:.3f} ms/step",
+          flush=True)
+    return out
+
+
+def device_busy_ms(fn, iters: int = 5) -> float | None:
+    """Device time per call of ``fn`` under ``torch.profiler`` (the sum of
+    its kernels' times), or None when the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if e.device_time_total > 0 and e.device_type.name == "CUDA")
+    return busy / 1e3 / iters if busy else None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -397,7 +656,7 @@ def main() -> int:
     from deepsvg_tpu_torch.ops import embedding as emb_ops
     from deepsvg_tpu_torch.ops import head as head_ops
     from deepsvg_tpu_torch.ops import layer as layer_ops
-    from deepsvg_tpu_torch.ops import layer_vjp
+    from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
     from deepsvg_tpu_torch.svgtensor import masks as M
     from deepsvg_tpu_torch.svgtensor.constants import CMD_ARGS_MASK, PAD_VAL
     from deepsvg_tpu_torch.training import (
@@ -421,6 +680,8 @@ def main() -> int:
         layer_vjp.fused_layer_train.launches = 0
         layer_vjp.fused_layer_train.backward_launches = 0
         ce_ops.args_ce.launches = ce_ops.args_ce.backward_launches = 0
+        stack_vjp.fused_stack_train.launches = 0
+        stack_vjp.fused_stack_train.backward_launches = 0
 
     def read_counts() -> dict:
         f32 = layer_ops.fused_layer.float32_launches
@@ -431,7 +692,9 @@ def main() -> int:
                 "layer_train_bwd": layer_vjp.fused_layer_train.backward_launches,
                 "args_ce_fwd": ce_ops.args_ce.launches,
                 "args_ce_bwd": ce_ops.args_ce.backward_launches,
-                "embedding_bwd": emb_ops.embedding_backward.launches}
+                "embedding_bwd": emb_ops.embedding_backward.launches,
+                "stack_fwd": stack_vjp.fused_stack_train.launches,
+                "stack_bwd": stack_vjp.fused_stack_train.backward_launches}
 
     # ---- build
     t0 = time.perf_counter()
@@ -706,6 +969,19 @@ def main() -> int:
             lib = torch.nn.TransformerEncoderLayer(
                 layer.qkv.in_features, layer.n_heads, layer.ff1.out_features, dropout=0.0,
                 activation="relu", batch_first=True, norm_first=True, device=dev, dtype=dtype)
+            copy_layer(lib, layer)
+            return lib.train() if train else lib.eval()
+
+        def library_stack(layers, dtype):
+            """torch.nn.TransformerEncoder of ``layers`` (no final norm),
+            training mode at rate 0."""
+            lib = torch.nn.TransformerEncoder(library_layer(layers[0], dtype, train=True),
+                                              len(layers), enable_nested_tensor=False)
+            for lib_layer, layer in zip(lib.layers, layers):
+                copy_layer(lib_layer, layer)
+            return lib.train()
+
+        def copy_layer(lib, layer):
             with torch.no_grad():
                 lib.self_attn.in_proj_weight.copy_(layer.qkv.weight)
                 lib.self_attn.in_proj_bias.copy_(layer.qkv.bias)
@@ -717,7 +993,6 @@ def main() -> int:
                 for dst, src in ((lib.norm1, layer.norm1), (lib.norm2, layer.norm2)):
                     dst.weight.copy_(src[0])
                     dst.bias.copy_(src[1])
-            return lib.train() if train else lib.eval()
 
         lib = library_layer(l_e1, bf16)
         pad_bool = M.key_padding_mask(cmd_f)
@@ -908,7 +1183,7 @@ def main() -> int:
         return res, dict(zip(names, [p.grad.detach().clone() for p in state.parameters()]))
 
     res_k, grads_k = one_step(0.0, B_STEP_CHECK)
-    with plain_path(emb_ops, layer_ops, head_ops, layer_vjp, ce_ops):
+    with plain_path(emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp):
         res_p, grads_p = one_step(0.0, B_STEP_CHECK)
     step_cmp = {}
     for k in ("loss", "loss_visibility", "loss_cmd", "loss_args"):
@@ -929,7 +1204,8 @@ def main() -> int:
     check_later(cosine >= TOL_STEP_COSINE and leaf_rms[worst_leaf] <= TOL_STEP_LEAF_RMS,
           f"step gradients: cosine {cosine} (limit {TOL_STEP_COSINE}), worst leaf "
           f"{worst_leaf} relative RMS err {leaf_rms[worst_leaf]} (limit {TOL_STEP_LEAF_RMS})")
-    print(f"one step B={B_STEP_CHECK} dropout 0, kernel path vs plain path: losses (kernel, "
+    print(f"one step B={B_STEP_CHECK} dropout 0 (E2 and D2 through K7 on the kernel path), "
+          f"kernel path vs plain path: losses (kernel, "
           f"plain) {step_cmp}; grad norm {norm_k:.5g} vs {norm_p:.5g}; whole-gradient cosine "
           f"{cosine:.6f}; per-leaf relative RMS err median "
           f"{statistics.median(leaf_rms.values()):.3g}, worst {leaf_rms[worst_leaf]:.3g} "
@@ -942,49 +1218,63 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- (b), (c), (d): the training path at B=128, dropout 0.1
-    state, optimizer = new_state(DROPOUT)
-    full = batch_of(B_TRAIN)
-    before = [p.detach().clone() for p in state.parameters()]
-    reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    events, losses = [], []
-    for i in range(TRAIN_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, res = train_step(state, full, LOSS_WEIGHTS, optimizer, MODEL_ARGS)
-        end.record()
-        events.append((start, end))
-        losses.append(res)
-        if i == 0:
-            torch.cuda.synchronize()
-            train_launches = read_counts()
-    torch.cuda.synchronize()
-    train_peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"training path B={B_TRAIN}: launches in one step {train_launches}", flush=True)
-    check(train_launches == {"embedding": 1, "layer": 0, "layer_f32": 0, "head": 0,
-                             "layer_train_fwd": 16, "layer_train_bwd": 16, "args_ce_fwd": 1,
-                             "args_ce_bwd": 1, "embedding_bwd": 1},
-          f"launches per training step {train_launches}, expected embedding 1, layer_train "
-          f"16 forward and 16 backward, args_ce 1 and 1, embedding_bwd 1, no inference kernel")
-    loss_values = [float(r["loss"]) for r in losses]
-    check(all(np.isfinite(float(v)) for r in losses for v in r.values()),
-          f"a training loss or gradient norm is not finite: {loss_values}")
-    check(loss_values[-1] < loss_values[0],
-          f"the loss did not fall over {TRAIN_STEPS} steps on one batch: {loss_values}")
-    moved = sum(not torch.equal(p, old) for p, old in zip(state.parameters(), before))
-    check(moved == 210 and state.step == TRAIN_STEPS
-          and all(p.dtype == torch.float32 for p in state.parameters()),
-          f"{moved} of 210 leaves moved; step {state.step}")
-    step_ms = statistics.median(s.elapsed_time(e) for s, e in events[3:])
-    record["train"] = {"B": B_TRAIN, "steps": TRAIN_STEPS, "losses": loss_values,
-                       "grad_norms": [float(r["grad_norm"]) for r in losses],
-                       "median_ms_per_step": step_ms, "samples_per_s": B_TRAIN / step_ms * 1e3,
-                       "peak_memory_gib": train_peak, "launches_per_step": train_launches}
-    print(f"training B={B_TRAIN} dropout {DROPOUT} bf16, lr {LR}: loss {loss_values[0]:.4f} -> "
-          f"{loss_values[-1]:.4f} over {TRAIN_STEPS} steps on one batch, all finite; "
-          f"{step_ms:.3f} ms/step median of {TRAIN_STEPS - 3}, {B_TRAIN / step_ms * 1e3:.1f} "
-          f"samples/s, peak memory {train_peak:.2f} GiB on {card}", flush=True)
-    del state, before, losses
+    def train_loop(b: int, expected: dict) -> dict:
+        """TRAIN_STEPS steps on one batch of ``b``, dropout 0.1: the first
+        counted (``expected`` launches), the loss finite and falling, every
+        leaf moved, the last TRAIN_STEPS - 3 timed by CUDA events (median of
+        the steps) and by the host clock (their mean, to a synchronize)."""
+        state, optimizer = new_state(DROPOUT)
+        full = batch_of(b)
+        before = [p.detach().clone() for p in state.parameters()]
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        events, losses = [], []
+        for i in range(TRAIN_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, res = train_step(state, full, LOSS_WEIGHTS, optimizer, MODEL_ARGS)
+            end.record()
+            events.append((start, end))
+            losses.append(res)
+            if i == 0:
+                torch.cuda.synchronize()
+                counted = read_counts()
+            if i == 2:
+                torch.cuda.synchronize()
+                t_host = time.perf_counter()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t_host) * 1e3 / (TRAIN_STEPS - 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"training path B={b}: launches in one step {counted}", flush=True)
+        check(counted == expected, f"launches per training step at B={b} {counted}, "
+                                   f"expected {expected}")
+        loss_values = [float(r["loss"]) for r in losses]
+        check(all(np.isfinite(float(v)) for r in losses for v in r.values()),
+              f"a training loss or gradient norm is not finite: {loss_values}")
+        check(loss_values[-1] < loss_values[0],
+              f"the loss did not fall over {TRAIN_STEPS} steps on one batch: {loss_values}")
+        moved = sum(not torch.equal(p, old) for p, old in zip(state.parameters(), before))
+        check(moved == 210 and state.step == TRAIN_STEPS
+              and all(p.dtype == torch.float32 for p in state.parameters()),
+              f"{moved} of 210 leaves moved; step {state.step}")
+        step_ms = statistics.median(s.elapsed_time(e) for s, e in events[3:])
+        print(f"training B={b} dropout {DROPOUT} bf16, lr {LR}: loss {loss_values[0]:.4f} -> "
+              f"{loss_values[-1]:.4f} over {TRAIN_STEPS} steps on one batch, all finite; "
+              f"{step_ms:.3f} ms/step median of {TRAIN_STEPS - 3}, {b / step_ms * 1e3:.1f} "
+              f"samples/s (host clock: {host_ms:.3f} ms/step mean), peak memory {peak:.2f} "
+              f"GiB on {card}", flush=True)
+        return {"B": b, "steps": TRAIN_STEPS, "losses": loss_values,
+                "grad_norms": [float(r["grad_norm"]) for r in losses],
+                "median_ms_per_step": step_ms, "samples_per_s": b / step_ms * 1e3,
+                "host_mean_ms_per_step": host_ms,
+                "peak_memory_gib": peak, "launches_per_step": counted}
+
+    no_launch = dict.fromkeys(read_counts(), 0)
+    # B=128: 1,024 rows at E2 and D2, over the stack gate, so layer by layer
+    record["train"] = train_loop(B_TRAIN, no_launch | {
+        "embedding": 1, "layer_train_fwd": 16, "layer_train_bwd": 16, "args_ce_fwd": 1,
+        "args_ce_bwd": 1, "embedding_bwd": 1})
+    train_launches = record["train"]["launches_per_step"]
     torch.cuda.empty_cache()
 
     # ---- timing at the training path's shapes
@@ -1144,6 +1434,197 @@ def main() -> int:
         print(f"  {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
               f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by {k['bound_by']})")
 
+    # ======================================= the recipe's training run (B=60)
+    e2_layers = list(enc.hierarchical_encoder.layers)
+    d2_layers = list(dec.hierarchical_decoder.layers)
+    n_stack = len(e2_layers)
+    with torch.no_grad():
+        stack_inputs = {}
+        for b in (B_RECIPE, B_GATE_EDGE, B_TRAIN):
+            # E2: the pooled E1 output (float32) with its position table,
+            # the visibility mask (sequence 0 fully masked), no injection
+            stack_inputs["E2", b] = (enc.hierarchical_PE(randn(b, g, d_model)),
+                                     torch.zeros(n_stack, b, d_model, device=dev), kp_e2[:b])
+            # D2: the group queries, each layer's glob(z), no mask
+            z_d2 = 0.5 * randn(b, cfg.dim_z)
+            stack_inputs["D2", b] = (dec.hierarchical_embedding(b),
+                                     torch.stack([glob_bias(layer, z_d2) for layer in d2_layers]),
+                                     zeros(b, g))
+    stack_layers = {"E2": e2_layers, "D2": d2_layers}
+
+    # ---- K7 against its plain version and against the chain of K4 calls
+    k7 = {}
+    for stage, b, rate in (("E2", B_RECIPE, 0.0), ("E2", B_RECIPE, DROPOUT), ("D2", B_RECIPE, 0.0),
+                           ("D2", B_RECIPE, DROPOUT), ("E2", B_GATE_EDGE, DROPOUT),
+                           ("D2", B_GATE_EDGE, DROPOUT)):
+        k7[f"{stage} B={b} rate {rate}"] = check_stack_train(
+            stack_vjp, layer_vjp, f"{stage} B={b}", stack_layers[stage], *stack_inputs[stage, b],
+            rate)
+    all_grads = [r for v in k7.values() for r in v["grads"].values()]
+    kernels["stack_fwd"] = {
+        "max_abs_err": max(v["forward_max_abs_err"] for v in k7.values()),
+        "tolerance": {"layer_atol": TOL_LAYER_ATOL, "layer_rtol": TOL_LAYER_RTOL,
+                      "layer_rms": TOL_LAYER_RMS, "stack_rms": TOL_STACK_RMS}}
+    kernels["stack_bwd"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in all_grads),
+        "max_rms": max(r["rms"] for r in all_grads),
+        "max_rms_same_gate": max(r["rms_same_gate"] for r in all_grads),
+        "tolerance": {"rms": TOL_STACK_GRAD_RMS, "rms_same_gate": TOL_STACK_GRAD_RMS_SAME_GATE,
+                      "worst_of_max": TOL_GRAD_WORST,
+                      "worst_of_max_same_gate": TOL_GRAD_WORST_SAME_GATE}}
+    record["stack_train_cases"] = k7
+
+    # ---- the step at the recipe batch: E2 and D2 through K7
+    recipe_launches = no_launch | {
+        "embedding": 1, "layer_train_fwd": 8, "layer_train_bwd": 8, "stack_fwd": 2,
+        "stack_bwd": 2, "args_ce_fwd": 1, "args_ce_bwd": 1, "embedding_bwd": 1}
+    record["train_recipe"] = train_loop(B_RECIPE, recipe_launches)
+    state60, optimizer60 = new_state(DROPOUT)
+    recipe_batch = batch_of(B_RECIPE)
+    busy60 = device_busy_ms(lambda: train_step(state60, recipe_batch, LOSS_WEIGHTS, optimizer60,
+                                               MODEL_ARGS))
+    del state60, optimizer60
+    torch.cuda.empty_cache()
+
+    # ---- would a wider stack gate pay on this card? The step at B=128 (E2
+    # and D2 at 1,024 rows), the gate as it is and at 1,024 rows in turns,
+    # step by step (the host's pace drifts within a call): host clock around
+    # each step, which ends in a synchronize
+    from deepsvg_tpu_torch.models import layers as model_layers
+    narrow_gate = model_layers.use_stack_fused
+
+    def wide_gate(deterministic, n_layers, b, s):
+        s_pad = -(-s // 8) * 8
+        return not deterministic and n_layers > 1 and s_pad <= 16 and b * s_pad <= 1024
+    state_g, optimizer_g = new_state(DROPOUT)
+    batch_g = batch_of(B_TRAIN)
+    gate_ms = {"narrow": [], "wide": []}
+    try:
+        for i in range(2 + 2 * ITERS):
+            which = ("narrow", "wide")[i % 2]
+            model_layers.use_stack_fused = narrow_gate if which == "narrow" else wide_gate
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            train_step(state_g, batch_g, LOSS_WEIGHTS, optimizer_g, MODEL_ARGS)
+            torch.cuda.synchronize()
+            if i >= 2:
+                gate_ms[which].append((time.perf_counter() - t0) * 1e3)
+            if i == 1:
+                check(read_counts() == recipe_launches,
+                      f"B={B_TRAIN} with the gate at 1,024 rows: launches {read_counts()}")
+    finally:
+        model_layers.use_stack_fused = narrow_gate
+    record["gate_at_1024_rows"] = {k: v for k, v in gate_ms.items()}
+    print(f"stack gate at B={B_TRAIN}, steps in turns, host clock to a synchronize: through K7 "
+          f"median {statistics.median(gate_ms['wide']):.3f} ms (range "
+          f"{min(gate_ms['wide']):.3f}-{max(gate_ms['wide']):.3f}), layer by layer "
+          f"{statistics.median(gate_ms['narrow']):.3f} ms ({min(gate_ms['narrow']):.3f}-"
+          f"{max(gate_ms['narrow']):.3f}), {ITERS} steps each", flush=True)
+    del state_g, optimizer_g
+    torch.cuda.empty_cache()
+
+    # ---- the training CLI, the recipe's entry point
+    cli = run_cli(dev, reset_counts, read_counts, recipe_launches)
+    cli_launches = cli["launches_first_run"]
+    cli["device_busy_ms_per_step"] = busy60
+    cli["idle_share"] = None if busy60 is None else 1 - busy60 / cli["wall_ms_per_step_mean"]
+    record["cli"] = cli
+    print(f"CLI loop B={B_RECIPE}: wall {cli['wall_ms_per_step_mean']:.3f} ms/step, "
+          f"{B_RECIPE / cli['wall_ms_per_step_mean'] * 1e3:.1f} samples/s; device busy "
+          f"{busy60 if busy60 is None else round(busy60, 3)} ms per step (train_step under "
+          f"torch.profiler); idle share "
+          f"{'not measured' if busy60 is None else round(cli['idle_share'], 4)} on {card}",
+          flush=True)
+
+    # ---- K7 and the chain of K4 calls timed, at 480, 512 and 1,024 rows
+    def stack_runs(stage, b, fn):
+        layers = stack_layers[stage]
+        x, biases, mask = stack_inputs[stage, b]
+        dt = layers[0].compute_dtype
+        masters = stacked_masters(layers)
+        x = x.detach().to(dt).requires_grad_()
+        bias = biases.detach().to(dt).requires_grad_()
+        gy = torch.randn(x.shape, device=dev).to(dt)
+        call = (x, bias, *masters, mask, 7, layers[0].n_heads, False, DROPOUT, dt)
+        leaves = [x, bias, *masters]
+
+        def fwd():
+            with torch.no_grad():
+                return fn(*call)
+
+        def both():
+            return torch.autograd.grad(fn(*call), leaves, gy)
+        return fwd, both
+
+    def chain_fn(*call):
+        return k4_chain(layer_vjp, *call)
+
+    def k7_bound(b, backward):
+        """The bound of the function: x, the mask, the injections and the
+        four layers' weights as the kernel reads them in, out (forward), or
+        g in and dx, dseq_bias and the float32 weight gradients out
+        (backward); the products and attention of four layers."""
+        s, f, es = g, cfg.dim_feedforward, 2
+        rows = b * s
+        w_elems = n_stack * (4 * d_model * d_model + 2 * d_model * f + 9 * d_model + f)
+        common = rows * d_model * es + rows * 4 + w_elems * es + n_stack * b * d_model * es
+        fwd_ops = n_stack * layer_ops_count(b, s, d_model, f)
+        if not backward:
+            return bound(common + rows * d_model * es, fwd_ops, PEAK_BF16)
+        attn = n_stack * 4.0 * b * s * s * d_model
+        return bound(common + 2 * rows * d_model * es + w_elems * 4 + n_stack * b * d_model * 4,
+                     2 * (fwd_ops - attn) + 2 * attn, PEAK_BF16)
+
+    stack_times = {}
+    for stage in ("E2", "D2"):
+        for b in (B_RECIPE, B_GATE_EDGE, B_TRAIN):
+            fwd, both = stack_runs(stage, b, stack_vjp.fused_stack_train)
+            cfwd, cboth = stack_runs(stage, b, chain_fn)
+            f_ms, fb_ms, cf_ms, cfb_ms = cuda_ms(fwd), cuda_ms(both), cuda_ms(cfwd), cuda_ms(cboth)
+            stack_times[f"{stage} B={b}"] = {
+                "rows": b * g, "fwd_ms": f_ms, "bwd_ms": fb_ms - f_ms, "k4_chain_fwd_ms": cf_ms,
+                "k4_chain_bwd_ms": cfb_ms - cf_ms}
+    pfwd, pboth = stack_runs("E2", B_RECIPE, stack_vjp.plain_stack_train)
+    pf_ms, pfb_ms = cuda_ms(pfwd, iters=5, warmup=1), cuda_ms(pboth, iters=5, warmup=1)
+    lib_stack = library_stack(e2_layers, bf16)
+    x_lib = stack_inputs["E2", B_RECIPE][0].detach().to(bf16).requires_grad_()
+    g_lib = torch.randn_like(x_lib)
+    pad_lib = ~t_vis[:B_RECIPE]
+
+    def lib_stack_fwd():
+        with torch.no_grad():
+            return lib_stack(x_lib, src_key_padding_mask=pad_lib)
+
+    def lib_stack_both():
+        return torch.autograd.grad(lib_stack(x_lib, src_key_padding_mask=pad_lib),
+                                   [x_lib, *lib_stack.parameters()], g_lib)
+    lf_ms, lfb_ms = cuda_ms(lib_stack_fwd), cuda_ms(lib_stack_both)
+    e2s = stack_times[f"E2 B={B_RECIPE}"]
+    bf_ms, bf_by = k7_bound(B_RECIPE, False)
+    bb_ms, bb_by = k7_bound(B_RECIPE, True)
+    kernels["stack_fwd"].update(ms=e2s["fwd_ms"], plain_ms=pf_ms, library_ms=lf_ms,
+                                bound_ms=bf_ms, bound_by=bf_by, stages=stack_times)
+    kernels["stack_bwd"].update(ms=e2s["bwd_ms"], plain_ms=pfb_ms - pf_ms,
+                                library_ms=lfb_ms - lf_ms, bound_ms=bb_ms, bound_by=bb_by)
+    bounds64 = (k7_bound(B_GATE_EDGE, False)[0], k7_bound(B_GATE_EDGE, True)[0])
+    for what, st in stack_times.items():
+        print(f"  stack {what} ({st['rows']} rows): K7 forward {st['fwd_ms']:.4f} ms, backward "
+              f"{st['bwd_ms']:.4f} ms; the chain of {n_stack} K4 calls {st['k4_chain_fwd_ms']:.4f} "
+              f"and {st['k4_chain_bwd_ms']:.4f} ms")
+    print(f"  stack_fwd E2 B={B_RECIPE}: {e2s['fwd_ms']:.4f} ms (plain {pf_ms:.4f}, library "
+          f"{lf_ms:.4f}, bound {bf_ms:.4f} by {bf_by}); stack_bwd {e2s['bwd_ms']:.4f} ms (plain "
+          f"{pfb_ms - pf_ms:.4f}, library {lfb_ms - lf_ms:.4f}, bound {bb_ms:.4f} by {bb_by}); "
+          f"bounds at B={B_GATE_EDGE} {bounds64[0]:.4f} and {bounds64[1]:.4f} ms")
+    for b in (B_RECIPE, B_TRAIN):
+        k7_total = sum(stack_times[f"{st} B={b}"][k] for st in ("E2", "D2")
+                       for k in ("fwd_ms", "bwd_ms"))
+        chain_total = sum(stack_times[f"{st} B={b}"][k] for st in ("E2", "D2")
+                          for k in ("k4_chain_fwd_ms", "k4_chain_bwd_ms"))
+        print(f"  E2 + D2 forward and backward at {b * g} rows: K7 {k7_total:.4f} ms, the K4 "
+              f"chain {chain_total:.4f} ms")
+    record["stack_bounds_b64_ms"] = bounds64
+
     csrc = "deepsvg_tpu_torch/ops/csrc/"
     source = {
         "embedding": (csrc + "embedding.cu", "deepsvg_tpu/ops/embedding.py:34"),
@@ -1155,11 +1636,15 @@ def main() -> int:
         "args_ce_fwd": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:30"),
         "args_ce_bwd": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:81"),
         "embedding_bwd": (csrc + "embedding_bwd.cu", "deepsvg_tpu/ops/embedding.py:133"),
+        "stack_fwd": (csrc + "stack.cu", "deepsvg_tpu/ops/stack_vjp.py:87"),
+        "stack_bwd": (csrc + "stack.cu", "deepsvg_tpu/ops/stack_vjp.py:159"),
     }
     line = []
     for name, k in kernels.items():
         src_file, replaces = source[name]
-        count = launches[name] if launches[name] else train_launches[name]
+        # the count of the path that runs the kernel: inference, the step at
+        # B=128, or (K7) the first CLI run at B=60
+        count = launches[name] or train_launches[name] or cli_launches[name]
         line.append({
             "name": name, "route": "cuda", "source": src_file, "replaces": replaces,
             "launches": count, "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -1,13 +1,16 @@
-"""Reader for flax's msgpack parameter files, in pure Python.
+"""Reader and writer for flax's msgpack parameter files, in pure Python.
 
 ``deepsvg_tpu/training/checkpoint.py:save_model`` writes the parameter tree
 with ``flax.serialization.msgpack_serialize``. The port may import neither
-flax nor ``msgpack``, so this module decodes the format itself: msgpack maps,
+flax nor ``msgpack``, so this module decodes the format itself (msgpack maps,
 strings, binaries, integers, floats, nil/bool and arrays, plus flax's ext
 type 1 (an ndarray packed as ``(shape, dtype_name, C-order bytes)``) and ext
-type 3 (a numpy scalar, packed as a 0-d ndarray). The result is a nested
-dict of numpy arrays. Dtypes are those numpy names itself (no bfloat16), and
-arrays above flax's 1 GiB chunking limit are not reassembled.
+type 3 (a numpy scalar, packed as a 0-d ndarray); the result is a nested
+dict of numpy arrays) and encodes it (:func:`msgpack_serialize`: the bytes
+that ``flax.serialization.msgpack_serialize`` gives for the same tree of
+dicts, strings, Python scalars and numpy arrays). Dtypes are those numpy
+names itself (no bfloat16), and arrays above flax's 1 GiB chunking limit are
+neither split nor reassembled.
 """
 from __future__ import annotations
 
@@ -110,3 +113,89 @@ def load_params(path: str) -> dict:
     if isinstance(tree, dict) and set(tree) == {"params"}:
         tree = tree["params"]
     return tree
+
+
+def _pack_uint(n: int, fix_max: int, fix_base: int, codes) -> bytes:
+    """A length or count: the fixed form below ``fix_max``, else the
+    smallest of the 8/16/32-bit forms that ``codes`` name (None: absent)."""
+    if n < fix_max:
+        return bytes([fix_base | n])
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n < 0x80 or -32 <= n < 0:
+        return struct.pack(">b" if n < 0 else ">B", n)
+    if n >= 0:
+        for code, fmt, limit in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                                 (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64)):
+            if n < limit:
+                return bytes([code]) + struct.pack(fmt, n)
+    for code, fmt, limit in ((0xD0, ">b", 1 << 7), (0xD1, ">h", 1 << 15),
+                             (0xD2, ">i", 1 << 31), (0xD3, ">q", 1 << 63)):
+        if n >= -limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"integer {n} does not fit msgpack")
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        head = bytes([fixed[n]])
+    else:
+        head = _pack_uint(n, 0, 0, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", code) + payload
+
+
+def _pack(value) -> bytes:
+    """msgpack as ``msgpack.packb(value, use_bin_type=True)`` writes it, with
+    numpy arrays and scalars as flax's ext types."""
+    if value is None:
+        return b"\xc0"
+    if isinstance(value, bool):
+        return b"\xc3" if value else b"\xc2"
+    if isinstance(value, int):
+        return _pack_int(value)
+    if isinstance(value, float):
+        return b"\xcb" + struct.pack(">d", value)
+    if isinstance(value, str):
+        data = value.encode("utf-8")
+        return _pack_uint(len(data), 32, 0xA0, (0xD9, 0xDA, 0xDB)) + data
+    if isinstance(value, (bytes, bytearray, memoryview)):
+        data = bytes(value)
+        return _pack_uint(len(data), 0, 0, (0xC4, 0xC5, 0xC6)) + data
+    if isinstance(value, dict):
+        return _pack_uint(len(value), 16, 0x80, (None, 0xDE, 0xDF)) + b"".join(
+            _pack(k) + _pack(value[k]) for k in sorted(value))
+    if isinstance(value, (list, tuple)):
+        return _pack_uint(len(value), 16, 0x90, (None, 0xDC, 0xDD)) + b"".join(
+            _pack(v) for v in value)
+    if isinstance(value, (np.ndarray, np.generic)):
+        array = np.asarray(value)
+        if array.dtype.hasobject or array.dtype.isalignedstruct:
+            raise ValueError("object and structured dtypes cannot be serialized")
+        payload = _pack((array.shape, array.dtype.name, array.tobytes("C")))
+        return _pack_ext(_EXT_NDARRAY if isinstance(value, np.ndarray) else _EXT_NPSCALAR,
+                         payload)
+    raise TypeError(f"cannot serialize {type(value).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Encode a tree of dicts, lists, Python scalars and numpy arrays as
+    flax's ``msgpack_serialize`` does (each dict's keys sorted, as JAX's tree
+    utilities leave them)."""
+    return _pack(tree)
+
+
+def save_params(path: str, tree: dict) -> None:
+    """Write ``tree`` (the flax parameter tree, nested dicts of numpy
+    arrays) as ``save_model`` does; ``load_params`` reads it back."""
+    import os
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(tree))

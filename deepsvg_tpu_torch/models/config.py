@@ -71,6 +71,26 @@ class ModelConfig:
         targets) or the full delta range (relative targets)."""
         return 2 * self.args_dim if self.rel_targets else self.args_dim + 1
 
+    def get_model_args(self) -> list[str]:
+        """The dataset keys the model reads: the encoder's, then the
+        decoder's (targets), then the label if it is conditioned on one."""
+        grouped = ["commands_grouped", "args_grouped"]
+        model_args = grouped if self.encode_stages <= 1 else ["commands", "args"]
+        if self.rel_targets:
+            model_args = model_args + (["commands_grouped", "args_rel_grouped"]
+                                       if self.decode_stages == 1 else ["commands", "args_rel"])
+        else:
+            model_args = model_args + (grouped if self.decode_stages == 1
+                                       else ["commands", "args"])
+        if self.label_condition:
+            model_args.append("label")
+        return model_args
+
+
+def hierarchical() -> ModelConfig:
+    """The two-stage model, with the VAE bottleneck (the icons config)."""
+    return ModelConfig(encode_stages=2, decode_stages=2)
+
 
 def hierarchical_ordered() -> ModelConfig:
     """The flagship (``configs_tpu/hierarchical_ordered.py``): two-stage

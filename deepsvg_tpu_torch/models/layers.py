@@ -9,13 +9,20 @@ learned positional table. Each layer runs as one fused kernel: at inference
 per-sequence injection outside it. On CPU tensors those are the plain
 versions.
 
+When training, a stack of short sequences (the hierarchical E2 and D2, S = 8)
+runs all its layers as one fused kernel pair, K7 (``ops/stack_vjp.py``),
+where :func:`use_stack_fused` says so: the JAX package's gate, unchanged,
+because it also decides the activations' type (below).
+
 Parameters are float32; ``compute_dtype`` is applied at use (``cast.py``).
 A layer's activations keep the type they come in: the hierarchical encoder
 gets the float32 pooled output of the first stage and runs float32
-activations against weights rounded to ``compute_dtype``. A stack's final
-LayerNorm computes in float32 from float32 parameters and returns
-``compute_dtype``. The stack-fused training kernel for short sequences and
-the KV-cached decode step come with later slices.
+activations against weights rounded to ``compute_dtype`` at inference and,
+when training, where the gate is false. Where it is true, the stack runs in
+``compute_dtype`` and casts its result back, as the JAX package's stack path
+does. A stack's final LayerNorm computes in float32 from float32 parameters
+and returns ``compute_dtype``. The KV-cached decode step comes with a later
+slice.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import layer as layer_ops
-from ..ops import layer_vjp
+from ..ops import layer_vjp, stack_vjp
 from ..ops.layer import LN_EPS
 from .cast import DropoutRng, cast_at_use
 
@@ -44,6 +51,36 @@ def key_padding_to_additive(key_padding_mask: torch.Tensor | None):
     zeros = torch.zeros(key_padding_mask.shape, dtype=torch.float32,
                         device=key_padding_mask.device)
     return zeros.masked_fill(key_padding_mask, float("-inf"))
+
+
+def use_stack_fused(deterministic: bool, n_layers: int, b: int, s: int) -> bool:
+    """Whether a stack's training forward takes K7: the JAX package's gate
+    (``deepsvg_tpu/models/layers.py:_use_stack_fused``) as it is. Training,
+    more than one layer, sequences of at most 16 (padded to a multiple of 8)
+    and at most 512 rows (the recipe batch B=60 at S=8 gives 480; the TPU
+    kernel's backward did not fit its scoped memory at 1,024)."""
+    s_pad = -(-s // 8) * 8
+    return not deterministic and n_layers > 1 and s_pad <= 16 and b * s_pad <= 512
+
+
+def stacked_train(layers, x, seq_biases, mask, causal: bool, rng: DropoutRng | None):
+    """The layers of a stack as one K7 call, counterpart of the JAX
+    package's ``_stacked_train``: ``x`` cast to the compute type and the
+    result cast back, ``seq_biases [L, B, D]`` (dropout applied) or zeros,
+    one seed for the stack."""
+    first = layers[0]
+    dt = first.compute_dtype
+    in_dtype = x.dtype
+    x = x.to(dt)
+    if seq_biases is None:
+        seq_biases = torch.zeros((len(layers),) + x.shape[:1] + x.shape[2:], dtype=dt,
+                                 device=x.device)
+    rate = first.dropout if rng is not None else 0.0
+    seed = rng.seed() if rate > 0.0 else 0
+    masters = [torch.stack(ws) for ws in zip(*(layer.masters() for layer in layers))]
+    out = stack_vjp.fused_stack_train(x, seq_biases.to(dt), *masters, mask, seed,
+                                      first.n_heads, causal, rate, dt)
+    return out.to(in_dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -114,12 +151,16 @@ class DecoderLayerGlobalImproved(EncoderLayerImproved):
         super().__init__(d_model, n_heads, dim_feedforward, dropout, compute_dtype)
         self.glob = nn.Linear(dim_z, d_model)
 
-    def forward(self, tgt, z, mask, causal: bool = False, deterministic: bool = True,
-                rng: DropoutRng | None = None):
+    def injection(self, z, deterministic: bool = True):
+        """``glob(z) [B, D]`` in the compute type, before its dropout."""
         dt = self.compute_dtype
         wg = cast_at_use(self, "wg", self.glob.weight, dt, deterministic=deterministic)
         bg = cast_at_use(self, "bg", self.glob.bias, dt, deterministic=deterministic)
-        seq_bias = F.linear(z.to(dt), wg, bg)
+        return F.linear(z.to(dt), wg, bg)
+
+    def forward(self, tgt, z, mask, causal: bool = False, deterministic: bool = True,
+                rng: DropoutRng | None = None):
+        seq_bias = self.injection(z, deterministic)
         if not deterministic and rng is not None:
             seq_bias = rng.dropout(seq_bias, self.dropout)
         return self._run(tgt, seq_bias.to(tgt.dtype), mask, causal, deterministic, rng)
@@ -138,8 +179,12 @@ class EncoderStack(nn.Module):
 
     def forward(self, src, mask, deterministic: bool = True, rng: DropoutRng | None = None):
         """``mask [B, S]``: additive float32 over keys."""
-        for layer in self.layers:
-            src = layer(src, mask, deterministic, rng)
+        b, s, _ = src.shape
+        if use_stack_fused(deterministic, len(self.layers), b, s):
+            src = stacked_train(self.layers, src, None, mask, False, rng)
+        else:
+            for layer in self.layers:
+                src = layer(src, mask, deterministic, rng)
         return self.norm(src)
 
 
@@ -159,8 +204,17 @@ class DecoderStack(nn.Module):
     def forward(self, tgt, z, deterministic: bool = True, rng: DropoutRng | None = None):
         """The one-shot decoders attend over every query position."""
         mask = torch.zeros(tgt.shape[:2], dtype=torch.float32, device=tgt.device)
-        for layer in self.layers:
-            tgt = layer(tgt, z, mask, False, deterministic, rng)
+        b, s, _ = tgt.shape
+        if use_stack_fused(deterministic, len(self.layers), b, s):
+            # the latent's injection into each layer [L, B, D], one dropout
+            # draw over all of them
+            biases = torch.stack([layer.injection(z, False) for layer in self.layers])
+            if rng is not None:
+                biases = rng.dropout(biases, self.layers[0].dropout)
+            tgt = stacked_train(self.layers, tgt, biases, mask, False, rng)
+        else:
+            for layer in self.layers:
+                tgt = layer(tgt, z, mask, False, deterministic, rng)
         return self.norm(tgt)
 
 

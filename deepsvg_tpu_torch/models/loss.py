@@ -12,7 +12,6 @@ import torch
 import torch.nn.functional as F
 
 from ..svgtensor import masks as M
-from ..svgtensor.constants import CMD_ARGS_MASK
 from .config import ModelConfig
 
 
@@ -44,8 +43,7 @@ def svg_loss(output: dict, weights: dict, cfg: ModelConfig) -> dict:
     tgt_c = tgt_commands[..., 1:].long()
     tgt_a = tgt_args[..., 1:, :]
     pad = pad[..., 1:]
-    args_mask = torch.as_tensor(CMD_ARGS_MASK, dtype=torch.float32,
-                                device=tgt_c.device)[tgt_c]             # [N, G, S, n_args]
+    args_mask = M.cmd_args_mask(tgt_c.device)[tgt_c]                   # [N, G, S, n_args]
 
     cmd_logits = output["command_logits"].float()
     ce_cmd = F.cross_entropy(cmd_logits.reshape(-1, cmd_logits.shape[-1]),

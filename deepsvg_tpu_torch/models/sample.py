@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from ..svgtensor.constants import CMD_ARGS_MASK, CMD_EOS, CMD_M, PAD_VAL
+from ..svgtensor.constants import CMD_EOS, CMD_M, PAD_VAL
+from ..svgtensor.masks import cmd_args_mask
 from .config import ModelConfig
 from .model import SVGTransformer
 
@@ -30,7 +31,7 @@ def make_valid(commands: torch.Tensor, args: torch.Tensor,
         commands = torch.where(visibility[..., None], commands, empty)
         args = torch.where(visibility[..., None, None], args,
                            torch.full_like(args, float(PAD_VAL)))
-    used = torch.as_tensor(CMD_ARGS_MASK, device=commands.device)[commands.long()] > 0
+    used = cmd_args_mask(commands.device, torch.bool)[commands.long()]
     return commands, torch.where(used, args, torch.full_like(args, float(PAD_VAL)))
 
 

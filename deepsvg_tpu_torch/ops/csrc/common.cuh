@@ -76,6 +76,13 @@ __device__ __forceinline__ bool keep_elem(unsigned key, unsigned row, unsigned c
   return (fmix32(fmix32(row ^ key) + col) >> 8) >= thr;
 }
 
+// the seed of layer `layer` of a fused stack (K7): layer l of a stack drops
+// exactly what one layer (K4) run with this seed drops. The same mix is
+// written in ops/dropout.py:stack_layer_seed; the result is below 2^31.
+__host__ __device__ __forceinline__ int stack_layer_seed(int seed, int layer) {
+  return (int)(fmix32((unsigned)seed ^ ((unsigned)(layer + 1) * 0x85EBCA6BU)) & 0x7fffffffU);
+}
+
 enum DropSite { SITE_ATTN_PROB = 0, SITE_ATTN_OUT = 1, SITE_FF_HIDDEN = 2, SITE_FF_OUT = 3 };
 
 // ---- tensor-core fragments by activation type: bf16 16x16x16, or float as

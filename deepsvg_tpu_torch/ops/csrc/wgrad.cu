@@ -1,5 +1,6 @@
 // K4 backward, second and third launch: the layer's four weight gradients
-// (see ops/layer_vjp.py).
+// (see ops/layer_vjp.py); K7 computes all 4 L products of its stack in one
+// launch of the same kernel (ops/stack_vjp.py).
 //
 // Each gradient is a product over all rows of the batch,
 //   dW[m][n] = sum_r A[r][m] * B[r][n]
@@ -16,7 +17,7 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int MAX_PROBLEMS = 4;
+constexpr int MAX_PROBLEMS = 32;   // K4: 4; K7: 4 per layer, up to 8 layers
 constexpr int WG_TILE = 64;
 constexpr int WG_THREADS = 128;
 

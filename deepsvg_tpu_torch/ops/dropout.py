@@ -11,6 +11,11 @@ does not depend on how a kernel tiles the batch, and a kernel and its plain
 version drop the same elements and can be compared element by element with
 dropout on.
 
+A fused stack of layers (K7, ``ops/stack_vjp.py``) gives layer ``l`` the
+seed :func:`stack_layer_seed` ``(seed, l)`` (``stack_layer_seed`` in
+``csrc/common.cuh``, the same mix), so each of its layers drops what one
+layer (K4) run with that seed drops.
+
 An element is kept where the hash's top 24 bits are at least
 ``floor(rate * 2**24)``; kept values are scaled by ``1 / (1 - rate)``.
 """
@@ -34,6 +39,11 @@ def _fmix32(x):
 
 def site_key(seed: int, site: int) -> int:
     return _fmix32((int(seed) & _M32) ^ (((site + 1) * 0x9E3779B9) & _M32))
+
+
+def stack_layer_seed(seed: int, layer: int) -> int:
+    """The seed of layer ``layer`` of a fused stack, below 2**31."""
+    return _fmix32((int(seed) & _M32) ^ (((layer + 1) * 0x85EBCA6B) & _M32)) & 0x7FFFFFFF
 
 
 def drop_threshold(rate: float) -> int:

@@ -5,9 +5,19 @@ Every function takes ``commands`` with the sequence on the last axis
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from .constants import CMD_EOS, CMD_M
+from .constants import CMD_ARGS_MASK, CMD_EOS, CMD_M
+
+
+@functools.lru_cache(maxsize=None)
+def cmd_args_mask(device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``CMD_ARGS_MASK [n_commands, n_args]`` on ``device``, made once per
+    device and type: a copy from pageable host memory at every step would
+    make the host wait for the device."""
+    return torch.as_tensor(CMD_ARGS_MASK, dtype=dtype, device=device)
 
 
 def padding_mask(commands: torch.Tensor, extended: bool = False) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Host-side (numpy) packing of per-path row tensors into model inputs.
 
 A numpy copy of the packing half of ``deepsvg_tpu/svgtensor/tensor.py``
-(``pack_groups`` and the helpers it calls); the JAX module imports ``jax``,
-so the port keeps its own.
+(``pack_groups`` and the helpers it calls, and ``cmd_args_to_data14``); the
+JAX module imports ``jax``, so the port keeps its own.
 """
 from __future__ import annotations
 
@@ -27,6 +27,24 @@ def data14_to_cmd_args(data: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         axis=-1,
     ).astype(np.float32)
     return commands, args
+
+
+def cmd_args_to_data14(commands: np.ndarray, args: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`data14_to_cmd_args`; start positions are rebuilt by
+    chaining the end positions."""
+    commands = np.asarray(commands, dtype=np.float32).reshape(-1, 1)
+    args = np.asarray(args, dtype=np.float32).reshape(-1, N_ARGS)
+    if len(commands) == 0:
+        return np.zeros((0, 14), np.float32)
+    end_pos = args[:, IndexArgs.END_POS]
+    start_pos = np.concatenate([np.zeros((1, 2), np.float32), end_pos[:-1]], axis=0)
+    return np.concatenate(
+        [commands, args[:, IndexArgs.RADIUS],
+         args[:, IndexArgs.X_AXIS_ROT:IndexArgs.X_AXIS_ROT + 1],
+         args[:, IndexArgs.LARGE_ARC_FLG:IndexArgs.LARGE_ARC_FLG + 1],
+         args[:, IndexArgs.SWEEP_FLG:IndexArgs.SWEEP_FLG + 1],
+         start_pos, args[:, IndexArgs.CONTROL1], args[:, IndexArgs.CONTROL2], end_pos],
+        axis=-1)
 
 
 def pack_sequence(commands: np.ndarray, args: np.ndarray, target_len: int,

@@ -192,6 +192,64 @@ def train_step(state: TrainState, batch: dict, weights: dict, optimizer,
     return state, res
 
 
+def _scalars(results: list) -> dict:
+    """K steps' results -> one ``[K]`` tensor per scalar key."""
+    return {k: torch.stack([r[k] for r in results]) for k, v in results[0].items()
+            if v.dim() == 0}
+
+
+def train_multi_step(state: TrainState, batches: dict, weights_fn, optimizer,
+                     model_args: list):
+    """K training steps on a stacked batch dict ``{key: [K, ...]}``, the
+    loss weights of each from ``weights_fn(step)`` at the step count before
+    it. Counterpart of ``jit_train_multi_step``: a Python loop, no
+    synchronisation with the host. Each result is a ``[K]`` tensor."""
+    results = []
+    for k in range(next(iter(batches.values())).shape[0]):
+        state, res = train_step(state, {key: v[k] for key, v in batches.items()},
+                                weights_fn(state.step), optimizer, model_args)
+        results.append(res)
+    return state, _scalars(results)
+
+
+AUG_SEED = 0xA9
+
+
+def gather_batch(data: dict, icon_idx: torch.Tensor, step: int, n_augs: int = 1,
+                 item_shapes: dict | None = None) -> dict:
+    """One step's batch from the resident corpus ``data`` (``{key: [M,
+    ...]}``, rows flattened when ``item_shapes`` is given) by its icon
+    indices ``[B]``, on the device. With ``n_augs > 1`` each item's
+    augmentation variant is drawn uniformly on the device from a generator
+    seeded by ``(AUG_SEED, step)``: the draw is a function of the step, as in
+    the JAX package, but not its bits."""
+    flat = icon_idx.long()
+    if n_augs > 1:
+        gen = torch.Generator(device=flat.device)
+        gen.manual_seed(AUG_SEED * 1_000_003 + step)
+        aug = torch.randint(0, n_augs, flat.shape, device=flat.device, generator=gen)
+        flat = flat * n_augs + aug
+    batch = {k: v.index_select(0, flat) for k, v in data.items()}
+    if item_shapes:
+        batch = {k: v.reshape(v.shape[:1] + tuple(item_shapes[k])) for k, v in batch.items()}
+    return batch
+
+
+def train_resident_multi_step(state: TrainState, data: dict, icon_idx: torch.Tensor,
+                              weights_fn, optimizer, model_args: list, n_augs: int = 1,
+                              item_shapes: dict | None = None):
+    """K training steps whose batches are gathered on the device from the
+    resident corpus ``data`` (``data/resident.py``) by ``icon_idx [K, B]``,
+    the only data that crosses from the host. Counterpart of
+    ``jit_train_resident_multi_step``. Each result is a ``[K]`` tensor."""
+    results = []
+    for k in range(icon_idx.shape[0]):
+        batch = gather_batch(data, icon_idx[k], state.step, n_augs, item_shapes)
+        state, res = train_step(state, batch, weights_fn(state.step), optimizer, model_args)
+        results.append(res)
+    return state, _scalars(results)
+
+
 @torch.no_grad()
 def eval_step(state: TrainState, batch: dict, weights: dict, model_args: list,
               fused_ce: bool = True) -> dict:

@@ -1,7 +1,8 @@
 """Where the PyTorch port spends its time on a CUDA card.
 
     python3 scripts/profile_port_slice.py            # the inference path
-    python3 scripts/profile_port_slice.py --train    # the training step
+    python3 scripts/profile_port_slice.py --train    # the training step, B=128
+    python3 scripts/profile_port_slice.py --recipe   # the training step, B=60
 
 Loads the trained flagship checkpoint into the port (bfloat16 compute,
 float32 masters). Without ``--train`` it runs greedy one-shot encode+decode
@@ -9,11 +10,14 @@ float32 masters). Without ``--train`` it runs greedy one-shot encode+decode
 (seed 0, the batch ``chip_smoke.py`` times); with ``--train`` it runs
 ``deepsvg_tpu_torch.training.train_step`` at B=128, dropout 0.1, constant
 learning rate 1e-3 on one batch (seed 0), as ``chip_smoke.py`` does. Either
-runs under ``torch.profiler`` for 5 calls after warm-up calls, and prints the
+runs under ``torch.profiler`` for 5 calls after warm-up calls. ``--recipe``
+runs the step at the recipe's batch, B=60, where E2 and D2 take the fused
+stack kernel K7 (B=128 is over the stack gate). Each prints the
 device time by kernel name, the device's busy time against the host's wall
 time over the window (the idle share), and the card's name and power limit.
-The full table goes to ``chiprun_out/slice_profile.txt`` or
-``chiprun_out/train_profile.txt``. Exits non-zero without a CUDA card.
+The full table goes to ``slice_profile.txt``, ``train_profile.txt`` or
+``train_recipe_profile.txt`` in the output directory under the repository
+root. Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
@@ -31,13 +35,18 @@ sys.path.insert(0, ROOT)
 CHECKPOINT = os.path.join(ROOT, "docs", "artifacts", "full_run_final_params.msgpack")
 N = 1024
 B_TRAIN = 128
+B_RECIPE = 60
 ITERS = 5
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--train", action="store_true", help="profile the training step")
+    parser.add_argument("--recipe", action="store_true",
+                        help="profile the training step at the recipe batch B=60")
     opts = parser.parse_args()
+    opts.train = opts.train or opts.recipe
+    b_train = B_RECIPE if opts.recipe else B_TRAIN
     if not torch.cuda.is_available():
         print("profile_port_slice: no CUDA device is available", file=sys.stderr)
         return 1
@@ -53,7 +62,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = gpu_fast(hierarchical_ordered())
     model = load_model(CHECKPOINT, cfg, device="cuda")
-    size = B_TRAIN if opts.train else N
+    size = b_train if opts.train else N
     batch = generate_batch(np.random.default_rng(0), size, cfg.max_num_groups, cfg.max_seq_len)
     commands = torch.from_numpy(batch["commands"]).cuda()
     args = torch.from_numpy(batch["args"]).cuda()
@@ -63,7 +72,8 @@ def main() -> int:
         data = {"commands": commands, "args": args}
         weights = dict(loss_visibility_weight=1.0, loss_cmd_weight=1.0, loss_args_weight=2.0)
         model_args = ["commands", "args", "commands", "args"]
-        what, out_name, warmup = f"train_step B={B_TRAIN}", "train_profile.txt", 3
+        what, warmup = f"train_step B={b_train}", 3
+        out_name = "train_recipe_profile.txt" if opts.recipe else "train_profile.txt"
 
         def run():
             train_step(state, data, weights, optimizer, model_args)

@@ -272,3 +272,76 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="bfloat16"):
         ce_ops.args_ce(f32(8, D), f32(N_ARGS * VOCAB, D), f32(N_ARGS * VOCAB),
                        torch.zeros(8, N_ARGS, dtype=torch.int32, device=cuda))
+
+
+def _stack_inputs(rng, dev, dtype, n_layers, b, s, with_bias):
+    masters = [torch.stack(ws).requires_grad_() for ws in
+               zip(*(_layer_weights(rng, dev, torch.float32) for _ in range(n_layers)))]
+    x = _bf16(rng, dev, b, s, D).to(dtype).requires_grad_()
+    bias = (_bf16(rng, dev, n_layers, b, D) if with_bias
+            else torch.zeros(n_layers, b, D, device=dev)).to(dtype).requires_grad_()
+    return x, bias, masters, _key_mask(rng, dev, b, s), _bf16(rng, dev, b, s, D).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,b,causal,rate,with_bias", [
+    (BF16, 60, False, 0.0, False), (BF16, 60, False, 0.1, True), (BF16, 64, False, 0.1, False),
+    (BF16, 9, True, 0.1, True), (torch.float32, 13, False, 0.1, True)])
+def test_stack_train_kernel_matches_plain(cuda, dtype, b, causal, rate, with_bias):
+    """K7 (four layers, S=8) against the plain version with the same hash
+    masks. The forward layer by layer, each from the kernel's own input to
+    that layer, within K4's forward limit; the whole stack's forward and its
+    twelve gradients by their relative RMS error, the gradients against the
+    plain version as it is and with each layer's FF units aligned to the
+    kernel's. Then against the chain of four K4 calls with the per-layer
+    seeds, which computes the same thing on the same rows per block: equal to
+    the bit, and the same again on a second run (no atomics)."""
+    from deepsvg_tpu_torch.ops import stack_vjp
+    from deepsvg_tpu_torch.ops.dropout import stack_layer_seed
+    n_layers, s, seed = 4, 8, 4321
+    rng = np.random.default_rng(b + int(100 * rate))
+    x, bias, masters, mask, g = _stack_inputs(rng, cuda, dtype, n_layers, b, s, with_bias)
+    leaves = [x, bias, *masters]
+    call = (x, bias, *masters, mask, seed, H, causal, rate, BF16)
+    before = (stack_vjp.fused_stack_train.launches, stack_vjp.fused_stack_train.backward_launches)
+    out = stack_vjp.fused_stack_train(*call)
+    gates = stack_vjp.kernel_relu_gates(out)
+    inputs = stack_vjp.kernel_layer_inputs(out)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert (stack_vjp.fused_stack_train.launches,
+            stack_vjp.fused_stack_train.backward_launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        for layer, (x_l, y_l) in enumerate(zip(inputs, inputs[1:] + [out])):
+            ref_l = layer_vjp.plain_layer_train(
+                x_l, bias[layer], *[w[layer] for w in masters], mask,
+                stack_layer_seed(seed, layer), H, causal, rate, BF16)
+            print(f"K7 {dtype} B={b} rate={rate} layer {layer}: fwd rel rms "
+                  f"{_rel_rms(y_l, ref_l):.3g}")
+            assert torch.isfinite(y_l).all() and _rel_rms(y_l, ref_l) <= 1e-3
+    ref = stack_vjp.plain_stack_train(*call)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+    gate_grads = torch.autograd.grad(stack_vjp.plain_stack_train(*call, relu_gates=gates),
+                                     leaves, g)
+    print(f"K7 {dtype} B={b} rate={rate}: whole-stack fwd rel rms {_rel_rms(out, ref):.3g}")
+    # through four layers, each layer's last-bit differences feed the next:
+    # read up to 0.0029 for the forward (bfloat16, B=60) and, for the
+    # gradients, 0.017 as they are and 0.0065 aligned; limits about twice
+    # the readings, as K4's
+    assert _rel_rms(out, ref) <= 5e-3
+    grad_lim, gate_lim = GRAD_RMS_LIMITS[dtype]
+    for name, got, want, want_gate in zip(TRAIN_NAMES, grads, ref_grads, gate_grads):
+        assert got.shape == want.shape and torch.isfinite(got).all(), name
+        print(f"  d{name}: rel rms {_rel_rms(got, want):.3g}, with the ReLU units aligned "
+              f"{_rel_rms(got, want_gate):.3g}")
+        assert _rel_rms(got, want) <= 2 * grad_lim, name
+        assert _rel_rms(got, want_gate) <= 2 * gate_lim, name
+    # the K4 chain
+    y = x
+    for layer in range(n_layers):
+        y = layer_vjp.fused_layer_train(y, bias[layer], *[w[layer] for w in masters], mask,
+                                        stack_layer_seed(seed, layer), H, causal, rate, BF16)
+    chain_grads = torch.autograd.grad(y, leaves, g)
+    assert torch.equal(out, y)
+    for name, got, want in zip(TRAIN_NAMES, grads, chain_grads):
+        assert torch.equal(got, want), (name, (got - want).abs().max().item())
+    again = torch.autograd.grad(stack_vjp.fused_stack_train(*call), leaves, g)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
