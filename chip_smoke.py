@@ -4,7 +4,7 @@
 
 In order: print the card and its power limit; build the port's CUDA kernels
 from ``deepsvg_tpu_torch/ops/csrc``; load the trained flagship checkpoint;
-then three paths.
+then four paths.
 
 *Inference* (greedy one-shot encode+decode, N=1024): each kernel (K1
 embedding, K2 fused layer in its bfloat16 and float32 forms, K3 head+argmax)
@@ -33,6 +33,19 @@ the synthetic dataset resident on the card: a first run with an asynchronous
 checkpoint, then a resumed run (step count, finite falling loss, the
 checkpoint's parameters and the resumed ones equal to the bit, launches per
 step); K7 and the K4 chain timed at 480 and 1,024 rows.
+
+*The Hungarian self-matching model with its VAE* (B=60), built from the
+flagship checkpoint's leaves (:func:`self_match_model`): K8 against its
+plain version on the decoder states and targets the step gives it (R =
+14,880 rows, G = 8), each variant's columns against K5's forward to the bit;
+the kernel path's assignments against the plain path's, over the samples
+whose visible-row margin is at least MATCH_MARGIN, and a control that must
+fail; the step (counted: K1 1, K4 8 + 8, K7 2 + 2, K5 1 + 1, K6 1, K8 1;
+timed, 23 steps on one batch); the CLI's ``train()`` on the
+``hierarchical_self_matching`` config with a checkpoint and a resume; the
+VAE model's ``one_shot_sample`` at N=1024 (counted, validated, the same
+from call to call); K8, its plain version and ``F.linear`` +
+``log_softmax`` + ``gather`` timed.
 
 The second-to-last line is ``{"kernels": [...]}``, the last ``{"ok": true,
 "device": {...}}``; the full record goes to ``chiprun_out/chip_smoke.json``.
@@ -167,6 +180,22 @@ CLI_STEPS = (24, 56)   # the first run's step budget, then the resumed run's
 CLI_LOG_EVERY = 8
 CLI_CKPT_EVERY = 16
 CLI_WARMUP = 16        # the recipe warms up over 500 steps; the run is 56
+# the self-matching model: the KL term's weight at the end of the recipe's
+# ramp is 10; the smoke run holds it at 1 with the recipe's tolerance
+SM_WEIGHTS = dict(LOSS_WEIGHTS, kl_tolerance=0.1, loss_kl_weight=1.0)
+# K8: as K5's forward, a float32 sum of exact bf16 products in another order
+TOL_PAIR = TOL_CE
+# kernel path vs plain path of the fused matching at B=60: the two paths'
+# costs differ by the rounding of 16 layers and K8 (the script prints the
+# largest difference over the visible rows). Permutations that differ only
+# on invisible target rows tie exactly, so the margin of a sample is the gap
+# from its optimum to the best permutation that pairs a visible row
+# differently (matching.assignment_margin). Every sample whose plain-path
+# margin is at least MATCH_MARGIN must get the same assignment on both paths.
+# The control adds noise of MATCH_CONTROL_NOISE x the states' RMS to the
+# decoder states that K8 reads on the plain path, and must fail that gate.
+MATCH_MARGIN = 5e-2
+MATCH_CONTROL_NOISE = 0.1
 
 
 def check(ok: bool, what: str) -> None:
@@ -307,7 +336,8 @@ def plain_path(emb_ops, layer_ops, head_ops, layer_vjp=None, ce_ops=None, stack_
     if layer_vjp is not None:
         saved += [(emb_ops, "fused_embedding_train", emb_ops.embedding_reference),
                   (layer_vjp, "fused_layer_train", layer_vjp.plain_layer_train),
-                  (ce_ops, "args_ce", ce_ops.plain_args_ce)]
+                  (ce_ops, "args_ce", ce_ops.plain_args_ce),
+                  (ce_ops, "args_ce_pairwise", ce_ops.plain_args_ce_pairwise)]
     if stack_vjp is not None:
         saved += [(stack_vjp, "fused_stack_train", stack_vjp.plain_stack_train)]
     saved = [(mod, name, getattr(mod, name), plain) for mod, name, plain in saved]
@@ -494,14 +524,16 @@ def check_stack_train(stack_vjp, layer_vjp, what, layers, x, biases, mask, rate,
             "forward_max_abs_err": diff.max().item(), "grads": readings, "equals_k4_chain": same}
 
 
-def run_cli(dev, reset_counts, read_counts, per_step: dict) -> dict:
-    """The training CLI's ``train()`` on the flagship config at one card
-    (B=60, bfloat16, dropout 0.1), the synthetic dataset resident on the
+def run_cli(dev, reset_counts, read_counts, per_step: dict,
+            config_name: str = "hierarchical_ordered", timing: bool = True) -> dict:
+    """The training CLI's ``train()`` on ``configs/<config_name>.py`` at one
+    card (B=60, bfloat16, dropout 0.1), the synthetic dataset resident on the
     card: a first run of CLI_STEPS[0] steps with an asynchronous checkpoint,
     then a resumed run to CLI_STEPS[1]. Checks the step counts, the loss, the
     checkpoint's and the resumed parameters (to the bit) and the launches
     (``per_step`` x steps, counted over the first run). Its console output
-    goes to ``cli_train.log`` in OUT_DIR. Returns the readings."""
+    goes to ``cli_train_<config_name>.log`` in OUT_DIR. With ``timing``, also
+    times the loop's steps alone. Returns the readings."""
     import tempfile
 
     from deepsvg_tpu_torch.training import train as train_mod
@@ -509,7 +541,7 @@ def run_cli(dev, reset_counts, read_counts, per_step: dict) -> dict:
     from deepsvg_tpu_torch.training.trainer import create_train_state
 
     def config():
-        cfg = load_config("deepsvg_tpu_torch.configs.hierarchical_ordered", 1)
+        cfg = load_config(f"deepsvg_tpu_torch.configs.{config_name}", 1)
         cfg.dataloader_module = "deepsvg_tpu_torch.data.synthetic"
         cfg.synthetic_size = CLI_ICONS
         cfg.log_every, cfg.ckpt_every, cfg.warmup_steps = CLI_LOG_EVERY, CLI_CKPT_EVERY, CLI_WARMUP
@@ -531,15 +563,15 @@ def run_cli(dev, reset_counts, read_counts, per_step: dict) -> dict:
         return state, found
 
     out = {}
-    with open(os.path.join(OUT_DIR, "cli_train.log"), "w") as log, \
+    with open(os.path.join(OUT_DIR, f"cli_train_{config_name}.log"), "w") as log, \
             tempfile.TemporaryDirectory() as log_dir:
-        ckpt_dir = os.path.join(log_dir, "models", "hierarchical_ordered", "smoke")
+        ckpt_dir = os.path.join(log_dir, "models", config_name, "smoke")
         train_mod.begin_save, train_mod.load_ckpt = spy_begin_save, spy_load_ckpt
         try:
             with contextlib.redirect_stdout(log):
                 reset_counts()
                 t0 = time.perf_counter()
-                state1, stats1 = train_mod.train(config(), "hierarchical_ordered", "smoke",
+                state1, stats1 = train_mod.train(config(), config_name, "smoke",
                                                  log_dir=log_dir, max_steps=CLI_STEPS[0],
                                                  device=dev)
                 torch.cuda.synchronize()
@@ -553,7 +585,7 @@ def run_cli(dev, reset_counts, read_counts, per_step: dict) -> dict:
                 fresh, found = load_ckpt(os.path.join(ckpt_dir, f"{CLI_CKPT_EVERY:06d}.ckpt"),
                                          fresh)
                 t0 = time.perf_counter()
-                state2, stats2 = train_mod.train(config(), "hierarchical_ordered", "smoke",
+                state2, stats2 = train_mod.train(config(), config_name, "smoke",
                                                  log_dir=log_dir, resume=True,
                                                  max_steps=CLI_STEPS[1], device=dev)
                 torch.cuda.synchronize()
@@ -562,7 +594,8 @@ def run_cli(dev, reset_counts, read_counts, per_step: dict) -> dict:
             train_mod.begin_save, train_mod.load_ckpt = begin_save, load_ckpt
     n1 = CLI_STEPS[0]
     expected = {k: v * n1 for k, v in per_step.items()}
-    check(counts == expected, f"CLI run: launches over {n1} steps {counts}, expected {expected}")
+    check(counts == expected, f"CLI run ({config_name}): launches over {n1} steps {counts}, "
+                              f"expected {expected}")
     check(state1.step == n1 and state2.step == CLI_STEPS[1],
           f"CLI steps {state1.step}, {state2.step}; expected {CLI_STEPS}")
     check(files == [f"{CLI_CKPT_EVERY:06d}.ckpt", f"{n1:06d}.ckpt", "best.ckpt"],
@@ -582,6 +615,17 @@ def run_cli(dev, reset_counts, read_counts, per_step: dict) -> dict:
     check(len(losses) == windows and all(np.isfinite(v) for v in losses),
           f"CLI logged losses {losses}, expected {windows} finite windows")
     check(losses[-1] < losses[0], f"the CLI run's loss did not fall: {losses}")
+    out.update(steps=list(CLI_STEPS), launches_first_run=counts, checkpoints=files,
+               losses=losses)
+    summary = (f"CLI train() {config_name} B={B_RECIPE}, {CLI_ICONS} synthetic icons resident "
+               f"on the card: {CLI_STEPS[0]} steps, background checkpoint at {CLI_CKPT_EVERY} "
+               f"(its parameters equal those of its step, bit for bit), resumed from "
+               f"{resumed['step']} (parameters equal, bit for bit) to {CLI_STEPS[1]}; logged loss "
+               f"{losses[0]:.4f} -> {losses[-1]:.4f} over {windows} windows; launches over the "
+               f"first run {counts}")
+    if not timing:
+        print(summary, flush=True)
+        return out
     # wall time per step over the resumed run's windows after its first
     # (which holds the set-up): the loop's host clock between log windows.
     # The loop does not synchronise; once the launch queue is full the host
@@ -611,16 +655,9 @@ def run_cli(dev, reset_counts, read_counts, per_step: dict) -> dict:
                                   n_augs, shapes)
     torch.cuda.synchronize()
     loop_ms = (time.perf_counter() - t0) * 1e3 / 24
-    out.update(steps=list(CLI_STEPS), launches_first_run=counts, checkpoints=files,
-               losses=losses, wall_ms_per_step=wall,
-               wall_ms_per_step_mean=statistics.mean(wall),
+    out.update(wall_ms_per_step=wall, wall_ms_per_step_mean=statistics.mean(wall),
                resident_multi_step_ms_per_step=loop_ms)
-    print(f"CLI train() B={B_RECIPE}, {CLI_ICONS} synthetic icons resident on the card: "
-          f"{CLI_STEPS[0]} steps, background checkpoint at {CLI_CKPT_EVERY} (its parameters "
-          f"equal those of its step, bit for bit), resumed from {resumed['step']} (parameters "
-          f"equal, bit for bit) to {CLI_STEPS[1]}; logged loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-          f"over {windows} windows; launches over the first run {counts}; wall "
-          f"{out['wall_ms_per_step_mean']:.3f} ms/step over the resumed run's windows "
+    print(f"{summary}; wall {out['wall_ms_per_step_mean']:.3f} ms/step over the resumed run's windows "
           f"{[round(w, 3) for w in wall]} (checkpoints begin at {CLI_STEPS[0] + 8} and "
           f"{CLI_STEPS[0] + 24}); train_resident_multi_step alone {loop_ms:.3f} ms/step",
           flush=True)
@@ -642,6 +679,85 @@ def device_busy_ms(fn, iters: int = 5) -> float | None:
     return busy / 1e3 / iters if busy else None
 
 
+def check_sample(out_c, out_a, n: int, cfg) -> float:
+    """Validate ``one_shot_sample``'s output for ``n`` inputs: shapes, ids
+    and values in range, PAD where a command takes no argument. Returns the
+    share of valid argument slots (not PAD)."""
+    from deepsvg_tpu_torch.svgtensor.constants import CMD_ARGS_MASK
+    s_dec = cfg.max_seq_len + 1
+    check(tuple(out_c.shape) == (n, cfg.max_num_groups, s_dec)
+          and tuple(out_a.shape) == (n, cfg.max_num_groups, s_dec, cfg.n_args),
+          f"output shapes {tuple(out_c.shape)}, {tuple(out_a.shape)}")
+    check(bool(torch.isfinite(out_a).all()), "non-finite arguments")
+    check(int(out_c.min()) >= 0 and int(out_c.max()) < cfg.n_commands, "command ids out of range")
+    check(float(out_a.min()) >= -1 and float(out_a.max()) <= cfg.args_dim - 1,
+          "argument values out of range")
+    unused = torch.as_tensor(CMD_ARGS_MASK, device=out_c.device)[out_c.long()] == 0
+    check(bool((out_a[unused] == -1).all()), "unused arguments are not PAD")
+    return (out_a != -1).float().mean().item()
+
+
+def self_match_model(cfg, dev, seed: int = 5):
+    """The self-matching model with the trained flagship's weights wherever
+    the two trees share a leaf (all but the bottleneck and E2's position
+    table): the VAE's mean head takes the bottleneck's weights, its
+    log-variance head the initialisation (normal, std 0.001; zero bias) from
+    a numpy seed. Randomly initialised heads give nearly uniform logits, and
+    then the matching is all near-ties; this is a fixture of the smoke run."""
+    from deepsvg_tpu_torch.models import SVGTransformer, load_flax_params, load_params
+    tree = load_params(CHECKPOINT)
+    neck = tree["bottleneck"]["bottleneck"]
+    rng = np.random.default_rng(seed)
+    sigma = {"kernel": (0.001 * rng.normal(size=np.shape(neck["kernel"]))).astype(np.float32),
+             "bias": np.zeros(np.shape(neck["bias"]), np.float32)}
+    encoder = {k: v for k, v in tree["encoder"].items() if k != "hierarchical_PE"}
+    tree = {k: v for k, v in tree.items() if k not in ("bottleneck", "encoder")}
+    tree.update(encoder=encoder, vae={"enc_mu_fcn": neck, "enc_sigma_fcn": sigma})
+    model = SVGTransformer(cfg)
+    load_flax_params(model, tree)
+    return model.to(dev)
+
+
+def matched_forward(model, commands, args, perturb_states: float = 0.0) -> dict:
+    """One training forward of the self-matching model (no gradient, the
+    VAE's noise from the fixed generator) through its fused matching: the
+    cost and visibility the assignment is solved from, the assignment, and
+    the inputs of K8 (``args_ce_pairwise`` as the module has it: the kernel,
+    or the plain version under :func:`plain_path`). ``perturb_states``: noise
+    of that share of the states' RMS added to what K8 reads (a control). The
+    spies stand in ``matching``'s namespace; the kernel's wrapper and its
+    launch count stay as they are."""
+    import types
+
+    from deepsvg_tpu_torch.models import DropoutRng, matching
+    seen = {}
+    solve, ce_ops = matching.solve_assignment, matching.ce_ops
+    pairwise = ce_ops.args_ce_pairwise
+
+    def spy_solve(cost, vis):
+        out = solve(cost, vis)
+        seen.update(cost=cost, vis=vis, assignment=out)
+        return out
+
+    def spy_pairwise(y, *rest):
+        if perturb_states:
+            gen = torch.Generator(device=y.device).manual_seed(11)
+            yf = y.float()
+            noise = torch.randn(y.shape, device=y.device, generator=gen)
+            y = (yf + perturb_states * yf.pow(2).mean().sqrt() * noise).to(y.dtype)
+        seen["k8_inputs"] = (y, *rest)
+        return pairwise(y, *rest)
+    matching.solve_assignment = spy_solve
+    matching.ce_ops = types.SimpleNamespace(args_ce_pairwise=spy_pairwise)
+    try:
+        with torch.no_grad():
+            seen["res"] = model(commands, args, commands, args, return_tgt=True,
+                                deterministic=False, fused_ce=True, rng=DropoutRng.fixed())
+    finally:
+        matching.solve_assignment, matching.ce_ops = solve, ce_ops
+    return seen
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -649,7 +765,8 @@ def main() -> int:
     import torch.nn.functional as F
 
     from deepsvg_tpu_torch.data import generate_batch
-    from deepsvg_tpu_torch.models import gpu_fast, hierarchical_ordered, load_model, one_shot_sample
+    from deepsvg_tpu_torch.models import (
+        gpu_fast, hierarchical_ordered, load_model, one_shot_sample, svg_loss)
     from deepsvg_tpu_torch.models.layers import key_padding_to_additive
     from deepsvg_tpu_torch.ops import _build
     from deepsvg_tpu_torch.ops import ce as ce_ops
@@ -658,7 +775,7 @@ def main() -> int:
     from deepsvg_tpu_torch.ops import layer as layer_ops
     from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
     from deepsvg_tpu_torch.svgtensor import masks as M
-    from deepsvg_tpu_torch.svgtensor.constants import CMD_ARGS_MASK, PAD_VAL
+    from deepsvg_tpu_torch.svgtensor.constants import PAD_VAL
     from deepsvg_tpu_torch.training import (
         constant, create_train_state, make_optimizer, train_step)
 
@@ -682,6 +799,7 @@ def main() -> int:
         ce_ops.args_ce.launches = ce_ops.args_ce.backward_launches = 0
         stack_vjp.fused_stack_train.launches = 0
         stack_vjp.fused_stack_train.backward_launches = 0
+        ce_ops.args_ce_pairwise.launches = 0
 
     def read_counts() -> dict:
         f32 = layer_ops.fused_layer.float32_launches
@@ -694,7 +812,8 @@ def main() -> int:
                 "args_ce_bwd": ce_ops.args_ce.backward_launches,
                 "embedding_bwd": emb_ops.embedding_backward.launches,
                 "stack_fwd": stack_vjp.fused_stack_train.launches,
-                "stack_bwd": stack_vjp.fused_stack_train.backward_launches}
+                "stack_bwd": stack_vjp.fused_stack_train.backward_launches,
+                "args_ce_pairwise": ce_ops.args_ce_pairwise.launches}
 
     # ---- build
     t0 = time.perf_counter()
@@ -743,7 +862,7 @@ def main() -> int:
         x_e2 = enc.hierarchical_PE(pooled.reshape(n, g, -1))          # float32
         check(x_e2.dtype == torch.float32, "E2's input is not float32")
         mask_e2 = key_padding_to_additive(~vis)
-        z = model.encode(commands, args)
+        z, _, _ = model.encode(commands, args)
         out_d2 = dec.hierarchical_decoder(dec.hierarchical_embedding(n), z)
         _, z_groups = dec.hierarchical_fcn(out_d2)
         zb = z_groups.reshape(n * g, -1)
@@ -875,14 +994,7 @@ def main() -> int:
               f"launches per forward {launches}, expected embedding 1, layer 12 bfloat16 + 4 "
               f"float32, head 1, and no training kernel")
         record["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        check(tuple(out_c.shape) == (N_MAIN, 8, 31) and tuple(out_a.shape) == (N_MAIN, 8, 31, 11),
-              f"output shapes {tuple(out_c.shape)}, {tuple(out_a.shape)}")
-        check(bool(torch.isfinite(out_a).all()), "non-finite arguments")
-        check(int(out_c.min()) >= 0 and int(out_c.max()) < cfg.n_commands, "command ids out of range")
-        check(float(out_a.min()) >= -1 and float(out_a.max()) <= cfg.args_dim - 1,
-              "argument values out of range")
-        unused = torch.as_tensor(CMD_ARGS_MASK, device=dev)[out_c.long()] == 0
-        check(bool((out_a[unused] == -1).all()), "unused arguments are not PAD")
+        check_sample(out_c, out_a, N_MAIN, cfg)
         commands_match = (out_c == commands[..., 1:]).float().mean().item()
         print(f"output valid: shapes {tuple(out_c.shape)} {tuple(out_a.shape)}; decoded "
               f"commands equal the input's at {commands_match:.4f} of positions", flush=True)
@@ -1218,12 +1330,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- (b), (c), (d): the training path at B=128, dropout 0.1
-    def train_loop(b: int, expected: dict) -> dict:
+    def train_loop(b: int, expected: dict, make_state=None, weights=LOSS_WEIGHTS,
+                   what: str = "") -> dict:
         """TRAIN_STEPS steps on one batch of ``b``, dropout 0.1: the first
         counted (``expected`` launches), the loss finite and falling, every
         leaf moved, the last TRAIN_STEPS - 3 timed by CUDA events (median of
-        the steps) and by the host clock (their mean, to a synchronize)."""
-        state, optimizer = new_state(DROPOUT)
+        the steps) and by the host clock (their mean, to a synchronize).
+        ``make_state(dropout)`` gives another model's state (default: the
+        flagship checkpoint's)."""
+        state, optimizer = (make_state or new_state)(DROPOUT)
         full = batch_of(b)
         before = [p.detach().clone() for p in state.parameters()]
         reset_counts()
@@ -1232,7 +1347,7 @@ def main() -> int:
         for i in range(TRAIN_STEPS):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            state, res = train_step(state, full, LOSS_WEIGHTS, optimizer, MODEL_ARGS)
+            state, res = train_step(state, full, weights, optimizer, MODEL_ARGS)
             end.record()
             events.append((start, end))
             losses.append(res)
@@ -1245,7 +1360,7 @@ def main() -> int:
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t_host) * 1e3 / (TRAIN_STEPS - 3)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"training path B={b}: launches in one step {counted}", flush=True)
+        print(f"training path{what} B={b}: launches in one step {counted}", flush=True)
         check(counted == expected, f"launches per training step at B={b} {counted}, "
                                    f"expected {expected}")
         loss_values = [float(r["loss"]) for r in losses]
@@ -1254,11 +1369,11 @@ def main() -> int:
         check(loss_values[-1] < loss_values[0],
               f"the loss did not fall over {TRAIN_STEPS} steps on one batch: {loss_values}")
         moved = sum(not torch.equal(p, old) for p, old in zip(state.parameters(), before))
-        check(moved == 210 and state.step == TRAIN_STEPS
+        check(moved == len(before) and state.step == TRAIN_STEPS
               and all(p.dtype == torch.float32 for p in state.parameters()),
-              f"{moved} of 210 leaves moved; step {state.step}")
+              f"{moved} of {len(before)} leaves moved; step {state.step}")
         step_ms = statistics.median(s.elapsed_time(e) for s, e in events[3:])
-        print(f"training B={b} dropout {DROPOUT} bf16, lr {LR}: loss {loss_values[0]:.4f} -> "
+        print(f"training{what} B={b} dropout {DROPOUT} bf16, lr {LR}: loss {loss_values[0]:.4f} -> "
               f"{loss_values[-1]:.4f} over {TRAIN_STEPS} steps on one batch, all finite; "
               f"{step_ms:.3f} ms/step median of {TRAIN_STEPS - 3}, {b / step_ms * 1e3:.1f} "
               f"samples/s (host clock: {host_ms:.3f} ms/step mean), peak memory {peak:.2f} "
@@ -1625,6 +1740,169 @@ def main() -> int:
               f"chain {chain_total:.4f} ms")
     record["stack_bounds_b64_ms"] = bounds64
 
+    # =========================== the Hungarian self-matching model (B=60)
+    from deepsvg_tpu_torch.models import hierarchical_self_matching, matching
+    sm_cfg = gpu_fast(hierarchical_self_matching())
+    sm_model = self_match_model(dataclasses.replace(sm_cfg, dropout=0.0), dev)
+    c60, a60 = t_commands[:B_RECIPE], t_args[:B_RECIPE]
+    fwd_k = matched_forward(sm_model, c60, a60)
+    with plain_path(emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp):
+        fwd_p = matched_forward(sm_model, c60, a60)
+        fwd_c = matched_forward(sm_model, c60, a60, perturb_states=MATCH_CONTROL_NOISE)
+
+    # ---- K8 against its plain version on the inputs the path gave it, and
+    # each variant's columns against K5's forward on that variant's targets
+    y8, wa8, ba8, t8, g8, _ = fwd_k["k8_inputs"]
+    with torch.no_grad():
+        ce8_k = ce_ops.args_ce_pairwise(y8, wa8, ba8, t8, g8, bf16)
+        ce8_p = ce_ops.plain_args_ce_pairwise(y8, wa8, ba8, t8, g8, bf16)
+        r8, k8w = ce8_k.numel() // ce8_k.shape[-1], ce8_k.shape[-1]
+        n_args8 = k8w // g8
+        yf8, tf8, cf8 = y8.reshape(r8, -1), t8.reshape(r8, k8w), ce8_k.reshape(r8, k8w)
+        k8_err = (ce8_k - ce8_p).abs().max().item()
+        k5_equal = all(torch.equal(cf8[:, i * n_args8:(i + 1) * n_args8], ce_ops.args_ce(
+            yf8, wa8, ba8, tf8[:, i * n_args8:(i + 1) * n_args8].contiguous(), bf16))
+            for i in range(g8))
+    check(tuple(ce8_k.shape) == tuple(t8.shape) and ce8_k.dtype == torch.float32
+          and bool(torch.isfinite(ce8_k).all()), "K8: shape, dtype or non-finite values")
+    check_later(k8_err <= TOL_PAIR, f"K8 max abs err {k8_err} > {TOL_PAIR}")
+    check_later(k5_equal, "K8's columns of a variant differ from K5's forward on its targets")
+    print(f"K8 args_ce_pairwise R={r8} G={g8} (B={B_RECIPE}): max abs err {k8_err:.3g} (limit "
+          f"{TOL_PAIR}); each variant's columns equal to K5's forward on its targets, to the "
+          f"bit: {k5_equal}", flush=True)
+    kernels["args_ce_pairwise"] = {"max_abs_err": k8_err, "tolerance": TOL_PAIR,
+                                   "equals_k5_per_variant": k5_equal}
+
+    # ---- the kernel path's assignment against the plain path's, gated by
+    # the visible-row margin, and the control that must fail the gate
+    margin = matching.assignment_margin(fwd_p["cost"], fwd_p["vis"])
+    gated = margin >= MATCH_MARGIN
+
+    def agreement(other):
+        same = (other["assignment"] == fwd_p["assignment"]).all(dim=-1)
+        return same[gated].float().mean().item(), int((~same).sum())
+    agree, differ_all = agreement(fwd_k)
+    control, differ_control = agreement(fwd_c)
+    vis_rows = fwd_p["vis"][..., None]
+    cost_err = ((fwd_k["cost"] - fwd_p["cost"]).abs() * vis_rows).max().item()
+    control_err = ((fwd_c["cost"] - fwd_p["cost"]).abs() * vis_rows).max().item()
+    n_gated = int(gated.sum())
+    finite = margin[torch.isfinite(margin)]
+    print(f"self-match assignment at B={B_RECIPE}, kernel path vs plain path: equal on "
+          f"{agree:.4f} of the {n_gated} samples whose visible-row margin >= {MATCH_MARGIN} "
+          f"({B_RECIPE - n_gated} excluded; {differ_all} of {B_RECIPE} differ in all); costs' "
+          f"largest difference over visible rows {cost_err:.3g}; margins min "
+          f"{finite.min().item():.3g}, median {finite.median().item():.3g}; control (states "
+          f"+ {MATCH_CONTROL_NOISE} RMS noise): equal on {control:.4f} ({differ_control} "
+          f"differ; largest cost difference {control_err:.3g})", flush=True)
+    check(n_gated >= B_RECIPE // 2, f"only {n_gated} of {B_RECIPE} samples clear the margin")
+    check_later(agree == 1.0, f"the assignments differ on gated samples: {agree}")
+    check(control < 1.0, f"the matching gate passed its control ({control}): it cannot see a "
+                         f"fault of that size")
+    loss_k = {k: float(v) for k, v in svg_loss(fwd_k["res"], SM_WEIGHTS, sm_cfg).items()}
+    loss_p = {k: float(v) for k, v in svg_loss(fwd_p["res"], SM_WEIGHTS, sm_cfg).items()}
+    record["selfmatch_matching"] = {
+        "gated_samples": n_gated, "agreement": agree, "differ_all": differ_all,
+        "cost_max_abs_diff": cost_err, "margins": margin.tolist(), "control": control,
+        "control_cost_max_abs_diff": control_err, "losses_kernel": loss_k,
+        "losses_plain": loss_p}
+    print(f"  losses of that forward (kernel, plain): "
+          f"{ {k: (loss_k[k], loss_p[k]) for k in loss_k} }", flush=True)
+    cost60, vis60 = fwd_k["cost"], fwd_k["vis"]
+    assign_ms = cuda_ms(lambda: matching.assign_bruteforce(cost60, vis60))
+    del fwd_k, fwd_p, fwd_c
+
+    # ---- the step at B=60, counted and timed
+    def sm_state(dropout):
+        m = self_match_model(dataclasses.replace(sm_cfg, dropout=dropout), dev)
+        optimizer = make_optimizer(constant(LR))
+        return create_train_state(m, optimizer, init=False), optimizer
+
+    sm_launches = recipe_launches | {"args_ce_pairwise": 1}
+    record["train_selfmatch"] = train_loop(B_RECIPE, sm_launches, sm_state, SM_WEIGHTS,
+                                           " self-match")
+    sm_step_launches = record["train_selfmatch"]["launches_per_step"]
+    state_sm, optimizer_sm = sm_state(DROPOUT)
+    busy_sm = device_busy_ms(lambda: train_step(state_sm, recipe_batch, SM_WEIGHTS, optimizer_sm,
+                                                MODEL_ARGS))
+    # the self-match step beside the ordered step, in turns step by step
+    # (the host sets the pace, and it drifts within a call): host clock
+    # around each step, which ends in a synchronize
+    state_or, optimizer_or = new_state(DROPOUT)
+    turns = {"ordered": [], "self_match": []}
+    for i in range(2 + 2 * ITERS):
+        ordered = i % 2 == 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if ordered:
+            train_step(state_or, recipe_batch, LOSS_WEIGHTS, optimizer_or, MODEL_ARGS)
+        else:
+            train_step(state_sm, recipe_batch, SM_WEIGHTS, optimizer_sm, MODEL_ARGS)
+        torch.cuda.synchronize()
+        if i >= 2:
+            turns["ordered" if ordered else "self_match"].append((time.perf_counter() - t0) * 1e3)
+    del state_sm, optimizer_sm, state_or, optimizer_or
+    torch.cuda.empty_cache()
+    record["train_selfmatch"].update(device_busy_ms_per_step=busy_sm, in_turns_ms=turns)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"self-match step B={B_RECIPE}: {record['train_selfmatch']['median_ms_per_step']:.3f} "
+          f"ms/step median (ordered step {record['train_recipe']['median_ms_per_step']:.3f}, "
+          f"timed earlier); in turns with the ordered step, host clock to a synchronize: "
+          f"{med['self_match']:.3f} ms (range {min(turns['self_match']):.3f}-"
+          f"{max(turns['self_match']):.3f}) against {med['ordered']:.3f} ms "
+          f"({min(turns['ordered']):.3f}-{max(turns['ordered']):.3f}), {ITERS} steps each; "
+          f"device busy {busy_sm if busy_sm is None else round(busy_sm, 3)} ms per step "
+          f"(ordered {busy60 if busy60 is None else round(busy60, 3)}); brute-force "
+          f"assignment {assign_ms:.4f} ms on {card}", flush=True)
+
+    # ---- the training CLI on the self-matching config
+    record["cli_selfmatch"] = run_cli(dev, reset_counts, read_counts, sm_launches,
+                                      "hierarchical_self_matching", timing=False)
+
+    # ---- one-shot inference of the VAE model at N=1024, counted
+    with torch.no_grad():
+        reset_counts()
+        sm_c, sm_a = one_shot_sample(sm_model, commands, args)
+        torch.cuda.synchronize()
+        sm_inference = read_counts()
+        check(sm_inference == dict.fromkeys(sm_inference, 0) | {
+            "embedding": 1, "layer": 12, "layer_f32": 4, "head": 1},
+            f"self-match inference launches {sm_inference}")
+        valid_share = check_sample(sm_c, sm_a, N_MAIN, sm_cfg)
+        again = one_shot_sample(sm_model, commands[:8], args[:8])
+        check(torch.equal(again[0], sm_c[:8]) and torch.equal(again[1], sm_a[:8]),
+              "the VAE's sampling is not the same from call to call")
+    print(f"self-match one_shot_sample N={N_MAIN}: launches {sm_inference}; output valid, "
+          f"{valid_share:.4f} of the argument slots set; the same from call to call",
+          flush=True)
+    record["selfmatch_inference_launches"] = sm_inference
+
+    # ---- K8 timed at the step's shapes, its plain version, and F.linear +
+    # log_softmax + gather as the yardstick
+    wa16_8, ba16_8 = wa8.detach().to(bf16), ba8.detach().to(bf16)
+    t8l = tf8.reshape(r8, g8, n_args8).long()
+
+    def lib_pair():
+        with torch.no_grad():
+            lp = F.log_softmax(F.linear(yf8, wa16_8, ba16_8).float().reshape(r8, 1, n_args8, -1),
+                               dim=-1)
+            return -lp.expand(r8, g8, n_args8, lp.shape[-1]).gather(-1, t8l[..., None])[..., 0]
+    yardstick["args_ce_pairwise"] = (lib_pair().reshape(r8, k8w) - cf8).abs().max().item()
+    n_cls8 = wa8.shape[0]
+    b_ms, b_by = bound(nbytes(y8, t8) + n_cls8 * yf8.shape[1] * 2 + n_cls8 * 2 + r8 * k8w * 4,
+                       2.0 * r8 * yf8.shape[1] * n_cls8, PEAK_BF16)
+    kernels["args_ce_pairwise"].update(
+        ms=cuda_ms(lambda: ce_ops.args_ce_pairwise(y8, wa8, ba8, t8, g8, bf16)),
+        plain_ms=cuda_ms(lambda: ce_ops.plain_args_ce_pairwise(y8, wa8, ba8, t8, g8, bf16),
+                         iters=5, warmup=1),
+        library_ms=cuda_ms(lib_pair), bound_ms=b_ms, bound_by=b_by, assign_ms=assign_ms)
+    k = kernels["args_ce_pairwise"]
+    print(f"  args_ce_pairwise R={r8} G={g8}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
+          f"library {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by {k['bound_by']}); "
+          f"yardstick max abs diff {yardstick['args_ce_pairwise']:.3g}", flush=True)
+    del sm_model
+    torch.cuda.empty_cache()
+
     csrc = "deepsvg_tpu_torch/ops/csrc/"
     source = {
         "embedding": (csrc + "embedding.cu", "deepsvg_tpu/ops/embedding.py:34"),
@@ -1638,13 +1916,15 @@ def main() -> int:
         "embedding_bwd": (csrc + "embedding_bwd.cu", "deepsvg_tpu/ops/embedding.py:133"),
         "stack_fwd": (csrc + "stack.cu", "deepsvg_tpu/ops/stack_vjp.py:87"),
         "stack_bwd": (csrc + "stack.cu", "deepsvg_tpu/ops/stack_vjp.py:159"),
+        "args_ce_pairwise": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:54"),
     }
     line = []
     for name, k in kernels.items():
         src_file, replaces = source[name]
         # the count of the path that runs the kernel: inference, the step at
-        # B=128, or (K7) the first CLI run at B=60
-        count = launches[name] or train_launches[name] or cli_launches[name]
+        # B=128, (K7) the first CLI run at B=60, or (K8) the self-match step
+        count = (launches[name] or train_launches[name] or cli_launches[name]
+                 or sm_step_launches[name])
         line.append({
             "name": name, "route": "cuda", "source": src_file, "replaces": replaces,
             "launches": count, "max_abs_err": k["max_abs_err"], "ms": k["ms"],

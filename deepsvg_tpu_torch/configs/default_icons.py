@@ -1,10 +1,9 @@
 """Icons training config, counterpart of ``configs_tpu/default_icons.py``.
 
-Hierarchical two-stage model in the card's profile (``gpu_fast``), 50
+Hierarchical two-stage VAE model in the card's profile (``gpu_fast``), 50
 epochs, batch 60 x devices, lr 1e-3 x devices, KL ramp 0 -> 10 over 10k
-steps. Its VAE bottleneck is not ported yet (ROADMAP.md, queue 1, item 8),
-so only the configs that derive from it with ``use_vae=False``
-(``hierarchical_ordered``) train in the port.
+steps. ``hierarchical_ordered`` (no VAE) and ``hierarchical_self_matching``
+derive from it.
 """
 import random
 

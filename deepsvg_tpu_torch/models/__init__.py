@@ -1,7 +1,8 @@
-"""The flagship SVG Transformer in PyTorch: inference and the training forward."""
+"""The two-stage SVG Transformers in PyTorch: inference and the training forward."""
 from .cast import DropoutRng
 from .checkpoint import load_params, msgpack_restore, msgpack_serialize, save_params
-from .config import ModelConfig, gpu_fast, hierarchical, hierarchical_ordered
+from .config import (
+    ModelConfig, gpu_fast, hierarchical, hierarchical_ordered, hierarchical_self_matching)
 from .loss import svg_loss
 from .model import SVGTransformer
 from .sample import make_valid, one_shot_sample, threshold_sample
@@ -9,7 +10,7 @@ from .weights import load_flax_params, load_model, to_flax_params
 
 __all__ = [
     "DropoutRng", "ModelConfig", "SVGTransformer", "gpu_fast", "hierarchical",
-    "hierarchical_ordered", "load_flax_params", "load_model", "load_params", "make_valid",
-    "msgpack_restore", "msgpack_serialize", "one_shot_sample", "save_params", "svg_loss",
-    "threshold_sample", "to_flax_params",
+    "hierarchical_ordered", "hierarchical_self_matching", "load_flax_params", "load_model",
+    "load_params", "make_valid", "msgpack_restore", "msgpack_serialize", "one_shot_sample",
+    "save_params", "svg_loss", "threshold_sample", "to_flax_params",
 ]

@@ -38,26 +38,42 @@ class DropoutRng:
     ``torch.Generator`` on the host: an int32 seed for each kernel call (the
     kernels hash it with the element's coordinates, ``ops/dropout.py``; no
     device synchronisation), and the masks of the dropout sites outside the
-    kernels, from a generator on the tensors' device that is seeded from the
-    host generator at first use."""
+    kernels and the VAE's noise, from a generator on the tensors' device that
+    is seeded from the host generator at first use."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
         self._device_generators: dict = {}
 
+    @classmethod
+    def fixed(cls, seed: int = 0) -> "DropoutRng":
+        """A generator with a fixed seed: the VAE's noise at evaluation and
+        sampling, as the JAX package's ``key(0)`` there."""
+        return cls(torch.Generator().manual_seed(seed))
+
     def seed(self) -> int:
         return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.generator))
+
+    def _device_generator(self, device) -> torch.Generator:
+        gen = self._device_generators.get(device)
+        if gen is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(self.seed())
+            self._device_generators[device] = gen
+        return gen
 
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         if rate <= 0.0:
             return x
-        gen = self._device_generators.get(x.device)
-        if gen is None:
-            gen = torch.Generator(device=x.device)
-            gen.manual_seed(self.seed())
-            self._device_generators[x.device] = gen
-        keep = torch.rand(x.shape, device=x.device, generator=gen) >= rate
+        keep = torch.rand(x.shape, device=x.device,
+                          generator=self._device_generator(x.device)) >= rate
         return x * (keep.to(x.dtype) * (1.0 / (1.0 - rate)))
+
+    def normal(self, shape, dtype, device) -> torch.Tensor:
+        """Standard normal noise of ``shape``, drawn in float32 and rounded
+        to ``dtype``."""
+        return torch.randn(shape, device=device,
+                           generator=self._device_generator(device)).to(dtype)
 
 
 class Linear(nn.Linear):

@@ -1,11 +1,12 @@
 """Model hyperparameters: a frozen-dataclass counterpart of
 ``deepsvg_tpu/models/config.py:ModelConfig`` with the fields the port reads.
 
-The port runs the flagship ``hierarchical_ordered`` model (inference and the
-training step); the
-variants it does not run yet are still expressible here so that a config
-read from the JAX side keeps its meaning, and the model raises
-``NotImplementedError`` on them (see ``models/model.py``).
+The port runs the two-stage one-shot models: the flagship
+``hierarchical_ordered``, the VAE ``hierarchical`` and
+``hierarchical_self_matching`` (inference and training); the variants it
+does not run yet are still expressible here so that a config read from the
+JAX side keeps its meaning, and the model raises ``NotImplementedError`` on
+them (see ``models/model.py``).
 """
 from __future__ import annotations
 
@@ -90,6 +91,13 @@ class ModelConfig:
 def hierarchical() -> ModelConfig:
     """The two-stage model, with the VAE bottleneck (the icons config)."""
     return ModelConfig(encode_stages=2, decode_stages=2)
+
+
+def hierarchical_self_matching() -> ModelConfig:
+    """``configs_tpu/hierarchical_self_matching.py``: the two-stage VAE model
+    whose proposals are matched to the target paths (Hungarian), with no
+    position table over the paths in the encoder."""
+    return ModelConfig(encode_stages=2, decode_stages=2, self_match=True)
 
 
 def hierarchical_ordered() -> ModelConfig:

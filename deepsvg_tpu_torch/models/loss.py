@@ -1,10 +1,12 @@
 """Training loss, counterpart of ``deepsvg_tpu/models/loss.py``.
 
-Masked means over fixed-shape tensors: the visibility cross-entropy (a plain
-mean over all groups), the command cross-entropy under the extended padding
+Masked means over fixed-shape tensors: the VAE's KL term (clipped below at
+``kl_tolerance``), the visibility cross-entropy (a plain mean over all
+groups), the command cross-entropy under the extended padding
 mask times visibility, and the argument cross-entropy under
 ``CMD_ARGS_MASK`` of the target command; the last two are global masked means
-with ``max(denominator, 1)``. All in float32.
+with ``max(denominator, 1)``. The cross-entropies are float32; the KL term
+keeps the VAE's type, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -16,19 +18,29 @@ from .config import ModelConfig
 
 
 def svg_loss(output: dict, weights: dict, cfg: ModelConfig) -> dict:
-    """Weighted sum of visibility, command and argument cross-entropies.
+    """Weighted sum of the KL term (VAE models), visibility, command and
+    argument cross-entropies.
 
     ``output``: the dict of ``SVGTransformer.forward(..., return_tgt=True)``
     (``args_ce`` from the fused head, or ``args_logits``); ``weights``: the
-    per-step loss weights ``loss_visibility_weight``, ``loss_cmd_weight``,
+    per-step loss weights ``kl_tolerance`` and ``loss_kl_weight`` (VAE
+    models), ``loss_visibility_weight``, ``loss_cmd_weight``,
     ``loss_args_weight``. Returns ``loss`` and each term.
     """
-    if cfg.use_vae:
-        raise NotImplementedError(
-            "the KL term of the VAE bottleneck is not ported yet (ROADMAP.md, queue 1, "
-            "item 8 'Model variants')")
     res = {}
     loss = 0.0
+    if cfg.use_vae:
+        if output.get("mu") is None or output.get("logsigma") is None:
+            raise ValueError("the VAE's KL term needs the forward's mu and logsigma "
+                             "(SVGTransformer.forward with return_tgt=True)")
+        mu, logsigma = output["mu"], output["logsigma"]
+        # in the VAE's type, as the JAX package: the elementwise terms round to
+        # it, the mean sums in float32 and rounds back, and so does the clip
+        kl = 1 + logsigma - mu ** 2 - torch.exp(logsigma)
+        loss_kl = -0.5 * kl.float().mean().to(kl.dtype)
+        loss_kl = torch.clamp(loss_kl, min=weights["kl_tolerance"])
+        loss = loss + weights["loss_kl_weight"] * loss_kl
+        res["loss_kl"] = loss_kl
     tgt_commands, tgt_args = output["tgt_commands"], output["tgt_args"]
     vis = M.visibility_mask(tgt_commands)                                 # [N, G]
     pad = M.padding_mask(tgt_commands, extended=True) * vis[..., None].to(torch.float32)

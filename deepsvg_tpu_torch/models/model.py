@@ -1,14 +1,20 @@
 """The SVG Transformer, hierarchical and one-shot (batch-first): inference and
 the training forward.
 
-Counterpart of ``deepsvg_tpu/models/model.py`` for the flagship
-``hierarchical_ordered`` path:
+Counterpart of ``deepsvg_tpu/models/model.py`` for the two-stage one-shot
+models (the flagship ``hierarchical_ordered``, the VAE ``hierarchical`` of
+the icons config, and ``hierarchical_self_matching``):
 
-  E1 (per-path encoder) -> masked mean pool -> hierarchical PE -> E2 (over
-  the path latents, visibility-masked) -> visibility-weighted pool -> ResNet
-  -> linear bottleneck -> D2 (learned group queries, latent injected per
-  layer) -> HierarchFCN (visibility + per-path latents) -> D1 (learned
-  command queries) -> FCN heads.
+  E1 (per-path encoder) -> masked mean pool -> hierarchical PE (not with
+  self-match) -> E2 (over the path latents, visibility-masked) ->
+  visibility-weighted pool -> ResNet -> linear bottleneck or VAE -> D2
+  (learned group queries, latent injected per layer) -> HierarchFCN
+  (visibility + per-path latents) -> D1 (learned command queries) -> FCN
+  heads.
+
+With ``self_match`` and targets, the proposals are matched to the target
+paths (``matching.py``): with ``fused_ce`` the pairwise argument cost comes
+from kernel K8 and the targets are permuted, otherwise the logits are.
 
 ``deterministic=False`` is the training forward: every layer runs the
 differentiable kernel K4, the embedding K1 with K6 as its backward, dropout
@@ -19,8 +25,9 @@ cross-entropy comes straight from the decoder states through kernel K5.
 Parameters are float32 and cast to ``cfg.compute_dtype`` at use
 (``cast.py``).
 
-The variants this port does not run yet raise ``NotImplementedError`` when
-the model is built, naming the ``ROADMAP.md`` item that ports them.
+The variants this port does not run yet (labels, the autoregressive and
+one-stage models, LSTM) raise ``NotImplementedError`` when the model is
+built, naming the ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
@@ -30,18 +37,17 @@ from torch import nn
 from ..ops import ce as ce_ops
 from ..ops import head as head_ops
 from ..svgtensor import masks as M
+from . import matching
 from .cast import DropoutRng, Linear, cast_at_use
 from .config import ModelConfig
 from .embeddings import ConstEmbedding, SVGEmbedding
 from .layers import DecoderStack, EncoderStack, PositionalEncodingLUT, key_padding_to_additive
 
 _UNSUPPORTED = (
-    (lambda c: c.use_vae, "the VAE bottleneck"),
     (lambda c: c.label_condition, "label conditioning"),
     (lambda c: c.pred_mode != "one_shot" or c.rel_targets,
      "autoregressive decoding and relative targets"),
     (lambda c: c.model_type != "transformer", "the LSTM encoder and decoder"),
-    (lambda c: c.self_match, "Hungarian self-match"),
     (lambda c: c.encode_stages != 2 or c.decode_stages != 2,
      "one-stage encoding or decoding"),
 )
@@ -87,6 +93,30 @@ class Bottleneck(nn.Module):
         return self.bottleneck(z, deterministic)
 
 
+class VAE(nn.Module):
+    """Gaussian reparametrised bottleneck: ``mu``, ``logsigma`` and, when
+    sampling, ``z = mu + exp(logsigma / 2) * eps`` with ``eps`` drawn in the
+    compute type from ``rng`` (:meth:`DropoutRng.normal`)."""
+
+    def __init__(self, d_model: int, dim_z: int, compute_dtype=torch.float32):
+        super().__init__()
+        self.enc_mu_fcn = Linear(d_model, dim_z, compute_dtype)
+        self.enc_sigma_fcn = Linear(d_model, dim_z, compute_dtype)
+
+    def forward(self, z, sample: bool = True, deterministic: bool = True,
+                rng: DropoutRng | None = None):
+        mu = self.enc_mu_fcn(z, deterministic)
+        logsigma = self.enc_sigma_fcn(z, deterministic)
+        if not sample:
+            return mu, mu, logsigma
+        if rng is None:
+            raise ValueError("the VAE samples its latent: pass an rng (DropoutRng), or "
+                             "sample_vae=False")
+        sigma = torch.exp(logsigma / 2.0)
+        eps = rng.normal(sigma.shape, sigma.dtype, sigma.device)
+        return mu + sigma * eps, mu, logsigma
+
+
 class FCN(nn.Module):
     """Command and argument heads.
 
@@ -125,7 +155,9 @@ class FCN(nn.Module):
     b_packed = property(lambda self: self.pack()[1])
 
     def forward(self, out, argmax: bool = False, ce_targets=None,
-                deterministic: bool = True):
+                deterministic: bool = True, raw: bool = False):
+        """``raw``: the command logits alone (the fused self-match reads the
+        argument head through its kernels)."""
         lead = out.shape[:-1]
         dt = self.compute_dtype
         if argmax:
@@ -137,10 +169,16 @@ class FCN(nn.Module):
                           for i, p in enumerate(self._heads()))
         cmd_logits = nn.functional.linear(out, wc, bc)
         if ce_targets is not None:
-            return cmd_logits, ce_ops.args_ce(out, self.args_fcn.weight, self.args_fcn.bias,
-                                              ce_targets, dt)
+            return cmd_logits, self.args_ce(out, ce_targets)
+        if raw:
+            return cmd_logits, None
         args_logits = nn.functional.linear(out, wa, ba)
         return cmd_logits, args_logits.reshape(lead + (self.n_args, self.args_dim))
+
+    def args_ce(self, out, targets):
+        """The argument head's cross-entropy against ``targets`` through K5."""
+        return ce_ops.args_ce(out, self.args_fcn.weight, self.args_fcn.bias, targets,
+                              self.compute_dtype)
 
 
 class HierarchFCN(nn.Module):
@@ -167,7 +205,9 @@ class Encoder(nn.Module):
         self.embedding = SVGEmbedding(cfg, cfg.max_seq_len)
         self.encoder = EncoderStack(cfg.n_layers, d, cfg.n_heads, cfg.dim_feedforward,
                                     cfg.dropout, dt)
-        self.hierarchical_PE = PositionalEncodingLUT(cfg.max_num_groups, d, cfg.dropout, dt)
+        # self-match leaves the paths unordered: no position table over them
+        self.hierarchical_PE = (None if cfg.self_match else
+                                PositionalEncodingLUT(cfg.max_num_groups, d, cfg.dropout, dt))
         self.hierarchical_encoder = EncoderStack(cfg.n_layers, d, cfg.n_heads,
                                                  cfg.dim_feedforward, cfg.dropout, dt)
 
@@ -185,7 +225,7 @@ class Encoder(nn.Module):
         z = _masked_mean(memory, pad).reshape(n, g, -1)          # float32
 
         # the second stage keeps the float32 pooled latents as its activations
-        src2 = self.hierarchical_PE(z, deterministic, rng)
+        src2 = z if self.hierarchical_PE is None else self.hierarchical_PE(z, deterministic, rng)
         memory2 = self.hierarchical_encoder(src2, key_padding_to_additive(~vis),
                                             deterministic, rng)
         return _masked_mean(memory2, vis).to(self.compute_dtype)
@@ -210,8 +250,17 @@ class Decoder(nn.Module):
         self.fcn = FCN(d, cfg.n_commands, cfg.n_args, cfg.args_dim_out, dt)
 
     def forward(self, z, argmax_head: bool = False, ce_targets=None,
-                deterministic: bool = True, rng: DropoutRng | None = None):
-        """``ce_targets [N, G, S+1, n_args]`` int (already ``tgt + 1``)."""
+                deterministic: bool = True, rng: DropoutRng | None = None,
+                match_targets=None):
+        """``ce_targets [N, G, S+1, n_args]`` int (already ``tgt + 1``).
+
+        ``match_targets = (commands [N, G, S+1], args [N, G, S+1, n_args])``
+        is the fused self-match: the proposals are matched to the targets
+        (the pairwise argument cost through K8), the targets are permuted to
+        the proposals' order (CE is elementwise in the pairing, so scoring
+        the permuted targets equals permuting the logits), and the argument
+        CE against them comes through K5. Returns the command logits, the
+        argument CE, the visibility logits and the permuted targets."""
         n = z.shape[0]
         out = self.hierarchical_decoder(self.hierarchical_embedding(n, deterministic, rng),
                                         z, deterministic, rng)
@@ -219,6 +268,21 @@ class Decoder(nn.Module):
         zb = z_groups.reshape(-1, z_groups.shape[-1])               # [N*P, dim_z]
         out = self.decoder(self.embedding(zb.shape[0], deterministic, rng), zb,
                            deterministic, rng)
+        if match_targets is not None:
+            tgt_c, tgt_a = match_targets
+            fcn = self.fcn
+            cmd_logits, _ = fcn(out, deterministic=deterministic, raw=True)
+            cmd_logits = cmd_logits.reshape((n, -1) + cmd_logits.shape[1:])  # [N, P, S, C]
+            assignment = matching.fused_perfect_matching(
+                out.reshape((n, -1) + out.shape[1:]), fcn.args_fcn.weight, fcn.args_fcn.bias,
+                cmd_logits, visibility_logits, tgt_c, tgt_a, self.cfg, fcn.compute_dtype)
+            inv = torch.argsort(assignment, dim=1).long()                     # [N, P]
+            tgt_c = torch.take_along_dim(tgt_c, inv[:, :, None], dim=1)
+            tgt_a = torch.take_along_dim(tgt_a, inv[:, :, None, None], dim=1)
+            ce_targets = (tgt_a[..., 1:, :] + 1).to(torch.int32)             # [N, P, S, n_args]
+            ce = fcn.args_ce(out, ce_targets.reshape((-1,) + ce_targets.shape[2:]))
+            return cmd_logits, ce.reshape((n, -1) + ce.shape[1:]), visibility_logits, \
+                (tgt_c, tgt_a)
         if ce_targets is not None:
             ce_targets = ce_targets.reshape((-1,) + ce_targets.shape[2:])
         cmd, args = self.fcn(out, argmax=argmax_head, ce_targets=ce_targets,
@@ -237,16 +301,23 @@ class SVGTransformer(nn.Module):
         dt = getattr(torch, cfg.compute_dtype)
         self.encoder = Encoder(cfg)
         self.resnet = ResNet(cfg.d_model, dt) if cfg.use_resnet else None
-        self.bottleneck = Bottleneck(cfg.d_model, cfg.dim_z, dt)
+        if cfg.use_vae:
+            self.vae = VAE(cfg.d_model, cfg.dim_z, dt)
+        else:
+            self.bottleneck = Bottleneck(cfg.d_model, cfg.dim_z, dt)
         self.decoder = Decoder(cfg)
 
     def encode(self, commands, args, deterministic: bool = True,
-               rng: DropoutRng | None = None):
-        """Input -> latent ``z [N, dim_z]``."""
+               rng: DropoutRng | None = None, sample_vae: bool = True):
+        """Input -> ``(z [N, dim_z], mu, logsigma)``; ``mu`` and ``logsigma``
+        are None without the VAE. The VAE samples ``z`` from ``rng`` unless
+        ``sample_vae`` is false (then ``z = mu``)."""
         z = self.encoder(commands, args, deterministic, rng)
         if self.resnet is not None:
             z = self.resnet(z, deterministic)
-        return self.bottleneck(z, deterministic)
+        if self.cfg.use_vae:
+            return self.vae(z, sample_vae, deterministic, rng)
+        return self.bottleneck(z, deterministic), None, None
 
     def forward(self, commands_enc=None, args_enc=None, commands_dec=None, args_dec=None,
                 z=None, return_tgt: bool = False, deterministic: bool = True,
@@ -258,16 +329,31 @@ class SVGTransformer(nn.Module):
         ``argmax_head``, ``command_ids`` / ``args_ids``; or, with ``fused_ce``
         and ``return_tgt``, ``args_ce``: the argument cross-entropy against
         ``args_dec[..., 1:, :] + 1``), plus ``visibility_logits`` and, with
-        ``return_tgt``, the targets ``tgt_commands`` / ``tgt_args``, which is
-        what :func:`models.loss.svg_loss` reads. ``deterministic=False`` is
-        the training forward; ``rng`` supplies its dropout (none: no dropout).
+        ``return_tgt``, the targets ``tgt_commands`` / ``tgt_args`` and, for
+        the VAE, ``mu`` / ``logsigma``, which is what
+        :func:`models.loss.svg_loss` reads. With ``self_match`` and
+        ``return_tgt`` the proposals are matched to the targets: ``fused_ce``
+        permutes the targets (and ``args_ce`` is against them), otherwise the
+        logits are permuted. ``deterministic=False`` is the training forward;
+        ``rng`` supplies its dropout (none: no dropout) and the VAE's noise.
         """
+        mu = logsigma = None
         if z is None:
-            z = self.encode(commands_enc, args_enc, deterministic, rng)
+            z, mu, logsigma = self.encode(commands_enc, args_enc, deterministic, rng)
         use_fused_ce = fused_ce and return_tgt
-        ce_targets = (args_dec[..., 1:, :] + 1).to(torch.int32) if use_fused_ce else None
-        cmd, args, visibility_logits = self.decoder(z, argmax_head, ce_targets,
-                                                    deterministic, rng)
+        fused_match = use_fused_ce and self.cfg.self_match
+        ce_targets = ((args_dec[..., 1:, :] + 1).to(torch.int32)
+                      if use_fused_ce and not fused_match else None)
+        out = self.decoder(z, argmax_head, ce_targets, deterministic, rng,
+                           (commands_dec, args_dec) if fused_match else None)
+        cmd, args, visibility_logits = out[:3]
+        if fused_match:
+            commands_dec, args_dec = out[3]
+        elif return_tgt and self.cfg.self_match:
+            assignment = matching.perfect_matching(cmd, args, visibility_logits, commands_dec,
+                                                   args_dec, self.cfg)
+            cmd, args, visibility_logits = matching.apply_assignment(
+                assignment, cmd, args, visibility_logits)
         if argmax_head:
             res = {"command_ids": cmd, "args_ids": args}
         else:
@@ -276,4 +362,6 @@ class SVGTransformer(nn.Module):
         res["visibility_logits"] = visibility_logits
         if return_tgt:
             res["tgt_commands"], res["tgt_args"] = commands_dec, args_dec
+            if self.cfg.use_vae:
+                res["mu"], res["logsigma"] = mu, logsigma
         return res

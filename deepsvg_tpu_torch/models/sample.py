@@ -1,9 +1,11 @@
 """Greedy one-shot sampling, counterpart of ``deepsvg_tpu/models/sample.py``.
 
 One forward with the fused head+argmax (kernel K3 on the card), the
-visibility threshold, and :func:`make_valid`. Only the greedy decode
-(``key=None`` on the JAX side) is ported; temperature sampling and the
-autoregressive samplers come with the variants that need them.
+visibility threshold, and :func:`make_valid`. A VAE model samples its
+latent from a fixed generator, as the JAX package does with ``key(0)``. Only
+the greedy decode (``key=None`` on the JAX side) is ported; temperature
+sampling and the autoregressive samplers come with the variants that need
+them.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 
 from ..svgtensor.constants import CMD_EOS, CMD_M, PAD_VAL
 from ..svgtensor.masks import cmd_args_mask
+from .cast import DropoutRng
 from .config import ModelConfig
 from .model import SVGTransformer
 
@@ -53,7 +56,9 @@ def one_shot_sample(model: SVGTransformer, commands_enc=None, args_enc=None,
     Returns ``commands [N, G, S_dec]`` int32 and ``args [N, G, S_dec, n_args]``
     float32 with PAD -1, on the model's device.
     """
-    res = model(commands_enc, args_enc, z=z, argmax_head=True)
+    # a VAE samples its latent from a fixed generator (the JAX package's key(0))
+    rng = DropoutRng.fixed() if model.cfg.use_vae and z is None else None
+    res = model(commands_enc, args_enc, z=z, argmax_head=True, rng=rng)
     commands_y = res["command_ids"]
     args_y = (res["args_ids"] - 1).to(torch.float32)    # undo the PAD shift
     visibility_y = threshold_sample(res["visibility_logits"], visibility_threshold)

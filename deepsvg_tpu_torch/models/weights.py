@@ -9,6 +9,10 @@ The layouts differ in three ways:
   row 1 bias), as the fused layer kernel reads them;
 - each stack's final LayerNorm is ``norm/{scale, bias}``.
 
+The VAE models have ``vae/enc_mu_fcn`` and ``vae/enc_sigma_fcn`` in place of
+``bottleneck/bottleneck``; the self-match models have no
+``encoder/hierarchical_PE``.
+
 ``deepsvg_tpu/models/torch_import.py:state_dict_to_params`` spells out the
 same name map in the other direction. Every leaf of the tree is used exactly
 once: a leaf the model lacks, or a parameter the tree lacks, raises.
@@ -71,12 +75,17 @@ def _name_map(model: SVGTransformer):
         ("encoder/embedding/pos_embed", emb.pos_embed, False),
     ])
     stack("encoder/encoder", enc.encoder, decoder=False)
-    out.append(("encoder/hierarchical_PE/pos_embed", enc.hierarchical_PE.pos_embed, False))
+    if enc.hierarchical_PE is not None:              # none with self-match
+        out.append(("encoder/hierarchical_PE/pos_embed", enc.hierarchical_PE.pos_embed, False))
     stack("encoder/hierarchical_encoder", enc.hierarchical_encoder, decoder=False)
     if model.resnet is not None:
         for i, linear in enumerate(model.resnet.linears, start=1):
             dense(f"resnet/linear{i}", linear)
-    dense("bottleneck/bottleneck", model.bottleneck.bottleneck)
+    if model.cfg.use_vae:
+        dense("vae/enc_mu_fcn", model.vae.enc_mu_fcn)
+        dense("vae/enc_sigma_fcn", model.vae.enc_sigma_fcn)
+    else:
+        dense("bottleneck/bottleneck", model.bottleneck.bottleneck)
     out.append(("decoder/hierarchical_embedding/PE/pos_embed",
                 dec.hierarchical_embedding.PE.pos_embed, False))
     stack("decoder/hierarchical_decoder", dec.hierarchical_decoder, decoder=True)

@@ -1,4 +1,5 @@
-"""Fused argument-head softmax cross-entropy: kernel K5 and its plain version.
+"""Fused argument-head softmax cross-entropy: kernels K5 and K8 and their
+plain versions.
 
 The argument head expands the decoder states ``[R, D]`` to ``[R, 11, 257]``
 logits, the largest tensor of the training step. This op computes the
@@ -25,6 +26,21 @@ logits are therefore computed twice in the backward.
 Targets outside ``[0, vocab)`` match no class: the row's loss is its
 log-sum-exp and its gradient the plain softmax, as with the one-hot of the
 Pallas kernel.
+
+Kernel note, K8 (``csrc/ce.cu``, ``ce_pairwise``). Replaces
+``deepsvg_tpu/ops/ce.py:_pairwise_kernel`` (wrapper ``args_ce_pairwise``):
+the self-match cost, each row's argument CE against G candidate target rows,
+forward only (the matching runs under ``no_grad``). It is K5's forward with
+G targets: the same blocks of 128 rows, the same 64-column head chunks
+through ``wmma`` and running (max, sum) per row and slot; each candidate's
+target logit is read from the chunk's logits in shared memory when its column
+passes. At the self-match recipe (B=60: R = 60*8*31 = 14,880 rows, G = 8)
+the products are 2*R*256*2827 = 21.5 GFLOP, 0.022 ms at the bf16 peak; the
+bytes (y, the head, the targets and the ``[R, 88]`` float32 output) are about
+20 MB, 0.006 ms: the bound is the tensor cores. The targets keep the JAX
+contract, one row of G*11 per state row, so the caller broadcasts the
+``[N, S, G*11]`` targets over the P proposals (5.2 MB at the recipe) and
+the kernel reads them once per row.
 """
 from __future__ import annotations
 
@@ -38,20 +54,21 @@ from .layer_vjp import reduce_partials
 
 
 def args_ce_reference(y, wa, ba, targets, n_args: int):
-    """Plain version of :func:`args_ce` (differentiable): ``y [R, D]``,
-    ``wa [n_args*vocab, D]``, ``ba`` as they are used (already cast),
-    ``targets [R, n_args]`` int -> ``[R, n_args]`` float32. The gradient of
-    the logits is rounded to ``y``'s type before it reaches ``y`` and ``wa``,
-    as the kernel rounds it."""
+    """Plain version of :func:`args_ce` (differentiable) and, with V > 1, of
+    :func:`args_ce_pairwise`: ``y [R, D]``, ``wa [n_args*vocab, D]``, ``ba``
+    as they are used (already cast), ``targets [R, V*n_args]`` int (V
+    candidate target rows, variant-major) -> ``[R, V*n_args]`` float32. The
+    gradient of the logits is rounded to ``y``'s type before it reaches ``y``
+    and ``wa``, as the kernel rounds it."""
     r = y.shape[0]
     vocab = wa.shape[0] // n_args
-    logits = torch.matmul(y.float(), wa.float().t()).reshape(r, n_args, vocab)
+    logits = torch.matmul(y.float(), wa.float().t()).reshape(r, 1, n_args, vocab)
     logits = _RoundGrad.apply(logits, y.dtype) + ba.float().reshape(n_args, vocab)
-    lse = torch.logsumexp(logits, dim=-1)
-    t = targets.to(torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)                                # [R, 1, n_args]
+    t = targets.to(torch.int64).reshape(r, -1, n_args)
     valid = (t >= 0) & (t < vocab)
-    tl = logits.gather(-1, t.clamp(0, vocab - 1)[..., None])[..., 0]
-    return lse - torch.where(valid, tl, torch.zeros_like(tl))
+    tl = logits.expand(t.shape + (vocab,)).gather(-1, t.clamp(0, vocab - 1)[..., None])[..., 0]
+    return (lse - torch.where(valid, tl, torch.zeros_like(tl))).reshape(targets.shape)
 
 
 class _RoundGrad(torch.autograd.Function):
@@ -143,6 +160,75 @@ class _ArgsCE(torch.autograd.Function):
         dwa = reduce_partials(dw_part).view(n_args, aw, d)[:, :vocab].reshape(-1, d)
         dba = reduce_partials(db_part).view(n_args, aw)[:, :vocab].reshape(-1)
         return dy, dwa, dba, None, None, None
+
+
+def args_ce_pairwise_reference(y, wa, ba, targets, n_variants: int):
+    """Plain version of :func:`args_ce_pairwise` in its contract: ``y [R,
+    D]``, ``wa [n_args*vocab, D]``, ``ba`` as they are used, ``targets [R,
+    n_variants*n_args]`` int (variant-major) -> ``[R, n_variants*n_args]``
+    float32, ``lse - logit[target]`` (a target outside ``[0, vocab)``
+    matches no class)."""
+    return args_ce_reference(y, wa, ba, targets, targets.shape[-1] // n_variants)
+
+
+_PAIRWISE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def plain_args_ce_pairwise(y, wa, ba, targets, n_variants: int, weight_dtype=None):
+    """:func:`args_ce_pairwise` through the plain version, on any device."""
+    weight_dtype = weight_dtype or y.dtype
+    with torch.no_grad():
+        ce = args_ce_pairwise_reference(y.reshape(-1, y.shape[-1]), wa.to(weight_dtype),
+                                        ba.to(weight_dtype),
+                                        targets.reshape(-1, targets.shape[-1]), n_variants)
+    return ce.reshape(targets.shape)
+
+
+def args_ce_pairwise(y, wa, ba, targets, n_variants: int, weight_dtype=None):
+    """Pairwise argument-head cross-entropy ``[..., n_variants*n_args]``
+    (float32) of ``y [..., D]`` against ``n_variants`` candidate target rows
+    per row (``targets [..., n_variants*n_args]``, variant-major, classes in
+    ``[0, vocab)``); ``wa [n_args*vocab, D]``, ``ba`` are the master
+    parameters, cast to ``weight_dtype`` at use. No gradient.
+
+    A CPU tensor takes :func:`args_ce_pairwise_reference`; a CUDA tensor
+    launches K8 (bfloat16) or raises.
+    """
+    if y.device.type == "cpu":
+        return plain_args_ce_pairwise(y, wa, ba, targets, n_variants, weight_dtype)
+    if y.device.type != "cuda":
+        raise ValueError(f"no pairwise cross-entropy kernel for device {y.device}")
+    dev = y.device
+    d, k = y.shape[-1], targets.shape[-1]
+    n_args = k // n_variants
+    vocab = wa.shape[0] // n_args
+    if y.dtype != torch.bfloat16 or (weight_dtype or y.dtype) != torch.bfloat16:
+        raise ValueError(f"the pairwise cross-entropy kernel takes bfloat16 states and head, "
+                         f"got {y.dtype} and {weight_dtype}")
+    if d % 32 or d > 256:
+        raise ValueError(f"the pairwise cross-entropy kernel takes D a multiple of 32 up to "
+                         f"256, got {d}")
+    if k != n_variants * n_args or targets.shape[:-1] != y.shape[:-1]:
+        raise ValueError(f"targets {tuple(targets.shape)} do not fit y {tuple(y.shape)} and "
+                         f"{n_variants} variants of {n_args} slots")
+    with torch.no_grad():
+        yf = y.detach().reshape(-1, d).contiguous()
+        r = yf.shape[0]
+        w, b = pack_args_head(wa, ba, n_args, torch.bfloat16)
+        tgt = targets.reshape(r, k).to(torch.int32).contiguous()
+        _build.require(yf, "y", dev, torch.bfloat16, (r, d))
+        _build.require(tgt, "targets", dev, torch.int32, (r, k))
+        ce = torch.empty((r, k), dtype=torch.float32, device=dev)
+        if r > 0:
+            fn = _build.kernel_function("dsvg_ce_pairwise", _PAIRWISE_ARGTYPES)
+            rc = fn(yf.data_ptr(), w.data_ptr(), b.data_ptr(), tgt.data_ptr(), ce.data_ptr(), r,
+                    d, n_args, vocab, n_variants, torch.cuda.current_stream(dev).cuda_stream)
+            _build.check_launch(rc, "ce_pairwise")
+            args_ce_pairwise.launches += 1
+    return ce.reshape(targets.shape)
+
+
+args_ce_pairwise.launches = 0
 
 
 def plain_args_ce(y, wa, ba, targets, weight_dtype=None):

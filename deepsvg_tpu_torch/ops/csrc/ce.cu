@@ -1,5 +1,7 @@
 // K5: softmax cross-entropy of the argument head straight from the decoder
 // states, forward and backward; the logits are never stored (see ops/ce.py).
+// K8: the same forward against G candidate targets per row (the self-match
+// cost), with no backward.
 //
 // The head arrives packed per slot as in K3: slot i is round16(vocab) rows of
 // length D, padded columns masked by index. bf16 operands, f32 accumulation.
@@ -8,6 +10,8 @@
 //            columns at a time, multiplies with wmma and folds each chunk into
 //            a running (max, sum of exp, target logit) per row and slot. It
 //            writes ce = lse - target logit and keeps lse for the backward.
+//   ce_pairwise: the same blocks and chunks; each row has G targets per slot,
+//            and ce = lse - target logit for each of them.
 //   ce_bwd_dy: a block keeps 64 rows of y, recomputes each 64-column logits
 //            chunk, forms dlg = (exp(lg - lse) - onehot) * g, rounds it to bf16
 //            and adds dlg @ W_chunk to the rows' dy, held in accumulators.
@@ -46,11 +50,19 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int ldx, const bf16* src, 
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-    ce_fwd_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w,
-                  const bf16* __restrict__ bias, const int* __restrict__ tgt,
-                  float* __restrict__ ce, float* __restrict__ lse, int R, int D,
-                  int n_args, int vocab) {
+// Rows [row0, row0 + FWD_ROWS) of y against the head, slot by slot: each
+// row's log-sum-exp over the slot's classes and, for each of its G candidate
+// targets (tgt [R, G * n_args], variant-major), ce = lse - the target's logit.
+// Two lanes share a row and split the chunk's columns for the running
+// (max, sum); a candidate's logit is read from the chunk's logits in
+// shared memory when its column passes (lane `half` owns the candidates
+// g = half, half + 2, ...), so the G targets cost G reads per chunk, not a
+// comparison per column. A target outside [0, vocab) matches no class.
+__device__ __forceinline__ void ce_rows(const bf16* __restrict__ y, const bf16* __restrict__ w,
+                                        const bf16* __restrict__ bias,
+                                        const int* __restrict__ tgt, float* __restrict__ ce,
+                                        float* __restrict__ lse, int R, int D, int n_args,
+                                        int vocab, int G) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldx = D + SPAD;
   bf16* ys = reinterpret_cast<bf16*>(smem);
@@ -64,10 +76,13 @@ __global__ void __launch_bounds__(NTHREADS)
   const int aw = round16(vocab), tiles = aw / 16;
   const int pr = lane >> 1, half = lane & 1;  // two lanes per row
   const int my_row = row0 + warp * 16 + pr;
+  const int K = G * n_args;
+  // this row's candidate target logits of the current slot
+  float* tls = scr + NWARPS * 16 * SCR_LD + (warp * 16 + pr) * G;
   for (int slot = 0; slot < n_args; ++slot) {
     const int col0 = slot * aw;
-    const int target = my_row < R ? tgt[(size_t)my_row * n_args + slot] : -1;
-    float m = -INFINITY, s = 0.f, tl = 0.f;
+    for (int g = half; g < G; g += 2) tls[g] = 0.f;
+    float m = -INFINITY, s = 0.f;
     for (int t0 = 0; t0 < tiles; t0 += CHUNK_TILES) {
       const int nt = min(CHUNK_TILES, tiles - t0);
       __syncthreads();  // y is loaded / the previous chunk is consumed
@@ -96,7 +111,6 @@ __global__ void __launch_bounds__(NTHREADS)
         const int col = t0 * 16 + c;  // index within the slot
         if (col < vocab) {
           const float v = wscr[pr * SCR_LD + c] + bf2f(bias[col0 + col]);
-          if (col == target) tl = v;
           if (v > m) {
             s = s * expf(m - v) + 1.f;  // exp(-inf) = 0 at the first column
             m = v;
@@ -105,18 +119,51 @@ __global__ void __launch_bounds__(NTHREADS)
           }
         }
       }
+      if (my_row < R) {
+        for (int g = half; g < G; g += 2) {
+          const int target = tgt[(size_t)my_row * K + g * n_args + slot];
+          const int c = target - t0 * 16;
+          if (target >= 0 && target < vocab && c >= 0 && c < nt * 16)
+            tls[g] = wscr[pr * SCR_LD + c] + bf2f(bias[col0 + target]);
+        }
+      }
       __syncwarp();
     }
     const float om = __shfl_xor_sync(FULL_MASK, m, 1);
     const float os = __shfl_xor_sync(FULL_MASK, s, 1);
-    tl += __shfl_xor_sync(FULL_MASK, tl, 1);
-    const float mm = fmaxf(m, om);
-    const float l = mm + logf(s * expf(m - mm) + os * expf(om - mm));
-    if (half == 0 && my_row < R) {
-      ce[(size_t)my_row * n_args + slot] = l - tl;
-      lse[(size_t)my_row * n_args + slot] = l;
+    // both lanes write ce: combine the halves in one order (half 0's first),
+    // so that both compute the same bits
+    const float m0 = half ? om : m, s0 = half ? os : s;
+    const float m1 = half ? m : om, s1 = half ? s : os;
+    const float mm = fmaxf(m0, m1);
+    const float l = mm + logf(s0 * expf(m0 - mm) + s1 * expf(m1 - mm));
+    if (my_row < R) {
+      for (int g = half; g < G; g += 2) ce[(size_t)my_row * K + g * n_args + slot] = l - tls[g];
+      if (lse != nullptr && half == 0) lse[(size_t)my_row * n_args + slot] = l;
     }
   }
+}
+
+// K5's forward: one target per row; keeps lse for the backward
+__global__ void __launch_bounds__(NTHREADS)
+    ce_fwd_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w,
+                  const bf16* __restrict__ bias, const int* __restrict__ tgt,
+                  float* __restrict__ ce, float* __restrict__ lse, int R, int D,
+                  int n_args, int vocab) {
+  ce_rows(y, w, bias, tgt, ce, lse, R, D, n_args, vocab, 1);
+}
+
+// K8: G candidate targets per row, forward only (the self-match cost)
+__global__ void __launch_bounds__(NTHREADS)
+    ce_pairwise_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w,
+                       const bf16* __restrict__ bias, const int* __restrict__ tgt,
+                       float* __restrict__ ce, int R, int D, int n_args, int vocab, int G) {
+  ce_rows(y, w, bias, tgt, ce, nullptr, R, D, n_args, vocab, G);
+}
+
+size_t fwd_smem(int D, int G) {
+  return (size_t)(FWD_ROWS + CHUNK) * (D + SPAD) * sizeof(bf16) +
+         (size_t)NWARPS * 16 * SCR_LD * sizeof(float) + (size_t)FWD_ROWS * G * sizeof(float);
 }
 
 struct BwdCommon {
@@ -336,8 +383,7 @@ BwdCommon common(const void* y, const void* w, const void* bias, const void* tgt
 extern "C" int dsvg_ce_fwd(const void* y, const void* w, const void* bias,
                            const void* tgt, void* ce, void* lse, int R, int D,
                            int n_args, int vocab, void* stream) {
-  const size_t smem = (size_t)(FWD_ROWS + CHUNK) * (D + SPAD) * sizeof(bf16) +
-                      (size_t)NWARPS * 16 * SCR_LD * sizeof(float);
+  const size_t smem = fwd_smem(D, 1);
   cudaError_t err = cudaFuncSetAttribute(
       ce_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -345,6 +391,21 @@ extern "C" int dsvg_ce_fwd(const void* y, const void* w, const void* bias,
   ce_fwd_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(
       (const bf16*)y, (const bf16*)w, (const bf16*)bias, (const int*)tgt, (float*)ce,
       (float*)lse, R, D, n_args, vocab);
+  return (int)cudaGetLastError();
+}
+
+// tgt and ce [R][G * n_args], variant-major
+extern "C" int dsvg_ce_pairwise(const void* y, const void* w, const void* bias,
+                                const void* tgt, void* ce, int R, int D, int n_args,
+                                int vocab, int G, void* stream) {
+  const size_t smem = fwd_smem(D, G);
+  cudaError_t err = cudaFuncSetAttribute(
+      ce_pairwise_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (R + FWD_ROWS - 1) / FWD_ROWS;
+  ce_pairwise_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(
+      (const bf16*)y, (const bf16*)w, (const bf16*)bias, (const int*)tgt, (float*)ce, R, D,
+      n_args, vocab, G);
   return (int)cudaGetLastError();
 }
 

@@ -136,7 +136,8 @@ class TrainState:
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Initialise as the flax modules do: LeCun-normal kernels, zero biases,
     unit LayerNorm scales, embedding tables and the argument-embedding
-    projection with fan-in-scaled normals (gain sqrt 2)."""
+    projection with fan-in-scaled normals (gain sqrt 2), and the VAE's two
+    kernels normal with std 0.001."""
     normal = lambda p, std: p.copy_(torch.randn(p.shape, generator=generator) * std)  # noqa: E731
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -149,6 +150,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             normal(p, math.sqrt(2.0 / p.shape[1]))
         elif ".norm." in name or name.startswith("norm."):
             p.fill_(1.0) if leaf == "weight" else p.zero_()
+        elif name.startswith("vae.") and leaf == "weight":
+            normal(p, 0.001)
         elif leaf == "weight":
             normal(p, math.sqrt(1.0 / p.shape[1]))
         else:
@@ -178,7 +181,8 @@ def train_step(state: TrainState, batch: dict, weights: dict, optimizer,
     model = state.model
     batch = decompress_batch(batch)
     args = [batch[k] for k in model_args]
-    rng = DropoutRng(state.generator) if model.cfg.dropout > 0.0 else None
+    # the step's randomness: dropout, and the VAE's noise at any dropout
+    rng = DropoutRng(state.generator) if model.cfg.dropout > 0.0 or model.cfg.use_vae else None
     params = state.parameters()
     for p in params:
         p.grad = None
@@ -253,8 +257,11 @@ def train_resident_multi_step(state: TrainState, data: dict, icon_idx: torch.Ten
 @torch.no_grad()
 def eval_step(state: TrainState, batch: dict, weights: dict, model_args: list,
               fused_ce: bool = True) -> dict:
-    """Forward and loss without dropout or update."""
+    """Forward and loss without dropout or update; the VAE samples from a
+    fixed generator (the JAX package's ``key(0)``), so the result does not
+    depend on the state's generator."""
     batch = decompress_batch(batch)
     args = [batch[k] for k in model_args]
-    out = state.model(*args, return_tgt=True, deterministic=True, fused_ce=fused_ce)
+    rng = DropoutRng.fixed() if state.model.cfg.use_vae else None
+    out = state.model(*args, return_tgt=True, deterministic=True, fused_ce=fused_ce, rng=rng)
     return svg_loss(out, weights, state.model.cfg)

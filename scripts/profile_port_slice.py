@@ -3,6 +3,7 @@
     python3 scripts/profile_port_slice.py            # the inference path
     python3 scripts/profile_port_slice.py --train    # the training step, B=128
     python3 scripts/profile_port_slice.py --recipe   # the training step, B=60
+    python3 scripts/profile_port_slice.py --selfmatch  # the self-matching step, B=60
 
 Loads the trained flagship checkpoint into the port (bfloat16 compute,
 float32 masters). Without ``--train`` it runs greedy one-shot encode+decode
@@ -12,11 +13,15 @@ float32 masters). Without ``--train`` it runs greedy one-shot encode+decode
 learning rate 1e-3 on one batch (seed 0), as ``chip_smoke.py`` does. Either
 runs under ``torch.profiler`` for 5 calls after warm-up calls. ``--recipe``
 runs the step at the recipe's batch, B=60, where E2 and D2 take the fused
-stack kernel K7 (B=128 is over the stack gate). Each prints the
+stack kernel K7 (B=128 is over the stack gate). ``--selfmatch`` runs the
+step of the Hungarian self-matching model with its VAE at B=60 (K8 and the
+brute-force matching), built from the flagship checkpoint as
+``chip_smoke.py`` builds it. Each prints the
 device time by kernel name, the device's busy time against the host's wall
 time over the window (the idle share), and the card's name and power limit.
 The full table goes to ``slice_profile.txt``, ``train_profile.txt`` or
-``train_recipe_profile.txt`` in the output directory under the repository
+``train_recipe_profile.txt`` (``train_selfmatch_profile.txt``) in the output
+directory under the repository
 root. Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
@@ -44,7 +49,10 @@ def main() -> int:
     parser.add_argument("--train", action="store_true", help="profile the training step")
     parser.add_argument("--recipe", action="store_true",
                         help="profile the training step at the recipe batch B=60")
+    parser.add_argument("--selfmatch", action="store_true",
+                        help="profile the self-matching model's training step at B=60")
     opts = parser.parse_args()
+    opts.recipe = opts.recipe or opts.selfmatch
     opts.train = opts.train or opts.recipe
     b_train = B_RECIPE if opts.recipe else B_TRAIN
     if not torch.cuda.is_available():
@@ -61,7 +69,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = gpu_fast(hierarchical_ordered())
-    model = load_model(CHECKPOINT, cfg, device="cuda")
+    if opts.selfmatch:
+        from chip_smoke import self_match_model
+        from deepsvg_tpu_torch.models import hierarchical_self_matching
+        cfg = gpu_fast(hierarchical_self_matching())
+        model = self_match_model(cfg, "cuda")
+    else:
+        model = load_model(CHECKPOINT, cfg, device="cuda")
     size = b_train if opts.train else N
     batch = generate_batch(np.random.default_rng(0), size, cfg.max_num_groups, cfg.max_seq_len)
     commands = torch.from_numpy(batch["commands"]).cuda()
@@ -70,10 +84,12 @@ def main() -> int:
         optimizer = make_optimizer(constant(1e-3))
         state = create_train_state(model, optimizer, init=False)
         data = {"commands": commands, "args": args}
-        weights = dict(loss_visibility_weight=1.0, loss_cmd_weight=1.0, loss_args_weight=2.0)
+        weights = dict(loss_visibility_weight=1.0, loss_cmd_weight=1.0, loss_args_weight=2.0,
+                       kl_tolerance=0.1, loss_kl_weight=1.0)
         model_args = ["commands", "args", "commands", "args"]
         what, warmup = f"train_step B={b_train}", 3
-        out_name = "train_recipe_profile.txt" if opts.recipe else "train_profile.txt"
+        out_name = ("train_selfmatch_profile.txt" if opts.selfmatch else
+                    "train_recipe_profile.txt" if opts.recipe else "train_profile.txt")
 
         def run():
             train_step(state, data, weights, optimizer, model_args)

@@ -345,3 +345,58 @@ def test_stack_train_kernel_matches_plain(cuda, dtype, b, causal, rate, with_bia
         assert torch.equal(got, want), (name, (got - want).abs().max().item())
     again = torch.autograd.grad(stack_vjp.fused_stack_train(*call), leaves, g)
     assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+@pytest.mark.parametrize("r,n_variants", [(1000, 8), (14880, 8), (257, 3)])
+def test_pairwise_ce_kernel_matches_plain(cuda, r, n_variants):
+    """K8 against its plain version (1e-3, as K5: float32 sums of exact bf16
+    products in another order), with targets that match no class; each
+    variant's columns equal K5's forward on that variant's targets, to the
+    bit (one code path)."""
+    rng = np.random.default_rng(r + n_variants)
+    y = _bf16(rng, cuda, r, D)
+    wa = _bf16(rng, cuda, N_ARGS * VOCAB, D, scale=D ** -0.5).float()
+    ba = _bf16(rng, cuda, N_ARGS * VOCAB).float()
+    k = n_variants * N_ARGS
+    tgt = torch.from_numpy(rng.integers(0, VOCAB, (r, k)).astype(np.int32)).to(cuda)
+    tgt[3, 2], tgt[4, k - 1] = VOCAB + 3, -1
+    before = ce_ops.args_ce_pairwise.launches
+    ce = ce_ops.args_ce_pairwise(y, wa, ba, tgt, n_variants, BF16)
+    assert ce_ops.args_ce_pairwise.launches == before + 1
+    ref = ce_ops.args_ce_pairwise_reference(y, wa.to(BF16), ba.to(BF16), tgt, n_variants)
+    err = (ce - ref).abs().max().item()
+    print(f"K8 R={r} G={n_variants}: max abs err {err:.3g}")
+    assert ce.shape == (r, k) and ce.dtype == torch.float32 and err <= 1e-3
+    k5 = torch.cat([ce_ops.args_ce(y, wa, ba, tgt[:, g * N_ARGS:(g + 1) * N_ARGS].contiguous(),
+                                   BF16) for g in range(n_variants)], dim=1)
+    print(f"  K8 vs K5 per variant: max abs diff {(ce - k5).abs().max().item():.3g}")
+    assert torch.equal(ce, k5)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ce_ops.args_ce_pairwise(y.float(), wa, ba, tgt, n_variants)
+    with pytest.raises(ValueError, match="do not fit"):
+        ce_ops.args_ce_pairwise(y, wa, ba, tgt[:, :-1], n_variants, BF16)
+
+
+def test_self_match_step_launches_k8_once(cuda):
+    """One training step of the self-matching model at the flagship's widths
+    (random weights, B=4, dropout 0.1): K8 once for the matching, K5 once
+    forward and once backward on the permuted targets; finite loss terms."""
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import SVGTransformer, gpu_fast, hierarchical_self_matching
+    from deepsvg_tpu_torch.training import (
+        constant, create_train_state, make_optimizer, train_step)
+    model = SVGTransformer(gpu_fast(hierarchical_self_matching())).to(cuda)
+    optimizer = make_optimizer(constant(1e-3))
+    state = create_train_state(model, optimizer)
+    b = generate_batch(np.random.default_rng(0), 4)
+    batch = {k: torch.from_numpy(b[k]).to(cuda) for k in ("commands", "args")}
+    counts = (ce_ops.args_ce_pairwise.launches, ce_ops.args_ce.launches,
+              ce_ops.args_ce.backward_launches)
+    weights = dict(kl_tolerance=0.1, loss_kl_weight=1.0, loss_visibility_weight=1.0,
+                   loss_cmd_weight=1.0, loss_args_weight=2.0)
+    _, res = train_step(state, batch, weights, optimizer, ["commands", "args"] * 2)
+    torch.cuda.synchronize()
+    after = (ce_ops.args_ce_pairwise.launches, ce_ops.args_ce.launches,
+             ce_ops.args_ce.backward_launches)
+    assert [a - c for a, c in zip(after, counts)] == [1, 1, 1]
+    assert all(bool(torch.isfinite(v)) for v in res.values()) and "loss_kl" in res

@@ -363,9 +363,11 @@ def test_svg_loss_matches_jax(fused):
 
 
 def test_svg_loss_refuses_the_vae_term():
+    """A VAE model's loss needs the forward's mu and logsigma: without them
+    the KL term is refused rather than left out."""
     import dataclasses
     cfg = dataclasses.replace(hierarchical_ordered(), use_vae=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="mu and logsigma"):
         svg_loss({}, WEIGHTS, cfg)
 
 
