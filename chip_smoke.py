@@ -4,7 +4,7 @@
 
 In order: print the card and its power limit; build the port's CUDA kernels
 from ``deepsvg_tpu_torch/ops/csrc``; load the trained flagship checkpoint;
-then four paths.
+then five paths.
 
 *Inference* (greedy one-shot encode+decode, N=1024): each kernel (K1
 embedding, K2 fused layer in its bfloat16 and float32 forms, K3 head+argmax)
@@ -46,6 +46,23 @@ timed, 23 steps on one batch); the CLI's ``train()`` on the
 VAE model's ``one_shot_sample`` at N=1024 (counted, validated, the same
 from call to call); K8, its plain version and ``F.linear`` +
 ``log_softmax`` + ``gather`` timed.
+
+*Sketchformer's autoregressive greedy decode* (N=1024 icons of 8 x 30
+commands, one sequence of 242 with SOS and EOS; T = 241 cache positions;
+random weights from a seed, :func:`sketchformer_model`): K9 against its
+plain version on the decode's own operands at positions 1, 120 and 240;
+K2's long form against its plain version at E1 (S=242, key padding), S=240
+and the teacher-forced decoder (S=241, causal); K3 at 512 argument classes;
+one counted ``greedy_sample`` (K1 1, long K2 4, K9 240, K3 240, no plain
+version called); kernel path against plain path at N=64, each sequence's
+outputs equal before its first position whose plain margin is below
+AR_MARGIN, with a control that must fail; the teacher-forced forward over
+the decoded tokens, whose argmax must be the decoded token wherever its
+margin is at least TF_MARGIN; times of the encode, the decode (and K9 per
+launch under the profiler), ``greedy_sample`` and the cached scan in plain
+PyTorch operations (K9's yardstick), K9 alone at the three positions with
+its bound, and the long K2 with its plain version and
+``nn.TransformerEncoderLayer``.
 
 The second-to-last line is ``{"kernels": [...]}``, the last ``{"ok": true,
 "device": {...}}``; the full record goes to ``chiprun_out/chip_smoke.json``.
@@ -196,6 +213,35 @@ TOL_PAIR = TOL_CE
 # decoder states that K8 reads on the plain path, and must fail that gate.
 MATCH_MARGIN = 5e-2
 MATCH_CONTROL_NOISE = 0.1
+# the autoregressive phase (Sketchformer, random weights from AR_SEED; no
+# trained checkpoint of it exists). K9 and the long form of K2 round to
+# bfloat16 at the same points as their plain versions and sum in another
+# order: the layer's limits, and for K9, whose four layers feed each other
+# their last-bit differences, twice the layer's relative RMS limit.
+AR_SEED = 0
+N_AR_GATE = 64
+AR_INDICES = (1, 120, 240)
+TOL_DECODE_RMS = 2 * TOL_LAYER_RMS
+# kernel path against plain path at N=64: per sequence, the decoded outputs
+# must be equal on every position before the first one where the plain
+# path's top-2 logit margin (of the command, or of an argument slot the
+# command uses) is below AR_MARGIN; after a position near a tie the paths
+# may part, and then every later token differs. The control, the plain path
+# with the four decoder layers' weights cut by AR_CONTROL_DROP_BITS mantissa
+# bits, must fail this gate (decoder layer 0 cut by CONTROL_DROP_BITS, the
+# inference path's control, moved the logits too little to fail it at these
+# random weights: readings in PERF.md). The teacher-forced forward over the
+# kernel path's decoded tokens (N=1024, S=241) must give the decoded token
+# at every position whose margin there is at least TF_MARGIN.
+# Besides, where both paths decoded from the same tokens (each sequence up
+# to its first differing output), no logit may differ by more than
+# AR_LOGIT_LIMIT: the kernel path read 0.0142 there, decoder layer 0 cut by
+# CONTROL_DROP_BITS 0.135 and the four layers cut by AR_CONTROL_DROP_BITS
+# 0.338 (PERF.md); both controls must fail this limit.
+AR_MARGIN = 5e-2
+AR_CONTROL_DROP_BITS = 4
+AR_LOGIT_LIMIT = 5e-2
+TF_MARGIN = 5e-2
 
 
 def check(ok: bool, what: str) -> None:
@@ -328,11 +374,14 @@ def truncated_weights(layer, drop_bits: int):
 
 
 @contextlib.contextmanager
-def plain_path(emb_ops, layer_ops, head_ops, layer_vjp=None, ce_ops=None, stack_vjp=None):
+def plain_path(emb_ops, layer_ops, head_ops, layer_vjp=None, ce_ops=None, stack_vjp=None,
+               decode_ops=None):
     """Route the model through the kernels' plain versions, on the card."""
     saved = [(emb_ops, "fused_embedding", emb_ops.embedding_reference),
              (layer_ops, "fused_layer", layer_ops.layer_reference),
              (head_ops, "fused_head_argmax", head_ops.head_argmax_reference)]
+    if decode_ops is not None:
+        saved += [(decode_ops, "fused_decode_step", decode_ops.decode_step_reference)]
     if layer_vjp is not None:
         saved += [(emb_ops, "fused_embedding_train", emb_ops.embedding_reference),
                   (layer_vjp, "fused_layer_train", layer_vjp.plain_layer_train),
@@ -758,6 +807,467 @@ def matched_forward(model, commands, args, perturb_states: float = 0.0) -> dict:
     return seen
 
 
+def sketchformer_model(dev, seed: int = AR_SEED):
+    """The port's Sketchformer (``configs/sketchformer.py``: the config under
+    ``gpu_fast``) at full width, initialised by the port's
+    ``init_parameters`` from a seeded generator: no trained Sketchformer
+    checkpoint exists, so its decoded icons mean nothing and the checks
+    work step by step and by margin."""
+    from deepsvg_tpu_torch.configs.sketchformer import make_model_config
+    from deepsvg_tpu_torch.models import SVGTransformer
+    from deepsvg_tpu_torch.training.trainer import init_parameters
+    model = SVGTransformer(make_model_config())
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()
+
+
+def slot_margins(y, fcn, chunk: int = 32768):
+    """The gap between the two best float32 logits of each slot
+    ``[R, 1 + n_args]`` for decoder states ``y [R, D]``."""
+    w, b = fcn.w_packed.float(), fcn.b_packed.float()
+    out = []
+    for yc in y.reshape(-1, y.shape[-1]).split(chunk):
+        logits = yc.float() @ w.t() + b
+        top2 = [logits[:, o:o + n].topk(2, dim=-1).values for o, n in head_slots(fcn)]
+        out.append(torch.stack([t[:, 0] - t[:, 1] for t in top2], dim=1))
+    return torch.cat(out).reshape(y.shape[:-1] + (-1,))
+
+
+def position_margin(margins, commands):
+    """Per position, the least margin of the command and of the argument
+    slots that the decoded ``commands`` use."""
+    from deepsvg_tpu_torch.svgtensor.masks import cmd_args_mask
+    used = cmd_args_mask(commands.device, torch.bool)[commands.long()]
+    args_m = torch.where(used, margins[..., 1:], torch.full_like(margins[..., 1:], float("inf")))
+    return torch.minimum(margins[..., 0], args_m.amin(dim=-1))
+
+
+def traced_decode(model, z, sample_mod, capture: dict | None = None):
+    """``autoregressive_sample_fused(model, z)`` as the modules have it (the
+    kernels, or their plain versions under :func:`plain_path`), recording
+    the decoder states of every step and the raw (relative) decoded ids, and
+    into ``capture`` the decode step's operands at the indices of
+    AR_INDICES (cloned) and of the last step (``"last"``, as they are).
+    Returns ``(out, raw_commands [N, L], raw_args [N, L, n_args], states
+    [L, N, D])``. The spies stand in ``sample``'s namespace for the call;
+    the wrappers and their launch counts stay as they are."""
+    import types
+    head_ops, decode_ops = sample_mod.head_ops, sample_mod.decode_ops
+    head, decode = head_ops.fused_head_argmax, decode_ops.fused_decode_step
+    finalize = sample_mod._finalize_args
+    states, raw = [], {}
+
+    def spy_head(y, *rest):
+        states.append(y)
+        return head(y, *rest)
+
+    def spy_decode(*a):
+        if capture is not None:
+            index = a[-2]
+            if index in AR_INDICES:
+                capture[index] = [t.clone() if torch.is_tensor(t) else t for t in a]
+            capture["last"] = a
+        return decode(*a)
+
+    def keep(cfg, commands, args):
+        raw["c"], raw["a"] = commands[:, 0], args[:, 0]
+        return finalize(cfg, commands, args)
+    sample_mod.head_ops = types.SimpleNamespace(fused_head_argmax=spy_head)
+    sample_mod.decode_ops = types.SimpleNamespace(fused_decode_step=spy_decode)
+    sample_mod._finalize_args = keep
+    try:
+        out = sample_mod.autoregressive_sample_fused(model, z)
+    finally:
+        sample_mod.head_ops, sample_mod.decode_ops = head_ops, decode_ops
+        sample_mod._finalize_args = finalize
+    return out, raw["c"], raw["a"], torch.stack(states)
+
+
+def prefix_gate(out, out_ref, margin_ref, min_margin: float):
+    """Per sequence, the first position whose reference margin ``[N, L]`` is
+    below ``min_margin``; the share of sequences whose decoded commands and
+    arguments equal the reference's on every position before it, and the
+    number of positions compared."""
+    (c, a), (c_r, a_r) = out, out_ref
+    length = margin_ref.shape[1]
+    low = margin_ref < min_margin
+    first = torch.where(low.any(dim=1), low.float().argmax(dim=1),
+                        torch.full_like(low[:, 0], length, dtype=torch.long))
+    gated = torch.arange(length, device=c.device)[None] < first[:, None]
+    same = (c[:, 0] == c_r[:, 0]) & (a[:, 0] == a_r[:, 0]).all(dim=-1)
+    return (same | ~gated).all(dim=1).float().mean().item(), int(gated.sum())
+
+
+def count_plain_calls(modules):
+    """Wrap the plain versions ``(module, name)`` to count their calls;
+    returns ``(counts, restore)``."""
+    counts, saved = {}, []
+    for mod, name in modules:
+        fn = getattr(mod, name)
+        counts[name] = 0
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*args, **kw)
+        saved.append((mod, name, fn))
+        setattr(mod, name, spy)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return counts, restore
+
+
+def compare_elementwise(what, got, want, rms_limit, atol=TOL_LAYER_ATOL, rtol=TOL_LAYER_RTOL):
+    """Kernel output against its plain version: the largest excess of the
+    error over ``rtol`` x |out| (limit ``atol``) and the relative RMS error
+    (limit ``rms_limit``); checked later, printed now. Returns the readings."""
+    diff = (got.float() - want.float()).abs()
+    excess = (diff - rtol * want.float().abs()).max().item()
+    rms = rel_rms(got, want)
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check_later(excess <= atol and rms <= rms_limit,
+                f"{what}: an element is off by {excess} beyond {rtol} x |out| (limit {atol}), "
+                f"relative RMS err {rms} (limit {rms_limit})")
+    print(f"{what}: max abs err {diff.max().item():.3g}; largest excess over {rtol:.3g} x |out| "
+          f"{excess:.3g} (limit {atol}); relative RMS err {rms:.3g} (limit {rms_limit})",
+          flush=True)
+    return {"max_abs_err": diff.max().item(), "atol_needed": excess, "rms": rms}
+
+
+def autoregressive_phase(dev, card, kernels, record, yardstick, reset_counts, read_counts,
+                         library_layer) -> dict:
+    """Sketchformer's greedy encode+decode at N=1024 through K1, the long
+    form of K2, K9 and K3: each kernel against its plain version, the counted
+    ``greedy_sample``, kernel path against plain path at N=64 with a control,
+    the teacher-forced forward over the decoded tokens, and the times.
+    Returns the launches of one ``greedy_sample``."""
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import (
+        DropoutRng, autoregressive_sample_cached, autoregressive_sample_fused, greedy_sample)
+    from deepsvg_tpu_torch.models import sample as sample_mod
+    from deepsvg_tpu_torch.models.layers import key_padding_to_additive
+    from deepsvg_tpu_torch.ops import decode as decode_ops
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import head as head_ops
+    from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.svgtensor import masks as M
+    from deepsvg_tpu_torch.svgtensor.constants import CMD_SOS, PAD_VAL
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    model = sketchformer_model(dev)
+    cfg = model.cfg
+    fcn, enc, dec = model.decoder.fcn, model.encoder, model.decoder
+    batch = generate_batch(np.random.default_rng(0), N_MAIN, cfg.max_num_groups,
+                           cfg.max_seq_len)
+    commands = torch.from_numpy(batch["commands_grouped"]).to(dev)     # [N, 1, 242]
+    args = torch.from_numpy(batch["args_grouped"]).to(dev)
+    n, s_enc = commands.shape[0], commands.shape[-1]
+    length = cfg.max_total_len + 1
+    out: dict = {"N": n, "S_encoder": s_enc, "T": length, "seed": AR_SEED}
+
+    with torch.no_grad():
+        z, _, _ = model.encode(commands, args, rng=DropoutRng.fixed())
+        # ---- the decode's operands at three positions, from a kernel-path decode
+        captured = {}
+        fused = decode_ops.fused_decode_step
+        (c_k, a_k), raw_c, raw_a, states = traced_decode(model, z, sample_mod, captured)
+        # index 240: the caches after the last step (every position before 240 written)
+        last = list(captured.pop("last"))
+        last[-2] = length - 1
+        captured[length - 1] = last
+        torch.cuda.synchronize()
+
+        # ---- K9 against its plain version at N=1024, T=241
+        k9 = {}
+        for index in AR_INDICES:
+            ops = captured[index]
+            got = fused(*ops)
+            want = decode_ops.decode_step_reference(*ops)
+            k9[index] = {name: compare_elementwise(f"K9 decode step index {index} {name}", g, w,
+                                                   TOL_DECODE_RMS)
+                         for name, g, w in zip(("y", "k_new", "v_new"), got, want)}
+        kernels["decode"] = {
+            "max_abs_err": max(r["max_abs_err"] for v in k9.values() for r in v.values()),
+            "atol_needed": max(r["atol_needed"] for v in k9.values() for r in v.values()),
+            "tolerance": {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL,
+                          "rms": TOL_DECODE_RMS},
+            "cases": k9}
+
+        # ---- K2's long form against its plain version: E1 at the path's
+        # S=242 (key padding), S=240 (random input, key padding) and the
+        # teacher-forced decoder's S=241 (causal, key padding, seq_bias)
+        cmd_f, args_f = commands[:, 0], args[:, 0]
+        x_e1 = enc.embedding(cmd_f, args_f, M.group_mask(cmd_f))
+        kp_e1 = key_padding_to_additive(M.key_padding_mask(cmd_f))
+        buf_c = torch.cat([torch.full((n, 1), CMD_SOS, dtype=torch.int32, device=dev), raw_c], 1)
+        buf_a = torch.cat([torch.full((n, 1, cfg.n_args), float(PAD_VAL), device=dev), raw_a], 1)
+        x_tf = dec.embedding(buf_c, buf_a, M.group_mask(buf_c))
+        kp_tf = key_padding_to_additive(M.key_padding_mask(buf_c))
+
+        # ---- K1 against its plain version on the path's own inputs: the
+        # encoder's (S=242, group table, 257 argument classes) and the
+        # teacher-forced decoder's (S=241, group table, 512 relative classes)
+        k1 = {}
+        for what, emb, c_in, a_in in (("encoder", enc.embedding, cmd_f, args_f),
+                                      ("teacher-forced decoder", dec.embedding, buf_c, buf_a)):
+            cmd_table, arg_tables, pos_table = emb.tables()
+            e_in = (c_in, a_in, M.group_mask(c_in), cmd_table, arg_tables, emb.group_table(),
+                    pos_table[:c_in.shape[1]], emb.use_group)
+            err = (emb_ops.fused_embedding(*e_in).float()
+                   - emb_ops.embedding_reference(*e_in).float()).abs().max().item()
+            print(f"K1 embedding, {what} N={n} S={c_in.shape[1]}: group table "
+                  f"{tuple(e_in[5].shape)}, {arg_tables.shape[0] // cfg.n_args} argument classes; "
+                  f"max abs err {err:.3g} (tolerance {TOL_EMBED})", flush=True)
+            check_later(err <= TOL_EMBED, f"K1 {what}: max abs err {err} > {TOL_EMBED}")
+            k1[what] = err
+        kernels["embedding"]["max_abs_err"] = max(kernels["embedding"]["max_abs_err"],
+                                                  *k1.values())
+        kernels["embedding"]["autoregressive_cases"] = k1
+        l_e, l_d = enc.encoder.layers[0], dec.decoder.layers[0]
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x240 = torch.randn(256, 240, cfg.d_model, device=dev, generator=gen).to(bf16)
+        kp240 = torch.where(torch.rand(256, 240, device=dev, generator=gen) < 0.2, float("-inf"),
+                            0.0)
+        kp240[:, 0], kp240[0] = 0.0, float("-inf")          # sequence 0 fully masked
+        long_cases = {
+            "E1 S=242 key pad": layer_args(l_e, x_e1, kp_e1),
+            "encoder S=240 random x, key pad": layer_args(l_e, x240, kp240),
+            "decoder S=241 causal, key pad, seq_bias": layer_args(
+                l_d, x_tf, kp_tf, l_d.injection(z).to(bf16), True),
+        }
+        k2l = {what: compare_elementwise(f"K2 long layer {what}", layer_ops.fused_layer(*la),
+                                         layer_ops.layer_reference(*la), TOL_LAYER_RMS)
+               for what, la in long_cases.items()}
+        kernels["layer_long"] = {
+            "max_abs_err": max(r["max_abs_err"] for r in k2l.values()),
+            "atol_needed": max(r["atol_needed"] for r in k2l.values()),
+            "tolerance": {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL, "rms": TOL_LAYER_RMS},
+            "cases": k2l}
+
+        # ---- K3 at 512 argument classes, on the decode's states at the middle index
+        y_mid = states[AR_INDICES[1]].contiguous()
+        head_in = (y_mid, fcn.w_packed, fcn.b_packed, cfg.n_commands, cfg.n_args, fcn.args_dim)
+        ids_k = head_ops.fused_head_argmax(*head_in).long()
+        ids_p = head_ops.head_argmax_reference(*head_in).long()
+        margins = slot_margins(y_mid, fcn)
+        differ = ids_k != ids_p
+        check(not bool((differ & (margins >= TOL_HEAD_MARGIN)).any()),
+              f"K3 at {fcn.args_dim} classes: ids differ where the top-2 gap >= {TOL_HEAD_MARGIN}")
+        print(f"K3 head at {fcn.args_dim} argument classes, R={y_mid.shape[0]}: {int(differ.sum())} "
+              f"of {differ.numel()} ids differ, all where the top-2 gap < {TOL_HEAD_MARGIN}",
+              flush=True)
+        out["head_512_ids_differing"] = int(differ.sum())
+
+        # ---- one greedy_sample, counted; no plain version may run
+        plain_fns = [(emb_ops, "embedding_reference"), (layer_ops, "layer_reference"),
+                     (decode_ops, "decode_step_reference"), (head_ops, "head_argmax_reference")]
+        torch.cuda.synchronize()
+        calls, restore = count_plain_calls(plain_fns)
+        reset_counts()
+        try:
+            c_g, a_g = greedy_sample(model, commands, args)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        launches = read_counts()
+        steps = cfg.max_total_len
+        print(f"greedy_sample N={n}: launches {launches}; plain versions called {calls}",
+              flush=True)
+        check(launches == dict.fromkeys(launches, 0) | {"embedding": 1, "layer_long": 4,
+                                                        "decode": steps, "head": steps},
+              f"launches per greedy_sample {launches}, expected embedding 1, long layer 4, "
+              f"decode {steps}, head {steps}, nothing else")
+        check(not any(calls.values()), f"plain versions ran on the kernel path: {calls}")
+        check(torch.equal(c_g, c_k) and torch.equal(a_g, a_k),
+              "greedy_sample differs from the traced decode of the same latent")
+        check(tuple(c_g.shape) == (n, 1, steps) and tuple(a_g.shape) == (n, 1, steps, cfg.n_args)
+              and bool(torch.isfinite(a_g).all()) and int(c_g.min()) >= 0
+              and int(c_g.max()) < cfg.n_commands, "greedy_sample output shapes or ranges")
+        used = M.cmd_args_mask(dev, torch.bool)[c_g.long()]
+        check(bool((a_g[~used] == PAD_VAL).all()), "unused arguments are not PAD")
+        out["launches"] = launches
+
+        # ---- kernel path vs plain path at N=64, gated by the plain margin; control
+        zg = z[:N_AR_GATE]
+        out_k, raw_ck, raw_ak, states_k = traced_decode(model, zg, sample_mod)
+        with plain_path(emb_ops, layer_ops, head_ops, decode_ops=decode_ops):
+            out_p, raw_cp, raw_ap, states_p = traced_decode(model, zg, sample_mod)
+            with truncated_weights(dec.decoder.layers[0], CONTROL_DROP_BITS):
+                out_c1 = traced_decode(model, zg, sample_mod)
+            with contextlib.ExitStack() as cut:
+                for layer in dec.decoder.layers:
+                    cut.enter_context(truncated_weights(layer, AR_CONTROL_DROP_BITS))
+                out_c = traced_decode(model, zg, sample_mod)
+        margin_p = position_margin(slot_margins(states_p, fcn), raw_cp.t()).t()   # [N, L]
+        w_head = fcn.w_packed.float()
+
+        def against_plain(o, raw_c_o, raw_a_o, states_o):
+            """(share of sequences equal before the gate, positions compared,
+            largest logit difference where both paths saw the same tokens:
+            every step up to each sequence's first differing output)"""
+            agree, compared = prefix_gate(o, out_p, margin_p, AR_MARGIN)
+            differ = ~((raw_c_o == raw_cp) & (raw_a_o == raw_ap).all(dim=-1))
+            first = torch.where(differ.any(1), differ.float().argmax(1),
+                                torch.full_like(differ[:, 0], steps - 1, dtype=torch.long))
+            shared = torch.arange(steps, device=dev)[:, None] <= first[None]     # [L, N]
+            gap = ((states_o[shared].float() - states_p[shared].float()) @ w_head.t()).abs()
+            return agree, compared, gap.max().item()
+        agree, compared, logit_gap = against_plain(out_k, raw_ck, raw_ak, states_k)
+        control1, _, control1_gap = against_plain(*out_c1)
+        control, _, control_gap = against_plain(*out_c)
+        every = ((out_k[0] == out_p[0]) & (out_k[1] == out_p[1]).all(-1)).float().mean().item()
+        print(f"kernel vs plain path N={N_AR_GATE}: sequences equal before their first position "
+              f"with plain margin < {AR_MARGIN}: {agree:.4f} ({compared} positions compared of "
+              f"{N_AR_GATE * steps}); largest logit difference at shared inputs {logit_gap:.3g} "
+              f"(limit {AR_LOGIT_LIMIT}); outputs equal at every position {every:.4f}; controls: "
+              f"decoder layer 0 less {CONTROL_DROP_BITS} mantissa bits {control1:.4f} of the "
+              f"sequences equal, largest logit difference {control1_gap:.3g}; all decoder "
+              f"layers less {AR_CONTROL_DROP_BITS} bits {control:.4f}, {control_gap:.3g}",
+              flush=True)
+        check_later(agree == 1.0, f"decoded ids differ before the margin gate: {agree}")
+        check_later(logit_gap <= AR_LOGIT_LIMIT,
+                    f"logits differ by {logit_gap} at shared inputs (limit {AR_LOGIT_LIMIT})")
+        check(control1_gap > AR_LOGIT_LIMIT and control_gap > AR_LOGIT_LIMIT,
+              f"a control passed the logit limit {AR_LOGIT_LIMIT} ({control1_gap}, {control_gap})"
+              f": it cannot see a fault of that size")
+        check(control < 1.0, f"the decode gate passed its control ({control}): it cannot see a "
+                             f"fault of that size")
+        check(compared >= N_AR_GATE, f"only {compared} positions cleared the margin")
+        out["gate"] = {"agreement": agree, "positions_compared": compared,
+                       "max_logit_diff_shared_inputs": logit_gap, "logit_limit": AR_LOGIT_LIMIT,
+                       "every_position": every,
+                       "control_layer0": {"agreement": control1, "max_logit_diff": control1_gap},
+                       "control": control, "control_max_logit_diff": control_gap}
+        del states_k, states_p, out_c, out_c1
+
+        # ---- teacher-forced forward (K1, long K2 causal at S=241, K3) over the
+        # kernel path's decoded tokens: the argmax at each position equals the
+        # decoded token wherever the margin is at least TF_MARGIN
+        seen = {}
+        hook = fcn.register_forward_hook(lambda m, i, o: seen.__setitem__("y", i[0]))
+        reset_counts()
+        try:
+            tf = model(commands_dec=buf_c[:, None], args_dec=buf_a[:, None], z=z,
+                       argmax_head=True)
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        tf_launches = read_counts()
+        check(tf_launches == dict.fromkeys(tf_launches, 0) | {"embedding": 1, "layer_long": 4,
+                                                              "head": 1},
+              f"teacher-forced launches {tf_launches}")
+        tf_c = tf["command_ids"][:, 0, :steps]
+        tf_a = tf["args_ids"][:, 0, :steps] - 1
+        m_tf = position_margin(slot_margins(seen["y"].reshape(n, length, -1)[:, :steps], fcn),
+                               raw_c)
+        used = M.cmd_args_mask(dev, torch.bool)[raw_c.long()]
+        same = (tf_c == raw_c) & ((tf_a == raw_a) | ~used).all(-1)
+        gated = m_tf >= TF_MARGIN
+        tf_agree = same[gated].float().mean().item()
+        print(f"teacher-forced forward N={n} S={length}: launches {tf_launches}; its argmax equals "
+              f"the decoded token at {tf_agree:.5f} of the {int(gated.sum())} positions with "
+              f"margin >= {TF_MARGIN} (of {gated.numel()}); at every position "
+              f"{same.float().mean().item():.4f}", flush=True)
+        check_later(tf_agree == 1.0, f"teacher-forced argmax differs from the decode: {tf_agree}")
+        out["teacher_forced"] = {"agreement": tf_agree, "positions_compared": int(gated.sum()),
+                                 "every_position": same.float().mean().item()}
+        del x_tf, tf, seen, x240, kp240, long_cases
+
+        # ---- times at N=1024 (CUDA events, median of 5 after 1)
+        times = {
+            "encode": cuda_median_ms(lambda: model.encode(commands, args, rng=DropoutRng.fixed()),
+                                     iters=5, warmup=1),
+            "decode": cuda_median_ms(lambda: autoregressive_sample_fused(model, z), iters=5,
+                                     warmup=1),
+            "greedy_sample": cuda_median_ms(lambda: greedy_sample(model, commands, args),
+                                            iters=5, warmup=1),
+            "decode_cached_scan": cuda_median_ms(lambda: autoregressive_sample_cached(model, z),
+                                                 iters=5, warmup=1),
+        }
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            greedy_sample(model, commands, args)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev_ms = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+                  if e.device_time_total > 0 and e.device_type.name == "CUDA"}
+        busy = sum(dev_ms.values())
+        k9_dev = sum(v for k, v in dev_ms.items() if "decode_kernel" in k)
+        out["profile"] = {"wall_ms": wall, "device_busy_ms": busy, "k9_device_ms": k9_dev,
+                          "k9_share_of_busy": k9_dev / busy if busy else None,
+                          "idle_share": 1 - busy / wall if busy else None,
+                          "top": sorted(dev_ms.items(), key=lambda kv: -kv[1])[:12]}
+        times["k9_device_ms_per_launch"] = k9_dev / steps if busy else None
+
+        # K9 alone at each position, its plain version, its bound: the cache
+        # bytes before the index, weights, rows in and out
+        per_index = {}
+        d, f_ff, n_l = cfg.d_model, cfg.dim_feedforward, cfg.n_layers_decode
+        w_elems = n_l * (4 * d * d + 2 * d * f_ff + 3 * d + d + f_ff + d + 4 * d) + 2 * d
+        for index in AR_INDICES:
+            ops = captured[index]
+            n_bytes = (2 * n_l * n * index * d * 2 + w_elems * 2 + n * (index + 1) * 4
+                       + n * d * 2 * 2 + n_l * n * d * 2 * 3)
+            t_ops = (2.0 * n * n_l * (4 * d * d + 2 * d * f_ff) / PEAK_BF16
+                     + 4.0 * n * n_l * (index + 1) * d / PEAK_F32) * 1e3
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            per_index[index] = {
+                "ms": cuda_ms(lambda ops=ops: fused(*ops)),
+                "plain_ms": cuda_ms(lambda ops=ops: decode_ops.decode_step_reference(*ops),
+                                    iters=3, warmup=1),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        mid = per_index[AR_INDICES[1]]
+        kernels["decode"].update(ms=mid["ms"], plain_ms=mid["plain_ms"], library_ms=None,
+                                 bound_ms=mid["bound_ms"], bound_by=mid["bound_by"],
+                                 per_index=per_index)
+        # the cached scan's step, K9's yardstick: the decode's time per step
+        times["cached_scan_ms_per_step"] = times["decode_cached_scan"] / steps
+
+        # long K2 at E1's shapes; nn.TransformerEncoderLayer (same function,
+        # key padding, no seq_bias) as the library call
+        la = layer_args(l_e, x_e1, kp_e1)
+        rows = n * s_enc
+        prod = 2.0 * rows * (4 * d * d + 2 * d * f_ff)
+        attn = 4.0 * n * s_enc * s_enc * d
+        b_ms, b_by = bound(nbytes(x_e1, kp_e1, *la[2:12]) + nbytes(x_e1), prod + attn, PEAK_BF16)
+        lib = library_layer(l_e, bf16)
+        pad_bool = M.key_padding_mask(cmd_f)
+        lib_run = lambda: lib(x_e1, src_key_padding_mask=pad_bool)  # noqa: E731
+        valid = ~pad_bool
+        yardstick["layer_long"] = ((lib_run().float() - layer_ops.fused_layer(*la).float())
+                                   .abs()[valid].max().item())
+        kernels["layer_long"].update(
+            ms=cuda_ms(lambda: layer_ops.fused_layer(*la)),
+            plain_ms=cuda_ms(lambda: layer_ops.layer_reference(*la), iters=3, warmup=1),
+            library_ms=cuda_ms(lib_run), bound_ms=b_ms, bound_by=b_by)
+    out["times_ms"] = times
+    out["samples_per_s"] = n / times["greedy_sample"] * 1e3
+    out["phase_s"] = time.perf_counter() - t_phase
+    record["autoregressive"] = out
+    k9, k2l = kernels["decode"], kernels["layer_long"]
+    print(f"Sketchformer greedy_sample N={n}: {times['greedy_sample']:.3f} ms median of 5, "
+          f"{out['samples_per_s']:.1f} samples/s (encode {times['encode']:.3f} ms, decode "
+          f"{times['decode']:.3f} ms; the cached scan in PyTorch operations "
+          f"{times['decode_cached_scan']:.3f} ms) on {card}", flush=True)
+    prof_line = out["profile"]
+    print(f"  under the profiler: wall {prof_line['wall_ms']:.3f} ms, device busy "
+          f"{prof_line['device_busy_ms']:.3f} ms, K9 {prof_line['k9_device_ms']:.3f} ms "
+          f"({times['k9_device_ms_per_launch']} ms per launch; share of busy "
+          f"{prof_line['k9_share_of_busy']})", flush=True)
+    for index, t in per_index.items():
+        print(f"  K9 index {index}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound "
+              f"{t['bound_ms']:.4f} by {t['bound_by']})")
+    print(f"  K2 long E1 B={n} S={s_enc}: {k2l['ms']:.4f} ms (plain {k2l['plain_ms']:.4f}, "
+          f"library {k2l['library_ms']:.4f}, bound {k2l['bound_ms']:.4f} by {k2l['bound_by']}); "
+          f"phase {out['phase_s']:.1f} s", flush=True)
+    del model, captured, states, z
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -770,6 +1280,7 @@ def main() -> int:
     from deepsvg_tpu_torch.models.layers import key_padding_to_additive
     from deepsvg_tpu_torch.ops import _build
     from deepsvg_tpu_torch.ops import ce as ce_ops
+    from deepsvg_tpu_torch.ops import decode as decode_ops
     from deepsvg_tpu_torch.ops import embedding as emb_ops
     from deepsvg_tpu_torch.ops import head as head_ops
     from deepsvg_tpu_torch.ops import layer as layer_ops
@@ -790,6 +1301,8 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def reset_counts():
+        layer_ops.fused_layer_long.launches = layer_ops.fused_layer_long.float32_launches = 0
+        decode_ops.fused_decode_step.launches = 0
         emb_ops.fused_embedding.launches = 0
         emb_ops.embedding_backward.launches = 0
         layer_ops.fused_layer.launches = layer_ops.fused_layer.float32_launches = 0
@@ -813,7 +1326,9 @@ def main() -> int:
                 "embedding_bwd": emb_ops.embedding_backward.launches,
                 "stack_fwd": stack_vjp.fused_stack_train.launches,
                 "stack_bwd": stack_vjp.fused_stack_train.backward_launches,
-                "args_ce_pairwise": ce_ops.args_ce_pairwise.launches}
+                "args_ce_pairwise": ce_ops.args_ce_pairwise.launches,
+                "layer_long": layer_ops.fused_layer_long.launches,
+                "decode": decode_ops.fused_decode_step.launches}
 
     # ---- build
     t0 = time.perf_counter()
@@ -1903,6 +2418,10 @@ def main() -> int:
     del sm_model
     torch.cuda.empty_cache()
 
+    # ====================================================== the autoregressive phase
+    ar_launches = autoregressive_phase(dev, card, kernels, record, yardstick, reset_counts,
+                                       read_counts, library_layer)
+
     csrc = "deepsvg_tpu_torch/ops/csrc/"
     source = {
         "embedding": (csrc + "embedding.cu", "deepsvg_tpu/ops/embedding.py:34"),
@@ -1917,14 +2436,17 @@ def main() -> int:
         "stack_fwd": (csrc + "stack.cu", "deepsvg_tpu/ops/stack_vjp.py:87"),
         "stack_bwd": (csrc + "stack.cu", "deepsvg_tpu/ops/stack_vjp.py:159"),
         "args_ce_pairwise": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:54"),
+        "layer_long": (csrc + "layer_long.cu", "deepsvg_tpu/ops/layer.py:108"),
+        "decode": (csrc + "decode.cu", "deepsvg_tpu/ops/decode.py:43"),
     }
     line = []
     for name, k in kernels.items():
         src_file, replaces = source[name]
         # the count of the path that runs the kernel: inference, the step at
-        # B=128, (K7) the first CLI run at B=60, or (K8) the self-match step
+        # B=128, (K7) the first CLI run at B=60, (K8) the self-match step, or
+        # (long K2, K9) Sketchformer's greedy_sample
         count = (launches[name] or train_launches[name] or cli_launches[name]
-                 or sm_step_launches[name])
+                 or sm_step_launches[name] or ar_launches[name])
         line.append({
             "name": name, "route": "cuda", "source": src_file, "replaces": replaces,
             "launches": count, "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -1,16 +1,22 @@
-"""The two-stage SVG Transformers in PyTorch: inference and the training forward."""
+"""The SVG Transformers in PyTorch: the two-stage models (inference and the
+training forward) and the one-stage autoregressive model (inference)."""
 from .cast import DropoutRng
 from .checkpoint import load_params, msgpack_restore, msgpack_serialize, save_params
 from .config import (
-    ModelConfig, gpu_fast, hierarchical, hierarchical_ordered, hierarchical_self_matching)
+    ModelConfig, gpu_fast, hierarchical, hierarchical_ordered, hierarchical_self_matching,
+    sketchformer)
 from .loss import svg_loss
 from .model import SVGTransformer
-from .sample import make_valid, one_shot_sample, threshold_sample
+from .sample import (
+    autoregressive_sample, autoregressive_sample_cached, autoregressive_sample_fused,
+    greedy_sample, make_valid, one_shot_sample, threshold_sample)
 from .weights import load_flax_params, load_model, to_flax_params
 
 __all__ = [
-    "DropoutRng", "ModelConfig", "SVGTransformer", "gpu_fast", "hierarchical",
+    "DropoutRng", "ModelConfig", "SVGTransformer", "autoregressive_sample",
+    "autoregressive_sample_cached", "autoregressive_sample_fused", "gpu_fast",
+    "greedy_sample", "hierarchical",
     "hierarchical_ordered", "hierarchical_self_matching", "load_flax_params", "load_model",
     "load_params", "make_valid", "msgpack_restore", "msgpack_serialize", "one_shot_sample",
-    "save_params", "svg_loss", "threshold_sample", "to_flax_params",
+    "save_params", "sketchformer", "svg_loss", "threshold_sample", "to_flax_params",
 ]

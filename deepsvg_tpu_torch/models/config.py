@@ -3,10 +3,12 @@
 
 The port runs the two-stage one-shot models: the flagship
 ``hierarchical_ordered``, the VAE ``hierarchical`` and
-``hierarchical_self_matching`` (inference and training); the variants it
-does not run yet are still expressible here so that a config read from the
-JAX side keeps its meaning, and the model raises ``NotImplementedError`` on
-them (see ``models/model.py``).
+``hierarchical_self_matching`` (inference and training), and the one-stage
+autoregressive ``sketchformer`` with relative targets (inference: teacher
+forcing and the greedy decode); the variants it does not run yet are still
+expressible here so that a config read from the JAX side keeps its meaning,
+and the model raises ``NotImplementedError`` on them (see
+``models/model.py``).
 """
 from __future__ import annotations
 
@@ -105,6 +107,14 @@ def hierarchical_ordered() -> ModelConfig:
     encode/decode, one-shot, ResNet + linear bottleneck, no VAE, no labels."""
     return ModelConfig(encode_stages=2, decode_stages=2, label_condition=False,
                        use_vae=False)
+
+
+def sketchformer() -> ModelConfig:
+    """The Sketchformer baseline (``configs_tpu/sketchformer.py``): one-stage
+    encoding of the whole icon as one sequence of ``max_total_len`` commands
+    with a group-index embedding, ResNet + VAE, and an autoregressive decoder
+    with relative argument targets (``2 * args_dim`` classes)."""
+    return ModelConfig(pred_mode="autoregressive", rel_targets=True)
 
 
 def gpu_fast(cfg: ModelConfig) -> ModelConfig:

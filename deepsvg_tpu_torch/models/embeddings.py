@@ -1,14 +1,19 @@
 """Input embeddings, counterparts of ``deepsvg_tpu/models/embeddings.py``.
 
 ``SVGEmbedding`` sums the command embedding, the per-argument embedding
-(11 args x 64 dims through one Linear to d_model) and a learned positional
-table. The group-index embedding and the relative-argument vocabulary of
-the one-stage and autoregressive variants are not ported yet (the model
-raises on those variants). The argument embedding and its Linear fold into
-per-slot ``[vocab, D]`` tables (``ops.embedding.fold_arg_tables``) and the
-whole sum runs as kernel K1; when training, the fold stays in the graph
-(plain products, as JAX leaves it to XLA), so ``arg_embed`` and ``embed_fcn``
-get their gradients through kernel K6's gradient of the folded tables.
+(11 args x 64 dims through one Linear to d_model), the group-index
+embedding of the one-stage models (``use_group``: the running moveto count,
+``group_len + 2`` rows) and a learned positional table. The argument
+vocabulary is ``args_dim + 1`` (PAD and the quantized values) or, for the
+relative targets of the autoregressive decoder (``rel_args``),
+``2 * args_dim``. The argument embedding and its Linear fold into per-slot
+``[vocab, D]`` tables (``ops.embedding.fold_arg_tables``) and the whole sum
+runs as kernel K1; when training, the fold stays in the graph (plain
+products, as JAX leaves it to XLA), so ``arg_embed`` and ``embed_fcn`` get
+their gradients through kernel K6's gradient of the folded tables.
+:meth:`SVGEmbedding.token` embeds the one token of an autoregressive decode
+step at a given position, with plain lookups and the Linear, as the JAX
+package's ``pos_index`` path does.
 
 ``ConstEmbedding`` gives the learned positional queries of the one-shot
 decoders.
@@ -27,18 +32,25 @@ ARG_EMBED_DIM = 64
 
 
 class SVGEmbedding(nn.Module):
-    """Command + argument + positional embedding of ``commands [B, S]``,
-    ``args [B, S, n_args]`` (PAD -1, shifted by +1), then dropout."""
+    """Command + argument (+ group) + positional embedding of
+    ``commands [B, S]``, ``args [B, S, n_args]`` (PAD -1, shifted by +1),
+    ``groups [B, S]`` (with ``use_group``), then dropout."""
 
-    def __init__(self, cfg: ModelConfig, seq_len: int):
+    def __init__(self, cfg: ModelConfig, seq_len: int, rel_args: bool = False,
+                 use_group: bool = False, group_len: int | None = None):
         super().__init__()
         d = cfg.d_model
         self.n_args = cfg.n_args
         self.dropout = cfg.dropout
+        self.use_group = use_group
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        vocab = 2 * cfg.args_dim if rel_args else cfg.args_dim + 1
         self.command_embed = nn.Parameter(torch.zeros(cfg.n_commands, d))
-        self.arg_embed = nn.Parameter(torch.zeros(cfg.args_dim + 1, ARG_EMBED_DIM))
+        self.arg_embed = nn.Parameter(torch.zeros(vocab, ARG_EMBED_DIM))
         self.embed_fcn = nn.Linear(ARG_EMBED_DIM * cfg.n_args, d)
+        if use_group:
+            group_len = cfg.max_num_groups if group_len is None else group_len
+            self.group_embed = nn.Parameter(torch.zeros(group_len + 2, d))
         self.pos_embed = nn.Parameter(torch.zeros(seq_len + 2, d))
 
     def tables(self, deterministic: bool = True):
@@ -62,16 +74,38 @@ class SVGEmbedding(nn.Module):
                                                        self.n_args)
         return cast("cmd", self.command_embed), arg_tables, cast("pos", self.pos_embed)
 
-    def forward(self, commands, args, deterministic: bool = True,
+    def group_table(self, deterministic: bool = True):
+        if not self.use_group:
+            return None
+        return cast_at_use(self, "group", self.group_embed, self.compute_dtype,
+                           deterministic=deterministic)
+
+    def forward(self, commands, args, groups=None, deterministic: bool = True,
                 rng: DropoutRng | None = None):
         s = commands.shape[1]
         cmd_table, arg_tables, pos_table = self.tables(deterministic)
+        inputs = (commands, args, groups, cmd_table, arg_tables,
+                  self.group_table(deterministic), pos_table[:s], self.use_group)
         if deterministic:
-            return embedding_ops.fused_embedding(commands, args, None, cmd_table,
-                                                 arg_tables, None, pos_table[:s])
-        src = embedding_ops.fused_embedding_train(commands, args, None, cmd_table,
-                                                  arg_tables, None, pos_table[:s])
+            return embedding_ops.fused_embedding(*inputs)
+        src = embedding_ops.fused_embedding_train(*inputs)
         return rng.dropout(src, self.dropout) if rng is not None else src
+
+    def token(self, commands, args, groups, index: int):
+        """The embedding of one token per sequence at position ``index``:
+        ``commands [B]``, ``args [B, n_args]``, ``groups [B]`` -> ``[B, D]``
+        in the compute type, no dropout (inference). Plain lookups and the
+        argument Linear, summed in the JAX package's order."""
+        dt = self.compute_dtype
+        cast = lambda name, p: cast_at_use(self, name, p, dt)  # noqa: E731
+        b = commands.shape[0]
+        arg_emb = cast("arg", self.arg_embed)[(args + 1).long()].reshape(b, -1)
+        src = (cast("cmd", self.command_embed)[commands.long()]
+               + torch.nn.functional.linear(arg_emb, cast("fcn_w", self.embed_fcn.weight),
+                                            cast("fcn_b", self.embed_fcn.bias)))
+        if self.use_group:
+            src = src + self.group_table()[groups.long()]
+        return src + cast("pos", self.pos_embed)[index]
 
 
 class ConstEmbedding(nn.Module):

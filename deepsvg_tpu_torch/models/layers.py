@@ -21,8 +21,14 @@ activations against weights rounded to ``compute_dtype`` at inference and,
 when training, where the gate is false. Where it is true, the stack runs in
 ``compute_dtype`` and casts its result back, as the JAX package's stack path
 does. A stack's final LayerNorm computes in float32 from float32 parameters
-and returns ``compute_dtype``. The KV-cached decode step comes with a later
-slice.
+and returns ``compute_dtype``.
+
+The decoder stack also runs one token of an autoregressive decode against
+per-layer key/value caches (:meth:`DecoderStack.decode_step`, the JAX
+package's ``decode_index`` mode and ``_attention_cached``): plain PyTorch
+operations in the compute type, the residual rounded to it after each sum as
+XLA does there. On the card the greedy decode takes kernel K9 instead
+(``ops/decode.py``), which runs the whole stack for the token in one launch.
 """
 from __future__ import annotations
 
@@ -165,6 +171,30 @@ class DecoderLayerGlobalImproved(EncoderLayerImproved):
             seq_bias = rng.dropout(seq_bias, self.dropout)
         return self._run(tgt, seq_bias.to(tgt.dtype), mask, causal, deterministic, rng)
 
+    def decode_step(self, tgt, z, kcache, vcache, index: int, key_pad):
+        """One token ``tgt [B, D]`` at position ``index`` (compute type):
+        its key and value go into ``kcache``/``vcache [B, T, D]`` at
+        ``index`` (in place), and its query attends over positions
+        ``0..index`` with the additive ``key_pad [B, T]``."""
+        b, d = tgt.shape
+        h = self.n_heads
+        hd = d // h
+        ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2 = self.weights(tgt.dtype)
+        qkv = F.linear(layer_norm(tgt, ln1[0], ln1[1]), wqkv, bqkv)
+        q, k_t, v_t = qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:]
+        kcache[:, index] = k_t
+        vcache[:, index] = v_t
+        qh = (q.reshape(b, h, hd) * hd ** -0.5).float()
+        kh = kcache[:, :index + 1].reshape(b, index + 1, h, hd).float()
+        scores = torch.einsum("bhd,bkhd->bhk", qh, kh) + key_pad[:, None, :index + 1]
+        prob = torch.softmax(scores, dim=-1).to(tgt.dtype)
+        vh = vcache[:, :index + 1].reshape(b, index + 1, h, hd)
+        ctx = torch.einsum("bhk,bkhd->bhd", prob, vh).reshape(b, d)
+        tgt = tgt + F.linear(ctx, wo, bo)
+        tgt = tgt + self.injection(z).to(tgt.dtype)
+        hidden = torch.relu(F.linear(layer_norm(tgt, ln2[0], ln2[1]), w1, b1))
+        return tgt + F.linear(hidden, w2, b2)
+
 
 class EncoderStack(nn.Module):
     """N encoder layers + final LayerNorm."""
@@ -201,9 +231,13 @@ class DecoderStack(nn.Module):
             for _ in range(n_layers))
         self.norm = LayerNorm(d_model, LN_EPS, compute_dtype)
 
-    def forward(self, tgt, z, deterministic: bool = True, rng: DropoutRng | None = None):
-        """The one-shot decoders attend over every query position."""
-        mask = torch.zeros(tgt.shape[:2], dtype=torch.float32, device=tgt.device)
+    def forward(self, tgt, z, deterministic: bool = True, rng: DropoutRng | None = None,
+                key_pad=None, causal: bool = False):
+        """The one-shot decoders attend over every query position; the
+        autoregressive decoder's teacher forcing is ``causal`` with the
+        additive ``key_pad [B, S]`` over its keys."""
+        mask = (key_pad if key_pad is not None else
+                torch.zeros(tgt.shape[:2], dtype=torch.float32, device=tgt.device))
         b, s, _ = tgt.shape
         if use_stack_fused(deterministic, len(self.layers), b, s):
             # the latent's injection into each layer [L, B, D], one dropout
@@ -211,11 +245,19 @@ class DecoderStack(nn.Module):
             biases = torch.stack([layer.injection(z, False) for layer in self.layers])
             if rng is not None:
                 biases = rng.dropout(biases, self.layers[0].dropout)
-            tgt = stacked_train(self.layers, tgt, biases, mask, False, rng)
+            tgt = stacked_train(self.layers, tgt, biases, mask, causal, rng)
         else:
             for layer in self.layers:
-                tgt = layer(tgt, z, mask, False, deterministic, rng)
+                tgt = layer(tgt, z, mask, causal, deterministic, rng)
         return self.norm(tgt)
+
+    def decode_step(self, x, z, caches, index: int, key_pad):
+        """One token ``x [B, D]`` through every layer, with ``caches`` the
+        per-layer ``(k, v)`` pairs ``[B, T, D]`` (written at ``index``), then
+        the final LayerNorm."""
+        for layer, (kc, vc) in zip(self.layers, caches):
+            x = layer.decode_step(x, z, kc, vc, index, key_pad)
+        return self.norm(x)
 
 
 class PositionalEncodingLUT(nn.Module):

@@ -1,9 +1,9 @@
-"""The SVG Transformer, hierarchical and one-shot (batch-first): inference and
-the training forward.
+"""The SVG Transformer (batch-first): inference and the training forward.
 
 Counterpart of ``deepsvg_tpu/models/model.py`` for the two-stage one-shot
 models (the flagship ``hierarchical_ordered``, the VAE ``hierarchical`` of
-the icons config, and ``hierarchical_self_matching``):
+the icons config, and ``hierarchical_self_matching``) and the one-stage
+autoregressive ``sketchformer``. The two-stage path:
 
   E1 (per-path encoder) -> masked mean pool -> hierarchical PE (not with
   self-match) -> E2 (over the path latents, visibility-masked) ->
@@ -25,9 +25,15 @@ cross-entropy comes straight from the decoder states through kernel K5.
 Parameters are float32 and cast to ``cfg.compute_dtype`` at use
 (``cast.py``).
 
-The variants this port does not run yet (labels, the autoregressive and
-one-stage models, LSTM) raise ``NotImplementedError`` when the model is
-built, naming the ``ROADMAP.md`` item that ports them.
+The one-stage autoregressive models (Sketchformer: ``encode_stages=1``,
+``pred_mode="autoregressive"``, ``rel_targets``) encode the whole icon as
+one sequence with the group-index embedding and decode it token by token:
+the teacher-forced forward runs the decoder causally over the shifted
+targets, :meth:`SVGTransformer.decode_step` one token against the key/value
+caches (``models/sample.py`` drives the greedy decode). The variants this
+port does not run yet (labels, LSTM, one-stage one-shot decoding) raise
+``NotImplementedError`` when the model is built, naming the ``ROADMAP.md``
+item that ports them.
 """
 from __future__ import annotations
 
@@ -45,11 +51,12 @@ from .layers import DecoderStack, EncoderStack, PositionalEncodingLUT, key_paddi
 
 _UNSUPPORTED = (
     (lambda c: c.label_condition, "label conditioning"),
-    (lambda c: c.pred_mode != "one_shot" or c.rel_targets,
-     "autoregressive decoding and relative targets"),
     (lambda c: c.model_type != "transformer", "the LSTM encoder and decoder"),
-    (lambda c: c.encode_stages != 2 or c.decode_stages != 2,
-     "one-stage encoding or decoding"),
+    (lambda c: c.encode_stages not in (1, 2), "decoding without an encoder"),
+    (lambda c: c.pred_mode == "one_shot" and c.decode_stages != 2,
+     "one-stage one-shot decoding"),
+    (lambda c: c.pred_mode == "autoregressive" and c.decode_stages != 1,
+     "two-stage autoregressive decoding"),
 )
 
 
@@ -194,37 +201,50 @@ class HierarchFCN(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Two-stage encoder: ``commands [N, G, S]``, ``args [N, G, S, n_args]``
-    -> ``z [N, d_model]``."""
+    """E1 (+ E2) encoder: ``commands [N, G, S]``, ``args [N, G, S, n_args]``
+    -> ``z [N, d_model]``.
+
+    Two-stage: E1 over the N*G paths, masked mean pool, E2 over the path
+    latents, visibility-weighted pool (``compute_dtype``). One-stage
+    (``encode_stages == 1``, G = 1): E1 over the whole icon as one sequence
+    with the group-index embedding, and its masked mean pool (float32), as
+    the JAX package returns it."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         d, dt = cfg.d_model, getattr(torch, cfg.compute_dtype)
         self.compute_dtype = dt
-        self.embedding = SVGEmbedding(cfg, cfg.max_seq_len)
+        self.two_stage = cfg.encode_stages == 2
+        seq_len = cfg.max_seq_len if self.two_stage else cfg.max_total_len
+        self.embedding = SVGEmbedding(cfg, seq_len, use_group=not self.two_stage)
         self.encoder = EncoderStack(cfg.n_layers, d, cfg.n_heads, cfg.dim_feedforward,
                                     cfg.dropout, dt)
-        # self-match leaves the paths unordered: no position table over them
-        self.hierarchical_PE = (None if cfg.self_match else
-                                PositionalEncodingLUT(cfg.max_num_groups, d, cfg.dropout, dt))
-        self.hierarchical_encoder = EncoderStack(cfg.n_layers, d, cfg.n_heads,
-                                                 cfg.dim_feedforward, cfg.dropout, dt)
+        if self.two_stage:
+            # self-match leaves the paths unordered: no position table over them
+            self.hierarchical_PE = (None if cfg.self_match else
+                                    PositionalEncodingLUT(cfg.max_num_groups, d, cfg.dropout,
+                                                          dt))
+            self.hierarchical_encoder = EncoderStack(cfg.n_layers, d, cfg.n_heads,
+                                                     cfg.dim_feedforward, cfg.dropout, dt)
 
     def forward(self, commands, args, deterministic: bool = True,
                 rng: DropoutRng | None = None):
         n, g, s = commands.shape
-        vis = M.visibility_mask(commands)                     # [N, G]
         commands_f = commands.reshape(n * g, s)
         args_f = args.reshape(n * g, s, args.shape[-1])
         pad = M.padding_mask(commands_f)                      # [N*G, S]
         key_pad = key_padding_to_additive(M.key_padding_mask(commands_f))
+        groups = None if self.two_stage else M.group_mask(commands_f)
 
-        src = self.embedding(commands_f, args_f, deterministic, rng)
+        src = self.embedding(commands_f, args_f, groups, deterministic, rng)
         memory = self.encoder(src, key_pad, deterministic, rng)
         z = _masked_mean(memory, pad).reshape(n, g, -1)          # float32
+        if not self.two_stage:
+            return z[:, 0]
 
         # the second stage keeps the float32 pooled latents as its activations
+        vis = M.visibility_mask(commands)                     # [N, G]
         src2 = z if self.hierarchical_PE is None else self.hierarchical_PE(z, deterministic, rng)
         memory2 = self.hierarchical_encoder(src2, key_padding_to_additive(~vis),
                                             deterministic, rng)
@@ -232,27 +252,55 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Two-stage one-shot decoder: ``z [N, dim_z]`` -> command and argument
-    outputs ``[N, G, S+1, ...]`` and visibility logits ``[N, G, 2]``."""
+    """The decoder: ``z [N, dim_z]`` -> command and argument outputs.
+
+    Two-stage one-shot: outputs ``[N, G, S+1, ...]`` and visibility logits
+    ``[N, G, 2]``. One-stage autoregressive: the embedded target tokens
+    ``commands [N, 1, S]``, ``args [N, 1, S, n_args]`` (relative arguments
+    with ``rel_targets``) through the causal decoder stack, outputs
+    ``[N, 1, S, ...]`` and no visibility logits."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         d, dt = cfg.d_model, getattr(torch, cfg.compute_dtype)
-        self.hierarchical_embedding = ConstEmbedding(cfg, cfg.n_groups_prop)
-        self.hierarchical_decoder = DecoderStack(cfg.n_layers_decode, d, cfg.n_heads,
-                                                 cfg.dim_feedforward, cfg.dim_z,
-                                                 cfg.dropout, dt)
-        self.hierarchical_fcn = HierarchFCN(d, cfg.dim_z, dt)
-        self.embedding = ConstEmbedding(cfg, cfg.max_seq_len + 1)
+        self.autoregressive = cfg.pred_mode == "autoregressive"
+        if self.autoregressive:
+            self.embedding = SVGEmbedding(cfg, cfg.max_total_len, rel_args=cfg.rel_targets,
+                                          use_group=True, group_len=cfg.max_total_len)
+        else:
+            self.hierarchical_embedding = ConstEmbedding(cfg, cfg.n_groups_prop)
+            self.hierarchical_decoder = DecoderStack(cfg.n_layers_decode, d, cfg.n_heads,
+                                                     cfg.dim_feedforward, cfg.dim_z,
+                                                     cfg.dropout, dt)
+            self.hierarchical_fcn = HierarchFCN(d, cfg.dim_z, dt)
+            self.embedding = ConstEmbedding(cfg, cfg.max_seq_len + 1)
         self.decoder = DecoderStack(cfg.n_layers_decode, d, cfg.n_heads,
                                     cfg.dim_feedforward, cfg.dim_z, cfg.dropout, dt)
         self.fcn = FCN(d, cfg.n_commands, cfg.n_args, cfg.args_dim_out, dt)
 
+    def _autoregressive(self, z, commands, args, deterministic, rng):
+        commands_f = commands.reshape(-1, commands.shape[-1])
+        args_f = args.reshape(commands_f.shape + args.shape[-1:])
+        src = self.embedding(commands_f, args_f, M.group_mask(commands_f), deterministic, rng)
+        key_pad = key_padding_to_additive(M.key_padding_mask(commands_f))
+        return self.decoder(src, z, deterministic, rng, key_pad, causal=True)
+
+    def decode_step(self, z, cmd_t, args_t, groups_t, index: int, caches, key_pad):
+        """One token per sequence at position ``index`` (``cmd_t [N]``,
+        ``args_t [N, n_args]``, ``groups_t [N]`` its running moveto count)
+        through the cached decoder stack (``caches``: per-layer ``(k, v)``
+        ``[N, T, D]``, written at ``index``; ``key_pad [N, T]``) -> the
+        logits for the next position, ``[N, n_commands]`` and
+        ``[N, n_args, args_dim_out]``."""
+        x = self.embedding.token(cmd_t, args_t, groups_t, index)
+        return self.fcn(self.decoder.decode_step(x, z, caches, index, key_pad))
+
     def forward(self, z, argmax_head: bool = False, ce_targets=None,
                 deterministic: bool = True, rng: DropoutRng | None = None,
-                match_targets=None):
-        """``ce_targets [N, G, S+1, n_args]`` int (already ``tgt + 1``).
+                match_targets=None, commands=None, args=None):
+        """``ce_targets [N, G, S+1, n_args]`` int (already ``tgt + 1``);
+        ``commands``/``args``: the autoregressive decoder's input tokens.
 
         ``match_targets = (commands [N, G, S+1], args [N, G, S+1, n_args])``
         is the fused self-match: the proposals are matched to the targets
@@ -262,12 +310,16 @@ class Decoder(nn.Module):
         CE against them comes through K5. Returns the command logits, the
         argument CE, the visibility logits and the permuted targets."""
         n = z.shape[0]
-        out = self.hierarchical_decoder(self.hierarchical_embedding(n, deterministic, rng),
-                                        z, deterministic, rng)
-        visibility_logits, z_groups = self.hierarchical_fcn(out, deterministic)  # [N, P, *]
-        zb = z_groups.reshape(-1, z_groups.shape[-1])               # [N*P, dim_z]
-        out = self.decoder(self.embedding(zb.shape[0], deterministic, rng), zb,
-                           deterministic, rng)
+        if self.autoregressive:
+            out, visibility_logits = self._autoregressive(z, commands, args, deterministic,
+                                                          rng), None
+        else:
+            out = self.hierarchical_decoder(
+                self.hierarchical_embedding(n, deterministic, rng), z, deterministic, rng)
+            visibility_logits, z_groups = self.hierarchical_fcn(out, deterministic)
+            zb = z_groups.reshape(-1, z_groups.shape[-1])               # [N*P, dim_z]
+            out = self.decoder(self.embedding(zb.shape[0], deterministic, rng), zb,
+                               deterministic, rng)
         if match_targets is not None:
             tgt_c, tgt_a = match_targets
             fcn = self.fcn
@@ -292,7 +344,8 @@ class Decoder(nn.Module):
 
 
 class SVGTransformer(nn.Module):
-    """The hierarchical one-shot SVG Transformer."""
+    """The SVG Transformer: hierarchical one-shot, or one-stage
+    autoregressive."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -306,6 +359,12 @@ class SVGTransformer(nn.Module):
         else:
             self.bottleneck = Bottleneck(cfg.d_model, cfg.dim_z, dt)
         self.decoder = Decoder(cfg)
+
+    def decode_step(self, z, cmd_t, args_t, groups_t, index: int, caches, key_pad):
+        """One KV-cached step of the autoregressive decoder: the token at
+        ``index`` in, the logits for the next position out (see
+        :meth:`Decoder.decode_step`)."""
+        return self.decoder.decode_step(z, cmd_t, args_t, groups_t, index, caches, key_pad)
 
     def encode(self, commands, args, deterministic: bool = True,
                rng: DropoutRng | None = None, sample_vae: bool = True):
@@ -323,12 +382,15 @@ class SVGTransformer(nn.Module):
                 z=None, return_tgt: bool = False, deterministic: bool = True,
                 argmax_head: bool = False, fused_ce: bool = False,
                 rng: DropoutRng | None = None) -> dict:
-        """Encode (unless ``z`` is given) and decode in one shot.
+        """Encode (unless ``z`` is given) and decode: in one shot, or, for
+        the autoregressive decoder, teacher-forced on ``commands_dec`` /
+        ``args_dec`` (without their last position when ``return_tgt``).
 
         Returns ``command_logits`` and ``args_logits`` (or, with
         ``argmax_head``, ``command_ids`` / ``args_ids``; or, with ``fused_ce``
         and ``return_tgt``, ``args_ce``: the argument cross-entropy against
-        ``args_dec[..., 1:, :] + 1``), plus ``visibility_logits`` and, with
+        ``args_dec[..., 1:, :] + 1``), plus ``visibility_logits`` (two-stage
+        decoders) and, with
         ``return_tgt``, the targets ``tgt_commands`` / ``tgt_args`` and, for
         the VAE, ``mu`` / ``logsigma``, which is what
         :func:`models.loss.svg_loss` reads. With ``self_match`` and
@@ -344,8 +406,13 @@ class SVGTransformer(nn.Module):
         fused_match = use_fused_ce and self.cfg.self_match
         ce_targets = ((args_dec[..., 1:, :] + 1).to(torch.int32)
                       if use_fused_ce and not fused_match else None)
+        dec_in = (None, None)
+        if self.cfg.pred_mode == "autoregressive":
+            # teacher forcing: the targets without their last position
+            dec_in = ((commands_dec[..., :-1], args_dec[..., :-1, :]) if return_tgt
+                      else (commands_dec, args_dec))
         out = self.decoder(z, argmax_head, ce_targets, deterministic, rng,
-                           (commands_dec, args_dec) if fused_match else None)
+                           (commands_dec, args_dec) if fused_match else None, *dec_in)
         cmd, args, visibility_logits = out[:3]
         if fused_match:
             commands_dec, args_dec = out[3]
@@ -359,7 +426,8 @@ class SVGTransformer(nn.Module):
         else:
             res = {"command_logits": cmd,
                    "args_ce" if use_fused_ce else "args_logits": args}
-        res["visibility_logits"] = visibility_logits
+        if self.cfg.decode_stages == 2:
+            res["visibility_logits"] = visibility_logits
         if return_tgt:
             res["tgt_commands"], res["tgt_args"] = commands_dec, args_dec
             if self.cfg.use_vae:

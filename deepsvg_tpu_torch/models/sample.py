@@ -1,18 +1,35 @@
-"""Greedy one-shot sampling, counterpart of ``deepsvg_tpu/models/sample.py``.
+"""Greedy sampling, counterpart of ``deepsvg_tpu/models/sample.py``.
 
-One forward with the fused head+argmax (kernel K3 on the card), the
-visibility threshold, and :func:`make_valid`. A VAE model samples its
-latent from a fixed generator, as the JAX package does with ``key(0)``. Only
-the greedy decode (``key=None`` on the JAX side) is ported; temperature
-sampling and the autoregressive samplers come with the variants that need
-them.
+One-shot: one forward with the fused head+argmax (kernel K3 on the card),
+the visibility threshold, and :func:`make_valid`.
+
+Autoregressive (Sketchformer): the decoder runs token by token over a
+buffer of ``max_total_len + 1`` positions that starts with SOS. Each step
+embeds the token at position ``i``, runs it through the decoder stack
+against per-layer key/value caches, takes the greedy command and arguments
+for position ``i + 1``, applies :func:`make_valid`, and masks the keys from
+the first generated EOS on. :func:`autoregressive_sample_fused` runs the
+stack as kernel K9 and the heads as K3 (one launch each per step);
+:func:`autoregressive_sample_cached` is the module path in plain PyTorch
+operations, the JAX package's cached scan; :func:`autoregressive_sample`
+re-runs the teacher-forced forward over the whole buffer at every step.
+:func:`greedy_sample` takes the fused path for CUDA tensors and the cached
+scan for CPU tensors (which is what the JAX package dispatches); neither
+turns into the other. Relative targets are made absolute at the end.
+
+A VAE model samples its latent from a fixed generator, as the JAX package
+does with ``key(0)``. Only the greedy decode (``key=None`` on the JAX side)
+is ported; temperature sampling comes with a later slice.
 """
 from __future__ import annotations
 
 import torch
 
-from ..svgtensor.constants import CMD_EOS, CMD_M, PAD_VAL
+from ..ops import decode as decode_ops
+from ..ops import head as head_ops
+from ..svgtensor.constants import CMD_EOS, CMD_M, CMD_SOS, PAD_VAL
 from ..svgtensor.masks import cmd_args_mask
+from ..svgtensor.tensor import make_absolute
 from .cast import DropoutRng
 from .config import ModelConfig
 from .model import SVGTransformer
@@ -39,11 +56,11 @@ def make_valid(commands: torch.Tensor, args: torch.Tensor,
 
 
 def _finalize_args(cfg: ModelConfig, commands, args):
-    """Undo the relative argument encoding, which only the autoregressive
-    variants use."""
+    """Undo the relative argument encoding (the decoded classes are deltas
+    shifted by ``args_dim - 1``)."""
     if cfg.rel_targets:
-        raise NotImplementedError(
-            "relative targets are not ported yet (ROADMAP.md, queue 1, item 8)")
+        used = cmd_args_mask(commands.device, torch.bool)[commands.long()]
+        args = make_absolute(commands, torch.where(used, args - (cfg.args_dim - 1), args))
     return commands, args
 
 
@@ -64,3 +81,133 @@ def one_shot_sample(model: SVGTransformer, commands_enc=None, args_enc=None,
     visibility_y = threshold_sample(res["visibility_logits"], visibility_threshold)
     commands_y, args_y = make_valid(commands_y, args_y, visibility_y)
     return _finalize_args(model.cfg, commands_y, args_y)
+
+
+def _greedy_decode(cfg: ModelConfig, n: int, device, step):
+    """The autoregressive loop over ``max_total_len`` steps. ``step(cmd_t,
+    args_t, groups_t, i, key_pad)`` embeds and decodes the tokens at
+    position ``i`` and returns the greedy ids for ``i + 1``: commands
+    ``[n]`` and argument classes ``[n, n_args]``. Returns ``commands
+    [n, 1, L]`` int32 and ``args [n, 1, L, n_args]`` float32 (PAD -1),
+    without SOS, absolute."""
+    length = cfg.max_total_len + 1
+    cmds = torch.full((n, length), CMD_EOS, dtype=torch.int32, device=device)
+    cmds[:, 0] = CMD_SOS
+    args = torch.full((n, length, cfg.n_args), float(PAD_VAL), device=device)
+    key_pad = torch.zeros((n, length), device=device)
+    eos_seen = torch.zeros(n, dtype=torch.bool, device=device)
+    groups = torch.zeros(n, dtype=torch.int32, device=device)
+    for i in range(cfg.max_total_len):
+        cmd_t = cmds[:, i]
+        groups += cmd_t == CMD_M
+        cmd_new, args_new = step(cmd_t, args[:, i], groups, i, key_pad)
+        cmd_new = cmd_new.to(torch.int32)
+        _, args_new = make_valid(cmd_new, args_new.to(torch.float32) - 1)  # undo the PAD shift
+        eos_seen |= cmd_new == CMD_EOS
+        key_pad[:, i + 1] = torch.where(eos_seen, float("-inf"), 0.0)
+        cmds[:, i + 1] = cmd_new
+        args[:, i + 1] = args_new
+    return _finalize_args(cfg, cmds[:, None, 1:], args[:, None, 1:])
+
+
+@torch.no_grad()
+def autoregressive_sample_cached(model: SVGTransformer, z):
+    """KV-cached greedy decode of ``z [N, dim_z]`` through the module path
+    (:meth:`SVGTransformer.decode_step`, plain PyTorch operations): the
+    counterpart of the JAX package's ``autoregressive_sample_cached``."""
+    cfg = model.cfg
+    n, dev = z.shape[0], z.device
+    dt = getattr(torch, cfg.compute_dtype)
+    shape = (n, cfg.max_total_len + 1, cfg.d_model)
+    caches = [(torch.zeros(shape, dtype=dt, device=dev), torch.zeros(shape, dtype=dt, device=dev))
+              for _ in range(cfg.n_layers_decode)]
+
+    def step(cmd_t, args_t, groups_t, i, key_pad):
+        cmd_logits, args_logits = model.decode_step(z, cmd_t, args_t, groups_t, i, caches,
+                                                    key_pad)
+        return cmd_logits.argmax(dim=-1), args_logits.argmax(dim=-1)
+    return _greedy_decode(cfg, n, dev, step)
+
+
+def _decoder_stacks(model: SVGTransformer):
+    """The autoregressive decoder's weights as kernel K9 reads them: each
+    kind stacked over the layers (``nn.Linear`` layout) and the final
+    LayerNorm ``[2, D]``, rounded to the compute type."""
+    dec = model.decoder.decoder
+    dt = getattr(torch, model.cfg.compute_dtype)
+    stacks = [torch.stack(ws).contiguous()
+              for ws in zip(*(layer.weights(dt) for layer in dec.layers))]
+    lnf = torch.stack([dec.norm.weight, dec.norm.bias]).to(dt)
+    return (*stacks, lnf)
+
+
+@torch.no_grad()
+def autoregressive_sample_fused(model: SVGTransformer, z):
+    """Greedy decode of ``z [N, dim_z]`` with the whole decoder stack of a
+    step in one call of :func:`ops.decode.fused_decode_step` (kernel K9 on
+    the card) and the heads in one call of
+    :func:`ops.head.fused_head_argmax` (K3); the token's embedding, the
+    cache writes (one slice assignment for all layers), :func:`make_valid`
+    and the key-padding update are plain PyTorch. On CPU tensors both are
+    their plain versions."""
+    cfg = model.cfg
+    n, dev = z.shape[0], z.device
+    dt = getattr(torch, cfg.compute_dtype)
+    dec = model.decoder
+    emb, fcn = dec.embedding, dec.fcn
+    stacks = _decoder_stacks(model)
+    seq_bias = torch.stack([layer.injection(z).to(dt) for layer in dec.decoder.layers])
+    kcache = torch.zeros((cfg.n_layers_decode, n, cfg.max_total_len + 1, cfg.d_model),
+                         dtype=dt, device=dev)
+    vcache = torch.zeros_like(kcache)
+
+    def step(cmd_t, args_t, groups_t, i, key_pad):
+        x = emb.token(cmd_t, args_t, groups_t, i)
+        y, k_new, v_new = decode_ops.fused_decode_step(x, seq_bias, *stacks, kcache, vcache,
+                                                       key_pad, i, cfg.n_heads)
+        kcache[:, :, i] = k_new
+        vcache[:, :, i] = v_new
+        ids = head_ops.fused_head_argmax(y, fcn.w_packed, fcn.b_packed, cfg.n_commands,
+                                         cfg.n_args, cfg.args_dim_out)
+        return ids[:, 0], ids[:, 1:]
+    return _greedy_decode(cfg, n, dev, step)
+
+
+@torch.no_grad()
+def autoregressive_sample(model: SVGTransformer, z):
+    """Greedy decode that re-runs the teacher-forced forward (causal, over
+    the whole buffer) at every step and reads the logits at the current
+    position: the JAX package's ``autoregressive_sample``, the oracle of the
+    cached decodes."""
+    cfg = model.cfg
+    n, dev = z.shape[0], z.device
+    length = cfg.max_total_len + 1
+    cmds = torch.full((n, 1, length), CMD_EOS, dtype=torch.int32, device=dev)
+    cmds[..., 0] = CMD_SOS
+    args = torch.full((n, 1, length, cfg.n_args), float(PAD_VAL), device=dev)
+    for i in range(cfg.max_total_len):
+        res = model(commands_dec=cmds, args_dec=args, z=z)
+        cmd_new = res["command_logits"][:, :, i].argmax(dim=-1).to(torch.int32)
+        args_new = res["args_logits"][:, :, i].argmax(dim=-1).to(torch.float32) - 1
+        _, args_new = make_valid(cmd_new, args_new)
+        cmds[:, :, i + 1] = cmd_new
+        args[:, :, i + 1] = args_new
+    return _finalize_args(cfg, cmds[..., 1:], args[..., 1:, :])
+
+
+@torch.no_grad()
+def greedy_sample(model: SVGTransformer, commands_enc=None, args_enc=None, z=None):
+    """Greedy decode of the encoded inputs (or of a given ``z``): one-shot
+    models through :func:`one_shot_sample`; autoregressive models encode
+    (the VAE's noise from the fixed generator) and decode with
+    :func:`autoregressive_sample_fused` on CUDA tensors, kernels K9 and K3,
+    and with :func:`autoregressive_sample_cached` on CPU tensors."""
+    cfg = model.cfg
+    if cfg.pred_mode == "one_shot":
+        return one_shot_sample(model, commands_enc, args_enc, z)
+    if z is None:
+        rng = DropoutRng.fixed() if cfg.use_vae else None
+        z, _, _ = model.encode(commands_enc, args_enc, rng=rng)
+    if z.device.type == "cuda":
+        return autoregressive_sample_fused(model, z)
+    return autoregressive_sample_cached(model, z)

@@ -11,7 +11,11 @@ The layouts differ in three ways:
 
 The VAE models have ``vae/enc_mu_fcn`` and ``vae/enc_sigma_fcn`` in place of
 ``bottleneck/bottleneck``; the self-match models have no
-``encoder/hierarchical_PE``.
+``encoder/hierarchical_PE``. The one-stage encoder has
+``encoder/embedding/group_embed`` and no ``encoder/hierarchical_*``; the
+autoregressive decoder has ``decoder/embedding`` as an ``SVGEmbedding``
+(command, argument (``[2 * args_dim, 64]`` with relative targets), Linear,
+group and position tables) and no ``decoder/hierarchical_*``.
 
 ``deepsvg_tpu/models/torch_import.py:state_dict_to_params`` spells out the
 same name map in the other direction. Every leaf of the tree is used exactly
@@ -65,19 +69,25 @@ def _name_map(model: SVGTransformer):
         out.append((f"{path}/norm/scale", module.norm.weight, False))
         out.append((f"{path}/norm/bias", module.norm.bias, False))
 
+    def svg_embedding(path, emb):
+        out.extend([
+            (f"{path}/command_embed", emb.command_embed, False),
+            (f"{path}/arg_embed", emb.arg_embed, False),
+            (f"{path}/embed_fcn_kernel", emb.embed_fcn.weight, True),
+            (f"{path}/embed_fcn_bias", emb.embed_fcn.bias, False),
+        ])
+        if emb.use_group:
+            out.append((f"{path}/group_embed", emb.group_embed, False))
+        out.append((f"{path}/pos_embed", emb.pos_embed, False))
+
     enc, dec = model.encoder, model.decoder
-    emb = enc.embedding
-    out.extend([
-        ("encoder/embedding/command_embed", emb.command_embed, False),
-        ("encoder/embedding/arg_embed", emb.arg_embed, False),
-        ("encoder/embedding/embed_fcn_kernel", emb.embed_fcn.weight, True),
-        ("encoder/embedding/embed_fcn_bias", emb.embed_fcn.bias, False),
-        ("encoder/embedding/pos_embed", emb.pos_embed, False),
-    ])
+    svg_embedding("encoder/embedding", enc.embedding)
     stack("encoder/encoder", enc.encoder, decoder=False)
-    if enc.hierarchical_PE is not None:              # none with self-match
-        out.append(("encoder/hierarchical_PE/pos_embed", enc.hierarchical_PE.pos_embed, False))
-    stack("encoder/hierarchical_encoder", enc.hierarchical_encoder, decoder=False)
+    if enc.two_stage:
+        if enc.hierarchical_PE is not None:          # none with self-match
+            out.append(("encoder/hierarchical_PE/pos_embed", enc.hierarchical_PE.pos_embed,
+                        False))
+        stack("encoder/hierarchical_encoder", enc.hierarchical_encoder, decoder=False)
     if model.resnet is not None:
         for i, linear in enumerate(model.resnet.linears, start=1):
             dense(f"resnet/linear{i}", linear)
@@ -86,12 +96,15 @@ def _name_map(model: SVGTransformer):
         dense("vae/enc_sigma_fcn", model.vae.enc_sigma_fcn)
     else:
         dense("bottleneck/bottleneck", model.bottleneck.bottleneck)
-    out.append(("decoder/hierarchical_embedding/PE/pos_embed",
-                dec.hierarchical_embedding.PE.pos_embed, False))
-    stack("decoder/hierarchical_decoder", dec.hierarchical_decoder, decoder=True)
-    dense("decoder/hierarchical_fcn/visibility_fcn", dec.hierarchical_fcn.visibility_fcn)
-    dense("decoder/hierarchical_fcn/z_fcn", dec.hierarchical_fcn.z_fcn)
-    out.append(("decoder/embedding/PE/pos_embed", dec.embedding.PE.pos_embed, False))
+    if dec.autoregressive:
+        svg_embedding("decoder/embedding", dec.embedding)
+    else:
+        out.append(("decoder/hierarchical_embedding/PE/pos_embed",
+                    dec.hierarchical_embedding.PE.pos_embed, False))
+        stack("decoder/hierarchical_decoder", dec.hierarchical_decoder, decoder=True)
+        dense("decoder/hierarchical_fcn/visibility_fcn", dec.hierarchical_fcn.visibility_fcn)
+        dense("decoder/hierarchical_fcn/z_fcn", dec.hierarchical_fcn.z_fcn)
+        out.append(("decoder/embedding/PE/pos_embed", dec.embedding.PE.pos_embed, False))
     stack("decoder/decoder", dec.decoder, decoder=True)
     out.extend([
         ("decoder/fcn/command_kernel", dec.fcn.command_fcn.weight, True),

@@ -1,0 +1,316 @@
+// K9: one token of the autoregressive decode through all L decoder layers
+// against the key/value caches, plus the final LayerNorm (see ops/decode.py).
+//
+// A block of 16 warps owns 8 rows and loops over the layers with the f32
+// residual in shared memory. The four products of a layer run on the tensor
+// cores in m8n32k16 tiles (bf16, f32 accumulate), each warp a 32-column
+// strip of the output with the weights read from L2. The attention of a
+// (row, head) pair is one warp: it streams the head's [index, 32] key and
+// value slices of the row, four lanes per position with one 16-byte load of
+// each (eight positions per warp load, four loads of each in flight), and
+// folds the scores into a running (max, sum, context) per lane group; the
+// eight groups are merged by shuffles, then the token's own key and value as
+// one more term. Only the positions before `index` are read. 16 warps
+// rather than 8 keep twice the loads in flight (measured at N=1024: 0.41
+// against 0.55 ms at index 120, PERF.md); loading eight rounds ahead instead
+// of four gained less.
+#include "common.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int DROWS = 8;   // rows of a block
+constexpr int DWARPS = 16;
+constexpr int DTHREADS = DWARPS * 32;  // with at most 128 registers a thread
+constexpr int UNROLL = 4;  // rounds of eight positions loaded before they are used
+
+typedef wmma::fragment<wmma::matrix_a, 8, 32, 16, bf16, wmma::row_major> FragA;
+typedef wmma::fragment<wmma::matrix_b, 8, 32, 16, bf16, wmma::col_major> FragB;
+typedef wmma::fragment<wmma::accumulator, 8, 32, 16, float> FragC;
+
+struct DecodeParams {
+  const bf16 *x, *seq_bias, *ln1, *wqkv, *bqkv, *wo, *bo, *ln2, *w1, *b1, *w2, *b2, *lnf;
+  const bf16 *kc, *vc;
+  const float* key_pad;
+  bf16 *y, *k_new, *v_new;
+  int R, T, D, F, H, L, index;
+  float scale;
+};
+
+// out[8][N] = A[8][K] @ W^T with W [N][K] (nn.Linear layout, global memory);
+// each element handed to epi(r, n, v). Each warp owns 32-column strips.
+template <class Epi>
+__device__ __forceinline__ void gemm8(const bf16* A, int lda, const bf16* __restrict__ W,
+                                      int N, int K, float* scr, int warp, int lane, Epi epi) {
+  for (int nt = warp; nt < N / 32; nt += DWARPS) {
+    FragC acc;
+    wmma::fill_fragment(acc, 0.f);
+#pragma unroll 4
+    for (int k = 0; k < K; k += 16) {
+      FragA a;
+      FragB b;
+      wmma::load_matrix_sync(a, A + k, lda);
+      wmma::load_matrix_sync(b, W + (size_t)nt * 32 * K + k, K);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    wmma::store_matrix_sync(scr, acc, 32, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 256; e += 32) epi(e / 32, nt * 32 + (e & 31), scr[e]);
+    __syncwarp();
+  }
+}
+
+// row `warp` of xres [8][D] -> LN(row) * scale + bias, as bf16 into out[warp * ldo]
+__device__ __forceinline__ void ln_row(const float* xres, int D, const bf16* __restrict__ ln,
+                                       bf16* out, int warp, int lane) {
+  const float* xr = xres + warp * D;
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32) s += xr[c];
+  const float mu = warp_sum(s) / D;
+  float q = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float d = xr[c] - mu;
+    q += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(q) / D + LN_EPS);
+  for (int c = lane; c < D; c += 32)
+    out[c] = f2bf((xr[c] - mu) * rstd * bf2f(ln[c]) + bf2f(ln[D + c]));
+}
+
+// online-softmax state of one lane: running max, sum of exp, context of its
+// 8 dimensions. merge() folds in another state.
+struct Online {
+  float m, l, acc[8];
+  __device__ void init() {
+    m = -INFINITY;
+    l = 0.f;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) acc[d] = 0.f;
+  }
+  __device__ void add(float t, const float (&v)[8]) {
+    const float mn = fmaxf(m, t);
+    if (mn == -INFINITY) return;
+    const float a = expf(m - mn), e = expf(t - mn);
+    l = l * a + e;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) acc[d] = acc[d] * a + e * v[d];
+    m = mn;
+  }
+  __device__ void merge(float m2, float l2, const float (&acc2)[8]) {
+    const float mn = fmaxf(m, m2);
+    if (mn == -INFINITY) return;
+    const float a = expf(m - mn), a2 = expf(m2 - mn);
+    l = l * a + l2 * a2;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) acc[d] = acc[d] * a + acc2[d] * a2;
+    m = mn;
+  }
+};
+
+__device__ __forceinline__ void unpack8(uint4 u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+// the 4 lanes of a position group sum their partial dot products
+__device__ __forceinline__ float group_sum(float s) {
+  s += __shfl_xor_sync(FULL_MASK, s, 1);
+  return s + __shfl_xor_sync(FULL_MASK, s, 2);
+}
+
+// context of row r, head h of layer l into ctx[r][h*32 ..]: lane = 4 x group
+// g (positions g, g+8, ...) + quarter qd (dimensions qd*8 .. qd*8+7)
+__device__ void attend(const DecodeParams& p, int l, int row, int h, const float* qkv_r,
+                       bf16* ctx_r, int lane) {
+  const int D = p.D, idx = p.index;
+  const int g = lane >> 2, qd = lane & 3;
+  float q[8], kt[8], vt[8];
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    q[d] = qkv_r[h * HEAD_DIM + qd * 8 + d] * p.scale;
+    kt[d] = qkv_r[D + h * HEAD_DIM + qd * 8 + d];
+    vt[d] = qkv_r[2 * D + h * HEAD_DIM + qd * 8 + d];
+  }
+  const size_t base = ((size_t)l * p.R + row) * p.T * D + h * HEAD_DIM + qd * 8;
+  const bf16* kb = p.kc + base;
+  const bf16* vb = p.vc + base;
+  const float* kp = p.key_pad + (size_t)row * p.T;
+  Online st;
+  st.init();
+  for (int j0 = 0; j0 < idx; j0 += 8 * UNROLL) {
+    uint4 ku[UNROLL], vu[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int j = j0 + 8 * u + g;
+      ku[u] = vu[u] = make_uint4(0, 0, 0, 0);
+      if (j < idx) {
+        ku[u] = *reinterpret_cast<const uint4*>(kb + (size_t)j * D);
+        vu[u] = *reinterpret_cast<const uint4*>(vb + (size_t)j * D);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int j = j0 + 8 * u + g;
+      float kf[8], vf[8];
+      unpack8(ku[u], kf);
+      unpack8(vu[u], vf);
+      float s = 0.f;
+#pragma unroll
+      for (int d = 0; d < 8; ++d) s = fmaf(q[d], kf[d], s);
+      s = group_sum(s);
+      if (j < idx) st.add(s + kp[j], vf);
+    }
+  }
+  // merge the eight position groups (lanes with the same quarter)
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    float acc2[8];
+#pragma unroll
+    for (int d = 0; d < 8; ++d) acc2[d] = __shfl_xor_sync(FULL_MASK, st.acc[d], off);
+    const float m2 = __shfl_xor_sync(FULL_MASK, st.m, off);
+    const float l2 = __shfl_xor_sync(FULL_MASK, st.l, off);
+    st.merge(m2, l2, acc2);
+  }
+  // the token's own key and value
+  float s = 0.f;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) s = fmaf(q[d], kt[d], s);
+  s = group_sum(s);
+  st.add(s + kp[idx], vt);
+  if (g == 0) {
+#pragma unroll
+    for (int d = 0; d < 8; ++d)
+      ctx_r[h * HEAD_DIM + qd * 8 + d] = f2bf(st.m == -INFINITY ? 0.f : st.acc[d] / st.l);
+  }
+}
+
+__global__ void __launch_bounds__(DTHREADS) decode_kernel(DecodeParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = p.D, F = p.F, H = p.H, R = p.R;
+  const int ldn = D + SPAD, ldh = F + SPAD;
+  float* xres = reinterpret_cast<float*>(smem);          // [8][D]   residual
+  float* qkv = xres + DROWS * D;                         // [8][3D]  f32; k, v rounded to bf16
+  bf16* xn = reinterpret_cast<bf16*>(qkv + DROWS * 3 * D);  // [8][ldn] LN outputs
+  bf16* ctx = xn + DROWS * ldn;                          // [8][ldn] attention context
+  bf16* hid = ctx + DROWS * ldn;                         // [8][ldh] FF hidden
+  float* scr = reinterpret_cast<float*>(hid + DROWS * ldh);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* wscr = scr + warp * 256;
+  const int row0 = blockIdx.x * DROWS;
+  const int nrows = min(DROWS, R - row0);
+
+  for (int e = threadIdx.x; e < DROWS * D; e += DTHREADS)
+    xres[e] = e / D < nrows ? bf2f(p.x[(size_t)row0 * D + e]) : 0.f;
+  __syncthreads();
+
+  for (int l = 0; l < p.L; ++l) {
+    const size_t w3 = (size_t)l * 3 * D * D, wd = (size_t)l * D * D, wf = (size_t)l * F * D;
+    const bf16* bqkv = p.bqkv + (size_t)l * 3 * D;
+    const bf16* bo = p.bo + (size_t)l * D;
+    const bf16* b1 = p.b1 + (size_t)l * F;
+    const bf16* b2 = p.b2 + (size_t)l * D;
+
+    if (warp < DROWS) ln_row(xres, D, p.ln1 + (size_t)l * 2 * D, xn + warp * ldn, warp, lane);
+    __syncthreads();
+    gemm8(xn, ldn, p.wqkv + w3, 3 * D, D, wscr, warp, lane, [&](int r, int n, float v) {
+      v += bf2f(bqkv[n]);
+      if (n >= D) {  // the token's key and value: rounded, returned, and used rounded
+        const bf16 kv = f2bf(v);
+        v = bf2f(kv);
+        if (r < nrows) {
+          bf16* dst = n < 2 * D ? p.k_new + ((size_t)l * R + row0 + r) * D + (n - D)
+                                : p.v_new + ((size_t)l * R + row0 + r) * D + (n - 2 * D);
+          *dst = kv;
+        }
+      }
+      qkv[r * 3 * D + n] = v;
+    });
+    __syncthreads();
+
+    for (int pair = warp; pair < nrows * H; pair += DWARPS) {
+      const int r = pair / H, h = pair - r * H;
+      attend(p, l, row0 + r, h, qkv + r * 3 * D, ctx + r * ldn, lane);
+    }
+    __syncthreads();
+
+    gemm8(ctx, ldn, p.wo + wd, D, D, wscr, warp, lane,
+          [&](int r, int n, float v) { xres[r * D + n] += v + bf2f(bo[n]); });
+    __syncthreads();
+    for (int e = threadIdx.x; e < nrows * D; e += DTHREADS)
+      xres[e] += bf2f(p.seq_bias[((size_t)l * R + row0) * D + e]);
+    __syncthreads();
+
+    if (warp < DROWS) ln_row(xres, D, p.ln2 + (size_t)l * 2 * D, xn + warp * ldn, warp, lane);
+    __syncthreads();
+    gemm8(xn, ldn, p.w1 + wf, F, D, wscr, warp, lane, [&](int r, int n, float v) {
+      hid[r * ldh + n] = f2bf(fmaxf(v + bf2f(b1[n]), 0.f));
+    });
+    __syncthreads();
+    gemm8(hid, ldh, p.w2 + wf, D, F, wscr, warp, lane,
+          [&](int r, int n, float v) { xres[r * D + n] += v + bf2f(b2[n]); });
+    __syncthreads();
+  }
+
+  if (warp < nrows) ln_row(xres, D, p.lnf, p.y + (size_t)(row0 + warp) * D, warp, lane);
+}
+
+}  // namespace
+
+// x [R][D]; seq_bias [L][R][D]; ln1/ln2 [L][2][D]; wqkv [L][3D][D]; bqkv
+// [L][3D]; wo [L][D][D]; bo [L][D]; w1 [L][F][D]; b1 [L][F]; w2 [L][D][F];
+// b2 [L][D]; lnf [2][D]; kc/vc [L][R][T][D]; key_pad [R][T] f32; y [R][D];
+// k_new/v_new [L][R][D]. All bf16 but key_pad. D = 32 H <= 256, D and F
+// multiples of 32, 0 <= index < T.
+extern "C" int dsvg_decode_step(const void* x, const void* seq_bias, const void* ln1,
+                                const void* wqkv, const void* bqkv, const void* wo,
+                                const void* bo, const void* ln2, const void* w1,
+                                const void* b1, const void* w2, const void* b2,
+                                const void* lnf, const void* kc, const void* vc,
+                                const void* key_pad, void* y, void* k_new, void* v_new, int R,
+                                int T, int D, int F, int H, int L, int index, float scale,
+                                void* stream) {
+  if (D != H * HEAD_DIM || D > 256 || D % 32 || F % 32 || index < 0 || index >= T)
+    return (int)cudaErrorInvalidValue;
+  DecodeParams p;
+  p.x = (const bf16*)x;
+  p.seq_bias = (const bf16*)seq_bias;
+  p.ln1 = (const bf16*)ln1;
+  p.wqkv = (const bf16*)wqkv;
+  p.bqkv = (const bf16*)bqkv;
+  p.wo = (const bf16*)wo;
+  p.bo = (const bf16*)bo;
+  p.ln2 = (const bf16*)ln2;
+  p.w1 = (const bf16*)w1;
+  p.b1 = (const bf16*)b1;
+  p.w2 = (const bf16*)w2;
+  p.b2 = (const bf16*)b2;
+  p.lnf = (const bf16*)lnf;
+  p.kc = (const bf16*)kc;
+  p.vc = (const bf16*)vc;
+  p.key_pad = (const float*)key_pad;
+  p.y = (bf16*)y;
+  p.k_new = (bf16*)k_new;
+  p.v_new = (bf16*)v_new;
+  p.R = R;
+  p.T = T;
+  p.D = D;
+  p.F = F;
+  p.H = H;
+  p.L = L;
+  p.index = index;
+  p.scale = scale;
+  const size_t smem = (size_t)DROWS * D * sizeof(float) * 4 +
+                      (size_t)DROWS * (2 * (D + SPAD) + F + SPAD) * sizeof(bf16) +
+                      (size_t)DWARPS * 256 * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(decode_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  decode_kernel<<<(R + DROWS - 1) / DROWS, DTHREADS, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}

@@ -7,7 +7,10 @@
 // rows of x in shared memory; per slot it stages up to 64 head columns at a
 // time in shared memory (read by all 8 warps), each warp multiplies its 16
 // rows with wmma (bf16, f32 accumulate), and two lanes per row fold the
-// chunk into a running (max, first index).
+// chunk into a running (max, first index). A block takes every slot of its
+// rows; when the row tiles are fewer than the card's SMs (the autoregressive
+// decode's R = N rows a step), the slots go to blocks of their own
+// (blockIdx.y), which compute each slot as the one block would.
 #include <mma.h>
 
 #include "common.cuh"
@@ -30,7 +33,7 @@ size_t smem_bytes(int D) {
 __global__ void __launch_bounds__(NTHREADS)
     head_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                 const bf16* __restrict__ bias, int* __restrict__ ids, int R,
-                int D, int n_cmd, int n_args, int vocab) {
+                int D, int n_cmd, int n_args, int vocab, int slots_per_block) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldx = D + SPAD;
   bf16* xs = reinterpret_cast<bf16*>(smem);
@@ -53,7 +56,8 @@ __global__ void __launch_bounds__(NTHREADS)
   const int pr = lane >> 1, half = lane & 1;  // two lanes per row
   const int my_row = row0 + warp * 16 + pr;
 
-  for (int slot = 0; slot <= n_args; ++slot) {
+  const int slot_end = min(n_args + 1, (int)(blockIdx.y + 1) * slots_per_block);
+  for (int slot = blockIdx.y * slots_per_block; slot < slot_end; ++slot) {
     const int col0 = slot == 0 ? 0 : cw + (slot - 1) * aw;
     const int tiles = (slot == 0 ? cw : aw) / 16;
     const int valid = slot == 0 ? n_cmd : vocab;
@@ -128,8 +132,13 @@ extern "C" int dsvg_head_argmax(const void* x, const void* w, const void* bias,
       head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (R + HEAD_ROWS - 1) / HEAD_ROWS;
-  head_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int per_block = blocks < sms ? 1 : n_args + 1;
+  const dim3 grid(blocks, (n_args + per_block) / per_block);
+  head_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const bf16*)w, (const bf16*)bias, (int*)ids, R, D,
-      n_cmd, n_args, vocab);
+      n_cmd, n_args, vocab, per_block);
   return (int)cudaGetLastError();
 }

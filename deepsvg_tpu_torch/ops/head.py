@@ -18,7 +18,10 @@ MB (0.04 ms). The bound is the tensor cores. A block keeps 128 rows of
 ``x`` in shared memory, stages the head in 64-column chunks through shared
 memory shared by its 8 warps, multiplies with ``nvcuda::wmma`` (bf16, f32
 accumulate), adds the bias in f32 and folds each chunk into a running
-(max, first index) per row and slot.
+(max, first index) per row and slot. The autoregressive decode calls it with
+R = N rows a step (8 row tiles at N=1024): when the row tiles are fewer than
+the card's SMs, each slot goes to a block of its own, which computes it as
+the one block would (the ids are the same).
 """
 from __future__ import annotations
 

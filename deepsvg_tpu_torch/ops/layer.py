@@ -27,6 +27,23 @@ products on the tensor cores (``nvcuda::wmma`` bf16 16x16x16, f32
 accumulate) with the weights read from L2, and does the attention of each
 (sequence, head) in one warp with S <= 32 keys, one key per lane.
 
+Long sequences (``csrc/layer_long.cu``, 33 <= S <= 256: the one-stage
+models' E1 over a whole icon, S = 242 with SOS and EOS, and their
+teacher-forced decoder, S = 241, causal). A block cannot hold such a
+sequence (242 rows of the f32 residual alone are 248 KB), so the layer is
+two launches. The first runs LN1 and the QKV product over 64-row tiles of
+all B*S rows and writes QKV (in the activation type, as the short form
+rounds it) to a scratch tensor. The second takes one (sequence, 64-query
+tile) per block: for each head in turn, the tile's queries against all the
+sequence's keys (up to the tile's last query when causal) on ``wmma``,
+the exact softmax of each row over all its keys in float32 (the
+probabilities rounded to the activation type, as in the short form and its
+plain version), the context on ``wmma``; then the out projection, the
+residual (reloaded from the input), ``seq_bias``, LN2, FF and the residual,
+as the short form does. An E1 layer at N=1024 (B=1024, S=242) is 0.26 TFLOP
+of products and 0.06 TFLOP of attention, 0.33 ms at 989 TFLOP/s bf16. The
+float32 form takes 32-query tiles.
+
 The softmax subtracts the row maximum (the Pallas kernel clamps scores to
 +-75 instead, a TPU-only choice); a query whose keys are all masked gets
 exact zero probabilities, as the Pallas guard gives.
@@ -89,23 +106,27 @@ def layer_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
 
 
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_LONG_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                                  ctypes.c_void_p]
 MAX_SEQ = 32
+MAX_SEQ_LONG = 256
 HEAD_DIM = 32
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
-                       n_heads: int) -> None:
+                       n_heads: int, max_seq: int = MAX_SEQ) -> None:
     """Raise unless the layer kernels take these CUDA tensors: activations
-    and weights of one type (bfloat16 or float32), S <= 32, head dim 32."""
+    and weights of one type (bfloat16 or float32), S <= ``max_seq``, head
+    dim 32."""
     dev, dt = x.device, x.dtype
     b, s, d = x.shape
     f = w1.shape[0]
     if dt not in KERNEL_DTYPES:
         raise ValueError(f"x has dtype {dt}, expected bfloat16 or float32")
-    if d != n_heads * HEAD_DIM or not 1 <= s <= MAX_SEQ or d % 16 or f % 16:
+    if d != n_heads * HEAD_DIM or not 1 <= s <= max_seq or d % 16 or f % 16:
         raise ValueError(
-            f"layer kernel takes head dim {HEAD_DIM}, 1 <= S <= {MAX_SEQ} and "
+            f"layer kernel takes head dim {HEAD_DIM}, 1 <= S <= {max_seq} and "
             f"D, F multiples of 16; got D={d}, heads={n_heads}, S={s}, F={f}")
     for name, t, shape in (
             ("x", x, (b, s, d)), ("ln1", ln1, (2, d)), ("wqkv", wqkv, (3 * d, d)),
@@ -128,14 +149,18 @@ def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
     ``mask [B, S]`` additive float32 over keys.
 
     A CPU tensor takes :func:`layer_reference`; a CUDA tensor launches the
-    kernel (activations and weights both bfloat16 or both float32, S <= 32,
-    head dim 32) or raises.
+    kernel (activations and weights both bfloat16 or both float32, head dim
+    32; S <= 32 the short form, up to 256 the long form,
+    :func:`fused_layer_long`) or raises.
     """
     if x.device.type == "cpu":
         return layer_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1,
                                w2, b2, mask, n_heads, causal)
     if x.device.type != "cuda":
         raise ValueError(f"no layer kernel for device {x.device}")
+    if x.dim() == 3 and x.shape[1] > MAX_SEQ:
+        return fused_layer_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
+                                mask, n_heads, causal)
     dev = x.device
     b, s, d = x.shape
     f = w1.shape[0]
@@ -157,8 +182,42 @@ def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
     return out
 
 
-fused_layer.launches = 0            # every launch
-fused_layer.float32_launches = 0    # those of the float32 form
+fused_layer.launches = 0            # every launch of the short form
+fused_layer.float32_launches = 0    # those of its float32 form
+
+
+def fused_layer_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                     n_heads: int, causal: bool = False):
+    """The long form of :func:`fused_layer` (same arguments), for CUDA
+    tensors with 1 <= S <= 256: two launches, with the QKV of all rows in a
+    scratch tensor between them. Counted once per layer."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the long layer kernel runs on CUDA tensors, got {dev}")
+    b, s, d = x.shape
+    f = w1.shape[0]
+    check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                       n_heads, MAX_SEQ_LONG)
+    out = torch.empty_like(x)
+    if b == 0:
+        return out
+    qkv = torch.empty((b * s, 3 * d), dtype=x.dtype, device=dev)
+    fn = _build.kernel_function("dsvg_layer_long", _LONG_ARGTYPES)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = fn(x.data_ptr(), ptr(seq_bias), ln1.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln2.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            mask.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, s, d, f, n_heads,
+            int(causal), int(x.dtype == torch.float32), HEAD_DIM ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "long layer")
+    fused_layer_long.launches += 1
+    fused_layer_long.float32_launches += x.dtype == torch.float32
+    return out
+
+
+fused_layer_long.launches = 0           # every layer run by the long form
+fused_layer_long.float32_launches = 0   # those of its float32 form
 
 
 def fused_encoder_layer(x, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,

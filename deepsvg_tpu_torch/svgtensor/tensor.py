@@ -1,14 +1,21 @@
-"""Host-side (numpy) packing of per-path row tensors into model inputs.
+"""Host-side (numpy) packing of per-path row tensors into model inputs, and
+the relative-argument decoding on tensors.
 
 A numpy copy of the packing half of ``deepsvg_tpu/svgtensor/tensor.py``
 (``pack_groups`` and the helpers it calls, and ``cmd_args_to_data14``); the
-JAX module imports ``jax``, so the port keeps its own.
+JAX module imports ``jax``, so the port keeps its own. :func:`make_absolute`,
+:func:`mask_invalid_args` and their helper are the torch counterparts of the
+JAX module's functions of those names, which undo the relative encoding of
+an autoregressive decode.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import numpy as np
+import torch
+
+from .masks import cmd_args_mask
 
 from .constants import (
     ARGS_DIM, CMD_ARGS_MASK, CMD_EOS, CMD_SOS, Index, IndexArgs, N_ARGS, PAD_VAL)
@@ -119,3 +126,35 @@ def pack_groups(group_tensors: Sequence[np.ndarray], max_num_groups: int,
         "args_rel_grouped": relative_args_np(grouped_cmd, grouped_args)[None],
         "filling": np.asarray(fill, dtype=np.int32)[:, None],
     }
+
+
+_POS_START = IndexArgs.CONTROL1.start      # control1/control2/end_pos: columns 5:11
+
+
+def _position_shift(delta_xy: torch.Tensor) -> torch.Tensor:
+    """An (x, y) delta ``[..., 2]`` as a shift of all 11 argument columns:
+    zero on the non-position columns, repeated over control1, control2 and
+    end_pos."""
+    zeros = delta_xy.new_zeros(delta_xy.shape[:-1] + (_POS_START,))
+    return torch.cat([zeros, delta_xy.repeat((1,) * (delta_xy.dim() - 1) + (3,))], dim=-1)
+
+
+def mask_invalid_args(commands: torch.Tensor, args: torch.Tensor) -> torch.Tensor:
+    """Set the arguments a command does not use to ``PAD_VAL``."""
+    return torch.where(cmd_args_mask(commands.device, torch.bool)[commands.long()], args, torch.full_like(args, float(PAD_VAL)))
+
+
+def make_absolute(commands: torch.Tensor, args: torch.Tensor) -> torch.Tensor:
+    """Relative (decoded, delta-valued) -> absolute arguments.
+
+    ``commands [..., S]``, ``args [..., S, 11]`` float: the position columns
+    of each real command after the first hold deltas from the previous real
+    command's end position, the first real command is absolute. Unused
+    arguments become ``PAD_VAL``."""
+    real = commands < CMD_EOS
+    rel_end = torch.where(real[..., None], args[..., IndexArgs.END_POS],
+                          args.new_zeros(()))
+    prev_cum = torch.cumsum(rel_end, dim=-2) - rel_end   # sum of the previous real deltas
+    first_real = real & (torch.cumsum(real.to(torch.int32), dim=-1) == 1)
+    add = torch.where((real & ~first_real)[..., None], prev_cum, args.new_zeros(()))
+    return mask_invalid_args(commands, args + _position_shift(add))

@@ -4,6 +4,7 @@
     python3 scripts/profile_port_slice.py --train    # the training step, B=128
     python3 scripts/profile_port_slice.py --recipe   # the training step, B=60
     python3 scripts/profile_port_slice.py --selfmatch  # the self-matching step, B=60
+    python3 scripts/profile_port_slice.py --autoregressive  # Sketchformer's greedy_sample
 
 Loads the trained flagship checkpoint into the port (bfloat16 compute,
 float32 masters). Without ``--train`` it runs greedy one-shot encode+decode
@@ -16,11 +17,15 @@ runs the step at the recipe's batch, B=60, where E2 and D2 take the fused
 stack kernel K7 (B=128 is over the stack gate). ``--selfmatch`` runs the
 step of the Hungarian self-matching model with its VAE at B=60 (K8 and the
 brute-force matching), built from the flagship checkpoint as
-``chip_smoke.py`` builds it. Each prints the
+``chip_smoke.py`` builds it. ``--autoregressive`` runs Sketchformer's
+``greedy_sample`` (encode, then 240 decode steps through K9 and K3) at
+N=1024 on the config's own initialisation from a seed, as ``chip_smoke.py``
+builds it, for 2 calls after one. Each prints the
 device time by kernel name, the device's busy time against the host's wall
 time over the window (the idle share), and the card's name and power limit.
 The full table goes to ``slice_profile.txt``, ``train_profile.txt`` or
-``train_recipe_profile.txt`` (``train_selfmatch_profile.txt``) in the output
+``train_recipe_profile.txt`` (``train_selfmatch_profile.txt``,
+``autoregressive_profile.txt``) in the output
 directory under the repository
 root. Exits non-zero without a CUDA card.
 """
@@ -51,6 +56,8 @@ def main() -> int:
                         help="profile the training step at the recipe batch B=60")
     parser.add_argument("--selfmatch", action="store_true",
                         help="profile the self-matching model's training step at B=60")
+    parser.add_argument("--autoregressive", action="store_true",
+                        help="profile Sketchformer's greedy_sample at N=1024")
     opts = parser.parse_args()
     opts.recipe = opts.recipe or opts.selfmatch
     opts.train = opts.train or opts.recipe
@@ -69,7 +76,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = gpu_fast(hierarchical_ordered())
-    if opts.selfmatch:
+    iters = ITERS
+    if opts.autoregressive:
+        from chip_smoke import sketchformer_model
+        from deepsvg_tpu_torch.models import greedy_sample
+        model = sketchformer_model("cuda")
+        cfg = model.cfg
+    elif opts.selfmatch:
         from chip_smoke import self_match_model
         from deepsvg_tpu_torch.models import hierarchical_self_matching
         cfg = gpu_fast(hierarchical_self_matching())
@@ -78,9 +91,16 @@ def main() -> int:
         model = load_model(CHECKPOINT, cfg, device="cuda")
     size = b_train if opts.train else N
     batch = generate_batch(np.random.default_rng(0), size, cfg.max_num_groups, cfg.max_seq_len)
-    commands = torch.from_numpy(batch["commands"]).cuda()
-    args = torch.from_numpy(batch["args"]).cuda()
-    if opts.train:
+    grouped = "_grouped" if opts.autoregressive else ""
+    commands = torch.from_numpy(batch["commands" + grouped]).cuda()
+    args = torch.from_numpy(batch["args" + grouped]).cuda()
+    if opts.autoregressive:
+        what, out_name, warmup, iters = (f"greedy_sample (Sketchformer) N={N}",
+                                         "autoregressive_profile.txt", 1, 2)
+
+        def run():
+            greedy_sample(model, commands, args)
+    elif opts.train:
         optimizer = make_optimizer(constant(1e-3))
         state = create_train_state(model, optimizer, init=False)
         data = {"commands": commands, "args": args}
@@ -104,12 +124,12 @@ def main() -> int:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(ITERS):
+        for _ in range(iters):
             run()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
 
-    rows = [(e.key, e.device_time_total / 1e3 / ITERS, e.count / ITERS)
+    rows = [(e.key, e.device_time_total / 1e3 / iters, e.count / iters)
             for e in prof.key_averages() if e.device_time_total > 0 and e.device_type.name == "CUDA"]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in rows)

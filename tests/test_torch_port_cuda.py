@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from deepsvg_tpu_torch.ops import ce as ce_ops
+from deepsvg_tpu_torch.ops import decode as decode_ops
 from deepsvg_tpu_torch.ops import embedding as emb_ops
 from deepsvg_tpu_torch.ops import head as head_ops
 from deepsvg_tpu_torch.ops import layer as layer_ops
@@ -400,3 +401,82 @@ def test_self_match_step_launches_k8_once(cuda):
              ce_ops.args_ce.backward_launches)
     assert [a - c for a, c in zip(after, counts)] == [1, 1, 1]
     assert all(bool(torch.isfinite(v)) for v in res.values()) and "loss_kl" in res
+
+
+# the long form of K2 and K9: the layer's limits (one bf16 step of the output
+# plus flipped intermediates); K9 runs four layers, whose last-bit
+# differences feed each other, so its relative RMS limit is twice the layer's
+TOL_ATOL, TOL_RTOL, TOL_RMS = 0.1, 2.0 ** -7, 1e-3
+TOL_F32_ATOL, TOL_F32_RTOL = 2e-2, 2e-3
+
+
+@pytest.mark.parametrize("dtype,s,seq_bias,causal", [
+    (BF16, 33, False, False), (BF16, 240, False, False), (BF16, 241, True, True),
+    (BF16, 242, True, False), (BF16, 256, False, True), (torch.float32, 241, True, True),
+    (torch.float32, 100, False, False)])
+def test_long_layer_kernel_matches_plain(cuda, dtype, s, seq_bias, causal):
+    """K2's long form (two launches, counted once) against the plain layer,
+    with key padding and one fully masked sequence."""
+    rng = np.random.default_rng(s + 2 * causal)
+    b = 5
+    weights = _layer_weights(rng, cuda, dtype)
+    x = _bf16(rng, cuda, b, s, D).to(dtype)
+    bias = _bf16(rng, cuda, b, D).to(dtype) if seq_bias else None
+    inputs = (x, bias, *weights, _key_mask(rng, cuda, b, s), H, causal)
+    before, short = layer_ops.fused_layer_long.launches, layer_ops.fused_layer.launches
+    out = layer_ops.fused_layer(*inputs)
+    assert layer_ops.fused_layer_long.launches == before + 1
+    assert layer_ops.fused_layer.launches == short
+    ref = layer_ops.layer_reference(*inputs).float()
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    err = (out.float() - ref).abs()
+    atol, rtol = (TOL_ATOL, TOL_RTOL) if dtype == BF16 else (TOL_F32_ATOL, TOL_F32_RTOL)
+    assert (err <= atol + rtol * ref.abs()).all(), (err - rtol * ref.abs()).max().item()
+    assert _rel_rms(out, ref) <= TOL_RMS
+
+
+def _decode_inputs(rng, dev, n_layers, r, t):
+    """K9's operands at the flagship's widths: per-layer weight stacks, random
+    caches, and key padding with EOS-padded tails (row 1 open at position 0
+    only, row 2 fully masked, others from random positions on)."""
+    stacks = [torch.stack(ws).contiguous() for ws in
+              zip(*(_layer_weights(rng, dev, BF16) for _ in range(n_layers)))]
+    lnf = torch.stack([1 + _bf16(rng, dev, D, scale=0.1), _bf16(rng, dev, D, scale=0.1)])
+    key_pad = torch.zeros(r, t, device=dev)
+    eos = torch.from_numpy(rng.integers(1, t, r)).to(dev)
+    tail = torch.arange(r, device=dev) % 3 == 0
+    key_pad[tail] = torch.where(torch.arange(t, device=dev)[None] < eos[tail, None], 0.0,
+                                float("-inf"))
+    key_pad[1, 1:] = float("-inf")
+    key_pad[2] = float("-inf")
+    return (_bf16(rng, dev, r, D), _bf16(rng, dev, n_layers, r, D, scale=0.3), *stacks,
+            lnf.contiguous(), _bf16(rng, dev, n_layers, r, t, D), _bf16(rng, dev, n_layers, r, t, D),
+            key_pad)
+
+
+@pytest.mark.parametrize("r,index", [(64, 0), (64, 1), (1000, 120), (64, 240), (13, 77)])
+def test_decode_kernel_matches_plain(cuda, r, index):
+    """K9 against its plain version at T = 241, four layers: y, the new keys
+    and values of every layer."""
+    rng = np.random.default_rng(r + index)
+    inputs = _decode_inputs(rng, cuda, 4, r, 241)
+    before = decode_ops.fused_decode_step.launches
+    got = decode_ops.fused_decode_step(*inputs, index, H)
+    assert decode_ops.fused_decode_step.launches == before + 1
+    want = decode_ops.decode_step_reference(*inputs, index, H)
+    for name, o, ref in zip(("y", "k_new", "v_new"), got, want):
+        ref = ref.float()
+        err = (o.float() - ref).abs()
+        assert o.dtype == BF16 and o.shape == ref.shape and torch.isfinite(o).all(), name
+        assert (err <= TOL_ATOL + TOL_RTOL * ref.abs()).all(), (name, err.max().item())
+        assert _rel_rms(o, ref) <= 2 * TOL_RMS, (name, _rel_rms(o, ref))
+
+
+def test_decode_kernel_refuses_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(0)
+    inputs = list(_decode_inputs(rng, cuda, 2, 16, 9))
+    with pytest.raises(ValueError, match="index"):
+        decode_ops.fused_decode_step(*inputs, 9, H)
+    inputs[-1] = inputs[-1].to(BF16)                   # key_pad must be float32
+    with pytest.raises(ValueError, match="key_pad"):
+        decode_ops.fused_decode_step(*inputs, 3, H)
