@@ -64,6 +64,22 @@ PyTorch operations (K9's yardstick), K9 alone at the three positions with
 its bound, and the long K2 with its plain version and
 ``nn.TransformerEncoderLayer``.
 
+*Sketchformer's training* (B=60, the recipe's batch: encoder S=242, causal
+teacher-forced decoder S=241, 512 relative argument classes; random weights
+from a seed): the long form of K4 against its plain version, forward and
+twelve gradients, at S=242 and S=241 causal with ``seq_bias``, dropout 0 and
+0.1, and in float32 at S=32 and S=242, with the short form's limits; its
+gradients bit-equal from run to run; K6 on the path's inputs and group
+tables (S=242, 241) and K5 at 512 classes against their plain versions;
+one counted ``train_step`` (K1 2, long K4 8 + 8, K5 1 + 1, K6 2, no plain
+version called, no short K4), 23 steps on one batch whose loss must stay
+finite and fall, timed, with the device busy time and idle share; the CLI's
+``train()`` on ``configs/sketchformer.py`` with a checkpoint and a resume to
+the bit; the long K4, K5 and K6 timed at the path's shapes beside their
+bounds, their plain versions and a PyTorch call
+(``nn.TransformerEncoderLayer`` in training mode, ``F.linear`` +
+``F.cross_entropy``, ``index_add_``).
+
 The second-to-last line is ``{"kernels": [...]}``, the last ``{"ok": true,
 "device": {...}}``; the full record goes to ``chiprun_out/chip_smoke.json``.
 Any failed check raises, and the script exits non-zero, as it does without a
@@ -242,6 +258,9 @@ AR_MARGIN = 5e-2
 AR_CONTROL_DROP_BITS = 4
 AR_LOGIT_LIMIT = 5e-2
 TF_MARGIN = 5e-2
+# Sketchformer's training phase: the icons recipe's loss weights with the KL
+# term at its weight after 1,000 of the ramp's 10,000 steps
+SF_WEIGHTS = dict(LOSS_WEIGHTS, kl_tolerance=0.1, loss_kl_weight=1.0)
 
 
 def check(ok: bool, what: str) -> None:
@@ -416,6 +435,27 @@ def layer_cost(args):
     peak = PEAK_TF32 if x.dtype == torch.float32 else PEAK_BF16
     return bound(2 * nbytes(x) + nbytes(seq_bias, mask, *weights),
                  layer_ops_count(b, s, d, weights[6].shape[0]), peak)
+
+
+def k4_bound(x, sb, f, backward, causal=False):
+    """K4's bound, of the function, not of this implementation: x, the mask,
+    the injection and the weights as the kernel reads them in, out (forward)
+    or g in and dx, dseq_bias and the float32 weight gradients out
+    (backward); the products, and the attention over the keys each query
+    sees (half of them when causal). What the forward keeps for the backward
+    is a choice of the kernel and is reported apart."""
+    b, s, d = x.shape
+    rows, es = b * s, x.element_size()
+    peak = PEAK_TF32 if x.dtype == torch.float32 else PEAK_BF16
+    w_elems = 4 * d * d + 2 * d * f + 9 * d + f
+    common = rows * d * es + b * s * 4 + w_elems * es
+    sb_elems = 0 if sb is None else b * d
+    attn = 4.0 * b * s * (s + 1) / 2 * d if causal else 4.0 * b * s * s * d
+    products = layer_ops_count(b, s, d, f) - 4.0 * b * s * s * d
+    if not backward:
+        return bound(common + rows * d * es + sb_elems * es, products + attn, peak)
+    return bound(common + 2 * rows * d * es + w_elems * 4 + sb_elems * 4,
+                 2 * products + 2 * attn, peak)
 
 
 def compare_grad(name, got, want, same_gate, act_dtype, rms_limits=None) -> dict:
@@ -716,16 +756,7 @@ def run_cli(dev, reset_counts, read_counts, per_step: dict,
 def device_busy_ms(fn, iters: int = 5) -> float | None:
     """Device time per call of ``fn`` under ``torch.profiler`` (the sum of
     its kernels' times), or None when the profiler records none."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.device_time_total for e in prof.key_averages()
-               if e.device_time_total > 0 and e.device_type.name == "CUDA")
-    return busy / 1e3 / iters if busy else None
+    return device_split(fn, iters)[0]
 
 
 def check_sample(out_c, out_a, n: int, cfg) -> float:
@@ -1267,6 +1298,402 @@ def autoregressive_phase(dev, card, kernels, record, yardstick, reset_counts, re
     torch.cuda.empty_cache()
     return launches
 
+def device_split(fn, iters: int = 5):
+    """``fn`` under ``torch.profiler``: (device busy ms per call, {kernel
+    name: device ms per call}), or (None, {}) when the profiler records no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {e.key: e.device_time_total / 1e3 / iters for e in prof.key_averages()
+           if e.device_time_total > 0 and e.device_type.name == "CUDA"}
+    busy = sum(per.values())
+    return (busy if busy else None), per
+
+
+def grads_twice_equal(layer_vjp, layer, x, seq_bias, mask, causal, rate, seed=99):
+    """K4 run twice on the same inputs: the output and the twelve gradients
+    equal to the bit (no atomics)."""
+    masters = layer.masters()
+    x = x.detach().requires_grad_()
+    bias = None if seq_bias is None else seq_bias.detach().requires_grad_()
+    leaves = [t for t in (x, bias, *masters) if t is not None]
+    g = torch.randn(x.shape, device=x.device).to(x.dtype)
+    call = (x, bias, *masters, mask, seed, layer.n_heads, causal, rate, layer.compute_dtype)
+    runs = []
+    for _ in range(2):
+        out = layer_vjp.fused_layer_train(*call)
+        runs.append((out, torch.autograd.grad(out, leaves, g)))
+    (o1, g1), (o2, g2) = runs
+    return torch.equal(o1, o2) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts, read_counts,
+                             library_layer) -> dict:
+    """Sketchformer's training at the recipe batch B=60 (encoder S=242,
+    causal decoder S=241, 512 relative classes) through K1, the long form of
+    K4, K5 and K6: each kernel against its plain version on the path's own
+    inputs (the long K4 also with float32 activations, at S=32 and S=242,
+    and bit-equal from run to run; K6 with the path's
+    group tables), the counted and timed ``train_step``, and the CLI's
+    ``train()`` with a resume. Returns the launches of one step."""
+    import torch.nn.functional as F
+
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import DropoutRng
+    from deepsvg_tpu_torch.models.layers import key_padding_to_additive
+    from deepsvg_tpu_torch.ops import ce as ce_ops
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import layer_vjp
+    from deepsvg_tpu_torch.svgtensor import masks as M
+    from deepsvg_tpu_torch.training import (
+        constant, create_train_state, make_optimizer, train_step)
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    model = sketchformer_model(dev)
+    cfg = model.cfg
+    d, f_ff, n_args = cfg.d_model, cfg.dim_feedforward, cfg.n_args
+    enc, dec = model.encoder, model.decoder
+    raw = generate_batch(np.random.default_rng(0), B_RECIPE, cfg.max_num_groups,
+                         cfg.max_seq_len)
+    batch = {k: torch.from_numpy(raw[k]).to(dev)
+             for k in ("commands_grouped", "args_grouped", "args_rel_grouped")}
+    model_args = cfg.get_model_args()
+    cmd_e, args_e = batch["commands_grouped"][:, 0], batch["args_grouped"][:, 0]  # [60, 242]
+    cmd_d, args_d = cmd_e[:, :-1], batch["args_rel_grouped"][:, 0, :-1]       # [60, 241]
+    out: dict = {"B": B_RECIPE, "S_encoder": cmd_e.shape[1], "S_decoder": cmd_d.shape[1]}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    l_e, l_d = enc.encoder.layers[0], dec.decoder.layers[0]
+    with torch.no_grad():
+        x_e1 = enc.embedding(cmd_e, args_e, M.group_mask(cmd_e))
+        kp_e1 = key_padding_to_additive(M.key_padding_mask(cmd_e))
+        x_d = dec.embedding(cmd_d, args_d, M.group_mask(cmd_d))
+        kp_d = key_padding_to_additive(M.key_padding_mask(cmd_d))
+        z, _, _ = model.encode(batch["commands_grouped"], batch["args_grouped"],
+                               rng=DropoutRng.fixed())
+        sb_d = l_d.injection(z).to(bf16)
+        # float32 activations at the flagship E1's S=32 (480 sequences, key
+        # padding, sequence 0 fully masked), and E1 at S=242 in float32
+        x32 = torch.randn(B_RECIPE * 8, 32, d, device=dev, generator=gen)
+        kp32 = torch.where(torch.rand(B_RECIPE * 8, 32, device=dev, generator=gen) < 0.2,
+                           float("-inf"), 0.0)
+        kp32[:, 0], kp32[0] = 0.0, float("-inf")
+
+    # ---- the long K4 against its plain version, the short form's limits
+    k4l = {}
+    for rate in (0.0, DROPOUT):
+        k4l[f"E1 S=242 key pad rate {rate}"] = check_layer_train(
+            layer_vjp, "long E1 S=242 key pad", l_e, x_e1, None, kp_e1, False, rate)
+        k4l[f"decoder S=241 causal seq_bias rate {rate}"] = check_layer_train(
+            layer_vjp, "long decoder S=241 causal, key pad, seq_bias", l_d, x_d, sb_d, kp_d,
+            True, rate)
+    k4l["float32 S=32 rate 0.1"] = check_layer_train(
+        layer_vjp, "long float32 S=32 key pad", l_e, x32, None, kp32, False, DROPOUT)
+    k4l["float32 S=242 rate 0.1"] = check_layer_train(
+        layer_vjp, "long float32 E1 S=242 key pad", l_e, x_e1.float(), None, kp_e1, False,
+        DROPOUT)
+    same_bits = {
+        "E1 S=242 bf16": grads_twice_equal(layer_vjp, l_e, x_e1, None, kp_e1, False, DROPOUT),
+        "decoder S=241 causal bf16": grads_twice_equal(layer_vjp, l_d, x_d, sb_d, kp_d, True,
+                                                       DROPOUT),
+        "float32 S=32": grads_twice_equal(layer_vjp, l_e, x32, None, kp32, False, DROPOUT)}
+    check_later(all(same_bits.values()),
+                f"the long K4's output or gradients differ from run to run: {same_bits}")
+    print(f"long K4 run twice, output and gradients equal to the bit: {same_bits}", flush=True)
+    all_grads = [r for v in k4l.values() for r in v["grads"].values()]
+    kernels["layer_train_long_fwd"] = {
+        "max_abs_err": max(v["forward_max_abs_err"] for v in k4l.values()),
+        "tolerance": {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL, "rms": TOL_LAYER_RMS,
+                      "float32": {"atol": TOL_F32_ATOL, "rtol": TOL_F32_RTOL}}}
+    kernels["layer_train_long_bwd"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in all_grads),
+        "max_rms": max(r["rms"] for r in all_grads),
+        "max_rms_same_gate": max(r["rms_same_gate"] for r in all_grads),
+        "bit_identical_runs": same_bits,
+        "tolerance": {"rms": {str(k): v for k, v in TOL_GRAD_RMS.items()},
+                      "rms_same_gate": {str(k): v for k, v in TOL_GRAD_RMS_SAME_GATE.items()},
+                      "worst_of_max": TOL_GRAD_WORST,
+                      "worst_of_max_same_gate": TOL_GRAD_WORST_SAME_GATE}}
+    out["layer_train_long_cases"] = k4l
+
+    # ---- K6 against its plain version on the path's inputs: the encoder's
+    # (S=242, 10-row group table, 257 classes) and the decoder's (S=241,
+    # 242-row group table, 512 relative classes)
+    def k6_inputs(emb, c, a):
+        cmd_table, arg_tables, pos_table = emb.tables()
+        group_table = emb.group_table()
+        return (c, a, M.group_mask(c), cmd_table.shape[0], arg_tables.shape[0] // n_args,
+                group_table.shape[0]), (cmd_table, arg_tables, group_table,
+                                        pos_table[:c.shape[1]])
+
+    k6 = {}
+    k6_cases = {"encoder S=242": (enc.embedding, cmd_e, args_e),
+                "decoder S=241": (dec.embedding, cmd_d, args_d)}
+    for what, (emb, c, a) in k6_cases.items():
+        (c, a, grp, n_cmd, vocab, n_group), tabs = k6_inputs(emb, c, a)
+        tables = [t.float().requires_grad_() for t in tabs]
+        dy = torch.randn(*c.shape, d, device=dev, generator=gen).to(bf16)
+        got = emb_ops.embedding_backward(c, a, grp, dy, n_cmd, vocab, n_group, True)
+        want = torch.autograd.grad(emb_ops.embedding_reference(c, a, grp, *tables, True),
+                                   tables, dy.float())
+        errs = {name: (g_ - w_).abs().max().item() / max(w_.abs().max().item(), 1e-30)
+                for name, g_, w_ in zip(("dcmd", "darg", "dgroup", "dpos"), got, want)}
+        err_abs = max((g_ - w_).abs().max().item() for g_, w_ in zip(got, want))
+        check_later(max(errs.values()) <= TOL_EMBED_BWD,
+                    f"K6 {what}: err {errs} of the largest entry > {TOL_EMBED_BWD}")
+        print(f"K6 embedding backward {what}, group table {n_group} rows, {vocab} classes: err "
+              f"of the largest entry {max(errs.values()):.3g} (limit {TOL_EMBED_BWD})",
+              flush=True)
+        k6[what] = {"err_of_max": errs, "max_abs_err": err_abs}
+    kernels["embedding_bwd_long"] = {"max_abs_err": max(v["max_abs_err"] for v in k6.values()),
+                                     "tolerance": TOL_EMBED_BWD, "cases": k6}
+
+    # ---- K5 at 512 classes: the decoder's relative-argument head, R = 60 x 241
+    fcn = dec.fcn
+    wa, ba = fcn.args_fcn.weight, fcn.args_fcn.bias
+    tgt = (batch["args_rel_grouped"][:, 0, 1:] + 1).to(torch.int32).reshape(-1, n_args)
+    r_ce = tgt.shape[0]
+    y_ce = torch.randn(r_ce, d, device=dev, generator=gen).to(bf16).requires_grad_()
+    g_ce = torch.rand(r_ce, n_args, device=dev, generator=gen) / r_ce
+    ce_k = ce_ops.args_ce(y_ce, wa, ba, tgt, bf16)
+    grads_k = torch.autograd.grad(ce_k, [y_ce, wa, ba], g_ce)
+    ce_p = ce_ops.plain_args_ce(y_ce, wa, ba, tgt, bf16)
+    grads_p = torch.autograd.grad(ce_p, [y_ce, wa, ba], g_ce)
+    ce_err = (ce_k - ce_p).abs().max().item()
+    ce_rms = {name: rel_rms(a_, w_) for name, a_, w_ in zip(("dy", "dWa", "dba"), grads_k,
+                                                          grads_p)}
+    check_later(tuple(ce_k.shape) == (r_ce, n_args) and ce_err <= TOL_CE
+                and max(ce_rms.values()) <= TOL_CE_GRAD_RMS,
+                f"K5 at {fcn.args_dim} classes: ce max abs err {ce_err} (limit {TOL_CE}), "
+                f"gradients' relative RMS {ce_rms} (limit {TOL_CE_GRAD_RMS})")
+    print(f"K5 args_ce at {fcn.args_dim} classes R={r_ce}: ce max abs err {ce_err:.3g} (limit "
+          f"{TOL_CE}); gradients' relative RMS err {ce_rms} (limit {TOL_CE_GRAD_RMS})",
+          flush=True)
+    kernels["args_ce_fwd_512"] = {"max_abs_err": ce_err, "tolerance": TOL_CE}
+    kernels["args_ce_bwd_512"] = {
+        "max_abs_err": max((a_.float() - w_.float()).abs().max().item()
+                           for a_, w_ in zip(grads_k, grads_p)),
+        "rms": ce_rms, "tolerance": TOL_CE_GRAD_RMS}
+    del ce_p, grads_p, grads_k, ce_k
+
+    # ---- the step at B=60, counted (no plain version may run), then timed
+    def new_state():
+        m = sketchformer_model(dev).train()
+        optimizer = make_optimizer(constant(LR))
+        return create_train_state(m, optimizer, init=False), optimizer
+
+    state, optimizer = new_state()
+    plain_fns = [(layer_vjp, "layer_train_reference"), (layer_vjp, "plain_layer_train"),
+                 (emb_ops, "embedding_reference"), (ce_ops, "args_ce_reference"),
+                 (ce_ops, "plain_args_ce")]
+    torch.cuda.synchronize()
+    calls, restore = count_plain_calls(plain_fns)
+    reset_counts()
+    try:
+        state, res = train_step(state, batch, SF_WEIGHTS, optimizer, model_args)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = read_counts()
+    expected = dict.fromkeys(launches, 0) | {
+        "embedding": 2, "layer_train_long_fwd": 8, "layer_train_long_bwd": 8,
+        "args_ce_fwd": 1, "args_ce_bwd": 1, "embedding_bwd": 2}
+    print(f"Sketchformer train_step B={B_RECIPE}: launches {launches}; plain versions called "
+          f"{calls}", flush=True)
+    check(launches == expected, f"Sketchformer step launches {launches}, expected {expected}")
+    check(not any(calls.values()), f"plain versions ran on the kernel path: {calls}")
+    losses = [res]
+    events = []
+    for i in range(TRAIN_STEPS - 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if i == 2:
+            torch.cuda.synchronize()
+            t_host = time.perf_counter()
+        start.record()
+        state, res = train_step(state, batch, SF_WEIGHTS, optimizer, model_args)
+        end.record()
+        events.append((start, end))
+        losses.append(res)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t_host) * 1e3 / (TRAIN_STEPS - 3)
+    loss_values = [float(r["loss"]) for r in losses]
+    check(all(np.isfinite(float(v)) for r in losses for v in r.values()),
+          f"a Sketchformer loss or gradient norm is not finite: {loss_values}")
+    check(loss_values[-1] < loss_values[0],
+          f"the Sketchformer loss did not fall over {TRAIN_STEPS} steps: {loss_values}")
+    step_ms = statistics.median(s_.elapsed_time(e_) for s_, e_ in events[2:])
+    busy, split = device_split(lambda: train_step(state, batch, SF_WEIGHTS, optimizer,
+                                                  model_args), iters=3)
+    groups = {"long K4 forward": ("qkv_kernel", "attn_ffn_kernel"),
+              "long K4 backward, row-local and attention": ("ffn_bwd_kernel", "attn_bwd_kernel",
+                                                            "qkv_bwd_kernel"),
+              "wgrad and reductions": ("wgrad_kernel", "reduce_partials"),
+              "K5": ("ce_",), "K1 + K6": ("embedding",)}
+    by_group = {name: sum(v for k, v in split.items() if any(p in k for p in pats))
+                for name, pats in groups.items()}
+    if busy:
+        by_group["other"] = busy - sum(by_group.values())
+    out["step"] = {
+        "losses": loss_values, "median_ms_per_step": step_ms,
+        "samples_per_s": B_RECIPE / step_ms * 1e3, "host_mean_ms_per_step": host_ms,
+        "device_busy_ms_per_step": busy,
+        "idle_share": None if busy is None else 1 - busy / host_ms,
+        "device_ms_by_group": by_group,
+        "top": sorted(split.items(), key=lambda kv: -kv[1])[:14], "launches": launches}
+    print(f"Sketchformer training B={B_RECIPE} dropout {DROPOUT} bf16: loss {loss_values[0]:.4f} "
+          f"-> {loss_values[-1]:.4f} over {TRAIN_STEPS} steps on one batch; {step_ms:.3f} ms/step "
+          f"median of {TRAIN_STEPS - 3} (host clock {host_ms:.3f} ms/step mean); device busy "
+          f"{busy} ms per step, idle share "
+          f"{'not measured' if busy is None else round(1 - busy / host_ms, 4)}; device ms by "
+          f"part {({k: round(v, 3) for k, v in by_group.items()})} on {card}", flush=True)
+    del state, optimizer
+    torch.cuda.empty_cache()
+
+    # ---- the training CLI on configs/sketchformer.py (the icons recipe:
+    # its data budget, max_total_len 50, makes the encoder S=52 and the
+    # decoder S=51, both in the long form)
+    out["cli"] = run_cli(dev, reset_counts, read_counts, expected, "sketchformer")
+
+    # ---- times at the path's shapes: the long K4 at E1 (B=60, S=242), with
+    # nn.TransformerEncoderLayer in training mode as the library call
+    def k4_runs(layer, x, sb, mask, causal, fn):
+        x = x.detach().requires_grad_()
+        gy = torch.randn(x.shape, device=dev, generator=gen).to(x.dtype)
+        call = (x, sb, *layer.masters(), mask, 7, layer.n_heads, causal, DROPOUT,
+                layer.compute_dtype)
+        leaves = [x, *layer.masters()]
+
+        def fwd():
+            with torch.no_grad():
+                return fn(*call)
+
+        def both():
+            return torch.autograd.grad(fn(*call), leaves, gy)
+        return fwd, both
+
+    stage_times = {}
+    for what, (layer, x, sb, mask, causal) in {
+            "E1 S=242": (l_e, x_e1, None, kp_e1, False),
+            "decoder S=241 causal": (l_d, x_d, sb_d, kp_d, True)}.items():
+        fwd, both = k4_runs(layer, x, sb, mask, causal, layer_vjp.fused_layer_train)
+        pfwd, pboth = k4_runs(layer, x, sb, mask, causal, layer_vjp.plain_layer_train)
+        f_ms, fb_ms = cuda_ms(fwd), cuda_ms(both)
+        pf_ms, pfb_ms = cuda_ms(pfwd, iters=3, warmup=1), cuda_ms(pboth, iters=3, warmup=1)
+        bf_ms, bf_by = k4_bound(x, sb, f_ff, False, causal)
+        bb_ms, bb_by = k4_bound(x, sb, f_ff, True, causal)
+        stage_times[what] = {"fwd_ms": f_ms, "bwd_ms": fb_ms - f_ms, "plain_fwd_ms": pf_ms,
+                             "plain_bwd_ms": pfb_ms - pf_ms, "fwd_bound_ms": bf_ms,
+                             "fwd_bound_by": bf_by, "bwd_bound_ms": bb_ms, "bwd_bound_by": bb_by}
+    lib_t = library_layer(l_e, bf16, train=True)
+    x_lib = x_e1.detach().requires_grad_()
+    g_lib = torch.randn(x_lib.shape, device=dev, generator=gen).to(bf16)
+    pad_t = M.key_padding_mask(cmd_e)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return lib_t(x_lib, src_key_padding_mask=pad_t)
+
+    def lib_both():
+        return torch.autograd.grad(lib_t(x_lib, src_key_padding_mask=pad_t),
+                                   [x_lib, *lib_t.parameters()], g_lib)
+    lib_f_ms, lib_fb_ms = cuda_ms(lib_fwd), cuda_ms(lib_both)
+    e1 = stage_times["E1 S=242"]
+    kernels["layer_train_long_fwd"].update(
+        ms=e1["fwd_ms"], plain_ms=e1["plain_fwd_ms"], library_ms=lib_f_ms,
+        bound_ms=e1["fwd_bound_ms"], bound_by=e1["fwd_bound_by"], stages=stage_times)
+    kernels["layer_train_long_bwd"].update(
+        ms=e1["bwd_ms"], plain_ms=e1["plain_bwd_ms"], library_ms=lib_fb_ms - lib_f_ms,
+        bound_ms=e1["bwd_bound_ms"], bound_by=e1["bwd_bound_by"])
+
+    # K5 at 512 classes; F.linear + F.cross_entropy as the library call
+    n_cls = n_args * fcn.args_dim
+    tgt_lib = tgt.long().reshape(-1)
+    wa16, ba16 = wa.detach().to(bf16).requires_grad_(), ba.detach().to(bf16).requires_grad_()
+
+    def ce_runs(fn):
+        def fwd():
+            with torch.no_grad():
+                return fn(y_ce, wa, ba, tgt, bf16)
+
+        def both():
+            return torch.autograd.grad(fn(y_ce, wa, ba, tgt, bf16), [y_ce, wa, ba], g_ce)
+        return fwd, both
+
+    def lib_ce(grad):
+        with torch.enable_grad() if grad else torch.no_grad():
+            logits = F.linear(y_ce, wa16, ba16).reshape(-1, fcn.args_dim)
+            ce = F.cross_entropy(logits, tgt_lib, reduction="none").reshape(r_ce, -1)
+            if grad:
+                return torch.autograd.grad(ce, [y_ce, wa16, ba16], g_ce.to(ce.dtype))
+            return ce
+    yardstick["args_ce_512"] = (lib_ce(False).float()
+                                - ce_ops.args_ce(y_ce, wa, ba, tgt, bf16)).abs().max().item()
+    (fwd, both), (pfwd, pboth) = ce_runs(ce_ops.args_ce), ce_runs(ce_ops.plain_args_ce)
+    f_ms, fb_ms = cuda_ms(fwd), cuda_ms(both)
+    pf_ms, pfb_ms = cuda_ms(pfwd, iters=5, warmup=1), cuda_ms(pboth, iters=5, warmup=1)
+    lf_ms, lfb_ms = cuda_ms(lambda: lib_ce(False)), cuda_ms(lambda: lib_ce(True))
+    ops_ce = 2.0 * r_ce * d * n_cls
+    head_bytes = n_cls * d * 2 + n_cls * 2
+    b_ms, b_by = bound(nbytes(y_ce, tgt) + head_bytes + r_ce * n_args * 4, ops_ce, PEAK_BF16)
+    kernels["args_ce_fwd_512"].update(ms=f_ms, plain_ms=pf_ms, library_ms=lf_ms, bound_ms=b_ms,
+                                      bound_by=b_by)
+    b_ms, b_by = bound(2 * nbytes(y_ce) + nbytes(tgt) + head_bytes + 2 * r_ce * n_args * 4
+                       + (n_cls * d + n_cls) * 4, 3 * ops_ce, PEAK_BF16)
+    kernels["args_ce_bwd_512"].update(ms=fb_ms - f_ms, plain_ms=pfb_ms - pf_ms,
+                                      library_ms=lfb_ms - lf_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # K6 at the encoder's S=242; one index_add_ of the expanded dy rows into
+    # one stacked table as the library call (the expansion is made
+    # beforehand and not timed)
+    (c, a, grp, n_cmd, vocab, n_group), tabs = k6_inputs(enc.embedding, cmd_e, args_e)
+    s_e = c.shape[1]
+    dy = torch.randn(*c.shape, d, device=dev, generator=gen).to(bf16)
+    tokens = c.numel()
+    idx = torch.cat([
+        c.long()[..., None],
+        n_cmd + vocab * torch.arange(n_args, device=dev) + a.long() + 1,
+        (n_cmd + vocab * n_args + grp.long().clamp(0, n_group - 1))[..., None],
+        (n_cmd + vocab * n_args + n_group + torch.arange(s_e, device=dev))
+        .expand(c.shape)[..., None]], dim=-1).reshape(-1)
+    src = dy.float().reshape(tokens, 1, d).expand(-1, 3 + n_args, -1).reshape(-1, d).contiguous()
+    stacked = torch.zeros(n_cmd + vocab * n_args + n_group + s_e, d, device=dev)
+    tables32 = [t.float().requires_grad_() for t in tabs]
+
+    def plain_k6():
+        return torch.autograd.grad(emb_ops.embedding_reference(c, a, grp, *tables32, True),
+                                   tables32, dy.float())
+    b_ms, b_by = bound(nbytes(c, grp, dy) + tokens * n_args * 4 + stacked.numel() * 4,
+                       tokens * d * (3.0 + n_args), PEAK_F32)
+    kernels["embedding_bwd_long"].update(
+        ms=cuda_ms(lambda: emb_ops.embedding_backward(c, a, grp, dy, n_cmd, vocab, n_group,
+                                                      True)),
+        plain_ms=cuda_ms(plain_k6, iters=5, warmup=1),
+        library_ms=cuda_ms(lambda: stacked.index_add_(0, idx, src)), bound_ms=b_ms,
+        bound_by=b_by)
+    del idx, src, stacked
+    out["phase_s"] = time.perf_counter() - t_phase
+    record["sketchformer_train"] = out
+    for what, st in stage_times.items():
+        print(f"  long K4 {what} B={B_RECIPE}: forward {st['fwd_ms']:.4f} ms (plain "
+              f"{st['plain_fwd_ms']:.4f}, bound {st['fwd_bound_ms']:.4f} by "
+              f"{st['fwd_bound_by']}), backward {st['bwd_ms']:.4f} ms (plain "
+              f"{st['plain_bwd_ms']:.4f}, bound {st['bwd_bound_ms']:.4f} by "
+              f"{st['bwd_bound_by']})")
+    print(f"  nn.TransformerEncoderLayer training mode at E1 S=242: forward {lib_f_ms:.4f} ms, "
+          f"backward {lib_fb_ms - lib_f_ms:.4f} ms")
+    for name in ("args_ce_fwd_512", "args_ce_bwd_512", "embedding_bwd_long"):
+        k = kernels[name]
+        print(f"  {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
+              f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by {k['bound_by']})")
+    print(f"Sketchformer training phase {out['phase_s']:.1f} s", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1309,6 +1736,8 @@ def main() -> int:
         head_ops.fused_head_argmax.launches = 0
         layer_vjp.fused_layer_train.launches = 0
         layer_vjp.fused_layer_train.backward_launches = 0
+        layer_vjp.fused_layer_train_long.launches = 0
+        layer_vjp.fused_layer_train_long.backward_launches = 0
         ce_ops.args_ce.launches = ce_ops.args_ce.backward_launches = 0
         stack_vjp.fused_stack_train.launches = 0
         stack_vjp.fused_stack_train.backward_launches = 0
@@ -1328,7 +1757,9 @@ def main() -> int:
                 "stack_bwd": stack_vjp.fused_stack_train.backward_launches,
                 "args_ce_pairwise": ce_ops.args_ce_pairwise.launches,
                 "layer_long": layer_ops.fused_layer_long.launches,
-                "decode": decode_ops.fused_decode_step.launches}
+                "decode": decode_ops.fused_decode_step.launches,
+                "layer_train_long_fwd": layer_vjp.fused_layer_train_long.launches,
+                "layer_train_long_bwd": layer_vjp.fused_layer_train_long.backward_launches}
 
     # ---- build
     t0 = time.perf_counter()
@@ -1924,24 +2355,6 @@ def main() -> int:
             return torch.autograd.grad(fn(*call), leaves, gy)
         return fwd, both
 
-    def k4_bound(x, sb, f, backward):
-        """The bound of the function, not of this implementation: x, the
-        mask, the injection and the weights as the kernel reads them in,
-        out (forward) or g in and dx, dseq_bias and the float32 weight
-        gradients out (backward). What the forward keeps for the backward
-        is a choice of the kernel and is reported apart."""
-        b, s, d = x.shape
-        rows, es = b * s, x.element_size()
-        peak = PEAK_TF32 if x.dtype == torch.float32 else PEAK_BF16
-        w_elems = 4 * d * d + 2 * d * f + 9 * d + f
-        common = rows * d * es + b * s * 4 + w_elems * es
-        sb_elems = 0 if sb is None else b * d
-        if not backward:
-            return bound(common + rows * d * es + sb_elems * es, layer_ops_count(b, s, d, f),
-                         peak)
-        ops = 2 * (layer_ops_count(b, s, d, f) - 4.0 * b * s * s * d) + 8.0 * b * s * s * d
-        return bound(common + 2 * rows * d * es + w_elems * 4 + sb_elems * 4, ops, peak)
-
     def k4_saved_bytes(x, f):
         b, s, d = x.shape
         rows, es = b * s, x.element_size()
@@ -2422,6 +2835,10 @@ def main() -> int:
     ar_launches = autoregressive_phase(dev, card, kernels, record, yardstick, reset_counts,
                                        read_counts, library_layer)
 
+    # ============================================ Sketchformer's training phase
+    sf_launches = sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts,
+                                           read_counts, library_layer)
+
     csrc = "deepsvg_tpu_torch/ops/csrc/"
     source = {
         "embedding": (csrc + "embedding.cu", "deepsvg_tpu/ops/embedding.py:34"),
@@ -2438,15 +2855,29 @@ def main() -> int:
         "args_ce_pairwise": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:54"),
         "layer_long": (csrc + "layer_long.cu", "deepsvg_tpu/ops/layer.py:108"),
         "decode": (csrc + "decode.cu", "deepsvg_tpu/ops/decode.py:43"),
+        "layer_train_long_fwd": (csrc + "layer_long_train.cu",
+                                 "deepsvg_tpu/ops/layer_vjp.py:179"),
+        "layer_train_long_bwd": (csrc + "layer_long_train.cu",
+                                 "deepsvg_tpu/ops/layer_vjp.py:281"),
+        "args_ce_fwd_512": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:30"),
+        "args_ce_bwd_512": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:81"),
+        "embedding_bwd_long": (csrc + "embedding_bwd.cu", "deepsvg_tpu/ops/embedding.py:133"),
     }
+    # the entries of a kernel at another path's shapes count that path's launches
+    counter = {"args_ce_fwd_512": "args_ce_fwd", "args_ce_bwd_512": "args_ce_bwd",
+               "embedding_bwd_long": "embedding_bwd"}
     line = []
     for name, k in kernels.items():
         src_file, replaces = source[name]
         # the count of the path that runs the kernel: inference, the step at
-        # B=128, (K7) the first CLI run at B=60, (K8) the self-match step, or
-        # (long K2, K9) Sketchformer's greedy_sample
-        count = (launches[name] or train_launches[name] or cli_launches[name]
-                 or sm_step_launches[name] or ar_launches[name])
+        # B=128, (K7) the first CLI run at B=60, (K8) the self-match step,
+        # (long K2, K9) Sketchformer's greedy_sample, or (long K4, and K5 and
+        # K6 at Sketchformer's shapes) Sketchformer's training step
+        if name in counter:
+            count = sf_launches[counter[name]]
+        else:
+            count = (launches[name] or train_launches[name] or cli_launches[name]
+                     or sm_step_launches[name] or ar_launches[name] or sf_launches[name])
         line.append({
             "name": name, "route": "cuda", "source": src_file, "replaces": replaces,
             "launches": count, "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -60,5 +60,5 @@ class Config(TrainConfig):
 
     def visualize(self, model, train_vars, step, epoch, summary_writer, visualization_dir):
         """The reconstruction grids need the SVG library's renderer, which the
-        port does not have yet (ROADMAP.md, queue 1, item 9): nothing is
-        drawn."""
+        port does not have yet (ROADMAP.md, queue 1, items 7 and 9): nothing
+        is drawn."""

@@ -1,7 +1,12 @@
 """The Sketchformer baseline, counterpart of ``configs_tpu/sketchformer.py``:
 a one-stage autoregressive transformer with relative targets, trained with
-the icons config's recipe. Greedy decoding runs through the KV-cached decode
-kernel K9 on the card (``models/sample.py:greedy_sample``)."""
+the icons config's recipe (B=60, lr 1e-3, the KL ramp; its data budget,
+``max_total_len`` 50, packs each icon into 52 positions). On the card the
+step runs its encoder and causal teacher-forced decoder through the long form
+of the training layer kernel K4 (33 <= S <= 256; 242 and 241 at the model's
+own ``max_total_len`` of 240), the embedding through K1 and K6, and the
+512-class argument loss through K5; greedy decoding runs through the
+KV-cached decode kernel K9 (``models/sample.py:greedy_sample``)."""
 from deepsvg_tpu_torch.models.config import gpu_fast, sketchformer
 
 from .default_icons import Config as IconsConfig

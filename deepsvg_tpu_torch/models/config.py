@@ -3,9 +3,9 @@
 
 The port runs the two-stage one-shot models: the flagship
 ``hierarchical_ordered``, the VAE ``hierarchical`` and
-``hierarchical_self_matching`` (inference and training), and the one-stage
-autoregressive ``sketchformer`` with relative targets (inference: teacher
-forcing and the greedy decode); the variants it does not run yet are still
+``hierarchical_self_matching``, and the one-stage autoregressive
+``sketchformer`` with relative targets (inference, teacher forcing, the
+greedy decode, and training); the variants it does not run yet are still
 expressible here so that a config read from the JAX side keeps its meaning,
 and the model raises ``NotImplementedError`` on them (see
 ``models/model.py``).

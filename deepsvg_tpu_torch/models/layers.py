@@ -7,7 +7,11 @@ learned positional table. Each layer runs as one fused kernel: at inference
 (``deterministic=True``) K2 (``ops/layer.py``), when training K4
 (``ops/layer_vjp.py``) with dropout inside the kernel and the dropout of the
 per-sequence injection outside it. On CPU tensors those are the plain
-versions.
+versions. A sequence goes to the kernels at its own length (the JAX package
+pads S to a multiple of 8 for the TPU; that is not part of the contract):
+K2 and K4 take their short form up to 32 rows (float32 K4: 16) and their
+long form up to 256, Sketchformer's encoder at S = 242 and its causal
+decoder at S = 241 included.
 
 When training, a stack of short sequences (the hierarchical E2 and D2, S = 8)
 runs all its layers as one fused kernel pair, K7 (``ops/stack_vjp.py``),

@@ -65,8 +65,7 @@ def check_supported(cfg: ModelConfig) -> None:
     for test, what in _UNSUPPORTED:
         if test(cfg):
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md, queue 1, item 8 "
-                "'Model variants')")
+                f"{what} is not ported yet (ROADMAP.md, queue 1, items 3-6)")
 
 
 def _masked_mean(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

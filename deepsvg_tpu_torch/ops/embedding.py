@@ -23,12 +23,15 @@ Backward: kernel K6 (``csrc/embedding_bwd.cu``) replaces the Pallas kernel
 ``fused_embedding_train``), which formed the table gradients as transposed
 one-hot matmuls because scatters are slow on the TPU. Here they are what they
 are, a scatter-add of the ``dy`` rows, bound by reading ``dy`` once (16.8 MB
-at B=128, 5 us). The rows that most tokens hit (the 7 command rows, the S
-position rows, each slot's PAD row) are summed per block in shared memory
-first, without atomics; the remaining argument rows and the group rows go to
-the tables with float32 ``atomicAdd``. So K6's sums change in their last
-bits from run to run (K4 and K5 have no atomics). Its plain version is
-autograd through :func:`embedding_reference`.
+at B=128, 5 us). The rows that most tokens hit (the 7 command rows and each
+slot's PAD row) are summed per block in shared memory first, without
+atomics; the remaining argument rows and the group rows go to the tables
+with float32 ``atomicAdd``. So those sums change in their last bits from run
+to run (K4 and K5 have no atomics). The position rows, one per position of
+the sequence, are summed in blocks of their own in the same launch, in a
+fixed order: they no longer sit in the shared table, which held S of them
+and did not fit at S >= 210 (Sketchformer's S = 242 and 241). Its plain
+version is autograd through :func:`embedding_reference`.
 """
 from __future__ import annotations
 
@@ -104,12 +107,14 @@ def fused_embedding(commands, args, groups, cmd_table, arg_tables, group_table,
     bf16 = torch.bfloat16
     if d % 2:
         raise ValueError(f"d_model must be even, got {d}")
-    _build.require(args, "args", dev, shape=(b, s, n_args))
     _build.require(cmd_table, "cmd_table", dev, bf16, (cmd_table.shape[0], d))
     _build.require(arg_tables, "arg_tables", dev, bf16, (n_args * vocab, d))
     _build.require(pos_table, "pos_table", dev, bf16, (s, d))
     cmd32 = commands.to(torch.int32).contiguous()
-    args32 = args.to(torch.int32).contiguous()          # one cast, as the TPU wrapper
+    # one cast, as the TPU wrapper; the ids may come as a view (the teacher-
+    # forced decoder's targets without their last position)
+    args32 = args.to(torch.int32).contiguous()
+    _build.require(args32, "args", dev, shape=(b, s, n_args))
     if use_group:
         _build.require(group_table, "group_table", dev, bf16, (group_table.shape[0], d))
         groups32 = groups.to(torch.int32).contiguous()
@@ -140,14 +145,16 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 
 
 def embedding_backward(commands, args, groups, dy, n_cmd: int, vocab: int, n_group: int,
                        use_group: bool):
-    """Kernel K6: ``dy [B, S, D]`` (bfloat16 or float32, CUDA) -> float32
-    ``dcmd [n_cmd, D]``, ``darg [n_args*vocab, D]``, ``dgroup [n_group, D]``,
-    ``dpos [S, D]``."""
+    """Kernel K6: ``dy [B, S, D]`` (bfloat16 or float32, CUDA; D a multiple
+    of 8, any S) -> float32 ``dcmd [n_cmd, D]``, ``darg [n_args*vocab, D]``,
+    ``dgroup [n_group, D]``, ``dpos [S, D]``."""
     dev = dy.device
     b, s, d = dy.shape
     n_args = args.shape[-1]
     if dy.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"dy has dtype {dy.dtype}, expected bfloat16 or float32")
+    if d % 8:
+        raise ValueError(f"the embedding backward kernel takes D a multiple of 8, got {d}")
     dy = dy.contiguous()
     cmd32 = commands.to(torch.int32).contiguous()
     args32 = args.to(torch.int32).contiguous()

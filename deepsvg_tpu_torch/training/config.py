@@ -179,6 +179,6 @@ def load_dataset(cfg: TrainConfig):
             raise
         raise ModuleNotFoundError(
             f"{REAL_DATA_MODULE} (the real icons and fonts datasets) is not ported yet "
-            "(ROADMAP.md, queue 1, item 7); train on the synthetic dataset with "
+            "(ROADMAP.md, queue 1, item 8); train on the synthetic dataset with "
             "--dataset-module deepsvg_tpu_torch.data.synthetic") from e
     return module.load_dataset(cfg)

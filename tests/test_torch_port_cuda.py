@@ -58,6 +58,32 @@ def test_embedding_kernel_matches_plain(cuda, use_group):
     assert (out.float() - ref.float()).abs().max().item() <= 1e-2
 
 
+def test_embedding_takes_the_teacher_forced_views(cuda):
+    """The autoregressive decoder embeds its targets without their last
+    position, ``commands[..., :-1]`` and ``args[..., :-1, :]``: views that
+    are not contiguous. K1 forward (and K6 behind it) take them as the
+    contiguous tensors they equal."""
+    rng = np.random.default_rng(9)
+    b, s, vocab = 6, 242, 512
+    commands = torch.from_numpy(rng.integers(0, N_CMD, (b, s)).astype(np.int32)).to(cuda)
+    args = torch.from_numpy(rng.integers(-1, vocab - 1, (b, s, N_ARGS)).astype(np.float32)).to(cuda)
+    groups = torch.from_numpy(rng.integers(0, s, (b, s - 1)).astype(np.int32)).to(cuda)
+    c_view, a_view = commands[:, :-1], args[:, :-1, :]
+    assert not a_view.is_contiguous()
+    tables = (_bf16(rng, cuda, N_CMD, D), _bf16(rng, cuda, N_ARGS * vocab, D),
+              _bf16(rng, cuda, s, D), _bf16(rng, cuda, s - 1, D))
+    got = emb_ops.fused_embedding(c_view, a_view, groups, *tables, True)
+    want = emb_ops.fused_embedding(c_view.contiguous(), a_view.contiguous(), groups, *tables,
+                                   True)
+    assert torch.equal(got, want)
+    dy = _bf16(rng, cuda, b, s - 1, D)
+    grads = emb_ops.embedding_backward(c_view, a_view, groups, dy, N_CMD, vocab, s, True)
+    ref = emb_ops.embedding_backward(c_view.contiguous(), a_view.contiguous(), groups, dy,
+                                     N_CMD, vocab, s, True)
+    for a, r in zip(grads, ref):
+        assert (a - r).abs().max().item() <= 1e-5 * r.abs().max().item() + 1e-6
+
+
 @pytest.mark.parametrize("s,seq_bias,causal", [
     (32, False, False), (8, False, False), (31, True, False), (8, True, False),
     (31, True, True),
@@ -174,27 +200,36 @@ def test_layer_train_kernel_matches_plain(cuda, dtype, s, b, causal, rate):
     version, which moves dln2, dw1 and db1 most where the rows are few. So
     each gradient is held twice: to the plain version as it is, and, more
     tightly, to the plain version made to pass the kernel's own FF units."""
-    rng = np.random.default_rng(s + b)
-    masters = [w.requires_grad_() for w in _layer_weights(rng, cuda, torch.float32)]
-    x = _bf16(rng, cuda, b, s, D).to(dtype).requires_grad_()
-    bias = _bf16(rng, cuda, b, D).to(dtype).requires_grad_()
-    mask = _key_mask(rng, cuda, b, s)
-    g = _bf16(rng, cuda, b, s, D).to(dtype)
+    _hold_layer_train(cuda, np.random.default_rng(s + b), dtype, s, b, causal, rate,
+                      layer_vjp.fused_layer_train, layer_vjp.fused_layer_train_long)
+
+
+def _hold_layer_train(dev, rng, dtype, s, b, causal, rate, counted, untouched):
+    """K4 on one case against the plain version, as it is and with the
+    kernel's ReLU units, and against itself run again (to the bit). The
+    form that must run is ``counted`` (its forward and backward counters go
+    up by one), the other ``untouched``."""
+    masters = [w.requires_grad_() for w in _layer_weights(rng, dev, torch.float32)]
+    x = _bf16(rng, dev, b, s, D).to(dtype).requires_grad_()
+    bias = _bf16(rng, dev, b, D).to(dtype).requires_grad_()
+    mask = _key_mask(rng, dev, b, s)
+    g = _bf16(rng, dev, b, s, D).to(dtype)
     seed = 1234
     leaves = [x, bias, *masters]
-    before = (layer_vjp.fused_layer_train.launches, layer_vjp.fused_layer_train.backward_launches)
+    counts = lambda fn: (fn.launches, fn.backward_launches)  # noqa: E731
+    before, other = counts(counted), counts(untouched)
     out = layer_vjp.fused_layer_train(x, bias, *masters, mask, seed, H, causal, rate, BF16)
     gate = layer_vjp.kernel_relu_gate(out)
     grads = torch.autograd.grad(out, leaves, g)
-    assert (layer_vjp.fused_layer_train.launches,
-            layer_vjp.fused_layer_train.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert counts(counted) == (before[0] + 1, before[1] + 1)
+    assert counts(untouched) == other
     call = (x, bias, *masters, mask, seed, H, causal, rate, BF16)
     ref = layer_vjp.plain_layer_train(*call)
     ref_grads = torch.autograd.grad(ref, leaves, g)
     gate_grads = torch.autograd.grad(layer_vjp.plain_layer_train(*call, relu_gate=gate),
                                      leaves, g)
     grad_lim, gate_lim = GRAD_RMS_LIMITS[dtype]
-    print(f"K4 {dtype} S={s} rate={rate}: fwd rel rms {_rel_rms(out, ref):.3g}")
+    print(f"K4 {dtype} S={s} causal={causal} rate={rate}: fwd rel rms {_rel_rms(out, ref):.3g}")
     assert torch.isfinite(out).all() and _rel_rms(out, ref) <= 1e-3
     for name, got, want, want_gate in zip(TRAIN_NAMES, grads, ref_grads, gate_grads):
         assert got.shape == want.shape and torch.isfinite(got).all(), name
@@ -206,6 +241,37 @@ def test_layer_train_kernel_matches_plain(cuda, dtype, s, b, causal, rate):
         layer_vjp.fused_layer_train(x, bias, *masters, mask, seed, H, causal, rate, BF16),
         leaves, g)
     assert all(torch.equal(a, c) for a, c in zip(grads, again))   # no atomics in K4
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("s", [33, 64, 241, 242])
+def test_long_layer_train_kernel_matches_plain(cuda, s, dtype, causal, rate):
+    """K4's long form (bfloat16 beyond S=32, float32 beyond S=16) against
+    the plain version with the short form's limits, and bit-identical from
+    run to run; the short form does not run."""
+    _hold_layer_train(cuda, np.random.default_rng(s + 2 * causal), dtype, s, 3, causal, rate,
+                      layer_vjp.fused_layer_train_long, layer_vjp.fused_layer_train)
+
+
+def test_float32_layer_train_takes_the_long_form_from_s17(cuda):
+    """A float32 model's E1 (S=32) and D1 (S=31) train on the card: float32
+    activations beyond the short form's 16 rows go to the long form."""
+    _hold_layer_train(cuda, np.random.default_rng(17), torch.float32, 17, 4, False, 0.1,
+                      layer_vjp.fused_layer_train_long, layer_vjp.fused_layer_train)
+    _hold_layer_train(cuda, np.random.default_rng(32), torch.float32, 32, 4, True, 0.1,
+                      layer_vjp.fused_layer_train_long, layer_vjp.fused_layer_train)
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+def test_long_layer_train_refuses_s257(cuda, dtype):
+    f = lambda *shape: torch.zeros(shape, device=cuda, dtype=dtype)  # noqa: E731
+    x = f(2, 257, D).requires_grad_()
+    with pytest.raises(ValueError, match="S <= 256"):
+        layer_vjp.fused_layer_train(x, None, f(2, D), f(3 * D, D), f(3 * D), f(D, D), f(D),
+                                    f(2, D), f(F_FF, D), f(F_FF), f(D, F_FF), f(D),
+                                    torch.zeros(2, 257, device=cuda), 0, H)
 
 
 def test_ce_kernel_matches_plain(cuda):
@@ -257,6 +323,62 @@ def test_embedding_backward_kernel_matches_plain(cuda, dtype, use_group):
         assert err <= (2.0 ** -7 if dtype == BF16 else 1e-5) * w.abs().max().item() + 1e-5
 
 
+def test_args_ce_512_classes(cuda):
+    """K5 forward and its three gradients at 512 classes a slot (the
+    relative-argument head of Sketchformer's decoder), against its plain
+    version, with the limits of the 257-class test."""
+    rng = np.random.default_rng(512)
+    r, vocab = 2000, 512
+    y = _bf16(rng, cuda, r, D).requires_grad_()
+    wa = _bf16(rng, cuda, N_ARGS * vocab, D, scale=D ** -0.5).float().requires_grad_()
+    ba = _bf16(rng, cuda, N_ARGS * vocab).float().requires_grad_()
+    tgt = torch.from_numpy(rng.integers(0, vocab, (r, N_ARGS)).astype(np.int32)).to(cuda)
+    tgt[3, 2], tgt[4, 0], tgt[5, 1] = vocab, -1, vocab - 1
+    g = torch.from_numpy(rng.random((r, N_ARGS)).astype(np.float32)).to(cuda) / r
+    before = (ce_ops.args_ce.launches, ce_ops.args_ce.backward_launches)
+    ce = ce_ops.args_ce(y, wa, ba, tgt, BF16)
+    grads = torch.autograd.grad(ce, [y, wa, ba], g)
+    assert (ce_ops.args_ce.launches, ce_ops.args_ce.backward_launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    ref = ce_ops.args_ce_reference(y, wa.to(BF16), ba.to(BF16), tgt, N_ARGS)
+    ref_grads = torch.autograd.grad(ref, [y, wa, ba], g)
+    print("K5 at 512 classes: ce max abs err", (ce - ref).abs().max().item())
+    assert ce.shape == (r, N_ARGS) and (ce - ref).abs().max().item() <= 1e-3
+    for name, got, want in zip(("dy", "dWa", "dba"), grads, ref_grads):
+        print(f"  {name}: rel rms {_rel_rms(got, want):.3g}")
+        assert got.shape == want.shape and _rel_rms(got, want) <= 1e-2, name
+
+
+@pytest.mark.parametrize("s", [32, 210, 242])
+def test_embedding_backward_long_s(cuda, s):
+    """K6 at the flagship's S=32 and beyond the 209 rows its shared table
+    once held (Sketchformer's S=242, with a group table of S rows and 512
+    relative classes); the position rows are summed in a fixed order, so
+    dpos is the same from run to run."""
+    rng = np.random.default_rng(s)
+    b, vocab, n_group = 12, 512, s
+    commands = torch.from_numpy(rng.integers(0, N_CMD, (b, s)).astype(np.int32)).to(cuda)
+    args = rng.integers(-1, vocab - 1, (b, s, N_ARGS)).astype(np.float32)
+    args[rng.random(args.shape) < 0.8] = -1            # mostly PAD
+    args = torch.from_numpy(args).to(cuda)
+    groups = torch.from_numpy(rng.integers(0, n_group, (b, s)).astype(np.int32)).to(cuda)
+    tables = [_bf16(rng, cuda, n, D).float().requires_grad_()
+              for n in (N_CMD, N_ARGS * vocab, n_group, s)]
+    dy = _bf16(rng, cuda, b, s, D)
+    before = emb_ops.embedding_backward.launches
+    got = emb_ops.embedding_backward(commands, args, groups, dy, N_CMD, vocab, n_group, True)
+    assert emb_ops.embedding_backward.launches == before + 1
+    ref = emb_ops.embedding_reference(commands, args, groups, tables[0], tables[1], tables[2],
+                                      tables[3], True)
+    want = torch.autograd.grad(ref, tables, dy.float())
+    for name, a, w in zip(("dcmd", "darg", "dgroup", "dpos"), got, want):
+        err = (a - w).abs().max().item()
+        print(f"K6 S={s} {name}: max abs err {err:.3g} of max {w.abs().max().item():.3g}")
+        assert err <= 1e-5 * w.abs().max().item() + 1e-5, name
+    again = emb_ops.embedding_backward(commands, args, groups, dy, N_CMD, vocab, n_group, True)
+    assert torch.equal(got[3], again[3])
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     f32 = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
     with pytest.raises(ValueError, match="dtype"):        # mixed activation and weight types
@@ -265,11 +387,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                               f32(D, F_FF), f32(D), f32(2, 8), H)
     with pytest.raises(ValueError, match="dtype"):
         head_ops.fused_head_argmax(f32(8, D), f32(16, D), f32(16), N_CMD, N_ARGS, VOCAB)
-    x32 = f32(2, 32, D).requires_grad_()
-    with pytest.raises(ValueError, match="S <= 16"):      # float32 training tiles are 16 rows
+    x32 = f32(2, 257, D).requires_grad_()
+    with pytest.raises(ValueError, match="S <= 256"):     # beyond the long form too
         layer_vjp.fused_layer_train(x32, None, f32(2, D), f32(3 * D, D), f32(3 * D), f32(D, D),
                                     f32(D), f32(2, D), f32(F_FF, D), f32(F_FF), f32(D, F_FF),
-                                    f32(D), f32(2, 32), 0, H)
+                                    f32(D), f32(2, 257), 0, H)
     with pytest.raises(ValueError, match="bfloat16"):
         ce_ops.args_ce(f32(8, D), f32(N_ARGS * VOCAB, D), f32(N_ARGS * VOCAB),
                        torch.zeros(8, N_ARGS, dtype=torch.int32, device=cuda))

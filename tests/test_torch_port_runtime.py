@@ -248,7 +248,7 @@ def test_recipe_config_gives_batch_60():
     assert not cfg.model_cfg.use_vae and cfg.model_args == ["commands", "args"] * 2
     assert cfg.get_weights(5000, 0)["loss_kl_weight"] == pytest.approx(5.0)
     assert hierarchical_ordered.Config().batch_size == 120
-    with pytest.raises(ModuleNotFoundError, match="item 7"):
+    with pytest.raises(ModuleNotFoundError, match="item 8"):
         load_dataset(cfg)
 
 
