@@ -4,7 +4,7 @@
 
 In order: print the card and its power limit; build the port's CUDA kernels
 from ``deepsvg_tpu_torch/ops/csrc``; load the trained flagship checkpoint;
-then five paths.
+then five paths in bfloat16, the float32 models and the attention ops.
 
 *Inference* (greedy one-shot encode+decode, N=1024): each kernel (K1
 embedding, K2 fused layer in its bfloat16 and float32 forms, K3 head+argmax)
@@ -79,6 +79,22 @@ the bit; the long K4, K5 and K6 timed at the path's shapes beside their
 bounds, their plain versions and a PyTorch call
 (``nn.TransformerEncoderLayer`` in training mode, ``F.linear`` +
 ``F.cross_entropy``, ``index_add_``).
+
+*The float32 models* (``compute_dtype`` "float32", the configs' default;
+:func:`float32_phase`): the flagship's ``one_shot_sample`` at N=1024 on the
+trained checkpoint and its ``train_step`` at B=60, the self-match step at
+B=60 and Sketchformer's ``greedy_sample`` at N=1024, each counted (the
+float32 forms of K1, K3, K5, K8 and K9 beside the float32 K2, K4 and K7, no
+plain version called) and against its plain path, gated by margin with a
+control that must fail; each float32 form against its plain version and
+timed beside its bound, plain version and library call.
+
+*The attention ops* (:func:`attention_phase`): K10 (``fused_mha``) and K11
+(``fused_mha_train``, dropout 0 and 0.1, forward and its five gradients) at
+the model's width with the trained E1 layer 0 weights, against their plain
+versions (K11 elementwise with dropout on, bit-equal from run to run) and
+timed beside ``F.linear`` -> ``F.scaled_dot_product_attention`` ->
+``F.linear``.
 
 The second-to-last line is ``{"kernels": [...]}``, the last ``{"ok": true,
 "device": {...}}``; the full record goes to ``chiprun_out/chip_smoke.json``.
@@ -261,6 +277,29 @@ TF_MARGIN = 5e-2
 # Sketchformer's training phase: the icons recipe's loss weights with the KL
 # term at its weight after 1,000 of the ramp's 10,000 steps
 SF_WEIGHTS = dict(LOSS_WEIGHTS, kl_tolerance=0.1, loss_kl_weight=1.0)
+# the float32 phase. K1's float32 form is an exact float32 sum in the plain
+# version's order: at most TOL_EMBED_F32 of the largest entry. K5 and K8 in
+# float32 (TF32 products against full float32): relative RMS of the loss and
+# of the three gradients, about four times the card test's readings (4.4e-5,
+# 2.8e-4; PERF.md). K3's float32 ids are held as its bfloat16 ids are, by the
+# plain top-2 margin TOL_HEAD_MARGIN; its control, the plain version on the
+# states cut to CONTROL_MANTISSA_BITS mantissa bits, must fail. The float32
+# step at B=60, dropout 0, kernel path against plain path: each loss term
+# within F32_STEP_LOSS (relative), the median leaf's gradient within
+# F32_STEP_MEDIAN_LEAF_RMS relative RMS and the worst leaf's within the
+# bfloat16 step's TOL_STEP_LEAF_RMS (a few FF units flip between TF32 and
+# float32, as in K4). Readings (PERF.md): 9.9e-5, 0.0031 and 0.078; the
+# control, the plain path with E1 layer 0's weights cut as the inference
+# control cuts them, read 2.5e-3, 0.055 and 0.19, and must fail the loss or
+# the median limit.
+TOL_EMBED_F32 = 1e-6
+CE_F32_RMS, CE_F32_GRAD_RMS = 2e-4, 1e-3
+CONTROL_MANTISSA_BITS = 4
+F32_STEP_LOSS = 1e-3
+F32_STEP_MEDIAN_LEAF_RMS = 1e-2
+# K11's gradients: relative RMS, about four times the card test's largest
+# reading (1.0e-3, bfloat16)
+MHA_GRAD_RMS = 4e-3
 
 
 def check(ok: bool, what: str) -> None:
@@ -1695,6 +1734,676 @@ def sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts
     return launches
 
 
+def cut_mantissa(t, keep_bits: int):
+    """float32 ``t`` with all but its top ``keep_bits`` mantissa bits cleared
+    (a control: the values at a lower precision)."""
+    return (t.float().contiguous().view(torch.int32) & ~((1 << (23 - keep_bits)) - 1)).view(
+        torch.float32)
+
+
+def step_against_plain(what, res_k, grads_k, res_p, grads_p) -> dict:
+    """One training step's loss terms and per-leaf gradients on the kernel
+    path against the plain path: relative loss differences, the
+    whole-gradient cosine and the worst leaf's relative RMS difference."""
+    losses = {k: abs(float(res_k[k]) - float(res_p[k])) / max(abs(float(res_p[k])), 1e-30)
+              for k in ("loss", "loss_visibility", "loss_cmd", "loss_args")}
+    leaf = {k: rel_rms(grads_k[k], grads_p[k]) for k in grads_p}
+    flat_k = torch.cat([grads_k[k].flatten() for k in grads_p]).double()
+    flat_p = torch.cat([grads_p[k].flatten() for k in grads_p]).double()
+    cosine = float(flat_k @ flat_p / flat_k.norm() / flat_p.norm())
+    worst = max(leaf, key=leaf.get)
+    check(all(np.isfinite(v) for v in leaf.values()), f"{what}: a gradient is not finite")
+    return {"loss_rel_diff": max(losses.values()), "losses": losses, "cosine": cosine,
+            "worst_leaf": worst, "worst_leaf_rms": leaf[worst],
+            "median_leaf_rms": statistics.median(leaf.values())}
+
+
+def float32_phase(dev, card, kernels, record, reset_counts, read_counts) -> dict:
+    """The float32 models (``compute_dtype`` "float32", the configs'
+    default) on the card, through the float32 forms of K1, K3, K5, K8 and
+    K9 beside the float32 K2, K4 and K7: the flagship's ``one_shot_sample``
+    at N=1024 and its ``train_step`` at B=60, the self-match step at B=60 and
+    Sketchformer's ``greedy_sample`` at N=1024. Each path once counted, with
+    no plain version called; each against its plain path at a cut size,
+    gated by margin, with a control that must fail the gate; each float32
+    kernel against its plain version at the path's shapes and timed. Returns
+    the launches of the counted runs, by kernel name."""
+    import torch.nn.functional as F
+
+    from deepsvg_tpu_torch.configs.sketchformer import make_model_config
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import (
+        DropoutRng, SVGTransformer, greedy_sample, hierarchical_ordered,
+        hierarchical_self_matching, load_model, matching, one_shot_sample)
+    from deepsvg_tpu_torch.models import sample as sample_mod
+    from deepsvg_tpu_torch.models.layers import key_padding_to_additive
+    from deepsvg_tpu_torch.ops import ce as ce_ops
+    from deepsvg_tpu_torch.ops import decode as decode_ops
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import head as head_ops
+    from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
+    from deepsvg_tpu_torch.svgtensor import masks as M
+    from deepsvg_tpu_torch.training import (
+        constant, create_train_state, make_optimizer, train_step)
+    from deepsvg_tpu_torch.training.trainer import init_parameters
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    out: dict = {}
+    launches: dict = {}
+    no_launch = dict.fromkeys(read_counts(), 0)
+    plain_fns = [(emb_ops, "embedding_reference"), (layer_ops, "layer_reference"),
+                 (head_ops, "head_argmax_reference"), (decode_ops, "decode_step_reference"),
+                 (layer_vjp, "layer_train_reference"), (stack_vjp, "layer_train_reference"),
+                 (ce_ops, "args_ce_reference")]
+
+    def counted(what, fn, expected):
+        """``fn()`` once, counted, with the plain versions spied: the float32
+        forms' launches must be ``expected`` and no plain version may run."""
+        torch.cuda.synchronize()
+        calls, restore = count_plain_calls(plain_fns)
+        reset_counts()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        got = read_counts()
+        print(f"float32 {what}: launches {got}; plain versions called {calls}", flush=True)
+        check(got == no_launch | expected, f"float32 {what}: launches {got}, expected {expected}")
+        check(not any(calls.values()), f"float32 {what}: plain versions ran: {calls}")
+        return res, got
+
+    def ids_gate(what, x, fcn):
+        """K3's float32 form on ``x``: ids equal to the plain version's
+        wherever the plain top-2 margin is at least TOL_HEAD_MARGIN; the
+        control, the plain version on ``x`` cut to CONTROL_MANTISSA_BITS
+        mantissa bits, must fail that gate."""
+        head_in = (x, fcn.w_packed, fcn.b_packed, fcn.n_commands, fcn.n_args, fcn.args_dim)
+        ids_k = head_ops.fused_head_argmax(*head_in).long()
+        ids_p = head_ops.head_argmax_reference(*head_in).long()
+        ids_c = head_ops.head_argmax_reference(cut_mantissa(x, CONTROL_MANTISSA_BITS),
+                                               *head_in[1:]).long()
+        wide = slot_margins(x, fcn) >= TOL_HEAD_MARGIN
+        bad, bad_c = int(((ids_k != ids_p) & wide).sum()), int(((ids_c != ids_p) & wide).sum())
+        # the largest logit gap between the two choices, over the rows that differ
+        rows = (ids_k != ids_p).any(dim=1)
+        offsets = torch.tensor([o for o, _ in head_slots(fcn)], device=x.device)
+        logits = x[rows].float() @ fcn.w_packed.float().t() + fcn.b_packed.float()
+        gap = (logits.gather(1, offsets + ids_p[rows]) - logits.gather(1, offsets + ids_k[rows]))
+        gap = gap.abs().max().item() if gap.numel() else 0.0
+        print(f"K3 float32 {what} R={x.shape[0]}: {int((ids_k != ids_p).sum())} of "
+              f"{ids_k.numel()} ids differ (largest logit gap {gap:.3g}), {bad} where the plain "
+              f"top-2 margin >= {TOL_HEAD_MARGIN} ({int(wide.sum())} such ids); control (x at "
+              f"{CONTROL_MANTISSA_BITS} mantissa bits) {bad_c}", flush=True)
+        check(bool(wide.any()), f"K3 float32 {what}: no id clears the margin")
+        check_later(bad == 0, f"K3 float32 {what}: {bad} ids differ above the margin")
+        check(bad_c > 0, f"K3 float32 {what}: the gate passed its control")
+        return {"ids_differing": int((ids_k != ids_p).sum()), "above_margin": bad,
+                "control_above_margin": bad_c, "max_abs_err": gap}, head_in
+
+    # ================= (1) the flagship, float32, one_shot_sample at N=1024
+    cfg = hierarchical_ordered()
+    check(cfg.compute_dtype == "float32", f"the flagship config computes in {cfg.compute_dtype}")
+    model = load_model(CHECKPOINT, cfg, device=dev)
+    fcn, emb = model.decoder.fcn, model.encoder.embedding
+    batch = generate_batch(np.random.default_rng(0), N_MAIN, cfg.max_num_groups, cfg.max_seq_len)
+    commands = torch.from_numpy(batch["commands"]).to(dev)
+    args = torch.from_numpy(batch["args"]).to(dev)
+    with torch.no_grad():
+        (c_out, a_out), launches["inference"] = counted(
+            f"one_shot_sample N={N_MAIN}", lambda: one_shot_sample(model, commands, args),
+            {"embedding_f32": 1, "layer_f32": 16, "head_f32": 1})
+        check_sample(c_out, a_out, N_MAIN, cfg)
+        # kernel path against plain path at N=64 by the ids' margin; control
+        c64, a64 = commands[:N_AGREE], args[:N_AGREE]
+        ids_k, _, _ = head_ids_and_margins(model, c64, a64)
+        with plain_path(emb_ops, layer_ops, head_ops):
+            ids_p, margins_p, _ = head_ids_and_margins(model, c64, a64)
+            with truncated_weights(model.encoder.encoder.layers[0], CONTROL_DROP_BITS):
+                ids_c, _, _ = head_ids_and_margins(model, c64, a64)
+        agree = id_agreement(ids_k, ids_p, margins_p, AGREE_MARGIN)
+        control = id_agreement(ids_c, ids_p, margins_p, AGREE_MARGIN)
+        print(f"float32 flagship, kernel vs plain path N={N_AGREE}: head ids {agree} where the "
+              f"plain margin >= {AGREE_MARGIN} (limit {AGREEMENT_MIN}); control (E1 layer 0 "
+              f"weights at bfloat16 less {CONTROL_DROP_BITS} bits) {control}", flush=True)
+        check_later(min(agree.values()) >= AGREEMENT_MIN, f"float32 id agreement {agree}")
+        check(min(control.values()) < AGREEMENT_MIN, f"float32 gate passed its control {control}")
+        out["inference_gate"] = {"agreement": agree, "control": control}
+
+        # K1 and K3 in float32 at the path's shapes
+        n, g, s_enc = commands.shape
+        cmd_f, args_f = commands.reshape(n * g, s_enc), args.reshape(n * g, s_enc, -1)
+        cmd_table, arg_tables, pos_table = emb.tables()
+        check(cmd_table.dtype == f32, "the float32 model's tables are not float32")
+        emb_in = (cmd_f, args_f, None, cmd_table, arg_tables, None, pos_table[:s_enc])
+        x_e1 = emb_ops.fused_embedding(*emb_in)
+        ref = emb_ops.embedding_reference(*emb_in)
+        k1_err = (x_e1 - ref).abs().max().item()
+        check(x_e1.dtype == f32, "K1 float32: the output is not float32")
+        check_later(k1_err <= TOL_EMBED_F32 * ref.abs().max().item(),
+                    f"K1 float32: max abs err {k1_err} above {TOL_EMBED_F32} of the largest entry")
+        n_cmd, vocab = cmd_table.shape[0], arg_tables.shape[0] // emb.n_args
+        table_all = torch.cat([cmd_table, arg_tables, pos_table[:s_enc]])
+        idx = torch.cat([
+            cmd_f.long()[..., None],
+            n_cmd + vocab * torch.arange(emb.n_args, device=dev) + args_f.long() + 1,
+            (n_cmd + vocab * emb.n_args + torch.arange(s_enc, device=dev))
+            .expand(cmd_f.shape)[..., None]], dim=-1).reshape(-1, 2 + emb.n_args)
+        rows = cmd_f.numel()
+        b_ms, b_by = bound(nbytes(cmd_f, args_f, cmd_table, arg_tables, pos_table[:s_enc], x_e1),
+                           rows * x_e1.shape[-1] * (1.0 + emb.n_args), PEAK_F32)
+        kernels["embedding_f32"] = {
+            "max_abs_err": k1_err, "tolerance": f"{TOL_EMBED_F32} of max |out|",
+            "ms": cuda_ms(lambda: emb_ops.fused_embedding(*emb_in)),
+            "plain_ms": cuda_ms(lambda: emb_ops.embedding_reference(*emb_in)),
+            "library_ms": cuda_ms(lambda: F.embedding_bag(idx, table_all, mode="sum")),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del idx, table_all, ref
+        seen = {}
+        hook = fcn.register_forward_hook(lambda m, i, o: seen.__setitem__("x", i[0]))
+        try:
+            model(commands, args, argmax_head=True)
+        finally:
+            hook.remove()
+        x_head = seen.pop("x").reshape(-1, cfg.d_model).contiguous()
+        k3, head_in = ids_gate(f"at D1's output N={N_MAIN}", x_head, fcn)
+        r, d = x_head.shape
+        n_cls = fcn.n_commands + fcn.n_args * fcn.args_dim
+        b_ms, b_by = bound(nbytes(x_head) + n_cls * d * 4 + n_cls * 4 + r * (1 + fcn.n_args) * 4,
+                           2.0 * r * d * n_cls, PEAK_TF32)
+        kernels["head_f32"] = dict(
+            k3, tolerance=TOL_HEAD_MARGIN,
+            ms=cuda_ms(lambda: head_ops.fused_head_argmax(*head_in)),
+            plain_ms=cuda_ms(lambda: head_ops.head_argmax_reference(*head_in), iters=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        del x_head, head_in, seen
+        inf_ms = cuda_median_ms(lambda: one_shot_sample(model, commands, args), iters=5,
+                                warmup=1)
+    out["inference"] = {"N": N_MAIN, "median_ms": inf_ms, "samples_per_s": N_MAIN / inf_ms * 1e3}
+    print(f"float32 flagship one_shot_sample N={N_MAIN}: {inf_ms:.3f} ms median of 5, "
+          f"{N_MAIN / inf_ms * 1e3:.1f} samples/s on {card}", flush=True)
+
+    # ================= (2) the flagship's training step in float32, B=60
+    tb = generate_batch(np.random.default_rng(0), B_RECIPE, cfg.max_num_groups, cfg.max_seq_len)
+    batch60 = {k: torch.from_numpy(tb[k]).to(dev) for k in ("commands", "args")}
+
+    def step_state(make_model, dropout):
+        optimizer = make_optimizer(constant(LR))
+        return create_train_state(make_model(dropout), optimizer, init=False), optimizer
+
+    def grads_of(make_model, weights, control=None):
+        """One step at dropout 0: its loss terms and each leaf's gradient."""
+        state, optimizer = step_state(make_model, 0.0)
+        with control(state.model) if control else contextlib.nullcontext():
+            state, res = train_step(state, batch60, weights, optimizer, MODEL_ARGS)
+        names = [k for k, _ in state.model.named_parameters()]
+        return res, dict(zip(names, [p.grad.detach().clone() for p in state.parameters()]))
+
+    def flagship(dropout):
+        return load_model(CHECKPOINT, dataclasses.replace(cfg, dropout=dropout), device=dev)
+
+    def cut_e1(m):
+        return truncated_weights(m.encoder.encoder.layers[0], CONTROL_DROP_BITS)
+
+    step_launches = {"embedding_f32": 1, "layer_train_long_fwd": 8, "layer_train_long_bwd": 8,
+                     "stack_fwd": 2, "stack_bwd": 2, "args_ce_fwd_f32": 1, "args_ce_bwd_f32": 1,
+                     "embedding_bwd": 1}
+    state, optimizer = step_state(flagship, DROPOUT)
+    _, launches["train_step"] = counted(
+        f"train_step B={B_RECIPE}",
+        lambda: train_step(state, batch60, LOSS_WEIGHTS, optimizer, MODEL_ARGS), step_launches)
+    step_ms = cuda_median_ms(lambda: train_step(state, batch60, LOSS_WEIGHTS, optimizer,
+                                                MODEL_ARGS), iters=10, warmup=2)
+    del state, optimizer
+    res_k, grads_k = grads_of(flagship, LOSS_WEIGHTS)
+    with plain_path(emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp):
+        res_p, grads_p = grads_of(flagship, LOSS_WEIGHTS)
+        res_c, grads_c = grads_of(flagship, LOSS_WEIGHTS, cut_e1)
+    gate = step_against_plain("float32 step", res_k, grads_k, res_p, grads_p)
+    ctrl = step_against_plain("float32 step control", res_c, grads_c, res_p, grads_p)
+    del grads_k, grads_p, grads_c
+    print(f"float32 flagship step B={B_RECIPE} dropout 0, kernel vs plain path: {gate}; "
+          f"control (plain path, E1 layer 0 weights at bfloat16 less {CONTROL_DROP_BITS} "
+          f"bits): {ctrl}", flush=True)
+    check_later(gate["loss_rel_diff"] <= F32_STEP_LOSS
+                and gate["median_leaf_rms"] <= F32_STEP_MEDIAN_LEAF_RMS
+                and gate["worst_leaf_rms"] <= TOL_STEP_LEAF_RMS,
+                f"float32 step: loss rel diff {gate['loss_rel_diff']} (limit {F32_STEP_LOSS}), "
+                f"median leaf {gate['median_leaf_rms']} (limit {F32_STEP_MEDIAN_LEAF_RMS}), "
+                f"worst leaf {gate['worst_leaf_rms']} (limit {TOL_STEP_LEAF_RMS})")
+    check(ctrl["loss_rel_diff"] > F32_STEP_LOSS
+          or ctrl["median_leaf_rms"] > F32_STEP_MEDIAN_LEAF_RMS,
+          f"the float32 step gate passed its control {ctrl}")
+    out["train_step"] = {"B": B_RECIPE, "median_ms": step_ms,
+                         "samples_per_s": B_RECIPE / step_ms * 1e3, "gate": gate,
+                         "control": ctrl}
+    print(f"float32 flagship train_step B={B_RECIPE} dropout {DROPOUT}: {step_ms:.3f} ms/step "
+          f"median of 10, {B_RECIPE / step_ms * 1e3:.1f} samples/s on {card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # K5's float32 form at the step's shapes (R = 60 x 8 x 31), F.linear +
+    # F.cross_entropy in float32 as the library call
+    r_ce = B_RECIPE * cfg.max_num_groups * (cfg.max_seq_len + 1)
+    randn = lambda *shape: torch.randn(*shape, device=dev)  # noqa: E731
+    k5_cases = {}
+    for vocab_ce in (fcn.args_dim, 512):
+        n_cls = fcn.n_args * vocab_ce
+        y_ce = randn(r_ce, cfg.d_model).requires_grad_()
+        wa = (randn(n_cls, cfg.d_model) * cfg.d_model ** -0.5).requires_grad_()
+        ba = randn(n_cls).requires_grad_()
+        tgt = torch.randint(0, vocab_ce, (r_ce, fcn.n_args), device=dev, dtype=torch.int32)
+        g_ce = torch.rand(r_ce, fcn.n_args, device=dev) / r_ce
+        ce_k = ce_ops.args_ce(y_ce, wa, ba, tgt, f32)
+        grads = torch.autograd.grad(ce_k, [y_ce, wa, ba], g_ce)
+        ce_p = ce_ops.args_ce_reference(y_ce, wa, ba, tgt, fcn.n_args)
+        grads_p = torch.autograd.grad(ce_p, [y_ce, wa, ba], g_ce)
+        rms = {"ce": rel_rms(ce_k, ce_p), **{k: rel_rms(a, b) for k, a, b in
+                                             zip(("dy", "dWa", "dba"), grads, grads_p)}}
+        check_later(rms["ce"] <= CE_F32_RMS and max(rms["dy"], rms["dWa"], rms["dba"])
+                    <= CE_F32_GRAD_RMS, f"K5 float32 at {vocab_ce} classes: {rms}")
+        tgt_l = tgt.long().reshape(-1)
+
+        def lib(grad):
+            with torch.enable_grad() if grad else torch.no_grad():
+                lce = F.cross_entropy(F.linear(y_ce, wa, ba).reshape(-1, vocab_ce), tgt_l,
+                                      reduction="none").reshape(r_ce, -1)
+                return torch.autograd.grad(lce, [y_ce, wa, ba], g_ce) if grad else lce
+
+        def runs(fn):
+            def fwd():
+                with torch.no_grad():
+                    return fn(y_ce, wa, ba, tgt, f32)
+            return fwd, lambda: torch.autograd.grad(fn(y_ce, wa, ba, tgt, f32), [y_ce, wa, ba],
+                                                    g_ce)
+        (fwd, both), (pfwd, pboth) = runs(ce_ops.args_ce), runs(ce_ops.plain_args_ce)
+        f_ms, fb_ms = cuda_ms(fwd), cuda_ms(both)
+        pf_ms, pfb_ms = cuda_ms(pfwd, iters=5, warmup=1), cuda_ms(pboth, iters=5, warmup=1)
+        lf_ms, lfb_ms = cuda_ms(lambda: lib(False)), cuda_ms(lambda: lib(True))
+        ops_ce = 2.0 * r_ce * cfg.d_model * n_cls
+        head_bytes = (n_cls * cfg.d_model + n_cls) * 4
+        fb = bound(nbytes(y_ce, tgt) + head_bytes + r_ce * fcn.n_args * 4, ops_ce, PEAK_TF32)
+        bb = bound(2 * nbytes(y_ce) + nbytes(tgt) + 2 * head_bytes + 2 * r_ce * fcn.n_args * 4,
+                   3 * ops_ce, PEAK_TF32)
+        k5_cases[vocab_ce] = {
+            "R": r_ce, "rms": rms,
+            "fwd": {"ms": f_ms, "plain_ms": pf_ms, "library_ms": lf_ms, "bound_ms": fb[0],
+                    "bound_by": fb[1]},
+            "bwd": {"ms": fb_ms - f_ms, "plain_ms": pfb_ms - pf_ms, "library_ms": lfb_ms - lf_ms,
+                    "bound_ms": bb[0], "bound_by": bb[1]}}
+        print(f"K5 float32 at {vocab_ce} classes R={r_ce}: relative RMS {rms} (limits "
+              f"{CE_F32_RMS}, {CE_F32_GRAD_RMS}); forward {k5_cases[vocab_ce]['fwd']}, "
+              f"backward {k5_cases[vocab_ce]['bwd']}", flush=True)
+        del y_ce, wa, ba, grads, grads_p
+    k257 = k5_cases[fcn.args_dim]
+    for name, part in (("args_ce_fwd_f32", "fwd"), ("args_ce_bwd_f32", "bwd")):
+        kernels[name] = dict(k257[part], max_abs_err=k257["rms"]["ce" if part == "fwd" else "dy"],
+                             tolerance={"rms": CE_F32_RMS, "grad_rms": CE_F32_GRAD_RMS},
+                             at_512_classes=k5_cases[512][part])
+    out["k5_f32"] = k5_cases
+
+    # ================= (3) the self-match step in float32, B=60
+    sm_cfg = hierarchical_self_matching()
+    sm_model = self_match_model(dataclasses.replace(sm_cfg, dropout=0.0), dev)
+    c60, a60 = batch60["commands"], batch60["args"]
+    fwd_k = matched_forward(sm_model, c60, a60)
+    with plain_path(emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp):
+        fwd_p = matched_forward(sm_model, c60, a60)
+        fwd_c = matched_forward(sm_model, c60, a60, perturb_states=MATCH_CONTROL_NOISE)
+    margin = matching.assignment_margin(fwd_p["cost"], fwd_p["vis"])
+    gated = margin >= MATCH_MARGIN
+
+    def agreement(other):
+        same = (other["assignment"] == fwd_p["assignment"]).all(dim=-1)
+        return same[gated].float().mean().item()
+    sm_agree, sm_control = agreement(fwd_k), agreement(fwd_c)
+    print(f"float32 self-match assignment B={B_RECIPE}, kernel vs plain path: equal on "
+          f"{sm_agree:.4f} of the {int(gated.sum())} samples whose margin >= {MATCH_MARGIN}; "
+          f"control (states + {MATCH_CONTROL_NOISE} RMS noise) {sm_control:.4f}", flush=True)
+    check(int(gated.sum()) >= B_RECIPE // 2, f"only {int(gated.sum())} samples clear the margin")
+    check_later(sm_agree == 1.0, f"float32 self-match assignments differ: {sm_agree}")
+    check(sm_control < 1.0, f"the float32 matching gate passed its control ({sm_control})")
+    out["selfmatch_gate"] = {"agreement": sm_agree, "control": sm_control,
+                             "gated": int(gated.sum())}
+    y8, wa8, ba8, t8, g8, _ = fwd_k["k8_inputs"]
+    with torch.no_grad():
+        check(y8.dtype == f32, "K8's states are not float32")
+        ce8_k = ce_ops.args_ce_pairwise(y8, wa8, ba8, t8, g8, f32)
+        ce8_p = ce_ops.plain_args_ce_pairwise(y8, wa8, ba8, t8, g8, f32)
+        r8, k8w = ce8_k.numel() // ce8_k.shape[-1], ce8_k.shape[-1]
+        n_args8 = k8w // g8
+        yf8, tf8, cf8 = y8.reshape(r8, -1), t8.reshape(r8, k8w), ce8_k.reshape(r8, k8w)
+        k5_equal = all(torch.equal(cf8[:, i * n_args8:(i + 1) * n_args8], ce_ops.args_ce(
+            yf8, wa8, ba8, tf8[:, i * n_args8:(i + 1) * n_args8].contiguous(), f32))
+            for i in range(g8))
+    k8_rms = rel_rms(ce8_k, ce8_p)
+    check_later(k8_rms <= CE_F32_RMS and k5_equal,
+                f"K8 float32: relative RMS {k8_rms}, columns equal to K5's forward {k5_equal}")
+    t8l = tf8.reshape(r8, g8, n_args8).long()
+
+    def lib_pair():
+        with torch.no_grad():
+            lp = F.log_softmax(F.linear(yf8, wa8, ba8).reshape(r8, 1, n_args8, -1), dim=-1)
+            return -lp.expand(r8, g8, n_args8, lp.shape[-1]).gather(-1, t8l[..., None])[..., 0]
+    n_cls8 = wa8.shape[0]
+    b_ms, b_by = bound(nbytes(y8, t8) + (n_cls8 * yf8.shape[1] + n_cls8) * 4 + r8 * k8w * 4,
+                       2.0 * r8 * yf8.shape[1] * n_cls8, PEAK_TF32)
+    kernels["args_ce_pairwise_f32"] = {
+        "max_abs_err": (ce8_k - ce8_p).abs().max().item(), "rms": k8_rms,
+        "tolerance": CE_F32_RMS, "equals_k5_per_variant": k5_equal,
+        "ms": cuda_ms(lambda: ce_ops.args_ce_pairwise(y8, wa8, ba8, t8, g8, f32)),
+        "plain_ms": cuda_ms(lambda: ce_ops.plain_args_ce_pairwise(y8, wa8, ba8, t8, g8, f32),
+                            iters=5, warmup=1),
+        "library_ms": cuda_ms(lib_pair), "bound_ms": b_ms, "bound_by": b_by}
+    print(f"K8 float32 R={r8} G={g8}: relative RMS {k8_rms:.3g} (limit {CE_F32_RMS}); each "
+          f"variant's columns equal to K5's float32 forward: {k5_equal}", flush=True)
+    del fwd_k, fwd_p, fwd_c, sm_model
+    state, optimizer = step_state(
+        lambda dropout: self_match_model(dataclasses.replace(sm_cfg, dropout=dropout), dev),
+        DROPOUT)
+    _, launches["selfmatch_step"] = counted(
+        f"self-match train_step B={B_RECIPE}",
+        lambda: train_step(state, batch60, SM_WEIGHTS, optimizer, MODEL_ARGS),
+        step_launches | {"args_ce_pairwise_f32": 1})
+    sm_ms = cuda_median_ms(lambda: train_step(state, batch60, SM_WEIGHTS, optimizer, MODEL_ARGS),
+                           iters=5, warmup=1)
+    out["selfmatch_step"] = {"B": B_RECIPE, "median_ms": sm_ms}
+    print(f"float32 self-match train_step B={B_RECIPE}: {sm_ms:.3f} ms/step median of 5",
+          flush=True)
+    del state, optimizer
+    torch.cuda.empty_cache()
+
+    # ================= (4) Sketchformer, float32, greedy_sample at N=1024
+    sf_cfg = dataclasses.replace(make_model_config(), compute_dtype="float32")
+    sf = SVGTransformer(sf_cfg)
+    init_parameters(sf, torch.Generator().manual_seed(AR_SEED))
+    sf = sf.to(dev).eval()
+    sf_fcn = sf.decoder.fcn
+    sb = generate_batch(np.random.default_rng(0), N_MAIN, sf_cfg.max_num_groups,
+                        sf_cfg.max_seq_len)
+    sc = torch.from_numpy(sb["commands_grouped"]).to(dev)
+    sa = torch.from_numpy(sb["args_grouped"]).to(dev)
+    steps = sf_cfg.max_total_len
+    with torch.no_grad():
+        (c_g, a_g), launches["greedy_sample"] = counted(
+            f"Sketchformer greedy_sample N={N_MAIN}", lambda: greedy_sample(sf, sc, sa),
+            {"embedding_f32": 1, "layer_long_f32": 4, "decode_f32": steps, "head_f32": steps})
+        check(tuple(c_g.shape) == (N_MAIN, 1, steps) and bool(torch.isfinite(a_g).all()),
+              "float32 greedy_sample output")
+        z, _, _ = sf.encode(sc, sa, rng=DropoutRng.fixed())
+        captured = {}
+        states_all = traced_decode(sf, z, sample_mod, captured)[3]
+        last = list(captured.pop("last"))
+        last[-2] = steps
+        captured[steps] = last
+        k9 = {}
+        for index in AR_INDICES:
+            ops = captured[index]
+            got, want = decode_ops.fused_decode_step(*ops), decode_ops.decode_step_reference(*ops)
+            k9[index] = {name: compare_elementwise(f"K9 float32 index {index} {name}", a_, b_,
+                                                   TOL_DECODE_RMS, TOL_F32_ATOL, TOL_F32_RTOL)
+                         for name, a_, b_ in zip(("y", "k_new", "v_new"), got, want)}
+        zg = z[:N_AR_GATE]
+        out_k, raw_ck, _, states_k = traced_decode(sf, zg, sample_mod)
+        with plain_path(emb_ops, layer_ops, head_ops, decode_ops=decode_ops):
+            out_p, raw_cp, _, states_p = traced_decode(sf, zg, sample_mod)
+            with contextlib.ExitStack() as cut:
+                for layer in sf.decoder.decoder.layers:
+                    cut.enter_context(truncated_weights(layer, AR_CONTROL_DROP_BITS))
+                out_c = traced_decode(sf, zg, sample_mod)[0]
+        margin_p = position_margin(slot_margins(states_p, sf_fcn), raw_cp.t()).t()
+        ar_agree, compared = prefix_gate(out_k, out_p, margin_p, AR_MARGIN)
+        ar_control, _ = prefix_gate(out_c, out_p, margin_p, AR_MARGIN)
+        print(f"float32 Sketchformer, kernel vs plain path N={N_AR_GATE}: sequences equal "
+              f"before their first position with plain margin < {AR_MARGIN}: {ar_agree:.4f} "
+              f"({compared} positions compared); control (decoder layers at bfloat16 less "
+              f"{AR_CONTROL_DROP_BITS} bits) {ar_control:.4f}", flush=True)
+        check_later(ar_agree == 1.0, f"float32 decode differs before the margin gate {ar_agree}")
+        check(ar_control < 1.0, f"the float32 decode gate passed its control ({ar_control})")
+        check(compared >= N_AR_GATE, f"only {compared} positions cleared the margin")
+        k3_ar, _ = ids_gate(f"at the decode's states (index {AR_INDICES[1]})",
+                            states_all[AR_INDICES[1]].contiguous(), sf_fcn)
+        kernels["head_f32"]["decode_case"] = k3_ar
+        out["decode_gate"] = {"agreement": ar_agree, "control": ar_control,
+                              "positions_compared": compared}
+        del states_k, states_p, states_all
+        mid = captured[AR_INDICES[1]]
+        d, f_ff, n_l = sf_cfg.d_model, sf_cfg.dim_feedforward, sf_cfg.n_layers_decode
+        index = AR_INDICES[1]
+        w_elems = n_l * (4 * d * d + 2 * d * f_ff + 3 * d + d + f_ff + d + 4 * d) + 2 * d
+        n_bytes = (2 * n_l * N_MAIN * index * d * 4 + w_elems * 4 + N_MAIN * (index + 1) * 4
+                   + N_MAIN * d * 4 * 2 + n_l * N_MAIN * d * 4 * 3)
+        t_ops = (2.0 * N_MAIN * n_l * (4 * d * d + 2 * d * f_ff) / PEAK_TF32
+                 + 4.0 * N_MAIN * n_l * (index + 1) * d / PEAK_F32) * 1e3
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        kernels["decode_f32"] = {
+            "max_abs_err": max(r["max_abs_err"] for v in k9.values() for r in v.values()),
+            "tolerance": {"atol": TOL_F32_ATOL, "rtol": TOL_F32_RTOL, "rms": TOL_DECODE_RMS},
+            "cases": k9, "ms": cuda_ms(lambda: decode_ops.fused_decode_step(*mid)),
+            "plain_ms": cuda_ms(lambda: decode_ops.decode_step_reference(*mid), iters=3,
+                                warmup=1),
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        gs_ms = cuda_median_ms(lambda: greedy_sample(sf, sc, sa), iters=3, warmup=1)
+    out["greedy_sample"] = {"N": N_MAIN, "median_ms": gs_ms, "samples_per_s": N_MAIN / gs_ms * 1e3}
+    print(f"float32 Sketchformer greedy_sample N={N_MAIN}: {gs_ms:.3f} ms median of 3, "
+          f"{N_MAIN / gs_ms * 1e3:.1f} samples/s; K9 float32 at index {index}: "
+          f"{kernels['decode_f32']['ms']:.4f} ms (plain {kernels['decode_f32']['plain_ms']:.4f}, "
+          f"bound {kernels['decode_f32']['bound_ms']:.4f}) on {card}", flush=True)
+    for name in ("embedding_f32", "head_f32", "args_ce_fwd_f32", "args_ce_bwd_f32",
+                 "args_ce_pairwise_f32", "decode_f32"):
+        k = kernels[name]
+        print(f"  {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
+              f"{k['library_ms']}, bound {k['bound_ms']:.4f} by {k['bound_by']})")
+    del sf, captured, z, mid
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"float32 phase: {out['phase_s']:.1f} s", flush=True)
+    record["float32"] = out
+    # the counts each float32 form's row reports: the path that runs it
+    return {"embedding_f32": launches["inference"]["embedding_f32"],
+            "head_f32": launches["inference"]["head_f32"],
+            "args_ce_fwd_f32": launches["train_step"]["args_ce_fwd_f32"],
+            "args_ce_bwd_f32": launches["train_step"]["args_ce_bwd_f32"],
+            "args_ce_pairwise_f32": launches["selfmatch_step"]["args_ce_pairwise_f32"],
+            "decode_f32": launches["greedy_sample"]["decode_f32"]}
+
+
+def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> dict:
+    """The attention block alone, the JAX package's public ops ``fused_mha``
+    and ``fused_mha_train``, through K10 and K11 at the model's width (D=256,
+    8 heads of 32) with the trained flagship's E1 layer 0 attention weights
+    (``models/weights.py: attention_operands``): K10 at the flagship's E1
+    inference shape (N=1024: 8,192 sequences of 32, key-padded as the
+    inputs pad them) and at Sketchformer's encoder shape (1,024 x 242); K11
+    at the flagship step's E1 (B=128: 1,024 x 32) and at Sketchformer's
+    encoder (60 x 242) and causal decoder (60 x 241), dropout 0 and 0.1. Each
+    against its plain version (K11 forward elementwise with dropout on, and
+    its five gradients), K11 bit-equal from run to run, each op counted once,
+    and timed beside its bound, its plain version and F.linear ->
+    F.scaled_dot_product_attention -> F.linear (under autograd with
+    ``dropout_p`` for K11). Returns the launches per call of each op."""
+    import torch.nn.functional as F
+
+    from deepsvg_tpu_torch.configs.sketchformer import make_model_config
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import hierarchical_ordered, load_params
+    from deepsvg_tpu_torch.models.layers import key_padding_to_additive
+    from deepsvg_tpu_torch.models.weights import attention_operands
+    from deepsvg_tpu_torch.ops import attention as attn_ops
+    from deepsvg_tpu_torch.ops import attention_vjp
+    from deepsvg_tpu_torch.svgtensor import masks as M
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    layer0 = load_params(CHECKPOINT)["encoder"]["encoder"]["layer_0"]
+    w = attention_operands(layer0["wqkv"], layer0["bqkv"], layer0["wo"], layer0["bo"], dev, bf16)
+    d = w[0].shape[1]
+    heads = d // 32
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cfg, sf_cfg = hierarchical_ordered(), make_model_config()
+    fb = generate_batch(np.random.default_rng(0), N_MAIN, cfg.max_num_groups, cfg.max_seq_len)
+    f_cmd = torch.from_numpy(fb["commands"]).to(dev).reshape(-1, fb["commands"].shape[-1])
+    sb = generate_batch(np.random.default_rng(0), N_MAIN, sf_cfg.max_num_groups,
+                        sf_cfg.max_seq_len)
+    s_cmd = torch.from_numpy(sb["commands_grouped"]).to(dev)[:, 0]
+    mask_of = lambda c: key_padding_to_additive(M.key_padding_mask(c))  # noqa: E731
+    x_of = lambda b, s: torch.randn(b, s, d, device=dev, generator=gen).to(bf16)  # noqa: E731
+    out: dict = {}
+
+    def mha_ops(b, s, causal):
+        """(operations, bytes) of one forward: the two projections and the
+        scores and P V over the keys each query sees."""
+        keys = s * (s + 1) / 2 if causal else s * s
+        return 2.0 * b * s * d * 4 * d + 4.0 * b * keys * d, nbytes(*w) + b * s * 4
+
+    def lib_mha(x, mask, causal, rate=0.0, ws=w):
+        b, s, _ = x.shape
+        qkv = F.linear(x, ws[0], ws[1]).reshape(b, s, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+        am = mask[:, None, None, :]
+        if causal:
+            am = am + torch.full((s, s), float("-inf"), device=dev).triu(1)
+        ctx = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=am.to(x.dtype),
+                                             dropout_p=rate)
+        return F.linear(ctx.transpose(1, 2).reshape(b, s, d), ws[2], ws[3])
+
+    # ---- K10
+    k10_cases = {"flagship E1 N=1024": (x_of(f_cmd.shape[0], f_cmd.shape[1]), mask_of(f_cmd),
+                                        False),
+                 "Sketchformer encoder N=1024": (x_of(N_MAIN, s_cmd.shape[1]), mask_of(s_cmd),
+                                                 False)}
+    k10 = {}
+    with torch.no_grad():
+        for i, (what, (x, mask, causal)) in enumerate(k10_cases.items()):
+            if i == 0:
+                reset_counts()
+                got = attn_ops.fused_mha(x, *w, mask, heads, causal)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                check(counts == dict.fromkeys(counts, 0) | {"mha": 1}, f"K10 launches {counts}")
+            else:
+                got = attn_ops.fused_mha(x, *w, mask, heads, causal)
+            want = attn_ops.mha_reference(x, *w, mask, heads, causal)
+            b, s, _ = x.shape
+            ops, w_bytes = mha_ops(b, s, causal)
+            b_ms, b_by = bound(2 * nbytes(x) + w_bytes, ops, PEAK_BF16)
+            k10[what] = dict(
+                compare_elementwise(f"K10 mha {what} ({b} x {s})", got, want, TOL_LAYER_RMS),
+                B=b, S=s, ms=cuda_ms(lambda: attn_ops.fused_mha(x, *w, mask, heads, causal)),
+                plain_ms=cuda_ms(lambda: attn_ops.mha_reference(x, *w, mask, heads, causal),
+                                 iters=3, warmup=1),
+                library_ms=cuda_ms(lambda: lib_mha(x, mask, causal)), bound_ms=b_ms,
+                bound_by=b_by)
+            del got, want
+    main_case = k10["flagship E1 N=1024"]
+    kernels["mha"] = dict(main_case, cases=k10,
+                          max_abs_err=max(c["max_abs_err"] for c in k10.values()),
+                          tolerance={"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL,
+                                     "rms": TOL_LAYER_RMS})
+    del k10_cases
+    torch.cuda.empty_cache()
+
+    # ---- K11
+    k11_cases = {"flagship step E1 B=128": (x_of(128 * cfg.max_num_groups, f_cmd.shape[1]),
+                                            mask_of(f_cmd[:128 * cfg.max_num_groups]), False),
+                 "Sketchformer encoder B=60": (x_of(B_RECIPE, s_cmd.shape[1]),
+                                               mask_of(s_cmd[:B_RECIPE]), False),
+                 "Sketchformer decoder B=60 causal": (x_of(B_RECIPE, s_cmd.shape[1] - 1),
+                                                      mask_of(s_cmd[:B_RECIPE, :-1]), True)}
+    leaves = [t.clone().requires_grad_() for t in w]
+    seed = 2024
+    k11 = {}
+    counts = None
+    for what, (x, mask, causal) in k11_cases.items():
+        x = x.requires_grad_()
+        g = torch.randn(x.shape, device=dev, generator=gen).to(bf16)
+        b, s, _ = x.shape
+        for rate in (0.0, DROPOUT):
+            call = (x, *leaves, mask, seed, heads, causal, rate)
+            if counts is None:
+                reset_counts()
+            got = attention_vjp.fused_mha_train(*call)
+            grads = torch.autograd.grad(got, [x, *leaves], g)
+            if counts is None:
+                torch.cuda.synchronize()
+                counts = read_counts()
+                check(counts == dict.fromkeys(counts, 0) | {"mha_train_fwd": 1,
+                                                            "mha_train_bwd": 1},
+                      f"K11 launches {counts}")
+            want = attn_ops.mha_reference(x, *leaves, mask, heads, causal, rate, seed)
+            grads_p = torch.autograd.grad(want, [x, *leaves], g)
+            case = compare_elementwise(f"K11 mha_train {what} ({b} x {s}) rate {rate}", got,
+                                       want, TOL_LAYER_RMS)
+            case["grad_rms"] = {n: rel_rms(a, c) for n, a, c in
+                                zip(("x", "wqkv", "bqkv", "wo", "bo"), grads, grads_p)}
+            again = attention_vjp.fused_mha_train(*call)
+            case["bit_equal_rerun"] = bool(torch.equal(again, got) and all(
+                torch.equal(a, c) for a, c in zip(grads, torch.autograd.grad(again, [x, *leaves],
+                                                                             g))))
+            worst = max(case["grad_rms"].values())
+            print(f"  gradients: relative RMS {case['grad_rms']} (limit "
+                  f"{MHA_GRAD_RMS}); rerun bit-equal {case['bit_equal_rerun']}", flush=True)
+            check_later(worst <= MHA_GRAD_RMS, f"K11 {what} rate {rate}: gradient RMS {worst}")
+            check_later(case["bit_equal_rerun"], f"K11 {what} rate {rate}: rerun differs")
+            k11[f"{what} rate {rate}"] = case
+            del got, grads, want, grads_p, again
+        # times at dropout 0.1: forward alone, forward and backward
+        ops, w_bytes = mha_ops(b, s, causal)
+        keys = s * (s + 1) / 2 if causal else s * s
+        call = (x, *leaves, mask, seed, heads, causal, DROPOUT)
+
+        def both(fn, *a):
+            return torch.autograd.grad(fn(*a), [x, *leaves], g)
+
+        def fwd(fn, *a):
+            with torch.no_grad():
+                return fn(*a)
+        ref_call = (x, *leaves, mask, heads, causal, DROPOUT, seed)
+        times = {"fwd": cuda_ms(lambda: fwd(attention_vjp.fused_mha_train, *call)),
+                 "both": cuda_ms(lambda: both(attention_vjp.fused_mha_train, *call)),
+                 "plain_fwd": cuda_ms(lambda: fwd(attn_ops.mha_reference, *ref_call), iters=3,
+                                      warmup=1),
+                 "plain_both": cuda_ms(lambda: both(attn_ops.mha_reference, *ref_call), iters=3,
+                                       warmup=1),
+                 "lib_fwd": cuda_ms(lambda: fwd(lib_mha, x, mask, causal, DROPOUT, leaves)),
+                 "lib_both": cuda_ms(lambda: both(lib_mha, x, mask, causal, DROPOUT, leaves))}
+        fb = bound(2 * nbytes(x) + w_bytes, ops, PEAK_BF16)
+        bb = bound(3 * nbytes(x) + 2 * w_bytes, 22.0 * b * s * d * d + 12.0 * b * keys * d,
+                   PEAK_BF16)
+        k11[what] = {"B": b, "S": s, "times_ms": times, "fwd_bound": fb, "bwd_bound": bb}
+        print(f"K11 {what} ({b} x {s}) rate {DROPOUT}: forward {times['fwd']:.4f} ms (plain "
+              f"{times['plain_fwd']:.4f}, library {times['lib_fwd']:.4f}, bound {fb[0]:.4f} by "
+              f"{fb[1]}); backward {times['both'] - times['fwd']:.4f} ms (plain "
+              f"{times['plain_both'] - times['plain_fwd']:.4f}, library "
+              f"{times['lib_both'] - times['lib_fwd']:.4f}, bound {bb[0]:.4f} by {bb[1]})",
+              flush=True)
+    row = k11["Sketchformer encoder B=60"]
+    t = row["times_ms"]
+    errs = [c["max_abs_err"] for k, c in k11.items() if "rate" in k]
+    kernels["mha_train_fwd"] = {
+        "max_abs_err": max(errs), "ms": t["fwd"], "plain_ms": t["plain_fwd"],
+        "library_ms": t["lib_fwd"], "bound_ms": row["fwd_bound"][0],
+        "bound_by": row["fwd_bound"][1], "cases": k11,
+        "tolerance": {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL, "rms": TOL_LAYER_RMS}}
+    kernels["mha_train_bwd"] = {
+        "max_abs_err": max(max(c["grad_rms"].values()) for k, c in k11.items() if "rate" in k),
+        "ms": t["both"] - t["fwd"], "plain_ms": t["plain_both"] - t["plain_fwd"],
+        "library_ms": t["lib_both"] - t["lib_fwd"], "bound_ms": row["bwd_bound"][0],
+        "bound_by": row["bwd_bound"][1], "tolerance": {"grad_rms": MHA_GRAD_RMS}}
+    for name in ("mha", "mha_train_fwd", "mha_train_bwd"):
+        k = kernels[name]
+        print(f"  {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
+              f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by {k['bound_by']})")
+    del k11_cases, leaves
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"attention ops phase: {out['phase_s']:.1f} s on {card}", flush=True)
+    record["attention_ops"] = out
+    return {"mha": 1, "mha_train_fwd": counts["mha_train_fwd"],
+            "mha_train_bwd": counts["mha_train_bwd"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1706,6 +2415,8 @@ def main() -> int:
         gpu_fast, hierarchical_ordered, load_model, one_shot_sample, svg_loss)
     from deepsvg_tpu_torch.models.layers import key_padding_to_additive
     from deepsvg_tpu_torch.ops import _build
+    from deepsvg_tpu_torch.ops import attention as attn_ops
+    from deepsvg_tpu_torch.ops import attention_vjp
     from deepsvg_tpu_torch.ops import ce as ce_ops
     from deepsvg_tpu_torch.ops import decode as decode_ops
     from deepsvg_tpu_torch.ops import embedding as emb_ops
@@ -1742,24 +2453,37 @@ def main() -> int:
         stack_vjp.fused_stack_train.launches = 0
         stack_vjp.fused_stack_train.backward_launches = 0
         ce_ops.args_ce_pairwise.launches = 0
+        for fn in (emb_ops.fused_embedding, head_ops.fused_head_argmax, ce_ops.args_ce,
+                   ce_ops.args_ce_pairwise, decode_ops.fused_decode_step):
+            fn.float32_launches = 0
+        ce_ops.args_ce.float32_backward_launches = 0
+        attn_ops.fused_mha.launches = 0
+        attention_vjp.fused_mha_train.launches = 0
+        attention_vjp.fused_mha_train.backward_launches = 0
 
     def read_counts() -> dict:
-        f32 = layer_ops.fused_layer.float32_launches
-        return {"embedding": emb_ops.fused_embedding.launches,
-                "layer": layer_ops.fused_layer.launches - f32, "layer_f32": f32,
-                "head": head_ops.fused_head_argmax.launches,
+        """Launches by kernel; a float32 form under its own name (``_f32``)."""
+        def split(fn, name, total="launches", f32="float32_launches"):
+            return {name: getattr(fn, total) - getattr(fn, f32), f"{name}_f32": getattr(fn, f32)}
+        return {**split(emb_ops.fused_embedding, "embedding"),
+                **split(layer_ops.fused_layer, "layer"),
+                **split(head_ops.fused_head_argmax, "head"),
                 "layer_train_fwd": layer_vjp.fused_layer_train.launches,
                 "layer_train_bwd": layer_vjp.fused_layer_train.backward_launches,
-                "args_ce_fwd": ce_ops.args_ce.launches,
-                "args_ce_bwd": ce_ops.args_ce.backward_launches,
+                **split(ce_ops.args_ce, "args_ce_fwd"),
+                **split(ce_ops.args_ce, "args_ce_bwd", "backward_launches",
+                        "float32_backward_launches"),
                 "embedding_bwd": emb_ops.embedding_backward.launches,
                 "stack_fwd": stack_vjp.fused_stack_train.launches,
                 "stack_bwd": stack_vjp.fused_stack_train.backward_launches,
-                "args_ce_pairwise": ce_ops.args_ce_pairwise.launches,
-                "layer_long": layer_ops.fused_layer_long.launches,
-                "decode": decode_ops.fused_decode_step.launches,
+                **split(ce_ops.args_ce_pairwise, "args_ce_pairwise"),
+                **split(layer_ops.fused_layer_long, "layer_long"),
+                **split(decode_ops.fused_decode_step, "decode"),
                 "layer_train_long_fwd": layer_vjp.fused_layer_train_long.launches,
-                "layer_train_long_bwd": layer_vjp.fused_layer_train_long.backward_launches}
+                "layer_train_long_bwd": layer_vjp.fused_layer_train_long.backward_launches,
+                "mha": attn_ops.fused_mha.launches,
+                "mha_train_fwd": attention_vjp.fused_mha_train.launches,
+                "mha_train_bwd": attention_vjp.fused_mha_train.backward_launches}
 
     # ---- build
     t0 = time.perf_counter()
@@ -2839,6 +3563,12 @@ def main() -> int:
     sf_launches = sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts,
                                            read_counts, library_layer)
 
+    # ============================================ the float32 models
+    f32_launches = float32_phase(dev, card, kernels, record, reset_counts, read_counts)
+
+    # ================================== the attention ops (K10, K11)
+    attn_launches = attention_phase(dev, card, kernels, record, reset_counts, read_counts)
+
     csrc = "deepsvg_tpu_torch/ops/csrc/"
     source = {
         "embedding": (csrc + "embedding.cu", "deepsvg_tpu/ops/embedding.py:34"),
@@ -2862,6 +3592,15 @@ def main() -> int:
         "args_ce_fwd_512": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:30"),
         "args_ce_bwd_512": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:81"),
         "embedding_bwd_long": (csrc + "embedding_bwd.cu", "deepsvg_tpu/ops/embedding.py:133"),
+        "embedding_f32": (csrc + "embedding.cu", "deepsvg_tpu/ops/embedding.py:34"),
+        "head_f32": (csrc + "head.cu", "deepsvg_tpu/ops/head.py:32"),
+        "args_ce_fwd_f32": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:30"),
+        "args_ce_bwd_f32": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:81"),
+        "args_ce_pairwise_f32": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:54"),
+        "decode_f32": (csrc + "decode.cu", "deepsvg_tpu/ops/decode.py:43"),
+        "mha": (csrc + "attention.cu", "deepsvg_tpu/ops/attention.py:31"),
+        "mha_train_fwd": (csrc + "attention.cu", "deepsvg_tpu/ops/attention_vjp.py:60"),
+        "mha_train_bwd": (csrc + "attention.cu", "deepsvg_tpu/ops/attention_vjp.py:100"),
     }
     # the entries of a kernel at another path's shapes count that path's launches
     counter = {"args_ce_fwd_512": "args_ce_fwd", "args_ce_bwd_512": "args_ce_bwd",
@@ -2875,6 +3614,9 @@ def main() -> int:
         # K6 at Sketchformer's shapes) Sketchformer's training step
         if name in counter:
             count = sf_launches[counter[name]]
+        elif name in f32_launches or name in attn_launches:
+            # (float32 forms) the float32 path that runs it; (K10, K11) one call of the op
+            count = f32_launches.get(name) or attn_launches[name]
         else:
             count = (launches[name] or train_launches[name] or cli_launches[name]
                      or sm_step_launches[name] or ar_launches[name] or sf_launches[name])

@@ -153,6 +153,19 @@ def to_flax_params(model: SVGTransformer, grads: bool = False) -> dict:
     return tree
 
 
+def attention_operands(wqkv, bqkv, wo, bo, device=None, dtype=None):
+    """The JAX package's attention-block weights (``ops/attention.py``:
+    ``wqkv [D, 3D]``, ``bqkv [3D]``, ``wo [D, D]``, ``bo [D]``, arrays as
+    ``x @ w`` reads them) -> the port's operands of ``ops.attention.fused_mha``
+    and ``ops.attention_vjp.fused_mha_train``: ``wqkv [3D, D]``, ``bqkv``,
+    ``wo [D, D]`` (``nn.Linear`` layout), ``bo``, contiguous, on ``device``
+    in ``dtype`` (default float32)."""
+    dtype = dtype or torch.float32
+    arrays = (np.asarray(wqkv).T, np.asarray(bqkv), np.asarray(wo).T, np.asarray(bo))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+                 .to(device=device, dtype=dtype) for a in arrays)
+
+
 def load_model(path: str, cfg: ModelConfig, device=None) -> SVGTransformer:
     """Build ``SVGTransformer(cfg)``, load the weights file that
     ``deepsvg_tpu/training/checkpoint.py:save_model`` writes, and place the

@@ -1,6 +1,11 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: ``embedding`` (K1 and its backward K6), ``layer`` (K2, in a short
 and a long form), ``head`` (K3), ``layer_vjp`` (K4, in a short and a long
-form), ``ce`` (K5, K8), ``stack_vjp`` (K7) and ``decode`` (K9). A wrapper
-takes the plain version for CPU tensors and launches its kernel for CUDA
-tensors; the kernels are built by ``_build`` at first use."""
+form), ``ce`` (K5, K8), ``stack_vjp`` (K7), ``decode`` (K9), ``attention``
+(K10, the attention block alone: the JAX package's public ``fused_mha``) and
+``attention_vjp`` (K11, its differentiable form with dropout:
+``fused_mha_train``). Every kernel takes bfloat16 or float32 operands (all of
+one type): the float32 forms multiply in TF32 with float32 sums, K1 sums
+exactly, K6 takes either type of ``dy``. A wrapper takes the plain version
+for CPU tensors and launches its kernel for CUDA tensors; the kernels are
+built by ``_build`` at first use."""

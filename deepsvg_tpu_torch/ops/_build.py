@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -108,6 +110,17 @@ def kernel_function(name: str, argtypes: list):
 def check_launch(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed with CUDA error {rc}")
+
+
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)   # every kernel's two forms
+
+
+def kernel_dtype(t, name: str):
+    """``t``'s dtype if a kernel has a form for it (bfloat16 or float32);
+    raise otherwise. The other operands are then required in this dtype."""
+    if t.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected bfloat16 or float32")
+    return t.dtype
 
 
 def require(t, name: str, device, dtype=None, shape=None) -> None:

@@ -23,6 +23,13 @@ recomputing the logits, and writes per-split partial sums that a reduction
 kernel adds in a fixed order (no atomics; the result is deterministic). The
 logits are therefore computed twice in the backward.
 
+A float32 model takes the kernels' float32 forms: float32 ``y``, head, bias
+and ``dy``, products on the tensor cores in TF32 (``wmma`` 16x16x8, float32
+sums), the forward staging 32-column chunks (its 128-row ``y`` tile is twice
+the bytes), the backward as in bfloat16 with ``dlg`` kept in float32; the
+weight gradients stay float32 in a fixed order. The Pallas kernels multiply
+in their operands' type; the plain version multiplies in full float32.
+
 Targets outside ``[0, vocab)`` match no class: the row's loss is its
 log-sum-exp and its gradient the plain softmax, as with the one-hot of the
 Pallas kernel.
@@ -84,10 +91,18 @@ class _RoundGrad(torch.autograd.Function):
         return g.to(ctx.dtype).to(g.dtype), None
 
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_DY_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_DW_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_DY_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_DW_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 DW_MAX_SPLITS = 8
+
+
+def _check_types(what: str, y_dtype, weight_dtype) -> None:
+    """Raise unless the states and the head are both bfloat16 or both float32."""
+    if y_dtype not in _build.KERNEL_DTYPES or weight_dtype != y_dtype:
+        raise ValueError(f"the {what} kernel takes states and head both bfloat16 or both "
+                         f"float32, got states of dtype {y_dtype} and head of dtype "
+                         f"{weight_dtype}")
 
 
 def pack_args_head(wa, ba, n_args: int, dtype):
@@ -111,16 +126,15 @@ class _ArgsCE(torch.autograd.Function):
         dev = y.device
         r, d = y.shape
         vocab = wa.shape[0] // n_args
-        if y.dtype != torch.bfloat16 or weight_dtype != torch.bfloat16:
-            raise ValueError(f"the cross-entropy kernel takes bfloat16 states and head, "
-                             f"got {y.dtype} and {weight_dtype}")
+        dt = y.dtype
+        _check_types("cross-entropy", dt, weight_dtype)
         if d % 32 or d > 256:
             raise ValueError(f"the cross-entropy kernel takes D a multiple of 32 up to "
                              f"256, got {d}")
         y = y.contiguous()
-        w, b = pack_args_head(wa, ba, n_args, torch.bfloat16)
+        w, b = pack_args_head(wa, ba, n_args, dt)
         tgt = targets.to(torch.int32).contiguous()
-        _build.require(y, "y", dev, torch.bfloat16, (r, d))
+        _build.require(y, "y", dev, dt, (r, d))
         _build.require(tgt, "targets", dev, torch.int32, (r, n_args))
         ce = torch.empty((r, n_args), dtype=torch.float32, device=dev)
         lse = torch.empty_like(ce)
@@ -128,9 +142,10 @@ class _ArgsCE(torch.autograd.Function):
             fn = _build.kernel_function("dsvg_ce_fwd", _FWD_ARGTYPES)
             rc = fn(y.data_ptr(), w.data_ptr(), b.data_ptr(), tgt.data_ptr(),
                     ce.data_ptr(), lse.data_ptr(), r, d, n_args, vocab,
-                    torch.cuda.current_stream(dev).cuda_stream)
+                    int(dt == torch.float32), torch.cuda.current_stream(dev).cuda_stream)
             _build.check_launch(rc, "ce_fwd")
             args_ce.launches += 1
+            args_ce.float32_launches += dt == torch.float32
         ctx.save_for_backward(y, w, b, tgt, lse)
         ctx.meta = (n_args, vocab)
         return ce
@@ -142,21 +157,23 @@ class _ArgsCE(torch.autograd.Function):
         dev = y.device
         r, d = y.shape
         aw = _round_up(vocab)
+        is_f32 = int(y.dtype == torch.float32)
         stream = torch.cuda.current_stream(dev).cuda_stream
         g = g.to(torch.float32).contiguous()
         dy = torch.empty_like(y)
         common = (y.data_ptr(), w.data_ptr(), b.data_ptr(), tgt.data_ptr(), g.data_ptr(),
                   lse.data_ptr())
         fn = _build.kernel_function("dsvg_ce_bwd_dy", _DY_ARGTYPES)
-        _build.check_launch(fn(*common, dy.data_ptr(), r, d, n_args, vocab, stream),
+        _build.check_launch(fn(*common, dy.data_ptr(), r, d, n_args, vocab, is_f32, stream),
                             "ce_bwd_dy")
         args_ce.backward_launches += 1
+        args_ce.float32_backward_launches += is_f32
         splits = max(1, min(DW_MAX_SPLITS, -(-r // 64)))
         dw_part = torch.empty((splits, n_args * aw * d), dtype=torch.float32, device=dev)
         db_part = torch.empty((splits, n_args * aw), dtype=torch.float32, device=dev)
         fn = _build.kernel_function("dsvg_ce_bwd_dw", _DW_ARGTYPES)
         _build.check_launch(fn(*common, dw_part.data_ptr(), db_part.data_ptr(), r, d,
-                               n_args, vocab, splits, stream), "ce_bwd_dw")
+                               n_args, vocab, splits, is_f32, stream), "ce_bwd_dw")
         dwa = reduce_partials(dw_part).view(n_args, aw, d)[:, :vocab].reshape(-1, d)
         dba = reduce_partials(db_part).view(n_args, aw)[:, :vocab].reshape(-1)
         return dy, dwa, dba, None, None, None
@@ -171,7 +188,7 @@ def args_ce_pairwise_reference(y, wa, ba, targets, n_variants: int):
     return args_ce_reference(y, wa, ba, targets, targets.shape[-1] // n_variants)
 
 
-_PAIRWISE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_PAIRWISE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def plain_args_ce_pairwise(y, wa, ba, targets, n_variants: int, weight_dtype=None):
@@ -192,7 +209,7 @@ def args_ce_pairwise(y, wa, ba, targets, n_variants: int, weight_dtype=None):
     parameters, cast to ``weight_dtype`` at use. No gradient.
 
     A CPU tensor takes :func:`args_ce_pairwise_reference`; a CUDA tensor
-    launches K8 (bfloat16) or raises.
+    launches K8 (states and head both bfloat16 or both float32) or raises.
     """
     if y.device.type == "cpu":
         return plain_args_ce_pairwise(y, wa, ba, targets, n_variants, weight_dtype)
@@ -202,9 +219,8 @@ def args_ce_pairwise(y, wa, ba, targets, n_variants: int, weight_dtype=None):
     d, k = y.shape[-1], targets.shape[-1]
     n_args = k // n_variants
     vocab = wa.shape[0] // n_args
-    if y.dtype != torch.bfloat16 or (weight_dtype or y.dtype) != torch.bfloat16:
-        raise ValueError(f"the pairwise cross-entropy kernel takes bfloat16 states and head, "
-                         f"got {y.dtype} and {weight_dtype}")
+    dt = y.dtype
+    _check_types("pairwise cross-entropy", dt, weight_dtype or dt)
     if d % 32 or d > 256:
         raise ValueError(f"the pairwise cross-entropy kernel takes D a multiple of 32 up to "
                          f"256, got {d}")
@@ -214,21 +230,24 @@ def args_ce_pairwise(y, wa, ba, targets, n_variants: int, weight_dtype=None):
     with torch.no_grad():
         yf = y.detach().reshape(-1, d).contiguous()
         r = yf.shape[0]
-        w, b = pack_args_head(wa, ba, n_args, torch.bfloat16)
+        w, b = pack_args_head(wa, ba, n_args, dt)
         tgt = targets.reshape(r, k).to(torch.int32).contiguous()
-        _build.require(yf, "y", dev, torch.bfloat16, (r, d))
+        _build.require(yf, "y", dev, dt, (r, d))
         _build.require(tgt, "targets", dev, torch.int32, (r, k))
         ce = torch.empty((r, k), dtype=torch.float32, device=dev)
         if r > 0:
             fn = _build.kernel_function("dsvg_ce_pairwise", _PAIRWISE_ARGTYPES)
             rc = fn(yf.data_ptr(), w.data_ptr(), b.data_ptr(), tgt.data_ptr(), ce.data_ptr(), r,
-                    d, n_args, vocab, n_variants, torch.cuda.current_stream(dev).cuda_stream)
+                    d, n_args, vocab, n_variants, int(dt == torch.float32),
+                    torch.cuda.current_stream(dev).cuda_stream)
             _build.check_launch(rc, "ce_pairwise")
             args_ce_pairwise.launches += 1
+            args_ce_pairwise.float32_launches += dt == torch.float32
     return ce.reshape(targets.shape)
 
 
-args_ce_pairwise.launches = 0
+args_ce_pairwise.launches = 0            # every launch
+args_ce_pairwise.float32_launches = 0    # those of its float32 form
 
 
 def plain_args_ce(y, wa, ba, targets, weight_dtype=None):
@@ -248,7 +267,8 @@ def args_ce(y, wa, ba, targets, weight_dtype=None):
     ``[0, vocab)``. Differentiable in ``y``, ``wa``, ``ba``.
 
     A CPU tensor takes :func:`args_ce_reference` under autograd; a CUDA
-    tensor launches the kernels (bfloat16) or raises.
+    tensor launches the kernels (states and head both bfloat16 or both
+    float32) or raises.
     """
     if y.device.type == "cpu":
         return plain_args_ce(y, wa, ba, targets, weight_dtype)
@@ -260,5 +280,7 @@ def args_ce(y, wa, ba, targets, weight_dtype=None):
     return ce.reshape(y.shape[:-1] + (n_args,))
 
 
-args_ce.launches = 0            # forward launches
-args_ce.backward_launches = 0   # backward passes (dy, dW, two reductions)
+args_ce.launches = 0                    # forward launches
+args_ce.backward_launches = 0           # backward passes (dy, dW, two reductions)
+args_ce.float32_launches = 0            # those of the float32 form
+args_ce.float32_backward_launches = 0

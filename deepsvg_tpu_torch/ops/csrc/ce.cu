@@ -4,16 +4,18 @@
 // cost), with no backward.
 //
 // The head arrives packed per slot as in K3: slot i is round16(vocab) rows of
-// length D, padded columns masked by index. bf16 operands, f32 accumulation.
+// length D, padded columns masked by index. bf16 operands, or float operands
+// multiplied in TF32 (wmma 16x16x8; the float forward stages 32 columns at a
+// time), f32 accumulation.
 //
 //   ce_fwd:  a block keeps 128 rows of y in shared memory, stages 64 head
-//            columns at a time, multiplies with wmma and folds each chunk into
+//            columns (32 in float) at a time, multiplies with wmma and folds each chunk into
 //            a running (max, sum of exp, target logit) per row and slot. It
 //            writes ce = lse - target logit and keeps lse for the backward.
 //   ce_pairwise: the same blocks and chunks; each row has G targets per slot,
 //            and ce = lse - target logit for each of them.
 //   ce_bwd_dy: a block keeps 64 rows of y, recomputes each 64-column logits
-//            chunk, forms dlg = (exp(lg - lse) - onehot) * g, rounds it to bf16
+//            chunk, forms dlg = (exp(lg - lse) - onehot) * g, rounds it to T
 //            and adds dlg @ W_chunk to the rows' dy, held in accumulators.
 //   ce_bwd_dw: dW and db are sums over all rows, and blocks run concurrently:
 //            a block owns one 64-column chunk of the head and one split of the
@@ -28,25 +30,36 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int CHUNK_TILES = 4;
+constexpr int CHUNK_TILES = 4;   // the backward's chunk, and the bf16 forward's
 constexpr int CHUNK = CHUNK_TILES * 16;
 constexpr int SCR_LD = CHUNK + 4;
 constexpr int DL_LD = CHUNK + 8;
 constexpr int FWD_ROWS = 128;
 constexpr int BWD_ROWS = 64;
 
+// the forward's head chunk: 64 columns for bf16; 32 for float, whose 128-row
+// y tile is twice the bytes (128 + 32 rows of 264 floats fit the block's
+// shared memory, 128 + 64 would not)
+template <class T>
+struct Fwd {
+  static constexpr int TILES = sizeof(T) == 2 ? 4 : 2;
+  static constexpr int SCR_LD = TILES * 16 + 4;
+};
+
 __host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
 
-// copy `nrows` rows of length D (bf16, 16-byte vectors) into shared memory;
-// rows at or beyond `limit` are zero
-__device__ __forceinline__ void stage_rows(bf16* dst, int ldx, const bf16* src, int D,
-                                           int nrows, long long first, long long limit) {
-  const int vecs = D / 8;
+// copy `nrows` rows of length D (16-byte vectors) into shared memory; rows
+// at or beyond `limit` are zero
+template <class T>
+__device__ __forceinline__ void stage_rows(T* dst, int ldx, const T* src, int D, int nrows,
+                                           long long first, long long limit) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int vecs = D / VEC;
   for (int e = threadIdx.x; e < nrows * vecs; e += NTHREADS) {
     const int r = e / vecs, c = e - r * vecs;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (first + r < limit) v = reinterpret_cast<const uint4*>(src + (size_t)(first + r) * D)[c];
-    *reinterpret_cast<uint4*>(dst + r * ldx + c * 8) = v;
+    *reinterpret_cast<uint4*>(dst + r * ldx + c * VEC) = v;
   }
 }
 
@@ -58,18 +71,22 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int ldx, const bf16* src, 
 // shared memory when its column passes (lane `half` owns the candidates
 // g = half, half + 2, ...), so the G targets cost G reads per chunk, not a
 // comparison per column. A target outside [0, vocab) matches no class.
-__device__ __forceinline__ void ce_rows(const bf16* __restrict__ y, const bf16* __restrict__ w,
-                                        const bf16* __restrict__ bias,
+template <class T>
+__device__ __forceinline__ void ce_rows(const T* __restrict__ y, const T* __restrict__ w,
+                                        const T* __restrict__ bias,
                                         const int* __restrict__ tgt, float* __restrict__ ce,
                                         float* __restrict__ lse, int R, int D, int n_args,
                                         int vocab, int G) {
+  typedef Mma<T> M;
+  constexpr int TILES = Fwd<T>::TILES;
+  constexpr int LD = Fwd<T>::SCR_LD;
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldx = D + SPAD;
-  bf16* ys = reinterpret_cast<bf16*>(smem);
-  bf16* ws = ys + FWD_ROWS * ldx;
-  float* scr = reinterpret_cast<float*>(ws + CHUNK * ldx);
+  T* ys = reinterpret_cast<T*>(smem);
+  T* ws = ys + FWD_ROWS * ldx;
+  float* scr = reinterpret_cast<float*>(ws + TILES * 16 * ldx);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* wscr = scr + warp * 16 * SCR_LD;
+  float* wscr = scr + warp * 16 * LD;
   const int row0 = blockIdx.x * FWD_ROWS;
   stage_rows(ys, ldx, y, D, FWD_ROWS, row0, R);
 
@@ -78,39 +95,41 @@ __device__ __forceinline__ void ce_rows(const bf16* __restrict__ y, const bf16* 
   const int my_row = row0 + warp * 16 + pr;
   const int K = G * n_args;
   // this row's candidate target logits of the current slot
-  float* tls = scr + NWARPS * 16 * SCR_LD + (warp * 16 + pr) * G;
+  float* tls = scr + NWARPS * 16 * LD + (warp * 16 + pr) * G;
   for (int slot = 0; slot < n_args; ++slot) {
     const int col0 = slot * aw;
     for (int g = half; g < G; g += 2) tls[g] = 0.f;
     float m = -INFINITY, s = 0.f;
-    for (int t0 = 0; t0 < tiles; t0 += CHUNK_TILES) {
-      const int nt = min(CHUNK_TILES, tiles - t0);
+    for (int t0 = 0; t0 < tiles; t0 += TILES) {
+      const int nt = min(TILES, tiles - t0);
       __syncthreads();  // y is loaded / the previous chunk is consumed
       stage_rows(ws, ldx, w, D, nt * 16, col0 + t0 * 16, 1LL << 40);
       __syncthreads();
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[CHUNK_TILES];
+      typename M::Acc acc[TILES];
 #pragma unroll
-      for (int t = 0; t < CHUNK_TILES; ++t) wmma::fill_fragment(acc[t], 0.f);
-      for (int k = 0; k < D; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      for (int t = 0; t < TILES; ++t) wmma::fill_fragment(acc[t], 0.f);
+      for (int k = 0; k < D; k += M::K) {
+        typename M::ARow a;
         wmma::load_matrix_sync(a, ys + warp * 16 * ldx + k, ldx);
+        M::fix(a);
 #pragma unroll
-        for (int t = 0; t < CHUNK_TILES; ++t) {
+        for (int t = 0; t < TILES; ++t) {
           if (t < nt) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+            typename M::BCol b;
             wmma::load_matrix_sync(b, ws + t * 16 * ldx + k, ldx);
+            M::fix(b);
             wmma::mma_sync(acc[t], a, b, acc[t]);
           }
         }
       }
 #pragma unroll
-      for (int t = 0; t < CHUNK_TILES; ++t)
-        if (t < nt) wmma::store_matrix_sync(wscr + t * 16, acc[t], SCR_LD, wmma::mem_row_major);
+      for (int t = 0; t < TILES; ++t)
+        if (t < nt) wmma::store_matrix_sync(wscr + t * 16, acc[t], LD, wmma::mem_row_major);
       __syncwarp();
       for (int c = half; c < nt * 16; c += 2) {
         const int col = t0 * 16 + c;  // index within the slot
         if (col < vocab) {
-          const float v = wscr[pr * SCR_LD + c] + bf2f(bias[col0 + col]);
+          const float v = wscr[pr * LD + c] + to_f(bias[col0 + col]);
           if (v > m) {
             s = s * expf(m - v) + 1.f;  // exp(-inf) = 0 at the first column
             m = v;
@@ -124,7 +143,7 @@ __device__ __forceinline__ void ce_rows(const bf16* __restrict__ y, const bf16* 
           const int target = tgt[(size_t)my_row * K + g * n_args + slot];
           const int c = target - t0 * 16;
           if (target >= 0 && target < vocab && c >= 0 && c < nt * 16)
-            tls[g] = wscr[pr * SCR_LD + c] + bf2f(bias[col0 + target]);
+            tls[g] = wscr[pr * LD + c] + to_f(bias[col0 + target]);
         }
       }
       __syncwarp();
@@ -145,31 +164,36 @@ __device__ __forceinline__ void ce_rows(const bf16* __restrict__ y, const bf16* 
 }
 
 // K5's forward: one target per row; keeps lse for the backward
+template <class T>
 __global__ void __launch_bounds__(NTHREADS)
-    ce_fwd_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w,
-                  const bf16* __restrict__ bias, const int* __restrict__ tgt,
+    ce_fwd_kernel(const T* __restrict__ y, const T* __restrict__ w,
+                  const T* __restrict__ bias, const int* __restrict__ tgt,
                   float* __restrict__ ce, float* __restrict__ lse, int R, int D,
                   int n_args, int vocab) {
-  ce_rows(y, w, bias, tgt, ce, lse, R, D, n_args, vocab, 1);
+  ce_rows<T>(y, w, bias, tgt, ce, lse, R, D, n_args, vocab, 1);
 }
 
 // K8: G candidate targets per row, forward only (the self-match cost)
+template <class T>
 __global__ void __launch_bounds__(NTHREADS)
-    ce_pairwise_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w,
-                       const bf16* __restrict__ bias, const int* __restrict__ tgt,
+    ce_pairwise_kernel(const T* __restrict__ y, const T* __restrict__ w,
+                       const T* __restrict__ bias, const int* __restrict__ tgt,
                        float* __restrict__ ce, int R, int D, int n_args, int vocab, int G) {
-  ce_rows(y, w, bias, tgt, ce, nullptr, R, D, n_args, vocab, G);
+  ce_rows<T>(y, w, bias, tgt, ce, nullptr, R, D, n_args, vocab, G);
 }
 
+template <class T>
 size_t fwd_smem(int D, int G) {
-  return (size_t)(FWD_ROWS + CHUNK) * (D + SPAD) * sizeof(bf16) +
-         (size_t)NWARPS * 16 * SCR_LD * sizeof(float) + (size_t)FWD_ROWS * G * sizeof(float);
+  return (size_t)(FWD_ROWS + Fwd<T>::TILES * 16) * (D + SPAD) * sizeof(T) +
+         (size_t)NWARPS * 16 * Fwd<T>::SCR_LD * sizeof(float) +
+         (size_t)FWD_ROWS * G * sizeof(float);
 }
 
+template <class T>
 struct BwdCommon {
-  const bf16* y;
-  const bf16* w;
-  const bf16* bias;
+  const T* y;
+  const T* w;
+  const T* bias;
   const int* tgt;
   const float* g;
   const float* lse;
@@ -177,20 +201,24 @@ struct BwdCommon {
 };
 
 // logits of rows [16 wr, +16) x the staged chunk's tiles {2 wc, 2 wc + 1} -> scr
-__device__ __forceinline__ void chunk_logits(const bf16* ys, const bf16* ws, int ldx,
-                                             int D, int nt, float* scr, int wr, int wc) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+template <class T>
+__device__ __forceinline__ void chunk_logits(const T* ys, const T* ws, int ldx, int D, int nt,
+                                             float* scr, int wr, int wc) {
+  typedef Mma<T> M;
+  typename M::Acc acc[2];
   wmma::fill_fragment(acc[0], 0.f);
   wmma::fill_fragment(acc[1], 0.f);
-  for (int k = 0; k < D; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+  for (int k = 0; k < D; k += M::K) {
+    typename M::ARow a;
     wmma::load_matrix_sync(a, ys + wr * 16 * ldx + k, ldx);
+    M::fix(a);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int t = wc * 2 + i;
       if (t < nt) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+        typename M::BCol b;
         wmma::load_matrix_sync(b, ws + t * 16 * ldx + k, ldx);
+        M::fix(b);
         wmma::mma_sync(acc[i], a, b, acc[i]);
       }
     }
@@ -204,8 +232,9 @@ __device__ __forceinline__ void chunk_logits(const bf16* ys, const bf16* ws, int
   }
 }
 
-// scr (logits without bias) -> dlg in f32 back into scr, and rounded into dl
-__device__ __forceinline__ void chunk_dlg(const BwdCommon& p, float* scr, bf16* dl,
+// scr (logits without bias) -> dlg in f32 back into scr, and rounded to T into dl
+template <class T>
+__device__ __forceinline__ void chunk_dlg(const BwdCommon<T>& p, float* scr, T* dl,
                                           long long row0, int slot, int col0, int c0,
                                           int nt) {
   for (int e = threadIdx.x; e < BWD_ROWS * CHUNK; e += NTHREADS) {
@@ -215,20 +244,22 @@ __device__ __forceinline__ void chunk_dlg(const BwdCommon& p, float* scr, bf16* 
     float d = 0.f;
     if (row < p.R && c < nt * 16 && col < p.vocab) {
       const size_t rs = (size_t)row * p.n_args + slot;
-      const float lg = scr[r * SCR_LD + c] + bf2f(p.bias[col0 + col]);
+      const float lg = scr[r * SCR_LD + c] + to_f(p.bias[col0 + col]);
       d = (expf(lg - p.lse[rs]) - (col == p.tgt[rs] ? 1.f : 0.f)) * p.g[rs];
     }
     scr[r * SCR_LD + c] = d;
-    dl[r * DL_LD + c] = f2bf(d);
+    dl[r * DL_LD + c] = from_f<T>(d);
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS) ce_bwd_dy_kernel(BwdCommon p, bf16* __restrict__ dy) {
+template <class T>
+__global__ void __launch_bounds__(NTHREADS) ce_bwd_dy_kernel(BwdCommon<T> p, T* __restrict__ dy) {
+  typedef Mma<T> M;
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = p.D, ldx = D + SPAD;
-  bf16* ys = reinterpret_cast<bf16*>(smem);
-  bf16* ws = ys + BWD_ROWS * ldx;
-  bf16* dl = ws + CHUNK * ldx;
+  T* ys = reinterpret_cast<T*>(smem);
+  T* ws = ys + BWD_ROWS * ldx;
+  T* dl = ws + CHUNK * ldx;
   float* scr = reinterpret_cast<float*>(dl + BWD_ROWS * DL_LD);
   float* wscr = scr + BWD_ROWS * SCR_LD + (threadIdx.x >> 5) * 256;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -238,7 +269,7 @@ __global__ void __launch_bounds__(NTHREADS) ce_bwd_dy_kernel(BwdCommon p, bf16* 
 
   const int aw = round16(p.vocab), tiles = aw / 16;
   const int nfrag = D / 32;  // this warp's 16 rows x half of D; D <= 256
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
+  typename M::Acc acc[8];
 #pragma unroll
   for (int f = 0; f < 8; ++f) wmma::fill_fragment(acc[f], 0.f);
   for (int slot = 0; slot < p.n_args; ++slot) {
@@ -252,14 +283,16 @@ __global__ void __launch_bounds__(NTHREADS) ce_bwd_dy_kernel(BwdCommon p, bf16* 
       __syncthreads();
       chunk_dlg(p, scr, dl, row0, slot, col0, t0 * 16, nt);
       __syncthreads();
-      for (int k = 0; k < nt * 16; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      for (int k = 0; k < nt * 16; k += M::K) {
+        typename M::ARow a;
         wmma::load_matrix_sync(a, dl + wr * 16 * DL_LD + k, DL_LD);
+        M::fix(a);
 #pragma unroll
         for (int f = 0; f < 8; ++f) {
           if (f < nfrag) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+            typename M::BRow b;
             wmma::load_matrix_sync(b, ws + k * ldx + wc * (D / 2) + f * 16, ldx);
+            M::fix(b);
             wmma::mma_sync(acc[f], a, b, acc[f]);
           }
         }
@@ -273,7 +306,7 @@ __global__ void __launch_bounds__(NTHREADS) ce_bwd_dy_kernel(BwdCommon p, bf16* 
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
         const long long row = row0 + wr * 16 + e / 16;
-        if (row < p.R) dy[(size_t)row * D + wc * (D / 2) + f * 16 + e % 16] = f2bf(wscr[e]);
+        if (row < p.R) dy[(size_t)row * D + wc * (D / 2) + f * 16 + e % 16] = from_f<T>(wscr[e]);
       }
       __syncwarp();
     }
@@ -281,14 +314,16 @@ __global__ void __launch_bounds__(NTHREADS) ce_bwd_dy_kernel(BwdCommon p, bf16* 
 }
 
 // grid: (n_args * chunks per slot, splits)
+template <class T>
 __global__ void __launch_bounds__(NTHREADS)
-    ce_bwd_dw_kernel(BwdCommon p, float* __restrict__ dw_part, float* __restrict__ db_part,
+    ce_bwd_dw_kernel(BwdCommon<T> p, float* __restrict__ dw_part, float* __restrict__ db_part,
                      int tiles_per_split) {
+  typedef Mma<T> M;
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = p.D, ldx = D + SPAD;
-  bf16* ys = reinterpret_cast<bf16*>(smem);
-  bf16* ws = ys + BWD_ROWS * ldx;
-  bf16* dl = ws + CHUNK * ldx;
+  T* ys = reinterpret_cast<T*>(smem);
+  T* ws = ys + BWD_ROWS * ldx;
+  T* dl = ws + CHUNK * ldx;
   float* scr = reinterpret_cast<float*>(dl + BWD_ROWS * DL_LD);
   const int warp = threadIdx.x >> 5;
   const int wr = warp & 3, wc = warp >> 2;
@@ -300,7 +335,7 @@ __global__ void __launch_bounds__(NTHREADS)
   stage_rows(ws, ldx, p.w, D, nt * 16, col0 + t0 * 16, 1LL << 40);
 
   // this warp's part of dW_chunk: all 64 columns x D columns [32 warp, +32)
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[CHUNK_TILES][2];
+  typename M::Acc acc[CHUNK_TILES][2];
 #pragma unroll
   for (int i = 0; i < CHUNK_TILES; ++i) {
     wmma::fill_fragment(acc[i][0], 0.f);
@@ -323,15 +358,18 @@ __global__ void __launch_bounds__(NTHREADS)
     if (threadIdx.x < CHUNK)
       for (int r = 0; r < BWD_ROWS; ++r) db += scr[r * SCR_LD + threadIdx.x];
     if (owns) {
-      for (int k = 0; k < BWD_ROWS; k += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+      for (int k = 0; k < BWD_ROWS; k += M::K) {
+        typename M::BRow b[2];
         wmma::load_matrix_sync(b[0], ys + k * ldx + warp * 32, ldx);
         wmma::load_matrix_sync(b[1], ys + k * ldx + warp * 32 + 16, ldx);
+        M::fix(b[0]);
+        M::fix(b[1]);
 #pragma unroll
         for (int i = 0; i < CHUNK_TILES; ++i) {
           if (i < nt) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
+            typename M::ACol a;
             wmma::load_matrix_sync(a, dl + k * DL_LD + i * 16, DL_LD);
+            M::fix(a);
             wmma::mma_sync(acc[i][0], a, b[0], acc[i][0]);
             wmma::mma_sync(acc[i][1], a, b[1], acc[i][1]);
           }
@@ -356,18 +394,20 @@ __global__ void __launch_bounds__(NTHREADS)
     db_part[(size_t)blockIdx.y * C + col0 + t0 * 16 + threadIdx.x] = db;
 }
 
+template <class T>
 size_t bwd_smem(int D) {
-  return (size_t)(BWD_ROWS + CHUNK) * (D + SPAD) * sizeof(bf16) +
-         (size_t)BWD_ROWS * DL_LD * sizeof(bf16) + (size_t)BWD_ROWS * SCR_LD * sizeof(float) +
+  return (size_t)(BWD_ROWS + CHUNK) * (D + SPAD) * sizeof(T) +
+         (size_t)BWD_ROWS * DL_LD * sizeof(T) + (size_t)BWD_ROWS * SCR_LD * sizeof(float) +
          (size_t)NWARPS * 256 * sizeof(float);
 }
 
-BwdCommon common(const void* y, const void* w, const void* bias, const void* tgt,
-                 const void* g, const void* lse, int R, int D, int n_args, int vocab) {
-  BwdCommon p;
-  p.y = (const bf16*)y;
-  p.w = (const bf16*)w;
-  p.bias = (const bf16*)bias;
+template <class T>
+BwdCommon<T> common(const void* y, const void* w, const void* bias, const void* tgt,
+                    const void* g, const void* lse, int R, int D, int n_args, int vocab) {
+  BwdCommon<T> p;
+  p.y = (const T*)y;
+  p.w = (const T*)w;
+  p.bias = (const T*)bias;
   p.tgt = (const int*)tgt;
   p.g = (const float*)g;
   p.lse = (const float*)lse;
@@ -378,66 +418,106 @@ BwdCommon common(const void* y, const void* w, const void* bias, const void* tgt
   return p;
 }
 
-}  // namespace
-
-extern "C" int dsvg_ce_fwd(const void* y, const void* w, const void* bias,
-                           const void* tgt, void* ce, void* lse, int R, int D,
-                           int n_args, int vocab, void* stream) {
-  const size_t smem = fwd_smem(D, 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      ce_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+template <class T>
+int launch_rows(const void* y, const void* w, const void* bias, const void* tgt, void* ce,
+                void* lse, int R, int D, int n_args, int vocab, int G, cudaStream_t stream) {
+  const size_t smem = fwd_smem<T>(D, G);
   const int blocks = (R + FWD_ROWS - 1) / FWD_ROWS;
-  ce_fwd_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)y, (const bf16*)w, (const bf16*)bias, (const int*)tgt, (float*)ce,
-      (float*)lse, R, D, n_args, vocab);
+  cudaError_t err;
+  if (lse != nullptr) {
+    err = cudaFuncSetAttribute(ce_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ce_fwd_kernel<T><<<blocks, NTHREADS, smem, stream>>>(
+        (const T*)y, (const T*)w, (const T*)bias, (const int*)tgt, (float*)ce, (float*)lse, R,
+        D, n_args, vocab);
+  } else {
+    err = cudaFuncSetAttribute(ce_pairwise_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ce_pairwise_kernel<T><<<blocks, NTHREADS, smem, stream>>>(
+        (const T*)y, (const T*)w, (const T*)bias, (const int*)tgt, (float*)ce, R, D, n_args,
+        vocab, G);
+  }
   return (int)cudaGetLastError();
 }
 
-// tgt and ce [R][G * n_args], variant-major
-extern "C" int dsvg_ce_pairwise(const void* y, const void* w, const void* bias,
-                                const void* tgt, void* ce, int R, int D, int n_args,
-                                int vocab, int G, void* stream) {
-  const size_t smem = fwd_smem(D, G);
+template <class T>
+int launch_dy(const void* y, const void* w, const void* bias, const void* tgt, const void* g,
+              const void* lse, void* dy, int R, int D, int n_args, int vocab,
+              cudaStream_t stream) {
+  const size_t smem = bwd_smem<T>(D);
   cudaError_t err = cudaFuncSetAttribute(
-      ce_pairwise_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (R + FWD_ROWS - 1) / FWD_ROWS;
-  ce_pairwise_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)y, (const bf16*)w, (const bf16*)bias, (const int*)tgt, (float*)ce, R, D,
-      n_args, vocab, G);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int dsvg_ce_bwd_dy(const void* y, const void* w, const void* bias,
-                              const void* tgt, const void* g, const void* lse, void* dy,
-                              int R, int D, int n_args, int vocab, void* stream) {
-  const size_t smem = bwd_smem(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      ce_bwd_dy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ce_bwd_dy_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (R + BWD_ROWS - 1) / BWD_ROWS;
-  ce_bwd_dy_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(
-      common(y, w, bias, tgt, g, lse, R, D, n_args, vocab), (bf16*)dy);
+  ce_bwd_dy_kernel<T><<<blocks, NTHREADS, smem, stream>>>(
+      common<T>(y, w, bias, tgt, g, lse, R, D, n_args, vocab), (T*)dy);
   return (int)cudaGetLastError();
 }
 
-// dw_part [splits][n_args * round16(vocab)][D], db_part [splits][n_args * round16(vocab)]
-extern "C" int dsvg_ce_bwd_dw(const void* y, const void* w, const void* bias,
-                              const void* tgt, const void* g, const void* lse,
-                              void* dw_part, void* db_part, int R, int D, int n_args,
-                              int vocab, int splits, void* stream) {
-  const size_t smem = bwd_smem(D);
+template <class T>
+int launch_dw(const void* y, const void* w, const void* bias, const void* tgt, const void* g,
+              const void* lse, void* dw_part, void* db_part, int R, int D, int n_args,
+              int vocab, int splits, cudaStream_t stream) {
+  const size_t smem = bwd_smem<T>(D);
   cudaError_t err = cudaFuncSetAttribute(
-      ce_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ce_bwd_dw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = round16(vocab) / 16;
   const int chunks = (tiles + CHUNK_TILES - 1) / CHUNK_TILES;
   const int ntiles = (R + BWD_ROWS - 1) / BWD_ROWS;
   const int per_split = (ntiles + splits - 1) / splits;
   dim3 grid(n_args * chunks, splits);
-  ce_bwd_dw_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      common(y, w, bias, tgt, g, lse, R, D, n_args, vocab), (float*)dw_part,
+  ce_bwd_dw_kernel<T><<<grid, NTHREADS, smem, stream>>>(
+      common<T>(y, w, bias, tgt, g, lse, R, D, n_args, vocab), (float*)dw_part,
       (float*)db_part, per_split);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// is_f32 (every entry point): y, the head, its bias and dy are float (TF32
+// products), else bf16
+extern "C" int dsvg_ce_fwd(const void* y, const void* w, const void* bias,
+                           const void* tgt, void* ce, void* lse, int R, int D,
+                           int n_args, int vocab, int is_f32, void* stream) {
+  if (is_f32)
+    return launch_rows<float>(y, w, bias, tgt, ce, lse, R, D, n_args, vocab, 1,
+                              (cudaStream_t)stream);
+  return launch_rows<bf16>(y, w, bias, tgt, ce, lse, R, D, n_args, vocab, 1,
+                           (cudaStream_t)stream);
+}
+
+// tgt and ce [R][G * n_args], variant-major
+extern "C" int dsvg_ce_pairwise(const void* y, const void* w, const void* bias,
+                                const void* tgt, void* ce, int R, int D, int n_args,
+                                int vocab, int G, int is_f32, void* stream) {
+  if (is_f32)
+    return launch_rows<float>(y, w, bias, tgt, ce, nullptr, R, D, n_args, vocab, G,
+                              (cudaStream_t)stream);
+  return launch_rows<bf16>(y, w, bias, tgt, ce, nullptr, R, D, n_args, vocab, G,
+                           (cudaStream_t)stream);
+}
+
+extern "C" int dsvg_ce_bwd_dy(const void* y, const void* w, const void* bias,
+                              const void* tgt, const void* g, const void* lse, void* dy,
+                              int R, int D, int n_args, int vocab, int is_f32, void* stream) {
+  if (is_f32)
+    return launch_dy<float>(y, w, bias, tgt, g, lse, dy, R, D, n_args, vocab,
+                            (cudaStream_t)stream);
+  return launch_dy<bf16>(y, w, bias, tgt, g, lse, dy, R, D, n_args, vocab,
+                         (cudaStream_t)stream);
+}
+
+// dw_part [splits][n_args * round16(vocab)][D], db_part [splits][n_args * round16(vocab)]
+extern "C" int dsvg_ce_bwd_dw(const void* y, const void* w, const void* bias,
+                              const void* tgt, const void* g, const void* lse,
+                              void* dw_part, void* db_part, int R, int D, int n_args,
+                              int vocab, int splits, int is_f32, void* stream) {
+  if (is_f32)
+    return launch_dw<float>(y, w, bias, tgt, g, lse, dw_part, db_part, R, D, n_args, vocab,
+                            splits, (cudaStream_t)stream);
+  return launch_dw<bf16>(y, w, bias, tgt, g, lse, dw_part, db_part, R, D, n_args, vocab,
+                         splits, (cudaStream_t)stream);
 }

@@ -7,7 +7,8 @@
 // rows of x in shared memory; per slot it stages up to 64 head columns at a
 // time in shared memory (read by all 8 warps), each warp multiplies its 16
 // rows with wmma (bf16, f32 accumulate), and two lanes per row fold the
-// chunk into a running (max, first index). A block takes every slot of its
+// chunk into a running (max, first index). The float form multiplies in
+// TF32 (wmma 16x16x8) with 32-column chunks. A block takes every slot of its
 // rows; when the row tiles are fewer than the card's SMs (the autoregressive
 // decode's R = N rows a step), the slots go to blocks of their own
 // (blockIdx.y), which compute each slot as the one block would.
@@ -20,36 +21,50 @@ using namespace nvcuda;
 namespace {
 
 constexpr int HEAD_ROWS = NWARPS * 16;
-constexpr int CHUNK_TILES = 4;  // 64 head columns per staged chunk
-constexpr int SCR_LD = CHUNK_TILES * 16 + 4;
+
+// head columns staged per chunk: 64 for bf16; 32 for float, whose x tile
+// and chunk are twice the bytes (128 x 264 x 4 + 32 x 264 x 4 B fit the
+// block's shared memory, 128 + 64 rows would not)
+template <class T>
+struct HeadCfg {
+  static constexpr int CHUNK_TILES = sizeof(T) == 2 ? 4 : 2;
+  static constexpr int SCR_LD = CHUNK_TILES * 16 + 4;
+};
 
 __host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
 
+template <class T>
 size_t smem_bytes(int D) {
-  return (size_t)(HEAD_ROWS + CHUNK_TILES * 16) * (D + SPAD) * sizeof(bf16) +
-         (size_t)NWARPS * 16 * SCR_LD * sizeof(float);
+  typedef HeadCfg<T> C;
+  return (size_t)(HEAD_ROWS + C::CHUNK_TILES * 16) * (D + SPAD) * sizeof(T) +
+         (size_t)NWARPS * 16 * C::SCR_LD * sizeof(float);
 }
 
+template <class T>
 __global__ void __launch_bounds__(NTHREADS)
-    head_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                const bf16* __restrict__ bias, int* __restrict__ ids, int R,
+    head_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                const T* __restrict__ bias, int* __restrict__ ids, int R,
                 int D, int n_cmd, int n_args, int vocab, int slots_per_block) {
+  typedef Mma<T> M;
+  constexpr int CHUNK_TILES = HeadCfg<T>::CHUNK_TILES;
+  constexpr int SCR_LD = HeadCfg<T>::SCR_LD;
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldx = D + SPAD;
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* ws = xs + HEAD_ROWS * ldx;
+  T* xs = reinterpret_cast<T*>(smem);
+  T* ws = xs + HEAD_ROWS * ldx;
   float* scr = reinterpret_cast<float*>(ws + CHUNK_TILES * 16 * ldx);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* wscr = scr + warp * 16 * SCR_LD;
   const int row0 = blockIdx.x * HEAD_ROWS;
-  const int vecs = D / 8;  // 16-byte vectors per row
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
+  const int vecs = D / VEC;
 
   for (int e = threadIdx.x; e < HEAD_ROWS * vecs; e += NTHREADS) {
     const int r = e / vecs, c = e - r * vecs;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (row0 + r < R) v = reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * D)[c];
-    *reinterpret_cast<uint4*>(xs + r * ldx + c * 8) = v;
+    *reinterpret_cast<uint4*>(xs + r * ldx + c * VEC) = v;
   }
 
   const int cw = round16(n_cmd), aw = round16(vocab);
@@ -68,22 +83,24 @@ __global__ void __launch_bounds__(NTHREADS)
       __syncthreads();  // x is loaded / the previous chunk is consumed
       for (int e = threadIdx.x; e < nt * 16 * vecs; e += NTHREADS) {
         const int r = e / vecs, c = e - r * vecs;
-        *reinterpret_cast<uint4*>(ws + r * ldx + c * 8) =
+        *reinterpret_cast<uint4*>(ws + r * ldx + c * VEC) =
             reinterpret_cast<const uint4*>(w + (size_t)(col0 + t0 * 16 + r) * D)[c];
       }
       __syncthreads();
 
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[CHUNK_TILES];
+      typename M::Acc acc[CHUNK_TILES];
 #pragma unroll
       for (int t = 0; t < CHUNK_TILES; ++t) wmma::fill_fragment(acc[t], 0.f);
-      for (int k = 0; k < D; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      for (int k = 0; k < D; k += M::K) {
+        typename M::ARow a;
         wmma::load_matrix_sync(a, xs + warp * 16 * ldx + k, ldx);
+        M::fix(a);
 #pragma unroll
         for (int t = 0; t < CHUNK_TILES; ++t) {
           if (t < nt) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+            typename M::BCol b;
             wmma::load_matrix_sync(b, ws + t * 16 * ldx + k, ldx);
+            M::fix(b);
             wmma::mma_sync(acc[t], a, b, acc[t]);
           }
         }
@@ -99,7 +116,7 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int c = half; c < nt * 16; c += 2) {
         const int col = t0 * 16 + c;  // index within the slot
         if (col < valid) {
-          const float v = wscr[pr * SCR_LD + c] + bf2f(bias[col0 + col]);
+          const float v = wscr[pr * SCR_LD + c] + to_f(bias[col0 + col]);
           if (v > cb) {
             cb = v;
             ci = col;
@@ -122,14 +139,12 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-}  // namespace
-
-extern "C" int dsvg_head_argmax(const void* x, const void* w, const void* bias,
-                                void* ids, int R, int D, int n_cmd, int n_args,
-                                int vocab, void* stream) {
-  const size_t smem = smem_bytes(D);
+template <class T>
+int launch_head(const void* x, const void* w, const void* bias, void* ids, int R, int D,
+                int n_cmd, int n_args, int vocab, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(D);
   cudaError_t err = cudaFuncSetAttribute(
-      head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      head_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (R + HEAD_ROWS - 1) / HEAD_ROWS;
   int device = 0, sms = 0;
@@ -137,8 +152,20 @@ extern "C" int dsvg_head_argmax(const void* x, const void* w, const void* bias,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const int per_block = blocks < sms ? 1 : n_args + 1;
   const dim3 grid(blocks, (n_args + per_block) / per_block);
-  head_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w, (const bf16*)bias, (int*)ids, R, D,
-      n_cmd, n_args, vocab, per_block);
+  head_kernel<T><<<grid, NTHREADS, smem, stream>>>((const T*)x, (const T*)w,
+                                                   (const T*)bias, (int*)ids, R, D, n_cmd,
+                                                   n_args, vocab, per_block);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// is_f32: x, the head and its bias are float (TF32 products), else bf16
+extern "C" int dsvg_head_argmax(const void* x, const void* w, const void* bias,
+                                void* ids, int R, int D, int n_cmd, int n_args,
+                                int vocab, int is_f32, void* stream) {
+  if (is_f32)
+    return launch_head<float>(x, w, bias, ids, R, D, n_cmd, n_args, vocab,
+                              (cudaStream_t)stream);
+  return launch_head<bf16>(x, w, bias, ids, R, D, n_cmd, n_args, vocab, (cudaStream_t)stream);
 }

@@ -11,7 +11,8 @@
 //    query when causal) and values come into shared memory; the scores
 //    Q K^T on the tensor cores (f32); each row's exact softmax over all its
 //    keys in f32, the probabilities rounded to T in place of the scores; the
-//    context P V on the tensor cores, rounded to T. Then, as the short form:
+//    context P V on the tensor cores, rounded to T (attend_tile, which the
+//    attention block alone, attention.cu, shares). Then, as the short form:
 //    out projection into the f32 residual (reloaded from x), seq_bias, LN2,
 //    ReLU FF and residual, and the store of the tile's valid rows.
 // The roundings are the short form's and layer_reference's. The products
@@ -121,35 +122,35 @@ __device__ void load_head(const T* src, size_t row0, int nrows, int rows, int ld
   }
 }
 
-template <class T, int QROWS, bool TRAIN>
-__global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, const T* qkv) {
+// The attention of one (sequence b, query tile) block, every head in turn:
+// the tile's queries [q0, q0 + nq), the sequence's keys (up to the tile's
+// last query when causal) and values come into shared memory; the scores
+// Q K^T on the tensor cores (f32); each row's exact softmax over all its keys
+// in f32, the probabilities rounded to T in place of the scores; the context
+// P V on the tensor cores, rounded to T, into ctx [QROWS][ldn]. With `drop`,
+// the probabilities are dropped with the mask of SITE_ATTN_PROB at row
+// (b * H + h) * S + i, column j; with `p_save` ([B][H][S][S]), they are
+// saved before dropout. Shared by K2's and K4's long forms and by the
+// attention block alone (K10, K11; attention.cu).
+template <class T, int QROWS>
+__device__ __forceinline__ void attend_tile(const T* qkv, const float* mask, int b, int q0,
+                                            int nq, int S, int D, int H, int causal,
+                                            float scale, const LongLayout<T, QROWS>& lay,
+                                            unsigned char* smem, T* ctx, float* wscr,
+                                            int warp, int lane, bool drop, int seed,
+                                            unsigned thr, float kp, T* p_save) {
   typedef Mma<T> M;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int D = p.D, F = p.F, S = p.S, H = p.H;
-  const LongLayout<T, QROWS> lay(S, D, F);
-  T* ctx = reinterpret_cast<T*>(smem + lay.ctx);
   T* qs = reinterpret_cast<T*>(smem + lay.q);
   T* ks = reinterpret_cast<T*>(smem + lay.k);
   T* vs = reinterpret_cast<T*>(smem + lay.v);
   float* sc = reinterpret_cast<float*>(smem + lay.sc);
   T* ps = reinterpret_cast<T*>(sc);                   // probabilities, in place of the scores
   const int ldp = lay.lds * (int)(sizeof(float) / sizeof(T));
-  float* xres = reinterpret_cast<float*>(smem + lay.xres);
-  T* big = reinterpret_cast<T*>(smem + lay.big);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* wscr = reinterpret_cast<float*>(smem + lay.scratch) + warp * 256;
   const int ldn = lay.ldn, ldh = lay.ldh, lds = lay.lds;
-  const bool drop = TRAIN && p.thr != 0u;
-
-  const int ntiles = (S + QROWS - 1) / QROWS;
-  const int b = blockIdx.x / ntiles;
-  const int q0 = (blockIdx.x - b * ntiles) * QROWS;
-  const int nq = min(QROWS, S - q0);
-  const int kmax = p.causal ? q0 + nq : S;            // keys any query of the tile sees
+  const int kmax = causal ? q0 + nq : S;              // keys any query of the tile sees
   const int nk = round16(kmax);
   const size_t seq_row0 = (size_t)b * S;
   const size_t tile_row0 = seq_row0 + q0;
-  const float* mask = p.mask + seq_row0;
 
   for (int h = 0; h < H; ++h) {
     load_head(qkv, tile_row0, nq, QROWS, 3 * D, h * HEAD_DIM, qs, ldh);
@@ -178,17 +179,17 @@ __global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, co
     __syncthreads();
 
     // softmax of each row over its keys; probabilities rounded to T, in place
-    // (with TRAIN: saved before dropout, then dropped)
-    const unsigned key_ap = site_key(p.seed, SITE_ATTN_PROB);
+    // (saved before dropout where asked, then dropped)
+    const unsigned key_ap = site_key(seed, SITE_ATTN_PROB);
     for (int r = warp; r < QROWS; r += NWARPS) {
       const int qi = q0 + r;
-      const int klim = p.causal ? min(qi + 1, S) : S;
+      const int klim = causal ? min(qi + 1, S) : S;
       float v[MAX_SEQ_LONG / 32];
       float m = -INFINITY;
 #pragma unroll
       for (int t = 0; t < MAX_SEQ_LONG / 32; ++t) {
         const int j = lane + 32 * t;
-        v[t] = j < klim ? sc[r * lds + j] * p.scale + mask[j] : -INFINITY;
+        v[t] = j < klim ? sc[r * lds + j] * scale + mask[j] : -INFINITY;
         m = fmaxf(m, v[t]);
       }
       m = warp_max(m);
@@ -205,10 +206,8 @@ __global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, co
       for (int t = 0; t < MAX_SEQ_LONG / 32; ++t) {
         const int j = lane + 32 * t;
         float pr = m == -INFINITY ? 0.f : v[t] / sum;
-        if constexpr (TRAIN) {
-          if (r < nq && j < S) p.p_s[prow * S + j] = from_f<T>(pr);
-          if (drop) pr = keep_elem(key_ap, (unsigned)prow, (unsigned)j, p.thr) ? pr * p.kp : 0.f;
-        }
+        if (p_save != nullptr && r < nq && j < S) p_save[prow * S + j] = from_f<T>(pr);
+        if (drop) pr = keep_elem(key_ap, (unsigned)prow, (unsigned)j, thr) ? pr * kp : 0.f;
         if (j < nk) ps[r * ldp + j] = from_f<T>(pr);
       }
     }
@@ -236,6 +235,30 @@ __global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, co
     }
     __syncthreads();
   }
+}
+
+template <class T, int QROWS, bool TRAIN>
+__global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, const T* qkv) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = p.D, F = p.F, S = p.S, H = p.H;
+  const LongLayout<T, QROWS> lay(S, D, F);
+  T* ctx = reinterpret_cast<T*>(smem + lay.ctx);
+  float* xres = reinterpret_cast<float*>(smem + lay.xres);
+  T* big = reinterpret_cast<T*>(smem + lay.big);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* wscr = reinterpret_cast<float*>(smem + lay.scratch) + warp * 256;
+  const int ldn = lay.ldn;
+  const bool drop = TRAIN && p.thr != 0u;
+
+  const int ntiles = (S + QROWS - 1) / QROWS;
+  const int b = blockIdx.x / ntiles;
+  const int q0 = (blockIdx.x - b * ntiles) * QROWS;
+  const int nq = min(QROWS, S - q0);
+  const size_t tile_row0 = (size_t)b * S + q0;
+
+  attend_tile<T, QROWS>(qkv, p.mask + (size_t)b * S, b, q0, nq, S, D, H, p.causal, p.scale,
+                        lay, smem, ctx, wscr, warp, lane, drop, p.seed, p.thr, p.kp,
+                        TRAIN ? p.p_s : nullptr);
   if constexpr (TRAIN) {
     for (int e = threadIdx.x; e < nq * D; e += NTHREADS) {
       const int r = e / D, c = e - r * D;

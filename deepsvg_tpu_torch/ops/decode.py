@@ -41,6 +41,12 @@ at a time and streams its ``[index, 32]`` key and value slices with 16-byte
 loads, four lanes per position, folding them into an online softmax. Every
 block reads all the weights from L2 at every step (4 MB, 512 MB over the
 grid), which costs about 0.24 ms a step whatever ``index`` is (PERF.md).
+
+A float32 model takes the kernel's float32 form: float32 activations,
+weights and caches, the products in TF32 (``wmma`` 16x16x8, whose 16-row
+tile holds the block's 8 rows and 8 zero rows), the cache read as two
+16-byte loads per lane. Its caches are twice the bytes: 1,007 MB a step at
+``index`` 120, 0.30 ms at 3.35 TB/s.
 """
 from __future__ import annotations
 
@@ -92,7 +98,7 @@ def decode_step_reference(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, 
     return y, torch.stack(k_new), torch.stack(v_new)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def fused_decode_step(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s, w2s, b2s,
@@ -101,8 +107,8 @@ def fused_decode_step(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s,
     v_new [L, R, D])``.
 
     A CPU tensor takes :func:`decode_step_reference`; a CUDA tensor launches
-    the kernel (bfloat16 activations, weights and caches, head dim 32,
-    D <= 256 and D, F multiples of 32) or raises.
+    the kernel (activations, weights and caches all bfloat16 or all float32,
+    head dim 32, D <= 256 and D, F multiples of 32) or raises.
     """
     if x.device.type == "cpu":
         return decode_step_reference(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s,
@@ -113,7 +119,7 @@ def fused_decode_step(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s,
     dev = x.device
     n_layers, r, t, d = kcache.shape
     f = w1s.shape[1]
-    bf16 = torch.bfloat16
+    dt = _build.kernel_dtype(x, "x")
     if d != n_heads * HEAD_DIM or d > MAX_D or d % 32 or f % 32:
         raise ValueError(f"decode kernel takes head dim {HEAD_DIM}, D <= {MAX_D} and D, F "
                          f"multiples of 32; got D={d}, heads={n_heads}, F={f}")
@@ -128,10 +134,10 @@ def fused_decode_step(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s,
             ("w2s", w2s, (n_layers, d, f)), ("b2s", b2s, (n_layers, d)),
             ("lnf", lnf, (2, d)), ("kcache", kcache, (n_layers, r, t, d)),
             ("vcache", vcache, (n_layers, r, t, d))):
-        _build.require(tensor, name, dev, bf16, shape)
+        _build.require(tensor, name, dev, dt, shape)
     _build.require(key_pad, "key_pad", dev, torch.float32, (r, t))
     y = torch.empty_like(x)
-    k_new = torch.empty((n_layers, r, d), dtype=bf16, device=dev)
+    k_new = torch.empty((n_layers, r, d), dtype=dt, device=dev)
     v_new = torch.empty_like(k_new)
     if r == 0:
         return y, k_new, v_new
@@ -141,10 +147,13 @@ def fused_decode_step(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s,
             w1s.data_ptr(), b1s.data_ptr(), w2s.data_ptr(), b2s.data_ptr(), lnf.data_ptr(),
             kcache.data_ptr(), vcache.data_ptr(), key_pad.data_ptr(), y.data_ptr(),
             k_new.data_ptr(), v_new.data_ptr(), r, t, d, f, n_heads, n_layers, index,
-            HEAD_DIM ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+            int(dt == torch.float32), HEAD_DIM ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "decode")
     fused_decode_step.launches += 1
+    fused_decode_step.float32_launches += dt == torch.float32
     return y, k_new, v_new
 
 
-fused_decode_step.launches = 0
+fused_decode_step.launches = 0            # every launch
+fused_decode_step.float32_launches = 0    # those of its float32 form

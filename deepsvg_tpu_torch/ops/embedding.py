@@ -81,7 +81,7 @@ def embedding_reference(commands, args, groups, cmd_table, arg_tables,
     return acc.to(cmd_table.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def fused_embedding(commands, args, groups, cmd_table, arg_tables, group_table,
@@ -92,7 +92,7 @@ def fused_embedding(commands, args, groups, cmd_table, arg_tables, group_table,
     ``pos [S, D]``. Returns ``[B, S, D]`` in the tables' dtype.
 
     A CPU tensor takes :func:`embedding_reference`; a CUDA tensor launches
-    the kernel (bfloat16 tables) or raises.
+    the kernel (tables all bfloat16 or all float32) or raises.
     """
     if commands.device.type == "cpu":
         return embedding_reference(commands, args, groups, cmd_table, arg_tables,
@@ -104,39 +104,41 @@ def fused_embedding(commands, args, groups, cmd_table, arg_tables, group_table,
     n_args = args.shape[-1]
     d = cmd_table.shape[1]
     vocab = arg_tables.shape[0] // n_args
-    bf16 = torch.bfloat16
+    dt = _build.kernel_dtype(cmd_table, "cmd_table")
     if d % 2:
         raise ValueError(f"d_model must be even, got {d}")
-    _build.require(cmd_table, "cmd_table", dev, bf16, (cmd_table.shape[0], d))
-    _build.require(arg_tables, "arg_tables", dev, bf16, (n_args * vocab, d))
-    _build.require(pos_table, "pos_table", dev, bf16, (s, d))
+    _build.require(cmd_table, "cmd_table", dev, dt, (cmd_table.shape[0], d))
+    _build.require(arg_tables, "arg_tables", dev, dt, (n_args * vocab, d))
+    _build.require(pos_table, "pos_table", dev, dt, (s, d))
     cmd32 = commands.to(torch.int32).contiguous()
     # one cast, as the TPU wrapper; the ids may come as a view (the teacher-
     # forced decoder's targets without their last position)
     args32 = args.to(torch.int32).contiguous()
     _build.require(args32, "args", dev, shape=(b, s, n_args))
     if use_group:
-        _build.require(group_table, "group_table", dev, bf16, (group_table.shape[0], d))
+        _build.require(group_table, "group_table", dev, dt, (group_table.shape[0], d))
         groups32 = groups.to(torch.int32).contiguous()
         _build.require(groups32, "groups", dev, shape=(b, s))
         n_group = group_table.shape[0]
     else:
         groups32, group_table, n_group = cmd32, cmd_table, 0
-    out = torch.empty((b, s, d), dtype=bf16, device=dev)
+    out = torch.empty((b, s, d), dtype=dt, device=dev)
     if out.numel() == 0:
         return out
     fn = _build.kernel_function("dsvg_embedding", _ARGTYPES)
     rc = fn(cmd32.data_ptr(), args32.data_ptr(), groups32.data_ptr(),
             cmd_table.data_ptr(), arg_tables.data_ptr(), group_table.data_ptr(),
             pos_table.data_ptr(), out.data_ptr(), b * s, s, d, n_args, vocab,
-            cmd_table.shape[0], n_group, int(use_group),
+            cmd_table.shape[0], n_group, int(use_group), int(dt == torch.float32),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "embedding")
     fused_embedding.launches += 1
+    fused_embedding.float32_launches += dt == torch.float32
     return out
 
 
-fused_embedding.launches = 0
+fused_embedding.launches = 0            # every launch
+fused_embedding.float32_launches = 0    # those of its float32 form
 
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 8

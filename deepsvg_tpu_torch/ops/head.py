@@ -22,6 +22,14 @@ accumulate), adds the bias in f32 and folds each chunk into a running
 R = N rows a step (8 row tiles at N=1024): when the row tiles are fewer than
 the card's SMs, each slot goes to a block of its own, which computes it as
 the one block would (the ids are the same).
+
+A float32 model takes the kernel's float32 form: float32 ``x``, head and
+bias, products on the tensor cores in TF32 (``wmma`` 16x16x8; the operands
+keep 10 mantissa bits, the sums are float32) with 32-column chunks, the
+block's shared memory holding the twice-as-wide ``x`` tile. The Pallas
+kernel multiplies in its operands' type; the plain version here in full
+float32, so ids may differ only where two logits lie within TF32's rounding
+of each other.
 """
 from __future__ import annotations
 
@@ -68,7 +76,7 @@ def head_argmax_reference(x, w_packed, b_packed, n_commands: int, n_args: int,
     return torch.stack(ids, dim=1).to(torch.int32)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def fused_head_argmax(x, w_packed, b_packed, n_commands: int, n_args: int,
@@ -76,7 +84,7 @@ def fused_head_argmax(x, w_packed, b_packed, n_commands: int, n_args: int,
     """``x [R, D]`` decoder states -> ``ids [R, 1 + n_args]`` int32.
 
     A CPU tensor takes :func:`head_argmax_reference`; a CUDA tensor launches
-    the kernel (bfloat16 ``x`` and head) or raises.
+    the kernel (``x`` and head both bfloat16 or both float32) or raises.
     """
     if x.device.type == "cpu":
         return head_argmax_reference(x, w_packed, b_packed, n_commands, n_args,
@@ -86,21 +94,24 @@ def fused_head_argmax(x, w_packed, b_packed, n_commands: int, n_args: int,
     dev = x.device
     r, d = x.shape
     c = _round_up(n_commands) + n_args * _round_up(args_vocab)
+    dt = _build.kernel_dtype(x, "x")
     if d % TILE:
         raise ValueError(f"head kernel takes D a multiple of {TILE}, got {d}")
-    _build.require(x, "x", dev, torch.bfloat16, (r, d))
-    _build.require(w_packed, "w_packed", dev, torch.bfloat16, (c, d))
-    _build.require(b_packed, "b_packed", dev, torch.bfloat16, (c,))
+    _build.require(x, "x", dev, dt, (r, d))
+    _build.require(w_packed, "w_packed", dev, dt, (c, d))
+    _build.require(b_packed, "b_packed", dev, dt, (c,))
     ids = torch.empty((r, 1 + n_args), dtype=torch.int32, device=dev)
     if r == 0:
         return ids
     fn = _build.kernel_function("dsvg_head_argmax", _ARGTYPES)
     rc = fn(x.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(), ids.data_ptr(),
-            r, d, n_commands, n_args, args_vocab,
+            r, d, n_commands, n_args, args_vocab, int(dt == torch.float32),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "head")
     fused_head_argmax.launches += 1
+    fused_head_argmax.float32_launches += dt == torch.float32
     return ids
 
 
-fused_head_argmax.launches = 0
+fused_head_argmax.launches = 0            # every launch
+fused_head_argmax.float32_launches = 0    # those of its float32 form

@@ -111,7 +111,6 @@ _LONG_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_float,
 MAX_SEQ = 32
 MAX_SEQ_LONG = 256
 HEAD_DIM = 32
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
@@ -122,8 +121,7 @@ def check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2
     dev, dt = x.device, x.dtype
     b, s, d = x.shape
     f = w1.shape[0]
-    if dt not in KERNEL_DTYPES:
-        raise ValueError(f"x has dtype {dt}, expected bfloat16 or float32")
+    _build.kernel_dtype(x, "x")
     if d != n_heads * HEAD_DIM or not 1 <= s <= max_seq or d % 16 or f % 16:
         raise ValueError(
             f"layer kernel takes head dim {HEAD_DIM}, 1 <= S <= {max_seq} and "

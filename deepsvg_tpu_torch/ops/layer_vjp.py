@@ -222,16 +222,14 @@ def _backward_outputs(x, f, small_rows):
             torch.empty((small_rows, 9 * d + f), dtype=torch.float32, device=dev))
 
 
-def _weight_grads(ctx_s, outs, d, f, is_f32, stream):
-    """The launches after the row-local backward: ``wgrad`` (the four weight
-    products split over the rows) and the fixed-order reductions of its
-    partial sums and of the column sums. Returns the ten weight gradients in
-    the fused layer's argument order."""
-    _, _, xn1_o, dqkv_o, da_o, xn2_o, dhpre_o, hd_o, df_o, small_part = outs
-    dev = ctx_s.device
-    # dW = (output-side gradient)^T @ (input), nn.Linear layout [out, in]
-    problems = ((dqkv_o, xn1_o), (da_o, ctx_s), (dhpre_o, xn2_o), (df_o, hd_o))
-    rows_pad = xn1_o.shape[0]
+def weight_products(problems, is_f32, stream):
+    """``A^T @ B`` in float32 for each ``(A [rows_pad, M], B [rows_pad, N])``
+    of ``problems`` (rows beyond the batch zero, ``rows_pad`` a multiple of
+    16, M and N multiples of 64): one ``wgrad`` launch split over the rows
+    into partial sums, and their fixed-order reduction. Returns the
+    ``[M, N]`` products in order."""
+    dev = problems[0][0].device
+    rows_pad = problems[0][0].shape[0]
     splits = max(1, min(WGRAD_MAX_SPLITS, rows_pad // WGRAD_ROWS_PER_SPLIT))
     per_split = _round_up(-(-rows_pad // splits), 16)
     sizes = [a.shape[1] * bb.shape[1] for a, bb in problems]
@@ -246,8 +244,18 @@ def _weight_grads(ctx_s, outs, d, f, is_f32, stream):
            len(problems), rows_pad, per_split, splits, is_f32, part.data_ptr(), stream),
         "wgrad")
     dws = reduce_partials(part).split(sizes)
-    dwqkv, dwo, dw1, dw2 = (w.view(a.shape[1], bb.shape[1])
-                            for w, (a, bb) in zip(dws, problems))
+    return [w.view(a.shape[1], bb.shape[1]) for w, (a, bb) in zip(dws, problems)]
+
+
+def _weight_grads(ctx_s, outs, d, f, is_f32, stream):
+    """The launches after the row-local backward: ``wgrad`` (the four weight
+    products split over the rows) and the fixed-order reductions of its
+    partial sums and of the column sums. Returns the ten weight gradients in
+    the fused layer's argument order."""
+    _, _, xn1_o, dqkv_o, da_o, xn2_o, dhpre_o, hd_o, df_o, small_part = outs
+    # dW = (output-side gradient)^T @ (input), nn.Linear layout [out, in]
+    dwqkv, dwo, dw1, dw2 = weight_products(
+        ((dqkv_o, xn1_o), (da_o, ctx_s), (dhpre_o, xn2_o), (df_o, hd_o)), is_f32, stream)
     small = reduce_partials(small_part)
     dln1, dbqkv, dbo, dln2, db1, db2 = small.split([2 * d, 3 * d, d, 2 * d, f, d])
     return dln1.view(2, d), dwqkv, dbqkv, dwo, dbo, dln2.view(2, d), dw1, db1, dw2, db2

@@ -6,15 +6,19 @@ so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
-Inputs are bfloat16, made from a seed with numpy, at small batches but the
-flagship's widths (D=256, 8 heads of 32, FF 512, 11 x 257 argument classes).
-Tolerances as in ``chip_smoke.py``: the kernel rounds to bfloat16 at the same
-points as its plain version, but sums in another order.
+Inputs are bfloat16 (or float32, for the float32 forms), made from a seed
+with numpy, at small batches but the flagship's widths (D=256, 8 heads of
+32, FF 512, 11 x 257 argument classes). Tolerances as in ``chip_smoke.py``:
+the kernel rounds to bfloat16 at the same points as its plain version, but
+sums in another order; a float32 form multiplies in TF32 against the plain
+version's full float32.
 """
 import numpy as np
 import pytest
 import torch
 
+from deepsvg_tpu_torch.ops import attention as attn_ops
+from deepsvg_tpu_torch.ops import attention_vjp
 from deepsvg_tpu_torch.ops import ce as ce_ops
 from deepsvg_tpu_torch.ops import decode as decode_ops
 from deepsvg_tpu_torch.ops import embedding as emb_ops
@@ -380,21 +384,34 @@ def test_embedding_backward_long_s(cuda, s):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
+    """Every kernel takes operands all bfloat16 or all float32: a mix raises,
+    naming the dtype (K3 and K5 take float32 operands since their float32
+    forms, so a float32 call runs)."""
     f32 = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+    c = head_ops._round_up(N_CMD) + N_ARGS * head_ops._round_up(VOCAB)
     with pytest.raises(ValueError, match="dtype"):        # mixed activation and weight types
         layer_ops.fused_layer(f32(2, 8, D).to(BF16), None, f32(2, D), f32(3 * D, D), f32(3 * D),
                               f32(D, D), f32(D), f32(2, D), f32(F_FF, D), f32(F_FF),
                               f32(D, F_FF), f32(D), f32(2, 8), H)
     with pytest.raises(ValueError, match="dtype"):
-        head_ops.fused_head_argmax(f32(8, D), f32(16, D), f32(16), N_CMD, N_ARGS, VOCAB)
+        head_ops.fused_head_argmax(f32(8, D), f32(c, D).to(BF16), f32(c).to(BF16), N_CMD,
+                                   N_ARGS, VOCAB)
+    with pytest.raises(ValueError, match="dtype"):
+        head_ops.fused_head_argmax(f32(8, D).to(BF16), f32(c, D), f32(c), N_CMD, N_ARGS, VOCAB)
     x32 = f32(2, 257, D).requires_grad_()
     with pytest.raises(ValueError, match="S <= 256"):     # beyond the long form too
         layer_vjp.fused_layer_train(x32, None, f32(2, D), f32(3 * D, D), f32(3 * D), f32(D, D),
                                     f32(D), f32(2, D), f32(F_FF, D), f32(F_FF), f32(D, F_FF),
                                     f32(D), f32(2, 257), 0, H)
-    with pytest.raises(ValueError, match="bfloat16"):
-        ce_ops.args_ce(f32(8, D), f32(N_ARGS * VOCAB, D), f32(N_ARGS * VOCAB),
-                       torch.zeros(8, N_ARGS, dtype=torch.int32, device=cuda))
+    tgt = torch.zeros(8, N_ARGS, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="dtype torch.float32 and head of dtype torch.bfloat16"):
+        ce_ops.args_ce(f32(8, D), f32(N_ARGS * VOCAB, D), f32(N_ARGS * VOCAB), tgt, BF16)
+    with pytest.raises(ValueError, match="dtype torch.bfloat16 and head of dtype torch.float32"):
+        ce_ops.args_ce(f32(8, D).to(BF16), f32(N_ARGS * VOCAB, D), f32(N_ARGS * VOCAB), tgt,
+                       torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        emb_ops.fused_embedding(tgt[:, :4], f32(8, 4, N_ARGS), None, f32(N_CMD, D),
+                                f32(N_ARGS * VOCAB, D).to(BF16), None, f32(4, D))
 
 
 def _stack_inputs(rng, dev, dtype, n_layers, b, s, with_bias):
@@ -494,8 +511,8 @@ def test_pairwise_ce_kernel_matches_plain(cuda, r, n_variants):
                                    BF16) for g in range(n_variants)], dim=1)
     print(f"  K8 vs K5 per variant: max abs diff {(ce - k5).abs().max().item():.3g}")
     assert torch.equal(ce, k5)
-    with pytest.raises(ValueError, match="bfloat16"):
-        ce_ops.args_ce_pairwise(y.float(), wa, ba, tgt, n_variants)
+    with pytest.raises(ValueError, match="bfloat16"):      # float32 states, bfloat16 head
+        ce_ops.args_ce_pairwise(y.float(), wa, ba, tgt, n_variants, BF16)
     with pytest.raises(ValueError, match="do not fit"):
         ce_ops.args_ce_pairwise(y, wa, ba, tgt[:, :-1], n_variants, BF16)
 
@@ -602,3 +619,225 @@ def test_decode_kernel_refuses_what_it_does_not_take(cuda):
     inputs[-1] = inputs[-1].to(BF16)                   # key_pad must be float32
     with pytest.raises(ValueError, match="key_pad"):
         decode_ops.fused_decode_step(*inputs, 3, H)
+
+
+# ---- the float32 forms of K1, K3, K5, K8 and K9: float32 operands, TF32
+# products (K1: none, an exact float32 sum), float32 sums. Their limits: K1
+# 1e-6 of the largest entry (it reads 0); K5's loss and gradients by relative
+# RMS, about four times the readings on the H100 (PERF.md: 4.4e-5 and
+# 2.8e-4); K3's ids where the plain top-2 margin is at least 1e-2; K9 by the
+# float32 layer limits.
+CE_F32_RMS, CE_F32_GRAD_RMS = 2e-4, 1e-3
+
+
+def _f32(rng, dev, *shape, scale=1.0):
+    return torch.from_numpy(scale * rng.normal(size=shape).astype(np.float32)).to(dev)
+
+
+def _counts(fn, *names):
+    return tuple(getattr(fn, n) for n in names)
+
+
+def test_embedding_float32_form(cuda):
+    """K1 in float32: the exact float32 gather-sum, no rounding anywhere;
+    max abs err at most 1e-6 of the largest entry."""
+    rng = np.random.default_rng(32)
+    b, s, n_group = 16, 32, 10
+    commands = torch.from_numpy(rng.integers(0, N_CMD, (b, s)).astype(np.int32)).to(cuda)
+    args = torch.from_numpy(rng.integers(-1, VOCAB - 1, (b, s, N_ARGS)).astype(np.float32)).to(cuda)
+    groups = torch.from_numpy(rng.integers(0, n_group, (b, s)).astype(np.int32)).to(cuda)
+    commands[1, 2], args[2, 1, 0] = N_CMD + 2, -3
+    inputs = (commands, args, groups, _f32(rng, cuda, N_CMD, D), _f32(rng, cuda, N_ARGS * VOCAB, D),
+              _f32(rng, cuda, n_group, D), _f32(rng, cuda, s, D), True)
+    before = _counts(emb_ops.fused_embedding, "launches", "float32_launches")
+    out = emb_ops.fused_embedding(*inputs)
+    assert _counts(emb_ops.fused_embedding, "launches", "float32_launches") == (
+        before[0] + 1, before[1] + 1)
+    ref = emb_ops.embedding_reference(*inputs)
+    err = (out - ref).abs().max().item()
+    print(f"K1 float32: max abs err {err:.3g} of max {ref.abs().max().item():.3g}")
+    assert out.dtype == torch.float32 and err <= 1e-6 * ref.abs().max().item()
+
+
+def test_head_float32_form(cuda):
+    """K3 in float32 (TF32 products): ids equal to the plain version's
+    wherever its top-2 margin is at least 1e-2; exact ties to the first."""
+    rng = np.random.default_rng(44)
+    r = 1000
+    x = _f32(rng, cuda, r, D)
+    wc, bc = _f32(rng, cuda, N_CMD, D, scale=D ** -0.5), _f32(rng, cuda, N_CMD)
+    wa, ba = _f32(rng, cuda, N_ARGS * VOCAB, D, scale=D ** -0.5), _f32(rng, cuda, N_ARGS * VOCAB)
+    wc[5], bc[5] = wc[2], bc[2]
+    w, b = head_ops.pack_head(wc, bc, wa, ba, N_ARGS)
+    before = _counts(head_ops.fused_head_argmax, "launches", "float32_launches")
+    ids = head_ops.fused_head_argmax(x, w, b, N_CMD, N_ARGS, VOCAB).long()
+    assert _counts(head_ops.fused_head_argmax, "launches", "float32_launches") == (
+        before[0] + 1, before[1] + 1)
+    ref = head_ops.head_argmax_reference(x, w, b, N_CMD, N_ARGS, VOCAB).long()
+    assert not (ids[:, 0] == 5).any()
+    offsets = torch.tensor([0] + [head_ops._round_up(N_CMD) + i * head_ops._round_up(VOCAB)
+                                  for i in range(N_ARGS)], device=cuda)
+    logits = torch.matmul(x, w.t()) + b
+    gap = logits.gather(1, offsets + ref) - logits.gather(1, offsets + ids)
+    print(f"K3 float32: {int((ids != ref).sum())} of {ids.numel()} ids differ, largest gap "
+          f"{gap.abs().max().item():.3g}")
+    assert (gap.abs()[ids != ref] < 1e-2).all()
+
+
+@pytest.mark.parametrize("vocab", [257, 512])
+def test_args_ce_float32_form(cuda, vocab):
+    """K5 in float32 at 257 (flagship) and 512 (Sketchformer) classes, forward
+    and its three gradients, against the plain version in full float32."""
+    rng = np.random.default_rng(vocab + 1)
+    r = 2000
+    y = _f32(rng, cuda, r, D).requires_grad_()
+    wa = _f32(rng, cuda, N_ARGS * vocab, D, scale=D ** -0.5).requires_grad_()
+    ba = _f32(rng, cuda, N_ARGS * vocab).requires_grad_()
+    tgt = torch.from_numpy(rng.integers(0, vocab, (r, N_ARGS)).astype(np.int32)).to(cuda)
+    tgt[3, 2], tgt[4, 0] = vocab, -1
+    g = torch.from_numpy(rng.random((r, N_ARGS)).astype(np.float32)).to(cuda) / r
+    names = ("launches", "backward_launches", "float32_launches", "float32_backward_launches")
+    before = _counts(ce_ops.args_ce, *names)
+    ce = ce_ops.args_ce(y, wa, ba, tgt, torch.float32)
+    grads = torch.autograd.grad(ce, [y, wa, ba], g)
+    assert _counts(ce_ops.args_ce, *names) == tuple(c + 1 for c in before)
+    ref = ce_ops.args_ce_reference(y, wa, ba, tgt, N_ARGS)
+    ref_grads = torch.autograd.grad(ref, [y, wa, ba], g)
+    print(f"K5 float32 at {vocab} classes: ce rel rms {_rel_rms(ce, ref):.3g}, max abs err "
+          f"{(ce - ref).abs().max().item():.3g}")
+    assert ce.dtype == torch.float32 and _rel_rms(ce, ref) <= CE_F32_RMS
+    for name, got, want in zip(("dy", "dWa", "dba"), grads, ref_grads):
+        print(f"  {name}: rel rms {_rel_rms(got, want):.3g}")
+        assert got.dtype == torch.float32 and _rel_rms(got, want) <= CE_F32_GRAD_RMS, name
+    again = torch.autograd.grad(ce_ops.args_ce(y, wa, ba, tgt, torch.float32), [y, wa, ba], g)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+def test_pairwise_ce_float32_form(cuda):
+    """K8 in float32: each variant's columns equal K5's float32 forward to the
+    bit, and the plain version within K5's float32 limit."""
+    rng = np.random.default_rng(88)
+    r, n_variants = 1000, 8
+    y = _f32(rng, cuda, r, D)
+    wa = _f32(rng, cuda, N_ARGS * VOCAB, D, scale=D ** -0.5)
+    ba = _f32(rng, cuda, N_ARGS * VOCAB)
+    k = n_variants * N_ARGS
+    tgt = torch.from_numpy(rng.integers(0, VOCAB, (r, k)).astype(np.int32)).to(cuda)
+    tgt[3, 2], tgt[4, k - 1] = VOCAB + 3, -1
+    before = _counts(ce_ops.args_ce_pairwise, "launches", "float32_launches")
+    ce = ce_ops.args_ce_pairwise(y, wa, ba, tgt, n_variants, torch.float32)
+    assert _counts(ce_ops.args_ce_pairwise, "launches", "float32_launches") == (
+        before[0] + 1, before[1] + 1)
+    ref = ce_ops.args_ce_pairwise_reference(y, wa, ba, tgt, n_variants)
+    print(f"K8 float32: rel rms {_rel_rms(ce, ref):.3g}")
+    assert ce.dtype == torch.float32 and _rel_rms(ce, ref) <= CE_F32_RMS
+    k5 = torch.cat([ce_ops.args_ce(y, wa, ba, tgt[:, g * N_ARGS:(g + 1) * N_ARGS].contiguous(),
+                                   torch.float32) for g in range(n_variants)], dim=1)
+    assert torch.equal(ce, k5)
+
+
+@pytest.mark.parametrize("index", [1, 120, 240])
+def test_decode_float32_form(cuda, index):
+    """K9 in float32 at T = 241, four layers: y and the new keys and values
+    against the plain version in full float32, with the float32 layer's
+    elementwise limits and twice its relative RMS limit."""
+    rng = np.random.default_rng(index + 7)
+    inputs = [t.float() if t.dtype == BF16 else t for t in _decode_inputs(rng, cuda, 4, 64, 241)]
+    before = _counts(decode_ops.fused_decode_step, "launches", "float32_launches")
+    got = decode_ops.fused_decode_step(*inputs, index, H)
+    assert _counts(decode_ops.fused_decode_step, "launches", "float32_launches") == (
+        before[0] + 1, before[1] + 1)
+    want = decode_ops.decode_step_reference(*inputs, index, H)
+    for name, o, ref in zip(("y", "k_new", "v_new"), got, want):
+        err = (o - ref).abs()
+        print(f"K9 float32 index {index} {name}: rel rms {_rel_rms(o, ref):.3g}")
+        assert o.dtype == torch.float32 and torch.isfinite(o).all(), name
+        assert (err <= TOL_F32_ATOL + TOL_F32_RTOL * ref.abs()).all(), (name, err.max().item())
+        assert _rel_rms(o, ref) <= 2 * TOL_RMS, name
+
+
+# ---- K10 and K11: the attention block alone. The kernel rounds QKV, the
+# probabilities and the context at the plain version's points (bfloat16) or
+# multiplies in TF32 (float32); the layer's limits for the output. K11's
+# gradients by relative RMS, about four times the largest reading on the H100
+# (PERF.md: 1.0e-3 in bfloat16, 5.4e-4 in float32).
+MHA_GRAD_RMS = {BF16: 4e-3, torch.float32: 2e-3}
+
+
+def _mha_inputs(rng, dev, dtype, b, s):
+    x = _bf16(rng, dev, b, s, D).to(dtype)
+    w = (_bf16(rng, dev, 3 * D, D, scale=D ** -0.5), _bf16(rng, dev, 3 * D, scale=0.1),
+         _bf16(rng, dev, D, D, scale=D ** -0.5), _bf16(rng, dev, D, scale=0.1))
+    return x, [t.to(dtype) for t in w], _key_mask(rng, dev, b, s)
+
+
+def _hold_output(out, ref, dtype):
+    err = (out.float() - ref.float()).abs()
+    atol, rtol = (TOL_ATOL, TOL_RTOL) if dtype == BF16 else (TOL_F32_ATOL, TOL_F32_RTOL)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert (err <= atol + rtol * ref.float().abs()).all(), (err - rtol * ref.abs()).max().item()
+    assert _rel_rms(out, ref) <= TOL_RMS, _rel_rms(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("s", [8, 32, 33, 241, 242, 256])
+def test_mha_kernel_matches_plain(cuda, s, causal, dtype):
+    """K10 against ``mha_reference`` with key padding; sequence 0 has every
+    key masked and gets zero probabilities (its output is ``bo``)."""
+    rng = np.random.default_rng(s + 2 * causal)
+    x, w, mask = _mha_inputs(rng, cuda, dtype, 5, s)
+    before = attn_ops.fused_mha.launches
+    out = attn_ops.fused_mha(x, *w, mask, H, causal)
+    assert attn_ops.fused_mha.launches == before + 1
+    ref = attn_ops.mha_reference(x, *w, mask, H, causal)
+    print(f"K10 {dtype} S={s} causal={causal}: rel rms {_rel_rms(out, ref):.3g}")
+    _hold_output(out, ref, dtype)
+    assert torch.equal(out[0], w[3].expand(s, D))
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("s", [32, 241, 242])
+def test_mha_train_kernel_matches_plain(cuda, s, rate, dtype):
+    """K11 forward and backward against the plain version under autograd
+    with the same hash masks (S=241 causal), elementwise with dropout on;
+    reruns bit-equal."""
+    causal = s == 241
+    rng = np.random.default_rng(s + int(rate * 10))
+    x, w, mask = _mha_inputs(rng, cuda, dtype, 3, s)
+    leaves = [t.requires_grad_() for t in (x, *w)]
+    g = _bf16(rng, cuda, 3, s, D).to(dtype)
+    seed = 4321
+    names = ("launches", "backward_launches")
+    before = _counts(attention_vjp.fused_mha_train, *names)
+    out = attention_vjp.fused_mha_train(x, *w, mask, seed, H, causal, rate)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert _counts(attention_vjp.fused_mha_train, *names) == (before[0] + 1, before[1] + 1)
+    ref = attn_ops.mha_reference(x, *w, mask, H, causal, rate, seed)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+    print(f"K11 {dtype} S={s} rate={rate}: fwd rel rms {_rel_rms(out, ref):.3g}")
+    _hold_output(out, ref, dtype)
+    for name, got, want in zip(("x", "wqkv", "bqkv", "wo", "bo"), grads, ref_grads):
+        print(f"  d{name}: rel rms {_rel_rms(got, want):.3g}")
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        assert _rel_rms(got, want) <= MHA_GRAD_RMS[dtype], name
+    out2 = attention_vjp.fused_mha_train(x, *w, mask, seed, H, causal, rate)
+    again = torch.autograd.grad(out2, leaves, g)
+    assert torch.equal(out, out2) and all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+def test_mha_kernels_refuse_what_they_do_not_take(cuda):
+    """S = 257, head dim 16 and mixed types raise, in both wrappers."""
+    rng = np.random.default_rng(0)
+    calls = (lambda x, w, mask, heads: attn_ops.fused_mha(x, *w, mask, heads),
+             lambda x, w, mask, heads: attention_vjp.fused_mha_train(x, *w, mask, 0, heads))
+    for fn in calls:
+        x, w, mask = _mha_inputs(rng, cuda, BF16, 2, 257)
+        with pytest.raises(ValueError, match="S <= 256"):
+            fn(x, w, mask, H)
+        x, w, mask = _mha_inputs(rng, cuda, BF16, 2, 16)
+        with pytest.raises(ValueError, match="head dim 32"):
+            fn(x, w, mask, 2 * H)                          # head dim 16
+        with pytest.raises(ValueError, match="dtype"):
+            fn(x, [w[0].float(), *w[1:]], mask, H)
