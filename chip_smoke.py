@@ -4,7 +4,9 @@
 
 In order: print the card and its power limit; build the port's CUDA kernels
 from ``deepsvg_tpu_torch/ops/csrc``; load the trained flagship checkpoint;
-then five paths in bfloat16, the float32 models and the attention ops.
+then five paths in bfloat16, the float32 models, the attention ops and K4's
+recompute mode. Every earlier phase runs K4 in its saved mode, the model's
+default (``layer_vjp.SAVE_RESIDUALS_DEFAULT``).
 
 *Inference* (greedy one-shot encode+decode, N=1024): each kernel (K1
 embedding, K2 fused layer in its bfloat16 and float32 forms, K3 head+argmax)
@@ -95,6 +97,20 @@ the model's width with the trained E1 layer 0 weights, against their plain
 versions (K11 elementwise with dropout on, bit-equal from run to run) and
 timed beside ``F.linear`` -> ``F.scaled_dot_product_attention`` ->
 ``F.linear``.
+
+*K4's recompute mode* (:func:`recompute_phase`; ``save_residuals=False``,
+the JAX op's default): its forward and backward, short and long form,
+against their plain versions at the paths' shapes (the flagship's E1 at B=60
+and B=128, E2 in float32 at B=128, Sketchformer's encoder and causal decoder
+at B=60, a float32 E1 at B=60), each output equal to the saved mode's to the
+bit and the gradients equal from run to run; then, with the switch off, (a)
+the flagship's step at B=60, (b) at B=128, (c) Sketchformer's at B=60 and
+(d) the float32 flagship's at B=60: each counted (recompute launches alone,
+no plain version), gated against its plain path at dropout 0 with a control
+that must fail, timed in both modes (median of 20 after 3) and read for
+each mode's peak memory; each entry timed beside its bound, the saved mode,
+its plain version and ``torch.utils.checkpoint`` around
+``nn.TransformerEncoderLayer``.
 
 The second-to-last line is ``{"kernels": [...]}``, the last ``{"ok": true,
 "device": {...}}``; the full record goes to ``chiprun_out/chip_smoke.json``.
@@ -300,6 +316,27 @@ F32_STEP_MEDIAN_LEAF_RMS = 1e-2
 # K11's gradients: relative RMS, about four times the card test's largest
 # reading (1.0e-3, bfloat16)
 MHA_GRAD_RMS = 4e-3
+# K4's recompute mode (save_residuals=False). Each kernel against its plain
+# version with the saved mode's limits above (its probabilities and hidden
+# are float32, as the plain version's are), its output equal to the saved
+# mode's to the bit. Each step in that mode against its plain path at
+# dropout 0, as the float32 step gate: each loss term within RC_STEP_LOSS
+# (relative), the median leaf's gradient within RC_STEP_MEDIAN_LEAF_RMS and
+# the worst leaf's within TOL_STEP_LEAF_RMS, by activation type. The
+# control is the plain path with every layer that the recompute kernels run
+# (E1 and D1; Sketchformer's encoder and decoder) at bfloat16 less
+# CONTROL_DROP_BITS bits, and must fail the loss or the median limit. Sound
+# readings (PERF.md): losses at most 1.5e-3, medians at most 0.0146
+# (bfloat16) and 0.0031 (float32), worst leaves at most 0.079; the
+# controls' medians 0.053 (Sketchformer, random weights) to 0.143. (E1
+# layer 0 alone cut, the control of the float32 phase, moves Sketchformer's
+# median to 0.0089 only, under its sound flagship readings.) And each
+# step's peak memory in the recompute mode below the saved mode's by at
+# least RC_MEMORY_SHARE of what the saved mode keeps from the forward to the
+# backward (reckoned from the layers' shapes).
+RC_STEP_LOSS = {torch.bfloat16: 1e-2, torch.float32: F32_STEP_LOSS}
+RC_STEP_MEDIAN_LEAF_RMS = {torch.bfloat16: 3e-2, torch.float32: F32_STEP_MEDIAN_LEAF_RMS}
+RC_MEMORY_SHARE = 0.5
 
 
 def check(ok: bool, what: str) -> None:
@@ -476,13 +513,15 @@ def layer_cost(args):
                  layer_ops_count(b, s, d, weights[6].shape[0]), peak)
 
 
-def k4_bound(x, sb, f, backward, causal=False):
+def k4_bound(x, sb, f, backward, causal=False, recompute=False):
     """K4's bound, of the function, not of this implementation: x, the mask,
     the injection and the weights as the kernel reads them in, out (forward)
     or g in and dx, dseq_bias and the float32 weight gradients out
     (backward); the products, and the attention over the keys each query
     sees (half of them when causal). What the forward keeps for the backward
-    is a choice of the kernel and is reported apart."""
+    is a choice of the kernel and is reported apart. ``recompute``: the
+    recompute mode's backward, whose function includes the forward up to the
+    FF hidden (its products but FF2, and the attention)."""
     b, s, d = x.shape
     rows, es = b * s, x.element_size()
     peak = PEAK_TF32 if x.dtype == torch.float32 else PEAK_BF16
@@ -493,8 +532,26 @@ def k4_bound(x, sb, f, backward, causal=False):
     products = layer_ops_count(b, s, d, f) - 4.0 * b * s * s * d
     if not backward:
         return bound(common + rows * d * es + sb_elems * es, products + attn, peak)
+    again = products - 2.0 * rows * d * f + attn if recompute else 0.0
     return bound(common + 2 * rows * d * es + w_elems * 4 + sb_elems * 4,
-                 2 * products + 2 * attn, peak)
+                 2 * products + 2 * attn + again, peak)
+
+
+def k4_saved_bytes(b, s, d, f, n_heads, es):
+    """What K4's saved mode keeps from a layer's forward to its backward, at
+    B sequences of S rows with ``es`` bytes an activation: QKV, the
+    probabilities [B, H, S, S], the context (16-row padded), the float32
+    residual after the attention block and the FF hidden."""
+    rows = b * s
+    return (rows * (3 * d + f) * es + b * n_heads * s * s * es + -(-rows // 16) * 16 * d * es
+            + rows * d * 4)
+
+
+def k4_workspace_bytes(b, s, d, f, es):
+    """The recompute backward's workspace, one layer's: QKV, the context
+    (16-row padded), the float32 residual and the float32 FF hidden."""
+    rows = b * s
+    return rows * 3 * d * es + -(-rows // 16) * 16 * d * es + rows * (d + f) * 4
 
 
 def compare_grad(name, got, want, same_gate, act_dtype, rms_limits=None) -> dict:
@@ -527,10 +584,14 @@ def compare_grad(name, got, want, same_gate, act_dtype, rms_limits=None) -> dict
 GRAD_NAMES = ("x", "seq_bias", "ln1", "wqkv", "bqkv", "wo", "bo", "ln2", "w1", "b1", "w2", "b2")
 
 
-def check_layer_train(layer_vjp, what, layer, x, seq_bias, mask, causal, rate, seed=1234):
+def check_layer_train(layer_vjp, what, layer, x, seq_bias, mask, causal, rate, seed=1234,
+                      save_residuals=True):
     """K4 forward and its twelve gradients against autograd through the plain
     version with the same hash masks, as it is and with the kernel's ReLU
-    units. Returns the readings."""
+    units, in the mode ``save_residuals``. The recompute mode's output must
+    equal the saved mode's to the bit (the kernel's ReLU units are read from
+    that saved-mode forward), only its own counters may move, and its
+    gradients must be the same on a second run. Returns the readings."""
     masters = layer.masters()
     x = x.detach().requires_grad_()
     bias = None if seq_bias is None else seq_bias.detach().requires_grad_()
@@ -538,9 +599,30 @@ def check_layer_train(layer_vjp, what, layer, x, seq_bias, mask, causal, rate, s
     leaves = [t for t in (x, bias, *masters) if t is not None]
     names = [n for n, t in zip(GRAD_NAMES, (x, bias, *masters)) if t is not None]
     call = (x, bias, *masters, mask, seed, layer.n_heads, causal, rate, layer.compute_dtype)
-    out = layer_vjp.fused_layer_train(*call)
-    gate = layer_vjp.kernel_relu_gate(out)
+    forms = (layer_vjp.fused_layer_train, layer_vjp.fused_layer_train_long)
+    counters = ("launches", "backward_launches", "recompute_launches",
+                "recompute_backward_launches")
+    counts = lambda: [getattr(fn, c) for fn in forms for c in counters]  # noqa: E731
+    before = counts()
+    out = layer_vjp.fused_layer_train(*call, save_residuals=save_residuals)
+    gate = layer_vjp.kernel_relu_gate(out) if save_residuals else None
     grads = torch.autograd.grad(out, leaves, g)
+    extra = {}
+    if not save_residuals:
+        moved = [a - b for a, b in zip(counts(), before)]
+        check(sorted(moved) == [0] * 6 + [1, 1] and moved[2] == moved[3]
+              and moved[6] == moved[7], f"K4 {what}: the counters moved by {moved}")
+        saved_out = layer_vjp.fused_layer_train(*call, save_residuals=True)
+        extra["out_equals_saved_mode"] = torch.equal(out, saved_out)
+        check_later(extra["out_equals_saved_mode"],
+                    f"K4 {what}: the recompute mode's output differs from the saved mode's")
+        gate = layer_vjp.kernel_relu_gate(saved_out)
+        del saved_out
+        again = torch.autograd.grad(layer_vjp.fused_layer_train(*call), leaves, g)
+        extra["grads_equal_on_rerun"] = all(torch.equal(a, b) for a, b in zip(grads, again))
+        check_later(extra["grads_equal_on_rerun"],
+                    f"K4 {what}: the recompute mode's gradients differ from run to run")
+        del again
     ref = layer_vjp.plain_layer_train(*call)
     ref_grads = torch.autograd.grad(ref, leaves, g)
     gate_grads = torch.autograd.grad(layer_vjp.plain_layer_train(*call, relu_gate=gate),
@@ -570,7 +652,8 @@ def check_layer_train(layer_vjp, what, layer, x, seq_bias, mask, causal, rate, s
           f"(limit {TOL_GRAD_WORST}), with the ReLU units aligned "
           f"{max(r['worst_same_gate'] for r in readings.values()):.3g} (limit "
           f"{TOL_GRAD_WORST_SAME_GATE})", flush=True)
-    return {"forward_max_abs_err": diff.max().item(), "forward_rms": rms, "grads": readings}
+    return {"forward_max_abs_err": diff.max().item(), "forward_rms": rms, "grads": readings,
+            **extra}
 
 
 def stacked_masters(layers):
@@ -585,7 +668,8 @@ def k4_chain(layer_vjp, x, bias, *rest):
     masters, (mask, seed, n_heads, causal, rate, dt) = rest[:10], rest[10:]
     for layer in range(masters[0].shape[0]):
         x = layer_vjp.fused_layer_train(x, bias[layer], *[w[layer] for w in masters], mask,
-                                        stack_layer_seed(seed, layer), n_heads, causal, rate, dt)
+                                        stack_layer_seed(seed, layer), n_heads, causal, rate, dt,
+                                        save_residuals=True)
     return x
 
 
@@ -877,16 +961,19 @@ def matched_forward(model, commands, args, perturb_states: float = 0.0) -> dict:
     return seen
 
 
-def sketchformer_model(dev, seed: int = AR_SEED):
+def sketchformer_model(dev, seed: int = AR_SEED, dropout: float | None = None):
     """The port's Sketchformer (``configs/sketchformer.py``: the config under
-    ``gpu_fast``) at full width, initialised by the port's
-    ``init_parameters`` from a seeded generator: no trained Sketchformer
-    checkpoint exists, so its decoded icons mean nothing and the checks
-    work step by step and by margin."""
+    ``gpu_fast``, at ``dropout`` if given) at full width, initialised by the
+    port's ``init_parameters`` from a seeded generator: no trained
+    Sketchformer checkpoint exists, so its decoded icons mean nothing and the
+    checks work step by step and by margin."""
     from deepsvg_tpu_torch.configs.sketchformer import make_model_config
     from deepsvg_tpu_torch.models import SVGTransformer
     from deepsvg_tpu_torch.training.trainer import init_parameters
-    model = SVGTransformer(make_model_config())
+    cfg = make_model_config()
+    if dropout is not None:
+        cfg = dataclasses.replace(cfg, dropout=dropout)
+    model = SVGTransformer(cfg)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 
@@ -1365,10 +1452,29 @@ def grads_twice_equal(layer_vjp, layer, x, seq_bias, mask, causal, rate, seed=99
     call = (x, bias, *masters, mask, seed, layer.n_heads, causal, rate, layer.compute_dtype)
     runs = []
     for _ in range(2):
-        out = layer_vjp.fused_layer_train(*call)
+        out = layer_vjp.fused_layer_train(*call, save_residuals=True)
         runs.append((out, torch.autograd.grad(out, leaves, g)))
     (o1, g1), (o2, g2) = runs
     return torch.equal(o1, o2) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def k4_runs(fn, layer, x, seq_bias, mask, causal=False, save_residuals=True, gen=None):
+    """``fn`` (K4 or its plain version) on ``x`` with ``layer``'s masters
+    at dropout DROPOUT, for timing: (the forward alone, forward and
+    backward) as callables."""
+    x = x.detach().requires_grad_()
+    gy = torch.randn(x.shape, device=x.device, generator=gen).to(x.dtype)
+    call = (x, seq_bias, *layer.masters(), mask, 7, layer.n_heads, causal, DROPOUT,
+            layer.compute_dtype)
+    leaves = [x, *layer.masters()]
+
+    def fwd():
+        with torch.no_grad():
+            return fn(*call, save_residuals=save_residuals)
+
+    def both():
+        return torch.autograd.grad(fn(*call, save_residuals=save_residuals), leaves, gy)
+    return fwd, both
 
 
 def sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts, read_counts,
@@ -1599,27 +1705,12 @@ def sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts
 
     # ---- times at the path's shapes: the long K4 at E1 (B=60, S=242), with
     # nn.TransformerEncoderLayer in training mode as the library call
-    def k4_runs(layer, x, sb, mask, causal, fn):
-        x = x.detach().requires_grad_()
-        gy = torch.randn(x.shape, device=dev, generator=gen).to(x.dtype)
-        call = (x, sb, *layer.masters(), mask, 7, layer.n_heads, causal, DROPOUT,
-                layer.compute_dtype)
-        leaves = [x, *layer.masters()]
-
-        def fwd():
-            with torch.no_grad():
-                return fn(*call)
-
-        def both():
-            return torch.autograd.grad(fn(*call), leaves, gy)
-        return fwd, both
-
     stage_times = {}
     for what, (layer, x, sb, mask, causal) in {
             "E1 S=242": (l_e, x_e1, None, kp_e1, False),
             "decoder S=241 causal": (l_d, x_d, sb_d, kp_d, True)}.items():
-        fwd, both = k4_runs(layer, x, sb, mask, causal, layer_vjp.fused_layer_train)
-        pfwd, pboth = k4_runs(layer, x, sb, mask, causal, layer_vjp.plain_layer_train)
+        fwd, both = k4_runs(layer_vjp.fused_layer_train, layer, x, sb, mask, causal, gen=gen)
+        pfwd, pboth = k4_runs(layer_vjp.plain_layer_train, layer, x, sb, mask, causal, gen=gen)
         f_ms, fb_ms = cuda_ms(fwd), cuda_ms(both)
         pf_ms, pfb_ms = cuda_ms(pfwd, iters=3, warmup=1), cuda_ms(pboth, iters=3, warmup=1)
         bf_ms, bf_by = k4_bound(x, sb, f_ff, False, causal)
@@ -1746,7 +1837,7 @@ def step_against_plain(what, res_k, grads_k, res_p, grads_p) -> dict:
     path against the plain path: relative loss differences, the
     whole-gradient cosine and the worst leaf's relative RMS difference."""
     losses = {k: abs(float(res_k[k]) - float(res_p[k])) / max(abs(float(res_p[k])), 1e-30)
-              for k in ("loss", "loss_visibility", "loss_cmd", "loss_args")}
+              for k in ("loss", "loss_visibility", "loss_cmd", "loss_args") if k in res_p}
     leaf = {k: rel_rms(grads_k[k], grads_p[k]) for k in grads_p}
     flat_k = torch.cat([grads_k[k].flatten() for k in grads_p]).double()
     flat_p = torch.cat([grads_p[k].flatten() for k in grads_p]).double()
@@ -2404,6 +2495,372 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
             "mha_train_bwd": counts["mha_train_bwd"]}
 
 
+def recompute_phase(dev, card, kernels, record, reset_counts, read_counts,
+                    library_layer) -> dict:
+    """K4's recompute mode (``save_residuals=False``, the JAX op's default):
+    its four entries (the short and the long form's forward and backward)
+    against their plain versions at the paths' shapes, each output equal to
+    the saved mode's to the bit, gradients bit-equal from run to run; then
+    the training steps that reach it, with ``layer_vjp.SAVE_RESIDUALS_DEFAULT``
+    off: (a) the flagship at B=60 (E1/D1 short form, E2/D2 on K7), (b) at
+    B=128 (E2/D2 too, in float32), (c) Sketchformer at B=60 (long form), (d)
+    the float32 flagship at B=60 (long form in float32). Each step counted
+    (recompute launches alone, no plain version), gated against its plain
+    path at dropout 0 with a control that must fail, timed in both modes
+    (median of 20 after 3) with each mode's peak memory. Each entry timed
+    beside its bound, its plain version, the saved mode and
+    ``torch.utils.checkpoint`` around ``nn.TransformerEncoderLayer``
+    (PyTorch's own recompute). Returns the launches of the counted steps that
+    the kernels line reports ((b) for the short form, (c) for the long)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import gpu_fast, hierarchical_ordered, load_model
+    from deepsvg_tpu_torch.models.layers import key_padding_to_additive
+    from deepsvg_tpu_torch.ops import ce as ce_ops
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import head as head_ops
+    from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
+    from deepsvg_tpu_torch.svgtensor import masks as M
+    from deepsvg_tpu_torch.training import (
+        constant, create_train_state, make_optimizer, train_step)
+    t_phase = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    out: dict = {}
+    no_launch = dict.fromkeys(read_counts(), 0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    randn = lambda *shape: torch.randn(*shape, device=dev, generator=gen)  # noqa: E731
+    cfg, cfg32 = gpu_fast(hierarchical_ordered()), hierarchical_ordered()
+
+    def flagship(c, dropout):
+        return load_model(CHECKPOINT, dataclasses.replace(c, dropout=dropout), device=dev)
+
+    def flagship_batch(b):
+        raw = generate_batch(np.random.default_rng(0), b, cfg.max_num_groups, cfg.max_seq_len)
+        return {k: torch.from_numpy(raw[k]).to(dev) for k in ("commands", "args")}
+
+    def sf_batch():
+        raw = generate_batch(np.random.default_rng(0), B_RECIPE, sf.cfg.max_num_groups,
+                             sf.cfg.max_seq_len)
+        return {k: torch.from_numpy(raw[k]).to(dev)
+                for k in ("commands_grouped", "args_grouped", "args_rel_grouped")}
+
+    # ---- the paths' inputs
+    model, model32, sf = flagship(cfg, 0.0), flagship(cfg32, 0.0), sketchformer_model(dev)
+    batches = {b: flagship_batch(b) for b in (B_RECIPE, B_TRAIN)}
+    sf_data = sf_batch()
+    with torch.no_grad():
+        e1 = {}
+        for b, bt in batches.items():
+            n_seq = b * cfg.max_num_groups
+            c = bt["commands"].reshape(n_seq, -1)
+            kp = key_padding_to_additive(M.key_padding_mask(c))
+            x = model.encoder.embedding(c, bt["args"].reshape(n_seq, c.shape[1], -1))
+            if b == B_TRAIN:
+                # E2's input as the path makes it: E1's output pooled over
+                # each path's tokens, with E2's position table
+                memory = model.encoder.encoder(x, kp)
+                pad = M.padding_mask(c)[..., None]
+                pooled = (memory.float() * pad).sum(1) / pad.sum(1).clamp_min(1.0)
+                x_e2 = model.encoder.hierarchical_PE(pooled.reshape(b, cfg.max_num_groups, -1))
+            kp = kp.clone()
+            kp[0] = float("-inf")                               # one fully masked sequence
+            e1[b] = (x, kp)
+        kp_e2 = key_padding_to_additive(~M.visibility_mask(batches[B_TRAIN]["commands"]))
+        cmd_e, args_e = sf_data["commands_grouped"][:, 0], sf_data["args_grouped"][:, 0]
+        cmd_d, args_d = cmd_e[:, :-1], sf_data["args_rel_grouped"][:, 0, :-1]
+        x_sf = sf.encoder.embedding(cmd_e, args_e, M.group_mask(cmd_e))
+        kp_sf = key_padding_to_additive(M.key_padding_mask(cmd_e))
+        x_sfd = sf.decoder.embedding(cmd_d, args_d, M.group_mask(cmd_d))
+        kp_sfd = key_padding_to_additive(M.key_padding_mask(cmd_d))
+        l_sfd = sf.decoder.decoder.layers[0]
+        sb_sfd = l_sfd.injection(0.5 * randn(B_RECIPE, sf.cfg.dim_z)).to(bf16)
+    l_e1, l_e1_32 = model.encoder.encoder.layers[0], model32.encoder.encoder.layers[0]
+    l_e2, l_sf = model.encoder.hierarchical_encoder.layers[0], sf.encoder.encoder.layers[0]
+
+    # ---- each entry against its plain version at the paths' shapes
+    short_cases = {
+        "E1 B=60 (480 x 32) key pad": (l_e1, *e1[B_RECIPE], None, False, (0.0, DROPOUT)),
+        "E1 B=128 (1,024 x 32) key pad": (l_e1, *e1[B_TRAIN], None, False, (DROPOUT,)),
+        "E2 float32 B=128 (1,024 x 8), pooled E1 output, visibility mask":
+            (l_e2, x_e2, kp_e2, None, False, (DROPOUT,))}
+    long_cases = {
+        "Sketchformer E1 (60 x 242) key pad": (l_sf, x_sf, kp_sf, None, False, (0.0, DROPOUT)),
+        "Sketchformer decoder (60 x 241) causal seq_bias": (l_sfd, x_sfd, kp_sfd, sb_sfd, True,
+                                                            (DROPOUT,)),
+        "float32 E1 B=60 (480 x 32) key pad": (l_e1_32, e1[B_RECIPE][0].float(), e1[B_RECIPE][1],
+                                               None, False, (DROPOUT,))}
+    checks = {}
+    for form, cases in (("short", short_cases), ("long", long_cases)):
+        for what, (layer, x, mask, sb, causal, rates) in cases.items():
+            for rate in rates:
+                checks[form, f"{what} rate {rate}"] = check_layer_train(
+                    layer_vjp, f"recompute {what}", layer, x, sb, mask, causal, rate,
+                    save_residuals=False)
+    for form, prefix in (("short", "layer_train_recompute"),
+                         ("long", "layer_train_long_recompute")):
+        cases = {k: v for (f_, k), v in checks.items() if f_ == form}
+        grads = [r for v in cases.values() for r in v["grads"].values()]
+        kernels[f"{prefix}_fwd"] = {
+            "max_abs_err": max(v["forward_max_abs_err"] for v in cases.values()),
+            "out_equals_saved_mode": all(v["out_equals_saved_mode"] for v in cases.values()),
+            "tolerance": {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL, "rms": TOL_LAYER_RMS,
+                          "float32": {"atol": TOL_F32_ATOL, "rtol": TOL_F32_RTOL}}}
+        kernels[f"{prefix}_bwd"] = {
+            "max_abs_err": max(r["max_abs_err"] for r in grads),
+            "max_rms": max(r["rms"] for r in grads),
+            "max_rms_same_gate": max(r["rms_same_gate"] for r in grads),
+            "bit_identical_runs": all(v["grads_equal_on_rerun"] for v in cases.values()),
+            "tolerance": {"rms": {str(k): v for k, v in TOL_GRAD_RMS.items()},
+                          "rms_same_gate": {str(k): v for k, v in TOL_GRAD_RMS_SAME_GATE.items()},
+                          "worst_of_max": TOL_GRAD_WORST,
+                          "worst_of_max_same_gate": TOL_GRAD_WORST_SAME_GATE}}
+    out["kernel_cases"] = {f"{form}: {k}": v for (form, k), v in checks.items()}
+    print(f"K4 recompute mode: {len(checks)} cases, every output equal to the saved mode's to "
+          f"the bit: {all(v['out_equals_saved_mode'] for v in checks.values())}; gradients "
+          f"equal from run to run: {all(v['grads_equal_on_rerun'] for v in checks.values())}",
+          flush=True)
+
+    # ---- the steps, counted, gated, timed and read for memory in both modes
+    def state_of(make_model, dropout):
+        optimizer = make_optimizer(constant(LR))
+        return create_train_state(make_model(dropout), optimizer, init=False), optimizer
+
+    plain_fns = [(emb_ops, "embedding_reference"), (layer_vjp, "layer_train_reference"),
+                 (stack_vjp, "layer_train_reference"), (ce_ops, "args_ce_reference"),
+                 (ce_ops, "plain_args_ce")]
+
+    @contextlib.contextmanager
+    def mode(save: bool):
+        saved = layer_vjp.SAVE_RESIDUALS_DEFAULT
+        layer_vjp.SAVE_RESIDUALS_DEFAULT = save
+        try:
+            yield
+        finally:
+            layer_vjp.SAVE_RESIDUALS_DEFAULT = saved
+
+    def step_case(what, make_model, batch, weights, model_args, dtype, expected, expected_saved,
+                  saves, workspace):
+        """One step's case; ``saves``: the bytes the saved mode keeps from
+        the forward to the backward, ``workspace``: the recompute
+        backward's largest one-layer workspace."""
+        res = {"saved_bytes": saves, "workspace_bytes": workspace}
+        state, optimizer = state_of(make_model, DROPOUT)
+        step = lambda: train_step(state, batch, weights, optimizer, model_args)  # noqa: E731
+        for save, want in ((False, expected), (True, expected_saved)):
+            with mode(save):
+                torch.cuda.synchronize()
+                calls, restore = count_plain_calls(plain_fns)
+                reset_counts()
+                try:
+                    step()
+                    torch.cuda.synchronize()
+                finally:
+                    restore()
+                got = read_counts()
+            check(got == no_launch | want, f"recompute {what}, save_residuals={save}: launches "
+                                           f"{got}, expected {want}")
+            check(not any(calls.values()), f"recompute {what}: plain versions ran: {calls}")
+            res["launches_saved" if save else "launches"] = got
+        # both modes back to back on the same state: 3 steps, then 20 timed
+        # (CUDA events, median), each mode's peak memory over its 20
+        for save in (True, False):
+            with mode(save):
+                for _ in range(3):
+                    step()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                events = []
+                for _ in range(ITERS):
+                    start, end = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+                    start.record()
+                    _, r = step()
+                    end.record()
+                    events.append((start, end))
+                torch.cuda.synchronize()
+                key = "saved" if save else "recompute"
+                res[f"{key}_ms"] = statistics.median(a.elapsed_time(b) for a, b in events)
+                res[f"{key}_peak_bytes"] = torch.cuda.max_memory_allocated()
+                res[f"{key}_base_bytes"] = base
+                check(np.isfinite(float(r["loss"])), f"recompute {what}: the loss is not finite")
+                # the device's share, which a host-bound step time hides
+                res[f"{key}_device_busy_ms"] = device_busy_ms(step, iters=3)
+        del state, optimizer
+        torch.cuda.empty_cache()
+        drop = res["saved_peak_bytes"] - res["recompute_peak_bytes"]
+        res["peak_drop_bytes"] = drop
+        check_later(drop >= RC_MEMORY_SHARE * saves,
+                    f"recompute {what}: peak memory {res['recompute_peak_bytes'] / 2**30:.3f} GiB "
+                    f"against the saved mode's {res['saved_peak_bytes'] / 2**30:.3f}, a drop of "
+                    f"{drop / 2**30:.3f} GiB, below {RC_MEMORY_SHARE} of the saves "
+                    f"({saves / 2**30:.3f} GiB)")
+
+        # the gate at dropout 0, the recompute kernel path against the plain
+        # path, and the control
+        def grads_of(control=False):
+            st, opt = state_of(make_model, 0.0)
+            layers = ([*st.model.encoder.encoder.layers, *st.model.decoder.decoder.layers]
+                      if control else [])
+            with contextlib.ExitStack() as cut:
+                for layer in layers:
+                    cut.enter_context(truncated_weights(layer, CONTROL_DROP_BITS))
+                st, r = train_step(st, batch, weights, opt, model_args)
+            names = [k for k, _ in st.model.named_parameters()]
+            return r, dict(zip(names, [p.grad.detach().clone() for p in st.parameters()]))
+
+        with mode(False):
+            res_k, grads_k = grads_of()
+            with plain_path(emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp):
+                res_p, grads_p = grads_of()
+                res_c, grads_c = grads_of(control=True)
+        gate = step_against_plain(f"recompute {what}", res_k, grads_k, res_p, grads_p)
+        ctrl = step_against_plain(f"recompute {what} control", res_c, grads_c, res_p, grads_p)
+        del grads_k, grads_p, grads_c
+        torch.cuda.empty_cache()
+        lim_loss, lim_med = RC_STEP_LOSS[dtype], RC_STEP_MEDIAN_LEAF_RMS[dtype]
+        check_later(gate["loss_rel_diff"] <= lim_loss and gate["median_leaf_rms"] <= lim_med
+                    and gate["worst_leaf_rms"] <= TOL_STEP_LEAF_RMS,
+                    f"recompute {what} gate: loss rel diff {gate['loss_rel_diff']} (limit "
+                    f"{lim_loss}), median leaf {gate['median_leaf_rms']} (limit {lim_med}), "
+                    f"worst leaf {gate['worst_leaf_rms']} (limit {TOL_STEP_LEAF_RMS})")
+        check_later(ctrl["loss_rel_diff"] > lim_loss or ctrl["median_leaf_rms"] > lim_med,
+                    f"recompute {what}: the gate passed its control {ctrl}")
+        res.update(gate=gate, control=ctrl)
+        print(f"recompute {what}: launches {res['launches']}, no plain version; "
+              f"{res['recompute_ms']:.3f} ms/step against the saved mode's "
+              f"{res['saved_ms']:.3f} (medians of {ITERS}); device busy "
+              f"{res['recompute_device_busy_ms']} against {res['saved_device_busy_ms']} ms a step "
+              f"(torch.profiler, 3 steps); peak memory "
+              f"{res['recompute_peak_bytes'] / 2**30:.3f} GiB against "
+              f"{res['saved_peak_bytes'] / 2**30:.3f} (a drop of {drop / 2**30:.3f} GiB; the "
+              f"saved mode keeps {saves / 2**30:.3f} GiB, the largest workspace "
+              f"{workspace / 2**30:.3f}; state and batch {res['saved_base_bytes'] / 2**30:.3f}); "
+              f"gate at dropout 0 against the plain path: loss rel diff "
+              f"{gate['loss_rel_diff']:.3g}, median leaf {gate['median_leaf_rms']:.3g}, worst "
+              f"{gate['worst_leaf_rms']:.3g} ({gate['worst_leaf']}), cosine "
+              f"{gate['cosine']:.6f}; control (the recompute-run layers less "
+              f"{CONTROL_DROP_BITS} bits) {ctrl['loss_rel_diff']:.3g}, "
+              f"{ctrl['median_leaf_rms']:.3g}, {ctrl['worst_leaf_rms']:.3g}, cosine "
+              f"{ctrl['cosine']:.6f} on {card}",
+              flush=True)
+        return res
+
+    d, f_ff, n_heads, g = cfg.d_model, cfg.dim_feedforward, cfg.n_heads, cfg.max_num_groups
+    s_e1 = batches[B_RECIPE]["commands"].shape[-1]            # E1's S; D1's is one less
+
+    def flagship_saves(b, es, e2_layers):
+        """What the saved mode keeps in E1 and D1, 4 + 4 layers (and in E2
+        and D2, float32, where they go layer by layer), of a flagship step at
+        B=b with ``es`` bytes an activation; and the largest workspace."""
+        saves = 4 * (k4_saved_bytes(b * g, s_e1, d, f_ff, n_heads, es)
+                     + k4_saved_bytes(b * g, s_e1 - 1, d, f_ff, n_heads, es))
+        if e2_layers:
+            saves += 8 * k4_saved_bytes(b, g, d, f_ff, n_heads, 4)
+        return saves, k4_workspace_bytes(b * g, s_e1, d, f_ff, es)
+
+    short_launches = {"layer_train_recompute_fwd": 8, "layer_train_recompute_bwd": 8}
+    steps = {}
+    steps["a"] = step_case(
+        f"(a) flagship B={B_RECIPE}", lambda d: flagship(cfg, d), batches[B_RECIPE],
+        LOSS_WEIGHTS, MODEL_ARGS, bf16,
+        {"embedding": 1, **short_launches, "stack_fwd": 2, "stack_bwd": 2, "args_ce_fwd": 1,
+         "args_ce_bwd": 1, "embedding_bwd": 1},
+        {"embedding": 1, "layer_train_fwd": 8, "layer_train_bwd": 8, "stack_fwd": 2,
+         "stack_bwd": 2, "args_ce_fwd": 1, "args_ce_bwd": 1, "embedding_bwd": 1},
+        *flagship_saves(B_RECIPE, 2, False))
+    steps["b"] = step_case(
+        f"(b) flagship B={B_TRAIN}", lambda d: flagship(cfg, d), batches[B_TRAIN],
+        LOSS_WEIGHTS, MODEL_ARGS, bf16,
+        {"embedding": 1, "layer_train_recompute_fwd": 16, "layer_train_recompute_bwd": 16,
+         "args_ce_fwd": 1, "args_ce_bwd": 1, "embedding_bwd": 1},
+        {"embedding": 1, "layer_train_fwd": 16, "layer_train_bwd": 16, "args_ce_fwd": 1,
+         "args_ce_bwd": 1, "embedding_bwd": 1},
+        *flagship_saves(B_TRAIN, 2, True))
+    sf_shape = (sf.cfg.d_model, sf.cfg.dim_feedforward)
+    sf_saves = 4 * sum(k4_saved_bytes(B_RECIPE, s_, *sf_shape, sf.cfg.n_heads, 2)
+                       for s_ in (cmd_e.shape[1], cmd_d.shape[1]))
+    steps["c"] = step_case(
+        f"(c) Sketchformer B={B_RECIPE}", lambda d: sketchformer_model(dev, dropout=d).train(),
+        sf_data, SF_WEIGHTS, sf.cfg.get_model_args(), bf16,
+        {"embedding": 2, "layer_train_long_recompute_fwd": 8,
+         "layer_train_long_recompute_bwd": 8, "args_ce_fwd": 1, "args_ce_bwd": 1,
+         "embedding_bwd": 2},
+        {"embedding": 2, "layer_train_long_fwd": 8, "layer_train_long_bwd": 8, "args_ce_fwd": 1,
+         "args_ce_bwd": 1, "embedding_bwd": 2},
+        sf_saves, k4_workspace_bytes(B_RECIPE, cmd_e.shape[1], *sf_shape, 2))
+    steps["d"] = step_case(
+        f"(d) float32 flagship B={B_RECIPE}", lambda d: flagship(cfg32, d), batches[B_RECIPE],
+        LOSS_WEIGHTS, MODEL_ARGS, f32,
+        {"embedding_f32": 1, "layer_train_long_recompute_fwd": 8,
+         "layer_train_long_recompute_bwd": 8, "stack_fwd": 2, "stack_bwd": 2,
+         "args_ce_fwd_f32": 1, "args_ce_bwd_f32": 1, "embedding_bwd": 1},
+        {"embedding_f32": 1, "layer_train_long_fwd": 8, "layer_train_long_bwd": 8,
+         "stack_fwd": 2, "stack_bwd": 2, "args_ce_fwd_f32": 1, "args_ce_bwd_f32": 1,
+         "embedding_bwd": 1},
+        *flagship_saves(B_RECIPE, 4, False))
+    out["steps"] = steps
+    del model, model32
+    torch.cuda.empty_cache()
+
+    # ---- each entry timed: the short form at E1 B=128, the long form at
+    # Sketchformer's E1, beside the saved mode, the plain version, the bound
+    # and PyTorch's own recompute (torch.utils.checkpoint around
+    # nn.TransformerEncoderLayer in training mode, rate 0)
+    times = {}
+    for prefix, (layer, x, mask) in (
+            ("layer_train_recompute", (l_e1, *e1[B_TRAIN])),
+            ("layer_train_long_recompute", (l_sf, x_sf, kp_sf))):
+        rc, sv = ([cuda_ms(f) for f in k4_runs(layer_vjp.fused_layer_train, layer, x, None, mask,
+                                              save_residuals=save, gen=gen)]
+                  for save in (False, True))
+        pl = [cuda_ms(f, iters=5, warmup=1)
+              for f in k4_runs(layer_vjp.plain_layer_train, layer, x, None, mask, gen=gen)]
+        lib = library_layer(layer, x.dtype, train=True)
+        x_lib = x.detach().requires_grad_()
+        g_lib = torch.randn(x.shape, device=dev, generator=gen).to(x.dtype)
+        pad = torch.isinf(mask)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return lib(x_lib, src_key_padding_mask=pad)
+
+        def lib_both():
+            y = checkpoint(lib, x_lib, None, pad, use_reentrant=False)
+            return torch.autograd.grad(y, [x_lib, *lib.parameters()], g_lib)
+        lf_ms, lfb_ms = cuda_ms(lib_fwd), cuda_ms(lib_both)
+        f_ff_l = layer.ff1.out_features
+        bf_ms, bf_by = k4_bound(x, None, f_ff_l, False)
+        bb_ms, bb_by = k4_bound(x, None, f_ff_l, True, recompute=True)
+        kernels[f"{prefix}_fwd"].update(ms=rc[0], plain_ms=pl[0], library_ms=lf_ms,
+                                        bound_ms=bf_ms, bound_by=bf_by)
+        kernels[f"{prefix}_bwd"].update(ms=rc[1] - rc[0], plain_ms=pl[1] - pl[0],
+                                        library_ms=lfb_ms - lf_ms, bound_ms=bb_ms,
+                                        bound_by=bb_by)
+        times[prefix] = {"shape": list(x.shape), "fwd_ms": rc[0], "bwd_ms": rc[1] - rc[0],
+                         "saved_fwd_ms": sv[0], "saved_bwd_ms": sv[1] - sv[0],
+                         "plain_fwd_ms": pl[0], "plain_bwd_ms": pl[1] - pl[0],
+                         "library_fwd_ms": lf_ms, "library_bwd_ms": lfb_ms - lf_ms,
+                         "fwd_bound_ms": bf_ms, "bwd_bound_ms": bb_ms}
+        print(f"  {prefix} {tuple(x.shape[:2])}: forward {rc[0]:.4f} ms (saved mode "
+              f"{sv[0]:.4f}, plain {pl[0]:.4f}, library {lf_ms:.4f}, bound {bf_ms:.4f} by "
+              f"{bf_by}), backward {rc[1] - rc[0]:.4f} ms (saved mode {sv[1] - sv[0]:.4f}, "
+              f"plain {pl[1] - pl[0]:.4f}, checkpointed library {lfb_ms - lf_ms:.4f}, bound "
+              f"{bb_ms:.4f} by {bb_by}) on {card}", flush=True)
+    out["times"] = times
+    del sf
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"recompute phase: {out['phase_s']:.1f} s on {card}", flush=True)
+    record["recompute"] = out
+    return {**{k: steps["b"]["launches"][k] for k in ("layer_train_recompute_fwd",
+                                                       "layer_train_recompute_bwd")},
+            **{k: steps["c"]["launches"][k] for k in ("layer_train_long_recompute_fwd",
+                                                       "layer_train_long_recompute_bwd")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2449,6 +2906,8 @@ def main() -> int:
         layer_vjp.fused_layer_train.backward_launches = 0
         layer_vjp.fused_layer_train_long.launches = 0
         layer_vjp.fused_layer_train_long.backward_launches = 0
+        for fn in (layer_vjp.fused_layer_train, layer_vjp.fused_layer_train_long):
+            fn.recompute_launches = fn.recompute_backward_launches = 0
         ce_ops.args_ce.launches = ce_ops.args_ce.backward_launches = 0
         stack_vjp.fused_stack_train.launches = 0
         stack_vjp.fused_stack_train.backward_launches = 0
@@ -2483,7 +2942,14 @@ def main() -> int:
                 "layer_train_long_bwd": layer_vjp.fused_layer_train_long.backward_launches,
                 "mha": attn_ops.fused_mha.launches,
                 "mha_train_fwd": attention_vjp.fused_mha_train.launches,
-                "mha_train_bwd": attention_vjp.fused_mha_train.backward_launches}
+                "mha_train_bwd": attention_vjp.fused_mha_train.backward_launches,
+                "layer_train_recompute_fwd": layer_vjp.fused_layer_train.recompute_launches,
+                "layer_train_recompute_bwd":
+                    layer_vjp.fused_layer_train.recompute_backward_launches,
+                "layer_train_long_recompute_fwd":
+                    layer_vjp.fused_layer_train_long.recompute_launches,
+                "layer_train_long_recompute_bwd":
+                    layer_vjp.fused_layer_train_long.recompute_backward_launches}
 
     # ---- build
     t0 = time.perf_counter()
@@ -3063,37 +3529,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- timing at the training path's shapes
-    def k4_runs(layer, x, sb, mask, plain=False):
-        fn = layer_vjp.plain_layer_train if plain else layer_vjp.fused_layer_train
-        x = x.detach().requires_grad_()
-        gy = torch.randn(x.shape, device=dev).to(x.dtype)
-        call = (x, sb, *layer.masters(), mask, 7, layer.n_heads, False, DROPOUT,
-                layer.compute_dtype)
-        leaves = [x, *layer.masters()]
-
-        def fwd():
-            with torch.no_grad():
-                return fn(*call)
-
-        def both():
-            return torch.autograd.grad(fn(*call), leaves, gy)
-        return fwd, both
-
-    def k4_saved_bytes(x, f):
-        b, s, d = x.shape
-        rows, es = b * s, x.element_size()
-        return rows * (3 * d + d + f) * es + b * (d // 32) * s * s * es + rows * d * 4
-
     train_stages = {}
     for what, (layer, x, sb, mask, _) in train_cases.items():
-        fwd, both = k4_runs(layer, x, sb, mask)
-        pfwd, pboth = k4_runs(layer, x, sb, mask, plain=True)
+        fwd, both = k4_runs(layer_vjp.fused_layer_train, layer, x, sb, mask)
+        pfwd, pboth = k4_runs(layer_vjp.plain_layer_train, layer, x, sb, mask)
         f_ms, fb_ms = cuda_ms(fwd), cuda_ms(both)
         pf_ms, pfb_ms = cuda_ms(pfwd, iters=5, warmup=1), cuda_ms(pboth, iters=5, warmup=1)
         ffn = layer.ff1.out_features
         bf_ms, bf_by = k4_bound(x, sb, ffn, False)
         bb_ms, bb_by = k4_bound(x, sb, ffn, True)
-        saved = k4_saved_bytes(x, ffn)
+        saved = k4_saved_bytes(*x.shape, ffn, layer.n_heads, x.element_size())
         train_stages[what] = {
             "B": x.shape[0], "S": x.shape[1], "launches_per_step": 4,
             "fwd_ms": f_ms, "bwd_ms": fb_ms - f_ms, "plain_fwd_ms": pf_ms,
@@ -3569,6 +4014,10 @@ def main() -> int:
     # ================================== the attention ops (K10, K11)
     attn_launches = attention_phase(dev, card, kernels, record, reset_counts, read_counts)
 
+    # ================================== K4's recompute mode and its steps
+    rc_launches = recompute_phase(dev, card, kernels, record, reset_counts, read_counts,
+                                  library_layer)
+
     csrc = "deepsvg_tpu_torch/ops/csrc/"
     source = {
         "embedding": (csrc + "embedding.cu", "deepsvg_tpu/ops/embedding.py:34"),
@@ -3576,7 +4025,7 @@ def main() -> int:
         "layer_f32": (csrc + "layer.cu", "deepsvg_tpu/ops/layer.py:108"),
         "head": (csrc + "head.cu", "deepsvg_tpu/ops/head.py:32"),
         "layer_train_fwd": (csrc + "layer.cu", "deepsvg_tpu/ops/layer_vjp.py:179"),
-        "layer_train_bwd": (csrc + "layer_bwd.cu", "deepsvg_tpu/ops/layer_vjp.py:298"),
+        "layer_train_bwd": (csrc + "layer_bwd.cu", "deepsvg_tpu/ops/layer_vjp.py:281"),
         "args_ce_fwd": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:30"),
         "args_ce_bwd": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:81"),
         "embedding_bwd": (csrc + "embedding_bwd.cu", "deepsvg_tpu/ops/embedding.py:133"),
@@ -3601,6 +4050,12 @@ def main() -> int:
         "mha": (csrc + "attention.cu", "deepsvg_tpu/ops/attention.py:31"),
         "mha_train_fwd": (csrc + "attention.cu", "deepsvg_tpu/ops/attention_vjp.py:60"),
         "mha_train_bwd": (csrc + "attention.cu", "deepsvg_tpu/ops/attention_vjp.py:100"),
+        "layer_train_recompute_fwd": (csrc + "layer.cu", "deepsvg_tpu/ops/layer_vjp.py:179"),
+        "layer_train_recompute_bwd": (csrc + "layer_bwd.cu", "deepsvg_tpu/ops/layer_vjp.py:298"),
+        "layer_train_long_recompute_fwd": (csrc + "layer_long_train.cu",
+                                           "deepsvg_tpu/ops/layer_vjp.py:179"),
+        "layer_train_long_recompute_bwd": (csrc + "layer_long_train.cu",
+                                           "deepsvg_tpu/ops/layer_vjp.py:298"),
     }
     # the entries of a kernel at another path's shapes count that path's launches
     counter = {"args_ce_fwd_512": "args_ce_fwd", "args_ce_bwd_512": "args_ce_bwd",
@@ -3614,6 +4069,10 @@ def main() -> int:
         # K6 at Sketchformer's shapes) Sketchformer's training step
         if name in counter:
             count = sf_launches[counter[name]]
+        elif name in rc_launches:
+            # (K4's recompute mode) the step at B=128 (short form) or
+            # Sketchformer's (long form), switched to it
+            count = rc_launches[name]
         elif name in f32_launches or name in attn_launches:
             # (float32 forms) the float32 path that runs it; (K10, K11) one call of the op
             count = f32_launches.get(name) or attn_launches[name]

@@ -142,7 +142,8 @@ class EncoderLayerImproved(nn.Module):
         rate = self.dropout if rng is not None else 0.0
         seed = rng.seed() if rate > 0.0 else 0
         return layer_vjp.fused_layer_train(x, seq_bias, *self.masters(), mask, seed,
-                                           self.n_heads, causal, rate, self.compute_dtype)
+                                           self.n_heads, causal, rate, self.compute_dtype,
+                                           save_residuals=layer_vjp.SAVE_RESIDUALS_DEFAULT)
 
     def forward(self, src, mask, deterministic: bool = True, rng: DropoutRng | None = None):
         """``mask [B, S]``: additive float32 over keys."""

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: ``embedding`` (K1 and its backward K6), ``layer`` (K2, in a short
 and a long form), ``head`` (K3), ``layer_vjp`` (K4, in a short and a long
-form), ``ce`` (K5, K8), ``stack_vjp`` (K7), ``decode`` (K9), ``attention``
+form, each in the saved and the recompute mode), ``ce`` (K5, K8), ``stack_vjp`` (K7), ``decode`` (K9), ``attention``
 (K10, the attention block alone: the JAX package's public ``fused_mha``) and
 ``attention_vjp`` (K11, its differentiable form with dropout:
 ``fused_mha_train``). Every kernel takes bfloat16 or float32 operands (all of

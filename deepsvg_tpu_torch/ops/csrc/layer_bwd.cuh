@@ -12,6 +12,14 @@
 // da, dctx, ds and dqkv are rounded to the activation type before their
 // products, which run on the tensor cores.
 //
+// RECOMPUTE (K4's recompute mode; K7 does not instantiate it): the forward
+// saved nothing. A launch before this one (layer_fwd.cuh, FWD_WORKSPACE)
+// wrote QKV, the context, x1 and the FF hidden before dropout in f32 into a
+// workspace of this layer alone; the probabilities are recomputed here per
+// (sequence, head) from Q and K, in f32 and bit for bit the forward's, and
+// enter the softmax backward in f32, as the f32 hidden enters the ReLU gate
+// and the dropped hidden: the Pallas kernel's recompute backward.
+//
 // The weight gradients are sums over all rows of the batch, and blocks run
 // concurrently, so this code does not form them. It writes the operands of
 // the four products (dqkv and LN1(x), da and ctx, dhpre and LN2(x1), df and
@@ -39,6 +47,9 @@ struct BwdParams {
   const T* ctx_s;
   const float* x1_s;
   const T* h_s;
+  const float* h32;   // RECOMPUTE: the FF hidden before dropout, f32 [rows][F]
+  const float* mask;  // RECOMPUTE: [B][S] additive
+  int causal;         // RECOMPUTE
   T* dx;
   float* dbias;  // [B][D]
   T* xn1_o;      // [rows][D]
@@ -106,7 +117,7 @@ __device__ void reduce_warp_columns(const float (&acc)[N][8], float* stage, int 
 
 // One layer's backward on the sequences of block blockIdx.x. `smem` holds
 // smem_bytes<T, ROWS>(D, F) bytes.
-template <class T, int ROWS>
+template <class T, int ROWS, bool RECOMPUTE = false>
 __device__ __forceinline__ void layer_bwd_tile(const BwdParams<T>& p, unsigned char* smem) {
   const int D = p.D, F = p.F, S = p.S, H = p.H;
   const int ldn = D + SPAD, ldb = big_ld(D, F);
@@ -131,6 +142,11 @@ __device__ __forceinline__ void layer_bwd_tile(const BwdParams<T>& p, unsigned c
   const unsigned key_fh = site_key(p.seed, SITE_FF_HIDDEN);
   const unsigned key_fo = site_key(p.seed, SITE_FF_OUT);
   const unsigned key_ap = site_key(p.seed, SITE_ATTN_PROB);
+  // the FF hidden before dropout: saved rounded to T, or recomputed in f32
+  auto hidden = [&](size_t i) -> float {
+    if constexpr (RECOMPUTE) return p.h32[i];
+    else return to_f(p.h_s[i]);
+  };
 
   for (int e = threadIdx.x; e < off.total; e += NTHREADS) colsum[e] = 0.f;
   __syncthreads();
@@ -157,7 +173,7 @@ __device__ __forceinline__ void layer_bwd_tile(const BwdParams<T>& p, unsigned c
   // 1b. the dropped FF hidden for the dW2 product
   for (int e = threadIdx.x; e < nrows * F; e += NTHREADS) {
     const int r = e / F, n = e - r * F;
-    float h = to_f(p.h_s[row0 * F + e]);
+    float h = hidden(row0 * F + e);
     if (drop) h = keep_elem(key_fh, (unsigned)(row0 + r), n, p.thr) ? h * p.kp : 0.f;
     p.hd_o[row0 * F + e] = from_f<T>(h);
   }
@@ -184,7 +200,7 @@ __device__ __forceinline__ void layer_bwd_tile(const BwdParams<T>& p, unsigned c
                               float dh = 0.f;
                               if (r < nrows) {
                                 const size_t row = row0 + r;
-                                if (to_f(p.h_s[row * F + n]) > 0.f) {
+                                if (hidden(row * F + n) > 0.f) {
                                   dh = v;
                                   if (drop)
                                     dh = keep_elem(key_fh, (unsigned)row, n, p.thr) ? dh * p.kp : 0.f;
@@ -290,6 +306,11 @@ __device__ __forceinline__ void layer_bwd_tile(const BwdParams<T>& p, unsigned c
     T* base = big + (size_t)sq * S * ldb;
     const bool has_key = lane < S;
     const int jr = has_key ? lane : 0;
+    // RECOMPUTE: this lane's key (read before any of it is overwritten) and
+    // mask, as the forward's attention holds them
+    const T* krow = base + (size_t)jr * ldb + D + h * HEAD_DIM;
+    const float mval =
+        RECOMPUTE && has_key ? p.mask[(size_t)(seq0 + sq) * S + lane] : -INFINITY;
     float vf[HEAD_DIM], dk[HEAD_DIM], dv[HEAD_DIM];
 #pragma unroll
     for (int d = 0; d < HEAD_DIM; ++d) {
@@ -301,7 +322,25 @@ __device__ __forceinline__ void layer_bwd_tile(const BwdParams<T>& p, unsigned c
     for (int i = 0; i < S; ++i) {
       const T* dc = S2 + (size_t)(sq * S + i) * ldn + h * HEAD_DIM;
       T* qr = base + (size_t)i * ldb + h * HEAD_DIM;
-      const float pr = has_key ? to_f(p.p_s[(prow0 + i) * S + lane]) : 0.f;
+      float pr;
+      if constexpr (RECOMPUTE) {
+        // the forward's probability, f32: the same products and sums in the
+        // same order as layer_fwd::attention
+        float sc = 0.f;
+#pragma unroll
+        for (int d = 0; d < HEAD_DIM; ++d)
+          sc = fmaf(to_f(qr[d]), has_key ? to_f(krow[d]) : 0.f, sc);
+        sc = sc * p.scale + mval;
+        if (!has_key || (p.causal && lane > i)) sc = -INFINITY;
+        const float m = warp_max(sc);
+        pr = 0.f;
+        if (m != -INFINITY) {
+          const float e = expf(sc - m);
+          pr = e / warp_sum(e);
+        }
+      } else {
+        pr = has_key ? to_f(p.p_s[(prow0 + i) * S + lane]) : 0.f;
+      }
       float km = 1.f;  // the dropout factor of this probability
       if (drop) km = keep_elem(key_ap, (unsigned)(prow0 + i), (unsigned)lane, p.thr) ? p.kp : 0.f;
       const float pe = round_to<T>(pr * km);
@@ -421,6 +460,9 @@ BwdParams<T> make_params(void* const* t, int B, int S, int D, int F, int H, int 
   p.ctx_s = (const T*)t[10];
   p.x1_s = (const float*)t[11];
   p.h_s = (const T*)t[12];
+  p.h32 = nullptr;
+  p.mask = nullptr;
+  p.causal = 0;
   p.dx = (T*)t[13];
   p.dbias = (float*)t[14];
   p.xn1_o = (T*)t[15];

@@ -18,15 +18,24 @@
 // whose keys are all masked gets zero probabilities.
 //
 // TRAIN adds dropout at the four sites (attention probabilities, attention
-// output, FF hidden, FF output; masks from the hash in common.cuh) and saves
-// for the backward what it would otherwise recompute: QKV, the probabilities
-// before dropout, the context, the residual after the attention block (f32)
-// and the FF hidden before dropout.
+// output, FF hidden, FF output; masks from the hash in common.cuh). What a
+// training forward writes beside `out` is its MODE:
+//   FWD_SAVE (K4's saved mode, K7): what the backward would otherwise
+//     recompute: QKV, the probabilities before dropout, the context, the
+//     residual after the attention block (f32) and the FF hidden before
+//     dropout;
+//   FWD_OUT: `out` alone (K4's recompute mode);
+//   FWD_WORKSPACE (the first launch of K4's recompute backward): QKV, the
+//     context, the residual after the attention block (f32) and the FF
+//     hidden before dropout in f32, then stops: no FF2, no `out`.
+// The arithmetic is the same in every mode: `out` is the same to the bit.
 #pragma once
 
 #include "common.cuh"
 
 namespace layer_fwd {
+
+enum FwdMode { FWD_SAVE = 0, FWD_OUT = 1, FWD_WORKSPACE = 2 };
 
 template <class T>
 struct LayerParams {
@@ -50,6 +59,7 @@ struct LayerParams {
   T* ctx_s;           // [B*S][D]
   float* x1_s;        // [B*S][D]
   T* h_s;             // [B*S][F]
+  float* h32;         // [B*S][F], FWD_WORKSPACE only
   int B, S, D, F, H, causal, nseq;
   float scale, kp;
   unsigned thr;
@@ -96,7 +106,8 @@ __device__ void layer_norm_rows(float* xres, int D, const T* __restrict__ ln, T*
 
 // ctx[seq, i, head] = softmax(q_i k^T * scale + mask) v, one warp per
 // (sequence, head); probabilities are rounded to T before the PV product.
-template <class T, bool TRAIN>
+// SAVE_P: the probabilities before dropout go to p.p_s.
+template <class T, bool TRAIN, bool SAVE_P = TRAIN>
 __device__ void attention(const LayerParams<T>& p, const T* qkv, int ldq, T* ctx,
                           int ldc, int seq0, int nvalid, int warp, int lane) {
   const int S = p.S, D = p.D, H = p.H;
@@ -126,7 +137,8 @@ __device__ void attention(const LayerParams<T>& p, const T* qkv, int ldq, T* ctx
         pr = e / warp_sum(e);
       }
       if constexpr (TRAIN) {
-        if (has_key) p.p_s[(prow0 + i) * S + lane] = from_f<T>(pr);
+        if constexpr (SAVE_P)
+          if (has_key) p.p_s[(prow0 + i) * S + lane] = from_f<T>(pr);
         if (p.thr != 0u)
           pr = keep_elem(key, (unsigned)(prow0 + i), (unsigned)lane, p.thr) ? pr * p.kp : 0.f;
       }
@@ -140,9 +152,11 @@ __device__ void attention(const LayerParams<T>& p, const T* qkv, int ldq, T* ctx
 }
 
 // One layer on the sequences of block blockIdx.x: x -> out (and, with TRAIN,
-// the saved tensors). `smem` holds smem_bytes<T, ROWS>(D, F) bytes.
-template <class T, int ROWS, bool TRAIN>
+// what MODE writes). `smem` holds smem_bytes<T, ROWS>(D, F) bytes.
+template <class T, int ROWS, bool TRAIN, int MODE = FWD_SAVE>
 __device__ __forceinline__ void layer_tile(const LayerParams<T>& p, unsigned char* smem) {
+  constexpr bool SAVE = TRAIN && MODE == FWD_SAVE;
+  constexpr bool WORKSPACE = TRAIN && MODE == FWD_WORKSPACE;
   const int D = p.D, F = p.F, S = p.S;
   const int ldn = D + SPAD, ldb = big_ld(D, F);
   float* xres = reinterpret_cast<float*>(smem);
@@ -176,16 +190,16 @@ __device__ __forceinline__ void layer_tile(const LayerParams<T>& p, unsigned cha
                            [&](int r, int n, float v) {
                              const T q = from_f<T>(v + to_f(p.bqkv[n]));
                              big[r * ldb + n] = q;
-                             if constexpr (TRAIN)
+                             if constexpr (SAVE || WORKSPACE)
                                if (r < nrows) p.qkv_s[(row0 + r) * 3 * D + n] = q;
                              return 0.f;
                            });
   __syncthreads();
 
   // 4. attention; the context overwrites xn
-  attention<T, TRAIN>(p, big, ldb, xn, ldn, seq0, nvalid, warp, lane);
+  attention<T, TRAIN, SAVE>(p, big, ldb, xn, ldn, seq0, nvalid, warp, lane);
   __syncthreads();
-  if constexpr (TRAIN) {
+  if constexpr (SAVE || WORKSPACE) {
     for (int e = threadIdx.x; e < nrows * D; e += NTHREADS) {
       const int r = e / D, c = e - r * D;
       p.ctx_s[row0 * D + e] = xn[r * ldn + c];
@@ -209,7 +223,8 @@ __device__ __forceinline__ void layer_tile(const LayerParams<T>& p, unsigned cha
   // 6. per-sequence bias, then LN2
   layer_norm_rows<T, ROWS>(xres, D, p.ln2, xn, ldn,
                            p.seq_bias ? p.seq_bias + (size_t)seq0 * D : nullptr,
-                           TRAIN ? p.x1_s + row0 * D : nullptr, S, nrows, warp, lane);
+                           SAVE || WORKSPACE ? p.x1_s + row0 * D : nullptr, S, nrows, warp,
+                           lane);
   __syncthreads();
 
   // 7. FF1 + ReLU, stored as T
@@ -218,8 +233,10 @@ __device__ __forceinline__ void layer_tile(const LayerParams<T>& p, unsigned cha
     tile_gemm<T, ROWS, true>(xn, ldn, p.w1, D, F, D, wscr, warp, lane, nullptr,
                              [&](int r, int n, float v) {
                                float h = fmaxf(v + to_f(p.b1[n]), 0.f);
-                               if constexpr (TRAIN)
+                               if constexpr (SAVE)
                                  if (r < nrows) p.h_s[(row0 + r) * F + n] = from_f<T>(h);
+                               if constexpr (WORKSPACE)
+                                 if (r < nrows) p.h32[(row0 + r) * F + n] = h;
                                if (drop)
                                  h = keep_elem(key, (unsigned)(row0 + r), n, p.thr) ? h * p.kp : 0.f;
                                big[r * ldb + n] = from_f<T>(h);
@@ -227,6 +244,7 @@ __device__ __forceinline__ void layer_tile(const LayerParams<T>& p, unsigned cha
                              });
   }
   __syncthreads();
+  if constexpr (WORKSPACE) return;
 
   // 8. FF2 into the residual
   {
@@ -270,7 +288,7 @@ LayerParams<T> make_params(const void* x, const void* seq_bias, const void* ln1,
   p.mask = (const float*)mask;
   p.out = (T*)out;
   p.qkv_s = p.p_s = p.ctx_s = p.h_s = nullptr;
-  p.x1_s = nullptr;
+  p.x1_s = p.h32 = nullptr;
   p.B = B;
   p.S = S;
   p.D = D;

@@ -21,10 +21,13 @@
 //
 // TRAIN adds the short form's training switch (layer_fwd.cuh): dropout at
 // the four sites, with the masks of common.cuh at the same (row, column)
-// coordinates as the short form and the plain version, and the saved
-// tensors: the probabilities before dropout [B][H][S][S] (zero beyond a
-// causal row's last key), the context, the residual after the attention
-// block (f32) and the FF hidden before dropout.
+// coordinates as the short form and the plain version, and what the MODE
+// writes: with FWD_SAVE the saved tensors, the probabilities before dropout
+// [B][H][S][S] (zero beyond a causal row's last key), the context, the
+// residual after the attention block (f32) and the FF hidden before dropout;
+// with FWD_OUT nothing but `out` (QKV is the caller's scratch); with
+// FWD_WORKSPACE the context, that residual and the f32 hidden, and no FF2
+// or `out` (the first launches of K4's recompute backward).
 #pragma once
 
 #include "layer_fwd.cuh"
@@ -237,8 +240,10 @@ __device__ __forceinline__ void attend_tile(const T* qkv, const float* mask, int
   }
 }
 
-template <class T, int QROWS, bool TRAIN>
+template <class T, int QROWS, bool TRAIN, int MODE = FWD_SAVE>
 __global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, const T* qkv) {
+  constexpr bool SAVE = TRAIN && MODE == FWD_SAVE;
+  constexpr bool WORKSPACE = TRAIN && MODE == FWD_WORKSPACE;
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = p.D, F = p.F, S = p.S, H = p.H;
   const LongLayout<T, QROWS> lay(S, D, F);
@@ -258,8 +263,8 @@ __global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, co
 
   attend_tile<T, QROWS>(qkv, p.mask + (size_t)b * S, b, q0, nq, S, D, H, p.causal, p.scale,
                         lay, smem, ctx, wscr, warp, lane, drop, p.seed, p.thr, p.kp,
-                        TRAIN ? p.p_s : nullptr);
-  if constexpr (TRAIN) {
+                        SAVE ? p.p_s : nullptr);
+  if constexpr (SAVE || WORKSPACE) {
     for (int e = threadIdx.x; e < nq * D; e += NTHREADS) {
       const int r = e / D, c = e - r * D;
       p.ctx_s[tile_row0 * D + e] = ctx[r * ldn + c];
@@ -289,18 +294,21 @@ __global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, co
   }
   __syncthreads();
   // seq_bias of sequence b on every row (S = QROWS: r / S = 0), then LN2
-  // (with TRAIN, the residual after seq_bias saved for the backward)
+  // (the residual after seq_bias saved for the backward, or to the workspace)
   layer_norm_rows<T, QROWS>(xres, D, p.ln2, ctx, ldn,
                             p.seq_bias ? p.seq_bias + (size_t)b * D : nullptr,
-                            TRAIN ? p.x1_s + tile_row0 * D : nullptr, QROWS, nq, warp, lane);
+                            SAVE || WORKSPACE ? p.x1_s + tile_row0 * D : nullptr, QROWS, nq,
+                            warp, lane);
   __syncthreads();
   {
     const unsigned key = site_key(p.seed, SITE_FF_HIDDEN);
     tile_gemm<T, QROWS, true>(ctx, ldn, p.w1, D, F, D, wscr, warp, lane, nullptr,
                               [&](int r, int n, float v) {
                                 float h = fmaxf(v + to_f(p.b1[n]), 0.f);
-                                if constexpr (TRAIN)
+                                if constexpr (SAVE)
                                   if (r < nq) p.h_s[(tile_row0 + r) * F + n] = from_f<T>(h);
+                                if constexpr (WORKSPACE)
+                                  if (r < nq) p.h32[(tile_row0 + r) * F + n] = h;
                                 if (drop)
                                   h = keep_elem(key, (unsigned)(tile_row0 + r), n, p.thr) ? h * p.kp
                                                                                          : 0.f;
@@ -309,6 +317,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, co
                               });
   }
   __syncthreads();
+  if constexpr (WORKSPACE) return;
   {
     const unsigned key = site_key(p.seed, SITE_FF_OUT);
     tile_gemm<T, QROWS, true>(big, lay.ldb, p.w2, F, D, F, wscr, warp, lane, nullptr,
@@ -327,7 +336,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, co
 }
 
 // Both launches on `stream`; qkv [B*S][3D] of the activation type.
-template <class T, int ROWS, int QROWS, bool TRAIN>
+template <class T, int ROWS, int QROWS, bool TRAIN, int MODE = FWD_SAVE>
 int launch_forward(LayerParams<T> p, T* qkv, cudaStream_t stream) {
   const size_t smem1 = qkv_smem<T, ROWS>(p.D);
   cudaError_t err = cudaFuncSetAttribute(qkv_kernel<T, ROWS>,
@@ -338,11 +347,11 @@ int launch_forward(LayerParams<T> p, T* qkv, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem2 = LongLayout<T, QROWS>(p.S, p.D, p.F).total;
-  err = cudaFuncSetAttribute(attn_ffn_kernel<T, QROWS, TRAIN>,
+  err = cudaFuncSetAttribute(attn_ffn_kernel<T, QROWS, TRAIN, MODE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)p.B * ((p.S + QROWS - 1) / QROWS);
-  attn_ffn_kernel<T, QROWS, TRAIN><<<blocks, NTHREADS, smem2, stream>>>(p, qkv);
+  attn_ffn_kernel<T, QROWS, TRAIN, MODE><<<blocks, NTHREADS, smem2, stream>>>(p, qkv);
   return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,16 @@
 // short form does. No atomics: the gradients are bit-identical from run to
 // run. The roundings are the short form's: df, dhpre, da, dctx, ds and dqkv
 // are rounded to the activation type before their products.
+//
+// Recompute mode (RECOMPUTE; the forward wrote `out` alone, its QKV scratch
+// freed on return): two launches first fill a workspace of this layer alone,
+// the forward's qkv_kernel (QKV) and attn_ffn_kernel with FWD_WORKSPACE (the
+// context, x1 and the FF hidden before dropout in f32; no [B][H][S][S]
+// buffer). Then (a) takes the f32 hidden for the ReLU gate and the dropped
+// hidden, and (b) recomputes each query tile's scores Q K^T and the
+// probabilities from Q and K in shared memory, in f32 and bit for bit the
+// forward's (as K11's backward does, attention.cu), where the saved mode
+// reads them rounded to T.
 #include "layer_bwd.cuh"
 #include "layer_long.cuh"
 
@@ -51,7 +61,7 @@ size_t ffn_smem(int D, int F) {
          (size_t)(9 * D + F) * sizeof(float);
 }
 
-template <class T>
+template <class T, bool RECOMPUTE>
 __global__ void __launch_bounds__(NTHREADS)
     ffn_bwd_kernel(BwdParams<T> p, T* dctx, float* dx1) {
   constexpr int ROWS = BWD_ROWS;
@@ -75,6 +85,11 @@ __global__ void __launch_bounds__(NTHREADS)
   const unsigned key_ao = site_key(p.seed, SITE_ATTN_OUT);
   const unsigned key_fh = site_key(p.seed, SITE_FF_HIDDEN);
   const unsigned key_fo = site_key(p.seed, SITE_FF_OUT);
+  // the FF hidden before dropout: saved rounded to T, or recomputed in f32
+  auto hidden = [&](size_t i) -> float {
+    if constexpr (RECOMPUTE) return p.h32[i];
+    else return to_f(p.h_s[i]);
+  };
 
   for (int e = threadIdx.x; e < off.total; e += NTHREADS) colsum[e] = 0.f;
   __syncthreads();
@@ -101,7 +116,7 @@ __global__ void __launch_bounds__(NTHREADS)
   // 1b. the dropped FF hidden for the dW2 product
   for (int e = threadIdx.x; e < nrows * F; e += NTHREADS) {
     const int r = e / F, n = e - r * F;
-    float h = to_f(p.h_s[row0 * F + e]);
+    float h = hidden(row0 * F + e);
     if (drop) h = keep_elem(key_fh, (unsigned)(row0 + r), n, p.thr) ? h * p.kp : 0.f;
     p.hd_o[row0 * F + e] = from_f<T>(h);
   }
@@ -128,7 +143,7 @@ __global__ void __launch_bounds__(NTHREADS)
                                     float dh = 0.f;
                                     if (r < nrows) {
                                       const size_t row = row0 + r;
-                                      if (to_f(p.h_s[row * F + n]) > 0.f) {
+                                      if (hidden(row * F + n) > 0.f) {
                                         dh = v;
                                         if (drop)
                                           dh = keep_elem(key_fh, (unsigned)row, n, p.thr)
@@ -220,7 +235,9 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---- (b): attention backward of one (sequence, head)
-template <class T, int QT>
+// RECOMPUTE: `pe` holds the f32 scores, then the rounded dropped
+// probabilities in their place (rows of ldp elements)
+template <class T, int QT, bool RECOMPUTE>
 struct AttnBwdLayout {
   int spad, qpad, ldh, lds, ldp;
   size_t q, k, v, dc, dp, pe, scratch, total;
@@ -236,18 +253,18 @@ struct AttnBwdLayout {
     dc = align128(v + (size_t)spad * ldh * sizeof(T));
     dp = align128(dc + (size_t)QT * ldh * sizeof(T));
     pe = align128(dp + (size_t)QT * lds * sizeof(float));
-    scratch = align128(pe + (size_t)QT * lds * sizeof(T));
+    scratch = align128(pe + (size_t)QT * lds * (RECOMPUTE ? sizeof(float) : sizeof(T)));
     total = scratch + (size_t)NWARPS * 256 * sizeof(float);
   }
 };
 
-template <class T, int QT>
+template <class T, int QT, bool RECOMPUTE>
 __global__ void __launch_bounds__(NTHREADS)
     attn_bwd_kernel(BwdParams<T> p, const T* dctx, const float* dx1, int causal) {
   typedef Mma<T> M;
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = p.D, S = p.S, H = p.H;
-  const AttnBwdLayout<T, QT> lay(S);
+  const AttnBwdLayout<T, QT, RECOMPUTE> lay(S);
   T* qs = reinterpret_cast<T*>(smem + lay.q);
   T* ks = reinterpret_cast<T*>(smem + lay.k);
   T* vs = reinterpret_cast<T*>(smem + lay.v);
@@ -255,11 +272,14 @@ __global__ void __launch_bounds__(NTHREADS)
   float* dP = reinterpret_cast<float*>(smem + lay.dp);
   T* dS = reinterpret_cast<T*>(dP);                  // rounded dS, in place of dP
   T* pes = reinterpret_cast<T*>(smem + lay.pe);      // dropped probabilities, rounded
+  float* sc = reinterpret_cast<float*>(smem + lay.pe);  // RECOMPUTE: the scores first
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* wscr = reinterpret_cast<float*>(smem + lay.scratch) + warp * 256;
   const int ldh = lay.ldh, lds = lay.lds, ldp = lay.ldp;
+  const int ldpe = RECOMPUTE ? ldp : lds;             // T elements a row of Pe
   const int b = blockIdx.x / H, h = blockIdx.x - b * H;
   const size_t seq_row0 = (size_t)b * S;
+  const float* mask = RECOMPUTE ? p.mask + seq_row0 : nullptr;
   const bool drop = p.thr != 0u;
   const unsigned key_ap = site_key(p.seed, SITE_ATTN_PROB);
   const size_t ld3 = 3 * (size_t)D;
@@ -294,23 +314,29 @@ __global__ void __launch_bounds__(NTHREADS)
     load_head(dctx, seq_row0 + q0, nq, QT, D, h * HEAD_DIM, dcs, ldh);
     __syncthreads();
 
-    // dPe [QT][nk] = dctx V^T (f32), the gradient of the dropped probabilities
-    const int kt = nk / 16;
-    for (int t = warp; t < (QT / 16) * kt; t += NWARPS) {
-      const int i = t / kt, j = t - i * kt;
+    // dPe [QT][nk] = dctx V^T (f32), the gradient of the dropped
+    // probabilities; RECOMPUTE: and the scores [QT][nk] = Q K^T (f32)
+    const int kt = nk / 16, tiles = (QT / 16) * kt;
+    for (int t = warp; t < (RECOMPUTE ? 2 : 1) * tiles; t += NWARPS) {
+      const bool scores = t >= tiles;
+      const int tt = scores ? t - tiles : t;
+      const int i = tt / kt, j = tt - i * kt;
+      const T* a_src = scores ? qs + (q0 + i * 16) * ldh : dcs + i * 16 * ldh;
+      const T* b_src = (scores ? ks : vs) + j * 16 * ldh;
       typename M::Acc acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
       for (int k = 0; k < HEAD_DIM; k += M::K) {
         typename M::ARow a;
         typename M::BCol bv;
-        wmma::load_matrix_sync(a, dcs + i * 16 * ldh + k, ldh);
-        wmma::load_matrix_sync(bv, vs + j * 16 * ldh + k, ldh);
+        wmma::load_matrix_sync(a, a_src + k, ldh);
+        wmma::load_matrix_sync(bv, b_src + k, ldh);
         M::fix(a);
         M::fix(bv);
         wmma::mma_sync(acc, a, bv, acc);
       }
-      wmma::store_matrix_sync(dP + i * 16 * lds + j * 16, acc, lds, wmma::mem_row_major);
+      wmma::store_matrix_sync((scores ? sc : dP) + i * 16 * lds + j * 16, acc, lds,
+                              wmma::mem_row_major);
     }
     __syncthreads();
 
@@ -321,11 +347,32 @@ __global__ void __launch_bounds__(NTHREADS)
       const int klim = r < nq ? (causal ? qi + 1 : S) : 0;
       const size_t prow = ((size_t)b * H + h) * S + qi;
       float pr[MAX_SEQ_LONG / 32], dp[MAX_SEQ_LONG / 32], km[MAX_SEQ_LONG / 32];
+      if constexpr (RECOMPUTE) {
+        // the forward's probabilities in f32, as layer_long::attend_tile
+        // forms them from the same scores
+        float m = -INFINITY;
+#pragma unroll
+        for (int t = 0; t < MAX_SEQ_LONG / 32; ++t) {
+          const int j = lane + 32 * t;
+          pr[t] = j < klim ? sc[r * lds + j] * p.scale + mask[j] : -INFINITY;
+          m = fmaxf(m, pr[t]);
+        }
+        m = warp_max(m);
+        float sum = 0.f;
+#pragma unroll
+        for (int t = 0; t < MAX_SEQ_LONG / 32; ++t) {
+          pr[t] = m == -INFINITY ? 0.f : expf(pr[t] - m);
+          sum += pr[t];
+        }
+        sum = warp_sum(sum);
+#pragma unroll
+        for (int t = 0; t < MAX_SEQ_LONG / 32; ++t) pr[t] = m == -INFINITY ? 0.f : pr[t] / sum;
+      }
       float s = 0.f;
 #pragma unroll
       for (int t = 0; t < MAX_SEQ_LONG / 32; ++t) {
         const int j = lane + 32 * t;
-        pr[t] = j < klim ? to_f(p.p_s[prow * S + j]) : 0.f;
+        if constexpr (!RECOMPUTE) pr[t] = j < klim ? to_f(p.p_s[prow * S + j]) : 0.f;
         km[t] = 1.f;
         if (drop && j < klim) km[t] = keep_elem(key_ap, (unsigned)prow, (unsigned)j, p.thr) ? p.kp : 0.f;
         dp[t] = j < nk ? dP[r * lds + j] * km[t] : 0.f;
@@ -338,7 +385,7 @@ __global__ void __launch_bounds__(NTHREADS)
         const int j = lane + 32 * t;
         if (j < nk) {
           dS[r * ldp + j] = from_f<T>(pr[t] * (dp[t] - s));
-          pes[r * lds + j] = from_f<T>(pr[t] * km[t]);
+          pes[r * ldpe + j] = from_f<T>(pr[t] * km[t]);
         }
       }
     }
@@ -354,7 +401,7 @@ __global__ void __launch_bounds__(NTHREADS)
         for (int k = 0; k < QT; k += M::K) {
           typename M::ACol pa, sa;
           typename M::BRow db, qb;
-          wmma::load_matrix_sync(pa, pes + k * lds + kt16, lds);
+          wmma::load_matrix_sync(pa, pes + k * ldpe + kt16, ldpe);
           wmma::load_matrix_sync(db, dcs + k * ldh + c * 16, ldh);
           wmma::load_matrix_sync(sa, dS + k * ldp + kt16, ldp);
           wmma::load_matrix_sync(qb, qs + (q0 + k) * ldh + c * 16, ldh);
@@ -516,22 +563,23 @@ __global__ void __launch_bounds__(NTHREADS) qkv_bwd_kernel(BwdParams<T> p, const
     p.small_part[(size_t)blockIdx.x * p.small_stride + e] = colsum[e];
 }
 
-template <class T, int QT>
+template <class T, int QT, bool RECOMPUTE = false>
 int launch_backward(BwdParams<T> p, T* dctx, float* dx1, int causal, cudaStream_t stream) {
   const long long rows = (long long)p.B * p.S;
   const unsigned row_blocks = (unsigned)((rows + BWD_ROWS - 1) / BWD_ROWS);
   size_t smem = ffn_smem<T>(p.D, p.F);
-  cudaError_t err = cudaFuncSetAttribute(ffn_bwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(ffn_bwd_kernel<T, RECOMPUTE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ffn_bwd_kernel<T><<<row_blocks, NTHREADS, smem, stream>>>(p, dctx, dx1);
+  ffn_bwd_kernel<T, RECOMPUTE><<<row_blocks, NTHREADS, smem, stream>>>(p, dctx, dx1);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  smem = AttnBwdLayout<T, QT>(p.S).total;
-  err = cudaFuncSetAttribute(attn_bwd_kernel<T, QT>,
+  smem = AttnBwdLayout<T, QT, RECOMPUTE>(p.S).total;
+  err = cudaFuncSetAttribute(attn_bwd_kernel<T, QT, RECOMPUTE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_kernel<T, QT><<<(unsigned)(p.B * p.H), NTHREADS, smem, stream>>>(p, dctx, dx1, causal);
+  attn_bwd_kernel<T, QT, RECOMPUTE><<<(unsigned)(p.B * p.H), NTHREADS, smem, stream>>>(
+      p, dctx, dx1, causal);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // (c) writes its column sums after (a)'s rows
@@ -543,6 +591,31 @@ int launch_backward(BwdParams<T> p, T* dctx, float* dx1, int causal, cudaStream_
   if (err != cudaSuccess) return (int)err;
   qkv_bwd_kernel<T><<<row_blocks, NTHREADS, smem, stream>>>(pc, dx1);
   return (int)cudaGetLastError();
+}
+
+// The recompute mode's backward: the workspace launches (QKV; the context,
+// x1 and the f32 hidden), then (a), (b) and (c). `t` as for
+// dsvg_layer_long_train_bwd_recompute.
+template <class T, int ROWS, int QROWS, int QT>
+int launch_backward_recompute(void* const* t, int B, int S, int D, int F, int H, int causal,
+                              int seed, int thr, float kp, float scale, cudaStream_t stream) {
+  layer_fwd::LayerParams<T> f = layer_fwd::make_params<T>(
+      t[0], t[26], t[2], t[3], t[27], t[4], t[28], t[5], t[6], t[29], t[7], t[30], t[31],
+      nullptr, B, S, D, F, H, causal, scale);
+  f.ctx_s = (T*)t[10];
+  f.x1_s = (float*)t[11];
+  f.h32 = (float*)t[25];
+  f.seed = seed;
+  f.thr = (unsigned)thr;
+  f.kp = kp;
+  const int err = layer_long::launch_forward<T, ROWS, QROWS, true, layer_fwd::FWD_WORKSPACE>(
+      f, (T*)t[8], stream);
+  if (err != 0) return err;
+  BwdParams<T> p = layer_bwd::make_params<T>(t, B, S, D, F, H, seed, thr, kp, scale);
+  p.h32 = (const float*)t[25];
+  p.mask = (const float*)t[31];
+  p.causal = causal;
+  return launch_backward<T, QT, true>(p, (T*)t[23], (float*)t[24], causal, stream);
 }
 
 }  // namespace
@@ -606,4 +679,54 @@ extern "C" int dsvg_layer_long_train_bwd(void* const* tensors, int B, int S, int
   BwdParams<bf16> p = layer_bwd::make_params<bf16>(tensors, B, S, D, F, H, seed, thr, kp, scale);
   return launch_backward<bf16, 64>(p, (bf16*)tensors[23], (float*)tensors[24], causal,
                                    (cudaStream_t)stream);
+}
+
+// Training forward of the recompute mode, long form: the arguments of
+// dsvg_layer_long_train_fwd, of which only qkv_s is used (the scratch
+// [B*S][3D] between the two launches); `out` alone is written, to the bit
+// the saved mode's.
+extern "C" int dsvg_layer_long_train_fwd_recompute(
+    const void* x, const void* seq_bias, const void* ln1, const void* wqkv,
+    const void* bqkv, const void* wo, const void* bo, const void* ln2,
+    const void* w1, const void* b1, const void* w2, const void* b2,
+    const void* mask, void* out, void* qkv, void*, void*, void*, void*, int B, int S, int D,
+    int F, int H, int causal, int is_f32, int seed, int thr, float kp, float scale,
+    void* stream) {
+  if (S < 1 || S > MAX_SEQ_LONG) return (int)cudaErrorInvalidValue;
+  if (is_f32) {
+    layer_fwd::LayerParams<float> p = layer_fwd::make_params<float>(
+        x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, out, B, S, D, F, H,
+        causal, scale);
+    p.seed = seed;
+    p.thr = (unsigned)thr;
+    p.kp = kp;
+    return layer_long::launch_forward<float, 32, 32, true, layer_fwd::FWD_OUT>(
+        p, (float*)qkv, (cudaStream_t)stream);
+  }
+  layer_fwd::LayerParams<bf16> p = layer_fwd::make_params<bf16>(
+      x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, out, B, S, D, F, H,
+      causal, scale);
+  p.seed = seed;
+  p.thr = (unsigned)thr;
+  p.kp = kp;
+  return layer_long::launch_forward<bf16, 64, 64, true, layer_fwd::FWD_OUT>(
+      p, (bf16*)qkv, (cudaStream_t)stream);
+}
+
+// The recompute mode's backward, long form. `tensors`: the 23 pointers of
+// BwdParams, where QKV, the context (16-row padded) and x1 are this layer's
+// workspace, written here, and the saved probabilities and hidden are not
+// read; dctx and dx1 (scratch, as dsvg_layer_long_train_bwd); then the f32
+// hidden [B*S][F] (workspace), seq_bias (or null), bqkv, bo, b1, b2 and the
+// mask [B][S].
+extern "C" int dsvg_layer_long_train_bwd_recompute(void* const* tensors, int B, int S, int D,
+                                                   int F, int H, int causal, int is_f32,
+                                                   int seed, int thr, float kp, float scale,
+                                                   void* stream) {
+  if (S < 1 || S > MAX_SEQ_LONG) return (int)cudaErrorInvalidValue;
+  if (is_f32)
+    return launch_backward_recompute<float, 32, 32, 32>(tensors, B, S, D, F, H, causal, seed,
+                                                         thr, kp, scale, (cudaStream_t)stream);
+  return launch_backward_recompute<bf16, 64, 64, 64>(tensors, B, S, D, F, H, causal, seed, thr,
+                                                      kp, scale, (cudaStream_t)stream);
 }

@@ -8,19 +8,28 @@ outside) gets the residual gradient summed over the sequence.
 
 Kernel note (``csrc/layer.cu``, ``csrc/layer_bwd.cu``, ``csrc/wgrad.cu``).
 Replaces the Pallas kernels ``deepsvg_tpu/ops/layer_vjp.py:_fwd_kernel`` and
-``_bwd_kernel`` / ``_bwd_kernel_saved`` (wrapper ``fused_layer_train``). On
-the H100 the layer is bound by its matmuls: forward and backward of an E1
-layer at B=128 (1,024 sequences of 32) are about 35 + 106 GFLOP, 0.14 ms at
-989 TFLOP/s bf16, against 0.02 ms for the bytes of x, out, g, dx, the weights
-and their gradients.
+``_bwd_kernel`` / ``_bwd_kernel_saved`` (wrapper ``fused_layer_train``), in
+both of their modes. On the H100 the layer is bound by its matmuls: forward
+and backward of an E1 layer at B=128 (1,024 sequences of 32) are about 35 +
+106 GFLOP, 0.14 ms at 989 TFLOP/s bf16, against 0.02 ms for the bytes of x,
+out, g, dx, the weights and their gradients.
 
-- *Forward* is K2's kernel compiled with the training switch. It saves to
+- *Modes.* ``save_residuals=True`` (the saved mode, what the model runs by
+  default through :data:`SAVE_RESIDUALS_DEFAULT`): the forward saves to
   device memory what the backward would otherwise recompute: QKV, the
-  probabilities before dropout, the context, the residual after the attention
-  block (float32) and the FF hidden before dropout, 5,120 bytes a row in
-  bfloat16. That is the save-residuals mode of the Pallas kernel widened;
-  its recompute mode (a memory/speed switch with the same result up to the
-  rounding of the saved tensors) is not ported.
+  probabilities before dropout, the context, the residual after the
+  attention block (float32) and the FF hidden before dropout, about 5,000
+  bytes a row in bfloat16 at the flagship's widths. ``save_residuals=False``
+  (the recompute mode, the op's default as in the JAX package): the forward
+  writes ``out`` alone, to the bit the saved mode's, and keeps nothing but
+  its inputs; the backward first runs the forward tile again into a
+  workspace of this layer alone (QKV, the context, x1 and the FF hidden in
+  float32; no probabilities), freed when the backward returns, and
+  recomputes each (sequence, head)'s probabilities in float32 from Q and K.
+  The probabilities enter the softmax backward, and the hidden the ReLU gate
+  and the dropped hidden, in float32, as in the Pallas recompute backward;
+  the saved mode reads both rounded to the activation type, so in bfloat16
+  the two modes' gradients differ by that rounding.
 - *Dropout masks* are a hash of (seed, site, row, column), see
   ``ops/dropout.py``: regenerated in the backward, independent of tiling,
   identical in the plain version.
@@ -48,9 +57,11 @@ encoder at S = 242 and its causal teacher-forced decoder at S = 241; at the
 recipe's B=60 a layer's products are 2 x 14,520 x 786,432 = 22.8 GFLOP
 forward and twice that backward, and its attention 4 x 60 x 242^2 x 256 =
 3.6 GFLOP forward (0.03 ms at 989 TFLOP/s bf16, 0.07 with the backward).
-The forward is the long K2's two launches with the training switch; it
-saves the probabilities ``[B, H, S, S]`` (56 MB a layer at B=60 in
-bfloat16) and what the short form saves. The backward splits the short
+The forward is the long K2's two launches with the training switch; in the
+saved mode it saves the probabilities ``[B, H, S, S]`` (56 MB a layer at
+B=60 in bfloat16) and what the short form saves, in the recompute mode
+nothing (its QKV between the two launches is freed on return). The
+backward splits the short
 form's walk where a row needs other rows: (a) over 32-row tiles of all rows,
 the FF, LN2 and out-projection backward down to ``dctx``; (b) one (sequence,
 head) per block, the attention backward with K, V and Q of the head in
@@ -58,7 +69,10 @@ shared memory, ``dQ`` per tile of queries and ``dK``, ``dV`` held in
 tensor-core accumulators over the query tiles in order; (c) over row tiles,
 the QKV and LN1 backward; then the short form's ``wgrad`` and reductions.
 No atomics: its gradients are bit-identical from run to run too. Same
-roundings as the short form.
+roundings as the short form. The recompute mode's backward first runs the
+forward's two launches into the layer's workspace (no ``[B, H, S, S]``
+buffer), and (b) recomputes the scores and probabilities of each query tile
+from Q and K in shared memory, as K11's backward does.
 
 Weights come in as the float32 master parameters and are cast to
 ``weight_dtype`` at use (then to the activation type: float32 activations
@@ -76,6 +90,12 @@ from .dropout import (
     SITE_ATTN_OUT, SITE_ATTN_PROB, SITE_FF_HIDDEN, SITE_FF_OUT, drop_threshold,
     dropout_factor, keep_scale)
 from .layer import HEAD_DIM, MAX_SEQ, MAX_SEQ_LONG, _layer_norm_f32, _mm, check_layer_inputs
+
+# The mode the model's layers train in (``models/layers.py``), as the JAX
+# package's switch of the same name: True saves the forward's intermediates
+# for the backward, False recomputes them there. Module-level, so that a
+# caller or a test can switch every layer of a step at once.
+SAVE_RESIDUALS_DEFAULT = True
 
 
 def layer_train_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
@@ -193,6 +213,22 @@ def _check_train_inputs(x, seq_bias, used, mask, n_heads, max_seq):
     return bias, mask
 
 
+def _workspace(x, f):
+    """The recompute backward's workspace, one layer's: QKV, the context
+    (16-row padded, for ``wgrad``), the float32 residual after the attention
+    block and the float32 FF hidden before dropout."""
+    b, s, d = x.shape
+    dev, dt = x.device, x.dtype
+    rows = b * s
+    return (torch.empty((rows, 3 * d), dtype=dt, device=dev), _padded_rows(rows, d, dt, dev),
+            torch.empty((rows, d), dtype=torch.float32, device=dev),
+            torch.empty((rows, f), dtype=torch.float32, device=dev))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _saved_tensors(x, n_heads, f):
     """What the forward keeps for the backward: QKV, the probabilities before
     dropout, the context (16-row padded, for ``wgrad``), the float32
@@ -263,11 +299,12 @@ def _weight_grads(ctx_s, outs, d, f, is_f32, stream):
 
 class _FusedLayerTrain(torch.autograd.Function):
     """K4 on CUDA tensors: the short form (a block holds whole sequences) or,
-    with ``long_form``, the long form (``csrc/layer_long_train.cu``)."""
+    with ``long_form``, the long form (``csrc/layer_long_train.cu``); in the
+    saved mode (``save``) or the recompute mode."""
 
     @staticmethod
     def forward(ctx, x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
-                seed, n_heads, causal, rate, weight_dtype, long_form):
+                seed, n_heads, causal, rate, weight_dtype, long_form, save):
         dev, dt = x.device, x.dtype
         x = x.contiguous()
         used = _used_weights(x, (ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2), weight_dtype)
@@ -280,28 +317,54 @@ class _FusedLayerTrain(torch.autograd.Function):
                              f"{F32_MAX_SEQ} (its backward tiles hold {F32_MAX_SEQ} rows), "
                              f"got S={s}")
         out = torch.empty_like(x)
-        saved = _saved_tensors(x, n_heads, f)
+        if save:
+            saved = _saved_tensors(x, n_heads, f)
+            ptrs = [t.data_ptr() for t in saved]
+        else:
+            # only the long form's QKV, passed between its two launches and
+            # freed on return
+            saved = ()
+            qkv = (torch.empty((b * s, 3 * d), dtype=dt, device=dev) if long_form else None)
+            ptrs = [_ptr(qkv), None, None, None, None]
         thr = drop_threshold(rate) if rate > 0.0 else 0
         kp = keep_scale(rate) if rate > 0.0 else 1.0
+        counter = fused_layer_train_long if long_form else fused_layer_train
         if b > 0:
-            name = "layer_long_train_fwd" if long_form else "layer_train_fwd"
+            name = ("layer_long_train_fwd" if long_form else "layer_train_fwd") \
+                + ("" if save else "_recompute")
             fn = _build.kernel_function(f"dsvg_{name}", _FWD_ARGTYPES)
-            rc = fn(x.data_ptr(), None if bias is None else bias.data_ptr(),
-                    *[w.data_ptr() for w in used], mask.data_ptr(), out.data_ptr(),
-                    *[t.data_ptr() for t in saved], b, s, d, f, n_heads, int(causal),
+            rc = fn(x.data_ptr(), _ptr(bias), *[w.data_ptr() for w in used], mask.data_ptr(),
+                    out.data_ptr(), *ptrs, b, s, d, f, n_heads, int(causal),
                     int(dt == torch.float32), int(seed), thr, kp, HEAD_DIM ** -0.5,
                     torch.cuda.current_stream(dev).cuda_stream)
             _build.check_launch(rc, name)
-            (fused_layer_train_long if long_form else fused_layer_train).launches += 1
-        ctx.save_for_backward(x, *used, *saved)
+            if save:
+                counter.launches += 1
+            else:
+                counter.recompute_launches += 1
+        if save:
+            ctx.save_for_backward(x, *used, *saved)
+        else:
+            ctx.save_for_backward(x, *used, mask, bias)
+        ctx.save_residuals = save
         ctx.meta = (n_heads, int(seed), thr, kp, int(causal), long_form, seq_bias is not None,
                     None if seq_bias is None else seq_bias.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, ln1, wqkv, _, wo, _, ln2, w1, _, w2, _, qkv_s, p_s, ctx_s, x1_s, h_s = \
-            ctx.saved_tensors
+        save = ctx.save_residuals
+        if save:
+            x, ln1, wqkv, _, wo, _, ln2, w1, _, w2, _, qkv_s, p_s, ctx_s, x1_s, h_s = \
+                ctx.saved_tensors
+            extra = ()
+        else:
+            x, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, bias = ctx.saved_tensors
+            # this layer's workspace, written by the backward's first launch
+            # and freed when the backward returns
+            qkv_s, ctx_s, x1_s, h32 = _workspace(x, w1.shape[0])
+            p_s = h_s = None
+            extra = (h32, bias, bqkv, bo, b1, b2, mask)
         n_heads, seed, thr, kp, causal, long_form, has_bias, bias_dtype = ctx.meta
         b, s, d = x.shape
         f = w1.shape[0]
@@ -310,6 +373,7 @@ class _FusedLayerTrain(torch.autograd.Function):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         g = g.to(x.dtype).contiguous()
         tensors = (x, g, ln1, wqkv, wo, ln2, w1, w2, qkv_s, p_s, ctx_s, x1_s, h_s)
+        mode = "" if save else "_recompute"
         if long_form:
             # one row of column sums per row tile of the first and of the
             # third launch; dctx and dx1 pass from the first launch to the
@@ -318,34 +382,45 @@ class _FusedLayerTrain(torch.autograd.Function):
             outs = _backward_outputs(x, f, 2 * -(-rows // tile))
             scratch = (torch.empty((rows, d), dtype=x.dtype, device=x.device),
                        torch.empty((rows, d), dtype=torch.float32, device=x.device))
-            ptrs = [t.data_ptr() for t in tensors + outs + scratch]
-            fn = _build.kernel_function("dsvg_layer_long_train_bwd", _LONG_BWD_ARGTYPES)
+            ptrs = [_ptr(t) for t in tensors + outs + scratch + extra]
+            fn = _build.kernel_function(f"dsvg_layer_long_train_bwd{mode}", _LONG_BWD_ARGTYPES)
             rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, f, n_heads, causal, is_f32,
                     seed, thr, kp, HEAD_DIM ** -0.5, stream)
-            _build.check_launch(rc, "layer_long_train_bwd")
-            fused_layer_train_long.backward_launches += 1
+            _build.check_launch(rc, f"layer_long_train_bwd{mode}")
         else:
             # one row of column sums per block of the first launch
             block_rows = _build.kernel_function("dsvg_layer_bwd_rows", [ctypes.c_int])(is_f32)
             outs = _backward_outputs(x, f, -(-b // (block_rows // s)))
-            ptrs = [t.data_ptr() for t in tensors + outs]
-            fn = _build.kernel_function("dsvg_layer_train_bwd", _BWD_ARGTYPES)
-            rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, f, n_heads, is_f32, seed,
-                    thr, kp, HEAD_DIM ** -0.5, stream)
-            _build.check_launch(rc, "layer_train_bwd")
-            fused_layer_train.backward_launches += 1
+            ptrs = [_ptr(t) for t in tensors + outs + extra]
+            if save:
+                fn = _build.kernel_function("dsvg_layer_train_bwd", _BWD_ARGTYPES)
+                rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, f, n_heads, is_f32, seed,
+                        thr, kp, HEAD_DIM ** -0.5, stream)
+            else:
+                fn = _build.kernel_function("dsvg_layer_train_bwd_recompute",
+                                            _LONG_BWD_ARGTYPES)
+                rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, f, n_heads, causal,
+                        is_f32, seed, thr, kp, HEAD_DIM ** -0.5, stream)
+            _build.check_launch(rc, f"layer_train_bwd{mode}")
+        counter = fused_layer_train_long if long_form else fused_layer_train
+        if save:
+            counter.backward_launches += 1
+        else:
+            counter.recompute_backward_launches += 1
         dws = _weight_grads(ctx_s, outs, d, f, is_f32, stream)
         dx, dbias = outs[0], outs[1]
         return (dx, dbias.to(bias_dtype) if has_bias else None, *dws,
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def plain_layer_train(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                       seed: int, n_heads: int, causal: bool = False, rate: float = 0.0,
-                      weight_dtype=None, relu_gate=None):
+                      weight_dtype=None, relu_gate=None, save_residuals: bool = False):
     """:func:`fused_layer_train` through the plain version, on any device: the
     master weights cast to ``weight_dtype`` in the graph, then
-    :func:`layer_train_reference` under autograd."""
+    :func:`layer_train_reference` under autograd. Autograd keeps what it
+    needs and the probabilities stay float32, so ``save_residuals`` (taken
+    for the kernel's signature) changes nothing."""
     used = [w.to(weight_dtype or x.dtype)
             for w in (ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2)]
     return layer_train_reference(x, seq_bias, *used, mask, seed, n_heads, causal, rate,
@@ -354,20 +429,31 @@ def plain_layer_train(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
 
 def kernel_relu_gate(out: torch.Tensor) -> torch.Tensor:
     """``[B, S, F]`` bool: the FF units that passed the ReLU in the kernel
-    forward that made ``out`` (read from what it saved for its backward)."""
+    forward that made ``out`` (read from what its saved mode kept for the
+    backward). The recompute mode keeps no hidden: raises; a saved-mode
+    forward of the same inputs makes the same ``out`` to the bit, and its
+    gate is the one to take."""
+    if not getattr(out.grad_fn, "save_residuals", False):
+        raise ValueError("kernel_relu_gate reads the FF hidden that K4's saved mode keeps; "
+                         "this output was not made by it (run the same inputs with "
+                         "save_residuals=True)")
     hidden = out.grad_fn.saved_tensors[-1]
     return (hidden > 0).view(out.shape[0], out.shape[1], -1)
 
 
 def fused_layer_train(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                       seed: int, n_heads: int, causal: bool = False, rate: float = 0.0,
-                      weight_dtype=None):
+                      weight_dtype=None, save_residuals: bool = False):
     """One fused transformer layer, differentiable, with dropout ``rate``.
 
     Arguments as :func:`ops.layer.fused_layer`, except that the weights are
     the master parameters (any float type) and are cast to ``weight_dtype``
     (default: ``x``'s type) where they are used; ``seed`` is a host integer
     below 2**31. Gradients flow to ``x``, ``seq_bias`` and all weights.
+    ``save_residuals`` picks the kernels' mode (see the module note): True
+    keeps the forward's intermediates until the backward, False (the
+    default, as in the JAX package) recomputes them there; the model passes
+    :data:`SAVE_RESIDUALS_DEFAULT`.
 
     A CPU tensor takes :func:`layer_train_reference` under autograd; a CUDA
     tensor launches the kernels (head dim 32, D <= 256) or raises: the short
@@ -387,28 +473,35 @@ def fused_layer_train(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
     short = F32_MAX_SEQ if x.dtype == torch.float32 else MAX_SEQ
     if x.dim() == 3 and x.shape[1] > short:
         return fused_layer_train_long(x, seq_bias, *weights, mask, seed, n_heads, causal,
-                                      rate, weight_dtype)
+                                      rate, weight_dtype, save_residuals)
     return _FusedLayerTrain.apply(x, seq_bias, *weights, mask, seed, n_heads, causal,
-                                  rate, weight_dtype, False)
+                                  rate, weight_dtype, False, bool(save_residuals))
 
 
-fused_layer_train.launches = 0            # forward launches of the short form
-fused_layer_train.backward_launches = 0   # its backward passes (four launches each)
+# the short form's launches, counted apart by mode
+fused_layer_train.launches = 0                      # saved mode: forward launches
+fused_layer_train.backward_launches = 0             # its backward passes (four launches)
+fused_layer_train.recompute_launches = 0            # recompute mode: forward launches
+fused_layer_train.recompute_backward_launches = 0   # its backward passes (five launches)
 
 
 def fused_layer_train_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                            seed: int, n_heads: int, causal: bool = False, rate: float = 0.0,
-                           weight_dtype=None):
+                           weight_dtype=None, save_residuals: bool = False):
     """The long form of :func:`fused_layer_train` (same arguments), for CUDA
     tensors with 1 <= S <= 256: a forward of two launches and a backward of
-    six. Counted once per forward and once per backward."""
+    six (eight in the recompute mode). Counted once per forward and once per
+    backward, by mode."""
     if x.device.type != "cuda":
         raise ValueError(f"the long training layer kernel runs on CUDA tensors, got "
                          f"{x.device}")
     return _FusedLayerTrain.apply(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
                                   mask, seed, n_heads, causal, rate, weight_dtype or x.dtype,
-                                  True)
+                                  True, bool(save_residuals))
 
 
-fused_layer_train_long.launches = 0            # forward passes (two launches each)
-fused_layer_train_long.backward_launches = 0   # backward passes (six launches each)
+# the long form's passes, counted apart by mode
+fused_layer_train_long.launches = 0                      # saved mode: forward passes
+fused_layer_train_long.backward_launches = 0             # its backward passes
+fused_layer_train_long.recompute_launches = 0            # recompute mode: forward passes
+fused_layer_train_long.recompute_backward_launches = 0   # its backward passes

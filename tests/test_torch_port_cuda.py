@@ -208,11 +208,15 @@ def test_layer_train_kernel_matches_plain(cuda, dtype, s, b, causal, rate):
                       layer_vjp.fused_layer_train, layer_vjp.fused_layer_train_long)
 
 
-def _hold_layer_train(dev, rng, dtype, s, b, causal, rate, counted, untouched):
+def _hold_layer_train(dev, rng, dtype, s, b, causal, rate, counted, untouched,
+                      save_residuals=True):
     """K4 on one case against the plain version, as it is and with the
     kernel's ReLU units, and against itself run again (to the bit). The
-    form that must run is ``counted`` (its forward and backward counters go
-    up by one), the other ``untouched``."""
+    form that must run is ``counted`` (the forward and backward counters of
+    the mode ``save_residuals`` go up by one, those of the other mode do
+    not), the other form ``untouched``. The recompute mode keeps no FF
+    hidden: its output must equal the saved mode's to the bit, and the ReLU
+    units are read from that saved-mode forward."""
     masters = [w.requires_grad_() for w in _layer_weights(rng, dev, torch.float32)]
     x = _bf16(rng, dev, b, s, D).to(dtype).requires_grad_()
     bias = _bf16(rng, dev, b, D).to(dtype).requires_grad_()
@@ -220,14 +224,24 @@ def _hold_layer_train(dev, rng, dtype, s, b, causal, rate, counted, untouched):
     g = _bf16(rng, dev, b, s, D).to(dtype)
     seed = 1234
     leaves = [x, bias, *masters]
-    counts = lambda fn: (fn.launches, fn.backward_launches)  # noqa: E731
-    before, other = counts(counted), counts(untouched)
-    out = layer_vjp.fused_layer_train(x, bias, *masters, mask, seed, H, causal, rate, BF16)
-    gate = layer_vjp.kernel_relu_gate(out)
-    grads = torch.autograd.grad(out, leaves, g)
-    assert counts(counted) == (before[0] + 1, before[1] + 1)
-    assert counts(untouched) == other
     call = (x, bias, *masters, mask, seed, H, causal, rate, BF16)
+    counts = lambda fn: (fn.launches, fn.backward_launches,  # noqa: E731
+                         fn.recompute_launches, fn.recompute_backward_launches)
+    before, other = counts(counted), counts(untouched)
+    out = layer_vjp.fused_layer_train(*call, save_residuals=save_residuals)
+    if save_residuals:
+        gate = layer_vjp.kernel_relu_gate(out)
+    grads = torch.autograd.grad(out, leaves, g)
+    moved = (1, 1, 0, 0) if save_residuals else (0, 0, 1, 1)
+    assert counts(counted) == tuple(n + m for n, m in zip(before, moved))
+    assert counts(untouched) == other
+    if not save_residuals:
+        with pytest.raises(ValueError, match="save_residuals=True"):
+            layer_vjp.kernel_relu_gate(layer_vjp.fused_layer_train(*call))
+        saved_out = layer_vjp.fused_layer_train(*call, save_residuals=True)
+        assert torch.equal(out, saved_out)     # the same arithmetic, fewer writes
+        gate = layer_vjp.kernel_relu_gate(saved_out)
+        del saved_out
     ref = layer_vjp.plain_layer_train(*call)
     ref_grads = torch.autograd.grad(ref, leaves, g)
     gate_grads = torch.autograd.grad(layer_vjp.plain_layer_train(*call, relu_gate=gate),
@@ -242,9 +256,26 @@ def _hold_layer_train(dev, rng, dtype, s, b, causal, rate, counted, untouched):
         assert _rel_rms(got, want) <= grad_lim, name
         assert _rel_rms(got, want_gate) <= gate_lim, name
     again = torch.autograd.grad(
-        layer_vjp.fused_layer_train(x, bias, *masters, mask, seed, H, causal, rate, BF16),
-        leaves, g)
+        layer_vjp.fused_layer_train(*call, save_residuals=save_residuals), leaves, g)
     assert all(torch.equal(a, c) for a, c in zip(grads, again))   # no atomics in K4
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,s,b,causal,long_form", [
+    (BF16, 8, 21, False, False), (BF16, 32, 9, False, False),
+    (torch.float32, 8, 21, False, False), (torch.float32, 16, 5, True, False),
+    (BF16, 33, 3, False, True), (BF16, 242, 3, False, True), (BF16, 241, 3, True, True),
+    (torch.float32, 32, 3, False, True), (torch.float32, 242, 3, False, True)])
+def test_layer_train_recompute_kernel_matches_plain(cuda, dtype, s, b, causal, long_form, rate):
+    """K4's recompute mode (``save_residuals=False``), short and long form:
+    the output equal to the saved mode's to the bit, every gradient against
+    the plain version within the saved mode's limits (the plain version's
+    probabilities and hidden are float32, as the recompute backward's are),
+    reruns equal to the bit; only the recompute counters of the form move."""
+    forms = (layer_vjp.fused_layer_train_long, layer_vjp.fused_layer_train)
+    counted, untouched = forms if long_form else forms[::-1]
+    _hold_layer_train(cuda, np.random.default_rng(s + b + int(10 * rate)), dtype, s, b, causal,
+                      rate, counted, untouched, save_residuals=False)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -478,7 +509,8 @@ def test_stack_train_kernel_matches_plain(cuda, dtype, b, causal, rate, with_bia
     y = x
     for layer in range(n_layers):
         y = layer_vjp.fused_layer_train(y, bias[layer], *[w[layer] for w in masters], mask,
-                                        stack_layer_seed(seed, layer), H, causal, rate, BF16)
+                                        stack_layer_seed(seed, layer), H, causal, rate, BF16,
+                                        save_residuals=True)
     chain_grads = torch.autograd.grad(y, leaves, g)
     assert torch.equal(out, y)
     for name, got, want in zip(TRAIN_NAMES, grads, chain_grads):

@@ -69,7 +69,8 @@ def _layer_inputs(rng, b, s, masked_seq=True):
 
 def _port_layer_grads(vals, mask, g, causal, rate=0.0, seed=0):
     ts = [_t(vals[k].T if k in TRANSPOSED else vals[k], grad=True) for k in NAMES]
-    out = port_layer_vjp.fused_layer_train(*ts, _t(mask), seed, H, causal, rate)
+    out = port_layer_vjp.fused_layer_train(*ts, _t(mask), seed, H, causal, rate,
+                                           save_residuals=True)
     grads = torch.autograd.grad(out, ts, _t(g))
     return out.detach().numpy(), {k: (gr.numpy().T if k in TRANSPOSED else gr.numpy())
                                   for k, gr in zip(NAMES, grads)}
