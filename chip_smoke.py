@@ -108,9 +108,14 @@ the flagship's step at B=60, (b) at B=128, (c) Sketchformer's at B=60 and
 (d) the float32 flagship's at B=60: each counted (recompute launches alone,
 no plain version), gated against its plain path at dropout 0 with a control
 that must fail, timed in both modes (median of 20 after 3) and read for
-each mode's peak memory; each entry timed beside its bound, the saved mode,
-its plain version and ``torch.utils.checkpoint`` around
+each mode's peak memory and, under ``torch.profiler``, for the device time
+of the step and of K5's kernels in it; each entry timed beside its bound,
+the saved mode, its plain version and ``torch.utils.checkpoint`` around
 ``nn.TransformerEncoderLayer``.
+
+At the end, each form of K5 (bf16 at 257 and 512 classes, float32 at 257
+and 512) and of K8 is printed with its multiple of its library call and of
+its bound.
 
 The second-to-last line is ``{"kernels": [...]}``, the last ``{"ok": true,
 "device": {...}}``; the full record goes to ``chiprun_out/chip_smoke.json``.
@@ -874,6 +879,10 @@ def run_cli(dev, reset_counts, read_counts, per_step: dict,
           f"{CLI_STEPS[0] + 24}); train_resident_multi_step alone {loop_ms:.3f} ms/step",
           flush=True)
     return out
+
+
+# K5's kernels by name in a profile: its forward and its two backward kernels
+K5_KERNELS = ("ce_fwd_kernel", "ce_bwd_dy_kernel", "ce_bwd_dw_kernel")
 
 
 def device_busy_ms(fn, iters: int = 5) -> float | None:
@@ -1677,7 +1686,7 @@ def sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts
               "long K4 backward, row-local and attention": ("ffn_bwd_kernel", "attn_bwd_kernel",
                                                             "qkv_bwd_kernel"),
               "wgrad and reductions": ("wgrad_kernel", "reduce_partials"),
-              "K5": ("ce_",), "K1 + K6": ("embedding",)}
+              "K5": K5_KERNELS, "K1 + K6": ("embedding",)}
     by_group = {name: sum(v for k, v in split.items() if any(p in k for p in pats))
                 for name, pats in groups.items()}
     if busy:
@@ -2686,8 +2695,12 @@ def recompute_phase(dev, card, kernels, record, reset_counts, read_counts,
                 res[f"{key}_peak_bytes"] = torch.cuda.max_memory_allocated()
                 res[f"{key}_base_bytes"] = base
                 check(np.isfinite(float(r["loss"])), f"recompute {what}: the loss is not finite")
-                # the device's share, which a host-bound step time hides
-                res[f"{key}_device_busy_ms"] = device_busy_ms(step, iters=3)
+                # the device's share, which a host-bound step time hides, and
+                # K5's part of it (its forward, dy and dW kernels)
+                busy, split = device_split(step, iters=3)
+                res[f"{key}_device_busy_ms"] = busy
+                res[f"{key}_k5_device_ms"] = sum(v for k, v in split.items()
+                                                 if any(n in k for n in K5_KERNELS))
         del state, optimizer
         torch.cuda.empty_cache()
         drop = res["saved_peak_bytes"] - res["recompute_peak_bytes"]
@@ -2733,7 +2746,8 @@ def recompute_phase(dev, card, kernels, record, reset_counts, read_counts,
               f"{res['recompute_ms']:.3f} ms/step against the saved mode's "
               f"{res['saved_ms']:.3f} (medians of {ITERS}); device busy "
               f"{res['recompute_device_busy_ms']} against {res['saved_device_busy_ms']} ms a step "
-              f"(torch.profiler, 3 steps); peak memory "
+              f"(torch.profiler, 3 steps), K5's kernels {res['recompute_k5_device_ms']:.4f} and "
+              f"{res['saved_k5_device_ms']:.4f} ms of it; peak memory "
               f"{res['recompute_peak_bytes'] / 2**30:.3f} GiB against "
               f"{res['saved_peak_bytes'] / 2**30:.3f} (a drop of {drop / 2**30:.3f} GiB; the "
               f"saved mode keeps {saves / 2**30:.3f} GiB, the largest workspace "
@@ -4017,6 +4031,21 @@ def main() -> int:
     # ================================== K4's recompute mode and its steps
     rc_launches = recompute_phase(dev, card, kernels, record, reset_counts, read_counts,
                                   library_layer)
+
+    # K5's forms and K8 beside their library calls and bounds
+    forms = {n: kernels[n] for n in ("args_ce_fwd", "args_ce_bwd", "args_ce_fwd_512",
+                                     "args_ce_bwd_512", "args_ce_fwd_f32", "args_ce_bwd_f32",
+                                     "args_ce_pairwise", "args_ce_pairwise_f32")}
+    for n in ("args_ce_fwd_f32", "args_ce_bwd_f32"):
+        forms[n + "_at_512"] = kernels[n]["at_512_classes"]
+    record["k5_forms"] = {}
+    for name, k in forms.items():
+        ratio = {"of_library": k["ms"] / k["library_ms"], "of_bound": k["ms"] / k["bound_ms"]}
+        record["k5_forms"][name] = dict(ms=k["ms"], library_ms=k["library_ms"],
+                                        bound_ms=k["bound_ms"], **ratio)
+        print(f"{name}: {k['ms']:.4f} ms, {ratio['of_library']:.3f} x the library call's "
+              f"{k['library_ms']:.4f}, {ratio['of_bound']:.2f} x its bound {k['bound_ms']:.5f} "
+              f"(by {k['bound_by']}) on {card}", flush=True)
 
     csrc = "deepsvg_tpu_torch/ops/csrc/"
     source = {

@@ -97,13 +97,19 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+_functions: dict = {}
+
+
 def kernel_function(name: str, argtypes: list):
     """A C entry point of the library with its argument types declared
     (``c_void_p`` for pointers and the stream); it returns the CUDA error
-    code of its launch."""
-    fn = getattr(library(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    code of its launch. Looked up once per name."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
     return fn
 
 

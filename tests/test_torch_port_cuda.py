@@ -309,26 +309,6 @@ def test_long_layer_train_refuses_s257(cuda, dtype):
                                     torch.zeros(2, 257, device=cuda), 0, H)
 
 
-def test_ce_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(5)
-    r = 1000                                            # a ragged last row tile
-    y = _bf16(rng, cuda, r, D).requires_grad_()
-    wa = _bf16(rng, cuda, N_ARGS * VOCAB, D, scale=D ** -0.5).float().requires_grad_()
-    ba = _bf16(rng, cuda, N_ARGS * VOCAB).float().requires_grad_()
-    tgt = torch.from_numpy(rng.integers(0, VOCAB, (r, N_ARGS)).astype(np.int32)).to(cuda)
-    tgt[3, 2], tgt[4, 0] = VOCAB + 3, -1                # match no class
-    g = torch.from_numpy(rng.random((r, N_ARGS)).astype(np.float32)).to(cuda) / r
-    ce = ce_ops.args_ce(y, wa, ba, tgt, BF16)
-    grads = torch.autograd.grad(ce, [y, wa, ba], g)
-    ref = ce_ops.args_ce_reference(y, wa.to(BF16), ba.to(BF16), tgt, N_ARGS)
-    ref_grads = torch.autograd.grad(ref, [y, wa, ba], g)
-    print("K5 ce max abs err", (ce - ref).abs().max().item())
-    assert ce.shape == (r, N_ARGS) and (ce - ref).abs().max().item() <= 1e-3
-    for name, got, want in zip(("dy", "dWa", "dba"), grads, ref_grads):
-        print(f"  {name}: rel rms {_rel_rms(got, want):.3g}")
-        assert got.shape == want.shape and _rel_rms(got, want) <= 1e-2, name
-
-
 @pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("use_group", [False, True])
 def test_embedding_backward_kernel_matches_plain(cuda, dtype, use_group):
@@ -356,32 +336,6 @@ def test_embedding_backward_kernel_matches_plain(cuda, dtype, use_group):
         # exact products, float32 sums in another order; the plain version
         # returns the table's dtype
         assert err <= (2.0 ** -7 if dtype == BF16 else 1e-5) * w.abs().max().item() + 1e-5
-
-
-def test_args_ce_512_classes(cuda):
-    """K5 forward and its three gradients at 512 classes a slot (the
-    relative-argument head of Sketchformer's decoder), against its plain
-    version, with the limits of the 257-class test."""
-    rng = np.random.default_rng(512)
-    r, vocab = 2000, 512
-    y = _bf16(rng, cuda, r, D).requires_grad_()
-    wa = _bf16(rng, cuda, N_ARGS * vocab, D, scale=D ** -0.5).float().requires_grad_()
-    ba = _bf16(rng, cuda, N_ARGS * vocab).float().requires_grad_()
-    tgt = torch.from_numpy(rng.integers(0, vocab, (r, N_ARGS)).astype(np.int32)).to(cuda)
-    tgt[3, 2], tgt[4, 0], tgt[5, 1] = vocab, -1, vocab - 1
-    g = torch.from_numpy(rng.random((r, N_ARGS)).astype(np.float32)).to(cuda) / r
-    before = (ce_ops.args_ce.launches, ce_ops.args_ce.backward_launches)
-    ce = ce_ops.args_ce(y, wa, ba, tgt, BF16)
-    grads = torch.autograd.grad(ce, [y, wa, ba], g)
-    assert (ce_ops.args_ce.launches, ce_ops.args_ce.backward_launches) == (before[0] + 1,
-                                                                          before[1] + 1)
-    ref = ce_ops.args_ce_reference(y, wa.to(BF16), ba.to(BF16), tgt, N_ARGS)
-    ref_grads = torch.autograd.grad(ref, [y, wa, ba], g)
-    print("K5 at 512 classes: ce max abs err", (ce - ref).abs().max().item())
-    assert ce.shape == (r, N_ARGS) and (ce - ref).abs().max().item() <= 1e-3
-    for name, got, want in zip(("dy", "dWa", "dba"), grads, ref_grads):
-        print(f"  {name}: rel rms {_rel_rms(got, want):.3g}")
-        assert got.shape == want.shape and _rel_rms(got, want) <= 1e-2, name
 
 
 @pytest.mark.parametrize("s", [32, 210, 242])
@@ -519,19 +473,20 @@ def test_stack_train_kernel_matches_plain(cuda, dtype, b, causal, rate, with_bia
     assert all(torch.equal(a, c) for a, c in zip(grads, again))
 
 
+@pytest.mark.parametrize("vocab", [VOCAB, 512])
 @pytest.mark.parametrize("r,n_variants", [(1000, 8), (14880, 8), (257, 3)])
-def test_pairwise_ce_kernel_matches_plain(cuda, r, n_variants):
+def test_pairwise_ce_kernel_matches_plain(cuda, r, n_variants, vocab):
     """K8 against its plain version (1e-3, as K5: float32 sums of exact bf16
     products in another order), with targets that match no class; each
     variant's columns equal K5's forward on that variant's targets, to the
     bit (one code path)."""
-    rng = np.random.default_rng(r + n_variants)
+    rng = np.random.default_rng(r + n_variants + vocab)
     y = _bf16(rng, cuda, r, D)
-    wa = _bf16(rng, cuda, N_ARGS * VOCAB, D, scale=D ** -0.5).float()
-    ba = _bf16(rng, cuda, N_ARGS * VOCAB).float()
+    wa = _bf16(rng, cuda, N_ARGS * vocab, D, scale=D ** -0.5).float()
+    ba = _bf16(rng, cuda, N_ARGS * vocab).float()
     k = n_variants * N_ARGS
-    tgt = torch.from_numpy(rng.integers(0, VOCAB, (r, k)).astype(np.int32)).to(cuda)
-    tgt[3, 2], tgt[4, k - 1] = VOCAB + 3, -1
+    tgt = torch.from_numpy(rng.integers(0, vocab, (r, k)).astype(np.int32)).to(cuda)
+    tgt[3, 2], tgt[4, k - 1] = vocab + 3, -1
     before = ce_ops.args_ce_pairwise.launches
     ce = ce_ops.args_ce_pairwise(y, wa, ba, tgt, n_variants, BF16)
     assert ce_ops.args_ce_pairwise.launches == before + 1
@@ -716,46 +671,18 @@ def test_head_float32_form(cuda):
     assert (gap.abs()[ids != ref] < 1e-2).all()
 
 
-@pytest.mark.parametrize("vocab", [257, 512])
-def test_args_ce_float32_form(cuda, vocab):
-    """K5 in float32 at 257 (flagship) and 512 (Sketchformer) classes, forward
-    and its three gradients, against the plain version in full float32."""
-    rng = np.random.default_rng(vocab + 1)
-    r = 2000
-    y = _f32(rng, cuda, r, D).requires_grad_()
-    wa = _f32(rng, cuda, N_ARGS * vocab, D, scale=D ** -0.5).requires_grad_()
-    ba = _f32(rng, cuda, N_ARGS * vocab).requires_grad_()
-    tgt = torch.from_numpy(rng.integers(0, vocab, (r, N_ARGS)).astype(np.int32)).to(cuda)
-    tgt[3, 2], tgt[4, 0] = vocab, -1
-    g = torch.from_numpy(rng.random((r, N_ARGS)).astype(np.float32)).to(cuda) / r
-    names = ("launches", "backward_launches", "float32_launches", "float32_backward_launches")
-    before = _counts(ce_ops.args_ce, *names)
-    ce = ce_ops.args_ce(y, wa, ba, tgt, torch.float32)
-    grads = torch.autograd.grad(ce, [y, wa, ba], g)
-    assert _counts(ce_ops.args_ce, *names) == tuple(c + 1 for c in before)
-    ref = ce_ops.args_ce_reference(y, wa, ba, tgt, N_ARGS)
-    ref_grads = torch.autograd.grad(ref, [y, wa, ba], g)
-    print(f"K5 float32 at {vocab} classes: ce rel rms {_rel_rms(ce, ref):.3g}, max abs err "
-          f"{(ce - ref).abs().max().item():.3g}")
-    assert ce.dtype == torch.float32 and _rel_rms(ce, ref) <= CE_F32_RMS
-    for name, got, want in zip(("dy", "dWa", "dba"), grads, ref_grads):
-        print(f"  {name}: rel rms {_rel_rms(got, want):.3g}")
-        assert got.dtype == torch.float32 and _rel_rms(got, want) <= CE_F32_GRAD_RMS, name
-    again = torch.autograd.grad(ce_ops.args_ce(y, wa, ba, tgt, torch.float32), [y, wa, ba], g)
-    assert all(torch.equal(a, c) for a, c in zip(grads, again))
-
-
-def test_pairwise_ce_float32_form(cuda):
+@pytest.mark.parametrize("vocab", [VOCAB, 512])
+def test_pairwise_ce_float32_form(cuda, vocab):
     """K8 in float32: each variant's columns equal K5's float32 forward to the
     bit, and the plain version within K5's float32 limit."""
-    rng = np.random.default_rng(88)
+    rng = np.random.default_rng(88 + vocab)
     r, n_variants = 1000, 8
     y = _f32(rng, cuda, r, D)
-    wa = _f32(rng, cuda, N_ARGS * VOCAB, D, scale=D ** -0.5)
-    ba = _f32(rng, cuda, N_ARGS * VOCAB)
+    wa = _f32(rng, cuda, N_ARGS * vocab, D, scale=D ** -0.5)
+    ba = _f32(rng, cuda, N_ARGS * vocab)
     k = n_variants * N_ARGS
-    tgt = torch.from_numpy(rng.integers(0, VOCAB, (r, k)).astype(np.int32)).to(cuda)
-    tgt[3, 2], tgt[4, k - 1] = VOCAB + 3, -1
+    tgt = torch.from_numpy(rng.integers(0, vocab, (r, k)).astype(np.int32)).to(cuda)
+    tgt[3, 2], tgt[4, k - 1] = vocab + 3, -1
     before = _counts(ce_ops.args_ce_pairwise, "launches", "float32_launches")
     ce = ce_ops.args_ce_pairwise(y, wa, ba, tgt, n_variants, torch.float32)
     assert _counts(ce_ops.args_ce_pairwise, "launches", "float32_launches") == (
@@ -766,6 +693,112 @@ def test_pairwise_ce_float32_form(cuda):
     k5 = torch.cat([ce_ops.args_ce(y, wa, ba, tgt[:, g * N_ARGS:(g + 1) * N_ARGS].contiguous(),
                                    torch.float32) for g in range(n_variants)], dim=1)
     assert torch.equal(ce, k5)
+
+
+# ---- K5 in every form the paths take: bf16 and float32, 257 and 512 classes,
+# R from one row to the paths' 14,460 (Sketchformer), 14,880 (B=60) and
+# 31,744 (B=128); targets outside [0, vocab) and rows of g that are zero.
+# Limits as above: ce within TOL_CE in bf16 (relative RMS CE_F32_RMS in
+# float32), the gradients' relative RMS within 1e-2 (CE_F32_GRAD_RMS).
+TOL_CE = 1e-3
+K5_ROWS = [1, 63, 65, 129, 2000, 14460, 14880, 31744]
+
+
+def _k5_case(rng, dev, dtype, r, vocab, d=D):
+    make = _bf16 if dtype == BF16 else _f32
+    y = make(rng, dev, r, d).to(dtype).requires_grad_()
+    wa = make(rng, dev, N_ARGS * vocab, d, scale=d ** -0.5).float().requires_grad_()
+    ba = make(rng, dev, N_ARGS * vocab).float().requires_grad_()
+    tgt = torch.from_numpy(rng.integers(0, vocab, (r, N_ARGS)).astype(np.int32)).to(dev)
+    g = torch.from_numpy(rng.random((r, N_ARGS)).astype(np.float32)).to(dev) / r
+    if r > 5:
+        tgt[3, 2], tgt[4, 0], tgt[5, 1] = vocab, -1, vocab - 1   # two match no class
+    if r > 2:
+        g[r // 2] = g[-1] = 0.0                                  # rows that add nothing
+    return y, wa, ba, tgt, g
+
+
+@pytest.mark.parametrize("r", K5_ROWS)
+@pytest.mark.parametrize("vocab", [VOCAB, 512])
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+def test_ce_kernel_matches_plain(cuda, dtype, vocab, r):
+    """K5's forward and its three gradients against the plain version; the
+    launch counters move by one a pass; the gradients equal to the bit on a
+    rerun (fixed-order sums, no atomics)."""
+    rng = np.random.default_rng(r + vocab)
+    y, wa, ba, tgt, g = _k5_case(rng, cuda, dtype, r, vocab)
+    names = ("launches", "backward_launches", "float32_launches", "float32_backward_launches")
+    before = _counts(ce_ops.args_ce, *names)
+    ce = ce_ops.args_ce(y, wa, ba, tgt, dtype)
+    grads = torch.autograd.grad(ce, [y, wa, ba], g)
+    f32 = int(dtype == torch.float32)
+    assert _counts(ce_ops.args_ce, *names) == (before[0] + 1, before[1] + 1, before[2] + f32,
+                                               before[3] + f32)
+    ref = ce_ops.args_ce_reference(y, wa.to(dtype), ba.to(dtype), tgt, N_ARGS)
+    ref_grads = torch.autograd.grad(ref, [y, wa, ba], g)
+    err, rms = (ce - ref).abs().max().item(), _rel_rms(ce, ref)
+    print(f"K5 {dtype} {vocab} classes R={r}: ce max abs err {err:.3g}, rel rms {rms:.3g}")
+    assert ce.shape == (r, N_ARGS) and ce.dtype == torch.float32
+    assert (err <= TOL_CE) if dtype == BF16 else (rms <= CE_F32_RMS)
+    limit = 1e-2 if dtype == BF16 else CE_F32_GRAD_RMS
+    for name, got, want in zip(("dy", "dWa", "dba"), grads, ref_grads):
+        print(f"  {name}: rel rms {_rel_rms(got, want):.3g}")
+        assert got.shape == want.shape and _rel_rms(got, want) <= limit, name
+    again = torch.autograd.grad(ce_ops.args_ce(y, wa, ba, tgt, dtype), [y, wa, ba], g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+def test_args_ce_widths(cuda, dtype):
+    """K5 and K8 take D a multiple of 32 up to 256 (32, 128 and 256 against
+    the plain version) and refuse D=48 and D=288."""
+    for d in (32, 128, 256):
+        rng = np.random.default_rng(d)
+        y, wa, ba, tgt, g = _k5_case(rng, cuda, dtype, 300, VOCAB, d)
+        ce = ce_ops.args_ce(y, wa, ba, tgt, dtype)
+        grads = torch.autograd.grad(ce, [y, wa, ba], g)
+        ref = ce_ops.args_ce_reference(y, wa.to(dtype), ba.to(dtype), tgt, N_ARGS)
+        ref_grads = torch.autograd.grad(ref, [y, wa, ba], g)
+        assert ((ce - ref).abs().max().item() <= TOL_CE if dtype == BF16
+                else _rel_rms(ce, ref) <= CE_F32_RMS), d
+        limit = 1e-2 if dtype == BF16 else CE_F32_GRAD_RMS
+        assert all(_rel_rms(a, b) <= limit for a, b in zip(grads, ref_grads)), d
+        pair = ce_ops.args_ce_pairwise(y.detach(), wa, ba, tgt, 1, dtype)
+        assert torch.equal(pair, ce), d
+    for d in (48, 288):
+        y = torch.zeros(8, d, device=cuda, dtype=dtype)
+        w, b = torch.zeros(N_ARGS * VOCAB, d, device=cuda), torch.zeros(N_ARGS * VOCAB, device=cuda)
+        tgt = torch.zeros(8, N_ARGS, dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="multiple of 32 up to 256"):
+            ce_ops.args_ce(y, w, b, tgt, dtype)
+        with pytest.raises(ValueError, match="multiple of 32 up to 256"):
+            ce_ops.args_ce_pairwise(y, w, b, tgt, 1, dtype)
+
+
+def test_ce_kernels_are_wgmma_kernels(cuda):
+    """K5's forward (and K8's, the same kernel), dy and dW kernels, in both
+    types, multiply with Hopper's warpgroup instructions: HGMMA in the built
+    library's SASS (cuobjdump)."""
+    import re
+    import shutil
+    import subprocess
+
+    from deepsvg_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", _build.build()], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    ce = {n: c for n, c in counts.items() if re.search(r"ce_(fwd|bwd_dy|bwd_dw)_kernel", n)}
+    print("HGMMA instructions:", {re.sub(r"^.*?(ce_\w+_kernelI\w{1,20}).*$", r"\1", n): c
+                                  for n, c in ce.items()})
+    assert len(ce) == 6 and all(c > 0 for c in ce.values()), ce
 
 
 @pytest.mark.parametrize("index", [1, 120, 240])

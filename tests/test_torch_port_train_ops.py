@@ -248,9 +248,14 @@ def _ce_inputs(rng, r, d, n_args=11, vocab=257):
     return y, wa, ba, tgt, g
 
 
-def test_args_ce_matches_pallas():
-    rng = np.random.default_rng(3)
-    y, wa, ba, tgt, g = _ce_inputs(rng, 40, D)          # 40 rows: the JAX wrapper pads its tile
+@pytest.mark.parametrize("vocab", [257, 512])
+@pytest.mark.parametrize("r", [40, 300])                 # the JAX wrapper pads its last tile
+def test_args_ce_matches_pallas(r, vocab):
+    """The plain version against JAX's ``args_ce`` (Pallas, interpret mode),
+    forward and the three gradients, at the flagship's 257 classes a slot and
+    Sketchformer's 512: the contract the card kernels are held to."""
+    rng = np.random.default_rng(3 + r + vocab)
+    y, wa, ba, tgt, g = _ce_inputs(rng, r, D, vocab=vocab)
     run = lambda y, wa, ba: jax_ce.args_ce(y, wa, ba, jnp.asarray(tgt), tile_rows=16)  # noqa: E731
     ref, vjp = jax.vjp(run, jnp.asarray(y), jnp.asarray(wa), jnp.asarray(ba))
     ref_grads = vjp(jnp.asarray(g))
@@ -289,12 +294,13 @@ def test_args_ce_bfloat16_rounds_the_logit_gradient_as_pallas_does():
     assert err_unrounded > err, (err_unrounded, err)
 
 
-def test_args_ce_target_outside_the_vocabulary_matches_no_class():
+@pytest.mark.parametrize("vocab", [257, 512])
+def test_args_ce_target_outside_the_vocabulary_matches_no_class(vocab):
     rng = np.random.default_rng(5)
-    y, wa, ba, tgt, _ = _ce_inputs(rng, 4, D)
-    tgt[1, 2], tgt[2, 0] = 257, -1
+    y, wa, ba, tgt, _ = _ce_inputs(rng, 4, D, vocab=vocab)
+    tgt[1, 2], tgt[2, 0] = vocab, -1
     ce = port_ce.args_ce(_t(y), _t(wa.T), _t(ba), _t(tgt)).numpy()
-    lse = torch.logsumexp((_t(y) @ _t(wa) + _t(ba)).reshape(4, 11, 257), -1).numpy()
+    lse = torch.logsumexp((_t(y) @ _t(wa) + _t(ba)).reshape(4, 11, vocab), -1).numpy()
     np.testing.assert_allclose(ce[1, 2], lse[1, 2], rtol=1e-6)
     np.testing.assert_allclose(ce[2, 0], lse[2, 0], rtol=1e-6)
 
