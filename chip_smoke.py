@@ -10,7 +10,9 @@ default (``layer_vjp.SAVE_RESIDUALS_DEFAULT``).
 
 *Inference* (greedy one-shot encode+decode, N=1024): each kernel (K1
 embedding, K2 fused layer in its bfloat16 and float32 forms, K3 head+argmax)
-against its plain PyTorch version at the path's shapes; one counted run of
+against its plain PyTorch version at the path's shapes (K2 also at S=1 and
+S=17, random inputs, at batches where every persistent block of the
+bfloat16 kernel takes several tiles); one counted run of
 ``one_shot_sample`` whose output is validated; the kernel path against the
 plain path at N=64 with a control that must fail; timings.
 
@@ -89,7 +91,9 @@ B=60 and Sketchformer's ``greedy_sample`` at N=1024, each counted (the
 float32 forms of K1, K3, K5, K8 and K9 beside the float32 K2, K4 and K7, no
 plain version called) and against its plain path, gated by margin with a
 control that must fail; each float32 form against its plain version and
-timed beside its bound, plain version and library call.
+timed beside its bound, plain version and library call (the float32 long
+K2 at Sketchformer's encoder, S=242, beside ``nn.TransformerEncoderLayer``
+in float32).
 
 *The attention ops* (:func:`attention_phase`): K10 (``fused_mha``) and K11
 (``fused_mha_train``, dropout 0 and 0.1, forward and its five gradients) at
@@ -114,8 +118,8 @@ the saved mode, its plain version and ``torch.utils.checkpoint`` around
 ``nn.TransformerEncoderLayer``.
 
 At the end, each form of K5 (bf16 at 257 and 512 classes, float32 at 257
-and 512) and of K8 is printed with its multiple of its library call and of
-its bound.
+and 512), of K8 and of K2 (short and long, bf16 and float32) is printed
+with its multiple of its library call and of its bound.
 
 The second-to-last line is ``{"kernels": [...]}``, the last ``{"ok": true,
 "device": {...}}``; the full record goes to ``chiprun_out/chip_smoke.json``.
@@ -243,6 +247,7 @@ TOL_STEP_LEAF_RMS = 0.16       # each leaf's gradient, relative RMS (sound runs 
 TOL_STACK_RMS = 5e-3
 TOL_STACK_GRAD_RMS = 3e-2
 TOL_STACK_GRAD_RMS_SAME_GATE = 1.5e-2
+B_S1, B_S17 = 20000, 2000   # K2's checks at S=1 and S=17: 157 and 286 tiles
 B_RECIPE = 60          # configs_tpu/hierarchical_ordered.py at one device
 B_GATE_EDGE = 64       # the largest batch the stack gate takes (512 rows)
 CLI_ICONS = 480        # the CLI run's synthetic dataset: 8 batches of 60
@@ -1858,7 +1863,7 @@ def step_against_plain(what, res_k, grads_k, res_p, grads_p) -> dict:
             "median_leaf_rms": statistics.median(leaf.values())}
 
 
-def float32_phase(dev, card, kernels, record, reset_counts, read_counts) -> dict:
+def float32_phase(dev, card, kernels, record, reset_counts, read_counts, library_layer) -> dict:
     """The float32 models (``compute_dtype`` "float32", the configs'
     default) on the card, through the float32 forms of K1, K3, K5, K8 and
     K9 beside the float32 K2, K4 and K7: the flagship's ``one_shot_sample``
@@ -2285,6 +2290,26 @@ def float32_phase(dev, card, kernels, record, reset_counts, read_counts) -> dict
                                 warmup=1),
             "library_ms": None, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        # the float32 long K2 at the encoder's S=242 against its plain version,
+        # timed beside nn.TransformerEncoderLayer in float32 (key padding)
+        cmd_f, args_f = sc[:, 0], sa[:, 0]
+        l_e = sf.encoder.encoder.layers[0]
+        x_e1 = sf.encoder.embedding(cmd_f, args_f, M.group_mask(cmd_f))
+        check(x_e1.dtype == f32, "Sketchformer's float32 encoder input is not float32")
+        la = layer_args(l_e, x_e1, key_padding_to_additive(M.key_padding_mask(cmd_f)))
+        k2l = compare_elementwise(f"K2 float32 long layer E1 S={x_e1.shape[1]} key pad",
+                                  layer_ops.fused_layer(*la), layer_ops.layer_reference(*la),
+                                  TOL_LAYER_RMS, TOL_F32_ATOL, TOL_F32_RTOL)
+        lib = library_layer(l_e, f32)
+        pad_bool = M.key_padding_mask(cmd_f)
+        b_ms, b_by = layer_cost(la)
+        kernels["layer_long_f32"] = {
+            **k2l, "tolerance": {"atol": TOL_F32_ATOL, "rtol": TOL_F32_RTOL, "rms": TOL_LAYER_RMS},
+            "ms": cuda_ms(lambda: layer_ops.fused_layer(*la)),
+            "plain_ms": cuda_ms(lambda: layer_ops.layer_reference(*la), iters=3, warmup=1),
+            "library_ms": cuda_ms(lambda: lib(x_e1, src_key_padding_mask=pad_bool)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del lib, la, x_e1
         gs_ms = cuda_median_ms(lambda: greedy_sample(sf, sc, sa), iters=3, warmup=1)
     out["greedy_sample"] = {"N": N_MAIN, "median_ms": gs_ms, "samples_per_s": N_MAIN / gs_ms * 1e3}
     print(f"float32 Sketchformer greedy_sample N={N_MAIN}: {gs_ms:.3f} ms median of 3, "
@@ -2292,7 +2317,7 @@ def float32_phase(dev, card, kernels, record, reset_counts, read_counts) -> dict
           f"{kernels['decode_f32']['ms']:.4f} ms (plain {kernels['decode_f32']['plain_ms']:.4f}, "
           f"bound {kernels['decode_f32']['bound_ms']:.4f}) on {card}", flush=True)
     for name in ("embedding_f32", "head_f32", "args_ce_fwd_f32", "args_ce_bwd_f32",
-                 "args_ce_pairwise_f32", "decode_f32"):
+                 "args_ce_pairwise_f32", "decode_f32", "layer_long_f32"):
         k = kernels[name]
         print(f"  {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
               f"{k['library_ms']}, bound {k['bound_ms']:.4f} by {k['bound_by']})")
@@ -2308,7 +2333,8 @@ def float32_phase(dev, card, kernels, record, reset_counts, read_counts) -> dict
             "args_ce_fwd_f32": launches["train_step"]["args_ce_fwd_f32"],
             "args_ce_bwd_f32": launches["train_step"]["args_ce_bwd_f32"],
             "args_ce_pairwise_f32": launches["selfmatch_step"]["args_ce_pairwise_f32"],
-            "decode_f32": launches["greedy_sample"]["decode_f32"]}
+            "decode_f32": launches["greedy_sample"]["decode_f32"],
+            "layer_long_f32": launches["greedy_sample"]["layer_long_f32"]}
 
 
 def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> dict:
@@ -3047,6 +3073,21 @@ def main() -> int:
         x_rand8 = torch.randn(n, 8, d_model, device=dev).to(bf16)
         mask_rand8 = torch.where(torch.rand(n, 8, device=dev) < 0.3, float("-inf"), 0.0)
         mask_rand8[:, 0], mask_rand8[0] = 0.0, float("-inf")   # the first sequence fully masked
+        # S=1 (128 sequences a tile of the bfloat16 kernel) and S=17 (7 a tile,
+        # query blocks spanning two sequences), at batches where every
+        # persistent block takes several tiles, as E1 (2,048 tiles) does; from
+        # their own generator, so that every later check draws what it drew
+        # before these cases existed
+        gen = torch.Generator(device=dev).manual_seed(17)
+        x_s1 = torch.randn(B_S1, 1, d_model, device=dev, generator=gen).to(bf16)
+        mask_s1 = zeros(B_S1, 1)
+        mask_s1[0] = float("-inf")
+        x_s17 = torch.randn(B_S17, 17, d_model, device=dev, generator=gen).to(bf16)
+        lengths = torch.randint(1, 18, (B_S17, 1), device=dev, generator=gen)
+        mask_s17 = torch.where(torch.arange(17, device=dev)[None] < lengths, 0.0, float("-inf"))
+        mask_s17[0] = float("-inf")
+        sb_s1, sb_s17 = ((0.3 * torch.randn(b, d_model, device=dev, generator=gen)).to(bf16)
+                         for b in (B_S1, B_S17))
         layer_cases = {
             "E1 encoder S=32, key pad": layer_args(l_e1, x_e1, mask_e1),
             "D1 decoder S=31, seq_bias": layer_args(l_d1, x_d1, zeros(n * g, 31), bias_d1),
@@ -3054,6 +3095,9 @@ def main() -> int:
                                                    zeros(n, 8), bias_d2),
             "encoder S=8, random x, key pad": layer_args(l_e2, x_rand8, mask_rand8),
             "causal S=31": layer_args(l_d1, x_causal, zeros(64, 31), bias_d1[:64], True),
+            f"encoder S=1 B={B_S1}, random x, seq_bias": layer_args(l_e1, x_s1, mask_s1, sb_s1),
+            f"decoder S=17 B={B_S17} causal, random x, key pad, seq_bias": layer_args(
+                l_d1, x_s17, mask_s17, sb_s17, True),
         }
         layer_err = 0.0
         layer_atol = 0.0
@@ -4023,7 +4067,8 @@ def main() -> int:
                                            read_counts, library_layer)
 
     # ============================================ the float32 models
-    f32_launches = float32_phase(dev, card, kernels, record, reset_counts, read_counts)
+    f32_launches = float32_phase(dev, card, kernels, record, reset_counts, read_counts,
+                                 library_layer)
 
     # ================================== the attention ops (K10, K11)
     attn_launches = attention_phase(dev, card, kernels, record, reset_counts, read_counts)
@@ -4047,10 +4092,21 @@ def main() -> int:
               f"{k['library_ms']:.4f}, {ratio['of_bound']:.2f} x its bound {k['bound_ms']:.5f} "
               f"(by {k['bound_by']}) on {card}", flush=True)
 
+    # K2's forms beside their library calls and bounds
+    record["k2_forms"] = {}
+    for name in ("layer", "layer_long", "layer_f32", "layer_long_f32"):
+        k = kernels[name]
+        ratio = {"of_library": k["ms"] / k["library_ms"], "of_bound": k["ms"] / k["bound_ms"]}
+        record["k2_forms"][name] = dict(ms=k["ms"], library_ms=k["library_ms"],
+                                        bound_ms=k["bound_ms"], **ratio)
+        print(f"{name}: {k['ms']:.4f} ms, {ratio['of_library']:.3f} x the library call's "
+              f"{k['library_ms']:.4f}, {ratio['of_bound']:.2f} x its bound {k['bound_ms']:.5f} "
+              f"(by {k['bound_by']}) on {card}", flush=True)
+
     csrc = "deepsvg_tpu_torch/ops/csrc/"
     source = {
         "embedding": (csrc + "embedding.cu", "deepsvg_tpu/ops/embedding.py:34"),
-        "layer": (csrc + "layer.cu", "deepsvg_tpu/ops/layer.py:108"),
+        "layer": (csrc + "layer_infer.cuh", "deepsvg_tpu/ops/layer.py:108"),
         "layer_f32": (csrc + "layer.cu", "deepsvg_tpu/ops/layer.py:108"),
         "head": (csrc + "head.cu", "deepsvg_tpu/ops/head.py:32"),
         "layer_train_fwd": (csrc + "layer.cu", "deepsvg_tpu/ops/layer_vjp.py:179"),
@@ -4061,7 +4117,8 @@ def main() -> int:
         "stack_fwd": (csrc + "stack.cu", "deepsvg_tpu/ops/stack_vjp.py:87"),
         "stack_bwd": (csrc + "stack.cu", "deepsvg_tpu/ops/stack_vjp.py:159"),
         "args_ce_pairwise": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:54"),
-        "layer_long": (csrc + "layer_long.cu", "deepsvg_tpu/ops/layer.py:108"),
+        "layer_long": (csrc + "layer_infer.cuh", "deepsvg_tpu/ops/layer.py:108"),
+        "layer_long_f32": (csrc + "layer_long.cuh", "deepsvg_tpu/ops/layer.py:108"),
         "decode": (csrc + "decode.cu", "deepsvg_tpu/ops/decode.py:43"),
         "layer_train_long_fwd": (csrc + "layer_long_train.cu",
                                  "deepsvg_tpu/ops/layer_vjp.py:179"),

@@ -130,18 +130,6 @@ __device__ __forceinline__ void mma_k64_bf16(float (&acc)[32], uint32_t a, uint3
                                  desc_sw128(b + (TB ? 2048 : 32) * kk), 1);
 }
 
-// 2^x on the special function unit (relative error about 2^-22)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // a warpgroup's bf16 dlg [64 rows x 64 columns] (accumulator layout, v) to
 // shared memory by stmatrix: K-major in the columns (TRANS = false, row r at
 // r * 128 bytes) or in the rows (TRANS = true, column c at c * 128 bytes),
@@ -187,23 +175,6 @@ struct Lane {
   __device__ __forceinline__ int row(int i) const { return r0 + ((i >> 1) & 1) * 8; }
   __device__ __forceinline__ int col(int i) const { return 8 * (i >> 2) + 2 * t4 + (i & 1); }
 };
-
-// the shared memory of a kernel, offsets from a 1,024-byte aligned base
-struct Carve {
-  uint32_t off = 0;
-  __host__ __device__ uint32_t take(uint32_t bytes, uint32_t align = 1024) {
-    off = (off + align - 1) / align * align;
-    const uint32_t at = off;
-    off += bytes;
-    return at;
-  }
-};
-
-__device__ __forceinline__ unsigned char* smem_base() {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t a = smem_u32(smem_raw);
-  return smem_raw + ((1024 - (a & 1023)) & 1023);
-}
 
 struct Dims {
   int R, D, n_args, vocab, awp, dks, dn, items;
@@ -857,16 +828,6 @@ __global__ void pack_head_kernel(const float* __restrict__ wa, const float* __re
 }
 
 // ------------------------------------------------------------------ launchers
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 template <class T>
 Dims dims(int R, int D, int n_args, int vocab, int awp, int items) {
   Dims d;

@@ -3,9 +3,10 @@
 // copies with their completion on an mbarrier, the async-proxy fence,
 // named barriers, stmatrix, setmaxnreg, wgmma matrix descriptors for the
 // 128-byte swizzled layout that TMA writes, the wgmma fence / commit / wait,
-// and the wgmma shapes the kernels issue. The host side encodes TMA tensor
-// maps through the driver entry point the CUDA runtime hands out, so the
-// library links against the runtime alone.
+// the wgmma shapes the kernels issue, and the warp-level mma.sync and
+// ldmatrix that K2's attention runs. The host side encodes TMA tensor maps
+// through the driver entry point the CUDA runtime hands out, so the library
+// links against the runtime alone.
 //
 // Layout. Every wgmma operand in shared memory has the 128-byte swizzle:
 // rows of 128 bytes, 8-row groups of 1,024 bytes, the 16-byte pieces of row r
@@ -20,6 +21,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,6 +34,37 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // byte offset of byte `b` (< 128) of row `r` in a 128-byte swizzled region
 __host__ __device__ __forceinline__ uint32_t swizzle128(uint32_t r, uint32_t b) {
   return r * 128u + ((((b >> 4) ^ (r & 7u)) << 4) | (b & 15u));
+}
+
+// the shared memory of a kernel, offsets from a 1,024-byte aligned base
+struct Carve {
+  uint32_t off = 0;
+  __host__ __device__ uint32_t take(uint32_t bytes, uint32_t align = 1024) {
+    off = (off + align - 1) / align * align;
+    const uint32_t at = off;
+    off += bytes;
+    return at;
+  }
+};
+
+// the dynamic shared memory, from its first 1,024-byte aligned byte (the
+// alignment of the 128-byte swizzle's 8-row groups)
+__device__ __forceinline__ unsigned char* smem_base() {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t a = smem_u32(smem_raw);
+  return smem_raw + ((1024 - (a & 1023)) & 1023);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special function unit (relative error about 2^-22)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- mbarriers
@@ -217,6 +250,54 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t a
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D[64 x 96] (+)= A[64 x 16] B[96 x 16]^T, bf16 operands K-major
+__device__ __forceinline__ void wgmma_m64n96k16_bf16(float (&d)[48], uint64_t a, uint64_t b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_R8(0), HOPPER_R8(8), HOPPER_R8(16), HOPPER_R8(24), HOPPER_R8(32), HOPPER_R8(40)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// ---- warp-level tensor-core products (mma.sync) and their fragment loads
+// D[16 x 8] += A[16 x 16] B[16 x 8], bf16 operands, f32 accumulators: a lane
+// holds A's rows g and g + 8 (g = lane / 4) at columns 2 t4 (+1) and + 8
+// (t4 = lane % 4), B's column g at rows 2 t4 (+1) and + 8, D's rows g and
+// g + 8 at columns 2 t4 (+1)
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices from shared memory, lane l giving the address of row
+// l % 8 of matrix l / 8 (16-byte aligned); lane l receives row l / 4, columns
+// 2 (l % 4) and + 1 of each, or with TRANS of each matrix transposed
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+}
+
 // D[64 x 64] (+)= A[64 x 8] B[64 x 8]^T, float operands read as TF32
 __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t a, uint64_t b,
                                                     int scale_d) {
@@ -249,6 +330,17 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16], uint64_t a, 
 }
 
 #undef HOPPER_R8
+
+// ---- host: the card's SM count (a persistent grid's size)
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
 
 // ---- host: a 2-D TMA tensor map over a row-major [outer, inner] tensor
 // (`stride_bytes` between rows, a multiple of 16), boxes of

@@ -1,10 +1,155 @@
 // K2 and the forward of K4, saved and recompute mode: one fused pre-LN
-// transformer layer per launch (see ops/layer.py and ops/layer_vjp.py). The
-// layer's device code is in layer_fwd.cuh, which K7's stack forward
-// (stack.cu) and K4's recompute backward (layer_bwd.cu) run too.
+// transformer layer per launch (see ops/layer.py and ops/layer_vjp.py). K2's
+// bfloat16 form is the wgmma kernel below, on layer_infer.cuh's device code;
+// its float32 form and K4's forward run the device code of layer_fwd.cuh,
+// which K7's stack forward (stack.cu) and K4's recompute backward
+// (layer_bwd.cu) run too.
 #include "layer_fwd.cuh"
+#include "layer_infer.cuh"
 
 using namespace layer_fwd;
+
+// ---- K2's bfloat16 form (device code in layer_infer.cuh)
+namespace layer_infer {
+namespace {
+
+constexpr int SHORT_STAGES = 4;  // weight stages of the ring (the rest of shared memory is full)
+
+struct ShortLayout {
+  uint32_t xn, ctx, kv, ring, prm, mask, bars, total;
+  __host__ __device__ explicit ShortLayout(int F) {
+    Carve c;
+    xn = c.take(KSL * TR * 128);
+    ctx = c.take(KSL * TR * 128);
+    kv = c.take(2 * TR * LDH * 2);
+    ring = c.take(SHORT_STAGES * STAGE);
+    prm = c.take(params_all(F) * 4, 16);
+    mask = c.take(TR * 4, 16);
+    bars = c.take(2 * SHORT_STAGES * 8, 8);
+    total = c.off + 1024;
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+    infer_short_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params p) {
+  const ShortLayout L(p.F);
+  unsigned char* base = smem_base();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L.bars);
+  Ring ring;
+  ring.init(base + L.ring, bars, SHORT_STAGES);
+  if (threadIdx.x == 0) {
+    init_ring_bars(bars, SHORT_STAGES);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != CONSUMERS) return;
+    for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+      produce_x(ring, maps, tile * p.nseq * p.S);
+      for (int h = 0; h < NH; ++h) produce_qkv_head(ring, maps, h);
+      produce_out_ff(ring, maps, p.F);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const Lane ln;
+  float* prm = reinterpret_cast<float*>(base + L.prm);
+  load_params(p, prm, params_all(p.F));
+  float* mask = reinterpret_cast<float*>(base + L.mask);
+  unsigned char* xn = base + L.xn;
+  unsigned char* ctxs = base + L.ctx;
+  const uint32_t xn_a = smem_u32(xn) + ln.wg * 64 * 128;
+  const uint32_t ctx_a = smem_u32(ctxs) + ln.wg * 64 * 128;
+  bf16* kb = reinterpret_cast<bf16*>(base + L.kv);
+  bf16* vb = kb + TR * LDH;
+  const uint32_t ks = smem_u32(kb), vs = smem_u32(vb);
+  const int q0 = 64 * ln.wg + 16 * ln.w;  // the warp's query rows in the tile
+  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+    const int seq0 = tile * p.nseq;
+    const int nrows = min(p.nseq, p.B - seq0) * p.S;
+    const size_t row0 = (size_t)seq0 * p.S;
+    const Rows R = {row0, seq0, nrows, 64 * ln.wg, p.S};
+    named_barrier(1, CONSUMERS);  // the last tile's readers of the mask are done
+    if (ln.tid < TR) mask[ln.tid] = ln.tid < nrows ? p.mask[row0 + ln.tid] : 0.f;
+    ln1_tile(ring, prm, p.F, nrows, ln, xn);
+
+#pragma unroll 1
+    for (int h = 0; h < NH; ++h) {
+      float acc[48];
+      qkv_head_product(ring, xn_a, TR * 128, acc);
+      // Q to A fragments; K and V (+ bias, bf16) to shared memory
+      uint32_t qf[2][4];
+#pragma unroll
+      for (int j = 0; j < 12; ++j) {
+        const int part = j >> 2, c = 8 * (j & 3) + 2 * ln.t4;  // column within the part
+        const float2 b = lds2(prm + p_bqkv(p.F) + part * DM + h * HEAD_DIM + c);
+        const uint32_t lo = pack_bf16(acc[4 * j] + b.x, acc[4 * j + 1] + b.y);
+        const uint32_t hi = pack_bf16(acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y);
+        if (part == 0) {
+          qf[j >> 1][(j & 1) * 2] = lo;
+          qf[j >> 1][(j & 1) * 2 + 1] = hi;
+        } else {
+          bf16* dst = (part == 1 ? kb : vb) + (64 * ln.wg + ln.r0) * LDH + c;
+          *reinterpret_cast<uint32_t*>(dst) = lo;
+          *reinterpret_cast<uint32_t*>(dst + 8 * LDH) = hi;
+        }
+      }
+      named_barrier(1, CONSUMERS);  // every row's K and V are in
+      float o[4][4];
+      attend_rows<4>(qf, ks, vs, TR, q0, nrows, p.S, p.causal, mask, p.scale, ln.lane, o);
+      store_ctx(ctxs, TR, q0, h, o, ln.lane);
+      named_barrier(1, CONSUMERS);  // every warp is done with K and V
+    }
+    fence_proxy_async();  // the context, as wgmma's A operand (the warpgroup's own rows)
+    named_barrier(2 + ln.wg, 128);
+
+    // out projection onto the residual
+    float acc[2][64];
+    residual_init(p, prm, ln, R, acc);
+#pragma unroll
+    for (int k = 0; k < KSL; ++k)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const uint32_t st = ring.acquire();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k16_bf16(acc[n], desc_sw128(ctx_a + k * (TR * 128) + 32 * kk),
+                                desc_sw128(st + 32 * kk), 1);
+        wgmma_commit();
+        ring.keep1();
+      }
+    ring.drain();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    ln2_rows(prm, ln, R, acc, xn, TR);
+    fence_proxy_async();
+    named_barrier(2 + ln.wg, 128);
+    // the hidden chunks go to this warpgroup's context rows of slices 0 and 1
+    ff_store(p, prm, ln, R, ring, xn_a, TR * 128, ctx_a, TR * 128, acc);
+  }
+}
+
+// the short form: 1 <= S <= 32, D = DM, F a multiple of FC up to MAX_F
+int launch_short(Params p, const void* wqkv, const void* wo, const void* w1, const void* w2,
+                 cudaStream_t stream) {
+  if (p.S < 1 || p.S > 32 || p.F % FC || p.F > MAX_F) return (int)cudaErrorInvalidValue;
+  p.nseq = TR / p.S;
+  p.ntiles = (p.B + p.nseq - 1) / p.nseq;
+  Maps maps;
+  int rc = make_maps(&maps, wqkv, wo, w1, w2, p.x, (long long)p.B * p.S, p.F);
+  if (rc) return rc;
+  const uint32_t smem = ShortLayout(p.F).total;
+  if ((rc = prepare(infer_short_kernel, smem))) return rc;
+  infer_short_kernel<<<std::min(p.ntiles, sm_count()), THREADS, smem, stream>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace layer_infer
 
 namespace {
 
@@ -29,7 +174,7 @@ int launch(LayerParams<T> p, cudaStream_t stream) {
 }  // namespace
 
 // Inference layer. is_f32: activations and weights are float (TF32 products),
-// else bf16.
+// else bf16 (D = 256, F a multiple of 64 up to 1024: layer_infer.cuh).
 extern "C" int dsvg_layer(const void* x, const void* seq_bias, const void* ln1,
                           const void* wqkv, const void* bqkv, const void* wo,
                           const void* bo, const void* ln2, const void* w1,
@@ -42,10 +187,11 @@ extern "C" int dsvg_layer(const void* x, const void* seq_bias, const void* ln1,
         make_params<float>(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
                            mask, out, B, S, D, F, H, causal, scale),
         (cudaStream_t)stream);
-  return launch<bf16, 64, false>(
-      make_params<bf16>(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
-                        out, B, S, D, F, H, causal, scale),
-      (cudaStream_t)stream);
+  if (D != layer_infer::DM || H != layer_infer::NH) return (int)cudaErrorInvalidValue;
+  return layer_infer::launch_short(
+      layer_infer::make_params(x, seq_bias, ln1, bqkv, bo, ln2, b1, b2, mask, out, B, S, F,
+                               causal, scale),
+      wqkv, wo, w1, w2, (cudaStream_t)stream);
 }
 
 // Training forward: dropout (thr = floor(rate * 2^24), kp = 1 / (1 - rate))

@@ -1,5 +1,6 @@
 // The fused pre-LN transformer layer's forward on one block's rows, shared by
-// K2 and K4's forward (layer.cu) and by K7's stack forward (stack.cu).
+// K2's float32 form and K4's forward (layer.cu) and by K7's stack forward
+// (stack.cu); K2's bfloat16 form is layer_infer.cuh's.
 //
 // A block of 8 warps owns whole sequences: nseq = ROWS / S of them (ROWS = 64
 // for bf16 activations: 2x32 for E1, 2x31 for D1 with the ragged rows unused,

@@ -1,5 +1,6 @@
 // The long form of the fused layer's forward (see ops/layer.py), shared by
-// K2's long form (layer_long.cu) and K4's (layer_long_train.cu): one fused
+// K2's float32 long form (layer_long.cu; its bfloat16 form is
+// layer_infer.cuh's) and K4's (layer_long_train.cu): one fused
 // pre-LN layer over sequences of up to 256 rows, which a block cannot hold
 // whole, in two launches.
 //

@@ -19,30 +19,29 @@ Kernel note (``csrc/layer.cu``). Replaces the Pallas kernel
 through ``fused_encoder_layer`` / ``fused_decoder_layer``). On the H100 the
 layer is bound by its matmuls: an E1 layer at N=1024 (8192 sequences of 32)
 is about 283 GFLOP, 0.29 ms at 989 TFLOP/s bf16, while it moves only its
-input and output (2 x 134 MB, 0.08 ms). The design keeps every
-intermediate on chip: a block owns whole sequences (64 rows: 2x32 for E1,
-2x31 for D1 with the ragged rows masked, 8x8 for E2/D2), holds the f32
-residual and the bf16 QKV / FF hidden in shared memory, runs the four
-products on the tensor cores (``nvcuda::wmma`` bf16 16x16x16, f32
-accumulate) with the weights read from L2, and does the attention of each
-(sequence, head) in one warp with S <= 32 keys, one key per lane.
+input and output (2 x 134 MB, 0.08 ms).
 
-Long sequences (``csrc/layer_long.cu``, 33 <= S <= 256: the one-stage
-models' E1 over a whole icon, S = 242 with SOS and EOS, and their
-teacher-forced decoder, S = 241, causal). A block cannot hold such a
-sequence (242 rows of the f32 residual alone are 248 KB), so the layer is
-two launches. The first runs LN1 and the QKV product over 64-row tiles of
-all B*S rows and writes QKV (in the activation type, as the short form
-rounds it) to a scratch tensor. The second takes one (sequence, 64-query
-tile) per block: for each head in turn, the tile's queries against all the
-sequence's keys (up to the tile's last query when causal) on ``wmma``,
-the exact softmax of each row over all its keys in float32 (the
-probabilities rounded to the activation type, as in the short form and its
-plain version), the context on ``wmma``; then the out projection, the
-residual (reloaded from the input), ``seq_bias``, LN2, FF and the residual,
-as the short form does. An E1 layer at N=1024 (B=1024, S=242) is 0.26 TFLOP
-of products and 0.06 TFLOP of attention, 0.33 ms at 989 TFLOP/s bf16. The
-float32 form takes 32-query tiles.
+bfloat16 (``csrc/layer_infer.cuh``; D=256, F a multiple of 64 up to 1024):
+persistent blocks, one TMA producer warp streaming x and the weights through
+an ``mbarrier`` ring, two consumer warpgroups running the four products on
+``wgmma`` over 128-row tiles of whole sequences (E1 4x32, D1 4x31, D2 16x8),
+the attention of each 16-row query block on ``mma.sync`` with the exact
+softmax in registers, the context and the FF hidden staged in shared memory,
+the residual in the accumulators. The long form (``csrc/layer_long.cu``,
+33 <= S <= 256: the one-stage models' E1 over a whole icon, S = 242 with SOS
+and EOS, and their teacher-forced decoder, S = 241, causal) is two launches:
+LN1 and QKV over 128-row tiles of all B*S rows into a scratch tensor, then
+tiles of whole sequences (one at S=242) whose K and V come into shared
+memory once a head, with every key's score of a query in registers. An E1
+layer of that form at N=1024 (B=1024, S=242) is 0.26 TFLOP of products and
+0.06 TFLOP of attention, 0.33 ms at 989 TFLOP/s bf16.
+
+float32 (``csrc/layer_fwd.cuh``, ``csrc/layer_long.cuh``, which K4 shares):
+a block owns whole sequences (32 rows), holds the f32 residual and the QKV /
+FF hidden in shared memory, runs the products on ``nvcuda::wmma`` TF32
+16x16x8 with the weights read from L2, and does the attention of each
+(sequence, head) in one warp, one key per lane; its long form takes 32-query
+tiles of a sequence in its second launch.
 
 The softmax subtracts the row maximum (the Pallas kernel clamps scores to
 +-75 instead, a TPU-only choice); a query whose keys are all masked gets
@@ -111,6 +110,8 @@ _LONG_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_float,
 MAX_SEQ = 32
 MAX_SEQ_LONG = 256
 HEAD_DIM = 32
+BF16_WIDTH = 256    # the D of the bfloat16 kernels (csrc/layer_infer.cuh)
+BF16_MAX_FF = 1024  # and their widest F
 
 
 def check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
@@ -135,6 +136,14 @@ def check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2
     _build.require(mask, "mask", dev, torch.float32, (b, s))
     if seq_bias is not None:
         _build.require(seq_bias, "seq_bias", dev, dt, (b, d))
+
+
+def _check_bf16_widths(x, w1) -> None:
+    """Raise unless K2's bfloat16 kernels take these widths."""
+    d, f = x.shape[-1], w1.shape[0]
+    if x.dtype == torch.bfloat16 and (d != BF16_WIDTH or f % 64 or f > BF16_MAX_FF):
+        raise ValueError(f"the bfloat16 layer kernels take D={BF16_WIDTH} and F a multiple of "
+                         f"64 up to {BF16_MAX_FF}; got D={d}, F={f}")
 
 
 def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
@@ -164,6 +173,7 @@ def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
     f = w1.shape[0]
     check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                        n_heads)
+    _check_bf16_widths(x, w1)
     out = torch.empty_like(x)
     if b == 0:
         return out
@@ -196,6 +206,7 @@ def fused_layer_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, 
     f = w1.shape[0]
     check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                        n_heads, MAX_SEQ_LONG)
+    _check_bf16_widths(x, w1)
     out = torch.empty_like(x)
     if b == 0:
         return out

@@ -88,13 +88,17 @@ def test_embedding_takes_the_teacher_forced_views(cuda):
         assert (a - r).abs().max().item() <= 1e-5 * r.abs().max().item() + 1e-6
 
 
-@pytest.mark.parametrize("s,seq_bias,causal", [
-    (32, False, False), (8, False, False), (31, True, False), (8, True, False),
-    (31, True, True),
+@pytest.mark.parametrize("s,b,seq_bias,causal", [
+    (32, 12, False, False), (8, 12, False, False), (31, 12, True, False), (8, 12, True, False),
+    (31, 12, True, True),
+    # every S the bfloat16 kernel's 128-row tiles treat apart (1 to 128 whole
+    # sequences a tile, query blocks of 16 rows spanning 1 to 3 sequences),
+    # ragged last tiles, and a batch at which every persistent block loops
+    (1, 5, False, False), (2, 5, True, True), (7, 5, True, False), (16, 1, True, True),
+    (17, 5, False, False), (17, 12, True, True), (32, 1, False, True), (32, 4096, True, False),
 ])
-def test_layer_kernel_matches_plain(cuda, s, seq_bias, causal):
-    rng = np.random.default_rng(s + 2 * seq_bias + causal)
-    b = 12
+def test_layer_kernel_matches_plain(cuda, s, b, seq_bias, causal):
+    rng = np.random.default_rng(s + 2 * seq_bias + causal + b)
     ln = lambda: torch.stack([1 + _bf16(rng, cuda, D, scale=0.1),  # noqa: E731
                               _bf16(rng, cuda, D, scale=0.1)]).contiguous()
     weights = (ln(), _bf16(rng, cuda, 3 * D, D, scale=D ** -0.5), _bf16(rng, cuda, 3 * D, scale=0.1),
@@ -539,7 +543,10 @@ TOL_F32_ATOL, TOL_F32_RTOL = 2e-2, 2e-3
 @pytest.mark.parametrize("dtype,s,seq_bias,causal", [
     (BF16, 33, False, False), (BF16, 240, False, False), (BF16, 241, True, True),
     (BF16, 242, True, False), (BF16, 256, False, True), (torch.float32, 241, True, True),
-    (torch.float32, 100, False, False)])
+    (torch.float32, 100, False, False),
+    # the bfloat16 kernel's tiles of 256 / S whole sequences: 4, 3, 2 and 1 a tile
+    (BF16, 64, True, True), (BF16, 65, False, False), (BF16, 128, True, False),
+    (BF16, 200, False, True)])
 def test_long_layer_kernel_matches_plain(cuda, dtype, s, seq_bias, causal):
     """K2's long form (two launches, counted once) against the plain layer,
     with key padding and one fully masked sequence."""
@@ -559,6 +566,57 @@ def test_long_layer_kernel_matches_plain(cuda, dtype, s, seq_bias, causal):
     atol, rtol = (TOL_ATOL, TOL_RTOL) if dtype == BF16 else (TOL_F32_ATOL, TOL_F32_RTOL)
     assert (err <= atol + rtol * ref.abs()).all(), (err - rtol * ref.abs()).max().item()
     assert _rel_rms(out, ref) <= TOL_RMS
+
+
+def test_layer_kernels_rerun_to_the_bit(cuda):
+    """K2's bfloat16 kernels sum in a fixed order (no atomics): the same
+    inputs give the same output to the bit, short and long form."""
+    for s, b in ((31, 300), (242, 7)):
+        rng = np.random.default_rng(s)
+        inputs = (_bf16(rng, cuda, b, s, D), _bf16(rng, cuda, b, D), *_layer_weights(rng, cuda, BF16),
+                  _key_mask(rng, cuda, b, s), H, True)
+        first = layer_ops.fused_layer(*inputs)
+        assert all(torch.equal(layer_ops.fused_layer(*inputs), first) for _ in range(3)), s
+
+
+def test_bf16_layer_refuses_other_widths(cuda):
+    """The bfloat16 kernels take D=256 and F a multiple of 64 up to 1024."""
+    rng = np.random.default_rng(1)
+    for d, f, s in ((128, 512, 8), (D, 96, 8), (D, 2048, 40)):
+        ln = torch.stack([1 + _bf16(rng, cuda, d), _bf16(rng, cuda, d)]).contiguous()
+        ws = (ln, _bf16(rng, cuda, 3 * d, d), _bf16(rng, cuda, 3 * d), _bf16(rng, cuda, d, d),
+              _bf16(rng, cuda, d), ln, _bf16(rng, cuda, f, d), _bf16(rng, cuda, f),
+              _bf16(rng, cuda, d, f), _bf16(rng, cuda, d))
+        with pytest.raises(ValueError, match="bfloat16 layer kernels take D=256"):
+            layer_ops.fused_layer(_bf16(rng, cuda, 2, s, d), None, *ws,
+                                  torch.zeros(2, s, device=cuda), d // 32)
+
+
+def test_layer_kernels_are_wgmma_kernels(cuda):
+    """K2's bfloat16 kernels (the short form, and the long form's two
+    launches) multiply with Hopper's warpgroup instructions: HGMMA in the
+    built library's SASS (cuobjdump)."""
+    import re
+    import shutil
+    import subprocess
+
+    from deepsvg_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", _build.build()], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    k2 = {re.search(r"infer_\w+?_kernel", n).group(0): c for n, c in counts.items()
+          if re.search(r"infer_(short|qkv|attn_ffn)_kernel", n)}
+    print("HGMMA instructions:", k2)
+    assert set(k2) == {"infer_short_kernel", "infer_qkv_kernel", "infer_attn_ffn_kernel"}, k2
+    assert all(c > 0 for c in k2.values()), k2
 
 
 def _decode_inputs(rng, dev, n_layers, r, t):

@@ -90,6 +90,10 @@ LAYER_CASES = [  # (variant, S, causal)
     ("decoder", 8, False),
     ("decoder", 31, True),
     ("decoder", 32, True),
+    ("encoder", 1, False),
+    ("encoder", 17, False),
+    ("decoder", 17, True),
+    ("decoder", 64, True),
 ]
 
 
