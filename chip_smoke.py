@@ -19,7 +19,9 @@ plain path at N=64 with a control that must fail; timings.
 *Training* (one step = forward with dropout, loss, backward, clip, AdamW;
 B=128, bfloat16 compute, float32 masters): K4 (the fused layer's forward and
 each of its twelve gradients, at the four stacks' shapes, without and with
-dropout, causal, with a fully masked sequence), K5 (argument cross-entropy and
+dropout, causal, with a fully masked sequence; bfloat16 through its wgmma
+form; a reading, no gate, of the float32 form's E2 output against a plain
+version in full float32 and one in TF32), K5 (argument cross-entropy and
 its three gradients) and K6 (the embedding tables' gradients) against their
 plain versions; one step on the kernel path against the same step on the
 plain path at B=16 and dropout 0 (loss terms, every leaf's gradient, the
@@ -31,8 +33,13 @@ K7 at E2 and D2 (16 x 8 rows is under the stack gate's 512); B=128 does not.
 *The recipe's training run* (B=60, where E2 and D2 take the fused stack K7):
 K7's forward, layer by layer, and its twelve gradients against its plain
 version at E2 and D2 shapes, at B=60 and at the gate's edge B=64, dropout 0
-and 0.1, and to the bit against the chain of four K4 calls; the step at B=60
-(counted, timed); the training CLI's ``train()`` on the flagship config with
+and 0.1, and against the chain of four K4 calls (to the bit in float32,
+within the limits each meets against the plain version in bfloat16, where K4
+runs its wgmma form); the step at B=60
+(counted, timed); the B=128 loop twice more, untimed, its gradients
+checksummed by step and leaf: where the two runs part, the first differing
+leaves must be the encoder's embedding tables, which K6 sums with float
+atomics (every other kernel of the step has none); the training CLI's ``train()`` on the flagship config with
 the synthetic dataset resident on the card: a first run with an asynchronous
 checkpoint, then a resumed run (step count, finite falling loss, the
 checkpoint's parameters and the resumed ones equal to the bit, launches per
@@ -130,6 +137,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -242,8 +250,10 @@ TOL_STEP_LEAF_RMS = 0.16       # each leaf's gradient, relative RMS (sound runs 
 # layer's last-bit differences feed the next: the card test
 # (tests/test_torch_port_cuda.py) read up to 0.0029 for the output and, for
 # the gradients, 0.017 as they are and 0.0065 with the ReLU units aligned;
-# limits about twice those readings, as K4's. And to the bit against the
-# chain of four K4 calls with the per-layer seeds.
+# limits about twice those readings, as K4's. And against the chain of four
+# K4 calls with the per-layer seeds: to the bit in float32, where K4 runs
+# K7's block code; in bfloat16, where K4 runs its wgmma form (another
+# summation order), within these limits and TOL_LAYER_RMS a layer.
 TOL_STACK_RMS = 5e-3
 TOL_STACK_GRAD_RMS = 3e-2
 TOL_STACK_GRAD_RMS_SAME_GATE = 1.5e-2
@@ -666,6 +676,39 @@ def check_layer_train(layer_vjp, what, layer, x, seq_bias, mask, causal, rate, s
             **extra}
 
 
+def k4_f32_excess(layer_vjp, layer, x, seq_bias, mask, seed=1234) -> dict:
+    """A reading, no gate: K4's float32 forward on the E2 input against two
+    plain versions, one multiplying in full float32 (the comparison of
+    check_layer_train) and one in TF32, as the kernel does; each element's
+    excess beyond TOL_F32_RTOL x |out|, and the TF32 plain version's own
+    excess over the float32 one. Equal excesses say the kernel's is
+    TF32's rounding."""
+    call = (x, seq_bias, *layer.masters(), mask, seed, layer.n_heads, False)
+    out = {}
+    for rate in (0.0, DROPOUT):
+        with torch.no_grad():
+            got = layer_vjp.fused_layer_train(*call, rate, layer.compute_dtype,
+                                              save_residuals=True).float()
+            allow = torch.backends.cuda.matmul.allow_tf32
+            try:
+                torch.backends.cuda.matmul.allow_tf32 = False
+                ref = layer_vjp.plain_layer_train(*call, rate, layer.compute_dtype).float()
+                torch.backends.cuda.matmul.allow_tf32 = True
+                ref_tf32 = layer_vjp.plain_layer_train(*call, rate, layer.compute_dtype).float()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = allow
+        excess = lambda a, b: ((a - b).abs() - TOL_F32_RTOL * b.abs()).max().item()  # noqa: E731
+        out[f"rate {rate}"] = r = {
+            "kernel_vs_f32": excess(got, ref), "kernel_vs_tf32": excess(got, ref_tf32),
+            "tf32_vs_f32": excess(ref_tf32, ref), "max_abs_out": ref.abs().max().item()}
+        print(f"K4 float32 E2 rate {rate}: excess beyond {TOL_F32_RTOL} x |out| against the "
+              f"float32 plain version {r['kernel_vs_f32']:.4g}, against the TF32 plain version "
+              f"{r['kernel_vs_tf32']:.4g}; the TF32 plain version against the float32 one "
+              f"{r['tf32_vs_f32']:.4g} (limit {TOL_F32_ATOL}; |out| up to "
+              f"{r['max_abs_out']:.3g})", flush=True)
+    return out
+
+
 def stacked_masters(layers):
     """The ten float32 masters of ``layers`` stacked ``[L, ...]``, leaves."""
     return [torch.stack(ws).detach().requires_grad_()
@@ -687,7 +730,8 @@ def check_stack_train(stack_vjp, layer_vjp, what, layers, x, biases, mask, rate,
     """K7 against its plain version with the same hash masks (the forward
     layer by layer from the kernel's own inputs, then the whole stack and its
     twelve gradients, as they are and with the kernel's ReLU units), and
-    against the chain of K4 calls, to the bit. Returns the readings."""
+    against the chain of K4 calls: to the bit in float32, within the limits
+    above in bfloat16. Returns the readings."""
     from deepsvg_tpu_torch.ops.dropout import stack_layer_seed
     dt, n_heads = layers[0].compute_dtype, layers[0].n_heads
     masters = stacked_masters(layers)
@@ -727,8 +771,38 @@ def check_stack_train(stack_vjp, layer_vjp, what, layers, x, biases, mask, rate,
                 for n, a, w, wg in zip(GRAD_NAMES, grads, ref_grads, gate_grads)}
     chain = k4_chain(layer_vjp, *call)
     chain_grads = torch.autograd.grad(chain, leaves, g)
-    same = torch.equal(out, chain) and all(torch.equal(a, c) for a, c in zip(grads, chain_grads))
-    check_later(same, f"K7 {what}: not equal to the bit to the chain of {len(layers)} K4 calls")
+    if dt == torch.float32:
+        # K4's float32 form runs K7's block code on the same rows: to the bit
+        same = torch.equal(out, chain) and all(torch.equal(a, c)
+                                               for a, c in zip(grads, chain_grads))
+        check_later(same, f"K7 {what}: not equal to the bit to the chain of {len(layers)} K4 "
+                          f"calls")
+        chain_reading = {"equals_k4_chain": same}
+        chain_text = f"equal to the K4 chain to the bit: {same}"
+    else:
+        # K4's bfloat16 form is its wgmma kernels, which sum in another
+        # order: K7 against them within the limits each meets against the
+        # plain version (a layer from K7's own input to it, the stack, the
+        # gradients)
+        with torch.no_grad():
+            chain_layer_rms = [rel_rms(y_l, layer_vjp.fused_layer_train(
+                x_l, bias[layer], *[w[layer] for w in masters], mask,
+                stack_layer_seed(seed, layer), n_heads, False, rate, dt, save_residuals=True))
+                for layer, (x_l, y_l) in enumerate(zip(inputs, inputs[1:] + [out]))]
+        chain_rms = rel_rms(out, chain)
+        chain_grad_rms = {n: rel_rms(a, c) for n, a, c in zip(GRAD_NAMES, grads, chain_grads)}
+        worst_chain = max(chain_grad_rms, key=chain_grad_rms.get)
+        check_later(max(chain_layer_rms) <= TOL_LAYER_RMS and chain_rms <= TOL_STACK_RMS
+                    and chain_grad_rms[worst_chain] <= TOL_STACK_GRAD_RMS,
+                    f"K7 {what} against the chain of {len(layers)} K4 calls: a layer's relative "
+                    f"RMS {max(chain_layer_rms)} (limit {TOL_LAYER_RMS}), the stack's "
+                    f"{chain_rms} (limit {TOL_STACK_RMS}), d{worst_chain}'s "
+                    f"{chain_grad_rms[worst_chain]} (limit {TOL_STACK_GRAD_RMS})")
+        chain_reading = {"k4_chain_layer_rms": chain_layer_rms, "k4_chain_rms": chain_rms,
+                         "k4_chain_grad_rms": chain_grad_rms}
+        chain_text = (f"against the K4 chain a layer's relative RMS at most "
+                      f"{max(chain_layer_rms):.3g}, the stack's {chain_rms:.3g}, the gradients' "
+                      f"{chain_grad_rms[worst_chain]:.3g} (d{worst_chain})")
     worst = max(readings, key=lambda n: readings[n]["rms"])
     worst_gate = max(readings, key=lambda n: readings[n]["rms_same_gate"])
     print(f"K7 {what} rate {rate}: forward layer by layer relative RMS at most "
@@ -740,10 +814,9 @@ def check_stack_train(stack_vjp, layer_vjp, what, layers, x, biases, mask, rate,
           f"{TOL_STACK_GRAD_RMS_SAME_GATE}); the worst element off by "
           f"{max(r['worst'] for r in readings.values()):.3g} of the largest entry (limit "
           f"{TOL_GRAD_WORST}), aligned {max(r['worst_same_gate'] for r in readings.values()):.3g} "
-          f"(limit {TOL_GRAD_WORST_SAME_GATE}); equal to the K4 chain to the bit: {same}",
-          flush=True)
+          f"(limit {TOL_GRAD_WORST_SAME_GATE}); {chain_text}", flush=True)
     return {"layer_rms": layer_rms, "layer_excess": layer_excess, "forward_rms": rms,
-            "forward_max_abs_err": diff.max().item(), "grads": readings, "equals_k4_chain": same}
+            "forward_max_abs_err": diff.max().item(), "grads": readings, **chain_reading}
 
 
 def run_cli(dev, reset_counts, read_counts, per_step: dict,
@@ -2948,6 +3021,8 @@ def main() -> int:
         layer_vjp.fused_layer_train_long.backward_launches = 0
         for fn in (layer_vjp.fused_layer_train, layer_vjp.fused_layer_train_long):
             fn.recompute_launches = fn.recompute_backward_launches = 0
+        layer_vjp.fused_layer_train.narrow_launches = 0
+        layer_vjp.fused_layer_train.narrow_backward_launches = 0
         ce_ops.args_ce.launches = ce_ops.args_ce.backward_launches = 0
         stack_vjp.fused_stack_train.launches = 0
         stack_vjp.fused_stack_train.backward_launches = 0
@@ -2989,7 +3064,11 @@ def main() -> int:
                 "layer_train_long_recompute_fwd":
                     layer_vjp.fused_layer_train_long.recompute_launches,
                 "layer_train_long_recompute_bwd":
-                    layer_vjp.fused_layer_train_long.recompute_backward_launches}
+                    layer_vjp.fused_layer_train_long.recompute_backward_launches,
+                # K4's bfloat16 short form at widths below its wgmma kernels'
+                # (none on any path here: every count expected 0)
+                "layer_train_narrow_fwd": layer_vjp.fused_layer_train.narrow_launches,
+                "layer_train_narrow_bwd": layer_vjp.fused_layer_train.narrow_backward_launches}
 
     # ---- build
     t0 = time.perf_counter()
@@ -3101,8 +3180,13 @@ def main() -> int:
         }
         layer_err = 0.0
         layer_atol = 0.0
+        k2_sha256 = {}
         for what, la in layer_cases.items():
-            out_k = layer_ops.fused_layer(*la).float()
+            out_k = layer_ops.fused_layer(*la)
+            # the output's bytes, so that two trees' K2 can be held equal to the bit
+            k2_sha256[what] = hashlib.sha256(
+                out_k.contiguous().view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            out_k = out_k.float()
             out_p = layer_ops.layer_reference(*la).float()
             diff = (out_k - out_p).abs()
             atol_needed = (diff - TOL_LAYER_RTOL * out_p.abs()).max().item()
@@ -3120,6 +3204,8 @@ def main() -> int:
         kernels["layer"] = {"max_abs_err": layer_err, "atol_needed": layer_atol,
                             "tolerance": {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL,
                                           "rms": TOL_LAYER_RMS}}
+        record["k2_sha256"] = k2_sha256
+        print(f"K2 outputs' SHA-256: {k2_sha256}", flush=True)
 
         # ---- K2, float32 form: E2 on the float32 pooled E1 output, and a
         # fully masked sequence, a seq_bias and S=31 causal beside it
@@ -3388,6 +3474,7 @@ def main() -> int:
     k4["causal S=31 rate 0.1"] = check_layer_train(
         layer_vjp, "causal S=31 seq_bias", l_d1, randn(64, 31, d_model).to(bf16), sb_d1[:64],
         zeros(64, 31), True, DROPOUT)
+    record["k4_f32_excess"] = k4_f32_excess(layer_vjp, *train_cases["E2 S=8 float32 key pad"][:4])
     # a fully masked sequence: zero attention output forward, and the rows'
     # gradient is the residual's alone (checked through the comparisons above,
     # which include sequence 0 of E1 and E2); here, that it stays finite
@@ -3566,17 +3653,36 @@ def main() -> int:
         check(moved == len(before) and state.step == TRAIN_STEPS
               and all(p.dtype == torch.float32 for p in state.parameters()),
               f"{moved} of {len(before)} leaves moved; step {state.step}")
-        step_ms = statistics.median(s.elapsed_time(e) for s, e in events[3:])
+        per_step = [s.elapsed_time(e) for s, e in events[3:]]
+        step_ms = statistics.median(per_step)
         print(f"training{what} B={b} dropout {DROPOUT} bf16, lr {LR}: loss {loss_values[0]:.4f} -> "
               f"{loss_values[-1]:.4f} over {TRAIN_STEPS} steps on one batch, all finite; "
-              f"{step_ms:.3f} ms/step median of {TRAIN_STEPS - 3}, {b / step_ms * 1e3:.1f} "
+              f"{step_ms:.3f} ms/step median of {TRAIN_STEPS - 3} (range {min(per_step):.3f}-"
+              f"{max(per_step):.3f}), {b / step_ms * 1e3:.1f} "
               f"samples/s (host clock: {host_ms:.3f} ms/step mean), peak memory {peak:.2f} "
               f"GiB on {card}", flush=True)
         return {"B": b, "steps": TRAIN_STEPS, "losses": loss_values,
                 "grad_norms": [float(r["grad_norm"]) for r in losses],
                 "median_ms_per_step": step_ms, "samples_per_s": b / step_ms * 1e3,
+                "ms_per_step_range": (min(per_step), max(per_step)),
                 "host_mean_ms_per_step": host_ms,
                 "peak_memory_gib": peak, "launches_per_step": counted}
+
+    def loop_checksums(b: int) -> tuple:
+        """train_loop's TRAIN_STEPS steps at ``b`` from a fresh state,
+        untimed: the leaves' names, per step and leaf an exact checksum of
+        the gradient (the sum of its bits as int64) ``[steps, leaves]``, and
+        the gradient norms."""
+        state, optimizer = new_state(DROPOUT)
+        full = batch_of(b)
+        sums, norms = [], []
+        for _ in range(TRAIN_STEPS):
+            state, res = train_step(state, full, LOSS_WEIGHTS, optimizer, MODEL_ARGS)
+            sums.append(torch.stack([p.grad.view(torch.int32).sum(dtype=torch.int64)
+                                     for p in state.parameters()]))
+            norms.append(res["grad_norm"])
+        names = [n for n, _ in state.model.named_parameters()]
+        return names, torch.stack(sums).cpu(), torch.stack(norms).tolist()
 
     no_launch = dict.fromkeys(read_counts(), 0)
     # B=128: 1,024 rows at E2 and D2, over the stack gate, so layer by layer
@@ -3755,6 +3861,32 @@ def main() -> int:
                                                MODEL_ARGS))
     del state60, optimizer60
     torch.cuda.empty_cache()
+
+    # ---- the B=128 loop twice more, after every phase since its first run
+    # has churned the allocator and the card, untimed, checksums of every
+    # leaf's gradient at every step. K4, and every kernel but K6, has no
+    # atomics; K6 (ops/csrc/embedding_bwd.cu) adds into the encoder's
+    # command, argument and group tables with float atomics, in an order
+    # that changes from run to run. So where the two runs part, the first
+    # step's differing leaves must be K6's tables (or what is folded into
+    # them), and nothing else.
+    leaves, sums_a, norms_a = loop_checksums(B_TRAIN)
+    _, sums_b, norms_b = loop_checksums(B_TRAIN)
+    differ = sums_a != sums_b
+    parted = int(differ.any(1).nonzero()[0]) if bool(differ.any()) else None
+    first_leaves = ([] if parted is None
+                    else [leaves[j] for j in differ[parted].nonzero().flatten().tolist()])
+    k6_leaves = {n for n in leaves
+                 if n.startswith("encoder.embedding.") and not n.endswith("pos_embed")}
+    record["train_rerun"] = {"parts_at_step": parted, "first_leaves": first_leaves,
+                             "norms_equal": norms_a == norms_b, "k6_leaves": sorted(k6_leaves)}
+    print(f"the B={B_TRAIN} loop run twice more: "
+          + ("equal to the bit at every step and leaf" if parted is None else
+             f"parts at step {parted}, first in {first_leaves} (K6's atomically summed "
+             f"tables: {sorted(k6_leaves)})"), flush=True)
+    check(set(first_leaves) <= k6_leaves,
+          f"the B={B_TRAIN} loop run twice parts at step {parted} in leaves {first_leaves} "
+          f"beyond K6's atomically summed tables {sorted(k6_leaves)}")
 
     # ---- would a wider stack gate pay on this card? The step at B=128 (E2
     # and D2 at 1,024 rows), the gate as it is and at 1,024 rows in turns,
@@ -4109,8 +4241,8 @@ def main() -> int:
         "layer": (csrc + "layer_infer.cuh", "deepsvg_tpu/ops/layer.py:108"),
         "layer_f32": (csrc + "layer.cu", "deepsvg_tpu/ops/layer.py:108"),
         "head": (csrc + "head.cu", "deepsvg_tpu/ops/head.py:32"),
-        "layer_train_fwd": (csrc + "layer.cu", "deepsvg_tpu/ops/layer_vjp.py:179"),
-        "layer_train_bwd": (csrc + "layer_bwd.cu", "deepsvg_tpu/ops/layer_vjp.py:281"),
+        "layer_train_fwd": (csrc + "layer_train.cuh", "deepsvg_tpu/ops/layer_vjp.py:179"),
+        "layer_train_bwd": (csrc + "layer_train.cuh", "deepsvg_tpu/ops/layer_vjp.py:281"),
         "args_ce_fwd": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:30"),
         "args_ce_bwd": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:81"),
         "embedding_bwd": (csrc + "embedding_bwd.cu", "deepsvg_tpu/ops/embedding.py:133"),
@@ -4136,7 +4268,8 @@ def main() -> int:
         "mha": (csrc + "attention.cu", "deepsvg_tpu/ops/attention.py:31"),
         "mha_train_fwd": (csrc + "attention.cu", "deepsvg_tpu/ops/attention_vjp.py:60"),
         "mha_train_bwd": (csrc + "attention.cu", "deepsvg_tpu/ops/attention_vjp.py:100"),
-        "layer_train_recompute_fwd": (csrc + "layer.cu", "deepsvg_tpu/ops/layer_vjp.py:179"),
+        "layer_train_recompute_fwd": (csrc + "layer_train.cuh",
+                                      "deepsvg_tpu/ops/layer_vjp.py:179"),
         "layer_train_recompute_bwd": (csrc + "layer_bwd.cu", "deepsvg_tpu/ops/layer_vjp.py:298"),
         "layer_train_long_recompute_fwd": (csrc + "layer_long_train.cu",
                                            "deepsvg_tpu/ops/layer_vjp.py:179"),

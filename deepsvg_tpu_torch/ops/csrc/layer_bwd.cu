@@ -1,12 +1,370 @@
-// K4 backward, first launch: everything of the layer's backward that is local
-// to a row or a sequence (see ops/layer_vjp.py). The device code is in
-// layer_bwd.cuh, which K7's stack backward (stack.cu) runs too. In the
-// recompute mode a launch of the forward tile (layer_fwd.cuh, FWD_WORKSPACE)
-// comes first and fills the layer's workspace.
+// K4 backward: everything of the layer's backward that is local to a row or
+// a sequence (see ops/layer_vjp.py); the weight products follow in wgrad.cu.
+// The saved mode's bfloat16 short form at D = 256 is three wgmma / mma.sync
+// launches on layer_train.cuh's device code. The float32 form, the narrower
+// bfloat16 widths and the recompute mode run layer_bwd.cuh's device code,
+// which K7's stack backward (stack.cu) runs too; in the recompute mode a
+// launch of the forward tile (layer_fwd.cuh, FWD_WORKSPACE) comes first and
+// fills the layer's workspace (the old forward's arithmetic, not the wgmma
+// forward's: the recomputed intermediates differ from that forward's in
+// their last bits).
 #include "layer_bwd.cuh"
 #include "layer_fwd.cuh"
+#include "layer_train.cuh"
 
 using namespace layer_bwd;
+
+namespace layer_train {
+namespace {
+
+constexpr int FF_BWD_STAGES = 4;
+
+struct FfBwdLayout {
+  uint32_t a, hid, ring, prm, sums, bars, total;
+  __host__ __device__ FfBwdLayout() {
+    Carve c;
+    a = c.take(KSL * TR * 128);          // df, then da: the A operand
+    hid = c.take(4 * FC * 128);          // two hidden buffers a warpgroup
+    ring = c.take(FF_BWD_STAGES * STAGE);
+    prm = c.take(2 * DM * 4, 16);        // LN2's scale and bias
+    sums = c.take(8 * 2 * DM * 4, 16);   // the warps' LayerNorm column sums
+    bars = c.take(2 * FF_BWD_STAGES * 8, 8);
+    total = c.off + 1024;
+  }
+};
+
+// the FF, LN2 and out-projection backward (see layer_train.cuh)
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_ff_kernel(const __grid_constant__ FfBwdMaps maps, const __grid_constant__ Bwd b) {
+  const FfBwdLayout L;
+  unsigned char* base = smem_base();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L.bars);
+  Ring ring;
+  ring.init(base + L.ring, bars, FF_BWD_STAGES);
+  if (threadIdx.x == 0) {
+    init_ring_bars(bars, FF_BWD_STAGES);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != CONSUMERS) return;
+    for (int tile = blockIdx.x; tile < b.ntiles; tile += gridDim.x)
+      produce_ff_bwd(ring, maps, tile * b.nseq * b.S, b.F);
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const Lane ln;
+  float* prm = reinterpret_cast<float*>(base + L.prm);
+  float* sums = reinterpret_cast<float*>(base + L.sums);
+  for (int i = ln.tid; i < 2 * DM; i += CONSUMERS) prm[i] = bf2f(b.ln2[i]);
+  for (int i = ln.tid; i < 8 * 2 * DM; i += CONSUMERS) sums[i] = 0.f;
+  named_barrier(1, CONSUMERS);
+  float* wsums = sums + (ln.tid >> 5) * 2 * DM;
+  unsigned char* as = base + L.a;
+  const uint32_t a_wg = smem_u32(as) + ln.wg * 64 * 128;
+  const uint32_t hbuf = smem_u32(base + L.hid) + ln.wg * 2 * FC * 128;
+  const unsigned key_fh = site_key(b.seed, SITE_FF_HIDDEN), key_ao = site_key(b.seed, SITE_ATTN_OUT);
+  for (int tile = blockIdx.x; tile < b.ntiles; tile += gridDim.x) {
+    const int seq0 = tile * b.nseq;
+    const int nvalid = min(b.nseq, b.B - seq0);
+    const int nrows = nvalid * b.S;
+    const size_t row0 = (size_t)seq0 * b.S;
+    const Rows R = {row0, seq0, nrows, 64 * ln.wg, b.S};
+    {  // df = g m into the A operand
+      const unsigned char* gs[KSL];
+      ring.acquire_x(gs);
+      df_rows(b, gs, nrows, row0, 64 * ln.wg + 16 * ln.w, ln.lane, as);
+      ring.release_x();
+      fence_proxy_async();
+      named_barrier(2 + ln.wg, 128);
+    }
+    // per chunk of the hidden: dh = df W2, dhpre, dxn2 += dhpre W1
+    float acc[4][32];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[q][i] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < b.F / FC; ++c) {
+      float hacc[32];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const uint32_t st = ring.acquire();
+        wgmma_fence();
+#pragma unroll
+        for (int bx = 0; bx < 2; ++bx)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_m64n64k16_bf16<0, 1>(hacc, desc_sw128(a_wg + (2 * s + bx) * (TR * 128) + 32 * kk),
+                                       desc_sw128(st + bx * WBOX + 2048 * kk),
+                                       (s | bx | kk) ? 1 : 0);
+        wgmma_commit();
+        ring.keep1();
+      }
+      ring.drain();  // this chunk's dh, and the last chunk's dxn2 product, are done
+      fence_acc(hacc);
+      // dhpre: the saved hidden's ReLU gate and the dropout mask on dh;
+      // the dropped hidden for dW2
+      const uint32_t hb = hbuf + (c & 1) * FC * 128;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = 4 * q + e, rr = m & 1, col = FC * c + 8 * (m >> 1) + 2 * ln.t4;
+          const int tr = R.rb + ln.r0 + 8 * rr;
+          const size_t row = row0 + tr;
+          float dh0 = 0.f, dh1 = 0.f;
+          if (tr < nrows) {
+            const float2 hv = ldg2(b.h + row * b.F + col);
+            dh0 = hv.x > 0.f ? drop_at(hacc[2 * m], key_fh, row, col, b.thr, b.kp) : 0.f;
+            dh1 = hv.y > 0.f ? drop_at(hacc[2 * m + 1], key_fh, row, col + 1, b.thr, b.kp) : 0.f;
+            *reinterpret_cast<uint32_t*>(b.dhpre + row * b.F + col) = pack_bf16(dh0, dh1);
+            *reinterpret_cast<uint32_t*>(b.hd + row * b.F + col) =
+                pack_bf16(drop_at(hv.x, key_fh, row, col, b.thr, b.kp),
+                          drop_at(hv.y, key_fh, row, col + 1, b.thr, b.kp));
+          }
+          v[e] = pack_bf16(dh0, dh1);
+        }
+        stage_quarter(hb, ln, q, v);
+      }
+      fence_proxy_async();
+      named_barrier(2 + ln.wg, 128);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const uint32_t st = ring.acquire();
+        wgmma_fence();
+#pragma unroll
+        for (int bx = 0; bx < 2; ++bx)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_m64n64k16_bf16<0, 1>(acc[2 * hf + bx], desc_sw128(hb + 32 * kk),
+                                       desc_sw128(st + bx * WBOX + 2048 * kk), (c | kk) ? 1 : 0);
+        wgmma_commit();
+        ring.keep1();
+      }
+    }
+    ring.drain();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) fence_acc(acc[q]);
+    // LN2's backward a row a warp, from dxn2 parked in the dx1 scratch rows:
+    // dx1 = g + its input gradient (over dxn2); da = dx1 m, staged over the
+    // warp's df rows for dctx; xn2 for dW1
+    spill_rows(b.dx1, acc, ln, R);
+    __syncwarp();
+    ln_bwd_rows(b.x1, b.dx1, prm, prm + DM, ln, R, wsums,
+                [&](int tr, size_t row, int c0, const float (&xn)[8], const float (&d)[8]) {
+                  float gv[8];
+                  load8(b.g + row * DM + c0, gv);
+#pragma unroll
+                  for (int e = 0; e < 8; ++e) gv[e] += d[e];
+                  *reinterpret_cast<float4*>(b.dx1 + row * DM + c0) =
+                      make_float4(gv[0], gv[1], gv[2], gv[3]);
+                  *reinterpret_cast<float4*>(b.dx1 + row * DM + c0 + 4) =
+                      make_float4(gv[4], gv[5], gv[6], gv[7]);
+#pragma unroll
+                  for (int e = 0; e < 8; ++e) gv[e] = drop_at(gv[e], key_ao, row, c0 + e, b.thr, b.kp);
+                  const uint4 da = pack8(gv);
+                  *reinterpret_cast<uint4*>(b.da + row * DM + c0) = da;
+                  *reinterpret_cast<uint4*>(as + (c0 >> 6) * (TR * 128) +
+                                            swizzle128(tr, (c0 & 63) * 2)) = da;
+                  *reinterpret_cast<uint4*>(b.xn2 + row * DM + c0) = pack8(xn);
+                });
+    named_barrier(1, CONSUMERS);  // every row's dx1 is written
+    // dseq_bias: dx1 summed over each sequence, in row order
+    for (int e = ln.tid; e < nvalid * DM; e += CONSUMERS) {
+      const int sq = e / DM, col = e - sq * DM;
+      const float* src = b.dx1 + (row0 + (size_t)sq * b.S) * DM + col;
+      float s = 0.f;
+      for (int i = 0; i < b.S; ++i) s += src[(size_t)i * DM];
+      b.dbias[(size_t)(seq0 + sq) * DM + col] = s;
+    }
+    fence_proxy_async();  // da, as wgmma's A operand
+    named_barrier(2 + ln.wg, 128);
+    rows_by_weight(ring, a_wg, TR * 128, acc);  // dctx = da Wo
+    store_rows(b.dctx, acc, ln, R);
+  }
+  write_sums(sums, b.small, 2 * DM);
+}
+
+// the attention backward (see attn_bwd_tile): 8 warps, no weights
+__global__ void __launch_bounds__(CONSUMERS, 1) bwd_attn_kernel(const __grid_constant__ Bwd b) {
+  unsigned char* base = smem_base();
+  for (int tile = blockIdx.x; tile < b.ntiles; tile += gridDim.x) attn_bwd_tile(b, tile, base);
+}
+
+constexpr uint32_t QKV_STAGE = TR * 128 + 4 * WBOX;  // a slice of dqkv's K, Wqkv's four quarters
+constexpr int QKV_BWD_STAGES = 4;
+
+struct QkvBwdMaps {
+  CUtensorMap dqkv, wqkv;  // boxes {64, 128} and {64, 64}
+};
+
+struct QkvBwdLayout {
+  uint32_t ring, prm, sums, bars, total;
+  __host__ __device__ QkvBwdLayout() {
+    Carve c;
+    ring = c.take(QKV_BWD_STAGES * QKV_STAGE);
+    prm = c.take(2 * DM * 4, 16);
+    sums = c.take(8 * 2 * DM * 4, 16);
+    bars = c.take(2 * QKV_BWD_STAGES * 8, 8);
+    total = c.off + 1024;
+  }
+};
+
+// dxn1 = dqkv Wqkv, then LN1's backward: dx = dx1 + its input gradient
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_qkv_kernel(const __grid_constant__ QkvBwdMaps maps, const __grid_constant__ Bwd b) {
+  const QkvBwdLayout L;
+  unsigned char* base = smem_base();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L.bars);
+  RingT<QKV_STAGE> ring;
+  ring.init(base + L.ring, bars, QKV_BWD_STAGES);
+  if (threadIdx.x == 0) {
+    init_ring_bars(bars, QKV_BWD_STAGES);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != CONSUMERS) return;
+    for (int tile = blockIdx.x; tile < b.ntiles; tile += gridDim.x)
+      for (int s = 0; s < QKV_W / 64; ++s) {
+        unsigned char* st = ring.produce(QKV_STAGE);
+        tma_load_2d(st, &maps.dqkv, ring.bar(), 64 * s, tile * b.nseq * b.S);
+        for (int q = 0; q < 4; ++q)
+          tma_load_2d(st + TR * 128 + q * WBOX, &maps.wqkv, ring.bar(), 64 * q, 64 * s);
+        ring.advance();
+      }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const Lane ln;
+  float* prm = reinterpret_cast<float*>(base + L.prm);
+  float* sums = reinterpret_cast<float*>(base + L.sums);
+  for (int i = ln.tid; i < 2 * DM; i += CONSUMERS) prm[i] = bf2f(b.ln1[i]);
+  for (int i = ln.tid; i < 8 * 2 * DM; i += CONSUMERS) sums[i] = 0.f;
+  named_barrier(1, CONSUMERS);
+  float* wsums = sums + (ln.tid >> 5) * 2 * DM;
+  for (int tile = blockIdx.x; tile < b.ntiles; tile += gridDim.x) {
+    const int seq0 = tile * b.nseq;
+    const int nrows = min(b.nseq, b.B - seq0) * b.S;
+    const Rows R = {(size_t)seq0 * b.S, seq0, nrows, 64 * ln.wg, b.S};
+    float acc[4][32];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[q][i] = 0.f;
+#pragma unroll 1
+    for (int s = 0; s < QKV_W / 64; ++s) {
+      const uint32_t st = ring.acquire();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t a = desc_sw128(st + ln.wg * 64 * 128 + 32 * kk);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          wgmma_m64n64k16_bf16<0, 1>(acc[q], a, desc_sw128(st + TR * 128 + q * WBOX + 2048 * kk),
+                                     (s | kk) ? 1 : 0);
+      }
+      wgmma_commit();
+      ring.keep1();
+    }
+    ring.drain();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) fence_acc(acc[q]);
+    // LN1's backward a row a warp, from dxn1 parked in the dy scratch rows
+    spill_rows(b.dy, acc, ln, R);
+    __syncwarp();
+    ln_bwd_rows(b.x, b.dy, prm, prm + DM, ln, R, wsums,
+                [&](int, size_t row, int c0, const float (&xn)[8], const float (&d)[8]) {
+                  float y[8];
+                  load8(b.dx1 + row * DM + c0, y);
+#pragma unroll
+                  for (int e = 0; e < 8; ++e) y[e] += d[e];
+                  *reinterpret_cast<uint4*>(b.dx + row * DM + c0) = pack8(y);
+                  *reinterpret_cast<uint4*>(b.xn1 + row * DM + c0) = pack8(xn);
+                });
+  }
+  write_sums(sums, b.small, 0);
+}
+
+// the persistent grid of the row-local launches: one row of LayerNorm
+// partial sums a block
+int train_bwd_grid(int B, int S) {
+  const int ntiles = (B + TR / S - 1) / (TR / S);
+  return std::min(ntiles, sm_count());
+}
+
+// The saved mode's bfloat16 short form at D = 256. `t`: BwdParams' 23
+// pointers (small_part [grid][4 D]), then the scratch dx1 (f32), dctx
+// (bf16) and dy (f32), all [B*S][D].
+int launch_train_bwd(void* const* t, int B, int S, int F, int seed, int thr, float kp,
+                     float scale, cudaStream_t stream) {
+  if (S < 1 || S > 32 || F % FC || F > MAX_F) return (int)cudaErrorInvalidValue;
+  Bwd b;
+  b.x = (const bf16*)t[0];
+  b.g = (const bf16*)t[1];
+  b.ln1 = (const bf16*)t[2];
+  b.ln2 = (const bf16*)t[5];
+  b.qkv = (const bf16*)t[8];
+  b.p = (const bf16*)t[9];
+  b.x1 = (const float*)t[11];
+  b.h = (const bf16*)t[12];
+  b.dx = (bf16*)t[13];
+  b.dbias = (float*)t[14];
+  b.xn1 = (bf16*)t[15];
+  b.dqkv = (bf16*)t[16];
+  b.da = (bf16*)t[17];
+  b.xn2 = (bf16*)t[18];
+  b.dhpre = (bf16*)t[19];
+  b.hd = (bf16*)t[20];
+  b.df = (bf16*)t[21];
+  b.small = (float*)t[22];
+  b.dx1 = (float*)t[23];
+  b.dctx = (bf16*)t[24];
+  b.dy = (float*)t[25];
+  b.B = B;
+  b.S = S;
+  b.F = F;
+  b.nseq = TR / S;
+  b.ntiles = (B + b.nseq - 1) / b.nseq;
+  b.seed = seed;
+  b.thr = (unsigned)thr;
+  b.kp = kp;
+  b.scale = scale;
+  const long long rows = (long long)B * S;
+  FfBwdMaps fm;
+  QkvBwdMaps qm;
+  int rc = bind_device_of(t[0]);
+  if (rc == 0) rc = make_tma_2d(&fm.g, t[1], false, DM, (uint64_t)rows, DM * 2, 64, TR);
+  if (rc == 0) rc = make_tma_2d(&fm.w2, t[7], false, F, DM, (uint64_t)F * 2, 64, 64);
+  if (rc == 0) rc = make_tma_2d(&fm.w1, t[6], false, DM, F, DM * 2, 64, 64);
+  if (rc == 0) rc = make_tma_2d(&fm.wo, t[4], false, DM, DM, DM * 2, 64, 64);
+  if (rc == 0) rc = make_tma_2d(&qm.dqkv, t[16], false, QKV_W, (uint64_t)rows, QKV_W * 2, 64, TR);
+  if (rc == 0) rc = make_tma_2d(&qm.wqkv, t[3], false, DM, QKV_W, DM * 2, 64, 64);
+  if (rc) return rc;
+  const int grid = train_bwd_grid(B, S);
+  const uint32_t ff_smem = FfBwdLayout().total, attn_smem = AttnBwdLayout().total,
+                 qkv_smem = QkvBwdLayout().total;
+  if ((rc = prepare(bwd_ff_kernel, ff_smem)) || (rc = prepare(bwd_attn_kernel, attn_smem)) ||
+      (rc = prepare(bwd_qkv_kernel, qkv_smem)))
+    return rc;
+  bwd_ff_kernel<<<grid, THREADS, ff_smem, stream>>>(fm, b);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  bwd_attn_kernel<<<std::min(b.ntiles, 2 * sm_count()), CONSUMERS, attn_smem, stream>>>(b);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  bwd_qkv_kernel<<<grid, THREADS, qkv_smem, stream>>>(qm, b);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace layer_train
 
 namespace {
 
@@ -69,13 +427,22 @@ int launch_recompute(void* const* t, int B, int S, int D, int F, int H, int caus
 // Rows per block, so that the wrapper can size the per-block partial sums.
 extern "C" int dsvg_layer_bwd_rows(int is_f32) { return is_f32 ? 16 : 32; }
 
-// `tensors`: the 23 device pointers of BwdParams, in its order.
+// The bfloat16 wgmma form's blocks (rows of its partial sums [blocks][4 D]).
+extern "C" int dsvg_layer_train_bwd_grid(int B, int S) { return layer_train::train_bwd_grid(B, S); }
+
+// `tensors`: the 23 device pointers of BwdParams, in its order. bfloat16 at
+// D = 256, 8 heads (the wgmma form): small_part is [blocks][4 D] and three
+// scratch pointers follow, dx1 (f32), dctx (bf16) and dy (f32), [B*S][D]; its weight
+// products and bias gradients are dsvg_wgrad_hopper's.
 extern "C" int dsvg_layer_train_bwd(void* const* tensors, int B, int S, int D, int F,
                                     int H, int is_f32, int seed, int thr, float kp,
                                     float scale, void* stream) {
   if (is_f32)
     return launch<float, 16>(make_params<float>(tensors, B, S, D, F, H, seed, thr, kp, scale),
                              (cudaStream_t)stream);
+  if (layer_train::hopper_form(D, F, H, S))
+    return layer_train::launch_train_bwd(tensors, B, S, F, seed, thr, kp, scale,
+                                         (cudaStream_t)stream);
   return launch<bf16, 32>(make_params<bf16>(tensors, B, S, D, F, H, seed, thr, kp, scale),
                           (cudaStream_t)stream);
 }

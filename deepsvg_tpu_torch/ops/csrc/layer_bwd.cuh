@@ -16,9 +16,13 @@
 // saved nothing. A launch before this one (layer_fwd.cuh, FWD_WORKSPACE)
 // wrote QKV, the context, x1 and the FF hidden before dropout in f32 into a
 // workspace of this layer alone; the probabilities are recomputed here per
-// (sequence, head) from Q and K, in f32 and bit for bit the forward's, and
-// enter the softmax backward in f32, as the f32 hidden enters the ReLU gate
-// and the dropped hidden: the Pallas kernel's recompute backward.
+// (sequence, head) from Q and K, in f32 and bit for bit that workspace
+// launch's attention, and enter the softmax backward in f32, as the f32
+// hidden enters the ReLU gate and the dropped hidden: the Pallas kernel's
+// recompute backward. In bfloat16 at D = 256 the forward that made `out` is
+// layer_train.cuh's wgmma kernel, whose sums run in another order: what is
+// recomputed here differs from that forward's intermediates in their last
+// bits (the gradients are held to the plain version's limits).
 //
 // The weight gradients are sums over all rows of the batch, and blocks run
 // concurrently, so this code does not form them. It writes the operands of

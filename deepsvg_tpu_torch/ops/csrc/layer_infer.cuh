@@ -150,7 +150,9 @@ __device__ __forceinline__ void load_params(const Params& p, float* prm, int n) 
 }
 
 // ---------------------------------------------------------------- the weight ring
-struct Ring {
+// SB: bytes a stage (the training backward's row products stage 48 KB)
+template <uint32_t SB = STAGE>
+struct RingT {
   unsigned char* buf;
   uint64_t* full;
   uint64_t* empty;
@@ -168,14 +170,14 @@ struct Ring {
   __device__ __forceinline__ unsigned char* produce(uint32_t bytes) {
     mbar_wait(&empty[ps.stage], ps.phase ^ 1);
     mbar_arrive_expect_tx(&full[ps.stage], bytes);
-    return buf + ps.stage * STAGE;
+    return buf + ps.stage * SB;
   }
   __device__ __forceinline__ uint64_t* bar() { return &full[ps.stage]; }
   __device__ __forceinline__ void advance() { ps.advance(n); }
   // consumer: the shared address of the next full stage
   __device__ __forceinline__ uint32_t acquire() {
     mbar_wait(&full[ps.stage], ps.phase);
-    return smem_u32(buf + ps.stage * STAGE);
+    return smem_u32(buf + ps.stage * SB);
   }
   // consumer, after committing the wgmma group that reads the acquired
   // stage: release the stage before it once its group is done
@@ -198,7 +200,7 @@ struct Ring {
 #pragma unroll
     for (int k = 0; k < KSL; ++k) {
       mbar_wait(&full[t.stage], t.phase);
-      st[k] = buf + t.stage * STAGE;
+      st[k] = buf + t.stage * SB;
       t.advance(n);
     }
   }
@@ -210,6 +212,7 @@ struct Ring {
     }
   }
 };
+using Ring = RingT<>;
 
 __device__ __forceinline__ void init_ring_bars(uint64_t* bars, int n) {
   for (int i = 0; i < n; ++i) {
@@ -364,12 +367,19 @@ __device__ __forceinline__ float quad_sum(float v) {
 // 8 j + [0, 8). MAXT: the most 16-key steps the rows' keys span (4 in the
 // short form, 16 in the long): every score stays in registers, so the
 // softmax is exact and two-pass, each probability 2^(s - max) / sum rounded
-// to bf16 before P V, as the plain version's.
-template <int MAXT>
+// to bf16 before P V, as the plain version's. `drop(p, rr, j)` gives the
+// probability of the thread's row rr (tile row q0 + lane / 4 + 8 rr) at key
+// row j as P V takes it (the training forward's dropout and save,
+// layer_train.cuh); K2 takes it as it is.
+struct NoDrop {
+  __device__ __forceinline__ float operator()(float p, int, int) const { return p; }
+};
+
+template <int MAXT, class Drop = NoDrop>
 __device__ __forceinline__ void attend_rows(const uint32_t (&qf)[2][4], uint32_t ks, uint32_t vs,
                                             int krows, int q0, int nrows, int S, int causal,
                                             const float* mask, float scale, int lane,
-                                            float (&o)[4][4]) {
+                                            float (&o)[4][4], const Drop& drop = Drop()) {
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int j = 0; j < 4; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -442,8 +452,8 @@ __device__ __forceinline__ void attend_rows(const uint32_t (&qf)[2][4], uint32_t
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const float* sv = s[2 * u + (q >> 1)];
-        const int rr = q & 1;
-        a[q] = pack_bf16(sv[2 * rr] * inv[rr], sv[2 * rr + 1] * inv[rr]);
+        const int rr = q & 1, j = kstart + 16 * u + 8 * (q >> 1) + 2 * t4;
+        a[q] = pack_bf16(drop(sv[2 * rr] * inv[rr], rr, j), drop(sv[2 * rr + 1] * inv[rr], rr, j + 1));
       }
       const int kr = min(kstart + 16 * u + (lane & 7) + ((lane >> 3) & 1) * 8, krows - 1);
 #pragma unroll

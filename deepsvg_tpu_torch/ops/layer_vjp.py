@@ -14,6 +14,19 @@ and backward of an E1 layer at B=128 (1,024 sequences of 32) are about 35 +
 106 GFLOP, 0.14 ms at 989 TFLOP/s bf16, against 0.02 ms for the bytes of x,
 out, g, dx, the weights and their gradients.
 
+Two designs. bfloat16 at the flagship's widths (D = 256, 8 heads, F a
+multiple of 64 up to 1024, S <= 32) runs the Hopper form of
+``csrc/layer_train.cuh``: K2's persistent ``wgmma`` blocks (a TMA producer
+warp streaming the weights through an ``mbarrier`` ring to two consumer
+warpgroups on 128-row tiles), so the weights come from L2 once per 128 rows;
+its forward in both modes, and the saved mode's backward as three row-local
+launches (FF, LN2 and out projection; attention on ``mma.sync``; QKV and
+LN1) and a ``wgmma`` launch for the weight products and bias gradients. The
+float32 form, narrower bfloat16 widths (counted apart:
+``fused_layer_train.narrow_launches``, ``.narrow_backward_launches``) and
+the recompute mode's backward run the older ``wmma`` form below
+(``csrc/layer_fwd.cuh``, ``csrc/layer_bwd.cuh``), which K7 shares.
+
 - *Modes.* ``save_residuals=True`` (the saved mode, what the model runs by
   default through :data:`SAVE_RESIDUALS_DEFAULT`): the forward saves to
   device memory what the backward would otherwise recompute: QKV, the
@@ -21,11 +34,14 @@ out, g, dx, the weights and their gradients.
   attention block (float32) and the FF hidden before dropout, about 5,000
   bytes a row in bfloat16 at the flagship's widths. ``save_residuals=False``
   (the recompute mode, the op's default as in the JAX package): the forward
-  writes ``out`` alone, to the bit the saved mode's, and keeps nothing but
-  its inputs; the backward first runs the forward tile again into a
-  workspace of this layer alone (QKV, the context, x1 and the FF hidden in
-  float32; no probabilities), freed when the backward returns, and
-  recomputes each (sequence, head)'s probabilities in float32 from Q and K.
+  writes ``out`` alone, to the bit the saved mode's (both run the same
+  kernel), and keeps nothing but its inputs; the backward first runs the
+  older form's forward tile again into a workspace of this layer alone
+  (QKV, the context, x1 and the FF hidden in float32; no probabilities),
+  freed when the backward returns, and recomputes each (sequence, head)'s
+  probabilities in float32 from Q and K. In bfloat16 that tile sums in
+  another order than the ``wgmma`` forward, so what it recomputes differs
+  from that forward's intermediates in their last bits.
   The probabilities enter the softmax backward, and the hidden the ReLU gate
   and the dropped hidden, in float32, as in the Pallas recompute backward;
   the saved mode reads both rounded to the activation type, so in bfloat16
@@ -33,15 +49,17 @@ out, g, dx, the weights and their gradients.
 - *Dropout masks* are a hash of (seed, site, row, column), see
   ``ops/dropout.py``: regenerated in the backward, independent of tiling,
   identical in the plain version.
-- *Backward* is three launches. The first (``layer_bwd.cu``) does everything
-  local to a row or a sequence and needs no reduction across blocks. The
-  weight gradients are sums over every row of the batch, which the Pallas
-  kernel accumulated over its sequential grid; CUDA blocks run concurrently,
-  so the first launch writes the rounded operands of the four products and
-  per-block column sums, the second (``wgrad.cu``) multiplies them split over
-  the rows into per-split partial sums, and the third adds the partial sums
-  in a fixed order. There are no atomics anywhere in K4: the gradients are
-  bit-identical from run to run.
+- *Backward.* The row-local launches (``layer_bwd.cu``: one in the
+  ``wmma`` form, three in the Hopper form) do everything local to a row or a
+  sequence and need no reduction across blocks. The weight gradients are
+  sums over every row of the batch, which the Pallas kernel accumulated over
+  its sequential grid; CUDA blocks run concurrently, so the row-local
+  launches write the rounded operands of the four products and per-block
+  column sums, a ``wgrad.cu`` launch multiplies them split over the rows
+  into per-split partial sums (in the Hopper form with the bias gradients,
+  the column sums of the output-side operands), and a reduction adds the
+  partial sums in a fixed order. There are no atomics anywhere in K4: the
+  gradients are bit-identical from run to run.
 - Roundings follow the Pallas body: residual stream, LayerNorm and softmax in
   float32; every product takes activation-type operands with float32
   accumulation; ``df``, ``dhpre``, ``da``, ``dctx``, ``ds`` and ``dqkv`` are
@@ -166,9 +184,22 @@ _WGRAD_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.POINTER(ctype
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
 _REDUCE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_void_p]
+_WGRAD_HOPPER_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] * 2
+                          + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p] * 2)
 F32_MAX_SEQ = 16
 WGRAD_ROWS_PER_SPLIT = 1024
 WGRAD_MAX_SPLITS = 16
+
+
+def _hopper_form(x, n_heads: int, f: int) -> bool:
+    """Whether K4's bfloat16 short form runs its wgmma kernels
+    (``csrc/layer_train.cuh``) on ``x`` with these widths, by the rule the C
+    entry points dispatch by; other bfloat16 widths run the older wmma
+    kernels, counted apart."""
+    b, s, d = x.shape
+    rule = _build.kernel_function("dsvg_layer_train_hopper", [ctypes.c_int] * 4)
+    return x.dtype == torch.bfloat16 and s <= MAX_SEQ and bool(rule(d, f, n_heads, s))
 
 
 def _round_up(n: int, m: int) -> int:
@@ -229,24 +260,28 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _saved_tensors(x, n_heads, f):
+def _saved_tensors(x, n_heads, f, zero_probs):
     """What the forward keeps for the backward: QKV, the probabilities before
     dropout, the context (16-row padded, for ``wgrad``), the float32
-    residual after the attention block and the FF hidden before dropout."""
+    residual after the attention block and the FF hidden before dropout.
+    ``zero_probs`` (the wgmma form, causal): the probabilities start zero;
+    that forward writes each row's keys up to the last row its warp attends
+    from, and its backward reads every key of the sequence."""
     b, s, d = x.shape
     dev, dt = x.device, x.dtype
     rows = b * s
+    probs = torch.zeros if zero_probs else torch.empty
     return (torch.empty((rows, 3 * d), dtype=dt, device=dev),
-            torch.empty((b, n_heads, s, s), dtype=dt, device=dev),
+            probs((b, n_heads, s, s), dtype=dt, device=dev),
             _padded_rows(rows, d, dt, dev),
             torch.empty((rows, d), dtype=torch.float32, device=dev),
             torch.empty((rows, f), dtype=dt, device=dev))
 
 
-def _backward_outputs(x, f, small_rows):
+def _backward_outputs(x, f, small_rows, small_width):
     """The first backward launches' outputs: dx, dseq_bias, the rounded
     operands of the four weight products (16-row padded) and the per-block
-    column sums."""
+    column sums ``[small_rows, small_width]``."""
     b, s, d = x.shape
     dev, dt = x.device, x.dtype
     rows = b * s
@@ -255,7 +290,7 @@ def _backward_outputs(x, f, small_rows):
     dhpre_o, hd_o = (_padded_rows(rows, f, dt, dev) for _ in range(2))
     return (torch.empty_like(x), torch.empty((b, d), dtype=torch.float32, device=dev),
             xn1_o, dqkv_o, da_o, xn2_o, dhpre_o, hd_o, df_o,
-            torch.empty((small_rows, 9 * d + f), dtype=torch.float32, device=dev))
+            torch.empty((small_rows, small_width), dtype=torch.float32, device=dev))
 
 
 def weight_products(problems, is_f32, stream):
@@ -281,6 +316,47 @@ def weight_products(problems, is_f32, stream):
         "wgrad")
     dws = reduce_partials(part).split(sizes)
     return [w.view(a.shape[1], bb.shape[1]) for w, (a, bb) in zip(dws, problems)]
+
+
+def weight_products_hopper(problems, rows: int, stream):
+    """``A^T @ B`` and the column sums of ``A`` in float32 for each bfloat16
+    ``(A [>= rows, M], B [>= rows, N])`` of ``problems`` (M a multiple of 128,
+    N of 256): one wgmma launch split over the rows into partial sums, and
+    their fixed-order reduction. Returns the ``[M, N]`` products and the
+    ``[M]`` sums, in order."""
+    dev = problems[0][0].device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = sum((a.shape[1] // 128) * (bb.shape[1] // 256) for a, bb in problems)
+    # about one work item (a tile of a product, a split of the rows) per SM
+    per_split = _round_up(-(-rows // max(1, sms // tiles)), 64)
+    splits = -(-rows // per_split)
+    sizes = [a.shape[1] * bb.shape[1] for a, bb in problems]
+    sums = [a.shape[1] for a, _ in problems]
+    part = torch.empty((splits, sum(sizes) + sum(sums)), dtype=torch.float32, device=dev)
+    arr = lambda ctype, vals: (ctype * len(vals))(*vals)  # noqa: E731
+    fn = _build.kernel_function("dsvg_wgrad_hopper", _WGRAD_HOPPER_ARGTYPES)
+    _build.check_launch(
+        fn(arr(ctypes.c_void_p, [a.data_ptr() for a, _ in problems]),
+           arr(ctypes.c_void_p, [bb.data_ptr() for _, bb in problems]),
+           arr(ctypes.c_int, [a.shape[1] for a, _ in problems]),
+           arr(ctypes.c_int, [bb.shape[1] for _, bb in problems]),
+           len(problems), rows, per_split, splits, part.data_ptr(), stream),
+        "wgrad_hopper")
+    out = reduce_partials(part).split(sizes + sums)
+    dws = [w.view(a.shape[1], bb.shape[1]) for w, (a, bb) in zip(out, problems)]
+    return dws, list(out[len(problems):])
+
+
+def _weight_grads_hopper(ctx_s, outs, d, rows, stream):
+    """The wgmma form's launches after its row-local backward: the four
+    weight products with the bias gradients, and the LayerNorm gradients'
+    per-block partial sums reduced. Returns the ten weight gradients in the
+    fused layer's argument order."""
+    _, _, xn1_o, dqkv_o, da_o, xn2_o, dhpre_o, hd_o, df_o, small_part = outs
+    (dwqkv, dwo, dw1, dw2), (dbqkv, dbo, db1, db2) = weight_products_hopper(
+        ((dqkv_o, xn1_o), (da_o, ctx_s), (dhpre_o, xn2_o), (df_o, hd_o)), rows, stream)
+    dln1, dln2 = reduce_partials(small_part).split([2 * d, 2 * d])
+    return dln1.view(2, d), dwqkv, dbqkv, dwo, dbo, dln2.view(2, d), dw1, db1, dw2, db2
 
 
 def _weight_grads(ctx_s, outs, d, f, is_f32, stream):
@@ -316,16 +392,18 @@ class _FusedLayerTrain(torch.autograd.Function):
             raise ValueError(f"the short float32 training layer kernel takes S <= "
                              f"{F32_MAX_SEQ} (its backward tiles hold {F32_MAX_SEQ} rows), "
                              f"got S={s}")
+        hopper = not long_form and _hopper_form(x, n_heads, f)
         out = torch.empty_like(x)
         if save:
-            saved = _saved_tensors(x, n_heads, f)
+            saved = _saved_tensors(x, n_heads, f, causal and hopper)
             ptrs = [t.data_ptr() for t in saved]
         else:
-            # only the long form's QKV, passed between its two launches and
-            # freed on return
+            # only the long form's QKV, passed between its two launches, or
+            # the wgmma form's x1; freed on return
             saved = ()
             qkv = (torch.empty((b * s, 3 * d), dtype=dt, device=dev) if long_form else None)
-            ptrs = [_ptr(qkv), None, None, None, None]
+            x1 = (torch.empty((b * s, d), dtype=torch.float32, device=dev) if hopper else None)
+            ptrs = [_ptr(qkv), None, None, _ptr(x1), None]
         thr = drop_threshold(rate) if rate > 0.0 else 0
         kp = keep_scale(rate) if rate > 0.0 else 1.0
         counter = fused_layer_train_long if long_form else fused_layer_train
@@ -338,7 +416,9 @@ class _FusedLayerTrain(torch.autograd.Function):
                     int(dt == torch.float32), int(seed), thr, kp, HEAD_DIM ** -0.5,
                     torch.cuda.current_stream(dev).cuda_stream)
             _build.check_launch(rc, name)
-            if save:
+            if not long_form and dt == torch.bfloat16 and not hopper:
+                counter.narrow_launches += 1
+            elif save:
                 counter.launches += 1
             else:
                 counter.recompute_launches += 1
@@ -347,8 +427,8 @@ class _FusedLayerTrain(torch.autograd.Function):
         else:
             ctx.save_for_backward(x, *used, mask, bias)
         ctx.save_residuals = save
-        ctx.meta = (n_heads, int(seed), thr, kp, int(causal), long_form, seq_bias is not None,
-                    None if seq_bias is None else seq_bias.dtype)
+        ctx.meta = (n_heads, int(seed), thr, kp, int(causal), long_form, hopper,
+                    seq_bias is not None, None if seq_bias is None else seq_bias.dtype)
         return out
 
     @staticmethod
@@ -365,7 +445,7 @@ class _FusedLayerTrain(torch.autograd.Function):
             qkv_s, ctx_s, x1_s, h32 = _workspace(x, w1.shape[0])
             p_s = h_s = None
             extra = (h32, bias, bqkv, bo, b1, b2, mask)
-        n_heads, seed, thr, kp, causal, long_form, has_bias, bias_dtype = ctx.meta
+        n_heads, seed, thr, kp, causal, long_form, hopper, has_bias, bias_dtype = ctx.meta
         b, s, d = x.shape
         f = w1.shape[0]
         rows = b * s
@@ -379,7 +459,7 @@ class _FusedLayerTrain(torch.autograd.Function):
             # third launch; dctx and dx1 pass from the first launch to the
             # second and third
             tile = _build.kernel_function("dsvg_layer_long_bwd_rows", [])()
-            outs = _backward_outputs(x, f, 2 * -(-rows // tile))
+            outs = _backward_outputs(x, f, 2 * -(-rows // tile), 9 * d + f)
             scratch = (torch.empty((rows, d), dtype=x.dtype, device=x.device),
                        torch.empty((rows, d), dtype=torch.float32, device=x.device))
             ptrs = [_ptr(t) for t in tensors + outs + scratch + extra]
@@ -387,10 +467,25 @@ class _FusedLayerTrain(torch.autograd.Function):
             rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, f, n_heads, causal, is_f32,
                     seed, thr, kp, HEAD_DIM ** -0.5, stream)
             _build.check_launch(rc, f"layer_long_train_bwd{mode}")
+        elif save and hopper:
+            # the wgmma form: three row-local launches, one row of LayerNorm
+            # partial sums per persistent block; dx1, dctx and dxn1 pass
+            # through scratch tensors freed on return
+            grid = _build.kernel_function("dsvg_layer_train_bwd_grid",
+                                          [ctypes.c_int, ctypes.c_int])(b, s)
+            outs = _backward_outputs(x, f, grid, 4 * d)
+            scratch = (torch.empty((rows, d), dtype=torch.float32, device=x.device),
+                       torch.empty((rows, d), dtype=x.dtype, device=x.device),
+                       torch.empty((rows, d), dtype=torch.float32, device=x.device))
+            ptrs = [_ptr(t) for t in tensors + outs + scratch]
+            fn = _build.kernel_function("dsvg_layer_train_bwd", _BWD_ARGTYPES)
+            _build.check_launch(fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, f, n_heads,
+                                   is_f32, seed, thr, kp, HEAD_DIM ** -0.5, stream),
+                                "layer_train_bwd")
         else:
             # one row of column sums per block of the first launch
             block_rows = _build.kernel_function("dsvg_layer_bwd_rows", [ctypes.c_int])(is_f32)
-            outs = _backward_outputs(x, f, -(-b // (block_rows // s)))
+            outs = _backward_outputs(x, f, -(-b // (block_rows // s)), 9 * d + f)
             ptrs = [_ptr(t) for t in tensors + outs + extra]
             if save:
                 fn = _build.kernel_function("dsvg_layer_train_bwd", _BWD_ARGTYPES)
@@ -403,11 +498,16 @@ class _FusedLayerTrain(torch.autograd.Function):
                         is_f32, seed, thr, kp, HEAD_DIM ** -0.5, stream)
             _build.check_launch(rc, f"layer_train_bwd{mode}")
         counter = fused_layer_train_long if long_form else fused_layer_train
-        if save:
+        if save and not long_form and not is_f32 and not hopper:
+            counter.narrow_backward_launches += 1
+        elif save:
             counter.backward_launches += 1
         else:
             counter.recompute_backward_launches += 1
-        dws = _weight_grads(ctx_s, outs, d, f, is_f32, stream)
+        if save and hopper:
+            dws = _weight_grads_hopper(ctx_s, outs, d, rows, stream)
+        else:
+            dws = _weight_grads(ctx_s, outs, d, f, is_f32, stream)
         dx, dbias = outs[0], outs[1]
         return (dx, dbias.to(bias_dtype) if has_bias else None, *dws,
                 None, None, None, None, None, None, None, None)
@@ -480,9 +580,14 @@ def fused_layer_train(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
 
 # the short form's launches, counted apart by mode
 fused_layer_train.launches = 0                      # saved mode: forward launches
-fused_layer_train.backward_launches = 0             # its backward passes (four launches)
+fused_layer_train.backward_launches = 0             # its backward passes (bf16 D=256: five
+#                                                     launches; float32: four)
 fused_layer_train.recompute_launches = 0            # recompute mode: forward launches
 fused_layer_train.recompute_backward_launches = 0   # its backward passes (five launches)
+# bfloat16 at widths the wgmma kernels do not take (D < 256), on the older
+# wmma kernels: forward launches of either mode, saved-mode backward passes
+fused_layer_train.narrow_launches = 0
+fused_layer_train.narrow_backward_launches = 0
 
 
 def fused_layer_train_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,

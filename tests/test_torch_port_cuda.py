@@ -194,6 +194,8 @@ TRAIN_NAMES = ("x", "seq_bias", "ln1", "wqkv", "bqkv", "wo", "bo", "ln2", "w1", 
 @pytest.mark.parametrize("dtype,s,b,causal,rate", [
     (BF16, 32, 9, False, 0.0), (BF16, 32, 9, False, 0.1), (BF16, 31, 7, False, 0.1),
     (BF16, 8, 21, False, 0.1), (BF16, 8, 21, False, 0.0), (BF16, 31, 7, True, 0.0),
+    (BF16, 31, 7, False, 0.0), (BF16, 31, 64, True, 0.1), (BF16, 17, 9, False, 0.0),
+    (BF16, 17, 9, False, 0.1), (BF16, 32, 600, False, 0.1), (BF16, 8, 300, False, 0.1),
     (torch.float32, 8, 21, False, 0.0), (torch.float32, 8, 21, False, 0.1),
     (torch.float32, 16, 5, True, 0.1)])
 def test_layer_train_kernel_matches_plain(cuda, dtype, s, b, causal, rate):
@@ -207,9 +209,51 @@ def test_layer_train_kernel_matches_plain(cuda, dtype, s, b, causal, rate):
     pre-activations next to zero fall on the other side of the ReLU in one
     version, which moves dln2, dw1 and db1 most where the rows are few. So
     each gradient is held twice: to the plain version as it is, and, more
-    tightly, to the plain version made to pass the kernel's own FF units."""
+    tightly, to the plain version made to pass the kernel's own FF units.
+    bfloat16 runs the wgmma form (E1's S=32, D1's S=31, D2's S=8, S=17,
+    causal; B=600 at S=32 and B=300 at S=8 give more tiles than the card
+    has SMs, so the persistent blocks loop)."""
     _hold_layer_train(cuda, np.random.default_rng(s + b), dtype, s, b, causal, rate,
                       layer_vjp.fused_layer_train, layer_vjp.fused_layer_train_long)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("save_residuals", [True, False], ids=["saved", "recompute"])
+def test_layer_train_narrow_width_takes_the_wmma_form(cuda, rate, save_residuals):
+    """bfloat16 below the wgmma form's width (D=128, 4 heads, FF 256) runs
+    the older wmma kernels, counted apart; the same limits against the plain
+    version."""
+    d, heads, f = 128, 4, 256
+    rng = np.random.default_rng(128 + int(10 * rate))
+    ln = lambda: torch.stack([1 + _bf16(rng, cuda, d, scale=0.1),  # noqa: E731
+                              _bf16(rng, cuda, d, scale=0.1)]).float()
+    masters = [w.float().requires_grad_() for w in (
+        ln(), _bf16(rng, cuda, 3 * d, d, scale=d ** -0.5), _bf16(rng, cuda, 3 * d, scale=0.1),
+        _bf16(rng, cuda, d, d, scale=d ** -0.5), _bf16(rng, cuda, d, scale=0.1), ln(),
+        _bf16(rng, cuda, f, d, scale=d ** -0.5), _bf16(rng, cuda, f, scale=0.1),
+        _bf16(rng, cuda, d, f, scale=f ** -0.5), _bf16(rng, cuda, d, scale=0.1))]
+    b, s = 9, 31
+    x = _bf16(rng, cuda, b, s, d).requires_grad_()
+    bias = _bf16(rng, cuda, b, d).requires_grad_()
+    mask = _key_mask(rng, cuda, b, s)
+    g = _bf16(rng, cuda, b, s, d)
+    leaves = [x, bias, *masters]
+    call = (x, bias, *masters, mask, 99, heads, False, rate, BF16)
+    fn = layer_vjp.fused_layer_train
+    counts = lambda: (fn.narrow_launches, fn.narrow_backward_launches, fn.launches,  # noqa: E731
+                      fn.backward_launches, fn.recompute_launches)
+    before = counts()
+    out = fn(*call, save_residuals=save_residuals)
+    grads = torch.autograd.grad(out, leaves, g)
+    moved = tuple(a - c for a, c in zip(counts(), before))
+    assert moved == ((1, 1, 0, 0, 0) if save_residuals else (1, 0, 0, 0, 0))
+    ref = layer_vjp.plain_layer_train(*call)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+    print(f"K4 D={d} rate={rate}: fwd rel rms {_rel_rms(out, ref):.3g}")
+    assert torch.isfinite(out).all() and _rel_rms(out, ref) <= 1e-3
+    for name, got, want in zip(TRAIN_NAMES, grads, ref_grads):
+        print(f"  d{name}: rel rms {_rel_rms(got, want):.3g}")
+        assert got.shape == want.shape and _rel_rms(got, want) <= GRAD_RMS_LIMITS[BF16][0], name
 
 
 def _hold_layer_train(dev, rng, dtype, s, b, causal, rate, counted, untouched,
@@ -266,7 +310,8 @@ def _hold_layer_train(dev, rng, dtype, s, b, causal, rate, counted, untouched,
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype,s,b,causal,long_form", [
-    (BF16, 8, 21, False, False), (BF16, 32, 9, False, False),
+    (BF16, 8, 21, False, False), (BF16, 32, 9, False, False), (BF16, 31, 7, True, False),
+    (BF16, 17, 9, False, False),
     (torch.float32, 8, 21, False, False), (torch.float32, 16, 5, True, False),
     (BF16, 33, 3, False, True), (BF16, 242, 3, False, True), (BF16, 241, 3, True, True),
     (torch.float32, 32, 3, False, True), (torch.float32, 242, 3, False, True)])
@@ -422,8 +467,12 @@ def test_stack_train_kernel_matches_plain(cuda, dtype, b, causal, rate, with_bia
     twelve gradients by their relative RMS error, the gradients against the
     plain version as it is and with each layer's FF units aligned to the
     kernel's. Then against the chain of four K4 calls with the per-layer
-    seeds, which computes the same thing on the same rows per block: equal to
-    the bit, and the same again on a second run (no atomics)."""
+    seeds, which computes the same thing: in float32, where K4 runs K7's
+    block code on the same rows per block, equal to the bit; in bfloat16,
+    where K4 runs its wgmma form and sums in another order, within the
+    limits each meets against the plain version (a layer from K7's own input
+    to it, the whole stack, the gradients). And the same again on a second
+    run (no atomics)."""
     from deepsvg_tpu_torch.ops import stack_vjp
     from deepsvg_tpu_torch.ops.dropout import stack_layer_seed
     n_layers, s, seed = 4, 8, 4321
@@ -470,9 +519,23 @@ def test_stack_train_kernel_matches_plain(cuda, dtype, b, causal, rate, with_bia
                                         stack_layer_seed(seed, layer), H, causal, rate, BF16,
                                         save_residuals=True)
     chain_grads = torch.autograd.grad(y, leaves, g)
-    assert torch.equal(out, y)
-    for name, got, want in zip(TRAIN_NAMES, grads, chain_grads):
-        assert torch.equal(got, want), (name, (got - want).abs().max().item())
+    if dtype == torch.float32:
+        assert torch.equal(out, y)
+        for name, got, want in zip(TRAIN_NAMES, grads, chain_grads):
+            assert torch.equal(got, want), (name, (got - want).abs().max().item())
+    else:
+        with torch.no_grad():
+            for layer, (x_l, y_l) in enumerate(zip(inputs, inputs[1:] + [out])):
+                k4_l = layer_vjp.fused_layer_train(
+                    x_l, bias[layer], *[w[layer] for w in masters], mask,
+                    stack_layer_seed(seed, layer), H, causal, rate, BF16, save_residuals=True)
+                print(f"K7 against K4, layer {layer}: rel rms {_rel_rms(y_l, k4_l):.3g}")
+                assert _rel_rms(y_l, k4_l) <= 1e-3
+        print(f"K7 against the K4 chain: rel rms {_rel_rms(out, y):.3g}")
+        assert _rel_rms(out, y) <= 5e-3
+        for name, got, want in zip(TRAIN_NAMES, grads, chain_grads):
+            print(f"  d{name}: rel rms against the K4 chain {_rel_rms(got, want):.3g}")
+            assert _rel_rms(got, want) <= 2 * grad_lim, name
     again = torch.autograd.grad(stack_vjp.fused_stack_train(*call), leaves, g)
     assert all(torch.equal(a, c) for a, c in zip(grads, again))
 
