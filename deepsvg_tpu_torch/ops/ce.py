@@ -65,6 +65,7 @@ import ctypes
 import torch
 
 from . import _build
+from .layer import to_tf32
 from .layer_vjp import reduce_partials
 
 
@@ -128,13 +129,6 @@ def _round_up(n: int, m: int) -> int:
 def chunk_columns(dtype) -> int:
     """Columns of the kernels' head chunk: 256 bytes of a row of D."""
     return 256 // dtype.itemsize
-
-
-def to_tf32(t):
-    """Float32 ``t`` rounded to TF32 (10 mantissa bits), to nearest with ties
-    away from zero, as ``cvt.rna.tf32.f32`` rounds: the operands of the
-    float32 form's TF32 products."""
-    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
 def pack_args_head(wa, ba, n_args: int, dtype):

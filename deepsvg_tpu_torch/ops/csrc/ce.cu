@@ -151,12 +151,6 @@ __device__ __forceinline__ void stage_dlg_bf16(uint32_t dst, const float (&v)[32
   }
 }
 
-__device__ __forceinline__ float to_tf32(float v) {
-  uint32_t u;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(v));
-  return __uint_as_float(u);
-}
-
 // a consumer thread's place: warpgroup h, warp w in it, the rows r0 and
 // r0 + 8 it holds in a wgmma accumulator, and its column pair 2 * t4 in
 // every group of 8 columns

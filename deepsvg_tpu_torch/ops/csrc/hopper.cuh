@@ -329,6 +329,90 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16], uint64_t a, 
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D[64 x 128] (+)= A[64 x 8] B[128 x 8]^T, float operands read as TF32
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t a, uint64_t b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_R8(0), HOPPER_R8(8), HOPPER_R8(16), HOPPER_R8(24), HOPPER_R8(32), HOPPER_R8(40),
+        HOPPER_R8(48), HOPPER_R8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x 96] (+)= A[64 x 8] B[96 x 8]^T, float operands read as TF32
+__device__ __forceinline__ void wgmma_m64n96k8_tf32(float (&d)[48], uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_R8(0), HOPPER_R8(8), HOPPER_R8(16), HOPPER_R8(24), HOPPER_R8(32), HOPPER_R8(40)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x 16] (+)= A[64 x 8] B[16 x 8]^T, float operands read as TF32
+__device__ __forceinline__ void wgmma_m64n16k8_tf32(float (&d)[8], uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_R8(0)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16]^T, bf16 operands K-major
+__device__ __forceinline__ void wgmma_m64n16k16_bf16(float (&d)[8], uint64_t a, uint64_t b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_R8(0)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[16 x 8] += A[16 x 8] B[8 x 8], float operands read as TF32 (m16n8k8): a
+// lane holds A's rows g and g + 8 (g = lane / 4) at columns t4 and t4 + 4
+// (t4 = lane % 4) as {(g, t4), (g + 8, t4), (g, t4 + 4), (g + 8, t4 + 4)},
+// B's column g at rows t4 and t4 + 4, D as mma_m16n8k16_bf16's
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to TF32 (10 mantissa bits), to nearest with ties away from zero
+__device__ __forceinline__ float to_tf32(float v) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(v));
+  return __uint_as_float(u);
+}
+
 #undef HOPPER_R8
 
 // ---- host: the card's SM count (a persistent grid's size)

@@ -23,14 +23,18 @@ Backward: kernel K6 (``csrc/embedding_bwd.cu``) replaces the Pallas kernel
 ``fused_embedding_train``), which formed the table gradients as transposed
 one-hot matmuls because scatters are slow on the TPU. Here they are what they
 are, a scatter-add of the ``dy`` rows, bound by reading ``dy`` once (16.8 MB
-at B=128, 5 us). The rows that most tokens hit (the 7 command rows and each
-slot's PAD row) are summed per block in shared memory first, without
-atomics; the remaining argument rows and the group rows go to the tables
-with float32 ``atomicAdd``. So those sums change in their last bits from run
-to run (K4 and K5 have no atomics). The position rows, one per position of
-the sequence, are summed in blocks of their own in the same launch, in a
-fixed order: they no longer sit in the shared table, which held S of them
-and did not fit at S >= 210 (Sketchformer's S = 242 and 241). Its plain
+at B=128, 5 us), and summed with no atomics, in an order fixed by the inputs:
+the tables are the same to the bit from run to run, as the Pallas kernel's
+sequential grid gives them. The rows that most tokens hit (the 7 command rows
+and each slot's PAD row) are summed per block of 128 tokens in shared memory,
+each block's sums written to a slice of a scratch tensor and the slices added
+in block order. The other argument rows and the group rows are a segment sum
+over the (token, row) entries ordered by row: a small kernel writes each
+entry's row as its key, a stable sort on the device (``torch.sort``) orders
+them, and warps sum chunks of 32 sorted entries, a row that spans chunks
+joined in chunk order. The position rows, one per position of the sequence,
+are summed in blocks of their own in a fixed order (they do not sit in the
+shared table, which would not fit at S >= 210 with D = 256). Its plain
 version is autograd through :func:`embedding_reference`.
 """
 from __future__ import annotations
@@ -141,15 +145,20 @@ fused_embedding.launches = 0            # every launch
 fused_embedding.float32_launches = 0    # those of its float32 form
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 8
                  + [ctypes.c_void_p])
+_KEYS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p])
+BWD_TOKENS_PER_BLOCK = 128   # tokens a hot block sums (csrc/embedding_bwd.cu)
+BWD_COLD_CHUNK = 32          # sorted entries a warp sums (csrc/embedding_bwd.cu)
 
 
 def embedding_backward(commands, args, groups, dy, n_cmd: int, vocab: int, n_group: int,
                        use_group: bool):
     """Kernel K6: ``dy [B, S, D]`` (bfloat16 or float32, CUDA; D a multiple
     of 8, any S) -> float32 ``dcmd [n_cmd, D]``, ``darg [n_args*vocab, D]``,
-    ``dgroup [n_group, D]``, ``dpos [S, D]``."""
+    ``dgroup [n_group, D]``, ``dpos [S, D]``, the same to the bit from run
+    to run."""
     dev = dy.device
     b, s, d = dy.shape
     n_args = args.shape[-1]
@@ -167,12 +176,26 @@ def embedding_backward(commands, args, groups, dy, n_cmd: int, vocab: int, n_gro
     zeros = lambda n: torch.zeros((n, d), dtype=torch.float32, device=dev)  # noqa: E731
     dcmd, darg, dgroup, dpos = zeros(n_cmd), zeros(n_args * vocab), zeros(max(n_group, 1)), zeros(s)
     if dy.numel():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rows, n_group_used = b * s, n_group if use_group else 0
+        entries = rows * (n_args + int(use_group))
+        # the cold entries' rows as keys, then their stable order by row
+        keys = torch.empty(entries, dtype=torch.int32, device=dev)
+        fn = _build.kernel_function("dsvg_embedding_bwd_keys", _KEYS_ARGTYPES)
+        _build.check_launch(fn(args32.data_ptr(), groups32.data_ptr(), keys.data_ptr(), rows,
+                               n_args, vocab, n_group_used, int(use_group), stream),
+                            "embedding_bwd_keys")
+        keys, order = torch.sort(keys, stable=True)
+        part = torch.empty((-(-rows // BWD_TOKENS_PER_BLOCK), n_cmd + n_args, d),
+                           dtype=torch.float32, device=dev)
+        head = torch.empty((2, -(-entries // BWD_COLD_CHUNK), d), dtype=torch.float32,
+                           device=dev)
         fn = _build.kernel_function("dsvg_embedding_bwd", _BWD_ARGTYPES)
-        rc = fn(cmd32.data_ptr(), args32.data_ptr(), groups32.data_ptr(), dy.data_ptr(),
-                dcmd.data_ptr(), darg.data_ptr(), dgroup.data_ptr(), dpos.data_ptr(),
-                b * s, s, d, n_args, vocab, n_cmd, n_group if use_group else 0,
-                int(use_group), int(dy.dtype == torch.float32),
-                torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(cmd32.data_ptr(), args32.data_ptr(), dy.data_ptr(), dcmd.data_ptr(),
+                darg.data_ptr(), dgroup.data_ptr(), dpos.data_ptr(), keys.data_ptr(),
+                order.data_ptr(), part.data_ptr(), head[0].data_ptr(), head[1].data_ptr(),
+                rows, s, d, n_args, vocab, n_cmd, n_group_used, int(use_group),
+                int(dy.dtype == torch.float32), stream)
         _build.check_launch(rc, "embedding_bwd")
         embedding_backward.launches += 1
     return dcmd, darg, dgroup[:n_group], dpos

@@ -14,22 +14,26 @@ Kernel note (``csrc/head.cu``). Replaces the Pallas kernel
 ``deepsvg_tpu/ops/head.py:_head_kernel`` (wrapper ``fused_head_argmax``).
 At the flagship's N=1024 (R = 1024*8*31 = 253,952 rows) the heads are
 2*R*256*2834 = 368 GFLOP, 0.37 ms at 989 TFLOP/s bf16; the inputs are 130
-MB (0.04 ms). The bound is the tensor cores. A block keeps 128 rows of
-``x`` in shared memory, stages the head in 64-column chunks through shared
-memory shared by its 8 warps, multiplies with ``nvcuda::wmma`` (bf16, f32
-accumulate), adds the bias in f32 and folds each chunk into a running
-(max, first index) per row and slot. The autoregressive decode calls it with
-R = N rows a step (8 row tiles at N=1024): when the row tiles are fewer than
-the card's SMs, each slot goes to a block of its own, which computes it as
-the one block would (the ids are the same).
+MB (0.04 ms). The bound is the tensor cores. The kernel is the argument
+cross-entropy's forward (``csrc/ce.cu``, K5) with a running (max, first
+index) in place of the log-sum-exp: persistent blocks of a TMA producer warp
+and two ``wgmma`` consumer warpgroups; a work item is (128 or 256 rows,
+slot), a block's items run tile by tile so that the rows' ``x`` is loaded
+into shared memory once for all 12 slots; the head streams through an
+``mbarrier`` ring in chunks of 128 columns (a slot's last 16 columns as a
+narrow chunk), the logits stay in the accumulators with the bias added from
+the stage, and the running (max, index) of a row is merged across the quad
+by shuffles at the slot's end. The autoregressive decode calls it with R = N
+rows a step (8 row tiles x 12 slots at N=1024).
 
 A float32 model takes the kernel's float32 form: float32 ``x``, head and
-bias, products on the tensor cores in TF32 (``wmma`` 16x16x8; the operands
-keep 10 mantissa bits, the sums are float32) with 32-column chunks, the
-block's shared memory holding the twice-as-wide ``x`` tile. The Pallas
-kernel multiplies in its operands' type; the plain version here in full
-float32, so ids may differ only where two logits lie within TF32's rounding
-of each other.
+bias, products on the tensor cores in TF32 (``wgmma`` m64nNk8; the operands
+rounded to nearest TF32, the sums float32): the kernel rounds ``x`` in shared
+memory as each tile arrives, and :func:`fused_head_argmax` rounds the packed
+head once per packed head (``layer.tf32_copy``). The Pallas kernel
+multiplies in its operands' type; the plain version here in full float32, so
+ids may differ only where two logits lie within TF32's rounding of each
+other.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import ctypes
 import torch
 
 from . import _build
+from .layer import tf32_copy
 
 TILE = 16
 
@@ -100,9 +105,13 @@ def fused_head_argmax(x, w_packed, b_packed, n_commands: int, n_args: int,
     _build.require(x, "x", dev, dt, (r, d))
     _build.require(w_packed, "w_packed", dev, dt, (c, d))
     _build.require(b_packed, "b_packed", dev, dt, (c,))
+    if b_packed.data_ptr() % 16:
+        raise ValueError("the head kernel takes b_packed 16-byte aligned")
     ids = torch.empty((r, 1 + n_args), dtype=torch.int32, device=dev)
     if r == 0:
         return ids
+    if dt == torch.float32:
+        w_packed = tf32_copy(w_packed)
     fn = _build.kernel_function("dsvg_head_argmax", _ARGTYPES)
     rc = fn(x.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(), ids.data_ptr(),
             r, d, n_commands, n_args, args_vocab, int(dt == torch.float32),

@@ -36,12 +36,22 @@ memory once a head, with every key's score of a query in registers. An E1
 layer of that form at N=1024 (B=1024, S=242) is 0.26 TFLOP of products and
 0.06 TFLOP of attention, 0.33 ms at 989 TFLOP/s bf16.
 
-float32 (``csrc/layer_fwd.cuh``, ``csrc/layer_long.cuh``, which K4 shares):
-a block owns whole sequences (32 rows), holds the f32 residual and the QKV /
-FF hidden in shared memory, runs the products on ``nvcuda::wmma`` TF32
-16x16x8 with the weights read from L2, and does the attention of each
-(sequence, head) in one warp, one key per lane; its long form takes 32-query
-tiles of a sequence in its second launch.
+float32 (``csrc/layer_f32.cu``; D=256, 8 heads, F a multiple of 64 up to
+1024, any S up to 256, the short and the long form alike): three launches,
+on TF32 ``wgmma`` and ``mma.sync``. A float32 tile's LN1 output and context
+(128 KB each at 128 rows) do not fit a block's shared memory together, nor
+does a 242-row sequence's context, so QKV and the context pass through
+scratch tensors in device memory: LN1 and QKV over 128-row tiles of all
+rows (a TMA producer warp, an ``mbarrier`` weight ring, two consumer
+warpgroups on m64n96k8); the attention per (tile of whole sequences, head)
+on ``mma.sync`` m16n8k8 with the exact softmax in registers; then the out
+projection onto the residual in the accumulators, LN2 and the FF over
+128-row tiles, as the bfloat16 form's second half. The activations are
+rounded to TF32 (to nearest) where they are written for a product, the
+weights once when first used (:func:`tf32_copy`). Other float32 widths keep
+the older code (``csrc/layer_fwd.cuh``, ``csrc/layer_long.cuh``, which K4
+and K7 share: a block owns whole sequences, ``nvcuda::wmma`` TF32 with the
+weights read from L2), counted apart (``narrow_launches``).
 
 The softmax subtracts the row maximum (the Pallas kernel clamps scores to
 +-75 instead, a TPU-only choice); a query whose keys are all masked gets
@@ -104,6 +114,38 @@ def layer_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
     return xf.to(dt)
 
 
+def to_tf32(t):
+    """Float32 ``t`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: the operands of the
+    float32 forms' TF32 products (K2, K3, K5, K8)."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+TF32_CACHE = 256  # rounded copies kept by tf32_copy
+
+
+def tf32_copy(t):
+    """Float32 ``t`` rounded to TF32 (:func:`to_tf32`), made once per tensor
+    and reused: the float32 kernels' weights, rounded when they are first
+    used. A copy is kept beside a reference to ``t`` (so that its storage is
+    not reused while the copy is kept), keyed by its storage, version and
+    layout; an in-place update bumps the version and makes a new copy. The
+    oldest of more than :data:`TF32_CACHE` copies is dropped."""
+    key = (t.data_ptr(), t._version, tuple(t.shape), tuple(t.stride()), t.device)
+    cache = tf32_copy.cache
+    hit = cache.pop(key, None)
+    if hit is None:
+        with torch.no_grad():
+            hit = (t, to_tf32(t.detach().contiguous()))
+    cache[key] = hit
+    while len(cache) > TF32_CACHE:
+        del cache[next(iter(cache))]
+    return hit[1]
+
+
+tf32_copy.cache = {}
+
+
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 _LONG_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                                   ctypes.c_void_p]
@@ -146,6 +188,41 @@ def _check_bf16_widths(x, w1) -> None:
                          f"64 up to {BF16_MAX_FF}; got D={d}, F={f}")
 
 
+_F32_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def f32_hopper_form(x, n_heads: int, f: int) -> bool:
+    """Whether the float32 ``wgmma`` forms (``csrc/layer_f32.cu``) take this
+    CUDA layer: float32 and the widths ``dsvg_layer_f32_hopper`` takes (D=256
+    with 8 heads, F a multiple of 64 up to 1024, any S up to 256)."""
+    if x.dtype != torch.float32:
+        return False
+    rule = _build.kernel_function("dsvg_layer_f32_hopper", [ctypes.c_int] * 4)
+    return bool(rule(x.shape[2], f, n_heads, x.shape[1]))
+
+
+def _fused_layer_f32(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                     causal: bool):
+    """The float32 ``wgmma`` forms: three launches through two float32
+    scratch tensors, the weights rounded to TF32 once."""
+    b, s, d = x.shape
+    dev = x.device
+    out = torch.empty_like(x)
+    qkv = torch.empty((d // HEAD_DIM, b * s, 3 * HEAD_DIM), dtype=torch.float32, device=dev)
+    ctx = torch.empty((b * s, d), dtype=torch.float32, device=dev)
+    wqkv, wo, w1, w2 = (tf32_copy(w) for w in (wqkv, wo, w1, w2))
+    fn = _build.kernel_function("dsvg_layer_f32", _F32_ARGTYPES)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = fn(x.data_ptr(), ptr(seq_bias), ln1.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), ln2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), mask.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
+            out.data_ptr(), b, s, w1.shape[0], int(causal), HEAD_DIM ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "float32 layer")
+    return out
+
+
 def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                 n_heads: int, causal: bool = False):
     """One fused transformer layer.
@@ -174,9 +251,15 @@ def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
     check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                        n_heads)
     _check_bf16_widths(x, w1)
-    out = torch.empty_like(x)
     if b == 0:
+        return torch.empty_like(x)
+    if f32_hopper_form(x, n_heads, f):
+        out = _fused_layer_f32(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                               causal)
+        fused_layer.launches += 1
+        fused_layer.float32_launches += 1
         return out
+    out = torch.empty_like(x)
     fn = _build.kernel_function("dsvg_layer", _ARGTYPES)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = fn(x.data_ptr(), ptr(seq_bias), ln1.data_ptr(), wqkv.data_ptr(),
@@ -185,13 +268,16 @@ def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
             mask.data_ptr(), out.data_ptr(), b, s, d, f, n_heads, int(causal),
             int(x.dtype == torch.float32), HEAD_DIM ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "layer")
-    fused_layer.launches += 1
-    fused_layer.float32_launches += x.dtype == torch.float32
+    if x.dtype == torch.float32:
+        fused_layer.narrow_launches += 1
+    else:
+        fused_layer.launches += 1
     return out
 
 
-fused_layer.launches = 0            # every launch of the short form
+fused_layer.launches = 0            # every layer of the short form on its wgmma kernels
 fused_layer.float32_launches = 0    # those of its float32 form
+fused_layer.narrow_launches = 0     # float32 layers at other widths, on the older code
 
 
 def fused_layer_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
@@ -207,9 +293,15 @@ def fused_layer_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, 
     check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                        n_heads, MAX_SEQ_LONG)
     _check_bf16_widths(x, w1)
-    out = torch.empty_like(x)
     if b == 0:
+        return torch.empty_like(x)
+    if f32_hopper_form(x, n_heads, f):
+        out = _fused_layer_f32(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                               causal)
+        fused_layer_long.launches += 1
+        fused_layer_long.float32_launches += 1
         return out
+    out = torch.empty_like(x)
     qkv = torch.empty((b * s, 3 * d), dtype=x.dtype, device=dev)
     fn = _build.kernel_function("dsvg_layer_long", _LONG_ARGTYPES)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -220,13 +312,16 @@ def fused_layer_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, 
             int(causal), int(x.dtype == torch.float32), HEAD_DIM ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "long layer")
-    fused_layer_long.launches += 1
-    fused_layer_long.float32_launches += x.dtype == torch.float32
+    if x.dtype == torch.float32:
+        fused_layer_long.narrow_launches += 1
+    else:
+        fused_layer_long.launches += 1
     return out
 
 
-fused_layer_long.launches = 0           # every layer run by the long form
+fused_layer_long.launches = 0           # every layer run by the long form's wgmma kernels
 fused_layer_long.float32_launches = 0   # those of its float32 form
+fused_layer_long.narrow_launches = 0    # float32 layers at other widths, on the older code
 
 
 def fused_encoder_layer(x, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,

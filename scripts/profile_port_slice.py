@@ -5,6 +5,8 @@
     python3 scripts/profile_port_slice.py --recipe   # the training step, B=60
     python3 scripts/profile_port_slice.py --selfmatch  # the self-matching step, B=60
     python3 scripts/profile_port_slice.py --autoregressive  # Sketchformer's greedy_sample
+    python3 scripts/profile_port_slice.py --float32  # the inference path of the float32 model
+    python3 scripts/profile_port_slice.py --rows [--tag T]  # kernel times at the paths' shapes
 
 Loads the trained flagship checkpoint into the port (bfloat16 compute,
 float32 masters). Without ``--train`` it runs greedy one-shot encode+decode
@@ -20,18 +22,32 @@ brute-force matching), built from the flagship checkpoint as
 ``chip_smoke.py`` builds it. ``--autoregressive`` runs Sketchformer's
 ``greedy_sample`` (encode, then 240 decode steps through K9 and K3) at
 N=1024 on the config's own initialisation from a seed, as ``chip_smoke.py``
-builds it, for 2 calls after one. Each prints the
+builds it, for 2 calls after one. ``--float32`` profiles the inference path of the
+flagship at its config's own ``compute_dtype``, float32 (the float32 forms
+of K1, K2 and K3). Each prints the
 device time by kernel name, the device's busy time against the host's wall
 time over the window (the idle share), and the card's name and power limit.
 The full table goes to ``slice_profile.txt``, ``train_profile.txt`` or
 ``train_recipe_profile.txt`` (``train_selfmatch_profile.txt``,
 ``autoregressive_profile.txt``) in the output
 directory under the repository
-root. Exits non-zero without a CUDA card.
+root (``slice_float32_profile.txt`` with ``--float32``).
+
+``--rows`` profiles nothing: it times K3 (bfloat16 and float32, at the
+flagship's R = 253,952 rows and the decode's R = 1,024), K2's float32 form at
+the float32 flagship's E1 and D1 (8,192 x 32 and x 31) and at the bfloat16
+profile's E2, the long form in float32 at Sketchformer's S=242, and K6 at the
+flagship step's B=128 x 32 and Sketchformer's S=242, with CUDA events as
+``chip_smoke.py`` times them, on whichever tree the script lies in: run it
+from an archive of another commit to time that commit's kernels on the same
+inputs. It prints one JSON object and writes it to ``kernel_rows[_T].json``.
+Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -58,6 +74,11 @@ def main() -> int:
                         help="profile the self-matching model's training step at B=60")
     parser.add_argument("--autoregressive", action="store_true",
                         help="profile Sketchformer's greedy_sample at N=1024")
+    parser.add_argument("--float32", action="store_true",
+                        help="profile the inference path of the float32 flagship")
+    parser.add_argument("--rows", action="store_true",
+                        help="time the kernels at the paths' shapes (no profile)")
+    parser.add_argument("--tag", default="", help="suffix of --rows' output file")
     opts = parser.parse_args()
     opts.recipe = opts.recipe or opts.selfmatch
     opts.train = opts.train or opts.recipe
@@ -75,7 +96,9 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    cfg = gpu_fast(hierarchical_ordered())
+    if opts.rows:
+        return kernel_rows(card, opts.tag)
+    cfg = hierarchical_ordered() if opts.float32 else gpu_fast(hierarchical_ordered())
     iters = ITERS
     if opts.autoregressive:
         from chip_smoke import sketchformer_model
@@ -115,6 +138,8 @@ def main() -> int:
             train_step(state, data, weights, optimizer, model_args)
     else:
         what, out_name, warmup = f"one_shot_sample N={N}", "slice_profile.txt", 2
+        if opts.float32:
+            what, out_name = f"one_shot_sample N={N}, float32", "slice_float32_profile.txt"
 
         def run():
             one_shot_sample(model, commands, args)
@@ -145,6 +170,124 @@ def main() -> int:
         f.write("\n".join(lines) + "\n\n")
         f.write(prof.key_averages().table(sort_by="device_time_total", row_limit=60))
     print("\n".join(lines[:32]))
+    return 0
+
+
+def kernel_rows(card: str, tag: str) -> int:
+    """``--rows``: the kernels' times at the paths' shapes, as one JSON object."""
+    import torch.nn.functional as F
+
+    from chip_smoke import AR_SEED, cuda_ms, layer_args, sketchformer_model
+    from deepsvg_tpu_torch.configs.sketchformer import make_model_config
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import (
+        SVGTransformer, gpu_fast, hierarchical_ordered, load_model)
+    from deepsvg_tpu_torch.models.layers import key_padding_to_additive
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import head as head_ops
+    from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.svgtensor import masks as M
+    from deepsvg_tpu_torch.training.trainer import init_parameters
+    dev = torch.device("cuda")
+    rows: dict = {}
+    flagship = hierarchical_ordered()
+    batch = generate_batch(np.random.default_rng(0), N, flagship.max_num_groups,
+                           flagship.max_seq_len)
+    commands = torch.from_numpy(batch["commands"]).to(dev)
+    args = torch.from_numpy(batch["args"]).to(dev)
+    n, g, s_enc = commands.shape
+    cmd_f, args_f = commands.reshape(n * g, s_enc), args.reshape(n * g, s_enc, -1)
+    pad = M.key_padding_mask(cmd_f)
+    with torch.no_grad():
+        for dtype_name, cfg in (("", gpu_fast(hierarchical_ordered())),
+                                ("_f32", hierarchical_ordered())):
+            model = load_model(CHECKPOINT, cfg, device=dev)
+            fcn, enc, dec = model.decoder.fcn, model.encoder, model.decoder
+            seen = {}
+            hook = fcn.register_forward_hook(lambda m, i, o: seen.__setitem__("x", i[0]))
+            model(commands, args, argmax_head=True)
+            hook.remove()
+            x_head = seen.pop("x").reshape(-1, cfg.d_model).contiguous()
+            head_in = (x_head, fcn.w_packed, fcn.b_packed, fcn.n_commands, fcn.n_args,
+                       fcn.args_dim)
+            rows[f"head{dtype_name}"] = cuda_ms(lambda: head_ops.fused_head_argmax(*head_in))
+            dec_in = (x_head[:N], *head_in[1:])
+            rows[f"head{dtype_name}_decode"] = cuda_ms(
+                lambda: head_ops.fused_head_argmax(*dec_in))
+            del x_head, head_in, dec_in
+            cmd_table, arg_tables, pos_table = enc.embedding.tables()
+            x_e1 = emb_ops.fused_embedding(cmd_f, args_f, None, cmd_table, arg_tables, None,
+                                           pos_table[:s_enc])
+            key_pad = key_padding_to_additive(pad)
+            if dtype_name:
+                # the float32 model's E1 and D1
+                l_e1, l_d1 = enc.encoder.layers[0], dec.decoder.layers[0]
+                z, _, _ = model.encode(commands, args)
+                _, z_groups = dec.hierarchical_fcn(
+                    dec.hierarchical_decoder(dec.hierarchical_embedding(n), z))
+                bias_d1 = F.linear(z_groups.reshape(n * g, -1), l_d1.glob.weight,
+                                   l_d1.glob.bias)
+                x_d1 = dec.embedding(n * g)
+                for name, la in (("layer_f32_e1", layer_args(l_e1, x_e1, key_pad)),
+                                 ("layer_f32_d1", layer_args(l_d1, x_d1, torch.zeros(
+                                     x_d1.shape[:2], device=dev), bias_d1))):
+                    rows[name] = cuda_ms(lambda la=la: layer_ops.fused_layer(*la))
+            else:
+                # the bfloat16 profile's float32 E2, on the pooled E1 output
+                vis = M.visibility_mask(commands)
+                memory = enc.encoder(x_e1, key_pad)
+                keep = M.padding_mask(cmd_f)
+                pooled = (memory.float() * keep[..., None]).sum(1) \
+                    / keep.sum(1, keepdim=True).clamp_min(1.0)
+                x_e2 = enc.hierarchical_PE(pooled.reshape(n, g, -1))
+                la = layer_args(enc.hierarchical_encoder.layers[0], x_e2,
+                                key_padding_to_additive(~vis))
+                rows["layer_f32_e2"] = cuda_ms(lambda: layer_ops.fused_layer(*la))
+            del model
+            torch.cuda.empty_cache()
+        # the float32 long form at Sketchformer's E1, S=242
+        sf_cfg = dataclasses.replace(make_model_config(), compute_dtype="float32")
+        sf = SVGTransformer(sf_cfg)
+        init_parameters(sf, torch.Generator().manual_seed(AR_SEED))
+        sf = sf.to(dev).eval()
+        sb = generate_batch(np.random.default_rng(0), N, sf_cfg.max_num_groups,
+                            sf_cfg.max_seq_len)
+        sc = torch.from_numpy(sb["commands_grouped"]).to(dev)[:, 0]
+        sa = torch.from_numpy(sb["args_grouped"]).to(dev)[:, 0]
+        x_sf = sf.encoder.embedding(sc, sa, M.group_mask(sc))
+        la = layer_args(sf.encoder.encoder.layers[0], x_sf,
+                        key_padding_to_additive(M.key_padding_mask(sc)))
+        rows["layer_long_f32"] = cuda_ms(lambda: layer_ops.fused_layer(*la))
+        del sf, la, x_sf
+        # K6 at the flagship step's B=128 x 32 and Sketchformer's S=242
+        gen = torch.Generator(device=dev).manual_seed(1)
+        tb = generate_batch(np.random.default_rng(0), B_TRAIN, flagship.max_num_groups,
+                            flagship.max_seq_len)
+        tc = torch.from_numpy(tb["commands"]).to(dev).flatten(0, 1)
+        ta = torch.from_numpy(tb["args"]).to(dev).flatten(0, 1)
+        dy = torch.randn(*tc.shape, 256, device=dev, generator=gen).to(torch.bfloat16)
+        rows["embedding_bwd"] = cuda_ms(
+            lambda: emb_ops.embedding_backward(tc, ta, None, dy, flagship.n_commands,
+                                               flagship.args_dim, 0, False))
+        sfm = sketchformer_model(dev)
+        emb = sfm.encoder.embedding
+        rb = generate_batch(np.random.default_rng(0), B_RECIPE, sfm.cfg.max_num_groups,
+                            sfm.cfg.max_seq_len)
+        ce = torch.from_numpy(rb["commands_grouped"]).to(dev)[:, 0]
+        ae = torch.from_numpy(rb["args_grouped"]).to(dev)[:, 0]
+        cmd_table, arg_tables, _ = emb.tables()
+        n_group = emb.group_table().shape[0]
+        dy = torch.randn(*ce.shape, 256, device=dev, generator=gen).to(torch.bfloat16)
+        grp = M.group_mask(ce)
+        rows["embedding_bwd_long"] = cuda_ms(lambda: emb_ops.embedding_backward(
+            ce, ae, grp, dy, cmd_table.shape[0], arg_tables.shape[0] // sfm.cfg.n_args,
+            n_group, True))
+    out = {"card": card, "root": ROOT, "ms": rows}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"kernel_rows{'_' + tag if tag else ''}.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out))
     return 0
 
 

@@ -682,6 +682,152 @@ def test_layer_kernels_are_wgmma_kernels(cuda):
     assert all(c > 0 for c in k2.values()), k2
 
 
+def _sass_counts(pattern: str, instruction: str) -> dict:
+    """Instructions matching ``instruction`` in each kernel of the built
+    library whose name matches ``pattern`` (cuobjdump's SASS)."""
+    import re
+    import shutil
+    import subprocess
+
+    from deepsvg_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", _build.build()], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
+            if name:
+                counts[name] = 0
+        elif name and instruction in line:
+            counts[name] += 1
+    return counts
+
+
+def test_head_and_float32_layer_kernels_are_wgmma_kernels(cuda):
+    """K3 (bfloat16 with one and two row tiles a warpgroup, float32) and K2's
+    float32 products (its QKV and out-projection/FF launches) multiply with
+    Hopper's warpgroup instructions; its attention launch with mma.sync."""
+    head = _sass_counts(r"\d+head_kernelI", "HGMMA")
+    layer = _sass_counts(r"layer_f32.*(qkv|out_ffn)_kernel", "HGMMA")
+    attn = _sass_counts(r"layer_f32.*attn_kernel", "HMMA")
+    print("HGMMA instructions:", head, layer, "HMMA:", attn)
+    assert len(head) == 3 and all(c > 0 for c in head.values()), head
+    assert len(layer) == 2 and all(c > 0 for c in layer.values()), layer
+    assert len(attn) == 2 and all(c > 0 for c in attn.values()), attn
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("r,vocab", [(1024, VOCAB), (1024, 512), (4099, VOCAB), (130, 33)])
+def test_head_kernel_at_the_decode_rows(cuda, dtype, r, vocab):
+    """K3 at the decode's R = N = 1,024 rows a step (the flagship's 257
+    classes and Sketchformer's 512), and at row counts off its tiles: ids
+    equal to the plain version's wherever its top-2 gap is at least 1e-2
+    (bfloat16: 1e-3); pairs of equal columns across the 128-column chunk
+    edges go to the first."""
+    rng = np.random.default_rng(r + vocab)
+    x = _bf16(rng, cuda, r, D).to(dtype)
+    wc, bc = _bf16(rng, cuda, N_CMD, D, scale=D ** -0.5), _bf16(rng, cuda, N_CMD)
+    wa = _bf16(rng, cuda, N_ARGS * vocab, D, scale=D ** -0.5)
+    ba = _bf16(rng, cuda, N_ARGS * vocab)
+    edges = [(c - 1, c) for c in (64, 128, 256) if c < vocab]
+    for i, (lo, hi) in enumerate(edges):       # slots 1, 2, 3 win at the edge
+        wa[i * vocab + hi], ba[i * vocab + lo], ba[i * vocab + hi] = wa[i * vocab + lo], 50., 50.
+    w, b = head_ops.pack_head(*(t.to(dtype) for t in (wc, bc, wa, ba)), N_ARGS)
+    before = head_ops.fused_head_argmax.launches
+    ids = head_ops.fused_head_argmax(x, w, b, N_CMD, N_ARGS, vocab).long()
+    assert head_ops.fused_head_argmax.launches == before + 1
+    ref = head_ops.head_argmax_reference(x, w, b, N_CMD, N_ARGS, vocab).long()
+    for i, (lo, _) in enumerate(edges):
+        assert (ids[:, 1 + i] == lo).all() and (ref[:, 1 + i] == lo).all()
+    offsets = torch.tensor([0] + [head_ops._round_up(N_CMD) + i * head_ops._round_up(vocab)
+                                  for i in range(N_ARGS)], device=cuda)
+    logits = torch.matmul(x.float(), w.float().t()) + b.float()
+    gap = logits.gather(1, offsets + ref) - logits.gather(1, offsets + ids)
+    print(f"K3 R={r} {dtype}: {int((ids != ref).sum())} ids differ")
+    assert (gap.abs()[ids != ref] < (1e-2 if dtype == torch.float32 else 1e-3)).all()
+
+
+@pytest.mark.parametrize("s,b,seq_bias,causal", [
+    (32, 40, False, False), (31, 40, True, False), (17, 30, True, True), (8, 200, False, False),
+    (1, 300, True, False), (242, 5, False, False), (241, 5, True, True), (33, 9, False, True)])
+def test_float32_layer_wgmma_form_matches_plain(cuda, s, b, seq_bias, causal):
+    """K2's float32 form on TF32 wgmma (D=256, 8 heads) at the paths' lengths
+    (E1 32, D1 31, E2 8, the long form's 242 and 241, and S=1, 17, 33)
+    against the plain version in full float32, within the float32 limits;
+    counted once a layer, under the short or the long form by S."""
+    rng = np.random.default_rng(50 + s)
+    weights = _layer_weights(rng, cuda, torch.float32)
+    x = _bf16(rng, cuda, b, s, D).float() + 1e-3 * _bf16(rng, cuda, b, s, D).float()
+    bias = _bf16(rng, cuda, b, D).float() if seq_bias else None
+    inputs = (x, bias, *weights, _key_mask(rng, cuda, b, s), H, causal)
+    counter = layer_ops.fused_layer if s <= 32 else layer_ops.fused_layer_long
+    before = _counts(counter, "launches", "float32_launches", "narrow_launches")
+    out = layer_ops.fused_layer(*inputs)
+    assert _counts(counter, "launches", "float32_launches", "narrow_launches") == (
+        before[0] + 1, before[1] + 1, before[2])
+    ref = layer_ops.layer_reference(*inputs)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert torch.equal(layer_ops.fused_layer(*inputs), out)
+    print("K2-f32 rel rms", _rel_rms(out, ref), "max", (out - ref).abs().max().item())
+    assert _rel_rms(out, ref) <= TOL_RMS
+    assert ((out - ref).abs() <= TOL_F32_ATOL + TOL_F32_RTOL * ref.abs()).all()
+
+
+@pytest.mark.parametrize("s", [8, 100])
+def test_float32_layer_narrow_width_takes_the_wmma_form(cuda, s):
+    """Float32 below the wgmma form's width (D=128, 4 heads, FF 256) still
+    runs on the card, on the older wmma code, counted apart."""
+    rng = np.random.default_rng(60 + s)
+    d, f = 128, 256
+    ln = lambda: torch.stack([1 + _f32(rng, cuda, d, scale=0.1),  # noqa: E731
+                              _f32(rng, cuda, d, scale=0.1)]).contiguous()
+    ws = (ln(), _f32(rng, cuda, 3 * d, d, scale=d ** -0.5), _f32(rng, cuda, 3 * d, scale=0.1),
+          _f32(rng, cuda, d, d, scale=d ** -0.5), _f32(rng, cuda, d, scale=0.1), ln(),
+          _f32(rng, cuda, f, d, scale=d ** -0.5), _f32(rng, cuda, f, scale=0.1),
+          _f32(rng, cuda, d, f, scale=f ** -0.5), _f32(rng, cuda, d, scale=0.1))
+    b = 6
+    inputs = (_f32(rng, cuda, b, s, d), None, *ws, _key_mask(rng, cuda, b, s), d // 32, False)
+    counter = layer_ops.fused_layer if s <= 32 else layer_ops.fused_layer_long
+    before = _counts(counter, "launches", "float32_launches", "narrow_launches")
+    out = layer_ops.fused_layer(*inputs)
+    assert _counts(counter, "launches", "float32_launches", "narrow_launches") == (
+        before[0], before[1], before[2] + 1)
+    ref = layer_ops.layer_reference(*inputs)
+    assert _rel_rms(out, ref) <= TOL_RMS
+    assert ((out - ref).abs() <= TOL_F32_ATOL + TOL_F32_RTOL * ref.abs()).all()
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s,n_group,vocab", [(1024, 32, 0, VOCAB), (60, 242, 10, VOCAB),
+                                               (60, 241, 242, 512)])
+def test_embedding_backward_reruns_to_the_bit(cuda, dtype, b, s, n_group, vocab):
+    """K6 sums with no atomics, in an order fixed by its inputs: three runs
+    give the same tables to the bit, at the flagship step's B=128 x 32
+    sequences and Sketchformer's S=242 and 241 (a skewed argument column, so
+    that one row spans many chunks of sorted entries)."""
+    rng = np.random.default_rng(b + s)
+    commands = torch.from_numpy(rng.integers(0, N_CMD, (b, s)).astype(np.int32)).to(cuda)
+    args = rng.integers(-1, vocab - 1, (b, s, N_ARGS))
+    args[rng.random(args.shape) < 0.5] = -1
+    args[..., 1] = 3
+    args = torch.from_numpy(args.astype(np.float32)).to(cuda)
+    groups = torch.from_numpy(rng.integers(0, max(n_group, 1), (b, s)).astype(np.int32)).to(cuda)
+    dy = _bf16(rng, cuda, b, s, D).to(dtype)
+    use = n_group > 0
+    runs = [emb_ops.embedding_backward(commands, args, groups, dy, N_CMD, vocab, n_group, use)
+            for _ in range(3)]
+    assert all(torch.equal(x, y) for run in runs[1:] for x, y in zip(runs[0], run))
+    tables = [torch.zeros(n, D, device=cuda, requires_grad=True)
+              for n in (N_CMD, N_ARGS * vocab, max(n_group, 1), s)]
+    want = torch.autograd.grad(emb_ops.embedding_reference(
+        commands, args, groups, *tables, use), tables, dy.float(), allow_unused=True)
+    for got, ref in zip(runs[0], want):
+        if ref is not None:
+            assert (got - ref[:got.shape[0]]).abs().max() <= 1e-5 * ref.abs().max()
+
+
 def _decode_inputs(rng, dev, n_layers, r, t):
     """K9's operands at the flagship's widths: per-layer weight stacks, random
     caches, and key padding with EOS-padded tails (row 1 open at position 0

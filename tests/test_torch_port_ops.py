@@ -94,6 +94,8 @@ LAYER_CASES = [  # (variant, S, causal)
     ("encoder", 17, False),
     ("decoder", 17, True),
     ("decoder", 64, True),
+    ("encoder", 242, False),    # the long form's lengths (Sketchformer's E1 and
+    ("decoder", 241, True),     # its teacher-forced decoder)
 ]
 
 
@@ -174,9 +176,17 @@ def test_layer_matches_xla(variant, s, causal):
 
 # --------------------------------------------------------------------- K3 head
 
-def test_head_argmax_matches_pallas():
+HEAD_CASES = ["ties", "chunk_edge_ties", "below_minus_1e30", "sketchformer_512"]
+
+
+def _head_inputs(case):
+    """Heads in flax layout and the states: random (seed 4) with exact ties,
+    ties straddling the kernel's column-chunk edges, a slot whose valid
+    logits all lie below -1e30, or Sketchformer's 512-class argument head."""
     rng = np.random.default_rng(4)
     r, d, n_cmd, n_args, vocab = 64, 32, 7, 11, 257
+    if case == "sketchformer_512":
+        vocab = 512
     x = rng.normal(size=(r, d)).astype(np.float32)
     wc = rng.normal(size=(d, n_cmd)).astype(np.float32)
     bc = rng.normal(size=(n_cmd,)).astype(np.float32)
@@ -186,13 +196,66 @@ def test_head_argmax_matches_pallas():
     wc[:, 5], bc[5] = wc[:, 2], bc[2]
     wa[:, 3 * vocab + 200], ba[3 * vocab + 200] = wa[:, 3 * vocab + 17], ba[3 * vocab + 17]
     wa[:, vocab - 1], ba[vocab - 1] = wa[:, 0], ba[0]
-    ref = jax_head.fused_head_argmax(
-        jnp.asarray(x), jnp.asarray(wc), jnp.asarray(bc), jnp.asarray(wa),
-        jnp.asarray(ba), n_commands=n_cmd, n_args=n_args, tile_rows=16)
-    w_packed, b_packed = port_head.pack_head(_t(wc.T), _t(bc), _t(wa.T), _t(ba), n_args)
-    ids = port_head.fused_head_argmax(_t(x), w_packed, b_packed, n_cmd, n_args, vocab)
-    assert ids.dtype == torch.int32 and ids.shape == (r, 1 + n_args)
+    if case == "chunk_edge_ties":
+        # the winning pair of slot i straddles columns (63, 64), (127, 128),
+        # (255, 256): the first of the two must win in every row
+        for slot, (lo, hi) in zip((1, 4, 9), ((63, 64), (127, 128), (255, 256))):
+            o = slot * vocab
+            ba[o + lo] = ba[o + hi] = 50.0
+            wa[:, o + hi] = wa[:, o + lo]
+    if case == "below_minus_1e30":
+        # every valid logit of slot 6 below -1e30; the packed padding (zero
+        # weights, zero bias) would win if it were not masked
+        o = 6 * vocab
+        ba[o:o + vocab] = -2e30 - 1e29 * rng.random(vocab).astype(np.float32)
+    return x, wc, bc, wa, ba, n_cmd, n_args, vocab
+
+
+@pytest.mark.parametrize("case", HEAD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_argmax_matches_pallas(case, dtype):
+    x, wc, bc, wa, ba, n_cmd, n_args, vocab = _head_inputs(case)
+    if dtype == "bfloat16":  # both packages on the same bf16-rounded inputs
+        jt = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+        tt = lambda a: _t(a).to(torch.bfloat16)  # noqa: E731
+    else:
+        jt, tt = jnp.asarray, _t
+    ref = jax_head.fused_head_argmax(jt(x), jt(wc), jt(bc), jt(wa), jt(ba),
+                                     n_commands=n_cmd, n_args=n_args, tile_rows=16)
+    w_packed, b_packed = port_head.pack_head(tt(wc.T), tt(bc), tt(wa.T), tt(ba), n_args)
+    ids = port_head.fused_head_argmax(tt(x), w_packed, b_packed, n_cmd, n_args, vocab)
+    assert ids.dtype == torch.int32 and ids.shape == (x.shape[0], 1 + n_args)
+    assert int(ids[:, 1:].max()) < vocab
     np.testing.assert_array_equal(ids.numpy(), np.asarray(ref))
+    if case == "chunk_edge_ties":
+        assert (ids[:, [2, 5, 10]].numpy() == [63, 127, 255]).all()
+
+
+def test_tf32_rounding_matches_numpy():
+    """The float32 kernels' operand rounding (``layer.to_tf32``, cvt.rna.tf32's
+    rule: to nearest of the 10-bit mantissas, ties away from zero), bit for
+    bit against the nearer of the two TF32 neighbours found in float64; it
+    differs from round-to-nearest-even only on exact ties."""
+    from deepsvg_tpu_torch.ops.layer import to_tf32
+    rng = np.random.default_rng(11)
+    bits = rng.integers(0, 2 ** 31 - 2 ** 24, 20000, dtype=np.int64).astype(np.uint32)
+    bits[:8] = [0x3F801000, 0x3F803000, 0x3F800FFF, 0x3F801001,  # ties, near ties
+                0x00000000, 0x00001000, 0x00003000, 0x00800000]  # zero, denormal ties
+    sign = (rng.random(bits.size) < 0.5).astype(np.uint32) << 31
+    x = (bits | sign).view(np.float32)
+    trunc = bits & ~np.uint32(0x1FFF)                  # the TF32 value toward zero
+    lo = (trunc | sign).view(np.float32).astype(np.float64)
+    hi = ((trunc + np.uint32(0x2000)) | sign).view(np.float32).astype(np.float64)
+    xd = x.astype(np.float64)
+    away = np.abs(hi - xd) <= np.abs(xd - lo)
+    want = np.where(away, hi, lo).astype(np.float32)
+    got = to_tf32(_t(x)).numpy()
+    assert got.view(np.uint32).tolist() == want.view(np.uint32).tolist()
+    # round-to-nearest-even differs where a tie sits above an even mantissa
+    ties = np.abs(hi - xd) == np.abs(xd - lo)
+    lo_even = (lo.astype(np.float32).view(np.uint32) >> 13) % 2 == 0
+    even = np.where(ties & lo_even, lo, want).astype(np.float32)
+    assert ((even != want) == (ties & lo_even)).all() and (ties & lo_even).any()
 
 
 # -------------------------------------------------------- wrappers and purity
