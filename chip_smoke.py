@@ -81,15 +81,17 @@ its bound, and the long K2 with its plain version and
 teacher-forced decoder S=241, 512 relative argument classes; random weights
 from a seed): the long form of K4 against its plain version, forward and
 twelve gradients, at S=242 and S=241 causal with ``seq_bias``, dropout 0 and
-0.1, and in float32 at S=32 and S=242, with the short form's limits; its
-gradients bit-equal from run to run; K6 on the path's inputs and group
+0.1, and in float32 at S=32, S=31 causal with ``seq_bias`` and S=242 (its
+own kernel entries), with the short form's limits; its gradients bit-equal
+from run to run; K6 on the path's inputs and group
 tables (S=242, 241) and K5 at 512 classes against their plain versions;
 one counted ``train_step`` (K1 2, long K4 8 + 8, K5 1 + 1, K6 2, no plain
 version called, no short K4), 23 steps on one batch whose loss must stay
-finite and fall, timed, with the device busy time and idle share; the CLI's
-``train()`` on ``configs/sketchformer.py`` with a checkpoint and a resume to
-the bit; the long K4, K5 and K6 timed at the path's shapes beside their
-bounds, their plain versions and a PyTorch call
+finite and fall, timed, with the device busy time, idle share and device
+time by part; the CLI's ``train()`` on ``configs/sketchformer.py`` with a
+checkpoint and a resume to the bit; the long K4 (both modes' forward, and
+each device time under the profiler), K5 and K6 timed at the path's shapes
+beside their bounds, their plain versions and a PyTorch call
 (``nn.TransformerEncoderLayer`` in training mode, ``F.linear`` +
 ``F.cross_entropy``, ``index_add_``).
 
@@ -99,7 +101,9 @@ trained checkpoint and its ``train_step`` at B=60, the self-match step at
 B=60 and Sketchformer's ``greedy_sample`` at N=1024, each counted (the
 float32 forms of K1, K3, K5, K8 and K9 beside the float32 K2, K4 and K7, no
 plain version called) and against its plain path, gated by margin with a
-control that must fail; each float32 form against its plain version and
+control that must fail; the step's device busy time, idle share and device
+time by part; the long K4 at the step's E1 and D1 (480 x 32 and x 31) and
+at S=242, beside ``nn.TransformerEncoderLayer`` in TF32 and full float32; each float32 form against its plain version and
 timed beside its bound, plain version and library call (K3 beside
 ``F.linear`` + argmax in TF32 and in full float32, and at R = 1,024; the
 float32 K2 at the flagship's E1 and D1, 8,192 x 32 and x 31, and the long
@@ -1564,6 +1568,77 @@ def device_split(fn, iters: int = 5):
     return (busy if busy else None), per
 
 
+def copy_layer(lib, layer):
+    """``layer``'s weights into ``torch.nn.TransformerEncoderLayer`` ``lib``."""
+    with torch.no_grad():
+        lib.self_attn.in_proj_weight.copy_(layer.qkv.weight)
+        lib.self_attn.in_proj_bias.copy_(layer.qkv.bias)
+        lib.self_attn.out_proj.weight.copy_(layer.out_proj.weight)
+        lib.self_attn.out_proj.bias.copy_(layer.out_proj.bias)
+        for dst, src in ((lib.linear1, layer.ff1), (lib.linear2, layer.ff2)):
+            dst.weight.copy_(src.weight)
+            dst.bias.copy_(src.bias)
+        for dst, src in ((lib.norm1, layer.norm1), (lib.norm2, layer.norm2)):
+            dst.weight.copy_(src[0])
+            dst.bias.copy_(src[1])
+
+
+def transformer_layer(layer, dtype, dev, train=False):
+    """The library call K2 and K4 are timed beside: a pre-LN
+    ``torch.nn.TransformerEncoderLayer`` with ``layer``'s weights, dropout 0,
+    in training mode for K4."""
+    lib = torch.nn.TransformerEncoderLayer(
+        layer.qkv.in_features, layer.n_heads, layer.ff1.out_features, dropout=0.0,
+        activation="relu", batch_first=True, norm_first=True, device=dev, dtype=dtype)
+    copy_layer(lib, layer)
+    return lib.train() if train else lib.eval()
+
+
+def k4_long_row(layer_vjp, layer, x, seq_bias, mask, causal, gen) -> dict:
+    """The long K4 timed at one of its paths' shapes, in the saved mode:
+    forward, backward (forward + backward less the forward) and the
+    recompute forward with CUDA events, the forward's and the backward's
+    device time under torch.profiler; the plain version; the bound
+    (k4_bound); and the library call on the same rows (no seq_bias, no causal
+    mask: the same products and attention), float32 in TF32 and in full
+    float32."""
+    fwd, both = k4_runs(layer_vjp.fused_layer_train, layer, x, seq_bias, mask, causal, gen=gen)
+    rc_fwd, _ = k4_runs(layer_vjp.fused_layer_train, layer, x, seq_bias, mask, causal,
+                        save_residuals=False, gen=gen)
+    pfwd, pboth = k4_runs(layer_vjp.plain_layer_train, layer, x, seq_bias, mask, causal, gen=gen)
+    f_ms, fb_ms, rc_ms = cuda_ms(fwd), cuda_ms(both), cuda_ms(rc_fwd)
+    pf_ms, pfb_ms = cuda_ms(pfwd, iters=3, warmup=1), cuda_ms(pboth, iters=3, warmup=1)
+    f_ff = layer.ff1.out_features
+    (bf_ms, bf_by), (bb_ms, bb_by) = (k4_bound(x, seq_bias, f_ff, bwd, causal)
+                                      for bwd in (False, True))
+    (dev_f, _), (dev_fb, _) = device_split(fwd, iters=3), device_split(both, iters=3)
+    row = {"fwd_ms": f_ms, "bwd_ms": fb_ms - f_ms, "recompute_fwd_ms": rc_ms,
+           "device_fwd_ms": dev_f, "device_bwd_ms": None if dev_f is None else dev_fb - dev_f,
+           "plain_fwd_ms": pf_ms, "plain_bwd_ms": pfb_ms - pf_ms, "fwd_bound_ms": bf_ms,
+           "fwd_bound_by": bf_by, "bwd_bound_ms": bb_ms, "bwd_bound_by": bb_by}
+    pad = torch.isneginf(mask)
+    f32 = x.dtype == torch.float32
+    for name, tf32 in ((("library_tf32", True), ("library", False)) if f32
+                       else (("library", False),)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        lib = transformer_layer(layer, x.dtype, x.device, train=True)
+        x_lib = x.detach().requires_grad_()
+        g_lib = torch.randn(x.shape, device=x.device, generator=gen).to(x.dtype)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return lib(x_lib, src_key_padding_mask=pad)
+
+        def lib_both():
+            return torch.autograd.grad(lib(x_lib, src_key_padding_mask=pad),
+                                       [x_lib, *lib.parameters()], g_lib)
+        lf, lfb = cuda_ms(lib_fwd), cuda_ms(lib_both)
+        row[f"{name}_fwd_ms"], row[f"{name}_bwd_ms"] = lf, lfb - lf
+        torch.backends.cuda.matmul.allow_tf32 = False
+        del lib
+    return row
+
+
 def grads_twice_equal(layer_vjp, layer, x, seq_bias, mask, causal, rate, seed=99):
     """K4 run twice on the same inputs: the output and the twelve gradients
     equal to the bit (no atomics)."""
@@ -1600,8 +1675,8 @@ def k4_runs(fn, layer, x, seq_bias, mask, causal=False, save_residuals=True, gen
     return fwd, both
 
 
-def sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts, read_counts,
-                             library_layer) -> dict:
+def sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts,
+                             read_counts) -> dict:
     """Sketchformer's training at the recipe batch B=60 (encoder S=242,
     causal decoder S=241, 512 relative classes) through K1, the long form of
     K4, K5 and K6: each kernel against its plain version on the path's own
@@ -1650,6 +1725,11 @@ def sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts
         kp32 = torch.where(torch.rand(B_RECIPE * 8, 32, device=dev, generator=gen) < 0.2,
                            float("-inf"), 0.0)
         kp32[:, 0], kp32[0] = 0.0, float("-inf")
+        # and at D1's S=31, causal, with seq_bias (its key blocks straddle
+        # two sequences)
+        x31 = torch.randn(B_RECIPE * 8, 31, d, device=dev, generator=gen)
+        sb31 = torch.randn(B_RECIPE * 8, d, device=dev, generator=gen)
+        kp31 = kp32[:, :31].contiguous()
 
     # ---- the long K4 against its plain version, the short form's limits
     k4l = {}
@@ -1659,34 +1739,46 @@ def sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts
         k4l[f"decoder S=241 causal seq_bias rate {rate}"] = check_layer_train(
             layer_vjp, "long decoder S=241 causal, key pad, seq_bias", l_d, x_d, sb_d, kp_d,
             True, rate)
-    k4l["float32 S=32 rate 0.1"] = check_layer_train(
-        layer_vjp, "long float32 S=32 key pad", l_e, x32, None, kp32, False, DROPOUT)
-    k4l["float32 S=242 rate 0.1"] = check_layer_train(
-        layer_vjp, "long float32 E1 S=242 key pad", l_e, x_e1.float(), None, kp_e1, False,
-        DROPOUT)
+    # the float32 long form (its Hopper kernels, layer_f32.cu and
+    # layer_f32_bwd.cu): the flagship's E1 and D1 at B=60, and S=242
+    k4f = {
+        "float32 S=32 rate 0.1": check_layer_train(
+            layer_vjp, "long float32 S=32 key pad", l_e, x32, None, kp32, False, DROPOUT),
+        "float32 S=31 causal seq_bias rate 0.1": check_layer_train(
+            layer_vjp, "long float32 S=31 causal, key pad, seq_bias", l_e, x31, sb31, kp31, True,
+            DROPOUT),
+        "float32 S=242 rate 0.1": check_layer_train(
+            layer_vjp, "long float32 E1 S=242 key pad", l_e, x_e1.float(), None, kp_e1, False,
+            DROPOUT)}
     same_bits = {
         "E1 S=242 bf16": grads_twice_equal(layer_vjp, l_e, x_e1, None, kp_e1, False, DROPOUT),
         "decoder S=241 causal bf16": grads_twice_equal(layer_vjp, l_d, x_d, sb_d, kp_d, True,
                                                        DROPOUT),
-        "float32 S=32": grads_twice_equal(layer_vjp, l_e, x32, None, kp32, False, DROPOUT)}
+        "float32 S=32": grads_twice_equal(layer_vjp, l_e, x32, None, kp32, False, DROPOUT),
+        "float32 S=31 causal seq_bias": grads_twice_equal(layer_vjp, l_e, x31, sb31, kp31,
+                                                          True, DROPOUT),
+        "float32 S=242": grads_twice_equal(layer_vjp, l_e, x_e1.float(), None, kp_e1, False,
+                                           DROPOUT)}
     check_later(all(same_bits.values()),
                 f"the long K4's output or gradients differ from run to run: {same_bits}")
     print(f"long K4 run twice, output and gradients equal to the bit: {same_bits}", flush=True)
-    all_grads = [r for v in k4l.values() for r in v["grads"].values()]
-    kernels["layer_train_long_fwd"] = {
-        "max_abs_err": max(v["forward_max_abs_err"] for v in k4l.values()),
-        "tolerance": {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL, "rms": TOL_LAYER_RMS,
-                      "float32": {"atol": TOL_F32_ATOL, "rtol": TOL_F32_RTOL}}}
-    kernels["layer_train_long_bwd"] = {
-        "max_abs_err": max(r["max_abs_err"] for r in all_grads),
-        "max_rms": max(r["rms"] for r in all_grads),
-        "max_rms_same_gate": max(r["rms_same_gate"] for r in all_grads),
-        "bit_identical_runs": same_bits,
-        "tolerance": {"rms": {str(k): v for k, v in TOL_GRAD_RMS.items()},
-                      "rms_same_gate": {str(k): v for k, v in TOL_GRAD_RMS_SAME_GATE.items()},
-                      "worst_of_max": TOL_GRAD_WORST,
-                      "worst_of_max_same_gate": TOL_GRAD_WORST_SAME_GATE}}
-    out["layer_train_long_cases"] = k4l
+    for suffix, cases, tol in (("", k4l, {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL}),
+                               ("_f32", k4f, {"atol": TOL_F32_ATOL, "rtol": TOL_F32_RTOL})):
+        all_grads = [r for v in cases.values() for r in v["grads"].values()]
+        kernels["layer_train_long_fwd" + suffix] = {
+            "max_abs_err": max(v["forward_max_abs_err"] for v in cases.values()),
+            "tolerance": {**tol, "rms": TOL_LAYER_RMS}}
+        kernels["layer_train_long_bwd" + suffix] = {
+            "max_abs_err": max(r["max_abs_err"] for r in all_grads),
+            "max_rms": max(r["rms"] for r in all_grads),
+            "max_rms_same_gate": max(r["rms_same_gate"] for r in all_grads),
+            "bit_identical_runs": {k: v for k, v in same_bits.items()
+                                   if ("float32" in k) == (suffix == "_f32")},
+            "tolerance": {"rms": {str(k): v for k, v in TOL_GRAD_RMS.items()},
+                          "rms_same_gate": {str(k): v for k, v in TOL_GRAD_RMS_SAME_GATE.items()},
+                          "worst_of_max": TOL_GRAD_WORST,
+                          "worst_of_max_same_gate": TOL_GRAD_WORST_SAME_GATE}}
+    out["layer_train_long_cases"] = {**k4l, **k4f}
 
     # ---- K6 against its plain version on the path's inputs: the encoder's
     # (S=242, 10-row group table, 257 classes) and the decoder's (S=241,
@@ -1797,10 +1889,12 @@ def sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts
     step_ms = statistics.median(s_.elapsed_time(e_) for s_, e_ in events[2:])
     busy, split = device_split(lambda: train_step(state, batch, SF_WEIGHTS, optimizer,
                                                   model_args), iters=3)
-    groups = {"long K4 forward": ("qkv_kernel", "attn_ffn_kernel"),
-              "long K4 backward, row-local and attention": ("ffn_bwd_kernel", "attn_bwd_kernel",
-                                                            "qkv_bwd_kernel"),
-              "wgrad and reductions": ("wgrad_kernel", "reduce_partials"),
+    groups = {"long K4 forward": ("train_long_qkv_kernel", "train_long_attn_kernel",
+                                  "train_long_out_ffn_kernel"),
+              "long K4 backward, row-local and attention": ("bwd_ff_kernel",
+                                                            "bwd_attn_long_kernel",
+                                                            "bwd_qkv_kernel"),
+              "wgrad and reductions": ("wgrad_hopper_kernel", "reduce_partials"),
               "K5": K5_KERNELS, "K1 + K6": ("embedding",)}
     by_group = {name: sum(v for k, v in split.items() if any(p in k for p in pats))
                 for name, pats in groups.items()}
@@ -1827,40 +1921,18 @@ def sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts
     # decoder S=51, both in the long form)
     out["cli"] = run_cli(dev, reset_counts, read_counts, expected, "sketchformer")
 
-    # ---- times at the path's shapes: the long K4 at E1 (B=60, S=242), with
-    # nn.TransformerEncoderLayer in training mode as the library call
-    stage_times = {}
-    for what, (layer, x, sb, mask, causal) in {
-            "E1 S=242": (l_e, x_e1, None, kp_e1, False),
-            "decoder S=241 causal": (l_d, x_d, sb_d, kp_d, True)}.items():
-        fwd, both = k4_runs(layer_vjp.fused_layer_train, layer, x, sb, mask, causal, gen=gen)
-        pfwd, pboth = k4_runs(layer_vjp.plain_layer_train, layer, x, sb, mask, causal, gen=gen)
-        f_ms, fb_ms = cuda_ms(fwd), cuda_ms(both)
-        pf_ms, pfb_ms = cuda_ms(pfwd, iters=3, warmup=1), cuda_ms(pboth, iters=3, warmup=1)
-        bf_ms, bf_by = k4_bound(x, sb, f_ff, False, causal)
-        bb_ms, bb_by = k4_bound(x, sb, f_ff, True, causal)
-        stage_times[what] = {"fwd_ms": f_ms, "bwd_ms": fb_ms - f_ms, "plain_fwd_ms": pf_ms,
-                             "plain_bwd_ms": pfb_ms - pf_ms, "fwd_bound_ms": bf_ms,
-                             "fwd_bound_by": bf_by, "bwd_bound_ms": bb_ms, "bwd_bound_by": bb_by}
-    lib_t = library_layer(l_e, bf16, train=True)
-    x_lib = x_e1.detach().requires_grad_()
-    g_lib = torch.randn(x_lib.shape, device=dev, generator=gen).to(bf16)
-    pad_t = M.key_padding_mask(cmd_e)
-
-    def lib_fwd():
-        with torch.no_grad():
-            return lib_t(x_lib, src_key_padding_mask=pad_t)
-
-    def lib_both():
-        return torch.autograd.grad(lib_t(x_lib, src_key_padding_mask=pad_t),
-                                   [x_lib, *lib_t.parameters()], g_lib)
-    lib_f_ms, lib_fb_ms = cuda_ms(lib_fwd), cuda_ms(lib_both)
+    # ---- times at the path's shapes: the long K4 at E1 (B=60, S=242) and
+    # the causal decoder (S=241, seq_bias), with nn.TransformerEncoderLayer
+    # in training mode as the library call (E1's row)
+    stage_times = {
+        "E1 S=242": k4_long_row(layer_vjp, l_e, x_e1, None, kp_e1, False, gen),
+        "decoder S=241 causal": k4_long_row(layer_vjp, l_d, x_d, sb_d, kp_d, True, gen)}
     e1 = stage_times["E1 S=242"]
     kernels["layer_train_long_fwd"].update(
-        ms=e1["fwd_ms"], plain_ms=e1["plain_fwd_ms"], library_ms=lib_f_ms,
+        ms=e1["fwd_ms"], plain_ms=e1["plain_fwd_ms"], library_ms=e1["library_fwd_ms"],
         bound_ms=e1["fwd_bound_ms"], bound_by=e1["fwd_bound_by"], stages=stage_times)
     kernels["layer_train_long_bwd"].update(
-        ms=e1["bwd_ms"], plain_ms=e1["plain_bwd_ms"], library_ms=lib_fb_ms - lib_f_ms,
+        ms=e1["bwd_ms"], plain_ms=e1["plain_bwd_ms"], library_ms=e1["library_bwd_ms"],
         bound_ms=e1["bwd_bound_ms"], bound_by=e1["bwd_bound_by"])
 
     # K5 at 512 classes; F.linear + F.cross_entropy as the library call
@@ -1932,13 +2004,14 @@ def sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts
     out["phase_s"] = time.perf_counter() - t_phase
     record["sketchformer_train"] = out
     for what, st in stage_times.items():
-        print(f"  long K4 {what} B={B_RECIPE}: forward {st['fwd_ms']:.4f} ms (plain "
+        print(f"  long K4 {what} B={B_RECIPE}: forward {st['fwd_ms']:.4f} ms (device "
+              f"{st['device_fwd_ms']}; recompute mode {st['recompute_fwd_ms']:.4f}; plain "
               f"{st['plain_fwd_ms']:.4f}, bound {st['fwd_bound_ms']:.4f} by "
-              f"{st['fwd_bound_by']}), backward {st['bwd_ms']:.4f} ms (plain "
-              f"{st['plain_bwd_ms']:.4f}, bound {st['bwd_bound_ms']:.4f} by "
-              f"{st['bwd_bound_by']})")
-    print(f"  nn.TransformerEncoderLayer training mode at E1 S=242: forward {lib_f_ms:.4f} ms, "
-          f"backward {lib_fb_ms - lib_f_ms:.4f} ms")
+              f"{st['fwd_bound_by']}), backward {st['bwd_ms']:.4f} ms (device "
+              f"{st['device_bwd_ms']}; plain {st['plain_bwd_ms']:.4f}, bound "
+              f"{st['bwd_bound_ms']:.4f} by {st['bwd_bound_by']}); nn.TransformerEncoderLayer "
+              f"training mode on the same rows {st['library_fwd_ms']:.4f} / "
+              f"{st['library_bwd_ms']:.4f} ms")
     for name in ("args_ce_fwd_512", "args_ce_bwd_512", "embedding_bwd_long"):
         k = kernels[name]
         print(f"  {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
@@ -2202,15 +2275,47 @@ def float32_phase(dev, card, kernels, record, reset_counts, read_counts, library
     def cut_e1(m):
         return truncated_weights(m.encoder.encoder.layers[0], CONTROL_DROP_BITS)
 
-    step_launches = {"embedding_f32": 1, "layer_train_long_fwd": 8, "layer_train_long_bwd": 8,
-                     "stack_fwd": 2, "stack_bwd": 2, "args_ce_fwd_f32": 1, "args_ce_bwd_f32": 1,
-                     "embedding_bwd": 1}
+    step_launches = {"embedding_f32": 1, "layer_train_long_fwd_f32": 8,
+                     "layer_train_long_bwd_f32": 8, "stack_fwd": 2, "stack_bwd": 2,
+                     "args_ce_fwd_f32": 1, "args_ce_bwd_f32": 1, "embedding_bwd": 1}
     state, optimizer = step_state(flagship, DROPOUT)
     _, launches["train_step"] = counted(
         f"train_step B={B_RECIPE}",
         lambda: train_step(state, batch60, LOSS_WEIGHTS, optimizer, MODEL_ARGS), step_launches)
-    step_ms = cuda_median_ms(lambda: train_step(state, batch60, LOSS_WEIGHTS, optimizer,
-                                                MODEL_ARGS), iters=10, warmup=2)
+
+    def one_step():
+        train_step(state, batch60, LOSS_WEIGHTS, optimizer, MODEL_ARGS)
+    step_ms = cuda_median_ms(one_step, iters=10, warmup=2)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    for _ in range(10):
+        one_step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t_host) * 1e3 / 10
+    # where the step's device time goes (torch.profiler, 3 steps), as
+    # Sketchformer's phase reads it
+    busy, split_ms = device_split(one_step, iters=3)
+    groups = {"long K4 forward": ("train_qkv_kernel", "train_attn_kernel",
+                                  "train_out_ffn_kernel"),
+              "long K4 backward, row-local and attention":
+                  ("layer_f32_bwd::(anonymous namespace)::bwd_",),
+              "weight products (K4's TF32, K7's) and reductions":
+                  ("wgrad_tf32_kernel", "wgrad_kernel", "reduce_partials"),
+              "K7": ("stack_fwd_kernel", "stack_bwd_kernel"), "K5": K5_KERNELS,
+              "K1 + K6": ("embedding",)}
+    by_group = {name: sum(v for k, v in split_ms.items() if any(p in k for p in pats))
+                for name, pats in groups.items()}
+    if busy:
+        by_group["other"] = busy - sum(by_group.values())
+    out["train_step_device"] = {
+        "host_mean_ms_per_step": host_ms, "device_busy_ms_per_step": busy,
+        "idle_share": None if busy is None else 1 - busy / host_ms,
+        "device_ms_by_group": by_group,
+        "top": sorted(split_ms.items(), key=lambda kv: -kv[1])[:14]}
+    print(f"float32 flagship train_step B={B_RECIPE} dropout {DROPOUT}: host clock "
+          f"{host_ms:.3f} ms/step mean of 10; device busy {busy} ms per step, idle share "
+          f"{'not measured' if busy is None else round(1 - busy / host_ms, 4)}; device ms by "
+          f"part {({k: round(v, 3) for k, v in by_group.items()})} on {card}", flush=True)
     del state, optimizer
     res_k, grads_k = grads_of(flagship, LOSS_WEIGHTS)
     with plain_path(emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp):
@@ -2236,6 +2341,50 @@ def float32_phase(dev, card, kernels, record, reset_counts, read_counts, library
                          "control": ctrl}
     print(f"float32 flagship train_step B={B_RECIPE} dropout {DROPOUT}: {step_ms:.3f} ms/step "
           f"median of 10, {B_RECIPE / step_ms * 1e3:.1f} samples/s on {card}", flush=True)
+
+    # K4's float32 long form at the step's shapes, the trained layers: E1
+    # and D1 at B=60 (480 sequences of 32, key-padded; of 31 with seq_bias),
+    # and S=242 (60 sequences) on E1's layer; beside nn.TransformerEncoderLayer
+    k4m = flagship(DROPOUT)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cmd60 = batch60["commands"].flatten(0, 1)
+    d_m = cfg.d_model
+    with torch.no_grad():
+        x_e1f = torch.randn(*cmd60.shape, d_m, device=dev, generator=gen)
+        kp_e1f = key_padding_to_additive(M.key_padding_mask(cmd60))
+        x_d1f = torch.randn(cmd60.shape[0], cmd60.shape[1] - 1, d_m, device=dev, generator=gen)
+        sb_d1f = torch.randn(cmd60.shape[0], d_m, device=dev, generator=gen)
+        x_242 = torch.randn(B_RECIPE, 242, d_m, device=dev, generator=gen)
+        kp_242 = torch.where(torch.arange(242, device=dev)[None] < torch.randint(
+            100, 243, (B_RECIPE, 1), device=dev, generator=gen), 0.0, float("-inf"))
+    l_e1f, l_d1f = k4m.encoder.encoder.layers[0], k4m.decoder.decoder.layers[0]
+    k4_rows = {
+        f"E1 {tuple(x_e1f.shape[:2])}": k4_long_row(layer_vjp, l_e1f, x_e1f, None, kp_e1f,
+                                                    False, gen),
+        f"D1 {tuple(x_d1f.shape[:2])} seq_bias": k4_long_row(
+            layer_vjp, l_d1f, x_d1f, sb_d1f, torch.zeros(x_d1f.shape[:2], device=dev), False,
+            gen),
+        f"S=242 {tuple(x_242.shape[:2])}": k4_long_row(layer_vjp, l_e1f, x_242, None, kp_242,
+                                                       False, gen)}
+    e1 = next(iter(k4_rows.values()))
+    kernels["layer_train_long_fwd_f32"].update(
+        ms=e1["fwd_ms"], plain_ms=e1["plain_fwd_ms"], library_ms=e1["library_tf32_fwd_ms"],
+        library_full_f32_ms=e1["library_fwd_ms"], bound_ms=e1["fwd_bound_ms"],
+        bound_by=e1["fwd_bound_by"], stages=k4_rows)
+    kernels["layer_train_long_bwd_f32"].update(
+        ms=e1["bwd_ms"], plain_ms=e1["plain_bwd_ms"], library_ms=e1["library_tf32_bwd_ms"],
+        library_full_f32_ms=e1["library_bwd_ms"], bound_ms=e1["bwd_bound_ms"],
+        bound_by=e1["bwd_bound_by"])
+    for what, r in k4_rows.items():
+        print(f"  long K4 float32 {what}: forward {r['fwd_ms']:.4f} ms (device "
+              f"{r['device_fwd_ms']}; recompute mode {r['recompute_fwd_ms']:.4f}), backward "
+              f"{r['bwd_ms']:.4f} (device {r['device_bwd_ms']}); plain {r['plain_fwd_ms']:.4f} / "
+              f"{r['plain_bwd_ms']:.4f}; bound {r['fwd_bound_ms']:.4f} / {r['bwd_bound_ms']:.4f}; "
+              f"library TF32 {r['library_tf32_fwd_ms']:.4f} / {r['library_tf32_bwd_ms']:.4f}, "
+              f"full float32 {r['library_fwd_ms']:.4f} / {r['library_bwd_ms']:.4f} on {card}",
+              flush=True)
+    del k4m, x_e1f, x_d1f, x_242
+    torch.cuda.empty_cache()
     del model
     torch.cuda.empty_cache()
 
@@ -2487,7 +2636,9 @@ def float32_phase(dev, card, kernels, record, reset_counts, read_counts, library
             "args_ce_bwd_f32": launches["train_step"]["args_ce_bwd_f32"],
             "args_ce_pairwise_f32": launches["selfmatch_step"]["args_ce_pairwise_f32"],
             "decode_f32": launches["greedy_sample"]["decode_f32"],
-            "layer_long_f32": launches["greedy_sample"]["layer_long_f32"]}
+            "layer_long_f32": launches["greedy_sample"]["layer_long_f32"],
+            "layer_train_long_fwd_f32": launches["train_step"]["layer_train_long_fwd_f32"],
+            "layer_train_long_bwd_f32": launches["train_step"]["layer_train_long_bwd_f32"]}
 
 
 def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> dict:
@@ -2990,7 +3141,7 @@ def recompute_phase(dev, card, kernels, record, reset_counts, read_counts,
         {"embedding_f32": 1, "layer_train_long_recompute_fwd": 8,
          "layer_train_long_recompute_bwd": 8, "stack_fwd": 2, "stack_bwd": 2,
          "args_ce_fwd_f32": 1, "args_ce_bwd_f32": 1, "embedding_bwd": 1},
-        {"embedding_f32": 1, "layer_train_long_fwd": 8, "layer_train_long_bwd": 8,
+        {"embedding_f32": 1, "layer_train_long_fwd_f32": 8, "layer_train_long_bwd_f32": 8,
          "stack_fwd": 2, "stack_bwd": 2, "args_ce_fwd_f32": 1, "args_ce_bwd_f32": 1,
          "embedding_bwd": 1},
         *flagship_saves(B_RECIPE, 4, False))
@@ -3100,10 +3251,11 @@ def main() -> int:
         layer_vjp.fused_layer_train.backward_launches = 0
         layer_vjp.fused_layer_train_long.launches = 0
         layer_vjp.fused_layer_train_long.backward_launches = 0
+        layer_vjp.fused_layer_train_long.float32_launches = 0
+        layer_vjp.fused_layer_train_long.float32_backward_launches = 0
         for fn in (layer_vjp.fused_layer_train, layer_vjp.fused_layer_train_long):
             fn.recompute_launches = fn.recompute_backward_launches = 0
-        layer_vjp.fused_layer_train.narrow_launches = 0
-        layer_vjp.fused_layer_train.narrow_backward_launches = 0
+            fn.narrow_launches = fn.narrow_backward_launches = 0
         ce_ops.args_ce.launches = ce_ops.args_ce.backward_launches = 0
         stack_vjp.fused_stack_train.launches = 0
         stack_vjp.fused_stack_train.backward_launches = 0
@@ -3134,8 +3286,9 @@ def main() -> int:
                 **split(ce_ops.args_ce_pairwise, "args_ce_pairwise"),
                 **split(layer_ops.fused_layer_long, "layer_long"),
                 **split(decode_ops.fused_decode_step, "decode"),
-                "layer_train_long_fwd": layer_vjp.fused_layer_train_long.launches,
-                "layer_train_long_bwd": layer_vjp.fused_layer_train_long.backward_launches,
+                **split(layer_vjp.fused_layer_train_long, "layer_train_long_fwd"),
+                **split(layer_vjp.fused_layer_train_long, "layer_train_long_bwd",
+                        "backward_launches", "float32_backward_launches"),
                 "mha": attn_ops.fused_mha.launches,
                 "mha_train_fwd": attention_vjp.fused_mha_train.launches,
                 "mha_train_bwd": attention_vjp.fused_mha_train.backward_launches,
@@ -3150,6 +3303,10 @@ def main() -> int:
                 # (none on any path here: every count expected 0)
                 "layer_train_narrow_fwd": layer_vjp.fused_layer_train.narrow_launches,
                 "layer_train_narrow_bwd": layer_vjp.fused_layer_train.narrow_backward_launches,
+                # K4's float32 long form at widths below its Hopper kernels' (none here)
+                "layer_train_long_narrow_fwd": layer_vjp.fused_layer_train_long.narrow_launches,
+                "layer_train_long_narrow_bwd":
+                    layer_vjp.fused_layer_train_long.narrow_backward_launches,
                 # K2's float32 form at widths below its wgmma kernels' (none here)
                 "layer_narrow_f32": (layer_ops.fused_layer.narrow_launches
                                      + layer_ops.fused_layer_long.narrow_launches)}
@@ -3442,11 +3599,7 @@ def main() -> int:
                 "bound_ms": b_ms, "bound_by": b_by}
 
         def library_layer(layer, dtype, train=False):
-            lib = torch.nn.TransformerEncoderLayer(
-                layer.qkv.in_features, layer.n_heads, layer.ff1.out_features, dropout=0.0,
-                activation="relu", batch_first=True, norm_first=True, device=dev, dtype=dtype)
-            copy_layer(lib, layer)
-            return lib.train() if train else lib.eval()
+            return transformer_layer(layer, dtype, dev, train)
 
         def library_stack(layers, dtype):
             """torch.nn.TransformerEncoder of ``layers`` (no final norm),
@@ -3456,19 +3609,6 @@ def main() -> int:
             for lib_layer, layer in zip(lib.layers, layers):
                 copy_layer(lib_layer, layer)
             return lib.train()
-
-        def copy_layer(lib, layer):
-            with torch.no_grad():
-                lib.self_attn.in_proj_weight.copy_(layer.qkv.weight)
-                lib.self_attn.in_proj_bias.copy_(layer.qkv.bias)
-                lib.self_attn.out_proj.weight.copy_(layer.out_proj.weight)
-                lib.self_attn.out_proj.bias.copy_(layer.out_proj.bias)
-                for dst, src in ((lib.linear1, layer.ff1), (lib.linear2, layer.ff2)):
-                    dst.weight.copy_(src.weight)
-                    dst.bias.copy_(src.bias)
-                for dst, src in ((lib.norm1, layer.norm1), (lib.norm2, layer.norm2)):
-                    dst.weight.copy_(src[0])
-                    dst.bias.copy_(src[1])
 
         lib = library_layer(l_e1, bf16)
         pad_bool = M.key_padding_mask(cmd_f)
@@ -4280,7 +4420,7 @@ def main() -> int:
 
     # ============================================ Sketchformer's training phase
     sf_launches = sketchformer_train_phase(dev, card, kernels, record, yardstick, reset_counts,
-                                           read_counts, library_layer)
+                                           read_counts)
 
     # ============================================ the float32 models
     f32_launches = float32_phase(dev, card, kernels, record, reset_counts, read_counts,
@@ -4339,10 +4479,11 @@ def main() -> int:
         "layer_long": (csrc + "layer_infer.cuh", "deepsvg_tpu/ops/layer.py:108"),
         "layer_long_f32": (csrc + "layer_f32.cu", "deepsvg_tpu/ops/layer.py:108"),
         "decode": (csrc + "decode.cu", "deepsvg_tpu/ops/decode.py:43"),
-        "layer_train_long_fwd": (csrc + "layer_long_train.cu",
-                                 "deepsvg_tpu/ops/layer_vjp.py:179"),
-        "layer_train_long_bwd": (csrc + "layer_long_train.cu",
-                                 "deepsvg_tpu/ops/layer_vjp.py:281"),
+        "layer_train_long_fwd": (csrc + "layer_long.cu", "deepsvg_tpu/ops/layer_vjp.py:179"),
+        "layer_train_long_bwd": (csrc + "layer_bwd.cu", "deepsvg_tpu/ops/layer_vjp.py:281"),
+        "layer_train_long_fwd_f32": (csrc + "layer_f32.cu", "deepsvg_tpu/ops/layer_vjp.py:179"),
+        "layer_train_long_bwd_f32": (csrc + "layer_f32_bwd.cu",
+                                     "deepsvg_tpu/ops/layer_vjp.py:281"),
         "args_ce_fwd_512": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:30"),
         "args_ce_bwd_512": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:81"),
         "embedding_bwd_long": (csrc + "embedding_bwd.cu", "deepsvg_tpu/ops/embedding.py:133"),
@@ -4358,7 +4499,7 @@ def main() -> int:
         "layer_train_recompute_fwd": (csrc + "layer_train.cuh",
                                       "deepsvg_tpu/ops/layer_vjp.py:179"),
         "layer_train_recompute_bwd": (csrc + "layer_bwd.cu", "deepsvg_tpu/ops/layer_vjp.py:298"),
-        "layer_train_long_recompute_fwd": (csrc + "layer_long_train.cu",
+        "layer_train_long_recompute_fwd": (csrc + "layer_long.cu",
                                            "deepsvg_tpu/ops/layer_vjp.py:179"),
         "layer_train_long_recompute_bwd": (csrc + "layer_long_train.cu",
                                            "deepsvg_tpu/ops/layer_vjp.py:298"),

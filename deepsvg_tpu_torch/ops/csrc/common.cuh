@@ -76,6 +76,15 @@ __device__ __forceinline__ bool keep_elem(unsigned key, unsigned row, unsigned c
   return (fmix32(fmix32(row ^ key) + col) >> 8) >= thr;
 }
 
+// keep_elem in two parts, for the many columns of one row: the row's hash
+// once, then each column's
+__device__ __forceinline__ unsigned row_hash(unsigned key, unsigned row) {
+  return fmix32(row ^ key);
+}
+__device__ __forceinline__ bool keep_col(unsigned rh, unsigned col, unsigned thr) {
+  return (fmix32(rh + col) >> 8) >= thr;
+}
+
 // the seed of layer `layer` of a fused stack (K7): layer l of a stack drops
 // exactly what one layer (K4) run with this seed drops. The same mix is
 // written in ops/dropout.py:stack_layer_seed; the result is below 2^31.

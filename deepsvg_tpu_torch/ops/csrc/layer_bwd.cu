@@ -174,8 +174,9 @@ __global__ void __launch_bounds__(THREADS, 1)
                   *reinterpret_cast<uint4*>(b.xn2 + row * DM + c0) = pack8(xn);
                 });
     named_barrier(1, CONSUMERS);  // every row's dx1 is written
-    // dseq_bias: dx1 summed over each sequence, in row order
-    for (int e = ln.tid; e < nvalid * DM; e += CONSUMERS) {
+    // dseq_bias: dx1 summed over each sequence, in row order (the long form's
+    // tiles cut sequences: its attention launch sums them, b.dbias null here)
+    for (int e = ln.tid; b.dbias != nullptr && e < nvalid * DM; e += CONSUMERS) {
       const int sq = e / DM, col = e - sq * DM;
       const float* src = b.dx1 + (row0 + (size_t)sq * b.S) * DM + col;
       float s = 0.f;
@@ -294,6 +295,278 @@ __global__ void __launch_bounds__(THREADS, 1)
   write_sums(sums, b.small, 0);
 }
 
+// ---------------------------------------------------------------- long form
+// K4's bfloat16 long form (33 <= S <= 256), saved mode: the row launches
+// above on 128-row tiles of all rows (a sequence cut by the tiles: each row
+// a "sequence" of one to them, dseq_bias taken here instead), and this
+// attention backward, one (tile of whole sequences, head) a block, the
+// short form's roundings. Each warp owns 16 query rows: dP = dctx V^T a
+// 16-key step at a time (mma.sync m16n8k16), the saved probabilities and
+// their dropout factors, dsum = sum_j dp p in a first pass, ds = p (dp -
+// dsum) and dQ = dS K in a second (dS rounded to bf16 straight from the
+// accumulators); then 16 key rows: dP^T = V dctx^T, dS^T and Pe^T from it,
+// dK = dS^T Q and dV = Pe^T dctx in registers over the query steps in order.
+// The saved probabilities are read from device memory a step ahead of use.
+constexpr int LONG_AT = 256;                   // rows of the attention tile
+constexpr uint32_t LONG_HEAD = LONG_AT * LDH * 2;  // a head's Q, K, V or dctx rows
+
+// (two blocks an SM: at most 128 registers a thread)
+__global__ void __launch_bounds__(CONSUMERS, 2)
+    bwd_attn_long_kernel(const __grid_constant__ Bwd b, int causal) {
+  unsigned char* base = smem_base();
+  const uint32_t qs = smem_u32(base), ks = qs + LONG_HEAD, vs = ks + LONG_HEAD,
+                 cs = vs + LONG_HEAD;
+  float* dsum_s = reinterpret_cast<float*>(base + 4 * LONG_HEAD);
+  const int tile = blockIdx.x, h = blockIdx.y, S = b.S;
+  const int seq0 = tile * b.nseq;
+  const int nvalid = min(b.nseq, b.B - seq0);
+  const int nrows = nvalid * S;
+  const size_t row0 = (size_t)seq0 * S;
+  for (int idx = threadIdx.x; idx < 4 * LONG_AT * 4; idx += CONSUMERS) {
+    const int m = idx / (LONG_AT * 4), r = (idx >> 2) % LONG_AT, c = idx & 3;
+    const size_t row = row0 + (r < nrows ? r : 0);
+    const bf16* src = m < 3 ? b.qkv + row * QKV_W + m * DM + h * HEAD_DIM
+                            : b.dctx + row * DM + h * HEAD_DIM;
+    cp_async16(qs + m * LONG_HEAD + r * LDH * 2 + 16 * c, src + 8 * c, r < nrows);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (h == 0)
+    for (int e = threadIdx.x; e < nvalid * DM; e += CONSUMERS) {
+      const int sq = e / DM, col = e - sq * DM;
+      const float* d1 = b.dx1 + (row0 + (size_t)sq * S) * DM + col;
+      float s = 0.f;
+      for (int i = 0; i < S; ++i) s += d1[(size_t)i * DM];
+      b.dbias[(size_t)(seq0 + sq) * DM + col] = s;
+    }
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const unsigned key_ap = site_key(b.seed, SITE_ATTN_PROB);
+  const float sl = b.scale;
+  // the saved probability of (query, key) of the tile's sequence sq, their
+  // indices within it
+  auto p_at = [&](int sq, int q, int k) -> float {
+    return bf2f(b.p[(((size_t)(seq0 + sq) * NH + h) * S + q) * S + k]);
+  };
+
+  // ---- the warp's 16 query rows
+#pragma unroll 1
+  for (int blk = w; blk < LONG_AT / 16; blk += 8) {
+    const int q0 = 16 * blk;
+    if (q0 >= nrows) break;
+    const int qlast = min(q0 + 15, nrows - 1);
+    const int kstart = (q0 / S) * S;
+    const int kend = causal ? qlast + 1 : (qlast / S + 1) * S;
+    const int nk16 = (kend - kstart + 15) >> 4;
+    int lo[2], hi[2];
+    unsigned prow[2], rh[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = q0 + g + 8 * rr;
+      lo[rr] = hi[rr] = 0;
+      prow[rr] = 0u;
+      if (i < nrows) {
+        lo[rr] = (i / S) * S;
+        hi[rr] = causal ? i + 1 : lo[rr] + S;
+        prow[rr] = (unsigned)(((seq0 + i / S) * NH + h) * S + (i - lo[rr]));
+      }
+      rh[rr] = row_hash(key_ap, prow[rr]);
+    }
+    uint32_t cf[2][4];
+    load_a(cf[0], cs, LDH, q0, 0, lane);
+    load_a(cf[1], cs, LDH, q0, 16, lane);
+    float dsum[2] = {0.f, 0.f};
+    float oq[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) oq[j][0] = oq[j][1] = oq[j][2] = oq[j][3] = 0.f;
+    // the saved probabilities of the thread's rows at the 16-key step u:
+    // pv[nt][rr][e] at key kstart + 16 u + 8 nt + 2 t4 + e (0 off the row's
+    // keys; one 4-byte load where both of a pair are the row's and
+    // aligned), loaded a step ahead of their use
+    auto load_p = [&](int u, float (&pv)[2][2][2]) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int j0 = kstart + 16 * u + 8 * nt + 2 * t4;
+          const bool in0 = j0 >= lo[rr] && j0 < hi[rr], in1 = j0 + 1 >= lo[rr] && j0 + 1 < hi[rr];
+          const bf16* at = b.p + (size_t)prow[rr] * S + (j0 - lo[rr]);
+          pv[nt][rr][0] = pv[nt][rr][1] = 0.f;
+          if (in0 && in1 && !(reinterpret_cast<uintptr_t>(at) & 3)) {
+            const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+            pv[nt][rr][0] = v.x;
+            pv[nt][rr][1] = v.y;
+          } else {
+            if (in0) pv[nt][rr][0] = bf2f(at[0]);
+            if (in1) pv[nt][rr][1] = bf2f(at[1]);
+          }
+        }
+    };
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+      float pn[2][2][2];
+      load_p(0, pn);
+#pragma unroll 1
+      for (int u = 0; u < nk16; ++u) {
+        float pv[2][2][2];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) (&pv[0][0][0])[e] = (&pn[0][0][0])[e];
+        if (u + 1 < nk16) load_p(u + 1, pn);
+        float ds[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          // dPe of keys kstart + 16 u + 8 nt + [0, 8)
+          const int kr = min(kstart + 16 * u + 8 * nt + (lane & 7), LONG_AT - 1);
+          uint32_t bb[4];
+          ldmatrix_x4<false>(bb, vs + kr * (LDH * 2) + (lane >> 3) * 16);
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_m16n8k16_bf16(d, cf[0], bb[0], bb[1]);
+          mma_m16n8k16_bf16(d, cf[1], bb[2], bb[3]);
+          const int j0 = kstart + 16 * u + 8 * nt + 2 * t4;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int rr = i >> 1, e = i & 1, j = j0 + e;
+            ds[nt][i] = 0.f;
+            if (j >= lo[rr] && j < hi[rr]) {
+              const float dp = b.thr == 0u ? d[i]
+                             : (keep_col(rh[rr], (unsigned)(j - lo[rr]), b.thr) ? d[i] * b.kp : 0.f);
+              if (pass == 0) dsum[rr] += dp * pv[nt][rr][e];
+              else ds[nt][i] = pv[nt][rr][e] * (dp - dsum[rr]);
+            }
+          }
+        }
+        if (pass == 1) {
+          const uint32_t a[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                                 pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+          const int kr = min(kstart + 16 * u + (lane & 7) + ((lane >> 3) & 1) * 8, LONG_AT - 1);
+#pragma unroll
+          for (int dd = 0; dd < 2; ++dd) {
+            uint32_t bb[4];
+            ldmatrix_x4<true>(bb, ks + kr * (LDH * 2) + (16 * dd + 8 * (lane >> 4)) * 2);
+            mma_m16n8k16_bf16(oq[2 * dd], a, bb[0], bb[1]);
+            mma_m16n8k16_bf16(oq[2 * dd + 1], a, bb[2], bb[3]);
+          }
+        }
+      }
+      if (pass == 0) {
+        dsum[0] = quad_sum(dsum[0]);
+        dsum[1] = quad_sum(dsum[1]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = q0 + g + 8 * rr;
+      if (i >= nrows) continue;
+      if (t4 == 0) dsum_s[i] = dsum[rr];
+      bf16* o = b.dqkv + (row0 + i) * QKV_W + h * HEAD_DIM + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<uint32_t*>(o + 8 * j) = pack_bf16(oq[j][2 * rr] * sl, oq[j][2 * rr + 1] * sl);
+    }
+  }
+  __syncthreads();  // every row's dsum is in
+
+  // ---- the warp's 16 key rows
+#pragma unroll 1
+  for (int blk = w; blk < LONG_AT / 16; blk += 8) {
+    const int j0 = 16 * blk;
+    if (j0 >= nrows) break;
+    const int jl = min(j0 + 15, nrows - 1);
+    const int qa = causal ? j0 : (j0 / S) * S;
+    const int qend = (jl / S + 1) * S;
+    const int nq16 = (qend - qa + 15) >> 4;
+    int jj[2], kseq[2], klo[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      jj[rr] = j0 + g + 8 * rr;
+      kseq[rr] = jj[rr] < nrows ? jj[rr] / S : -1;
+      klo[rr] = kseq[rr] * S;
+    }
+    uint32_t vf[2][4];
+    load_a(vf[0], vs, LDH, j0, 0, lane);
+    load_a(vf[1], vs, LDH, j0, 16, lane);
+    float ok[4][4], ov[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ok[j][e] = ov[j][e] = 0.f;
+    // whether query q sees key row rr: the key's sequence's queries (up to
+    // the key when causal)
+    auto sees = [&](int rr, int q) {
+      return kseq[rr] >= 0 && q >= (causal ? jj[rr] : klo[rr]) && q < klo[rr] + S;
+    };
+    // the saved probabilities of the 16-query step u: pv[nt][i] at query qa
+    // + 16 u + 8 nt + 2 t4 + (i & 1), key row i >> 1 (0 where unseen),
+    // loaded a step ahead of their use
+    auto load_p = [&](int u, float (&pv)[2][4]) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int rr = i >> 1, q = qa + 16 * u + 8 * nt + 2 * t4 + (i & 1);
+          pv[nt][i] = sees(rr, q) ? p_at(kseq[rr], q - klo[rr], jj[rr] - klo[rr]) : 0.f;
+        }
+    };
+    float pn[2][4];
+    load_p(0, pn);
+#pragma unroll 1
+    for (int u = 0; u < nq16; ++u) {
+      const int qb = qa + 16 * u;
+      float pv[2][4];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) (&pv[0][0])[e] = (&pn[0][0])[e];
+      if (u + 1 < nq16) load_p(u + 1, pn);
+      float ds[2][4], pe[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        // dPe^T of queries qb + 8 nt + [0, 8)
+        const int qr = min(qb + 8 * nt + (lane & 7), LONG_AT - 1);
+        uint32_t bb[4];
+        ldmatrix_x4<false>(bb, cs + qr * (LDH * 2) + (lane >> 3) * 16);
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_m16n8k16_bf16(d, vf[0], bb[0], bb[1]);
+        mma_m16n8k16_bf16(d, vf[1], bb[2], bb[3]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int rr = i >> 1, q = qb + 8 * nt + 2 * t4 + (i & 1);
+          ds[nt][i] = pe[nt][i] = 0.f;
+          if (sees(rr, q)) {
+            const unsigned pr = (unsigned)(((seq0 + kseq[rr]) * NH + h) * S + (q - klo[rr]));
+            const float km = drop_at(1.f, key_ap, pr, jj[rr] - klo[rr], b.thr, b.kp);
+            pe[nt][i] = pv[nt][i] * km;
+            ds[nt][i] = pv[nt][i] * (d[i] * km - dsum_s[q]);
+          }
+        }
+      }
+      const uint32_t ad[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                              pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+      const uint32_t ap[4] = {pack_bf16(pe[0][0], pe[0][1]), pack_bf16(pe[0][2], pe[0][3]),
+                              pack_bf16(pe[1][0], pe[1][1]), pack_bf16(pe[1][2], pe[1][3])};
+      const int qr = min(qb + (lane & 7) + ((lane >> 3) & 1) * 8, LONG_AT - 1);
+#pragma unroll
+      for (int dd = 0; dd < 2; ++dd) {
+        uint32_t bq[4], bc[4];
+        ldmatrix_x4<true>(bq, qs + qr * (LDH * 2) + (16 * dd + 8 * (lane >> 4)) * 2);
+        ldmatrix_x4<true>(bc, cs + qr * (LDH * 2) + (16 * dd + 8 * (lane >> 4)) * 2);
+        mma_m16n8k16_bf16(ok[2 * dd], ad, bq[0], bq[1]);
+        mma_m16n8k16_bf16(ok[2 * dd + 1], ad, bq[2], bq[3]);
+        mma_m16n8k16_bf16(ov[2 * dd], ap, bc[0], bc[1]);
+        mma_m16n8k16_bf16(ov[2 * dd + 1], ap, bc[2], bc[3]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (jj[rr] >= nrows) continue;
+      bf16* o = b.dqkv + (row0 + jj[rr]) * QKV_W + h * HEAD_DIM + 2 * t4;
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        *reinterpret_cast<uint32_t*>(o + DM + 8 * d) = pack_bf16(ok[d][2 * rr] * sl, ok[d][2 * rr + 1] * sl);
+        *reinterpret_cast<uint32_t*>(o + 2 * DM + 8 * d) = pack_bf16(ov[d][2 * rr], ov[d][2 * rr + 1]);
+      }
+    }
+  }
+}
+
 // the persistent grid of the row-local launches: one row of LayerNorm
 // partial sums a block
 int train_bwd_grid(int B, int S) {
@@ -305,8 +578,9 @@ int train_bwd_grid(int B, int S) {
 // pointers (small_part [grid][4 D]), then the scratch dx1 (f32), dctx
 // (bf16) and dy (f32), all [B*S][D].
 int launch_train_bwd(void* const* t, int B, int S, int F, int seed, int thr, float kp,
-                     float scale, cudaStream_t stream) {
-  if (S < 1 || S > 32 || F % FC || F > MAX_F) return (int)cudaErrorInvalidValue;
+                     float scale, cudaStream_t stream, bool long_form = false, int causal = 0) {
+  if (S < 1 || S > (long_form ? LONG_S : 32) || F % FC || F > MAX_F)
+    return (int)cudaErrorInvalidValue;
   Bwd b;
   b.x = (const bf16*)t[0];
   b.g = (const bf16*)t[1];
@@ -339,6 +613,16 @@ int launch_train_bwd(void* const* t, int B, int S, int F, int seed, int thr, flo
   b.kp = kp;
   b.scale = scale;
   const long long rows = (long long)B * S;
+  Bwd rows_b = b;  // the row launches' view: the long form's tiles cut sequences
+  if (long_form) {
+    rows_b.B = (int)rows;
+    rows_b.S = 1;
+    rows_b.nseq = TR;
+    rows_b.ntiles = (int)((rows + TR - 1) / TR);
+    rows_b.dbias = nullptr;
+    b.nseq = LONG_AT / S;
+    b.ntiles = (B + b.nseq - 1) / b.nseq;
+  }
   FfBwdMaps fm;
   QkvBwdMaps qm;
   int rc = bind_device_of(t[0]);
@@ -349,17 +633,22 @@ int launch_train_bwd(void* const* t, int B, int S, int F, int seed, int thr, flo
   if (rc == 0) rc = make_tma_2d(&qm.dqkv, t[16], false, QKV_W, (uint64_t)rows, QKV_W * 2, 64, TR);
   if (rc == 0) rc = make_tma_2d(&qm.wqkv, t[3], false, DM, QKV_W, DM * 2, 64, 64);
   if (rc) return rc;
-  const int grid = train_bwd_grid(B, S);
+  const int grid = train_bwd_grid(rows_b.B, rows_b.S);
   const uint32_t ff_smem = FfBwdLayout().total, attn_smem = AttnBwdLayout().total,
-                 qkv_smem = QkvBwdLayout().total;
+                 qkv_smem = QkvBwdLayout().total,
+                 long_smem = 4 * LONG_HEAD + LONG_AT * 4 + 1024;
   if ((rc = prepare(bwd_ff_kernel, ff_smem)) || (rc = prepare(bwd_attn_kernel, attn_smem)) ||
-      (rc = prepare(bwd_qkv_kernel, qkv_smem)))
+      (rc = prepare(bwd_qkv_kernel, qkv_smem)) ||
+      (long_form && (rc = prepare(bwd_attn_long_kernel, long_smem))))
     return rc;
-  bwd_ff_kernel<<<grid, THREADS, ff_smem, stream>>>(fm, b);
+  bwd_ff_kernel<<<grid, THREADS, ff_smem, stream>>>(fm, rows_b);
   if ((rc = (int)cudaGetLastError())) return rc;
-  bwd_attn_kernel<<<std::min(b.ntiles, 2 * sm_count()), CONSUMERS, attn_smem, stream>>>(b);
+  if (long_form)
+    bwd_attn_long_kernel<<<dim3(b.ntiles, NH), CONSUMERS, long_smem, stream>>>(b, causal);
+  else
+    bwd_attn_kernel<<<std::min(b.ntiles, 2 * sm_count()), CONSUMERS, attn_smem, stream>>>(b);
   if ((rc = (int)cudaGetLastError())) return rc;
-  bwd_qkv_kernel<<<grid, THREADS, qkv_smem, stream>>>(qm, b);
+  bwd_qkv_kernel<<<grid, THREADS, qkv_smem, stream>>>(qm, rows_b);
   return (int)cudaGetLastError();
 }
 
@@ -429,6 +718,25 @@ extern "C" int dsvg_layer_bwd_rows(int is_f32) { return is_f32 ? 16 : 32; }
 
 // The bfloat16 wgmma form's blocks (rows of its partial sums [blocks][4 D]).
 extern "C" int dsvg_layer_train_bwd_grid(int B, int S) { return layer_train::train_bwd_grid(B, S); }
+
+// The same for the bfloat16 long form, whose row launches take 128-row tiles
+// of all B*S rows.
+extern "C" int dsvg_layer_long_train_bwd_grid(int B, int S) {
+  return layer_train::train_bwd_grid(B * S, 1);
+}
+
+// K4's bfloat16 long form, saved mode, at D = 256 with 8 heads, F a
+// multiple of 64 up to 1024, 1 <= S <= 256: the three row-local launches as
+// dsvg_layer_train_bwd's wgmma form (`tensors` in its order: small_part
+// [dsvg_layer_long_train_bwd_grid][4 D], then the scratch dx1, dctx, dy),
+// the attention by bwd_attn_long_kernel; the weight products are
+// dsvg_wgrad_hopper's.
+extern "C" int dsvg_layer_long_train_bwd_bf16(void* const* tensors, int B, int S, int F,
+                                              int causal, int seed, int thr, float kp,
+                                              float scale, void* stream) {
+  return layer_train::launch_train_bwd(tensors, B, S, F, seed, thr, kp, scale,
+                                       (cudaStream_t)stream, true, causal);
+}
 
 // `tensors`: the 23 device pointers of BwdParams, in its order. bfloat16 at
 // D = 256, 8 heads (the wgmma form): small_part is [blocks][4 D] and three

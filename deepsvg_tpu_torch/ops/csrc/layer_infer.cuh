@@ -367,12 +367,14 @@ __device__ __forceinline__ float quad_sum(float v) {
 // 8 j + [0, 8). MAXT: the most 16-key steps the rows' keys span (4 in the
 // short form, 16 in the long): every score stays in registers, so the
 // softmax is exact and two-pass, each probability 2^(s - max) / sum rounded
-// to bf16 before P V, as the plain version's. `drop(p, rr, j)` gives the
-// probability of the thread's row rr (tile row q0 + lane / 4 + 8 rr) at key
-// row j as P V takes it (the training forward's dropout and save,
-// layer_train.cuh); K2 takes it as it is.
+// to bf16 before P V, as the plain version's. `drop.pair(p0, p1, rr, j)`
+// gives the probabilities of the thread's row rr (tile row q0 + lane / 4 +
+// 8 rr) at key rows j and j + 1 as P V takes them, packed (the training
+// forward's dropout and save, layer_train.cuh); K2 takes them as they are.
 struct NoDrop {
-  __device__ __forceinline__ float operator()(float p, int, int) const { return p; }
+  __device__ __forceinline__ uint32_t pair(float p0, float p1, int, int) const {
+    return pack_bf16(p0, p1);
+  }
 };
 
 template <int MAXT, class Drop = NoDrop>
@@ -453,7 +455,7 @@ __device__ __forceinline__ void attend_rows(const uint32_t (&qf)[2][4], uint32_t
       for (int q = 0; q < 4; ++q) {
         const float* sv = s[2 * u + (q >> 1)];
         const int rr = q & 1, j = kstart + 16 * u + 8 * (q >> 1) + 2 * t4;
-        a[q] = pack_bf16(drop(sv[2 * rr] * inv[rr], rr, j), drop(sv[2 * rr + 1] * inv[rr], rr, j + 1));
+        a[q] = drop.pair(sv[2 * rr] * inv[rr], sv[2 * rr + 1] * inv[rr], rr, j);
       }
       const int kr = min(kstart + 16 * u + (lane & 7) + ((lane >> 3) & 1) * 8, krows - 1);
 #pragma unroll

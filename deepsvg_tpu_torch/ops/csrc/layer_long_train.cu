@@ -1,6 +1,8 @@
 // K4, long form (see ops/layer_vjp.py): the training layer over sequences of
 // 17 to 256 rows (float activations) or 33 to 256 (bf16), which a block
-// cannot hold whole.
+// cannot hold whole, at the widths its Hopper kernels do not take (those:
+// layer_long.cu's and layer_f32.cu's training launches forward,
+// layer_bwd.cu's and layer_f32_bwd.cu's backward). The older wmma design:
 //
 // Forward: the long K2's two launches (layer_long.cuh) with the training
 // switch: dropout at the four sites and the saved tensors (QKV, the

@@ -103,16 +103,17 @@ __device__ __forceinline__ float drop_at(float v, unsigned key, size_t row, int 
   return thr == 0u ? v : (keep_elem(key, (unsigned)row, (unsigned)col, thr) ? v * kp : 0.f);
 }
 
-// attend_rows' hook in the training forward: saves the probability of the
-// thread's row rr (tile rows i0 and i0 + 8) at key row j (its sequence's
-// keys only) and returns it with dropout. The rows' sequence start and
-// probability row are reckoned once a head.
+// attend_rows' hook in the training forward: saves the probabilities of the
+// thread's row rr (tile rows i0 and i0 + 8) at key rows j and j + 1 (its
+// sequence's keys only; one 4-byte store where the pair is aligned) and
+// returns them with dropout, packed. The rows' sequence start, probability
+// row and its hash are reckoned once a head.
 struct AttnDrop {
   bf16* p;  // the saved probabilities, or null
   unsigned key, thr;
   float kp;
   int S, lo[2];  // lo: the row's first key, or -S - 1 past the tile's rows
-  unsigned prow[2];
+  unsigned prow[2], rh[2];  // the probability row and its hash
   __device__ __forceinline__ AttnDrop(bf16* p_, unsigned key_, unsigned thr_, float kp_, int seq0,
                                       int S_, int h, int nrows, int i0)
       : p(p_), key(key_), thr(thr_), kp(kp_), S(S_) {
@@ -121,13 +122,27 @@ struct AttnDrop {
       const int i = i0 + 8 * rr, sq = i / S;
       lo[rr] = i < nrows ? sq * S : -S - 1;
       prow[rr] = (unsigned)(((seq0 + sq) * NH + h) * S + (i - sq * S));
+      rh[rr] = row_hash(key, prow[rr]);
     }
   }
-  __device__ __forceinline__ float operator()(float pr, int rr, int j) const {
+  // pr with dropout at key k of row rr (another sequence's key, pr = 0, or
+  // no row: as it is)
+  __device__ __forceinline__ float dropped(float pr, int rr, int k) const {
+    if (k < 0 || k >= S || thr == 0u) return pr;
+    return keep_col(rh[rr], (unsigned)k, thr) ? pr * kp : 0.f;
+  }
+  __device__ __forceinline__ uint32_t pair(float p0, float p1, int rr, int j) const {
     const int k = j - lo[rr];
-    if (k < 0 || k >= S) return pr;  // another sequence's key (pr = 0), or no row
-    if (p != nullptr) p[(size_t)prow[rr] * S + k] = __float2bfloat16(pr);
-    return thr == 0u ? pr : (keep_elem(key, prow[rr], (unsigned)k, thr) ? pr * kp : 0.f);
+    if (p != nullptr) {
+      bf16* at = p + (size_t)prow[rr] * S + k;
+      if (k >= 0 && k + 1 < S && !(reinterpret_cast<uintptr_t>(at) & 3)) {
+        *reinterpret_cast<uint32_t*>(at) = pack_bf16(p0, p1);
+      } else {
+        if (k >= 0 && k < S) at[0] = __float2bfloat16(p0);
+        if (k + 1 >= 0 && k + 1 < S) at[1] = __float2bfloat16(p1);
+      }
+    }
+    return pack_bf16(dropped(p0, rr, k), dropped(p1, rr, k + 1));
   }
 };
 
@@ -484,7 +499,7 @@ __device__ __forceinline__ void residual_ln2(const Params& p, const Train& t, co
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] += xv[j];
       if (p.seq_bias != nullptr) {
-        load8(p.seq_bias + (size_t)(R.seq0 + r / R.S) * DM + c0, xv);
+        load8(p.seq_bias + (row / R.S) * DM + c0, xv);  // tiles may cut sequences
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[j] += xv[j];
       }

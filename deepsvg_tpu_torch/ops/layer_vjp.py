@@ -68,29 +68,48 @@ the recompute mode's backward run the older ``wmma`` form below
   gradients: in float32 there is nothing to round, in bfloat16 the two differ
   by that rounding (the tolerances in ``chip_smoke.py`` say how much).
 
-Long form (``csrc/layer_long_train.cu``): sequences that a block cannot hold
-whole, bfloat16 with 33 <= S <= 256 and float32 with 17 <= S <= 256 (the
-short form's float32 backward tiles hold 16 rows). Sketchformer trains its
-encoder at S = 242 and its causal teacher-forced decoder at S = 241; at the
-recipe's B=60 a layer's products are 2 x 14,520 x 786,432 = 22.8 GFLOP
-forward and twice that backward, and its attention 4 x 60 x 242^2 x 256 =
-3.6 GFLOP forward (0.03 ms at 989 TFLOP/s bf16, 0.07 with the backward).
-The forward is the long K2's two launches with the training switch; in the
-saved mode it saves the probabilities ``[B, H, S, S]`` (56 MB a layer at
-B=60 in bfloat16) and what the short form saves, in the recompute mode
-nothing (its QKV between the two launches is freed on return). The
-backward splits the short
-form's walk where a row needs other rows: (a) over 32-row tiles of all rows,
-the FF, LN2 and out-projection backward down to ``dctx``; (b) one (sequence,
-head) per block, the attention backward with K, V and Q of the head in
-shared memory, ``dQ`` per tile of queries and ``dK``, ``dV`` held in
-tensor-core accumulators over the query tiles in order; (c) over row tiles,
-the QKV and LN1 backward; then the short form's ``wgrad`` and reductions.
-No atomics: its gradients are bit-identical from run to run too. Same
-roundings as the short form. The recompute mode's backward first runs the
-forward's two launches into the layer's workspace (no ``[B, H, S, S]``
-buffer), and (b) recomputes the scores and probabilities of each query tile
-from Q and K in shared memory, as K11's backward does.
+Long form: sequences that a block cannot hold whole, bfloat16 with 33 <= S
+<= 256 and float32 with 17 <= S <= 256 (the short form's float32 backward
+tiles hold 16 rows). Sketchformer trains its encoder at S = 242 and its
+causal teacher-forced decoder at S = 241; a float32 model (the configs'
+default type) trains its E1 and D1 at S = 32 and 31 in this form. At B=60
+a Sketchformer layer's products are 2 x 14,520 x 786,432 = 22.8 GFLOP
+forward and twice that backward, its attention 4 x 60 x 242^2 x 256 = 3.6
+GFLOP forward. At the flagship's widths (D = 256, 8 heads; F a multiple of
+64 up to 1024 in bfloat16, of 256 in float32) it runs Hopper kernels:
+
+- *Forward*, the long K2's launches with the training switch (dropout at
+  the four sites, x1 through its tensor, the saves): bfloat16 the three
+  launches of ``csrc/layer_long.cu`` (``layer_infer.cuh``,
+  ``layer_train.cuh``: QKV on ``wgmma``; the attention, a tile of whole
+  sequences and one head a block, so that B=60's 60 sequences fill the
+  card; the out projection and the FF on ``wgmma`` over 128-row tiles),
+  float32 the three TF32 launches of ``csrc/layer_f32.cu``; QKV and the
+  context pass through device memory. The
+  saved mode keeps QKV, the probabilities ``[B, H, S, S]`` before dropout,
+  the context, x1 and the FF hidden before dropout; the recompute mode
+  keeps its inputs.
+- *Backward* (saved mode), split where a row needs other rows: the FF, LN2
+  and out-projection backward on 128-row tiles of all rows; the attention
+  backward, a tile of whole sequences and one head a block (each warp's 16
+  query rows: dsum = sum_j dp p, then dS and dQ = dS K; then its 16 key rows:
+  dK = dS^T Q and dV = Pe^T dctx in registers over the query steps in
+  order), which also sums dx1 over each sequence (dseq_bias); the QKV and
+  LN1 backward on 128-row tiles; then the weight products with the bias
+  gradients and the fixed-order reductions. bfloat16: the short form's
+  row launches (``csrc/layer_bwd.cu``, ``layer_train.cuh``) and
+  ``wgrad_hopper_kernel``, the attention on ``mma.sync`` m16n8k16; float32:
+  ``csrc/layer_f32_bwd.cu``, TF32 ``wgmma`` with the weights transposed by
+  the wrapper and the weight products' row tiles transposed into shared
+  memory, the attention on ``mma.sync`` m16n8k8. No atomics.
+- *Recompute mode's backward*: the same forward again, in the saved mode,
+  into this layer's workspace (freed on return), then the saved backward:
+  both modes' gradients come from the same intermediates.
+
+Other widths run the older ``wmma`` kernels of ``csrc/layer_long_train.cu``
+(the long K2's ``layer_long.cuh`` with the training switch, a backward of
+three launches and ``wgrad.cu``'s), counted apart
+(``fused_layer_train_long.narrow_launches``, ``.narrow_backward_launches``).
 
 Weights come in as the float32 master parameters and are cast to
 ``weight_dtype`` at use (then to the activation type: float32 activations
@@ -107,7 +126,8 @@ from . import _build
 from .dropout import (
     SITE_ATTN_OUT, SITE_ATTN_PROB, SITE_FF_HIDDEN, SITE_FF_OUT, drop_threshold,
     dropout_factor, keep_scale)
-from .layer import HEAD_DIM, MAX_SEQ, MAX_SEQ_LONG, _layer_norm_f32, _mm, check_layer_inputs
+from .layer import (
+    HEAD_DIM, MAX_SEQ, MAX_SEQ_LONG, _layer_norm_f32, _mm, check_layer_inputs, to_tf32)
 
 # The mode the model's layers train in (``models/layers.py``), as the JAX
 # package's switch of the same name: True saves the forward's intermediates
@@ -187,6 +207,12 @@ _REDUCE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.
 _WGRAD_HOPPER_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] * 2
                           + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int] * 4
                           + [ctypes.c_void_p] * 2)
+_F32_FWD_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+                     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+_BF16_LONG_ARGTYPES = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+_LONG_HOPPER_BWD_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 6
+                             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 F32_MAX_SEQ = 16
 WGRAD_ROWS_PER_SPLIT = 1024
 WGRAD_MAX_SPLITS = 16
@@ -200,6 +226,19 @@ def _hopper_form(x, n_heads: int, f: int) -> bool:
     b, s, d = x.shape
     rule = _build.kernel_function("dsvg_layer_train_hopper", [ctypes.c_int] * 4)
     return x.dtype == torch.bfloat16 and s <= MAX_SEQ and bool(rule(d, f, n_heads, s))
+
+
+def _long_hopper_form(x, n_heads: int, f: int) -> bool:
+    """Whether K4's long form runs its Hopper kernels on ``x``, by the rule
+    the C entry points take: D = 256 with 8 heads and, in bfloat16, F a
+    multiple of 64 up to 1024 (``csrc/layer_long.cu``'s training launches),
+    in float32 F a multiple of 256 (``csrc/layer_f32.cu``'s training
+    launches and ``csrc/layer_f32_bwd.cu``, whose weight products take
+    128 x 256 tiles). Other float32 widths run the older wmma kernels,
+    counted apart."""
+    b, s, d = x.shape
+    rule = _build.kernel_function("dsvg_layer_long_train_hopper", [ctypes.c_int] * 5)
+    return bool(rule(d, f, n_heads, s, int(x.dtype == torch.float32)))
 
 
 def _round_up(n: int, m: int) -> int:
@@ -319,32 +358,120 @@ def weight_products(problems, is_f32, stream):
 
 
 def weight_products_hopper(problems, rows: int, stream):
-    """``A^T @ B`` and the column sums of ``A`` in float32 for each bfloat16
+    """``A^T @ B`` and the column sums of ``A`` in float32 for each
     ``(A [>= rows, M], B [>= rows, N])`` of ``problems`` (M a multiple of 128,
-    N of 256): one wgmma launch split over the rows into partial sums, and
-    their fixed-order reduction. Returns the ``[M, N]`` products and the
+    N of 256), bfloat16 (``dsvg_wgrad_hopper``) or float32 with TF32
+    products (``dsvg_wgrad_tf32``, which transposes the row tiles into
+    shared memory): one wgmma launch split over the rows into partial sums,
+    and their fixed-order reduction. Returns the ``[M, N]`` products and the
     ``[M]`` sums, in order."""
     dev = problems[0][0].device
+    f32 = problems[0][0].dtype == torch.float32
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles = sum((a.shape[1] // 128) * (bb.shape[1] // 256) for a, bb in problems)
-    # about one work item (a tile of a product, a split of the rows) per SM
-    per_split = _round_up(-(-rows // max(1, sms // tiles)), 64)
+    # about one work item (a tile of a product, a split of the rows) per SM;
+    # a split is whole row steps of the kernel (32 float32 rows, 64 bfloat16)
+    per_split = _round_up(-(-rows // max(1, sms // tiles)), 32 if f32 else 64)
     splits = -(-rows // per_split)
     sizes = [a.shape[1] * bb.shape[1] for a, bb in problems]
     sums = [a.shape[1] for a, _ in problems]
     part = torch.empty((splits, sum(sizes) + sum(sums)), dtype=torch.float32, device=dev)
     arr = lambda ctype, vals: (ctype * len(vals))(*vals)  # noqa: E731
-    fn = _build.kernel_function("dsvg_wgrad_hopper", _WGRAD_HOPPER_ARGTYPES)
+    name = "dsvg_wgrad_tf32" if f32 else "dsvg_wgrad_hopper"
+    fn = _build.kernel_function(name, _WGRAD_HOPPER_ARGTYPES)
     _build.check_launch(
         fn(arr(ctypes.c_void_p, [a.data_ptr() for a, _ in problems]),
            arr(ctypes.c_void_p, [bb.data_ptr() for _, bb in problems]),
            arr(ctypes.c_int, [a.shape[1] for a, _ in problems]),
            arr(ctypes.c_int, [bb.shape[1] for _, bb in problems]),
            len(problems), rows, per_split, splits, part.data_ptr(), stream),
-        "wgrad_hopper")
+        name)
     out = reduce_partials(part).split(sizes + sums)
     dws = [w.view(a.shape[1], bb.shape[1]) for w, (a, bb) in zip(out, problems)]
     return dws, list(out[len(problems):])
+
+
+def _long_launch(x, bias, used, mask, seed, n_heads, causal, thr, kp, save):
+    """K4's long form on its Hopper kernels, forward, on ``x`` with the
+    weights ``used`` as the kernels read them (float32: rounded to TF32):
+    ``(out, saved)``. In the saved mode (``save``) ``saved`` is what the
+    backward reads: QKV, the probabilities before dropout, the context, x1
+    and the FF hidden before dropout (float32: QKV head-major, as its
+    attention reads it; bfloat16: the layout of the old long backward, QKV
+    row-major and the context 16-row padded); else it is empty, and the
+    tensors between the launches are freed on return."""
+    b, s, d = x.shape
+    dev, dt = x.device, x.dtype
+    rows, f = b * s, used[6].shape[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty_like(x)
+    x1 = torch.empty((rows, d), dtype=torch.float32, device=dev)
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    if dt == torch.float32:
+        saved = (f32(n_heads, rows, 3 * HEAD_DIM), f32(b, n_heads, s, s) if save else None,
+                 f32(rows, d), x1, f32(rows, f) if save else None)
+        name, args = "dsvg_layer_f32_train", saved
+        argtypes = _F32_FWD_ARGTYPES
+    else:
+        saved = (_saved_tensors(x, n_heads, f, False) if save
+                 else (None, None, torch.empty((rows, d), dtype=dt, device=dev), x1, None))
+        # the QKV of all rows between the two launches, head-major
+        name, args = "dsvg_layer_long_train_bf16", (torch.empty((rows, 3 * d), dtype=dt,
+                                                                device=dev), *saved)
+        argtypes = _BF16_LONG_ARGTYPES
+    if b > 0:
+        fn = _build.kernel_function(name, argtypes)
+        _build.check_launch(
+            fn(x.data_ptr(), _ptr(bias), *[w.data_ptr() for w in used], mask.data_ptr(),
+               out.data_ptr(), *[_ptr(t) for t in args], b, s, f, int(causal), int(seed), thr,
+               kp, HEAD_DIM ** -0.5, stream), name)
+    return out, (saved if save else ())
+
+
+def _long_backward(x, g, used, saved, meta):
+    """K4's long form on its Hopper kernels, saved-mode backward: three row
+    launches (float32: ``csrc/layer_f32_bwd.cu``; bfloat16: the short form's
+    ``csrc/layer_bwd.cu`` launches on 128-row tiles of all rows, with its
+    attention backward for long sequences), the weight products (float32:
+    ``dsvg_wgrad_tf32``; bfloat16: ``dsvg_wgrad_hopper``) and the fixed-order
+    reductions. Returns dx, dseq_bias and the ten weight gradients."""
+    seed, thr, kp, causal = meta
+    ln1, wqkv, _, wo, _, ln2, w1, _, w2, _ = used
+    qkv_s, p_s, ctx_s, x1_s, h_s = saved
+    b, s, d = x.shape
+    f = w1.shape[0]
+    rows, dev, dt = b * s, x.device, x.dtype
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    if dt == torch.float32:
+        grid = _build.kernel_function("dsvg_layer_f32_bwd_grid", [ctypes.c_int] * 2)(b, s)
+        # the weights as the TF32 products read them, K-major: transposed
+        trans = [w.t().contiguous() for w in (wqkv, wo, w1, w2)]
+        dx, dbias = torch.empty_like(x), f32(b, d)
+        xn1, dqkv, da, xn2 = f32(rows, d), f32(rows, 3 * d), f32(rows, d), f32(rows, d)
+        # the LayerNorm partial sums: a row a warp of the row launches' blocks,
+        # then a row a block, the rows the reduction adds
+        dhpre, hd, df, small = f32(rows, f), f32(rows, f), f32(rows, d), f32(grid * 9, 4 * d)
+        sums = small[grid * 8:]
+        tensors = (x, g, ln1, ln2, qkv_s, p_s, x1_s, h_s, *trans, dx, dbias, xn1, dqkv, da, xn2,
+                   dhpre, hd, df, small, f32(rows, d), f32(rows, d), f32(rows, d))
+        name = "dsvg_layer_f32_train_bwd"
+    else:
+        grid = _build.kernel_function("dsvg_layer_long_train_bwd_grid", [ctypes.c_int] * 2)(b, s)
+        outs = _backward_outputs(x, f, grid, 4 * d)
+        dx, dbias, xn1, dqkv, da, xn2, dhpre, hd, df, sums = outs
+        tensors = (x, g, ln1, wqkv, wo, ln2, w1, w2, qkv_s, p_s, ctx_s, x1_s, h_s, *outs,
+                   f32(rows, d), torch.empty((rows, d), dtype=dt, device=dev), f32(rows, d))
+        name = "dsvg_layer_long_train_bwd_bf16"
+    ptrs = [t.data_ptr() for t in tensors]
+    fn = _build.kernel_function(name, _LONG_HOPPER_BWD_ARGTYPES)
+    _build.check_launch(fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, f, causal, seed, thr, kp,
+                           HEAD_DIM ** -0.5, stream), name)
+    (dwqkv, dwo, dw1, dw2), (dbqkv, dbo, db1, db2) = weight_products_hopper(
+        ((dqkv, xn1), (da, ctx_s), (dhpre, xn2), (df, hd)), rows, stream)
+    dln1, dln2 = reduce_partials(sums).split([2 * d, 2 * d])
+    return dx, dbias, (dln1.view(2, d), dwqkv, dbqkv, dwo, dbo, dln2.view(2, d), dw1, db1,
+                       dw2, db2)
 
 
 def _weight_grads_hopper(ctx_s, outs, d, rows, stream):
@@ -375,8 +502,8 @@ def _weight_grads(ctx_s, outs, d, f, is_f32, stream):
 
 class _FusedLayerTrain(torch.autograd.Function):
     """K4 on CUDA tensors: the short form (a block holds whole sequences) or,
-    with ``long_form``, the long form (``csrc/layer_long_train.cu``); in the
-    saved mode (``save``) or the recompute mode."""
+    with ``long_form``, the long form (see the module note); in the saved
+    mode (``save``) or the recompute mode."""
 
     @staticmethod
     def forward(ctx, x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
@@ -393,6 +520,25 @@ class _FusedLayerTrain(torch.autograd.Function):
                              f"{F32_MAX_SEQ} (its backward tiles hold {F32_MAX_SEQ} rows), "
                              f"got S={s}")
         hopper = not long_form and _hopper_form(x, n_heads, f)
+        thr = drop_threshold(rate) if rate > 0.0 else 0
+        kp = keep_scale(rate) if rate > 0.0 else 1.0
+        ctx.save_residuals = save
+        ctx.meta = (n_heads, int(seed), thr, kp, int(causal), long_form, hopper,
+                    seq_bias is not None, None if seq_bias is None else seq_bias.dtype)
+        ctx.long_hopper = long_form and _long_hopper_form(x, n_heads, f)
+        if ctx.long_hopper:
+            if dt == torch.float32:
+                # the weights as the TF32 products read them
+                used = [to_tf32(w) if i in (1, 3, 6, 8) else w for i, w in enumerate(used)]
+            out, saved = _long_launch(x, bias, used, mask, seed, n_heads, causal, thr, kp, save)
+            counter = fused_layer_train_long
+            if b > 0 and save:
+                counter.launches += 1
+                counter.float32_launches += dt == torch.float32
+            elif b > 0:
+                counter.recompute_launches += 1
+            ctx.save_for_backward(x, *used, mask, bias, *saved)
+            return out
         out = torch.empty_like(x)
         if save:
             saved = _saved_tensors(x, n_heads, f, causal and hopper)
@@ -404,8 +550,6 @@ class _FusedLayerTrain(torch.autograd.Function):
             qkv = (torch.empty((b * s, 3 * d), dtype=dt, device=dev) if long_form else None)
             x1 = (torch.empty((b * s, d), dtype=torch.float32, device=dev) if hopper else None)
             ptrs = [_ptr(qkv), None, None, _ptr(x1), None]
-        thr = drop_threshold(rate) if rate > 0.0 else 0
-        kp = keep_scale(rate) if rate > 0.0 else 1.0
         counter = fused_layer_train_long if long_form else fused_layer_train
         if b > 0:
             name = ("layer_long_train_fwd" if long_form else "layer_train_fwd") \
@@ -416,7 +560,7 @@ class _FusedLayerTrain(torch.autograd.Function):
                     int(dt == torch.float32), int(seed), thr, kp, HEAD_DIM ** -0.5,
                     torch.cuda.current_stream(dev).cuda_stream)
             _build.check_launch(rc, name)
-            if not long_form and dt == torch.bfloat16 and not hopper:
+            if long_form or (dt == torch.bfloat16 and not hopper):
                 counter.narrow_launches += 1
             elif save:
                 counter.launches += 1
@@ -426,14 +570,29 @@ class _FusedLayerTrain(torch.autograd.Function):
             ctx.save_for_backward(x, *used, *saved)
         else:
             ctx.save_for_backward(x, *used, mask, bias)
-        ctx.save_residuals = save
-        ctx.meta = (n_heads, int(seed), thr, kp, int(causal), long_form, hopper,
-                    seq_bias is not None, None if seq_bias is None else seq_bias.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
         save = ctx.save_residuals
+        n_heads, seed, thr, kp, causal, long_form, hopper, has_bias, bias_dtype = ctx.meta
+        if ctx.long_hopper:
+            x, *rest = ctx.saved_tensors
+            used, (mask, bias), saved = rest[:10], rest[10:12], rest[12:]
+            if not save:
+                # the recompute mode: the same forward again, saving, into
+                # this layer's workspace, freed when the backward returns
+                _, saved = _long_launch(x, bias, used, mask, seed, n_heads, causal, thr, kp, True)
+            dx, dbias, dws = _long_backward(x, g.to(x.dtype).contiguous(), used, saved,
+                                            (seed, thr, kp, causal))
+            counter = fused_layer_train_long
+            if save:
+                counter.backward_launches += 1
+                counter.float32_backward_launches += x.dtype == torch.float32
+            else:
+                counter.recompute_backward_launches += 1
+            return (dx, dbias.to(bias_dtype) if has_bias else None, *dws,
+                    None, None, None, None, None, None, None, None)
         if save:
             x, ln1, wqkv, _, wo, _, ln2, w1, _, w2, _, qkv_s, p_s, ctx_s, x1_s, h_s = \
                 ctx.saved_tensors
@@ -445,7 +604,6 @@ class _FusedLayerTrain(torch.autograd.Function):
             qkv_s, ctx_s, x1_s, h32 = _workspace(x, w1.shape[0])
             p_s = h_s = None
             extra = (h32, bias, bqkv, bo, b1, b2, mask)
-        n_heads, seed, thr, kp, causal, long_form, hopper, has_bias, bias_dtype = ctx.meta
         b, s, d = x.shape
         f = w1.shape[0]
         rows = b * s
@@ -498,7 +656,7 @@ class _FusedLayerTrain(torch.autograd.Function):
                         is_f32, seed, thr, kp, HEAD_DIM ** -0.5, stream)
             _build.check_launch(rc, f"layer_train_bwd{mode}")
         counter = fused_layer_train_long if long_form else fused_layer_train
-        if save and not long_form and not is_f32 and not hopper:
+        if save and (long_form or (not is_f32 and not hopper)):
             counter.narrow_backward_launches += 1
         elif save:
             counter.backward_launches += 1
@@ -561,7 +719,8 @@ def fused_layer_train(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
     S <= 16 (the flagship's E2), the long form
     (:func:`fused_layer_train_long`) for bfloat16 with 33 <= S <= 256 and
     float32 with 17 <= S <= 256 (Sketchformer's encoder at S = 242 and its
-    teacher-forced decoder at S = 241; a float32 model's E1 and D1).
+    teacher-forced decoder at S = 241; a float32 model's E1 and D1 at S = 32
+    and 31).
     """
     weights = (ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2)
     if x.device.type == "cpu":
@@ -594,9 +753,9 @@ def fused_layer_train_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2
                            seed: int, n_heads: int, causal: bool = False, rate: float = 0.0,
                            weight_dtype=None, save_residuals: bool = False):
     """The long form of :func:`fused_layer_train` (same arguments), for CUDA
-    tensors with 1 <= S <= 256: a forward of two launches and a backward of
-    six (eight in the recompute mode). Counted once per forward and once per
-    backward, by mode."""
+    tensors with 1 <= S <= 256 (see the module note). Counted once per
+    forward and once per backward, by mode; the float32 Hopper form's also
+    apart, and the older kernels' at other widths apart."""
     if x.device.type != "cuda":
         raise ValueError(f"the long training layer kernel runs on CUDA tensors, got "
                          f"{x.device}")
@@ -608,5 +767,11 @@ def fused_layer_train_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2
 # the long form's passes, counted apart by mode
 fused_layer_train_long.launches = 0                      # saved mode: forward passes
 fused_layer_train_long.backward_launches = 0             # its backward passes
+fused_layer_train_long.float32_launches = 0              # those of the float32 Hopper form
+fused_layer_train_long.float32_backward_launches = 0
 fused_layer_train_long.recompute_launches = 0            # recompute mode: forward passes
 fused_layer_train_long.recompute_backward_launches = 0   # its backward passes
+# float32 at widths the Hopper form does not take, on the older wmma
+# kernels: forward launches of either mode, saved-mode backward passes
+fused_layer_train_long.narrow_launches = 0
+fused_layer_train_long.narrow_backward_launches = 0

@@ -6,7 +6,9 @@
     python3 scripts/profile_port_slice.py --selfmatch  # the self-matching step, B=60
     python3 scripts/profile_port_slice.py --autoregressive  # Sketchformer's greedy_sample
     python3 scripts/profile_port_slice.py --float32  # the inference path of the float32 model
+    python3 scripts/profile_port_slice.py --train --float32  # the float32 flagship's step, B=60
     python3 scripts/profile_port_slice.py --rows [--tag T]  # kernel times at the paths' shapes
+    python3 scripts/profile_port_slice.py --k4 [--tag T]    # the long K4's times at its shapes
 
 Loads the trained flagship checkpoint into the port (bfloat16 compute,
 float32 masters). Without ``--train`` it runs greedy one-shot encode+decode
@@ -24,7 +26,9 @@ brute-force matching), built from the flagship checkpoint as
 N=1024 on the config's own initialisation from a seed, as ``chip_smoke.py``
 builds it, for 2 calls after one. ``--float32`` profiles the inference path of the
 flagship at its config's own ``compute_dtype``, float32 (the float32 forms
-of K1, K2 and K3). Each prints the
+of K1, K2 and K3); with ``--train`` it profiles that model's training step
+at the recipe's B=60 (``train_float32_profile.txt``: the long K4 at E1 and
+D1, K7 at E2 and D2, K5's and K1's float32 forms, K6). Each prints the
 device time by kernel name, the device's busy time against the host's wall
 time over the window (the idle share), and the card's name and power limit.
 The full table goes to ``slice_profile.txt``, ``train_profile.txt`` or
@@ -41,7 +45,19 @@ flagship step's B=128 x 32 and Sketchformer's S=242, with CUDA events as
 ``chip_smoke.py`` times them, on whichever tree the script lies in: run it
 from an archive of another commit to time that commit's kernels on the same
 inputs. It prints one JSON object and writes it to ``kernel_rows[_T].json``.
-Exits non-zero without a CUDA card.
+
+``--k4`` times K4's long form, forward (saved and recompute mode) and
+saved-mode forward + backward with CUDA events (the host's time where the
+call's launches outpace the card) and its device time under
+``torch.profiler`` (every kernel of the call, and the layer's own kernels
+by name), beside its plain
+version, its bound (``chip_smoke.k4_bound``) and ``nn.TransformerEncoderLayer``
+(pre-LN, training mode, key padding; float32 in TF32 and in full float32):
+float32 at the flagship's E1 and D1 at B=60 (480 sequences of 32, and of 31
+with ``seq_bias``, the trained layers) and at S=242 (60 sequences), bfloat16
+at Sketchformer's E1 (60 x 242) and its causal decoder (60 x 241,
+``seq_bias``); into ``k4_rows[_T].json``, as ``--rows``, on the tree the
+script lies in. Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
@@ -78,11 +94,13 @@ def main() -> int:
                         help="profile the inference path of the float32 flagship")
     parser.add_argument("--rows", action="store_true",
                         help="time the kernels at the paths' shapes (no profile)")
-    parser.add_argument("--tag", default="", help="suffix of --rows' output file")
+    parser.add_argument("--k4", action="store_true",
+                        help="time the long K4 at its paths' shapes (no profile)")
+    parser.add_argument("--tag", default="", help="suffix of --rows' or --k4's output file")
     opts = parser.parse_args()
     opts.recipe = opts.recipe or opts.selfmatch
     opts.train = opts.train or opts.recipe
-    b_train = B_RECIPE if opts.recipe else B_TRAIN
+    b_train = B_RECIPE if opts.recipe or opts.float32 else B_TRAIN
     if not torch.cuda.is_available():
         print("profile_port_slice: no CUDA device is available", file=sys.stderr)
         return 1
@@ -98,6 +116,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     if opts.rows:
         return kernel_rows(card, opts.tag)
+    if opts.k4:
+        return k4_rows(card, opts.tag)
     cfg = hierarchical_ordered() if opts.float32 else gpu_fast(hierarchical_ordered())
     iters = ITERS
     if opts.autoregressive:
@@ -132,7 +152,10 @@ def main() -> int:
         model_args = ["commands", "args", "commands", "args"]
         what, warmup = f"train_step B={b_train}", 3
         out_name = ("train_selfmatch_profile.txt" if opts.selfmatch else
+                    "train_float32_profile.txt" if opts.float32 else
                     "train_recipe_profile.txt" if opts.recipe else "train_profile.txt")
+        if opts.float32:
+            what = f"train_step B={b_train}, float32"
 
         def run():
             train_step(state, data, weights, optimizer, model_args)
@@ -285,6 +308,152 @@ def kernel_rows(card: str, tag: str) -> int:
     out = {"card": card, "root": ROOT, "ms": rows}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", f"kernel_rows{'_' + tag if tag else ''}.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
+def k4_rows(card: str, tag: str) -> int:
+    """``--k4``: the long K4's times at its paths' shapes, as one JSON object."""
+    from chip_smoke import cuda_ms, k4_bound, k4_runs, sketchformer_model
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import hierarchical_ordered, load_model
+    from deepsvg_tpu_torch.models.layers import key_padding_to_additive
+    from deepsvg_tpu_torch.ops import layer_vjp
+    from deepsvg_tpu_torch.svgtensor import masks as M
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows: dict = {}
+
+    def library(layer, dtype):
+        lib = torch.nn.TransformerEncoderLayer(
+            layer.qkv.in_features, layer.n_heads, layer.ff1.out_features, dropout=0.0,
+            activation="relu", batch_first=True, norm_first=True, device=dev, dtype=dtype)
+        with torch.no_grad():
+            lib.self_attn.in_proj_weight.copy_(layer.qkv.weight)
+            lib.self_attn.in_proj_bias.copy_(layer.qkv.bias)
+            lib.self_attn.out_proj.weight.copy_(layer.out_proj.weight)
+            lib.self_attn.out_proj.bias.copy_(layer.out_proj.bias)
+            for dst, src in ((lib.linear1, layer.ff1), (lib.linear2, layer.ff2)):
+                dst.weight.copy_(src.weight)
+                dst.bias.copy_(src.bias)
+            for dst, src in ((lib.norm1, layer.norm1), (lib.norm2, layer.norm2)):
+                dst.weight.copy_(src[0])
+                dst.bias.copy_(src[1])
+        return lib.train()
+
+    def device_ms(fn, iters=20):
+        """Device time of ``fn`` a call under torch.profiler: the sum over
+        its kernels (every kernel that ran, the layer's own and PyTorch's
+        around it), and the layer's own kernels by name."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {e.key: e.device_time_total / 1e3 / iters for e in prof.key_averages()
+               if e.device_time_total > 0 and e.device_type.name == "CUDA"}
+        merged: dict = {}
+        for k, v in per.items():
+            if "at::native" in k or "cutlass" in k or "xmma" in k:
+                continue
+            name = k.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("(")[0].split("<")[0].split("::")[-1]
+            merged[name] = merged.get(name, 0.0) + v
+        return sum(per.values()), merged
+
+    def time_case(name, layer, x, sb, mask, causal):
+        fwd, both = k4_runs(layer_vjp.fused_layer_train, layer, x, sb, mask, causal, gen=gen)
+        rc_fwd, _ = k4_runs(layer_vjp.fused_layer_train, layer, x, sb, mask, causal,
+                            save_residuals=False, gen=gen)
+        pfwd, pboth = k4_runs(layer_vjp.plain_layer_train, layer, x, sb, mask, causal, gen=gen)
+        f_ms, fb_ms, rc_ms = cuda_ms(fwd), cuda_ms(both), cuda_ms(rc_fwd)
+        dev_f, kern_f = device_ms(fwd)
+        dev_fb, kern_fb = device_ms(both)
+        _, kern_rc = device_ms(rc_fwd)
+        pf_ms, pfb_ms = cuda_ms(pfwd, iters=3, warmup=1), cuda_ms(pboth, iters=3, warmup=1)
+        f_ff = layer.ff1.out_features
+        (bf_ms, bf_by), (bb_ms, bb_by) = (k4_bound(x, sb, f_ff, bwd, causal)
+                                          for bwd in (False, True))
+        row = {"fwd_ms": f_ms, "bwd_ms": fb_ms - f_ms, "recompute_fwd_ms": rc_ms,
+               "device_fwd_ms": dev_f, "device_bwd_ms": dev_fb - dev_f,
+               "kernels_fwd_ms": kern_f, "kernels_recompute_fwd_ms": kern_rc,
+               "kernels_bwd_ms": {
+                   k: v - kern_f.get(k, 0.0) for k, v in kern_fb.items()
+                   if v - kern_f.get(k, 0.0) > 1e-4},
+               "plain_fwd_ms": pf_ms, "plain_bwd_ms": pfb_ms - pf_ms,
+               "fwd_bound_ms": bf_ms, "fwd_bound_by": bf_by, "bwd_bound_ms": bb_ms,
+               "bwd_bound_by": bb_by}
+        # nn.TransformerEncoderLayer on the same rows (no seq_bias, no causal
+        # mask: the yardstick of the same products and attention)
+        pad = torch.isneginf(mask)
+        for lib_name, tf32 in ((("library_tf32", True), ("library", False))
+                               if x.dtype == torch.float32 else (("library", False),)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            lib = library(layer, x.dtype)
+            x_lib = x.detach().requires_grad_()
+            g_lib = torch.randn(x.shape, device=dev, generator=gen).to(x.dtype)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    return lib(x_lib, src_key_padding_mask=pad)
+
+            def lib_both():
+                return torch.autograd.grad(lib(x_lib, src_key_padding_mask=pad),
+                                           [x_lib, *lib.parameters()], g_lib)
+            lf, lfb = cuda_ms(lib_fwd), cuda_ms(lib_both)
+            row[f"{lib_name}_fwd_ms"], row[f"{lib_name}_bwd_ms"] = lf, lfb - lf
+            torch.backends.cuda.matmul.allow_tf32 = False
+            del lib
+        rows[name] = row
+        print(f"{name}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else
+            f"{k} {{{', '.join(f'{n} {t:.4f}' for n, t in v.items())}}}" if isinstance(v, dict)
+            else f"{k} {v}" for k, v in row.items()), flush=True)
+
+    # the float32 flagship at B=60: E1 (480 x 32, key padding) and D1 (480 x
+    # 31, seq_bias), the trained layers; S=242 on E1's layer
+    model = load_model(CHECKPOINT, hierarchical_ordered(), device=dev)
+    l_e1, l_d1 = model.encoder.encoder.layers[0], model.decoder.decoder.layers[0]
+    cfg = model.cfg
+    batch = generate_batch(np.random.default_rng(0), B_RECIPE, cfg.max_num_groups,
+                           cfg.max_seq_len)
+    cmd = torch.from_numpy(batch["commands"]).to(dev).flatten(0, 1)
+    with torch.no_grad():
+        x_e1 = torch.randn(cmd.shape[0], cmd.shape[1], cfg.d_model, device=dev, generator=gen)
+        kp_e1 = key_padding_to_additive(M.key_padding_mask(cmd))
+        x_d1 = torch.randn(cmd.shape[0], cmd.shape[1] - 1, cfg.d_model, device=dev,
+                           generator=gen)
+        sb_d1 = torch.randn(cmd.shape[0], cfg.d_model, device=dev, generator=gen)
+        kp_d1 = torch.zeros(x_d1.shape[:2], device=dev)
+        x_242 = torch.randn(B_RECIPE, 242, cfg.d_model, device=dev, generator=gen)
+        kp_242 = torch.where(torch.arange(242, device=dev)[None] < torch.randint(
+            100, 243, (B_RECIPE, 1), device=dev, generator=gen), 0.0, float("-inf"))
+    time_case("f32_e1", l_e1, x_e1, None, kp_e1, False)
+    time_case("f32_d1", l_d1, x_d1, sb_d1, kp_d1, False)
+    time_case("f32_s242", l_e1, x_242, None, kp_242, False)
+    del model
+    # bfloat16: Sketchformer's E1 (S=242) and its causal decoder (S=241)
+    sf = sketchformer_model(dev)
+    l_e, l_d = sf.encoder.encoder.layers[0], sf.decoder.decoder.layers[0]
+    with torch.no_grad():
+        sbatch = generate_batch(np.random.default_rng(0), B_RECIPE, sf.cfg.max_num_groups,
+                                sf.cfg.max_seq_len)
+        sc = torch.from_numpy(sbatch["commands_grouped"]).to(dev)[:, 0]
+        sa = torch.from_numpy(sbatch["args_grouped"]).to(dev)[:, 0]
+        x_se = sf.encoder.embedding(sc, sa, M.group_mask(sc))
+        kp_se = key_padding_to_additive(M.key_padding_mask(sc))
+        x_sd, kp_sd = x_se[:, :-1].contiguous(), kp_se[:, :-1].contiguous()
+        sb_sd = torch.randn(B_RECIPE, sf.cfg.d_model, device=dev,
+                            generator=gen).to(torch.bfloat16)
+    time_case("bf16_e1_s242", l_e, x_se, None, kp_se, False)
+    time_case("bf16_decoder_s241", l_d, x_sd, sb_sd, kp_sd, True)
+    out = {"card": card, "root": ROOT, "ms": rows}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"k4_rows{'_' + tag if tag else ''}.json"),
               "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))

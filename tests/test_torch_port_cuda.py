@@ -339,6 +339,36 @@ def test_long_layer_train_kernel_matches_plain(cuda, s, dtype, causal, rate):
                       layer_vjp.fused_layer_train_long, layer_vjp.fused_layer_train)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("save_residuals", [True, False], ids=["saved", "recompute"])
+@pytest.mark.parametrize("dtype,s,b,causal", [
+    (torch.float32, 17, 9, False), (torch.float32, 31, 9, True), (torch.float32, 32, 9, False),
+    (torch.float32, 242, 3, False), (BF16, 33, 9, False), (BF16, 241, 3, True),
+    (BF16, 242, 3, False)],
+    ids=["f32-17", "f32-31-causal", "f32-32", "f32-242", "bf16-33", "bf16-241-causal",
+         "bf16-242"])
+def test_long_layer_train_hopper_forms(cuda, dtype, s, b, causal, save_residuals, rate):
+    """K4's long form at the flagship's widths on its Hopper kernels: float32
+    from S=17 (several sequences a tile, and S=31 whose key blocks straddle
+    two sequences, causal with seq_bias) to S=242, bfloat16 from S=33, both
+    modes, against the plain version with the short form's limits, equal to
+    the bit on a second run; the older wmma kernels (``narrow`` counters) do
+    not run, and the float32 counters move with the float32 cases alone."""
+    fn = layer_vjp.fused_layer_train_long
+    counts = lambda: (fn.float32_launches, fn.float32_backward_launches,  # noqa: E731
+                      fn.narrow_launches, fn.narrow_backward_launches)
+    before = counts()
+    _hold_layer_train(cuda, np.random.default_rng(3 * s + b + int(10 * rate)), dtype, s, b,
+                      causal, rate, fn, layer_vjp.fused_layer_train,
+                      save_residuals=save_residuals)
+    moved = [a - c for a, c in zip(counts(), before)]
+    assert moved[2:] == [0, 0]
+    if dtype == torch.float32:
+        assert moved[0] >= 1 and moved[1] == (2 if save_residuals else 0)
+    else:
+        assert moved[:2] == [0, 0]
+
+
 def test_float32_layer_train_takes_the_long_form_from_s17(cuda):
     """A float32 model's E1 (S=32) and D1 (S=31) train on the card: float32
     activations beyond the short form's 16 rows go to the long form."""
@@ -710,12 +740,38 @@ def test_head_and_float32_layer_kernels_are_wgmma_kernels(cuda):
     float32 products (its QKV and out-projection/FF launches) multiply with
     Hopper's warpgroup instructions; its attention launch with mma.sync."""
     head = _sass_counts(r"\d+head_kernelI", "HGMMA")
-    layer = _sass_counts(r"layer_f32.*(qkv|out_ffn)_kernel", "HGMMA")
-    attn = _sass_counts(r"layer_f32.*attn_kernel", "HMMA")
+    # K2's launches alone (a digit of the mangled length right before the
+    # name: not K4's train_*_kernel beside them, nor layer_f32_bwd's)
+    layer = _sass_counts(r"9layer_f32.*\d(qkv|out_ffn)_kernelE", "HGMMA")
+    attn = _sass_counts(r"9layer_f32.*\dattn_kernelI", "HMMA")
     print("HGMMA instructions:", head, layer, "HMMA:", attn)
     assert len(head) == 3 and all(c > 0 for c in head.values()), head
     assert len(layer) == 2 and all(c > 0 for c in layer.values()), layer
     assert len(attn) == 2 and all(c > 0 for c in attn.values()), attn
+
+
+def test_long_train_kernels_are_tensor_core_kernels(cuda):
+    """K4's long form on Hopper: its products (QKV, the out projection and
+    FF forward; the FF, QKV and weight-product backward launches) multiply
+    with warpgroup instructions in both types, its attention launches with
+    mma.sync."""
+    products = {
+        "float32 forward": _sass_counts(r"layer_f32.*train_(qkv|out_ffn)_kernel", "HGMMA"),
+        "float32 backward": _sass_counts(r"layer_f32_bwd.*(bwd_ff|bwd_qkv|wgrad_tf32)_kernel",
+                                         "HGMMA"),
+        "bfloat16 forward": _sass_counts(r"train_long_(qkv|out_ffn)_kernel", "HGMMA")}
+    attention = {
+        "float32 forward": _sass_counts(r"layer_f32.*train_attn_kernel", "HMMA"),
+        "float32 backward": _sass_counts(r"layer_f32_bwd.*bwd_attn_kernel", "HMMA"),
+        "bfloat16 forward": _sass_counts(r"train_long_attn_kernel", "HMMA"),
+        "bfloat16 backward": _sass_counts(r"bwd_attn_long_kernel", "HMMA")}
+    print("HGMMA:", products, "HMMA:", attention)
+    # train_qkv, train_out_ffn x 2 modes; bwd_ff, bwd_qkv, wgrad; and the bf16 pair
+    for what, n in (("float32 forward", 3), ("float32 backward", 3), ("bfloat16 forward", 3)):
+        assert len(products[what]) == n and all(c > 0 for c in products[what].values()), what
+    for what, n in (("float32 forward", 4), ("float32 backward", 2), ("bfloat16 forward", 2),
+                    ("bfloat16 backward", 1)):
+        assert len(attention[what]) == n and all(c > 0 for c in attention[what].values()), what
 
 
 @pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])

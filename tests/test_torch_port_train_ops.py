@@ -78,10 +78,13 @@ def _port_layer_grads(vals, mask, g, causal, rate=0.0, seed=0):
 
 # ------------------------------------------------------------------ K4 layer
 
-@pytest.mark.parametrize("s,causal", [(8, False), (32, False), (8, True), (32, True)])
+@pytest.mark.parametrize("s,causal", [(8, False), (32, False), (8, True), (32, True),
+                                      (48, False), (48, True)])
 def test_layer_train_matches_pallas(s, causal):
-    """Forward and all twelve gradients at dropout 0, with key padding and one
-    fully masked sequence (zero attention output, zero attention gradients)."""
+    """Forward and all twelve gradients at dropout 0, with key padding, one
+    fully masked sequence (zero attention output, zero attention gradients)
+    and seq_bias; S=48 is a length of the long form (the plain version the
+    card holds its kernels against), causal too."""
     rng = np.random.default_rng(s + causal)
     b = 4
     vals, mask, g = _layer_inputs(rng, b, s)
