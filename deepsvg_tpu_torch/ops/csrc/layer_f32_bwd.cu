@@ -794,7 +794,7 @@ __global__ void __launch_bounds__(256) fold_sums_kernel(float* small) {
 }
 
 // ---------------------------------------------------------------- weight products
-constexpr int WT_MAX = 4;
+constexpr int WT_MAX = 32;        // K4: 4 products; K7: 4 a layer up to 8 layers
 constexpr int WT_THREADS = 256;
 constexpr uint32_t WT_A = 128 * 128, WT_B = 256 * 128, WT_BUF = WT_A + WT_B;
 
@@ -1006,8 +1006,9 @@ extern "C" int dsvg_layer_f32_train_bwd(void* const* t, int B, int S, int F, int
   return (int)cudaGetLastError();
 }
 
-// nprob <= 4 float32 problems: a[q] [rows][M[q]], b[q] [rows][N[q]], M[q] a
-// multiple of 128, N[q] of 256; rows_per_split a multiple of 32 and every
+// nprob <= 32 float32 problems (K4's 4, K7's 4 a layer): a[q] [rows][M[q]],
+// b[q] [rows][N[q]], M[q] a multiple of 128, N[q] of 256; rows_per_split a
+// multiple of 32 and every
 // split holding rows. part is [splits][sum M N + sum M]: each slice holds the
 // dW in order, then the db (the column sums of each a[q]) in order.
 extern "C" int dsvg_wgrad_tf32(void* const* a, void* const* b, const int* M, const int* N,

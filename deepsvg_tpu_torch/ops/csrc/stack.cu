@@ -1,14 +1,17 @@
-// K7: an L-layer stack of fused training layers, forward in one launch and
-// the row-local part of the backward in one launch (see ops/stack_vjp.py).
+// K7's older kernels: an L-layer stack of fused training layers, forward in
+// one launch and the row-local part of the backward in one launch (see
+// ops/stack_vjp.py). The stack runs here only at widths the cluster kernels
+// (stack_cluster.cu) do not take: F not a multiple of D, or a cluster block
+// over the shared memory a block can use; the wrapper chooses from the
+// shapes before the launch and counts these launches apart.
 //
 // Every part of a layer is local to a row except attention, which stays
 // inside one sequence. So a block that owns whole sequences runs all L layers
 // of its rows in a loop, with no synchronisation across blocks: the TPU
-// kernel's sequential (L,) grid becomes this loop. Each layer is K4's device
-// code (layer_fwd.cuh, layer_bwd.cuh) on the same rows per block, with the
-// layer's weights, saved tensors and outputs at offsets of [L, ...] buffers
-// and the dropout seed stack_layer_seed(seed, l). So the stack computes what
-// L successive K4 layers compute, to the bit.
+// kernel's sequential (L,) grid becomes this loop. Each layer is K4's older
+// device code (layer_fwd.cuh, layer_bwd.cuh) on the same rows per block, with
+// the layer's weights, saved tensors and outputs at offsets of [L, ...]
+// buffers and the dropout seed stack_layer_seed(seed, l).
 //
 // The activation between two layers is rounded to the activation type and
 // goes through global memory: layer l writes the rows of its block, and layer

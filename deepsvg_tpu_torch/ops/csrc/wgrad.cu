@@ -1,6 +1,7 @@
 // K4 backward, second and third launch: the layer's four weight gradients
 // (see ops/layer_vjp.py); K7 computes all 4 L products of its stack in one
-// launch of the same kernel (ops/stack_vjp.py).
+// launch (ops/stack_vjp.py): of the wgmma kernel at the end of this file
+// where the products are multiples of 128 x 256, else of the older one.
 //
 // Each gradient is a product over all rows of the batch,
 //   dW[m][n] = sum_r A[r][m] * B[r][n]
@@ -153,15 +154,20 @@ namespace {
 
 using namespace hopper;
 
-constexpr int HW_THREADS = 384, HW_CONSUMERS = 256, HW_STAGES = 4, HW_MAX = 4;
+constexpr int HW_THREADS = 384, HW_CONSUMERS = 256, HW_STAGES = 4;
+constexpr int HW_MAX = 4;                  // K4's four products
+constexpr int HW_MAX_STACK = 32;           // K7's, 4 a layer up to 8 layers
 constexpr uint32_t HW_BOX = 8192;          // 64 rows x 64 bf16
 constexpr uint32_t HW_STAGE = 6 * HW_BOX;  // A's two boxes, then B's four
 
+// NP problems at most: K4's launch keeps its parameters small (a tensor map
+// is 128 bytes), K7's takes 32
+template <int NP>
 struct HwParams {
-  CUtensorMap a[HW_MAX], b[HW_MAX];  // [rows][M], [rows][N]: boxes {64, 64}
-  int N[HW_MAX];
-  int tile0[HW_MAX + 1];             // each problem's first output tile
-  long long out0[HW_MAX], bias0[HW_MAX];  // its dW and db in a slice
+  CUtensorMap a[NP], b[NP];          // [rows][M], [rows][N]: boxes {64, 64}
+  int N[NP];
+  int tile0[NP + 1];                 // each problem's first output tile
+  long long out0[NP], bias0[NP];     // its dW and db in a slice
   int nprob, rows, rows_per_split, tiles, items;
   long long total;                   // floats a slice
   float* part;                       // [splits][total]
@@ -169,7 +175,8 @@ struct HwParams {
 
 struct HwItem {
   int q, mt, nt, split, k0, k1;
-  __device__ __forceinline__ HwItem(const HwParams& p, int item) {
+  template <class P>
+  __device__ __forceinline__ HwItem(const P& p, int item) {
     split = item / p.tiles;
     const int t = item - split * p.tiles;
     q = 0;
@@ -182,7 +189,9 @@ struct HwItem {
   }
 };
 
-__global__ void __launch_bounds__(HW_THREADS, 1) wgrad_hopper_kernel(const __grid_constant__ HwParams p) {
+template <int NP>
+__global__ void __launch_bounds__(HW_THREADS, 1)
+    wgrad_hopper_kernel(const __grid_constant__ HwParams<NP> p) {
   unsigned char* ring = smem_base();
   float* bsum = reinterpret_cast<float*>(ring + HW_STAGES * HW_STAGE);  // [2 wg][2 halves][64]
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + HW_STAGES * HW_STAGE + 1024);
@@ -277,19 +286,10 @@ __global__ void __launch_bounds__(HW_THREADS, 1) wgrad_hopper_kernel(const __gri
   }
 }
 
-}  // namespace
-
-// nprob <= 4 bf16 problems: a[q] [rows][M[q]], b[q] [rows][N[q]], M[q] a
-// multiple of 128, N[q] of 256; rows_per_split a multiple of 64 and every
-// split holding rows. part is [splits][sum M N + sum M]: each slice holds the
-// dW in order, then the db in order.
-extern "C" int dsvg_wgrad_hopper(void* const* a, void* const* b, const int* M, const int* N,
-                                 int nprob, int rows, int rows_per_split, int splits, void* part,
-                                 void* stream) {
-  if (nprob < 1 || nprob > HW_MAX || rows_per_split % 64 || rows < 1 ||
-      (long long)(splits - 1) * rows_per_split >= rows)
-    return (int)cudaErrorInvalidValue;
-  HwParams p;
+template <int NP>
+int wgrad_hopper(void* const* a, void* const* b, const int* M, const int* N, int nprob, int rows,
+                 int rows_per_split, int splits, void* part, void* stream) {
+  HwParams<NP> p;
   int rc = bind_device_of(a[0]);
   int tiles = 0;
   long long total = 0;
@@ -317,9 +317,29 @@ extern "C" int dsvg_wgrad_hopper(void* const* a, void* const* b, const int* M, c
   p.total = total;
   p.part = (float*)part;
   const int smem = HW_STAGES * HW_STAGE + 1024 + 64 + 1024;
-  if ((rc = (int)cudaFuncSetAttribute(wgrad_hopper_kernel,
+  if ((rc = (int)cudaFuncSetAttribute(wgrad_hopper_kernel<NP>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
     return rc;
-  wgrad_hopper_kernel<<<std::min(p.items, sm_count()), HW_THREADS, smem, (cudaStream_t)stream>>>(p);
+  wgrad_hopper_kernel<NP>
+      <<<std::min(p.items, sm_count()), HW_THREADS, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// nprob <= 32 bf16 problems (K4's 4, K7's 4 a layer): a[q] [rows][M[q]],
+// b[q] [rows][N[q]], M[q] a multiple of 128, N[q] of 256; rows_per_split a
+// multiple of 64 and every
+// split holding rows. part is [splits][sum M N + sum M]: each slice holds the
+// dW in order, then the db in order.
+extern "C" int dsvg_wgrad_hopper(void* const* a, void* const* b, const int* M, const int* N,
+                                 int nprob, int rows, int rows_per_split, int splits, void* part,
+                                 void* stream) {
+  if (nprob < 1 || nprob > HW_MAX_STACK || rows_per_split % 64 || rows < 1 ||
+      (long long)(splits - 1) * rows_per_split >= rows)
+    return (int)cudaErrorInvalidValue;
+  if (nprob <= HW_MAX)
+    return wgrad_hopper<HW_MAX>(a, b, M, N, nprob, rows, rows_per_split, splits, part, stream);
+  return wgrad_hopper<HW_MAX_STACK>(a, b, M, N, nprob, rows, rows_per_split, splits, part,
+                                    stream);
 }

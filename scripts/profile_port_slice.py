@@ -9,6 +9,7 @@
     python3 scripts/profile_port_slice.py --train --float32  # the float32 flagship's step, B=60
     python3 scripts/profile_port_slice.py --rows [--tag T]  # kernel times at the paths' shapes
     python3 scripts/profile_port_slice.py --k4 [--tag T]    # the long K4's times at its shapes
+    python3 scripts/profile_port_slice.py --k7 [--tree DIR] [--tag T]  # K7 alone at E2 and D2
 
 Loads the trained flagship checkpoint into the port (bfloat16 compute,
 float32 masters). Without ``--train`` it runs greedy one-shot encode+decode
@@ -57,7 +58,20 @@ float32 at the flagship's E1 and D1 at B=60 (480 sequences of 32, and of 31
 with ``seq_bias``, the trained layers) and at S=242 (60 sequences), bfloat16
 at Sketchformer's E1 (60 x 242) and its causal decoder (60 x 241,
 ``seq_bias``); into ``k4_rows[_T].json``, as ``--rows``, on the tree the
-script lies in. Exits non-zero without a CUDA card.
+script lies in.
+
+``--k7`` times K7, the fused training stack, alone: four layers at E2
+(key-padded, one sequence fully masked, no injection) and D2 (each layer's
+injection, no mask), B=60 and the gate's edge B=64, S=8, D=256, 8 heads, F=512,
+dropout 0.1, in bfloat16 and float32 (weights and inputs from a seed), forward
+and forward + backward with CUDA events and as device time under
+``torch.profiler`` (every kernel of the call, and by kernel name), beside the
+function's bound; and K4's float32 short form at E2 above the stack gate
+(B=128) beside its plain version, its bound and ``nn.TransformerEncoderLayer``;
+into ``k7_rows[_T].json``. ``--tree DIR`` imports the
+port from the repository at DIR (an archive of another commit) in place of
+this one, so that one call can time two trees' kernels on the same inputs.
+Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
@@ -96,8 +110,15 @@ def main() -> int:
                         help="time the kernels at the paths' shapes (no profile)")
     parser.add_argument("--k4", action="store_true",
                         help="time the long K4 at its paths' shapes (no profile)")
-    parser.add_argument("--tag", default="", help="suffix of --rows' or --k4's output file")
+    parser.add_argument("--k7", action="store_true",
+                        help="time K7 alone at E2 and D2, B=60 and 64 (no model)")
+    parser.add_argument("--tree", default="",
+                        help="with --k7: the repository whose port is timed (default this one)")
+    parser.add_argument("--tag", default="",
+                        help="suffix of --rows', --k4's or --k7's output file")
     opts = parser.parse_args()
+    if opts.tree:
+        sys.path.insert(0, os.path.abspath(opts.tree))
     opts.recipe = opts.recipe or opts.selfmatch
     opts.train = opts.train or opts.recipe
     b_train = B_RECIPE if opts.recipe or opts.float32 else B_TRAIN
@@ -118,6 +139,8 @@ def main() -> int:
         return kernel_rows(card, opts.tag)
     if opts.k4:
         return k4_rows(card, opts.tag)
+    if opts.k7:
+        return k7_rows(card, opts.tag)
     cfg = hierarchical_ordered() if opts.float32 else gpu_fast(hierarchical_ordered())
     iters = ITERS
     if opts.autoregressive:
@@ -314,6 +337,216 @@ def kernel_rows(card: str, tag: str) -> int:
     return 0
 
 
+def device_ms(fn, iters=20):
+    """Device time of ``fn`` a call under torch.profiler: the sum over its
+    kernels (every kernel that ran, the op's own and PyTorch's around it),
+    and the op's own kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {e.key: e.device_time_total / 1e3 / iters for e in prof.key_averages()
+           if e.device_time_total > 0 and e.device_type.name == "CUDA"}
+    merged: dict = {}
+    for k, v in per.items():
+        if "at::native" in k or "cutlass" in k or "xmma" in k:
+            continue
+        name = k.replace("(anonymous namespace)::", "").removeprefix("void ")
+        name = name.split("(")[0].split("<")[0].split("::")[-1]
+        merged[name] = merged.get(name, 0.0) + v
+    return sum(per.values()), merged
+
+
+def events_ms(fn, iters=20, warmup=3):
+    """Mean time of ``fn`` a call between two CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def k7_rows(card: str, tag: str) -> int:
+    """``--k7``: K7's times at E2 and D2, as one JSON object."""
+    from deepsvg_tpu_torch.ops import stack_vjp
+    dev = torch.device("cuda")
+    n_layers, s, d, heads, f, rate = 4, 8, 256, 8, 512, 0.1
+    peak = {torch.bfloat16: 989e12, torch.float32: 495e12}   # dense bf16, TF32
+    rows: dict = {}
+
+    def bound(b, es, backward, peak_ops):
+        """As chip_smoke's k7_bound: the inputs, the weights as read and the
+        outputs once, over 3.35 TB/s, against the products and attention."""
+        r = b * s
+        w_elems = n_layers * (4 * d * d + 2 * d * f + 9 * d + f)
+        common = r * d * es + r * 4 + w_elems * es + n_layers * b * d * es
+        layer_ops = 2.0 * r * (4 * d * d + 2 * d * f) + 4.0 * b * s * s * d
+        fwd_ops = n_layers * layer_ops
+        if not backward:
+            n_bytes, ops = common + r * d * es, fwd_ops
+        else:
+            n_bytes = common + 2 * r * d * es + w_elems * 4 + n_layers * b * d * 4
+            ops = 2 * fwd_ops
+        return max(n_bytes / 3.35e12, ops / peak_ops) * 1e3
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for stage in ("E2", "D2"):
+            for b in (60, 64):
+                rng = np.random.default_rng(14 + b)
+                rnd = lambda *shape, scale=1.0: torch.from_numpy(  # noqa: E731
+                    scale * rng.standard_normal(shape, dtype=np.float32)).to(dev)
+                ln = lambda: torch.stack([1 + rnd(n_layers, d, scale=0.1),  # noqa: E731
+                                          rnd(n_layers, d, scale=0.1)], dim=1)
+                masters = [ln(), rnd(n_layers, 3 * d, d, scale=d ** -0.5),
+                           rnd(n_layers, 3 * d, scale=0.1), rnd(n_layers, d, d, scale=d ** -0.5),
+                           rnd(n_layers, d, scale=0.1), ln(), rnd(n_layers, f, d, scale=d ** -0.5),
+                           rnd(n_layers, f, scale=0.1), rnd(n_layers, d, f, scale=f ** -0.5),
+                           rnd(n_layers, d, scale=0.1)]
+                masters = [w.requires_grad_() for w in masters]
+                x = rnd(b, s, d).to(dtype).requires_grad_()
+                if stage == "E2":
+                    bias = torch.zeros(n_layers, b, d, device=dev, dtype=dtype)
+                    lengths = torch.from_numpy(rng.integers(1, s + 1, b)).to(dev)
+                    lengths[0] = 0
+                    mask = torch.where(torch.arange(s, device=dev)[None] < lengths[:, None],
+                                       0.0, float("-inf"))
+                else:
+                    bias = rnd(n_layers, b, d, scale=0.3).to(dtype)
+                    mask = torch.zeros(b, s, device=dev)
+                bias.requires_grad_()
+                gy = rnd(b, s, d).to(dtype)
+                call = (x, bias, *masters, mask, 7, heads, False, rate, dtype)
+                leaves = [x, bias, *masters]
+
+                def fwd():
+                    with torch.no_grad():
+                        return stack_vjp.fused_stack_train(*call)
+
+                def both():
+                    return torch.autograd.grad(stack_vjp.fused_stack_train(*call), leaves, gy)
+                es = 2 if dtype == torch.bfloat16 else 4
+                f_ms, fb_ms = events_ms(fwd), events_ms(both)
+                dev_f, kern_f = device_ms(fwd)
+                dev_fb, kern_fb = device_ms(both)
+                name = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_{stage}_b{b}"
+                rows[name] = {
+                    "fwd_ms": f_ms, "bwd_ms": fb_ms - f_ms, "device_fwd_ms": dev_f,
+                    "device_bwd_ms": dev_fb - dev_f, "kernels_fwd_ms": kern_f,
+                    "kernels_bwd_ms": {k: v - kern_f.get(k, 0.0) for k, v in kern_fb.items()
+                                       if v - kern_f.get(k, 0.0) > 1e-4},
+                    "fwd_bound_ms": bound(b, es, False, peak[dtype]),
+                    "bwd_bound_ms": bound(b, es, True, peak[dtype])}
+                print(f"{name}: " + ", ".join(
+                    f"{k} {v:.4f}" if isinstance(v, float) else
+                    f"{k} {{{', '.join(f'{n} {t:.4f}' for n, t in v.items())}}}"
+                    for k, v in rows[name].items()), flush=True)
+    rows["k4_f32_e2_b128"] = k4_short_f32_row(dev, heads, d, f, rate)
+    out = {"card": card, "root": os.path.dirname(os.path.dirname(stack_vjp.__file__)),
+           "ms": rows}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"k7_rows{'_' + tag if tag else ''}.json"),
+              "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
+def k4_short_f32_row(dev, heads, d, f, rate) -> dict:
+    """K4's float32 short form (S <= 16) at E2 above the stack gate (B=128
+    sequences of 8, key-padded, the bfloat16 model's weights rounded to
+    bfloat16, float32 activations; dropout ``rate``): forward and forward +
+    backward with CUDA events and as device time, its plain version, its
+    bound (as ``chip_smoke.k4_bound``) and ``nn.TransformerEncoderLayer`` on
+    the same weights in float32 with TF32 products and in full float32."""
+    from deepsvg_tpu_torch.ops import layer_vjp
+    b, s = 128, 8
+    rng = np.random.default_rng(128)
+    rnd = lambda *shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        scale * rng.standard_normal(shape, dtype=np.float32)).to(dev)
+    masters = [torch.stack([1 + rnd(d, scale=0.1), rnd(d, scale=0.1)]),
+               rnd(3 * d, d, scale=d ** -0.5), rnd(3 * d, scale=0.1), rnd(d, d, scale=d ** -0.5),
+               rnd(d, scale=0.1), torch.stack([1 + rnd(d, scale=0.1), rnd(d, scale=0.1)]),
+               rnd(f, d, scale=d ** -0.5), rnd(f, scale=0.1), rnd(d, f, scale=f ** -0.5),
+               rnd(d, scale=0.1)]
+    masters = [w.requires_grad_() for w in masters]
+    x = rnd(b, s, d).requires_grad_()
+    lengths = torch.from_numpy(rng.integers(1, s + 1, b)).to(dev)
+    mask = torch.where(torch.arange(s, device=dev)[None] < lengths[:, None], 0.0, float("-inf"))
+    gy = rnd(b, s, d)
+    call = (x, None, *masters, mask, 7, heads, False, rate, torch.bfloat16)
+    leaves = [x, *masters]
+
+    def runs(fn, **kw):
+        def fwd():
+            with torch.no_grad():
+                return fn(*call, **kw)
+
+        def both():
+            return torch.autograd.grad(fn(*call, **kw), leaves, gy)
+        return fwd, both
+    fwd, both = runs(layer_vjp.fused_layer_train, save_residuals=True)
+    pfwd, pboth = runs(layer_vjp.plain_layer_train)
+    row = {"fwd_ms": events_ms(fwd), "bwd_ms": events_ms(both) - events_ms(fwd)}
+    dev_f, kern_f = device_ms(fwd)
+    dev_fb, _ = device_ms(both)
+    row.update(device_fwd_ms=dev_f, device_bwd_ms=dev_fb - dev_f, kernels_fwd_ms=kern_f)
+    pf, pfb = events_ms(pfwd, iters=5, warmup=1), events_ms(pboth, iters=5, warmup=1)
+    row.update(plain_fwd_ms=pf, plain_bwd_ms=pfb - pf)
+    # the bound: x, the mask and the weights as read (bf16) in, out; the
+    # products and attention at the TF32 peak; backward: g in, dx and the
+    # float32 weight gradients out, twice the operations
+    rows_, es, w_elems = b * s, 4, 4 * d * d + 2 * d * f + 9 * d + f
+    common = rows_ * d * es + b * s * 4 + w_elems * 2
+    ops = 2.0 * rows_ * (4 * d * d + 2 * d * f) + 4.0 * b * s * s * d
+    row["fwd_bound_ms"] = max((common + rows_ * d * es) / 3.35e12, ops / 495e12) * 1e3
+    row["bwd_bound_ms"] = max((common + 2 * rows_ * d * es + w_elems * 4) / 3.35e12,
+                              2 * ops / 495e12) * 1e3
+    lib = torch.nn.TransformerEncoderLayer(d, heads, f, dropout=0.0, activation="relu",
+                                           batch_first=True, norm_first=True, device=dev)
+    with torch.no_grad():
+        used = [w.detach().to(torch.bfloat16).float() for w in masters]
+        lib.norm1.weight.copy_(used[0][0])
+        lib.norm1.bias.copy_(used[0][1])
+        lib.self_attn.in_proj_weight.copy_(used[1])
+        lib.self_attn.in_proj_bias.copy_(used[2])
+        lib.self_attn.out_proj.weight.copy_(used[3])
+        lib.self_attn.out_proj.bias.copy_(used[4])
+        lib.norm2.weight.copy_(used[5][0])
+        lib.norm2.bias.copy_(used[5][1])
+        lib.linear1.weight.copy_(used[6])
+        lib.linear1.bias.copy_(used[7])
+        lib.linear2.weight.copy_(used[8])
+        lib.linear2.bias.copy_(used[9])
+    lib.train()
+    x_lib = x.detach().requires_grad_()
+    pad = torch.isneginf(mask)
+    for name, tf32 in (("library_tf32", True), ("library", False)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+        def lib_fwd():
+            with torch.no_grad():
+                return lib(x_lib, src_key_padding_mask=pad)
+
+        def lib_both():
+            return torch.autograd.grad(lib(x_lib, src_key_padding_mask=pad),
+                                       [x_lib, *lib.parameters()], gy)
+        lf, lfb = events_ms(lib_fwd), events_ms(lib_both)
+        row[f"{name}_fwd_ms"], row[f"{name}_bwd_ms"] = lf, lfb - lf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("k4_f32_e2_b128: " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in row.items()),
+        flush=True)
+    return row
+
+
 def k4_rows(card: str, tag: str) -> int:
     """``--k4``: the long K4's times at its paths' shapes, as one JSON object."""
     from chip_smoke import cuda_ms, k4_bound, k4_runs, sketchformer_model
@@ -342,28 +575,6 @@ def k4_rows(card: str, tag: str) -> int:
                 dst.weight.copy_(src[0])
                 dst.bias.copy_(src[1])
         return lib.train()
-
-    def device_ms(fn, iters=20):
-        """Device time of ``fn`` a call under torch.profiler: the sum over
-        its kernels (every kernel that ran, the layer's own and PyTorch's
-        around it), and the layer's own kernels by name."""
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        per = {e.key: e.device_time_total / 1e3 / iters for e in prof.key_averages()
-               if e.device_time_total > 0 and e.device_type.name == "CUDA"}
-        merged: dict = {}
-        for k, v in per.items():
-            if "at::native" in k or "cutlass" in k or "xmma" in k:
-                continue
-            name = k.replace("(anonymous namespace)::", "").removeprefix("void ")
-            name = name.split("(")[0].split("<")[0].split("::")[-1]
-            merged[name] = merged.get(name, 0.0) + v
-        return sum(per.values()), merged
 
     def time_case(name, layer, x, sb, mask, causal):
         fwd, both = k4_runs(layer_vjp.fused_layer_train, layer, x, sb, mask, causal, gen=gen)

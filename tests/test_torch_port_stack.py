@@ -12,7 +12,10 @@ The port's kernels run as their plain versions here (CPU tensors). Held:
 - the gate: the port's stacks take K7 exactly where the JAX package's
   ``_use_stack_fused`` is true;
 - the bfloat16 training step at N=2 against the JAX package's bfloat16 step
-  on its Pallas path, which takes the stack at that batch.
+  on its Pallas path, which takes the stack at that batch;
+- the launch plan of K7's cluster kernels (``stack_launch_plan``, pure
+  Python): at the recipe batch at least half of the H100's SMs, and over the
+  whole contract no block over the shared memory a block can use.
 """
 import jax
 import jax.numpy as jnp
@@ -163,6 +166,59 @@ def test_stack_path_runs_e2_in_the_compute_dtype(monkeypatch):
     y = port_layers.stacked_train(enc.layers, torch.randn(4, S, D), None, torch.zeros(4, S),
                                   False, None)
     assert y.dtype == torch.float32
+
+
+SMEM_LIMIT = 232448   # the shared memory an H100 block can use
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stack_launch_plan_fills_the_card_at_the_recipe_batch(dtype):
+    """At the flagship's E2 and D2 (B=60, S=8, D=256, F=512, 8 heads) the
+    cluster kernels take the stack: a cluster of one block a head for each
+    tile of whole sequences (32 rows in bfloat16, 16 in float32), at least 64
+    blocks, half of the H100's 132 SMs; at the gate's edge B=64 still one
+    wave of 128 blocks in bfloat16."""
+    plan = stack_vjp.stack_launch_plan(60, 8, 256, 512, 8, dtype)
+    rows = {torch.bfloat16: 32, torch.float32: 16}[dtype]
+    assert plan["takes"] and plan["cluster"] == 8 and plan["tile_rows"] == rows
+    assert plan["seqs_per_tile"] == rows // 8 and plan["tiles"] == -(-60 // (rows // 8))
+    assert plan["grid"] == 8 * plan["tiles"] >= 64
+    assert max(plan["fwd_smem"], plan["bwd_smem"]) <= SMEM_LIMIT
+    if dtype == torch.bfloat16:
+        assert stack_vjp.stack_launch_plan(64, 8, 256, 512, 8, dtype)["grid"] == 128
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_stack_launch_plan_over_the_contract(dtype, d):
+    """Over K7's contract (D a multiple of 64 up to 256, heads of 32, F a
+    multiple of 64 up to 2,048, S up to 32 in bfloat16 and 16 in float32, B
+    from 1 to 128): no block of the plan exceeds 232,448 bytes of shared
+    memory; a tile holds whole sequences and the tiles cover the batch once;
+    the cluster is one block a head (2 to 8, the portable size); the grid is
+    tiles x cluster; the cluster kernels take exactly the widths whose F is a
+    multiple of D, whose blocks fit and whose layer vectors (LayerNorms and a
+    block's bias columns) take at most 6 values a thread (the older kernels
+    run the rest), the
+    shipped widths at F=512 among them (D=256, and D=128 as the card tests
+    run it)."""
+    heads = d // 32
+    max_seq = 32 if dtype == torch.bfloat16 else 16
+    for f in range(64, 2049, 64):
+        for s in range(1, max_seq + 1):
+            for b in (1, 7, 60, 64, 128):
+                plan = stack_vjp.stack_launch_plan(b, s, d, f, heads, dtype)
+                smem = max(plan["fwd_smem"], plan["bwd_smem"])
+                assert plan["fwd_smem"] % 128 == 0 and plan["bwd_smem"] % 128 == 0
+                vectors = 4 * d + 5 * 32 + f // heads   # a layer's LN and bias columns
+                assert plan["takes"] == (f % d == 0 and smem <= SMEM_LIMIT
+                                         and vectors <= 6 * 256), (f, s, b)
+                assert plan["cluster"] == heads and 2 <= heads <= 8
+                seqs = plan["seqs_per_tile"]
+                assert seqs >= 1 and seqs * s <= plan["tile_rows"]
+                assert (plan["tiles"] - 1) * seqs < b <= plan["tiles"] * seqs
+                assert plan["grid"] == plan["tiles"] * heads
+    assert stack_vjp.stack_launch_plan(60, 8, d, 512, heads, dtype)["takes"] == (512 % d == 0)
 
 
 @pytest.fixture(scope="module")
