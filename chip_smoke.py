@@ -66,7 +66,8 @@ from call to call); K8, its plain version and ``F.linear`` +
 *Sketchformer's autoregressive greedy decode* (N=1024 icons of 8 x 30
 commands, one sequence of 242 with SOS and EOS; T = 241 cache positions;
 random weights from a seed, :func:`sketchformer_model`): K9 against its
-plain version on the decode's own operands at positions 1, 120 and 240;
+plain version on the decode's own operands at positions 1, 120 and 240, and
+its launch at N=1024 one wave of the card (clusters of two 8-row blocks);
 K2's long form against its plain version at E1 (S=242, key padding), S=240
 and the teacher-forced decoder (S=241, causal); K3 at 512 argument classes;
 one counted ``greedy_sample`` (K1 1, long K2 4, K9 240, K3 240, no plain
@@ -103,7 +104,8 @@ beside their bounds, their plain versions and a PyTorch call
 trained checkpoint and its ``train_step`` at B=60, the self-match step at
 B=60 and Sketchformer's ``greedy_sample`` at N=1024, each counted (the
 float32 forms of K1, K3, K5, K8 and K9 beside the float32 K2, K4 and K7, no
-plain version called) and against its plain path, gated by margin with a
+plain version called; K9's float32 form also alone at positions 1, 120 and
+240) and against its plain path, gated by margin with a
 control that must fail; the step's device busy time, idle share and device
 time by part; the long K4 at the step's E1 and D1 (480 x 32 and x 31) and
 at S=242, beside ``nn.TransformerEncoderLayer`` in TF32 and full float32; each float32 form against its plain version and
@@ -1111,18 +1113,21 @@ def matched_forward(model, commands, args, perturb_states: float = 0.0) -> dict:
     return seen
 
 
-def sketchformer_model(dev, seed: int = AR_SEED, dropout: float | None = None):
+def sketchformer_model(dev, seed: int = AR_SEED, dropout: float | None = None,
+                       compute_dtype: str | None = None):
     """The port's Sketchformer (``configs/sketchformer.py``: the config under
-    ``gpu_fast``, at ``dropout`` if given) at full width, initialised by the
-    port's ``init_parameters`` from a seeded generator: no trained
-    Sketchformer checkpoint exists, so its decoded icons mean nothing and the
-    checks work step by step and by margin."""
+    ``gpu_fast``, at ``dropout`` and ``compute_dtype`` if given) at full
+    width, initialised by the port's ``init_parameters`` from a seeded
+    generator: no trained Sketchformer checkpoint exists, so its decoded
+    icons mean nothing and the checks work step by step and by margin."""
     from deepsvg_tpu_torch.configs.sketchformer import make_model_config
     from deepsvg_tpu_torch.models import SVGTransformer
     from deepsvg_tpu_torch.training.trainer import init_parameters
     cfg = make_model_config()
     if dropout is not None:
         cfg = dataclasses.replace(cfg, dropout=dropout)
+    if compute_dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
     model = SVGTransformer(cfg)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
@@ -1294,12 +1299,17 @@ def autoregressive_phase(dev, card, kernels, record, yardstick, reset_counts, re
             k9[index] = {name: compare_elementwise(f"K9 decode step index {index} {name}", g, w,
                                                    TOL_DECODE_RMS)
                          for name, g, w in zip(("y", "k_new", "v_new"), got, want)}
+        # the decode's batch takes the cluster kernel in one wave of this card
+        plan = decode_ops.decode_launch_plan(N_MAIN, cfg.d_model, cfg.dim_feedforward,
+                                             cfg.n_heads, bf16, decode_ops.cluster_wave(bf16))
+        check(plan["takes"] and plan["waves"] == 1,
+              f"K9 at N={N_MAIN}: the cluster kernel's launch {plan} is not one wave")
         kernels["decode"] = {
             "max_abs_err": max(r["max_abs_err"] for v in k9.values() for r in v.values()),
             "atol_needed": max(r["atol_needed"] for v in k9.values() for r in v.values()),
             "tolerance": {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL,
                           "rms": TOL_DECODE_RMS},
-            "cases": k9}
+            "cases": k9, "launch_plan": plan}
 
         # ---- K2's long form against its plain version: E1 at the path's
         # S=242 (key padding), S=240 (random input, key padding) and the
@@ -1501,7 +1511,9 @@ def autoregressive_phase(dev, card, kernels, record, yardstick, reset_counts, re
         dev_ms = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
                   if e.device_time_total > 0 and e.device_type.name == "CUDA"}
         busy = sum(dev_ms.values())
-        k9_dev = sum(v for k, v in dev_ms.items() if "decode_kernel" in k)
+        # K9's kernels: the cluster kernel (and the older one, at other widths)
+        k9_dev = sum(v for k, v in dev_ms.items()
+                     if "decode_cluster_kernel" in k or "decode_kernel" in k)
         out["profile"] = {"wall_ms": wall, "device_busy_ms": busy, "k9_device_ms": k9_dev,
                           "k9_share_of_busy": k9_dev / busy if busy else None,
                           "idle_share": 1 - busy / wall if busy else None,
@@ -2081,10 +2093,9 @@ def float32_phase(dev, card, kernels, record, reset_counts, read_counts, library
     the launches of the counted runs, by kernel name."""
     import torch.nn.functional as F
 
-    from deepsvg_tpu_torch.configs.sketchformer import make_model_config
     from deepsvg_tpu_torch.data import generate_batch
     from deepsvg_tpu_torch.models import (
-        DropoutRng, SVGTransformer, greedy_sample, hierarchical_ordered,
+        DropoutRng, greedy_sample, hierarchical_ordered,
         hierarchical_self_matching, load_model, matching, one_shot_sample)
     from deepsvg_tpu_torch.models import sample as sample_mod
     from deepsvg_tpu_torch.models.layers import key_padding_to_additive
@@ -2097,7 +2108,6 @@ def float32_phase(dev, card, kernels, record, reset_counts, read_counts, library
     from deepsvg_tpu_torch.svgtensor import masks as M
     from deepsvg_tpu_torch.training import (
         constant, create_train_state, make_optimizer, train_step)
-    from deepsvg_tpu_torch.training.trainer import init_parameters
     t_phase = time.perf_counter()
     f32 = torch.float32
     out: dict = {}
@@ -2543,10 +2553,8 @@ def float32_phase(dev, card, kernels, record, reset_counts, read_counts, library
     torch.cuda.empty_cache()
 
     # ================= (4) Sketchformer, float32, greedy_sample at N=1024
-    sf_cfg = dataclasses.replace(make_model_config(), compute_dtype="float32")
-    sf = SVGTransformer(sf_cfg)
-    init_parameters(sf, torch.Generator().manual_seed(AR_SEED))
-    sf = sf.to(dev).eval()
+    sf = sketchformer_model(dev, compute_dtype="float32")
+    sf_cfg = sf.cfg
     sf_fcn = sf.decoder.fcn
     sb = generate_batch(np.random.default_rng(0), N_MAIN, sf_cfg.max_num_groups,
                         sf_cfg.max_seq_len)
@@ -2596,23 +2604,34 @@ def float32_phase(dev, card, kernels, record, reset_counts, read_counts, library
         out["decode_gate"] = {"agreement": ar_agree, "control": ar_control,
                               "positions_compared": compared}
         del states_k, states_p, states_all
+        # K9 alone at each position, its plain version, its bound (the cache
+        # bytes before the index, weights, rows in and out), as the bf16 form's
         mid = captured[AR_INDICES[1]]
         d, f_ff, n_l = sf_cfg.d_model, sf_cfg.dim_feedforward, sf_cfg.n_layers_decode
-        index = AR_INDICES[1]
         w_elems = n_l * (4 * d * d + 2 * d * f_ff + 3 * d + d + f_ff + d + 4 * d) + 2 * d
-        n_bytes = (2 * n_l * N_MAIN * index * d * 4 + w_elems * 4 + N_MAIN * (index + 1) * 4
-                   + N_MAIN * d * 4 * 2 + n_l * N_MAIN * d * 4 * 3)
-        t_ops = (2.0 * N_MAIN * n_l * (4 * d * d + 2 * d * f_ff) / PEAK_TF32
-                 + 4.0 * N_MAIN * n_l * (index + 1) * d / PEAK_F32) * 1e3
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        per_index = {}
+        for index in AR_INDICES:
+            ops = captured[index]
+            n_bytes = (2 * n_l * N_MAIN * index * d * 4 + w_elems * 4 + N_MAIN * (index + 1) * 4
+                       + N_MAIN * d * 4 * 2 + n_l * N_MAIN * d * 4 * 3)
+            t_ops = (2.0 * N_MAIN * n_l * (4 * d * d + 2 * d * f_ff) / PEAK_TF32
+                     + 4.0 * N_MAIN * n_l * (index + 1) * d / PEAK_F32) * 1e3
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            per_index[index] = {
+                "ms": cuda_ms(lambda ops=ops: decode_ops.fused_decode_step(*ops)),
+                "plain_ms": cuda_ms(lambda ops=ops: decode_ops.decode_step_reference(*ops),
+                                    iters=3, warmup=1),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        index = AR_INDICES[1]
         kernels["decode_f32"] = {
             "max_abs_err": max(r["max_abs_err"] for v in k9.values() for r in v.values()),
             "tolerance": {"atol": TOL_F32_ATOL, "rtol": TOL_F32_RTOL, "rms": TOL_DECODE_RMS},
-            "cases": k9, "ms": cuda_ms(lambda: decode_ops.fused_decode_step(*mid)),
-            "plain_ms": cuda_ms(lambda: decode_ops.decode_step_reference(*mid), iters=3,
-                                warmup=1),
-            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "cases": k9, "library_ms": None, "per_index": per_index,
+            **{k: per_index[index][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+        for i, r in per_index.items():
+            print(f"  K9 float32 index {i}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} by {r['bound_by']})")
         # the float32 long K2 at the encoder's S=242 against its plain version,
         # timed beside nn.TransformerEncoderLayer in float32 (key padding)
         cmd_f, args_f = sc[:, 0], sa[:, 0]
@@ -3145,7 +3164,8 @@ def recompute_phase(dev, card, kernels, record, reset_counts, read_counts,
         LOSS_WEIGHTS, MODEL_ARGS, bf16,
         {"embedding": 1, "layer_train_recompute_fwd": 16, "layer_train_recompute_bwd": 16,
          "args_ce_fwd": 1, "args_ce_bwd": 1, "embedding_bwd": 1},
-        {"embedding": 1, "layer_train_fwd": 16, "layer_train_bwd": 16, "args_ce_fwd": 1,
+        {"embedding": 1, "layer_train_fwd": 16, "layer_train_bwd": 16,
+         "layer_train_fwd_f32": 4, "layer_train_bwd_f32": 4, "args_ce_fwd": 1,
          "args_ce_bwd": 1, "embedding_bwd": 1},
         *flagship_saves(B_TRAIN, 2, True))
     sf_shape = (sf.cfg.d_model, sf.cfg.dim_feedforward)
@@ -3274,6 +3294,10 @@ def main() -> int:
         head_ops.fused_head_argmax.launches = 0
         layer_vjp.fused_layer_train.launches = 0
         layer_vjp.fused_layer_train.backward_launches = 0
+        layer_vjp.fused_layer_train.float32_launches = 0
+        layer_vjp.fused_layer_train.float32_backward_launches = 0
+        decode_ops.fused_decode_step.cluster_launches = 0
+        decode_ops.fused_decode_step.narrow_launches = 0
         layer_vjp.fused_layer_train_long.launches = 0
         layer_vjp.fused_layer_train_long.backward_launches = 0
         layer_vjp.fused_layer_train_long.float32_launches = 0
@@ -3304,6 +3328,9 @@ def main() -> int:
                 **split(head_ops.fused_head_argmax, "head"),
                 "layer_train_fwd": layer_vjp.fused_layer_train.launches,
                 "layer_train_bwd": layer_vjp.fused_layer_train.backward_launches,
+                # of those, K4's float32 short form on the TF32 wgmma launches
+                "layer_train_fwd_f32": layer_vjp.fused_layer_train.float32_launches,
+                "layer_train_bwd_f32": layer_vjp.fused_layer_train.float32_backward_launches,
                 **split(ce_ops.args_ce, "args_ce_fwd"),
                 **split(ce_ops.args_ce, "args_ce_bwd", "backward_launches",
                         "float32_backward_launches"),
@@ -3315,6 +3342,9 @@ def main() -> int:
                 **split(ce_ops.args_ce_pairwise, "args_ce_pairwise"),
                 **split(layer_ops.fused_layer_long, "layer_long"),
                 **split(decode_ops.fused_decode_step, "decode"),
+                # K9 on the older kernel (widths the cluster kernel does not
+                # take; none on any path here: every count expected 0)
+                "decode_narrow": decode_ops.fused_decode_step.narrow_launches,
                 **split(layer_vjp.fused_layer_train_long, "layer_train_long_fwd"),
                 **split(layer_vjp.fused_layer_train_long, "layer_train_long_bwd",
                         "backward_launches", "float32_backward_launches"),
@@ -3950,8 +3980,8 @@ def main() -> int:
     no_launch = dict.fromkeys(read_counts(), 0)
     # B=128: 1,024 rows at E2 and D2, over the stack gate, so layer by layer
     record["train"] = train_loop(B_TRAIN, no_launch | {
-        "embedding": 1, "layer_train_fwd": 16, "layer_train_bwd": 16, "args_ce_fwd": 1,
-        "args_ce_bwd": 1, "embedding_bwd": 1})
+        "embedding": 1, "layer_train_fwd": 16, "layer_train_bwd": 16, "layer_train_fwd_f32": 4,
+        "layer_train_bwd_f32": 4, "args_ce_fwd": 1, "args_ce_bwd": 1, "embedding_bwd": 1})
     train_launches = record["train"]["launches_per_step"]
     torch.cuda.empty_cache()
 
@@ -3993,6 +4023,42 @@ def main() -> int:
     kernels["layer_train_bwd"].update(
         ms=e1t["bwd_ms"], plain_ms=e1t["plain_bwd_ms"], library_ms=lib_fb_ms - lib_f_ms,
         bound_ms=e1t["bwd_bound_ms"], bound_by=e1t["bwd_bound_by"])
+    # K4's float32 short form (E2 at B=128) on the TF32 wgmma launches: its own
+    # entries, timed beside nn.TransformerEncoderLayer in float32 (full float32
+    # products, the library's default)
+    e2t = train_stages["E2 S=8 float32 key pad"]
+    e2_cases = [v for k, v in k4.items() if k.startswith("E2 S=8 float32")]
+    # the library layer's initialisation and its gradient draw from the
+    # default generators, which the checks after this read: forked, so that
+    # they read the same draws with or without this timing (K7's checks
+    # below do not pass on every draw: scripts/k7_seed_sweep.py reads their
+    # spread over many)
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        lib32_t = library_layer(l_e2, torch.float32, train=True)
+        x_lib32 = xt_e2.detach().requires_grad_()
+        g_lib32 = torch.randn_like(x_lib32)
+
+        def lib32_fwd():
+            with torch.no_grad():
+                return lib32_t(x_lib32, src_key_padding_mask=~t_vis)
+
+        def lib32_both():
+            return torch.autograd.grad(lib32_t(x_lib32, src_key_padding_mask=~t_vis),
+                                       [x_lib32, *lib32_t.parameters()], g_lib32)
+        lib32_f_ms, lib32_fb_ms = cuda_ms(lib32_fwd), cuda_ms(lib32_both)
+    kernels["layer_train_fwd_f32"] = {
+        "max_abs_err": max(v["forward_max_abs_err"] for v in e2_cases),
+        "tolerance": {"atol": TOL_F32_ATOL, "rtol": TOL_F32_RTOL, "rms": TOL_LAYER_RMS},
+        "ms": e2t["fwd_ms"], "plain_ms": e2t["plain_fwd_ms"], "library_ms": lib32_f_ms,
+        "bound_ms": e2t["fwd_bound_ms"], "bound_by": e2t["fwd_bound_by"]}
+    kernels["layer_train_bwd_f32"] = {
+        "max_abs_err": max(r["max_abs_err"] for v in e2_cases for r in v["grads"].values()),
+        "max_rms": max(r["rms"] for v in e2_cases for r in v["grads"].values()),
+        "tolerance": kernels["layer_train_bwd"]["tolerance"],
+        "ms": e2t["bwd_ms"], "plain_ms": e2t["plain_bwd_ms"],
+        "library_ms": lib32_fb_ms - lib32_f_ms, "bound_ms": e2t["bwd_bound_ms"],
+        "bound_by": e2t["bwd_bound_by"]}
+    del lib32_t, x_lib32, g_lib32
 
     # K5, and F.linear + F.cross_entropy as its yardstick
     n_cls = fcn.n_args * fcn.args_dim
@@ -4613,7 +4679,7 @@ def main() -> int:
         "args_ce_pairwise": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:54"),
         "layer_long": (csrc + "layer_infer.cuh", "deepsvg_tpu/ops/layer.py:108"),
         "layer_long_f32": (csrc + "layer_f32.cu", "deepsvg_tpu/ops/layer.py:108"),
-        "decode": (csrc + "decode.cu", "deepsvg_tpu/ops/decode.py:43"),
+        "decode": (csrc + "decode_cluster.cu", "deepsvg_tpu/ops/decode.py:43"),
         "layer_train_long_fwd": (csrc + "layer_long.cu", "deepsvg_tpu/ops/layer_vjp.py:179"),
         "layer_train_long_bwd": (csrc + "layer_bwd.cu", "deepsvg_tpu/ops/layer_vjp.py:281"),
         "layer_train_long_fwd_f32": (csrc + "layer_f32.cu", "deepsvg_tpu/ops/layer_vjp.py:179"),
@@ -4627,7 +4693,9 @@ def main() -> int:
         "args_ce_fwd_f32": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:30"),
         "args_ce_bwd_f32": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:81"),
         "args_ce_pairwise_f32": (csrc + "ce.cu", "deepsvg_tpu/ops/ce.py:54"),
-        "decode_f32": (csrc + "decode.cu", "deepsvg_tpu/ops/decode.py:43"),
+        "decode_f32": (csrc + "decode_cluster.cu", "deepsvg_tpu/ops/decode.py:43"),
+        "layer_train_fwd_f32": (csrc + "layer_f32.cu", "deepsvg_tpu/ops/layer_vjp.py:179"),
+        "layer_train_bwd_f32": (csrc + "layer_f32_bwd.cu", "deepsvg_tpu/ops/layer_vjp.py:281"),
         "mha": (csrc + "attention.cu", "deepsvg_tpu/ops/attention.py:31"),
         "mha_train_fwd": (csrc + "attention.cu", "deepsvg_tpu/ops/attention_vjp.py:60"),
         "mha_train_bwd": (csrc + "attention.cu", "deepsvg_tpu/ops/attention_vjp.py:100"),

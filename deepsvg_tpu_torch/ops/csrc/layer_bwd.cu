@@ -726,7 +726,7 @@ extern "C" int dsvg_layer_long_train_bwd_grid(int B, int S) {
 }
 
 // K4's bfloat16 long form, saved mode, at D = 256 with 8 heads, F a
-// multiple of 64 up to 1024, 1 <= S <= 256: the three row-local launches as
+// multiple of 256 up to 1024, 1 <= S <= 256: the three row-local launches as
 // dsvg_layer_train_bwd's wgmma form (`tensors` in its order: small_part
 // [dsvg_layer_long_train_bwd_grid][4 D], then the scratch dx1, dctx, dy),
 // the attention by bwd_attn_long_kernel; the weight products are

@@ -459,14 +459,13 @@ int launch_long_train(Params p, const layer_train::Train& t, const void* wqkv, c
 }  // namespace
 }  // namespace layer_infer
 
-// Whether K4's long form runs its Hopper kernels at these widths: bfloat16
-// (is_f32 0) at D = 256 with 8 heads and F a multiple of 64 up to 1024,
-// float32 at the same with F a multiple of 256 (layer_f32.cu's training
-// launches, layer_f32_bwd.cu); 1 <= S <= 256.
-extern "C" int dsvg_layer_long_train_hopper(int D, int F, int H, int S, int is_f32) {
+// Whether K4's long form runs its Hopper kernels at these widths: D = 256
+// with 8 heads and F a multiple of 256 up to 1024 in both types (the weight
+// products, dsvg_wgrad_hopper and dsvg_wgrad_tf32, take N multiples of 256,
+// and dW2 has N = F); 1 <= S <= 256.
+extern "C" int dsvg_layer_long_train_hopper(int D, int F, int H, int S) {
   using namespace layer_infer;
-  return D == DM && H == NH && F % (is_f32 ? 256 : FC) == 0 && F > 0 && F <= MAX_F && S >= 1 &&
-         S <= LONG_S;
+  return D == DM && H == NH && F % 256 == 0 && F > 0 && F <= MAX_F && S >= 1 && S <= LONG_S;
 }
 
 // K4's bfloat16 long form, forward, at the widths dsvg_layer_long_train_hopper
@@ -482,7 +481,7 @@ extern "C" int dsvg_layer_long_train_bf16(
     const void* mask, void* out, void* qkv, void* qkv_s, void* p_s, void* ctx_s, void* x1_s,
     void* h_s, int B, int S, int F, int causal, int seed, int thr, float kp, float scale,
     void* stream) {
-  if (!dsvg_layer_long_train_hopper(layer_infer::DM, F, layer_infer::NH, S, 0) || B < 1)
+  if (!dsvg_layer_long_train_hopper(layer_infer::DM, F, layer_infer::NH, S) || B < 1)
     return (int)cudaErrorInvalidValue;
   const layer_train::Train t = {(bf16*)qkv_s, (bf16*)p_s, (bf16*)ctx_s, (float*)x1_s,
                                 (bf16*)h_s, seed, (unsigned)thr, kp};

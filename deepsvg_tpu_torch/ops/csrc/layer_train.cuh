@@ -92,9 +92,11 @@ struct Train {
   float kp;      // 1 / (1 - rate)
 };
 
-// the shapes this form takes (the wrapper routes the others to the old one)
+// the shapes this form takes (the wrapper routes the others to the old one):
+// F a multiple of 256, the widths its weight-product launch takes
+// (dsvg_wgrad_hopper: M a multiple of 128, N of 256; dW2 has N = F)
 inline bool hopper_form(int D, int F, int H, int S) {
-  return D == DM && H == NH && F % FC == 0 && F <= MAX_F && S >= 1 && S <= 32;
+  return D == DM && H == NH && F % 256 == 0 && F <= MAX_F && S >= 1 && S <= 32;
 }
 
 // v kept (times kp) or dropped at (row, col) of the site `key`

@@ -26,38 +26,110 @@ fused_decode_step``) in the port's ``nn.Linear`` layout: ``x [R, D]``;
 ``index`` the position of the token (an int: positions ``< index`` are
 cached).
 
-Kernel note (``csrc/decode.cu``). Replaces the Pallas kernel
-``deepsvg_tpu/ops/decode.py:_decode_kernel`` (wrapper
-``fused_decode_step``). On the H100 a step is bound by reading the caches:
-at R = 1024 rows, L = 4, D = 256 and ``index`` = 120 it must read 2 x 4 x
-1024 x 120 x 256 x 2 bytes = 503 MB, 0.15 ms at 3.35 TB/s, against 4.3
+Kernel note (``csrc/decode_cluster.cu``; other widths ``csrc/decode.cu``).
+Replaces the Pallas kernel ``deepsvg_tpu/ops/decode.py:_decode_kernel``
+(wrapper ``fused_decode_step``). On the H100 a step is bound by reading the
+caches: at R = 1024 rows, L = 4, D = 256 and ``index`` = 120 it must read 2 x
+4 x 1024 x 120 x 256 x 2 bytes = 503 MB, 0.15 ms at 3.35 TB/s, against 4.3
 GFLOP of products (4 us on the tensor cores). The Pallas kernel reads the
 whole cache length T every step; this one reads only the positions before
-``index``. A block of 16 warps owns 8 rows (``m8n32k16`` tensor-core
-tiles, so R = 1024 gives 128 blocks on the 132 SMs) and loops over the
-layers with the residual in shared memory; the four products run on
-``wmma`` with the weights read from L2; a warp takes one (row, head) pair
-at a time and streams its ``[index, 32]`` key and value slices with 16-byte
-loads, four lanes per position, folding them into an online softmax. Every
-block reads all the weights from L2 at every step (4 MB, 512 MB over the
-grid), which costs about 0.24 ms a step whatever ``index`` is (PERF.md).
+``index``.
 
-A float32 model takes the kernel's float32 form: float32 activations,
-weights and caches, the products in TF32 (``wmma`` 16x16x8, whose 16-row
-tile holds the block's 8 rows and 8 zero rows), the cache read as two
-16-byte loads per lane. Its caches are twice the bytes: 1,007 MB a step at
-``index`` 120, 0.30 ms at 3.35 TB/s.
+How the data reach the SMs, at the flagship's width (D = 256, 8 heads;
+:func:`decode_launch_plan`):
+
+- *The caches*: a block owns 8 rows and every head, 16 warps; a warp
+  streams one (row, head) pair's ``[index, 32]`` key and value slices with
+  evict-first 16-byte loads, four lanes a position, four rounds of eight
+  positions in flight (two in float32), folded into an online softmax.
+  R = 1,024 is 128 blocks, one an SM.
+- *The weights*: two blocks form a thread block cluster and split every
+  product by its output columns: for the cluster's 16 rows, block c
+  computes columns c*128 .. c*128 + 127 of each 256-column slab, so it
+  reads half of the weight stack from L2 each step (2.1 MB in bfloat16,
+  where every block of the older kernel read all 4.2 MB with ``wmma``
+  fragment loads and few loads in flight). Its weight rows arrive through a
+  TMA ring of 16 KB stages (128 rows x 128 bytes) that runs ahead across
+  products and layers; the products run on ``mma.sync`` (TF32 in float32)
+  from the swizzled stages. The two blocks exchange rows through
+  distributed shared memory: each writes its rows of a product's input (the
+  LN output, the context) into both blocks, each product's outputs go to
+  the block that owns the row, the FF hidden to both; seven cluster
+  barriers a layer.
+
+An H100 holds 66 such clusters at once, so the decode's 1,024 rows run in
+one wave. Other widths run the older kernel (``csrc/decode.cu``: a block of
+8 rows with every head, its weights read from L2 by each block), counted
+apart (``narrow_launches``).
+
+A float32 model takes the float32 forms: float32 activations, weights and
+caches, the products in TF32. Its caches are twice the bytes: 1,007 MB a
+step at ``index`` 120, 0.30 ms at 3.35 TB/s.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 from .layer import HEAD_DIM, _layer_norm_f32, _mm
 
-MAX_D = 256       # the kernel's widest row
+MAX_D = 256       # the older kernel's widest row
+BLOCK_ROWS, CLUSTER = 8, 2   # csrc/decode_cluster.cu: ROWS, CLUSTER (blocks splitting the columns)
+RING_STAGES = {torch.bfloat16: 8, torch.float32: 6}   # its weight ring: stages of
+STAGE_BYTES = 16384                                   # 128 weight rows x 128 bytes
+MAX_F = 1024
+SMEM_LIMIT = 232448          # shared memory a block can use on the H100
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def decode_launch_plan(r: int, d: int, f: int, n_heads: int, dtype, wave: int = 0) -> dict:
+    """How the cluster kernel (``csrc/decode_cluster.cu``) launches a step
+    of R rows at width D, FF width F, ``n_heads`` heads of 32 and activation
+    type ``dtype``, where one wave of the card holds ``wave`` clusters
+    (:func:`cluster_wave`; 0: unknown, ``waves`` None): a
+    block of ``block_rows`` rows with every head, ``cluster`` blocks
+    splitting each product's columns, the ``grid`` (the blocks, padded to
+    whole clusters), the block's shared-memory bytes (``smem``; the kernel
+    refuses other counts) and the ``waves``. ``takes`` is False where the
+    kernel does not take the widths (D = 256 with 8 heads, F a multiple of
+    256 up to 1024); the older kernel runs then."""
+    esz = dtype.itemsize
+    pad, pair = 16 // esz, BLOCK_ROWS * CLUSTER
+    stages = RING_STAGES[dtype]
+    smem = (stages * STAGE_BYTES + BLOCK_ROWS * d * 4 * 5           # residual, QKV, output
+            + 2 * _round_up(pair * (d + pad) * esz, 128)            # LN output, context
+            + _round_up(pair * (f + pad) * esz, 128) + 2 * stages * 8 + 1024)
+    clusters = -(-r // pair)
+    takes = (d == 256 and n_heads == 8 and f > 0 and f % 256 == 0 and f <= MAX_F
+             and smem <= SMEM_LIMIT and r >= 1)
+    return {"block_rows": BLOCK_ROWS, "cluster": CLUSTER, "clusters": clusters,
+            "grid": clusters * CLUSTER, "smem": smem,
+            "waves": -(-clusters // wave) if wave else None, "takes": takes}
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_smem(d: int, f: int, n_heads: int, dtype) -> int:
+    """The cluster kernel's shared-memory bytes at these widths, 0 where it
+    does not take them: :func:`decode_launch_plan` once per widths, not once
+    a step."""
+    plan = decode_launch_plan(1, d, f, n_heads, dtype)
+    return plan["smem"] if plan["takes"] else 0
+
+
+def cluster_wave(dtype) -> int:
+    """The clusters of the cluster kernel that one wave of this card holds
+    at one block an SM (``cudaOccupancyMaxActiveClusters``)."""
+    fn = _build.kernel_function("dsvg_decode_cluster_wave", [ctypes.c_int])
+    n = fn(int(dtype == torch.float32))
+    if n < 1:
+        raise RuntimeError("cudaOccupancyMaxActiveClusters failed for the decode kernel")
+    return n
 
 
 def decode_step_reference(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s,
@@ -99,6 +171,8 @@ def decode_step_reference(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, 
 
 
 _ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+_CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
+                     + [ctypes.c_float, ctypes.c_void_p])
 
 
 def fused_decode_step(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s, w2s, b2s,
@@ -108,7 +182,9 @@ def fused_decode_step(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s,
 
     A CPU tensor takes :func:`decode_step_reference`; a CUDA tensor launches
     the kernel (activations, weights and caches all bfloat16 or all float32,
-    head dim 32, D <= 256 and D, F multiples of 32) or raises.
+    head dim 32, D <= 256 and D, F multiples of 32) or raises: the cluster
+    kernel where :func:`decode_launch_plan` takes the widths, else the older
+    one (counted under ``narrow_launches``).
     """
     if x.device.type == "cpu":
         return decode_step_reference(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s,
@@ -141,19 +217,29 @@ def fused_decode_step(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s,
     v_new = torch.empty_like(k_new)
     if r == 0:
         return y, k_new, v_new
-    fn = _build.kernel_function("dsvg_decode_step", _ARGTYPES)
-    rc = fn(x.data_ptr(), seq_bias.data_ptr(), ln1s.data_ptr(), wqkvs.data_ptr(),
-            bqkvs.data_ptr(), wos.data_ptr(), bos.data_ptr(), ln2s.data_ptr(),
-            w1s.data_ptr(), b1s.data_ptr(), w2s.data_ptr(), b2s.data_ptr(), lnf.data_ptr(),
-            kcache.data_ptr(), vcache.data_ptr(), key_pad.data_ptr(), y.data_ptr(),
-            k_new.data_ptr(), v_new.data_ptr(), r, t, d, f, n_heads, n_layers, index,
-            int(dt == torch.float32), HEAD_DIM ** -0.5,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(rc, "decode")
+    ptrs = [t_.data_ptr() for t_ in (x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s,
+                                     b1s, w2s, b2s, lnf, kcache, vcache, key_pad, y, k_new,
+                                     v_new)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    is_f32 = int(dt == torch.float32)
+    smem = _cluster_smem(d, f, n_heads, dt)
+    if smem:
+        fn = _build.kernel_function("dsvg_decode_cluster", _CLUSTER_ARGTYPES)
+        rc = fn(*ptrs, r, t, d, f, n_heads, n_layers, index, is_f32, smem, HEAD_DIM ** -0.5,
+                stream)
+        _build.check_launch(rc, "decode_cluster")
+        fused_decode_step.cluster_launches += 1
+    else:
+        fn = _build.kernel_function("dsvg_decode_step", _ARGTYPES)
+        rc = fn(*ptrs, r, t, d, f, n_heads, n_layers, index, is_f32, HEAD_DIM ** -0.5, stream)
+        _build.check_launch(rc, "decode")
+        fused_decode_step.narrow_launches += 1
     fused_decode_step.launches += 1
-    fused_decode_step.float32_launches += dt == torch.float32
+    fused_decode_step.float32_launches += is_f32
     return y, k_new, v_new
 
 
 fused_decode_step.launches = 0            # every launch
 fused_decode_step.float32_launches = 0    # those of its float32 form
+fused_decode_step.cluster_launches = 0    # those of the cluster kernel (both types)
+fused_decode_step.narrow_launches = 0     # those of the older kernel (other widths)

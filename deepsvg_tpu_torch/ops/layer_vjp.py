@@ -15,16 +15,23 @@ and backward of an E1 layer at B=128 (1,024 sequences of 32) are about 35 +
 out, g, dx, the weights and their gradients.
 
 Two designs. bfloat16 at the flagship's widths (D = 256, 8 heads, F a
-multiple of 64 up to 1024, S <= 32) runs the Hopper form of
+multiple of 256 up to 1024, S <= 32; F a multiple of 256 because its weight
+products take N multiples of 256) runs the Hopper form of
 ``csrc/layer_train.cuh``: K2's persistent ``wgmma`` blocks (a TMA producer
 warp streaming the weights through an ``mbarrier`` ring to two consumer
 warpgroups on 128-row tiles), so the weights come from L2 once per 128 rows;
 its forward in both modes, and the saved mode's backward as three row-local
 launches (FF, LN2 and out projection; attention on ``mma.sync``; QKV and
-LN1) and a ``wgmma`` launch for the weight products and bias gradients. The
-float32 form, narrower bfloat16 widths (counted apart:
-``fused_layer_train.narrow_launches``, ``.narrow_backward_launches``) and
-the recompute mode's backward run the older ``wmma`` form below
+LN1) and a ``wgmma`` launch for the weight products and bias gradients.
+float32 (S <= 16) at the same widths runs the long form's TF32 ``wgmma``
+launches (``csrc/layer_f32.cu``, ``csrc/layer_f32_bwd.cu``; see *Long form*
+below) in both modes, counted under the short form's counters and apart
+under ``fused_layer_train.float32_launches`` / ``.float32_backward_launches``
+(their times at E2 above the stack gate, B=128, against the older form's:
+PERF.md §6). Narrower bfloat16 widths (counted apart:
+``fused_layer_train.narrow_launches``, ``.narrow_backward_launches``),
+float32 at other widths and the bfloat16 recompute mode's backward run the
+older ``wmma`` form below
 (``csrc/layer_fwd.cuh``, ``csrc/layer_bwd.cuh``), which K7 shares.
 
 - *Modes.* ``save_residuals=True`` (the saved mode, what the model runs by
@@ -76,7 +83,7 @@ default type) trains its E1 and D1 at S = 32 and 31 in this form. At B=60
 a Sketchformer layer's products are 2 x 14,520 x 786,432 = 22.8 GFLOP
 forward and twice that backward, its attention 4 x 60 x 242^2 x 256 = 3.6
 GFLOP forward. At the flagship's widths (D = 256, 8 heads; F a multiple of
-64 up to 1024 in bfloat16, of 256 in float32) it runs Hopper kernels:
+256 up to 1024) it runs Hopper kernels:
 
 - *Forward*, the long K2's launches with the training switch (dropout at
   the four sites, x1 through its tensor, the saves): bfloat16 the three
@@ -230,15 +237,14 @@ def _hopper_form(x, n_heads: int, f: int) -> bool:
 
 def _long_hopper_form(x, n_heads: int, f: int) -> bool:
     """Whether K4's long form runs its Hopper kernels on ``x``, by the rule
-    the C entry points take: D = 256 with 8 heads and, in bfloat16, F a
-    multiple of 64 up to 1024 (``csrc/layer_long.cu``'s training launches),
-    in float32 F a multiple of 256 (``csrc/layer_f32.cu``'s training
-    launches and ``csrc/layer_f32_bwd.cu``, whose weight products take
-    128 x 256 tiles). Other float32 widths run the older wmma kernels,
-    counted apart."""
+    the C entry points take: D = 256 with 8 heads and F a multiple of 256
+    up to 1024 (bfloat16: ``csrc/layer_long.cu``'s training launches;
+    float32: ``csrc/layer_f32.cu``'s and ``csrc/layer_f32_bwd.cu``), whose
+    weight products take 128 x 256 tiles. Other widths run the older wmma
+    kernels, counted apart."""
     b, s, d = x.shape
-    rule = _build.kernel_function("dsvg_layer_long_train_hopper", [ctypes.c_int] * 5)
-    return bool(rule(d, f, n_heads, s, int(x.dtype == torch.float32)))
+    rule = _build.kernel_function("dsvg_layer_long_train_hopper", [ctypes.c_int] * 4)
+    return bool(rule(d, f, n_heads, s))
 
 
 def _round_up(n: int, m: int) -> int:
@@ -525,13 +531,16 @@ class _FusedLayerTrain(torch.autograd.Function):
         ctx.save_residuals = save
         ctx.meta = (n_heads, int(seed), thr, kp, int(causal), long_form, hopper,
                     seq_bias is not None, None if seq_bias is None else seq_bias.dtype)
-        ctx.long_hopper = long_form and _long_hopper_form(x, n_heads, f)
+        # the Hopper launches of the long form: the long form at its widths,
+        # and the float32 short form (S <= 16) at the same, in both modes
+        ctx.long_hopper = ((long_form or dt == torch.float32)
+                           and _long_hopper_form(x, n_heads, f))
         if ctx.long_hopper:
             if dt == torch.float32:
                 # the weights as the TF32 products read them
                 used = [to_tf32(w) if i in (1, 3, 6, 8) else w for i, w in enumerate(used)]
             out, saved = _long_launch(x, bias, used, mask, seed, n_heads, causal, thr, kp, save)
-            counter = fused_layer_train_long
+            counter = fused_layer_train_long if long_form else fused_layer_train
             if b > 0 and save:
                 counter.launches += 1
                 counter.float32_launches += dt == torch.float32
@@ -585,7 +594,7 @@ class _FusedLayerTrain(torch.autograd.Function):
                 _, saved = _long_launch(x, bias, used, mask, seed, n_heads, causal, thr, kp, True)
             dx, dbias, dws = _long_backward(x, g.to(x.dtype).contiguous(), used, saved,
                                             (seed, thr, kp, causal))
-            counter = fused_layer_train_long
+            counter = fused_layer_train_long if long_form else fused_layer_train
             if save:
                 counter.backward_launches += 1
                 counter.float32_backward_launches += x.dtype == torch.float32
@@ -716,7 +725,8 @@ def fused_layer_train(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
     A CPU tensor takes :func:`layer_train_reference` under autograd; a CUDA
     tensor launches the kernels (head dim 32, D <= 256) or raises: the short
     form for bfloat16 activations with S <= 32 and float32 activations with
-    S <= 16 (the flagship's E2), the long form
+    S <= 16 (the flagship's E2; at its widths on the long form's TF32
+    launches), the long form
     (:func:`fused_layer_train_long`) for bfloat16 with 33 <= S <= 256 and
     float32 with 17 <= S <= 256 (Sketchformer's encoder at S = 242 and its
     teacher-forced decoder at S = 241; a float32 model's E1 and D1 at S = 32
@@ -741,6 +751,8 @@ def fused_layer_train(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
 fused_layer_train.launches = 0                      # saved mode: forward launches
 fused_layer_train.backward_launches = 0             # its backward passes (bf16 D=256: five
 #                                                     launches; float32: four)
+fused_layer_train.float32_launches = 0              # those of the float32 Hopper form
+fused_layer_train.float32_backward_launches = 0     # (the long form's TF32 launches)
 fused_layer_train.recompute_launches = 0            # recompute mode: forward launches
 fused_layer_train.recompute_backward_launches = 0   # its backward passes (five launches)
 # bfloat16 at widths the wgmma kernels do not take (D < 256), on the older

@@ -4,12 +4,14 @@
     python3 scripts/profile_port_slice.py --train    # the training step, B=128
     python3 scripts/profile_port_slice.py --recipe   # the training step, B=60
     python3 scripts/profile_port_slice.py --selfmatch  # the self-matching step, B=60
-    python3 scripts/profile_port_slice.py --autoregressive  # Sketchformer's greedy_sample
+    python3 scripts/profile_port_slice.py --autoregressive [--float32]  # Sketchformer's greedy_sample
     python3 scripts/profile_port_slice.py --float32  # the inference path of the float32 model
     python3 scripts/profile_port_slice.py --train --float32  # the float32 flagship's step, B=60
     python3 scripts/profile_port_slice.py --rows [--tag T]  # kernel times at the paths' shapes
     python3 scripts/profile_port_slice.py --k4 [--tag T]    # the long K4's times at its shapes
     python3 scripts/profile_port_slice.py --k7 [--tree DIR] [--tag T]  # K7 alone at E2 and D2
+    python3 scripts/profile_port_slice.py --k9 [--tree DIR] [--tag T]  # K9 alone, N=1024
+    python3 scripts/profile_port_slice.py --greedy-wall [--tree DIR] [--tag T]  # greedy_sample's wall
 
 Loads the trained flagship checkpoint into the port (bfloat16 compute,
 float32 masters). Without ``--train`` it runs greedy one-shot encode+decode
@@ -25,7 +27,9 @@ brute-force matching), built from the flagship checkpoint as
 ``chip_smoke.py`` builds it. ``--autoregressive`` runs Sketchformer's
 ``greedy_sample`` (encode, then 240 decode steps through K9 and K3) at
 N=1024 on the config's own initialisation from a seed, as ``chip_smoke.py``
-builds it, for 2 calls after one. ``--float32`` profiles the inference path of the
+builds it, for 2 calls after one (with ``--float32``: the same weights at the
+config's own float32 compute, ``autoregressive_float32_profile.txt``).
+``--float32`` profiles the inference path of the
 flagship at its config's own ``compute_dtype``, float32 (the float32 forms
 of K1, K2 and K3); with ``--train`` it profiles that model's training step
 at the recipe's B=60 (``train_float32_profile.txt``: the long K4 at E1 and
@@ -71,6 +75,22 @@ function's bound; and K4's float32 short form at E2 above the stack gate
 into ``k7_rows[_T].json``. ``--tree DIR`` imports the
 port from the repository at DIR (an archive of another commit) in place of
 this one, so that one call can time two trees' kernels on the same inputs.
+
+``--k9`` times K9, the decode step, alone at Sketchformer's decode (N = 1,024
+rows, T = 241 cache positions, four layers, D=256, 8 heads, F=512; weights,
+caches and key padding from a seed) at ``index`` 1, 120 and 240, in bfloat16
+and float32: CUDA events and device time under ``torch.profiler`` (by
+kernel name), beside its plain version and its bound (the cache bytes
+before the index, the weights, the rows in and out, at 3.35 TB/s, against
+the products at the type's peak); into ``k9_rows[_T].json``. With ``--tree
+DIR`` it times the port at DIR, as ``--k7``.
+
+``--greedy-wall`` times Sketchformer's ``greedy_sample`` at N=1024 in
+bfloat16 and float32 without the profiler: the host's wall of each call,
+synchronised, over ITERS calls after one, and their median; into
+``greedy_wall[_T].json``. The model is built by this checkout's
+``chip_smoke.sketchformer_model`` on the port that ``--tree`` names, so two
+trees run the same weights.
 Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
@@ -112,10 +132,17 @@ def main() -> int:
                         help="time the long K4 at its paths' shapes (no profile)")
     parser.add_argument("--k7", action="store_true",
                         help="time K7 alone at E2 and D2, B=60 and 64 (no model)")
+    parser.add_argument("--k9", action="store_true",
+                        help="time K9 alone at N=1024, index 1/120/240 (no model)")
+    parser.add_argument("--greedy-wall", action="store_true",
+                        help="time greedy_sample's wall at N=1024, both types, unprofiled")
     parser.add_argument("--tree", default="",
-                        help="with --k7: the repository whose port is timed (default this one)")
+                        help="with --k7, --k9 or --greedy-wall: the repository whose "
+                             "port is timed "
+                             "(default this one)")
     parser.add_argument("--tag", default="",
-                        help="suffix of --rows', --k4's or --k7's output file")
+                        help="suffix of --rows', --k4's, --k7's, --k9's or "
+                             "--greedy-wall's output file")
     opts = parser.parse_args()
     if opts.tree:
         sys.path.insert(0, os.path.abspath(opts.tree))
@@ -141,12 +168,19 @@ def main() -> int:
         return k4_rows(card, opts.tag)
     if opts.k7:
         return k7_rows(card, opts.tag)
+    if opts.k9:
+        return k9_rows(card, opts.tag)
+    if opts.greedy_wall:
+        return greedy_wall(card, opts.tag)
     cfg = hierarchical_ordered() if opts.float32 else gpu_fast(hierarchical_ordered())
     iters = ITERS
     if opts.autoregressive:
         from chip_smoke import sketchformer_model
         from deepsvg_tpu_torch.models import greedy_sample
-        model = sketchformer_model("cuda")
+
+        # the float32 model: the config's own compute type, the same seeded
+        # weights, as chip_smoke's float32 phase builds it
+        model = sketchformer_model("cuda", compute_dtype="float32" if opts.float32 else None)
         cfg = model.cfg
     elif opts.selfmatch:
         from chip_smoke import self_match_model
@@ -163,6 +197,8 @@ def main() -> int:
     if opts.autoregressive:
         what, out_name, warmup, iters = (f"greedy_sample (Sketchformer) N={N}",
                                          "autoregressive_profile.txt", 1, 2)
+        if opts.float32:
+            what, out_name = what + ", float32", "autoregressive_float32_profile.txt"
 
         def run():
             greedy_sample(model, commands, args)
@@ -453,6 +489,106 @@ def k7_rows(card: str, tag: str) -> int:
            "ms": rows}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", f"k7_rows{'_' + tag if tag else ''}.json"),
+              "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
+def greedy_wall(card: str, tag: str) -> int:
+    """``--greedy-wall``: greedy_sample's wall per call at N=1024, both
+    types, as one JSON object."""
+    import importlib.util
+    import statistics
+
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import greedy_sample
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    rows: dict = {}
+    for dtype in ("bfloat16", "float32"):
+        model = here.sketchformer_model("cuda", compute_dtype=dtype)
+        cfg = model.cfg
+        batch = generate_batch(np.random.default_rng(0), N, cfg.max_num_groups,
+                               cfg.max_seq_len)
+        commands = torch.from_numpy(batch["commands_grouped"]).cuda()
+        args = torch.from_numpy(batch["args_grouped"]).cuda()
+        walls = []
+        with torch.no_grad():
+            for _ in range(1 + ITERS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                greedy_sample(model, commands, args)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        rows[dtype] = {"walls_ms": walls[1:], "median_ms": statistics.median(walls[1:])}
+        print(f"{card}; greedy_sample (Sketchformer) N={N} {dtype}: wall "
+              f"{rows[dtype]['median_ms']:.3f} ms median of {ITERS} (host clock, no profiler; "
+              f"{', '.join(f'{w:.3f}' for w in walls[1:])})", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    result = {"card": card, "N": N, "rows": rows}
+    print(json.dumps(result))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"greedy_wall{'_' + tag if tag else ''}.json"),
+              "w") as f:
+        json.dump(result, f, indent=1)
+    return 0
+
+
+def k9_rows(card: str, tag: str) -> int:
+    """``--k9``: K9's times at N=1024, T=241, index 1/120/240, both types, as
+    one JSON object."""
+    from deepsvg_tpu_torch.ops import decode as decode_ops
+    dev = torch.device("cuda")
+    n, t, n_layers, d, heads, f = N, 241, 4, 256, 8, 512
+    peak = {torch.bfloat16: 989e12, torch.float32: 495e12}   # dense bf16, TF32
+    rng = np.random.default_rng(9)
+    rnd = lambda *shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        scale * rng.standard_normal(shape, dtype=np.float32)).to(dev)
+    ln = lambda *lead: torch.stack([1 + rnd(*lead, d, scale=0.1),  # noqa: E731
+                                    rnd(*lead, d, scale=0.1)], dim=len(lead))
+    key_pad = torch.zeros(n, t, device=dev)
+    eos = torch.from_numpy(rng.integers(1, t, n)).to(dev)
+    tail = torch.arange(n, device=dev) % 3 == 0
+    key_pad[tail] = torch.where(torch.arange(t, device=dev)[None] < eos[tail, None], 0.0,
+                                float("-inf"))
+    master = (rnd(n, d), rnd(n_layers, n, d, scale=0.3), ln(n_layers),
+              rnd(n_layers, 3 * d, d, scale=d ** -0.5), rnd(n_layers, 3 * d, scale=0.1),
+              rnd(n_layers, d, d, scale=d ** -0.5), rnd(n_layers, d, scale=0.1), ln(n_layers),
+              rnd(n_layers, f, d, scale=d ** -0.5), rnd(n_layers, f, scale=0.1),
+              rnd(n_layers, d, f, scale=f ** -0.5), rnd(n_layers, d, scale=0.1), ln(),
+              rnd(n_layers, n, t, d), rnd(n_layers, n, t, d))
+    w_elems = n_layers * (4 * d * d + 2 * d * f + 3 * d + d + f + d + 4 * d) + 2 * d
+    rows: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        es = torch.empty((), dtype=dtype).element_size()
+        ops = [m.to(dtype).contiguous() for m in master] + [key_pad]
+        for index in (1, 120, 240):
+            def step():
+                return decode_ops.fused_decode_step(*ops, index, heads)
+            n_bytes = (2 * n_layers * n * index * d * es + w_elems * es + n * (index + 1) * 4
+                       + n * d * es * 2 + n_layers * n * d * es * 3)
+            flops = (2.0 * n * n_layers * (4 * d * d + 2 * d * f)
+                     + 4.0 * n * n_layers * (index + 1) * d)
+            dev_ms, kern = device_ms(step)
+            name = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_index{index}"
+            rows[name] = {
+                "ms": events_ms(step), "device_ms": dev_ms, "kernels_ms": kern,
+                "plain_ms": events_ms(
+                    lambda: decode_ops.decode_step_reference(*ops, index, heads), iters=3,
+                    warmup=1),
+                "bound_ms": max(n_bytes / 3.35e12, flops / peak[dtype]) * 1e3}
+            print(f"{name}: " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in rows[name].items()), flush=True)
+        del ops
+    out = {"card": card, "root": os.path.dirname(os.path.dirname(decode_ops.__file__)),
+           "ms": rows}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"k9_rows{'_' + tag if tag else ''}.json"),
               "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps(out))

@@ -373,3 +373,50 @@ def test_bf16_decode_matches_jax_fused(batch, tree, latent, monkeypatch):
     print(f"bf16 decode vs JAX's fused path: {compared} of {margin.size} positions compared "
           f"(margin >= {MARGIN_BF16})")
     assert compared >= N
+
+
+# ---- K9's launch plan (pure: no card). On the H100 one wave holds 66
+# clusters of 2 blocks at one block an SM (cudaOccupancyMaxActiveClusters);
+# a block can use 232,448 bytes.
+H100_WAVE = 66
+SMEM_LIMIT = 232448
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_decode_launch_plan_fits_the_card_at_the_decode_batch(dtype):
+    """At Sketchformer's decode (R = 1,024 rows, D=256, 8 heads, F=512) the
+    cluster kernel takes the step in one wave: blocks of 8 rows with every
+    head, 64 clusters of 2 blocks splitting each product's columns (128
+    blocks, one an SM), each block within the card's shared memory; R = 1,000 and the
+    card tests' smaller batches likewise, their last cluster padded."""
+    plan = decode_ops.decode_launch_plan(1024, 256, 512, 8, dtype, H100_WAVE)
+    assert plan["takes"] and plan["waves"] == 1 and plan["smem"] <= SMEM_LIMIT
+    assert (plan["block_rows"], plan["cluster"], plan["clusters"], plan["grid"]) == (8, 2, 64, 128)
+    for r, clusters in ((1, 1), (13, 1), (64, 4), (65, 5), (1000, 63)):
+        small = decode_ops.decode_launch_plan(r, 256, 512, 8, dtype, H100_WAVE)
+        assert small["takes"] and small["waves"] == 1 and small["smem"] <= SMEM_LIMIT, r
+        assert small["clusters"] == clusters and small["grid"] == 2 * clusters, r
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_decode_launch_plan_over_the_contract(dtype, d):
+    """Over K9's contract (heads of 32, D up to 256, F a multiple of 32 up to
+    1,024, R from 1 to 4,099, a wave of 1 to 66 clusters): the cluster kernel
+    takes exactly D=256 with 8 heads and an F that is a multiple of 256 (its
+    weight slabs' rows) whose block fits the card's shared memory (up to
+    1,024 in bfloat16, 768 in float32; every width it refuses runs the older
+    kernel); the blocks of 8 rows cover the rows once, in whole clusters of
+    two; the waves are the clusters over the wave."""
+    heads = d // 32
+    widest = {torch.bfloat16: 1024, torch.float32: 768}[dtype]
+    for f in range(32, 1025, 32):
+        for r in (1, 13, 80, 81, 1024, 4099):
+            for wave in (1, 15, 66):
+                plan = decode_ops.decode_launch_plan(r, d, f, heads, dtype, wave)
+                assert plan["takes"] == (d == 256 and f % 256 == 0 and f <= widest), (f, r)
+                assert plan["smem"] <= SMEM_LIMIT or not plan["takes"], (f, r)
+                rows = plan["block_rows"] * plan["cluster"]
+                assert (plan["clusters"] - 1) * rows < r <= plan["clusters"] * rows
+                assert plan["grid"] == plan["clusters"] * plan["cluster"]
+                assert plan["waves"] == -(-plan["clusters"] // wave)

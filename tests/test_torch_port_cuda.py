@@ -258,7 +258,7 @@ def test_layer_train_narrow_width_takes_the_wmma_form(cuda, rate, save_residuals
 
 
 def _hold_layer_train(dev, rng, dtype, s, b, causal, rate, counted, untouched,
-                      save_residuals=True):
+                      save_residuals=True, f=F_FF, seq_bias=True):
     """K4 on one case against the plain version, as it is and with the
     kernel's ReLU units, and against itself run again (to the bit). The
     form that must run is ``counted`` (the forward and backward counters of
@@ -266,13 +266,13 @@ def _hold_layer_train(dev, rng, dtype, s, b, causal, rate, counted, untouched,
     not), the other form ``untouched``. The recompute mode keeps no FF
     hidden: its output must equal the saved mode's to the bit, and the ReLU
     units are read from that saved-mode forward."""
-    masters = [w.requires_grad_() for w in _layer_weights(rng, dev, torch.float32)]
+    masters = [w.requires_grad_() for w in _layer_weights(rng, dev, torch.float32, f=f)]
     x = _bf16(rng, dev, b, s, D).to(dtype).requires_grad_()
-    bias = _bf16(rng, dev, b, D).to(dtype).requires_grad_()
+    bias = _bf16(rng, dev, b, D).to(dtype).requires_grad_() if seq_bias else None
     mask = _key_mask(rng, dev, b, s)
     g = _bf16(rng, dev, b, s, D).to(dtype)
     seed = 1234
-    leaves = [x, bias, *masters]
+    leaves = [x, *([bias] if seq_bias else []), *masters]
     call = (x, bias, *masters, mask, seed, H, causal, rate, BF16)
     counts = lambda fn: (fn.launches, fn.backward_launches,  # noqa: E731
                          fn.recompute_launches, fn.recompute_backward_launches)
@@ -298,7 +298,8 @@ def _hold_layer_train(dev, rng, dtype, s, b, causal, rate, counted, untouched,
     grad_lim, gate_lim = GRAD_RMS_LIMITS[dtype]
     print(f"K4 {dtype} S={s} causal={causal} rate={rate}: fwd rel rms {_rel_rms(out, ref):.3g}")
     assert torch.isfinite(out).all() and _rel_rms(out, ref) <= 1e-3
-    for name, got, want, want_gate in zip(TRAIN_NAMES, grads, ref_grads, gate_grads):
+    names = TRAIN_NAMES if seq_bias else TRAIN_NAMES[:1] + TRAIN_NAMES[2:]
+    for name, got, want, want_gate in zip(names, grads, ref_grads, gate_grads):
         assert got.shape == want.shape and torch.isfinite(got).all(), name
         print(f"  d{name}: rel rms {_rel_rms(got, want):.3g}, with the ReLU units aligned "
               f"{_rel_rms(got, want_gate):.3g}")
@@ -368,6 +369,77 @@ def test_long_layer_train_hopper_forms(cuda, dtype, s, b, causal, save_residuals
         assert moved[0] >= 1 and moved[1] == (2 if save_residuals else 0)
     else:
         assert moved[:2] == [0, 0]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("seq_bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("s", [8, 16])
+@pytest.mark.parametrize("b", [1, 3, 128])
+def test_float32_short_layer_train_takes_the_tf32_wgmma_form(cuda, b, s, seq_bias, rate):
+    """K4's float32 short form (S <= 16) in the saved mode at the flagship's
+    widths runs the long form's TF32 ``wgmma`` launches (``layer_f32.cu``,
+    ``layer_f32_bwd.cu``), counted under the short form's counters and its
+    ``float32_launches`` / ``float32_backward_launches``: forward and every
+    gradient against the plain version within the float32 limits, equal to
+    the bit on a second run; the older kernels (``narrow`` counters) and the
+    long form's counters do not move. E2 at B=128 is the step's case."""
+    fn, long_fn = layer_vjp.fused_layer_train, layer_vjp.fused_layer_train_long
+    counts = lambda: (fn.float32_launches, fn.float32_backward_launches,  # noqa: E731
+                      fn.narrow_launches, fn.narrow_backward_launches)
+    before = counts()
+    _hold_layer_train(cuda, np.random.default_rng(7 * b + s + int(10 * rate)), torch.float32, s,
+                      b, s == 16, rate, fn, long_fn, seq_bias=seq_bias)
+    # the forward twice (once for the rerun), the backward twice
+    assert [a - c for a, c in zip(counts(), before)] == [2, 2, 0, 0]
+
+
+@pytest.mark.parametrize("save_residuals", [True, False], ids=["saved", "recompute"])
+@pytest.mark.parametrize("f", [320, 384])
+@pytest.mark.parametrize("s,b", [(8, 21), (32, 9), (40, 3)])
+def test_bf16_layer_train_ff_width_not_a_multiple_of_256(cuda, s, b, f, save_residuals):
+    """bfloat16 K4 at D=256, 8 heads and an FF width that is no multiple of
+    256 (F=320, F=384): the Hopper forms' weight products take N multiples
+    of 256 only, so these widths run the older wmma kernels in both
+    directions (counted under ``narrow_launches``), short form (S=8, 32) and
+    long (S=40), both modes, against the plain version within the bfloat16
+    limits. Before the width rule was narrowed the short form's forward ran
+    its wgmma kernel and the backward raised CUDA error 1 in its weight
+    products."""
+    counted = layer_vjp.fused_layer_train_long if s > 32 else layer_vjp.fused_layer_train
+    narrow = lambda: (counted.narrow_launches, counted.narrow_backward_launches)  # noqa: E731
+    before = narrow()
+    rng = np.random.default_rng(f + s)
+    masters = [w.requires_grad_() for w in _layer_weights(rng, cuda, torch.float32, f=f)]
+    x = _bf16(rng, cuda, b, s, D).requires_grad_()
+    bias = _bf16(rng, cuda, b, D).requires_grad_()
+    mask = _key_mask(rng, cuda, b, s)
+    g = _bf16(rng, cuda, b, s, D)
+    leaves = [x, bias, *masters]
+    call = (x, bias, *masters, mask, 5, H, s == 32, 0.1, BF16)
+    out = layer_vjp.fused_layer_train(*call, save_residuals=save_residuals)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    # the forward counts as narrow in both modes, the backward in the saved mode
+    assert [a - c for a, c in zip(narrow(), before)] == [1, int(save_residuals)]
+    saved_out = layer_vjp.fused_layer_train(*call, save_residuals=True)
+    assert torch.equal(out, saved_out)
+    gate = layer_vjp.kernel_relu_gate(saved_out)
+    ref = layer_vjp.plain_layer_train(*call)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+    gate_grads = torch.autograd.grad(layer_vjp.plain_layer_train(*call, relu_gate=gate),
+                                     leaves, g)
+    print(f"K4 bf16 F={f} S={s} save={save_residuals}: fwd rel rms {_rel_rms(out, ref):.3g}")
+    # the long form's older kernel reads 0.0011 at F=320 (one bfloat16 rounding
+    # of the output, 2^-9 / sqrt(3), on most elements): twice the short form's
+    # limit there
+    assert torch.isfinite(out).all() and _rel_rms(out, ref) <= (2e-3 if s > 32 else 1e-3)
+    grad_lim, gate_lim = GRAD_RMS_LIMITS[BF16]
+    for name, got, want, want_gate in zip(TRAIN_NAMES, grads, ref_grads, gate_grads):
+        print(f"  d{name}: rel rms {_rel_rms(got, want):.3g}, aligned "
+              f"{_rel_rms(got, want_gate):.3g}")
+        assert got.shape == want.shape and torch.isfinite(got).all(), name
+        assert _rel_rms(got, want) <= grad_lim, name
+        assert _rel_rms(got, want_gate) <= gate_lim, name
 
 
 def test_float32_layer_train_takes_the_long_form_from_s17(cuda):
@@ -911,22 +983,78 @@ def _decode_inputs(rng, dev, n_layers, r, t):
             key_pad)
 
 
-@pytest.mark.parametrize("r,index", [(64, 0), (64, 1), (1000, 120), (64, 240), (13, 77)])
+DECODE_ROWS = (13, 64, 65, 1000, 1024)
+DECODE_INDICES = (0, 1, 120, 240)
+
+
+def _decode_case(dev, dtype, r, index, seed):
+    """K9 at T = 241, four layers, on the flagship's widths in ``dtype``: the
+    kernel's outputs (counted: the cluster kernel must launch, the older one
+    not), its second run on the same inputs, and the plain version's."""
+    rng = np.random.default_rng(seed)
+    inputs = [t.to(dtype) if t.dtype == BF16 else t for t in _decode_inputs(rng, dev, 4, r, 241)]
+    fn = decode_ops.fused_decode_step
+    names = ("launches", "float32_launches", "cluster_launches", "narrow_launches")
+    before = _counts(fn, *names)
+    got = fn(*inputs, index, H)
+    again = fn(*inputs, index, H)
+    f32 = int(dtype == torch.float32)
+    assert _counts(fn, *names) == (before[0] + 2, before[1] + 2 * f32, before[2] + 2, before[3])
+    return got, again, decode_ops.decode_step_reference(*inputs, index, H)
+
+
+@pytest.mark.parametrize("index", DECODE_INDICES)
+@pytest.mark.parametrize("r", DECODE_ROWS)
 def test_decode_kernel_matches_plain(cuda, r, index):
-    """K9 against its plain version at T = 241, four layers: y, the new keys
-    and values of every layer."""
-    rng = np.random.default_rng(r + index)
-    inputs = _decode_inputs(rng, cuda, 4, r, 241)
-    before = decode_ops.fused_decode_step.launches
-    got = decode_ops.fused_decode_step(*inputs, index, H)
-    assert decode_ops.fused_decode_step.launches == before + 1
-    want = decode_ops.decode_step_reference(*inputs, index, H)
-    for name, o, ref in zip(("y", "k_new", "v_new"), got, want):
+    """K9's cluster kernel against its plain version at T = 241, four
+    layers: y, the new keys and values of every layer, at batches of one
+    cluster with a partial block (13), whole clusters (64), a cluster whose
+    second block has no rows (65), and the decode's batch (1,000, 1,024:
+    63 and 64 clusters of two 8-row blocks in one wave), at the first step
+    (no cached position), the second and deep into the caches; a second
+    run equal to the bit."""
+    got, again, want = _decode_case(cuda, BF16, r, index, r + index)
+    for name, o, o2, ref in zip(("y", "k_new", "v_new"), got, again, want):
         ref = ref.float()
         err = (o.float() - ref).abs()
+        print(f"K9 R={r} index {index} {name}: rel rms {_rel_rms(o, ref):.3g}")
         assert o.dtype == BF16 and o.shape == ref.shape and torch.isfinite(o).all(), name
         assert (err <= TOL_ATOL + TOL_RTOL * ref.abs()).all(), (name, err.max().item())
         assert _rel_rms(o, ref) <= 2 * TOL_RMS, (name, _rel_rms(o, ref))
+        assert torch.equal(o, o2), name
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+def test_decode_narrow_width_takes_the_older_kernel(cuda, dtype):
+    """A width the cluster kernel does not take (D=128, 4 heads, F=256) runs
+    the older K9 kernel, counted under ``narrow_launches``, within the same
+    limits."""
+    rng = np.random.default_rng(128)
+    d, heads, f, r, tl, index = 128, 4, 256, 40, 33, 20
+
+    def t(*shape, scale=1.0):
+        return _bf16(rng, cuda, *shape, scale=scale).to(dtype)
+
+    def ln(*lead):
+        return torch.stack([1 + t(*lead, d, scale=0.1), t(*lead, d, scale=0.1)],
+                           len(lead)).contiguous()
+
+    inputs = (t(r, d), t(4, r, d, scale=0.3), ln(4), t(4, 3 * d, d, scale=d ** -0.5),
+              t(4, 3 * d, scale=0.1), t(4, d, d, scale=d ** -0.5), t(4, d, scale=0.1), ln(4),
+              t(4, f, d, scale=d ** -0.5), t(4, f, scale=0.1), t(4, d, f, scale=f ** -0.5),
+              t(4, d, scale=0.1), ln(), t(4, r, tl, d), t(4, r, tl, d),
+              torch.zeros(r, tl, device=cuda))
+    fn = decode_ops.fused_decode_step
+    before = _counts(fn, "cluster_launches", "narrow_launches")
+    got = fn(*inputs, index, heads)
+    assert _counts(fn, "cluster_launches", "narrow_launches") == (before[0], before[1] + 1)
+    want = decode_ops.decode_step_reference(*inputs, index, heads)
+    atol, rtol = (TOL_ATOL, TOL_RTOL) if dtype == BF16 else (TOL_F32_ATOL, TOL_F32_RTOL)
+    for name, o, ref in zip(("y", "k_new", "v_new"), got, want):
+        ref = ref.float()
+        assert torch.isfinite(o).all(), name
+        assert ((o.float() - ref).abs() <= atol + rtol * ref.abs()).all(), name
+        assert _rel_rms(o, ref) <= 2 * TOL_RMS, name
 
 
 def test_decode_kernel_refuses_what_it_does_not_take(cuda):
@@ -1132,24 +1260,22 @@ def test_ce_kernels_are_wgmma_kernels(cuda):
     assert len(ce) == 6 and all(c > 0 for c in ce.values()), ce
 
 
-@pytest.mark.parametrize("index", [1, 120, 240])
-def test_decode_float32_form(cuda, index):
-    """K9 in float32 at T = 241, four layers: y and the new keys and values
-    against the plain version in full float32, with the float32 layer's
-    elementwise limits and twice its relative RMS limit."""
-    rng = np.random.default_rng(index + 7)
-    inputs = [t.float() if t.dtype == BF16 else t for t in _decode_inputs(rng, cuda, 4, 64, 241)]
-    before = _counts(decode_ops.fused_decode_step, "launches", "float32_launches")
-    got = decode_ops.fused_decode_step(*inputs, index, H)
-    assert _counts(decode_ops.fused_decode_step, "launches", "float32_launches") == (
-        before[0] + 1, before[1] + 1)
-    want = decode_ops.decode_step_reference(*inputs, index, H)
-    for name, o, ref in zip(("y", "k_new", "v_new"), got, want):
+@pytest.mark.parametrize("index", DECODE_INDICES)
+@pytest.mark.parametrize("r", DECODE_ROWS)
+def test_decode_float32_form(cuda, r, index):
+    """K9's cluster kernel in float32 (TF32 products) at T = 241, four
+    layers, the bfloat16 test's batches and positions: y and the new keys
+    and values against the plain version in full float32, with the float32
+    layer's elementwise limits and twice its relative RMS limit; a second
+    run equal to the bit."""
+    got, again, want = _decode_case(cuda, torch.float32, r, index, r + index + 7)
+    for name, o, o2, ref in zip(("y", "k_new", "v_new"), got, again, want):
         err = (o - ref).abs()
-        print(f"K9 float32 index {index} {name}: rel rms {_rel_rms(o, ref):.3g}")
+        print(f"K9 float32 R={r} index {index} {name}: rel rms {_rel_rms(o, ref):.3g}")
         assert o.dtype == torch.float32 and torch.isfinite(o).all(), name
         assert (err <= TOL_F32_ATOL + TOL_F32_RTOL * ref.abs()).all(), (name, err.max().item())
         assert _rel_rms(o, ref) <= 2 * TOL_RMS, name
+        assert torch.equal(o, o2), name
 
 
 # ---- K10 and K11: the attention block alone. The kernel rounds QKV, the
