@@ -143,9 +143,23 @@ from .layer import (
 SAVE_RESIDUALS_DEFAULT = True
 
 
+class _RoundGrad(torch.autograd.Function):
+    """The identity; its backward rounds the gradient to ``dtype`` (as the
+    kernels round a gradient before the products that read it)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
+
+
 def layer_train_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
                           mask, seed: int, n_heads: int, causal: bool = False,
-                          rate: float = 0.0, relu_gate=None):
+                          rate: float = 0.0, relu_gate=None, round_grads: bool = False):
     """Plain version of the K4 forward (differentiable; the weights as they
     are used, already cast). With ``rate`` 0 it is ``layer_reference``.
 
@@ -153,10 +167,18 @@ def layer_train_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2,
     in place of this version's own ``pre-activation > 0``. Two versions whose
     forward passes differ in their last bits disagree on a few units next to
     zero; with the other version's gate the comparison of their gradients
-    reads the roundings alone."""
+    reads the roundings alone. ``round_grads``, a diagnostic too: the
+    backward rounds ``df``, ``dhpre``, ``da`` and ``ds`` to the activation
+    type before the products that read them (not before the bias sums), as
+    the kernels do (this version's other gradients reach the products
+    already in the activation type); with ``relu_gate`` the two versions
+    then round at the same points and differ by their summation orders,
+    whose last bits each rounding may carry on."""
     b, s, d = x.shape
     f = w1.shape[0]
     dt = x.dtype
+    rg = ((lambda t: _RoundGrad.apply(t, dt)) if round_grads and dt != torch.float32
+          else (lambda t: t))
     hd = d // n_heads
     dev = x.device
     drop = rate > 0.0
@@ -170,7 +192,7 @@ def layer_train_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2,
     qkv = (_mm(xn, wqkv) + bqkv.float()).to(dt)
     q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, s, n_heads, hd).transpose(1, 2)
                for i in range(3))
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd ** -0.5)
+    scores = rg(torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd ** -0.5))
     scores = scores + mask.float()[:, None, None, :]
     if causal:
         upper = torch.ones(s, s, dtype=torch.bool, device=dev).triu(1)
@@ -184,18 +206,18 @@ def layer_train_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2,
                                torch.arange(s, device=dev), rate)
     ctx = torch.matmul(p.to(dt).float(), v.float()).to(dt)
     ctx = ctx.transpose(1, 2).reshape(b, s, d)
-    a = _mm(ctx, wo) + bo.float()
+    a = rg(_mm(ctx, wo)) + bo.float()
     if drop:
         a = a * factor(SITE_ATTN_OUT, d)
     xf = xf + a
     if seq_bias is not None:
         xf = xf + seq_bias.float()[:, None, :]
     xn2 = _layer_norm_f32(xf, ln2).to(dt)
-    h = _mm(xn2, w1) + b1.float()
+    h = rg(_mm(xn2, w1)) + b1.float()
     h = torch.relu(h) if relu_gate is None else h * relu_gate
     if drop:
         h = h * factor(SITE_FF_HIDDEN, f)
-    ff = _mm(h.to(dt), w2) + b2.float()
+    ff = rg(_mm(h.to(dt), w2)) + b2.float()
     if drop:
         ff = ff * factor(SITE_FF_OUT, d)
     return (xf + ff).to(dt)

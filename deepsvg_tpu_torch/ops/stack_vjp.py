@@ -118,29 +118,31 @@ def stack_launch_plan(b: int, s: int, d: int, f: int, n_heads: int, dtype) -> di
 
 def stack_train_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                           seed: int, n_heads: int, causal: bool = False, rate: float = 0.0,
-                          relu_gates=None):
+                          relu_gates=None, round_grads: bool = False):
     """Plain version of the K7 forward (differentiable; the weights as they
     are used, already cast): layer l is :func:`layer_train_reference` with
     ``seq_bias[l]`` and the seed ``stack_layer_seed(seed, l)``.
-    ``relu_gates [L, B, S, F]``: each layer's ``relu_gate`` (a diagnostic,
-    see :func:`layer_train_reference`)."""
+    ``relu_gates [L, B, S, F]``: each layer's ``relu_gate``; ``round_grads``:
+    the kernels' roundings of the gradients (diagnostics, see
+    :func:`layer_train_reference`)."""
     for layer in range(ln1.shape[0]):
         weights = [w[layer] for w in (ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2)]
         x = layer_train_reference(x, seq_bias[layer], *weights, mask,
                                   stack_layer_seed(seed, layer), n_heads, causal, rate,
-                                  None if relu_gates is None else relu_gates[layer])
+                                  None if relu_gates is None else relu_gates[layer],
+                                  round_grads)
     return x
 
 
 def plain_stack_train(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                       seed: int, n_heads: int, causal: bool = False, rate: float = 0.0,
-                      weight_dtype=None, relu_gates=None):
+                      weight_dtype=None, relu_gates=None, round_grads: bool = False):
     """:func:`fused_stack_train` through the plain version, on any device:
     the master weights cast to ``weight_dtype`` in the graph, then
     :func:`stack_train_reference` under autograd."""
     used = [w.to(weight_dtype or x.dtype) for w in (ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2)]
     return stack_train_reference(x, seq_bias, *used, mask, seed, n_heads, causal, rate,
-                                 relu_gates)
+                                 relu_gates, round_grads)
 
 
 def kernel_relu_gates(out: torch.Tensor) -> torch.Tensor:

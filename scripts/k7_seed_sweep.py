@@ -56,20 +56,6 @@ def rel(got, want) -> dict:
             "worst": (diff.max() / scale).item()}
 
 
-def k4_chain_gates(layer_vjp, x, bias, *rest):
-    """chip_smoke's K4 chain, and the ReLU units of each of its layers
-    ``[L, B, S, F]``."""
-    from deepsvg_tpu_torch.ops.dropout import stack_layer_seed
-    masters, (mask, seed, n_heads, causal, rate, dt) = rest[:10], rest[10:]
-    gates = []
-    for layer in range(masters[0].shape[0]):
-        x = layer_vjp.fused_layer_train(x, bias[layer], *[w[layer] for w in masters], mask,
-                                        stack_layer_seed(seed, layer), n_heads, causal, rate, dt,
-                                        save_residuals=True)
-        gates.append(layer_vjp.kernel_relu_gate(x))
-    return x, torch.stack(gates)
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default="", help="the repository whose port runs")
@@ -147,7 +133,7 @@ def main() -> int:
                     leaves32, g_out.float())
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = tf32
-            chain_out, chain_gates = k4_chain_gates(layer_vjp, *call)
+            chain_out, chain_gates = cs.k4_chain(layer_vjp, *call, with_gates=True)
             chain = torch.autograd.grad(chain_out, leaves, g_out)
             chain_aligned = torch.autograd.grad(
                 stack_vjp.plain_stack_train(*call, relu_gates=chain_gates), leaves, g_out)

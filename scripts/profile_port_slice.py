@@ -12,6 +12,7 @@
     python3 scripts/profile_port_slice.py --k7 [--tree DIR] [--tag T]  # K7 alone at E2 and D2
     python3 scripts/profile_port_slice.py --k9 [--tree DIR] [--tag T]  # K9 alone, N=1024
     python3 scripts/profile_port_slice.py --greedy-wall [--tree DIR] [--tag T]  # greedy_sample's wall
+    python3 scripts/profile_port_slice.py --embedding [--tree DIR] [--tag T]  # K1, K6, walls
 
 Loads the trained flagship checkpoint into the port (bfloat16 compute,
 float32 masters). Without ``--train`` it runs greedy one-shot encode+decode
@@ -91,6 +92,18 @@ synchronised, over ITERS calls after one, and their median; into
 ``greedy_wall[_T].json``. The model is built by this checkout's
 ``chip_smoke.sketchformer_model`` on the port that ``--tree`` names, so two
 trees run the same weights.
+``--embedding`` times the embedding kernels at the paths' shapes on the port
+that ``--tree`` names (default this one), with CUDA events (mean of 20
+after 3, the call's whole time) and as device time under ``torch.profiler``
+(every kernel of the call, and the kernel's own by name): K1 in bfloat16
+and float32 at the flagship's E1 (N=1024: 8,192 sequences of 32, the ids as
+the inference path hands them over, arguments as floats), K6 on int32 ids
+(as the step's backward gets them) at the flagship step's B=128 x 32
+(bfloat16 ``dy``), Sketchformer's encoder at B=60 (S=242, a 242-row group
+table) and the float32 flagship's B=60 x 32 (float32 ``dy``), each ``dy``
+from a generator of its own; and the flagship's greedy one-shot inference
+(``one_shot_sample``, N=1024) in both types, median of 20 after 3 between
+CUDA events, as chip_smoke times it. Into ``embedding_rows[_T].json``.
 Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
@@ -136,8 +149,10 @@ def main() -> int:
                         help="time K9 alone at N=1024, index 1/120/240 (no model)")
     parser.add_argument("--greedy-wall", action="store_true",
                         help="time greedy_sample's wall at N=1024, both types, unprofiled")
+    parser.add_argument("--embedding", action="store_true",
+                        help="time K1, K6 and the inference walls (no model profile)")
     parser.add_argument("--tree", default="",
-                        help="with --k7, --k9 or --greedy-wall: the repository whose "
+                        help="with --k7, --k9, --greedy-wall or --embedding: the repository whose "
                              "port is timed "
                              "(default this one)")
     parser.add_argument("--tag", default="",
@@ -172,6 +187,8 @@ def main() -> int:
         return k9_rows(card, opts.tag)
     if opts.greedy_wall:
         return greedy_wall(card, opts.tag)
+    if opts.embedding:
+        return embedding_rows(card, opts.tag)
     cfg = hierarchical_ordered() if opts.float32 else gpu_fast(hierarchical_ordered())
     iters = ITERS
     if opts.autoregressive:
@@ -491,6 +508,106 @@ def k7_rows(card: str, tag: str) -> int:
     with open(os.path.join(ROOT, "chiprun_out", f"k7_rows{'_' + tag if tag else ''}.json"),
               "w") as fh:
         json.dump(out, fh, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
+def embedding_rows(card: str, tag: str) -> int:
+    """``--embedding``: K1's and K6's times and the inference walls, as one
+    JSON object."""
+    import importlib.util
+
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import gpu_fast, hierarchical_ordered, load_model, one_shot_sample
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.svgtensor import masks as M
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    dev = torch.device("cuda")
+    rows: dict = {}
+
+    def timed(name, fn, k6_call=None):
+        """``fn`` timed; with ``k6_call(stamps)`` (a tree whose K6 takes
+        stamps), also K6's phases from the card's clock."""
+        import inspect
+        total, by_name = device_ms(fn)
+        rows[name] = {"ms": events_ms(fn), "device_ms": total,
+                      "kernel_device_ms": sum(v for k, v in by_name.items() if "embedding" in k)}
+        print(f"{card}; {name}: {rows[name]['ms']:.4f} ms (events), device "
+              f"{rows[name]['device_ms']:.4f} ms, of which the kernel "
+              f"{rows[name]['kernel_device_ms']:.4f}", flush=True)
+        if k6_call is not None and "stamps" in inspect.signature(
+                emb_ops.embedding_backward).parameters:
+            # K6's phases, from the card's clock in each block: phase 1 (the
+            # token blocks), the wait at the grid barrier, phase 2 (the rows)
+            stamps = torch.zeros((1024, 8), dtype=torch.int64, device=dev)
+            k6_call(stamps)
+            torch.cuda.synchronize()
+            t = stamps[(stamps != 0).all(1)].double() / 1e3      # us
+            med = lambda a, b: (t[:, b] - t[:, a]).median().item()  # noqa: E731
+            rows[name]["phases_us"] = phases = {
+                "staging_median": med(0, 1), "rank_and_hot_median": med(1, 2),
+                "scan_scatter_median": med(2, 7), "long_segments_median": med(7, 3),
+                "phase1_max": (t[:, 4] - t[:, 0]).max().item(), "phase1_median": med(0, 4),
+                "barrier_wait_max": (t[:, 5] - t[:, 4]).max().item(),
+                "phase2_max": (t[:, 6] - t[:, 5]).max().item(), "phase2_median": med(5, 6),
+                "first_to_last": (t[:, 6].max() - t[:, 0].min()).item(), "blocks": len(t)}
+            print(f"  {name} phases (us, {phases['blocks']} blocks): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in phases.items() if k != "blocks"), flush=True)
+
+    flagship = hierarchical_ordered()
+    batch = generate_batch(np.random.default_rng(0), N, flagship.max_num_groups,
+                           flagship.max_seq_len)
+    commands = torch.from_numpy(batch["commands"]).to(dev)
+    args = torch.from_numpy(batch["args"]).to(dev)
+    n, g, s_enc = commands.shape
+    cmd_f, args_f = commands.reshape(n * g, s_enc), args.reshape(n * g, s_enc, -1)
+    for suffix, cfg in (("", gpu_fast(hierarchical_ordered())), ("_f32", hierarchical_ordered())):
+        model = load_model(CHECKPOINT, cfg, device=dev)
+        with torch.no_grad():
+            cmd_table, arg_tables, pos_table = model.encoder.embedding.tables()
+            emb_in = (cmd_f, args_f, None, cmd_table, arg_tables, None, pos_table[:s_enc])
+            timed("embedding" + suffix, lambda: emb_ops.fused_embedding(*emb_in))
+            walls = here.cuda_median_ms(lambda: one_shot_sample(model, commands, args))
+        rows["one_shot_sample" + suffix] = {"median_ms": walls}
+        print(f"{card}; one_shot_sample{suffix} N={N}: {walls:.3f} ms median of 20", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    # K6: the flagship step's B=128, then the float32 flagship's B=60
+    for name, b, dt in (("embedding_bwd", B_TRAIN, torch.bfloat16),
+                        ("embedding_bwd_f32", B_RECIPE, torch.float32)):
+        tb = generate_batch(np.random.default_rng(0), b, flagship.max_num_groups,
+                            flagship.max_seq_len)
+        tc = torch.from_numpy(tb["commands"]).to(dev).flatten(0, 1)
+        ta = torch.from_numpy(tb["args"]).to(dev).flatten(0, 1).to(torch.int32)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        dy = torch.randn(*tc.shape, flagship.d_model, device=dev, generator=gen).to(dt)
+        k6_in = (tc, ta, None, dy, flagship.n_commands, flagship.args_dim + 1, 0, False)
+        timed(name, lambda: emb_ops.embedding_backward(*k6_in),
+              lambda st, k6_in=k6_in: emb_ops.embedding_backward(*k6_in, stamps=st))
+    # Sketchformer's encoder at B=60, S=242
+    sfm = here.sketchformer_model(dev)
+    emb = sfm.encoder.embedding
+    rb = generate_batch(np.random.default_rng(0), B_RECIPE, sfm.cfg.max_num_groups,
+                        sfm.cfg.max_seq_len)
+    ce = torch.from_numpy(rb["commands_grouped"]).to(dev)[:, 0]
+    ae = torch.from_numpy(rb["args_grouped"]).to(dev)[:, 0].to(torch.int32)
+    cmd_table, arg_tables, _ = emb.tables()
+    n_group = emb.group_table().shape[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dy = torch.randn(*ce.shape, sfm.cfg.d_model, device=dev, generator=gen).to(torch.bfloat16)
+    grp = M.group_mask(ce).to(torch.int32)
+    k6_in = (ce, ae, grp, dy, cmd_table.shape[0], arg_tables.shape[0] // sfm.cfg.n_args,
+             n_group, True)
+    timed("embedding_bwd_long", lambda: emb_ops.embedding_backward(*k6_in),
+          lambda st: emb_ops.embedding_backward(*k6_in, stamps=st))
+    out = {"card": card, "tree": sys.path[0], "rows": rows}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out",
+                           f"embedding_rows{'_' + tag if tag else ''}.json"), "w") as f:
+        json.dump(out, f, indent=1)
     print(json.dumps(out))
     return 0
 

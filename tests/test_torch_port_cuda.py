@@ -1363,3 +1363,144 @@ def test_mha_kernels_refuse_what_they_do_not_take(cuda):
             fn(x, w, mask, 2 * H)                          # head dim 16
         with pytest.raises(ValueError, match="dtype"):
             fn(x, [w[0].float(), *w[1:]], mask, H)
+
+
+# ------------------------------------------- K1 and K6 redesigned for Hopper
+
+def _embedding_ids(rng, dev, b, s, vocab, n_group, pad=0.5):
+    """Ids as the model gives them (commands int32, arguments float with PAD
+    -1, groups int32), a share ``pad`` of the arguments PAD, and an
+    out-of-range command, argument (both ways) and group."""
+    commands = torch.from_numpy(rng.integers(0, N_CMD, (b, s)).astype(np.int32)).to(dev)
+    args = rng.integers(-1, vocab - 1, (b, s, N_ARGS)).astype(np.float32)
+    args[rng.random(args.shape) < pad] = -1
+    args = torch.from_numpy(args).to(dev)
+    groups = torch.from_numpy(rng.integers(0, max(n_group, 1), (b, s)).astype(np.int32)).to(dev)
+    commands[0, 0], args[0, s - 1, 4], args[b - 1, 0, 0] = N_CMD + 2, vocab + 5, -3
+    groups[b - 1, s - 1] = n_group
+    return commands, args, groups
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s,vocab,n_group", [
+    (4099, 1, VOCAB, 10),          # S=1, rows not a multiple of a block's 8
+    (77, 32, VOCAB, 10),           # the flagship's S (position rows in shared memory)
+    (13, 241, 512, 242),           # Sketchformer's decoder and encoder, a 242-row group
+    (13, 242, 512, 242),           # table (position rows from L2 in both types)
+])
+@pytest.mark.parametrize("use_group", [False, True])
+def test_embedding_hopper_form_matches_plain(cuda, dtype, b, s, vocab, n_group, use_group):
+    """K1's Hopper form at D=256 against its plain version: the float32 form
+    exact to 1e-6 of the largest entry, bfloat16 one rounding (1e-2); only
+    the Hopper kernel's count moves."""
+    rng = np.random.default_rng(b + s)
+    commands, args, groups = _embedding_ids(rng, cuda, b, s, vocab, n_group)
+    tables = [_bf16(rng, cuda, n, D).to(dtype) for n in (N_CMD, N_ARGS * vocab, n_group, s)]
+    inputs = (commands, args, groups, tables[0], tables[1], tables[2], tables[3], use_group)
+    before = _counts(emb_ops.fused_embedding, "launches", "narrow_launches")
+    out = emb_ops.fused_embedding(*inputs)
+    assert _counts(emb_ops.fused_embedding, "launches", "narrow_launches") == (
+        before[0] + 1, before[1])
+    ref = emb_ops.embedding_reference(*inputs)
+    err = (out.float() - ref.float()).abs().max().item()
+    print(f"K1 {dtype} B={b} S={s} group {use_group}: max abs err {err:.3g}")
+    assert out.dtype == dtype and out.shape == (b, s, D)
+    assert err <= (1e-6 * ref.abs().max().item() if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+def test_embedding_width_the_hopper_forms_refuse(cuda, dtype):
+    """D=200 (even, no multiple of 64): K1 takes its first kernel, counted
+    under narrow_launches, and K6 (any D a multiple of 8) its one kernel;
+    D=202 makes K6 raise."""
+    rng = np.random.default_rng(200)
+    b, s, d, n_group = 9, 32, 200, 10
+    commands, args, groups = _embedding_ids(rng, cuda, b, s, VOCAB, n_group)
+    tables = [_bf16(rng, cuda, n, d).to(dtype).requires_grad_()
+              for n in (N_CMD, N_ARGS * VOCAB, n_group, s)]
+    inputs = (commands, args, groups, *tables, True)
+    before = _counts(emb_ops.fused_embedding, "launches", "narrow_launches")
+    out = emb_ops.fused_embedding(*inputs)
+    assert _counts(emb_ops.fused_embedding, "launches", "narrow_launches") == (
+        before[0] + 1, before[1] + 1)
+    ref = emb_ops.embedding_reference(*inputs)
+    assert (out.float() - ref.float()).abs().max().item() <= (
+        1e-6 * ref.abs().max().item() if dtype == torch.float32 else 1e-2)
+    dy = _bf16(rng, cuda, b, s, d).to(dtype)
+    got = emb_ops.embedding_backward(commands, args, groups, dy, N_CMD, VOCAB, n_group, True)
+    tables32 = [t.detach().float().requires_grad_() for t in tables]
+    want = torch.autograd.grad(emb_ops.embedding_reference(
+        commands, args, groups, *tables32, True), tables32, dy.float())
+    for a, w in zip(got, want):
+        assert (a - w).abs().max().item() <= 1e-5 * w.abs().max().item() + 1e-5
+    with pytest.raises(ValueError, match="multiple of 8"):
+        emb_ops.embedding_backward(commands, args, groups, _bf16(rng, cuda, b, s, 202), N_CMD,
+                                   VOCAB, n_group, True)
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", ["one_row_every_token", "one_row_every_block"])
+@pytest.mark.parametrize("b", [128, 1024])
+def test_embedding_backward_adversarial_rows(cuda, dtype, case, b):
+    """K6 where its segments are extreme: every token's argument 3 on one
+    cold row (4,096 or 32,768 entries, and every slot's other rows empty),
+    or one row hit by exactly one token in every run of 128 tokens (K6's
+    blocks are 128 tokens at B=128 x 32, 256 at B=1024 x 32). Against its
+    plain version, and three runs equal to the bit."""
+    rng = np.random.default_rng(3)
+    s, n_group = 32, 10
+    commands, args, groups = _embedding_ids(rng, cuda, b, s, VOCAB, n_group, pad=0.9)
+    if case == "one_row_every_token":
+        args[..., 3] = 7.0
+        groups.fill_(4)
+    else:
+        flat = args.view(-1, N_ARGS)
+        flat[:, 5] = -1
+        flat[::128, 5] = 200.0            # the first token of every block
+    tables = [torch.zeros(n, D, device=cuda, requires_grad=True)
+              for n in (N_CMD, N_ARGS * VOCAB, n_group, s)]
+    dy = _bf16(rng, cuda, b, s, D).to(dtype)
+    runs = [emb_ops.embedding_backward(commands, args, groups, dy, N_CMD, VOCAB, n_group, True)
+            for _ in range(3)]
+    assert all(torch.equal(x, y) for run in runs[1:] for x, y in zip(runs[0], run))
+    want = torch.autograd.grad(emb_ops.embedding_reference(
+        commands, args, groups, *tables, True), tables, dy.float())
+    for got, ref in zip(runs[0], want):
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+def test_embedding_backward_is_one_launch_and_no_sort(cuda, dtype, monkeypatch):
+    """K6 at the flagship step's B=128 x 32 on int32 ids (as the model's
+    backward gets them): one call of its C entry point a call and no sort
+    (counted by spies), and under the profiler at most two kernels a call,
+    K6's own among them, none a sort."""
+    from torch.profiler import ProfilerActivity, profile
+    from deepsvg_tpu_torch.ops import _build
+    rng = np.random.default_rng(5)
+    b, s, calls = 1024, 32, 5
+    commands, args, groups = _embedding_ids(rng, cuda, b, s, VOCAB, 0, pad=0.9)
+    args = args.to(torch.int32)
+    dy = _bf16(rng, cuda, b, s, D).to(dtype)
+    entered, sorts = [], []
+    kernel_function = _build.kernel_function
+
+    def spy_function(name, argtypes):
+        fn = kernel_function(name, argtypes)
+        return lambda *a: (entered.append(name), fn(*a))[1]
+    monkeypatch.setattr(_build, "kernel_function", spy_function)
+    for name in ("sort", "argsort"):
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, real=real, **k: (sorts.append(1),
+                                                                       real(*a, **k))[1])
+    emb_ops.embedding_backward(commands, args, groups, dy, N_CMD, VOCAB, 0, False)
+    assert entered == ["dsvg_embedding_bwd"] and not sorts
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            emb_ops.embedding_backward(commands, args, groups, dy, N_CMD, VOCAB, 0, False)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    print(f"K6 kernels over {calls} calls: {names}")
+    assert len(names) <= 2 * calls and any("embedding_bwd" in n for n in names)
+    assert not any("sort" in n.lower() for n in names)

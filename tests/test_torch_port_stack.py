@@ -15,7 +15,10 @@ The port's kernels run as their plain versions here (CPU tensors). Held:
   on its Pallas path, which takes the stack at that batch;
 - the launch plan of K7's cluster kernels (``stack_launch_plan``, pure
   Python): at the recipe batch at least half of the H100's SMs, and over the
-  whole contract no block over the shared memory a block can use.
+  whole contract no block over the shared memory a block can use;
+- the plain version's ``round_grads`` switch (the reference chip_smoke holds
+  K7's gradients to): the forward and float32 gradients unchanged to the
+  bit, bfloat16 gradients moved by about one rounding.
 """
 import jax
 import jax.numpy as jnp
@@ -219,6 +222,33 @@ def test_stack_launch_plan_over_the_contract(dtype, d):
                 assert (plan["tiles"] - 1) * seqs < b <= plan["tiles"] * seqs
                 assert plan["grid"] == plan["tiles"] * heads
     assert stack_vjp.stack_launch_plan(60, 8, d, 512, heads, dtype)["takes"] == (512 % d == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_round_grads_rounds_the_backward_only(dtype):
+    """``round_grads`` (chip_smoke's reference for K7's gradients) leaves the
+    forward as it is and, in float32, the gradients to the bit; in bfloat16
+    it rounds df, dhpre, da and ds before their products, which moves the
+    gradients by about a bfloat16 rounding and no more."""
+    rng = np.random.default_rng(16)
+    x, bias, weights, mask, g = _inputs(rng, 2)
+    leaves = [torch.from_numpy(a).to(dtype).requires_grad_() for a in (x, bias)]
+    masters = [torch.from_numpy(w).requires_grad_() for w in weights]
+    call = (*leaves, *masters, torch.from_numpy(mask), 7, H, False, 0.1, dtype)
+    out = stack_vjp.plain_stack_train(*call)
+    out_r = stack_vjp.plain_stack_train(*call, round_grads=True)
+    assert torch.equal(out, out_r)
+    gy = torch.from_numpy(g).to(dtype)
+    grads = torch.autograd.grad(out, leaves + masters, gy)
+    grads_r = torch.autograd.grad(out_r, leaves + masters, gy)
+    for name, a, r in zip(NAMES, grads, grads_r):
+        if dtype == torch.float32:
+            assert torch.equal(a, r), name
+        else:
+            rms = ((a.float() - r.float()).norm() / a.float().norm()).item()
+            assert rms <= 2.0 ** -6, (name, rms)
+    if dtype == torch.bfloat16:
+        assert not all(torch.equal(a, r) for a, r in zip(grads, grads_r))
 
 
 @pytest.fixture(scope="module")
