@@ -127,10 +127,11 @@ in float32).
 
 *The attention ops* (:func:`attention_phase`): K10 (``fused_mha``) and K11
 (``fused_mha_train``, dropout 0 and 0.1, forward and its five gradients) at
-the model's width with the trained E1 layer 0 weights, against their plain
-versions (K11 elementwise with dropout on, bit-equal from run to run) and
-timed beside ``F.linear`` -> ``F.scaled_dot_product_attention`` ->
-``F.linear``.
+the model's width with the trained E1 layer 0 weights, in bfloat16 and in
+float32, against their plain versions (K11 elementwise with dropout on,
+bit-equal from run to run) and timed beside ``F.linear`` ->
+``F.scaled_dot_product_attention`` -> ``F.linear`` (float32 also in TF32);
+one D=128 case on the first port's kernels.
 
 *K4's recompute mode* (:func:`recompute_phase`; ``save_residuals=False``,
 the JAX op's default): its forward and backward, short and long form,
@@ -2858,7 +2859,13 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
     its five gradients), K11 bit-equal from run to run, each op counted once,
     and timed beside its bound, its plain version and F.linear ->
     F.scaled_dot_product_attention -> F.linear (under autograd with
-    ``dropout_p`` for K11). Returns the launches per call of each op."""
+    ``dropout_p`` for K11). Then the float32 forms (TF32 products): K10 at
+    both shapes and K11 at 60 x 242 and 1,024 x 32 (rate 0.1), the same
+    checks, the library call in TF32 and in full float32; one D=128 case (4
+    heads, seeded weights) through the first port's kernels, counted under
+    ``narrow_launches``. (``scripts/profile_port_slice.py --mha`` gives the
+    device time of each launch.) Returns the launches per call of each
+    op."""
     import torch.nn.functional as F
 
     from deepsvg_tpu_torch.configs.sketchformer import make_model_config
@@ -2873,6 +2880,7 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
     bf16 = torch.bfloat16
     layer0 = load_params(CHECKPOINT)["encoder"]["encoder"]["layer_0"]
     w = attention_operands(layer0["wqkv"], layer0["bqkv"], layer0["wo"], layer0["bo"], dev, bf16)
+    w32 = [t.float() for t in w]
     d = w[0].shape[1]
     heads = d // 32
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -2886,11 +2894,11 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
     x_of = lambda b, s: torch.randn(b, s, d, device=dev, generator=gen).to(bf16)  # noqa: E731
     out: dict = {}
 
-    def mha_ops(b, s, causal):
-        """(operations, bytes) of one forward: the two projections and the
-        scores and P V over the keys each query sees."""
+    def mha_ops(b, s, causal, ws=w):
+        """(operations, weight bytes) of one forward: the two projections
+        and the scores and P V over the keys each query sees."""
         keys = s * (s + 1) / 2 if causal else s * s
-        return 2.0 * b * s * d * 4 * d + 4.0 * b * keys * d, nbytes(*w) + b * s * 4
+        return 2.0 * b * s * d * 4 * d + 4.0 * b * keys * d, nbytes(*ws) + b * s * 4
 
     def lib_mha(x, mask, causal, rate=0.0, ws=w):
         b, s, _ = x.shape
@@ -2902,41 +2910,102 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
                                              dropout_p=rate)
         return F.linear(ctx.transpose(1, 2).reshape(b, s, d), ws[2], ws[3])
 
-    # ---- K10
+    def hold(what, got, want, f32):
+        """The output against the plain version with the layer's limits. In
+        float32 the absolute term is TOL_F32_ATOL times the plain output's
+        RMS: the block has no LayerNorm and no residual, and on these weights
+        its outputs reach |out| ~25 at an RMS of ~2.2, where TF32's rounding
+        moves the largest of 8M elements 0.02-0.04 from the float32 plain
+        version (PERF.md §6; K10 prints the plain version in PyTorch's
+        TF32 beside)."""
+        if not f32:
+            return compare_elementwise(what, got, want, TOL_LAYER_RMS)
+        atol = TOL_F32_ATOL * want.float().pow(2).mean().sqrt().item()
+        return dict(compare_elementwise(what, got, want, TOL_LAYER_RMS, atol, TOL_F32_RTOL),
+                    atol=atol)
+
+    def excess(a, b):
+        return ((a.float() - b.float()).abs() - TOL_F32_RTOL * b.float().abs()).max().item()
+
+    # ---- K10, bfloat16 then float32
     k10_cases = {"flagship E1 N=1024": (x_of(f_cmd.shape[0], f_cmd.shape[1]), mask_of(f_cmd),
                                         False),
                  "Sketchformer encoder N=1024": (x_of(N_MAIN, s_cmd.shape[1]), mask_of(s_cmd),
                                                  False)}
-    k10 = {}
-    with torch.no_grad():
-        for i, (what, (x, mask, causal)) in enumerate(k10_cases.items()):
-            if i == 0:
-                reset_counts()
-                got = attn_ops.fused_mha(x, *w, mask, heads, causal)
-                torch.cuda.synchronize()
-                counts = read_counts()
-                check(counts == dict.fromkeys(counts, 0) | {"mha": 1}, f"K10 launches {counts}")
-            else:
-                got = attn_ops.fused_mha(x, *w, mask, heads, causal)
-            want = attn_ops.mha_reference(x, *w, mask, heads, causal)
-            b, s, _ = x.shape
-            ops, w_bytes = mha_ops(b, s, causal)
-            b_ms, b_by = bound(2 * nbytes(x) + w_bytes, ops, PEAK_BF16)
-            k10[what] = dict(
-                compare_elementwise(f"K10 mha {what} ({b} x {s})", got, want, TOL_LAYER_RMS),
-                B=b, S=s, ms=cuda_ms(lambda: attn_ops.fused_mha(x, *w, mask, heads, causal)),
-                plain_ms=cuda_ms(lambda: attn_ops.mha_reference(x, *w, mask, heads, causal),
-                                 iters=3, warmup=1),
-                library_ms=cuda_ms(lambda: lib_mha(x, mask, causal)), bound_ms=b_ms,
-                bound_by=b_by)
-            del got, want
-    main_case = k10["flagship E1 N=1024"]
-    kernels["mha"] = dict(main_case, cases=k10,
-                          max_abs_err=max(c["max_abs_err"] for c in k10.values()),
-                          tolerance={"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL,
-                                     "rms": TOL_LAYER_RMS})
+    for dtype, name, ws in ((bf16, "mha", w), (torch.float32, "mha_f32", w32)):
+        f32 = dtype == torch.float32
+        k10 = {}
+        with torch.no_grad():
+            for i, (what, (x, mask, causal)) in enumerate(k10_cases.items()):
+                x = x.to(dtype)
+                if i == 0:
+                    reset_counts()
+                    got = attn_ops.fused_mha(x, *ws, mask, heads, causal)
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+                    check(counts == dict.fromkeys(counts, 0) | {name: 1},
+                          f"K10 {dtype} launches {counts}")
+                else:
+                    got = attn_ops.fused_mha(x, *ws, mask, heads, causal)
+                want = attn_ops.mha_reference(x, *ws, mask, heads, causal)
+                b, s, _ = x.shape
+                ops, w_bytes = mha_ops(b, s, causal, ws)
+                b_ms, b_by = bound(2 * nbytes(x) + w_bytes, ops, PEAK_TF32 if f32 else PEAK_BF16)
+                case = dict(
+                    hold(f"K10 {name} {what} ({b} x {s})", got, want, f32),
+                    B=b, S=s, ms=cuda_ms(lambda: attn_ops.fused_mha(x, *ws, mask, heads, causal)),
+                    plain_ms=cuda_ms(lambda: attn_ops.mha_reference(x, *ws, mask, heads, causal),
+                                     iters=3, warmup=1),
+                    bound_ms=b_ms, bound_by=b_by)
+                if f32:
+                    # a reading: the plain version in TF32 against the float32 one
+                    with matmul_tf32(True):
+                        want_tf32 = attn_ops.mha_reference(x, *ws, mask, heads, causal)
+                    case["excess_vs_tf32_plain"] = excess(got, want_tf32)
+                    case["tf32_plain_excess"] = excess(want_tf32, want)
+                    print(f"  excess beyond {TOL_F32_RTOL} x |out| against the TF32 plain version "
+                          f"{case['excess_vs_tf32_plain']:.4g}; the TF32 plain version's against "
+                          f"the float32 one {case['tf32_plain_excess']:.4g}", flush=True)
+                    del want_tf32
+                    with matmul_tf32(True):
+                        case["library_tf32_ms"] = cuda_ms(lambda: lib_mha(x, mask, causal, ws=ws))
+                    with matmul_tf32(False):
+                        case["library_ms"] = cuda_ms(lambda: lib_mha(x, mask, causal, ws=ws))
+                else:
+                    case["library_ms"] = cuda_ms(lambda: lib_mha(x, mask, causal))
+                print(f"K10 {name} {what} ({b} x {s}): {case['ms']:.4f} ms (plain "
+                      f"{case['plain_ms']:.4f}, library {case['library_ms']:.4f}"
+                      + (f", library in TF32 {case['library_tf32_ms']:.4f}" if f32 else "")
+                      + f", bound {b_ms:.4f} by {b_by}) on {card}", flush=True)
+                k10[what] = case
+                del got, want
+        kernels[name] = dict(k10["flagship E1 N=1024"], cases=k10,
+                             max_abs_err=max(c["max_abs_err"] for c in k10.values()),
+                             tolerance=({"atol_per_rms": TOL_F32_ATOL,
+                                         "rtol": TOL_F32_RTOL, "rms": TOL_LAYER_RMS} if f32 else
+                                        {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL,
+                                         "rms": TOL_LAYER_RMS}))
     del k10_cases
     torch.cuda.empty_cache()
+
+    # ---- K10 at D=128 (4 heads): the first port's kernels, counted apart
+    rng = np.random.default_rng(128)
+    dn = 128
+    wn = [torch.from_numpy((sc * rng.normal(size=sh)).astype(np.float32)).to(dev, bf16)
+          for sh, sc in (((3 * dn, dn), dn ** -0.5), ((3 * dn,), 0.1), ((dn, dn), dn ** -0.5),
+                         ((dn,), 0.1))]
+    mask = mask_of(f_cmd[:128 * cfg.max_num_groups])
+    x = torch.randn(*mask.shape, dn, device=dev, generator=gen).to(bf16)
+    reset_counts()
+    with torch.no_grad():
+        got = attn_ops.fused_mha(x, *wn, mask, dn // 32)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == dict.fromkeys(counts, 0) | {"mha_narrow": 1}, f"K10 D=128 launches {counts}")
+    out["narrow_d128"] = compare_elementwise(
+        f"K10 D=128, 4 heads ({x.shape[0]} x {x.shape[1]}), first port's kernels", got,
+        attn_ops.mha_reference(x, *wn, mask, dn // 32), TOL_LAYER_RMS)
+    del got, x, wn
 
     # ---- K11
     k11_cases = {"flagship step E1 B=128": (x_of(128 * cfg.max_num_groups, f_cmd.shape[1]),
@@ -2945,30 +3014,38 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
                                                mask_of(s_cmd[:B_RECIPE]), False),
                  "Sketchformer decoder B=60 causal": (x_of(B_RECIPE, s_cmd.shape[1] - 1),
                                                       mask_of(s_cmd[:B_RECIPE, :-1]), True)}
-    leaves = [t.clone().requires_grad_() for t in w]
     seed = 2024
     k11 = {}
-    counts = None
-    for what, (x, mask, causal) in k11_cases.items():
-        x = x.requires_grad_()
-        g = torch.randn(x.shape, device=dev, generator=gen).to(bf16)
+    counted = {}
+    # bfloat16: every case at rates 0 and 0.1; float32: the two timed ones at 0.1
+    runs = [(bf16, what, rates) for what in k11_cases for rates in ((0.0, DROPOUT),)]
+    runs += [(torch.float32, what, (DROPOUT,)) for what in ("Sketchformer encoder B=60",
+                                                           "flagship step E1 B=128")]
+    for dtype, what, rates in runs:
+        f32 = dtype == torch.float32
+        tag = " float32" if f32 else ""
+        fwd_name = "mha_train_fwd_f32" if f32 else "mha_train_fwd"
+        x0, mask, causal = k11_cases[what]
+        x = x0.to(dtype).requires_grad_()
+        leaves = [t.clone().to(dtype).requires_grad_() for t in w]
+        g = torch.randn(x.shape, device=dev, generator=gen).to(bf16).to(dtype)
         b, s, _ = x.shape
-        for rate in (0.0, DROPOUT):
+        for rate in rates:
             call = (x, *leaves, mask, seed, heads, causal, rate)
-            if counts is None:
+            first = fwd_name not in counted
+            if first:
                 reset_counts()
             got = attention_vjp.fused_mha_train(*call)
             grads = torch.autograd.grad(got, [x, *leaves], g)
-            if counts is None:
+            if first:
                 torch.cuda.synchronize()
                 counts = read_counts()
-                check(counts == dict.fromkeys(counts, 0) | {"mha_train_fwd": 1,
-                                                            "mha_train_bwd": 1},
-                      f"K11 launches {counts}")
+                check(counts == dict.fromkeys(counts, 0) | {fwd_name: 1, "mha_train_bwd": 1},
+                      f"K11{tag} launches {counts}")
+                counted[fwd_name] = counts
             want = attn_ops.mha_reference(x, *leaves, mask, heads, causal, rate, seed)
             grads_p = torch.autograd.grad(want, [x, *leaves], g)
-            case = compare_elementwise(f"K11 mha_train {what} ({b} x {s}) rate {rate}", got,
-                                       want, TOL_LAYER_RMS)
+            case = hold(f"K11 mha_train{tag} {what} ({b} x {s}) rate {rate}", got, want, f32)
             case["grad_rms"] = {n: rel_rms(a, c) for n, a, c in
                                 zip(("x", "wqkv", "bqkv", "wo", "bo"), grads, grads_p)}
             again = attention_vjp.fused_mha_train(*call)
@@ -2978,12 +3055,12 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
             worst = max(case["grad_rms"].values())
             print(f"  gradients: relative RMS {case['grad_rms']} (limit "
                   f"{MHA_GRAD_RMS}); rerun bit-equal {case['bit_equal_rerun']}", flush=True)
-            check_later(worst <= MHA_GRAD_RMS, f"K11 {what} rate {rate}: gradient RMS {worst}")
-            check_later(case["bit_equal_rerun"], f"K11 {what} rate {rate}: rerun differs")
-            k11[f"{what} rate {rate}"] = case
+            check_later(worst <= MHA_GRAD_RMS, f"K11{tag} {what} rate {rate}: gradient RMS {worst}")
+            check_later(case["bit_equal_rerun"], f"K11{tag} {what} rate {rate}: rerun differs")
+            k11[f"{what}{tag} rate {rate}"] = case
             del got, grads, want, grads_p, again
         # times at dropout 0.1: forward alone, forward and backward
-        ops, w_bytes = mha_ops(b, s, causal)
+        ops, w_bytes = mha_ops(b, s, causal, leaves)
         keys = s * (s + 1) / 2 if causal else s * s
         call = (x, *leaves, mask, seed, heads, causal, DROPOUT)
 
@@ -2999,43 +3076,63 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
                  "plain_fwd": cuda_ms(lambda: fwd(attn_ops.mha_reference, *ref_call), iters=3,
                                       warmup=1),
                  "plain_both": cuda_ms(lambda: both(attn_ops.mha_reference, *ref_call), iters=3,
-                                       warmup=1),
-                 "lib_fwd": cuda_ms(lambda: fwd(lib_mha, x, mask, causal, DROPOUT, leaves)),
-                 "lib_both": cuda_ms(lambda: both(lib_mha, x, mask, causal, DROPOUT, leaves))}
-        fb = bound(2 * nbytes(x) + w_bytes, ops, PEAK_BF16)
-        bb = bound(3 * nbytes(x) + 2 * w_bytes, 22.0 * b * s * d * d + 12.0 * b * keys * d,
-                   PEAK_BF16)
-        k11[what] = {"B": b, "S": s, "times_ms": times, "fwd_bound": fb, "bwd_bound": bb}
-        print(f"K11 {what} ({b} x {s}) rate {DROPOUT}: forward {times['fwd']:.4f} ms (plain "
-              f"{times['plain_fwd']:.4f}, library {times['lib_fwd']:.4f}, bound {fb[0]:.4f} by "
-              f"{fb[1]}); backward {times['both'] - times['fwd']:.4f} ms (plain "
-              f"{times['plain_both'] - times['plain_fwd']:.4f}, library "
-              f"{times['lib_both'] - times['lib_fwd']:.4f}, bound {bb[0]:.4f} by {bb[1]})",
-              flush=True)
+                                       warmup=1)}
+        with matmul_tf32(False):
+            times["lib_fwd"] = cuda_ms(lambda: fwd(lib_mha, x, mask, causal, DROPOUT, leaves))
+            times["lib_both"] = cuda_ms(lambda: both(lib_mha, x, mask, causal, DROPOUT, leaves))
+        if f32:
+            with matmul_tf32(True):
+                times["lib_tf32_fwd"] = cuda_ms(lambda: fwd(lib_mha, x, mask, causal, DROPOUT,
+                                                            leaves))
+        peak = PEAK_TF32 if f32 else PEAK_BF16
+        fb = bound(2 * nbytes(x) + w_bytes, ops, peak)
+        bb = bound(3 * nbytes(x) + 2 * w_bytes, 22.0 * b * s * d * d + 12.0 * b * keys * d, peak)
+        k11[what + tag] = {"B": b, "S": s, "times_ms": times, "fwd_bound": fb, "bwd_bound": bb}
+        print(f"K11{tag} {what} ({b} x {s}) rate {DROPOUT}: forward {times['fwd']:.4f} ms "
+              f"(plain {times['plain_fwd']:.4f}, library {times['lib_fwd']:.4f}"
+              + (f", library in TF32 {times['lib_tf32_fwd']:.4f}" if f32 else "")
+              + f", bound {fb[0]:.4f} by {fb[1]}); backward {times['both'] - times['fwd']:.4f} ms "
+              f"(plain {times['plain_both'] - times['plain_fwd']:.4f}, library "
+              f"{times['lib_both'] - times['lib_fwd']:.4f}, bound {bb[0]:.4f} by {bb[1]}) on "
+              f"{card}", flush=True)
+        del leaves
+    for name, tag in (("mha_train_fwd", ""), ("mha_train_fwd_f32", " float32")):
+        row = k11["Sketchformer encoder B=60" + tag]
+        t = row["times_ms"]
+        errs = [c["max_abs_err"] for k, c in k11.items()
+                if "rate" in k and ("float32" in k) == bool(tag)]
+        kernels[name] = {
+            "max_abs_err": max(errs), "ms": t["fwd"], "plain_ms": t["plain_fwd"],
+            "library_ms": t["lib_fwd"], "bound_ms": row["fwd_bound"][0],
+            "bound_by": row["fwd_bound"][1], "cases": {k: c for k, c in k11.items()
+                                                        if ("float32" in k) == bool(tag)},
+            "tolerance": ({"atol_per_rms": TOL_F32_ATOL, "rtol": TOL_F32_RTOL,
+                           "rms": TOL_LAYER_RMS}
+                          if tag else {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL,
+                                       "rms": TOL_LAYER_RMS})}
+        if tag:
+            kernels[name]["library_tf32_ms"] = t["lib_tf32_fwd"]
     row = k11["Sketchformer encoder B=60"]
     t = row["times_ms"]
-    errs = [c["max_abs_err"] for k, c in k11.items() if "rate" in k]
-    kernels["mha_train_fwd"] = {
-        "max_abs_err": max(errs), "ms": t["fwd"], "plain_ms": t["plain_fwd"],
-        "library_ms": t["lib_fwd"], "bound_ms": row["fwd_bound"][0],
-        "bound_by": row["fwd_bound"][1], "cases": k11,
-        "tolerance": {"atol": TOL_LAYER_ATOL, "rtol": TOL_LAYER_RTOL, "rms": TOL_LAYER_RMS}}
     kernels["mha_train_bwd"] = {
         "max_abs_err": max(max(c["grad_rms"].values()) for k, c in k11.items() if "rate" in k),
         "ms": t["both"] - t["fwd"], "plain_ms": t["plain_both"] - t["plain_fwd"],
         "library_ms": t["lib_both"] - t["lib_fwd"], "bound_ms": row["bwd_bound"][0],
         "bound_by": row["bwd_bound"][1], "tolerance": {"grad_rms": MHA_GRAD_RMS}}
-    for name in ("mha", "mha_train_fwd", "mha_train_bwd"):
+    for name in ("mha", "mha_f32", "mha_train_fwd", "mha_train_fwd_f32", "mha_train_bwd"):
         k = kernels[name]
         print(f"  {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
-              f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by {k['bound_by']})")
-    del k11_cases, leaves
+              f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by {k['bound_by']}; "
+              f"{k['ms'] / k['library_ms']:.3f} x the library call) on {card}")
+    del k11_cases
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"attention ops phase: {out['phase_s']:.1f} s on {card}", flush=True)
     record["attention_ops"] = out
-    return {"mha": 1, "mha_train_fwd": counts["mha_train_fwd"],
-            "mha_train_bwd": counts["mha_train_bwd"]}
+    return {"mha": 1, "mha_f32": 1,
+            "mha_train_fwd": counted["mha_train_fwd"]["mha_train_fwd"],
+            "mha_train_fwd_f32": counted["mha_train_fwd_f32"]["mha_train_fwd_f32"],
+            "mha_train_bwd": counted["mha_train_fwd"]["mha_train_bwd"]}
 
 
 def recompute_phase(dev, card, kernels, record, reset_counts, read_counts,
@@ -3475,8 +3572,8 @@ def main() -> int:
                    ce_ops.args_ce_pairwise, decode_ops.fused_decode_step):
             fn.float32_launches = 0
         ce_ops.args_ce.float32_backward_launches = 0
-        attn_ops.fused_mha.launches = 0
-        attention_vjp.fused_mha_train.launches = 0
+        for fn in (attn_ops.fused_mha, attention_vjp.fused_mha_train):
+            fn.launches = fn.float32_launches = fn.narrow_launches = 0
         attention_vjp.fused_mha_train.backward_launches = 0
 
     def read_counts() -> dict:
@@ -3511,8 +3608,17 @@ def main() -> int:
                 **split(layer_vjp.fused_layer_train_long, "layer_train_long_fwd"),
                 **split(layer_vjp.fused_layer_train_long, "layer_train_long_bwd",
                         "backward_launches", "float32_backward_launches"),
-                "mha": attn_ops.fused_mha.launches,
-                "mha_train_fwd": attention_vjp.fused_mha_train.launches,
+                # K10 and K11's forward on their Hopper forms (bf16, float32);
+                # at widths below D=256 the first port's kernels, apart
+                "mha": (attn_ops.fused_mha.launches - attn_ops.fused_mha.float32_launches
+                        - attn_ops.fused_mha.narrow_launches),
+                "mha_f32": attn_ops.fused_mha.float32_launches,
+                "mha_narrow": attn_ops.fused_mha.narrow_launches,
+                "mha_train_fwd": (attention_vjp.fused_mha_train.launches
+                                  - attention_vjp.fused_mha_train.float32_launches
+                                  - attention_vjp.fused_mha_train.narrow_launches),
+                "mha_train_fwd_f32": attention_vjp.fused_mha_train.float32_launches,
+                "mha_train_narrow_fwd": attention_vjp.fused_mha_train.narrow_launches,
                 "mha_train_bwd": attention_vjp.fused_mha_train.backward_launches,
                 "layer_train_recompute_fwd": layer_vjp.fused_layer_train.recompute_launches,
                 "layer_train_recompute_bwd":
@@ -4904,8 +5010,10 @@ def main() -> int:
         "decode_f32": (csrc + "decode_cluster.cu", "deepsvg_tpu/ops/decode.py:43"),
         "layer_train_fwd_f32": (csrc + "layer_f32.cu", "deepsvg_tpu/ops/layer_vjp.py:179"),
         "layer_train_bwd_f32": (csrc + "layer_f32_bwd.cu", "deepsvg_tpu/ops/layer_vjp.py:281"),
-        "mha": (csrc + "attention.cu", "deepsvg_tpu/ops/attention.py:31"),
-        "mha_train_fwd": (csrc + "attention.cu", "deepsvg_tpu/ops/attention_vjp.py:60"),
+        "mha": (csrc + "layer_long.cu", "deepsvg_tpu/ops/attention.py:31"),
+        "mha_f32": (csrc + "layer_f32.cu", "deepsvg_tpu/ops/attention.py:31"),
+        "mha_train_fwd": (csrc + "layer_long.cu", "deepsvg_tpu/ops/attention_vjp.py:60"),
+        "mha_train_fwd_f32": (csrc + "layer_f32.cu", "deepsvg_tpu/ops/attention_vjp.py:60"),
         "mha_train_bwd": (csrc + "attention.cu", "deepsvg_tpu/ops/attention_vjp.py:100"),
         "layer_train_recompute_fwd": (csrc + "layer_train.cuh",
                                       "deepsvg_tpu/ops/layer_vjp.py:179"),

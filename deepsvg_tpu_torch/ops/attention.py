@@ -21,20 +21,46 @@ subtracts the row maximum (the Pallas kernel clamps the scores to +-75
 instead, a TPU-only choice) and a query whose keys are all masked gets zero
 probabilities (the JAX functions give NaN there).
 
-Kernel note (``csrc/attention.cu``). Replaces the Pallas kernel
+Kernel note. Replaces the Pallas kernel
 ``deepsvg_tpu/ops/attention.py:_fused_mha_kernel`` (wrapper ``fused_mha``),
 which packed sequences into 128-row blocks with a block-diagonal mask so
 that its matrix unit ran at full shape. On the H100 the block is bound by
 its products: at the flagship's E1 inference shape (8,192 sequences of 32,
 D=256, 8 heads) the QKV and output projections are 1.37e11 operations and
 the attention 8.6e9, 0.15 ms at 989 TFLOP/s bf16, against 0.08 ms for the
-268 MB of ``x`` in and ``out`` back. Two launches: QKV over row tiles into a
-scratch tensor, then one block per (sequence, query tile of 64, 32 in
-float32) holding the sequence's keys and values in shared memory, the
-long layer's attention (``csrc/layer_long.cuh``: ``attend_tile``), and the
-output projection of the tile's rows. The products run on ``wmma`` (bf16,
-or TF32 for float32 operands) with the weights read from L2. 1 <= S <= 256,
-head dim 32.
+268 MB of ``x`` in and ``out`` back. At D=256 with 8 heads (every shipped
+config's width) the block runs on the layer kernels' Hopper device code
+without LN1, the residual, LN2 and the FF (:func:`mha_form` picks the form):
+
+- bfloat16, S <= 32 (``csrc/layer_long.cu``: ``mha_short_kernel``): one
+  persistent launch over 128-row tiles of whole sequences, as K2's short
+  form walks them. A TMA producer warp lands the tile's ``x`` in the
+  128-byte swizzle ``wgmma`` reads and streams Wqkv and Wo through an
+  ``mbarrier`` ring; two consumer warpgroups run, head by head, a 64 x 96
+  ``wgmma`` for Q, K and V, the attention on ``mma.sync`` with the
+  probabilities in registers (K11's dropout applied there), the context into
+  shared memory in bf16, then the out projection on ``wgmma`` onto ``bo``.
+  QKV never reaches device memory.
+- bfloat16, 33 <= S <= 256 (same file): three launches. The QKV product over
+  128-row tiles of all rows (``x`` double-buffered by TMA) into a head-major
+  scratch; the attention (``mha_long_attn_kernel``), a tile of whole
+  sequences and a head a block as K4's long attention launch (so that B=60
+  fills the card), but each 16-row query block's keys split over a pair of
+  warps, which exchange row maxima, sums and partial contexts through shared
+  memory: half the score registers a thread, two blocks an SM; the context
+  to a scratch tensor; the out projection onto ``bo`` over 128-row tiles,
+  the context landing by TMA.
+- float32 (``csrc/layer_f32.cu``), any S up to 256: the same three launches
+  on TF32 ``wgmma`` and ``mma.sync`` (K2-f32's pattern and K4's float32
+  attention launch), ``x``, QKV, the probabilities and the context rounded
+  to TF32 where they are written for a product, the weights once
+  (``layer.tf32_copy``).
+
+Other widths (D < 256, head dim 32) keep the first port's kernels
+(``csrc/attention.cu``: QKV over row tiles on ``wmma`` into a scratch
+tensor, then a block per (sequence, query tile) running the long layer's
+``attend_tile`` and the output projection), counted under
+``narrow_launches``. No form falls back to another or to the CPU.
 """
 from __future__ import annotations
 
@@ -45,8 +71,9 @@ import torch
 from . import _build
 from .ce import _RoundGrad
 from .dropout import SITE_ATTN_PROB, dropout_factor
-from .layer import HEAD_DIM, MAX_SEQ_LONG, _mm
+from .layer import HEAD_DIM, MAX_SEQ, MAX_SEQ_LONG, _mm, tf32_copy
 
+HOPPER_WIDTH = 256   # the D of the Hopper forms (8 heads of 32)
 
 
 class _RoundValue(torch.autograd.Function):
@@ -137,52 +164,124 @@ def mha_blockpacked(x, wqkv, bqkv, wo, bo, mask, n_heads: int, causal: bool = Fa
     return (_mm(ctx, wo) + bo.float()).to(dt).reshape(b, s, d)
 
 
-def check_mha_inputs(x, wqkv, bqkv, wo, bo, mask, n_heads: int) -> None:
-    """Raise unless the attention kernels take these CUDA tensors: operands
-    all bfloat16 or all float32, head dim 32, D <= 256, 1 <= S <= 256."""
+def mha_form(dtype, d: int, n_heads: int, s: int) -> str:
+    """Which kernels run the attention block on the card: ``"bf16_short"``
+    (bfloat16, S <= 32: one launch), ``"bf16_long"`` (bfloat16, 33 <= S <=
+    256: three launches) or ``"f32"`` (float32, S <= 256: three launches)
+    at D=256 with 8 heads; ``"narrow"`` (the first port's kernels) at the
+    other widths with head dim 32 up to D=256. Raises on any other shape or
+    dtype."""
+    if dtype not in _build.KERNEL_DTYPES:
+        raise ValueError(f"x has dtype {dtype}, expected bfloat16 or float32")
+    if d != n_heads * HEAD_DIM or d > 256 or not 1 <= s <= MAX_SEQ_LONG:
+        raise ValueError(f"the attention kernel takes head dim {HEAD_DIM}, D <= 256 and "
+                         f"1 <= S <= {MAX_SEQ_LONG}; got D={d}, heads={n_heads}, S={s}")
+    if d != HOPPER_WIDTH:
+        return "narrow"
+    if dtype == torch.float32:
+        return "f32"
+    return "bf16_short" if s <= MAX_SEQ else "bf16_long"
+
+
+def check_mha_inputs(x, wqkv, bqkv, wo, bo, mask, n_heads: int) -> str:
+    """Raise unless the attention kernels take these CUDA tensors (operands
+    all bfloat16 or all float32, :func:`mha_form`'s shapes); return the
+    form."""
     dev, dt = x.device, x.dtype
     if x.dim() != 3:
         raise ValueError(f"x must be [B, S, D], got shape {tuple(x.shape)}")
     b, s, d = x.shape
-    _build.kernel_dtype(x, "x")
-    if d != n_heads * HEAD_DIM or d > 256 or not 1 <= s <= MAX_SEQ_LONG:
-        raise ValueError(f"the attention kernel takes head dim {HEAD_DIM}, D <= 256 and "
-                         f"1 <= S <= {MAX_SEQ_LONG}; got D={d}, heads={n_heads}, S={s}")
+    form = mha_form(dt, d, n_heads, s)
     for name, t, shape in (("x", x, (b, s, d)), ("wqkv", wqkv, (3 * d, d)),
                            ("bqkv", bqkv, (3 * d,)), ("wo", wo, (d, d)), ("bo", bo, (d,))):
         _build.require(t, name, dev, dt, shape)
     _build.require(mask, "mask", dev, torch.float32, (b, s))
+    return form
 
 
 _ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+_HOPPER_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+_QKV_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def launch_forward(x, wqkv, bqkv, wo, bo, mask, n_heads: int, causal: bool, seed: int,
-                   thr: int, kp: float):
-    """The forward's two launches (K10 with ``thr`` 0, K11's forward with
-    the dropout threshold ``thr`` and keep scale ``kp``) on checked CUDA
-    tensors; returns ``out [B, S, D]``."""
+                   thr: int, kp: float, parts: dict | None = None):
+    """The forward's launches (K10 with ``thr`` 0, K11's forward with the
+    dropout threshold ``thr`` and keep scale ``kp``) on checked CUDA
+    tensors, by :func:`mha_form`; returns ``out [B, S, D]``. ``parts``, a
+    dict, receives the Hopper forms' QKV (``"qkv"``, ``[B*S, 3D]``
+    row-major) and context (``"ctx"``, ``[B*S, D]``) as they were used (a
+    card test's view; the narrow kernels give none)."""
     b, s, d = x.shape
+    form = mha_form(x.dtype, d, n_heads, s)
     out = torch.empty_like(x)
     if b == 0:
         return out
-    qkv = torch.empty((b * s, 3 * d), dtype=x.dtype, device=x.device)
-    ptrs = [t.data_ptr() for t in (x, wqkv, bqkv, wo, bo, mask, out, qkv)]
-    fn = _build.kernel_function("dsvg_mha_fwd", _ARGTYPES)
-    rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, n_heads, int(causal),
-            int(x.dtype == torch.float32), int(seed), thr, kp, HEAD_DIM ** -0.5,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch(rc, "mha_fwd")
+    dev, dt = x.device, x.dtype
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = b * s
+    if form == "narrow":
+        qkv = torch.empty((rows, 3 * d), dtype=dt, device=dev)
+        ptrs = [t.data_ptr() for t in (x, wqkv, bqkv, wo, bo, mask, out, qkv)]
+        fn = _build.kernel_function("dsvg_mha_fwd", _ARGTYPES)
+        rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, n_heads, int(causal),
+                int(dt == torch.float32), int(seed), thr, kp, HEAD_DIM ** -0.5, stream)
+        _build.check_launch(rc, "mha_fwd")
+        return out
+    keep = parts is not None
+    # the long forms' head-major QKV and context scratch; the short form's
+    # context only where a caller keeps it
+    head_major = (None if form == "bf16_short"
+                  else torch.empty((n_heads, rows, 3 * HEAD_DIM), dtype=dt, device=dev))
+    ctx = (torch.empty((rows, d), dtype=dt, device=dev) if keep or form != "bf16_short"
+           else None)
+    qkv_rows = torch.empty((rows, 3 * d), dtype=dt, device=dev) if keep else None
+    if form == "f32":
+        wqkv, wo = tf32_copy(wqkv), tf32_copy(wo)
+    fn = _build.kernel_function("dsvg_mha_f32" if form == "f32" else "dsvg_mha_bf16",
+                                _HOPPER_ARGTYPES)
+    rc = fn(x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), _ptr(head_major), _ptr(ctx), _ptr(qkv_rows), b, s,
+            int(causal), int(seed), thr, kp, HEAD_DIM ** -0.5, stream)
+    _build.check_launch(rc, f"mha {form}")
+    if keep:
+        parts.update(qkv=qkv_rows, ctx=ctx)
     return out
+
+
+def launch_qkv(x, wqkv, bqkv, qkv_rows) -> None:
+    """The Hopper forms' QKV launch alone (D=256, 8 heads) into ``qkv_rows
+    [B*S, 3D]`` row-major: the forward's QKV to the bit, for K11's backward
+    to recompute from."""
+    b, s, _ = x.shape
+    f32 = x.dtype == torch.float32
+    fn = _build.kernel_function("dsvg_mha_qkv_f32" if f32 else "dsvg_mha_qkv_bf16",
+                                _QKV_ARGTYPES)
+    rc = fn(x.data_ptr(), (tf32_copy(wqkv) if f32 else wqkv).data_ptr(), bqkv.data_ptr(),
+            qkv_rows.data_ptr(), b, s, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(rc, "mha qkv")
+
+
+def count_launch(fn, form: str) -> None:
+    """One more forward call of ``fn`` (:func:`fused_mha` or
+    ``fused_mha_train``), under its form's counter too."""
+    fn.launches += 1
+    fn.float32_launches += form == "f32"
+    fn.narrow_launches += form == "narrow"
 
 
 def fused_mha(x, wqkv, bqkv, wo, bo, mask, n_heads: int, causal: bool = False):
     """The attention block, inference (no dropout, no gradient).
 
     A CPU tensor takes :func:`mha_reference`; a CUDA tensor launches K10
-    (operands all bfloat16 or all float32, head dim 32, D <= 256,
-    1 <= S <= 256) or raises.
+    (operands all bfloat16 or all float32, :func:`mha_form`'s shapes: head
+    dim 32, D <= 256, 1 <= S <= 256) or raises.
     """
     if x.device.type == "cpu":
         return mha_reference(x, wqkv, bqkv, wo, bo, mask, n_heads, causal)
@@ -190,11 +289,15 @@ def fused_mha(x, wqkv, bqkv, wo, bo, mask, n_heads: int, causal: bool = False):
         raise ValueError(f"no attention kernel for device {x.device}")
     x = x.contiguous()
     mask = mask.to(torch.float32).contiguous()
-    check_mha_inputs(x, wqkv, bqkv, wo, bo, mask, n_heads)
+    form = check_mha_inputs(x, wqkv, bqkv, wo, bo, mask, n_heads)
     with torch.no_grad():
         out = launch_forward(x, wqkv, bqkv, wo, bo, mask, n_heads, causal, 0, 0, 1.0)
-    fused_mha.launches += x.shape[0] > 0
+    if x.shape[0] > 0:
+        count_launch(fused_mha, form)
     return out
 
 
-fused_mha.launches = 0   # calls (two launches each)
+fused_mha.launches = 0            # calls: 1 launch (bf16, S <= 32), 3 (the other
+                                  # Hopper forms) or 2 (narrow) each
+fused_mha.float32_launches = 0    # those of the float32 form
+fused_mha.narrow_launches = 0     # those of the first port's kernels (D < 256)

@@ -4,8 +4,15 @@
 // residual or FF. bf16 operands, or float operands multiplied in TF32 (wmma
 // 16x16x8); f32 sums, softmax and bias adds.
 //
-// Forward (K10, and K11's forward with dropout on the probabilities), two
-// launches:
+// At D = 256 with 8 heads the forward runs the Hopper forms (layer_long.cu
+// in bfloat16: mha_short_kernel for S <= 32, mha_qkv_kernel +
+// mha_long_attn_kernel + mha_out_kernel above; layer_f32.cu in float32:
+// mha_qkv_kernel, K4's train_attn_kernel, mha_out_kernel). This file keeps
+// the first port's forward for the other widths (D < 256, head dim 32), and
+// K11's backward at every width.
+//
+// Forward at the other widths (K10, and K11's forward with dropout on the
+// probabilities), two launches:
 //   mha_qkv_kernel: QKV + bias over row tiles (64 rows, 32 for float) of all
 //       B*S rows, rounded to T into a scratch tensor [B*S][3D];
 //   mha_attn_kernel: one (sequence, query tile) per block, the long layer's
@@ -14,14 +21,18 @@
 //       tile's context, then the output projection of the tile's rows.
 // Backward (K11), three launches here, then wgrad.cu and the reductions
 // (ops/attention_vjp.py); nothing of the forward is saved but its inputs:
-//   mha_bwd_rows_kernel: per row tile, the QKV recompute and dctx = g Wo
-//       (rounded), and the column sums of g (dbo);
+//   mha_bwd_rows_kernel: per row tile, the QKV recompute (skipped at D = 256,
+//       where the Hopper forms' QKV launch wrote the forward's QKV into the
+//       scratch first: qkv_given) and dctx = g Wo (rounded), and the column
+//       sums of g (dbo);
 //   mha_attn_bwd_kernel: one (sequence, head) per block, Q, K and V of the
 //       head in shared memory; per tile of queries the scores and the
-//       probabilities recomputed (bit for bit the forward's), dPe = dctx V^T,
-//       the softmax backward with the dropout mask, ds rounded; the context
-//       Pe V (for dWo), dQ = ds K written, dK += ds^T Q and dV += Pe^T dctx
-//       held in tensor-core accumulators over the query tiles in order;
+//       probabilities recomputed (expf, summed in this kernel's order, so
+//       they can part from the Hopper forward's in their last bits), dPe =
+//       dctx V^T, the softmax backward with the dropout mask, ds rounded;
+//       the context Pe V (for dWo), dQ = ds K written, dK += ds^T Q and dV
+//       += Pe^T dctx held in tensor-core accumulators over the query tiles
+//       in order;
 //   mha_dx_kernel: per row tile, dx = dqkv Wqkv (rounded) and the column sums
 //       of dqkv (dbqkv).
 // No atomics: reruns are bit-equal.
@@ -58,6 +69,7 @@ struct MhaBwdParams {
   T *qkv, *dctx, *dqkv, *ctx, *dx;
   float* small_part;  // [row blocks of (a), then of (c)][4D]: dbqkv | dbo
   int B, S, D, H, causal, seed;
+  int qkv_given;      // qkv holds the forward's QKV already (the Hopper forms' QKV launch)
   unsigned thr;
   float kp, scale;
 };
@@ -176,12 +188,13 @@ __global__ void __launch_bounds__(NTHREADS) mha_bwd_rows_kernel(MhaBwdParams<T> 
       for (int r = 0; r < nrows; ++r) s += to_f(gs[r * ldn + c - 3 * D]);
     part[c] = s;
   }
-  tile_gemm<T, ROWS, true>(xs, ldn, p.wqkv, D, 3 * D, D, wscr, warp, lane, nullptr,
-                           [&](int r, int n, float v) {
-                             if (r < nrows)
-                               p.qkv[(row0 + r) * 3 * D + n] = from_f<T>(v + to_f(p.bqkv[n]));
-                             return 0.f;
-                           });
+  if (!p.qkv_given)
+    tile_gemm<T, ROWS, true>(xs, ldn, p.wqkv, D, 3 * D, D, wscr, warp, lane, nullptr,
+                             [&](int r, int n, float v) {
+                               if (r < nrows)
+                                 p.qkv[(row0 + r) * 3 * D + n] = from_f<T>(v + to_f(p.bqkv[n]));
+                               return 0.f;
+                             });
   tile_gemm<T, ROWS, false>(gs, ldn, p.wo, D, D, D, wscr, warp, lane, nullptr,
                             [&](int r, int n, float v) {
                               if (r < nrows) p.dctx[(row0 + r) * D + n] = from_f<T>(v);
@@ -496,7 +509,7 @@ MhaParams<T> forward_params(void* const* t, int B, int S, int D, int H, int caus
 
 template <class T>
 MhaBwdParams<T> backward_params(void* const* t, int B, int S, int D, int H, int causal,
-                                int seed, int thr, float kp, float scale) {
+                                int seed, int thr, float kp, float scale, int qkv_given) {
   MhaBwdParams<T> p;
   p.x = (const T*)t[0];
   p.g = (const T*)t[1];
@@ -510,6 +523,7 @@ MhaBwdParams<T> backward_params(void* const* t, int B, int S, int D, int H, int 
   p.ctx = (T*)t[9];
   p.dx = (T*)t[10];
   p.small_part = (float*)t[11];
+  p.qkv_given = qkv_given;
   p.B = B;
   p.S = S;
   p.D = D;
@@ -528,10 +542,11 @@ MhaBwdParams<T> backward_params(void* const* t, int B, int S, int D, int H, int 
 // wrapper sizes the per-block column sums with it).
 extern "C" int dsvg_mha_rows(int is_f32) { return is_f32 ? Tile<float>::ROWS : Tile<bf16>::ROWS; }
 
-// Forward of K10 (thr 0) and K11. `tensors`: x [B*S][D], wqkv [3D][D], bqkv
-// [3D], wo [D][D], bo [D], mask [B][S] (f32), out [B*S][D], and the scratch
-// qkv [B*S][3D]; all of the activation type (bf16, or float with is_f32) but
-// the mask. 1 <= S <= 256, D = 32 H <= 256.
+// Forward of K10 (thr 0) and K11 at the widths the Hopper forms do not take.
+// `tensors`: x [B*S][D], wqkv [3D][D], bqkv [3D], wo [D][D], bo [D], mask
+// [B][S] (f32), out [B*S][D], and the scratch qkv [B*S][3D]; all of the
+// activation type (bf16, or float with is_f32) but the mask. 1 <= S <= 256,
+// D = 32 H <= 256.
 extern "C" int dsvg_mha_fwd(void* const* tensors, int B, int S, int D, int H, int causal,
                             int is_f32, int seed, int thr, float kp, float scale,
                             void* stream) {
@@ -547,19 +562,21 @@ extern "C" int dsvg_mha_fwd(void* const* tensors, int B, int S, int D, int H, in
 }
 
 // Backward of K11, launches (a)-(c). `tensors`: x, g [B*S][D], wqkv, bqkv,
-// wo, mask, then the outputs: qkv [B*S][3D] (scratch), dctx [B*S][D]
-// (scratch), dqkv [rows][3D], ctx [rows][D] (the recomputed context), dx
-// [B*S][D], and the column sums [2 row blocks][4D] (f32).
+// wo, mask, then the outputs: qkv [B*S][3D] (scratch; with qkv_given, the
+// forward's QKV as its Hopper forms' QKV launch wrote it, and (a) skips its
+// own), dctx [B*S][D] (scratch), dqkv [rows][3D], ctx [rows][D] (the
+// recomputed context), dx [B*S][D], and the column sums [2 row blocks][4D]
+// (f32).
 extern "C" int dsvg_mha_bwd(void* const* tensors, int B, int S, int D, int H, int causal,
-                            int is_f32, int seed, int thr, float kp, float scale,
+                            int is_f32, int seed, int thr, float kp, float scale, int qkv_given,
                             void* stream) {
   if (S < 1 || S > MAX_SEQ_LONG || D != H * HEAD_DIM || D > 256)
     return (int)cudaErrorInvalidValue;
   if (is_f32)
     return launch_backward<float>(
-        backward_params<float>(tensors, B, S, D, H, causal, seed, thr, kp, scale),
+        backward_params<float>(tensors, B, S, D, H, causal, seed, thr, kp, scale, qkv_given),
         (cudaStream_t)stream);
   return launch_backward<bf16>(
-      backward_params<bf16>(tensors, B, S, D, H, causal, seed, thr, kp, scale),
+      backward_params<bf16>(tensors, B, S, D, H, causal, seed, thr, kp, scale, qkv_given),
       (cudaStream_t)stream);
 }

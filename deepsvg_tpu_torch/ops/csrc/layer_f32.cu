@@ -49,6 +49,10 @@
 // sum are float32, as layer_reference computes them. Nothing is summed across
 // threads in a data-dependent order: the same inputs give the same output to
 // the bit.
+//
+// K10 and K11's forward in float32 at D = 256 (ops/attention.py) run the
+// three launches without LN1, the residual, LN2 and the FF (mha_qkv_kernel,
+// K4's train_attn_kernel, mha_out_kernel; dsvg_mha_f32).
 #include "layer_infer.cuh"
 
 namespace layer_f32 {
@@ -94,6 +98,7 @@ struct Params {
   float* out;             // [B*S][D]
   float* qkv;             // scratch [H][B*S][96], head h's q | k | v
   float* ctx;             // scratch [B*S][D]
+  float* qkv_rows;        // the attention block alone: a row-major copy [B*S][3D], or null
   long long rows;         // B*S
   int B, S, F, causal;
   int nseq;               // whole sequences of an attention tile
@@ -171,12 +176,39 @@ __device__ __forceinline__ void ln1_rows(const float* x, const float* prm, int n
   }
 }
 
+// rows [rb, rb + 16) of x (zero from nrows on) rounded to TF32 into xn, as
+// ln1_rows lays its output out: the QKV product of the attention block
+// alone, which has no LN1
+__device__ __forceinline__ void tf32_rows(const float* x, int nrows, int rb, int lane,
+                                          unsigned char* xn) {
+  unsigned char* dst = xn + (lane >> 2) * TR * 128;
+#pragma unroll 4
+  for (int i = 0; i < 16; ++i) {
+    const int r = rb + i;
+    float4 u[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+    if (r < nrows) {
+      const float4* src = reinterpret_cast<const float4*>(x + (size_t)r * DM + 8 * lane);
+      u[0] = __ldg(src);
+      u[1] = __ldg(src + 1);
+    }
+#pragma unroll
+    for (int pc = 0; pc < 2; ++pc) {
+      const uint32_t piece = (lane & 3) * 2 + pc;
+      *reinterpret_cast<float4*>(dst + r * 128 + ((piece ^ (r & 7)) << 4)) =
+          make_float4(to_tf32(u[pc].x), to_tf32(u[pc].y), to_tf32(u[pc].z), to_tf32(u[pc].w));
+    }
+  }
+}
+
 // into L2 ahead of use: the 32 bytes at `p` (a lane's part of a row)
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
-// the QKV launch's body: K2's qkv_kernel and K4's train_qkv_kernel
+// the QKV launch's body: K2's qkv_kernel and K4's train_qkv_kernel (LN1),
+// and the attention block's mha_qkv_kernel (x as it is, rounded to TF32;
+// QKV into p.qkv head-major and/or p.qkv_rows row-major, either may be null)
+template <bool LN1>
 __device__ __forceinline__ void qkv_tiles(const Maps& maps, const Params& p) {
   const QkvLayout L;
   unsigned char* base = smem_base();
@@ -207,7 +239,7 @@ __device__ __forceinline__ void qkv_tiles(const Maps& maps, const Params& p) {
   setmaxnreg_inc<240>();
   const Lane ln;
   float* prm = reinterpret_cast<float*>(base + L.prm);
-  for (int i = ln.tid; i < Q_ALL; i += CONSUMERS)
+  for (int i = ln.tid + (LN1 ? 0 : Q_BQKV); i < Q_ALL; i += CONSUMERS)
     prm[i] = i < Q_LN1B ? p.ln1[i] : i < Q_BQKV ? p.ln1[DM + i - Q_LN1B] : p.bqkv[i - Q_BQKV];
   named_barrier(1, CONSUMERS);
   unsigned char* xn = base + L.xn;
@@ -215,7 +247,10 @@ __device__ __forceinline__ void qkv_tiles(const Maps& maps, const Params& p) {
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const size_t row0 = (size_t)tile * TR;
     const int nrows = (int)min((long long)TR, p.rows - (long long)row0);
-    ln1_rows(p.x + row0 * DM, prm, nrows, 64 * ln.wg + 16 * ln.w, ln.lane, xn);
+    if constexpr (LN1)
+      ln1_rows(p.x + row0 * DM, prm, nrows, 64 * ln.wg + 16 * ln.w, ln.lane, xn);
+    else
+      tf32_rows(p.x + row0 * DM, nrows, 64 * ln.wg + 16 * ln.w, ln.lane, xn);
     fence_proxy_async();
     named_barrier(2 + ln.wg, 128);  // the warpgroup reads only its own rows
     // the next tile's rows of x into L2 while this tile's heads run
@@ -245,9 +280,14 @@ __device__ __forceinline__ void qkv_tiles(const Maps& maps, const Params& p) {
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
           const int r = 64 * ln.wg + ln.r0 + 8 * rr;
-          if (r < nrows)
-            store2(p.qkv + ((size_t)h * p.rows + row0 + r) * 96 + c,
-                   to_tf32(acc[4 * j + 2 * rr] + b.x), to_tf32(acc[4 * j + 2 * rr + 1] + b.y));
+          if (r >= nrows) continue;
+          const float v0 = to_tf32(acc[4 * j + 2 * rr] + b.x);
+          const float v1 = to_tf32(acc[4 * j + 2 * rr + 1] + b.y);
+          if (LN1 || p.qkv != nullptr)
+            store2(p.qkv + ((size_t)h * p.rows + row0 + r) * 96 + c, v0, v1);
+          if (!LN1 && p.qkv_rows != nullptr)
+            store2(p.qkv_rows + (row0 + r) * 3 * DM + (j >> 2) * DM + h * HEAD_DIM + (c & 31), v0,
+                   v1);
         }
       }
     }
@@ -256,7 +296,7 @@ __device__ __forceinline__ void qkv_tiles(const Maps& maps, const Params& p) {
 
 __global__ void __launch_bounds__(THREADS, 1)
     qkv_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params p) {
-  qkv_tiles(maps, p);
+  qkv_tiles<true>(maps, p);
 }
 
 // ---------------------------------------------------------------- attn_kernel
@@ -723,7 +763,7 @@ __device__ __forceinline__ float drop_at(float v, unsigned key, size_t row, int 
 
 __global__ void __launch_bounds__(THREADS, 1)
     train_qkv_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params p) {
-  qkv_tiles(maps, p);
+  qkv_tiles<true>(maps, p);
 }
 
 // attend_rows' hook in the training forward: saves the probabilities of the
@@ -1087,8 +1127,198 @@ int launch_train(const Maps& maps, const Params& p, const Train& t, cudaStream_t
   return (int)cudaGetLastError();
 }
 
+// ================================================================ K10 and K11's forward
+// The attention block alone at D = 256 in float32, any S up to 256
+// (ops/attention.py): K2's three launches without LN1, the residual, LN2 and
+// the FF. mha_qkv_kernel is qkv_tiles without LN1 (x rounded to TF32 as it
+// is staged); the attention is K4's train_attn_kernel without its save (K11's
+// dropout where t.thr > 0, K10 none); mha_out_kernel runs the out projection
+// onto bo over 128-row tiles of the context, which lands by TMA, as
+// out_ffn_kernel's first product.
+constexpr int MHA_OUT_STAGES = 4;
+
+__global__ void __launch_bounds__(THREADS, 1)
+    mha_qkv_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params p) {
+  qkv_tiles<false>(maps, p);
+}
+
+struct MhaOutLayout {
+  uint32_t ctx, ring, prm, bars, total;
+  __host__ __device__ MhaOutLayout() {
+    Carve c;
+    ctx = c.take(NSL * TR * 128);
+    ring = c.take(MHA_OUT_STAGES * layer_infer::STAGE);
+    prm = c.take(DM * 4, 16);
+    bars = c.take((2 * MHA_OUT_STAGES + NSL + 1) * 8, 8);
+    total = c.off + 1024;
+  }
+};
+
+// p.F = 0: the producer's produce_out_ffn streams the context and Wo alone
+__global__ void __launch_bounds__(THREADS, 1)
+    mha_out_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params p) {
+  const MhaOutLayout L;
+  unsigned char* base = smem_base();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* cfull = bars + 2 * MHA_OUT_STAGES;  // a barrier a slice of the context
+  uint64_t* cempty = cfull + NSL;
+  layer_infer::Ring ring;
+  ring.init(base + L.ring, bars, MHA_OUT_STAGES);
+  if (threadIdx.x == 0) {
+    init_ring_bars(bars, MHA_OUT_STAGES);
+    for (int k = 0; k < NSL; ++k) mbar_init(&cfull[k], 1);
+    mbar_init(cempty, CONSUMERS);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int ntiles = (int)((p.rows + TR - 1) / TR);
+  unsigned char* ctxs = base + L.ctx;
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS) produce_out_ffn(maps, p, ring, ctxs, cfull, cempty, ntiles);
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const Lane ln;
+  float* prm = reinterpret_cast<float*>(base + L.prm);
+  for (int i = ln.tid; i < DM; i += CONSUMERS) prm[i] = p.bo[i];
+  named_barrier(1, CONSUMERS);
+  const int rb = 64 * ln.wg;
+  const uint32_t ctx_a = smem_u32(ctxs) + rb * 128;
+  PipeState cs;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const size_t row0 = (size_t)tile * TR;
+    const int nrows = (int)min((long long)TR, p.rows - (long long)row0);
+    float acc[2][64];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 bo = lds2(prm + 128 * n + 8 * j + 2 * ln.t4);
+        acc[n][4 * j] = acc[n][4 * j + 2] = bo.x;
+        acc[n][4 * j + 1] = acc[n][4 * j + 3] = bo.y;
+      }
+#pragma unroll 1
+    for (int k = 0; k < NSL; ++k) {
+      mbar_wait(&cfull[k], cs.phase);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const uint32_t st = ring.acquire();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k8_tf32(acc[n], desc_sw128(ctx_a + k * (TR * 128) + 32 * kk),
+                               desc_sw128(st + 32 * kk), 1);
+        wgmma_commit();
+        ring.keep1();
+      }
+    }
+    ring.drain();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    mbar_arrive(cempty);  // this warpgroup is done with the tile's context rows
+    cs.advance(1);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = rb + ln.r0 + 8 * rr;
+      if (r >= nrows) continue;
+      float* o = p.out + (row0 + r) * DM;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          store2(o + 128 * n + 8 * j + 2 * ln.t4, acc[n][4 * j + 2 * rr],
+                 acc[n][4 * j + 2 * rr + 1]);
+    }
+  }
+}
+
+// the attention block's parameters and tensor maps (Wqkv, Wo, the context;
+// F = 0, no LayerNorm, FF or seq_bias)
+int mha_setup(Params* p, Maps* maps, const void* x, const void* wqkv, const void* bqkv,
+              const void* wo, const void* bo, const void* mask, void* qkv, void* ctx, void* out,
+              int B, int S, int causal, float scale) {
+  *p = Params{};
+  *maps = Maps{};
+  p->x = (const float*)x;
+  p->bqkv = (const float*)bqkv;
+  p->bo = (const float*)bo;
+  p->mask = (const float*)mask;
+  p->out = (float*)out;
+  p->qkv = (float*)qkv;
+  p->ctx = (float*)ctx;
+  p->rows = (long long)B * S;
+  p->B = B;
+  p->S = S;
+  p->causal = causal;
+  p->scale = scale;
+  int rc = bind_device_of(wqkv);
+  if (rc == 0) rc = make_tma_2d(&maps->qkv, wqkv, true, DM, 3 * DM, DM * 4, KS, 32);
+  if (rc == 0 && wo != nullptr) rc = make_tma_2d(&maps->o, wo, true, DM, DM, DM * 4, KS, 128);
+  if (rc == 0 && ctx != nullptr)
+    rc = make_tma_2d(&maps->ctx, ctx, true, DM, (uint64_t)p->rows, DM * 4, KS, TR);
+  return rc;
+}
+
+int launch_mha_qkv(const Maps& maps, const Params& p, cudaStream_t st) {
+  const int tiles = (int)((p.rows + TR - 1) / TR);
+  const uint32_t smem = QkvLayout().total;
+  int rc = prepare(mha_qkv_kernel, smem);
+  if (rc) return rc;
+  mha_qkv_kernel<<<std::min(tiles, sm_count()), THREADS, smem, st>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace layer_f32
+
+// K10 and K11's forward in float32 at D = 256, 8 heads, 1 <= S <= 256
+// (ops/attention.py): three launches through qkv [H][B*S][96] and ctx
+// [B*S][D] (float32 scratch; ctx holds the context). x [B*S][D], wqkv
+// [3D][D] and wo [D][D] rounded to TF32, bqkv [3D], bo [D], mask [B][S],
+// out [B*S][D]; thr = floor(rate 2^24) (0: no dropout), kp = 1 / (1 - rate).
+// qkv_rows [B*S][3D], if not null, receives the forward's QKV row-major.
+extern "C" int dsvg_mha_f32(const void* x, const void* wqkv, const void* bqkv, const void* wo,
+                            const void* bo, const void* mask, void* out, void* qkv, void* ctx,
+                            void* qkv_rows, int B, int S, int causal, int seed, int thr, float kp,
+                            float scale, void* stream) {
+  using namespace layer_f32;
+  if (B < 1 || S < 1 || S > LONG_S || qkv == nullptr || ctx == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Params p;
+  Maps maps;
+  int rc = mha_setup(&p, &maps, x, wqkv, bqkv, wo, bo, mask, qkv, ctx, out, B, S, causal, scale);
+  if (rc) return rc;
+  p.qkv_rows = (float*)qkv_rows;
+  if ((rc = launch_mha_qkv(maps, p, st))) return rc;
+  const Train t = {nullptr, nullptr, nullptr, seed, (unsigned)thr, kp};
+  rc = S <= 32 ? launch_train_attn<4, false>(p, t, st)
+              : launch_train_attn<LONG_S / 16, false>(p, t, st);
+  if (rc) return rc;
+  const uint32_t smem = MhaOutLayout().total;
+  if ((rc = prepare(mha_out_kernel, smem))) return rc;
+  mha_out_kernel<<<std::min((int)((p.rows + TR - 1) / TR), sm_count()), THREADS, smem, st>>>(maps,
+                                                                                           p);
+  return (int)cudaGetLastError();
+}
+
+// The QKV launch of dsvg_mha_f32 alone, row-major into qkv_rows [B*S][3D]:
+// the forward's QKV to the bit (K11's backward recomputes it so).
+extern "C" int dsvg_mha_qkv_f32(const void* x, const void* wqkv, const void* bqkv, void* qkv_rows,
+                                int B, int S, void* stream) {
+  using namespace layer_f32;
+  if (B < 1 || S < 1 || S > LONG_S) return (int)cudaErrorInvalidValue;
+  Params p;
+  Maps maps;
+  const int rc = mha_setup(&p, &maps, x, wqkv, bqkv, nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, B, S, 0, 0.f);
+  if (rc) return rc;
+  p.qkv_rows = (float*)qkv_rows;
+  return launch_mha_qkv(maps, p, (cudaStream_t)stream);
+}
 
 // Whether the float32 wgmma forms take these widths (else the older wmma
 // code of layer_fwd.cuh / layer_long.cuh runs): D = 256 with 8 heads, F a
@@ -1125,6 +1355,7 @@ int setup(Params* p, Maps* maps, const void* x, const void* seq_bias, const void
   p->causal = causal;
   p->nseq = 0;
   p->scale = scale;
+  p->qkv_rows = nullptr;
   int rc = bind_device_of(wqkv);
   if (rc == 0) rc = make_tma_2d(&maps->qkv, wqkv, true, DM, 3 * DM, DM * 4, KS, 32);
   if (rc == 0) rc = make_tma_2d(&maps->o, wo, true, DM, DM, DM * 4, KS, 128);

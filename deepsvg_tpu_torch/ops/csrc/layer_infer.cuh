@@ -364,24 +364,43 @@ __device__ __forceinline__ float quad_sum(float v) {
 // tile row j (shared memory). qf: the rows' Q as mma A fragments (head dims
 // 0-15, 16-31); ks, vs: the tile's K and V rows, LDH bf16 apart, `krows` of
 // them. o: the context in the mma accumulator layout, o[j] holding head dims
-// 8 j + [0, 8). MAXT: the most 16-key steps the rows' keys span (4 in the
-// short form, 16 in the long): every score stays in registers, so the
-// softmax is exact and two-pass, each probability 2^(s - max) / sum rounded
-// to bf16 before P V, as the plain version's. `drop.pair(p0, p1, rr, j)`
-// gives the probabilities of the thread's row rr (tile row q0 + lane / 4 +
-// 8 rr) at key rows j and j + 1 as P V takes them, packed (the training
-// forward's dropout and save, layer_train.cuh); K2 takes them as they are.
+// 8 j + [0, 8). MAXT: the most 16-key steps a warp's share of the rows' keys
+// spans (4 in the short form, 16 in the long): every score stays in
+// registers, so the softmax is exact and two-pass, each probability 2^(s -
+// max) / sum rounded to bf16 before P V, as the plain version's.
+// `drop.pair(p0, p1, rr, j)` gives the probabilities of the thread's row rr
+// (tile row q0 + lane / 4 + 8 rr) at key rows j and j + 1 as P V takes them,
+// packed (the training forward's dropout and save, layer_train.cuh); K2 takes
+// them as they are.
+//
+// NSPLIT > 1 splits the rows' key steps over NSPLIT warps (part 0..NSPLIT-1,
+// each calling with the same rows; fewer score registers a thread, so that
+// more blocks share an SM): they exchange their row maxima, then their row
+// sums (added in part order), through x behind the named barrier `bar` of
+// their 32 NSPLIT threads, and part 0 adds the others' partial contexts to
+// its own in part order; its o is the rows' context.
 struct NoDrop {
   __device__ __forceinline__ uint32_t pair(float p0, float p1, int, int) const {
     return pack_bf16(p0, p1);
   }
 };
 
-template <int MAXT, class Drop = NoDrop>
+template <int NSPLIT>
+struct SplitXch {
+  float m[NSPLIT][16];
+  float l[NSPLIT][16];
+  float o[NSPLIT - 1][16][HEAD_DIM + 1];  // the partial contexts of parts 1.., padded
+};
+template <>
+struct SplitXch<1> {};
+
+template <int MAXT, class Drop = NoDrop, int NSPLIT = 1>
 __device__ __forceinline__ void attend_rows(const uint32_t (&qf)[2][4], uint32_t ks, uint32_t vs,
                                             int krows, int q0, int nrows, int S, int causal,
                                             const float* mask, float scale, int lane,
-                                            float (&o)[4][4], const Drop& drop = Drop()) {
+                                            float (&o)[4][4], const Drop& drop = Drop(),
+                                            int part = 0, SplitXch<NSPLIT>* x = nullptr,
+                                            int bar = 0) {
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int j = 0; j < 4; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -390,6 +409,10 @@ __device__ __forceinline__ void attend_rows(const uint32_t (&qf)[2][4], uint32_t
   const int kstart = (q0 / S) * S;
   const int kend = causal ? qlast + 1 : (qlast / S + 1) * S;
   const int nkt = (kend - kstart + 15) >> 4;
+  // this warp's key steps [u0, u0 + nu)
+  const int per = (nkt + NSPLIT - 1) / NSPLIT;
+  const int u0 = NSPLIT == 1 ? 0 : part * per;
+  const int nu = NSPLIT == 1 ? nkt : max(0, min(nkt, u0 + per) - u0);
   int lo[2], hi[2];  // the key range of rows g and g + 8
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
@@ -400,22 +423,23 @@ __device__ __forceinline__ void attend_rows(const uint32_t (&qf)[2][4], uint32_t
       hi[rr] = causal ? i + 1 : lo[rr] + S;
     }
   }
-  // the scores of key tile t (keys kstart + 8 t + [0, 8)) in log2 units,
-  // q k scale + mask[key], -inf where the key is not the row's
+  // the scores of key tile t (keys kstart + 8 (2 u0 + t) + [0, 8)) in log2
+  // units, q k scale + mask[key], -inf where the key is not the row's
   const float sl = scale * L2E;
   float s[2 * MAXT][4];
   float m[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int t = 0; t < 2 * MAXT; ++t) {
     s[t][0] = s[t][1] = s[t][2] = s[t][3] = -INFINITY;
-    if (t < 2 * nkt) {
-      const int kr = min(kstart + 8 * t + (lane & 7), krows - 1);
+    if (t < 2 * nu) {
+      const int kt = 2 * u0 + t;
+      const int kr = min(kstart + 8 * kt + (lane & 7), krows - 1);
       uint32_t b[4];
       ldmatrix_x4<false>(b, ks + kr * (LDH * 2) + (lane >> 3) * 16);
       float d[4] = {0.f, 0.f, 0.f, 0.f};
       mma_m16n8k16_bf16(d, qf[0], b[0], b[1]);
       mma_m16n8k16_bf16(d, qf[1], b[2], b[3]);
-      const int j0 = kstart + 8 * t + 2 * t4;
+      const int j0 = kstart + 8 * kt + 2 * t4;
       const float mv[2] = {j0 < kend ? mask[j0] * L2E : 0.f,
                            j0 + 1 < kend ? mask[j0 + 1] * L2E : 0.f};
 #pragma unroll
@@ -426,34 +450,60 @@ __device__ __forceinline__ void attend_rows(const uint32_t (&qf)[2][4], uint32_t
       }
     }
   }
-  float sum[2] = {0.f, 0.f}, inv[2];
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    m[rr] = quad_max(m[rr]);
-    if (m[rr] == -INFINITY) m[rr] = 0.f;  // no key: every exponential is 0
+  for (int rr = 0; rr < 2; ++rr) m[rr] = quad_max(m[rr]);
+  if constexpr (NSPLIT > 1) {  // the rows' maxima over every part
+    if (t4 == 0) {
+      x->m[part][g] = m[0];
+      x->m[part][g + 8] = m[1];
+    }
+    named_barrier(bar, 32 * NSPLIT);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      m[rr] = x->m[0][g + 8 * rr];
+#pragma unroll
+      for (int q = 1; q < NSPLIT; ++q) m[rr] = fmaxf(m[rr], x->m[q][g + 8 * rr]);
+    }
   }
 #pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    if (m[rr] == -INFINITY) m[rr] = 0.f;  // no key: every exponential is 0
+  float sum[2] = {0.f, 0.f}, inv[2];
+#pragma unroll
   for (int t = 0; t < 2 * MAXT; ++t)
-    if (t < 2 * nkt)
+    if (t < 2 * nu)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         s[t][i] = ex2(s[t][i] - m[i >> 1]);
         sum[i >> 1] += s[t][i];
       }
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    sum[rr] = quad_sum(sum[rr]);
-    inv[rr] = sum[rr] > 0.f ? 1.f / sum[rr] : 0.f;
-  }
-  // o += P V, 16 keys a step; P's accumulator tiles 2 u and 2 u + 1 are the
-  // A fragment of step u
+  for (int rr = 0; rr < 2; ++rr) sum[rr] = quad_sum(sum[rr]);
+  if constexpr (NSPLIT > 1) {  // the rows' sums, in part order
+    if (t4 == 0) {
+      x->l[part][g] = sum[0];
+      x->l[part][g + 8] = sum[1];
+    }
+    named_barrier(bar, 32 * NSPLIT);
 #pragma unroll
-  for (int u = 0; u < MAXT; ++u) {
-    if (u < nkt) {
+    for (int rr = 0; rr < 2; ++rr) {
+      sum[rr] = x->l[0][g + 8 * rr];
+#pragma unroll
+      for (int q = 1; q < NSPLIT; ++q) sum[rr] += x->l[q][g + 8 * rr];
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) inv[rr] = sum[rr] > 0.f ? 1.f / sum[rr] : 0.f;
+  // o += P V, 16 keys a step; P's accumulator tiles 2 uu and 2 uu + 1 are
+  // the A fragment of step u0 + uu
+#pragma unroll
+  for (int uu = 0; uu < MAXT; ++uu) {
+    if (uu < nu) {
+      const int u = u0 + uu;
       uint32_t a[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float* sv = s[2 * u + (q >> 1)];
+        const float* sv = s[2 * uu + (q >> 1)];
         const int rr = q & 1, j = kstart + 16 * u + 8 * (q >> 1) + 2 * t4;
         a[q] = drop.pair(sv[2 * rr] * inv[rr], sv[2 * rr + 1] * inv[rr], rr, j);
       }
@@ -466,6 +516,23 @@ __device__ __forceinline__ void attend_rows(const uint32_t (&qf)[2][4], uint32_t
         mma_m16n8k16_bf16(o[2 * dp + 1], a, b[2], b[3]);
       }
     }
+  }
+  if constexpr (NSPLIT > 1) {  // part 0 adds the others' contexts, in part order
+    if (part > 0)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x->o[part - 1][g + 8 * (e >> 1)][8 * j + 2 * t4 + (e & 1)] = o[j][e];
+    named_barrier(bar, 32 * NSPLIT);
+    if (part == 0)
+#pragma unroll
+      for (int q = 1; q < NSPLIT; ++q)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[j][e] += x->o[q - 1][g + 8 * (e >> 1)][8 * j + 2 * t4 + (e & 1)];
   }
 }
 

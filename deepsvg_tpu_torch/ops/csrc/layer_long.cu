@@ -8,6 +8,10 @@
 // sites, x1 through its tensor, and in the saved mode QKV (row-major
 // [B*S][3D]), the probabilities before dropout, the context, x1 and the FF
 // hidden before dropout, the layout K4's long backward (layer_bwd.cu) reads.
+// K10 and K11's forward in bfloat16 at D = 256 (ops/attention.py) run the
+// same device code without LN1 and the FF: mha_short_kernel (S <= 32, one
+// launch), and mha_qkv_kernel, mha_long_attn_kernel and mha_out_kernel
+// (33 <= S <= 256); see the section at the end.
 #include "layer_infer.cuh"
 #include "layer_long.cuh"
 #include "layer_train.cuh"
@@ -34,6 +38,38 @@ struct QkvLayout {
     total = c.off + 1024;
   }
 };
+
+// head h's Q, K and V of the warpgroup's rows (acc + bias bq, the head's
+// columns of bqkv at bq + part * DM + h * HEAD_DIM, as float; bf16) through
+// its staging rows `so` to device memory, 16 bytes a thread: head-major into
+// qkv ([H][total][96], if not null) and row-major into save ([total][3D], if
+// not null). The warpgroup's rows are tile rows r_lo.., nmine of them valid.
+__device__ __forceinline__ void store_head_qkv(const float (&acc)[48], const float* bq,
+                                               const Lane& ln, bf16* so, int h, size_t row0,
+                                               int r_lo, int nmine, size_t total, bf16* qkv,
+                                               bf16* save) {
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const int c = 8 * j + 2 * ln.t4;
+    const float2 b = lds2(bq + (j >> 2) * DM + h * HEAD_DIM + (c & 31));
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      *reinterpret_cast<uint32_t*>(so + (ln.r0 + 8 * rr) * LDQ + c) =
+          pack_bf16(acc[4 * j + 2 * rr] + b.x, acc[4 * j + 2 * rr + 1] + b.y);
+  }
+  named_barrier(2 + ln.wg, 128);
+  // the warpgroup's rows of head h, 192 bytes each, contiguous in qkv
+  bf16* dst = qkv == nullptr ? nullptr : qkv + ((size_t)h * total + row0 + r_lo) * 96;
+  for (int e = ln.tid & 127; e < nmine * 12; e += 128) {
+    const int r = e / 12, c = e - r * 12;
+    const uint4 v = *reinterpret_cast<const uint4*>(so + r * LDQ + 8 * c);
+    if (dst != nullptr) *reinterpret_cast<uint4*>(dst + r * 96 + 8 * c) = v;
+    if (save != nullptr)
+      *reinterpret_cast<uint4*>(save + (row0 + r_lo + r) * layer_train::QKV_W + (c >> 2) * DM +
+                                h * HEAD_DIM + 8 * (c & 3)) = v;
+  }
+  named_barrier(2 + ln.wg, 128);
+}
 
 // LN1 and QKV (+ bias, bf16) of 128-row tiles of all B*S rows into p.qkv,
 // head-major: head h's rows [h][B*S][96] (q | k | v), so that the second
@@ -78,27 +114,8 @@ __device__ __forceinline__ void qkv_long_tiles(const Maps& maps, const Params& p
     for (int h = 0; h < NH; ++h) {
       float acc[48];
       qkv_head_product(ring, xn_a, TR * 128, acc);
-#pragma unroll
-      for (int j = 0; j < 12; ++j) {
-        const int c = 8 * j + 2 * ln.t4;
-        const float2 b = lds2(prm + p_bqkv(p.F) + (j >> 2) * DM + h * HEAD_DIM + (c & 31));
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr)
-          *reinterpret_cast<uint32_t*>(so + (ln.r0 + 8 * rr) * LDQ + c) =
-              pack_bf16(acc[4 * j + 2 * rr] + b.x, acc[4 * j + 2 * rr + 1] + b.y);
-      }
-      named_barrier(2 + ln.wg, 128);
-      // the warpgroup's rows of head h, 192 bytes each, contiguous in p.qkv
-      bf16* dst = p.qkv + ((size_t)h * total + row0 + r_lo) * 96;
-      for (int e = ln.tid & 127; e < nmine * 12; e += 128) {
-        const int r = e / 12, c = e - r * 12;
-        const uint4 v = *reinterpret_cast<const uint4*>(so + r * LDQ + 8 * c);
-        *reinterpret_cast<uint4*>(dst + r * 96 + 8 * c) = v;
-        if (save != nullptr)
-          *reinterpret_cast<uint4*>(save + (row0 + r_lo + r) * layer_train::QKV_W +
-                                    (c >> 2) * DM + h * HEAD_DIM + 8 * (c & 3)) = v;
-      }
-      named_barrier(2 + ln.wg, 128);
+      store_head_qkv(acc, prm + p_bqkv(p.F), ln, so, h, row0, r_lo, nmine, (size_t)total, p.qkv,
+                     save);
     }
   }
 }
@@ -456,6 +473,479 @@ int launch_long_train(Params p, const layer_train::Train& t, const void* wqkv, c
   return (int)cudaGetLastError();
 }
 
+// ================================================================ K10 and K11's forward
+// The attention block alone at D = 256 in bfloat16 (ops/attention.py): out
+// = softmax(Q K^T scale + mask) V Wo^T + bo with QKV = x Wqkv^T + bqkv, K11's
+// dropout on the probabilities where t.thr > 0. K2's and K4's walks without
+// LN1, the residual, LN2 and the FF: x itself is the QKV product's A
+// operand, landed by TMA in a buffer of its own (a tile's eight heads read
+// it while the weight ring turns over), released once the last head's
+// product is done. The probabilities go through AttnDrop at K4's hash
+// coordinates (row (b H + h) S + i, column j); nothing is saved but what a
+// caller asks for (t.qkv, t.ctx).
+
+// the small parameters as float: bo, then bqkv
+constexpr int M_BO = 0, M_BQKV = DM, M_ALL = 4 * DM;
+
+__device__ __forceinline__ void load_mha_params(const Params& p, float* prm, bool with_bo) {
+  for (int i = with_bo ? threadIdx.x : M_BQKV + threadIdx.x; i < M_ALL; i += CONSUMERS)
+    prm[i] = bf2f(i < M_BQKV ? p.bo[i] : p.bqkv[i - M_BQKV]);
+}
+
+// NB buffers of a 128-row tile (KSL slices of [128 rows][128 bytes],
+// swizzled: a wgmma A operand), each filled by one TMA box a slice on its
+// `full` barrier and handed back by the consumers on its `empty` one
+template <int NB>
+struct TileBufs {
+  static constexpr uint32_t BYTES = KSL * TR * 128;
+  unsigned char* buf;
+  uint64_t* full;
+  uint64_t* empty;
+  PipeState ps;
+
+  __device__ __forceinline__ void init(unsigned char* b, uint64_t* bars) {
+    buf = b;
+    full = bars;
+    empty = bars + NB;
+  }
+  __device__ __forceinline__ void init_bars() {
+    for (int i = 0; i < NB; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS);
+    }
+  }
+  // producer: rows [row0, row0 + 128) of the map's tensor into the next buffer
+  __device__ __forceinline__ void produce(const CUtensorMap* map, int row0) {
+    mbar_wait(&empty[ps.stage], ps.phase ^ 1);
+    mbar_arrive_expect_tx(&full[ps.stage], BYTES);
+    unsigned char* dst = buf + ps.stage * BYTES;
+    for (int k = 0; k < KSL; ++k)
+      tma_load_2d(dst + k * TR * 128, map, &full[ps.stage], 64 * k, row0);
+    ps.advance(NB);
+  }
+  // consumer: the shared address of the next buffer, once it has landed
+  __device__ __forceinline__ uint32_t acquire() {
+    mbar_wait(&full[ps.stage], ps.phase);
+    return smem_u32(buf + ps.stage * BYTES);
+  }
+  // consumer: every wgmma of this thread's warpgroup that reads it is done
+  __device__ __forceinline__ void release() {
+    mbar_arrive(&empty[ps.stage]);
+    ps.advance(NB);
+  }
+};
+
+// out = ctx Wo^T + bo of the warpgroup's 64 rows (a: their first row in
+// slice 0 of the context, slices `slice` bytes apart): the accumulators
+// start at bo, the product runs over 2 KSL weight stages; then the rows
+// below nrows (tile rows rb..) are stored at out + (row0 + row) D
+__device__ __forceinline__ void mha_out_rows(Ring& ring, const float* prm, const Lane& ln,
+                                             uint32_t a, uint32_t slice, bf16* out, size_t row0,
+                                             int rb, int nrows) {
+  float acc[2][64];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 bo = lds2(prm + M_BO + 128 * n + 8 * j + 2 * ln.t4);
+      acc[n][4 * j] = acc[n][4 * j + 2] = bo.x;
+      acc[n][4 * j + 1] = acc[n][4 * j + 3] = bo.y;
+    }
+#pragma unroll
+  for (int k = 0; k < KSL; ++k)
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const uint32_t st = ring.acquire();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n128k16_bf16(acc[n], desc_sw128(a + k * slice + 32 * kk),
+                              desc_sw128(st + 32 * kk), 1);
+      wgmma_commit();
+      ring.keep1();
+    }
+  ring.drain();
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = rb + ln.r0 + 8 * rr;
+    if (row >= nrows) continue;
+    bf16* o = out + (row0 + row) * DM;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<uint32_t*>(o + 128 * n + 8 * j + 2 * ln.t4) =
+            pack_bf16(acc[n][4 * j + 2 * rr], acc[n][4 * j + 2 * rr + 1]);
+  }
+}
+
+// ---- S <= 32: one persistent launch over 128-row tiles of 128 / S whole
+// sequences (train_short_kernel's walk): head by head the 64 x 96 QKV
+// product from the x buffer, Q into mma A fragments, K and V into shared
+// memory, the attention on mma.sync with the probabilities in registers, the
+// context into shared memory; then the out projection onto bo.
+constexpr int MHA_SHORT_STAGES = 4;
+
+struct MhaShortLayout {
+  uint32_t xs, ctx, kv, ring, prm, mask, bars, total;
+  __host__ __device__ MhaShortLayout() {
+    Carve c;
+    xs = c.take(TileBufs<1>::BYTES);
+    ctx = c.take(KSL * TR * 128);
+    kv = c.take(2 * TR * LDH * 2);
+    ring = c.take(MHA_SHORT_STAGES * STAGE);
+    prm = c.take(M_ALL * 4, 16);
+    mask = c.take(TR * 4, 16);
+    bars = c.take((2 * MHA_SHORT_STAGES + 2) * 8, 8);
+    total = c.off + 1024;
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+    mha_short_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params p,
+                     const __grid_constant__ layer_train::Train t) {
+  const MhaShortLayout L;
+  unsigned char* base = smem_base();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L.bars);
+  Ring ring;
+  ring.init(base + L.ring, bars, MHA_SHORT_STAGES);
+  TileBufs<1> xb;
+  xb.init(base + L.xs, bars + 2 * MHA_SHORT_STAGES);
+  if (threadIdx.x == 0) {
+    init_ring_bars(bars, MHA_SHORT_STAGES);
+    xb.init_bars();
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer: x, each head's QKV weights, Wo
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != CONSUMERS) return;
+    for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+      xb.produce(&maps.x, tile * p.nseq * p.S);
+      for (int h = 0; h < NH; ++h) produce_qkv_head(ring, maps, h);
+      produce_out_ff(ring, maps, 0);  // F = 0: Wo alone
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const Lane ln;
+  float* prm = reinterpret_cast<float*>(base + L.prm);
+  load_mha_params(p, prm, true);
+  float* mask = reinterpret_cast<float*>(base + L.mask);
+  unsigned char* ctxs = base + L.ctx;
+  const uint32_t ctx_a = smem_u32(ctxs) + ln.wg * 64 * 128;
+  bf16* kb = reinterpret_cast<bf16*>(base + L.kv);
+  bf16* vb = kb + TR * LDH;
+  const uint32_t ks = smem_u32(kb), vs = smem_u32(vb);
+  const int q0 = 64 * ln.wg + 16 * ln.w;  // the warp's query rows in the tile
+  const unsigned key_ap = site_key(t.seed, SITE_ATTN_PROB);
+  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+    const int seq0 = tile * p.nseq;
+    const int nrows = min(p.nseq, p.B - seq0) * p.S;
+    const size_t row0 = (size_t)seq0 * p.S;
+    named_barrier(1, CONSUMERS);  // the last tile's readers of the mask are done
+    if (ln.tid < TR) mask[ln.tid] = ln.tid < nrows ? p.mask[row0 + ln.tid] : 0.f;
+    const uint32_t xs_a = xb.acquire() + ln.wg * 64 * 128;
+
+#pragma unroll 1
+    for (int h = 0; h < NH; ++h) {
+      float acc[48];
+      qkv_head_product(ring, xs_a, TR * 128, acc);
+      if (h == NH - 1) xb.release();  // the tile's last product from x is done
+      // Q to A fragments; K and V (+ bias, bf16) to shared memory
+      uint32_t qf[2][4];
+#pragma unroll
+      for (int j = 0; j < 12; ++j) {
+        const int part = j >> 2, c = 8 * (j & 3) + 2 * ln.t4;  // column within the part
+        const float2 b = lds2(prm + M_BQKV + part * DM + h * HEAD_DIM + c);
+        const uint32_t lo = pack_bf16(acc[4 * j] + b.x, acc[4 * j + 1] + b.y);
+        const uint32_t hi = pack_bf16(acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y);
+        if (t.qkv != nullptr) {  // a caller's copy of QKV, row-major
+          const int r = 64 * ln.wg + ln.r0;
+          bf16* dst = t.qkv + (row0 + r) * layer_train::QKV_W + part * DM + h * HEAD_DIM + c;
+          if (r < nrows) *reinterpret_cast<uint32_t*>(dst) = lo;
+          if (r + 8 < nrows) *reinterpret_cast<uint32_t*>(dst + 8 * layer_train::QKV_W) = hi;
+        }
+        if (part == 0) {
+          qf[j >> 1][(j & 1) * 2] = lo;
+          qf[j >> 1][(j & 1) * 2 + 1] = hi;
+        } else {
+          bf16* dst = (part == 1 ? kb : vb) + (64 * ln.wg + ln.r0) * LDH + c;
+          *reinterpret_cast<uint32_t*>(dst) = lo;
+          *reinterpret_cast<uint32_t*>(dst + 8 * LDH) = hi;
+        }
+      }
+      named_barrier(1, CONSUMERS);  // every row's K and V are in
+      const layer_train::AttnDrop drop(nullptr, key_ap, t.thr, t.kp, seq0, p.S, h, nrows,
+                                       q0 + ln.g);
+      float o[4][4];
+      attend_rows<4>(qf, ks, vs, TR, q0, nrows, p.S, p.causal, mask, p.scale, ln.lane, o, drop);
+      store_ctx(ctxs, TR, q0, h, o, ln.lane);
+      named_barrier(1, CONSUMERS);  // every warp is done with K and V
+    }
+    fence_proxy_async();  // the context, as wgmma's A operand (the warpgroup's own rows)
+    named_barrier(2 + ln.wg, 128);
+    if (t.ctx != nullptr)
+      layer_train::save_ctx(t.ctx, ctxs, ln, Rows{row0, seq0, nrows, 64 * ln.wg, p.S});
+    mha_out_rows(ring, prm, ln, ctx_a, TR * 128, p.out, row0, 64 * ln.wg, nrows);
+  }
+}
+
+// the long forms' attention: a block a (tile of 256 / S whole sequences,
+// head), as train_long_attn_kernel, its Q, K and V in shared memory, each
+// 16-row query block's keys split over MHA_SPLIT warps (attend_rows: half
+// the score registers a thread, so two blocks share an SM where that
+// launch's one block holds it; a split over four warps read no faster at
+// 1,024 x 242); the context of the tile's rows for the head to t.ctx
+constexpr int MHA_SPLIT = 2;
+
+__global__ void __launch_bounds__(CONSUMERS, 2)
+    mha_long_attn_kernel(const __grid_constant__ Params p,
+                         const __grid_constant__ layer_train::Train t) {
+  constexpr int GROUPS = CONSUMERS / 32 / MHA_SPLIT;
+  unsigned char* base = smem_base();
+  bf16* qb = reinterpret_cast<bf16*>(base);
+  bf16* kb = qb + LONG_TR * LDH;
+  bf16* vb = kb + LONG_TR * LDH;
+  float* mask = reinterpret_cast<float*>(vb + LONG_TR * LDH);
+  SplitXch<MHA_SPLIT>* xch = reinterpret_cast<SplitXch<MHA_SPLIT>*>(mask + LONG_TR);
+  const uint32_t qs = smem_u32(qb), ks = smem_u32(kb), vs = smem_u32(vb);
+  const int tile = blockIdx.x, h = blockIdx.y;
+  const int seq0 = tile * p.nseq;
+  const int nrows = min(p.nseq, p.B - seq0) * p.S;
+  const size_t row0 = (size_t)seq0 * p.S;
+  const size_t total = (size_t)p.B * p.S;
+  const bf16* qkv = p.qkv + ((size_t)h * total + row0) * 96;
+  // the tile's Q, K and V of head h (zero beyond nrows) and its mask
+  for (int e = threadIdx.x; e < 3 * LONG_TR * 4; e += CONSUMERS) {
+    const int mtx = e / (LONG_TR * 4), r = (e >> 2) % LONG_TR, c = e & 3;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < nrows)
+      v = *reinterpret_cast<const uint4*>(qkv + (size_t)r * 96 + mtx * HEAD_DIM + 8 * c);
+    *reinterpret_cast<uint4*>(qb + mtx * LONG_TR * LDH + r * LDH + 8 * c) = v;
+  }
+  for (int r = threadIdx.x; r < LONG_TR; r += CONSUMERS)
+    mask[r] = r < nrows ? p.mask[row0 + r] : 0.f;
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int group = warp / MHA_SPLIT, part = warp - group * MHA_SPLIT;
+  const unsigned key_ap = site_key(t.seed, SITE_ATTN_PROB);
+#pragma unroll 1
+  for (int blk = group; blk < LONG_TR / 16; blk += GROUPS) {
+    const int q0 = 16 * blk;
+    if (q0 >= nrows) break;  // the group's warps alike
+    // Q as the A fragments of head dims 0-15 and 16-31
+    uint32_t qf[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      ldmatrix_x4<false>(qf[kk], qs + (q0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * (LDH * 2) +
+                                     (16 * kk + 8 * (lane >> 4)) * 2);
+    const layer_train::AttnDrop drop(nullptr, key_ap, t.thr, t.kp, seq0, p.S, h, nrows, q0 + g);
+    float o[4][4];
+    attend_rows<LONG_S / 16 / MHA_SPLIT, layer_train::AttnDrop, MHA_SPLIT>(
+        qf, ks, vs, LONG_TR, q0, nrows, p.S, p.causal, mask, p.scale, lane, o, drop, part,
+        xch + group, 1 + group);
+    if (part != 0) continue;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = q0 + g + 8 * rr;
+      if (r >= nrows) continue;
+      bf16* dst = t.ctx + (row0 + r) * DM + h * HEAD_DIM + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[j][2 * rr], o[j][2 * rr + 1]);
+    }
+  }
+}
+
+// ---- 33 <= S <= 256: three launches. mha_qkv_kernel: the QKV product over
+// 128-row tiles of all B*S rows (x double-buffered), into p.qkv head-major
+// (the attention launch's layout) and/or `save` row-major; then K4's
+// train_long_attn_kernel (a tile of whole sequences and a head a block, the
+// context to t.ctx); then mha_out_kernel: the out projection onto bo over
+// 128-row tiles, the context double-buffered by TMA.
+constexpr int MHA_QKV_STAGES = 4, MHA_OUT_STAGES = 4;
+
+struct MhaQkvLayout {
+  uint32_t xs, stage_out, ring, prm, bars, total;
+  __host__ __device__ MhaQkvLayout() {
+    Carve c;
+    xs = c.take(2 * TileBufs<2>::BYTES);
+    stage_out = c.take(TR * LDQ * 2);
+    ring = c.take(MHA_QKV_STAGES * STAGE);
+    prm = c.take(M_ALL * 4, 16);
+    bars = c.take((2 * MHA_QKV_STAGES + 4) * 8, 8);
+    total = c.off + 1024;
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+    mha_qkv_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params p,
+                   bf16* save) {
+  const MhaQkvLayout L;
+  unsigned char* base = smem_base();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L.bars);
+  Ring ring;
+  ring.init(base + L.ring, bars, MHA_QKV_STAGES);
+  TileBufs<2> xb;
+  xb.init(base + L.xs, bars + 2 * MHA_QKV_STAGES);
+  if (threadIdx.x == 0) {
+    init_ring_bars(bars, MHA_QKV_STAGES);
+    xb.init_bars();
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != CONSUMERS) return;
+    for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+      xb.produce(&maps.x, tile * TR);
+      for (int h = 0; h < NH; ++h) produce_qkv_head(ring, maps, h);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const Lane ln;
+  float* prm = reinterpret_cast<float*>(base + L.prm);
+  load_mha_params(p, prm, false);
+  named_barrier(1, CONSUMERS);
+  bf16* so = reinterpret_cast<bf16*>(base + L.stage_out) + ln.wg * 64 * LDQ;
+  const size_t total = (size_t)p.B * p.S;
+  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+    const size_t row0 = (size_t)tile * TR;
+    const int nrows = (int)min((long long)TR, (long long)(total - row0));
+    const int r_lo = 64 * ln.wg, nmine = max(0, min(64, nrows - r_lo));
+    const uint32_t xs_a = xb.acquire() + ln.wg * 64 * 128;
+#pragma unroll 1
+    for (int h = 0; h < NH; ++h) {
+      float acc[48];
+      qkv_head_product(ring, xs_a, TR * 128, acc);
+      if (h == NH - 1) xb.release();
+      store_head_qkv(acc, prm + M_BQKV, ln, so, h, row0, r_lo, nmine, total, p.qkv, save);
+    }
+  }
+}
+
+struct MhaOutLayout {
+  uint32_t ctx, ring, prm, bars, total;
+  __host__ __device__ MhaOutLayout() {
+    Carve c;
+    ctx = c.take(2 * TileBufs<2>::BYTES);
+    ring = c.take(MHA_OUT_STAGES * STAGE);
+    prm = c.take(M_ALL * 4, 16);
+    bars = c.take((2 * MHA_OUT_STAGES + 4) * 8, 8);
+    total = c.off + 1024;
+  }
+};
+
+// maps.x: the context [B*S][D]
+__global__ void __launch_bounds__(THREADS, 1)
+    mha_out_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params p) {
+  const MhaOutLayout L;
+  unsigned char* base = smem_base();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L.bars);
+  Ring ring;
+  ring.init(base + L.ring, bars, MHA_OUT_STAGES);
+  TileBufs<2> cb;
+  cb.init(base + L.ctx, bars + 2 * MHA_OUT_STAGES);
+  if (threadIdx.x == 0) {
+    init_ring_bars(bars, MHA_OUT_STAGES);
+    cb.init_bars();
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != CONSUMERS) return;
+    for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+      cb.produce(&maps.x, tile * TR);
+      produce_out_ff(ring, maps, 0);  // Wo alone
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const Lane ln;
+  float* prm = reinterpret_cast<float*>(base + L.prm);
+  load_mha_params(p, prm, true);
+  named_barrier(1, CONSUMERS);
+  const size_t total = (size_t)p.B * p.S;
+  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+    const size_t row0 = (size_t)tile * TR;
+    const int nrows = (int)min((long long)TR, (long long)(total - row0));
+    const uint32_t a = cb.acquire() + ln.wg * 64 * 128;
+    mha_out_rows(ring, prm, ln, a, TR * 128, p.out, row0, 64 * ln.wg, nrows);
+    cb.release();
+  }
+}
+
+// the tensor maps of Wqkv (boxes {64, 32}), Wo ({64, 128}) and of the rows
+// the first product reads, x or the context ({64, 128}); w1 and w2 unused
+inline int make_mha_maps(Maps* m, const void* wqkv, const void* wo, const void* rows_src,
+                         long long rows) {
+  *m = Maps{};
+  int rc = bind_device_of(wqkv);
+  if (rc == 0) rc = make_tma_2d(&m->qkv, wqkv, false, DM, 3 * DM, DM * 2, 64, 32);
+  if (rc == 0) rc = make_tma_2d(&m->o, wo, false, DM, DM, DM * 2, 64, 128);
+  if (rc == 0) rc = make_tma_2d(&m->x, rows_src, false, DM, (uint64_t)rows, DM * 2, 64, TR);
+  return rc;
+}
+
+// the QKV launch alone: into qkv head-major ([H][B*S][96]) and/or save
+// row-major ([B*S][3D]), either may be null
+int launch_mha_qkv(Params p, const void* wqkv, const void* wo, bf16* save, cudaStream_t stream) {
+  const long long rows = (long long)p.B * p.S;
+  Maps maps;
+  int rc = make_mha_maps(&maps, wqkv, wo, p.x, rows);
+  if (rc) return rc;
+  p.ntiles = (int)((rows + TR - 1) / TR);
+  const uint32_t smem = MhaQkvLayout().total;
+  if ((rc = prepare(mha_qkv_kernel, smem))) return rc;
+  mha_qkv_kernel<<<std::min(p.ntiles, sm_count()), THREADS, smem, stream>>>(maps, p, save);
+  return (int)cudaGetLastError();
+}
+
+// K10 / K11's forward: S <= 32 one launch, else three (p.qkv the head-major
+// scratch, t.ctx the context between the last two)
+int launch_mha(Params p, const layer_train::Train& t, const void* wqkv, const void* wo,
+               cudaStream_t stream) {
+  const long long rows = (long long)p.B * p.S;
+  int rc;
+  if (p.S <= 32) {
+    p.nseq = TR / p.S;
+    p.ntiles = (p.B + p.nseq - 1) / p.nseq;
+    Maps maps;
+    if ((rc = make_mha_maps(&maps, wqkv, wo, p.x, rows))) return rc;
+    const uint32_t smem = MhaShortLayout().total;
+    if ((rc = prepare(mha_short_kernel, smem))) return rc;
+    mha_short_kernel<<<std::min(p.ntiles, sm_count()), THREADS, smem, stream>>>(maps, p, t);
+    return (int)cudaGetLastError();
+  }
+  if ((rc = launch_mha_qkv(p, wqkv, wo, t.qkv, stream))) return rc;
+  Params pa = p;
+  pa.nseq = LONG_TR / p.S;
+  const int atiles = (p.B + pa.nseq - 1) / pa.nseq;
+  const uint32_t smem2 = 3 * LONG_TR * LDH * 2 + LONG_TR * 4 +
+                         (CONSUMERS / 32 / MHA_SPLIT) * sizeof(SplitXch<MHA_SPLIT>) + 1024;
+  if ((rc = prepare(mha_long_attn_kernel, smem2))) return rc;
+  mha_long_attn_kernel<<<dim3(atiles, NH), CONSUMERS, smem2, stream>>>(pa, t);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  Maps out_maps;
+  if ((rc = make_mha_maps(&out_maps, wqkv, wo, t.ctx, rows))) return rc;
+  p.ntiles = (int)((rows + TR - 1) / TR);
+  const uint32_t smem3 = MhaOutLayout().total;
+  if ((rc = prepare(mha_out_kernel, smem3))) return rc;
+  mha_out_kernel<<<std::min(p.ntiles, sm_count()), THREADS, smem3, stream>>>(out_maps, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace layer_infer
 
@@ -514,4 +1004,37 @@ extern "C" int dsvg_layer_long(const void* x, const void* seq_bias, const void* 
       layer_infer::make_params(x, seq_bias, ln1, bqkv, bo, ln2, b1, b2, mask, out, B, S, F,
                                causal, scale),
       wqkv, wo, w1, w2, qkv, (cudaStream_t)stream);
+}
+
+// K10 and K11's forward in bfloat16 at D = 256, 8 heads, 1 <= S <= 256
+// (ops/attention.py): x [B*S][D], wqkv [3D][D], bqkv [3D], wo [D][D], bo
+// [D], mask [B][S] (float32, additive), out [B*S][D]; thr = floor(rate
+// 2^24) (0: no dropout, K10), kp = 1 / (1 - rate). S <= 32 is one launch;
+// 33 <= S <= 256 three, through qkv [H][B*S][96] (scratch) and ctx [B*S][D]
+// (the context). qkv_save [B*S][3D] (row-major) and, for S <= 32, ctx
+// receive the forward's QKV and context if not null (a test's view).
+extern "C" int dsvg_mha_bf16(const void* x, const void* wqkv, const void* bqkv, const void* wo,
+                             const void* bo, const void* mask, void* out, void* qkv, void* ctx,
+                             void* qkv_save, int B, int S, int causal, int seed, int thr,
+                             float kp, float scale, void* stream) {
+  if (B < 1 || S < 1 || S > layer_infer::LONG_S ||
+      (S > 32 && (qkv == nullptr || ctx == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  layer_infer::Params p = layer_infer::make_params(x, nullptr, nullptr, bqkv, bo, nullptr, nullptr,
+                                                   nullptr, mask, out, B, S, 0, causal, scale);
+  p.qkv = (bf16*)qkv;
+  const layer_train::Train t = {(bf16*)qkv_save, nullptr, (bf16*)ctx, nullptr, nullptr, seed,
+                                (unsigned)thr, kp};
+  return layer_infer::launch_mha(p, t, wqkv, wo, (cudaStream_t)stream);
+}
+
+// The QKV launch of dsvg_mha_bf16 alone, row-major into qkv [B*S][3D]: the
+// forward's QKV to the bit (K11's backward recomputes it so).
+extern "C" int dsvg_mha_qkv_bf16(const void* x, const void* wqkv, const void* bqkv, void* qkv,
+                                 int B, int S, void* stream) {
+  if (B < 1 || S < 1 || S > layer_infer::LONG_S) return (int)cudaErrorInvalidValue;
+  const layer_infer::Params p = layer_infer::make_params(
+      x, nullptr, nullptr, bqkv, bqkv, nullptr, nullptr, nullptr, nullptr, nullptr, B, S, 0, 0,
+      0.f);
+  return layer_infer::launch_mha_qkv(p, wqkv, wqkv, (bf16*)qkv, (cudaStream_t)stream);
 }

@@ -30,8 +30,7 @@ under ``fused_layer_train.float32_launches`` / ``.float32_backward_launches``
 (their times at E2 above the stack gate, B=128, against the older form's:
 PERF.md §6). Narrower bfloat16 widths (counted apart:
 ``fused_layer_train.narrow_launches``, ``.narrow_backward_launches``),
-float32 at other widths and the bfloat16 recompute mode's backward run the
-older ``wmma`` form below
+and float32 at other widths run the older ``wmma`` form below
 (``csrc/layer_fwd.cuh``, ``csrc/layer_bwd.cuh``), which K7 shares.
 
 - *Modes.* ``save_residuals=True`` (the saved mode, what the model runs by
@@ -42,17 +41,18 @@ older ``wmma`` form below
   bytes a row in bfloat16 at the flagship's widths. ``save_residuals=False``
   (the recompute mode, the op's default as in the JAX package): the forward
   writes ``out`` alone, to the bit the saved mode's (both run the same
-  kernel), and keeps nothing but its inputs; the backward first runs the
-  older form's forward tile again into a workspace of this layer alone
-  (QKV, the context, x1 and the FF hidden in float32; no probabilities),
-  freed when the backward returns, and recomputes each (sequence, head)'s
-  probabilities in float32 from Q and K. In bfloat16 that tile sums in
-  another order than the ``wgmma`` forward, so what it recomputes differs
-  from that forward's intermediates in their last bits.
-  The probabilities enter the softmax backward, and the hidden the ReLU gate
-  and the dropped hidden, in float32, as in the Pallas recompute backward;
-  the saved mode reads both rounded to the activation type, so in bfloat16
-  the two modes' gradients differ by that rounding.
+  kernel), and keeps nothing but its inputs. Its backward, where the
+  forward runs the Hopper forms (the bfloat16 short form's ``wgmma``
+  kernels, and the long form's launches; see *Long form*), runs the
+  saved-mode forward again into a workspace of this layer alone, freed when
+  the backward returns, then the saved backward: it recomputes the
+  forward's intermediates to the bit, and its gradients are the saved
+  mode's. At the other widths it runs the older form's forward tile again
+  into a workspace (QKV, the context, x1 and the FF hidden in float32; no
+  probabilities) and recomputes each (sequence, head)'s probabilities in
+  float32 from Q and K, as the Pallas recompute backward does; the saved
+  mode reads both rounded to the activation type, so in bfloat16 the two
+  modes' gradients differ by that rounding there.
 - *Dropout masks* are a hash of (seed, site, row, column), see
   ``ops/dropout.py``: regenerated in the backward, independent of tiling,
   identical in the plain version.
@@ -345,6 +345,19 @@ def _saved_tensors(x, n_heads, f, zero_probs):
             torch.empty((rows, f), dtype=dt, device=dev))
 
 
+def _forward_launch(name, x, bias, used, mask, out, ptrs, n_heads, causal, seed, thr, kp):
+    """One of the forward's C entry points (``dsvg_{name}``) on checked
+    operands: ``used`` the ten weights, ``ptrs`` the five saved tensors'
+    pointers (or None)."""
+    b, s, d = x.shape
+    fn = _build.kernel_function(f"dsvg_{name}", _FWD_ARGTYPES)
+    rc = fn(x.data_ptr(), _ptr(bias), *[w.data_ptr() for w in used], mask.data_ptr(),
+            out.data_ptr(), *ptrs, b, s, d, used[6].shape[0], n_heads, int(causal),
+            int(x.dtype == torch.float32), int(seed), thr, kp, HEAD_DIM ** -0.5,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(rc, name)
+
+
 def _backward_outputs(x, f, small_rows, small_width):
     """The first backward launches' outputs: dx, dseq_bias, the rounded
     operands of the four weight products (16-row padded) and the per-block
@@ -585,12 +598,7 @@ class _FusedLayerTrain(torch.autograd.Function):
         if b > 0:
             name = ("layer_long_train_fwd" if long_form else "layer_train_fwd") \
                 + ("" if save else "_recompute")
-            fn = _build.kernel_function(f"dsvg_{name}", _FWD_ARGTYPES)
-            rc = fn(x.data_ptr(), _ptr(bias), *[w.data_ptr() for w in used], mask.data_ptr(),
-                    out.data_ptr(), *ptrs, b, s, d, f, n_heads, int(causal),
-                    int(dt == torch.float32), int(seed), thr, kp, HEAD_DIM ** -0.5,
-                    torch.cuda.current_stream(dev).cuda_stream)
-            _build.check_launch(rc, name)
+            _forward_launch(name, x, bias, used, mask, out, ptrs, n_heads, causal, seed, thr, kp)
             if long_form or (dt == torch.bfloat16 and not hopper):
                 counter.narrow_launches += 1
             elif save:
@@ -628,6 +636,18 @@ class _FusedLayerTrain(torch.autograd.Function):
             x, ln1, wqkv, _, wo, _, ln2, w1, _, w2, _, qkv_s, p_s, ctx_s, x1_s, h_s = \
                 ctx.saved_tensors
             extra = ()
+        elif hopper:
+            # the wgmma form's recompute mode: the saved-mode forward again
+            # into this layer's workspace (freed on return), then the saved
+            # backward; what it recomputes is the forward's to the bit
+            x, *used, mask, bias = ctx.saved_tensors
+            ln1, wqkv, _, wo, _, ln2, w1, _, w2, _ = used
+            saved = _saved_tensors(x, n_heads, w1.shape[0], bool(causal))
+            if x.shape[0] > 0:
+                _forward_launch("layer_train_fwd", x, bias, used, mask, torch.empty_like(x),
+                                [t.data_ptr() for t in saved], n_heads, causal, seed, thr, kp)
+            qkv_s, p_s, ctx_s, x1_s, h_s = saved
+            extra = ()
         else:
             x, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, bias = ctx.saved_tensors
             # this layer's workspace, written by the backward's first launch
@@ -656,7 +676,7 @@ class _FusedLayerTrain(torch.autograd.Function):
             rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, f, n_heads, causal, is_f32,
                     seed, thr, kp, HEAD_DIM ** -0.5, stream)
             _build.check_launch(rc, f"layer_long_train_bwd{mode}")
-        elif save and hopper:
+        elif hopper:
             # the wgmma form: three row-local launches, one row of LayerNorm
             # partial sums per persistent block; dx1, dctx and dxn1 pass
             # through scratch tensors freed on return
@@ -693,7 +713,7 @@ class _FusedLayerTrain(torch.autograd.Function):
             counter.backward_launches += 1
         else:
             counter.recompute_backward_launches += 1
-        if save and hopper:
+        if hopper:
             dws = _weight_grads_hopper(ctx_s, outs, d, rows, stream)
         else:
             dws = _weight_grads(ctx_s, outs, d, f, is_f32, stream)

@@ -13,6 +13,7 @@
     python3 scripts/profile_port_slice.py --k9 [--tree DIR] [--tag T]  # K9 alone, N=1024
     python3 scripts/profile_port_slice.py --greedy-wall [--tree DIR] [--tag T]  # greedy_sample's wall
     python3 scripts/profile_port_slice.py --embedding [--tree DIR] [--tag T]  # K1, K6, walls
+    python3 scripts/profile_port_slice.py --mha [--tree DIR] [--tag T]  # K10, K11's forward
 
 Loads the trained flagship checkpoint into the port (bfloat16 compute,
 float32 masters). Without ``--train`` it runs greedy one-shot encode+decode
@@ -104,6 +105,18 @@ table) and the float32 flagship's B=60 x 32 (float32 ``dy``), each ``dy``
 from a generator of its own; and the flagship's greedy one-shot inference
 (``one_shot_sample``, N=1024) in both types, median of 20 after 3 between
 CUDA events, as chip_smoke times it. Into ``embedding_rows[_T].json``.
+``--mha`` times the attention block alone on the port that ``--tree`` names:
+K10 (``fused_mha``) at the flagship's E1 (8,192 x 32) and Sketchformer's
+encoder (1,024 x 242), and K11's forward (``fused_mha_train`` under
+``no_grad``, dropout 0.1) at Sketchformer's encoder at B=60 (60 x 242) and
+the flagship step's E1 (1,024 x 32), each in bfloat16 and float32, on the
+trained flagship's E1 layer 0 attention weights and the synthetic batches'
+key padding, as ``chip_smoke.py``'s attention phase builds them: CUDA events
+(mean of 20 after 3), device time under ``torch.profiler`` (every kernel of
+the call, and by kernel name: the QKV, attention and out-projection
+launches), the bound (``chip_smoke.py``'s), and ``F.linear`` -> SDPA ->
+``F.linear`` (float32 in TF32 and in full float32); into
+``mha_rows[_T].json``.
 Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
@@ -151,13 +164,14 @@ def main() -> int:
                         help="time greedy_sample's wall at N=1024, both types, unprofiled")
     parser.add_argument("--embedding", action="store_true",
                         help="time K1, K6 and the inference walls (no model profile)")
+    parser.add_argument("--mha", action="store_true",
+                        help="time K10 and K11's forward alone, both types (no model)")
     parser.add_argument("--tree", default="",
-                        help="with --k7, --k9, --greedy-wall or --embedding: the repository whose "
-                             "port is timed "
-                             "(default this one)")
+                        help="with --k7, --k9, --greedy-wall, --embedding or --mha: the "
+                             "repository whose port is timed (default this one)")
     parser.add_argument("--tag", default="",
-                        help="suffix of --rows', --k4's, --k7's, --k9's or "
-                             "--greedy-wall's output file")
+                        help="suffix of --rows', --k4's, --k7's, --k9's, --greedy-wall's, "
+                             "--embedding's or --mha's output file")
     opts = parser.parse_args()
     if opts.tree:
         sys.path.insert(0, os.path.abspath(opts.tree))
@@ -189,6 +203,8 @@ def main() -> int:
         return greedy_wall(card, opts.tag)
     if opts.embedding:
         return embedding_rows(card, opts.tag)
+    if opts.mha:
+        return mha_rows(card, opts.tag)
     cfg = hierarchical_ordered() if opts.float32 else gpu_fast(hierarchical_ordered())
     iters = ITERS
     if opts.autoregressive:
@@ -706,6 +722,91 @@ def k9_rows(card: str, tag: str) -> int:
            "ms": rows}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", f"k9_rows{'_' + tag if tag else ''}.json"),
+              "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
+def mha_rows(card: str, tag: str) -> int:
+    """``--mha``: K10 and K11's forward at chip_smoke's shapes, both types,
+    as one JSON object."""
+    import torch.nn.functional as F
+
+    from chip_smoke import B_RECIPE, CHECKPOINT as CKPT, PEAK_BF16, PEAK_TF32, bound, matmul_tf32
+    from deepsvg_tpu_torch.configs.sketchformer import make_model_config
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import hierarchical_ordered, load_params
+    from deepsvg_tpu_torch.models.layers import key_padding_to_additive
+    from deepsvg_tpu_torch.models.weights import attention_operands
+    from deepsvg_tpu_torch.ops import attention as attn_ops
+    from deepsvg_tpu_torch.ops import attention_vjp
+    from deepsvg_tpu_torch.svgtensor import masks as M
+    dev = torch.device("cuda")
+    layer0 = load_params(CKPT)["encoder"]["encoder"]["layer_0"]
+    w16 = attention_operands(layer0["wqkv"], layer0["bqkv"], layer0["wo"], layer0["bo"], dev,
+                             torch.bfloat16)
+    d = w16[0].shape[1]
+    heads = d // 32
+    cfg, sf_cfg = hierarchical_ordered(), make_model_config()
+    fb = generate_batch(np.random.default_rng(0), N, cfg.max_num_groups, cfg.max_seq_len)
+    f_cmd = torch.from_numpy(fb["commands"]).to(dev).reshape(-1, fb["commands"].shape[-1])
+    sb = generate_batch(np.random.default_rng(0), N, sf_cfg.max_num_groups, sf_cfg.max_seq_len)
+    s_cmd = torch.from_numpy(sb["commands_grouped"]).to(dev)[:, 0]
+    mask_of = lambda c: key_padding_to_additive(M.key_padding_mask(c))  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cases = {"K10 8192x32": (f_cmd, 0.0), "K10 1024x242": (s_cmd, 0.0),
+             "K11 fwd 60x242": (s_cmd[:B_RECIPE], 0.1),
+             "K11 fwd 1024x32": (f_cmd[:B_TRAIN * cfg.max_num_groups], 0.1)}
+
+    def lib(x, mask, w, rate):
+        b, s, _ = x.shape
+        qkv = F.linear(x, w[0], w[1]).reshape(b, s, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+        ctx = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
+                                             attn_mask=mask[:, None, None, :].to(x.dtype),
+                                             dropout_p=rate)
+        return F.linear(ctx.transpose(1, 2).reshape(b, s, d), w[2], w[3])
+
+    rows: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        w = [t.to(dtype) for t in w16]
+        for what, (cmd, rate) in cases.items():
+            mask = mask_of(cmd)
+            b, s = cmd.shape
+            x = torch.randn(b, s, d, device=dev, generator=gen).to(dtype)
+            if rate:
+                def run():
+                    with torch.no_grad():
+                        return attention_vjp.fused_mha_train(x, *w, mask, 2024, heads, False,
+                                                             rate)
+            else:
+                def run():
+                    return attn_ops.fused_mha(x, *w, mask, heads)
+            ops = 2.0 * b * s * d * 4 * d + 4.0 * b * s * s * d
+            es = x.element_size()
+            n_bytes = 2 * x.numel() * es + sum(t.numel() for t in w) * es + b * s * 4
+            dev_ms, kern = device_ms(run)
+            name = f"{what} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            row = {"ms": events_ms(run), "device_ms": dev_ms, "kernels_ms": kern,
+                   "bound_ms": bound(n_bytes, ops,
+                                     PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32)[0]}
+            with torch.no_grad():
+                if dtype == torch.bfloat16:
+                    row["library_ms"] = events_ms(lambda: lib(x, mask, w, rate))
+                else:
+                    with matmul_tf32(True):
+                        row["library_tf32_ms"] = events_ms(lambda: lib(x, mask, w, rate))
+                    with matmul_tf32(False):
+                        row["library_ms"] = events_ms(lambda: lib(x, mask, w, rate))
+            rows[name] = row
+            print(f"{name}: " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in row.items()), flush=True)
+            del x
+    out = {"card": card, "root": os.path.dirname(os.path.dirname(attn_ops.__file__)),
+           "ms": rows}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"mha_rows{'_' + tag if tag else ''}.json"),
               "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps(out))

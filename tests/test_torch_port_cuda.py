@@ -25,6 +25,7 @@ from deepsvg_tpu_torch.ops import embedding as emb_ops
 from deepsvg_tpu_torch.ops import head as head_ops
 from deepsvg_tpu_torch.ops import layer as layer_ops
 from deepsvg_tpu_torch.ops import layer_vjp
+from deepsvg_tpu_torch.ops.dropout import drop_threshold, keep_scale
 
 pytestmark = pytest.mark.cuda
 
@@ -1301,52 +1302,145 @@ def _hold_output(out, ref, dtype):
     assert _rel_rms(out, ref) <= TOL_RMS, _rel_rms(out, ref)
 
 
+MHA_S = [1, 8, 17, 32, 33, 241, 242, 256]   # both bf16 forms' edges and the paths' S
+
+
+def _mha_counts(fn):
+    return fn.launches, fn.float32_launches, fn.narrow_launches
+
+
 @pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("s", [8, 32, 33, 241, 242, 256])
+@pytest.mark.parametrize("s", MHA_S)
 def test_mha_kernel_matches_plain(cuda, s, causal, dtype):
-    """K10 against ``mha_reference`` with key padding; sequence 0 has every
-    key masked and gets zero probabilities (its output is ``bo``)."""
+    """K10 against ``mha_reference`` with key padding, B=5 (no multiple of
+    the short form's 128 / S sequences a tile, nor of the long forms'); sequence 0
+    has every key masked and gets zero probabilities (its output is ``bo``).
+    At D=256 the Hopper forms run (counted under ``launches``, float32 also
+    under ``float32_launches``, none under ``narrow_launches``); a rerun
+    is equal to the bit."""
     rng = np.random.default_rng(s + 2 * causal)
     x, w, mask = _mha_inputs(rng, cuda, dtype, 5, s)
-    before = attn_ops.fused_mha.launches
+    before = _mha_counts(attn_ops.fused_mha)
     out = attn_ops.fused_mha(x, *w, mask, H, causal)
-    assert attn_ops.fused_mha.launches == before + 1
+    f32 = dtype == torch.float32
+    assert _mha_counts(attn_ops.fused_mha) == (before[0] + 1, before[1] + f32, before[2])
     ref = attn_ops.mha_reference(x, *w, mask, H, causal)
     print(f"K10 {dtype} S={s} causal={causal}: rel rms {_rel_rms(out, ref):.3g}")
     _hold_output(out, ref, dtype)
     assert torch.equal(out[0], w[3].expand(s, D))
+    assert torch.equal(out, attn_ops.fused_mha(x, *w, mask, H, causal))
 
 
 @pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("s", [32, 241, 242])
-def test_mha_train_kernel_matches_plain(cuda, s, rate, dtype):
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("s", MHA_S)
+def test_mha_train_kernel_matches_plain(cuda, s, causal, rate, dtype):
     """K11 forward and backward against the plain version under autograd
-    with the same hash masks (S=241 causal), elementwise with dropout on;
-    reruns bit-equal."""
-    causal = s == 241
-    rng = np.random.default_rng(s + int(rate * 10))
+    with the same hash masks, elementwise with dropout on, B=3 with a fully
+    masked sequence; reruns bit-equal. The forward runs K10's Hopper forms
+    with dropout."""
+    rng = np.random.default_rng(s + int(rate * 10) + 1000 * causal)
     x, w, mask = _mha_inputs(rng, cuda, dtype, 3, s)
     leaves = [t.requires_grad_() for t in (x, *w)]
     g = _bf16(rng, cuda, 3, s, D).to(dtype)
     seed = 4321
-    names = ("launches", "backward_launches")
-    before = _counts(attention_vjp.fused_mha_train, *names)
-    out = attention_vjp.fused_mha_train(x, *w, mask, seed, H, causal, rate)
+    fn = attention_vjp.fused_mha_train
+    before = (*_mha_counts(fn), fn.backward_launches)
+    out = fn(x, *w, mask, seed, H, causal, rate)
     grads = torch.autograd.grad(out, leaves, g)
-    assert _counts(attention_vjp.fused_mha_train, *names) == (before[0] + 1, before[1] + 1)
+    f32 = dtype == torch.float32
+    assert (*_mha_counts(fn), fn.backward_launches) == (before[0] + 1, before[1] + f32,
+                                                        before[2], before[3] + 1)
     ref = attn_ops.mha_reference(x, *w, mask, H, causal, rate, seed)
     ref_grads = torch.autograd.grad(ref, leaves, g)
-    print(f"K11 {dtype} S={s} rate={rate}: fwd rel rms {_rel_rms(out, ref):.3g}")
+    print(f"K11 {dtype} S={s} causal={causal} rate={rate}: fwd rel rms {_rel_rms(out, ref):.3g}")
     _hold_output(out, ref, dtype)
+    assert torch.equal(out[0], w[3].expand(s, D))
     for name, got, want in zip(("x", "wqkv", "bqkv", "wo", "bo"), grads, ref_grads):
         print(f"  d{name}: rel rms {_rel_rms(got, want):.3g}")
         assert got.dtype == dtype and torch.isfinite(got).all(), name
         assert _rel_rms(got, want) <= MHA_GRAD_RMS[dtype], name
-    out2 = attention_vjp.fused_mha_train(x, *w, mask, seed, H, causal, rate)
+    out2 = fn(x, *w, mask, seed, H, causal, rate)
     again = torch.autograd.grad(out2, leaves, g)
     assert torch.equal(out, out2) and all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("s,causal,rate", [(8, False, 0.1), (32, False, 0.1), (33, True, 0.0),
+                                           (241, True, 0.1), (242, False, 0.1)])
+def test_mha_backward_recomputes_the_forwards_qkv(cuda, dtype, s, causal, rate):
+    """K11's backward at D=256 recomputes QKV with the Hopper forms' own QKV
+    launch: equal to the bit to the QKV the forward used. Its probabilities
+    and context are recomputed by the first port's backward, which sums in
+    another order: the differing context elements are printed, not held."""
+    rng = np.random.default_rng(s)
+    x, w, mask = _mha_inputs(rng, cuda, dtype, 6, s)
+    g = _bf16(rng, cuda, 6, s, D).to(dtype)
+    form = attn_ops.check_mha_inputs(x, *w, mask, H)
+    thr = drop_threshold(rate) if rate else 0
+    kp = keep_scale(rate) if rate else 1.0
+    fwd, bwd = {}, {}
+    attn_ops.launch_forward(x, *w, mask, H, causal, 11, thr, kp, parts=fwd)
+    attention_vjp.launch_backward(x, g, *w[:3], mask, H, int(causal), 11, thr, kp, form,
+                                  parts=bwd)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd["qkv"], bwd["qkv"])
+    differ = int((fwd["ctx"] != bwd["ctx"]).sum())
+    print(f"{dtype} S={s}: recomputed context differs from the forward's in {differ} of "
+          f"{fwd['ctx'].numel()} elements; largest "
+          f"{(fwd['ctx'].float() - bwd['ctx'].float()).abs().max().item():.3g}")
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+def test_mha_narrow_width_takes_the_first_kernels(cuda, dtype):
+    """D=128 (4 heads of 32) runs the first port's kernels, counted under
+    ``narrow_launches`` in both ops, and holds against the plain version."""
+    rng = np.random.default_rng(128)
+    d = 128
+    x = _bf16(rng, cuda, 3, 40, d).to(dtype)
+    w = [t.to(dtype) for t in (_bf16(rng, cuda, 3 * d, d, scale=d ** -0.5),
+                               _bf16(rng, cuda, 3 * d, scale=0.1),
+                               _bf16(rng, cuda, d, d, scale=d ** -0.5),
+                               _bf16(rng, cuda, d, scale=0.1))]
+    mask = _key_mask(rng, cuda, 3, 40)
+    before = _mha_counts(attn_ops.fused_mha)
+    out = attn_ops.fused_mha(x, *w, mask, 4)
+    assert _mha_counts(attn_ops.fused_mha) == (before[0] + 1, before[1], before[2] + 1)
+    _hold_output(out, attn_ops.mha_reference(x, *w, mask, 4), dtype)
+    fn = attention_vjp.fused_mha_train
+    leaves = [t.requires_grad_() for t in (x, *w)]
+    g = _bf16(rng, cuda, 3, 40, d).to(dtype)
+    before = _mha_counts(fn)
+    out = fn(x, *w, mask, 5, 4, False, 0.1)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert _mha_counts(fn) == (before[0] + 1, before[1], before[2] + 1)
+    ref = attn_ops.mha_reference(x, *w, mask, 4, False, 0.1, 5)
+    _hold_output(out, ref, dtype)
+    for got, want in zip(grads, torch.autograd.grad(ref, leaves, g)):
+        assert _rel_rms(got, want) <= MHA_GRAD_RMS[dtype]
+
+
+def test_mha_kernels_are_tensor_core_kernels(cuda):
+    """K10 and K11's forward at D=256 multiply on the tensor cores: their
+    product launches (the bf16 one-launch form, and the QKV and out
+    projection launches in both types) with warpgroup instructions, HGMMA;
+    the attention inside the one-launch form, the bf16 long form's attention
+    launch and K4's float32 attention launches (which the float32 form
+    runs) with mma.sync, HMMA."""
+    products = {
+        "bfloat16": _sass_counts(r"layer_infer.*\dmha_(short|qkv|out)_kernel", "HGMMA"),
+        "float32": _sass_counts(r"layer_f32.*\dmha_(qkv|out)_kernel", "HGMMA")}
+    attention = {
+        "bfloat16 short": _sass_counts(r"layer_infer.*\dmha_short_kernel", "HMMA"),
+        "bfloat16 long": _sass_counts(r"layer_infer.*\dmha_long_attn_kernel", "HMMA"),
+        "float32": _sass_counts(r"layer_f32.*train_attn_kernelILi\d+ELb0", "HMMA")}
+    print("HGMMA:", products, "HMMA:", attention)
+    for what, n in (("bfloat16", 3), ("float32", 2)):
+        assert len(products[what]) == n and all(c > 0 for c in products[what].values()), what
+    for what, n in (("bfloat16 short", 1), ("bfloat16 long", 1), ("float32", 2)):
+        assert len(attention[what]) == n and all(c > 0 for c in attention[what].values()), what
 
 
 def test_mha_kernels_refuse_what_they_do_not_take(cuda):
