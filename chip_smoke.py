@@ -131,7 +131,8 @@ the model's width with the trained E1 layer 0 weights, in bfloat16 and in
 float32, against their plain versions (K11 elementwise with dropout on,
 bit-equal from run to run) and timed beside ``F.linear`` ->
 ``F.scaled_dot_product_attention`` -> ``F.linear`` (float32 also in TF32);
-one D=128 case on the first port's kernels.
+one D=128 case, K10 and K11 forward and backward, on the first port's
+kernels.
 
 *K4's recompute mode* (:func:`recompute_phase`; ``save_residuals=False``,
 the JAX op's default): its forward and backward, short and long form,
@@ -2856,15 +2857,21 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
     at the flagship step's E1 (B=128: 1,024 x 32) and at Sketchformer's
     encoder (60 x 242) and causal decoder (60 x 241), dropout 0 and 0.1. Each
     against its plain version (K11 forward elementwise with dropout on, and
-    its five gradients), K11 bit-equal from run to run, each op counted once,
-    and timed beside its bound, its plain version and F.linear ->
+    its five gradients against autograd of the plain version and against the
+    plain backward ``mha_backward_reference``), K11 bit-equal from run to
+    run, each op counted once (K11's backward under ``mha_train_bwd``), and
+    timed beside its bound, its plain version and F.linear ->
     F.scaled_dot_product_attention -> F.linear (under autograd with
-    ``dropout_p`` for K11). Then the float32 forms (TF32 products): K10 at
-    both shapes and K11 at 60 x 242 and 1,024 x 32 (rate 0.1), the same
-    checks, the library call in TF32 and in full float32; one D=128 case (4
-    heads, seeded weights) through the first port's kernels, counted under
-    ``narrow_launches``. (``scripts/profile_port_slice.py --mha`` gives the
-    device time of each launch.) Returns the launches per call of each
+    ``dropout_p`` for K11; the backward as forward and backward less the
+    forward, at 60 x 242 and 1,024 x 32). Then the float32 forms (TF32
+    products): K10 at both shapes and K11 at 60 x 242 and 1,024 x 32 (rate
+    0.1), the same checks, the library call in TF32 and in full float32
+    (K11's backward under ``mha_train_bwd_f32``); one D=128 case (4
+    heads, seeded weights) through the first port's kernels, K10 and K11
+    (rate 0.1, forward and backward, its gradients against both
+    yardsticks), counted under ``narrow_launches`` and
+    ``narrow_backward_launches``. (``scripts/profile_port_slice.py --mha``
+    gives the device time of each launch.) Returns the launches per call of each
     op."""
     import torch.nn.functional as F
 
@@ -3005,7 +3012,36 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
     out["narrow_d128"] = compare_elementwise(
         f"K10 D=128, 4 heads ({x.shape[0]} x {x.shape[1]}), first port's kernels", got,
         attn_ops.mha_reference(x, *wn, mask, dn // 32), TOL_LAYER_RMS)
-    del got, x, wn
+    # K11 there too (rate 0.1): the first port's forward and backward
+    # kernels, the five gradients against autograd of the plain version and
+    # against the plain backward
+    leaves = [t.clone().requires_grad_() for t in (x, *wn)]
+    g = torch.randn(x.shape, device=dev, generator=gen).to(bf16)
+    call = (*leaves, mask, 2024, dn // 32, False, DROPOUT)
+    reset_counts()
+    got = attention_vjp.fused_mha_train(*call)
+    grads = torch.autograd.grad(got, leaves, g)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == dict.fromkeys(counts, 0) | {"mha_train_narrow_fwd": 1,
+                                                "mha_train_narrow_bwd": 1},
+          f"K11 D=128 launches {counts}")
+    want = attn_ops.mha_reference(*leaves, mask, dn // 32, False, DROPOUT, 2024)
+    case = compare_elementwise(
+        f"K11 D=128, 4 heads ({x.shape[0]} x {x.shape[1]}) rate {DROPOUT}, first port's kernels",
+        got, want, TOL_LAYER_RMS)
+    grads_b = attention_vjp.mha_backward_reference(
+        x, g, *wn[:3], mask, dn // 32, False, DROPOUT, 2024)
+    case["grad_rms"] = {n: rel_rms(a, c) for n, a, c in zip(
+        ("x", "wqkv", "bqkv", "wo", "bo"), grads, torch.autograd.grad(want, leaves, g))}
+    case["grad_rms_plain_backward"] = {n: rel_rms(a, c.to(bf16)) for n, a, c in zip(
+        ("x", "wqkv", "bqkv", "wo", "bo"), grads, grads_b)}
+    worst = max(*case["grad_rms"].values(), *case["grad_rms_plain_backward"].values())
+    print(f"  gradients: relative RMS {case['grad_rms']}, against the plain backward "
+          f"{case['grad_rms_plain_backward']} (limit {MHA_GRAD_RMS})", flush=True)
+    check_later(worst <= MHA_GRAD_RMS, f"K11 D=128 rate {DROPOUT}: gradient RMS {worst}")
+    out["narrow_d128_train"] = case
+    del got, grads, want, grads_b, leaves, x, wn
 
     # ---- K11
     k11_cases = {"flagship step E1 B=128": (x_of(128 * cfg.max_num_groups, f_cmd.shape[1]),
@@ -3025,6 +3061,7 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
         f32 = dtype == torch.float32
         tag = " float32" if f32 else ""
         fwd_name = "mha_train_fwd_f32" if f32 else "mha_train_fwd"
+        bwd_name = "mha_train_bwd_f32" if f32 else "mha_train_bwd"
         x0, mask, causal = k11_cases[what]
         x = x0.to(dtype).requires_grad_()
         leaves = [t.clone().to(dtype).requires_grad_() for t in w]
@@ -3040,25 +3077,33 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
             if first:
                 torch.cuda.synchronize()
                 counts = read_counts()
-                check(counts == dict.fromkeys(counts, 0) | {fwd_name: 1, "mha_train_bwd": 1},
+                check(counts == dict.fromkeys(counts, 0) | {fwd_name: 1, bwd_name: 1},
                       f"K11{tag} launches {counts}")
                 counted[fwd_name] = counts
             want = attn_ops.mha_reference(x, *leaves, mask, heads, causal, rate, seed)
             grads_p = torch.autograd.grad(want, [x, *leaves], g)
+            # the plain backward, step by step (its weight gradients rounded
+            # to the weights' type, as the op returns them)
+            grads_b = attention_vjp.mha_backward_reference(
+                x.detach(), g, *[t.detach() for t in leaves[:3]], mask, heads, causal, rate, seed)
             case = hold(f"K11 mha_train{tag} {what} ({b} x {s}) rate {rate}", got, want, f32)
             case["grad_rms"] = {n: rel_rms(a, c) for n, a, c in
                                 zip(("x", "wqkv", "bqkv", "wo", "bo"), grads, grads_p)}
+            case["grad_rms_plain_backward"] = {
+                n: rel_rms(a, c.to(dtype)) for n, a, c in
+                zip(("x", "wqkv", "bqkv", "wo", "bo"), grads, grads_b)}
             again = attention_vjp.fused_mha_train(*call)
             case["bit_equal_rerun"] = bool(torch.equal(again, got) and all(
                 torch.equal(a, c) for a, c in zip(grads, torch.autograd.grad(again, [x, *leaves],
                                                                              g))))
-            worst = max(case["grad_rms"].values())
-            print(f"  gradients: relative RMS {case['grad_rms']} (limit "
-                  f"{MHA_GRAD_RMS}); rerun bit-equal {case['bit_equal_rerun']}", flush=True)
+            worst = max(*case["grad_rms"].values(), *case["grad_rms_plain_backward"].values())
+            print(f"  gradients: relative RMS {case['grad_rms']}, against the plain backward "
+                  f"{case['grad_rms_plain_backward']} (limit {MHA_GRAD_RMS}); rerun bit-equal "
+                  f"{case['bit_equal_rerun']}", flush=True)
             check_later(worst <= MHA_GRAD_RMS, f"K11{tag} {what} rate {rate}: gradient RMS {worst}")
             check_later(case["bit_equal_rerun"], f"K11{tag} {what} rate {rate}: rerun differs")
             k11[f"{what}{tag} rate {rate}"] = case
-            del got, grads, want, grads_p, again
+            del got, grads, want, grads_p, grads_b, again
         # times at dropout 0.1: forward alone, forward and backward
         ops, w_bytes = mha_ops(b, s, causal, leaves)
         keys = s * (s + 1) / 2 if causal else s * s
@@ -3084,6 +3129,8 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
             with matmul_tf32(True):
                 times["lib_tf32_fwd"] = cuda_ms(lambda: fwd(lib_mha, x, mask, causal, DROPOUT,
                                                             leaves))
+                times["lib_tf32_both"] = cuda_ms(lambda: both(lib_mha, x, mask, causal, DROPOUT,
+                                                              leaves))
         peak = PEAK_TF32 if f32 else PEAK_BF16
         fb = bound(2 * nbytes(x) + w_bytes, ops, peak)
         bb = bound(3 * nbytes(x) + 2 * w_bytes, 22.0 * b * s * d * d + 12.0 * b * keys * d, peak)
@@ -3093,8 +3140,10 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
               + (f", library in TF32 {times['lib_tf32_fwd']:.4f}" if f32 else "")
               + f", bound {fb[0]:.4f} by {fb[1]}); backward {times['both'] - times['fwd']:.4f} ms "
               f"(plain {times['plain_both'] - times['plain_fwd']:.4f}, library "
-              f"{times['lib_both'] - times['lib_fwd']:.4f}, bound {bb[0]:.4f} by {bb[1]}) on "
-              f"{card}", flush=True)
+              f"{times['lib_both'] - times['lib_fwd']:.4f}"
+              + (f", library in TF32 {times['lib_tf32_both'] - times['lib_tf32_fwd']:.4f}"
+                 if f32 else "")
+              + f", bound {bb[0]:.4f} by {bb[1]}) on {card}", flush=True)
         del leaves
     for name, tag in (("mha_train_fwd", ""), ("mha_train_fwd_f32", " float32")):
         row = k11["Sketchformer encoder B=60" + tag]
@@ -3112,14 +3161,27 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
                                        "rms": TOL_LAYER_RMS})}
         if tag:
             kernels[name]["library_tf32_ms"] = t["lib_tf32_fwd"]
-    row = k11["Sketchformer encoder B=60"]
-    t = row["times_ms"]
-    kernels["mha_train_bwd"] = {
-        "max_abs_err": max(max(c["grad_rms"].values()) for k, c in k11.items() if "rate" in k),
-        "ms": t["both"] - t["fwd"], "plain_ms": t["plain_both"] - t["plain_fwd"],
-        "library_ms": t["lib_both"] - t["lib_fwd"], "bound_ms": row["bwd_bound"][0],
-        "bound_by": row["bwd_bound"][1], "tolerance": {"grad_rms": MHA_GRAD_RMS}}
-    for name in ("mha", "mha_f32", "mha_train_fwd", "mha_train_fwd_f32", "mha_train_bwd"):
+    for name, tag in (("mha_train_bwd", ""), ("mha_train_bwd_f32", " float32")):
+        # the backward alone, forward and backward less the forward, at both
+        # timed shapes (the row: Sketchformer's encoder)
+        cases = {}
+        for what in ("Sketchformer encoder B=60", "flagship step E1 B=128"):
+            row = k11[what + tag]
+            t = row["times_ms"]
+            cases[what] = {"B": row["B"], "S": row["S"], "ms": t["both"] - t["fwd"],
+                           "plain_ms": t["plain_both"] - t["plain_fwd"],
+                           "library_ms": t["lib_both"] - t["lib_fwd"],
+                           "bound_ms": row["bwd_bound"][0], "bound_by": row["bwd_bound"][1]}
+            if tag:
+                cases[what]["library_tf32_ms"] = t["lib_tf32_both"] - t["lib_tf32_fwd"]
+        kernels[name] = dict(
+            cases["Sketchformer encoder B=60"], cases=cases,
+            max_abs_err=max(max(*c["grad_rms"].values(), *c["grad_rms_plain_backward"].values())
+                            for k, c in k11.items()
+                            if "rate" in k and ("float32" in k) == bool(tag)),
+            tolerance={"grad_rms": MHA_GRAD_RMS})
+    for name in ("mha", "mha_f32", "mha_train_fwd", "mha_train_fwd_f32", "mha_train_bwd",
+                 "mha_train_bwd_f32"):
         k = kernels[name]
         print(f"  {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
               f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by {k['bound_by']}; "
@@ -3132,7 +3194,8 @@ def attention_phase(dev, card, kernels, record, reset_counts, read_counts) -> di
     return {"mha": 1, "mha_f32": 1,
             "mha_train_fwd": counted["mha_train_fwd"]["mha_train_fwd"],
             "mha_train_fwd_f32": counted["mha_train_fwd_f32"]["mha_train_fwd_f32"],
-            "mha_train_bwd": counted["mha_train_fwd"]["mha_train_bwd"]}
+            "mha_train_bwd": counted["mha_train_fwd"]["mha_train_bwd"],
+            "mha_train_bwd_f32": counted["mha_train_fwd_f32"]["mha_train_bwd_f32"]}
 
 
 def recompute_phase(dev, card, kernels, record, reset_counts, read_counts,
@@ -3575,6 +3638,8 @@ def main() -> int:
         for fn in (attn_ops.fused_mha, attention_vjp.fused_mha_train):
             fn.launches = fn.float32_launches = fn.narrow_launches = 0
         attention_vjp.fused_mha_train.backward_launches = 0
+        attention_vjp.fused_mha_train.float32_backward_launches = 0
+        attention_vjp.fused_mha_train.narrow_backward_launches = 0
 
     def read_counts() -> dict:
         """Launches by kernel; a float32 form under its own name (``_f32``)."""
@@ -3619,7 +3684,11 @@ def main() -> int:
                                   - attention_vjp.fused_mha_train.narrow_launches),
                 "mha_train_fwd_f32": attention_vjp.fused_mha_train.float32_launches,
                 "mha_train_narrow_fwd": attention_vjp.fused_mha_train.narrow_launches,
-                "mha_train_bwd": attention_vjp.fused_mha_train.backward_launches,
+                "mha_train_bwd": (attention_vjp.fused_mha_train.backward_launches
+                                  - attention_vjp.fused_mha_train.float32_backward_launches
+                                  - attention_vjp.fused_mha_train.narrow_backward_launches),
+                "mha_train_bwd_f32": attention_vjp.fused_mha_train.float32_backward_launches,
+                "mha_train_narrow_bwd": attention_vjp.fused_mha_train.narrow_backward_launches,
                 "layer_train_recompute_fwd": layer_vjp.fused_layer_train.recompute_launches,
                 "layer_train_recompute_bwd":
                     layer_vjp.fused_layer_train.recompute_backward_launches,
@@ -5014,7 +5083,8 @@ def main() -> int:
         "mha_f32": (csrc + "layer_f32.cu", "deepsvg_tpu/ops/attention.py:31"),
         "mha_train_fwd": (csrc + "layer_long.cu", "deepsvg_tpu/ops/attention_vjp.py:60"),
         "mha_train_fwd_f32": (csrc + "layer_f32.cu", "deepsvg_tpu/ops/attention_vjp.py:60"),
-        "mha_train_bwd": (csrc + "attention.cu", "deepsvg_tpu/ops/attention_vjp.py:100"),
+        "mha_train_bwd": (csrc + "layer_bwd.cu", "deepsvg_tpu/ops/attention_vjp.py:100"),
+        "mha_train_bwd_f32": (csrc + "layer_f32_bwd.cu", "deepsvg_tpu/ops/attention_vjp.py:100"),
         "layer_train_recompute_fwd": (csrc + "layer_train.cuh",
                                       "deepsvg_tpu/ops/layer_vjp.py:179"),
         "layer_train_recompute_bwd": (csrc + "layer_bwd.cu", "deepsvg_tpu/ops/layer_vjp.py:298"),

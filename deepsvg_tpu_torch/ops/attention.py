@@ -201,9 +201,8 @@ def check_mha_inputs(x, wqkv, bqkv, wo, bo, mask, n_heads: int) -> str:
 
 _ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-_HOPPER_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+_HOPPER_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-_QKV_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def _ptr(t):
@@ -216,8 +215,10 @@ def launch_forward(x, wqkv, bqkv, wo, bo, mask, n_heads: int, causal: bool, seed
     dropout threshold ``thr`` and keep scale ``kp``) on checked CUDA
     tensors, by :func:`mha_form`; returns ``out [B, S, D]``. ``parts``, a
     dict, receives the Hopper forms' QKV (``"qkv"``, ``[B*S, 3D]``
-    row-major) and context (``"ctx"``, ``[B*S, D]``) as they were used (a
-    card test's view; the narrow kernels give none)."""
+    row-major), probabilities before dropout (``"p"``, ``[B, H, S, S]``
+    float32; when causal, zero past the keys each row's warp attends) and context
+    (``"ctx"``, ``[B*S, D]``) as they were used (a card test's view; the
+    narrow kernels give none)."""
     b, s, d = x.shape
     form = mha_form(x.dtype, d, n_heads, s)
     out = torch.empty_like(x)
@@ -242,30 +243,18 @@ def launch_forward(x, wqkv, bqkv, wo, bo, mask, n_heads: int, causal: bool, seed
     ctx = (torch.empty((rows, d), dtype=dt, device=dev) if keep or form != "bf16_short"
            else None)
     qkv_rows = torch.empty((rows, 3 * d), dtype=dt, device=dev) if keep else None
+    probs = torch.zeros((b, n_heads, s, s), dtype=torch.float32, device=dev) if keep else None
     if form == "f32":
         wqkv, wo = tf32_copy(wqkv), tf32_copy(wo)
     fn = _build.kernel_function("dsvg_mha_f32" if form == "f32" else "dsvg_mha_bf16",
                                 _HOPPER_ARGTYPES)
     rc = fn(x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), _ptr(head_major), _ptr(ctx), _ptr(qkv_rows), b, s,
-            int(causal), int(seed), thr, kp, HEAD_DIM ** -0.5, stream)
+            mask.data_ptr(), out.data_ptr(), _ptr(head_major), _ptr(ctx), _ptr(qkv_rows),
+            _ptr(probs), b, s, int(causal), int(seed), thr, kp, HEAD_DIM ** -0.5, stream)
     _build.check_launch(rc, f"mha {form}")
     if keep:
-        parts.update(qkv=qkv_rows, ctx=ctx)
+        parts.update(qkv=qkv_rows, p=probs, ctx=ctx)
     return out
-
-
-def launch_qkv(x, wqkv, bqkv, qkv_rows) -> None:
-    """The Hopper forms' QKV launch alone (D=256, 8 heads) into ``qkv_rows
-    [B*S, 3D]`` row-major: the forward's QKV to the bit, for K11's backward
-    to recompute from."""
-    b, s, _ = x.shape
-    f32 = x.dtype == torch.float32
-    fn = _build.kernel_function("dsvg_mha_qkv_f32" if f32 else "dsvg_mha_qkv_bf16",
-                                _QKV_ARGTYPES)
-    rc = fn(x.data_ptr(), (tf32_copy(wqkv) if f32 else wqkv).data_ptr(), bqkv.data_ptr(),
-            qkv_rows.data_ptr(), b, s, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch(rc, "mha qkv")
 
 
 def count_launch(fn, form: str) -> None:

@@ -4,12 +4,15 @@
 // residual or FF. bf16 operands, or float operands multiplied in TF32 (wmma
 // 16x16x8); f32 sums, softmax and bias adds.
 //
-// At D = 256 with 8 heads the forward runs the Hopper forms (layer_long.cu
-// in bfloat16: mha_short_kernel for S <= 32, mha_qkv_kernel +
-// mha_long_attn_kernel + mha_out_kernel above; layer_f32.cu in float32:
-// mha_qkv_kernel, K4's train_attn_kernel, mha_out_kernel). This file keeps
-// the first port's forward for the other widths (D < 256, head dim 32), and
-// K11's backward at every width.
+// At D = 256 with 8 heads both directions run the Hopper forms: the forward
+// layer_long.cu's (bfloat16: mha_short_kernel for S <= 32, mha_qkv_kernel +
+// mha_long_attn_kernel + mha_out_kernel above) and layer_f32.cu's (float32:
+// mha_qkv_kernel, K4's train_attn_kernel, mha_out_kernel); the backward
+// those forward launches in save mode, K4's saved-mode attention backward
+// and the wgmma row and weight products (layer_bwd.cu: dsvg_mha_bwd_bf16;
+// layer_f32_bwd.cu: dsvg_mha_bwd_f32). This file keeps the first port's
+// forward and backward for the other widths (D < 256, head dim 32), counted
+// under narrow_launches.
 //
 // Forward at the other widths (K10, and K11's forward with dropout on the
 // probabilities), two launches:
@@ -19,16 +22,14 @@
 //       attention (layer_long.cuh: attend_tile; K/V of the sequence in shared
 //       memory, exact softmax per row, probabilities rounded to T) into the
 //       tile's context, then the output projection of the tile's rows.
-// Backward (K11), three launches here, then wgrad.cu and the reductions
-// (ops/attention_vjp.py); nothing of the forward is saved but its inputs:
-//   mha_bwd_rows_kernel: per row tile, the QKV recompute (skipped at D = 256,
-//       where the Hopper forms' QKV launch wrote the forward's QKV into the
-//       scratch first: qkv_given) and dctx = g Wo (rounded), and the column
-//       sums of g (dbo);
+// Backward (K11) at the other widths, three launches here, then wgrad.cu and
+// the reductions (ops/attention_vjp.py); nothing of the forward is saved but
+// its inputs:
+//   mha_bwd_rows_kernel: per row tile, the QKV recompute and dctx = g Wo
+//       (rounded), and the column sums of g (dbo);
 //   mha_attn_bwd_kernel: one (sequence, head) per block, Q, K and V of the
 //       head in shared memory; per tile of queries the scores and the
-//       probabilities recomputed (expf, summed in this kernel's order, so
-//       they can part from the Hopper forward's in their last bits), dPe =
+//       probabilities recomputed (expf, summed in this kernel's order), dPe =
 //       dctx V^T, the softmax backward with the dropout mask, ds rounded;
 //       the context Pe V (for dWo), dQ = ds K written, dK += ds^T Q and dV
 //       += Pe^T dctx held in tensor-core accumulators over the query tiles
@@ -69,7 +70,6 @@ struct MhaBwdParams {
   T *qkv, *dctx, *dqkv, *ctx, *dx;
   float* small_part;  // [row blocks of (a), then of (c)][4D]: dbqkv | dbo
   int B, S, D, H, causal, seed;
-  int qkv_given;      // qkv holds the forward's QKV already (the Hopper forms' QKV launch)
   unsigned thr;
   float kp, scale;
 };
@@ -188,13 +188,12 @@ __global__ void __launch_bounds__(NTHREADS) mha_bwd_rows_kernel(MhaBwdParams<T> 
       for (int r = 0; r < nrows; ++r) s += to_f(gs[r * ldn + c - 3 * D]);
     part[c] = s;
   }
-  if (!p.qkv_given)
-    tile_gemm<T, ROWS, true>(xs, ldn, p.wqkv, D, 3 * D, D, wscr, warp, lane, nullptr,
-                             [&](int r, int n, float v) {
-                               if (r < nrows)
-                                 p.qkv[(row0 + r) * 3 * D + n] = from_f<T>(v + to_f(p.bqkv[n]));
-                               return 0.f;
-                             });
+  tile_gemm<T, ROWS, true>(xs, ldn, p.wqkv, D, 3 * D, D, wscr, warp, lane, nullptr,
+                           [&](int r, int n, float v) {
+                             if (r < nrows)
+                               p.qkv[(row0 + r) * 3 * D + n] = from_f<T>(v + to_f(p.bqkv[n]));
+                             return 0.f;
+                           });
   tile_gemm<T, ROWS, false>(gs, ldn, p.wo, D, D, D, wscr, warp, lane, nullptr,
                             [&](int r, int n, float v) {
                               if (r < nrows) p.dctx[(row0 + r) * D + n] = from_f<T>(v);
@@ -509,7 +508,7 @@ MhaParams<T> forward_params(void* const* t, int B, int S, int D, int H, int caus
 
 template <class T>
 MhaBwdParams<T> backward_params(void* const* t, int B, int S, int D, int H, int causal,
-                                int seed, int thr, float kp, float scale, int qkv_given) {
+                                int seed, int thr, float kp, float scale) {
   MhaBwdParams<T> p;
   p.x = (const T*)t[0];
   p.g = (const T*)t[1];
@@ -523,7 +522,6 @@ MhaBwdParams<T> backward_params(void* const* t, int B, int S, int D, int H, int 
   p.ctx = (T*)t[9];
   p.dx = (T*)t[10];
   p.small_part = (float*)t[11];
-  p.qkv_given = qkv_given;
   p.B = B;
   p.S = S;
   p.D = D;
@@ -562,21 +560,18 @@ extern "C" int dsvg_mha_fwd(void* const* tensors, int B, int S, int D, int H, in
 }
 
 // Backward of K11, launches (a)-(c). `tensors`: x, g [B*S][D], wqkv, bqkv,
-// wo, mask, then the outputs: qkv [B*S][3D] (scratch; with qkv_given, the
-// forward's QKV as its Hopper forms' QKV launch wrote it, and (a) skips its
-// own), dctx [B*S][D] (scratch), dqkv [rows][3D], ctx [rows][D] (the
-// recomputed context), dx [B*S][D], and the column sums [2 row blocks][4D]
-// (f32).
+// wo, mask, then the outputs: qkv [B*S][3D] (scratch), dctx [B*S][D]
+// (scratch), dqkv [rows][3D], ctx [rows][D] (the recomputed context), dx
+// [B*S][D], and the column sums [2 row blocks][4D] (f32).
 extern "C" int dsvg_mha_bwd(void* const* tensors, int B, int S, int D, int H, int causal,
-                            int is_f32, int seed, int thr, float kp, float scale, int qkv_given,
-                            void* stream) {
+                            int is_f32, int seed, int thr, float kp, float scale, void* stream) {
   if (S < 1 || S > MAX_SEQ_LONG || D != H * HEAD_DIM || D > 256)
     return (int)cudaErrorInvalidValue;
   if (is_f32)
     return launch_backward<float>(
-        backward_params<float>(tensors, B, S, D, H, causal, seed, thr, kp, scale, qkv_given),
+        backward_params<float>(tensors, B, S, D, H, causal, seed, thr, kp, scale),
         (cudaStream_t)stream);
   return launch_backward<bf16>(
-      backward_params<bf16>(tensors, B, S, D, H, causal, seed, thr, kp, scale, qkv_given),
+      backward_params<bf16>(tensors, B, S, D, H, causal, seed, thr, kp, scale),
       (cudaStream_t)stream);
 }

@@ -586,23 +586,12 @@ int launch(const void* const* t, int R, int T_, int F, int L, int index, int sme
   // the weights as 2-D [rows][K] tensors, boxes of 128 rows x KW elements.
   // A decode's steps pass the same weight tensors: their maps are encoded
   // again only when an address or a shape changes.
-  static const void* last[4] = {nullptr, nullptr, nullptr, nullptr};
-  static int last_shape[2] = {0, 0};
-  static CUtensorMap maps[4];
-  const void* w[4] = {t[3], t[5], t[8], t[10]};
-  if (w[0] != last[0] || w[1] != last[1] || w[2] != last[2] || w[3] != last[3] ||
-      L != last_shape[0] || F != last_shape[1]) {
-    last[0] = nullptr;
-    int rc = hopper::bind_device_of(t[0]);
-    if (rc == 0) rc = hopper::make_tma_2d(&maps[0], w[0], f32, DM, (uint64_t)L * 3 * DM, DM * sizeof(T), kw, HALF_N);
-    if (rc == 0) rc = hopper::make_tma_2d(&maps[1], w[1], f32, DM, (uint64_t)L * DM, DM * sizeof(T), kw, HALF_N);
-    if (rc == 0) rc = hopper::make_tma_2d(&maps[2], w[2], f32, DM, (uint64_t)L * F, DM * sizeof(T), kw, HALF_N);
-    if (rc == 0) rc = hopper::make_tma_2d(&maps[3], w[3], f32, F, (uint64_t)L * DM, (uint64_t)F * sizeof(T), kw, HALF_N);
-    if (rc) return rc;
-    for (int i = 0; i < 4; ++i) last[i] = w[i];
-    last_shape[0] = L;
-    last_shape[1] = F;
-  }
+  CUtensorMap maps[4];
+  int rc = hopper::make_tma_2d_cached(&maps[0], t[3], f32, DM, (uint64_t)L * 3 * DM, DM * sizeof(T), kw, HALF_N);
+  if (rc == 0) rc = hopper::make_tma_2d_cached(&maps[1], t[5], f32, DM, (uint64_t)L * DM, DM * sizeof(T), kw, HALF_N);
+  if (rc == 0) rc = hopper::make_tma_2d_cached(&maps[2], t[8], f32, DM, (uint64_t)L * F, DM * sizeof(T), kw, HALF_N);
+  if (rc == 0) rc = hopper::make_tma_2d_cached(&maps[3], t[10], f32, F, (uint64_t)L * DM, (uint64_t)F * sizeof(T), kw, HALF_N);
+  if (rc) return rc;
   p.wqkv = maps[0];
   p.wo = maps[1];
   p.w1 = maps[2];

@@ -25,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -476,6 +478,45 @@ inline int make_tma_2d(CUtensorMap* map, const void* ptr, bool is_f32, uint64_t 
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// make_tma_2d through a table of the maps encoded before: a map depends on
+// its arguments alone, so one encoded for the same address, shape and box is
+// copied instead of encoded again (the encoder's host time is what a call
+// of small launches waits on, and a decode encodes its weights' maps once
+// for its 240 steps). A miss binds the device of `ptr` first (see
+// bind_device_of). The last TMA_MEMO maps are kept.
+constexpr int TMA_MEMO = 64;
+
+inline int make_tma_2d_cached(CUtensorMap* map, const void* ptr, bool is_f32, uint64_t inner,
+                              uint64_t outer, uint64_t stride_bytes, uint32_t box_inner,
+                              uint32_t box_outer) {
+  struct Entry {
+    const void* ptr;
+    uint64_t inner, outer, stride;
+    uint32_t box_inner, box_outer;
+    bool is_f32;
+    CUtensorMap map;
+  };
+  static Entry memo[TMA_MEMO];
+  static int used = 0, next = 0;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = memo[i];
+    if (e.ptr == ptr && e.inner == inner && e.outer == outer && e.stride == stride_bytes &&
+        e.box_inner == box_inner && e.box_outer == box_outer && e.is_f32 == is_f32) {
+      *map = e.map;
+      return 0;
+    }
+  }
+  int rc = bind_device_of(ptr);
+  if (rc == 0) rc = make_tma_2d(map, ptr, is_f32, inner, outer, stride_bytes, box_inner, box_outer);
+  if (rc) return rc;
+  memo[next] = Entry{ptr, inner, outer, stride_bytes, box_inner, box_outer, is_f32, *map};
+  next = (next + 1) % TMA_MEMO;
+  used = used < TMA_MEMO ? used + 1 : TMA_MEMO;
+  return 0;
 }
 
 }  // namespace hopper

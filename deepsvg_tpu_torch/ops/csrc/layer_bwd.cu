@@ -1,5 +1,9 @@
 // K4 backward: everything of the layer's backward that is local to a row or
 // a sequence (see ops/layer_vjp.py); the weight products follow in wgrad.cu.
+// K11's backward at D = 256 in bfloat16 (dsvg_mha_bwd_bf16, at the end) runs
+// the saved mode's attention backward (on float32 probabilities) and the row
+// products dctx = g Wo (S <= 32) and dx = dqkv Wqkv here, after its recompute
+// in layer_long.cu.
 // The saved mode's bfloat16 short form at D = 256 is three wgmma / mma.sync
 // launches on layer_train.cuh's device code. The float32 form, the narrower
 // bfloat16 widths and the recompute mode run layer_bwd.cuh's device code,
@@ -191,10 +195,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   write_sums(sums, b.small, 2 * DM);
 }
 
+// the probabilities the attention backward reads: K4's bf16 (b.p), K11's
+// float32 (b.p32)
+__device__ __forceinline__ const bf16* saved_p(const Bwd& b, const bf16*) { return b.p; }
+__device__ __forceinline__ const float* saved_p(const Bwd& b, const float*) { return b.p32; }
+
 // the attention backward (see attn_bwd_tile): 8 warps, no weights
+template <class PT>
 __global__ void __launch_bounds__(CONSUMERS, 1) bwd_attn_kernel(const __grid_constant__ Bwd b) {
   unsigned char* base = smem_base();
-  for (int tile = blockIdx.x; tile < b.ntiles; tile += gridDim.x) attn_bwd_tile(b, tile, base);
+  const PT* P = saved_p(b, (const PT*)nullptr);
+  for (int tile = blockIdx.x; tile < b.ntiles; tile += gridDim.x) attn_bwd_tile(b, P, tile, base);
 }
 
 constexpr uint32_t QKV_STAGE = TR * 128 + 4 * WBOX;  // a slice of dqkv's K, Wqkv's four quarters
@@ -216,7 +227,15 @@ struct QkvBwdLayout {
   }
 };
 
-// dxn1 = dqkv Wqkv, then LN1's backward: dx = dx1 + its input gradient
+// bwd_qkv_kernel's epilogues: K4's LN1 backward (the product dxn1 = dqkv
+// Wqkv), or the product alone, rounded to bf16 (K11's backward): dx = dqkv
+// Wqkv into b.dx, or dctx = g Wo into b.dctx (maps.dqkv then g's, maps.wqkv
+// Wo's, as it lies)
+enum { EPI_LN1, EPI_DX, EPI_DCTX };
+
+// dxn1 = dqkv Wqkv, then LN1's backward: dx = dx1 + its input gradient (or
+// EPI's product alone); NSLICES: 64-column slices of the product's K
+template <int NSLICES, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
     bwd_qkv_kernel(const __grid_constant__ QkvBwdMaps maps, const __grid_constant__ Bwd b) {
   const QkvBwdLayout L;
@@ -234,7 +253,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     setmaxnreg_dec<24>();
     if (threadIdx.x != CONSUMERS) return;
     for (int tile = blockIdx.x; tile < b.ntiles; tile += gridDim.x)
-      for (int s = 0; s < QKV_W / 64; ++s) {
+      for (int s = 0; s < NSLICES; ++s) {
         unsigned char* st = ring.produce(QKV_STAGE);
         tma_load_2d(st, &maps.dqkv, ring.bar(), 64 * s, tile * b.nseq * b.S);
         for (int q = 0; q < 4; ++q)
@@ -248,9 +267,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   const Lane ln;
   float* prm = reinterpret_cast<float*>(base + L.prm);
   float* sums = reinterpret_cast<float*>(base + L.sums);
-  for (int i = ln.tid; i < 2 * DM; i += CONSUMERS) prm[i] = bf2f(b.ln1[i]);
-  for (int i = ln.tid; i < 8 * 2 * DM; i += CONSUMERS) sums[i] = 0.f;
-  named_barrier(1, CONSUMERS);
+  if constexpr (EPI == EPI_LN1) {
+    for (int i = ln.tid; i < 2 * DM; i += CONSUMERS) prm[i] = bf2f(b.ln1[i]);
+    for (int i = ln.tid; i < 8 * 2 * DM; i += CONSUMERS) sums[i] = 0.f;
+    named_barrier(1, CONSUMERS);
+  }
   float* wsums = sums + (ln.tid >> 5) * 2 * DM;
   for (int tile = blockIdx.x; tile < b.ntiles; tile += gridDim.x) {
     const int seq0 = tile * b.nseq;
@@ -262,7 +283,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[q][i] = 0.f;
 #pragma unroll 1
-    for (int s = 0; s < QKV_W / 64; ++s) {
+    for (int s = 0; s < NSLICES; ++s) {
       const uint32_t st = ring.acquire();
       wgmma_fence();
 #pragma unroll
@@ -279,6 +300,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     ring.drain();
 #pragma unroll
     for (int q = 0; q < 4; ++q) fence_acc(acc[q]);
+    if constexpr (EPI != EPI_LN1) {
+      store_rows(EPI == EPI_DCTX ? b.dctx : b.dx, acc, ln, R);
+      continue;
+    }
     // LN1's backward a row a warp, from dxn1 parked in the dy scratch rows
     spill_rows(b.dy, acc, ln, R);
     __syncwarp();
@@ -292,7 +317,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                   *reinterpret_cast<uint4*>(b.xn1 + row * DM + c0) = pack8(xn);
                 });
   }
-  write_sums(sums, b.small, 0);
+  if constexpr (EPI == EPI_LN1) write_sums(sums, b.small, 0);
 }
 
 // ---------------------------------------------------------------- long form
@@ -306,13 +331,44 @@ __global__ void __launch_bounds__(THREADS, 1)
 // dsum) and dQ = dS K in a second (dS rounded to bf16 straight from the
 // accumulators); then 16 key rows: dP^T = V dctx^T, dS^T and Pe^T from it,
 // dK = dS^T Q and dV = Pe^T dctx in registers over the query steps in order.
-// The saved probabilities are read from device memory a step ahead of use.
+// The saved probabilities (PT: K4's bf16, K11's float32) are read from
+// device memory a step ahead of use. K11's backward runs it with b.dbias
+// null (no seq_bias).
 constexpr int LONG_AT = 256;                   // rows of the attention tile
 constexpr uint32_t LONG_HEAD = LONG_AT * LDH * 2;  // a head's Q, K, V or dctx rows
 
+// the saved probabilities at `at` and at + 1 (in0, in1: which are the row's,
+// else 0), one load of the pair where it is aligned
+__device__ __forceinline__ void load_p_pair(const bf16* at, bool in0, bool in1, float& p0,
+                                            float& p1) {
+  p0 = p1 = 0.f;
+  if (in0 && in1 && !(reinterpret_cast<uintptr_t>(at) & 3)) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+    p0 = v.x;
+    p1 = v.y;
+  } else {
+    if (in0) p0 = bf2f(at[0]);
+    if (in1) p1 = bf2f(at[1]);
+  }
+}
+__device__ __forceinline__ void load_p_pair(const float* at, bool in0, bool in1, float& p0,
+                                            float& p1) {
+  p0 = p1 = 0.f;
+  if (in0 && in1 && !(reinterpret_cast<uintptr_t>(at) & 7)) {
+    const float2 v = *reinterpret_cast<const float2*>(at);
+    p0 = v.x;
+    p1 = v.y;
+  } else {
+    if (in0) p0 = at[0];
+    if (in1) p1 = at[1];
+  }
+}
+
 // (two blocks an SM: at most 128 registers a thread)
+template <class PT>
 __global__ void __launch_bounds__(CONSUMERS, 2)
     bwd_attn_long_kernel(const __grid_constant__ Bwd b, int causal) {
+  const PT* P = saved_p(b, (const PT*)nullptr);
   unsigned char* base = smem_base();
   const uint32_t qs = smem_u32(base), ks = qs + LONG_HEAD, vs = ks + LONG_HEAD,
                  cs = vs + LONG_HEAD;
@@ -332,7 +388,7 @@ __global__ void __launch_bounds__(CONSUMERS, 2)
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  if (h == 0)
+  if (h == 0 && b.dbias != nullptr)
     for (int e = threadIdx.x; e < nvalid * DM; e += CONSUMERS) {
       const int sq = e / DM, col = e - sq * DM;
       const float* d1 = b.dx1 + (row0 + (size_t)sq * S) * DM + col;
@@ -346,7 +402,7 @@ __global__ void __launch_bounds__(CONSUMERS, 2)
   // the saved probability of (query, key) of the tile's sequence sq, their
   // indices within it
   auto p_at = [&](int sq, int q, int k) -> float {
-    return bf2f(b.p[(((size_t)(seq0 + sq) * NH + h) * S + q) * S + k]);
+    return p_value(P[(((size_t)(seq0 + sq) * NH + h) * S + q) * S + k]);
   };
 
   // ---- the warp's 16 query rows
@@ -390,16 +446,8 @@ __global__ void __launch_bounds__(CONSUMERS, 2)
         for (int rr = 0; rr < 2; ++rr) {
           const int j0 = kstart + 16 * u + 8 * nt + 2 * t4;
           const bool in0 = j0 >= lo[rr] && j0 < hi[rr], in1 = j0 + 1 >= lo[rr] && j0 + 1 < hi[rr];
-          const bf16* at = b.p + (size_t)prow[rr] * S + (j0 - lo[rr]);
-          pv[nt][rr][0] = pv[nt][rr][1] = 0.f;
-          if (in0 && in1 && !(reinterpret_cast<uintptr_t>(at) & 3)) {
-            const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
-            pv[nt][rr][0] = v.x;
-            pv[nt][rr][1] = v.y;
-          } else {
-            if (in0) pv[nt][rr][0] = bf2f(at[0]);
-            if (in1) pv[nt][rr][1] = bf2f(at[1]);
-          }
+          load_p_pair(P + (size_t)prow[rr] * S + (j0 - lo[rr]), in0, in1, pv[nt][rr][0],
+                      pv[nt][rr][1]);
         }
     };
 #pragma unroll 1
@@ -637,18 +685,65 @@ int launch_train_bwd(void* const* t, int B, int S, int F, int seed, int thr, flo
   const uint32_t ff_smem = FfBwdLayout().total, attn_smem = AttnBwdLayout().total,
                  qkv_smem = QkvBwdLayout().total,
                  long_smem = 4 * LONG_HEAD + LONG_AT * 4 + 1024;
-  if ((rc = prepare(bwd_ff_kernel, ff_smem)) || (rc = prepare(bwd_attn_kernel, attn_smem)) ||
-      (rc = prepare(bwd_qkv_kernel, qkv_smem)) ||
-      (long_form && (rc = prepare(bwd_attn_long_kernel, long_smem))))
+  if ((rc = prepare(bwd_ff_kernel, ff_smem)) || (rc = prepare(bwd_attn_kernel<bf16>, attn_smem)) ||
+      (rc = prepare(bwd_qkv_kernel<QKV_W / 64, EPI_LN1>, qkv_smem)) ||
+      (long_form && (rc = prepare(bwd_attn_long_kernel<bf16>, long_smem))))
     return rc;
   bwd_ff_kernel<<<grid, THREADS, ff_smem, stream>>>(fm, rows_b);
   if ((rc = (int)cudaGetLastError())) return rc;
   if (long_form)
-    bwd_attn_long_kernel<<<dim3(b.ntiles, NH), CONSUMERS, long_smem, stream>>>(b, causal);
+    bwd_attn_long_kernel<bf16><<<dim3(b.ntiles, NH), CONSUMERS, long_smem, stream>>>(b, causal);
   else
-    bwd_attn_kernel<<<std::min(b.ntiles, 2 * sm_count()), CONSUMERS, attn_smem, stream>>>(b);
+    bwd_attn_kernel<bf16><<<std::min(b.ntiles, 2 * sm_count()), CONSUMERS, attn_smem, stream>>>(
+        b);
   if ((rc = (int)cudaGetLastError())) return rc;
-  bwd_qkv_kernel<<<grid, THREADS, qkv_smem, stream>>>(qm, rows_b);
+  bwd_qkv_kernel<QKV_W / 64, EPI_LN1><<<grid, THREADS, qkv_smem, stream>>>(qm, rows_b);
+  return (int)cudaGetLastError();
+}
+
+// K11's backward after its recompute (dsvg_mha_bwd_bf16), over 128-row
+// tiles of all rows where a launch is row-local: for S <= 32, dctx = g Wo
+// into b.dctx (the long form's recompute computed it); the saved-mode
+// attention backward over b.qkv (row-major), b.p32 and b.dctx into b.dqkv;
+// then dx = dqkv Wqkv into b.dx. `causal`: the long form's (the short form
+// reads every key of a sequence, the probabilities past a row's own 0).
+int launch_mha_bwd(Bwd b, const void* wqkv, const void* wo, int causal, cudaStream_t stream) {
+  const long long rows = (long long)b.B * b.S;
+  QkvBwdMaps dx_maps, dctx_maps;
+  int rc = make_tma_2d_cached(&dx_maps.dqkv, b.dqkv, false, QKV_W, (uint64_t)rows, QKV_W * 2,
+                              64, TR);
+  if (rc == 0) rc = make_tma_2d_cached(&dx_maps.wqkv, wqkv, false, DM, QKV_W, DM * 2, 64, 64);
+  if (rc == 0 && b.S <= 32)
+    rc = make_tma_2d_cached(&dctx_maps.dqkv, b.g, false, DM, (uint64_t)rows, DM * 2, 64, TR);
+  if (rc == 0 && b.S <= 32)
+    rc = make_tma_2d_cached(&dctx_maps.wqkv, wo, false, DM, DM, DM * 2, 64, 64);
+  if (rc) return rc;
+  const uint32_t attn_smem = AttnBwdLayout().total, qkv_smem = QkvBwdLayout().total,
+                 long_smem = 4 * LONG_HEAD + LONG_AT * 4 + 1024;
+  Bwd rows_b = b;  // the row launches' view: 128-row tiles of all rows
+  rows_b.B = (int)rows;
+  rows_b.S = 1;
+  rows_b.nseq = TR;
+  rows_b.ntiles = (int)((rows + TR - 1) / TR);
+  const int grid = std::min(rows_b.ntiles, sm_count());
+  if (b.S <= 32) {
+    if ((rc = prepare(bwd_qkv_kernel<DM / 64, EPI_DCTX>, qkv_smem))) return rc;
+    bwd_qkv_kernel<DM / 64, EPI_DCTX><<<grid, THREADS, qkv_smem, stream>>>(dctx_maps, rows_b);
+    if ((rc = (int)cudaGetLastError())) return rc;
+    b.nseq = TR / b.S;
+    b.ntiles = (b.B + b.nseq - 1) / b.nseq;
+    if ((rc = prepare(bwd_attn_kernel<float>, attn_smem))) return rc;
+    bwd_attn_kernel<float><<<std::min(b.ntiles, 2 * sm_count()), CONSUMERS, attn_smem, stream>>>(
+        b);
+  } else {
+    b.nseq = LONG_AT / b.S;
+    b.ntiles = (b.B + b.nseq - 1) / b.nseq;
+    if ((rc = prepare(bwd_attn_long_kernel<float>, long_smem))) return rc;
+    bwd_attn_long_kernel<float><<<dim3(b.ntiles, NH), CONSUMERS, long_smem, stream>>>(b, causal);
+  }
+  if ((rc = (int)cudaGetLastError())) return rc;
+  if ((rc = prepare(bwd_qkv_kernel<QKV_W / 64, EPI_DX>, qkv_smem))) return rc;
+  bwd_qkv_kernel<QKV_W / 64, EPI_DX><<<grid, THREADS, qkv_smem, stream>>>(dx_maps, rows_b);
   return (int)cudaGetLastError();
 }
 
@@ -767,4 +862,49 @@ extern "C" int dsvg_layer_train_bwd_recompute(void* const* tensors, int B, int S
                                            scale, (cudaStream_t)stream);
   return launch_recompute<bf16, 64, 32>(tensors, B, S, D, F, H, causal, seed, thr, kp, scale,
                                         (cudaStream_t)stream);
+}
+
+// layer_long.cu: K11's backward, its first launches
+extern "C" int dsvg_mha_recompute_bf16(const void* x, const void* wqkv, const void* bqkv,
+                                       const void* wo, const void* mask, const void* g, void* qkv,
+                                       void* qkv_rows, void* p, void* ctx, void* dctx, int B,
+                                       int S, int causal, int seed, int thr, float kp,
+                                       float scale, void* stream);
+
+// K11's backward in bfloat16 at D = 256, 8 heads, 1 <= S <= 256 (see
+// ops/attention_vjp.py), its launches but the weight products: the
+// forward's launches in save mode (dsvg_mha_recompute_bf16: one for S <= 32,
+// two above, where the QKV launch also computes dctx = g Wo), for S <= 32
+// dctx = g Wo on the dx product's launch, K4's saved-mode attention backward
+// on the float32 probabilities (bwd_attn_kernel for S <= 32,
+// bwd_attn_long_kernel above) into dqkv [B*S][3D], and dx = dqkv Wqkv
+// [B*S][D] (bf16): four launches. x, g, wqkv, bqkv, wo, mask: the forward's
+// operands and the output's gradient; wqkv_t unused (the float32 form's);
+// qkv [H][B*S][96] (33 <= S), qkv_rows, p (float32), ctx, dctx: the
+// recompute's tensors (dsvg_mha_recompute_bf16). The weight gradients follow
+// in dsvg_wgrad_hopper: dWqkv = dqkv^T x, dWo = g^T ctx and their column
+// sums.
+extern "C" int dsvg_mha_bwd_bf16(const void* x, const void* g, const void* wqkv,
+                                 const void* wqkv_t, const void* bqkv, const void* wo,
+                                 const void* mask, void* qkv, void* qkv_rows, void* p, void* ctx,
+                                 void* dctx, void* dqkv, void* dx, int B, int S, int causal,
+                                 int seed, int thr, float kp, float scale, void* stream) {
+  (void)wqkv_t;
+  int rc = dsvg_mha_recompute_bf16(x, wqkv, bqkv, wo, mask, g, qkv, qkv_rows, p, ctx, dctx, B, S,
+                                   causal, seed, thr, kp, scale, stream);
+  if (rc) return rc;
+  layer_train::Bwd b = {};
+  b.g = (const bf16*)g;
+  b.qkv = (const bf16*)qkv_rows;
+  b.p32 = (const float*)p;
+  b.dctx = (bf16*)dctx;
+  b.dqkv = (bf16*)dqkv;
+  b.dx = (bf16*)dx;
+  b.B = B;
+  b.S = S;
+  b.seed = seed;
+  b.thr = (unsigned)thr;
+  b.kp = kp;
+  b.scale = scale;
+  return layer_train::launch_mha_bwd(b, wqkv, wo, causal, (cudaStream_t)stream);
 }

@@ -52,7 +52,9 @@
 //
 // K10 and K11's forward in float32 at D = 256 (ops/attention.py) run the
 // three launches without LN1, the residual, LN2 and the FF (mha_qkv_kernel,
-// K4's train_attn_kernel, mha_out_kernel; dsvg_mha_f32).
+// K4's train_attn_kernel, mha_out_kernel; dsvg_mha_f32); K11's backward
+// reruns the first two in save mode (dsvg_mha_recompute_f32, ahead of
+// layer_f32_bwd.cu's dsvg_mha_bwd_f32).
 #include "layer_infer.cuh"
 
 namespace layer_f32 {
@@ -1236,7 +1238,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // the attention block's parameters and tensor maps (Wqkv, Wo, the context;
-// F = 0, no LayerNorm, FF or seq_bias)
+// F = 0, no LayerNorm, FF or seq_bias), the maps encoded once for each set
+// of addresses
 int mha_setup(Params* p, Maps* maps, const void* x, const void* wqkv, const void* bqkv,
               const void* wo, const void* bo, const void* mask, void* qkv, void* ctx, void* out,
               int B, int S, int causal, float scale) {
@@ -1254,11 +1257,11 @@ int mha_setup(Params* p, Maps* maps, const void* x, const void* wqkv, const void
   p->S = S;
   p->causal = causal;
   p->scale = scale;
-  int rc = bind_device_of(wqkv);
-  if (rc == 0) rc = make_tma_2d(&maps->qkv, wqkv, true, DM, 3 * DM, DM * 4, KS, 32);
-  if (rc == 0 && wo != nullptr) rc = make_tma_2d(&maps->o, wo, true, DM, DM, DM * 4, KS, 128);
+  int rc = make_tma_2d_cached(&maps->qkv, wqkv, true, DM, 3 * DM, DM * 4, KS, 32);
+  if (rc == 0 && wo != nullptr)
+    rc = make_tma_2d_cached(&maps->o, wo, true, DM, DM, DM * 4, KS, 128);
   if (rc == 0 && ctx != nullptr)
-    rc = make_tma_2d(&maps->ctx, ctx, true, DM, (uint64_t)p->rows, DM * 4, KS, TR);
+    rc = make_tma_2d_cached(&maps->ctx, ctx, true, DM, (uint64_t)p->rows, DM * 4, KS, TR);
   return rc;
 }
 
@@ -1279,11 +1282,13 @@ int launch_mha_qkv(const Maps& maps, const Params& p, cudaStream_t st) {
 // [B*S][D] (float32 scratch; ctx holds the context). x [B*S][D], wqkv
 // [3D][D] and wo [D][D] rounded to TF32, bqkv [3D], bo [D], mask [B][S],
 // out [B*S][D]; thr = floor(rate 2^24) (0: no dropout), kp = 1 / (1 - rate).
-// qkv_rows [B*S][3D], if not null, receives the forward's QKV row-major.
+// qkv_rows [B*S][3D] and p_save [B][H][S][S], if not null, receive the
+// forward's QKV row-major and its probabilities before dropout (each row's
+// keys up to its warp's last row's when causal).
 extern "C" int dsvg_mha_f32(const void* x, const void* wqkv, const void* bqkv, const void* wo,
                             const void* bo, const void* mask, void* out, void* qkv, void* ctx,
-                            void* qkv_rows, int B, int S, int causal, int seed, int thr, float kp,
-                            float scale, void* stream) {
+                            void* qkv_rows, void* p_save, int B, int S, int causal, int seed,
+                            int thr, float kp, float scale, void* stream) {
   using namespace layer_f32;
   if (B < 1 || S < 1 || S > LONG_S || qkv == nullptr || ctx == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -1294,9 +1299,13 @@ extern "C" int dsvg_mha_f32(const void* x, const void* wqkv, const void* bqkv, c
   if (rc) return rc;
   p.qkv_rows = (float*)qkv_rows;
   if ((rc = launch_mha_qkv(maps, p, st))) return rc;
-  const Train t = {nullptr, nullptr, nullptr, seed, (unsigned)thr, kp};
-  rc = S <= 32 ? launch_train_attn<4, false>(p, t, st)
-              : launch_train_attn<LONG_S / 16, false>(p, t, st);
+  const Train t = {(float*)p_save, nullptr, nullptr, seed, (unsigned)thr, kp};
+  if (p_save != nullptr)
+    rc = S <= 32 ? launch_train_attn<4, true>(p, t, st)
+                 : launch_train_attn<LONG_S / 16, true>(p, t, st);
+  else
+    rc = S <= 32 ? launch_train_attn<4, false>(p, t, st)
+                 : launch_train_attn<LONG_S / 16, false>(p, t, st);
   if (rc) return rc;
   const uint32_t smem = MhaOutLayout().total;
   if ((rc = prepare(mha_out_kernel, smem))) return rc;
@@ -1305,19 +1314,32 @@ extern "C" int dsvg_mha_f32(const void* x, const void* wqkv, const void* bqkv, c
   return (int)cudaGetLastError();
 }
 
-// The QKV launch of dsvg_mha_f32 alone, row-major into qkv_rows [B*S][3D]:
-// the forward's QKV to the bit (K11's backward recomputes it so).
-extern "C" int dsvg_mha_qkv_f32(const void* x, const void* wqkv, const void* bqkv, void* qkv_rows,
-                                int B, int S, void* stream) {
+// K11's backward in float32 at D = 256, 8 heads, 1 <= S <= 256, its first
+// launches (layer_f32_bwd.cu's dsvg_mha_bwd_f32 runs them first): the first
+// two of dsvg_mha_f32 in save mode on its operands x, wqkv (rounded to TF32),
+// bqkv and mask: QKV head-major into qkv [H][B*S][96] (and row-major into
+// qkv_rows [B*S][3D] if not null), the probabilities before dropout into p
+// [B][H][S][S] (each row's keys up to its warp's last row's when causal) and
+// the context into ctx [B*S][D], equal to the bit to the forward's.
+extern "C" int dsvg_mha_recompute_f32(const void* x, const void* wqkv, const void* bqkv,
+                                      const void* mask, void* qkv, void* qkv_rows, void* p_save,
+                                      void* ctx, int B, int S, int causal, int seed, int thr,
+                                      float kp, float scale, void* stream) {
   using namespace layer_f32;
-  if (B < 1 || S < 1 || S > LONG_S) return (int)cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || S > LONG_S || qkv == nullptr || p_save == nullptr || ctx == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   Params p;
   Maps maps;
-  const int rc = mha_setup(&p, &maps, x, wqkv, bqkv, nullptr, nullptr, nullptr, nullptr, nullptr,
-                           nullptr, B, S, 0, 0.f);
+  int rc = mha_setup(&p, &maps, x, wqkv, bqkv, nullptr, nullptr, mask, qkv, nullptr, nullptr, B, S,
+                     causal, scale);
   if (rc) return rc;
+  p.ctx = (float*)ctx;
   p.qkv_rows = (float*)qkv_rows;
-  return launch_mha_qkv(maps, p, (cudaStream_t)stream);
+  if ((rc = launch_mha_qkv(maps, p, st))) return rc;
+  const Train t = {(float*)p_save, nullptr, nullptr, seed, (unsigned)thr, kp};
+  return S <= 32 ? launch_train_attn<4, true>(p, t, st)
+                 : launch_train_attn<LONG_S / 16, true>(p, t, st);
 }
 
 // Whether the float32 wgmma forms take these widths (else the older wmma

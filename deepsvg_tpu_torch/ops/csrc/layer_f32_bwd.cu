@@ -49,6 +49,13 @@
 //     fold_sums_kernel).
 //
 // No atomics anywhere: the gradients are equal to the bit from run to run.
+//
+// K11's backward in float32 at D = 256 (dsvg_mha_bwd_f32, at the end) runs
+// on these launches: after layer_f32.cu's recompute (QKV, the probabilities
+// and the context of the forward's own launches, in save mode), dctx = g Wo
+// on bwd_qkv_kernel's product (g and Wo^T by TMA, dctx rounded to TF32), the
+// attention backward bwd_attn_kernel, and dx = dqkv Wqkv on the same product
+// without LN1; the weight products in dsvg_wgrad_tf32.
 #include "layer_infer.cuh"
 
 namespace layer_f32_bwd {
@@ -681,6 +688,11 @@ __global__ void __launch_bounds__(256, 1) bwd_attn_kernel(const __grid_constant_
 constexpr uint32_t QKV_STAGE = TR * 128 + DM * 128;  // a slice of dqkv's K, then of Wqkv^T's
 constexpr int QKV_STAGES = 4;
 
+// bwd_qkv_kernel's epilogues: K4's LN1 backward (dxn1 = dqkv Wqkv), or the
+// product alone (K11's backward): dx = dqkv Wqkv as it is into b.dx, or dctx
+// = g Wo rounded to TF32 into b.dctx (maps.dqkv then g's, maps.wqkvt Wo^T's)
+enum { EPI_LN1, EPI_DX, EPI_DCTX };
+
 struct QkvLayout {
   uint32_t ring, prm, bars, total;
   __host__ __device__ QkvLayout() {
@@ -692,6 +704,8 @@ struct QkvLayout {
   }
 };
 
+// NSLICES: 32-float slices of the product's K (3D / 32, or D / 32 for dctx)
+template <int NSLICES, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
     bwd_qkv_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Bwd b) {
   const QkvLayout L;
@@ -710,7 +724,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     setmaxnreg_dec<24>();
     if (threadIdx.x != CONSUMERS) return;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
-      for (int s = 0; s < QKV_W / KS; ++s) {
+      for (int s = 0; s < NSLICES; ++s) {
         unsigned char* st = ring.produce(QKV_STAGE);
         tma_load_2d(st, &maps.dqkv, ring.bar(), KS * s, tile * TR);
         tma_load_2d(st + TR * 128, &maps.wqkvt, ring.bar(), KS * s, 0);
@@ -722,15 +736,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   setmaxnreg_inc<240>();
   const Lane ln;
   float* prm = reinterpret_cast<float*>(base + L.prm);
-  for (int i = ln.tid; i < 2 * DM; i += CONSUMERS) prm[i] = b.ln1[i];
-  named_barrier(1, CONSUMERS);
+  if constexpr (EPI == EPI_LN1) {
+    for (int i = ln.tid; i < 2 * DM; i += CONSUMERS) prm[i] = b.ln1[i];
+    named_barrier(1, CONSUMERS);
+  }
   const int rb = 64 * ln.wg, c0 = 8 * ln.lane;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const size_t row0 = (size_t)tile * TR;
     const int nrows = (int)min((long long)TR, b.rows - (long long)row0);
     float acc[2][64];
 #pragma unroll 1
-    for (int s = 0; s < QKV_W / KS; ++s) {
+    for (int s = 0; s < NSLICES; ++s) {
       const uint32_t st = ring.acquire();
       wgmma_fence();
 #pragma unroll
@@ -747,6 +763,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     ring.drain();
     fence_acc(acc[0]);
     fence_acc(acc[1]);
+    if constexpr (EPI != EPI_LN1) {
+      store_acc<EPI == EPI_DCTX>(EPI == EPI_DCTX ? b.dctx : b.dx, acc, ln, row0, rb, nrows);
+      continue;
+    }
     // LN1's backward a row a warp, from dxn1 parked in the dy scratch rows
     store_acc<false>(b.dy, acc, ln, row0, rb, nrows);
     __syncwarp();
@@ -995,14 +1015,78 @@ extern "C" int dsvg_layer_f32_train_bwd(void* const* t, int B, int S, int F, int
   if (rc) return rc;
   const int grid = row_grid(b.rows);
   const uint32_t ff_smem = FfLayout().total, qkv_smem = QkvLayout().total;
-  if ((rc = prepare(bwd_ff_kernel, ff_smem)) || (rc = prepare(bwd_qkv_kernel, qkv_smem))) return rc;
+  if ((rc = prepare(bwd_ff_kernel, ff_smem)) ||
+      (rc = prepare(bwd_qkv_kernel<QKV_W / KS, EPI_LN1>, qkv_smem)))
+    return rc;
   bwd_ff_kernel<<<grid, THREADS, ff_smem, st>>>(m, b);
   if ((rc = (int)cudaGetLastError())) return rc;
   rc = S <= 32 ? launch_attn<128>(b, st) : launch_attn<256>(b, st);
   if (rc) return rc;
-  bwd_qkv_kernel<<<grid, THREADS, qkv_smem, st>>>(m, b);
+  bwd_qkv_kernel<QKV_W / KS, EPI_LN1><<<grid, THREADS, qkv_smem, st>>>(m, b);
   if ((rc = (int)cudaGetLastError())) return rc;
   fold_sums_kernel<<<grid, 256, 0, st>>>(b.small);
+  return (int)cudaGetLastError();
+}
+
+// layer_f32.cu: K11's backward, its first launches
+extern "C" int dsvg_mha_recompute_f32(const void* x, const void* wqkv, const void* bqkv,
+                                      const void* mask, void* qkv, void* qkv_rows, void* p_save,
+                                      void* ctx, int B, int S, int causal, int seed, int thr,
+                                      float kp, float scale, void* stream);
+
+// K11's backward in float32 at D = 256, 8 heads, 1 <= S <= 256 (see
+// ops/attention_vjp.py), its launches but the weight products: the
+// forward's QKV and attention launches in save mode (dsvg_mha_recompute_f32,
+// into qkv [H][B*S][96], qkv_rows [B*S][3D] if not null, p [B][H][S][S] and
+// ctx [B*S][D]), dctx = g Wo into dctx [B*S][D] (rounded to TF32), the
+// attention backward into dqkv [B*S][3D], and dx = dqkv Wqkv [B*S][D]: five
+// launches. wqkv [3D][D] rounded to TF32 (the forward's), wqkv_t [D][3D] and
+// wo_t [D][D] its transpose and Wo's, rounded to TF32 (the K-major B
+// operands of the two products). The weight gradients follow in
+// dsvg_wgrad_tf32: dWqkv = dqkv^T x, dWo = g^T ctx and their column sums.
+extern "C" int dsvg_mha_bwd_f32(const void* x, const void* g, const void* wqkv, const void* wqkv_t,
+                                const void* bqkv, const void* wo_t, const void* mask, void* qkv,
+                                void* qkv_rows, void* p, void* ctx, void* dctx, void* dqkv,
+                                void* dx, int B, int S, int causal, int seed, int thr, float kp,
+                                float scale, void* stream) {
+  using namespace layer_f32_bwd;
+  if (B < 1 || S < 1 || S > 256) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc = dsvg_mha_recompute_f32(x, wqkv, bqkv, mask, qkv, qkv_rows, p, ctx, B, S, causal, seed,
+                                  thr, kp, scale, stream);
+  if (rc) return rc;
+  Bwd b = {};
+  b.g = (const float*)g;
+  b.qkv = (const float*)qkv;
+  b.p = (const float*)p;
+  b.dx = (float*)dx;
+  b.dqkv = (float*)dqkv;
+  b.dctx = (float*)dctx;
+  b.rows = (long long)B * S;
+  b.B = B;
+  b.S = S;
+  b.causal = causal;
+  b.seed = seed;
+  b.thr = (unsigned)thr;
+  b.kp = kp;
+  b.scale = scale;
+  Maps dctx_maps, dx_maps;
+  if ((rc = make_tma_2d_cached(&dctx_maps.dqkv, g, true, DM, (uint64_t)b.rows, DM * 4, KS, TR)) ||
+      (rc = make_tma_2d_cached(&dctx_maps.wqkvt, wo_t, true, DM, DM, DM * 4, KS, DM)) ||
+      (rc = make_tma_2d_cached(&dx_maps.dqkv, dqkv, true, QKV_W, (uint64_t)b.rows, QKV_W * 4, KS,
+                               TR)) ||
+      (rc = make_tma_2d_cached(&dx_maps.wqkvt, wqkv_t, true, QKV_W, DM, QKV_W * 4, KS, DM)))
+    return rc;
+  const int grid = row_grid(b.rows);
+  const uint32_t qkv_smem = QkvLayout().total;
+  if ((rc = prepare(bwd_qkv_kernel<DM / KS, EPI_DCTX>, qkv_smem)) ||
+      (rc = prepare(bwd_qkv_kernel<QKV_W / KS, EPI_DX>, qkv_smem)))
+    return rc;
+  bwd_qkv_kernel<DM / KS, EPI_DCTX><<<grid, THREADS, qkv_smem, st>>>(dctx_maps, b);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  rc = S <= 32 ? launch_attn<128>(b, st) : launch_attn<256>(b, st);
+  if (rc) return rc;
+  bwd_qkv_kernel<QKV_W / KS, EPI_DX><<<grid, THREADS, qkv_smem, st>>>(dx_maps, b);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,8 @@
 // K10 and K11's forward in bfloat16 at D = 256 (ops/attention.py) run the
 // same device code without LN1 and the FF: mha_short_kernel (S <= 32, one
 // launch), and mha_qkv_kernel, mha_long_attn_kernel and mha_out_kernel
-// (33 <= S <= 256); see the section at the end.
+// (33 <= S <= 256); K11's backward reruns them in save mode without the out
+// projection (dsvg_mha_recompute_bf16); see the section at the end.
 #include "layer_infer.cuh"
 #include "layer_long.cuh"
 #include "layer_train.cuh"
@@ -482,7 +483,16 @@ int launch_long_train(Params p, const layer_train::Train& t, const void* wqkv, c
 // it while the weight ring turns over), released once the last head's
 // product is done. The probabilities go through AttnDrop at K4's hash
 // coordinates (row (b H + h) S + i, column j); nothing is saved but what a
-// caller asks for (t.qkv, t.ctx).
+// caller asks for (t.qkv, t.p32, t.ctx).
+//
+// K11's backward (BWD, dsvg_mha_recompute_bf16) reruns these launches in save
+// mode, so that QKV, the probabilities before dropout (float32: the JAX rule
+// takes them unrounded in the softmax backward) and the context it reads are
+// the forward's to the bit. The short form's one launch skips its out
+// projection; the long form's QKV launch then takes the tiles of g and
+// computes dctx = g Wo (rounded to bf16): g lands by TMA in the x buffers,
+// the wgmma A operand, and Wo streams through the ring as it lies, read
+// MN-major (K4's dctx = da Wo, layer_train.cuh: rows_by_weight).
 
 // the small parameters as float: bo, then bqkv
 constexpr int M_BO = 0, M_BQKV = DM, M_ALL = 4 * DM;
@@ -581,11 +591,42 @@ __device__ __forceinline__ void mha_out_rows(Ring& ring, const float* prm, const
   }
 }
 
+// K11's backward, the long form: g [rows][D] (boxes {64, 128}, a tile buffer)
+// and Wo [D][D] as it lies (boxes {64, 64}: 64 rows of K, 64 columns of N)
+struct MhaBwdMaps {
+  CUtensorMap g, wo;
+};
+
+// producer: Wo for dctx = g Wo, per 64-row slice of K two stages of two
+// 64-column quarters (rows_by_weight's order)
+__device__ __forceinline__ void produce_wo_rows(Ring& r, const MhaBwdMaps& m) {
+  for (int s = 0; s < KSL; ++s)
+    for (int hf = 0; hf < 2; ++hf) {
+      unsigned char* st = r.produce(STAGE);
+      for (int b = 0; b < 2; ++b)
+        tma_load_2d(st + b * layer_train::WBOX, &m.wo, r.bar(), 64 * (2 * hf + b), 64 * s);
+      r.advance();
+    }
+}
+
+// consumers: dctx = g Wo of the warpgroup's rows (a: their first row in slice
+// 0 of the g buffer), rounded to bf16, to dctx [rows][D] (R's valid rows)
+__device__ __forceinline__ void dctx_rows(Ring& ring, uint32_t a, const Lane& ln, const Rows& R,
+                                          bf16* dctx) {
+  float acc[4][32];
+  layer_train::rows_by_weight(ring, a, TR * 128, acc);
+  layer_train::store_rows(dctx, acc, ln, R);
+}
+
 // ---- S <= 32: one persistent launch over 128-row tiles of 128 / S whole
 // sequences (train_short_kernel's walk): head by head the 64 x 96 QKV
 // product from the x buffer, Q into mma A fragments, K and V into shared
 // memory, the attention on mma.sync with the probabilities in registers, the
-// context into shared memory; then the out projection onto bo.
+// context into shared memory; then the out projection onto bo (BWD: none;
+// and, causal, the probabilities after each row's own key written 0, which
+// attend_rows leaves unwritten past its rows' last key and the backward
+// reads). SAVE_P: the probabilities saved to t.p32 (a compile-time choice:
+// the forward without the save keeps no store in its softmax loop).
 constexpr int MHA_SHORT_STAGES = 4;
 
 struct MhaShortLayout {
@@ -603,9 +644,11 @@ struct MhaShortLayout {
   }
 };
 
+template <bool BWD, bool SAVE_P>
 __global__ void __launch_bounds__(THREADS, 1)
     mha_short_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params p,
                      const __grid_constant__ layer_train::Train t) {
+  static_assert(SAVE_P || !BWD, "the backward's recompute saves the probabilities");
   const MhaShortLayout L;
   unsigned char* base = smem_base();
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + L.bars);
@@ -626,7 +669,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
       xb.produce(&maps.x, tile * p.nseq * p.S);
       for (int h = 0; h < NH; ++h) produce_qkv_head(ring, maps, h);
-      produce_out_ff(ring, maps, 0);  // F = 0: Wo alone
+      if constexpr (!BWD) produce_out_ff(ring, maps, 0);  // F = 0: Wo alone
     }
     return;
   }
@@ -634,7 +677,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   setmaxnreg_inc<240>();
   const Lane ln;
   float* prm = reinterpret_cast<float*>(base + L.prm);
-  load_mha_params(p, prm, true);
+  load_mha_params(p, prm, !BWD);
   float* mask = reinterpret_cast<float*>(base + L.mask);
   unsigned char* ctxs = base + L.ctx;
   const uint32_t ctx_a = smem_u32(ctxs) + ln.wg * 64 * 128;
@@ -680,8 +723,16 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
       named_barrier(1, CONSUMERS);  // every row's K and V are in
-      const layer_train::AttnDrop drop(nullptr, key_ap, t.thr, t.kp, seq0, p.S, h, nrows,
-                                       q0 + ln.g);
+      if constexpr (BWD)
+        if (p.causal)
+#pragma unroll 1
+          for (int i = q0; i < min(q0 + 16, nrows); ++i) {  // the warp's rows, a lane a key
+            const int sq = i / p.S, qi = i - sq * p.S;
+            if (qi + 1 + ln.lane < p.S)
+              t.p32[(((size_t)(seq0 + sq) * NH + h) * p.S + qi) * p.S + qi + 1 + ln.lane] = 0.f;
+          }
+      const layer_train::AttnDropT<float> drop(SAVE_P ? t.p32 : nullptr, key_ap, t.thr, t.kp,
+                                               seq0, p.S, h, nrows, q0 + ln.g);
       float o[4][4];
       attend_rows<4>(qf, ks, vs, TR, q0, nrows, p.S, p.causal, mask, p.scale, ln.lane, o, drop);
       store_ctx(ctxs, TR, q0, h, o, ln.lane);
@@ -691,7 +742,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     named_barrier(2 + ln.wg, 128);
     if (t.ctx != nullptr)
       layer_train::save_ctx(t.ctx, ctxs, ln, Rows{row0, seq0, nrows, 64 * ln.wg, p.S});
-    mha_out_rows(ring, prm, ln, ctx_a, TR * 128, p.out, row0, 64 * ln.wg, nrows);
+    if constexpr (!BWD)
+      mha_out_rows(ring, prm, ln, ctx_a, TR * 128, p.out, row0, 64 * ln.wg, nrows);
   }
 }
 
@@ -703,6 +755,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 // 1,024 x 242); the context of the tile's rows for the head to t.ctx
 constexpr int MHA_SPLIT = 2;
 
+// SAVE_P: the probabilities saved to t.p32 (compile-time, as mha_short_kernel's)
+template <bool SAVE_P>
 __global__ void __launch_bounds__(CONSUMERS, 2)
     mha_long_attn_kernel(const __grid_constant__ Params p,
                          const __grid_constant__ layer_train::Train t) {
@@ -744,9 +798,12 @@ __global__ void __launch_bounds__(CONSUMERS, 2)
     for (int kk = 0; kk < 2; ++kk)
       ldmatrix_x4<false>(qf[kk], qs + (q0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * (LDH * 2) +
                                      (16 * kk + 8 * (lane >> 4)) * 2);
-    const layer_train::AttnDrop drop(nullptr, key_ap, t.thr, t.kp, seq0, p.S, h, nrows, q0 + g);
+    // each part saves the probabilities of its own keys: attend_rows hands
+    // them over normalized by the rows' sums over every part
+    const layer_train::AttnDropT<float> drop(SAVE_P ? t.p32 : nullptr, key_ap, t.thr, t.kp,
+                                             seq0, p.S, h, nrows, q0 + g);
     float o[4][4];
-    attend_rows<LONG_S / 16 / MHA_SPLIT, layer_train::AttnDrop, MHA_SPLIT>(
+    attend_rows<LONG_S / 16 / MHA_SPLIT, layer_train::AttnDropT<float>, MHA_SPLIT>(
         qf, ks, vs, LONG_TR, q0, nrows, p.S, p.causal, mask, p.scale, lane, o, drop, part,
         xch + group, 1 + group);
     if (part != 0) continue;
@@ -764,8 +821,9 @@ __global__ void __launch_bounds__(CONSUMERS, 2)
 
 // ---- 33 <= S <= 256: three launches. mha_qkv_kernel: the QKV product over
 // 128-row tiles of all B*S rows (x double-buffered), into p.qkv head-major
-// (the attention launch's layout) and/or `save` row-major; then K4's
-// train_long_attn_kernel (a tile of whole sequences and a head a block, the
+// (the attention launch's layout) and/or `save` row-major (BWD: then dctx =
+// g Wo over the tiles of g into p.out, g in the same buffers); then
+// mha_long_attn_kernel (a tile of whole sequences and a head a block, the
 // context to t.ctx); then mha_out_kernel: the out projection onto bo over
 // 128-row tiles, the context double-buffered by TMA.
 constexpr int MHA_QKV_STAGES = 4, MHA_OUT_STAGES = 4;
@@ -783,9 +841,10 @@ struct MhaQkvLayout {
   }
 };
 
+template <bool BWD>
 __global__ void __launch_bounds__(THREADS, 1)
     mha_qkv_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params p,
-                   bf16* save) {
+                   bf16* save, const __grid_constant__ MhaBwdMaps bm) {
   const MhaQkvLayout L;
   unsigned char* base = smem_base();
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + L.bars);
@@ -800,12 +859,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   __syncthreads();
 
+  // the items: the tiles of x, then (BWD) those of g
+  const int items = BWD ? 2 * p.ntiles : p.ntiles;
   if (threadIdx.x >= CONSUMERS) {
     setmaxnreg_dec<24>();
     if (threadIdx.x != CONSUMERS) return;
-    for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
-      xb.produce(&maps.x, tile * TR);
-      for (int h = 0; h < NH; ++h) produce_qkv_head(ring, maps, h);
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      if (item < p.ntiles) {
+        xb.produce(&maps.x, item * TR);
+        for (int h = 0; h < NH; ++h) produce_qkv_head(ring, maps, h);
+      } else {
+        xb.produce(&bm.g, (item - p.ntiles) * TR);
+        produce_wo_rows(ring, bm);
+      }
     }
     return;
   }
@@ -817,9 +883,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   named_barrier(1, CONSUMERS);
   bf16* so = reinterpret_cast<bf16*>(base + L.stage_out) + ln.wg * 64 * LDQ;
   const size_t total = (size_t)p.B * p.S;
-  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int tile = item < p.ntiles ? item : item - p.ntiles;
     const size_t row0 = (size_t)tile * TR;
     const int nrows = (int)min((long long)TR, (long long)(total - row0));
+    if (BWD && item >= p.ntiles) {
+      const uint32_t gs_a = xb.acquire() + ln.wg * 64 * 128;
+      dctx_rows(ring, gs_a, ln, Rows{row0, 0, nrows, 64 * ln.wg, 1}, p.out);
+      xb.release();
+      continue;
+    }
     const int r_lo = 64 * ln.wg, nmine = max(0, min(64, nrows - r_lo));
     const uint32_t xs_a = xb.acquire() + ln.wg * 64 * 128;
 #pragma unroll 1
@@ -887,28 +960,50 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // the tensor maps of Wqkv (boxes {64, 32}), Wo ({64, 128}) and of the rows
-// the first product reads, x or the context ({64, 128}); w1 and w2 unused
+// the first product reads, x or the context ({64, 128}); w1 and w2 unused.
+// Encoded once for each set of addresses (the calls are short: the encoder's
+// host time is what they wait on)
 inline int make_mha_maps(Maps* m, const void* wqkv, const void* wo, const void* rows_src,
                          long long rows) {
   *m = Maps{};
-  int rc = bind_device_of(wqkv);
-  if (rc == 0) rc = make_tma_2d(&m->qkv, wqkv, false, DM, 3 * DM, DM * 2, 64, 32);
-  if (rc == 0) rc = make_tma_2d(&m->o, wo, false, DM, DM, DM * 2, 64, 128);
-  if (rc == 0) rc = make_tma_2d(&m->x, rows_src, false, DM, (uint64_t)rows, DM * 2, 64, TR);
+  int rc = make_tma_2d_cached(&m->qkv, wqkv, false, DM, 3 * DM, DM * 2, 64, 32);
+  if (rc == 0) rc = make_tma_2d_cached(&m->o, wo, false, DM, DM, DM * 2, 64, 128);
+  if (rc == 0)
+    rc = make_tma_2d_cached(&m->x, rows_src, false, DM, (uint64_t)rows, DM * 2, 64, TR);
   return rc;
 }
 
 // the QKV launch alone: into qkv head-major ([H][B*S][96]) and/or save
-// row-major ([B*S][3D]), either may be null
-int launch_mha_qkv(Params p, const void* wqkv, const void* wo, bf16* save, cudaStream_t stream) {
+// row-major ([B*S][3D]), either may be null; BWD: then dctx = g Wo into
+// p.out (bm: the maps of g and Wo)
+template <bool BWD>
+int launch_mha_qkv(Params p, const void* wqkv, const void* wo, bf16* save, cudaStream_t stream,
+                   const MhaBwdMaps& bm = MhaBwdMaps{}) {
   const long long rows = (long long)p.B * p.S;
   Maps maps;
   int rc = make_mha_maps(&maps, wqkv, wo, p.x, rows);
   if (rc) return rc;
   p.ntiles = (int)((rows + TR - 1) / TR);
   const uint32_t smem = MhaQkvLayout().total;
-  if ((rc = prepare(mha_qkv_kernel, smem))) return rc;
-  mha_qkv_kernel<<<std::min(p.ntiles, sm_count()), THREADS, smem, stream>>>(maps, p, save);
+  if ((rc = prepare(mha_qkv_kernel<BWD>, smem))) return rc;
+  const int items = BWD ? 2 * p.ntiles : p.ntiles;
+  mha_qkv_kernel<BWD><<<std::min(items, sm_count()), THREADS, smem, stream>>>(maps, p, save, bm);
+  return (int)cudaGetLastError();
+}
+
+// the long forms' attention launch (t.ctx the context, t.p the saved
+// probabilities if not null)
+int launch_mha_long_attn(const Params& p, const layer_train::Train& t, cudaStream_t stream) {
+  Params pa = p;
+  pa.nseq = LONG_TR / p.S;
+  const int atiles = (p.B + pa.nseq - 1) / pa.nseq;
+  const uint32_t smem = 3 * LONG_TR * LDH * 2 + LONG_TR * 4 +
+                        (CONSUMERS / 32 / MHA_SPLIT) * sizeof(SplitXch<MHA_SPLIT>) + 1024;
+  const auto kernel =
+      t.p32 != nullptr ? mha_long_attn_kernel<true> : mha_long_attn_kernel<false>;
+  int rc = prepare(kernel, smem);
+  if (rc) return rc;
+  kernel<<<dim3(atiles, NH), CONSUMERS, smem, stream>>>(pa, t);
   return (int)cudaGetLastError();
 }
 
@@ -924,19 +1019,14 @@ int launch_mha(Params p, const layer_train::Train& t, const void* wqkv, const vo
     Maps maps;
     if ((rc = make_mha_maps(&maps, wqkv, wo, p.x, rows))) return rc;
     const uint32_t smem = MhaShortLayout().total;
-    if ((rc = prepare(mha_short_kernel, smem))) return rc;
-    mha_short_kernel<<<std::min(p.ntiles, sm_count()), THREADS, smem, stream>>>(maps, p, t);
+    const auto kernel =
+        t.p32 != nullptr ? mha_short_kernel<false, true> : mha_short_kernel<false, false>;
+    if ((rc = prepare(kernel, smem))) return rc;
+    kernel<<<std::min(p.ntiles, sm_count()), THREADS, smem, stream>>>(maps, p, t);
     return (int)cudaGetLastError();
   }
-  if ((rc = launch_mha_qkv(p, wqkv, wo, t.qkv, stream))) return rc;
-  Params pa = p;
-  pa.nseq = LONG_TR / p.S;
-  const int atiles = (p.B + pa.nseq - 1) / pa.nseq;
-  const uint32_t smem2 = 3 * LONG_TR * LDH * 2 + LONG_TR * 4 +
-                         (CONSUMERS / 32 / MHA_SPLIT) * sizeof(SplitXch<MHA_SPLIT>) + 1024;
-  if ((rc = prepare(mha_long_attn_kernel, smem2))) return rc;
-  mha_long_attn_kernel<<<dim3(atiles, NH), CONSUMERS, smem2, stream>>>(pa, t);
-  if ((rc = (int)cudaGetLastError())) return rc;
+  if ((rc = launch_mha_qkv<false>(p, wqkv, wo, t.qkv, stream))) return rc;
+  if ((rc = launch_mha_long_attn(p, t, stream))) return rc;
   Maps out_maps;
   if ((rc = make_mha_maps(&out_maps, wqkv, wo, t.ctx, rows))) return rc;
   p.ntiles = (int)((rows + TR - 1) / TR);
@@ -944,6 +1034,33 @@ int launch_mha(Params p, const layer_train::Train& t, const void* wqkv, const vo
   if ((rc = prepare(mha_out_kernel, smem3))) return rc;
   mha_out_kernel<<<std::min(p.ntiles, sm_count()), THREADS, smem3, stream>>>(out_maps, p);
   return (int)cudaGetLastError();
+}
+
+// K11's backward, its first launches: the forward's in save mode (t.qkv
+// row-major, t.p32, t.ctx) without the out projection; S <= 32 one launch,
+// else two (p.qkv the head-major scratch), the first of which computes dctx
+// = g Wo into p.out
+int launch_mha_recompute(Params p, const layer_train::Train& t, const void* wqkv, const void* wo,
+                         const void* g, cudaStream_t stream) {
+  const long long rows = (long long)p.B * p.S;
+  int rc;
+  if (p.S <= 32) {
+    p.nseq = TR / p.S;
+    p.ntiles = (p.B + p.nseq - 1) / p.nseq;
+    Maps maps;
+    if ((rc = make_mha_maps(&maps, wqkv, wo, p.x, rows))) return rc;
+    const uint32_t smem = MhaShortLayout().total;
+    if ((rc = prepare(mha_short_kernel<true, true>, smem))) return rc;
+    mha_short_kernel<true, true><<<std::min(p.ntiles, sm_count()), THREADS, smem, stream>>>(maps,
+                                                                                          p, t);
+    return (int)cudaGetLastError();
+  }
+  MhaBwdMaps bm;
+  if ((rc = make_tma_2d_cached(&bm.g, g, false, DM, (uint64_t)rows, DM * 2, 64, TR)) ||
+      (rc = make_tma_2d_cached(&bm.wo, wo, false, DM, DM, DM * 2, 64, 64)))
+    return rc;
+  if ((rc = launch_mha_qkv<true>(p, wqkv, wo, t.qkv, stream, bm))) return rc;
+  return launch_mha_long_attn(p, t, stream);
 }
 
 }  // namespace
@@ -1011,30 +1128,49 @@ extern "C" int dsvg_layer_long(const void* x, const void* seq_bias, const void* 
 // [D], mask [B][S] (float32, additive), out [B*S][D]; thr = floor(rate
 // 2^24) (0: no dropout, K10), kp = 1 / (1 - rate). S <= 32 is one launch;
 // 33 <= S <= 256 three, through qkv [H][B*S][96] (scratch) and ctx [B*S][D]
-// (the context). qkv_save [B*S][3D] (row-major) and, for S <= 32, ctx
-// receive the forward's QKV and context if not null (a test's view).
+// (the context). qkv_save [B*S][3D] (row-major), p_save [B][H][S][S] (the
+// probabilities before dropout, float32, each row's keys up to its warp's
+// last row's when causal) and, for S <= 32, ctx receive the forward's QKV,
+// probabilities and context if not null (a test's view).
 extern "C" int dsvg_mha_bf16(const void* x, const void* wqkv, const void* bqkv, const void* wo,
                              const void* bo, const void* mask, void* out, void* qkv, void* ctx,
-                             void* qkv_save, int B, int S, int causal, int seed, int thr,
-                             float kp, float scale, void* stream) {
+                             void* qkv_save, void* p_save, int B, int S, int causal, int seed,
+                             int thr, float kp, float scale, void* stream) {
   if (B < 1 || S < 1 || S > layer_infer::LONG_S ||
       (S > 32 && (qkv == nullptr || ctx == nullptr)))
     return (int)cudaErrorInvalidValue;
   layer_infer::Params p = layer_infer::make_params(x, nullptr, nullptr, bqkv, bo, nullptr, nullptr,
                                                    nullptr, mask, out, B, S, 0, causal, scale);
   p.qkv = (bf16*)qkv;
-  const layer_train::Train t = {(bf16*)qkv_save, nullptr, (bf16*)ctx, nullptr, nullptr, seed,
-                                (unsigned)thr, kp};
+  const layer_train::Train t = {(bf16*)qkv_save, nullptr, (bf16*)ctx,    nullptr,
+                                nullptr,         seed,    (unsigned)thr, kp,
+                                (float*)p_save};
   return layer_infer::launch_mha(p, t, wqkv, wo, (cudaStream_t)stream);
 }
 
-// The QKV launch of dsvg_mha_bf16 alone, row-major into qkv [B*S][3D]: the
-// forward's QKV to the bit (K11's backward recomputes it so).
-extern "C" int dsvg_mha_qkv_bf16(const void* x, const void* wqkv, const void* bqkv, void* qkv,
-                                 int B, int S, void* stream) {
-  if (B < 1 || S < 1 || S > layer_infer::LONG_S) return (int)cudaErrorInvalidValue;
-  const layer_infer::Params p = layer_infer::make_params(
-      x, nullptr, nullptr, bqkv, bqkv, nullptr, nullptr, nullptr, nullptr, nullptr, B, S, 0, 0,
-      0.f);
-  return layer_infer::launch_mha_qkv(p, wqkv, wqkv, (bf16*)qkv, (cudaStream_t)stream);
+// K11's backward in bfloat16 at D = 256, 8 heads, 1 <= S <= 256, its first
+// launches (layer_bwd.cu's dsvg_mha_bwd_bf16 runs them first): the forward's
+// launches of dsvg_mha_bf16 in save mode, on its operands x, wqkv, bqkv and
+// mask, and g [B*S][D], wo [D][D]: QKV row-major into qkv_rows [B*S][3D]
+// (and head-major into qkv [H][B*S][96], a scratch, for 33 <= S), the
+// probabilities before dropout into p [B][H][S][S] (float32; when causal,
+// every key after a row's own 0 for S <= 32, unwritten past its warp's last
+// row's key for 33 <= S), the context into ctx [B*S][D], all equal to the
+// bit to the forward's; for 33 <= S also dctx = g Wo, rounded, into dctx
+// [B*S][D] (g and wo unread for S <= 32).
+extern "C" int dsvg_mha_recompute_bf16(const void* x, const void* wqkv, const void* bqkv,
+                                       const void* wo, const void* mask, const void* g, void* qkv,
+                                       void* qkv_rows, void* p, void* ctx, void* dctx, int B,
+                                       int S, int causal, int seed, int thr, float kp,
+                                       float scale, void* stream) {
+  if (B < 1 || S < 1 || S > layer_infer::LONG_S || (S > 32 && qkv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  layer_infer::Params prm = layer_infer::make_params(x, nullptr, nullptr, bqkv, nullptr, nullptr,
+                                                     nullptr, nullptr, mask, dctx, B, S, 0, causal,
+                                                     scale);
+  prm.qkv = (bf16*)qkv;
+  const layer_train::Train t = {(bf16*)qkv_rows, nullptr, (bf16*)ctx,    nullptr,
+                                nullptr,         seed,    (unsigned)thr, kp,
+                                (float*)p};
+  return layer_infer::launch_mha_recompute(prm, t, wqkv, wo, g, (cudaStream_t)stream);
 }

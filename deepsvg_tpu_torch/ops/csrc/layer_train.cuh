@@ -90,6 +90,8 @@ struct Train {
   int seed;
   unsigned thr;  // floor(rate 2^24); 0: no dropout
   float kp;      // 1 / (1 - rate)
+  float* p32;    // [B][H][S][S] before dropout, float32 (K11's backward, which
+                 // takes them unrounded as the JAX rule does), or null
 };
 
 // the shapes this form takes (the wrapper routes the others to the old one):
@@ -105,19 +107,43 @@ __device__ __forceinline__ float drop_at(float v, unsigned key, size_t row, int 
   return thr == 0u ? v : (keep_elem(key, (unsigned)row, (unsigned)col, thr) ? v * kp : 0.f);
 }
 
+// the saved probabilities at `at` and at + 1 (in0, in1: which are the
+// row's), in their type: one store of the pair where it is aligned
+__device__ __forceinline__ void store_p_pair(bf16* at, float p0, float p1, bool in0, bool in1) {
+  if (in0 && in1 && !(reinterpret_cast<uintptr_t>(at) & 3)) {
+    *reinterpret_cast<uint32_t*>(at) = pack_bf16(p0, p1);
+  } else {
+    if (in0) at[0] = __float2bfloat16(p0);
+    if (in1) at[1] = __float2bfloat16(p1);
+  }
+}
+__device__ __forceinline__ void store_p_pair(float* at, float p0, float p1, bool in0, bool in1) {
+  if (in0 && in1 && !(reinterpret_cast<uintptr_t>(at) & 7)) {
+    *reinterpret_cast<float2*>(at) = make_float2(p0, p1);
+  } else {
+    if (in0) at[0] = p0;
+    if (in1) at[1] = p1;
+  }
+}
+
+// a saved probability as float
+__device__ __forceinline__ float p_value(bf16 v) { return bf2f(v); }
+__device__ __forceinline__ float p_value(float v) { return v; }
+
 // attend_rows' hook in the training forward: saves the probabilities of the
 // thread's row rr (tile rows i0 and i0 + 8) at key rows j and j + 1 (its
-// sequence's keys only; one 4-byte store where the pair is aligned) and
+// sequence's keys only, in PT: K4's bf16, K11's backward float32) and
 // returns them with dropout, packed. The rows' sequence start, probability
 // row and its hash are reckoned once a head.
-struct AttnDrop {
-  bf16* p;  // the saved probabilities, or null
+template <class PT>
+struct AttnDropT {
+  PT* p;  // the saved probabilities, or null
   unsigned key, thr;
   float kp;
   int S, lo[2];  // lo: the row's first key, or -S - 1 past the tile's rows
   unsigned prow[2], rh[2];  // the probability row and its hash
-  __device__ __forceinline__ AttnDrop(bf16* p_, unsigned key_, unsigned thr_, float kp_, int seq0,
-                                      int S_, int h, int nrows, int i0)
+  __device__ __forceinline__ AttnDropT(PT* p_, unsigned key_, unsigned thr_, float kp_, int seq0,
+                                       int S_, int h, int nrows, int i0)
       : p(p_), key(key_), thr(thr_), kp(kp_), S(S_) {
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -135,18 +161,12 @@ struct AttnDrop {
   }
   __device__ __forceinline__ uint32_t pair(float p0, float p1, int rr, int j) const {
     const int k = j - lo[rr];
-    if (p != nullptr) {
-      bf16* at = p + (size_t)prow[rr] * S + k;
-      if (k >= 0 && k + 1 < S && !(reinterpret_cast<uintptr_t>(at) & 3)) {
-        *reinterpret_cast<uint32_t*>(at) = pack_bf16(p0, p1);
-      } else {
-        if (k >= 0 && k < S) at[0] = __float2bfloat16(p0);
-        if (k + 1 >= 0 && k + 1 < S) at[1] = __float2bfloat16(p1);
-      }
-    }
+    if (p != nullptr)
+      store_p_pair(p + (size_t)prow[rr] * S + k, p0, p1, k >= 0 && k < S, k + 1 >= 0 && k + 1 < S);
     return pack_bf16(dropped(p0, rr, k), dropped(p1, rr, k + 1));
   }
 };
+using AttnDrop = AttnDropT<bf16>;
 
 // the warpgroup's context rows (shared memory, as store_ctx wrote them) to
 // the saved context [rows][D]
@@ -312,6 +332,7 @@ struct Bwd {
   int B, S, F, nseq, ntiles, seed;
   unsigned thr;
   float kp, scale;
+  const float* p32;   // K11's backward: the probabilities in float32 (p unused)
 };
 
 constexpr int SMALL_W = 4 * DM;  // a block's LayerNorm partial sums
@@ -639,7 +660,9 @@ __device__ __forceinline__ void load_head(const Bwd& b, size_t row0, int nrows, 
 }
 
 // The attention backward of one 128-row tile (whole sequences, tile rows
-// [0, nrows)), head by head, by the 8 warps of the block. Each warp first
+// [0, nrows)), head by head, by the 8 warps of the block, the saved
+// probabilities P of type PT (K4's bf16, K11's float32; every key of a
+// row's sequence read: past its own, 0 when causal). Each warp first
 // owns the 16 query rows q0 = 16 w: dP = dctx V^T over the keys of its
 // rows' sequences (as attend_rows' scores), the saved probabilities p, the
 // dropout factor km, dp = dP km, ds = p (dp - sum_j dp p) and pe = p km in
@@ -647,7 +670,9 @@ __device__ __forceinline__ void load_head(const Bwd& b, size_t row0, int nrows, 
 // transposed ([key][query]). Then it owns the 16 key rows j0 = 16 w:
 // dK = dS^T Q and dV = pe^T dctx over the query rows of its keys'
 // sequences, the entries of another sequence masked out.
-__device__ __forceinline__ void attn_bwd_tile(const Bwd& b, int tile, unsigned char* base) {
+template <class PT>
+__device__ __forceinline__ void attn_bwd_tile(const Bwd& b, const PT* P, int tile,
+                                              unsigned char* base) {
   const AttnBwdLayout L;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
   const int S = b.S, seq0 = tile * b.nseq;
@@ -712,7 +737,7 @@ __device__ __forceinline__ void attn_bwd_tile(const Bwd& b, int tile, unsigned c
           for (int i = 0; i < 4; ++i) {
             const int rr = i >> 1, j = j0 + (i & 1);
             if (j >= lo[rr] && j < hi[rr]) {
-              const float p = bf2f(b.p[prow[rr] * S + (j - lo[rr])]);
+              const float p = p_value(P[prow[rr] * S + (j - lo[rr])]);
               const float km = drop_at(1.f, key_ap, prow[rr], j - lo[rr], b.thr, b.kp);
               pv[t][i] = p;
               pe[t][i] = p * km;

@@ -13,7 +13,7 @@
     python3 scripts/profile_port_slice.py --k9 [--tree DIR] [--tag T]  # K9 alone, N=1024
     python3 scripts/profile_port_slice.py --greedy-wall [--tree DIR] [--tag T]  # greedy_sample's wall
     python3 scripts/profile_port_slice.py --embedding [--tree DIR] [--tag T]  # K1, K6, walls
-    python3 scripts/profile_port_slice.py --mha [--tree DIR] [--tag T]  # K10, K11's forward
+    python3 scripts/profile_port_slice.py --mha [--tree DIR] [--tag T]  # K10, K11 both ways
 
 Loads the trained flagship checkpoint into the port (bfloat16 compute,
 float32 masters). Without ``--train`` it runs greedy one-shot encode+decode
@@ -115,8 +115,10 @@ key padding, as ``chip_smoke.py``'s attention phase builds them: CUDA events
 (mean of 20 after 3), device time under ``torch.profiler`` (every kernel of
 the call, and by kernel name: the QKV, attention and out-projection
 launches), the bound (``chip_smoke.py``'s), and ``F.linear`` -> SDPA ->
-``F.linear`` (float32 in TF32 and in full float32); into
-``mha_rows[_T].json``.
+``F.linear`` (float32 in TF32 and in full float32); and K11's backward alone
+at the same two shapes and both types (one forward kept under autograd, its
+backward rerun on the graph: events, device time by launch, bound, and the
+backward of the library call); into ``mha_rows[_T].json``.
 Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
@@ -770,6 +772,9 @@ def mha_rows(card: str, tag: str) -> int:
     rows: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         w = [t.to(dtype) for t in w16]
+        for what in ("K11 bwd 60x242", "K11 bwd 1024x32"):
+            rows[f"{what} {'bf16' if dtype == torch.bfloat16 else 'f32'}"] = mha_backward_row(
+                cases[what.replace("bwd", "fwd")][0], mask_of, w, heads, gen, lib)
         for what, (cmd, rate) in cases.items():
             mask = mask_of(cmd)
             b, s = cmd.shape
@@ -811,6 +816,53 @@ def mha_rows(card: str, tag: str) -> int:
         json.dump(out, fh, indent=1)
     print(json.dumps(out))
     return 0
+
+
+def mha_backward_row(cmd, mask_of, w, heads, gen, lib, rate=0.1) -> dict:
+    """K11's backward alone (``--mha``): one forward of ``fused_mha_train``
+    at dropout ``rate`` kept under autograd, its backward rerun on the same
+    graph. CUDA events, device time under ``torch.profiler`` (every kernel of
+    the call, and by kernel name), the bound (``chip_smoke.py``'s), and the
+    backward of ``F.linear`` -> SDPA -> ``F.linear`` the same way, events and
+    device time (float32 in TF32 and in full float32)."""
+    from chip_smoke import PEAK_BF16, PEAK_TF32, bound, matmul_tf32
+    from deepsvg_tpu_torch.ops import attention_vjp
+    dev = torch.device("cuda")
+    dtype = w[0].dtype
+    mask = mask_of(cmd)
+    b, s = cmd.shape
+    d = w[0].shape[1]
+    leaves = [torch.randn(b, s, d, device=dev, generator=gen).to(dtype).requires_grad_(),
+              *[t.detach().clone().requires_grad_() for t in w]]
+    g = torch.randn(b, s, d, device=dev, generator=gen).to(dtype)
+    out = attention_vjp.fused_mha_train(leaves[0], *leaves[1:], mask, 2024, heads, False, rate)
+
+    def run():
+        return torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    es = g.element_size()
+    n_bytes = 3 * g.numel() * es + 2 * sum(t.numel() for t in w) * es
+    dev_ms, kern = device_ms(run)
+    row = {"B": b, "S": s, "ms": events_ms(run), "device_ms": dev_ms, "kernels_ms": kern,
+           "bound_ms": bound(n_bytes, 22.0 * b * s * d * d + 12.0 * b * s * s * d,
+                             PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32)[0]}
+    del out
+    for key, tf32 in (("library", False), ("library_tf32", True)):
+        if tf32 and dtype == torch.bfloat16:
+            continue
+        with matmul_tf32(tf32):
+            lib_out = lib(leaves[0], mask, leaves[1:], rate)
+
+            def lib_run():
+                return torch.autograd.grad(lib_out, leaves, g, retain_graph=True)
+
+            row[f"{key}_ms"] = events_ms(lib_run)
+            row[f"{key}_device_ms"] = device_ms(lib_run)[0]
+        del lib_out
+    print(f"K11 bwd {b}x{s} {dtype}: " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in row.items()),
+        flush=True)
+    return row
 
 
 def k4_short_f32_row(dev, heads, d, f, rate) -> dict:

@@ -289,3 +289,75 @@ def test_mha_form_dispatch_rule(dtype, d, heads, s, form):
     else:
         with pytest.raises(ValueError, match=form):
             port_attention.mha_form(dtype, d, heads, s)
+
+
+def _jax_layout(grads, dtype):
+    """``dx, dwqkv, dbqkv, dwo, dbo`` (``nn.Linear`` layout) in the JAX
+    layout, rounded to ``dtype`` as the op returns them, as float32 numpy."""
+    dx, dwqkv, dbqkv, dwo, dbo = (t.to(dtype).float().numpy() for t in grads)
+    return [dx, dwqkv.T, dbqkv, dwo.T, dbo]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("s", [12, 33])
+def test_mha_backward_reference_matches_jax(s, causal, dtype):
+    """The port's plain backward (``mha_backward_reference``, K11's yardstick
+    on the card) at rate 0 against the gradients of JAX ``fused_mha_train``
+    (the Pallas backward, interpret mode) of ``sum(out ** 2)``, handed JAX's
+    own output gradient ``2 out``: B=8 (JAX's ``tile_b`` of 4 divides it),
+    trailing key padding, every query a key; the weight gradients rounded to
+    the weights' type, as the op and JAX return them. float32 atol 5e-5,
+    bfloat16 1e-3 relative RMS (the tolerances of
+    ``test_fused_mha_train_matches_jax`` and
+    ``test_fused_mha_train_bf16_matches_jax``)."""
+    b = 8
+    x, w = _inputs(200 + s + causal, b, s)
+    mask = _trailing_pad(b, s, 3)
+    want, want_grads = _jax_value_and_grads(x, w, mask, causal, dtype=getattr(jnp, dtype))
+    tdt = getattr(torch, dtype)
+    wqkv, bqkv, wo, _ = attention_operands(*w, dtype=tdt)
+    g = torch.from_numpy(2.0 * want).to(tdt)
+    got = port_attention_vjp.mha_backward_reference(
+        torch.from_numpy(x).to(tdt), g, wqkv, bqkv, wo, torch.from_numpy(mask), H, causal)
+    assert got[0].dtype == tdt and all(t.dtype == torch.float32 for t in got[1:])
+    for name, gp, gw in zip(("dx", "dwqkv", "dbqkv", "dwo", "dbo"), _jax_layout(got, tdt),
+                            want_grads):
+        if dtype == "float32":
+            np.testing.assert_allclose(gp, gw, atol=5e-5, err_msg=name)
+        else:
+            rms = np.linalg.norm(gp - gw) / np.linalg.norm(gw)
+            print(f"bf16 S={s} causal={causal} {name}: relative RMS err {rms:.3g}")
+            assert rms <= 1e-3, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("s", [12, 33])
+def test_mha_backward_reference_matches_autograd(s, causal, dtype):
+    """The plain backward with dropout (rate 0.1) against autograd of
+    ``mha_reference`` with the same hash masks: B=3, sequence 0 with every
+    key masked (zero gradients through it), sequence 1 padded. float32 to
+    1e-5 relative RMS; bfloat16, the weight gradients rounded to the
+    weights' type as the op returns them, to 1e-3 relative RMS (the two
+    round at the same points and differ only in float32 summation order;
+    the readings, printed, are 0 at these seeds)."""
+    b, seed, rate = 3, 77, 0.1
+    x, w = _inputs(300 + s + causal, b, s)
+    mask = np.zeros((b, s), np.float32)
+    mask[0] = -np.inf
+    mask[1, s - 4:] = -np.inf
+    ops = attention_operands(*w, dtype=dtype)
+    xt = torch.from_numpy(x).to(dtype)
+    g = torch.from_numpy(np.random.default_rng(s).standard_normal((b, s, D))
+                         .astype(np.float32)).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (xt, *ops)]
+    out = port_attention.mha_reference(*leaves, torch.from_numpy(mask), H, causal, rate, seed)
+    want = torch.autograd.grad(out, leaves, g)
+    got = port_attention_vjp.mha_backward_reference(xt, g, *ops[:3], torch.from_numpy(mask), H,
+                                                    causal, rate, seed)
+    assert torch.count_nonzero(got[0][0]) == 0
+    for name, gp, gw in zip(("dx", "dwqkv", "dbqkv", "dwo", "dbo"), got, want):
+        rms = ((gp.to(dtype).float() - gw.float()).norm() / gw.float().norm()).item()
+        print(f"{dtype} S={s} causal={causal} {name}: relative RMS {rms:.3g}")
+        assert torch.isfinite(gp).all() and rms <= (1e-5 if dtype == torch.float32 else 1e-3), name

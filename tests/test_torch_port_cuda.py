@@ -847,11 +847,13 @@ def test_long_train_kernels_are_tensor_core_kernels(cuda):
         "bfloat16 forward": _sass_counts(r"train_long_attn_kernel", "HMMA"),
         "bfloat16 backward": _sass_counts(r"bwd_attn_long_kernel", "HMMA")}
     print("HGMMA:", products, "HMMA:", attention)
-    # train_qkv, train_out_ffn x 2 modes; bwd_ff, bwd_qkv, wgrad; and the bf16 pair
-    for what, n in (("float32 forward", 3), ("float32 backward", 3), ("bfloat16 forward", 3)):
+    # train_qkv, train_out_ffn x 2 modes; bwd_ff, bwd_qkv (K4's, and K11's dctx
+    # and dx products), wgrad; and the bf16 pair
+    for what, n in (("float32 forward", 3), ("float32 backward", 5), ("bfloat16 forward", 3)):
         assert len(products[what]) == n and all(c > 0 for c in products[what].values()), what
+    # bwd_attn_long_kernel: K4's bf16 and K11's float32 probabilities
     for what, n in (("float32 forward", 4), ("float32 backward", 2), ("bfloat16 forward", 2),
-                    ("bfloat16 backward", 1)):
+                    ("bfloat16 backward", 2)):
         assert len(attention[what]) == n and all(c > 0 for c in attention[what].values()), what
 
 
@@ -1309,6 +1311,11 @@ def _mha_counts(fn):
     return fn.launches, fn.float32_launches, fn.narrow_launches
 
 
+def _mha_backward_counts():
+    fn = attention_vjp.fused_mha_train
+    return fn.backward_launches, fn.float32_backward_launches, fn.narrow_backward_launches
+
+
 @pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("s", MHA_S)
@@ -1339,29 +1346,38 @@ def test_mha_kernel_matches_plain(cuda, s, causal, dtype):
 def test_mha_train_kernel_matches_plain(cuda, s, causal, rate, dtype):
     """K11 forward and backward against the plain version under autograd
     with the same hash masks, elementwise with dropout on, B=3 with a fully
-    masked sequence; reruns bit-equal. The forward runs K10's Hopper forms
-    with dropout."""
+    masked sequence; the gradients also against the plain backward
+    (``mha_backward_reference``, its weight gradients rounded to the
+    weights' type as the op returns them); reruns bit-equal. Both directions
+    run the Hopper forms (counted under ``launches`` and
+    ``backward_launches``, float32 also under ``float32_launches`` and
+    ``float32_backward_launches``, none under the narrow counters)."""
     rng = np.random.default_rng(s + int(rate * 10) + 1000 * causal)
     x, w, mask = _mha_inputs(rng, cuda, dtype, 3, s)
     leaves = [t.requires_grad_() for t in (x, *w)]
     g = _bf16(rng, cuda, 3, s, D).to(dtype)
     seed = 4321
     fn = attention_vjp.fused_mha_train
-    before = (*_mha_counts(fn), fn.backward_launches)
+    before = (*_mha_counts(fn), *_mha_backward_counts())
     out = fn(x, *w, mask, seed, H, causal, rate)
     grads = torch.autograd.grad(out, leaves, g)
     f32 = dtype == torch.float32
-    assert (*_mha_counts(fn), fn.backward_launches) == (before[0] + 1, before[1] + f32,
-                                                        before[2], before[3] + 1)
+    assert (*_mha_counts(fn), *_mha_backward_counts()) == (
+        before[0] + 1, before[1] + f32, before[2], before[3] + 1, before[4] + f32, before[5])
     ref = attn_ops.mha_reference(x, *w, mask, H, causal, rate, seed)
     ref_grads = torch.autograd.grad(ref, leaves, g)
+    plain = attention_vjp.mha_backward_reference(x.detach(), g, *[t.detach() for t in w[:3]],
+                                                 mask, H, causal, rate, seed)
     print(f"K11 {dtype} S={s} causal={causal} rate={rate}: fwd rel rms {_rel_rms(out, ref):.3g}")
     _hold_output(out, ref, dtype)
     assert torch.equal(out[0], w[3].expand(s, D))
-    for name, got, want in zip(("x", "wqkv", "bqkv", "wo", "bo"), grads, ref_grads):
-        print(f"  d{name}: rel rms {_rel_rms(got, want):.3g}")
+    for name, got, want, want_p in zip(("x", "wqkv", "bqkv", "wo", "bo"), grads, ref_grads,
+                                       plain):
+        print(f"  d{name}: rel rms {_rel_rms(got, want):.3g} (autograd), "
+              f"{_rel_rms(got, want_p.to(dtype)):.3g} (plain backward)")
         assert got.dtype == dtype and torch.isfinite(got).all(), name
         assert _rel_rms(got, want) <= MHA_GRAD_RMS[dtype], name
+        assert _rel_rms(got, want_p.to(dtype)) <= MHA_GRAD_RMS[dtype], name
     out2 = fn(x, *w, mask, seed, H, causal, rate)
     again = torch.autograd.grad(out2, leaves, g)
     assert torch.equal(out, out2) and all(torch.equal(a, c) for a, c in zip(grads, again))
@@ -1369,12 +1385,17 @@ def test_mha_train_kernel_matches_plain(cuda, s, causal, rate, dtype):
 
 @pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("s,causal,rate", [(8, False, 0.1), (32, False, 0.1), (33, True, 0.0),
-                                           (241, True, 0.1), (242, False, 0.1)])
+                                           (241, True, 0.1), (242, False, 0.1),
+                                           (17, True, 0.1)])
 def test_mha_backward_recomputes_the_forwards_qkv(cuda, dtype, s, causal, rate):
-    """K11's backward at D=256 recomputes QKV with the Hopper forms' own QKV
-    launch: equal to the bit to the QKV the forward used. Its probabilities
-    and context are recomputed by the first port's backward, which sums in
-    another order: the differing context elements are printed, not held."""
+    """K11's backward at D=256 reruns the forward's own launches in save
+    mode: its QKV, probabilities before dropout and context are equal to the
+    bit to those the forward used. When causal, the probabilities are held
+    where the backward reads them, at each row's keys up to its own (the
+    short form writes 0 past them, the long form leaves them unwritten).
+    The forward that keeps them is the kernels' save instantiation; the one
+    the op runs (no ``parts``) is another build of the same code, and its
+    output is held equal to the bit to the save build's."""
     rng = np.random.default_rng(s)
     x, w, mask = _mha_inputs(rng, cuda, dtype, 6, s)
     g = _bf16(rng, cuda, 6, s, D).to(dtype)
@@ -1382,21 +1403,28 @@ def test_mha_backward_recomputes_the_forwards_qkv(cuda, dtype, s, causal, rate):
     thr = drop_threshold(rate) if rate else 0
     kp = keep_scale(rate) if rate else 1.0
     fwd, bwd = {}, {}
-    attn_ops.launch_forward(x, *w, mask, H, causal, 11, thr, kp, parts=fwd)
+    out_save = attn_ops.launch_forward(x, *w, mask, H, causal, 11, thr, kp, parts=fwd)
+    out = attn_ops.launch_forward(x, *w, mask, H, causal, 11, thr, kp)
     attention_vjp.launch_backward(x, g, *w[:3], mask, H, int(causal), 11, thr, kp, form,
                                   parts=bwd)
     torch.cuda.synchronize()
+    assert torch.equal(out, out_save)
     assert torch.equal(fwd["qkv"], bwd["qkv"])
-    differ = int((fwd["ctx"] != bwd["ctx"]).sum())
-    print(f"{dtype} S={s}: recomputed context differs from the forward's in {differ} of "
-          f"{fwd['ctx'].numel()} elements; largest "
-          f"{(fwd['ctx'].float() - bwd['ctx'].float()).abs().max().item():.3g}")
+    assert torch.equal(fwd["ctx"], bwd["ctx"])
+    p_fwd, p_bwd = (fwd["p"].tril(), bwd["p"].tril()) if causal else (fwd["p"], bwd["p"])
+    print(f"{dtype} S={s} causal={causal}: probabilities differing from the forward's "
+          f"{int((p_fwd != p_bwd).sum())} of {p_fwd.numel()}")
+    assert torch.equal(p_fwd, p_bwd)
+    if causal and s <= 32 and dtype == BF16:
+        assert torch.count_nonzero(bwd["p"].triu(1)) == 0
 
 
 @pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
 def test_mha_narrow_width_takes_the_first_kernels(cuda, dtype):
     """D=128 (4 heads of 32) runs the first port's kernels, counted under
-    ``narrow_launches`` in both ops, and holds against the plain version."""
+    ``narrow_launches`` in both ops and K11's backward under
+    ``narrow_backward_launches``, and holds against the plain version (the
+    gradients also against the plain backward)."""
     rng = np.random.default_rng(128)
     d = 128
     x = _bf16(rng, cuda, 3, 40, d).to(dtype)
@@ -1412,35 +1440,177 @@ def test_mha_narrow_width_takes_the_first_kernels(cuda, dtype):
     fn = attention_vjp.fused_mha_train
     leaves = [t.requires_grad_() for t in (x, *w)]
     g = _bf16(rng, cuda, 3, 40, d).to(dtype)
-    before = _mha_counts(fn)
+    before = (*_mha_counts(fn), *_mha_backward_counts())
     out = fn(x, *w, mask, 5, 4, False, 0.1)
     grads = torch.autograd.grad(out, leaves, g)
-    assert _mha_counts(fn) == (before[0] + 1, before[1], before[2] + 1)
+    assert (*_mha_counts(fn), *_mha_backward_counts()) == (
+        before[0] + 1, before[1], before[2] + 1, before[3] + 1, before[4], before[5] + 1)
     ref = attn_ops.mha_reference(x, *w, mask, 4, False, 0.1, 5)
     _hold_output(out, ref, dtype)
-    for got, want in zip(grads, torch.autograd.grad(ref, leaves, g)):
+    plain = attention_vjp.mha_backward_reference(x.detach(), g, *[t.detach() for t in w[:3]],
+                                                 mask, 4, False, 0.1, 5)
+    for got, want, want_p in zip(grads, torch.autograd.grad(ref, leaves, g), plain):
         assert _rel_rms(got, want) <= MHA_GRAD_RMS[dtype]
+        assert _rel_rms(got, want_p.to(dtype)) <= MHA_GRAD_RMS[dtype]
 
 
 def test_mha_kernels_are_tensor_core_kernels(cuda):
-    """K10 and K11's forward at D=256 multiply on the tensor cores: their
-    product launches (the bf16 one-launch form, and the QKV and out
-    projection launches in both types) with warpgroup instructions, HGMMA;
+    """K10 and K11 at D=256 multiply on the tensor cores: their product
+    launches (the bf16 one-launch form and the QKV launch, forward and the
+    backward's recompute, the long form's with dctx = g Wo, and the out
+    projection, in both types; the backward's dctx and dx products; the
+    weight products) with warpgroup instructions, HGMMA;
     the attention inside the one-launch form, the bf16 long form's attention
-    launch and K4's float32 attention launches (which the float32 form
-    runs) with mma.sync, HMMA."""
+    launch, K4's float32 attention launches (which the float32 form runs,
+    without and with the save) and the attention backward launches with
+    mma.sync, HMMA."""
     products = {
         "bfloat16": _sass_counts(r"layer_infer.*\dmha_(short|qkv|out)_kernel", "HGMMA"),
-        "float32": _sass_counts(r"layer_f32.*\dmha_(qkv|out)_kernel", "HGMMA")}
+        "float32": _sass_counts(r"layer_f32.*\dmha_(qkv|out)_kernel", "HGMMA"),
+        "bfloat16 dctx, dx": _sass_counts(r"layer_train.*bwd_qkv_kernelILi(4ELi2|12ELi1)E",
+                                          "HGMMA"),
+        "float32 dctx, dx": _sass_counts(r"layer_f32_bwd.*bwd_qkv_kernelILi(8ELi2|24ELi1)E",
+                                         "HGMMA"),
+        "weight products": _sass_counts(r"(wgrad_hopper|wgrad_tf32)_kernel", "HGMMA")}
     attention = {
         "bfloat16 short": _sass_counts(r"layer_infer.*\dmha_short_kernel", "HMMA"),
         "bfloat16 long": _sass_counts(r"layer_infer.*\dmha_long_attn_kernel", "HMMA"),
-        "float32": _sass_counts(r"layer_f32.*train_attn_kernelILi\d+ELb0", "HMMA")}
+        "float32": _sass_counts(r"layer_f32.*train_attn_kernelILi\d+ELb[01]", "HMMA"),
+        "bfloat16 backward": _sass_counts(r"layer_train.*\dbwd_attn(_long)?_kernel", "HMMA"),
+        "float32 backward": _sass_counts(r"layer_f32_bwd.*bwd_attn_kernel", "HMMA")}
     print("HGMMA:", products, "HMMA:", attention)
-    for what, n in (("bfloat16", 3), ("float32", 2)):
+    # mha_short without and with the save of the probabilities and in the
+    # backward's mode, mha_qkv in both modes, mha_out; wgrad_hopper's two and
+    # wgrad_tf32's one instantiation
+    for what, n in (("bfloat16", 6), ("float32", 2), ("bfloat16 dctx, dx", 2),
+                    ("float32 dctx, dx", 2), ("weight products", 3)):
         assert len(products[what]) == n and all(c > 0 for c in products[what].values()), what
-    for what, n in (("bfloat16 short", 1), ("bfloat16 long", 1), ("float32", 2)):
+    # the bf16 attention backward launches read K4's bf16 and K11's float32
+    # probabilities: two instantiations each
+    for what, n in (("bfloat16 short", 3), ("bfloat16 long", 2), ("float32", 4),
+                    ("bfloat16 backward", 4), ("float32 backward", 2)):
         assert len(attention[what]) == n and all(c > 0 for c in attention[what].values()), what
+
+
+@pytest.mark.parametrize("dtype,s,expected", [(BF16, 32, 6), (BF16, 242, 6),
+                                              (torch.float32, 32, 7), (torch.float32, 242, 7)])
+def test_mha_backward_launches_per_call(cuda, dtype, s, expected):
+    """One call of K11's backward at D=256 puts ``expected`` launches on the
+    card, every kernel, fill and copy counted under ``torch.profiler``:
+    bfloat16 six (S <= 32: the recompute, dctx, the attention backward, dx,
+    the weight products and their reduction; above, the recompute is two
+    launches, the first computing dctx), float32 seven (the recompute two,
+    dctx, the attention backward, dx, the weight products and their
+    reduction)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(s)
+    x, w, mask = _mha_inputs(rng, cuda, dtype, 60 if s > 32 else 100, s)
+    g = _bf16(rng, cuda, *x.shape).to(dtype)
+    form = attn_ops.check_mha_inputs(x, *w, mask, H)
+    thr, kp = drop_threshold(0.1), keep_scale(0.1)
+
+    def call():
+        return attention_vjp.launch_backward(x, g, *w[:3], mask, H, 0, 3, thr, kp, form)
+
+    call()
+    torch.cuda.synchronize()
+    # with the host activity too, as the profile script reads device time
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    launches = {e.key: e.count for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and e.device_time_total > 0}
+    print(f"K11 backward {dtype} S={s}: {sum(launches.values())} launches {launches}")
+    assert sum(launches.values()) == expected, launches
+    assert not any("mha_attn_bwd" in k or "mha_bwd_rows" in k for k in launches), launches
+
+
+def _digest(*tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def shared_code_digests(dev) -> dict:
+    """SHA-256 of the outputs of the kernels whose device code K11's
+    backward shares or extends, on seeded inputs: K4 (saved mode) forward
+    and its twelve gradients, short form (bfloat16 S=32, float32 S=16) and
+    long form (bfloat16 S=242 causal, float32 S=242), and K10 and K11's
+    forward (bfloat16 and float32, S=32 and S=242). Only the port's public
+    ops are called, so the same function digests another tree's port (put
+    that tree first on ``sys.path``)."""
+    out = {}
+    rng = np.random.default_rng(2024)
+    for dtype, s, b, causal, long_form in ((BF16, 32, 9, False, False),
+                                           (torch.float32, 16, 9, True, False),
+                                           (BF16, 242, 3, True, True),
+                                           (torch.float32, 242, 3, False, True)):
+        masters = [w.requires_grad_() for w in _layer_weights(rng, dev, torch.float32)]
+        x = _bf16(rng, dev, b, s, D).to(dtype).requires_grad_()
+        bias = _bf16(rng, dev, b, D).to(dtype).requires_grad_()
+        mask = _key_mask(rng, dev, b, s)
+        g = _bf16(rng, dev, b, s, D).to(dtype)
+        fn = layer_vjp.fused_layer_train_long if long_form else layer_vjp.fused_layer_train
+        o = fn(x, bias, *masters, mask, 77, H, causal, 0.1, BF16, save_residuals=True)
+        grads = torch.autograd.grad(o, [x, bias, *masters], g)
+        out[f"K4 {dtype} S={s}"] = _digest(o, *grads)
+    for dtype in (BF16, torch.float32):
+        for s in (32, 242):
+            x, w, mask = _mha_inputs(rng, dev, dtype, 5, s)
+            with torch.no_grad():
+                o10 = attn_ops.fused_mha(x, *w, mask, H, s > 32)
+                o11 = attention_vjp.fused_mha_train(x, *w, mask, 5, H, s <= 32, 0.1)
+            out[f"K10 {dtype} S={s}"] = _digest(o10)
+            out[f"K11 forward {dtype} S={s}"] = _digest(o11)
+    return out
+
+
+# shared_code_digests on the port before K11's backward moved onto the
+# layer kernels' device code (its parent tree), on an NVIDIA H100 80GB HBM3
+# (132 SMs: the weight products' row splits follow the SM count)
+SHARED_CODE_DIGESTS = {
+    "K4 torch.bfloat16 S=32":
+        "766770ad408b0802076879454bc66b8f0a52a879f4f9f038e78e6ff144f41153",
+    "K4 torch.float32 S=16":
+        "393ddd31b1c4bffcf18baf2f2694bc75a118f625b0ff32d6a310514ab1cccb7c",
+    "K4 torch.bfloat16 S=242":
+        "ffec332f55a849c7b54fa4f70e6a416b333a8292d48159ee7a3715d4bbafcc77",
+    "K4 torch.float32 S=242":
+        "7302ef1dfb3f0760dcaa237da181edf18854e930a2459084db27d4059deea871",
+    "K10 torch.bfloat16 S=32":
+        "1ee71bb50a5ce4264cd347a49edf7acf6892fd5a1e76c07e0767a97045003716",
+    "K11 forward torch.bfloat16 S=32":
+        "62d0cc131e3f4d8fffd28a8406a75d6283a805d35a812815ff1a7bba3e029ed6",
+    "K10 torch.bfloat16 S=242":
+        "6b6f04c9ad244f608b9543aaebf66f870552eb2e189ce1a73d14c4193e088cfd",
+    "K11 forward torch.bfloat16 S=242":
+        "8503258338f7c0bf225b7db78db9b30ff58d7457acd5485e2efe6a2d16f0ccae",
+    "K10 torch.float32 S=32":
+        "d148e9ce3a72d69745f80602ac00e0becec3712cf686d577b003e582c7c26352",
+    "K11 forward torch.float32 S=32":
+        "4a1782b3b158ad212edd40b8dc1fd3dc33db1f01d0056cca4550b269a9d31e73",
+    "K10 torch.float32 S=242":
+        "5983f14624a613b2030e5b42cc3b14386dfbbe630abe06dd01000791363b5874",
+    "K11 forward torch.float32 S=242":
+        "0d4383c5365dd883e978043cc3bac498e47816c8724e35b49a1e40b7feb17d57",
+}
+
+
+def test_shared_device_code_keeps_its_bits(cuda):
+    """K4's outputs and gradients, and K10's and K11's forward outputs, are
+    equal to the bit to the tree before K11's backward took their device
+    code (the attention backward with ``dseq_bias`` made optional, the QKV
+    and weight-ring products made templates, the forward's probabilities
+    saved on request)."""
+    props = torch.cuda.get_device_properties(0)
+    if props.multi_processor_count != 132:
+        pytest.skip("the digests were taken on a card of 132 SMs")
+    got = shared_code_digests(cuda)
+    for name, digest in got.items():
+        print(f"{name}: {digest}")
+    assert got == SHARED_CODE_DIGESTS
 
 
 def test_mha_kernels_refuse_what_they_do_not_take(cuda):
