@@ -4,9 +4,11 @@
 
 In order: print the card and its power limit; build the port's CUDA kernels
 from ``deepsvg_tpu_torch/ops/csrc``; load the trained flagship checkpoint;
-then five paths in bfloat16, the float32 models, the attention ops and K4's
-recompute mode. Every earlier phase runs K4 in its saved mode, the model's
-default (``layer_vjp.SAVE_RESIDUALS_DEFAULT``).
+then five paths in bfloat16, the float32 models, the attention ops, K4's
+recompute mode and the model variants (the one-stage one-shot model, the
+label-conditioned fonts model, temperature sampling). Every earlier phase
+runs K4 in its saved mode, the model's default
+(``layer_vjp.SAVE_RESIDUALS_DEFAULT``).
 
 *Inference* (greedy one-shot encode+decode, N=1024): each kernel (K1
 embedding on its Hopper form, K2 fused layer in its bfloat16 and float32
@@ -148,6 +150,33 @@ each mode's peak memory and, under ``torch.profiler``, for the device time
 of the step and of K5's kernels in it; each entry timed beside its bound,
 the saved mode, its plain version and ``torch.utils.checkpoint`` around
 ``nn.TransformerEncoderLayer``.
+
+*The model variants* (:func:`variants_phase`; random weights from
+VARIANT_SEED). The one-stage one-shot model (``configs/one_stage_one_shot.py``),
+in bfloat16, then float32: ``one_shot_sample`` at N=1024 counted (K1 1, the
+long K2 8: E1 at S=242 and D1 at S=241, not causal, with ``seq_bias``; K3
+1 at R = N x 241; no plain version called), validated and timed (wall,
+device busy, idle share); K1, both long K2 layers and K3 against their plain
+versions on the path's operands, D1's layer and K3 timed beside their bound,
+plain version and library call; kernel path against plain path at N=64 (ids
+above AR_MARGIN equal, logits within AR_LOGIT_LIMIT) with a control that
+must fail; the long K4 at D1's shape (B=60, S=241, not causal, seq_bias)
+timed; the step at B=60 counted (K1 1, long K4 8 + 8, K5 1 + 1, K6 1; no
+visibility term), timed and gated against its plain path at dropout 0 with
+a control; in bfloat16 the CLI's ``train()`` with a resume. The
+label-conditioned fonts model (``configs/hierarchical_ordered_fonts.py``):
+``one_shot_sample`` with labels at N=1024 counted (K2 12 + 4 float32, K3 1),
+another label decoding otherwise, timed, and against its plain path at N=64
+with a control; ``greedy_sample`` with a ``torch.Generator`` at temperature
+SAMPLE_LOW_T (the greedy ids wherever the margin is at least AR_MARGIN) and 1
+(valid, not the greedy ids), counted (no K3); K7 against its plain version
+with the label's injections at E2 and z's plus the label's at D2, B=60,
+rates 0 and 0.1, bfloat16 and float32, over K7_DRAWS draws; the step at B=60
+counted (K4 8 + 8, K7 2 + 2, K5 1 + 1, K1 1, K6 1), timed and gated with a
+control; the CLI with a resume. Last, Sketchformer's ``greedy_sample`` with
+a generator at SAMPLE_LOW_T and 1 (K9 240, no K3), the low temperature's
+draws equal to the greedy decode before each sequence's first position below
+AR_MARGIN.
 
 At the end, each form of K5 (bf16 at 257 and 512 classes, float32 at 257
 and 512), of K8 and of K2 (short and long, bf16 and float32) is printed
@@ -389,6 +418,35 @@ CE_F32_RMS, CE_F32_GRAD_RMS = 2e-4, 1e-3
 CONTROL_MANTISSA_BITS = 4
 F32_STEP_LOSS = 1e-3
 F32_STEP_MEDIAN_LEAF_RMS = 1e-2
+# The model variants' phase (random weights from VARIANT_SEED: no trained
+# one-stage or fonts checkpoint exists; the fonts model's labels are ids
+# below N_LABELS_FONTS, its config's n_labels). The one-stage model's
+# inference, kernel path against plain path at N=64, is held as
+# Sketchformer's decode is: every id whose plain top-2 margin is at least
+# AR_MARGIN equal, and no logit (the decoder states through the packed heads)
+# off by more than AR_LOGIT_LIMIT; the control, the plain path with the four
+# D1 layers' weights cut by AR_CONTROL_DROP_BITS mantissa bits, must fail the
+# logit limit. The fonts model runs 16 layers (the one-stage model 8, as
+# Sketchformer's decode): its logits, read, differed by up to 0.0479 where
+# the one-stage model's read 0.0312 (PERF.md), so it is held by its ids
+# alone, and the same control must fail that gate (it read 0.952). Each step
+# at B=60 against its plain path at dropout 0 with the recompute phase's gate
+# (RC_STEP_*, TOL_STEP_LEAF_RMS); its control (every E1 and D1 layer cut by
+# CONTROL_DROP_BITS) must fail it. K7 with the label's injections is held as
+# the recipe's K7 cases are (check_stack_train), the fraction of gradient
+# elements outside the band with the ReLU units aligned in both types, as
+# for the seeded D=128 layers: on random weights more FF units sit near zero
+# than on the trained flagship's, and each unit flipped between the two
+# forward passes moves a whole row of dW1 (the first card run read 0.0021-
+# 0.0039 of dW1 and 0.0044-0.0137 of db1 outside the band as they are, every
+# reading with the units aligned within its limit; both are recorded).
+# Temperature sampling at
+# SAMPLE_LOW_T: the draws equal the greedy ids wherever (one-shot), or before
+# the first position where (autoregressive), the greedy decode's margin is
+# below AR_MARGIN; at temperature 1 they are valid and differ from it.
+VARIANT_SEED = 19
+N_LABELS_FONTS = 100
+SAMPLE_LOW_T = 1e-4
 # K11's gradients: relative RMS, about four times the card test's largest
 # reading (1.0e-3, bfloat16)
 MHA_GRAD_RMS = 4e-3
@@ -528,28 +586,30 @@ def matmul_tf32(allow: bool):
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+def decoder_states(model, commands, args, label=None):
+    """One forward with the argmax head (a VAE's latent from the fixed
+    generator): the states the head read ``[R, D]``, the ids ``[R, 1 +
+    n_args]`` and the forward's result."""
+    from deepsvg_tpu_torch.models import DropoutRng
+    fcn = model.decoder.fcn
+    seen = {}
+    hook = fcn.register_forward_hook(lambda m, i, o: seen.__setitem__("x", i[0]))
+    try:
+        res = model(commands, args, label=label, argmax_head=True,
+                    rng=DropoutRng.fixed() if model.cfg.use_vae else None)
+    finally:
+        hook.remove()
+    ids = torch.cat([res["command_ids"].reshape(-1, 1),
+                     res["args_ids"].reshape(-1, fcn.n_args)], dim=1)
+    return seen["x"].reshape(-1, seen["x"].shape[-1]), ids, res
+
+
 def head_ids_and_margins(model, commands, args):
     """One forward with the argmax head: ids ``[R, 1 + n_args]``, and the gap
     between the two best float32 logits of each slot, from the decoder
     output that the head read."""
-    fcn = model.decoder.fcn
-    seen = {}
-
-    def grab(module, inputs, out):
-        seen["x"] = inputs[0]
-
-    hook = fcn.register_forward_hook(grab)
-    try:
-        res = model(commands, args, argmax_head=True)
-    finally:
-        hook.remove()
-    x = seen["x"].reshape(-1, seen["x"].shape[-1]).float()
-    logits = x @ fcn.w_packed.float().t() + fcn.b_packed.float()
-    top2 = [logits[:, o:o + w].topk(2, dim=-1).values for o, w in head_slots(fcn)]
-    margins = torch.stack([t[:, 0] - t[:, 1] for t in top2], dim=1)
-    ids = torch.cat([res["command_ids"].reshape(-1, 1),
-                     res["args_ids"].reshape(-1, fcn.n_args)], dim=1)
-    return ids, margins, res
+    x, ids, res = decoder_states(model, commands, args)
+    return ids, slot_margins(x, model.decoder.fcn), res
 
 
 def id_agreement(ids, ids_ref, margins_ref, min_margin: float) -> dict:
@@ -1143,14 +1203,17 @@ def device_busy_ms(fn, iters: int = 5) -> float | None:
     return device_split(fn, iters)[0]
 
 
-def check_sample(out_c, out_a, n: int, cfg) -> float:
-    """Validate ``one_shot_sample``'s output for ``n`` inputs: shapes, ids
-    and values in range, PAD where a command takes no argument. Returns the
-    share of valid argument slots (not PAD)."""
+def check_sample(out_c, out_a, n: int, cfg, groups: int | None = None,
+                 s_dec: int | None = None) -> float:
+    """Validate ``one_shot_sample``'s output for ``n`` inputs (``groups`` x
+    ``s_dec`` positions each, by default the two-stage decoder's): shapes,
+    ids and values in range, PAD where a command takes no argument. Returns
+    the share of valid argument slots (not PAD)."""
     from deepsvg_tpu_torch.svgtensor.constants import CMD_ARGS_MASK
-    s_dec = cfg.max_seq_len + 1
-    check(tuple(out_c.shape) == (n, cfg.max_num_groups, s_dec)
-          and tuple(out_a.shape) == (n, cfg.max_num_groups, s_dec, cfg.n_args),
+    groups = groups or cfg.max_num_groups
+    s_dec = s_dec or cfg.max_seq_len + 1
+    check(tuple(out_c.shape) == (n, groups, s_dec)
+          and tuple(out_a.shape) == (n, groups, s_dec, cfg.n_args),
           f"output shapes {tuple(out_c.shape)}, {tuple(out_a.shape)}")
     check(bool(torch.isfinite(out_a).all()), "non-finite arguments")
     check(int(out_c.min()) >= 0 and int(out_c.max()) < cfg.n_commands, "command ids out of range")
@@ -3570,6 +3633,489 @@ def recompute_phase(dev, card, kernels, record, reset_counts, read_counts,
                                                        "layer_train_long_recompute_bwd")}}
 
 
+def variant_model(name: str, dev, compute_dtype: str | None = None, dropout: float | None = None,
+                  seed: int = VARIANT_SEED):
+    """The port's model of ``configs/<name>.py`` (its config under
+    ``gpu_fast``, at ``compute_dtype`` and ``dropout`` if given) at full
+    width, initialised by ``init_parameters`` from a seeded generator: no
+    trained checkpoint of the one-stage or the fonts model exists. The
+    masters do not depend on ``compute_dtype``."""
+    import importlib
+
+    from deepsvg_tpu_torch.models import SVGTransformer
+    from deepsvg_tpu_torch.training.trainer import init_parameters
+    cfg = importlib.import_module(f"deepsvg_tpu_torch.configs.{name}").make_model_config()
+    if dropout is not None:
+        cfg = dataclasses.replace(cfg, dropout=dropout)
+    if compute_dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    model = SVGTransformer(cfg)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()
+
+
+def variants_phase(dev, card, record, reset_counts, read_counts) -> dict:
+    """The one-stage one-shot model (bfloat16, then float32) and the
+    label-conditioned fonts model on the card, with random weights from
+    VARIANT_SEED: each path counted with no plain version called, each
+    kernel against its plain version at the path's shapes (the long K2 at
+    D1's S=241, not causal, with ``seq_bias``; K3 at R = N x 241; K7 with
+    the label's injections), kernel path against plain path with a control,
+    the steps at B=60, the CLI, and temperature sampling on the fonts model
+    and on Sketchformer's (K9). Returns the launches of the counted runs."""
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import DropoutRng, greedy_sample, one_shot_sample
+    from deepsvg_tpu_torch.models import sample as sample_mod
+    from deepsvg_tpu_torch.models.layers import key_padding_to_additive
+    from deepsvg_tpu_torch.ops import ce as ce_ops
+    from deepsvg_tpu_torch.ops import decode as decode_ops
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import head as head_ops
+    from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
+    from deepsvg_tpu_torch.svgtensor import masks as M
+    from deepsvg_tpu_torch.training import (
+        constant, create_train_state, make_optimizer, train_step)
+    t_phase = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    out: dict = {}
+    launches: dict = {}
+    no_launch = dict.fromkeys(read_counts(), 0)
+    plain_fns = [(emb_ops, "embedding_reference"), (layer_ops, "layer_reference"),
+                 (head_ops, "head_argmax_reference"), (decode_ops, "decode_step_reference"),
+                 (layer_vjp, "layer_train_reference"), (stack_vjp, "layer_train_reference"),
+                 (ce_ops, "args_ce_reference")]
+
+    def counted(what, fn, expected):
+        """``fn()`` once, counted, with the plain versions spied."""
+        torch.cuda.synchronize()
+        calls, restore = count_plain_calls(plain_fns)
+        reset_counts()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        got = read_counts()
+        print(f"{what}: launches {got}; plain versions called {calls}", flush=True)
+        check(got == no_launch | expected, f"{what}: launches {got}, expected {expected}")
+        check(not any(calls.values()), f"{what}: plain versions ran: {calls}")
+        launches[what] = {k: v for k, v in got.items() if v}
+        return res
+
+    def walls(what, fn, iters=5):
+        """Median wall (CUDA events) of ``fn``, its device busy time under
+        the profiler and the idle share."""
+        ms = cuda_median_ms(fn, iters=iters, warmup=1)
+        busy, split = device_split(fn, iters=3)
+        row = {"median_ms": ms, "device_busy_ms": busy,
+               "idle_share": None if not busy else 1 - busy / ms,
+               "top": sorted(split.items(), key=lambda kv: -kv[1])[:8]}
+        print(f"{what}: {ms:.3f} ms median of {iters}, device busy {busy} ms, idle share "
+              f"{'not measured' if not busy else round(1 - busy / ms, 4)} on {card}", flush=True)
+        return row
+
+    def kernel_vs_plain(what, model, commands, args, label, layers, hold_logits=True):
+        """Kernel path against plain path: every id whose plain top-2 margin
+        is at least AR_MARGIN equal, the largest logit difference within
+        AR_LOGIT_LIMIT; the control (the plain path with ``layers`` cut by
+        AR_CONTROL_DROP_BITS mantissa bits) must fail the logit limit. With
+        ``hold_logits`` false the logits are read, not held, and the control
+        must fail the ids' gate."""
+        fcn = model.decoder.fcn
+        w = fcn.w_packed.float()
+        x_k, ids_k, _ = decoder_states(model, commands, args, label)
+        with plain_path(emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp):
+            x_p, ids_p, _ = decoder_states(model, commands, args, label)
+            with contextlib.ExitStack() as cut:
+                for layer in layers:
+                    cut.enter_context(truncated_weights(layer, AR_CONTROL_DROP_BITS))
+                x_c, ids_c, _ = decoder_states(model, commands, args, label)
+        wide = slot_margins(x_p, fcn) >= AR_MARGIN
+        agree = (ids_k == ids_p)[wide].float().mean().item()
+        agree_c = (ids_c == ids_p)[wide].float().mean().item()
+        gap = ((x_k.float() - x_p.float()) @ w.t()).abs().max().item()
+        gap_c = ((x_c.float() - x_p.float()) @ w.t()).abs().max().item()
+        print(f"{what} kernel vs plain path N={commands.shape[0]}: ids equal on {agree:.5f} of "
+              f"the {int(wide.sum())} slots with plain margin >= {AR_MARGIN} (of "
+              f"{wide.numel()}); largest logit difference {gap:.3g} (limit {AR_LOGIT_LIMIT}); "
+              f"control ({len(layers)} layers less {AR_CONTROL_DROP_BITS} mantissa bits): ids "
+              f"{agree_c:.5f}, logits {gap_c:.3g}", flush=True)
+        check_later(agree == 1.0, f"{what}: ids differ above the margin: {agree}")
+        if hold_logits:
+            check_later(gap <= AR_LOGIT_LIMIT, f"{what}: logits differ by {gap} (limit "
+                                               f"{AR_LOGIT_LIMIT})")
+            check(gap_c > AR_LOGIT_LIMIT, f"{what}: the logit limit passed its control "
+                                          f"({gap_c})")
+        else:
+            check(agree_c < 1.0, f"{what}: the ids' gate passed its control ({agree_c})")
+        return {"agreement": agree, "slots_compared": int(wide.sum()), "max_logit_diff": gap,
+                "control_agreement": agree_c, "control_max_logit_diff": gap_c}
+
+    def step_gate(what, make_model, batch, weights, model_args, cut_layers, dtype):
+        """One step at dropout 0, kernel path against plain path, with the
+        recompute phase's gate; the control (the plain path with the layers
+        ``cut_layers(model)`` cut by CONTROL_DROP_BITS) must fail it."""
+        def grads_of(control=False):
+            opt = make_optimizer(constant(LR))
+            st = create_train_state(make_model(0.0), opt, init=False)
+            with contextlib.ExitStack() as cut:
+                for layer in (cut_layers(st.model) if control else []):
+                    cut.enter_context(truncated_weights(layer, CONTROL_DROP_BITS))
+                st, r = train_step(st, batch, weights, opt, model_args)
+            names = [k for k, _ in st.model.named_parameters()]
+            return r, dict(zip(names, [p.grad.detach().clone() for p in st.parameters()]))
+        res_k, grads_k = grads_of()
+        with plain_path(emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp):
+            res_p, grads_p = grads_of()
+            res_c, grads_c = grads_of(control=True)
+        gate = step_against_plain(what, res_k, grads_k, res_p, grads_p)
+        ctrl = step_against_plain(f"{what} control", res_c, grads_c, res_p, grads_p)
+        glob2 = {k: rel_rms(grads_k[k], grads_p[k]) for k in grads_p if "glob2" in k}
+        del grads_k, grads_p, grads_c
+        torch.cuda.empty_cache()
+        lim_loss, lim_med = RC_STEP_LOSS[dtype], RC_STEP_MEDIAN_LEAF_RMS[dtype]
+        print(f"{what} at dropout 0, kernel vs plain path: {gate}; control: {ctrl}"
+              + (f"; glob2 leaves' relative RMS at most {max(glob2.values()):.3g}"
+                 if glob2 else ""), flush=True)
+        check_later(gate["loss_rel_diff"] <= lim_loss and gate["median_leaf_rms"] <= lim_med
+                    and gate["worst_leaf_rms"] <= TOL_STEP_LEAF_RMS,
+                    f"{what} gate: loss rel diff {gate['loss_rel_diff']} (limit {lim_loss}), "
+                    f"median leaf {gate['median_leaf_rms']} (limit {lim_med}), worst leaf "
+                    f"{gate['worst_leaf_rms']} (limit {TOL_STEP_LEAF_RMS})")
+        check(ctrl["loss_rel_diff"] > lim_loss or ctrl["median_leaf_rms"] > lim_med,
+              f"{what}: the gate passed its control {ctrl}")
+        return {"gate": gate, "control": ctrl, "glob2_rms": glob2}
+
+    def step_run(what, make_model, batch, weights, model_args, expected):
+        """The step at dropout 0.1 counted, then timed (CUDA events, median of
+        ITERS after 3; the host clock over 10 to a synchronize; device busy
+        under the profiler)."""
+        optimizer = make_optimizer(constant(LR))
+        state = create_train_state(make_model(DROPOUT), optimizer, init=False)
+        _, res = counted(what, lambda: train_step(state, batch, weights, optimizer, model_args),
+                         expected)
+
+        def one_step():
+            return train_step(state, batch, weights, optimizer, model_args)
+        ms = cuda_median_ms(one_step, iters=ITERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            _, r = one_step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 10
+        busy, split = device_split(one_step, iters=3)
+        check(all(bool(torch.isfinite(v)) for v in r.values()), f"{what}: a loss is not finite")
+        row = {"B": B_RECIPE, "median_ms": ms, "host_mean_ms_per_step": host_ms,
+               "device_busy_ms_per_step": busy,
+               "idle_share": None if not busy else 1 - busy / host_ms,
+               "launches": launches[what], "losses": {k: float(v) for k, v in r.items()},
+               "top": sorted(split.items(), key=lambda kv: -kv[1])[:10]}
+        print(f"{what} dropout {DROPOUT}: {ms:.3f} ms/step median of {ITERS} (host clock "
+              f"{host_ms:.3f} ms/step mean of 10), device busy {busy} ms per step, idle share "
+              f"{'not measured' if not busy else round(1 - busy / host_ms, 4)} on {card}",
+              flush=True)
+        del state, optimizer
+        torch.cuda.empty_cache()
+        return row
+
+    def sample_checks(c, a, n, cfg):
+        s_dec = cfg.max_total_len + 1 if cfg.decode_stages == 1 else cfg.max_seq_len + 1
+        groups = 1 if cfg.decode_stages == 1 else cfg.max_num_groups
+        return check_sample(c, a, n, cfg, groups, s_dec)
+
+    # ======================= (1) one-stage one-shot, bfloat16 then float32
+    ob = generate_batch(np.random.default_rng(0), N_MAIN, 8, 30)
+    oc = torch.from_numpy(ob["commands_grouped"]).to(dev)              # [N, 1, 242]
+    oa = torch.from_numpy(ob["args_grouped"]).to(dev)
+    os_args = ["commands_grouped", "args_grouped"] * 2
+    os_batch = {k: torch.from_numpy(ob[k][:B_RECIPE]).to(dev)
+                for k in ("commands_grouped", "args_grouped")}
+    one_stage: dict = {}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for dt, tag in ((bf16, ""), (f32, "_f32")):
+        dname = "bfloat16" if dt == bf16 else "float32"
+        model = variant_model("one_stage_one_shot", dev, dname)
+        cfg = model.cfg
+        dt = getattr(torch, cfg.compute_dtype)
+        enc, dec, fcn = model.encoder, model.decoder, model.decoder.fcn
+        res: dict = {}
+        with torch.no_grad():
+            c_o, a_o = counted(
+                f"one-stage one_shot_sample {dname} N={N_MAIN}",
+                lambda: one_shot_sample(model, oc, oa),
+                {f"embedding{tag}": 1, f"layer_long{tag}": 2 * cfg.n_layers, f"head{tag}": 1})
+            res["valid_share"] = sample_checks(c_o, a_o, N_MAIN, cfg)
+            res["inference"] = walls(f"one-stage one_shot_sample {dname} N={N_MAIN}",
+                                     lambda: one_shot_sample(model, oc, oa))
+            # each kernel against its plain version on the path's operands
+            cmd_f, args_f = oc[:, 0], oa[:, 0]
+            cmd_table, arg_tables, pos_table = enc.embedding.tables()
+            e_in = (cmd_f, args_f, M.group_mask(cmd_f), cmd_table, arg_tables,
+                    enc.embedding.group_table(), pos_table[:cmd_f.shape[1]], True)
+            x_e1 = emb_ops.fused_embedding(*e_in)
+            k1_err = (x_e1.float() - emb_ops.embedding_reference(*e_in).float()).abs().max()
+            k1_err = k1_err.item()
+            k1_tol = TOL_EMBED if dt == bf16 else TOL_EMBED_F32 * x_e1.abs().max().item()
+            check_later(k1_err <= k1_tol, f"K1 one-stage {dname}: max abs err {k1_err}")
+            z, _, _ = model.encode(oc, oa, rng=DropoutRng.fixed())
+            l_e, l_d = enc.encoder.layers[0], dec.decoder.layers[0]
+            x_d1 = dec.embedding(N_MAIN)                                    # [N, 241, D]
+            sb_d1 = l_d.injection(z).to(dt)
+            kp_e1 = key_padding_to_additive(M.key_padding_mask(cmd_f))
+            zero_d1 = torch.zeros(x_d1.shape[:2], device=dev)
+            atol, rtol = (TOL_LAYER_ATOL, TOL_LAYER_RTOL) if dt == bf16 else (TOL_F32_ATOL,
+                                                                             TOL_F32_RTOL)
+            cases = {"E1 S=242 key pad": layer_args(l_e, x_e1, kp_e1),
+                     "D1 S=241 not causal, seq_bias": layer_args(l_d, x_d1, zero_d1, sb_d1)}
+            k2 = {w: compare_elementwise(f"K2 long {dname} one-stage {w}",
+                                         layer_ops.fused_layer(*la),
+                                         layer_ops.layer_reference(*la), TOL_LAYER_RMS, atol,
+                                         rtol)
+                  for w, la in cases.items()}
+            # the D1 layer per launch, beside nn.TransformerEncoderLayer on the
+            # same rows (no seq_bias: the same products and attention)
+            la = cases["D1 S=241 not causal, seq_bias"]
+            b_ms, b_by = layer_cost(la)
+            lib = transformer_layer(l_d, dt, dev)
+            with matmul_tf32(dt == f32):
+                lib_ms = cuda_ms(lambda: lib(x_d1))
+            k2["D1 S=241 not causal, seq_bias"].update(
+                ms=cuda_ms(lambda: layer_ops.fused_layer(*la)),
+                plain_ms=cuda_ms(lambda: layer_ops.layer_reference(*la), iters=3, warmup=1),
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            del lib
+            # K3 at R = N x 241 on D1's output
+            y = dec.decoder(x_d1, z).reshape(-1, cfg.d_model).contiguous()
+            head_in = (y, fcn.w_packed, fcn.b_packed, cfg.n_commands, cfg.n_args, fcn.args_dim)
+            ids_k = head_ops.fused_head_argmax(*head_in).long()
+            ids_p = head_ops.head_argmax_reference(*head_in).long()
+            differ = ids_k != ids_p
+            wide = slot_margins(y, fcn) >= TOL_HEAD_MARGIN
+            check_later(not bool((differ & wide).any()),
+                        f"K3 {dname} at R={y.shape[0]}: ids differ where the top-2 gap >= "
+                        f"{TOL_HEAD_MARGIN}")
+            r, d = y.shape
+            n_cls = fcn.n_commands + fcn.n_args * fcn.args_dim
+            es = y.element_size()
+            hb_ms, hb_by = bound(nbytes(y) + n_cls * d * es + n_cls * es
+                                 + r * (1 + fcn.n_args) * 4, 2.0 * r * d * n_cls,
+                                 PEAK_BF16 if dt == bf16 else PEAK_TF32)
+            with matmul_tf32(dt == f32):
+                head_lib_ms = cuda_ms(head_library(head_in, head_slots(fcn)))
+            k3 = {"R": r, "ids_differing": int(differ.sum()), "of": differ.numel(),
+                  "ms": cuda_ms(lambda: head_ops.fused_head_argmax(*head_in)),
+                  "plain_ms": cuda_ms(lambda: head_ops.head_argmax_reference(*head_in),
+                                      iters=3, warmup=1),
+                  "library_ms": head_lib_ms, "bound_ms": hb_ms, "bound_by": hb_by}
+            print(f"K3 {dname} one-stage R={r}: {k3['ids_differing']} of {k3['of']} ids differ, "
+                  f"all where the top-2 gap < {TOL_HEAD_MARGIN}; {k3['ms']:.4f} ms (plain "
+                  f"{k3['plain_ms']:.4f}, library {head_lib_ms:.4f}, bound {hb_ms:.4f} by "
+                  f"{hb_by}); K2 long D1 {k2['D1 S=241 not causal, seq_bias']['ms']:.4f} ms "
+                  f"(plain {k2['D1 S=241 not causal, seq_bias']['plain_ms']:.4f}, library "
+                  f"{lib_ms:.4f}, bound {b_ms:.4f} by {b_by}); K1 max abs err {k1_err:.3g} on "
+                  f"{card}", flush=True)
+            res.update(k1_max_abs_err=k1_err, k2=k2, k3=k3)
+            del y, head_in, ids_k, ids_p, differ, wide, x_e1, cases, la
+            # kernel path against plain path at N=64, and the control
+            res["gate"] = kernel_vs_plain(f"one-stage {dname}", model, oc[:N_AR_GATE],
+                                          oa[:N_AR_GATE], None, dec.decoder.layers)
+        # the long K4 at D1's shape, S=241, not causal, with seq_bias (B=60)
+        res["k4_d1"] = k4_long_row(layer_vjp, l_d, x_d1[:B_RECIPE], sb_d1[:B_RECIPE],
+                                   zero_d1[:B_RECIPE], False, gen)
+        k4 = res["k4_d1"]
+        print(f"  long K4 {dname} one-stage D1 B={B_RECIPE} S=241 not causal, seq_bias: forward "
+              f"{k4['fwd_ms']:.4f} ms (device {k4['device_fwd_ms']}, plain "
+              f"{k4['plain_fwd_ms']:.4f}, bound {k4['fwd_bound_ms']:.4f}), backward "
+              f"{k4['bwd_ms']:.4f} (device {k4['device_bwd_ms']}, plain {k4['plain_bwd_ms']:.4f}, "
+              f"bound {k4['bwd_bound_ms']:.4f}) on {card}", flush=True)
+        del model, z, x_d1, sb_d1, zero_d1
+        torch.cuda.empty_cache()
+
+        # the training step at B=60, counted and timed, then gated
+        def make_model(dropout, dname=dname):
+            return variant_model("one_stage_one_shot", dev, dname, dropout)
+        step_expected = {f"embedding{tag}": 1, f"layer_train_long_fwd{tag}": 8,
+                         f"layer_train_long_bwd{tag}": 8, f"args_ce_fwd{tag}": 1,
+                         f"args_ce_bwd{tag}": 1, "embedding_bwd": 1}
+        res["step"] = step_run(f"one-stage train_step {dname} B={B_RECIPE}", make_model,
+                               os_batch, SF_WEIGHTS, os_args, step_expected)
+        check("loss_visibility" not in res["step"]["losses"],
+              "the one-stage loss has a visibility term")
+        res["step"].update(step_gate(
+            f"one-stage step {dname} B={B_RECIPE}", make_model, os_batch, SF_WEIGHTS, os_args,
+            lambda m: [*m.encoder.encoder.layers, *m.decoder.decoder.layers], dt))
+        if dt == bf16:
+            res["cli"] = run_cli(dev, reset_counts, read_counts, no_launch | step_expected,
+                                 "one_stage_one_shot", timing=False)
+        one_stage[dname] = res
+    out["one_stage"] = one_stage
+
+    # ================================== (2) the label-conditioned fonts model
+    fb = generate_batch(np.random.default_rng(0), N_MAIN, 8, 30, label_range=N_LABELS_FONTS)
+    fc = torch.from_numpy(fb["commands"]).to(dev)
+    fa = torch.from_numpy(fb["args"]).to(dev)
+    fl = torch.from_numpy(fb["label"]).to(dev)
+    fonts: dict = {}
+    model = variant_model("hierarchical_ordered_fonts", dev)
+    cfg = model.cfg
+    enc, dec = model.encoder, model.decoder
+    g, d_model = cfg.max_num_groups, cfg.d_model
+    with torch.no_grad():
+        c_f, a_f = counted(f"fonts one_shot_sample N={N_MAIN}",
+                           lambda: one_shot_sample(model, fc, fa, label=fl),
+                           {"embedding": 1, "layer": 12, "layer_f32": 4, "head": 1})
+        fonts["valid_share"] = sample_checks(c_f, a_f, N_MAIN, cfg)
+        other = one_shot_sample(model, fc[:64], fa[:64], label=(fl[:64] + 1) % N_LABELS_FONTS)
+        check(not (torch.equal(other[0], c_f[:64]) and torch.equal(other[1], a_f[:64])),
+              "the fonts model decodes the same icons under other labels")
+        fonts["inference"] = walls(f"fonts one_shot_sample N={N_MAIN}",
+                                   lambda: one_shot_sample(model, fc, fa, label=fl))
+        fonts["gate"] = kernel_vs_plain("fonts", model, fc[:N_AR_GATE], fa[:N_AR_GATE],
+                                        fl[:N_AR_GATE], dec.decoder.layers, hold_logits=False)
+
+        # temperature sampling: at SAMPLE_LOW_T the greedy ids wherever the
+        # greedy margin is at least AR_MARGIN; at 1, valid draws
+        x_g, _, _ = decoder_states(model, fc, fa, fl)
+        margins = slot_margins(x_g, dec.fcn).reshape(N_MAIN, g, cfg.max_seq_len + 1, -1)
+        del x_g
+        sampled = {}
+        for t in (SAMPLE_LOW_T, 1.0):
+            gen_t = torch.Generator(device=dev).manual_seed(23)
+            sampled[t] = counted(
+                f"fonts greedy_sample with a generator at temperature {t} N={N_MAIN}",
+                lambda gen_t=gen_t, t=t: greedy_sample(model, fc, fa, label=fl, temperature=t,
+                                                       generator=gen_t),
+                {"embedding": 1, "layer": 12, "layer_f32": 4})
+            sample_checks(*sampled[t], N_MAIN, cfg)
+        wide = position_margin(margins, c_f) >= AR_MARGIN
+        same = (sampled[SAMPLE_LOW_T][0] == c_f) & (sampled[SAMPLE_LOW_T][1] == a_f).all(-1)
+        low_agree = same[wide].float().mean().item()
+        hot_same = (sampled[1.0][0] == c_f).float().mean().item()
+        print(f"fonts temperature {SAMPLE_LOW_T}: equal to the greedy sample on {low_agree:.5f} "
+              f"of the {int(wide.sum())} positions with greedy margin >= {AR_MARGIN}; "
+              f"temperature 1: commands equal to the greedy ones on {hot_same:.4f}",
+              flush=True)
+        check_later(low_agree == 1.0, f"fonts draws at {SAMPLE_LOW_T} differ from the greedy "
+                                      f"ids above the margin: {low_agree}")
+        check(hot_same < 1.0, "fonts draws at temperature 1 equal the greedy sample")
+        fonts["sampling"] = {"low_t_agreement": low_agree, "positions": int(wide.sum()),
+                             "t1_commands_equal_greedy": hot_same}
+        del sampled, margins, same, wide, c_f, a_f, other
+
+    # K7 against its plain version with the label's injections: E2 (the
+    # label's alone, non-zero) and D2 (z's plus the label's), B=60, rates 0
+    # and 0.1, bfloat16 and float32 (the same masters), over K7_DRAWS draws
+    model32 = variant_model("hierarchical_ordered_fonts", dev, "float32")
+
+    def fonts_draw(stage, m):
+        e, dd = m.encoder, m.decoder
+
+        def draw(gen_d):
+            with torch.no_grad():
+                lab = torch.randint(0, N_LABELS_FONTS, (B_RECIPE,), device=dev, generator=gen_d)
+                if stage == "E2":
+                    le = e.label_embedding(lab)
+                    x = e.hierarchical_PE(torch.randn(B_RECIPE, g, d_model, device=dev,
+                                                      generator=gen_d))
+                    visible = torch.randint(1, g + 1, (B_RECIPE, 1), device=dev, generator=gen_d)
+                    mask = torch.where(torch.arange(g, device=dev)[None] < visible, 0.0,
+                                       float("-inf"))
+                    mask[0] = float("-inf")                       # one fully masked sequence
+                    biases = torch.stack([lay.label_injection(le)
+                                          for lay in e.hierarchical_encoder.layers])
+                    return x, biases, mask
+                le = dd.label_embedding(lab)
+                zz = 0.5 * torch.randn(B_RECIPE, cfg.dim_z, device=dev, generator=gen_d)
+                biases = torch.stack([lay.injection(zz) + lay.label_injection(le)
+                                      for lay in dd.hierarchical_decoder.layers])
+                return (dd.hierarchical_embedding(B_RECIPE), biases,
+                        torch.zeros(B_RECIPE, g, device=dev))
+        return draw
+    k7 = {}
+    for m, dname in ((model, "bfloat16"), (model32, "float32")):
+        for stage, layers in (("E2", list(m.encoder.hierarchical_encoder.layers)),
+                              ("D2", list(m.decoder.hierarchical_decoder.layers))):
+            for rate in (0.0, DROPOUT):
+                k7[f"{stage} {dname} B={B_RECIPE} rate {rate}"] = check_stack_train(
+                    stack_vjp, layer_vjp, f"fonts {stage} {dname} B={B_RECIPE} labels",
+                    layers, fonts_draw(stage, m), rate, outliers_aligned=True)
+    fonts["k7"] = {k: {"worst": v["worst"], "forward_max_abs_err": v["forward_max_abs_err"]}
+                   for k, v in k7.items()}
+    del model32, k7
+
+    # the step at B=60, counted, timed and gated; the CLI with a resume
+    f_batch = {"commands": fc[:B_RECIPE], "args": fa[:B_RECIPE], "label": fl[:B_RECIPE]}
+    f_args = cfg.get_model_args()
+
+    def fonts_model(dropout):
+        return variant_model("hierarchical_ordered_fonts", dev, None, dropout)
+    fonts_expected = {"embedding": 1, "layer_train_fwd": 8, "layer_train_bwd": 8,
+                      "stack_fwd": 2, "stack_bwd": 2, "args_ce_fwd": 1, "args_ce_bwd": 1,
+                      "embedding_bwd": 1}
+    fonts["step"] = step_run(f"fonts train_step B={B_RECIPE}", fonts_model, f_batch, SF_WEIGHTS,
+                             f_args, fonts_expected)
+    fonts["step"].update(step_gate(
+        f"fonts step B={B_RECIPE}", fonts_model, f_batch, SF_WEIGHTS, f_args,
+        lambda m: [*m.encoder.encoder.layers, *m.decoder.decoder.layers], bf16))
+    fonts["cli"] = run_cli(dev, reset_counts, read_counts, no_launch | fonts_expected,
+                           "hierarchical_ordered_fonts", timing=False)
+    del model
+    torch.cuda.empty_cache()
+    out["fonts"] = fonts
+
+    # ==================== (3) Sketchformer's decode with a generator (K9)
+    sf = sketchformer_model(dev)
+    sb = generate_batch(np.random.default_rng(0), N_MAIN, 8, 30)
+    sc = torch.from_numpy(sb["commands_grouped"]).to(dev)
+    sa = torch.from_numpy(sb["args_grouped"]).to(dev)
+    steps = sf.cfg.max_total_len
+    with torch.no_grad():
+        z, _, _ = sf.encode(sc, sa, rng=DropoutRng.fixed())
+        greedy, raw_c, _, states = traced_decode(sf, z, sample_mod)
+        margin = position_margin(slot_margins(states, sf.decoder.fcn), raw_c.t()).t()
+        del states
+        drawn = {}
+        for t in (SAMPLE_LOW_T, 1.0):
+            gen_t = torch.Generator(device=dev).manual_seed(29)
+            drawn[t] = counted(
+                f"Sketchformer greedy_sample with a generator at temperature {t} N={N_MAIN}",
+                lambda gen_t=gen_t, t=t: greedy_sample(sf, sc, sa, temperature=t,
+                                                       generator=gen_t),
+                {"embedding": 1, "layer_long": 4, "decode": steps})
+            c_t, a_t = drawn[t]
+            used = M.cmd_args_mask(dev, torch.bool)[c_t.long()]
+            check(tuple(c_t.shape) == (N_MAIN, 1, steps) and int(c_t.min()) >= 0
+                  and int(c_t.max()) < sf.cfg.n_commands and bool(torch.isfinite(a_t).all())
+                  and bool((a_t[~used] == -1).all()),
+                  f"Sketchformer draws at temperature {t}: shapes or ranges")
+        agree, compared = prefix_gate(drawn[SAMPLE_LOW_T], greedy, margin, AR_MARGIN)
+        hot_same = (drawn[1.0][0] == greedy[0]).float().mean().item()
+        print(f"Sketchformer temperature {SAMPLE_LOW_T}: {agree:.4f} of the sequences equal to "
+              f"the greedy decode before their first position with margin < {AR_MARGIN} "
+              f"({compared} positions compared); temperature 1: commands equal to the greedy "
+              f"ones on {hot_same:.4f}", flush=True)
+        check_later(agree == 1.0, f"Sketchformer draws at {SAMPLE_LOW_T} differ from the greedy "
+                                  f"decode before the margin gate: {agree}")
+        check(compared >= N_AR_GATE, f"only {compared} positions cleared the margin")
+        check(hot_same < 1.0, "Sketchformer draws at temperature 1 equal the greedy decode")
+        out["sketchformer_sampling"] = {
+            "low_t_agreement": agree, "positions_compared": compared,
+            "t1_commands_equal_greedy": hot_same,
+            "t1": walls(f"Sketchformer greedy_sample at temperature 1 N={N_MAIN}",
+                        lambda: greedy_sample(sf, sc, sa, temperature=1.0,
+                                              generator=torch.Generator(device=dev)
+                                              .manual_seed(31)), iters=3)}
+    del sf, z, greedy, drawn, margin
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"variants phase: {out['phase_s']:.1f} s", flush=True)
+    record["variants"] = out
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5013,6 +5559,9 @@ def main() -> int:
     # ================================== K4's recompute mode and its steps
     rc_launches = recompute_phase(dev, card, kernels, record, reset_counts, read_counts,
                                   library_layer)
+
+    # ================ the one-stage one-shot and label-conditioned models
+    variants_phase(dev, card, record, reset_counts, read_counts)
 
     # K5's forms and K8 beside their library calls and bounds
     forms = {n: kernels[n] for n in ("args_ce_fwd", "args_ce_bwd", "args_ce_fwd_512",

@@ -1,15 +1,16 @@
-"""The SVG Transformers in PyTorch: the two-stage models (inference and the
-training forward) and the one-stage autoregressive model (inference)."""
+"""The SVG Transformers in PyTorch: the two-stage and one-stage one-shot
+models, with or without label conditioning, and the one-stage autoregressive
+model (inference, sampling and the training forward)."""
 from .cast import DropoutRng
 from .checkpoint import load_params, msgpack_restore, msgpack_serialize, save_params
 from .config import (
     ModelConfig, gpu_fast, hierarchical, hierarchical_ordered, hierarchical_self_matching,
-    sketchformer)
+    one_stage_one_shot, sketchformer)
 from .loss import svg_loss
 from .model import SVGTransformer
 from .sample import (
     autoregressive_sample, autoregressive_sample_cached, autoregressive_sample_fused,
-    greedy_sample, make_valid, one_shot_sample, threshold_sample)
+    greedy_sample, make_valid, one_shot_sample, sample_categorical, threshold_sample)
 from .weights import load_flax_params, load_model, to_flax_params
 
 __all__ = [
@@ -18,5 +19,6 @@ __all__ = [
     "greedy_sample", "hierarchical",
     "hierarchical_ordered", "hierarchical_self_matching", "load_flax_params", "load_model",
     "load_params", "make_valid", "msgpack_restore", "msgpack_serialize", "one_shot_sample",
-    "save_params", "sketchformer", "svg_loss", "threshold_sample", "to_flax_params",
+    "one_stage_one_shot", "sample_categorical", "save_params", "sketchformer", "svg_loss",
+    "threshold_sample", "to_flax_params",
 ]

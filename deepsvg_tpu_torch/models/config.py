@@ -2,12 +2,13 @@
 ``deepsvg_tpu/models/config.py:ModelConfig`` with the fields the port reads.
 
 The port runs the two-stage one-shot models: the flagship
-``hierarchical_ordered``, the VAE ``hierarchical`` and
-``hierarchical_self_matching``, and the one-stage autoregressive
-``sketchformer`` with relative targets (inference, teacher forcing, the
-greedy decode, and training); the variants it does not run yet are still
-expressible here so that a config read from the JAX side keeps its meaning,
-and the model raises ``NotImplementedError`` on them (see
+``hierarchical_ordered``, the VAE ``hierarchical``,
+``hierarchical_self_matching`` and, with label conditioning, the fonts
+config's; the one-stage one-shot model (``one_stage_one_shot``); and the
+one-stage autoregressive ``sketchformer`` with relative targets (inference,
+teacher forcing, the decode, and training). The variants it does not run yet
+are still expressible here so that a config read from the JAX side keeps its
+meaning, and the model raises ``NotImplementedError`` on them (see
 ``models/model.py``).
 """
 from __future__ import annotations
@@ -39,6 +40,8 @@ class ModelConfig:
     rel_targets: bool = False
 
     label_condition: bool = False
+    n_labels: int = 100
+    dim_label: int = 64
 
     self_match: bool = False
 
@@ -88,6 +91,14 @@ class ModelConfig:
         if self.label_condition:
             model_args.append("label")
         return model_args
+
+
+def one_stage_one_shot() -> ModelConfig:
+    """The one-stage one-shot baseline (``configs_tpu/one_stage_one_shot.py``):
+    the whole icon encoded as one sequence with the group-index embedding,
+    ResNet + VAE, and one decoder over ``max_total_len + 1`` constant queries
+    with the latent injected in every layer, no visibility head."""
+    return ModelConfig(encode_stages=1, decode_stages=1)
 
 
 def hierarchical() -> ModelConfig:

@@ -16,7 +16,8 @@ step at a given position, with plain lookups and the Linear, as the JAX
 package's ``pos_index`` path does.
 
 ``ConstEmbedding`` gives the learned positional queries of the one-shot
-decoders.
+decoders, ``LabelEmbedding`` the class-label table of the label-conditioned
+models.
 """
 from __future__ import annotations
 
@@ -124,3 +125,19 @@ class ConstEmbedding(nn.Module):
         zeros = torch.zeros((batch_size, self.seq_len, table.shape[1]),
                             dtype=table.dtype, device=table.device)
         return self.PE(zeros, deterministic, rng)
+
+
+class LabelEmbedding(nn.Module):
+    """Class-label embedding ``label [B]`` -> ``[B, dim_label]`` in the compute
+    dtype: an ``n_labels x dim_label`` table (flax ``nn.Embed``, initialised
+    as the other tables), cast at use."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        self.embedding = nn.Parameter(torch.zeros(cfg.n_labels, cfg.dim_label))
+
+    def forward(self, label, deterministic: bool = True):
+        table = cast_at_use(self, "embedding", self.embedding, self.compute_dtype,
+                            deterministic=deterministic)
+        return table[label.long()]

@@ -13,6 +13,11 @@ K2 and K4 take their short form up to 32 rows (float32 K4: 16) and their
 long form up to 256, Sketchformer's encoder at S = 242 and its causal
 decoder at S = 241 included.
 
+A label-conditioned model (``label_condition``) gives every layer a second
+injection, ``glob2`` of the label embedding: at inference it is the encoder
+layer's ``seq_bias`` and is summed with ``glob(z)`` in the decoder layer; when
+training each injection draws its own dropout mask before the sum.
+
 When training, a stack of short sequences (the hierarchical E2 and D2, S = 8)
 runs all its layers as one fused kernel pair, K7 (``ops/stack_vjp.py``),
 where :func:`use_stack_fused` says so: the JAX package's gate, unchanged,
@@ -93,6 +98,17 @@ def stacked_train(layers, x, seq_biases, mask, causal: bool, rng: DropoutRng | N
     return out.to(in_dtype)
 
 
+def label_biases(layers, label_emb, rng: DropoutRng | None):
+    """The label's injection into each layer of a stack on the K7 path,
+    ``[L, B, D]`` in the compute type, with one dropout draw over all of them
+    (the JAX package's ``_label_biases``), or None for a model without
+    labels."""
+    if label_emb is None or layers[0].glob2 is None:
+        return None
+    biases = torch.stack([layer.label_injection(label_emb, False) for layer in layers])
+    return rng.dropout(biases, layers[0].dropout) if rng is not None else biases
+
+
 class LayerNorm(nn.LayerNorm):
     """A stack's final LayerNorm (flax ``norm/{scale,bias}``): float32
     parameters and arithmetic, output in ``compute_dtype``."""
@@ -107,10 +123,13 @@ class LayerNorm(nn.LayerNorm):
 
 class EncoderLayerImproved(nn.Module):
     """Pre-LN encoder layer. ``norm1``/``norm2`` are stacked ``[2, D]``
-    (row 0 scale, row 1 bias); ``qkv`` holds q|k|v fused."""
+    (row 0 scale, row 1 bias); ``qkv`` holds q|k|v fused. With ``dim_label``
+    it has ``glob2``, the label embedding's injection, which enters the
+    kernel as the layer's ``seq_bias``."""
 
     def __init__(self, d_model: int, n_heads: int, dim_feedforward: int,
-                 dropout: float = 0.0, compute_dtype=torch.float32):
+                 dropout: float = 0.0, compute_dtype=torch.float32,
+                 dim_label: int | None = None):
         super().__init__()
         d = d_model
         self.n_heads = n_heads
@@ -122,6 +141,7 @@ class EncoderLayerImproved(nn.Module):
         self.norm2 = nn.Parameter(torch.stack([torch.ones(d), torch.zeros(d)]))
         self.ff1 = nn.Linear(d, dim_feedforward)
         self.ff2 = nn.Linear(dim_feedforward, d)
+        self.glob2 = nn.Linear(dim_label, d) if dim_label else None
 
     def masters(self):
         """The ten float32 parameters in the fused layer's argument order."""
@@ -135,6 +155,23 @@ class EncoderLayerImproved(nn.Module):
         return tuple(cast_at_use(self, str(i), p, self.compute_dtype, act_dtype)
                      for i, p in enumerate(self.masters()))
 
+    def label_injection(self, label_emb, deterministic: bool = True):
+        """``glob2(label_emb) [B, D]`` in the compute type, before its
+        dropout."""
+        dt = self.compute_dtype
+        w = cast_at_use(self, "glob2_w", self.glob2.weight, dt, deterministic=deterministic)
+        b = cast_at_use(self, "glob2_b", self.glob2.bias, dt, deterministic=deterministic)
+        return F.linear(label_emb.to(dt), w, b)
+
+    def _label_bias(self, label_emb, deterministic, rng):
+        """The label's injection with its own dropout when training, or None."""
+        if label_emb is None or self.glob2 is None:
+            return None
+        bias = self.label_injection(label_emb, deterministic)
+        if not deterministic and rng is not None:
+            bias = rng.dropout(bias, self.dropout)
+        return bias
+
     def _run(self, x, seq_bias, mask, causal, deterministic, rng):
         if deterministic:
             return layer_ops.fused_layer(x, seq_bias, *self.weights(x.dtype), mask,
@@ -145,9 +182,13 @@ class EncoderLayerImproved(nn.Module):
                                            self.n_heads, causal, rate, self.compute_dtype,
                                            save_residuals=layer_vjp.SAVE_RESIDUALS_DEFAULT)
 
-    def forward(self, src, mask, deterministic: bool = True, rng: DropoutRng | None = None):
-        """``mask [B, S]``: additive float32 over keys."""
-        return self._run(src, None, mask, False, deterministic, rng)
+    def forward(self, src, mask, deterministic: bool = True, rng: DropoutRng | None = None,
+                label_emb=None):
+        """``mask [B, S]``: additive float32 over keys; ``label_emb [B,
+        dim_label]`` (label-conditioned models)."""
+        bias = self._label_bias(label_emb, deterministic, rng)
+        return self._run(src, None if bias is None else bias.to(src.dtype), mask, False,
+                         deterministic, rng)
 
 
 class DecoderLayerGlobalImproved(EncoderLayerImproved):
@@ -155,11 +196,14 @@ class DecoderLayerGlobalImproved(EncoderLayerImproved):
     after the attention block, in place of cross-attention. The injection is
     a small ``[B, D]`` product left to ``F.linear`` (the JAX wrapper leaves it
     to XLA); when training, its dropout is applied here, outside the kernel,
-    and its gradient comes back as the kernel's ``dseq_bias``."""
+    and its gradient comes back as the kernel's ``dseq_bias``. The label's
+    injection (``glob2``, with ``dim_label``) is added to it, each with its
+    own dropout mask when training."""
 
     def __init__(self, d_model: int, n_heads: int, dim_feedforward: int, dim_z: int,
-                 dropout: float = 0.0, compute_dtype=torch.float32):
-        super().__init__(d_model, n_heads, dim_feedforward, dropout, compute_dtype)
+                 dropout: float = 0.0, compute_dtype=torch.float32,
+                 dim_label: int | None = None):
+        super().__init__(d_model, n_heads, dim_feedforward, dropout, compute_dtype, dim_label)
         self.glob = nn.Linear(dim_z, d_model)
 
     def injection(self, z, deterministic: bool = True):
@@ -170,17 +214,22 @@ class DecoderLayerGlobalImproved(EncoderLayerImproved):
         return F.linear(z.to(dt), wg, bg)
 
     def forward(self, tgt, z, mask, causal: bool = False, deterministic: bool = True,
-                rng: DropoutRng | None = None):
+                rng: DropoutRng | None = None, label_emb=None):
         seq_bias = self.injection(z, deterministic)
         if not deterministic and rng is not None:
             seq_bias = rng.dropout(seq_bias, self.dropout)
-        return self._run(tgt, seq_bias.to(tgt.dtype), mask, causal, deterministic, rng)
+        seq_bias = seq_bias.to(tgt.dtype)
+        label_bias = self._label_bias(label_emb, deterministic, rng)
+        if label_bias is not None:
+            seq_bias = seq_bias + label_bias.to(tgt.dtype)
+        return self._run(tgt, seq_bias, mask, causal, deterministic, rng)
 
-    def decode_step(self, tgt, z, kcache, vcache, index: int, key_pad):
+    def decode_step(self, tgt, z, kcache, vcache, index: int, key_pad, label_emb=None):
         """One token ``tgt [B, D]`` at position ``index`` (compute type):
         its key and value go into ``kcache``/``vcache [B, T, D]`` at
         ``index`` (in place), and its query attends over positions
-        ``0..index`` with the additive ``key_pad [B, T]``."""
+        ``0..index`` with the additive ``key_pad [B, T]``; the latent's
+        injection, then the label's, are added after the attention."""
         b, d = tgt.shape
         h = self.n_heads
         hd = d // h
@@ -197,6 +246,8 @@ class DecoderLayerGlobalImproved(EncoderLayerImproved):
         ctx = torch.einsum("bhk,bkhd->bhd", prob, vh).reshape(b, d)
         tgt = tgt + F.linear(ctx, wo, bo)
         tgt = tgt + self.injection(z).to(tgt.dtype)
+        if label_emb is not None and self.glob2 is not None:
+            tgt = tgt + self.label_injection(label_emb).to(tgt.dtype)
         hidden = torch.relu(F.linear(layer_norm(tgt, ln2[0], ln2[1]), w1, b1))
         return tgt + F.linear(hidden, w2, b2)
 
@@ -205,21 +256,26 @@ class EncoderStack(nn.Module):
     """N encoder layers + final LayerNorm."""
 
     def __init__(self, n_layers: int, d_model: int, n_heads: int,
-                 dim_feedforward: int, dropout: float = 0.0, compute_dtype=torch.float32):
+                 dim_feedforward: int, dropout: float = 0.0, compute_dtype=torch.float32,
+                 dim_label: int | None = None):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayerImproved(d_model, n_heads, dim_feedforward, dropout, compute_dtype)
+            EncoderLayerImproved(d_model, n_heads, dim_feedforward, dropout, compute_dtype,
+                                 dim_label)
             for _ in range(n_layers))
         self.norm = LayerNorm(d_model, LN_EPS, compute_dtype)
 
-    def forward(self, src, mask, deterministic: bool = True, rng: DropoutRng | None = None):
-        """``mask [B, S]``: additive float32 over keys."""
+    def forward(self, src, mask, deterministic: bool = True, rng: DropoutRng | None = None,
+                label_emb=None):
+        """``mask [B, S]``: additive float32 over keys; ``label_emb [B,
+        dim_label]`` (label-conditioned models)."""
         b, s, _ = src.shape
         if use_stack_fused(deterministic, len(self.layers), b, s):
-            src = stacked_train(self.layers, src, None, mask, False, rng)
+            src = stacked_train(self.layers, src, label_biases(self.layers, label_emb, rng),
+                                mask, False, rng)
         else:
             for layer in self.layers:
-                src = layer(src, mask, deterministic, rng)
+                src = layer(src, mask, deterministic, rng, label_emb)
         return self.norm(src)
 
 
@@ -228,19 +284,20 @@ class DecoderStack(nn.Module):
 
     def __init__(self, n_layers: int, d_model: int, n_heads: int,
                  dim_feedforward: int, dim_z: int, dropout: float = 0.0,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, dim_label: int | None = None):
         super().__init__()
         self.layers = nn.ModuleList(
             DecoderLayerGlobalImproved(d_model, n_heads, dim_feedforward, dim_z, dropout,
-                                       compute_dtype)
+                                       compute_dtype, dim_label)
             for _ in range(n_layers))
         self.norm = LayerNorm(d_model, LN_EPS, compute_dtype)
 
     def forward(self, tgt, z, deterministic: bool = True, rng: DropoutRng | None = None,
-                key_pad=None, causal: bool = False):
+                key_pad=None, causal: bool = False, label_emb=None):
         """The one-shot decoders attend over every query position; the
         autoregressive decoder's teacher forcing is ``causal`` with the
-        additive ``key_pad [B, S]`` over its keys."""
+        additive ``key_pad [B, S]`` over its keys. ``label_emb [B,
+        dim_label]``: the label-conditioned models' second injection."""
         mask = (key_pad if key_pad is not None else
                 torch.zeros(tgt.shape[:2], dtype=torch.float32, device=tgt.device))
         b, s, _ = tgt.shape
@@ -250,18 +307,22 @@ class DecoderStack(nn.Module):
             biases = torch.stack([layer.injection(z, False) for layer in self.layers])
             if rng is not None:
                 biases = rng.dropout(biases, self.layers[0].dropout)
+            # the label's, with a draw of its own, added after
+            lb = label_biases(self.layers, label_emb, rng)
+            if lb is not None:
+                biases = biases + lb
             tgt = stacked_train(self.layers, tgt, biases, mask, causal, rng)
         else:
             for layer in self.layers:
-                tgt = layer(tgt, z, mask, causal, deterministic, rng)
+                tgt = layer(tgt, z, mask, causal, deterministic, rng, label_emb)
         return self.norm(tgt)
 
-    def decode_step(self, x, z, caches, index: int, key_pad):
+    def decode_step(self, x, z, caches, index: int, key_pad, label_emb=None):
         """One token ``x [B, D]`` through every layer, with ``caches`` the
         per-layer ``(k, v)`` pairs ``[B, T, D]`` (written at ``index``), then
         the final LayerNorm."""
         for layer, (kc, vc) in zip(self.layers, caches):
-            x = layer.decode_step(x, z, kc, vc, index, key_pad)
+            x = layer.decode_step(x, z, kc, vc, index, key_pad, label_emb)
         return self.norm(x)
 
 

@@ -2,8 +2,10 @@
 
 Counterpart of ``deepsvg_tpu/models/model.py`` for the two-stage one-shot
 models (the flagship ``hierarchical_ordered``, the VAE ``hierarchical`` of
-the icons config, and ``hierarchical_self_matching``) and the one-stage
-autoregressive ``sketchformer``. The two-stage path:
+the icons config, ``hierarchical_self_matching``, and the fonts config's
+label-conditioned ``hierarchical``), the one-stage one-shot model
+(``one_stage_one_shot``) and the one-stage autoregressive ``sketchformer``.
+The two-stage path:
 
   E1 (per-path encoder) -> masked mean pool -> hierarchical PE (not with
   self-match) -> E2 (over the path latents, visibility-masked) ->
@@ -25,15 +27,23 @@ cross-entropy comes straight from the decoder states through kernel K5.
 Parameters are float32 and cast to ``cfg.compute_dtype`` at use
 (``cast.py``).
 
-The one-stage autoregressive models (Sketchformer: ``encode_stages=1``,
-``pred_mode="autoregressive"``, ``rel_targets``) encode the whole icon as
-one sequence with the group-index embedding and decode it token by token:
-the teacher-forced forward runs the decoder causally over the shifted
-targets, :meth:`SVGTransformer.decode_step` one token against the key/value
-caches (``models/sample.py`` drives the greedy decode). The variants this
-port does not run yet (labels, LSTM, one-stage one-shot decoding) raise
-``NotImplementedError`` when the model is built, naming the ``ROADMAP.md``
-item that ports them.
+The one-stage models (``encode_stages=1``) encode the whole icon as one
+sequence with the group-index embedding. The one-stage one-shot decoder
+(``decode_stages=1``) runs one stack over ``max_total_len + 1`` constant
+queries with the latent injected in every layer (the long forms of the
+layer kernels at S = 241), and has no visibility head. The autoregressive
+models (Sketchformer: ``pred_mode="autoregressive"``, ``rel_targets``)
+decode token by token: the teacher-forced forward runs the decoder causally
+over the shifted targets, :meth:`SVGTransformer.decode_step` one token
+against the key/value caches (``models/sample.py`` drives the decode).
+
+With ``label_condition`` the encoder and the decoder each have a label
+embedding (``embeddings.LabelEmbedding``), injected into every layer by its
+``glob2`` (``layers.py``): per path in E1 and D1, per sample in E2 and D2.
+
+The variants this port does not run yet (the LSTM, two-stage autoregressive
+decoding, the decode-only model) raise ``NotImplementedError`` when the
+model is built, naming the ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
@@ -46,15 +56,12 @@ from ..svgtensor import masks as M
 from . import matching
 from .cast import DropoutRng, Linear, cast_at_use
 from .config import ModelConfig
-from .embeddings import ConstEmbedding, SVGEmbedding
+from .embeddings import ConstEmbedding, LabelEmbedding, SVGEmbedding
 from .layers import DecoderStack, EncoderStack, PositionalEncodingLUT, key_padding_to_additive
 
 _UNSUPPORTED = (
-    (lambda c: c.label_condition, "label conditioning"),
     (lambda c: c.model_type != "transformer", "the LSTM encoder and decoder"),
     (lambda c: c.encode_stages not in (1, 2), "decoding without an encoder"),
-    (lambda c: c.pred_mode == "one_shot" and c.decode_stages != 2,
-     "one-stage one-shot decoding"),
     (lambda c: c.pred_mode == "autoregressive" and c.decode_stages != 1,
      "two-stage autoregressive decoding"),
 )
@@ -65,7 +72,7 @@ def check_supported(cfg: ModelConfig) -> None:
     for test, what in _UNSUPPORTED:
         if test(cfg):
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md, queue 1, items 3-6)")
+                f"{what} is not ported yet (ROADMAP.md, queue 1, item 6)")
 
 
 def _masked_mean(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -207,7 +214,8 @@ class Encoder(nn.Module):
     latents, visibility-weighted pool (``compute_dtype``). One-stage
     (``encode_stages == 1``, G = 1): E1 over the whole icon as one sequence
     with the group-index embedding, and its masked mean pool (float32), as
-    the JAX package returns it."""
+    the JAX package returns it. With ``label_condition``, ``label [N]``'s
+    embedding is injected into every layer: E1 per path, E2 per sample."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -215,21 +223,26 @@ class Encoder(nn.Module):
         d, dt = cfg.d_model, getattr(torch, cfg.compute_dtype)
         self.compute_dtype = dt
         self.two_stage = cfg.encode_stages == 2
+        dim_label = cfg.dim_label if cfg.label_condition else None
+        self.label_embedding = LabelEmbedding(cfg) if cfg.label_condition else None
         seq_len = cfg.max_seq_len if self.two_stage else cfg.max_total_len
         self.embedding = SVGEmbedding(cfg, seq_len, use_group=not self.two_stage)
         self.encoder = EncoderStack(cfg.n_layers, d, cfg.n_heads, cfg.dim_feedforward,
-                                    cfg.dropout, dt)
+                                    cfg.dropout, dt, dim_label)
         if self.two_stage:
             # self-match leaves the paths unordered: no position table over them
             self.hierarchical_PE = (None if cfg.self_match else
                                     PositionalEncodingLUT(cfg.max_num_groups, d, cfg.dropout,
                                                           dt))
             self.hierarchical_encoder = EncoderStack(cfg.n_layers, d, cfg.n_heads,
-                                                     cfg.dim_feedforward, cfg.dropout, dt)
+                                                     cfg.dim_feedforward, cfg.dropout, dt,
+                                                     dim_label)
 
-    def forward(self, commands, args, deterministic: bool = True,
+    def forward(self, commands, args, label=None, deterministic: bool = True,
                 rng: DropoutRng | None = None):
         n, g, s = commands.shape
+        label_emb = (self.label_embedding(label, deterministic)
+                     if self.label_embedding is not None else None)
         commands_f = commands.reshape(n * g, s)
         args_f = args.reshape(n * g, s, args.shape[-1])
         pad = M.padding_mask(commands_f)                      # [N*G, S]
@@ -237,7 +250,8 @@ class Encoder(nn.Module):
         groups = None if self.two_stage else M.group_mask(commands_f)
 
         src = self.embedding(commands_f, args_f, groups, deterministic, rng)
-        memory = self.encoder(src, key_pad, deterministic, rng)
+        l1 = None if label_emb is None else label_emb.repeat_interleave(g, dim=0)
+        memory = self.encoder(src, key_pad, deterministic, rng, l1)
         z = _masked_mean(memory, pad).reshape(n, g, -1)          # float32
         if not self.two_stage:
             return z[:, 0]
@@ -246,7 +260,7 @@ class Encoder(nn.Module):
         vis = M.visibility_mask(commands)                     # [N, G]
         src2 = z if self.hierarchical_PE is None else self.hierarchical_PE(z, deterministic, rng)
         memory2 = self.hierarchical_encoder(src2, key_padding_to_additive(~vis),
-                                            deterministic, rng)
+                                            deterministic, rng, label_emb)
         return _masked_mean(memory2, vis).to(self.compute_dtype)
 
 
@@ -254,52 +268,71 @@ class Decoder(nn.Module):
     """The decoder: ``z [N, dim_z]`` -> command and argument outputs.
 
     Two-stage one-shot: outputs ``[N, G, S+1, ...]`` and visibility logits
-    ``[N, G, 2]``. One-stage autoregressive: the embedded target tokens
-    ``commands [N, 1, S]``, ``args [N, 1, S, n_args]`` (relative arguments
-    with ``rel_targets``) through the causal decoder stack, outputs
-    ``[N, 1, S, ...]`` and no visibility logits."""
+    ``[N, G, 2]``. One-stage one-shot: one stack over ``max_total_len + 1``
+    constant queries with ``z`` injected, outputs ``[N, 1, max_total_len + 1,
+    ...]`` and no visibility logits (no ``hierarchical_*`` modules).
+    One-stage autoregressive: the embedded target tokens ``commands [N, 1,
+    S]``, ``args [N, 1, S, n_args]`` (relative arguments with
+    ``rel_targets``) through the causal decoder stack, outputs ``[N, 1, S,
+    ...]`` and no visibility logits. With ``label_condition``, the decoder's
+    own label embedding is injected into every layer beside ``z``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         d, dt = cfg.d_model, getattr(torch, cfg.compute_dtype)
         self.autoregressive = cfg.pred_mode == "autoregressive"
+        self.two_stage = cfg.decode_stages == 2
+        dim_label = cfg.dim_label if cfg.label_condition else None
+        self.label_embedding = LabelEmbedding(cfg) if cfg.label_condition else None
+        if self.two_stage:
+            self.hierarchical_embedding = ConstEmbedding(cfg, cfg.n_groups_prop)
+            self.hierarchical_decoder = DecoderStack(cfg.n_layers_decode, d, cfg.n_heads,
+                                                     cfg.dim_feedforward, cfg.dim_z,
+                                                     cfg.dropout, dt, dim_label)
+            self.hierarchical_fcn = HierarchFCN(d, cfg.dim_z, dt)
         if self.autoregressive:
             self.embedding = SVGEmbedding(cfg, cfg.max_total_len, rel_args=cfg.rel_targets,
                                           use_group=True, group_len=cfg.max_total_len)
         else:
-            self.hierarchical_embedding = ConstEmbedding(cfg, cfg.n_groups_prop)
-            self.hierarchical_decoder = DecoderStack(cfg.n_layers_decode, d, cfg.n_heads,
-                                                     cfg.dim_feedforward, cfg.dim_z,
-                                                     cfg.dropout, dt)
-            self.hierarchical_fcn = HierarchFCN(d, cfg.dim_z, dt)
-            self.embedding = ConstEmbedding(cfg, cfg.max_seq_len + 1)
+            self.embedding = ConstEmbedding(cfg, cfg.max_seq_len + 1 if self.two_stage
+                                            else cfg.max_total_len + 1)
         self.decoder = DecoderStack(cfg.n_layers_decode, d, cfg.n_heads,
-                                    cfg.dim_feedforward, cfg.dim_z, cfg.dropout, dt)
+                                    cfg.dim_feedforward, cfg.dim_z, cfg.dropout, dt, dim_label)
         self.fcn = FCN(d, cfg.n_commands, cfg.n_args, cfg.args_dim_out, dt)
 
-    def _autoregressive(self, z, commands, args, deterministic, rng):
+    def label(self, label, deterministic: bool = True):
+        """``label [N]``'s embedding ``[N, dim_label]``, or None without labels."""
+        if self.label_embedding is None:
+            return None
+        return self.label_embedding(label, deterministic)
+
+    def _autoregressive(self, z, commands, args, deterministic, rng, label_emb):
         commands_f = commands.reshape(-1, commands.shape[-1])
         args_f = args.reshape(commands_f.shape + args.shape[-1:])
         src = self.embedding(commands_f, args_f, M.group_mask(commands_f), deterministic, rng)
         key_pad = key_padding_to_additive(M.key_padding_mask(commands_f))
-        return self.decoder(src, z, deterministic, rng, key_pad, causal=True)
+        return self.decoder(src, z, deterministic, rng, key_pad, causal=True,
+                            label_emb=label_emb)
 
-    def decode_step(self, z, cmd_t, args_t, groups_t, index: int, caches, key_pad):
+    def decode_step(self, z, cmd_t, args_t, groups_t, index: int, caches, key_pad,
+                    label=None):
         """One token per sequence at position ``index`` (``cmd_t [N]``,
         ``args_t [N, n_args]``, ``groups_t [N]`` its running moveto count)
         through the cached decoder stack (``caches``: per-layer ``(k, v)``
-        ``[N, T, D]``, written at ``index``; ``key_pad [N, T]``) -> the
-        logits for the next position, ``[N, n_commands]`` and
-        ``[N, n_args, args_dim_out]``."""
+        ``[N, T, D]``, written at ``index``; ``key_pad [N, T]``; ``label
+        [N]`` for a label-conditioned model) -> the logits for the next
+        position, ``[N, n_commands]`` and ``[N, n_args, args_dim_out]``."""
         x = self.embedding.token(cmd_t, args_t, groups_t, index)
-        return self.fcn(self.decoder.decode_step(x, z, caches, index, key_pad))
+        return self.fcn(self.decoder.decode_step(x, z, caches, index, key_pad,
+                                                 self.label(label)))
 
     def forward(self, z, argmax_head: bool = False, ce_targets=None,
                 deterministic: bool = True, rng: DropoutRng | None = None,
-                match_targets=None, commands=None, args=None):
+                match_targets=None, commands=None, args=None, label=None):
         """``ce_targets [N, G, S+1, n_args]`` int (already ``tgt + 1``);
-        ``commands``/``args``: the autoregressive decoder's input tokens.
+        ``commands``/``args``: the autoregressive decoder's input tokens;
+        ``label [N]``: the class labels of a label-conditioned model.
 
         ``match_targets = (commands [N, G, S+1], args [N, G, S+1, n_args])``
         is the fused self-match: the proposals are matched to the targets
@@ -309,16 +342,22 @@ class Decoder(nn.Module):
         CE against them comes through K5. Returns the command logits, the
         argument CE, the visibility logits and the permuted targets."""
         n = z.shape[0]
-        if self.autoregressive:
-            out, visibility_logits = self._autoregressive(z, commands, args, deterministic,
-                                                          rng), None
-        else:
+        label_emb = self.label(label, deterministic)
+        visibility_logits, zb = None, z
+        if self.two_stage:
             out = self.hierarchical_decoder(
-                self.hierarchical_embedding(n, deterministic, rng), z, deterministic, rng)
+                self.hierarchical_embedding(n, deterministic, rng), z, deterministic, rng,
+                label_emb=label_emb)
             visibility_logits, z_groups = self.hierarchical_fcn(out, deterministic)
             zb = z_groups.reshape(-1, z_groups.shape[-1])               # [N*P, dim_z]
+        # the label per sequence of the last stack
+        lb = (None if label_emb is None
+              else label_emb.repeat_interleave(zb.shape[0] // n, dim=0))
+        if self.autoregressive:
+            out = self._autoregressive(zb, commands, args, deterministic, rng, lb)
+        else:
             out = self.decoder(self.embedding(zb.shape[0], deterministic, rng), zb,
-                               deterministic, rng)
+                               deterministic, rng, label_emb=lb)
         if match_targets is not None:
             tgt_c, tgt_a = match_targets
             fcn = self.fcn
@@ -343,8 +382,8 @@ class Decoder(nn.Module):
 
 
 class SVGTransformer(nn.Module):
-    """The SVG Transformer: hierarchical one-shot, or one-stage
-    autoregressive."""
+    """The SVG Transformer: hierarchical or one-stage one-shot, or one-stage
+    autoregressive; label-conditioned with ``label_condition``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -359,18 +398,21 @@ class SVGTransformer(nn.Module):
             self.bottleneck = Bottleneck(cfg.d_model, cfg.dim_z, dt)
         self.decoder = Decoder(cfg)
 
-    def decode_step(self, z, cmd_t, args_t, groups_t, index: int, caches, key_pad):
+    def decode_step(self, z, cmd_t, args_t, groups_t, index: int, caches, key_pad,
+                    label=None):
         """One KV-cached step of the autoregressive decoder: the token at
         ``index`` in, the logits for the next position out (see
         :meth:`Decoder.decode_step`)."""
-        return self.decoder.decode_step(z, cmd_t, args_t, groups_t, index, caches, key_pad)
+        return self.decoder.decode_step(z, cmd_t, args_t, groups_t, index, caches, key_pad,
+                                        label)
 
-    def encode(self, commands, args, deterministic: bool = True,
+    def encode(self, commands, args, label=None, deterministic: bool = True,
                rng: DropoutRng | None = None, sample_vae: bool = True):
-        """Input -> ``(z [N, dim_z], mu, logsigma)``; ``mu`` and ``logsigma``
-        are None without the VAE. The VAE samples ``z`` from ``rng`` unless
-        ``sample_vae`` is false (then ``z = mu``)."""
-        z = self.encoder(commands, args, deterministic, rng)
+        """Input (and ``label [N]`` for a label-conditioned model) -> ``(z
+        [N, dim_z], mu, logsigma)``; ``mu`` and ``logsigma`` are None without
+        the VAE. The VAE samples ``z`` from ``rng`` unless ``sample_vae`` is
+        false (then ``z = mu``)."""
+        z = self.encoder(commands, args, label, deterministic, rng)
         if self.resnet is not None:
             z = self.resnet(z, deterministic)
         if self.cfg.use_vae:
@@ -378,12 +420,15 @@ class SVGTransformer(nn.Module):
         return self.bottleneck(z, deterministic), None, None
 
     def forward(self, commands_enc=None, args_enc=None, commands_dec=None, args_dec=None,
-                z=None, return_tgt: bool = False, deterministic: bool = True,
+                label=None, z=None, return_tgt: bool = False, deterministic: bool = True,
                 argmax_head: bool = False, fused_ce: bool = False,
                 rng: DropoutRng | None = None) -> dict:
         """Encode (unless ``z`` is given) and decode: in one shot, or, for
         the autoregressive decoder, teacher-forced on ``commands_dec`` /
         ``args_dec`` (without their last position when ``return_tgt``).
+        ``label [N]``: the class labels of a label-conditioned model (its
+        encoder's and its decoder's; the fifth argument, as the dataset keys
+        of ``ModelConfig.get_model_args`` list it).
 
         Returns ``command_logits`` and ``args_logits`` (or, with
         ``argmax_head``, ``command_ids`` / ``args_ids``; or, with ``fused_ce``
@@ -400,7 +445,7 @@ class SVGTransformer(nn.Module):
         """
         mu = logsigma = None
         if z is None:
-            z, mu, logsigma = self.encode(commands_enc, args_enc, deterministic, rng)
+            z, mu, logsigma = self.encode(commands_enc, args_enc, label, deterministic, rng)
         use_fused_ce = fused_ce and return_tgt
         fused_match = use_fused_ce and self.cfg.self_match
         ce_targets = ((args_dec[..., 1:, :] + 1).to(torch.int32)
@@ -411,7 +456,8 @@ class SVGTransformer(nn.Module):
             dec_in = ((commands_dec[..., :-1], args_dec[..., :-1, :]) if return_tgt
                       else (commands_dec, args_dec))
         out = self.decoder(z, argmax_head, ce_targets, deterministic, rng,
-                           (commands_dec, args_dec) if fused_match else None, *dec_in)
+                           (commands_dec, args_dec) if fused_match else None, *dec_in,
+                           label=label)
         cmd, args, visibility_logits = out[:3]
         if fused_match:
             commands_dec, args_dec = out[3]

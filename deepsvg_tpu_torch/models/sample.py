@@ -1,15 +1,19 @@
-"""Greedy sampling, counterpart of ``deepsvg_tpu/models/sample.py``.
+"""Sampling, counterpart of ``deepsvg_tpu/models/sample.py``.
 
-One-shot: one forward with the fused head+argmax (kernel K3 on the card),
-the visibility threshold, and :func:`make_valid`.
+One-shot: one forward, then the ids: greedy through the fused head+argmax
+(kernel K3 on the card), or, given a ``torch.Generator``, drawn at a
+temperature from the logits (:func:`sample_categorical`); then the
+visibility threshold of a two-stage decoder, and :func:`make_valid`.
 
 Autoregressive (Sketchformer): the decoder runs token by token over a
 buffer of ``max_total_len + 1`` positions that starts with SOS. Each step
 embeds the token at position ``i``, runs it through the decoder stack
-against per-layer key/value caches, takes the greedy command and arguments
-for position ``i + 1``, applies :func:`make_valid`, and masks the keys from
-the first generated EOS on. :func:`autoregressive_sample_fused` runs the
-stack as kernel K9 and the heads as K3 (one launch each per step);
+against per-layer key/value caches, takes the command and arguments for
+position ``i + 1`` (greedy, or drawn), applies :func:`make_valid`, and masks
+the keys from the first generated EOS on. :func:`autoregressive_sample_fused`
+runs the stack as kernel K9 and, greedy, the heads as K3 (one launch each
+per step; with a generator the logits come from ``F.linear`` over K9's
+output, as the JAX package computes them outside its kernels);
 :func:`autoregressive_sample_cached` is the module path in plain PyTorch
 operations, the JAX package's cached scan; :func:`autoregressive_sample`
 re-runs the teacher-forced forward over the whole buffer at every step.
@@ -17,9 +21,15 @@ re-runs the teacher-forced forward over the whole buffer at every step.
 scan for CPU tensors (which is what the JAX package dispatches); neither
 turns into the other. Relative targets are made absolute at the end.
 
+Without a generator every sampler is greedy (the JAX package's ``key=None``,
+the limit T -> 0). With one, each command and each argument is a Gumbel-max
+draw from ``softmax(logits / temperature)``, the commands of a position
+before its arguments, all from that generator: JAX keys and PyTorch
+generators cannot draw the same samples, so the two packages agree in
+distribution, and at a small temperature in the greedy ids.
+
 A VAE model samples its latent from a fixed generator, as the JAX package
-does with ``key(0)``. Only the greedy decode (``key=None`` on the JAX side)
-is ported; temperature sampling comes with a later slice.
+does with ``key(0)``. A label-conditioned model takes ``label [N]``.
 """
 from __future__ import annotations
 
@@ -35,9 +45,23 @@ from .config import ModelConfig
 from .model import SVGTransformer
 
 
-def threshold_sample(logits: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
-    """P(class 1) > threshold."""
-    return torch.softmax(logits.float(), dim=-1)[..., 1] > threshold
+def sample_categorical(logits: torch.Tensor, temperature: float = 0.0001,
+                       generator: torch.Generator | None = None) -> torch.Tensor:
+    """A draw from ``softmax(logits / temperature)`` over the last axis, by
+    Gumbel-max: the uniform noise comes from ``generator`` on its device and
+    is moved to the logits'. Without a generator, the argmax (the limit
+    T -> 0, as the JAX package's ``key=None``)."""
+    if generator is None:
+        return logits.argmax(dim=-1)
+    u = torch.rand(logits.shape, generator=generator, device=generator.device)
+    gumbel = -torch.log(-torch.log(u)).to(logits.device)     # u = 0 gives -inf
+    return (logits.float() / temperature + gumbel).argmax(dim=-1)
+
+
+def threshold_sample(logits: torch.Tensor, threshold: float = 0.5,
+                     temperature: float = 1.0) -> torch.Tensor:
+    """P(class 1) > threshold, the probability at ``temperature``."""
+    return torch.softmax(logits.float() / temperature, dim=-1)[..., 1] > threshold
 
 
 def make_valid(commands: torch.Tensor, args: torch.Tensor,
@@ -66,30 +90,43 @@ def _finalize_args(cfg: ModelConfig, commands, args):
 
 @torch.no_grad()
 def one_shot_sample(model: SVGTransformer, commands_enc=None, args_enc=None,
-                    z=None, visibility_threshold: float = 0.7):
-    """Greedy one-shot decode of ``commands_enc [N, G, S]`` /
-    ``args_enc [N, G, S, n_args]`` (or of a given latent ``z [N, dim_z]``).
+                    z=None, label=None, temperature: float = 0.0001,
+                    generator: torch.Generator | None = None,
+                    visibility_threshold: float = 0.7):
+    """One-shot decode of ``commands_enc [N, G, S]`` / ``args_enc [N, G, S,
+    n_args]`` (or of a given latent ``z [N, dim_z]``), with ``label [N]``
+    for a label-conditioned model: greedy through K3's fused argmax, or,
+    with ``generator``, drawn at ``temperature`` from the logits.
 
     Returns ``commands [N, G, S_dec]`` int32 and ``args [N, G, S_dec, n_args]``
-    float32 with PAD -1, on the model's device.
+    float32 with PAD -1, on the model's device (G = 1, S_dec =
+    ``max_total_len + 1`` for the one-stage model).
     """
+    cfg = model.cfg
     # a VAE samples its latent from a fixed generator (the JAX package's key(0))
-    rng = DropoutRng.fixed() if model.cfg.use_vae and z is None else None
-    res = model(commands_enc, args_enc, z=z, argmax_head=True, rng=rng)
-    commands_y = res["command_ids"]
-    args_y = (res["args_ids"] - 1).to(torch.float32)    # undo the PAD shift
-    visibility_y = threshold_sample(res["visibility_logits"], visibility_threshold)
+    rng = DropoutRng.fixed() if cfg.use_vae and z is None else None
+    greedy = generator is None
+    res = model(commands_enc, args_enc, label=label, z=z, argmax_head=greedy, rng=rng)
+    if greedy:
+        commands_y, args_y = res["command_ids"], res["args_ids"]
+    else:
+        commands_y = sample_categorical(res["command_logits"], temperature, generator)
+        args_y = sample_categorical(res["args_logits"], temperature, generator)
+    commands_y = commands_y.to(torch.int32)
+    args_y = (args_y - 1).to(torch.float32)             # undo the PAD shift
+    visibility_y = (threshold_sample(res["visibility_logits"], visibility_threshold)
+                    if cfg.decode_stages == 2 else None)
     commands_y, args_y = make_valid(commands_y, args_y, visibility_y)
-    return _finalize_args(model.cfg, commands_y, args_y)
+    return _finalize_args(cfg, commands_y, args_y)
 
 
-def _greedy_decode(cfg: ModelConfig, n: int, device, step):
+def _decode(cfg: ModelConfig, n: int, device, step):
     """The autoregressive loop over ``max_total_len`` steps. ``step(cmd_t,
     args_t, groups_t, i, key_pad)`` embeds and decodes the tokens at
-    position ``i`` and returns the greedy ids for ``i + 1``: commands
-    ``[n]`` and argument classes ``[n, n_args]``. Returns ``commands
-    [n, 1, L]`` int32 and ``args [n, 1, L, n_args]`` float32 (PAD -1),
-    without SOS, absolute."""
+    position ``i`` and returns the ids for ``i + 1`` (greedy or drawn):
+    commands ``[n]`` and argument classes ``[n, n_args]``. Returns
+    ``commands [n, 1, L]`` int32 and ``args [n, 1, L, n_args]`` float32
+    (PAD -1), without SOS, absolute."""
     length = cfg.max_total_len + 1
     cmds = torch.full((n, length), CMD_EOS, dtype=torch.int32, device=device)
     cmds[:, 0] = CMD_SOS
@@ -111,9 +148,12 @@ def _greedy_decode(cfg: ModelConfig, n: int, device, step):
 
 
 @torch.no_grad()
-def autoregressive_sample_cached(model: SVGTransformer, z):
-    """KV-cached greedy decode of ``z [N, dim_z]`` through the module path
-    (:meth:`SVGTransformer.decode_step`, plain PyTorch operations): the
+def autoregressive_sample_cached(model: SVGTransformer, z, label=None,
+                                 temperature: float = 0.0001,
+                                 generator: torch.Generator | None = None):
+    """KV-cached decode of ``z [N, dim_z]`` (and ``label [N]``) through the
+    module path (:meth:`SVGTransformer.decode_step`, plain PyTorch
+    operations), greedy or, with ``generator``, drawn at ``temperature``: the
     counterpart of the JAX package's ``autoregressive_sample_cached``."""
     cfg = model.cfg
     n, dev = z.shape[0], z.device
@@ -124,9 +164,10 @@ def autoregressive_sample_cached(model: SVGTransformer, z):
 
     def step(cmd_t, args_t, groups_t, i, key_pad):
         cmd_logits, args_logits = model.decode_step(z, cmd_t, args_t, groups_t, i, caches,
-                                                    key_pad)
-        return cmd_logits.argmax(dim=-1), args_logits.argmax(dim=-1)
-    return _greedy_decode(cfg, n, dev, step)
+                                                    key_pad, label)
+        return (sample_categorical(cmd_logits, temperature, generator),
+                sample_categorical(args_logits, temperature, generator))
+    return _decode(cfg, n, dev, step)
 
 
 def _decoder_stacks(model: SVGTransformer):
@@ -142,21 +183,29 @@ def _decoder_stacks(model: SVGTransformer):
 
 
 @torch.no_grad()
-def autoregressive_sample_fused(model: SVGTransformer, z):
-    """Greedy decode of ``z [N, dim_z]`` with the whole decoder stack of a
-    step in one call of :func:`ops.decode.fused_decode_step` (kernel K9 on
-    the card) and the heads in one call of
-    :func:`ops.head.fused_head_argmax` (K3); the token's embedding, the
-    cache writes (one slice assignment for all layers), :func:`make_valid`
-    and the key-padding update are plain PyTorch. On CPU tensors both are
-    their plain versions."""
+def autoregressive_sample_fused(model: SVGTransformer, z, label=None,
+                                temperature: float = 0.0001,
+                                generator: torch.Generator | None = None):
+    """Decode of ``z [N, dim_z]`` (and ``label [N]``) with the whole decoder
+    stack of a step in one call of :func:`ops.decode.fused_decode_step`
+    (kernel K9 on the card; each layer's ``seq_bias`` is the latent's
+    injection plus the label's) and, greedy, the heads in one call of
+    :func:`ops.head.fused_head_argmax` (K3); with ``generator``, the logits
+    by ``F.linear`` over K9's output and a draw at ``temperature``. The
+    token's embedding, the cache writes (one slice assignment for all
+    layers), :func:`make_valid` and the key-padding update are plain
+    PyTorch. On CPU tensors K9 and K3 are their plain versions."""
     cfg = model.cfg
     n, dev = z.shape[0], z.device
     dt = getattr(torch, cfg.compute_dtype)
     dec = model.decoder
     emb, fcn = dec.embedding, dec.fcn
     stacks = _decoder_stacks(model)
-    seq_bias = torch.stack([layer.injection(z).to(dt) for layer in dec.decoder.layers])
+    label_emb = dec.label(label)
+    seq_bias = torch.stack([
+        layer.injection(z).to(dt) if label_emb is None
+        else layer.injection(z).to(dt) + layer.label_injection(label_emb).to(dt)
+        for layer in dec.decoder.layers])
     kcache = torch.zeros((cfg.n_layers_decode, n, cfg.max_total_len + 1, cfg.d_model),
                          dtype=dt, device=dev)
     vcache = torch.zeros_like(kcache)
@@ -167,18 +216,23 @@ def autoregressive_sample_fused(model: SVGTransformer, z):
                                                        key_pad, i, cfg.n_heads)
         kcache[:, :, i] = k_new
         vcache[:, :, i] = v_new
-        ids = head_ops.fused_head_argmax(y, fcn.w_packed, fcn.b_packed, cfg.n_commands,
-                                         cfg.n_args, cfg.args_dim_out)
-        return ids[:, 0], ids[:, 1:]
-    return _greedy_decode(cfg, n, dev, step)
+        if generator is None:
+            ids = head_ops.fused_head_argmax(y, fcn.w_packed, fcn.b_packed, cfg.n_commands,
+                                             cfg.n_args, cfg.args_dim_out)
+            return ids[:, 0], ids[:, 1:]
+        cmd_logits, args_logits = fcn(y)
+        return (sample_categorical(cmd_logits, temperature, generator),
+                sample_categorical(args_logits, temperature, generator))
+    return _decode(cfg, n, dev, step)
 
 
 @torch.no_grad()
-def autoregressive_sample(model: SVGTransformer, z):
-    """Greedy decode that re-runs the teacher-forced forward (causal, over
-    the whole buffer) at every step and reads the logits at the current
-    position: the JAX package's ``autoregressive_sample``, the oracle of the
-    cached decodes."""
+def autoregressive_sample(model: SVGTransformer, z, label=None, temperature: float = 0.0001,
+                          generator: torch.Generator | None = None):
+    """Decode that re-runs the teacher-forced forward (causal, over the
+    whole buffer) at every step and reads the logits at the current
+    position, greedy or drawn: the JAX package's ``autoregressive_sample``,
+    the oracle of the cached decodes."""
     cfg = model.cfg
     n, dev = z.shape[0], z.device
     length = cfg.max_total_len + 1
@@ -186,9 +240,11 @@ def autoregressive_sample(model: SVGTransformer, z):
     cmds[..., 0] = CMD_SOS
     args = torch.full((n, 1, length, cfg.n_args), float(PAD_VAL), device=dev)
     for i in range(cfg.max_total_len):
-        res = model(commands_dec=cmds, args_dec=args, z=z)
-        cmd_new = res["command_logits"][:, :, i].argmax(dim=-1).to(torch.int32)
-        args_new = res["args_logits"][:, :, i].argmax(dim=-1).to(torch.float32) - 1
+        res = model(commands_dec=cmds, args_dec=args, label=label, z=z)
+        cmd_new = sample_categorical(res["command_logits"][:, :, i], temperature,
+                                     generator).to(torch.int32)
+        args_new = sample_categorical(res["args_logits"][:, :, i], temperature,
+                                      generator).to(torch.float32) - 1
         _, args_new = make_valid(cmd_new, args_new)
         cmds[:, :, i + 1] = cmd_new
         args[:, :, i + 1] = args_new
@@ -196,18 +252,22 @@ def autoregressive_sample(model: SVGTransformer, z):
 
 
 @torch.no_grad()
-def greedy_sample(model: SVGTransformer, commands_enc=None, args_enc=None, z=None):
-    """Greedy decode of the encoded inputs (or of a given ``z``): one-shot
-    models through :func:`one_shot_sample`; autoregressive models encode
-    (the VAE's noise from the fixed generator) and decode with
-    :func:`autoregressive_sample_fused` on CUDA tensors, kernels K9 and K3,
-    and with :func:`autoregressive_sample_cached` on CPU tensors."""
+def greedy_sample(model: SVGTransformer, commands_enc=None, args_enc=None, z=None,
+                  label=None, temperature: float = 0.0001,
+                  generator: torch.Generator | None = None):
+    """Decode of the encoded inputs (or of a given ``z``), with ``label [N]``
+    for a label-conditioned model; greedy, or with ``generator`` drawn at
+    ``temperature``: one-shot models through :func:`one_shot_sample`;
+    autoregressive models encode (the VAE's noise from the fixed generator)
+    and decode with :func:`autoregressive_sample_fused` on CUDA tensors
+    (kernels K9, and K3 when greedy), and with
+    :func:`autoregressive_sample_cached` on CPU tensors."""
     cfg = model.cfg
     if cfg.pred_mode == "one_shot":
-        return one_shot_sample(model, commands_enc, args_enc, z)
+        return one_shot_sample(model, commands_enc, args_enc, z, label, temperature, generator)
     if z is None:
         rng = DropoutRng.fixed() if cfg.use_vae else None
-        z, _, _ = model.encode(commands_enc, args_enc, rng=rng)
-    if z.device.type == "cuda":
-        return autoregressive_sample_fused(model, z)
-    return autoregressive_sample_cached(model, z)
+        z, _, _ = model.encode(commands_enc, args_enc, label, rng=rng)
+    decode = autoregressive_sample_fused if z.device.type == "cuda" else \
+        autoregressive_sample_cached
+    return decode(model, z, label, temperature, generator)

@@ -15,7 +15,12 @@ The VAE models have ``vae/enc_mu_fcn`` and ``vae/enc_sigma_fcn`` in place of
 ``encoder/embedding/group_embed`` and no ``encoder/hierarchical_*``; the
 autoregressive decoder has ``decoder/embedding`` as an ``SVGEmbedding``
 (command, argument (``[2 * args_dim, 64]`` with relative targets), Linear,
-group and position tables) and no ``decoder/hierarchical_*``.
+group and position tables) and no ``decoder/hierarchical_*``; the one-stage
+one-shot decoder has ``decoder/embedding/PE/pos_embed`` over
+``max_total_len + 1`` queries and no ``decoder/hierarchical_*``. A
+label-conditioned model has, in ``encoder`` and in ``decoder``,
+``label_embedding/label_embedding/embedding`` (``[n_labels, dim_label]``),
+and each layer's ``glob2_kernel`` / ``glob2_bias``.
 
 ``deepsvg_tpu/models/torch_import.py:state_dict_to_params`` spells out the
 same name map in the other direction. Every leaf of the tree is used exactly
@@ -66,6 +71,9 @@ def _name_map(model: SVGTransformer):
             if decoder:
                 out.append((f"{lp}/glob_kernel", layer.glob.weight, True))
                 out.append((f"{lp}/glob_bias", layer.glob.bias, False))
+            if layer.glob2 is not None:
+                out.append((f"{lp}/glob2_kernel", layer.glob2.weight, True))
+                out.append((f"{lp}/glob2_bias", layer.glob2.bias, False))
         out.append((f"{path}/norm/scale", module.norm.weight, False))
         out.append((f"{path}/norm/bias", module.norm.bias, False))
 
@@ -80,7 +88,13 @@ def _name_map(model: SVGTransformer):
             out.append((f"{path}/group_embed", emb.group_embed, False))
         out.append((f"{path}/pos_embed", emb.pos_embed, False))
 
+    def label_embedding(path, module):
+        if module is not None:
+            out.append((f"{path}/label_embedding/label_embedding/embedding", module.embedding,
+                        False))
+
     enc, dec = model.encoder, model.decoder
+    label_embedding("encoder", enc.label_embedding)
     svg_embedding("encoder/embedding", enc.embedding)
     stack("encoder/encoder", enc.encoder, decoder=False)
     if enc.two_stage:
@@ -96,14 +110,16 @@ def _name_map(model: SVGTransformer):
         dense("vae/enc_sigma_fcn", model.vae.enc_sigma_fcn)
     else:
         dense("bottleneck/bottleneck", model.bottleneck.bottleneck)
-    if dec.autoregressive:
-        svg_embedding("decoder/embedding", dec.embedding)
-    else:
+    label_embedding("decoder", dec.label_embedding)
+    if dec.two_stage:
         out.append(("decoder/hierarchical_embedding/PE/pos_embed",
                     dec.hierarchical_embedding.PE.pos_embed, False))
         stack("decoder/hierarchical_decoder", dec.hierarchical_decoder, decoder=True)
         dense("decoder/hierarchical_fcn/visibility_fcn", dec.hierarchical_fcn.visibility_fcn)
         dense("decoder/hierarchical_fcn/z_fcn", dec.hierarchical_fcn.z_fcn)
+    if dec.autoregressive:
+        svg_embedding("decoder/embedding", dec.embedding)
+    else:
         out.append(("decoder/embedding/PE/pos_embed", dec.embedding.PE.pos_embed, False))
     stack("decoder/decoder", dec.decoder, decoder=True)
     out.extend([

@@ -112,10 +112,12 @@ def test_config_and_supported_variants():
             cfg.use_vae, cfg.args_dim_out) == (1, 1, "autoregressive", True, True, 512)
     assert cfg.get_model_args() == ["commands_grouped", "args_grouped", "commands_grouped",
                                     "args_rel_grouped"]
-    for bad in (dict(label_condition=True), dict(model_type="lstm"),
-                dict(pred_mode="one_shot"), dict(decode_stages=2)):
+    for bad in (dict(model_type="lstm"), dict(decode_stages=2)):
         with pytest.raises(NotImplementedError):
             SVGTransformer(ModelConfig(**{**KW, **bad}))
+    # a label-conditioned Sketchformer and the one-stage one-shot model build
+    for good in (dict(label_condition=True), dict(pred_mode="one_shot")):
+        SVGTransformer(ModelConfig(**{**KW, **good}))
 
 
 def test_weight_bridge_round_trip(tree):

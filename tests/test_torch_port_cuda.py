@@ -718,6 +718,8 @@ TOL_F32_ATOL, TOL_F32_RTOL = 2e-2, 2e-3
     (BF16, 33, False, False), (BF16, 240, False, False), (BF16, 241, True, True),
     (BF16, 242, True, False), (BF16, 256, False, True), (torch.float32, 241, True, True),
     (torch.float32, 100, False, False),
+    # the one-stage one-shot decoder: S=241, not causal, with seq_bias
+    (BF16, 241, True, False), (torch.float32, 241, True, False),
     # the bfloat16 kernel's tiles of 256 / S whole sequences: 4, 3, 2 and 1 a tile
     (BF16, 64, True, True), (BF16, 65, False, False), (BF16, 128, True, False),
     (BF16, 200, False, True)])
@@ -1768,3 +1770,188 @@ def test_embedding_backward_is_one_launch_and_no_sort(cuda, dtype, monkeypatch):
     print(f"K6 kernels over {calls} calls: {names}")
     assert len(names) <= 2 * calls and any("embedding_bwd" in n for n in names)
     assert not any("sort" in n.lower() for n in names)
+
+
+# ------------------- the one-stage one-shot and label-conditioned models, sampling
+
+def _variant(name, dev, dtype="bfloat16", dropout=0.0, seed=19):
+    """The port's model of ``configs/<name>.py`` at full width, random
+    weights from a seed, compute type ``dtype``."""
+    import dataclasses
+    import importlib
+
+    from deepsvg_tpu_torch.models import SVGTransformer
+    from deepsvg_tpu_torch.training.trainer import init_parameters
+    cfg = importlib.import_module(f"deepsvg_tpu_torch.configs.{name}").make_model_config()
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype, dropout=dropout)
+    model = SVGTransformer(cfg)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(dev)
+
+
+_COUNTERS = {
+    "embedding": lambda: emb_ops.fused_embedding.launches,
+    "layer": lambda: layer_ops.fused_layer.launches,
+    "layer_long": lambda: layer_ops.fused_layer_long.launches,
+    "head": lambda: head_ops.fused_head_argmax.launches,
+    "layer_train": lambda: (layer_vjp.fused_layer_train.launches,
+                            layer_vjp.fused_layer_train.backward_launches),
+    "layer_train_long": lambda: (layer_vjp.fused_layer_train_long.launches,
+                                 layer_vjp.fused_layer_train_long.backward_launches),
+    "args_ce": lambda: (ce_ops.args_ce.launches, ce_ops.args_ce.backward_launches),
+    "embedding_bwd": lambda: emb_ops.embedding_backward.launches,
+    "decode": lambda: decode_ops.fused_decode_step.launches,
+}
+
+
+def _moved(fn):
+    """Run ``fn``; return its result and how far each counter moved."""
+    from deepsvg_tpu_torch.ops import stack_vjp
+    counters = dict(_COUNTERS, stack=lambda: (stack_vjp.fused_stack_train.launches,
+                                              stack_vjp.fused_stack_train.backward_launches))
+    before = {k: c() for k, c in counters.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    moved = {}
+    for k, c in counters.items():
+        now = c()
+        moved[k] = (tuple(a - b for a, b in zip(now, before[k])) if isinstance(now, tuple)
+                    else now - before[k])
+    return out, {k: v for k, v in moved.items() if v not in (0, (0, 0))}
+
+
+_WEIGHTS = dict(kl_tolerance=0.1, loss_kl_weight=1.0, loss_visibility_weight=1.0,
+                loss_cmd_weight=1.0, loss_args_weight=2.0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_one_stage_one_shot_paths_launch_their_kernels(cuda, dtype):
+    """The one-stage one-shot model: ``one_shot_sample`` runs K1 once, the
+    long K2 at E1 (S=242) and D1 (S=241, not causal, seq_bias) four times
+    each and K3 once at R = N x 241; the training step runs K1, the long K4
+    8 + 8, K5 1 + 1 and K6 once, and its loss has no visibility term."""
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import one_shot_sample
+    from deepsvg_tpu_torch.training import (
+        constant, create_train_state, make_optimizer, train_step)
+    b = generate_batch(np.random.default_rng(1), 4)
+    c = torch.from_numpy(b["commands_grouped"]).to(cuda)
+    a = torch.from_numpy(b["args_grouped"]).to(cuda)
+    model = _variant("one_stage_one_shot", cuda, dtype).eval()
+    (cmds, args), moved = _moved(lambda: one_shot_sample(model, c, a))
+    assert moved == {"embedding": 1, "layer_long": 8, "head": 1}
+    assert cmds.shape == (4, 1, 241) and args.shape == (4, 1, 241, N_ARGS)
+    model = _variant("one_stage_one_shot", cuda, dtype, dropout=0.1)
+    optimizer = make_optimizer(constant(1e-3))
+    state = create_train_state(model, optimizer, init=False)
+    (_, res), moved = _moved(lambda: train_step(state, {"commands_grouped": c, "args_grouped": a},
+                                                _WEIGHTS, optimizer,
+                                                ["commands_grouped", "args_grouped"] * 2))
+    assert moved == {"embedding": 1, "layer_train_long": (8, 8), "args_ce": (1, 1),
+                     "embedding_bwd": 1}
+    assert "loss_visibility" not in res and all(bool(torch.isfinite(v)) for v in res.values())
+
+
+def test_fonts_paths_launch_their_kernels(cuda):
+    """The label-conditioned fonts model: ``one_shot_sample`` with labels
+    runs K2 16 times (the labels' injection as each layer's seq_bias; E2's
+    four in float32) and K3 once; the training step at B=8 runs the short K4
+    8 + 8, K7 2 + 2 (E2 with the label's biases, D2 with z's and the
+    label's), K5 1 + 1, K1 and K6 once. Its gradients of every ``glob`` and
+    ``glob2`` leaf are held against the plain path's (float32 compute,
+    dropout 0: TF32 products against full float32) to 1e-2 relative RMS."""
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import one_shot_sample
+    from deepsvg_tpu_torch.ops import stack_vjp
+    from deepsvg_tpu_torch.training import (
+        constant, create_train_state, make_optimizer, train_step)
+    b = generate_batch(np.random.default_rng(2), 8, label_range=100)
+    batch = {k: torch.from_numpy(b[k]).to(cuda) for k in ("commands", "args", "label")}
+    keys = ["commands", "args", "commands", "args", "label"]
+    model = _variant("hierarchical_ordered_fonts", cuda).eval()
+    fn = layer_ops.fused_layer
+    f32_before = fn.float32_launches
+    (cmds, _), moved = _moved(lambda: one_shot_sample(model, batch["commands"], batch["args"],
+                                                      label=batch["label"]))
+    assert moved == {"embedding": 1, "layer": 16, "head": 1}
+    assert fn.float32_launches - f32_before == 4 and cmds.shape == (8, 8, 31)
+    optimizer = make_optimizer(constant(1e-3))
+    state = create_train_state(_variant("hierarchical_ordered_fonts", cuda, dropout=0.1),
+                               optimizer, init=False)
+    (_, res), moved = _moved(lambda: train_step(state, batch, _WEIGHTS, optimizer, keys))
+    assert moved == {"embedding": 1, "layer_train": (8, 8), "stack": (2, 2), "args_ce": (1, 1),
+                     "embedding_bwd": 1}
+    assert all(bool(torch.isfinite(v)) for v in res.values())
+
+    def glob_grads():
+        opt = make_optimizer(constant(1e-3))
+        st = create_train_state(_variant("hierarchical_ordered_fonts", cuda, "float32"), opt,
+                                init=False)
+        train_step(st, batch, _WEIGHTS, opt, keys)
+        return {n: p.grad.clone() for n, p in st.model.named_parameters() if ".glob" in n}
+    got = glob_grads()
+    saved = [(layer_vjp, "fused_layer_train", layer_vjp.plain_layer_train),
+             (stack_vjp, "fused_stack_train", stack_vjp.plain_stack_train),
+             (emb_ops, "fused_embedding_train", emb_ops.embedding_reference),
+             (ce_ops, "args_ce", ce_ops.plain_args_ce)]
+    originals = [getattr(mod, name) for mod, name, _ in saved]
+    try:
+        for mod, name, plain in saved:
+            setattr(mod, name, plain)
+        want = glob_grads()
+    finally:
+        for (mod, name, _), orig in zip(saved, originals):
+            setattr(mod, name, orig)
+    # glob in the 8 decoder layers, glob2 in all 16, a weight and a bias each
+    assert len(got) == 48 and sum(".glob2." in n for n in got) == 32
+    for n, g in got.items():
+        assert g.abs().max() > 0, n
+        assert _rel_rms(g, want[n]) <= 1e-2, (n, _rel_rms(g, want[n]))
+
+
+def test_generator_sampling_runs_k9_without_the_head(cuda):
+    """A label-conditioned Sketchformer's ``greedy_sample`` with a generator:
+    K9 every step, K3 never (the logits by ``F.linear``), draws in range; K9
+    gets each layer's latent injection plus its label's as ``seq_bias``."""
+    import dataclasses
+    import types
+
+    from deepsvg_tpu_torch.configs.sketchformer import make_model_config
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import SVGTransformer, greedy_sample
+    from deepsvg_tpu_torch.models import sample as sample_mod
+    from deepsvg_tpu_torch.training.trainer import init_parameters
+    cfg = dataclasses.replace(make_model_config(), label_condition=True)
+    model = SVGTransformer(cfg)
+    init_parameters(model, torch.Generator().manual_seed(3))
+    model = model.to(cuda).eval()
+    b = generate_batch(np.random.default_rng(3), 16, label_range=100)
+    c = torch.from_numpy(b["commands_grouped"]).to(cuda)
+    a = torch.from_numpy(b["args_grouped"]).to(cuda)
+    label = torch.from_numpy(b["label"]).to(cuda)
+    seen = []
+    decode = decode_ops.fused_decode_step
+
+    def spy(x, seq_bias, *rest):
+        seen.append(seq_bias)
+        return decode(x, seq_bias, *rest)
+    # the spy stands in the sampler's namespace; the wrapper keeps its counter
+    sample_mod.decode_ops = types.SimpleNamespace(fused_decode_step=spy)
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        (drawn, _), moved = _moved(lambda: greedy_sample(model, c, a, label=label,
+                                                         temperature=1e-4, generator=gen))
+    finally:
+        sample_mod.decode_ops = decode_ops
+    steps = cfg.max_total_len
+    assert moved == {"embedding": 1, "layer_long": 4, "decode": steps}
+    greedy, moved = _moved(lambda: greedy_sample(model, c, a, label=label))
+    assert moved == {"embedding": 1, "layer_long": 4, "decode": steps, "head": steps}
+    assert drawn.shape == greedy[0].shape == (16, 1, steps)
+    assert int(drawn.min()) >= 0 and int(drawn.max()) < cfg.n_commands
+    from deepsvg_tpu_torch.models import DropoutRng
+    z, _, _ = model.encode(c, a, label, rng=DropoutRng.fixed())
+    le = model.decoder.label(label)
+    want = torch.stack([lay.injection(z).to(BF16) + lay.label_injection(le).to(BF16)
+                        for lay in model.decoder.decoder.layers])
+    assert torch.equal(seen[0], want)

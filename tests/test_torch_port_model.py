@@ -169,14 +169,43 @@ def test_one_shot_sample_matches_jax_pallas(port_model, batch, jax_run):
 # --------------------------------------------------- variants and device rule
 
 @pytest.mark.parametrize("change", [
-    {"pred_mode": "autoregressive"}, {"label_condition": True},
+    {"pred_mode": "autoregressive"},
     {"pred_mode": "autoregressive", "rel_targets": True}, {"model_type": "lstm"},
-    {"decode_stages": 1}, {"encode_stages": 1, "decode_stages": 1},
+    {"encode_stages": 0}, {"encode_stages": 1, "pred_mode": "autoregressive"},
 ])
 def test_variants_outside_the_slice_raise(change):
     cfg = dataclasses.replace(hierarchical_ordered(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SVGTransformer(cfg)
+
+
+@pytest.mark.parametrize("change", [
+    {"label_condition": True}, {"decode_stages": 1}, {"encode_stages": 1, "decode_stages": 1},
+])
+def test_variants_in_the_slice_match_jax(change):
+    """The flagship's config with one change, at full width: the port's model
+    builds, loads JAX's initialisation of the variant and gives its logits
+    (JAX's XLA path, float32, atol 1e-4) on two icons."""
+    cfg = dataclasses.replace(hierarchical_ordered(), **change)
+    b = generate_batch(np.random.default_rng(1), 2, label_range=cfg.n_labels)
+    keys = cfg.get_model_args()
+    jax_model = JaxSVGTransformer(JaxModelConfig(**{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}))
+    params = jax.jit(jax_model.init)({"params": jax.random.key(0)},
+                                     *(jnp.asarray(b[k]) for k in keys))["params"]
+    enc = [jnp.asarray(b[k]) for k in keys[:2]]
+    label = jnp.asarray(b["label"]) if cfg.label_condition else None
+    ref = jax_model.apply({"params": params}, *enc, None, None, label=label, return_tgt=False)
+    model = SVGTransformer(cfg).eval()
+    load_flax_params(model, jax.tree_util.tree_map(np.asarray, params))
+    with torch.no_grad():
+        res = model(*(torch.from_numpy(b[k]) for k in keys[:2]), label=None if label is None
+                    else torch.from_numpy(b["label"]))
+    assert set(res) == set(ref)
+    for key in ref:
+        assert res[key].shape == ref[key].shape, key
+        np.testing.assert_allclose(res[key].numpy(), np.asarray(ref[key]), atol=1e-4, rtol=0,
+                                   err_msg=key)
 
 
 def test_default_device_needs_cuda(monkeypatch):
