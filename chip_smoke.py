@@ -5,8 +5,10 @@
 In order: print the card and its power limit; build the port's CUDA kernels
 from ``deepsvg_tpu_torch/ops/csrc``; load the trained flagship checkpoint;
 then five paths in bfloat16, the float32 models, the attention ops, K4's
-recompute mode and the model variants (the one-stage one-shot model, the
-label-conditioned fonts model, temperature sampling). Every earlier phase
+recompute mode, the model variants (the one-stage one-shot model, the
+label-conditioned fonts model, temperature sampling) and the variants ported
+last (SketchRNN's LSTM, two-stage autoregressive decoding, the decode-only
+model). Every earlier phase
 runs K4 in its saved mode, the model's default
 (``layer_vjp.SAVE_RESIDUALS_DEFAULT``).
 
@@ -177,6 +179,31 @@ control; the CLI with a resume. Last, Sketchformer's ``greedy_sample`` with
 a generator at SAMPLE_LOW_T and 1 (K9 240, no K3), the low temperature's
 draws equal to the greedy decode before each sequence's first position below
 AR_MARGIN.
+
+*The LSTM, two-stage autoregressive decoding and the decode-only model*
+(:func:`decoders_phase`; random weights from LSTM_SEED). SketchRNN
+(``config.sketchrnn()``, float32, its only type): encode at N=1024 counted
+(K1-f32 1), timed, K1 against its plain version on its operands and the
+latent against the plain path's; the teacher-forced forward at N=64 against
+its plain path (logits within RNN_LOGIT_LIMIT) with a control (the LSTM
+cells cut to CONTROL_MANTISSA_BITS); ``autoregressive_sample`` at
+N_RNN_SAMPLE counted (K1-f32 240), timed, its output valid and the
+teacher-forced argmax over its tokens equal to them above TF_MARGIN; the
+step at B=60 counted (K1-f32 2, K6 2, K5-f32 1 + 1), timed and gated with a
+control. The LSTM encoder with the flagship's one-shot decoder in bfloat16:
+``one_shot_sample`` at N=1024 counted (K1 1, K2 8 + 4 float32, K3 1),
+validated, timed, against its plain path at N=64 with a control. The
+two-stage autoregressive model at the flagship's widths, bfloat16 then
+float32: the teacher-forced forward at N=1024 counted (K1 2, K2 12 + 4
+float32; float32 K1 2, K2 16), timed, against its plain path with a
+control; K7 with ``causal=True`` and key padding at S=9, B_K7_CAUSAL, on its
+D1 layers, rates 0 and 0.1; the step at B=60 counted (K1 2, K4 8 + 8 short
+bf16 or long float32, K7 2 + 2, K5 1 + 1, K6 2), timed and gated with a
+control. The decode-only models from a latent at N=1024: ``one_shot_sample``
+at one stage (long K2 4, K3 1) and two (K2 8, K3 1) and the autoregressive
+form's ``greedy_sample`` (K9 240, K3 240), each validated, timed and
+against its plain path with a control. This phase's launch counts and
+controls are held at the end of the run, so that one run prints them all.
 
 At the end, each form of K5 (bf16 at 257 and 512 classes, float32 at 257
 and 512), of K8 and of K2 (short and long, bf16 and float32) is printed
@@ -445,6 +472,23 @@ F32_STEP_MEDIAN_LEAF_RMS = 1e-2
 # the first position where (autoregressive), the greedy decode's margin is
 # below AR_MARGIN; at temperature 1 they are valid and differ from it.
 VARIANT_SEED = 19
+# The LSTM and decoders' phase (random weights from LSTM_SEED). SketchRNN
+# runs float32 only (its LSTM decoder does in the JAX package) and its one
+# sampler, autoregressive_sample, re-runs the 241-step LSTM decoder at each
+# of its 240 steps: some 58,000 cell steps a call, bound by the host, so it
+# runs once at N_RNN_SAMPLE icons. Its paths differ from their plain paths
+# in K1, K5 and K6 alone (the LSTM is plain PyTorch in both), and its
+# inference in K1 alone, float32 and exact to TOL_EMBED_F32: its logits are
+# held to RNN_LOGIT_LIMIT; the controls cut the LSTM cells' kernels to
+# CONTROL_MANTISSA_BITS (read on the CPU at N=64: logits 0.0186 apart). K7 with
+# causal=True and key padding (a two-stage autoregressive decoder at
+# max_seq_len <= 15 reaches it through the stack gate) at S=9 and
+# B_K7_CAUSAL sequences, the gate's 512 padded rows. The other gates and
+# limits are those of the variants' phase.
+LSTM_SEED = 20
+RNN_LOGIT_LIMIT = 1e-3
+N_RNN_SAMPLE = 8
+B_K7_CAUSAL = 32
 N_LABELS_FONTS = 100
 SAMPLE_LOW_T = 1e-4
 # K11's gradients: relative RMS, about four times the card test's largest
@@ -586,17 +630,18 @@ def matmul_tf32(allow: bool):
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def decoder_states(model, commands, args, label=None):
+def decoder_states(model, commands, args, label=None, dec=(), **kw):
     """One forward with the argmax head (a VAE's latent from the fixed
     generator): the states the head read ``[R, D]``, the ids ``[R, 1 +
-    n_args]`` and the forward's result."""
+    n_args]`` and the forward's result. ``dec``: an autoregressive
+    decoder's targets; ``kw`` goes to the forward (``z=``)."""
     from deepsvg_tpu_torch.models import DropoutRng
     fcn = model.decoder.fcn
     seen = {}
     hook = fcn.register_forward_hook(lambda m, i, o: seen.__setitem__("x", i[0]))
     try:
-        res = model(commands, args, label=label, argmax_head=True,
-                    rng=DropoutRng.fixed() if model.cfg.use_vae else None)
+        res = model(commands, args, *dec, label=label, argmax_head=True,
+                    rng=DropoutRng.fixed() if model.cfg.use_vae else None, **kw)
     finally:
         hook.remove()
     ids = torch.cat([res["command_ids"].reshape(-1, 1),
@@ -898,7 +943,7 @@ def k4_chain(layer_vjp, x, bias, *rest, with_gates: bool = False):
 
 
 def check_stack_train(stack_vjp, layer_vjp, what, layers, draw, rate, seed=4321,
-                      outliers_aligned=False, control_bits=None):
+                      outliers_aligned=False, control_bits=None, causal=False):
     """K7 against its plain version with the same hash masks, over K7_DRAWS
     draws of inputs: ``draw(gen)`` gives the input, the injections and the
     mask from ``gen``, a generator of the draw's own (seeded K7_SEED + the
@@ -915,8 +960,9 @@ def check_stack_train(stack_vjp, layer_vjp, what, layers, draw, rate, seed=4321,
     aligned (see TOL_STACK_*). ``control_bits``: a control, one draw, where
     K7 and the chain run on the masters with layer 1's cut to that many
     mantissa bits and the plain versions on the masters as they are; the
-    verdicts are returned (``failed``) instead of reported. Returns the
-    readings: each draw's, and the worst over the draws."""
+    verdicts are returned (``failed``) instead of reported. ``causal``: the
+    stack's attention is causal (each layer's too). Returns the readings:
+    each draw's, and the worst over the draws."""
     from deepsvg_tpu_torch.ops.dropout import stack_layer_seed
     dt, n_heads = layers[0].compute_dtype, layers[0].n_heads
     masters = stacked_masters(layers)
@@ -939,7 +985,7 @@ def check_stack_train(stack_vjp, layer_vjp, what, layers, draw, rate, seed=4321,
         bias = biases[:len(layers)].detach().to(dt).requires_grad_()
         g = torch.randn(x.shape, device=dev, generator=gen).to(dt)
         leaves, k_leaves = [x, bias, *masters], [x, bias, *kernel_masters]
-        tail = (mask, seed + k, n_heads, False, rate, dt)
+        tail = (mask, seed + k, n_heads, causal, rate, dt)
         call, k_call = (x, bias, *masters, *tail), (x, bias, *kernel_masters, *tail)
         out = stack_vjp.fused_stack_train(*k_call)
         gates = stack_vjp.kernel_relu_gates(out)
@@ -952,7 +998,7 @@ def check_stack_train(stack_vjp, layer_vjp, what, layers, draw, rate, seed=4321,
             for layer, (x_l, y_l) in enumerate(zip(inputs, inputs[1:] + [out])):
                 ref_l = layer_vjp.plain_layer_train(
                     x_l, bias[layer], *[w[layer] for w in masters], mask,
-                    stack_layer_seed(seed + k, layer), n_heads, False, rate, dt).float()
+                    stack_layer_seed(seed + k, layer), n_heads, causal, rate, dt).float()
                 layer_rms.append(rel_rms(y_l, ref_l))
                 layer_excess.append(((y_l.float() - ref_l).abs() - TOL_LAYER_RTOL * ref_l.abs())
                                     .max().item())
@@ -995,7 +1041,7 @@ def check_stack_train(stack_vjp, layer_vjp, what, layers, draw, rate, seed=4321,
         with torch.no_grad():
             chain_layer_rms = [rel_rms(y_l, layer_vjp.fused_layer_train(
                 x_l, bias[layer], *[w[layer] for w in kernel_masters], mask,
-                stack_layer_seed(seed + k, layer), n_heads, False, rate, dt,
+                stack_layer_seed(seed + k, layer), n_heads, causal, rate, dt,
                 save_residuals=True))
                 for layer, (x_l, y_l) in enumerate(zip(inputs, inputs[1:] + [out]))]
         chain_rms = rel_rms(out, chain)
@@ -3685,6 +3731,7 @@ def variants_phase(dev, card, record, reset_counts, read_counts) -> dict:
                  (head_ops, "head_argmax_reference"), (decode_ops, "decode_step_reference"),
                  (layer_vjp, "layer_train_reference"), (stack_vjp, "layer_train_reference"),
                  (ce_ops, "args_ce_reference")]
+    ops = (emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp)
 
     def counted(what, fn, expected):
         """``fn()`` once, counted, with the plain versions spied."""
@@ -3714,43 +3761,6 @@ def variants_phase(dev, card, record, reset_counts, read_counts) -> dict:
         print(f"{what}: {ms:.3f} ms median of {iters}, device busy {busy} ms, idle share "
               f"{'not measured' if not busy else round(1 - busy / ms, 4)} on {card}", flush=True)
         return row
-
-    def kernel_vs_plain(what, model, commands, args, label, layers, hold_logits=True):
-        """Kernel path against plain path: every id whose plain top-2 margin
-        is at least AR_MARGIN equal, the largest logit difference within
-        AR_LOGIT_LIMIT; the control (the plain path with ``layers`` cut by
-        AR_CONTROL_DROP_BITS mantissa bits) must fail the logit limit. With
-        ``hold_logits`` false the logits are read, not held, and the control
-        must fail the ids' gate."""
-        fcn = model.decoder.fcn
-        w = fcn.w_packed.float()
-        x_k, ids_k, _ = decoder_states(model, commands, args, label)
-        with plain_path(emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp):
-            x_p, ids_p, _ = decoder_states(model, commands, args, label)
-            with contextlib.ExitStack() as cut:
-                for layer in layers:
-                    cut.enter_context(truncated_weights(layer, AR_CONTROL_DROP_BITS))
-                x_c, ids_c, _ = decoder_states(model, commands, args, label)
-        wide = slot_margins(x_p, fcn) >= AR_MARGIN
-        agree = (ids_k == ids_p)[wide].float().mean().item()
-        agree_c = (ids_c == ids_p)[wide].float().mean().item()
-        gap = ((x_k.float() - x_p.float()) @ w.t()).abs().max().item()
-        gap_c = ((x_c.float() - x_p.float()) @ w.t()).abs().max().item()
-        print(f"{what} kernel vs plain path N={commands.shape[0]}: ids equal on {agree:.5f} of "
-              f"the {int(wide.sum())} slots with plain margin >= {AR_MARGIN} (of "
-              f"{wide.numel()}); largest logit difference {gap:.3g} (limit {AR_LOGIT_LIMIT}); "
-              f"control ({len(layers)} layers less {AR_CONTROL_DROP_BITS} mantissa bits): ids "
-              f"{agree_c:.5f}, logits {gap_c:.3g}", flush=True)
-        check_later(agree == 1.0, f"{what}: ids differ above the margin: {agree}")
-        if hold_logits:
-            check_later(gap <= AR_LOGIT_LIMIT, f"{what}: logits differ by {gap} (limit "
-                                               f"{AR_LOGIT_LIMIT})")
-            check(gap_c > AR_LOGIT_LIMIT, f"{what}: the logit limit passed its control "
-                                          f"({gap_c})")
-        else:
-            check(agree_c < 1.0, f"{what}: the ids' gate passed its control ({agree_c})")
-        return {"agreement": agree, "slots_compared": int(wide.sum()), "max_logit_diff": gap,
-                "control_agreement": agree_c, "control_max_logit_diff": gap_c}
 
     def step_gate(what, make_model, batch, weights, model_args, cut_layers, dtype):
         """One step at dropout 0, kernel path against plain path, with the
@@ -3919,8 +3929,10 @@ def variants_phase(dev, card, record, reset_counts, read_counts) -> dict:
             res.update(k1_max_abs_err=k1_err, k2=k2, k3=k3)
             del y, head_in, ids_k, ids_p, differ, wide, x_e1, cases, la
             # kernel path against plain path at N=64, and the control
-            res["gate"] = kernel_vs_plain(f"one-stage {dname}", model, oc[:N_AR_GATE],
-                                          oa[:N_AR_GATE], None, dec.decoder.layers)
+            layers = list(dec.decoder.layers)
+            res["gate"] = path_gate(f"one-stage {dname} N={N_AR_GATE}", model, ops,
+                                    lambda: cut_layers(layers, AR_CONTROL_DROP_BITS),
+                                    commands=oc[:N_AR_GATE], args=oa[:N_AR_GATE])
         # the long K4 at D1's shape, S=241, not causal, with seq_bias (B=60)
         res["k4_d1"] = k4_long_row(layer_vjp, l_d, x_d1[:B_RECIPE], sb_d1[:B_RECIPE],
                                    zero_d1[:B_RECIPE], False, gen)
@@ -3972,8 +3984,11 @@ def variants_phase(dev, card, record, reset_counts, read_counts) -> dict:
               "the fonts model decodes the same icons under other labels")
         fonts["inference"] = walls(f"fonts one_shot_sample N={N_MAIN}",
                                    lambda: one_shot_sample(model, fc, fa, label=fl))
-        fonts["gate"] = kernel_vs_plain("fonts", model, fc[:N_AR_GATE], fa[:N_AR_GATE],
-                                        fl[:N_AR_GATE], dec.decoder.layers, hold_logits=False)
+        layers = list(dec.decoder.layers)
+        fonts["gate"] = path_gate(f"fonts N={N_AR_GATE}", model, ops,
+                                  lambda: cut_layers(layers, AR_CONTROL_DROP_BITS),
+                                  hold_logits=False, commands=fc[:N_AR_GATE],
+                                  args=fa[:N_AR_GATE], label=fl[:N_AR_GATE])
 
         # temperature sampling: at SAMPLE_LOW_T the greedy ids wherever the
         # greedy margin is at least AR_MARGIN; at 1, valid draws
@@ -4116,6 +4131,580 @@ def variants_phase(dev, card, record, reset_counts, read_counts) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def cut_layers(layers, drop_bits: int):
+    """:func:`truncated_weights` on every layer of ``layers`` inside the
+    block."""
+    with contextlib.ExitStack() as cut:
+        for layer in layers:
+            cut.enter_context(truncated_weights(layer, drop_bits))
+        yield
+
+
+@contextlib.contextmanager
+def cut_params(params, keep_bits: int):
+    """The float32 ``params`` cut to ``keep_bits`` mantissa bits inside the
+    block (a control for paths with no transformer layer to cut)."""
+    saved = [p.detach().clone() for p in params]
+    with torch.no_grad():
+        for p in params:
+            p.copy_(cut_mantissa(p, keep_bits))
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for p, orig in zip(params, saved):
+                p.copy_(orig)
+
+
+def path_gate(what, model, ops, control, hold_logits=True, limit=AR_LOGIT_LIMIT,
+              **inputs) -> dict:
+    """Kernel path against plain path on the states the heads read
+    (:func:`decoder_states` with ``inputs``): every id whose plain top-2
+    margin is at least AR_MARGIN equal, and, with ``hold_logits``, the
+    largest logit difference within ``limit``; the control (the plain path
+    inside ``control()``) must fail the logit limit, or without
+    ``hold_logits`` the ids' gate."""
+    fcn = model.decoder.fcn
+    w = fcn.w_packed.float()
+    x_k, ids_k, _ = decoder_states(model, **inputs)
+    with plain_path(*ops):
+        x_p, ids_p, _ = decoder_states(model, **inputs)
+        with control():
+            x_c, ids_c, _ = decoder_states(model, **inputs)
+    wide = slot_margins(x_p, fcn) >= AR_MARGIN
+    agree = (ids_k == ids_p)[wide].float().mean().item()
+    agree_c = (ids_c == ids_p)[wide].float().mean().item()
+    gap = ((x_k.float() - x_p.float()) @ w.t()).abs().max().item()
+    gap_c = ((x_c.float() - x_p.float()) @ w.t()).abs().max().item()
+    print(f"{what} kernel vs plain path: ids equal on {agree:.5f} of the {int(wide.sum())} slots "
+          f"with plain margin >= {AR_MARGIN} (of {wide.numel()}); largest logit difference "
+          f"{gap:.3g} (limit {limit}{'' if hold_logits else ', read'}); control: ids "
+          f"{agree_c:.5f}, logits {gap_c:.3g}", flush=True)
+    check_later(agree == 1.0, f"{what}: ids differ above the margin: {agree}")
+    if hold_logits:
+        check_later(gap <= limit, f"{what}: logits differ by {gap} (limit {limit})")
+    check_later(gap_c > limit if hold_logits else agree_c < 1.0,
+                f"{what}: the gate passed its control (ids {agree_c}, logits {gap_c})")
+    return {"agreement": agree, "slots_compared": int(wide.sum()), "max_logit_diff": gap,
+            "control_agreement": agree_c, "control_max_logit_diff": gap_c}
+
+
+def decoders_phase(dev, card, record, reset_counts, read_counts) -> dict:
+    """The variants ported last, at full width with random weights from
+    LSTM_SEED: SketchRNN in float32 (encode at N=1024; its one sampler,
+    ``autoregressive_sample``, at N_RNN_SAMPLE; the step at B=60); the LSTM
+    encoder with the flagship's one-shot decoder in bfloat16 (N=1024); the
+    two-stage autoregressive model in bfloat16 and float32 (the
+    teacher-forced forward at N=1024, the step at B=60); K7 causal with key
+    padding at S=9; the decode-only models from a latent (one-shot at one
+    and two stages, and the autoregressive form's ``greedy_sample`` through
+    K9 and K3). Each path counted (launch counts held by ``check_later``, so
+    that one run prints every count) with no plain version called, and held
+    against its plain path with a control. Returns the launches of the
+    counted runs."""
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import (
+        DropoutRng, SVGTransformer, autoregressive_sample, gpu_fast, greedy_sample,
+        hierarchical_ordered, one_shot_sample, one_stage_one_shot, sketchformer, sketchrnn)
+    from deepsvg_tpu_torch.models import sample as sample_mod
+    from deepsvg_tpu_torch.ops import ce as ce_ops
+    from deepsvg_tpu_torch.ops import decode as decode_ops
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import head as head_ops
+    from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
+    from deepsvg_tpu_torch.svgtensor import masks as M
+    from deepsvg_tpu_torch.svgtensor.constants import CMD_SOS, PAD_VAL
+    from deepsvg_tpu_torch.training import (
+        constant, create_train_state, make_optimizer, train_step)
+    from deepsvg_tpu_torch.training.trainer import init_parameters
+    t_phase = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    ops = (emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp, decode_ops)
+    out: dict = {}
+    launches: dict = {}
+    no_launch = dict.fromkeys(read_counts(), 0)
+    plain_fns = [(emb_ops, "embedding_reference"), (layer_ops, "layer_reference"),
+                 (head_ops, "head_argmax_reference"), (decode_ops, "decode_step_reference"),
+                 (layer_vjp, "layer_train_reference"), (stack_vjp, "layer_train_reference"),
+                 (ce_ops, "args_ce_reference")]
+
+    def build(cfg, dropout=None):
+        if dropout is not None:
+            cfg = dataclasses.replace(cfg, dropout=dropout)
+        model = SVGTransformer(cfg)
+        init_parameters(model, torch.Generator().manual_seed(LSTM_SEED))
+        return model.to(dev).eval()
+
+    def counted(what, fn, expected):
+        """``fn()`` once, counted, with the plain versions spied; the counts
+        are held later, so that a run prints them all."""
+        torch.cuda.synchronize()
+        calls, restore = count_plain_calls(plain_fns)
+        reset_counts()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        got = read_counts()
+        print(f"{what}: launches {got}; plain versions called {calls}", flush=True)
+        check_later(got == no_launch | expected, f"{what}: launches {got}, expected {expected}")
+        check(not any(calls.values()), f"{what}: plain versions ran: {calls}")
+        launches[what] = {k: v for k, v in got.items() if v}
+        return res
+
+    def walls(what, fn, iters=5):
+        ms = cuda_median_ms(fn, iters=iters, warmup=1)
+        busy, split = device_split(fn, iters=2)
+        print(f"{what}: {ms:.3f} ms median of {iters}, device busy {busy} ms, idle share "
+              f"{'not measured' if not busy else round(1 - busy / ms, 4)} on {card}", flush=True)
+        return {"median_ms": ms, "device_busy_ms": busy,
+                "idle_share": None if not busy else 1 - busy / ms,
+                "top": sorted(split.items(), key=lambda kv: -kv[1])[:8]}
+
+    def step(what, cfg, batch, model_args, expected, control, dtype):
+        """The step at B=60: counted and timed at dropout 0.1, then at
+        dropout 0 against its plain path with the recompute phase's gate; the
+        control (the plain path inside ``control(model)``) must fail it."""
+        opt = make_optimizer(constant(LR))
+        state = create_train_state(build(cfg, DROPOUT), opt, init=False)
+        _, res = counted(what, lambda: train_step(state, batch, SF_WEIGHTS, opt, model_args),
+                         expected)
+        ms = cuda_median_ms(lambda: train_step(state, batch, SF_WEIGHTS, opt, model_args),
+                            iters=10)
+        busy, split = device_split(lambda: train_step(state, batch, SF_WEIGHTS, opt, model_args),
+                                   iters=2)
+        _, r = train_step(state, batch, SF_WEIGHTS, opt, model_args)
+        check(all(bool(torch.isfinite(v)) for v in r.values()), f"{what}: a loss is not finite")
+        del state, opt
+
+        def grads_of(control_cut=False):
+            o = make_optimizer(constant(LR))
+            st = create_train_state(build(cfg, 0.0), o, init=False)
+            with control(st.model) if control_cut else contextlib.nullcontext():
+                st, rr = train_step(st, batch, SF_WEIGHTS, o, model_args)
+            names = [k for k, _ in st.model.named_parameters()]
+            return rr, dict(zip(names, [p.grad.detach().clone() for p in st.parameters()]))
+        res_k, grads_k = grads_of()
+        with plain_path(*ops[:6]):
+            res_p, grads_p = grads_of()
+            res_c, grads_c = grads_of(control_cut=True)
+        gate = step_against_plain(what, res_k, grads_k, res_p, grads_p)
+        ctrl = step_against_plain(f"{what} control", res_c, grads_c, res_p, grads_p)
+        del grads_k, grads_p, grads_c
+        torch.cuda.empty_cache()
+        lim_loss, lim_med = RC_STEP_LOSS[dtype], RC_STEP_MEDIAN_LEAF_RMS[dtype]
+        print(f"{what} dropout {DROPOUT}: {ms:.3f} ms/step median of 10, device busy {busy} ms "
+              f"per step on {card}; at dropout 0, kernel vs plain path: {gate}; control: {ctrl}",
+              flush=True)
+        check_later(gate["loss_rel_diff"] <= lim_loss and gate["median_leaf_rms"] <= lim_med
+                    and gate["worst_leaf_rms"] <= TOL_STEP_LEAF_RMS,
+                    f"{what} gate: loss rel diff {gate['loss_rel_diff']} (limit {lim_loss}), "
+                    f"median leaf {gate['median_leaf_rms']} (limit {lim_med}), worst leaf "
+                    f"{gate['worst_leaf_rms']} (limit {TOL_STEP_LEAF_RMS})")
+        check_later(ctrl["loss_rel_diff"] > lim_loss or ctrl["median_leaf_rms"] > lim_med,
+                    f"{what}: the gate passed its control {ctrl}")
+        return {"B": B_RECIPE, "median_ms": ms, "device_busy_ms_per_step": busy,
+                "idle_share": None if not busy else 1 - busy / ms, "launches": launches[what],
+                "losses": {k: float(v) for k, v in r.items()}, "gate": gate, "control": ctrl,
+                "top": sorted(split.items(), key=lambda kv: -kv[1])[:10]}
+
+    # ======================================= (1) SketchRNN, float32 (its only type)
+    cfg = sketchrnn()
+    model = build(cfg)
+    enc, dec, fcn = model.encoder, model.decoder, model.decoder.fcn
+    sb = generate_batch(np.random.default_rng(0), N_MAIN, 8, 30)
+    sc = torch.from_numpy(sb["commands_grouped"]).to(dev)               # [N, 1, 242]
+    sa = torch.from_numpy(sb["args_grouped"]).to(dev)
+    sr = torch.from_numpy(sb["args_rel_grouped"]).to(dev)
+    rnn: dict = {}
+    with torch.no_grad():
+        z = counted(f"SketchRNN encode N={N_MAIN}",
+                    lambda: model.encode(sc, sa, rng=DropoutRng.fixed())[0], {"embedding_f32": 1})
+        check(tuple(z.shape) == (N_MAIN, cfg.dim_z) and bool(torch.isfinite(z).all()),
+              "SketchRNN latent: shape or values")
+        rnn["encode"] = walls(f"SketchRNN encode N={N_MAIN}",
+                              lambda: model.encode(sc, sa, rng=DropoutRng.fixed()))
+        # K1 on the encoder's operands against its plain version
+        cmd_f, args_f = sc[:, 0], sa[:, 0]
+        cmd_table, arg_tables, pos_table = enc.embedding.tables()
+        e_in = (cmd_f, args_f, M.group_mask(cmd_f), cmd_table, arg_tables,
+                enc.embedding.group_table(), pos_table[:cmd_f.shape[1]], True)
+        x_k = emb_ops.fused_embedding(*e_in)
+        k1_err = (x_k - emb_ops.embedding_reference(*e_in)).abs().max().item()
+        check_later(k1_err <= TOL_EMBED_F32 * x_k.abs().max().item(),
+                    f"K1 SketchRNN encoder float32: max abs err {k1_err}")
+        with plain_path(*ops[:3]):
+            z_p = model.encode(sc, sa, rng=DropoutRng.fixed())[0]
+        z_err = (z - z_p).abs().max().item()
+        print(f"SketchRNN encoder: K1 max abs err {k1_err:.3g}; latent kernel vs plain path max "
+              f"abs err {z_err:.3g}", flush=True)
+        check_later(z_err <= TOL_F32_ATOL, f"SketchRNN latent, kernel vs plain path: {z_err}")
+        rnn["encoder"] = {"k1_max_abs_err": k1_err, "latent_max_abs_err": z_err}
+        del x_k, z_p, e_in
+
+        # the teacher-forced forward at N=64 against its plain path; the
+        # control cuts the LSTM decoder's kernels to CONTROL_MANTISSA_BITS
+        cells = [*enc.encoder.parameters(), *dec.decoder.cell.parameters()]
+        rnn["gate"] = path_gate(
+            "SketchRNN teacher-forced N=64", model, ops[:6],
+            lambda: cut_params(cells, CONTROL_MANTISSA_BITS), limit=RNN_LOGIT_LIMIT,
+            commands=sc[:N_AR_GATE], args=sa[:N_AR_GATE], dec=(sc[:N_AR_GATE], sr[:N_AR_GATE]))
+
+        # autoregressive_sample (the full re-forward at each step), counted
+        # and timed once; then the teacher-forced forward over its raw tokens:
+        # the argmax at each position is the decoded token wherever the
+        # margin is at least TF_MARGIN
+        steps, n_s = cfg.max_total_len, N_RNN_SAMPLE
+        raw = {}
+        finalize = sample_mod._finalize_args
+
+        def keep(cfg_, commands, args):
+            raw["c"], raw["a"] = commands[:, 0], args[:, 0]
+            return finalize(cfg_, commands, args)
+        sample_mod._finalize_args = keep
+        try:
+            t0 = time.perf_counter()
+            c_s, a_s = counted(f"SketchRNN autoregressive_sample N={n_s}",
+                               lambda: autoregressive_sample(model, z[:n_s]),
+                               {"embedding_f32": steps})
+            sample_s = time.perf_counter() - t0
+        finally:
+            sample_mod._finalize_args = finalize
+        used = M.cmd_args_mask(dev, torch.bool)[c_s.long()]
+        check(tuple(c_s.shape) == (n_s, 1, steps) and int(c_s.min()) >= 0
+              and int(c_s.max()) < cfg.n_commands and bool(torch.isfinite(a_s).all())
+              and bool((a_s[~used] == PAD_VAL).all()), "SketchRNN sample: shapes or ranges")
+        buf_c = torch.cat([torch.full((n_s, 1), CMD_SOS, dtype=torch.int32, device=dev),
+                           raw["c"]], dim=1)[:, None]
+        buf_a = torch.cat([torch.full((n_s, 1, cfg.n_args), float(PAD_VAL), device=dev),
+                           raw["a"]], dim=1)[:, None]
+        x_tf, ids_tf, _ = decoder_states(model, None, None, dec=(buf_c, buf_a), z=z[:n_s])
+        ids_tf = ids_tf.reshape(n_s, steps + 1, -1)[:, :steps]
+        m_tf = position_margin(slot_margins(x_tf, fcn).reshape(n_s, steps + 1, -1)[:, :steps],
+                               raw["c"])
+        used = M.cmd_args_mask(dev, torch.bool)[raw["c"].long()]
+        same = (ids_tf[..., 0] == raw["c"]) & ((ids_tf[..., 1:] - 1 == raw["a"]) | ~used).all(-1)
+        gated = m_tf >= TF_MARGIN
+        tf_agree = same[gated].float().mean().item()
+        print(f"SketchRNN autoregressive_sample N={n_s}: {sample_s:.2f} s (host clock, "
+              f"{steps} steps of a {steps + 1}-step LSTM decoder) on {card}; the teacher-forced "
+              f"argmax equals the decoded token at {tf_agree:.5f} of the {int(gated.sum())} "
+              f"positions with margin >= {TF_MARGIN}; at every position "
+              f"{same.float().mean().item():.4f}", flush=True)
+        check_later(tf_agree == 1.0, f"SketchRNN: teacher-forced argmax differs from the "
+                                     f"decode: {tf_agree}")
+        check_later(int(gated.sum()) >= n_s,
+                    f"only {int(gated.sum())} positions cleared the margin")
+        rnn["sample"] = {"N": n_s, "seconds": sample_s, "teacher_forced_agreement": tf_agree,
+                         "positions_compared": int(gated.sum()),
+                         "launches": launches[f"SketchRNN autoregressive_sample N={n_s}"]}
+        del x_tf, ids_tf, buf_c, buf_a, z
+    del model
+    torch.cuda.empty_cache()
+    rnn_batch = {"commands_grouped": sc[:B_RECIPE], "args_grouped": sa[:B_RECIPE],
+                 "args_rel_grouped": sr[:B_RECIPE]}
+    rnn["step"] = step(
+        f"SketchRNN train_step B={B_RECIPE}", cfg, rnn_batch, cfg.get_model_args(),
+        {"embedding_f32": 2, "embedding_bwd": 2, "args_ce_fwd_f32": 1, "args_ce_bwd_f32": 1},
+        lambda m: cut_params(list(m.decoder.decoder.cell.parameters()), CONTROL_MANTISSA_BITS),
+        f32)
+    out["sketchrnn"] = rnn
+    del sc, sa, sr, rnn_batch
+
+    # ======= (2) the LSTM encoder with the flagship's one-shot decoder, bfloat16
+    fb = generate_batch(np.random.default_rng(0), N_MAIN, 8, 30)
+    fc = torch.from_numpy(fb["commands"]).to(dev)
+    fa = torch.from_numpy(fb["args"]).to(dev)
+    cfg = gpu_fast(dataclasses.replace(hierarchical_ordered(), model_type="lstm"))
+    model = build(cfg)
+    lstm_os: dict = {}
+    with torch.no_grad():
+        c_o, a_o = counted(f"LSTM encoder + one-shot decoder bfloat16 one_shot_sample "
+                           f"N={N_MAIN}", lambda: one_shot_sample(model, fc, fa),
+                           {"embedding": 1, "layer": 8, "layer_f32": 4, "head": 1})
+        lstm_os["valid_share"] = check_sample(c_o, a_o, N_MAIN, cfg)
+        lstm_os["inference"] = walls(f"LSTM encoder + one-shot decoder one_shot_sample "
+                                     f"N={N_MAIN}", lambda: one_shot_sample(model, fc, fa))
+        layers = list(model.decoder.decoder.layers)
+        lstm_os["gate"] = path_gate(
+            "LSTM encoder + one-shot decoder N=64", model, ops[:6],
+            lambda: cut_layers(layers, AR_CONTROL_DROP_BITS), hold_logits=False,
+            commands=fc[:N_AR_GATE], args=fa[:N_AR_GATE])
+    del model
+    torch.cuda.empty_cache()
+    out["lstm_one_shot"] = lstm_os
+
+    # ======= (3) two-stage autoregressive decoding, bfloat16 then float32
+    two: dict = {}
+    t_batch = {"commands": fc[:B_RECIPE], "args": fa[:B_RECIPE]}
+    for dt, tag in ((bf16, ""), (f32, "_f32")):
+        dname = "bfloat16" if dt == bf16 else "float32"
+        cfg = dataclasses.replace(hierarchical_ordered(), pred_mode="autoregressive")
+        cfg = gpu_fast(cfg) if dt == bf16 else cfg
+        model = build(cfg)
+        res: dict = {}
+        with torch.no_grad():
+            fwd = counted(f"two-stage AR {dname} teacher-forced forward N={N_MAIN}",
+                          lambda: model(fc, fa, fc, fa, return_tgt=True),
+                          {f"embedding{tag}": 2, "layer_f32": 4 if dt == bf16 else 16,
+                           **({"layer": 12} if dt == bf16 else {})})
+            check(tuple(fwd["command_logits"].shape[:3]) == (N_MAIN, 8, 31)
+                  and all(bool(torch.isfinite(v).all()) for k, v in fwd.items()
+                          if k.endswith("logits")), "two-stage AR forward: shapes or values")
+            del fwd
+            res["forward"] = walls(f"two-stage AR {dname} teacher-forced forward N={N_MAIN}",
+                                   lambda: model(fc, fa, fc, fa, return_tgt=True))
+            layers = list(model.decoder.decoder.layers)
+            res["gate"] = path_gate(
+                f"two-stage AR {dname} N=64", model, ops[:6],
+                lambda: cut_layers(layers, AR_CONTROL_DROP_BITS), hold_logits=False,
+                commands=fc[:N_AR_GATE], args=fa[:N_AR_GATE],
+                dec=(fc[:N_AR_GATE], fa[:N_AR_GATE]))
+        # K7 causal with key padding at S=9 (a two-stage AR decoder at
+        # max_seq_len 8 takes the stack gate at D1): the model's D1 layers,
+        # random inputs, the injections of a random latent, rates 0 and 0.1
+        def causal_draw(gen, layers=layers):
+            with torch.no_grad():
+                x = torch.randn(B_K7_CAUSAL, 9, cfg.d_model, device=dev, generator=gen)
+                zz = 0.5 * torch.randn(B_K7_CAUSAL, cfg.dim_z, device=dev, generator=gen)
+                biases = torch.stack([lay.injection(zz) for lay in layers])
+                lengths = torch.randint(1, 10, (B_K7_CAUSAL, 1), device=dev, generator=gen)
+                mask = torch.where(torch.arange(9, device=dev)[None] < lengths, 0.0,
+                                   float("-inf"))
+                return x, biases, mask
+        res["k7_causal"] = {}
+        for rate in (0.0, DROPOUT):
+            r7 = check_stack_train(stack_vjp, layer_vjp, f"causal S=9 {dname} B={B_K7_CAUSAL}",
+                                   layers, causal_draw, rate, outliers_aligned=True, causal=True)
+            res["k7_causal"][f"rate {rate}"] = {"worst": r7["worst"],
+                                                "forward_max_abs_err": r7["forward_max_abs_err"]}
+        del model
+        torch.cuda.empty_cache()
+        expected = ({"embedding": 2, "layer_train_fwd": 8, "layer_train_bwd": 8, "stack_fwd": 2,
+                     "stack_bwd": 2, "args_ce_fwd": 1, "args_ce_bwd": 1, "embedding_bwd": 2}
+                    if dt == bf16 else
+                    {"embedding_f32": 2, "layer_train_long_fwd_f32": 8,
+                     "layer_train_long_bwd_f32": 8, "stack_fwd": 2, "stack_bwd": 2,
+                     "args_ce_fwd_f32": 1, "args_ce_bwd_f32": 1, "embedding_bwd": 2})
+        res["step"] = step(
+            f"two-stage AR train_step {dname} B={B_RECIPE}", cfg, t_batch,
+            cfg.get_model_args(), expected,
+            lambda m: cut_layers([*m.encoder.encoder.layers, *m.decoder.decoder.layers],
+                                 CONTROL_DROP_BITS), dt)
+        two[dname] = res
+    out["two_stage_ar"] = two
+    del fc, fa, t_batch
+
+    # ======= (4) the decode-only models from a latent, bfloat16
+    dec_only: dict = {}
+    zg = torch.Generator(device=dev).manual_seed(LSTM_SEED)
+    z = torch.randn(N_MAIN, 256, device=dev, generator=zg)
+    for name, base, expected in (
+            ("one-shot 1 stage", one_stage_one_shot(), {"layer_long": 4, "head": 1}),
+            ("one-shot 2 stages", hierarchical_ordered(), {"layer": 8, "head": 1})):
+        cfg = gpu_fast(dataclasses.replace(base, encode_stages=0))
+        model = build(cfg)
+        with torch.no_grad():
+            c_d, a_d = counted(f"decode-only {name} one_shot_sample N={N_MAIN}",
+                               lambda: one_shot_sample(model, z=z), expected)
+            groups, s_dec = ((1, cfg.max_total_len + 1) if cfg.decode_stages == 1
+                             else (cfg.max_num_groups, cfg.max_seq_len + 1))
+            row = {"valid_share": check_sample(c_d, a_d, N_MAIN, cfg, groups, s_dec),
+                   "inference": walls(f"decode-only {name} one_shot_sample N={N_MAIN}",
+                                      lambda: one_shot_sample(model, z=z))}
+            layers = list(model.decoder.decoder.layers)
+            row["gate"] = path_gate(f"decode-only {name} N=64", model, ops[:6],
+                                    lambda: cut_layers(layers, AR_CONTROL_DROP_BITS),
+                                    commands=None, args=None, z=z[:N_AR_GATE])
+        dec_only[name] = row
+        del model
+    cfg = gpu_fast(dataclasses.replace(sketchformer(), encode_stages=0))
+    model = build(cfg)
+    steps = cfg.max_total_len
+    with torch.no_grad():
+        c_g, a_g = counted(f"decode-only autoregressive greedy_sample N={N_MAIN}",
+                           lambda: greedy_sample(model, z=z), {"decode": steps, "head": steps})
+        used = M.cmd_args_mask(dev, torch.bool)[c_g.long()]
+        check(tuple(c_g.shape) == (N_MAIN, 1, steps) and int(c_g.min()) >= 0
+              and int(c_g.max()) < cfg.n_commands and bool(torch.isfinite(a_g).all())
+              and bool((a_g[~used] == PAD_VAL).all()), "decode-only AR: shapes or ranges")
+        row = {"inference": walls(f"decode-only autoregressive greedy_sample N={N_MAIN}",
+                                  lambda: greedy_sample(model, z=z), iters=3)}
+        zg_ = z[:N_AR_GATE]
+        out_k, raw_ck, raw_ak, states_k = traced_decode(model, zg_, sample_mod)
+        with plain_path(emb_ops, layer_ops, head_ops, decode_ops=decode_ops):
+            out_p, raw_cp, raw_ap, states_p = traced_decode(model, zg_, sample_mod)
+            with cut_layers(list(model.decoder.decoder.layers), AR_CONTROL_DROP_BITS):
+                out_c = traced_decode(model, zg_, sample_mod)
+        margin_p = position_margin(slot_margins(states_p, model.decoder.fcn), raw_cp.t()).t()
+        w_head = model.decoder.fcn.w_packed.float()
+
+        def against_plain(o, raw_c_o, raw_a_o, states_o):
+            """(share of sequences equal before the gate, positions compared,
+            largest logit difference at the steps where both paths had seen
+            the same tokens)"""
+            agree_o, compared_o = prefix_gate(o, out_p, margin_p, AR_MARGIN)
+            differ = ~((raw_c_o == raw_cp) & (raw_a_o == raw_ap).all(dim=-1))
+            first = torch.where(differ.any(1), differ.float().argmax(1),
+                                torch.full_like(differ[:, 0], steps - 1, dtype=torch.long))
+            shared = torch.arange(steps, device=dev)[:, None] <= first[None]
+            gap_o = ((states_o[shared].float() - states_p[shared].float()) @ w_head.t()).abs()
+            return agree_o, compared_o, gap_o.max().item()
+        agree, compared, gap = against_plain(out_k, raw_ck, raw_ak, states_k)
+        control, _, control_gap = against_plain(*out_c)
+        print(f"decode-only autoregressive kernel vs plain path N={N_AR_GATE}: {agree:.4f} of "
+              f"the sequences equal before their first position with plain margin < "
+              f"{AR_MARGIN} ({compared} positions compared); largest logit difference at shared "
+              f"inputs {gap:.3g} (limit {AR_LOGIT_LIMIT}); control (every decoder layer less "
+              f"{AR_CONTROL_DROP_BITS} bits) {control:.4f}, {control_gap:.3g}", flush=True)
+        check_later(agree == 1.0, f"decode-only AR: ids differ before the margin gate: {agree}")
+        check_later(gap <= AR_LOGIT_LIMIT, f"decode-only AR: logits differ by {gap} at shared "
+                                           f"inputs (limit {AR_LOGIT_LIMIT})")
+        check_later(control < 1.0 or control_gap > AR_LOGIT_LIMIT,
+                    f"decode-only AR: the gate passed its control ({control}, {control_gap})")
+        check_later(compared >= N_AR_GATE, f"only {compared} positions cleared the margin")
+        row["gate"] = {"agreement": agree, "positions_compared": compared,
+                       "max_logit_diff_shared_inputs": gap, "control": control,
+                       "control_max_logit_diff": control_gap}
+        dec_only["autoregressive"] = row
+    del model, z, states_k, states_p, out_c
+    torch.cuda.empty_cache()
+    out["decode_only"] = dec_only
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"LSTM and decoders phase: {out['phase_s']:.1f} s", flush=True)
+    record["lstm_decoders"] = out
+    return launches
+
+
+def reset_counts():
+    """Every kernel wrapper's launch counters to 0."""
+    from deepsvg_tpu_torch.ops import attention as attn_ops
+    from deepsvg_tpu_torch.ops import attention_vjp
+    from deepsvg_tpu_torch.ops import ce as ce_ops
+    from deepsvg_tpu_torch.ops import decode as decode_ops
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import head as head_ops
+    from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
+    layer_ops.fused_layer_long.launches = layer_ops.fused_layer_long.float32_launches = 0
+    decode_ops.fused_decode_step.launches = 0
+    emb_ops.fused_embedding.launches = emb_ops.fused_embedding.narrow_launches = 0
+    emb_ops.embedding_backward.launches = 0
+    layer_ops.fused_layer.launches = layer_ops.fused_layer.float32_launches = 0
+    layer_ops.fused_layer.narrow_launches = layer_ops.fused_layer_long.narrow_launches = 0
+    head_ops.fused_head_argmax.launches = 0
+    layer_vjp.fused_layer_train.launches = 0
+    layer_vjp.fused_layer_train.backward_launches = 0
+    layer_vjp.fused_layer_train.float32_launches = 0
+    layer_vjp.fused_layer_train.float32_backward_launches = 0
+    decode_ops.fused_decode_step.cluster_launches = 0
+    decode_ops.fused_decode_step.narrow_launches = 0
+    layer_vjp.fused_layer_train_long.launches = 0
+    layer_vjp.fused_layer_train_long.backward_launches = 0
+    layer_vjp.fused_layer_train_long.float32_launches = 0
+    layer_vjp.fused_layer_train_long.float32_backward_launches = 0
+    for fn in (layer_vjp.fused_layer_train, layer_vjp.fused_layer_train_long):
+        fn.recompute_launches = fn.recompute_backward_launches = 0
+        fn.narrow_launches = fn.narrow_backward_launches = 0
+    ce_ops.args_ce.launches = ce_ops.args_ce.backward_launches = 0
+    stack_vjp.fused_stack_train.launches = 0
+    stack_vjp.fused_stack_train.backward_launches = 0
+    stack_vjp.fused_stack_train.narrow_launches = 0
+    stack_vjp.fused_stack_train.narrow_backward_launches = 0
+    ce_ops.args_ce_pairwise.launches = 0
+    for fn in (emb_ops.fused_embedding, head_ops.fused_head_argmax, ce_ops.args_ce,
+               ce_ops.args_ce_pairwise, decode_ops.fused_decode_step):
+        fn.float32_launches = 0
+    ce_ops.args_ce.float32_backward_launches = 0
+    for fn in (attn_ops.fused_mha, attention_vjp.fused_mha_train):
+        fn.launches = fn.float32_launches = fn.narrow_launches = 0
+    attention_vjp.fused_mha_train.backward_launches = 0
+    attention_vjp.fused_mha_train.float32_backward_launches = 0
+    attention_vjp.fused_mha_train.narrow_backward_launches = 0
+
+def read_counts() -> dict:
+    """Launches by kernel; a float32 form under its own name (``_f32``)."""
+    from deepsvg_tpu_torch.ops import attention as attn_ops
+    from deepsvg_tpu_torch.ops import attention_vjp
+    from deepsvg_tpu_torch.ops import ce as ce_ops
+    from deepsvg_tpu_torch.ops import decode as decode_ops
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import head as head_ops
+    from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
+    def split(fn, name, total="launches", f32="float32_launches"):
+        return {name: getattr(fn, total) - getattr(fn, f32), f"{name}_f32": getattr(fn, f32)}
+    return {**split(emb_ops.fused_embedding, "embedding"),
+            # K1 on its first kernel (widths the Hopper kernel does not
+            # take; none on any path here: every count expected 0)
+            "embedding_narrow": emb_ops.fused_embedding.narrow_launches,
+            **split(layer_ops.fused_layer, "layer"),
+            **split(head_ops.fused_head_argmax, "head"),
+            "layer_train_fwd": layer_vjp.fused_layer_train.launches,
+            "layer_train_bwd": layer_vjp.fused_layer_train.backward_launches,
+            # of those, K4's float32 short form on the TF32 wgmma launches
+            "layer_train_fwd_f32": layer_vjp.fused_layer_train.float32_launches,
+            "layer_train_bwd_f32": layer_vjp.fused_layer_train.float32_backward_launches,
+            **split(ce_ops.args_ce, "args_ce_fwd"),
+            **split(ce_ops.args_ce, "args_ce_bwd", "backward_launches",
+                    "float32_backward_launches"),
+            "embedding_bwd": emb_ops.embedding_backward.launches,
+            "stack_fwd": (stack_vjp.fused_stack_train.launches
+                          - stack_vjp.fused_stack_train.narrow_launches),
+            "stack_bwd": (stack_vjp.fused_stack_train.backward_launches
+                          - stack_vjp.fused_stack_train.narrow_backward_launches),
+            **split(ce_ops.args_ce_pairwise, "args_ce_pairwise"),
+            **split(layer_ops.fused_layer_long, "layer_long"),
+            **split(decode_ops.fused_decode_step, "decode"),
+            # K9 on the older kernel (widths the cluster kernel does not
+            # take; none on any path here: every count expected 0)
+            "decode_narrow": decode_ops.fused_decode_step.narrow_launches,
+            **split(layer_vjp.fused_layer_train_long, "layer_train_long_fwd"),
+            **split(layer_vjp.fused_layer_train_long, "layer_train_long_bwd",
+                    "backward_launches", "float32_backward_launches"),
+            # K10 and K11's forward on their Hopper forms (bf16, float32);
+            # at widths below D=256 the first port's kernels, apart
+            "mha": (attn_ops.fused_mha.launches - attn_ops.fused_mha.float32_launches
+                    - attn_ops.fused_mha.narrow_launches),
+            "mha_f32": attn_ops.fused_mha.float32_launches,
+            "mha_narrow": attn_ops.fused_mha.narrow_launches,
+            "mha_train_fwd": (attention_vjp.fused_mha_train.launches
+                              - attention_vjp.fused_mha_train.float32_launches
+                              - attention_vjp.fused_mha_train.narrow_launches),
+            "mha_train_fwd_f32": attention_vjp.fused_mha_train.float32_launches,
+            "mha_train_narrow_fwd": attention_vjp.fused_mha_train.narrow_launches,
+            "mha_train_bwd": (attention_vjp.fused_mha_train.backward_launches
+                              - attention_vjp.fused_mha_train.float32_backward_launches
+                              - attention_vjp.fused_mha_train.narrow_backward_launches),
+            "mha_train_bwd_f32": attention_vjp.fused_mha_train.float32_backward_launches,
+            "mha_train_narrow_bwd": attention_vjp.fused_mha_train.narrow_backward_launches,
+            "layer_train_recompute_fwd": layer_vjp.fused_layer_train.recompute_launches,
+            "layer_train_recompute_bwd":
+                layer_vjp.fused_layer_train.recompute_backward_launches,
+            "layer_train_long_recompute_fwd":
+                layer_vjp.fused_layer_train_long.recompute_launches,
+            "layer_train_long_recompute_bwd":
+                layer_vjp.fused_layer_train_long.recompute_backward_launches,
+            # K4's bfloat16 short form at widths below its wgmma kernels'
+            # (none on any path here: every count expected 0)
+            "layer_train_narrow_fwd": layer_vjp.fused_layer_train.narrow_launches,
+            "layer_train_narrow_bwd": layer_vjp.fused_layer_train.narrow_backward_launches,
+            # K4's float32 long form at widths below its Hopper kernels' (none here)
+            "layer_train_long_narrow_fwd": layer_vjp.fused_layer_train_long.narrow_launches,
+            "layer_train_long_narrow_bwd":
+                layer_vjp.fused_layer_train_long.narrow_backward_launches,
+            # K7 at widths its cluster kernels do not take (none here)
+            "stack_narrow_fwd": stack_vjp.fused_stack_train.narrow_launches,
+            "stack_narrow_bwd": stack_vjp.fused_stack_train.narrow_backward_launches,
+            # K2's float32 form at widths below its wgmma kernels' (none here)
+            "layer_narrow_f32": (layer_ops.fused_layer.narrow_launches
+                                 + layer_ops.fused_layer_long.narrow_launches)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4127,10 +4716,7 @@ def main() -> int:
         gpu_fast, hierarchical_ordered, load_model, one_shot_sample, svg_loss)
     from deepsvg_tpu_torch.models.layers import key_padding_to_additive
     from deepsvg_tpu_torch.ops import _build
-    from deepsvg_tpu_torch.ops import attention as attn_ops
-    from deepsvg_tpu_torch.ops import attention_vjp
     from deepsvg_tpu_torch.ops import ce as ce_ops
-    from deepsvg_tpu_torch.ops import decode as decode_ops
     from deepsvg_tpu_torch.ops import embedding as emb_ops
     from deepsvg_tpu_torch.ops import head as head_ops
     from deepsvg_tpu_torch.ops import layer as layer_ops
@@ -4149,113 +4735,6 @@ def main() -> int:
     bf16 = torch.bfloat16
     torch.manual_seed(0)             # every random input of the checks, run after run
     t_start = time.perf_counter()
-
-    def reset_counts():
-        layer_ops.fused_layer_long.launches = layer_ops.fused_layer_long.float32_launches = 0
-        decode_ops.fused_decode_step.launches = 0
-        emb_ops.fused_embedding.launches = emb_ops.fused_embedding.narrow_launches = 0
-        emb_ops.embedding_backward.launches = 0
-        layer_ops.fused_layer.launches = layer_ops.fused_layer.float32_launches = 0
-        layer_ops.fused_layer.narrow_launches = layer_ops.fused_layer_long.narrow_launches = 0
-        head_ops.fused_head_argmax.launches = 0
-        layer_vjp.fused_layer_train.launches = 0
-        layer_vjp.fused_layer_train.backward_launches = 0
-        layer_vjp.fused_layer_train.float32_launches = 0
-        layer_vjp.fused_layer_train.float32_backward_launches = 0
-        decode_ops.fused_decode_step.cluster_launches = 0
-        decode_ops.fused_decode_step.narrow_launches = 0
-        layer_vjp.fused_layer_train_long.launches = 0
-        layer_vjp.fused_layer_train_long.backward_launches = 0
-        layer_vjp.fused_layer_train_long.float32_launches = 0
-        layer_vjp.fused_layer_train_long.float32_backward_launches = 0
-        for fn in (layer_vjp.fused_layer_train, layer_vjp.fused_layer_train_long):
-            fn.recompute_launches = fn.recompute_backward_launches = 0
-            fn.narrow_launches = fn.narrow_backward_launches = 0
-        ce_ops.args_ce.launches = ce_ops.args_ce.backward_launches = 0
-        stack_vjp.fused_stack_train.launches = 0
-        stack_vjp.fused_stack_train.backward_launches = 0
-        stack_vjp.fused_stack_train.narrow_launches = 0
-        stack_vjp.fused_stack_train.narrow_backward_launches = 0
-        ce_ops.args_ce_pairwise.launches = 0
-        for fn in (emb_ops.fused_embedding, head_ops.fused_head_argmax, ce_ops.args_ce,
-                   ce_ops.args_ce_pairwise, decode_ops.fused_decode_step):
-            fn.float32_launches = 0
-        ce_ops.args_ce.float32_backward_launches = 0
-        for fn in (attn_ops.fused_mha, attention_vjp.fused_mha_train):
-            fn.launches = fn.float32_launches = fn.narrow_launches = 0
-        attention_vjp.fused_mha_train.backward_launches = 0
-        attention_vjp.fused_mha_train.float32_backward_launches = 0
-        attention_vjp.fused_mha_train.narrow_backward_launches = 0
-
-    def read_counts() -> dict:
-        """Launches by kernel; a float32 form under its own name (``_f32``)."""
-        def split(fn, name, total="launches", f32="float32_launches"):
-            return {name: getattr(fn, total) - getattr(fn, f32), f"{name}_f32": getattr(fn, f32)}
-        return {**split(emb_ops.fused_embedding, "embedding"),
-                # K1 on its first kernel (widths the Hopper kernel does not
-                # take; none on any path here: every count expected 0)
-                "embedding_narrow": emb_ops.fused_embedding.narrow_launches,
-                **split(layer_ops.fused_layer, "layer"),
-                **split(head_ops.fused_head_argmax, "head"),
-                "layer_train_fwd": layer_vjp.fused_layer_train.launches,
-                "layer_train_bwd": layer_vjp.fused_layer_train.backward_launches,
-                # of those, K4's float32 short form on the TF32 wgmma launches
-                "layer_train_fwd_f32": layer_vjp.fused_layer_train.float32_launches,
-                "layer_train_bwd_f32": layer_vjp.fused_layer_train.float32_backward_launches,
-                **split(ce_ops.args_ce, "args_ce_fwd"),
-                **split(ce_ops.args_ce, "args_ce_bwd", "backward_launches",
-                        "float32_backward_launches"),
-                "embedding_bwd": emb_ops.embedding_backward.launches,
-                "stack_fwd": (stack_vjp.fused_stack_train.launches
-                              - stack_vjp.fused_stack_train.narrow_launches),
-                "stack_bwd": (stack_vjp.fused_stack_train.backward_launches
-                              - stack_vjp.fused_stack_train.narrow_backward_launches),
-                **split(ce_ops.args_ce_pairwise, "args_ce_pairwise"),
-                **split(layer_ops.fused_layer_long, "layer_long"),
-                **split(decode_ops.fused_decode_step, "decode"),
-                # K9 on the older kernel (widths the cluster kernel does not
-                # take; none on any path here: every count expected 0)
-                "decode_narrow": decode_ops.fused_decode_step.narrow_launches,
-                **split(layer_vjp.fused_layer_train_long, "layer_train_long_fwd"),
-                **split(layer_vjp.fused_layer_train_long, "layer_train_long_bwd",
-                        "backward_launches", "float32_backward_launches"),
-                # K10 and K11's forward on their Hopper forms (bf16, float32);
-                # at widths below D=256 the first port's kernels, apart
-                "mha": (attn_ops.fused_mha.launches - attn_ops.fused_mha.float32_launches
-                        - attn_ops.fused_mha.narrow_launches),
-                "mha_f32": attn_ops.fused_mha.float32_launches,
-                "mha_narrow": attn_ops.fused_mha.narrow_launches,
-                "mha_train_fwd": (attention_vjp.fused_mha_train.launches
-                                  - attention_vjp.fused_mha_train.float32_launches
-                                  - attention_vjp.fused_mha_train.narrow_launches),
-                "mha_train_fwd_f32": attention_vjp.fused_mha_train.float32_launches,
-                "mha_train_narrow_fwd": attention_vjp.fused_mha_train.narrow_launches,
-                "mha_train_bwd": (attention_vjp.fused_mha_train.backward_launches
-                                  - attention_vjp.fused_mha_train.float32_backward_launches
-                                  - attention_vjp.fused_mha_train.narrow_backward_launches),
-                "mha_train_bwd_f32": attention_vjp.fused_mha_train.float32_backward_launches,
-                "mha_train_narrow_bwd": attention_vjp.fused_mha_train.narrow_backward_launches,
-                "layer_train_recompute_fwd": layer_vjp.fused_layer_train.recompute_launches,
-                "layer_train_recompute_bwd":
-                    layer_vjp.fused_layer_train.recompute_backward_launches,
-                "layer_train_long_recompute_fwd":
-                    layer_vjp.fused_layer_train_long.recompute_launches,
-                "layer_train_long_recompute_bwd":
-                    layer_vjp.fused_layer_train_long.recompute_backward_launches,
-                # K4's bfloat16 short form at widths below its wgmma kernels'
-                # (none on any path here: every count expected 0)
-                "layer_train_narrow_fwd": layer_vjp.fused_layer_train.narrow_launches,
-                "layer_train_narrow_bwd": layer_vjp.fused_layer_train.narrow_backward_launches,
-                # K4's float32 long form at widths below its Hopper kernels' (none here)
-                "layer_train_long_narrow_fwd": layer_vjp.fused_layer_train_long.narrow_launches,
-                "layer_train_long_narrow_bwd":
-                    layer_vjp.fused_layer_train_long.narrow_backward_launches,
-                # K7 at widths its cluster kernels do not take (none here)
-                "stack_narrow_fwd": stack_vjp.fused_stack_train.narrow_launches,
-                "stack_narrow_bwd": stack_vjp.fused_stack_train.narrow_backward_launches,
-                # K2's float32 form at widths below its wgmma kernels' (none here)
-                "layer_narrow_f32": (layer_ops.fused_layer.narrow_launches
-                                     + layer_ops.fused_layer_long.narrow_launches)}
 
     # ---- build
     t0 = time.perf_counter()
@@ -5562,6 +6041,9 @@ def main() -> int:
 
     # ================ the one-stage one-shot and label-conditioned models
     variants_phase(dev, card, record, reset_counts, read_counts)
+
+    # ======= the LSTM, two-stage autoregressive decoding, the decode-only model
+    decoders_phase(dev, card, record, reset_counts, read_counts)
 
     # K5's forms and K8 beside their library calls and bounds
     forms = {n: kernels[n] for n in ("args_ce_fwd", "args_ce_bwd", "args_ce_fwd_512",

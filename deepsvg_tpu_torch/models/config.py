@@ -1,15 +1,10 @@
 """Model hyperparameters: a frozen-dataclass counterpart of
-``deepsvg_tpu/models/config.py:ModelConfig`` with the fields the port reads.
-
-The port runs the two-stage one-shot models: the flagship
-``hierarchical_ordered``, the VAE ``hierarchical``,
-``hierarchical_self_matching`` and, with label conditioning, the fonts
-config's; the one-stage one-shot model (``one_stage_one_shot``); and the
-one-stage autoregressive ``sketchformer`` with relative targets (inference,
-teacher forcing, the decode, and training). The variants it does not run yet
-are still expressible here so that a config read from the JAX side keeps its
-meaning, and the model raises ``NotImplementedError`` on them (see
-``models/model.py``).
+``deepsvg_tpu/models/config.py:ModelConfig`` with the fields the port reads,
+and its named variants: the flagship ``hierarchical_ordered``, the VAE
+``hierarchical``, ``hierarchical_self_matching``, the one-stage one-shot
+model, the autoregressive ``sketchformer`` and ``sketchrnn`` (LSTM encoder
+and decoder). Every combination of stages, prediction mode and model type
+that the JAX package builds, the port builds too (``models/model.py``).
 """
 from __future__ import annotations
 
@@ -91,6 +86,14 @@ class ModelConfig:
         if self.label_condition:
             model_args.append("label")
         return model_args
+
+
+def sketchrnn() -> ModelConfig:
+    """The SketchRNN baseline (``deepsvg_tpu/models/config.py:sketchrnn``): a
+    bidirectional LSTM encoder over the whole icon as one sequence, ResNet +
+    VAE, and an autoregressive LSTM decoder with relative argument targets.
+    Its LSTM decoder runs in float32 only."""
+    return ModelConfig(model_type="lstm", pred_mode="autoregressive", rel_targets=True)
 
 
 def one_stage_one_shot() -> ModelConfig:

@@ -17,6 +17,17 @@ from ..svgtensor import masks as M
 from .config import ModelConfig
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for the decode-only model (``encode_stages=0``):
+    the JAX package's training step encodes its inputs, and that model has no
+    encoder, so it cannot be trained there; the port does not train it
+    either."""
+    if cfg.encode_stages == 0:
+        raise ValueError("the decode-only model (encode_stages=0) cannot be trained: the "
+                         "training step encodes its inputs and the model has no encoder "
+                         "(the JAX package's step fails on it too)")
+
+
 def svg_loss(output: dict, weights: dict, cfg: ModelConfig) -> dict:
     """Weighted sum of the KL term (VAE models), visibility, command and
     argument cross-entropies.
@@ -25,8 +36,10 @@ def svg_loss(output: dict, weights: dict, cfg: ModelConfig) -> dict:
     (``args_ce`` from the fused head, or ``args_logits``); ``weights``: the
     per-step loss weights ``kl_tolerance`` and ``loss_kl_weight`` (VAE
     models), ``loss_visibility_weight``, ``loss_cmd_weight``,
-    ``loss_args_weight``. Returns ``loss`` and each term.
+    ``loss_args_weight``. Returns ``loss`` and each term. The decode-only
+    model is refused: the JAX package cannot train it.
     """
+    check_trainable(cfg)
     res = {}
     loss = 0.0
     if cfg.use_vae:

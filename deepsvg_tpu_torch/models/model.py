@@ -1,11 +1,12 @@
 """The SVG Transformer (batch-first): inference and the training forward.
 
-Counterpart of ``deepsvg_tpu/models/model.py`` for the two-stage one-shot
-models (the flagship ``hierarchical_ordered``, the VAE ``hierarchical`` of
-the icons config, ``hierarchical_self_matching``, and the fonts config's
-label-conditioned ``hierarchical``), the one-stage one-shot model
-(``one_stage_one_shot``) and the one-stage autoregressive ``sketchformer``.
-The two-stage path:
+Counterpart of ``deepsvg_tpu/models/model.py`` for every variant it builds:
+the two-stage one-shot models (the flagship ``hierarchical_ordered``, the
+VAE ``hierarchical`` of the icons config, ``hierarchical_self_matching``,
+and the fonts config's label-conditioned ``hierarchical``), the one-stage
+one-shot model (``one_stage_one_shot``), the one-stage autoregressive
+``sketchformer`` and ``sketchrnn``, two-stage autoregressive decoding and
+the decode-only model. The two-stage path:
 
   E1 (per-path encoder) -> masked mean pool -> hierarchical PE (not with
   self-match) -> E2 (over the path latents, visibility-masked) ->
@@ -41,13 +42,32 @@ With ``label_condition`` the encoder and the decoder each have a label
 embedding (``embeddings.LabelEmbedding``), injected into every layer by its
 ``glob2`` (``layers.py``): per path in E1 and D1, per sample in E2 and D2.
 
-The variants this port does not run yet (the LSTM, two-stage autoregressive
-decoding, the decode-only model) raise ``NotImplementedError`` when the
-model is built, naming the ``ROADMAP.md`` item that ports them.
+The LSTM variants (``model_type="lstm"``, SketchRNN: ``config.sketchrnn()``)
+replace E1 by a bidirectional LSTM read at the last valid token
+(:class:`LSTMEncoder`) and, when autoregressive, D1 by an LSTM whose initial
+state comes from the latent (:class:`LSTMDecoder`). The cells are flax's
+``OptimizedLSTMCell`` in plain PyTorch operations (no kernel backs them in
+the JAX package either) and compute in float32 whatever ``compute_dtype``
+says, as flax promotes their bfloat16 inputs to the float32 parameters. The
+JAX package's LSTM decoder fails in bfloat16 (its scan's carry changes
+type), so an autoregressive LSTM model refuses any other ``compute_dtype``.
+
+Two-stage autoregressive decoding runs D2 and the visibility and path-latent
+heads, then D1 causally over the N x G paths' shifted targets with each
+path's latent injected (``num_groups_proposal`` must equal
+``max_num_groups``, as the JAX package's fold assumes). The decode-only
+model (``encode_stages=0``) has a decoder alone and decodes a given ``z``.
+
+What the JAX package cannot do, the port refuses with an error that says
+why: a cached decode step of an LSTM model, and (``models/sample.py``) the
+cached samplers of an LSTM model and every sampler of a two-stage
+autoregressive model; the decode-only model cannot be trained
+(``training/trainer.py``).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import ce as ce_ops
@@ -59,20 +79,49 @@ from .config import ModelConfig
 from .embeddings import ConstEmbedding, LabelEmbedding, SVGEmbedding
 from .layers import DecoderStack, EncoderStack, PositionalEncodingLUT, key_padding_to_additive
 
-_UNSUPPORTED = (
-    (lambda c: c.model_type != "transformer", "the LSTM encoder and decoder"),
-    (lambda c: c.encode_stages not in (1, 2), "decoding without an encoder"),
-    (lambda c: c.pred_mode == "autoregressive" and c.decode_stages != 1,
-     "two-stage autoregressive decoding"),
-)
+def check_config(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a configuration the model cannot be built
+    from: unknown stages or types, a two-stage autoregressive decoder with
+    ``num_groups_proposal`` unlike ``max_num_groups``, or an autoregressive
+    LSTM decoder in another type than float32."""
+    if cfg.encode_stages not in (0, 1, 2) or cfg.decode_stages not in (1, 2):
+        raise ValueError(f"encode_stages must be 0, 1 or 2 and decode_stages 1 or 2, not "
+                         f"{cfg.encode_stages} and {cfg.decode_stages}")
+    if cfg.model_type not in ("transformer", "lstm"):
+        raise ValueError(f"unknown model_type {cfg.model_type!r}")
+    if cfg.pred_mode not in ("one_shot", "autoregressive"):
+        raise ValueError(f"unknown pred_mode {cfg.pred_mode!r}")
+    autoregressive = cfg.pred_mode == "autoregressive"
+    if autoregressive and cfg.decode_stages == 2 and cfg.n_groups_prop != cfg.max_num_groups:
+        raise ValueError(
+            f"two-stage autoregressive decoding decodes one proposal per target path: "
+            f"num_groups_proposal ({cfg.n_groups_prop}) must equal max_num_groups "
+            f"({cfg.max_num_groups})")
+    if autoregressive and cfg.model_type == "lstm" and cfg.compute_dtype != "float32":
+        raise ValueError(
+            f"the autoregressive LSTM decoder runs in float32 only: its cells compute in "
+            f"float32, and the JAX package's fails with compute_dtype "
+            f"{cfg.compute_dtype!r} (its scan's carry changes type); set compute_dtype "
+            f"'float32'")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a variant outside the ported slice."""
-    for test, what in _UNSUPPORTED:
-        if test(cfg):
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md, queue 1, item 6)")
+def check_sampler(cfg: ModelConfig, cached: bool = True) -> None:
+    """Raise ``ValueError`` where the JAX package's token-by-token samplers
+    fail: every sampler of a two-stage autoregressive model (a shape error
+    where the paths are folded) and, ``cached``, the KV-cached ones of an
+    LSTM model (its cached step is a transformer stack, whose parameters the
+    model lacks). They are faults of the reference, reproduced as errors,
+    not repaired."""
+    if cfg.pred_mode != "autoregressive":
+        return
+    if cfg.decode_stages == 2:
+        raise ValueError("a two-stage autoregressive model cannot be sampled: the JAX "
+                         "package's samplers fail on it (a shape error where the paths are "
+                         "folded); its teacher-forced forward and training run")
+    if cached and cfg.model_type == "lstm":
+        raise ValueError("an LSTM model has no KV-cached decode step (the JAX package's "
+                         "is a transformer's and fails on it): decode with "
+                         "autoregressive_sample, which re-runs the forward at every step")
 
 
 def _masked_mean(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -206,6 +255,105 @@ class HierarchFCN(nn.Module):
         return self.visibility_fcn(out, deterministic), self.z_fcn(out, deterministic)
 
 
+class LSTMCell(nn.Module):
+    """flax's ``OptimizedLSTMCell`` in float32: input kernels ``ii``,
+    ``if``, ``ig``, ``io`` without bias and hidden kernels ``hi``, ``hf``,
+    ``hg``, ``ho`` with one, gates in the order i, f, g, o; ``c' = f c + i
+    g`` and ``h' = o tanh(c')`` with sigmoid gates and a tanh candidate."""
+
+    GATES = ("i", "f", "g", "o")
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.features = features
+        self.inputs = nn.ModuleDict({f"i{g}": nn.Linear(in_features, features, bias=False)
+                                     for g in self.GATES})
+        self.hidden = nn.ModuleDict({f"h{g}": nn.Linear(features, features)
+                                     for g in self.GATES})
+
+    def weights(self):
+        """The gates' kernels side by side: input ``[4H, in]``, hidden
+        ``[4H, H]`` and its bias ``[4H]``."""
+        return (torch.cat([self.inputs[f"i{g}"].weight for g in self.GATES]),
+                torch.cat([self.hidden[f"h{g}"].weight for g in self.GATES]),
+                torch.cat([self.hidden[f"h{g}"].bias for g in self.GATES]))
+
+    @staticmethod
+    def step(x_gates, c, h, w_h, b_h):
+        """One step from the input side's gates ``x_gates [B, 4H]`` and the
+        carry ``(c, h)``; the hidden side's gates are added to the input
+        side's, as flax sums them."""
+        gates = F.linear(h, w_h, b_h) + x_gates
+        i, f, _, o = torch.sigmoid(gates).chunk(4, dim=-1)
+        g = torch.tanh(gates[..., 2 * h.shape[-1]:3 * h.shape[-1]])
+        c = f * c + i * g
+        return c, o * torch.tanh(c)
+
+    def scan(self, x, c, h):
+        """The cell over ``x [B, S, in]`` from the carry ``(c, h)``: one
+        product for the input side of all steps, then a loop over the steps.
+        Returns the outputs ``[B, S, H]``."""
+        w_i, w_h, b_h = self.weights()
+        x_gates = F.linear(x, w_i)
+        outs = []
+        for t in range(x.shape[1]):
+            c, h = self.step(x_gates[:, t], c, h, w_h, b_h)
+            outs.append(h)
+        return torch.stack(outs, dim=1)
+
+
+class LSTMEncoder(nn.Module):
+    """The bidirectional LSTM in E1's place (``d_model / 2`` features a
+    direction, flax ``OptimizedLSTMCell_0`` forward and ``_1`` backward),
+    read at the last valid token ``len - 1`` (``len = seq_lens``, position 0
+    when it is 0): the concatenated directions, float32.
+
+    The JAX package's backward direction reverses each sequence within its
+    valid length, so its output at ``len - 1`` is one cell step on that token
+    from a zero carry, which is all that is computed here; a sequence of
+    length 0 is reversed whole, and its output at position 0 is the last of
+    a run over all of it. (A bidirectional ``nn.LSTM`` or packed sequences
+    would read the backward state after the whole sequence instead.)"""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.cells = nn.ModuleList([LSTMCell(d_model, d_model // 2),
+                                    LSTMCell(d_model, d_model // 2)])
+
+    def forward(self, src, seq_lens):
+        x = src.float()
+        b = x.shape[0]
+        fwd, bwd = self.cells
+        zeros = x.new_zeros(b, fwd.features)
+        last = (seq_lens.long() - 1).clamp_min(0)
+        rows = torch.arange(b, device=x.device)
+        out_f = fwd.scan(x, zeros, zeros)[rows, last]
+        w_i, w_h, b_h = bwd.weights()
+        _, out_b = bwd.step(F.linear(x[rows, last], w_i), zeros, zeros, w_h, b_h)
+        empty = seq_lens == 0
+        if bool(empty.any()):
+            out_b = out_b.clone()
+            z_e = zeros[empty]
+            out_b[empty] = bwd.scan(x[empty].flip(1), z_e, z_e)[:, -1]
+        return torch.cat([out_f, out_b], dim=-1)
+
+
+class LSTMDecoder(nn.Module):
+    """The autoregressive LSTM decoder: its initial state from the latent,
+    ``h, c = split(tanh(fc_hc(z)), 2)`` (``fc_hc`` in the compute type, h
+    the first half), then one cell of ``d_model`` features over the embedded
+    targets, teacher-forced. Returns ``[B, S, d_model]`` float32."""
+
+    def __init__(self, d_model: int, dim_z: int, compute_dtype=torch.float32):
+        super().__init__()
+        self.fc_hc = Linear(dim_z, 2 * d_model, compute_dtype)
+        self.cell = LSTMCell(d_model, d_model)
+
+    def forward(self, src, z, deterministic: bool = True):
+        h, c = torch.tanh(self.fc_hc(z, deterministic)).float().chunk(2, dim=-1)
+        return self.cell.scan(src.float(), c, h)
+
+
 class Encoder(nn.Module):
     """E1 (+ E2) encoder: ``commands [N, G, S]``, ``args [N, G, S, n_args]``
     -> ``z [N, d_model]``.
@@ -215,7 +363,9 @@ class Encoder(nn.Module):
     (``encode_stages == 1``, G = 1): E1 over the whole icon as one sequence
     with the group-index embedding, and its masked mean pool (float32), as
     the JAX package returns it. With ``label_condition``, ``label [N]``'s
-    embedding is injected into every layer: E1 per path, E2 per sample."""
+    embedding is injected into every layer: E1 per path, E2 per sample. The
+    LSTM variants run :class:`LSTMEncoder` in E1's place (float32, read at
+    each sequence's last valid token, no pooling)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -227,8 +377,10 @@ class Encoder(nn.Module):
         self.label_embedding = LabelEmbedding(cfg) if cfg.label_condition else None
         seq_len = cfg.max_seq_len if self.two_stage else cfg.max_total_len
         self.embedding = SVGEmbedding(cfg, seq_len, use_group=not self.two_stage)
-        self.encoder = EncoderStack(cfg.n_layers, d, cfg.n_heads, cfg.dim_feedforward,
-                                    cfg.dropout, dt, dim_label)
+        self.lstm = cfg.model_type == "lstm"
+        self.encoder = (LSTMEncoder(d) if self.lstm else
+                        EncoderStack(cfg.n_layers, d, cfg.n_heads, cfg.dim_feedforward,
+                                     cfg.dropout, dt, dim_label))
         if self.two_stage:
             # self-match leaves the paths unordered: no position table over them
             self.hierarchical_PE = (None if cfg.self_match else
@@ -250,9 +402,13 @@ class Encoder(nn.Module):
         groups = None if self.two_stage else M.group_mask(commands_f)
 
         src = self.embedding(commands_f, args_f, groups, deterministic, rng)
-        l1 = None if label_emb is None else label_emb.repeat_interleave(g, dim=0)
-        memory = self.encoder(src, key_pad, deterministic, rng, l1)
-        z = _masked_mean(memory, pad).reshape(n, g, -1)          # float32
+        if self.lstm:
+            z = self.encoder(src, pad.sum(dim=1).to(torch.int32))      # float32
+        else:
+            l1 = None if label_emb is None else label_emb.repeat_interleave(g, dim=0)
+            memory = self.encoder(src, key_pad, deterministic, rng, l1)
+            z = _masked_mean(memory, pad)                               # float32
+        z = z.reshape(n, g, -1)
         if not self.two_stage:
             return z[:, 0]
 
@@ -275,7 +431,13 @@ class Decoder(nn.Module):
     S]``, ``args [N, 1, S, n_args]`` (relative arguments with
     ``rel_targets``) through the causal decoder stack, outputs ``[N, 1, S,
     ...]`` and no visibility logits. With ``label_condition``, the decoder's
-    own label embedding is injected into every layer beside ``z``."""
+    own label embedding is injected into every layer beside ``z``.
+
+    Two-stage autoregressive: D2 and the heads, then the targets ``[N, G, S]``
+    through the causal decoder, path by path, each with its latent from
+    HierarchFCN; outputs ``[N, G, S, ...]`` and visibility logits. The
+    autoregressive LSTM decoder (:class:`LSTMDecoder`) takes the place of the
+    causal stack; its outputs are float32."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -297,8 +459,10 @@ class Decoder(nn.Module):
         else:
             self.embedding = ConstEmbedding(cfg, cfg.max_seq_len + 1 if self.two_stage
                                             else cfg.max_total_len + 1)
-        self.decoder = DecoderStack(cfg.n_layers_decode, d, cfg.n_heads,
-                                    cfg.dim_feedforward, cfg.dim_z, cfg.dropout, dt, dim_label)
+        self.lstm = self.autoregressive and cfg.model_type == "lstm"
+        self.decoder = (LSTMDecoder(d, cfg.dim_z, dt) if self.lstm else
+                        DecoderStack(cfg.n_layers_decode, d, cfg.n_heads, cfg.dim_feedforward,
+                                     cfg.dim_z, cfg.dropout, dt, dim_label))
         self.fcn = FCN(d, cfg.n_commands, cfg.n_args, cfg.args_dim_out, dt)
 
     def label(self, label, deterministic: bool = True):
@@ -311,6 +475,8 @@ class Decoder(nn.Module):
         commands_f = commands.reshape(-1, commands.shape[-1])
         args_f = args.reshape(commands_f.shape + args.shape[-1:])
         src = self.embedding(commands_f, args_f, M.group_mask(commands_f), deterministic, rng)
+        if self.lstm:
+            return self.decoder(src, z, deterministic)
         key_pad = key_padding_to_additive(M.key_padding_mask(commands_f))
         return self.decoder(src, z, deterministic, rng, key_pad, causal=True,
                             label_emb=label_emb)
@@ -323,6 +489,7 @@ class Decoder(nn.Module):
         ``[N, T, D]``, written at ``index``; ``key_pad [N, T]``; ``label
         [N]`` for a label-conditioned model) -> the logits for the next
         position, ``[N, n_commands]`` and ``[N, n_args, args_dim_out]``."""
+        check_sampler(self.cfg)
         x = self.embedding.token(cmd_t, args_t, groups_t, index)
         return self.fcn(self.decoder.decode_step(x, z, caches, index, key_pad,
                                                  self.label(label)))
@@ -382,20 +549,25 @@ class Decoder(nn.Module):
 
 
 class SVGTransformer(nn.Module):
-    """The SVG Transformer: hierarchical or one-stage one-shot, or one-stage
-    autoregressive; label-conditioned with ``label_condition``."""
+    """The SVG Transformer: one or two stages to encode (or none: the
+    decode-only model, ``encode_stages=0``, which has no encoder, ResNet or
+    bottleneck and decodes a given ``z``) and to decode, one-shot or
+    autoregressive, transformer or LSTM; label-conditioned with
+    ``label_condition``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        check_supported(cfg)
+        check_config(cfg)
         self.cfg = cfg
         dt = getattr(torch, cfg.compute_dtype)
-        self.encoder = Encoder(cfg)
-        self.resnet = ResNet(cfg.d_model, dt) if cfg.use_resnet else None
-        if cfg.use_vae:
-            self.vae = VAE(cfg.d_model, cfg.dim_z, dt)
-        else:
-            self.bottleneck = Bottleneck(cfg.d_model, cfg.dim_z, dt)
+        self.encoder = self.resnet = None
+        if cfg.encode_stages > 0:
+            self.encoder = Encoder(cfg)
+            self.resnet = ResNet(cfg.d_model, dt) if cfg.use_resnet else None
+            if cfg.use_vae:
+                self.vae = VAE(cfg.d_model, cfg.dim_z, dt)
+            else:
+                self.bottleneck = Bottleneck(cfg.d_model, cfg.dim_z, dt)
         self.decoder = Decoder(cfg)
 
     def decode_step(self, z, cmd_t, args_t, groups_t, index: int, caches, key_pad,
@@ -412,6 +584,9 @@ class SVGTransformer(nn.Module):
         [N, dim_z], mu, logsigma)``; ``mu`` and ``logsigma`` are None without
         the VAE. The VAE samples ``z`` from ``rng`` unless ``sample_vae`` is
         false (then ``z = mu``)."""
+        if self.encoder is None:
+            raise ValueError("the decode-only model (encode_stages=0) has no encoder: pass "
+                             "the latent z to decode")
         z = self.encoder(commands, args, label, deterministic, rng)
         if self.resnet is not None:
             z = self.resnet(z, deterministic)

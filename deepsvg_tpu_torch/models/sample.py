@@ -21,6 +21,12 @@ re-runs the teacher-forced forward over the whole buffer at every step.
 scan for CPU tensors (which is what the JAX package dispatches); neither
 turns into the other. Relative targets are made absolute at the end.
 
+What the JAX package's samplers cannot do, the port refuses with an error
+(``models/model.py:check_sampler``): an autoregressive LSTM model
+(SketchRNN) decodes through :func:`autoregressive_sample` alone, and a
+two-stage autoregressive model is not sampled at all. The decode-only model
+(``encode_stages=0``) decodes a given ``z``.
+
 Without a generator every sampler is greedy (the JAX package's ``key=None``,
 the limit T -> 0). With one, each command and each argument is a Gumbel-max
 draw from ``softmax(logits / temperature)``, the commands of a position
@@ -42,7 +48,7 @@ from ..svgtensor.masks import cmd_args_mask
 from ..svgtensor.tensor import make_absolute
 from .cast import DropoutRng
 from .config import ModelConfig
-from .model import SVGTransformer
+from .model import SVGTransformer, check_sampler
 
 
 def sample_categorical(logits: torch.Tensor, temperature: float = 0.0001,
@@ -156,6 +162,7 @@ def autoregressive_sample_cached(model: SVGTransformer, z, label=None,
     operations), greedy or, with ``generator``, drawn at ``temperature``: the
     counterpart of the JAX package's ``autoregressive_sample_cached``."""
     cfg = model.cfg
+    check_sampler(cfg)
     n, dev = z.shape[0], z.device
     dt = getattr(torch, cfg.compute_dtype)
     shape = (n, cfg.max_total_len + 1, cfg.d_model)
@@ -196,6 +203,7 @@ def autoregressive_sample_fused(model: SVGTransformer, z, label=None,
     layers), :func:`make_valid` and the key-padding update are plain
     PyTorch. On CPU tensors K9 and K3 are their plain versions."""
     cfg = model.cfg
+    check_sampler(cfg)
     n, dev = z.shape[0], z.device
     dt = getattr(torch, cfg.compute_dtype)
     dec = model.decoder
@@ -232,8 +240,10 @@ def autoregressive_sample(model: SVGTransformer, z, label=None, temperature: flo
     """Decode that re-runs the teacher-forced forward (causal, over the
     whole buffer) at every step and reads the logits at the current
     position, greedy or drawn: the JAX package's ``autoregressive_sample``,
-    the oracle of the cached decodes."""
+    the oracle of the cached decodes, and the one sampler of an LSTM model
+    (each step re-runs its LSTM over the whole buffer)."""
     cfg = model.cfg
+    check_sampler(cfg, cached=False)
     n, dev = z.shape[0], z.device
     length = cfg.max_total_len + 1
     cmds = torch.full((n, 1, length), CMD_EOS, dtype=torch.int32, device=dev)
@@ -261,10 +271,12 @@ def greedy_sample(model: SVGTransformer, commands_enc=None, args_enc=None, z=Non
     autoregressive models encode (the VAE's noise from the fixed generator)
     and decode with :func:`autoregressive_sample_fused` on CUDA tensors
     (kernels K9, and K3 when greedy), and with
-    :func:`autoregressive_sample_cached` on CPU tensors."""
+    :func:`autoregressive_sample_cached` on CPU tensors. An autoregressive
+    LSTM or two-stage model raises, as the JAX package's fails."""
     cfg = model.cfg
     if cfg.pred_mode == "one_shot":
         return one_shot_sample(model, commands_enc, args_enc, z, label, temperature, generator)
+    check_sampler(cfg)
     if z is None:
         rng = DropoutRng.fixed() if cfg.use_vae else None
         z, _, _ = model.encode(commands_enc, args_enc, label, rng=rng)

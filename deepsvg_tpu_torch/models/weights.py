@@ -20,7 +20,12 @@ one-shot decoder has ``decoder/embedding/PE/pos_embed`` over
 ``max_total_len + 1`` queries and no ``decoder/hierarchical_*``. A
 label-conditioned model has, in ``encoder`` and in ``decoder``,
 ``label_embedding/label_embedding/embedding`` (``[n_labels, dim_label]``),
-and each layer's ``glob2_kernel`` / ``glob2_bias``.
+and each layer's ``glob2_kernel`` / ``glob2_bias``. The LSTM models have
+``encoder/encoder/OptimizedLSTMCell_0`` (forward) and ``_1`` (backward) in
+place of the encoder stack and, autoregressive, ``decoder/decoder/fc_hc`` and
+``decoder/decoder/OptimizedLSTMCell_0`` in place of the decoder stack: each
+cell's ``{ii,if,ig,io}/kernel`` and ``{hi,hf,hg,ho}/{kernel,bias}``, kernels
+``[in, H]`` transposed. The decode-only model's tree is ``decoder`` alone.
 
 ``deepsvg_tpu/models/torch_import.py:state_dict_to_params`` spells out the
 same name map in the other direction. Every leaf of the tree is used exactly
@@ -88,28 +93,39 @@ def _name_map(model: SVGTransformer):
             out.append((f"{path}/group_embed", emb.group_embed, False))
         out.append((f"{path}/pos_embed", emb.pos_embed, False))
 
+    def lstm_cell(path, cell):
+        for name, linear in [*cell.inputs.items(), *cell.hidden.items()]:
+            out.append((f"{path}/{name}/kernel", linear.weight, True))
+            if linear.bias is not None:
+                out.append((f"{path}/{name}/bias", linear.bias, False))
+
     def label_embedding(path, module):
         if module is not None:
             out.append((f"{path}/label_embedding/label_embedding/embedding", module.embedding,
                         False))
 
     enc, dec = model.encoder, model.decoder
-    label_embedding("encoder", enc.label_embedding)
-    svg_embedding("encoder/embedding", enc.embedding)
-    stack("encoder/encoder", enc.encoder, decoder=False)
-    if enc.two_stage:
-        if enc.hierarchical_PE is not None:          # none with self-match
-            out.append(("encoder/hierarchical_PE/pos_embed", enc.hierarchical_PE.pos_embed,
-                        False))
-        stack("encoder/hierarchical_encoder", enc.hierarchical_encoder, decoder=False)
-    if model.resnet is not None:
-        for i, linear in enumerate(model.resnet.linears, start=1):
-            dense(f"resnet/linear{i}", linear)
-    if model.cfg.use_vae:
-        dense("vae/enc_mu_fcn", model.vae.enc_mu_fcn)
-        dense("vae/enc_sigma_fcn", model.vae.enc_sigma_fcn)
-    else:
-        dense("bottleneck/bottleneck", model.bottleneck.bottleneck)
+    if enc is not None:                              # none in the decode-only model
+        label_embedding("encoder", enc.label_embedding)
+        svg_embedding("encoder/embedding", enc.embedding)
+        if enc.lstm:
+            for i, cell in enumerate(enc.encoder.cells):
+                lstm_cell(f"encoder/encoder/OptimizedLSTMCell_{i}", cell)
+        else:
+            stack("encoder/encoder", enc.encoder, decoder=False)
+        if enc.two_stage:
+            if enc.hierarchical_PE is not None:      # none with self-match
+                out.append(("encoder/hierarchical_PE/pos_embed",
+                            enc.hierarchical_PE.pos_embed, False))
+            stack("encoder/hierarchical_encoder", enc.hierarchical_encoder, decoder=False)
+        if model.resnet is not None:
+            for i, linear in enumerate(model.resnet.linears, start=1):
+                dense(f"resnet/linear{i}", linear)
+        if model.cfg.use_vae:
+            dense("vae/enc_mu_fcn", model.vae.enc_mu_fcn)
+            dense("vae/enc_sigma_fcn", model.vae.enc_sigma_fcn)
+        else:
+            dense("bottleneck/bottleneck", model.bottleneck.bottleneck)
     label_embedding("decoder", dec.label_embedding)
     if dec.two_stage:
         out.append(("decoder/hierarchical_embedding/PE/pos_embed",
@@ -121,7 +137,11 @@ def _name_map(model: SVGTransformer):
         svg_embedding("decoder/embedding", dec.embedding)
     else:
         out.append(("decoder/embedding/PE/pos_embed", dec.embedding.PE.pos_embed, False))
-    stack("decoder/decoder", dec.decoder, decoder=True)
+    if dec.lstm:
+        dense("decoder/decoder/fc_hc", dec.decoder.fc_hc)
+        lstm_cell("decoder/decoder/OptimizedLSTMCell_0", dec.decoder.cell)
+    else:
+        stack("decoder/decoder", dec.decoder, decoder=True)
     out.extend([
         ("decoder/fcn/command_kernel", dec.fcn.command_fcn.weight, True),
         ("decoder/fcn/command_bias", dec.fcn.command_fcn.bias, False),

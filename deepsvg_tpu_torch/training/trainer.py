@@ -25,7 +25,7 @@ from torch import nn
 
 from ..data.loader import decompress_batch
 from ..models.cast import DropoutRng
-from ..models.loss import svg_loss
+from ..models.loss import check_trainable, svg_loss
 from ..models.model import SVGTransformer
 
 
@@ -137,7 +137,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Initialise as the flax modules do: LeCun-normal kernels, zero biases,
     unit LayerNorm scales, embedding tables and the argument-embedding
     projection with fan-in-scaled normals (gain sqrt 2), and the VAE's two
-    kernels normal with std 0.001."""
+    kernels normal with std 0.001; an LSTM cell's input kernels LeCun-normal
+    and its hidden kernels orthogonal, as flax's ``OptimizedLSTMCell``."""
     normal = lambda p, std: p.copy_(torch.randn(p.shape, generator=generator) * std)  # noqa: E731
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -152,6 +153,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             p.fill_(1.0) if leaf == "weight" else p.zero_()
         elif name.startswith("vae.") and leaf == "weight":
             normal(p, 0.001)
+        elif ".hidden." in name and leaf == "weight":             # LSTM hidden kernels
+            nn.init.orthogonal_(p, generator=generator)
         elif leaf == "weight":
             normal(p, math.sqrt(1.0 / p.shape[1]))
         else:
@@ -177,8 +180,10 @@ def train_step(state: TrainState, batch: dict, weights: dict, optimizer,
                model_args: list):
     """One training step on ``batch`` (a dict of tensors on the model's
     device, wire or canonical dtypes). Updates ``state`` in place and returns
-    it with the loss terms and ``grad_norm`` (before clipping), as tensors."""
+    it with the loss terms and ``grad_norm`` (before clipping), as tensors.
+    The decode-only model is refused (:func:`models.loss.check_trainable`)."""
     model = state.model
+    check_trainable(model.cfg)
     batch = decompress_batch(batch)
     args = [batch[k] for k in model_args]
     # the step's randomness: dropout, and the VAE's noise at any dropout

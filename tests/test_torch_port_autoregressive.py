@@ -106,15 +106,59 @@ def jax_decoded(tree, latent):
     return np.asarray(c), np.asarray(a)
 
 
+def _variant_matches_jax(change):
+    """Sketchformer's small config with ``change``: the port's teacher-forced
+    logits from the encoder's latent (the VAE's mean) against JAX's XLA path,
+    float32, within LOGIT_TOL, with weights of the JAX model's shapes drawn
+    from a numpy seed."""
+    kw = {**KW, **change}
+    cfg = ModelConfig(**kw)
+    jm = JaxSVGTransformer(JaxModelConfig(**kw, attention_impl="xla"))
+    b = generate_batch(np.random.default_rng(0), N, G, S)
+    data = [jnp.asarray(b[k]) for k in cfg.get_model_args()]
+    shapes = jax.eval_shape(lambda *a: jm.init({"params": jax.random.key(0),
+                                                "vae": jax.random.key(1)}, *a), *data)
+    rng = np.random.default_rng(0)
+
+    def leaf(path, shape):
+        name, n = path[-1].key, rng.standard_normal(shape.shape).astype(np.float32)
+        if name in ("norm1", "norm2"):
+            return np.stack([1 + 0.1 * n[0], 0.1 * n[1]])
+        if name == "scale":
+            return 1 + 0.1 * n
+        return 0.1 * n if n.ndim == 1 else n / np.float32(np.sqrt(shape.shape[0]))
+    params = jax.tree_util.tree_map_with_path(leaf, shapes["params"])
+
+    @jax.jit
+    def run(p, data):
+        z = jm.apply({"params": p}, *data[:2], method=JaxSVGTransformer.encode,
+                     sample_vae=False)[0]
+        return jm.apply({"params": p}, None, None, *data[2:], z=z, return_tgt=False)
+    ref = run(params, data)
+    model = SVGTransformer(cfg).eval()
+    load_flax_params(model, params)
+    port = [torch.from_numpy(b[k]) for k in cfg.get_model_args()]
+    with torch.no_grad():
+        z = model.encode(*port[:2], sample_vae=False)[0]
+        res = model(None, None, *port[2:], z=z)
+    assert set(res) == set(ref)
+    for key in ref:
+        assert res[key].shape == ref[key].shape, key
+        np.testing.assert_allclose(res[key].numpy(), np.asarray(ref[key]), atol=LOGIT_TOL,
+                                   rtol=0, err_msg=key)
+
+
 def test_config_and_supported_variants():
     cfg = sketchformer()
     assert (cfg.encode_stages, cfg.decode_stages, cfg.pred_mode, cfg.rel_targets,
             cfg.use_vae, cfg.args_dim_out) == (1, 1, "autoregressive", True, True, 512)
     assert cfg.get_model_args() == ["commands_grouped", "args_grouped", "commands_grouped",
                                     "args_rel_grouped"]
-    for bad in (dict(model_type="lstm"), dict(decode_stages=2)):
-        with pytest.raises(NotImplementedError):
-            SVGTransformer(ModelConfig(**{**KW, **bad}))
+    # the LSTM in place of both transformer stacks (SketchRNN at this size)
+    # and a two-stage autoregressive decoder, which raised before they were
+    # ported, build and give JAX's teacher-forced logits
+    for variant in (dict(model_type="lstm"), dict(decode_stages=2)):
+        _variant_matches_jax(variant)
     # a label-conditioned Sketchformer and the one-stage one-shot model build
     for good in (dict(label_condition=True), dict(pred_mode="one_shot")):
         SVGTransformer(ModelConfig(**{**KW, **good}))

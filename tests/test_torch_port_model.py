@@ -174,9 +174,51 @@ def test_one_shot_sample_matches_jax_pallas(port_model, batch, jax_run):
     {"encode_stages": 0}, {"encode_stages": 1, "pred_mode": "autoregressive"},
 ])
 def test_variants_outside_the_slice_raise(change):
+    """The variants that raised until the LSTM, two-stage autoregressive
+    decoding and the decode-only model were ported: the flagship's config
+    with one change, at full width, now builds and gives JAX's logits (XLA
+    path, float32, atol 1e-4) on two icons, teacher-forced when
+    autoregressive, from a given latent when decode-only, with weights of
+    the JAX model's shapes drawn from a numpy seed."""
     cfg = dataclasses.replace(hierarchical_ordered(), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SVGTransformer(cfg)
+    b = generate_batch(np.random.default_rng(1), 2)
+    keys = cfg.get_model_args()
+    jax_model = JaxSVGTransformer(JaxModelConfig(**{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}))
+    data = [jnp.asarray(b[k]) for k in keys]
+    decode_only = cfg.encode_stages == 0
+    ar = cfg.pred_mode == "autoregressive"
+    z = np.random.default_rng(2).standard_normal((2, cfg.dim_z)).astype(np.float32)
+    enc, dec = (None, None) if decode_only else data[:2], data[2:4] if ar else (None, None)
+    shapes = jax.eval_shape(
+        lambda *a: jax_model.init({"params": jax.random.key(0)}, *a,
+                                  z=jnp.asarray(z) if decode_only else None, return_tgt=ar),
+        *enc, *dec)["params"]
+    rng = np.random.default_rng(0)
+
+    def leaf(path, shape):
+        name, n = path[-1].key, rng.standard_normal(shape.shape).astype(np.float32)
+        if name in ("norm1", "norm2"):
+            return np.stack([1 + 0.1 * n[0], 0.1 * n[1]])
+        if name == "scale":
+            return 1 + 0.1 * n
+        return 0.1 * n if n.ndim == 1 else n / np.float32(np.sqrt(shape.shape[0]))
+    params = jax.tree_util.tree_map_with_path(leaf, shapes)
+    ref = jax.jit(lambda p, enc, dec, z: jax_model.apply(
+        {"params": p}, *enc, *dec, z=z, return_tgt=False))(
+        params, enc, dec, jnp.asarray(z) if decode_only else None)
+    model = SVGTransformer(cfg).eval()
+    load_flax_params(model, params)
+    to_torch = lambda xs: [None if x is None else torch.from_numpy(np.asarray(x))  # noqa: E731
+                           for x in xs]
+    with torch.no_grad():
+        res = model(*to_torch(enc), *to_torch(dec),
+                    z=torch.from_numpy(z) if decode_only else None)
+    assert set(res) == set(ref)
+    for key in ref:
+        assert res[key].shape == ref[key].shape, key
+        np.testing.assert_allclose(res[key].numpy(), np.asarray(ref[key]), atol=1e-4, rtol=0,
+                                   err_msg=key)
 
 
 @pytest.mark.parametrize("change", [
