@@ -6,9 +6,10 @@ In order: print the card and its power limit; build the port's CUDA kernels
 from ``deepsvg_tpu_torch/ops/csrc``; load the trained flagship checkpoint;
 then five paths in bfloat16, the float32 models, the attention ops, K4's
 recompute mode, the model variants (the one-stage one-shot model, the
-label-conditioned fonts model, temperature sampling) and the variants ported
-last (SketchRNN's LSTM, two-stage autoregressive decoding, the decode-only
-model). Every earlier phase
+label-conditioned fonts model, temperature sampling), the variants
+(SketchRNN's LSTM, two-stage autoregressive decoding, the decode-only model)
+and the geometry (SVG text in and out of the flagship, the reconstruction
+metrics and a differentiable descent on the card). Every earlier phase
 runs K4 in its saved mode, the model's default
 (``layer_vjp.SAVE_RESIDUALS_DEFAULT``).
 
@@ -204,6 +205,23 @@ at one stage (long K2 4, K3 1) and two (K2 8, K3 1) and the autoregressive
 form's ``greedy_sample`` (K9 240, K3 240), each validated, timed and
 against its plain path with a control. This phase's launch counts and
 controls are held at the end of the run, so that one run prints them all.
+
+*The geometry* (:func:`geometry_phase`, the trained flagship in bfloat16):
+the native fitting engine built with ``g++`` and held to the Python fitting
+within GEOM_NATIVE_ATOL; the documents of GEOMETRY_SVGS (relative
+commands, H/V, quadratic, smooth, implicit lineto, subpaths, arcs, the
+primitives) through the port's svglib (``canonicalize(normalize=True)``,
+``simplify_heuristic``, ``numericalize``, ``to_tensor``), packed to 8 x 30 and
+tiled to N=1024; ``evaluation.reconstruct`` counted (K1 1, K2 12 + 4 float32,
+K3 1; no plain version called), validated, timed, its states against the
+plain path's at N=64 (``path_gate``, ids held, a control that must fail);
+every output back to SVG text (``SVG.from_tensor`` -> ``to_str``) and parsed
+again; ``recon_metrics`` in both group modes on the card (no kernel
+launched), its ratios printed and timed, each sum held to the CPU's on the
+first N_GEOM_CPU rows within GEOM_METRIC_RTOL; the EMD descent of
+``examples/02`` (the unit circle's cubics onto GEOM_TARGET, EMD_STEPS steps
+at EMD_LR, float32, autograd), its first step held to the CPU's and its loss
+falling. Its launch counts and gates are held at the end of the run.
 
 At the end, each form of K5 (bf16 at 257 and 512 classes, float32 at 257
 and 512), of K8 and of K2 (short and long, bf16 and float32) is printed
@@ -491,6 +509,39 @@ N_RNN_SAMPLE = 8
 B_K7_CAUSAL = 32
 N_LABELS_FONTS = 100
 SAMPLE_LOW_T = 1e-4
+# The geometry phase: SVG documents held here (relative commands, H/V,
+# quadratic and smooth curves, implicit lineto, several subpaths, arcs and
+# each primitive) through the port's svglib into the flagship's 8 x 30
+# tensors, tiled to N_MAIN rows; the reconstruction metrics on the card held
+# to the CPU's on the first N_GEOM_CPU rows (every document among them: the
+# CPU's all-pairs distances at N_MAIN would take the host tens of seconds),
+# each summed metric within GEOM_METRIC_RTOL of the larger of its value and
+# 1; the native engine against the Python fitting
+# within GEOM_NATIVE_ATOL; the EMD descent of examples/02 (the unit circle's
+# cubics onto GEOM_TARGET, EMD_STEPS steps at EMD_LR, float32) with its
+# first step's loss and gradient held to the CPU's within GEOM_EMD_TOL and
+# GEOM_EMD_GRAD_TOL (of the gradient's largest entry).
+_SVG_HEAD = '<svg xmlns="http://www.w3.org/2000/svg" viewBox="0 0 24 24">'
+GEOMETRY_SVGS = {
+    "relative": '<path d="m 3 3 l 9 1 l 2 8 l -10 -1 z"/>',
+    "hv": '<path d="M 3 3 H 15 V 12 h -4 v 6 H 3 Z"/>',
+    "quadratic": '<path d="M 2 12 Q 8 2 14 12 T 22 12 L 22 20 L 2 20 Z"/>',
+    "smooth": '<path d="M 2 4 C 4 10 8 10 10 5 S 16 1 20 7 s 2 6 -4 10 L 2 20 Z"/>',
+    "implicit": '<path d="M 4 4 10 6 18 4 16 16 6 18 z"/>',
+    "subpaths": '<path d="M 2 2 L 10 2 L 10 10 Z M 12 12 L 21 13 L 20 21 L 12 20 Z"/>',
+    "arcs": '<path d="M 4 12 A 8 8 0 0 1 20 12 A 6 4 30 1 0 4 12 Z"/>',
+    "rect": '<rect x="3" y="4" width="12" height="8"/><rect x="14" y="14" width="7" height="7"/>',
+    "circle": '<circle cx="12" cy="12" r="8"/><circle cx="12" cy="12" r="3"/>',
+    "primitives": ('<ellipse cx="8" cy="16" rx="5" ry="3"/><polygon points="14 3 22 5 18 11"/>'
+                   '<polyline points="2 2 6 1 9 3"/><line x1="3" y1="21" x2="21" y2="22"/>'),
+}
+GEOM_TARGET = ('<path d="M 12 2 L 14.5 9 L 22 9 L 16 13.5 L 18 21 L 12 16.5 L 6 21 L 8 13.5 '
+               'L 2 9 L 9.5 9 Z"/>')
+N_GEOM_CPU = 128
+GEOM_METRIC_RTOL = 1e-4
+GEOM_NATIVE_ATOL = 1e-9
+GEOM_EMD_TOL, GEOM_EMD_GRAD_TOL = 1e-5, 1e-4
+EMD_STEPS, EMD_LR = 300, 10.0
 # K11's gradients: relative RMS, about four times the card test's largest
 # reading (1.0e-3, bfloat16)
 MHA_GRAD_RMS = 4e-3
@@ -4580,6 +4631,221 @@ def decoders_phase(dev, card, record, reset_counts, read_counts) -> dict:
     return launches
 
 
+def geometry_phase(dev, card, record, reset_counts, read_counts) -> dict:
+    """SVGs in and out of the trained flagship on the card, and the geometry
+    on the device. (1) The native fitting engine built with ``g++`` and held
+    to the Python fitting. (2) The held documents through the port's svglib
+    (canonicalize, simplify, numericalize, to_tensor), packed to 8 x 30 and
+    tiled to N_MAIN rows, through ``evaluation.reconstruct`` in bfloat16
+    (counted: K1 1, K2 12 + 4 float32, K3 1), its states held against the
+    plain path's with ``path_gate`` and a control, its outputs turned back
+    into SVG text that must parse again. (3) ``recon_metrics`` on the card
+    in both group modes, held to the CPU's on N_GEOM_CPU rows, no kernel
+    launched. (4) The EMD descent of ``examples/02`` in float32 on the card
+    against the CPU's first step. Returns the launches of the counted run."""
+    from deepsvg_tpu_torch import evaluation, native
+    from deepsvg_tpu_torch.difflib import sample_points_padded, svg_emd_loss
+    from deepsvg_tpu_torch.models import gpu_fast, hierarchical_ordered, load_model
+    from deepsvg_tpu_torch.models.sample import flatten_groups_np
+    from deepsvg_tpu_torch.ops import ce as ce_ops
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import head as head_ops
+    from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
+    from deepsvg_tpu_torch.svglib import SVG, Bbox
+    from deepsvg_tpu_torch.svglib import path_fitting
+    from deepsvg_tpu_torch.svgtensor import (
+        CMD_C, CMD_L, cmd_args_to_data14, data14_to_cmd_args, pack_groups)
+    t_phase = time.perf_counter()
+    out: dict = {}
+    no_launch = dict.fromkeys(read_counts(), 0)
+
+    # ======================================= (1) the native fitting engine
+    t0 = time.perf_counter()
+    check(native.available(), "the native fitting engine did not build (g++)")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    t = np.linspace(0, 2 * np.pi, 2000)
+    contour = np.stack([10 + 5 * np.cos(t), 10 + 5 * np.sin(t)], -1) \
+        + rng.normal(0, 0.01, (2000, 2))
+    polyline = rng.random((1500, 2)) * np.array([100, 3])
+    nat: dict = {"build_s": build_s}
+    for name, args_ in (("fit_cubics", (contour, 0.01)), ("rdp", (polyline, 1.0))):
+        t0 = time.perf_counter()
+        py = getattr(path_fitting, name)(*args_)
+        py_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cc = getattr(native, name)(*args_)
+        cc_ms = (time.perf_counter() - t0) * 1e3
+        err = max((float(np.abs(np.asarray(va) - np.asarray(vb)).max())
+                   for a, b in zip(py, cc) for va, vb in zip(a[1:], b[1:])), default=0.0)
+        check(len(py) == len(cc) and all(a[0] == b[0] for a, b in zip(py, cc))
+              and err <= GEOM_NATIVE_ATOL,
+              f"native {name}: {len(cc)} pieces against {len(py)}, max abs err {err}")
+        nat[name] = {"pieces": len(cc), "max_abs_err": err, "python_ms": py_ms, "native_ms": cc_ms}
+    print(f"native engine: built in {build_s:.2f} s; fit_cubics {nat['fit_cubics']['pieces']} "
+          f"pieces, {nat['fit_cubics']['native_ms']:.2f} ms against Python's "
+          f"{nat['fit_cubics']['python_ms']:.1f} ms; rdp {nat['rdp']['native_ms']:.2f} ms against "
+          f"{nat['rdp']['python_ms']:.1f} ms (host clock); max abs err "
+          f"{max(nat['fit_cubics']['max_abs_err'], nat['rdp']['max_abs_err']):.3g}", flush=True)
+    out["native"] = nat
+
+    # =================== (2) SVG text -> svglib -> the flagship -> SVG text
+    cfg = gpu_fast(hierarchical_ordered())
+    model = load_model(CHECKPOINT, cfg, device=dev)
+    t0 = time.perf_counter()
+    packed = []
+    for name, body in GEOMETRY_SVGS.items():
+        svg = SVG.from_str(_SVG_HEAD + body + "</svg>").canonicalize(normalize=True)
+        svg = svg.simplify_heuristic()
+        svg.numericalize(256)
+        groups = svg.to_tensor(concat_groups=False)
+        check(0 < len(groups) <= cfg.max_num_groups
+              and all(len(g) <= cfg.max_seq_len for g in groups),
+              f"SVG {name}: {[len(g) for g in groups]} commands a path")
+        packed.append(pack_groups(groups, cfg.max_num_groups, cfg.max_seq_len,
+                                  cfg.max_total_len))
+    svg_in_s = time.perf_counter() - t0
+    reps = -(-N_MAIN // len(packed))
+    gt_c = torch.from_numpy(np.concatenate([np.stack([p["commands"] for p in packed])] * reps)
+                            [:N_MAIN]).to(dev)
+    gt_a = torch.from_numpy(np.concatenate([np.stack([p["args"] for p in packed])] * reps)
+                            [:N_MAIN]).to(dev)
+    plain_fns = [(emb_ops, "embedding_reference"), (layer_ops, "layer_reference"),
+                 (head_ops, "head_argmax_reference")]
+    torch.cuda.synchronize()
+    calls, restore = count_plain_calls(plain_fns)
+    reset_counts()
+    try:
+        pr_c, pr_a = evaluation.reconstruct(model, gt_c, gt_a)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    got = read_counts()
+    expected = {"embedding": 1, "layer": 12, "layer_f32": 4, "head": 1}
+    launches = {k: v for k, v in got.items() if v}
+    print(f"geometry reconstruct N={N_MAIN}: launches {got}; plain versions called {calls}",
+          flush=True)
+    check_later(got == no_launch | expected, f"geometry reconstruct: launches {got}, "
+                                             f"expected {expected}")
+    check(not any(calls.values()), f"geometry reconstruct: plain versions ran: {calls}")
+    valid_share = check_sample(pr_c, pr_a, N_MAIN, cfg)
+    recon_ms = cuda_median_ms(lambda: evaluation.reconstruct(model, gt_c, gt_a), iters=5,
+                              warmup=1)
+    recon_busy, _ = device_split(lambda: evaluation.reconstruct(model, gt_c, gt_a), iters=2)
+    layers = list(model.decoder.decoder.layers)
+    ops = (emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp)
+    with torch.no_grad():
+        gate = path_gate(f"geometry reconstruct N={N_AR_GATE}", model, ops,
+                         lambda: cut_layers(layers, AR_CONTROL_DROP_BITS), hold_logits=False,
+                         commands=gt_c[:N_AR_GATE], args=gt_a[:N_AR_GATE])
+    # back to SVG text, and that text parsed again
+    t0 = time.perf_counter()
+    n_paths = []
+    for c, a in flatten_groups_np(pr_c, pr_a):
+        text = SVG.from_tensor(cmd_args_to_data14(c, a), viewbox=Bbox(256),
+                               allow_empty=True).to_str()
+        n_paths.append(len(list(SVG.from_str(text).paths)))
+    svg_out_s = time.perf_counter() - t0
+    check(len(n_paths) == N_MAIN and sum(n_paths) > 0, "no reconstruction has a path")
+    print(f"geometry: {len(GEOMETRY_SVGS)} documents through svglib in {svg_in_s * 1e3:.1f} ms, "
+          f"tiled to N={N_MAIN}; reconstruct {recon_ms:.3f} ms median of 5, device busy "
+          f"{recon_busy} ms on {card}; valid argument share {valid_share:.4f}; {N_MAIN} outputs "
+          f"to SVG text and parsed again in {svg_out_s:.2f} s (host), "
+          f"{sum(n_paths) / N_MAIN:.2f} subpaths each", flush=True)
+    out["reconstruct"] = {"N": N_MAIN, "documents": list(GEOMETRY_SVGS), "launches": launches,
+                          "median_ms": recon_ms, "device_busy_ms": recon_busy,
+                          "svg_in_ms": svg_in_s * 1e3, "svg_out_s": svg_out_s,
+                          "valid_share": valid_share, "subpaths_per_output": sum(n_paths) / N_MAIN,
+                          "gate": gate}
+    del model
+    torch.cuda.empty_cache()
+
+    # ===================================== (3) the metrics on the device
+    gt = (gt_c[..., 1:], gt_a[..., 1:, :])
+    metrics: dict = {}
+    for match in (False, True):
+        reset_counts()
+        acc = evaluation.recon_metrics(*gt, pr_c, pr_a, match_groups=match)
+        torch.cuda.synchronize()
+        check(read_counts() == no_launch, f"recon_metrics launched a kernel: {read_counts()}")
+        ratios = evaluation._ratios(acc)
+        rows = slice(0, N_GEOM_CPU)
+        card_rows = evaluation.recon_metrics(gt[0][rows], gt[1][rows], pr_c[rows], pr_a[rows],
+                                             match_groups=match)
+        t0 = time.perf_counter()
+        cpu_rows = evaluation.recon_metrics(gt[0][rows].cpu(), gt[1][rows].cpu(),
+                                            pr_c[rows].cpu(), pr_a[rows].cpu(),
+                                            match_groups=match)
+        cpu_s = time.perf_counter() - t0
+        worst = max(abs(float(card_rows[k]) - float(cpu_rows[k]))
+                    / max(abs(float(cpu_rows[k])), 1.0) for k in cpu_rows)
+        fn = lambda m=match: evaluation.recon_metrics(*gt, pr_c, pr_a, match_groups=m)  # noqa: E731
+        ms = cuda_median_ms(fn, iters=5, warmup=1)
+        busy, _ = device_split(fn, iters=2)
+        tag = "matched groups" if match else "groups by index"
+        print(f"recon_metrics N={N_MAIN} ({tag}): {json.dumps(ratios)}; {ms:.3f} ms median of 5, "
+              f"device busy {busy} ms on {card}; card against CPU on the first {N_GEOM_CPU} rows: "
+              f"largest relative difference {worst:.3g} (limit {GEOM_METRIC_RTOL}; the CPU took "
+              f"{cpu_s:.2f} s)", flush=True)
+        check_later(worst <= GEOM_METRIC_RTOL,
+                    f"recon_metrics ({tag}): card against CPU {worst} (limit {GEOM_METRIC_RTOL})")
+        metrics["match_groups" if match else "by_index"] = {
+            "ratios": ratios, "sums": {k: float(v) for k, v in acc.items()},
+            "median_ms": ms, "device_busy_ms": busy, "cpu_rows": N_GEOM_CPU,
+            "card_vs_cpu_rel": worst, "cpu_s": cpu_s}
+    out["metrics"] = metrics
+
+    # ======== (4) differentiable geometry: examples/02's EMD descent, float32
+    target_svg = SVG.from_str(_SVG_HEAD + GEOM_TARGET + "</svg>").canonicalize(normalize=True)
+    target_np = np.concatenate([p.sample_points(0.3) for p in target_svg.paths]).astype(np.float32)
+    cmds_np, args_np = data14_to_cmd_args(SVG.unit_circle().normalize().to_tensor())
+    valid_np = (cmds_np == CMD_L) | (cmds_np == CMD_C)
+
+    def loss_and_grad(args_, cmds_, target_, valid_):
+        args_ = args_.detach().requires_grad_()
+        points, _ = sample_points_padded(cmds_, args_, n=8)
+        loss = svg_emd_loss(points[valid_].reshape(-1, 2), target_)
+        loss.backward()
+        return loss.detach(), args_.grad
+
+    inputs = [torch.from_numpy(x) for x in (args_np, cmds_np, target_np, valid_np)]
+    loss_cpu, grad_cpu = loss_and_grad(*inputs)
+    args_d, cmds_d, target_d, valid_d = (x.to(dev) for x in inputs)
+    reset_counts()
+    loss0, grad0 = loss_and_grad(args_d, cmds_d, target_d, valid_d)
+    loss_err = abs(float(loss0) - float(loss_cpu))
+    grad_err = float((grad0.cpu() - grad_cpu).abs().max() / grad_cpu.abs().max())
+    losses = [float(loss0)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    args_k = args_d
+    for step in range(EMD_STEPS):
+        loss, grad = loss_and_grad(args_k, cmds_d, target_d, valid_d)
+        args_k = args_k - EMD_LR * grad
+        if step % 50 == 0 or step == EMD_STEPS - 1:
+            losses.append(float(loss))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / EMD_STEPS
+    check(read_counts() == no_launch, f"the EMD descent launched a kernel: {read_counts()}")
+    print(f"EMD descent (float32, {EMD_STEPS} steps at lr {EMD_LR}): loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; {step_ms:.3f} ms a step (host clock, a loss read every 50 steps) on "
+          f"{card}; step 0 against the CPU: loss {loss_err:.3g} (limit {GEOM_EMD_TOL}), gradient "
+          f"{grad_err:.3g} of its largest entry (limit {GEOM_EMD_GRAD_TOL})", flush=True)
+    check_later(loss_err <= GEOM_EMD_TOL and grad_err <= GEOM_EMD_GRAD_TOL,
+                f"EMD step 0, card against CPU: loss {loss_err}, gradient {grad_err}")
+    check(np.isfinite(losses[-1]) and losses[-1] < losses[0],
+          f"the EMD descent did not fall: {losses}")
+    out["emd_descent"] = {"steps": EMD_STEPS, "lr": EMD_LR, "losses": losses,
+                          "ms_per_step": step_ms, "step0_loss_err": loss_err,
+                          "step0_grad_err": grad_err}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"geometry phase: {out['phase_s']:.1f} s", flush=True)
+    record["geometry"] = out
+    return launches
+
+
 def reset_counts():
     """Every kernel wrapper's launch counters to 0."""
     from deepsvg_tpu_torch.ops import attention as attn_ops
@@ -6044,6 +6310,11 @@ def main() -> int:
 
     # ======= the LSTM, two-stage autoregressive decoding, the decode-only model
     decoders_phase(dev, card, record, reset_counts, read_counts)
+
+    # ======= SVGs in and out of the flagship, the geometry on the device
+    # (its float32 products in full float32, as on the CPU it is held to)
+    with matmul_tf32(False):
+        geometry_phase(dev, card, record, reset_counts, read_counts)
 
     # K5's forms and K8 beside their library calls and bounds
     forms = {n: kernels[n] for n in ("args_ce_fwd", "args_ce_bwd", "args_ce_fwd_512",

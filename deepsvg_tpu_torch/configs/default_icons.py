@@ -59,6 +59,51 @@ class Config(TrainConfig):
         ]
 
     def visualize(self, model, train_vars, step, epoch, summary_writer, visualization_dir):
-        """The reconstruction grids need the SVG library's renderer, which the
-        port does not have yet (ROADMAP.md, queue 1, items 7 and 9): nothing
-        is drawn."""
+        """Reconstruction grids to TensorBoard: one batched ``greedy_sample``
+        of the sample icons on the model's device, then per icon its
+        decode beside its input, each normalized, split into paths and
+        coloured, rendered at 200 pixels. An icon that fails to convert or
+        render is left out, as the JAX package's hook does."""
+        import numpy as np
+        import torch
+
+        from deepsvg_tpu_torch.models.sample import flatten_groups_np, greedy_sample
+        from deepsvg_tpu_torch.svglib.geom import Bbox
+        from deepsvg_tpu_torch.svglib.svg import SVG
+        from deepsvg_tpu_torch.svglib.utils import make_grid
+        from deepsvg_tpu_torch.svgtensor import cmd_args_to_data14
+
+        items = [d for d in train_vars.x_inputs_train
+                 if all(k in d for k in self.model_args[:2])]
+        if not items:
+            return
+        dev = next(model.parameters()).device
+        stacked = [torch.as_tensor(np.stack([np.asarray(d[k]) for d in items]), device=dev)
+                   for k in self.model_args[:2]]
+        kw = {}
+        if "label" in self.model_args and all("label" in d for d in items):
+            # a label-conditioned model cannot encode without its labels
+            kw["label"] = torch.as_tensor(np.stack([np.asarray(d["label"]) for d in items]),
+                                          device=dev)
+        commands_y, args_y = greedy_sample(model, *stacked, **kw)
+        flat = flatten_groups_np(commands_y, args_y)
+        for i, (data, (c, a)) in enumerate(zip(items, flat)):
+            try:
+                data14 = cmd_args_to_data14(c, a)
+                svg_sample = (
+                    SVG.from_tensor(data14, viewbox=Bbox(256), allow_empty=True)
+                    .normalize().split_paths().set_color("random")
+                )
+            except Exception:
+                continue
+            try:
+                gt14 = np.concatenate([np.asarray(t) for t in data["tensor"]], axis=0)
+                svg_gt = (
+                    SVG.from_tensor(gt14, viewbox=Bbox(256))
+                    .normalize().split_paths().set_color("random")
+                )
+                img = make_grid([svg_sample, svg_gt]).render(width=200)
+                summary_writer.add_image(
+                    f"reconstructions_train/{i}", np.asarray(img).transpose(2, 0, 1), step)
+            except Exception:
+                continue

@@ -44,7 +44,7 @@ import torch
 from ..ops import decode as decode_ops
 from ..ops import head as head_ops
 from ..svgtensor.constants import CMD_EOS, CMD_M, CMD_SOS, PAD_VAL
-from ..svgtensor.masks import cmd_args_mask
+from ..svgtensor.masks import cmd_args_mask, padding_mask
 from ..svgtensor.tensor import make_absolute
 from .cast import DropoutRng
 from .config import ModelConfig
@@ -283,3 +283,13 @@ def greedy_sample(model: SVGTransformer, commands_enc=None, args_enc=None, z=Non
     decode = autoregressive_sample_fused if z.device.type == "cuda" else \
         autoregressive_sample_cached
     return decode(model, z, label, temperature, generator)
+
+
+def flatten_groups_np(commands, args):
+    """Host-side ragged flattening of a decode: per sample, the positions
+    before each group's first EOS, the groups concatenated. A list of
+    numpy ``(commands, args)`` pairs."""
+    commands = torch.as_tensor(commands).cpu()
+    pad = padding_mask(commands).bool().numpy()
+    commands, args = commands.numpy(), torch.as_tensor(args).cpu().numpy()
+    return [(commands[i][pad[i]], args[i][pad[i]]) for i in range(commands.shape[0])]

@@ -6,7 +6,10 @@ A numpy copy of the packing half of ``deepsvg_tpu/svgtensor/tensor.py``
 JAX module imports ``jax``, so the port keeps its own. :func:`make_absolute`,
 :func:`mask_invalid_args` and their helper are the torch counterparts of the
 JAX module's functions of those names, which undo the relative encoding of
-an autoregressive decode.
+an autoregressive decode; :func:`relative_args` (with
+:func:`_prev_real_end_pos` and :func:`jax_cummax`, named as the JAX
+module's) makes that encoding on tensors, as :func:`relative_args_np` does
+on the host.
 """
 from __future__ import annotations
 
@@ -137,6 +140,40 @@ def _position_shift(delta_xy: torch.Tensor) -> torch.Tensor:
     end_pos."""
     zeros = delta_xy.new_zeros(delta_xy.shape[:-1] + (_POS_START,))
     return torch.cat([zeros, delta_xy.repeat((1,) * (delta_xy.dim() - 1) + (3,))], dim=-1)
+
+
+def _prev_real_end_pos(commands: torch.Tensor, end_pos: torch.Tensor):
+    """For each position, the end position of the closest preceding real
+    command: ``(start [..., S, 2], has_prev [..., S] bool)``."""
+    real = commands < CMD_EOS
+    idx = torch.arange(commands.shape[-1], dtype=torch.int64, device=commands.device)
+    real_idx = torch.where(real, idx, -1)
+    # exclusive running max of the real indices = the previous real command
+    shifted = torch.cat([torch.full_like(real_idx[..., :1], -1), real_idx[..., :-1]], dim=-1)
+    prev = jax_cummax(shifted)
+    start = torch.take_along_dim(end_pos, prev.clamp_min(0)[..., None], dim=-2)
+    return start, prev >= 0
+
+
+def jax_cummax(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative max over the last axis (``lax.cummax`` in the
+    JAX module, whence the name)."""
+    return torch.cummax(x, dim=-1).values
+
+
+def relative_args(commands: torch.Tensor, args: torch.Tensor) -> torch.Tensor:
+    """Absolute -> relative encoded arguments on tensors: the position
+    columns of each real command after the first less the previous real
+    command's end position, the used arguments shifted by ``ARGS_DIM - 1``,
+    the unused ``PAD_VAL``. ``commands [..., S]`` int, ``args [..., S, 11]``
+    float."""
+    commands = commands.long()
+    mask = cmd_args_mask(commands.device, torch.bool)[commands]
+    real = commands < CMD_EOS
+    start, has_prev = _prev_real_end_pos(commands, args[..., IndexArgs.END_POS])
+    delta = torch.where((real & has_prev)[..., None], start, start.new_zeros(()))
+    rel = args - _position_shift(delta)
+    return torch.where(mask, rel + (ARGS_DIM - 1), torch.full_like(rel, float(PAD_VAL)))
 
 
 def mask_invalid_args(commands: torch.Tensor, args: torch.Tensor) -> torch.Tensor:

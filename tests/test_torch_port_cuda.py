@@ -1955,3 +1955,78 @@ def test_generator_sampling_runs_k9_without_the_head(cuda):
     want = torch.stack([lay.injection(z).to(BF16) + lay.label_injection(le).to(BF16)
                         for lay in model.decoder.decoder.layers])
     assert torch.equal(seen[0], want)
+
+
+# ------------------------------------------------------------------ geometry
+
+@pytest.mark.parametrize("match_groups", [False, True])
+def test_recon_metrics_cuda_matches_cpu(cuda, match_groups):
+    """The reconstruction metrics on the card against the CPU's, each sum
+    within 1e-4 of the larger of its value and 1 (float32 products in full
+    float32 on both)."""
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.evaluation import recon_metrics
+    b = generate_batch(np.random.default_rng(4), 64, 8, 30)
+    c, a = torch.from_numpy(b["commands"][..., 1:]), torch.from_numpy(b["args"][..., 1:, :])
+    rng = np.random.default_rng(5)
+    pa = torch.where(a >= 0, (a + torch.from_numpy(rng.integers(-6, 7, a.shape))).clamp(0, 255), a)
+    pc = c[:, torch.from_numpy(rng.permutation(8))]
+    pa = pa[:, torch.from_numpy(rng.permutation(8))]
+    want = recon_metrics(c, a, pc, pa, match_groups=match_groups)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = recon_metrics(c.to(cuda), a.to(cuda), pc.to(cuda), pa.to(cuda),
+                            match_groups=match_groups)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    for k, w in want.items():
+        assert got[k].device.type == "cuda"
+        assert abs(float(got[k]) - float(w)) <= 1e-4 * max(abs(float(w)), 1.0), k
+
+
+def test_emd_gradient_step_cuda_matches_cpu(cuda):
+    """One step of the EMD descent (examples/02: the unit circle's cubics onto
+    a contour): loss and gradient on the card against the CPU within 1e-4."""
+    from deepsvg_tpu_torch.difflib import sample_points_padded, svg_emd_loss
+    from deepsvg_tpu_torch.svglib import SVG
+    from deepsvg_tpu_torch.svgtensor import CMD_C, CMD_L, data14_to_cmd_args
+    cmds, args = data14_to_cmd_args(SVG.unit_circle().normalize().to_tensor())
+    t = np.linspace(0, 2 * np.pi, 90, endpoint=False)
+    target = np.stack([12 + 7 * np.cos(t) * (1 + 0.3 * np.cos(3 * t)),
+                       12 + 5 * np.sin(t)], -1).astype(np.float32)
+    valid = torch.from_numpy((cmds == CMD_L) | (cmds == CMD_C))
+
+    def step(dev):
+        x = torch.from_numpy(args).to(dev).requires_grad_()
+        points, _ = sample_points_padded(torch.from_numpy(cmds).to(dev), x, n=8)
+        loss = svg_emd_loss(points[valid.to(dev)].reshape(-1, 2),
+                            torch.from_numpy(target).to(dev))
+        loss.backward()
+        return loss.item(), x.grad.cpu()
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        loss, grad = step(cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    loss_ref, grad_ref = step(torch.device("cpu"))
+    assert abs(loss - loss_ref) <= 1e-4 * max(abs(loss_ref), 1.0)
+    assert torch.isfinite(grad).all()
+    assert float((grad - grad_ref).abs().max()) <= 1e-4 * float(grad_ref.abs().max())
+
+
+def test_native_engine_available_on_card_machine(cuda):
+    """The card's machine builds the native fitting engine (``g++``), and it
+    fits as the Python code does."""
+    from deepsvg_tpu_torch import native
+    from deepsvg_tpu_torch.svglib import path_fitting
+    assert native.available()
+    t = np.linspace(0, 2 * np.pi, 200)
+    pts = np.stack([10 + 5 * np.cos(t), 10 + 5 * np.sin(t)], -1) \
+        + np.random.default_rng(0).normal(0, 0.01, (200, 2))   # no tied split points
+    got, want = native.fit_cubics(pts, 0.1), path_fitting.fit_cubics(pts, 0.1)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        for va, vb in zip(a[1:], b[1:]):
+            np.testing.assert_allclose(va, vb, rtol=0, atol=1e-9)
