@@ -8,8 +8,10 @@ then five paths in bfloat16, the float32 models, the attention ops, K4's
 recompute mode, the model variants (the one-stage one-shot model, the
 label-conditioned fonts model, temperature sampling), the variants
 (SketchRNN's LSTM, two-stage autoregressive decoding, the decode-only model)
-and the geometry (SVG text in and out of the flagship, the reconstruction
-metrics and a differentiable descent on the card). Every earlier phase
+the geometry (SVG text in and out of the flagship, the reconstruction
+metrics and a differentiable descent on the card) and the real-data
+loaders with the apps (the preprocessing CLI, training on real data, the
+inference session, the animation's finetune, the web GUI). Every earlier phase
 runs K4 in its saved mode, the model's default
 (``layer_vjp.SAVE_RESIDUALS_DEFAULT``).
 
@@ -222,6 +224,25 @@ first N_GEOM_CPU rows within GEOM_METRIC_RTOL; the EMD descent of
 ``examples/02`` (the unit circle's cubics onto GEOM_TARGET, EMD_STEPS steps
 at EMD_LR, float32, autograd), its first step held to the CPU's and its loss
 falling. Its launch counts and gates are held at the end of the run.
+
+*The data and the apps* (:func:`data_apps_phase`, the flagship config,
+bfloat16, B=60): an SVG corpus the script writes (:func:`write_svg_corpus`:
+77 files, three of which the config's filters drop and one that does not
+parse) through ``python -m deepsvg_tpu_torch.data.preprocess --workers 4``
+(one meta row per parsed file); the survivors as tensor pickles of
+DATA_AUGS augmentations; ``training/train.py:train`` through
+``load_dataset(cfg)``, DATA_STEPS steps on the pickles (device-resident)
+and on the simplified SVGs (streamed, augmented on the fly), each counted at
+the recipe step's launches with no plain version called, finite losses and
+a checkpoint that ``inference.load_session`` reads back to the bit; the
+trained flagship's session on the card (``encode_svg`` K1 1, K2 4 + 4
+float32; ``interpolate_svg`` adds a decode, K2 8 and K3 1), the decode of 64
+interpolation latents held to the plain path's by ``path_gate`` with a
+control, every frame back to SVG text that parses again, encode and decode
+timed; ``animate.compute_interpolation`` (the finetune's 8 steps and the
+in-betweens, counted; the live session unchanged); the web GUI on a thread
+over HTTP (two pencil keyframes, ``/api/interpolate`` counted, every frame
+filled).
 
 At the end, each form of K5 (bf16 at 257 and 512 classes, float32 at 257
 and 512), of K8 and of K2 (short and long, bf16 and float32) is printed
@@ -542,6 +563,27 @@ GEOM_METRIC_RTOL = 1e-4
 GEOM_NATIVE_ATOL = 1e-9
 GEOM_EMD_TOL, GEOM_EMD_GRAD_TOL = 1e-5, 1e-4
 EMD_STEPS, EMD_LR = 300, 10.0
+# The data and apps phase (:func:`data_apps_phase`): the corpus is
+# GEOMETRY_SVGS under these zooms and shifts (24-unit viewbox), with pairs,
+# subsets and three documents the filters drop; DATA_AUGS augmentations an
+# icon in the tensor pickles, drawn from DATA_SEED; DATA_STEPS steps of
+# train() on each layout; the session's keyframes (corpus names),
+# N_INTERP in-betweens, the encode's relative RMS against the plain path
+# (bfloat16 E1, float32 E2), the animation's N_BETWEEN frames and its
+# finetune (two keyframes x FINETUNE_AUGS items, at most FINETUNE_STEPS
+# steps at B=60), and the web GUI's frames.
+DATA_ZOOMS = (1.0, 0.8, 0.6)
+DATA_SHIFTS = ((0.0, 0.0), (1.5, -1.0))
+DATA_SEED = 22
+DATA_AUGS = 4
+DATA_STEPS = 8
+DATA_KEYFRAMES = ("smooth_z0_s0", "circle_z1_s1")
+N_INTERP = 10
+DATA_LATENT_RMS = 5e-2
+N_BETWEEN = 4
+FINETUNE_AUGS = 240
+FINETUNE_STEPS = 8
+GUI_FRAMES = 4
 # K11's gradients: relative RMS, about four times the card test's largest
 # reading (1.0e-3, bfloat16)
 MHA_GRAD_RMS = 4e-3
@@ -4846,6 +4888,387 @@ def geometry_phase(dev, card, record, reset_counts, read_counts) -> dict:
     return launches
 
 
+def write_svg_corpus(folder: str) -> dict:
+    """The data phase's SVG corpus, written to ``folder``: the documents of
+    GEOMETRY_SVGS under DATA_ZOOMS x DATA_SHIFTS, each beside the next one
+    (their paths together), and subsets of the four-path document; then
+    three documents that the flagship config's filters drop (DATA_DROPPED:
+    more than 8 paths, a path of more than 30 commands, more than 50
+    commands in all) and one that does not parse. Returns ``{name: kind}``."""
+    from deepsvg_tpu_torch.svglib import SVG, Point
+
+    def doc(body):
+        svg = SVG.from_str(_SVG_HEAD + body + "</svg>")
+        return svg.to_path()
+
+    def zigzag(x0, y0, n, dx, amp):
+        pts = " ".join(f"L {x0 + dx * (i + 1):.2f} {y0 + (amp if i % 2 else -amp):.2f}"
+                       for i in range(n))
+        return f'<path d="M {x0} {y0} {pts} Z"/>'
+
+    kinds: dict = {}
+
+    def save(name, svg, kind="kept"):
+        svg.save_svg(os.path.join(folder, f"{name}.svg"))
+        kinds[name] = kind
+
+    names = list(GEOMETRY_SVGS)
+    for i, name in enumerate(names):
+        for zi, zoom in enumerate(DATA_ZOOMS):
+            for si, (dx, dy) in enumerate(DATA_SHIFTS):
+                save(f"{name}_z{zi}_s{si}", doc(GEOMETRY_SVGS[name]).zoom(zoom).translate(
+                    Point(dx, dy)))
+        nxt = names[(i + 1) % len(names)]
+        both = doc(GEOMETRY_SVGS[name])
+        both.svg_path_groups += doc(GEOMETRY_SVGS[nxt]).zoom(0.5).svg_path_groups
+        save(f"{name}_and_{nxt}", both)
+    four = doc(GEOMETRY_SVGS["primitives"])
+    for lo, hi in ((0, 2), (1, 3), (2, 4)):
+        save(f"primitives_{lo}{hi}", SVG(four.svg_path_groups[lo:hi], four.viewbox))
+    many = "".join(f'<path d="M {1 + 2 * i} 2 L {2 + 2 * i} 2 L {1.5 + 2 * i} 4 Z"/>'
+                   for i in range(10))
+    total = "".join(zigzag(1, 2 + 3 * i, 9, 2.4, 1) for i in range(7))
+    for name, text, kind in (("many_paths", _SVG_HEAD + many + "</svg>", "dropped"),
+                             ("long_path", _SVG_HEAD + zigzag(1, 12, 40, 0.55, 6) + "</svg>",
+                              "dropped"),
+                             ("long_total", _SVG_HEAD + total + "</svg>", "dropped"),
+                             ("broken", "<svg><path d='M 1 1 L 2", "broken")):
+        with open(os.path.join(folder, f"{name}.svg"), "w") as f:
+            f.write(text)
+        kinds[name] = kind
+    return kinds
+
+
+def data_apps_phase(dev, card, record, reset_counts, read_counts) -> dict:
+    """The real-data loaders, the preprocessing CLI and the apps on the card,
+    with the flagship config (B=60, bfloat16). (1) An SVG corpus of
+    :func:`write_svg_corpus` through ``python -m
+    deepsvg_tpu_torch.data.preprocess --workers 4``: one meta row per parsed
+    file. (2) The survivors as tensor pickles of DATA_AUGS augmentations.
+    (3) ``training/train.py:train`` in process through
+    ``load_dataset(cfg)``: on the pickles (device-resident) and on the
+    simplified SVGs (streamed, augmented on the fly), DATA_STEPS steps each,
+    counted (the recipe step's launches a step, no plain version called),
+    finite losses, a checkpoint written and read back by ``load_session``.
+    (4) ``inference.load_session`` of the trained flagship on the card:
+    ``encode_svg`` and ``interpolate_svg`` counted, the decode of the
+    interpolation held to the plain path's by ``path_gate`` (ids, a control
+    that must fail), every frame back to SVG text that parses again, encode
+    and decode timed. (5) ``animate.compute_interpolation`` with the
+    flagship config: the finetune on the card (counted), the in-betweens,
+    the live session unchanged. (6) The web GUI on a thread over HTTP: two
+    pencil keyframes, ``/api/interpolate`` (counted), every frame filled.
+    Returns the launches."""
+    import csv
+    import io
+    import pickle
+    import random
+    import tempfile
+    import threading
+    import urllib.request
+
+    from deepsvg_tpu_torch import animate, inference
+    from deepsvg_tpu_torch.data.dataset import SVGDataset, SVGTensorDataset
+    from deepsvg_tpu_torch.ops import ce as ce_ops
+    from deepsvg_tpu_torch.ops import decode as decode_ops
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import head as head_ops
+    from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
+    from deepsvg_tpu_torch.svglib import SVG
+    from deepsvg_tpu_torch.training import train as train_mod
+    from deepsvg_tpu_torch.training.config import load_config
+    from deepsvg_tpu_torch.webgui import make_server
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    launches: dict = {}
+    no_launch = dict.fromkeys(read_counts(), 0)
+    step_launches = {"embedding": 1, "layer_train_fwd": 8, "layer_train_bwd": 8,
+                     "stack_fwd": 2, "stack_bwd": 2, "args_ce_fwd": 1, "args_ce_bwd": 1,
+                     "embedding_bwd": 1}
+    encode_launches = {"embedding": 1, "layer": 4, "layer_f32": 4}
+    decode_launches = {"layer": 8, "head": 1}
+    plain_fns = [(emb_ops, "embedding_reference"), (layer_ops, "layer_reference"),
+                 (head_ops, "head_argmax_reference"), (decode_ops, "decode_step_reference"),
+                 (layer_vjp, "layer_train_reference"), (stack_vjp, "layer_train_reference"),
+                 (ce_ops, "args_ce_reference")]
+    ops = (emb_ops, layer_ops, head_ops, layer_vjp, ce_ops, stack_vjp)
+    config = "deepsvg_tpu_torch.configs.hierarchical_ordered"
+
+    def counted(what, fn, expected):
+        """``fn()`` once, counted, with the plain versions spied."""
+        torch.cuda.synchronize()
+        calls, restore = count_plain_calls(plain_fns)
+        reset_counts()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        got = read_counts()
+        want = no_launch | {k: v for k, v in expected.items() if v}
+        print(f"{what}: launches {({k: v for k, v in got.items() if v})}; plain versions "
+              f"called {calls}", flush=True)
+        check(got == want, f"{what}: launches {got}, expected {want}")
+        check(not any(calls.values()), f"{what}: plain versions ran: {calls}")
+        launches[what] = {k: v for k, v in got.items() if v}
+        return res
+
+    def times(n, per):
+        return {k: n * v for k, v in per.items()}
+
+    def added(*dicts):
+        total: dict = {}
+        for d in dicts:
+            for k, v in d.items():
+                total[k] = total.get(k, 0) + v
+        return total
+
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    raw, simplified, tensors = (os.path.join(root, d) for d in ("raw", "simplified", "tensors"))
+    for d in (raw, tensors):
+        os.makedirs(d)
+
+    # ============================== (1) the corpus and the preprocess CLI
+    kinds = write_svg_corpus(raw)
+    meta = os.path.join(root, "meta.csv")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepsvg_tpu_torch.data.preprocess", "--data_folder", raw,
+         "--output_folder", simplified, "--output_meta_file", meta, "--workers", "4"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    pre_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the preprocess CLI failed: {proc.stderr[-2000:]}")
+    failures = [ln for ln in proc.stderr.splitlines() if "failed on" in ln]
+    with open(meta) as f:
+        rows = list(csv.DictReader(f))
+    produced = sorted(os.listdir(simplified))
+    print(f"data: {len(kinds)} SVG files written, preprocessed by the CLI (4 workers) in "
+          f"{pre_s:.2f} s (host clock, on the machine of {card}): {len(rows)} meta rows, "
+          f"{len(failures)} failures {failures}", flush=True)
+    check(len(rows) + len(failures) == len(kinds) and len(produced) == len(rows)
+          and sorted(r["id"] + ".svg" for r in rows) == produced,
+          f"preprocess: {len(rows)} rows and {len(failures)} failures for {len(kinds)} files")
+    check([k for k, v in kinds.items() if v == "broken"] ==
+          [os.path.splitext(os.path.basename(ln.split("failed on ")[1].split(":")[0]))[0]
+           for ln in failures], f"preprocess failures {failures}")
+
+    cfg = load_config(config, 1)
+    keep = [r for r in rows if int(r["nb_groups"]) <= cfg.max_num_groups
+            and int(r["max_len_group"]) <= cfg.max_seq_len
+            and int(r["total_len"]) <= cfg.max_total_len]
+    dropped = sorted(r["id"] for r in rows if r not in keep)
+    check(dropped == sorted(k for k, v in kinds.items() if v == "dropped"),
+          f"the config's filters drop {dropped}")
+
+    # ======================================== (2) the tensor pickles
+    rng = random.Random(DATA_SEED)
+    t0 = time.perf_counter()
+    for r in keep:
+        svg = SVG.load_svg(os.path.join(simplified, r["id"] + ".svg"))
+        variants = [np.concatenate(SVGTensorDataset.preprocess(svg.copy(), rng=rng)
+                                   .to_tensor(concat_groups=False), axis=0)
+                    for _ in range(DATA_AUGS)]
+        with open(os.path.join(tensors, r["id"] + ".pkl"), "wb") as f:
+            pickle.dump({"tensors": variants, "fillings": svg.to_fillings()}, f)
+    tensor_s = time.perf_counter() - t0
+    print(f"data: {len(keep)} icons pass the config's filters ({dropped} dropped), written as "
+          f"tensor pickles of {DATA_AUGS} augmentations in {tensor_s:.2f} s (host clock)",
+          flush=True)
+    out["corpus"] = {"files": len(kinds), "meta_rows": len(rows), "failures": failures,
+                     "dropped_by_filters": dropped, "icons": len(keep), "augmentations": DATA_AUGS,
+                     "preprocess_s": pre_s, "tensor_pickles_s": tensor_s}
+
+    # ============================ (3) train() on the real-data module, twice
+    def train_on(what, data_dir, resident):
+        c = load_config(config, 1)
+        check(c.dataloader_module == "deepsvg_tpu_torch.data.dataset",
+              f"the flagship config reads {c.dataloader_module}")
+        c.data_dir, c.meta_filepath = data_dir, meta
+        c.nb_augmentations = DATA_AUGS
+        c.log_every = DATA_STEPS // 2
+        log = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(log):
+                return train_mod.train(c, "hierarchical_ordered", what,
+                                       log_dir=os.path.join(root, "logs"),
+                                       max_steps=DATA_STEPS, device=dev)
+        t0 = time.perf_counter()
+        state, stats = counted(f"train() {what}", run, times(DATA_STEPS, step_launches))
+        wall = time.perf_counter() - t0
+        text = log.getvalue()
+        with open(os.path.join(OUT_DIR, f"data_train_{what}.log"), "w") as f:
+            f.write(text)
+        line = [ln for ln in text.splitlines() if ln.startswith("device-resident dataset")]
+        check(bool(line) == resident, f"train() {what}: device-resident line {line}")
+        losses = list(stats.stats["train"]["loss"].deque)
+        ms = [1e3 * t for t in stats.stats["train"]["time"].deque]
+        ckpt = os.path.join(root, "logs", "models", "hierarchical_ordered", what,
+                            f"{DATA_STEPS:06d}.ckpt")
+        check(state.step == DATA_STEPS and len(losses) == 2
+              and all(np.isfinite(v) for v in losses) and os.path.exists(ckpt),
+              f"train() {what}: step {state.step}, losses {losses}, checkpoint {ckpt}")
+        print(f"train() {what} B={c.batch_size}: {DATA_STEPS} steps, {line[0] if line else 'streamed'}"
+              f"; losses by window {[round(v, 4) for v in losses]}; ms/step by window "
+              f"{[round(v, 3) for v in ms]} (host clock, the first window holds the set-up); "
+              f"{wall:.2f} s in all on {card}", flush=True)
+        return state, ckpt, {"steps": DATA_STEPS, "losses": losses, "ms_per_step_windows": ms,
+                             "wall_s": wall, "resident_line": line[0] if line else None}
+
+    state, ckpt, out["train_resident"] = train_on("tensor_pickles", tensors, True)
+    trained = [p.detach().clone() for p in state.parameters()]
+    del state
+    _, _, out["train_streamed"] = train_on("raw_svgs", simplified, False)
+    # the training checkpoint through load_session
+    restored = inference.load_session(config, ckpt, device=dev)
+    check(all(torch.equal(a, b) for a, b in zip(restored.model.parameters(), trained)),
+          "load_session of the training checkpoint does not hold its parameters")
+    del restored, trained
+    torch.cuda.empty_cache()
+
+    # ========================================== (4) the session on the card
+    svg_ds = SVGDataset(simplified, meta, cfg.model_args, cfg.max_num_groups, cfg.max_seq_len,
+                        cfg.max_total_len, seed=DATA_SEED)
+    session = inference.load_session(config, CHECKPOINT, dataset=svg_ds, device=dev)
+    check(session.device.type == "cuda", f"the session is on {session.device}")
+    first, second = (SVG.load_svg(os.path.join(simplified, n + ".svg")).numericalize(256)
+                     for n in DATA_KEYFRAMES)
+    with torch.no_grad():
+        z1 = counted("session encode_svg", lambda: session.encode_svg(first), encode_launches)
+        z2 = session.encode_svg(second)
+        frames = counted(f"session interpolate_svg n={N_INTERP}",
+                         lambda: session.interpolate_svg(first, second, n=N_INTERP),
+                         added(times(2, encode_launches), decode_launches))
+        zs = session.interpolation_latents(z1, z2, n=N_INTERP)
+        ids = session.decode_ids(zs)
+        # the encode against the plain path's
+        with plain_path(*ops):
+            z1_plain = session.encode_svg(first)
+        z_rms = rel_rms(z1, z1_plain)
+        layers = list(session.model.decoder.decoder.layers)
+        z_gate = session.interpolation_latents(z1, z2, n=N_AR_GATE)
+        gate = path_gate(f"session decode of {N_AR_GATE} interpolation latents",
+                         session.model, ops, lambda: cut_layers(layers, AR_CONTROL_DROP_BITS),
+                         hold_logits=False, commands=None, args=None, z=z_gate)
+    check_later(z_rms <= DATA_LATENT_RMS,
+                f"session encode: kernel path against plain path, relative RMS {z_rms}")
+    valid_share = check_sample(*ids, N_INTERP, session.model.cfg)
+    texts = [svg.to_str() for svg in frames]
+    reparsed = [len(list(SVG.from_str(t).paths)) for t in texts]
+    check(len(frames) == N_INTERP and all(n > 0 for n in reparsed),
+          f"interpolation frames back to SVG text and parsed again: {reparsed} paths")
+    with torch.no_grad():
+        enc_ms = cuda_median_ms(lambda: session.encode_svg(first), iters=10, warmup=2)
+        dec_ms = cuda_median_ms(lambda: session.decode_ids(zs), iters=10, warmup=2)
+    t0 = time.perf_counter()
+    session.interpolate_svg(first, second, n=N_INTERP)
+    interp_s = time.perf_counter() - t0
+    print(f"session on {card}: encode_svg {enc_ms:.3f} ms (CUDA events, median of 10, the "
+          f"host's packing included), decode of {N_INTERP} latents {dec_ms:.3f} ms; "
+          f"interpolate_svg n={N_INTERP} to SVG documents {interp_s * 1e3:.1f} ms (host clock); "
+          f"encode against the plain path: relative RMS {z_rms:.3g} (limit {DATA_LATENT_RMS}); "
+          f"valid argument share {valid_share:.4f}; frames reparsed with {reparsed} paths",
+          flush=True)
+    out["session"] = {"encode_svg_ms": enc_ms, "decode_ms": dec_ms, "interpolate_svg_s": interp_s,
+                      "n": N_INTERP, "encode_vs_plain_rel_rms": z_rms, "gate": gate,
+                      "valid_share": valid_share, "reparsed_paths": reparsed}
+
+    # =========================== (5) the animation: finetune, in-betweens
+    project = animate.DeepSVGProject(root_dir=root)
+    project.frames = [animate.Frame(0, keyframe=True, svg=first)] + \
+        [animate.Frame(i) for i in range(1, N_BETWEEN + 1)] + \
+        [animate.Frame(N_BETWEEN + 1, keyframe=True, svg=second)]
+    params = [p.detach().clone() for p in session.model.parameters()]
+    z_before = session.encode_svg(first)
+    acfg = load_config(config, 1)
+    n_steps = min(FINETUNE_STEPS, -(-2 * FINETUNE_AUGS // acfg.batch_size))
+    log = io.StringIO()
+
+    def animation():
+        with contextlib.redirect_stdout(log):
+            return animate.compute_interpolation(session, project, cfg=acfg,
+                                                 nb_augmentations=FINETUNE_AUGS,
+                                                 max_steps=FINETUNE_STEPS)
+    t0 = time.perf_counter()
+    tuned = counted("compute_interpolation (finetune + in-betweens)", animation,
+                    added(times(n_steps, step_launches), times(2, encode_launches),
+                          decode_launches))
+    anim_s = time.perf_counter() - t0
+    check(tuned is not session and all(f.svg.svg_path_groups for f in project.frames),
+          "compute_interpolation did not fill the frames from a new session")
+    check(all(torch.equal(a, b) for a, b in zip(params, session.model.parameters()))
+          and torch.equal(session.encode_svg(first), z_before),
+          "the finetune changed the live session")
+    check(any(not torch.equal(a, b) for a, b in zip(params, tuned.model.parameters())),
+          "the finetune did not move the parameters")
+    print(f"compute_interpolation on {card}: finetune of {n_steps} steps at B={acfg.batch_size} "
+          f"on 2 keyframes x {FINETUNE_AUGS}, then {N_BETWEEN} in-betweens, in {anim_s:.2f} s "
+          f"(host clock); the live session unchanged; {log.getvalue().strip().splitlines()}",
+          flush=True)
+    out["animation"] = {"finetune_steps": n_steps, "in_betweens": N_BETWEEN, "wall_s": anim_s}
+    del tuned
+    torch.cuda.empty_cache()
+
+    # ============================================= (6) the web GUI over HTTP
+    server = make_server(port=0, session=session, train_cfg=None)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def call(route, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(base + route, data=data, method="GET" if data is None
+                                     else "POST", headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as res:
+            return json.loads(res.read())
+
+    def stroke(cx, cy, r):
+        pts = [[cx + r * np.cos(2 * np.pi * t / 40), cy + r * np.sin(2 * np.pi * t / 40)]
+               for t in range(41)]
+        call("/api/pointer", {"type": "down", "pos": pts[0]})
+        for p in pts[1:]:
+            call("/api/pointer", {"type": "move", "pos": p})
+        return call("/api/pointer", {"type": "up"})
+
+    try:
+        t0 = time.perf_counter()
+        call("/api/tool", {"tool": 2})
+        stroke(128, 128, 60)
+        for _ in range(GUI_FRAMES - 1):
+            call("/api/frame/add", {})
+        res = stroke(160, 100, 35)
+        check(res["state"]["timeline"]["frames"] == [True] + [False] * (GUI_FRAMES - 2) + [True],
+              f"web GUI keyframes {res['state']['timeline']}")
+        counted("web GUI /api/interpolate", lambda: call("/api/interpolate", {}),
+                added(times(2, encode_launches), decode_launches))
+        filled = []
+        for i in range(GUI_FRAMES):
+            st = call("/api/frame/select", {"index": i})["state"]
+            filled.append(sum(len(p["segments"]) for p in st["paths"]))
+        state = call("/api/state")
+        gui_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    check(all(n > 0 for n in filled) and state["has_session"],
+          f"web GUI frames' segments after /api/interpolate: {filled}")
+    print(f"web GUI on a thread: {GUI_FRAMES} frames, 2 pencil keyframes, /api/interpolate from "
+          f"the card; segments by frame {filled}; {gui_s:.2f} s (host clock)", flush=True)
+    out["webgui"] = {"frames": GUI_FRAMES, "segments": filled, "wall_s": gui_s}
+    tmp.cleanup()
+    del session
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"data and apps phase: {out['phase_s']:.1f} s on {card}", flush=True)
+    record["data_apps"] = out
+    return launches
+
+
 def reset_counts():
     """Every kernel wrapper's launch counters to 0."""
     from deepsvg_tpu_torch.ops import attention as attn_ops
@@ -6315,6 +6738,10 @@ def main() -> int:
     # (its float32 products in full float32, as on the CPU it is held to)
     with matmul_tf32(False):
         geometry_phase(dev, card, record, reset_counts, read_counts)
+
+    # ======= the real-data loaders, the preprocessing CLI and the apps
+    with matmul_tf32(False):
+        data_apps_phase(dev, card, record, reset_counts, read_counts)
 
     # K5's forms and K8 beside their library calls and bounds
     forms = {n: kernels[n] for n in ("args_ce_fwd", "args_ce_bwd", "args_ce_fwd_512",

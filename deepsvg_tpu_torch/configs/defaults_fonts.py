@@ -1,8 +1,9 @@
 """Fonts dataset defaults, counterpart of ``configs_tpu/defaults_fonts.py``:
-the icons config with the fonts archive's paths. The archive is an external
-download and its loader is not ported yet (ROADMAP.md, queue 1, item 8):
-train on ``deepsvg_tpu_torch.data.synthetic``, whose items carry labels when
-the model is label-conditioned."""
+the icons config with the fonts archive's paths, read by
+``deepsvg_tpu_torch.data.dataset`` (labels from the meta CSV's ``uni``
+column). The archive is an external download: without it, train on
+``deepsvg_tpu_torch.data.synthetic``, whose items carry labels when the
+model is label-conditioned."""
 from .default_icons import Config as IconsConfig
 
 

@@ -14,7 +14,7 @@ from typing import Optional
 from ..models.config import ModelConfig
 from .schedulers import warmup_step_decay
 
-# the module of the real icons and fonts datasets; it is not ported yet
+# the module of the real icons and fonts datasets (tensor pickles or raw SVGs)
 REAL_DATA_MODULE = "deepsvg_tpu_torch.data.dataset"
 
 
@@ -168,17 +168,7 @@ def load_config(config_module: str, num_devices: int = 1) -> TrainConfig:
 
 
 def load_dataset(cfg: TrainConfig):
-    """The dataset of ``cfg.dataloader_module``'s ``load_dataset`` hook. The
-    real icons and fonts datasets are not ported yet: their module raises."""
+    """The dataset of ``cfg.dataloader_module``'s ``load_dataset`` hook."""
     import importlib
 
-    try:
-        module = importlib.import_module(cfg.dataloader_module)
-    except ModuleNotFoundError as e:
-        if cfg.dataloader_module != REAL_DATA_MODULE:
-            raise
-        raise ModuleNotFoundError(
-            f"{REAL_DATA_MODULE} (the real icons and fonts datasets) is not ported yet "
-            "(ROADMAP.md, queue 1, item 8); train on the synthetic dataset with "
-            "--dataset-module deepsvg_tpu_torch.data.synthetic") from e
-    return module.load_dataset(cfg)
+    return importlib.import_module(cfg.dataloader_module).load_dataset(cfg)

@@ -49,6 +49,7 @@ import torch
 
 from ..data.loader import DataLoader, prefetch_to_device
 from ..data.resident import build_resident_arrays, epoch_icon_permutation
+from ..utils import set_seed
 from .checkpoint import begin_save, finish_save, load_ckpt, load_model, prune_ckpts, save_ckpt
 from .config import TrainConfig, load_config, load_dataset
 from .stats import Stats, Timer, TrainVars
@@ -56,14 +57,6 @@ from .trainer import create_train_state, train_multi_step, train_resident_multi_
 
 # the epoch number of the loader's shuffle for loop epoch 0
 FIRST_EPOCH_NUMBER = 2
-
-
-def set_seed(seed: int = 42):
-    import random
-
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
 
 
 def resolve_device(device=None) -> torch.device:

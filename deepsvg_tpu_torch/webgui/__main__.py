@@ -1,0 +1,4 @@
+from .server import run
+
+if __name__ == "__main__":
+    run()

@@ -2030,3 +2030,149 @@ def test_native_engine_available_on_card_machine(cuda):
     for a, b in zip(got, want):
         for va, vb in zip(a[1:], b[1:]):
             np.testing.assert_allclose(va, vb, rtol=0, atol=1e-9)
+
+
+# ------------------------------------------------------- real data and apps
+
+_SESSION_SVGS = [
+    '<path d="M 3 3 L 20 4 L 12 20 Z"/>',
+    '<path d="M 2 12 Q 8 2 14 12 T 22 12 L 22 20 L 2 20 Z"/>',
+    '<path d="M 2 2 L 10 2 L 10 10 Z M 12 12 L 21 13 L 20 21 L 12 20 Z"/>',
+    '<circle cx="12" cy="12" r="8"/><circle cx="12" cy="12" r="3"/>',
+]
+
+
+def _session_svgs():
+    from deepsvg_tpu_torch.svglib import SVG
+    head = '<svg xmlns="http://www.w3.org/2000/svg" viewBox="0 0 24 24">'
+    out = []
+    for body in _SESSION_SVGS:
+        svg = SVG.from_str(head + body + "</svg>").canonicalize(normalize=True)
+        out.append(svg.simplify_heuristic().numericalize(256))
+    return out
+
+
+def test_session_ids_match_the_plain_path(cuda):
+    """The trained flagship through ``load_session`` on the card, the
+    decode of interpolation latents between held SVGs: the heads' logits on
+    the kernel path within 0.5 of the plain path's on the card (chip_smoke
+    reads 0.218 on its own latents; the kernels sum in another order), and
+    the ids equal wherever the plain path's top-2 margin is more than twice
+    the largest logit difference, where no rounding can swap them."""
+    import os
+
+    from deepsvg_tpu_torch.inference import load_session
+    from deepsvg_tpu_torch.ops.head import _round_up
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    session = load_session("deepsvg_tpu_torch.configs.hierarchical_ordered",
+                           os.path.join(repo, "docs", "artifacts",
+                                        "full_run_final_params.msgpack"), device=cuda)
+    svgs = _session_svgs()
+    z = torch.cat([session.encode_svg(s) for s in svgs])
+    zs = torch.cat([session.interpolation_latents(z[i], z[i + 1], n=8) for i in range(3)])
+    fcn = session.model.decoder.fcn
+    seen = {}
+    hook = fcn.register_forward_hook(lambda m, i, o: seen.__setitem__("io", (i[0], o)))
+
+    def states_and_ids():
+        session.decode_ids(zs)
+        x, (c, a) = seen["io"]
+        return x.reshape(-1, x.shape[-1]), torch.cat([c.reshape(-1, 1),
+                                                      a.reshape(-1, fcn.n_args)], dim=1)
+    counters = (emb_ops.fused_embedding, layer_ops.fused_layer, head_ops.fused_head_argmax)
+    try:
+        before = [f.launches for f in counters]
+        x_k, ids_k = states_and_ids()
+        moved = tuple(f.launches - n for f, n in zip(counters, before))
+        saved = [(emb_ops, "fused_embedding", emb_ops.embedding_reference),
+                 (layer_ops, "fused_layer", layer_ops.layer_reference),
+                 (head_ops, "fused_head_argmax", head_ops.head_argmax_reference)]
+        saved = [(m, n, getattr(m, n), p) for m, n, p in saved]
+        for m, n, _, p in saved:
+            setattr(m, n, p)
+        try:
+            x_p, ids_p = states_and_ids()
+        finally:
+            for m, n, orig, _ in saved:
+                setattr(m, n, orig)
+    finally:
+        hook.remove()
+    assert moved == (0, 8, 1)                      # D2 and D1, then the heads
+    w, b = fcn.w_packed.float(), fcn.b_packed.float()
+    logits_k, logits_p = x_k.float() @ w.t() + b, x_p.float() @ w.t() + b
+    gap = (logits_k - logits_p).abs().max().item()
+    assert gap <= 0.5, gap
+    cw, aw = _round_up(fcn.n_commands), _round_up(fcn.args_dim)
+    slots = [(0, fcn.n_commands)] + [(cw + i * aw, fcn.args_dim) for i in range(fcn.n_args)]
+    margins = torch.stack([logits_p[:, o:o + n].topk(2, dim=-1).values.diff(dim=-1).neg()[:, 0]
+                           for o, n in slots], dim=1)
+    wide = margins > 2 * gap
+    assert int(wide.sum()) > 1000, (int(wide.sum()), gap)
+    differ = int((ids_k.long() != ids_p.long())[wide].sum())
+    assert differ == 0, (differ, int(wide.sum()), gap)
+
+
+def test_resident_gather_equals_the_collated_items(cuda, tmp_path):
+    """A tensor dataset of pickles (4 variants an icon) resident on the
+    card: the batch ``gather_batch`` takes by its icon indices, with the
+    variants it draws on the device, equals the collated ``get_item_aug``
+    items it names, array for array."""
+    import pickle
+
+    from deepsvg_tpu_torch.data.dataset import SVGTensorDataset
+    from deepsvg_tpu_torch.data.loader import collate, decompress_batch
+    from deepsvg_tpu_torch.data.resident import build_resident_arrays
+    from deepsvg_tpu_torch.data.synthetic import _random_path
+    from deepsvg_tpu_torch.training.trainer import AUG_SEED, gather_batch
+    rng = np.random.default_rng(0)
+    lines = ["id,total_len,nb_groups,max_len_group,category"]
+    for i in range(24):
+        n_groups = int(rng.integers(1, 9))
+        variants = [np.concatenate([_random_path(rng, int(rng.integers(3, 8)))
+                                    for _ in range(n_groups)]) for _ in range(4)]
+        with open(tmp_path / f"i{i}.pkl", "wb") as f:
+            pickle.dump({"tensors": variants, "fillings": [0] * n_groups}, f)
+        lines.append(f"i{i},{4 * n_groups},{n_groups},6,logos")
+    (tmp_path / "meta.csv").write_text("\n".join(lines) + "\n")
+    model_args = ["commands", "args", "commands", "args"]
+    ds = SVGTensorDataset(str(tmp_path), str(tmp_path / "meta.csv"), model_args, 8, 30, 50)
+    data, n_icons, n_augs = build_resident_arrays(ds, model_args)
+    assert (n_icons, n_augs) == (24, 4)
+    shapes = {k: v.shape[1:] for k, v in data.items()}
+    data = {k: torch.from_numpy(np.ascontiguousarray(v.reshape(len(v), -1))).to(cuda)
+            for k, v in data.items()}
+    icon_idx = torch.tensor([3, 0, 17, 3, 23, 9], dtype=torch.int32, device=cuda)
+    step = 5
+    got = decompress_batch(gather_batch(data, icon_idx, step, n_augs, shapes))
+    gen = torch.Generator(device=cuda).manual_seed(AUG_SEED * 1_000_003 + step)
+    augs = torch.randint(0, n_augs, icon_idx.shape, device=cuda, generator=gen).tolist()
+    want = collate([ds.get_item_aug(i, a) for i, a in zip(icon_idx.tolist(), augs)])
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k].cpu(), torch.from_numpy(want[k])), k
+
+
+def test_finetune_keeps_the_live_cuda_session(cuda, tmp_path):
+    """``finetune_model`` on the card (the flagship's widths, random
+    weights) trains a copy: the live session's parameters and latents stay
+    as they were, the new session's move."""
+    from deepsvg_tpu_torch.animate import finetune_model
+    from deepsvg_tpu_torch.data.dataset import MetaTable, SVGDataset
+    from deepsvg_tpu_torch.inference import InferenceSession
+    from deepsvg_tpu_torch.training.config import load_config
+    cfg = load_config("deepsvg_tpu_torch.configs.hierarchical_ordered", 1)
+    cfg.batch_size = 8
+    model = _variant("hierarchical_ordered", cuda)
+    ds = SVGDataset(".", None, cfg.model_args, 8, 30, df=MetaTable())
+    session = InferenceSession(model, dataset=ds, cfg=cfg)
+    svgs = _session_svgs()
+    z0 = session.encode_svg(svgs[0])
+    params = [p.detach().clone() for p in model.parameters()]
+    before = layer_vjp.fused_layer_train.launches
+    tuned = finetune_model(session, svgs[:2], cfg, nb_augmentations=8, max_steps=2)
+    torch.cuda.synchronize()
+    assert layer_vjp.fused_layer_train.launches - before == 2 * 8
+    assert all(torch.equal(a, b) for a, b in zip(params, model.parameters()))
+    assert torch.equal(session.encode_svg(svgs[0]), z0)
+    assert any(not torch.equal(a, b) for a, b in zip(params, tuned.model.parameters()))
+    assert tuned.device.type == "cuda"

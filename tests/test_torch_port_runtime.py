@@ -237,8 +237,8 @@ def test_cli_defaults_to_the_card(monkeypatch):
 
 def test_recipe_config_gives_batch_60():
     """The flagship config at one card: B=60, lr 1e-3, bfloat16 compute,
-    the icons config's loss-weight ramp; the default data module raises and
-    names what is missing."""
+    the icons config's loss-weight ramp; the default data module is the real
+    icons loader, which names the meta CSV it cannot find."""
     from deepsvg_tpu_torch.configs import hierarchical_ordered
     from deepsvg_tpu_torch.training.config import load_config, load_dataset
     cfg = load_config("deepsvg_tpu_torch.configs.hierarchical_ordered", 1)
@@ -248,7 +248,7 @@ def test_recipe_config_gives_batch_60():
     assert not cfg.model_cfg.use_vae and cfg.model_args == ["commands", "args"] * 2
     assert cfg.get_weights(5000, 0)["loss_kl_weight"] == pytest.approx(5.0)
     assert hierarchical_ordered.Config().batch_size == 120
-    with pytest.raises(ModuleNotFoundError, match="item 8"):
+    with pytest.raises(FileNotFoundError, match="icons_meta.csv"):
         load_dataset(cfg)
 
 
