@@ -244,6 +244,35 @@ in-betweens, counted; the live session unchanged); the web GUI on a thread
 over HTTP (two pencil keyframes, ``/api/interpolate`` counted, every frame
 filled).
 
+*Serving* (:func:`serving_phase`, the trained flagship): ``serving.
+export_session`` of the bfloat16 model at buckets 1 and 64 and of the
+float32 model at 64, each export timed; the bfloat16 artifacts loaded in a
+child process that imports ``torch`` and the operators alone (its
+``sys.modules`` read), and in this one; the served encode and decode held
+to the live model (z's largest difference, the ids equal) and counted
+(encode K1 1, K2 4 + K2-f32 4; decode K2 8, K3 1; float32: K1-f32 1,
+K2-f32 8; K2-f32 8, K3-f32 1), a ragged batch of SERVE_RAGGED through
+``serve_batch`` into bucket 64; Sketchformer's decoder (random weights; the
+deterministic bottleneck in the VAE's place, whose encode no package
+exports) exported at bucket SF_SERVE_BUCKET, its unrolled decode counted (K9
+240, K3 240) and its ids equal to the live fused sampler's; each served call
+timed with CUDA events beside the live call.
+
+*Parallelism* (:func:`parallel_phase`, the trained flagship at B=60,
+dropout 0): the recipe's step through ``make_parallel_train_step`` at one
+rank on NCCL in this process, counted (the recipe step's launches) and
+equal to the single-process step to the bit; the float32 model's step at
+two ranks of 30 rows on the one card (two processes through gloo: NCCL
+refuses two ranks on one device) and the tensor-parallel step at 1 x 2
+(gloo, float32), each in child processes of this script
+(``--parallel-worker``), against the single-process kernel step and the
+plain single-process step: loss terms within F32_STEP_LOSS, the gradient
+norm within TOL_STEP_NORM, the parameter update's cosine at least
+TOL_STEP_COSINE (Adam's first step moves every entry by about lr along its
+gradient's sign, so entries whose gradient is rounding noise move either
+way; the update's direction is what the step decides). A child that fails
+fails the run.
+
 At the end, each form of K5 (bf16 at 257 and 512 classes, float32 at 257
 and 512), of K8 and of K2 (short and long, bf16 and float32) is printed
 with its multiple of its library call and of its bound.
@@ -608,6 +637,14 @@ MHA_GRAD_RMS = 4e-3
 RC_STEP_LOSS = {torch.bfloat16: 1e-2, torch.float32: F32_STEP_LOSS}
 RC_STEP_MEDIAN_LEAF_RMS = {torch.bfloat16: 3e-2, torch.float32: F32_STEP_MEDIAN_LEAF_RMS}
 RC_MEMORY_SHARE = 0.5
+
+
+SERVE_BUCKETS = (1, 64)
+SERVE_RAGGED = 37              # rows sent through serve_batch: routed to bucket 64
+SF_SERVE_BUCKET = 8
+SERVE_ITERS = 5                # timed calls of the unrolled 240-step decode
+PARALLEL_SEED = 23
+PARALLEL_TIMEOUT = 600         # seconds for the child processes of the parallel phase
 
 
 def check(ok: bool, what: str) -> None:
@@ -5269,6 +5306,458 @@ def data_apps_phase(dev, card, record, reset_counts, read_counts) -> dict:
     return launches
 
 
+SERVED_CHILD = """
+import sys, torch
+from deepsvg_tpu_torch.serving import load_session_exports
+from deepsvg_tpu_torch.ops import embedding, head, layer
+out_dir, inputs, result = sys.argv[1:4]
+fns = load_session_exports(out_dir)
+ops = torch.load(inputs)
+kernels = (embedding.fused_embedding, layer.fused_layer, head.fused_head_argmax)
+def counts():
+    c = {f.__name__: f.launches for f in kernels}
+    c.update({f.__name__ + "_f32": f.float32_launches for f in kernels})
+    for f in kernels:
+        f.launches = f.float32_launches = 0
+    return c
+counts()
+z = fns["encode"][64](ops["commands"], ops["args"])
+enc = counts()
+cmds, args = fns["decode"][64](z.float())
+dec = counts()
+if z.is_cuda:
+    torch.cuda.synchronize()
+loaded = sorted(m for m in sys.modules if m.startswith(("deepsvg_tpu_torch.models",
+    "deepsvg_tpu_torch.configs", "deepsvg_tpu_torch.training", "deepsvg_tpu_torch.data",
+    "jax", "flax", "deepsvg_tpu.")))
+ours = sorted(m for m in sys.modules if m.startswith("deepsvg_tpu_torch"))
+torch.save({"z": z.cpu(), "cmds": cmds.cpu(), "args": args.cpu(), "enc": enc, "dec": dec,
+            "forbidden": loaded, "modules": ours}, result)
+"""
+
+
+def serving_phase(dev, card, record, reset_counts, read_counts):
+    """The serving export on the card (see the module docstring). Returns
+    the parallel phase's gloo workers, started before Sketchformer's export
+    (:func:`start_parallel_workers`)."""
+    import shutil
+    import tempfile
+
+    from deepsvg_tpu_torch import serving
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import (
+        gpu_fast, greedy_sample, hierarchical_ordered, load_model)
+    from deepsvg_tpu_torch.models import SVGTransformer
+    from deepsvg_tpu_torch.training.trainer import init_parameters
+    t_phase = time.perf_counter()
+    out: dict = {}
+    tmp = tempfile.mkdtemp(prefix="served_")
+    try:
+        def live(model, c, a):
+            with torch.no_grad():
+                z = model.encode(c, a)[0]
+            return z, greedy_sample(model, z=z.float())
+
+        def served_counts(fn, *ops):
+            reset_counts()
+            res = fn(*ops)
+            return res, {k: v for k, v in read_counts().items() if v}
+
+        def inputs(cfg, n, seed, grouped=False):
+            b = generate_batch(np.random.default_rng(seed), n, cfg.max_num_groups,
+                               cfg.max_seq_len)
+            c = b["commands_grouped" if grouped else "commands"]
+            a = b["args_grouped" if grouped else "args"]
+            return (torch.from_numpy(c.astype(np.int32)).to(dev),
+                    torch.from_numpy(a.astype(np.float32)).to(dev))
+
+        for name, cfg, buckets, expect in (
+                ("bf16", gpu_fast(hierarchical_ordered()), SERVE_BUCKETS,
+                 ({"embedding": 1, "layer": 4, "layer_f32": 4}, {"layer": 8, "head": 1})),
+                ("float32", hierarchical_ordered(), SERVE_BUCKETS[-1:],
+                 ({"embedding_f32": 1, "layer_f32": 8}, {"layer_f32": 8, "head_f32": 1}))):
+            model = load_model(CHECKPOINT, cfg, device=dev)
+            folder = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            serving.export_session(model, folder, batch_sizes=buckets)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fns = serving.load_session_exports(folder)
+            load_s = time.perf_counter() - t0
+            r = {"export_s": export_s, "load_s": load_s, "buckets": list(buckets)}
+            c, a = inputs(cfg, 64, 30)
+            z_live, (cmd_live, args_live) = live(model, c, a)
+            z, enc_counts = served_counts(fns["encode"][64], c, a)
+            (cmds, args), dec_counts = served_counts(fns["decode"][64], z.float())
+            r["z_max_abs_diff"] = float((z.float() - z_live.float()).abs().max())
+            r["ids_equal"] = bool(torch.equal(cmds, cmd_live) and torch.equal(args, args_live))
+            r["encode_launches"], r["decode_launches"] = enc_counts, dec_counts
+            check(r["ids_equal"], f"served {name} decode: ids differ from the live decode")
+            check(enc_counts == expect[0] and dec_counts == expect[1],
+                  f"served {name} launches {enc_counts}, {dec_counts}; expected {expect}")
+            check(torch.isfinite(z.float()).all().item(), f"served {name}: z not finite")
+            r["ms"] = {
+                "encode": served_and_live(lambda: fns["encode"][64](c, a),
+                                          lambda: live_encode(model, c, a), ITERS),
+                "decode": served_and_live(lambda: fns["decode"][64](z.float()),
+                                          lambda: greedy_sample(model, z=z.float()), ITERS)}
+            if name == "bf16":
+                # bucket 1, and a ragged batch routed to bucket 64
+                z1 = fns["encode"][1](c[:1], a[:1])
+                r["z_b1_max_abs_diff"] = float((z1.float() - z_live[:1].float()).abs().max())
+                zr = serving.serve_batch(fns, "encode", c[:SERVE_RAGGED], a[:SERVE_RAGGED])
+                cr, ar = serving.serve_batch(fns, "decode", zr.float())
+                check(zr.shape[0] == cr.shape[0] == SERVE_RAGGED,
+                      f"serve_batch of {SERVE_RAGGED} rows came back with {zr.shape[0]}")
+                zl_r, (cl_r, al_r) = live(model, c[:SERVE_RAGGED], a[:SERVE_RAGGED])
+                r["ragged"] = {"rows": SERVE_RAGGED, "bucket": 64,
+                               "z_max_abs_diff": float((zr.float() - zl_r.float()).abs().max()),
+                               "ids_equal": bool(torch.equal(cr, cl_r) and torch.equal(ar, al_r))}
+                check(r["ragged"]["ids_equal"], "served ragged batch: ids differ from live")
+                # the artifacts in a process with no model code: it runs while
+                # Sketchformer exports, and is read after
+                ops_path = os.path.join(tmp, "ops.pt")
+                torch.save({"commands": c, "args": a}, ops_path)
+                child = (time.perf_counter(), os.path.join(tmp, "child.pt"), subprocess.Popen(
+                    [sys.executable, "-c", SERVED_CHILD, folder, ops_path,
+                     os.path.join(tmp, "child.pt")], cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True, env=dict(os.environ, PYTHONPATH=ROOT)))
+                child_ref = (z_live.float().cpu(), cmd_live.cpu(), args_live.cpu())
+            out[name] = r
+            print(f"served {name} at buckets {list(buckets)}: export {export_s:.1f} s, load "
+                  f"{load_s:.1f} s; z max abs diff {r['z_max_abs_diff']:.3g}, ids equal "
+                  f"{r['ids_equal']}; launches encode {enc_counts}, decode {dec_counts}; "
+                  + serve_times(r["ms"]) + f" on {card}", flush=True)
+            if name == "bf16":
+                print(f"  bucket 1 z diff {r['z_b1_max_abs_diff']:.3g}; ragged {r['ragged']}",
+                      flush=True)
+            del model, fns
+            torch.cuda.empty_cache()
+
+        # Sketchformer's decoder, unrolled over its 240 steps: its export runs on
+        # the host while the card runs the parallel phase's gloo workers
+        workers = start_parallel_workers(dev)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    try:
+        from deepsvg_tpu_torch.configs.sketchformer import make_model_config
+        cfg = dataclasses.replace(make_model_config(), use_vae=False)
+        model = SVGTransformer(cfg)
+        init_parameters(model, torch.Generator().manual_seed(AR_SEED))
+        model = model.to(dev).eval()
+        folder = os.path.join(tmp, "sketchformer")
+        t0 = time.perf_counter()
+        serving.export_session(model, folder, batch_sizes=(SF_SERVE_BUCKET,))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fns = serving.load_session_exports(folder)
+        load_s = time.perf_counter() - t0
+        t0, res_path, proc = child
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"serving child failed:\n{log[-3000:]}")
+        got = torch.load(res_path)
+        z_ref, cmd_ref, args_ref = child_ref
+        out["bf16"]["child"] = r = {
+            "s": time.perf_counter() - t0, "modules": got["modules"],
+            "forbidden": got["forbidden"], "encode": got["enc"], "decode": got["dec"],
+            "z_max_abs_diff": float((got["z"].float() - z_ref).abs().max()),
+            "ids_equal": bool(torch.equal(got["cmds"], cmd_ref)
+                              and torch.equal(got["args"], args_ref))}
+        check(not got["forbidden"], f"the serving child imported {got['forbidden']}")
+        check(r["ids_equal"], "the serving child's ids differ from live")
+        check(got["enc"]["fused_embedding"] == 1 and got["dec"]["fused_head_argmax"] == 1,
+              f"the serving child's launches {got['enc']}, {got['dec']}")
+        print(f"  serving child (beside the export): {r['s']:.1f} s, modules {r['modules']}, "
+              f"launches {r['encode']}, {r['decode']}, ids equal {r['ids_equal']}, z diff "
+              f"{r['z_max_abs_diff']:.3g}", flush=True)
+        c, a = inputs(cfg, SF_SERVE_BUCKET, 31, grouped=True)
+        z_live, (cmd_live, args_live) = live(model, c, a)
+        z, enc_counts = served_counts(fns["encode"][SF_SERVE_BUCKET], c, a)
+        (cmds, args), dec_counts = served_counts(fns["decode"][SF_SERVE_BUCKET], z.float())
+        r = {"export_s": export_s, "load_s": load_s, "bucket": SF_SERVE_BUCKET,
+             "z_max_abs_diff": float((z.float() - z_live.float()).abs().max()),
+             "ids_equal": bool(torch.equal(cmds, cmd_live) and torch.equal(args, args_live)),
+             "encode_launches": enc_counts, "decode_launches": dec_counts}
+        check(r["ids_equal"], "served Sketchformer decode: ids differ from the live sampler")
+        check(dec_counts == {"decode": cfg.max_total_len, "head": cfg.max_total_len},
+              f"served Sketchformer decode launches {dec_counts}")
+        r["ms"] = {"decode": served_and_live(
+            lambda: fns["decode"][SF_SERVE_BUCKET](z.float()),
+            lambda: greedy_sample(model, z=z.float()), SERVE_ITERS, warmup=1, busy_iters=1)}
+        out["sketchformer"] = r
+        print(f"served Sketchformer decode at bucket {SF_SERVE_BUCKET}: export {export_s:.1f} s "
+              f"(encode and the unrolled decode), load {load_s:.1f} s; ids equal "
+              f"{r['ids_equal']}; launches encode {enc_counts}, decode {dec_counts}; "
+              + serve_times(r["ms"]) + f" on {card}", flush=True)
+        del model, fns
+    except BaseException:
+        for p in [child[2]] + [p for _, _, p in workers[2]]:
+            p.kill()
+        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    record["serving"] = out
+    torch.cuda.empty_cache()
+    return workers
+
+
+def served_and_live(served, live, iters: int, warmup: int = 3, busy_iters: int = 5) -> dict:
+    """A served call and the live call it stands for, timed in turns
+    (served, live, live, served): the median of each turn's CUDA-event
+    times, and each call's device busy time under the profiler."""
+    turns = [cuda_median_ms(fn, iters, warmup) for fn in (served, live, live, served)]
+    return {"served_ms": [turns[0], turns[3]], "live_ms": [turns[1], turns[2]],
+            "served_busy_ms": device_busy_ms(served, busy_iters),
+            "live_busy_ms": device_busy_ms(live, busy_iters)}
+
+
+def serve_times(ms: dict) -> str:
+    def busy(v):
+        return "not measured" if v is None else f"{v:.3f}"
+    return "; ".join(
+        f"{name} served {t['served_ms'][0]:.3f} / {t['served_ms'][1]:.3f} ms (busy "
+        f"{busy(t['served_busy_ms'])}), live {t['live_ms'][0]:.3f} / {t['live_ms'][1]:.3f} "
+        f"(busy {busy(t['live_busy_ms'])})" for name, t in ms.items())
+
+
+def live_encode(model, c, a):
+    with torch.no_grad():
+        return model.encode(c, a)[0]
+
+
+def parallel_batch(cfg, dev):
+    from deepsvg_tpu_torch.data import generate_batch
+    b = generate_batch(np.random.default_rng(PARALLEL_SEED), B_RECIPE, cfg.max_num_groups,
+                       cfg.max_seq_len)
+    return {k: torch.from_numpy(b[k]).to(dev) for k in ("commands", "args")}
+
+
+def parallel_model(compute_dtype: str, dev):
+    """The trained flagship at dropout 0, its optimizer and a fresh state."""
+    from deepsvg_tpu_torch.models import hierarchical_ordered, load_model
+    from deepsvg_tpu_torch.training import constant, create_train_state, make_optimizer
+    cfg = dataclasses.replace(hierarchical_ordered(), dropout=0.0, compute_dtype=compute_dtype)
+    model = load_model(CHECKPOINT, cfg, device=dev)
+    optimizer = make_optimizer(constant(LR))
+    return model, optimizer, create_train_state(model, optimizer, init=False)
+
+
+def step_record(res, state) -> dict:
+    """A step's results, parameters and, from Adam's first moment after one
+    step (``(1 - b1)`` times the clipped gradient), its gradients' direction."""
+    names = [k for k, _ in state.model.named_parameters()]
+    return {"res": {k: float(v) for k, v in res.items()},
+            "params": {k: v.detach().float().cpu() for k, v in state.model.named_parameters()},
+            "mu": dict(zip(names, (m.float().cpu() for m in state.opt_state["mu"])))}
+
+
+def parallel_worker(spec_path: str, rank: int) -> int:
+    """One rank of the parallel phase's gloo runs on the one card: the
+    float32 flagship's data-parallel step (``dp``) or tensor-parallel step
+    (``tp``) at B=60; rank 0 writes the step's results and parameters."""
+    import torch.distributed as dist
+
+    from deepsvg_tpu_torch.parallel import (
+        gather_params_tp, make_mesh, make_parallel_train_step, make_tp_train_step,
+        shard_batch, shard_state_tp)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}", rank=rank,
+                            world_size=spec["world"])
+    try:
+        model, optimizer, state = parallel_model("float32", dev)
+        batch = parallel_batch(model.cfg, dev)
+        if spec["kind"] == "dp":
+            mesh = make_mesh(spec["world"])
+            step = make_parallel_train_step(model, optimizer, MODEL_ARGS, mesh)
+            local = shard_batch(batch, mesh)
+            reset_counts()
+            state, res = step(state, local, LOSS_WEIGHTS)
+            out = step_record(res, state)
+            out["launches"] = {k: v for k, v in read_counts().items() if v}
+            out["rows"] = int(local["commands"].shape[0])
+        else:
+            mesh = make_mesh(spec["world"], model_axis="model", n_model=spec["world"])
+            tp_state = shard_state_tp(state, mesh)
+            step = make_tp_train_step(model, optimizer, MODEL_ARGS, mesh, tp_state)
+            tp_state, res = step(tp_state, shard_batch(batch, mesh), LOSS_WEIGHTS)
+            out = {"res": {k: float(v) for k, v in res.items()},
+                   "params": {k: v.float().cpu() for k, v in gather_params_tp(tp_state).items()},
+                   "mu": {},
+                   "local_qkv": [tuple(v.shape) for k, v in tp_state.model.named_parameters()
+                                 if k.endswith("qkv.weight")]}
+        if rank == 0:
+            torch.save(out, spec["out"])
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def against_single(what, got, ref, before) -> dict:
+    """A parallel step's results and parameters against a single-process
+    step's: the loss terms (F32_STEP_LOSS), the gradient norm
+    (TOL_STEP_NORM), the parameters' update (cosine TOL_STEP_COSINE) and,
+    where the run kept them, the gradients read from Adam's first moment
+    (cosine TOL_STEP_COSINE, median leaf RMS F32_STEP_MEDIAN_LEAF_RMS)."""
+    losses = {k: abs(got["res"][k] - ref["res"][k]) / max(abs(ref["res"][k]), 1e-30)
+              for k in ("loss", "loss_visibility", "loss_cmd", "loss_args")}
+    norm = abs(got["res"]["grad_norm"] - ref["res"]["grad_norm"]) / ref["res"]["grad_norm"]
+
+    def cosine(a, b):
+        a = torch.cat([t.flatten() for t in a]).double()
+        b = torch.cat([t.flatten() for t in b]).double()
+        return float(a @ b / a.norm() / b.norm())
+
+    update = cosine([got["params"][k] - before[k] for k in before],
+                    [ref["params"][k] - before[k] for k in before])
+    out = {"loss_rel_diff": max(losses.values()), "losses": losses, "grad_norm_rel_diff": norm,
+           "update_cosine": update,
+           "max_abs_param_diff": float(max((got["params"][k] - ref["params"][k]).abs().max()
+                                           for k in before))}
+    check_later(out["loss_rel_diff"] <= F32_STEP_LOSS,
+                f"{what}: loss terms {losses} against the single step (limit {F32_STEP_LOSS})")
+    check_later(norm <= TOL_STEP_NORM, f"{what}: grad_norm off by {norm:.3g}")
+    check_later(update >= TOL_STEP_COSINE, f"{what}: update cosine {update:.6f}")
+    if got["mu"]:
+        out["grad_cosine"] = cosine([got["mu"][k] for k in before], [ref["mu"][k] for k in before])
+        out["grad_median_leaf_rms"] = statistics.median(
+            rel_rms(got["mu"][k], ref["mu"][k]) for k in before)
+        check_later(out["grad_cosine"] >= TOL_STEP_COSINE,
+                    f"{what}: gradient cosine {out['grad_cosine']:.6f}")
+        check_later(out["grad_median_leaf_rms"] <= F32_STEP_MEDIAN_LEAF_RMS,
+                    f"{what}: median leaf RMS {out['grad_median_leaf_rms']:.3g}")
+    return out
+
+
+def start_parallel_workers(dev):
+    """Start the parallel phase's gloo runs, two ranks each of the
+    data-parallel and the tensor-parallel step (``--parallel-worker``):
+    ``(folder, result paths, processes)``."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="parallel_")
+    children, results = [], {}
+    for kind in ("dp", "tp"):
+        results[kind] = os.path.join(tmp, f"{kind}.pt")
+        spec = os.path.join(tmp, f"{kind}.json")
+        with open(spec, "w") as f:
+            json.dump({"kind": kind, "world": 2, "store": os.path.join(tmp, f"{kind}_store"),
+                       "out": results[kind], "device": str(dev)}, f)
+        children += [(kind, rank, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-worker", spec, str(rank)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for rank in range(2)]
+    return tmp, results, children
+
+
+def parallel_phase(dev, card, record, reset_counts, read_counts, workers) -> None:
+    """Data and tensor parallelism on the card (see the module docstring);
+    ``workers`` from :func:`start_parallel_workers`."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from deepsvg_tpu_torch.ops import ce as ce_ops
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import head as head_ops
+    from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
+    from deepsvg_tpu_torch.parallel import make_mesh, make_parallel_train_step, shard_batch
+    from deepsvg_tpu_torch.training import train_step
+    t_phase = time.perf_counter()
+    out: dict = {}
+    tmp, results, children = workers
+    try:
+        # ---- one rank on NCCL, in this process: the recipe's bf16 step at B=60
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{os.path.join(tmp, 'nccl_store')}",
+                                rank=0, world_size=1)
+        try:
+            model, optimizer, state = parallel_model("bfloat16", dev)
+            batch = parallel_batch(model.cfg, dev)
+            state, res = train_step(state, batch, LOSS_WEIGHTS, optimizer, MODEL_ARGS)
+            single = step_record(res, state)
+            model, optimizer, state = parallel_model("bfloat16", dev)
+            mesh = make_mesh(1)
+            step = make_parallel_train_step(model, optimizer, MODEL_ARGS, mesh)
+            local = shard_batch(batch, mesh)
+            reset_counts()
+            state, res = step(state, local, LOSS_WEIGHTS)
+            dp1 = step_record(res, state)
+            launches = {k: v for k, v in read_counts().items() if v}
+        finally:
+            dist.destroy_process_group()
+        expect = {"embedding": 1, "layer_train_fwd": 8, "layer_train_bwd": 8, "stack_fwd": 2,
+                  "stack_bwd": 2, "args_ce_fwd": 1, "args_ce_bwd": 1, "embedding_bwd": 1}
+        equal = dp1["res"] == single["res"] and all(
+            torch.equal(dp1["params"][k], v) for k, v in single["params"].items())
+        out["nccl_1"] = {"launches": launches, "equal_to_single": equal,
+                         "loss": dp1["res"]["loss"]}
+        check(launches == expect, f"DP step at one rank: launches {launches}, expected {expect}")
+        check(equal, "DP step at one rank on NCCL differs from the single-process step")
+        print(f"DP step B={B_RECIPE} at 1 rank (NCCL): launches {launches}; equal to the "
+              f"single-process step: {equal}", flush=True)
+        del model, state, step
+        torch.cuda.empty_cache()
+
+        # ---- the references of the gloo runs: float32 at B=60, the kernel
+        # path's step and the plain path's
+        model, optimizer, state = parallel_model("float32", dev)
+        before = {k: v.detach().float().cpu().clone() for k, v in model.named_parameters()}
+        batch = parallel_batch(model.cfg, dev)
+        state, res = train_step(state, batch, LOSS_WEIGHTS, optimizer, MODEL_ARGS)
+        ref_kernel = step_record(res, state)
+        model, optimizer, state = parallel_model("float32", dev)
+        with matmul_tf32(False), plain_path(emb_ops, layer_ops, head_ops, layer_vjp, ce_ops,
+                                            stack_vjp):
+            state, res = train_step(state, batch, LOSS_WEIGHTS, optimizer, MODEL_ARGS)
+        ref_plain = step_record(res, state)
+        del model, state
+        torch.cuda.empty_cache()
+    finally:
+        logs = {}
+        for kind, rank, p in children:
+            try:
+                logs[(kind, rank)], _ = p.communicate(timeout=PARALLEL_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs[(kind, rank)], _ = p.communicate()
+    for kind, rank, p in children:
+        check(p.returncode == 0, f"parallel {kind} rank {rank} failed ({p.returncode}):\n"
+                                 f"{logs[(kind, rank)][-3000:]}")
+    dp2, tp = torch.load(results["dp"]), torch.load(results["tp"])
+    out["gloo_dp_2"] = dict(against_single("DP at 2 ranks (gloo, float32)", dp2, ref_kernel,
+                                           before), launches_per_rank=dp2["launches"],
+                            rows_per_rank=dp2["rows"])
+    out["gloo_tp_1x2"] = dict(against_single("TP at 1 x 2 (gloo, float32)", tp, ref_plain,
+                                             before), local_qkv=tp["local_qkv"])
+    expect = {"embedding_f32": 1, "layer_train_long_fwd_f32": 8,
+              "layer_train_long_bwd_f32": 8, "stack_fwd": 2, "stack_bwd": 2,
+              "args_ce_fwd_f32": 1, "args_ce_bwd_f32": 1, "embedding_bwd": 1}
+    check_later(dp2["launches"] == expect,
+                f"DP at 2 ranks: launches a rank {dp2['launches']}, expected {expect}")
+    for key in ("gloo_dp_2", "gloo_tp_1x2"):
+        r = out[key]
+        print(f"{key} B={B_RECIPE}: loss terms rel diff {r['loss_rel_diff']:.3g} (limit "
+              f"{F32_STEP_LOSS}), grad_norm {r['grad_norm_rel_diff']:.3g} (limit "
+              f"{TOL_STEP_NORM}), update cosine {r['update_cosine']:.6f} (limit "
+              f"{TOL_STEP_COSINE}), largest parameter difference "
+              f"{r['max_abs_param_diff']:.3g}"
+              + (f"; gradients (Adam's first moment) cosine {r['grad_cosine']:.6f}, median "
+                 f"leaf RMS {r['grad_median_leaf_rms']:.3g} (limit {F32_STEP_MEDIAN_LEAF_RMS})"
+                 if "grad_cosine" in r else ""), flush=True)
+    print(f"  DP launches a rank: {dp2['launches']}; TP local qkv {tp['local_qkv'][0]}",
+          flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    record["parallel"] = out
+
+
 def reset_counts():
     """Every kernel wrapper's launch counters to 0."""
     from deepsvg_tpu_torch.ops import attention as attn_ops
@@ -6743,6 +7232,13 @@ def main() -> int:
     with matmul_tf32(False):
         data_apps_phase(dev, card, record, reset_counts, read_counts)
 
+    # ======= serving: torch.export artifacts through the inference kernels
+    workers = serving_phase(dev, card, record, reset_counts, read_counts)
+
+    # ======= data and tensor parallelism on torch.distributed (its gloo
+    # workers started during the serving phase)
+    parallel_phase(dev, card, record, reset_counts, read_counts, workers)
+
     # K5's forms and K8 beside their library calls and bounds
     forms = {n: kernels[n] for n in ("args_ce_fwd", "args_ce_bwd", "args_ce_fwd_512",
                                      "args_ce_bwd_512", "args_ce_fwd_f32", "args_ce_bwd_f32",
@@ -6864,4 +7360,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

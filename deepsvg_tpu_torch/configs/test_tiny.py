@@ -1,7 +1,10 @@
 """Tiny smoke-test config, counterpart of ``configs_tpu/test_tiny.py``: small
 model dims and the synthetic dataset, for quick CLI runs with ``--device
 cpu``. Its head dim (8) is below the card kernels' 32, so on the card it
-raises at the first layer."""
+raises at the first layer. It gives the loss the icons config's weights:
+the JAX package's config gives none (``TrainConfig.get_weights`` returns an
+empty dict), so its CLI fails at the first step on the missing
+``loss_visibility_weight``."""
 import dataclasses
 
 from deepsvg_tpu_torch.models.config import hierarchical
@@ -34,3 +37,7 @@ class Config(TrainConfig):
         self.val_every = 8
         self.ckpt_every = 8
         self.log_every = 4
+
+    def get_weights(self, step, epoch):
+        return {"kl_tolerance": 0.1, "loss_kl_weight": 1.0, "loss_cmd_weight": 1.0,
+                "loss_args_weight": 2.0, "loss_visibility_weight": 1.0}

@@ -5,7 +5,10 @@ is applied where a weight is used. When training (``deterministic=False``)
 the cast is part of the graph, so the gradient reaches the float32 leaf. At
 inference the cast copy is made once and reused until the parameter changes
 (an in-place update or a weight load bumps its version; ``.to(device)`` moves
-its storage), so a forward launches no cast kernels.
+its storage), so a forward launches no cast kernels. Under ``torch.export``
+the cached copy is a constant of the exported program (``serving.py`` runs
+the function once before it traces it); a copy made while tracing is an
+operation of the graph and is not kept.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ def cast_at_use(module: nn.Module, name: str, param: torch.Tensor, dtype, store=
     if hit is None or hit[0] != stamp:
         with torch.no_grad():
             hit = (stamp, param.detach().to(dtype).to(store).contiguous())
+        if torch.compiler.is_compiling():
+            return hit[1]
         cache[key] = hit
     return hit[1]
 

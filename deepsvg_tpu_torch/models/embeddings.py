@@ -68,7 +68,8 @@ class SVGEmbedding(nn.Module):
                 with torch.no_grad():
                     hit = (stamp, embedding_ops.fold_arg_tables(
                         *(p.detach().to(dt) for p in masters), self.n_args))
-                self.__dict__["_folded"] = hit
+                if not torch.compiler.is_compiling():    # kept as cast_at_use keeps
+                    self.__dict__["_folded"] = hit
             arg_tables = hit[1]
         else:
             arg_tables = embedding_ops.fold_arg_tables(*(p.to(dt) for p in masters),

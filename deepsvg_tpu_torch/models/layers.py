@@ -21,7 +21,9 @@ training each injection draws its own dropout mask before the sum.
 When training, a stack of short sequences (the hierarchical E2 and D2, S = 8)
 runs all its layers as one fused kernel pair, K7 (``ops/stack_vjp.py``),
 where :func:`use_stack_fused` says so: the JAX package's gate, unchanged,
-because it also decides the activations' type (below).
+because it also decides the activations' type (below). A layer split over a
+tensor-parallel model axis (its ``tp``, set by ``parallel.tp.shard_state_tp``)
+runs its plain math on its shards instead, layer by layer.
 
 Parameters are float32; ``compute_dtype`` is applied at use (``cast.py``).
 A layer's activations keep the type they come in: the hierarchical encoder
@@ -142,6 +144,9 @@ class EncoderLayerImproved(nn.Module):
         self.ff1 = nn.Linear(d, dim_feedforward)
         self.ff2 = nn.Linear(dim_feedforward, d)
         self.glob2 = nn.Linear(dim_label, d) if dim_label else None
+        # the layer's place on a tensor-parallel model axis (parallel/tp.py),
+        # whose plain math on the shards then takes the kernels' place
+        self.tp = None
 
     def masters(self):
         """The ten float32 parameters in the fused layer's argument order."""
@@ -173,6 +178,8 @@ class EncoderLayerImproved(nn.Module):
         return bias
 
     def _run(self, x, seq_bias, mask, causal, deterministic, rng):
+        if self.tp is not None:
+            return self.tp.layer_train(self, x, seq_bias, mask, causal, deterministic, rng)
         if deterministic:
             return layer_ops.fused_layer(x, seq_bias, *self.weights(x.dtype), mask,
                                          self.n_heads, causal)
@@ -270,7 +277,7 @@ class EncoderStack(nn.Module):
         """``mask [B, S]``: additive float32 over keys; ``label_emb [B,
         dim_label]`` (label-conditioned models)."""
         b, s, _ = src.shape
-        if use_stack_fused(deterministic, len(self.layers), b, s):
+        if use_stack_fused(deterministic, len(self.layers), b, s) and self.layers[0].tp is None:
             src = stacked_train(self.layers, src, label_biases(self.layers, label_emb, rng),
                                 mask, False, rng)
         else:
@@ -301,7 +308,7 @@ class DecoderStack(nn.Module):
         mask = (key_pad if key_pad is not None else
                 torch.zeros(tgt.shape[:2], dtype=torch.float32, device=tgt.device))
         b, s, _ = tgt.shape
-        if use_stack_fused(deterministic, len(self.layers), b, s):
+        if use_stack_fused(deterministic, len(self.layers), b, s) and self.layers[0].tp is None:
             # the latent's injection into each layer [L, B, D], one dropout
             # draw over all of them
             biases = torch.stack([layer.injection(z, False) for layer in self.layers])

@@ -7,10 +7,18 @@ mask times visibility, and the argument cross-entropy under
 ``CMD_ARGS_MASK`` of the target command; the last two are global masked means
 with ``max(denominator, 1)``. The cross-entropies are float32; the KL term
 keeps the VAE's type, as in the JAX package.
+
+Under data parallelism (``group``, a ``torch.distributed`` process group over
+the data axis) the masked means are global, as the JAX package's
+``axis_name``: the numerators and denominators are summed across the ranks
+and the KL and visibility means averaged; each rank's gradient is that of its
+own rows, and the ranks' gradients summed give the gradient of the whole
+batch.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..svgtensor import masks as M
@@ -28,7 +36,26 @@ def check_trainable(cfg: ModelConfig) -> None:
                          "(the JAX package's step fails on it too)")
 
 
-def svg_loss(output: dict, weights: dict, cfg: ModelConfig) -> dict:
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed across the ranks of ``group`` (the JAX package's
+    ``psum``); its gradient is this rank's own, one for each of its terms.
+    ``group`` None: ``x``."""
+    if group is None:
+        return x
+    total = x.detach().clone()
+    dist.all_reduce(total, group=group)
+    return total + (x - x.detach())
+
+
+def _mean(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` averaged across the ranks of ``group`` (``pmean``), summed in
+    float32 and returned in ``x``'s type."""
+    if group is None:
+        return x
+    return (_sum(x.float(), group) / dist.get_world_size(group)).to(x.dtype)
+
+
+def svg_loss(output: dict, weights: dict, cfg: ModelConfig, group=None) -> dict:
     """Weighted sum of the KL term (VAE models), visibility, command and
     argument cross-entropies.
 
@@ -37,7 +64,8 @@ def svg_loss(output: dict, weights: dict, cfg: ModelConfig) -> dict:
     per-step loss weights ``kl_tolerance`` and ``loss_kl_weight`` (VAE
     models), ``loss_visibility_weight``, ``loss_cmd_weight``,
     ``loss_args_weight``. Returns ``loss`` and each term. The decode-only
-    model is refused: the JAX package cannot train it.
+    model is refused: the JAX package cannot train it. ``group``: the data
+    axis's process group, whose ranks each hold their rows of the batch.
     """
     check_trainable(cfg)
     res = {}
@@ -50,7 +78,7 @@ def svg_loss(output: dict, weights: dict, cfg: ModelConfig) -> dict:
         # in the VAE's type, as the JAX package: the elementwise terms round to
         # it, the mean sums in float32 and rounds back, and so does the clip
         kl = 1 + logsigma - mu ** 2 - torch.exp(logsigma)
-        loss_kl = -0.5 * kl.float().mean().to(kl.dtype)
+        loss_kl = -0.5 * _mean(kl.float().mean().to(kl.dtype), group)
         loss_kl = torch.clamp(loss_kl, min=weights["kl_tolerance"])
         loss = loss + weights["loss_kl_weight"] * loss_kl
         res["loss_kl"] = loss_kl
@@ -59,8 +87,8 @@ def svg_loss(output: dict, weights: dict, cfg: ModelConfig) -> dict:
     pad = M.padding_mask(tgt_commands, extended=True) * vis[..., None].to(torch.float32)
 
     if cfg.decode_stages == 2:
-        loss_visibility = F.cross_entropy(
-            output["visibility_logits"].reshape(-1, 2).float(), vis.reshape(-1).long())
+        loss_visibility = _mean(F.cross_entropy(
+            output["visibility_logits"].reshape(-1, 2).float(), vis.reshape(-1).long()), group)
         loss = loss + weights["loss_visibility_weight"] * loss_visibility
         res["loss_visibility"] = loss_visibility
 
@@ -73,7 +101,7 @@ def svg_loss(output: dict, weights: dict, cfg: ModelConfig) -> dict:
     cmd_logits = output["command_logits"].float()
     ce_cmd = F.cross_entropy(cmd_logits.reshape(-1, cmd_logits.shape[-1]),
                              tgt_c.reshape(-1), reduction="none").reshape(tgt_c.shape)
-    loss_cmd = (ce_cmd * pad).sum() / pad.sum().clamp_min(1.0)
+    loss_cmd = _sum((ce_cmd * pad).sum(), group) / _sum(pad.sum(), group).clamp_min(1.0)
 
     if "args_ce" in output:
         ce_args = output["args_ce"].float()
@@ -82,7 +110,8 @@ def svg_loss(output: dict, weights: dict, cfg: ModelConfig) -> dict:
         ce_args = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                   (tgt_a + 1).long().reshape(-1),   # PAD -1 -> class 0
                                   reduction="none").reshape(tgt_a.shape)
-    loss_args = (ce_args * args_mask).sum() / args_mask.sum().clamp_min(1.0)
+    loss_args = (_sum((ce_args * args_mask).sum(), group)
+                 / _sum(args_mask.sum(), group).clamp_min(1.0))
 
     loss = loss + weights["loss_cmd_weight"] * loss_cmd + weights["loss_args_weight"] * loss_args
     res.update({"loss": loss, "loss_cmd": loss_cmd, "loss_args": loss_args})

@@ -210,7 +210,8 @@ class FCN(nn.Module):
             with torch.no_grad():
                 hit = (stamp, head_ops.pack_head(
                     *(p.detach().to(self.compute_dtype) for p in self._heads()), self.n_args))
-            self.__dict__["_packed"] = hit
+            if not torch.compiler.is_compiling():        # kept as cast_at_use keeps
+                self.__dict__["_packed"] = hit
         return hit[1]
 
     w_packed = property(lambda self: self.pack()[0])

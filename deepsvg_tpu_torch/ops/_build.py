@@ -118,6 +118,23 @@ def check_launch(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed with CUDA error {rc}")
 
 
+def plain(*tensors) -> bool:
+    """Whether the wrapper of an inference kernel calls its plain version
+    itself, not its operator: CPU tensors that autograd differentiates
+    through. The operators (``deepsvg::embedding``, ``layer``, ``layer_f32``,
+    ``layer_long``, ``head_argmax``, ``decode_step``) have no backward; the
+    plain version, called as it is, has autograd's."""
+    return (tensors[0].device.type == "cpu" and torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in tensors))
+
+
+def check_device(t, what: str) -> None:
+    """Raise for a tensor on neither the CPU (the plain version) nor a CUDA
+    card (the kernel)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} kernel for device {t.device}")
+
+
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)   # every kernel's two forms
 
 

@@ -178,20 +178,52 @@ _CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
 def fused_decode_step(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s, w2s, b2s,
                       lnf, kcache, vcache, key_pad, index: int, n_heads: int):
     """One token through the decoder stack: ``(y [R, D], k_new [L, R, D],
-    v_new [L, R, D])``.
+    v_new [L, R, D])``. The caches are read, not written: the caller writes
+    ``k_new`` / ``v_new`` at ``index``.
 
-    A CPU tensor takes :func:`decode_step_reference`; a CUDA tensor launches
-    the kernel (activations, weights and caches all bfloat16 or all float32,
-    head dim 32, D <= 256 and D, F multiples of 32) or raises: the cluster
-    kernel where :func:`decode_launch_plan` takes the widths, else the older
-    one (counted under ``narrow_launches``).
+    The operator ``deepsvg::decode_step``: a CPU tensor takes
+    :func:`decode_step_reference`; a CUDA tensor launches the kernel
+    (activations, weights and caches all bfloat16 or all float32, head dim
+    32, D <= 256 and D, F multiples of 32) or raises: the cluster kernel
+    where :func:`decode_launch_plan` takes the widths, else the older one
+    (counted under ``narrow_launches``).
     """
-    if x.device.type == "cpu":
-        return decode_step_reference(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s,
-                                     b1s, w2s, b2s, lnf, kcache, vcache, key_pad, index,
-                                     n_heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"no decode kernel for device {x.device}")
+    _build.check_device(x, "decode")
+    tensors = (x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s, w2s, b2s, lnf,
+               kcache, vcache, key_pad)
+    if _build.plain(*tensors):
+        return decode_step_reference(*tensors, index, n_heads)
+    return torch.ops.deepsvg.decode_step(*tensors, index, n_heads)
+
+
+fused_decode_step.launches = 0            # every launch
+fused_decode_step.float32_launches = 0    # those of its float32 form
+fused_decode_step.cluster_launches = 0    # those of the cluster kernel (both types)
+fused_decode_step.narrow_launches = 0     # those of the older kernel (other widths)
+
+
+@torch.library.custom_op("deepsvg::decode_step", mutates_args=())
+def _decode_step_op(x: torch.Tensor, seq_bias: torch.Tensor, ln1s: torch.Tensor,
+                    wqkvs: torch.Tensor, bqkvs: torch.Tensor, wos: torch.Tensor,
+                    bos: torch.Tensor, ln2s: torch.Tensor, w1s: torch.Tensor,
+                    b1s: torch.Tensor, w2s: torch.Tensor, b2s: torch.Tensor,
+                    lnf: torch.Tensor, kcache: torch.Tensor, vcache: torch.Tensor,
+                    key_pad: torch.Tensor, index: int,
+                    n_heads: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return decode_step_reference(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s,
+                                 w2s, b2s, lnf, kcache, vcache, key_pad, index, n_heads)
+
+
+@_decode_step_op.register_fake
+def _(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s, w2s, b2s, lnf, kcache,
+      vcache, key_pad, index, n_heads):
+    new = x.new_empty((kcache.shape[0],) + tuple(x.shape))
+    return torch.empty_like(x), new, torch.empty_like(new)
+
+
+@_decode_step_op.register_kernel("cuda")
+def _(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s, w2s, b2s, lnf, kcache,
+      vcache, key_pad, index, n_heads):
     dev = x.device
     n_layers, r, t, d = kcache.shape
     f = w1s.shape[1]
@@ -237,9 +269,3 @@ def fused_decode_step(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s,
     fused_decode_step.launches += 1
     fused_decode_step.float32_launches += is_f32
     return y, k_new, v_new
-
-
-fused_decode_step.launches = 0            # every launch
-fused_decode_step.float32_launches = 0    # those of its float32 form
-fused_decode_step.cluster_launches = 0    # those of the cluster kernel (both types)
-fused_decode_step.narrow_launches = 0     # those of the older kernel (other widths)

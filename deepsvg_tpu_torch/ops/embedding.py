@@ -136,14 +136,41 @@ def fused_embedding(commands, args, groups, cmd_table, arg_tables, group_table,
     tables ``cmd [n_cmd, D]``, ``arg [n_args*vocab, D]``, ``group [g, D]``,
     ``pos [S, D]``. Returns ``[B, S, D]`` in the tables' dtype.
 
-    A CPU tensor takes :func:`embedding_reference`; a CUDA tensor launches
-    the kernel (tables all bfloat16 or all float32) or raises.
+    The operator ``deepsvg::embedding``: a CPU tensor takes
+    :func:`embedding_reference`; a CUDA tensor launches the kernel (tables all
+    bfloat16 or all float32) or raises.
     """
-    if commands.device.type == "cpu":
+    _build.check_device(commands, "embedding")
+    if _build.plain(commands, cmd_table, arg_tables, group_table, pos_table):
         return embedding_reference(commands, args, groups, cmd_table, arg_tables,
                                    group_table, pos_table, use_group)
-    if commands.device.type != "cuda":
-        raise ValueError(f"no embedding kernel for device {commands.device}")
+    return torch.ops.deepsvg.embedding(commands, args, groups if use_group else None,
+                                       cmd_table, arg_tables,
+                                       group_table if use_group else None, pos_table,
+                                       use_group)
+
+
+fused_embedding.launches = 0            # every launch
+fused_embedding.float32_launches = 0    # those of its float32 form
+fused_embedding.narrow_launches = 0     # those of the first kernel (widths the Hopper one refuses)
+
+
+@torch.library.custom_op("deepsvg::embedding", mutates_args=())
+def _embedding_op(commands: torch.Tensor, args: torch.Tensor, groups: torch.Tensor | None,
+                  cmd_table: torch.Tensor, arg_tables: torch.Tensor,
+                  group_table: torch.Tensor | None, pos_table: torch.Tensor,
+                  use_group: bool) -> torch.Tensor:
+    return embedding_reference(commands, args, groups, cmd_table, arg_tables, group_table,
+                               pos_table, use_group)
+
+
+@_embedding_op.register_fake
+def _(commands, args, groups, cmd_table, arg_tables, group_table, pos_table, use_group):
+    return cmd_table.new_empty(tuple(commands.shape) + (cmd_table.shape[1],))
+
+
+@_embedding_op.register_kernel("cuda")
+def _(commands, args, groups, cmd_table, arg_tables, group_table, pos_table, use_group):
     dev = commands.device
     b, s = commands.shape
     n_args = args.shape[-1]
@@ -185,11 +212,6 @@ def fused_embedding(commands, args, groups, cmd_table, arg_tables, group_table,
     fused_embedding.launches += 1
     fused_embedding.float32_launches += dt == torch.float32
     return out
-
-
-fused_embedding.launches = 0            # every launch
-fused_embedding.float32_launches = 0    # those of its float32 form
-fused_embedding.narrow_launches = 0     # those of the first kernel (widths the Hopper one refuses)
 
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 11

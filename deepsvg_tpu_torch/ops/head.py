@@ -88,14 +88,34 @@ def fused_head_argmax(x, w_packed, b_packed, n_commands: int, n_args: int,
                       args_vocab: int):
     """``x [R, D]`` decoder states -> ``ids [R, 1 + n_args]`` int32.
 
-    A CPU tensor takes :func:`head_argmax_reference`; a CUDA tensor launches
-    the kernel (``x`` and head both bfloat16 or both float32) or raises.
+    The operator ``deepsvg::head_argmax``: a CPU tensor takes
+    :func:`head_argmax_reference`; a CUDA tensor launches the kernel (``x``
+    and head both bfloat16 or both float32) or raises.
     """
-    if x.device.type == "cpu":
-        return head_argmax_reference(x, w_packed, b_packed, n_commands, n_args,
-                                     args_vocab)
-    if x.device.type != "cuda":
-        raise ValueError(f"no head kernel for device {x.device}")
+    _build.check_device(x, "head")
+    if _build.plain(x, w_packed, b_packed):
+        return head_argmax_reference(x, w_packed, b_packed, n_commands, n_args, args_vocab)
+    return torch.ops.deepsvg.head_argmax(x, w_packed, b_packed, n_commands, n_args,
+                                         args_vocab)
+
+
+fused_head_argmax.launches = 0            # every launch
+fused_head_argmax.float32_launches = 0    # those of its float32 form
+
+
+@torch.library.custom_op("deepsvg::head_argmax", mutates_args=())
+def _head_argmax_op(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor,
+                    n_commands: int, n_args: int, args_vocab: int) -> torch.Tensor:
+    return head_argmax_reference(x, w_packed, b_packed, n_commands, n_args, args_vocab)
+
+
+@_head_argmax_op.register_fake
+def _(x, w_packed, b_packed, n_commands, n_args, args_vocab):
+    return x.new_empty((x.shape[0], 1 + n_args), dtype=torch.int32)
+
+
+@_head_argmax_op.register_kernel("cuda")
+def _(x, w_packed, b_packed, n_commands, n_args, args_vocab):
     dev = x.device
     r, d = x.shape
     c = _round_up(n_commands) + n_args * _round_up(args_vocab)
@@ -120,7 +140,3 @@ def fused_head_argmax(x, w_packed, b_packed, n_commands: int, n_args: int,
     fused_head_argmax.launches += 1
     fused_head_argmax.float32_launches += dt == torch.float32
     return ids
-
-
-fused_head_argmax.launches = 0            # every launch
-fused_head_argmax.float32_launches = 0    # those of its float32 form

@@ -188,10 +188,6 @@ def _check_bf16_widths(x, w1) -> None:
                          f"64 up to {BF16_MAX_FF}; got D={d}, F={f}")
 
 
-_F32_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
-                 + [ctypes.c_float, ctypes.c_void_p])
-
-
 def f32_hopper_form(x, n_heads: int, f: int) -> bool:
     """Whether the float32 ``wgmma`` forms (``csrc/layer_f32.cu``) take this
     CUDA layer: float32 and the widths ``dsvg_layer_f32_hopper`` takes (D=256
@@ -200,27 +196,6 @@ def f32_hopper_form(x, n_heads: int, f: int) -> bool:
         return False
     rule = _build.kernel_function("dsvg_layer_f32_hopper", [ctypes.c_int] * 4)
     return bool(rule(x.shape[2], f, n_heads, x.shape[1]))
-
-
-def _fused_layer_f32(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
-                     causal: bool):
-    """The float32 ``wgmma`` forms: three launches through two float32
-    scratch tensors, the weights rounded to TF32 once."""
-    b, s, d = x.shape
-    dev = x.device
-    out = torch.empty_like(x)
-    qkv = torch.empty((d // HEAD_DIM, b * s, 3 * HEAD_DIM), dtype=torch.float32, device=dev)
-    ctx = torch.empty((b * s, d), dtype=torch.float32, device=dev)
-    wqkv, wo, w1, w2 = (tf32_copy(w) for w in (wqkv, wo, w1, w2))
-    fn = _build.kernel_function("dsvg_layer_f32", _F32_ARGTYPES)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = fn(x.data_ptr(), ptr(seq_bias), ln1.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-            wo.data_ptr(), bo.data_ptr(), ln2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), mask.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
-            out.data_ptr(), b, s, w1.shape[0], int(causal), HEAD_DIM ** -0.5,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(rc, "float32 layer")
-    return out
 
 
 def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
@@ -235,44 +210,21 @@ def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
     A CPU tensor takes :func:`layer_reference`; a CUDA tensor launches the
     kernel (activations and weights both bfloat16 or both float32, head dim
     32; S <= 32 the short form, up to 256 the long form,
-    :func:`fused_layer_long`) or raises.
+    :func:`fused_layer_long`) or raises. The operators: ``deepsvg::layer``
+    (the short form), ``deepsvg::layer_f32`` (the float32 ``wgmma`` forms,
+    where :func:`f32_hopper_form` takes the widths) and
+    ``deepsvg::layer_long``.
     """
-    if x.device.type == "cpu":
-        return layer_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1,
-                               w2, b2, mask, n_heads, causal)
-    if x.device.type != "cuda":
-        raise ValueError(f"no layer kernel for device {x.device}")
-    if x.dim() == 3 and x.shape[1] > MAX_SEQ:
-        return fused_layer_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
-                                mask, n_heads, causal)
-    dev = x.device
-    b, s, d = x.shape
-    f = w1.shape[0]
-    check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
-                       n_heads)
-    _check_bf16_widths(x, w1)
-    if b == 0:
-        return torch.empty_like(x)
-    if f32_hopper_form(x, n_heads, f):
-        out = _fused_layer_f32(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
-                               causal)
-        fused_layer.launches += 1
-        fused_layer.float32_launches += 1
-        return out
-    out = torch.empty_like(x)
-    fn = _build.kernel_function("dsvg_layer", _ARGTYPES)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = fn(x.data_ptr(), ptr(seq_bias), ln1.data_ptr(), wqkv.data_ptr(),
-            bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln2.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), b, s, d, f, n_heads, int(causal),
-            int(x.dtype == torch.float32), HEAD_DIM ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(rc, "layer")
-    if x.dtype == torch.float32:
-        fused_layer.narrow_launches += 1
-    else:
-        fused_layer.launches += 1
-    return out
+    _build.check_device(x, "layer")
+    args = (x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask)
+    if _build.plain(*args):
+        return layer_reference(*args, n_heads, causal)
+    if x.device.type == "cuda" and x.dim() == 3:
+        if x.shape[1] > MAX_SEQ:
+            return fused_layer_long(*args, n_heads, causal)
+        if f32_hopper_form(x, n_heads, w1.shape[0]):
+            return torch.ops.deepsvg.layer_f32(*args, n_heads, causal, False)
+    return torch.ops.deepsvg.layer(*args, n_heads, causal)
 
 
 fused_layer.launches = 0            # every layer of the short form on its wgmma kernels
@@ -285,30 +237,147 @@ def fused_layer_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, 
     """The long form of :func:`fused_layer` (same arguments), for CUDA
     tensors with 1 <= S <= 256: two launches, with the QKV of all rows in a
     scratch tensor between them. Counted once per layer."""
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"the long layer kernel runs on CUDA tensors, got {dev}")
+    if x.device.type != "cuda":
+        raise ValueError(f"the long layer kernel runs on CUDA tensors, got {x.device}")
+    args = (x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask)
+    if x.dim() == 3 and f32_hopper_form(x, n_heads, w1.shape[0]):
+        return torch.ops.deepsvg.layer_f32(*args, n_heads, causal, True)
+    return torch.ops.deepsvg.layer_long(*args, n_heads, causal)
+
+
+fused_layer_long.launches = 0           # every layer run by the long form's wgmma kernels
+fused_layer_long.float32_launches = 0   # those of its float32 form
+fused_layer_long.narrow_launches = 0    # float32 layers at other widths, on the older code
+
+
+# The operators. Each takes the layer's thirteen tensors, then ``n_heads``
+# and ``causal``; the CPU runs the plain version, a CUDA tensor its kernel.
+
+def _layer_fake(x, *_):
+    return torch.empty_like(x)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+@torch.library.custom_op("deepsvg::layer", mutates_args=())
+def _layer_op(x: torch.Tensor, seq_bias: torch.Tensor | None, ln1: torch.Tensor,
+              wqkv: torch.Tensor, bqkv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+              ln2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor, mask: torch.Tensor, n_heads: int,
+              causal: bool) -> torch.Tensor:
+    return layer_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                           n_heads, causal)
+
+
+_layer_op.register_fake(_layer_fake)
+
+
+@_layer_op.register_kernel("cuda")
+def _(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, n_heads, causal):
+    """The short form: the bfloat16 ``wgmma`` kernels, or the older float32
+    code at widths the float32 ``wgmma`` forms do not take."""
+    check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                       n_heads)
+    _check_bf16_widths(x, w1)
     b, s, d = x.shape
-    f = w1.shape[0]
+    out = torch.empty_like(x)
+    if b == 0:
+        return out
+    fn = _build.kernel_function("dsvg_layer", _ARGTYPES)
+    rc = fn(x.data_ptr(), _ptr(seq_bias), ln1.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln2.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), b, s, d, w1.shape[0], n_heads, int(causal),
+            int(x.dtype == torch.float32), HEAD_DIM ** -0.5,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(rc, "layer")
+    if x.dtype == torch.float32:
+        fused_layer.narrow_launches += 1
+    else:
+        fused_layer.launches += 1
+    return out
+
+
+_F32_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+@torch.library.custom_op("deepsvg::layer_f32", mutates_args=())
+def _layer_f32_op(x: torch.Tensor, seq_bias: torch.Tensor | None, ln1: torch.Tensor,
+                  wqkv: torch.Tensor, bqkv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                  ln2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                  b2: torch.Tensor, mask: torch.Tensor, n_heads: int, causal: bool,
+                  long_form: bool) -> torch.Tensor:
+    """``long_form``: counted as a layer of the long form (S up to 256), not of
+    the short one (S up to 32)."""
+    return layer_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                           n_heads, causal)
+
+
+_layer_f32_op.register_fake(_layer_fake)
+
+
+@_layer_f32_op.register_kernel("cuda")
+def _(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, n_heads, causal,
+      long_form):
+    """The float32 ``wgmma`` forms: three launches through two float32
+    scratch tensors, the weights rounded to TF32 once."""
+    counter = fused_layer_long if long_form else fused_layer
+    check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                       n_heads, MAX_SEQ_LONG if long_form else MAX_SEQ)
+    b, s, d = x.shape
+    dev = x.device
+    out = torch.empty_like(x)
+    if b == 0:
+        return out
+    qkv = torch.empty((d // HEAD_DIM, b * s, 3 * HEAD_DIM), dtype=torch.float32, device=dev)
+    ctx = torch.empty((b * s, d), dtype=torch.float32, device=dev)
+    wqkv, wo, w1, w2 = (tf32_copy(w) for w in (wqkv, wo, w1, w2))
+    fn = _build.kernel_function("dsvg_layer_f32", _F32_ARGTYPES)
+    rc = fn(x.data_ptr(), _ptr(seq_bias), ln1.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), ln2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), mask.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
+            out.data_ptr(), b, s, w1.shape[0], int(causal), HEAD_DIM ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "float32 layer")
+    counter.launches += 1
+    counter.float32_launches += 1
+    return out
+
+
+@torch.library.custom_op("deepsvg::layer_long", mutates_args=())
+def _layer_long_op(x: torch.Tensor, seq_bias: torch.Tensor | None, ln1: torch.Tensor,
+                   wqkv: torch.Tensor, bqkv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                   ln2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                   b2: torch.Tensor, mask: torch.Tensor, n_heads: int,
+                   causal: bool) -> torch.Tensor:
+    return layer_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                           n_heads, causal)
+
+
+_layer_long_op.register_fake(_layer_fake)
+
+
+@_layer_long_op.register_kernel("cuda")
+def _(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, n_heads, causal):
+    """The long form: the bfloat16 ``wgmma`` kernels, or the older float32
+    code at widths the float32 ``wgmma`` forms do not take."""
     check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                        n_heads, MAX_SEQ_LONG)
     _check_bf16_widths(x, w1)
-    if b == 0:
-        return torch.empty_like(x)
-    if f32_hopper_form(x, n_heads, f):
-        out = _fused_layer_f32(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
-                               causal)
-        fused_layer_long.launches += 1
-        fused_layer_long.float32_launches += 1
-        return out
+    b, s, d = x.shape
+    dev = x.device
     out = torch.empty_like(x)
+    if b == 0:
+        return out
     qkv = torch.empty((b * s, 3 * d), dtype=x.dtype, device=dev)
     fn = _build.kernel_function("dsvg_layer_long", _LONG_ARGTYPES)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = fn(x.data_ptr(), ptr(seq_bias), ln1.data_ptr(), wqkv.data_ptr(),
+    rc = fn(x.data_ptr(), _ptr(seq_bias), ln1.data_ptr(), wqkv.data_ptr(),
             bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln2.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            mask.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, s, d, f, n_heads,
+            mask.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, s, d, w1.shape[0], n_heads,
             int(causal), int(x.dtype == torch.float32), HEAD_DIM ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "long layer")
@@ -317,11 +386,6 @@ def fused_layer_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, 
     else:
         fused_layer_long.launches += 1
     return out
-
-
-fused_layer_long.launches = 0           # every layer run by the long form's wgmma kernels
-fused_layer_long.float32_launches = 0   # those of its float32 form
-fused_layer_long.narrow_launches = 0    # float32 layers at other widths, on the older code
 
 
 def fused_encoder_layer(x, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,

@@ -6,7 +6,15 @@
         --dataset-module deepsvg_tpu_torch.data.synthetic --max-steps 100
 
 It runs on the CUDA card unless ``--device cpu`` is given (the plain
-versions of the kernels), and raises when it finds no card.
+versions of the kernels), and raises when it finds no card. Data-parallel
+over N cards, one process each (NCCL; with ``--device cpu``, gloo)::
+
+    torchrun --nproc-per-node N -m deepsvg_tpu_torch.training.train \
+        --num-devices N --config-module ...
+
+The config scales its batch and learning rate by N, as the JAX package's
+does; every rank reads the same global batches and trains on its rows
+(``parallel/mesh.py``). Rank 0 alone logs, visualizes and writes checkpoints.
 
 The loop keeps the host off the device's critical path:
 
@@ -43,12 +51,17 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
+from functools import partial
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.loader import DataLoader, prefetch_to_device
 from ..data.resident import build_resident_arrays, epoch_icon_permutation
+from ..parallel.mesh import (
+    init_distributed, make_mesh, make_parallel_multi_step, make_parallel_resident_multi_step,
+    shard_batch)
 from ..utils import set_seed
 from .checkpoint import begin_save, finish_save, load_ckpt, load_model, prune_ckpts, save_ckpt
 from .config import TrainConfig, load_config, load_dataset
@@ -88,16 +101,37 @@ def choose_k(cfg, n_items: int, step: int, max_steps, resident: bool, profile: b
     return k
 
 
+def data_group(mesh, batch_size: int):
+    """The process group of the data axis of ``mesh`` (None without one).
+    The JAX package clamps its device count to a divisor of the batch size;
+    here a rank is a process that exists already, so a batch that does not
+    split over the ranks is refused."""
+    if mesh is None:
+        return None
+    group = mesh.get_group("data")
+    world = dist.get_world_size(group)
+    if batch_size % world:
+        raise ValueError(f"the batch of {batch_size} does not split over {world} data ranks: "
+                         f"launch a number of processes that divides it")
+    return group
+
+
 def train(cfg: TrainConfig, model_name: str, experiment_name: str = "",
           log_dir: str = "./logs", debug: bool = False, resume: bool = False,
           dataset=None, max_steps: int | None = None,
-          profile_steps: tuple[int, int] | None = None, device=None):
+          profile_steps: tuple[int, int] | None = None, device=None, mesh=None):
     """Train ``cfg``'s model; returns ``(state, stats)``.
 
     ``profile_steps=(start, stop)`` traces those steps with
     ``torch.profiler`` into ``<log_dir>/profile/<run>/`` (a Chrome trace and
-    a table of device time by kernel)."""
+    a table of device time by kernel). ``mesh``: a data-parallel mesh
+    (``parallel.make_mesh``) over the processes that each call ``train``;
+    ``cfg.batch_size`` is the global batch."""
     device = resolve_device(device)
+    group = data_group(mesh, cfg.batch_size)
+    main_rank = group is None or dist.get_rank() == 0
+    if not main_rank:
+        debug = True              # rank 0 alone writes checkpoints
     print("Parameters")
     cfg.print_params()
     if dataset is None:
@@ -171,6 +205,25 @@ def train(cfg: TrainConfig, model_name: str, experiment_name: str = "",
         log_every, val_every, ckpt_every = (-(-v // K) * K
                                             for v in (log_every, val_every, ckpt_every))
     lr_schedule = cfg.make_lr_schedule(steps_per_epoch)
+
+    # K steps a call, on this rank's rows where there is a data mesh
+    if resident is not None:
+        if group is None:
+            multi = partial(train_resident_multi_step, weights_fn=weights_fn,
+                            optimizer=optimizer, model_args=model_args, n_augs=resident[2],
+                            item_shapes=resident[3])
+        else:
+            multi = make_parallel_resident_multi_step(model, optimizer, model_args, mesh,
+                                                      weights_fn, resident[2],
+                                                      item_shapes=resident[3])
+
+        def step_fn(st, b):
+            return multi(st, resident[0], b["idx"])
+    elif group is None:
+        step_fn = partial(train_multi_step, weights_fn=weights_fn, optimizer=optimizer,
+                          model_args=model_args)
+    else:
+        step_fn = make_parallel_multi_step(model, optimizer, model_args, mesh, weights_fn)
 
     if max_steps is not None or cfg.num_epochs is None:
         epoch_range = itertools.count()
@@ -265,13 +318,9 @@ def train(cfg: TrainConfig, model_name: str, experiment_name: str = "",
                         _stop_profiler(profiler, device, os.path.join(log_dir, "profile", run_id))
                         profiler = None
 
-                if resident is not None:
-                    state, res = train_resident_multi_step(
-                        state, resident[0], batch["idx"], weights_fn, optimizer, model_args,
-                        resident[2], resident[3])
-                else:
-                    state, res = train_multi_step(state, batch, weights_fn, optimizer,
-                                                  model_args)
+                if group is not None:
+                    batch = shard_batch(batch, mesh, batch_dim=1)   # this rank's rows
+                state, res = step_fn(state, batch)
                 step_host = step
                 batches_done += K
                 position = (epoch, batches_done)
@@ -283,7 +332,7 @@ def train(cfg: TrainConfig, model_name: str, experiment_name: str = "",
                 if max_steps is not None and step >= max_steps:
                     done = True
 
-                if step % log_every < K:
+                if step % log_every < K and main_rank:
                     last = {k: v[-1] for k, v in res.items()}
                     weights = cfg.get_weights(step, epoch)
                     elapsed = timer.get_elapsed_time() / log_every
@@ -296,7 +345,7 @@ def train(cfg: TrainConfig, model_name: str, experiment_name: str = "",
                         _log_cycle(stats, summary_writer, last, weights, lr_schedule(step),
                                    elapsed, step, epoch)
 
-                if step % val_every < K:
+                if step % val_every < K and main_rank:
                     if async_io:
                         f = futures["viz"]
                         if f is not None and not f.done():
@@ -407,7 +456,8 @@ def main():
     parser.add_argument("--config-module", type=str, required=True)
     parser.add_argument("--num-devices", type=int, default=None,
                         help="the device count the config scales its batch and learning "
-                             "rate by (default 1: the port trains on one card)")
+                             "rate by (default 1); above 1, the number of processes "
+                             "torchrun started, one a device, trained data-parallel")
     parser.add_argument("--log-dir", type=str, default="./logs")
     parser.add_argument("--debug", action="store_true", default=False)
     parser.add_argument("--resume", action="store_true", default=False)
@@ -425,7 +475,17 @@ def main():
     args = parser.parse_args()
 
     device = resolve_device(args.device)
-    cfg = load_config(args.config_module, args.num_devices or 1)
+    n_devices = args.num_devices or 1
+    mesh = None
+    if n_devices > 1 or int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        init_distributed(device.type)
+        if n_devices != dist.get_world_size():
+            raise ValueError(f"--num-devices {n_devices} with {dist.get_world_size()} "
+                             "processes: data parallelism runs one process a device "
+                             f"(torchrun --nproc-per-node {n_devices})")
+        mesh = make_mesh(n_devices)
+        device = resolve_device(device.type)
+    cfg = load_config(args.config_module, n_devices)
     model_name, experiment_name = args.config_module.split(".")[-2:]
     if args.dataset_module:
         cfg.dataloader_module = args.dataset_module
@@ -436,7 +496,7 @@ def main():
     set_seed(42)
     train(cfg, model_name, experiment_name, log_dir=args.log_dir, debug=args.debug,
           resume=args.resume, profile_steps=profile_steps, max_steps=args.max_steps,
-          device=device)
+          device=device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,12 @@ included, by adding ``weight_decay * p`` to the Adam direction before the
 ``-lr`` scale; the schedule is read at the count before it is incremented;
 :func:`delayed_start` freezes the inner state and gives zero updates until
 its start step.
+
+Under data parallelism (``parallel/mesh.py``) each rank runs these steps on
+its rows with ``group``, the data axis's process group: the loss is global
+(``models/loss.py``), each rank's dropout and VAE noise come from a stream of
+its own, the gradients are summed across the ranks, and every rank applies
+the same update.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..data.loader import decompress_batch
@@ -46,9 +53,12 @@ class Optimizer:
                 "calls": 0}        # calls of update, which the start gate counts
 
     @torch.no_grad()
-    def update(self, params: list, grads: list, state: dict) -> torch.Tensor:
-        """One step. Returns the gradients' global norm before clipping."""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    def update(self, params: list, grads: list, state: dict, norm=None) -> torch.Tensor:
+        """One step. Returns the gradients' global norm before clipping;
+        ``norm``, where the caller computes it (tensor parallelism: over the
+        shards of every rank)."""
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         calls = state["calls"]
         state["calls"] = calls + 1
         if calls < self.start_step:
@@ -176,27 +186,66 @@ def create_train_state(model: SVGTransformer, optimizer, seed: int = 42,
     return state
 
 
-def train_step(state: TrainState, batch: dict, weights: dict, optimizer,
-               model_args: list):
-    """One training step on ``batch`` (a dict of tensors on the model's
-    device, wire or canonical dtypes). Updates ``state`` in place and returns
-    it with the loss terms and ``grad_norm`` (before clipping), as tensors.
-    The decode-only model is refused (:func:`models.loss.check_trainable`)."""
+def rank_generator(generator: torch.Generator, group) -> torch.Generator:
+    """This rank's stream of a data-parallel step: a generator seeded from
+    one draw of the state's ``generator`` (which every rank advances alike)
+    and the rank in ``group``, as the JAX package folds the shard index into
+    its dropout and VAE keys."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    rank = dist.get_rank(group)
+    return torch.Generator().manual_seed((seed ^ (rank * 0x9E3779B97F4A7C15)) % 2 ** 63)
+
+
+def check_whole_layers(model: SVGTransformer) -> None:
+    """Raise for a model whose layers hold shards over a model axis
+    (``parallel.tp.shard_state_tp`` marks it): the training kernels take
+    whole layers."""
+    if model.__dict__.get("tp_shards"):
+        raise ValueError("this model's layers hold tensor-parallel shards (shard_state_tp): "
+                         "the training kernels take whole layers; train it with "
+                         "parallel.tp.make_tp_train_step")
+
+
+def loss_and_grads(state: TrainState, batch: dict, weights: dict, model_args: list,
+                   group=None, fused_ce: bool = True):
+    """The forward with dropout, the loss and the backward of one step:
+    ``(results, gradients)``, a gradient for each parameter (zeros where
+    none reaches it), summed across the ranks of ``group``."""
     model = state.model
     check_trainable(model.cfg)
     batch = decompress_batch(batch)
     args = [batch[k] for k in model_args]
     # the step's randomness: dropout, and the VAE's noise at any dropout
-    rng = DropoutRng(state.generator) if model.cfg.dropout > 0.0 or model.cfg.use_vae else None
+    rng = None
+    if model.cfg.dropout > 0.0 or model.cfg.use_vae:
+        rng = DropoutRng(state.generator if group is None
+                         else rank_generator(state.generator, group))
     params = state.parameters()
     for p in params:
         p.grad = None
-    out = model(*args, return_tgt=True, deterministic=False, fused_ce=True, rng=rng)
-    res = svg_loss(out, weights, model.cfg)
+    out = model(*args, return_tgt=True, deterministic=False, fused_ce=fused_ce, rng=rng)
+    res = svg_loss(out, weights, model.cfg, group)
     res["loss"].backward()
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-    res = {k: v.detach() for k, v in res.items()}
-    res["grad_norm"] = optimizer.update(params, grads, state.opt_state)
+    if group is not None:
+        # the loss is global: the ranks' gradients sum to the batch's
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+    return {k: v.detach() for k, v in res.items()}, grads
+
+
+def train_step(state: TrainState, batch: dict, weights: dict, optimizer,
+               model_args: list, group=None):
+    """One training step on ``batch`` (a dict of tensors on the model's
+    device, wire or canonical dtypes). Updates ``state`` in place and returns
+    it with the loss terms and ``grad_norm`` (before clipping), as tensors.
+    ``group``: the data axis's process group, ``batch`` this rank's rows of
+    the global batch. The decode-only model is refused
+    (:func:`models.loss.check_trainable`)."""
+    check_whole_layers(state.model)
+    res, grads = loss_and_grads(state, batch, weights, model_args, group)
+    res["grad_norm"] = optimizer.update(state.parameters(), grads, state.opt_state)
     state.step += 1
     return state, res
 
@@ -208,15 +257,16 @@ def _scalars(results: list) -> dict:
 
 
 def train_multi_step(state: TrainState, batches: dict, weights_fn, optimizer,
-                     model_args: list):
+                     model_args: list, group=None):
     """K training steps on a stacked batch dict ``{key: [K, ...]}``, the
     loss weights of each from ``weights_fn(step)`` at the step count before
     it. Counterpart of ``jit_train_multi_step``: a Python loop, no
-    synchronisation with the host. Each result is a ``[K]`` tensor."""
+    synchronisation with the host. Each result is a ``[K]`` tensor.
+    ``group``: as :func:`train_step`."""
     results = []
     for k in range(next(iter(batches.values())).shape[0]):
         state, res = train_step(state, {key: v[k] for key, v in batches.items()},
-                                weights_fn(state.step), optimizer, model_args)
+                                weights_fn(state.step), optimizer, model_args, group)
         results.append(res)
     return state, _scalars(results)
 
@@ -225,17 +275,19 @@ AUG_SEED = 0xA9
 
 
 def gather_batch(data: dict, icon_idx: torch.Tensor, step: int, n_augs: int = 1,
-                 item_shapes: dict | None = None) -> dict:
+                 item_shapes: dict | None = None, shard: int | None = None) -> dict:
     """One step's batch from the resident corpus ``data`` (``{key: [M,
     ...]}``, rows flattened when ``item_shapes`` is given) by its icon
     indices ``[B]``, on the device. With ``n_augs > 1`` each item's
     augmentation variant is drawn uniformly on the device from a generator
     seeded by ``(AUG_SEED, step)``: the draw is a function of the step, as in
-    the JAX package, but not its bits."""
+    the JAX package, but not its bits; ``shard``, a data-parallel rank,
+    gives each rank a draw of its own (per step, rank and item)."""
     flat = icon_idx.long()
     if n_augs > 1:
         gen = torch.Generator(device=flat.device)
-        gen.manual_seed(AUG_SEED * 1_000_003 + step)
+        seed = AUG_SEED * 1_000_003 + step
+        gen.manual_seed(seed if shard is None else seed * 1_000_003 + shard)
         aug = torch.randint(0, n_augs, flat.shape, device=flat.device, generator=gen)
         flat = flat * n_augs + aug
     batch = {k: v.index_select(0, flat) for k, v in data.items()}
@@ -246,15 +298,18 @@ def gather_batch(data: dict, icon_idx: torch.Tensor, step: int, n_augs: int = 1,
 
 def train_resident_multi_step(state: TrainState, data: dict, icon_idx: torch.Tensor,
                               weights_fn, optimizer, model_args: list, n_augs: int = 1,
-                              item_shapes: dict | None = None):
+                              item_shapes: dict | None = None, group=None):
     """K training steps whose batches are gathered on the device from the
     resident corpus ``data`` (``data/resident.py``) by ``icon_idx [K, B]``,
     the only data that crosses from the host. Counterpart of
-    ``jit_train_resident_multi_step``. Each result is a ``[K]`` tensor."""
+    ``jit_train_resident_multi_step``. Each result is a ``[K]`` tensor.
+    ``group``: as :func:`train_step`, ``icon_idx`` this rank's columns."""
+    shard = None if group is None else dist.get_rank(group)
     results = []
     for k in range(icon_idx.shape[0]):
-        batch = gather_batch(data, icon_idx[k], state.step, n_augs, item_shapes)
-        state, res = train_step(state, batch, weights_fn(state.step), optimizer, model_args)
+        batch = gather_batch(data, icon_idx[k], state.step, n_augs, item_shapes, shard)
+        state, res = train_step(state, batch, weights_fn(state.step), optimizer, model_args,
+                                group)
         results.append(res)
     return state, _scalars(results)
 
