@@ -9,9 +9,10 @@ recompute mode, the model variants (the one-stage one-shot model, the
 label-conditioned fonts model, temperature sampling), the variants
 (SketchRNN's LSTM, two-stage autoregressive decoding, the decode-only model)
 the geometry (SVG text in and out of the flagship, the reconstruction
-metrics and a differentiable descent on the card) and the real-data
+metrics and a differentiable descent on the card), the real-data
 loaders with the apps (the preprocessing CLI, training on real data, the
-inference session, the animation's finetune, the web GUI). Every earlier phase
+inference session, the animation's finetune, the web GUI), serving,
+parallelism, and the kernels at head dims 8 and 16 with the tiny configs. Every earlier phase
 runs K4 in its saved mode, the model's default
 (``layer_vjp.SAVE_RESIDUALS_DEFAULT``).
 
@@ -272,6 +273,28 @@ TOL_STEP_COSINE (Adam's first step moves every entry by about lr along its
 gradient's sign, so entries whose gradient is rounding noise move either
 way; the update's direction is what the step decides). A child that fails
 fails the run.
+
+*Head dims 8 and 16* (:func:`head_dims_phase`, random weights from
+HD_SEED): the first port's kernels that the Hopper forms' widths leave,
+now templated on the head dim, at head dim 8 (D=32, 4 heads, FF 64) and 16
+(D=64, 4 heads, FF 128) in both types, each against its plain version with
+a control that must fail: K2 at S=1, 17, 32 and its long form at S=40 and
+S=241 (causal, seq_bias); K4 at S=8 and its long form at S=40 (causal),
+rate 0.1, both modes, its twelve gradients; K7 at two layers, B=60, over
+K7_DRAWS draws; K9 at R=1,024 at index 1 and 40; K10 at the JAX tests'
+widths (D=64 and 32 with 4 heads, D=32 with 2) at S=8, 16 (causal), 31, 32
+and 40; K11 at S=8 and 40, rate 0.1, its five gradients against both
+yardsticks. Each counted under its ``narrow`` counters, and timed beside
+its bound, its plain version and its library call. The same checks, counted
+and untimed, at the other widths the routing rules send to these kernels
+(HD_WIDE: D=128 with 4 heads of 32, D=256 with 16 heads of 16; K7 where it
+takes them, at D=256). Then the tiny configs'
+paths, counted with no plain version called: test_tiny's
+``one_shot_sample`` (bfloat16 and float32, N=1024, ids against the plain
+path's), its CLI for HD_CLI_STEPS steps, one bucket of it exported and
+served (ids equal to the live call's); the JAX tests' SMALL model's step at
+B=16, dropout 0.1 (E2 and D2 through K7; K4 in both modes); its one-stage
+autoregressive variant's ``greedy_sample`` through K9.
 
 At the end, each form of K5 (bf16 at 257 and 512 classes, float32 at 257
 and 512), of K8 and of K2 (short and long, bf16 and float32) is printed
@@ -946,13 +969,17 @@ GRAD_NAMES = ("x", "seq_bias", "ln1", "wqkv", "bqkv", "wo", "bo", "ln2", "w1", "
 
 
 def check_layer_train(layer_vjp, what, layer, x, seq_bias, mask, causal, rate, seed=1234,
-                      save_residuals=True):
+                      save_residuals=True, narrow=False, outliers_aligned=False):
     """K4 forward and its twelve gradients against autograd through the plain
     version with the same hash masks, as it is and with the kernel's ReLU
     units, in the mode ``save_residuals``. The recompute mode's output must
     equal the saved mode's to the bit (the kernel's ReLU units are read from
     that saved-mode forward), only its own counters may move, and its
-    gradients must be the same on a second run. Returns the readings."""
+    gradients must be the same on a second run. ``narrow``: the layer runs
+    the first port's kernels, whose forward of either mode counts under
+    ``narrow_launches``. ``outliers_aligned``: the gradients' fraction of
+    elements outside the band is held with the ReLU units aligned (both
+    fractions are read; see compare_grad). Returns the readings."""
     masters = layer.masters()
     x = x.detach().requires_grad_()
     bias = None if seq_bias is None else seq_bias.detach().requires_grad_()
@@ -961,7 +988,8 @@ def check_layer_train(layer_vjp, what, layer, x, seq_bias, mask, causal, rate, s
     names = [n for n, t in zip(GRAD_NAMES, (x, bias, *masters)) if t is not None]
     call = (x, bias, *masters, mask, seed, layer.n_heads, causal, rate, layer.compute_dtype)
     forms = (layer_vjp.fused_layer_train, layer_vjp.fused_layer_train_long)
-    counters = ("launches", "backward_launches", "recompute_launches",
+    counters = ("launches", "backward_launches",
+                "narrow_launches" if narrow else "recompute_launches",
                 "recompute_backward_launches")
     counts = lambda: [getattr(fn, c) for fn in forms for c in counters]  # noqa: E731
     before = counts()
@@ -997,7 +1025,8 @@ def check_layer_train(layer_vjp, what, layer, x, seq_bias, mask, causal, rate, s
     check_later(excess <= atol and rms <= TOL_LAYER_RMS,
           f"K4 {what} forward: an element is off by {excess} beyond {rtol} x |out| "
           f"(limit {atol}), relative RMS err {rms}")
-    readings = {n: compare_grad(f"K4 {what} d{n}", a, w, wg, x.dtype)
+    readings = {n: compare_grad(f"K4 {what} d{n}", a, w, wg, x.dtype,
+                                outliers_aligned=outliers_aligned)
                 for n, a, w, wg in zip(names, grads, ref_grads, gate_grads)}
     worst = max(readings, key=lambda n: readings[n]["rms"])
     worst_gate = max(readings, key=lambda n: readings[n]["rms_same_gate"])
@@ -5758,6 +5787,851 @@ def parallel_phase(dev, card, record, reset_counts, read_counts, workers) -> Non
     record["parallel"] = out
 
 
+# The head dims of the first port's kernels (head_dims_phase). Every kernel
+# that ran at head dim 32 alone below the Hopper forms' widths (K2, K4, K7,
+# K9, K10, K11) runs at head dim 8 (D=32, 4 heads, FF 64: configs/test_tiny.py
+# and the JAX tests' SMALL model) and 16 (D=64, 4 heads, FF 128: the JAX
+# tests' K10 width), in both types, against its plain version with the
+# limits its D=256 checks use above (K9: TOL_DECODE_RMS; K11's gradients:
+# MHA_GRAD_RMS; K7: check_stack_train's); a control, the plain version on the
+# weights cut to CONTROL_MANTISSA_BITS mantissa bits, must fail each gate.
+# K4's gradients hold their fraction of elements outside the band with the
+# ReLU units aligned, as K7's seeded D=128 layers do: on random weights at
+# these widths a unit flipped between the two forward passes (TF32 against
+# full float32) moves a whole row of dW1, 1/F of its elements (1.6% at F=64),
+# over TOL_GRAD_OUTLIERS; the first card run read up to 0.0166 of dW1 as they
+# are and at most 0.0007 relative RMS with the units aligned (PERF.md).
+# Then the tiny configs' paths through the model code, counted with no plain
+# version called: test_tiny's one_shot_sample, its CLI steps and one served
+# bucket, SMALL's step at dropout 0.1 (E2 and D2 through K7, in both of K4's
+# modes) and the one-stage autoregressive SMALL model's greedy_sample (K9).
+HD_SHAPES = {8: (32, 4, 64), 16: (64, 4, 128)}   # head dim: D, heads, F
+HD_SEED = 24
+# the other widths the routing rules send to the first port's kernels, each
+# family held there too (untimed): D=128 with 4 heads of 32 (bfloat16 K2 and
+# K4 at this width were refused before) and D=256 with 16 heads of 16
+HD_WIDE = ((128, 4, 512), (256, 16, 512))   # D, heads, F
+HD_B = 512                 # sequences of a layer check: hundreds of blocks of every form
+# the JAX tests' K10 widths (head dims 16, 16, 8); each head dim's timed
+# width (HD_SHAPES) comes last
+HD_MHA_WIDTHS = ((32, 2), (64, 4), (32, 4))
+HD_MHA_S = (8, 16, 31, 32, 40)                # their S, and one long case
+HD_DECODE = (1024, 41, 2)  # K9: rows, cache length, layers (index 1 and the last)
+HD_N = 1024                # the tiny paths' inference batch
+HD_SMALL_B = 16            # SMALL's step: E1, D1 over the stack gate, E2 and D2 under it
+HD_CLI_STEPS = 8
+HD_SERVE_BUCKET = 8
+# the JAX tests' SMALL model (tests/test_model.py) and its one-stage
+# autoregressive variant (tests/test_ops.py, TestFusedDecodeStep)
+HD_SMALL = dict(max_num_groups=4, max_seq_len=8, d_model=32, dim_feedforward=64, dim_z=16,
+                n_layers=2, n_layers_decode=2, n_heads=4, dropout=0.1)
+HD_AR = dict(HD_SMALL, dropout=0.0, max_num_groups=2, max_seq_len=5, encode_stages=1,
+             decode_stages=1, pred_mode="autoregressive", rel_targets=False)
+# each family's source and the TPU kernel it replaces, by entry name prefix
+HD_FAMILIES = {
+    "layer": ("layer_fwd.cuh", "deepsvg_tpu/ops/layer.py:108"),
+    "layer_long": ("layer_long.cuh", "deepsvg_tpu/ops/layer.py:108"),
+    "layer_train_fwd": ("layer_fwd.cuh", "deepsvg_tpu/ops/layer_vjp.py:179"),
+    "layer_train_bwd": ("layer_bwd.cuh", "deepsvg_tpu/ops/layer_vjp.py:281"),
+    "layer_train_long_fwd": ("layer_long.cuh", "deepsvg_tpu/ops/layer_vjp.py:179"),
+    "layer_train_long_bwd": ("layer_long_train.cu", "deepsvg_tpu/ops/layer_vjp.py:281"),
+    "stack_fwd": ("stack.cu", "deepsvg_tpu/ops/stack_vjp.py:87"),
+    "stack_bwd": ("stack.cu", "deepsvg_tpu/ops/stack_vjp.py:159"),
+    "decode": ("decode.cu", "deepsvg_tpu/ops/decode.py:43"),
+    "mha": ("attention.cu", "deepsvg_tpu/ops/attention.py:31"),
+    "mha_train_fwd": ("attention.cu", "deepsvg_tpu/ops/attention_vjp.py:60"),
+    "mha_train_bwd": ("attention.cu", "deepsvg_tpu/ops/attention_vjp.py:100"),
+}
+
+
+def hd_name(family: str, hd: int, dtype) -> str:
+    """The kernels line's name of a family's form at head dim ``hd``."""
+    return f"{family}_hd{hd}" + ("_f32" if dtype == torch.float32 else "")
+
+
+def hd_sources() -> dict:
+    """Every head-dims entry's (source, replaces), for the kernels line."""
+    return {hd_name(fam, hd, dt): ("deepsvg_tpu_torch/ops/csrc/" + src, rep)
+            for fam, (src, rep) in HD_FAMILIES.items() for hd in HD_SHAPES
+            for dt in (torch.bfloat16, torch.float32)}
+
+
+def seeded_layers(n: int, d: int, heads: int, f: int, dtype, dev, gen) -> list:
+    """``n`` encoder layers at these widths with random masters from
+    ``gen`` (LayerNorms near 1 and 0, weights at 1/sqrt(fan-in))."""
+    from deepsvg_tpu_torch.models.layers import EncoderLayerImproved
+    layers = []
+    for _ in range(n):
+        layer = EncoderLayerImproved(d, heads, f, 0.0, dtype).to(dev)
+        with torch.no_grad():
+            for w in layer.masters():
+                noise = torch.randn(w.shape, device=dev, generator=gen)
+                if w.dim() == 2 and w.shape[0] == 2:        # LayerNorm: scale, bias
+                    w.copy_(0.1 * noise + torch.tensor([[1.0], [0.0]], device=dev))
+                else:
+                    w.copy_(noise * (w.shape[1] ** -0.5 if w.dim() == 2 else 0.1))
+        layers.append(layer)
+    return layers
+
+
+def head_dims_phase(dev, card, kernels, record, reset_counts, read_counts) -> dict:
+    """The first port's kernels at head dims 8 and 16 (see HD_SHAPES), each
+    against its plain version with a control, timed beside its bound, its
+    plain version and its library call; the same checks, untimed, at
+    HD_WIDE; then the tiny configs' paths, counted. Adds the ``*_hd8`` /
+    ``*_hd16`` entries to ``kernels`` and returns their launches: of the
+    path that runs each at head dim 8, else as its own counted call read
+    them."""
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from deepsvg_tpu_torch import serving
+    from deepsvg_tpu_torch.configs.test_tiny import make_model_config as tiny_config
+    from deepsvg_tpu_torch.data import generate_batch
+    from deepsvg_tpu_torch.models import SVGTransformer, greedy_sample, one_shot_sample
+    from deepsvg_tpu_torch.models.config import hierarchical
+    from deepsvg_tpu_torch.ops import attention as attn_ops
+    from deepsvg_tpu_torch.ops import attention_vjp
+    from deepsvg_tpu_torch.ops import ce as ce_ops
+    from deepsvg_tpu_torch.ops import decode as decode_ops
+    from deepsvg_tpu_torch.ops import embedding as emb_ops
+    from deepsvg_tpu_torch.ops import head as head_ops
+    from deepsvg_tpu_torch.ops import layer as layer_ops
+    from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
+    from deepsvg_tpu_torch.training import (
+        constant, create_train_state, make_optimizer, train_step)
+    from deepsvg_tpu_torch.training import train as train_mod
+    from deepsvg_tpu_torch.training.config import load_config
+    from deepsvg_tpu_torch.training.trainer import init_parameters
+    t_phase = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(HD_SEED)
+    no_launch = dict.fromkeys(read_counts(), 0)
+    own, path_launches, out = {}, {}, {}
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=dev, generator=gen)
+
+    def key_mask(b, s):
+        """Additive [B, S]: random lengths, sequence 0 with every key masked."""
+        lens = torch.randint(1, s + 1, (b,), device=dev, generator=gen)
+        mask = torch.zeros(b, s, device=dev).masked_fill(
+            torch.arange(s, device=dev)[None] >= lens[:, None], float("-inf"))
+        mask[0] = float("-inf")
+        return mask
+
+    seen = {}     # the launches that each counted call read, by counter
+
+    def counted(what, fn, expected):
+        """``fn()`` once with the counters from 0; they must read ``expected``
+        (kept in ``seen``, for the kernels line)."""
+        torch.cuda.synchronize()
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        check(got == no_launch | expected, f"{what}: launches {got}, expected {expected}")
+        seen.update({k: got[k] for k in expected})
+        return res
+
+    def suffix(dtype):
+        return "_f32" if dtype == f32 else ""
+
+    def limits(dtype):
+        return (TOL_F32_ATOL, TOL_F32_RTOL) if dtype == f32 else (TOL_LAYER_ATOL,
+                                                                 TOL_LAYER_RTOL)
+
+    def hold(what, got, want, want_cut, dtype, rms_limit=TOL_LAYER_RMS, atol_scale=1.0):
+        """``got`` against the plain version ``want`` (check_later), and the
+        same gate against ``want_cut``, the control, which must fail."""
+        atol, rtol = limits(dtype)
+        atol *= atol_scale
+        res = compare_elementwise(what, got, want, rms_limit, atol, rtol)
+        diff = (got.float() - want_cut.float()).abs()
+        c_excess = (diff - rtol * want_cut.float().abs()).max().item()
+        c_rms = rel_rms(got, want_cut)
+        res["control_failed"] = not (c_excess <= atol and c_rms <= rms_limit)
+        check(res["control_failed"], f"{what}: the gate passed its control (excess "
+                                     f"{c_excess}, relative RMS {c_rms})")
+        return res
+
+    def cut(t):
+        return cut_mantissa(t.detach(), CONTROL_MANTISSA_BITS).to(t.dtype)
+
+    def cut_weights(ws, idx=(1, 3, 6, 8)):
+        """A layer's ten weights with wqkv, wo, w1 and w2 cut."""
+        return [cut(w) if i in idx else w for i, w in enumerate(ws)]
+
+    def entry(name, cases, ms, plain_ms, library_ms, b_ms_by, max_abs_err, launches):
+        kernels[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=b_ms_by[0], bound_by=b_ms_by[1], max_abs_err=max_abs_err,
+                             cases=cases)
+        own[name] = launches
+        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f}, library "
+              f"{'none' if library_ms is None else f'{library_ms:.4f}'}, bound "
+              f"{b_ms_by[0]:.5f} by {b_ms_by[1]}); max abs err {max_abs_err:.3g} on {card}",
+              flush=True)
+
+    def lib_layer(layer, dtype, train=False):
+        return transformer_layer(layer, dtype, dev, train)
+
+    # ---- each family's check at one width and type, against its plain
+    # version with a control; ``label`` names the width in the messages
+
+    def check_k2(layer, d, dtype, shapes, label):
+        """K2 at each (S, B, causal, seq_bias) of ``shapes``: one counted
+        call each, under the short form's counter (S <= 32) or the long's."""
+        heads = layer.n_heads
+        ws = layer.weights(dtype)
+        cases = {}
+        for s, b, causal, with_bias in shapes:
+            x = randn(b, s, d).to(dtype)
+            sb = randn(b, d, scale=0.3).to(dtype) if with_bias else None
+            mask = key_mask(b, s)
+            args = (x, sb, *ws, mask, heads, causal)
+            key = ("layer_narrow" if s <= 32 else "layer_long_narrow") + suffix(dtype)
+            with torch.no_grad():
+                got = counted(f"K2 {label} S={s}", lambda: layer_ops.fused_layer(*args),
+                              {key: 1})
+                want = layer_ops.layer_reference(*args)
+                want_cut = layer_ops.layer_reference(x, sb, *cut_weights(ws), mask, heads,
+                                                     causal)
+            cases[f"S={s}"] = hold(f"K2 {label} B={b} S={s}" + (" causal" if causal else ""),
+                                   got, want, want_cut, dtype)
+        return cases
+
+    def check_k4(layer, d, dtype, fam, s, b, causal, label):
+        """K4 (``fam``: the short or the long form) at rate 0.1 with seq_bias,
+        saved mode counted, then the recompute mode; a control on the
+        forward and the gradients."""
+        heads = layer.n_heads
+        sfx = suffix(dtype)
+        x = randn(b, s, d).to(dtype)
+        sb = randn(b, d, scale=0.3).to(dtype)
+        mask = key_mask(b, s)
+        res = {"saved": counted(
+            f"K4 {label} S={s}",
+            lambda: check_layer_train(layer_vjp, f"{label} S={s}", layer, x, sb, mask, causal,
+                                      DROPOUT, outliers_aligned=True),
+            {f"{fam}_narrow_fwd{sfx}": 1, f"{fam}_narrow_bwd{sfx}": 1})}
+        res["recompute"] = check_layer_train(
+            layer_vjp, f"{label} S={s} recompute", layer, x, sb, mask, causal, DROPOUT,
+            save_residuals=False, narrow=True, outliers_aligned=True)
+        # the control: the kernel's forward and gradients against the plain
+        # version on the cut weights
+        masters = [w.detach().requires_grad_() for w in layer.masters()]
+        xl = x.detach().requires_grad_()
+        g = randn(*x.shape).to(dtype)
+        call = (xl, sb, *masters, mask, 1234, heads, causal, DROPOUT, dtype)
+        kout = layer_vjp.fused_layer_train(*call, save_residuals=True)
+        kgrads = torch.autograd.grad(kout, [xl, *masters], g)
+        cut_masters = [w.requires_grad_() if w is not m else w
+                       for w, m in zip(cut_weights(masters), masters)]
+        cref = layer_vjp.plain_layer_train(xl, sb, *cut_masters, mask, 1234, heads, causal,
+                                           DROPOUT, dtype)
+        cgrads = torch.autograd.grad(cref, [xl, *cut_masters], g)
+        atol, rtol = limits(dtype)
+        c_excess = ((kout.float() - cref.float()).abs() - rtol * cref.float().abs()).max().item()
+        c_rms = rel_rms(kout, cref)
+        verdicts = []
+        for n_, a_, c_ in zip(("x", "wqkv"), (kgrads[0], kgrads[2]), (cgrads[0], cgrads[2])):
+            compare_grad(f"K4 {label} S={s} control d{n_}", a_, c_, c_, dtype,
+                         report=lambda ok, what: verdicts.append(ok))
+        check((c_excess > atol or c_rms > TOL_LAYER_RMS) and not all(verdicts),
+              f"K4 {label} S={s}: a gate passed its control (forward excess {c_excess}, RMS "
+              f"{c_rms}; gradient verdicts {verdicts})")
+        res["control"] = {"forward_excess": c_excess, "forward_rms": c_rms,
+                          "gradient_verdicts": verdicts}
+        return res
+
+    def check_k7(d, heads, f, dtype, label):
+        """K7 at two layers, B=60, S=8, rate 0.1 over K7_DRAWS draws, and
+        its control; then one forward and backward, counted. Returns the
+        readings and that call's operands."""
+        sfx = suffix(dtype)
+        layers = seeded_layers(2, d, heads, f, dtype, dev, gen)
+        mask60 = key_mask(B_RECIPE, 8)
+        mask60[0] = 0.0                   # every sequence with a key
+
+        def draw(g_):
+            with torch.no_grad():
+                return (torch.randn(B_RECIPE, 8, d, device=dev, generator=g_),
+                        0.3 * torch.randn(2, B_RECIPE, d, device=dev, generator=g_), mask60)
+        torch.cuda.synchronize()
+        reset_counts()
+        k7 = check_stack_train(stack_vjp, layer_vjp, f"{label} B=60 L=2", layers, draw, DROPOUT,
+                               outliers_aligned=True)
+        torch.cuda.synchronize()
+        got_counts = read_counts()
+        check(got_counts["stack_fwd"] == 0 and got_counts["stack_bwd"] == 0
+              and got_counts[f"stack_narrow_fwd{sfx}"] > 0
+              and got_counts[f"stack_narrow_bwd{sfx}"] > 0, f"K7 {label}: launches {got_counts}")
+        control = check_stack_train(stack_vjp, layer_vjp, f"{label} B=60 L=2", layers, draw,
+                                    DROPOUT, outliers_aligned=True,
+                                    control_bits=CONTROL_MANTISSA_BITS)
+        check(any("with the ReLU units aligned" in m for m in control["failed"]),
+              f"K7 {label}: the gradient gate passed its control")
+        masters = stacked_masters(layers)
+        x7, bias7, _ = draw(gen)
+        x7 = x7.to(dtype).requires_grad_()
+        g7 = randn(*x7.shape).to(dtype)
+        call7 = (x7, bias7, *masters, mask60, 4321, heads, False, DROPOUT, dtype)
+        counted(f"K7 {label} one call",
+                lambda: torch.autograd.grad(stack_vjp.fused_stack_train(*call7), [x7, *masters],
+                                            g7),
+                {f"stack_narrow_fwd{sfx}": 1, f"stack_narrow_bwd{sfx}": 1})
+        return ({"worst": k7["worst"], "forward_max_abs_err": k7["forward_max_abs_err"],
+                 "control": control["failed"]},
+                dict(layers=layers, mask=mask60, x=x7, g=g7, masters=masters, call=call7))
+
+    def check_k9(d, heads, f, dtype, label):
+        """K9 on HD_DECODE's rows and layers at index 1 and the last; returns
+        the cases and the last index's operands."""
+        sfx = suffix(dtype)
+        r, t_len, n_l = HD_DECODE
+        stacks = [torch.stack(ws_) for ws_ in zip(*(
+            l_.weights(dtype) for l_ in seeded_layers(n_l, d, heads, f, dtype, dev, gen)))]
+        lnf = torch.stack([1 + randn(d, scale=0.1), randn(d, scale=0.1)]).to(dtype)
+        kc, vc = randn(n_l, r, t_len, d).to(dtype), randn(n_l, r, t_len, d).to(dtype)
+        kpad = torch.zeros(r, t_len, device=dev)
+        kpad[:, 3] = float("-inf")
+        xd = randn(r, d).to(dtype)
+        sbd = randn(n_l, r, d, scale=0.3).to(dtype)
+        cases = {}
+        for index in (1, t_len - 1):
+            dargs = (xd, sbd, *stacks, lnf, kc, vc, kpad, index, heads)
+            with torch.no_grad():
+                y, kn, vn = counted(f"K9 {label} index {index}",
+                                    lambda: decode_ops.fused_decode_step(*dargs),
+                                    {"decode" + sfx: 1, "decode_narrow" + sfx: 1})
+                want = decode_ops.decode_step_reference(*dargs)
+                want_cut = decode_ops.decode_step_reference(xd, sbd, *cut_weights(stacks), lnf,
+                                                            kc, vc, kpad, index, heads)
+            check(torch.equal(kn, want[1]) or rel_rms(kn, want[1]) <= TOL_DECODE_RMS,
+                  f"K9 {label} index {index}: the token's keys")
+            cases[f"index {index}"] = hold(f"K9 {label} R={r} index {index}", y, want[0],
+                                           want_cut[0], dtype, TOL_DECODE_RMS)
+        return cases, dargs
+
+    def mha_weights(dm, dtype):
+        wm = [(randn(3 * dm, dm, scale=dm ** -0.5)).to(dtype), randn(3 * dm, scale=0.1).to(dtype),
+              randn(dm, dm, scale=dm ** -0.5).to(dtype), randn(dm, scale=0.1).to(dtype)]
+        return wm, [cut(wm[0]), wm[1], cut(wm[2]), wm[3]]
+
+    def check_k10(dm, hm, dtype, wm, wm_cut, lengths, label):
+        """K10 at B=16 and each S of ``lengths`` (S=16 causal)."""
+        cases = {}
+        for s in lengths:
+            causal = s == 16
+            x = randn(16, s, dm).to(dtype)
+            mask = key_mask(16, s)
+            mask[0] = 0.0
+            with torch.no_grad():
+                got = counted(f"K10 {label} S={s}",
+                              lambda: attn_ops.fused_mha(x, *wm, mask, hm, causal),
+                              {"mha_narrow" + suffix(dtype): 1})
+                want = attn_ops.mha_reference(x, *wm, mask, hm, causal)
+                want_cut = attn_ops.mha_reference(x, *wm_cut, mask, hm, causal)
+            scale = want.float().pow(2).mean().sqrt().item() if dtype == f32 else 1.0
+            cases[f"D={dm} heads={hm} S={s}"] = hold(
+                f"K10 {label} S={s}" + (" causal" if causal else ""), got, want, want_cut, dtype,
+                atol_scale=scale)
+        return cases
+
+    def check_k11(dm, hm, dtype, wm, wm_cut, lengths, label):
+        """K11 at B=16, rate 0.1 and each S of ``lengths``: the forward, and
+        its five gradients against autograd and the plain backward."""
+        sfx = suffix(dtype)
+        cases = {}
+        for s in lengths:
+            x = randn(16, s, dm).to(dtype)
+            mask = key_mask(16, s)
+            mask[0] = 0.0
+            leaves = [t.clone().requires_grad_() for t in (x, *wm)]
+            g = randn(16, s, dm).to(dtype)
+
+            def k11():
+                o = attention_vjp.fused_mha_train(*leaves, mask, 2024, hm, False, DROPOUT)
+                return o, torch.autograd.grad(o, leaves, g)
+            got, grads = counted(f"K11 {label} S={s}", k11,
+                                 {"mha_train_narrow_fwd" + sfx: 1,
+                                  "mha_train_narrow_bwd" + sfx: 1})
+            want = attn_ops.mha_reference(*leaves, mask, hm, False, DROPOUT, 2024)
+            scale = want.float().pow(2).mean().sqrt().item() if dtype == f32 else 1.0
+            want_cut = attn_ops.mha_reference(x, *wm_cut, mask, hm, False, DROPOUT, 2024)
+            case = hold(f"K11 {label} S={s} rate {DROPOUT}", got, want.detach(), want_cut, dtype,
+                        atol_scale=scale)
+            names = ("x", "wqkv", "bqkv", "wo", "bo")
+            auto = torch.autograd.grad(want, leaves, g)
+            plain_b = attention_vjp.mha_backward_reference(x, g, *wm[:3], mask, hm, False,
+                                                           DROPOUT, 2024)
+            cut_b = attention_vjp.mha_backward_reference(x, g, *wm_cut[:3], mask, hm, False,
+                                                         DROPOUT, 2024)
+            case["grad_rms"] = {n: rel_rms(a, c) for n, a, c in zip(names, grads, auto)}
+            case["grad_rms_plain_backward"] = {
+                n: rel_rms(a, c.to(a.dtype)) for n, a, c in zip(names, grads, plain_b)}
+            case["grad_rms_control"] = {
+                n: rel_rms(a, c.to(a.dtype)) for n, a, c in zip(names, grads, cut_b)}
+            case["grad_max_abs_err"] = max((a.float() - c.float()).abs().max().item()
+                                           for a, c in zip(grads, plain_b))
+            worst_g = max(*case["grad_rms"].values(), *case["grad_rms_plain_backward"].values())
+            print(f"  gradients: relative RMS {case['grad_rms']}, against the plain backward "
+                  f"{case['grad_rms_plain_backward']} (limit {MHA_GRAD_RMS}); control "
+                  f"{case['grad_rms_control']}", flush=True)
+            check_later(worst_g <= MHA_GRAD_RMS, f"K11 {label} S={s}: gradient RMS {worst_g}")
+            check(max(case["grad_rms_control"].values()) > MHA_GRAD_RMS,
+                  f"K11 {label} S={s}: the gradient gate passed its control")
+            cases[f"D={dm} heads={hm} S={s}"] = case
+        return cases
+
+    for hd, (d, heads, f) in HD_SHAPES.items():
+        for dtype in (bf16, f32):
+            sfx = suffix(dtype)
+            label = f"head dim {hd} {dtype}"
+            peak = PEAK_TF32 if dtype == f32 else PEAK_BF16
+            layer = seeded_layers(1, d, heads, f, dtype, dev, gen)[0]
+            ws = layer.weights(dtype)
+
+            # ---- K2, short (S=1, 17, 32) and long (S=40; S=241 causal with seq_bias)
+            cases = check_k2(layer, d, dtype, ((1, HD_B, False, False), (17, HD_B, False, True),
+                                            (32, HD_B, False, False), (40, HD_B, False, False),
+                                            (241, 16, True, True)), label)
+            for fam, s in (("layer", 32), ("layer_long", 40)):
+                x = randn(HD_B, s, d).to(dtype)
+                mask = key_mask(HD_B, s)
+                mask[0] = 0.0
+                args = (x, None, *ws, mask, heads, False)
+                lib = lib_layer(layer, dtype)
+                pad = torch.isinf(mask)
+                with torch.no_grad():
+                    ms = cuda_ms(lambda: layer_ops.fused_layer(*args))
+                    plain_ms = cuda_ms(lambda: layer_ops.layer_reference(*args), iters=5,
+                                       warmup=1)
+                    lib_ms = cuda_ms(lambda: lib(x, src_key_padding_mask=pad))
+                part = {k: v for k, v in cases.items()
+                        if (int(k[2:]) <= 32) == (fam == "layer")}
+                entry(hd_name(fam, hd, dtype), part, ms, plain_ms, lib_ms, layer_cost(args),
+                      max(c["max_abs_err"] for c in part.values()),
+                      seen[f"{fam}_narrow{sfx}"])
+
+            # ---- K4: short (S=8, seq_bias) and long (S=40, causal, seq_bias),
+            # rate 0.1, both modes; a control on the forward and the gradients
+            k4 = {}
+            for fam, s, b, causal in (("layer_train", 8, 128, False),
+                                      ("layer_train_long", 40, 32, True)):
+                k4[fam] = check_k4(layer, d, dtype, fam, s, b, causal, label)
+                readings = [k4[fam]["saved"], k4[fam]["recompute"]]
+                # timed at B=HD_B (short) or 64 (long)
+                bt = HD_B if fam == "layer_train" else 64
+                xt = randn(bt, s, d).to(dtype)
+                maskt = key_mask(bt, s)
+                maskt[0] = 0.0
+                fwd, both = k4_runs(layer_vjp.fused_layer_train, layer, xt, None, maskt, causal,
+                                    gen=gen)
+                pfwd, pboth = k4_runs(layer_vjp.plain_layer_train, layer, xt, None, maskt, causal,
+                                      gen=gen)
+                lib = lib_layer(layer, dtype, train=True)
+                xlib = xt.detach().requires_grad_()
+                glib = torch.randn_like(xlib)
+                attn_mask = torch.full((s, s), float("-inf"), device=dev).triu(1) if causal \
+                    else None
+
+                def lib_fwd():
+                    with torch.no_grad():
+                        return lib(xlib, src_mask=attn_mask, is_causal=causal)
+
+                def lib_both():
+                    return torch.autograd.grad(lib(xlib, src_mask=attn_mask, is_causal=causal),
+                                               [xlib, *lib.parameters()], glib)
+                f_ms, fb_ms = cuda_ms(fwd), cuda_ms(both)
+                pf_ms = cuda_ms(pfwd, iters=5, warmup=1)
+                pfb_ms = cuda_ms(pboth, iters=5, warmup=1)
+                lf_ms, lfb_ms = cuda_ms(lib_fwd), cuda_ms(lib_both)
+                entry(hd_name(f"{fam}_fwd", hd, dtype),
+                      {m: r["forward_rms"] for m, r in zip(("saved", "recompute"), readings)},
+                      f_ms, pf_ms, lf_ms, k4_bound(xt, None, f, False, causal),
+                      max(r["forward_max_abs_err"] for r in readings),
+                      seen[f"{fam}_narrow_fwd{sfx}"])
+                entry(hd_name(f"{fam}_bwd", hd, dtype),
+                      {m: max(v["rms"] for v in r["grads"].values())
+                       for m, r in zip(("saved", "recompute"), readings)},
+                      fb_ms - f_ms, pfb_ms - pf_ms, lfb_ms - lf_ms,
+                      k4_bound(xt, None, f, True, causal),
+                      max(v["max_abs_err"] for r in readings for v in r["grads"].values()),
+                      seen[f"{fam}_narrow_bwd{sfx}"])
+            out[f"k4 {label}"] = k4
+
+            # ---- K7: two layers at B=60, S=8, rate 0.1, over K7_DRAWS draws; its control
+            k7, k7_ops = check_k7(d, heads, f, dtype, label)
+            out[f"k7 {label}"] = {"worst": k7["worst"], "control": k7["control"]}
+            layers, mask60 = k7_ops["layers"], k7_ops["mask"]
+            x7, g7, masters, call7 = k7_ops["x"], k7_ops["g"], k7_ops["masters"], k7_ops["call"]
+
+            def stack_fns(fn):
+                def fwd():
+                    with torch.no_grad():
+                        return fn(*call7)
+
+                def both():
+                    return torch.autograd.grad(fn(*call7), [x7, *masters], g7)
+                return fwd, both
+            kf, kb = stack_fns(stack_vjp.fused_stack_train)
+            pf, pb = stack_fns(stack_vjp.plain_stack_train)
+            lib = torch.nn.TransformerEncoder(lib_layer(layers[0], dtype, train=True), 2,
+                                              enable_nested_tensor=False)
+            for lib_l, l_ in zip(lib.layers, layers):
+                copy_layer(lib_l, l_)
+            lib.train()
+            xlib = x7.detach().requires_grad_()
+
+            def lib_fwd7():
+                with torch.no_grad():
+                    return lib(xlib)
+
+            def lib_both7():
+                return torch.autograd.grad(lib(xlib), [xlib, *lib.parameters()], g7)
+            f_ms, fb_ms = cuda_ms(kf), cuda_ms(kb)
+            pf_ms, pfb_ms = cuda_ms(pf, iters=5, warmup=1), cuda_ms(pb, iters=5, warmup=1)
+            lf_ms, lfb_ms = cuda_ms(lib_fwd7), cuda_ms(lib_both7)
+            # the bound of two layers: x in and out (forward) or g in and dx
+            # out (backward) once, both layers' weights (and their float32
+            # gradients) and injections, twice one layer's operations
+            es, rows7 = x7.element_size(), B_RECIPE * 8
+            w_elems = 4 * d * d + 2 * d * f + 9 * d + f
+            ops7 = 2 * (layer_ops_count(B_RECIPE, 8, d, f))
+            fb_ = bound(2 * rows7 * d * es + 2 * (w_elems + B_RECIPE * d) * es + nbytes(mask60),
+                        ops7, peak)
+            bb_ = bound(3 * rows7 * d * es + 2 * (w_elems * (es + 4) + B_RECIPE * d * 4)
+                        + nbytes(mask60), 2 * ops7, peak)
+            entry(hd_name("stack_fwd", hd, dtype), {"worst": k7["worst"]}, f_ms, pf_ms, lf_ms,
+                  fb_, k7["forward_max_abs_err"], seen[f"stack_narrow_fwd{sfx}"])
+            entry(hd_name("stack_bwd", hd, dtype), {"worst": k7["worst"]}, fb_ms - f_ms,
+                  pfb_ms - pf_ms, lfb_ms - lf_ms, bb_, k7["worst"]["max_abs_err"],
+                  seen[f"stack_narrow_bwd{sfx}"])
+
+            # ---- K9: R rows, two layers, at index 1 and the last
+            dec_cases, dargs = check_k9(d, heads, f, dtype, label)
+            xd, sbd, stacks, lnf, kpad = dargs[0], dargs[1], dargs[2:12], dargs[12], dargs[15]
+            r, t_len, n_l = HD_DECODE
+            index = t_len - 1
+            with torch.no_grad():
+                ms = cuda_ms(lambda: decode_ops.fused_decode_step(*dargs))
+                plain_ms = cuda_ms(lambda: decode_ops.decode_step_reference(*dargs), iters=5,
+                                   warmup=1)
+            es = xd.element_size()
+            d_bytes = (2 * n_l * r * index * d * es + nbytes(*stacks, lnf, xd, sbd, kpad)
+                       + 2 * n_l * r * d * es + r * d * es)
+            d_ops = 2.0 * r * n_l * (4 * d * d + 2 * d * f) + 4.0 * r * n_l * (index + 1) * d
+            entry(hd_name("decode", hd, dtype), dec_cases, ms, plain_ms, None,
+                  bound(d_bytes, d_ops, peak), max(c["max_abs_err"] for c in dec_cases.values()),
+                  seen["decode_narrow" + sfx])
+
+            # ---- K10 and K11 at the JAX tests' widths of this head dim
+            mha_k10, mha_k11 = {}, {}
+            for dm, hm in HD_MHA_WIDTHS:
+                if dm // hm != hd:
+                    continue
+                wm, wm_cut = mha_weights(dm, dtype)
+                mha_label = f"D={dm} heads {hm} {dtype}"
+                mha_k10.update(check_k10(dm, hm, dtype, wm, wm_cut, HD_MHA_S, mha_label))
+                mha_k11.update(check_k11(dm, hm, dtype, wm, wm_cut, (8, 40), mha_label))
+                if dm != d:
+                    continue
+                # timed at B=1024, S=32, beside F.linear -> SDPA -> F.linear;
+                # the launches of the last counted call at this width
+                launches_k10 = seen["mha_narrow" + sfx]
+                launches_k11 = (seen["mha_train_narrow_fwd" + sfx],
+                                seen["mha_train_narrow_bwd" + sfx])
+                bt, s = 1024, 32
+                x = randn(bt, s, dm).to(dtype)
+                mask = key_mask(bt, s)
+                mask[0] = 0.0
+
+                def lib_mha(x_, ws_=wm):
+                    qkv = F.linear(x_, ws_[0], ws_[1]).reshape(bt, s, 3, hm, dm // hm).permute(
+                        2, 0, 3, 1, 4)
+                    ctx = F.scaled_dot_product_attention(
+                        qkv[0], qkv[1], qkv[2], attn_mask=mask[:, None, None, :].to(x_.dtype),
+                        dropout_p=0.0)
+                    return F.linear(ctx.transpose(1, 2).reshape(bt, s, dm), ws_[2], ws_[3])
+                ops_m = 2.0 * bt * s * dm * 4 * dm + 4.0 * bt * s * s * dm
+                with torch.no_grad():
+                    ms = cuda_ms(lambda: attn_ops.fused_mha(x, *wm, mask, hm))
+                    plain_ms = cuda_ms(lambda: attn_ops.mha_reference(x, *wm, mask, hm), iters=5,
+                                       warmup=1)
+                    lib_ms = cuda_ms(lambda: lib_mha(x))
+                entry(hd_name("mha", hd, dtype), mha_k10, ms, plain_ms, lib_ms,
+                      bound(2 * nbytes(x) + nbytes(*wm, mask), ops_m, peak),
+                      max(c["max_abs_err"] for c in mha_k10.values()), launches_k10)
+                leaves = [t.clone().requires_grad_() for t in (x, *wm)]
+                g = randn(bt, s, dm).to(dtype)
+
+                def k11_fwd():
+                    with torch.no_grad():
+                        return attention_vjp.fused_mha_train(*leaves, mask, 7, hm, False, DROPOUT)
+
+                def k11_both():
+                    o = attention_vjp.fused_mha_train(*leaves, mask, 7, hm, False, DROPOUT)
+                    return torch.autograd.grad(o, leaves, g)
+
+                def p11_fwd():
+                    with torch.no_grad():
+                        return attn_ops.mha_reference(*leaves, mask, hm, False, DROPOUT, 7)
+
+                def p11_both():
+                    o = attn_ops.mha_reference(*leaves, mask, hm, False, DROPOUT, 7)
+                    return torch.autograd.grad(o, leaves, g)
+
+                def l11_fwd():
+                    with torch.no_grad():
+                        return lib_mha(leaves[0], leaves[1:])
+
+                def l11_both():
+                    return torch.autograd.grad(lib_mha(leaves[0], leaves[1:]), leaves, g)
+                f_ms, fb_ms = cuda_ms(k11_fwd), cuda_ms(k11_both)
+                pf_ms, pfb_ms = cuda_ms(p11_fwd, iters=5, warmup=1), cuda_ms(p11_both, iters=5,
+                                                                             warmup=1)
+                lf_ms, lfb_ms = cuda_ms(l11_fwd), cuda_ms(l11_both)
+                w_bytes = nbytes(*wm, mask)
+                entry(hd_name("mha_train_fwd", hd, dtype), mha_k11, f_ms, pf_ms, lf_ms,
+                      bound(2 * nbytes(x) + w_bytes, ops_m, peak),
+                      max(c["max_abs_err"] for c in mha_k11.values()), launches_k11[0])
+                entry(hd_name("mha_train_bwd", hd, dtype), mha_k11, fb_ms - f_ms,
+                      pfb_ms - pf_ms, lfb_ms - lf_ms,
+                      bound(3 * nbytes(x) + w_bytes + 4 * nbytes(*wm), 2 * ops_m, peak),
+                      max(c["grad_max_abs_err"] for c in mha_k11.values()), launches_k11[1])
+            del layer, layers, stacks, dargs, k7_ops
+            torch.cuda.empty_cache()
+
+    # ---- the other widths the rules send to these kernels (HD_WIDE): each
+    # family against its plain version with its control, counted, untimed
+    wide = {}
+    for d, heads, f in HD_WIDE:
+        for dtype in (bf16, f32):
+            label = f"D={d} heads {heads} {dtype}"
+            layer = seeded_layers(1, d, heads, f, dtype, dev, gen)[0]
+            row = {"K2": check_k2(layer, d, dtype, ((8, HD_B, False, True),
+                                                    (32, HD_B, False, False),
+                                                    (40, 64, True, True)), label)}
+            for fam, s, b, causal in (("layer_train", 8, 128, False),
+                                      ("layer_train_long", 40, 32, True)):
+                row[fam] = check_k4(layer, d, dtype, fam, s, b, causal, label)
+            if stack_vjp.stack_form(B_RECIPE, 8, d, f, heads, dtype) == "narrow":
+                row["K7"] = check_k7(d, heads, f, dtype, label)[0]
+            row["K9"] = check_k9(d, heads, f, dtype, label)[0]
+            wm, wm_cut = mha_weights(d, dtype)
+            row["K10"] = check_k10(d, heads, dtype, wm, wm_cut, (8, 16, 40), label)
+            row["K11"] = check_k11(d, heads, dtype, wm, wm_cut, (8, 40), label)
+            wide[label] = row
+            del layer, wm, wm_cut
+            torch.cuda.empty_cache()
+    out["wide"] = wide
+
+    # ================= the tiny configs' paths, counted, no plain version called
+    plain_fns = [(emb_ops, "embedding_reference"), (layer_ops, "layer_reference"),
+                 (head_ops, "head_argmax_reference"), (decode_ops, "decode_step_reference"),
+                 (layer_vjp, "layer_train_reference"), (stack_vjp, "layer_train_reference"),
+                 (ce_ops, "args_ce_reference")]
+
+    def path(what, fn, expected):
+        torch.cuda.synchronize()
+        calls, restore = count_plain_calls(plain_fns)
+        reset_counts()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        got = read_counts()
+        print(f"{what}: launches { {k: v for k, v in got.items() if v} }; plain versions "
+              f"called {calls}", flush=True)
+        check(got == no_launch | expected, f"{what}: launches {got}, expected {expected}")
+        check(not any(calls.values()), f"{what}: plain versions ran: {calls}")
+        path_launches[what] = {k: v for k, v in got.items() if v}
+        return res
+
+    def model_of(cfg, seed=HD_SEED):
+        model = SVGTransformer(cfg)
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        return model.to(dev)
+
+    def batch_of(cfg, n, keys=("commands", "args"), seed=0):
+        raw = generate_batch(np.random.default_rng(seed), n, cfg.max_num_groups, cfg.max_seq_len)
+        return {k: torch.from_numpy(raw[k]).to(dev) for k in keys}
+
+    def emb(sfx):
+        return {"embedding" + sfx: 1, "embedding_narrow": 1}
+    paths = {}
+    tiny = {bf16: dataclasses.replace(tiny_config(), compute_dtype="bfloat16"),
+            f32: tiny_config()}
+    expect_infer = {bf16: emb("") | {"layer_narrow": 3, "layer_narrow_f32": 1, "head": 1},
+                    f32: emb("_f32") | {"layer_narrow_f32": 4, "head_f32": 1}}
+    expect_step = {bf16: emb("") | {"layer_train_narrow_fwd": 3, "layer_train_narrow_bwd": 3,
+                                    "layer_train_narrow_fwd_f32": 1,
+                                    "layer_train_narrow_bwd_f32": 1, "args_ce_fwd": 1,
+                                    "args_ce_bwd": 1, "embedding_bwd": 1},
+                   f32: emb("_f32") | {"layer_train_narrow_fwd_f32": 4,
+                                       "layer_train_narrow_bwd_f32": 4, "args_ce_fwd_f32": 1,
+                                       "args_ce_bwd_f32": 1, "embedding_bwd": 1}}
+    for dtype, cfg in tiny.items():
+        sfx = suffix(dtype)
+        model = model_of(cfg).eval()
+        inp = batch_of(cfg, HD_N)
+        with torch.no_grad():
+            c, a = path(f"test_tiny {dtype} one_shot_sample N={HD_N}",
+                        lambda: one_shot_sample(model, inp["commands"], inp["args"]),
+                        expect_infer[dtype])
+            share = check_sample(c, a, HD_N, cfg)
+            again = one_shot_sample(model, inp["commands"][:8], inp["args"][:8])
+            check(torch.equal(again[0], c[:8]) and torch.equal(again[1], a[:8]),
+                  f"test_tiny {dtype}: sampling differs from call to call")
+            with plain_path(emb_ops, layer_ops, head_ops):
+                pc, pa = one_shot_sample(model, inp["commands"][:64], inp["args"][:64])
+            agree = (c[:64] == pc).float().mean().item()
+        paths[f"test_tiny {dtype} inference"] = {
+            "argument_share": share, "command_ids_equal_plain_path_share": agree,
+            "ms": cuda_median_ms(lambda: one_shot_sample(model, inp["commands"], inp["args"]),
+                                 iters=5, warmup=1)}
+        print(f"test_tiny {dtype} one_shot_sample N={HD_N}: valid, {share:.4f} of the argument "
+              f"slots set; command ids equal to the plain path's on {agree:.4f} of the first "
+              f"64 icons' slots; {paths[f'test_tiny {dtype} inference']['ms']:.3f} ms on {card}",
+              flush=True)
+        # the training CLI, HD_CLI_STEPS steps on the synthetic data
+        conf = load_config("deepsvg_tpu_torch.configs.test_tiny", 1)
+        conf.model_cfg = cfg
+        conf.model_args = cfg.get_model_args()
+        conf.val_every = conf.ckpt_every = 10 ** 9
+        conf.log_every = HD_CLI_STEPS // 2
+        with tempfile.TemporaryDirectory() as log_dir, \
+                open(os.path.join(OUT_DIR, f"cli_train_test_tiny{sfx}.log"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            state, stats = path(
+                f"test_tiny {dtype} CLI {HD_CLI_STEPS} steps",
+                lambda: train_mod.train(conf, "test_tiny", "smoke", log_dir=log_dir, debug=True,
+                                        max_steps=HD_CLI_STEPS, device=dev),
+                {k: v * HD_CLI_STEPS for k, v in expect_step[dtype].items()})
+        losses = list(stats.stats["train"]["loss"].deque)
+        check(state.step == HD_CLI_STEPS and losses and all(np.isfinite(v) for v in losses),
+              f"test_tiny {dtype} CLI: step {state.step}, losses {losses}")
+        paths[f"test_tiny {dtype} CLI"] = {"steps": state.step, "losses": losses}
+        print(f"test_tiny {dtype} CLI: {state.step} steps, logged losses {losses}", flush=True)
+        del model, state
+    # one bucket of the bfloat16 tiny model, exported and served
+    tmp = tempfile.mkdtemp(prefix="served_tiny_")
+    try:
+        model = model_of(tiny[bf16]).eval()
+        serving.export_session(model, tmp, batch_sizes=(HD_SERVE_BUCKET,))
+        fns = serving.load_session_exports(tmp)
+        inp = batch_of(tiny[bf16], HD_SERVE_BUCKET, seed=30)
+        c_in, a_in = inp["commands"].to(torch.int32), inp["args"].float()
+        with torch.no_grad():
+            z_live = model.encode(c_in, a_in)[0]
+            cmd_live, args_live = greedy_sample(model, z=z_live.float())
+        z = path("served test_tiny bf16 encode", lambda: fns["encode"][HD_SERVE_BUCKET](c_in, a_in),
+                 emb("") | {"layer_narrow": 1, "layer_narrow_f32": 1})
+        cmds, args_s = path("served test_tiny bf16 decode",
+                            lambda: fns["decode"][HD_SERVE_BUCKET](z.float()),
+                            {"layer_narrow": 2, "head": 1})
+        served_equal = bool(torch.equal(cmds, cmd_live) and torch.equal(args_s, args_live))
+        check(served_equal, "served test_tiny bucket: ids differ from the live call's")
+        paths["served test_tiny bf16"] = {
+            "bucket": HD_SERVE_BUCKET, "ids_equal": served_equal,
+            "z_max_abs_diff": float((z.float() - z_live.float()).abs().max())}
+        print(f"served test_tiny bf16 bucket {HD_SERVE_BUCKET}: ids equal to the live call's; z "
+              f"within {paths['served test_tiny bf16']['z_max_abs_diff']:.3g}", flush=True)
+        del model, fns
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # SMALL at dropout 0.1, B=HD_SMALL_B: E1 and D1 through K4 (both modes),
+    # E2 and D2 through K7
+    weights = dict(LOSS_WEIGHTS)
+    for dtype in (bf16, f32):
+        sfx = suffix(dtype)
+        cfg = dataclasses.replace(hierarchical(), use_vae=False,
+                                  compute_dtype="bfloat16" if dtype == bf16 else "float32",
+                                  **HD_SMALL)
+        batch = batch_of(cfg, HD_SMALL_B)
+        stack = {"stack_narrow_fwd" + sfx: 2, "stack_narrow_bwd" + sfx: 2}
+        common = emb(sfx) | stack | {"args_ce_fwd" + sfx: 1, "args_ce_bwd" + sfx: 1,
+                                     "embedding_bwd": 1}
+        for save in (True, False):
+            optimizer = make_optimizer(constant(LR))
+            state = create_train_state(model_of(cfg).train(), optimizer, init=False)
+            saved_default = layer_vjp.SAVE_RESIDUALS_DEFAULT
+            layer_vjp.SAVE_RESIDUALS_DEFAULT = save
+            try:
+                k4 = ({"layer_train_narrow_fwd" + sfx: 4, "layer_train_narrow_bwd" + sfx: 4}
+                      if save else {"layer_train_narrow_fwd" + sfx: 4,
+                                    "layer_train_recompute_bwd": 4})
+                what = f"SMALL {dtype} step B={HD_SMALL_B} dropout {DROPOUT}" + (
+                    "" if save else " recompute")
+                _, res = path(what, lambda: train_step(state, batch, weights, optimizer,
+                                                       MODEL_ARGS), common | k4)
+                ms = cuda_median_ms(lambda: train_step(state, batch, weights, optimizer,
+                                                       MODEL_ARGS), iters=5, warmup=1)
+            finally:
+                layer_vjp.SAVE_RESIDUALS_DEFAULT = saved_default
+            check(all(bool(torch.isfinite(v)) for v in res.values()), f"{what}: a loss")
+            paths[what] = {"losses": {k: float(v) for k, v in res.items()}, "ms": ms}
+            print(f"{what}: losses {paths[what]['losses']}; {ms:.3f} ms/step on {card}",
+                  flush=True)
+            del state, optimizer
+
+    # the one-stage autoregressive SMALL model: greedy_sample through K9
+    for dtype in (bf16, f32):
+        sfx = suffix(dtype)
+        cfg = dataclasses.replace(hierarchical(), use_vae=False,
+                                  compute_dtype="bfloat16" if dtype == bf16 else "float32",
+                                  **HD_AR)
+        model = model_of(cfg).eval()
+        inp = batch_of(cfg, HD_N, ("commands_grouped", "args_grouped"))
+        steps = cfg.max_total_len
+        with torch.no_grad():
+            c, a = path(f"SMALL autoregressive {dtype} greedy_sample N={HD_N}",
+                        lambda: greedy_sample(model, inp["commands_grouped"],
+                                              inp["args_grouped"]),
+                        emb(sfx) | {"layer_narrow" + sfx: 2, "decode" + sfx: steps,
+                                    "decode_narrow" + sfx: steps, "head" + sfx: steps})
+            check(bool(torch.isfinite(a.float()).all()) and int(c.min()) >= 0
+                  and int(c.max()) < cfg.n_commands, f"autoregressive {dtype}: output")
+            again = greedy_sample(model, inp["commands_grouped"][:8], inp["args_grouped"][:8])
+            check(torch.equal(again[0], c[:8]), f"autoregressive {dtype}: differs from call "
+                                                f"to call")
+        paths[f"SMALL autoregressive {dtype}"] = {
+            "ms": cuda_median_ms(lambda: greedy_sample(model, inp["commands_grouped"],
+                                                       inp["args_grouped"]), iters=3, warmup=1)}
+        print(f"SMALL autoregressive {dtype} greedy_sample N={HD_N}: {steps} steps, "
+              f"{paths[f'SMALL autoregressive {dtype}']['ms']:.3f} ms on {card}", flush=True)
+        del model
+
+    # the kernels line's launches: of the path that runs each form at head
+    # dim 8, else of its own counted call
+    on_path = {
+        ("layer", bf16): ("test_tiny torch.bfloat16 one_shot_sample", "layer_narrow"),
+        ("layer", f32): ("test_tiny torch.float32 one_shot_sample", "layer_narrow_f32"),
+        ("layer_train_fwd", bf16): ("test_tiny torch.bfloat16 CLI", "layer_train_narrow_fwd"),
+        ("layer_train_fwd", f32): ("test_tiny torch.float32 CLI", "layer_train_narrow_fwd_f32"),
+        ("layer_train_bwd", bf16): ("test_tiny torch.bfloat16 CLI", "layer_train_narrow_bwd"),
+        ("layer_train_bwd", f32): ("test_tiny torch.float32 CLI", "layer_train_narrow_bwd_f32"),
+        ("stack_fwd", bf16): ("SMALL torch.bfloat16 step", "stack_narrow_fwd"),
+        ("stack_fwd", f32): ("SMALL torch.float32 step", "stack_narrow_fwd_f32"),
+        ("stack_bwd", bf16): ("SMALL torch.bfloat16 step", "stack_narrow_bwd"),
+        ("stack_bwd", f32): ("SMALL torch.float32 step", "stack_narrow_bwd_f32"),
+        ("decode", bf16): ("SMALL autoregressive torch.bfloat16", "decode_narrow"),
+        ("decode", f32): ("SMALL autoregressive torch.float32", "decode_narrow_f32")}
+    launches = dict(own)
+    for (fam, dtype), (prefix, key) in on_path.items():
+        run = next(v for k, v in path_launches.items() if k.startswith(prefix))
+        launches[hd_name(fam, 8, dtype)] = run[key]
+    record["head_dims"] = {"checks": out, "paths": paths, "path_launches": path_launches,
+                           "phase_s": time.perf_counter() - t_phase}
+    print(f"head-dims phase: {record['head_dims']['phase_s']:.1f} s", flush=True)
+    return launches
+
+
 def reset_counts():
     """Every kernel wrapper's launch counters to 0."""
     from deepsvg_tpu_torch.ops import attention as attn_ops
@@ -5774,6 +6648,13 @@ def reset_counts():
     emb_ops.embedding_backward.launches = 0
     layer_ops.fused_layer.launches = layer_ops.fused_layer.float32_launches = 0
     layer_ops.fused_layer.narrow_launches = layer_ops.fused_layer_long.narrow_launches = 0
+    for fn in (layer_ops.fused_layer, layer_ops.fused_layer_long, decode_ops.fused_decode_step,
+               attn_ops.fused_mha, attention_vjp.fused_mha_train, layer_vjp.fused_layer_train,
+               layer_vjp.fused_layer_train_long, stack_vjp.fused_stack_train):
+        fn.narrow_float32_launches = 0
+    for fn in (attention_vjp.fused_mha_train, layer_vjp.fused_layer_train,
+               layer_vjp.fused_layer_train_long, stack_vjp.fused_stack_train):
+        fn.narrow_float32_backward_launches = 0
     head_ops.fused_head_argmax.launches = 0
     layer_vjp.fused_layer_train.launches = 0
     layer_vjp.fused_layer_train.backward_launches = 0
@@ -5816,6 +6697,11 @@ def read_counts() -> dict:
     from deepsvg_tpu_torch.ops import layer_vjp, stack_vjp
     def split(fn, name, total="launches", f32="float32_launches"):
         return {name: getattr(fn, total) - getattr(fn, f32), f"{name}_f32": getattr(fn, f32)}
+
+    def narrow_split(fn, name, direction=""):
+        # the first port's kernels (narrow_launches), bfloat16 and float32
+        return split(fn, name, f"narrow_{direction}launches",
+                     f"narrow_float32_{direction}launches")
     return {**split(emb_ops.fused_embedding, "embedding"),
             # K1 on its first kernel (widths the Hopper kernel does not
             # take; none on any path here: every count expected 0)
@@ -5839,8 +6725,8 @@ def read_counts() -> dict:
             **split(layer_ops.fused_layer_long, "layer_long"),
             **split(decode_ops.fused_decode_step, "decode"),
             # K9 on the older kernel (widths the cluster kernel does not
-            # take; none on any path here: every count expected 0)
-            "decode_narrow": decode_ops.fused_decode_step.narrow_launches,
+            # take: head dims 8 and 16, the head-dims phase alone), by type
+            **narrow_split(decode_ops.fused_decode_step, "decode_narrow"),
             **split(layer_vjp.fused_layer_train_long, "layer_train_long_fwd"),
             **split(layer_vjp.fused_layer_train_long, "layer_train_long_bwd",
                     "backward_launches", "float32_backward_launches"),
@@ -5849,17 +6735,17 @@ def read_counts() -> dict:
             "mha": (attn_ops.fused_mha.launches - attn_ops.fused_mha.float32_launches
                     - attn_ops.fused_mha.narrow_launches),
             "mha_f32": attn_ops.fused_mha.float32_launches,
-            "mha_narrow": attn_ops.fused_mha.narrow_launches,
+            **narrow_split(attn_ops.fused_mha, "mha_narrow"),
             "mha_train_fwd": (attention_vjp.fused_mha_train.launches
                               - attention_vjp.fused_mha_train.float32_launches
                               - attention_vjp.fused_mha_train.narrow_launches),
             "mha_train_fwd_f32": attention_vjp.fused_mha_train.float32_launches,
-            "mha_train_narrow_fwd": attention_vjp.fused_mha_train.narrow_launches,
+            **narrow_split(attention_vjp.fused_mha_train, "mha_train_narrow_fwd"),
             "mha_train_bwd": (attention_vjp.fused_mha_train.backward_launches
                               - attention_vjp.fused_mha_train.float32_backward_launches
                               - attention_vjp.fused_mha_train.narrow_backward_launches),
             "mha_train_bwd_f32": attention_vjp.fused_mha_train.float32_backward_launches,
-            "mha_train_narrow_bwd": attention_vjp.fused_mha_train.narrow_backward_launches,
+            **narrow_split(attention_vjp.fused_mha_train, "mha_train_narrow_bwd", "backward_"),
             "layer_train_recompute_fwd": layer_vjp.fused_layer_train.recompute_launches,
             "layer_train_recompute_bwd":
                 layer_vjp.fused_layer_train.recompute_backward_launches,
@@ -5867,20 +6753,19 @@ def read_counts() -> dict:
                 layer_vjp.fused_layer_train_long.recompute_launches,
             "layer_train_long_recompute_bwd":
                 layer_vjp.fused_layer_train_long.recompute_backward_launches,
-            # K4's bfloat16 short form at widths below its wgmma kernels'
-            # (none on any path here: every count expected 0)
-            "layer_train_narrow_fwd": layer_vjp.fused_layer_train.narrow_launches,
-            "layer_train_narrow_bwd": layer_vjp.fused_layer_train.narrow_backward_launches,
-            # K4's float32 long form at widths below its Hopper kernels' (none here)
-            "layer_train_long_narrow_fwd": layer_vjp.fused_layer_train_long.narrow_launches,
-            "layer_train_long_narrow_bwd":
-                layer_vjp.fused_layer_train_long.narrow_backward_launches,
-            # K7 at widths its cluster kernels do not take (none here)
-            "stack_narrow_fwd": stack_vjp.fused_stack_train.narrow_launches,
-            "stack_narrow_bwd": stack_vjp.fused_stack_train.narrow_backward_launches,
-            # K2's float32 form at widths below its wgmma kernels' (none here)
-            "layer_narrow_f32": (layer_ops.fused_layer.narrow_launches
-                                 + layer_ops.fused_layer_long.narrow_launches)}
+            # K4 at widths below its Hopper forms' (head dims 8 and 16: the
+            # head-dims phase alone), by type
+            **narrow_split(layer_vjp.fused_layer_train, "layer_train_narrow_fwd"),
+            **narrow_split(layer_vjp.fused_layer_train, "layer_train_narrow_bwd", "backward_"),
+            **narrow_split(layer_vjp.fused_layer_train_long, "layer_train_long_narrow_fwd"),
+            **narrow_split(layer_vjp.fused_layer_train_long, "layer_train_long_narrow_bwd",
+                           "backward_"),
+            # K7 at widths its cluster kernels do not take (likewise)
+            **narrow_split(stack_vjp.fused_stack_train, "stack_narrow_fwd"),
+            **narrow_split(stack_vjp.fused_stack_train, "stack_narrow_bwd", "backward_"),
+            # K2 at widths below its wgmma kernels' (likewise), short and long
+            **narrow_split(layer_ops.fused_layer, "layer_narrow"),
+            **narrow_split(layer_ops.fused_layer_long, "layer_long_narrow")}
 
 
 def main() -> int:
@@ -7239,6 +8124,10 @@ def main() -> int:
     # workers started during the serving phase)
     parallel_phase(dev, card, record, reset_counts, read_counts, workers)
 
+    # ======= head dims 8 and 16 on the first port's kernels, and the tiny
+    # configs' paths (their float32 products in TF32, as the model's)
+    hd_launches = head_dims_phase(dev, card, kernels, record, reset_counts, read_counts)
+
     # K5's forms and K8 beside their library calls and bounds
     forms = {n: kernels[n] for n in ("args_ce_fwd", "args_ce_bwd", "args_ce_fwd_512",
                                      "args_ce_bwd_512", "args_ce_fwd_f32", "args_ce_bwd_f32",
@@ -7318,6 +8207,7 @@ def main() -> int:
         "layer_train_long_recompute_bwd": (csrc + "layer_long_train.cu",
                                            "deepsvg_tpu/ops/layer_vjp.py:298"),
     }
+    source.update(hd_sources())
     # the entries of a kernel at another path's shapes count that path's launches
     counter = {"args_ce_fwd_512": "args_ce_fwd", "args_ce_bwd_512": "args_ce_bwd",
                "embedding_bwd_long": "embedding_bwd"}
@@ -7328,7 +8218,10 @@ def main() -> int:
         # B=128, (K7) the first CLI run at B=60, (K8) the self-match step,
         # (long K2, K9) Sketchformer's greedy_sample, or (long K4, and K5 and
         # K6 at Sketchformer's shapes) Sketchformer's training step
-        if name in counter:
+        if name in hd_launches:
+            # (head dims 8 and 16) the tiny configs' path that runs it, or its own call
+            count = hd_launches[name]
+        elif name in counter:
             count = sf_launches[counter[name]]
         elif name in rc_launches:
             # (K4's recompute mode) the step at B=128 (short form) or

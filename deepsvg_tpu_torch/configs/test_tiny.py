@@ -1,7 +1,9 @@
 """Tiny smoke-test config, counterpart of ``configs_tpu/test_tiny.py``: small
-model dims and the synthetic dataset, for quick CLI runs with ``--device
-cpu``. Its head dim (8) is below the card kernels' 32, so on the card it
-raises at the first layer. It gives the loss the icons config's weights:
+model dims (d_model 32, 4 heads of 8, FF 64, one layer a stack) and the
+synthetic dataset, for quick CLI runs on the card or with ``--device cpu``.
+On the card its layers run the first port's kernels at head dim 8 (in
+bfloat16 under ``gpu_fast``, in float32 as it stands), counted under the
+wrappers' ``narrow_launches``. It gives the loss the icons config's weights:
 the JAX package's config gives none (``TrainConfig.get_weights`` returns an
 empty dict), so its CLI fails at the first step on the missing
 ``loss_visibility_weight``."""

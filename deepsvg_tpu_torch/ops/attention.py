@@ -56,11 +56,14 @@ without LN1, the residual, LN2 and the FF (:func:`mha_form` picks the form):
   to TF32 where they are written for a product, the weights once
   (``layer.tf32_copy``).
 
-Other widths (D < 256, head dim 32) keep the first port's kernels
+Other widths (D <= 256 with head dim 32, 16 or 8, e.g. the JAX tests' D=64
+with 4 heads and D=32 with 2 or 4) keep the first port's kernels
 (``csrc/attention.cu``: QKV over row tiles on ``wmma`` into a scratch
 tensor, then a block per (sequence, query tile) running the long layer's
-``attend_tile`` and the output projection), counted under
-``narrow_launches``. No form falls back to another or to the CPU.
+``attend_tile`` and the output projection; the head dim a template
+parameter, a head below 16 columns padded with zero columns to a tensor-core
+tile), counted under ``narrow_launches``. No form falls back to another or
+to the CPU. Every launch passes the scale ``(D / heads) ** -0.5``.
 """
 from __future__ import annotations
 
@@ -71,7 +74,8 @@ import torch
 from . import _build
 from .ce import _RoundGrad
 from .dropout import SITE_ATTN_PROB, dropout_factor
-from .layer import HEAD_DIM, MAX_SEQ, MAX_SEQ_LONG, _mm, tf32_copy
+from .layer import (
+    HOPPER_HEADS, MAX_SEQ, MAX_SEQ_LONG, _mm, head_dim, softmax_scale, tf32_copy)
 
 HOPPER_WIDTH = 256   # the D of the Hopper forms (8 heads of 32)
 
@@ -169,14 +173,15 @@ def mha_form(dtype, d: int, n_heads: int, s: int) -> str:
     (bfloat16, S <= 32: one launch), ``"bf16_long"`` (bfloat16, 33 <= S <=
     256: three launches) or ``"f32"`` (float32, S <= 256: three launches)
     at D=256 with 8 heads; ``"narrow"`` (the first port's kernels) at the
-    other widths with head dim 32 up to D=256. Raises on any other shape or
-    dtype."""
+    other widths with head dim 32, 16 or 8 up to D=256. Raises on any other
+    shape or dtype."""
     if dtype not in _build.KERNEL_DTYPES:
         raise ValueError(f"x has dtype {dtype}, expected bfloat16 or float32")
-    if d != n_heads * HEAD_DIM or d > 256 or not 1 <= s <= MAX_SEQ_LONG:
-        raise ValueError(f"the attention kernel takes head dim {HEAD_DIM}, D <= 256 and "
+    head_dim(d, n_heads)
+    if d > 256 or d % 16 or not 1 <= s <= MAX_SEQ_LONG:
+        raise ValueError(f"the attention kernel takes D <= 256, a multiple of 16, and "
                          f"1 <= S <= {MAX_SEQ_LONG}; got D={d}, heads={n_heads}, S={s}")
-    if d != HOPPER_WIDTH:
+    if d != HOPPER_WIDTH or n_heads != HOPPER_HEADS:
         return "narrow"
     if dtype == torch.float32:
         return "f32"
@@ -232,14 +237,15 @@ def launch_forward(x, wqkv, bqkv, wo, bo, mask, n_heads: int, causal: bool, seed
         ptrs = [t.data_ptr() for t in (x, wqkv, bqkv, wo, bo, mask, out, qkv)]
         fn = _build.kernel_function("dsvg_mha_fwd", _ARGTYPES)
         rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, n_heads, int(causal),
-                int(dt == torch.float32), int(seed), thr, kp, HEAD_DIM ** -0.5, stream)
+                int(dt == torch.float32), int(seed), thr, kp, softmax_scale(d, n_heads), stream)
         _build.check_launch(rc, "mha_fwd")
         return out
     keep = parts is not None
     # the long forms' head-major QKV and context scratch; the short form's
     # context only where a caller keeps it
     head_major = (None if form == "bf16_short"
-                  else torch.empty((n_heads, rows, 3 * HEAD_DIM), dtype=dt, device=dev))
+                  else torch.empty((n_heads, rows, 3 * head_dim(d, n_heads)), dtype=dt,
+                                   device=dev))
     ctx = (torch.empty((rows, d), dtype=dt, device=dev) if keep or form != "bf16_short"
            else None)
     qkv_rows = torch.empty((rows, 3 * d), dtype=dt, device=dev) if keep else None
@@ -250,19 +256,20 @@ def launch_forward(x, wqkv, bqkv, wo, bo, mask, n_heads: int, causal: bool, seed
                                 _HOPPER_ARGTYPES)
     rc = fn(x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
             mask.data_ptr(), out.data_ptr(), _ptr(head_major), _ptr(ctx), _ptr(qkv_rows),
-            _ptr(probs), b, s, int(causal), int(seed), thr, kp, HEAD_DIM ** -0.5, stream)
+            _ptr(probs), b, s, int(causal), int(seed), thr, kp, softmax_scale(d, n_heads), stream)
     _build.check_launch(rc, f"mha {form}")
     if keep:
         parts.update(qkv=qkv_rows, p=probs, ctx=ctx)
     return out
 
 
-def count_launch(fn, form: str) -> None:
+def count_launch(fn, form: str, dtype) -> None:
     """One more forward call of ``fn`` (:func:`fused_mha` or
-    ``fused_mha_train``), under its form's counter too."""
+    ``fused_mha_train``) in ``dtype``, under its form's counter too."""
     fn.launches += 1
     fn.float32_launches += form == "f32"
     fn.narrow_launches += form == "narrow"
+    fn.narrow_float32_launches += form == "narrow" and dtype == torch.float32
 
 
 def fused_mha(x, wqkv, bqkv, wo, bo, mask, n_heads: int, causal: bool = False):
@@ -270,7 +277,7 @@ def fused_mha(x, wqkv, bqkv, wo, bo, mask, n_heads: int, causal: bool = False):
 
     A CPU tensor takes :func:`mha_reference`; a CUDA tensor launches K10
     (operands all bfloat16 or all float32, :func:`mha_form`'s shapes: head
-    dim 32, D <= 256, 1 <= S <= 256) or raises.
+    dim 32, 16 or 8, D <= 256, 1 <= S <= 256) or raises.
     """
     if x.device.type == "cpu":
         return mha_reference(x, wqkv, bqkv, wo, bo, mask, n_heads, causal)
@@ -282,11 +289,12 @@ def fused_mha(x, wqkv, bqkv, wo, bo, mask, n_heads: int, causal: bool = False):
     with torch.no_grad():
         out = launch_forward(x, wqkv, bqkv, wo, bo, mask, n_heads, causal, 0, 0, 1.0)
     if x.shape[0] > 0:
-        count_launch(fused_mha, form)
+        count_launch(fused_mha, form, x.dtype)
     return out
 
 
 fused_mha.launches = 0            # calls: 1 launch (bf16, S <= 32), 3 (the other
                                   # Hopper forms) or 2 (narrow) each
 fused_mha.float32_launches = 0    # those of the float32 form
-fused_mha.narrow_launches = 0     # those of the first port's kernels (D < 256)
+fused_mha.narrow_launches = 0     # those of the first port's kernels (other widths)
+fused_mha.narrow_float32_launches = 0   # of those, the float32 ones

@@ -74,9 +74,9 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import check_mha_inputs, count_launch, launch_forward, mha_reference
+from .attention import check_mha_inputs, count_launch, launch_forward, mha_form, mha_reference
 from .dropout import SITE_ATTN_PROB, drop_threshold, dropout_factor, keep_scale
-from .layer import HEAD_DIM, MAX_SEQ, _mm, tf32_copy
+from .layer import MAX_SEQ, _mm, head_dim, softmax_scale, tf32_copy
 from .layer_vjp import _padded_rows, reduce_partials, weight_products, weight_products_hopper
 
 _BWD_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 8
@@ -145,8 +145,9 @@ def _pad_rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def _narrow_backward(x, g, wqkv, bqkv, wo, mask, n_heads, causal, seed, thr, kp):
-    """The first port's backward (``csrc/attention.cu``, D < 256): three
-    launches, ``csrc/wgrad.cu``'s weight products and the reductions."""
+    """The first port's backward (``csrc/attention.cu``, the widths
+    :func:`~.attention.mha_form` names ``"narrow"``): three launches,
+    ``csrc/wgrad.cu``'s weight products and the reductions."""
     b, s, d = x.shape
     dev, dt = x.device, x.dtype
     rows = b * s
@@ -166,7 +167,7 @@ def _narrow_backward(x, g, wqkv, bqkv, wo, mask, n_heads, causal, seed, thr, kp)
                                    small)]
     fn = _build.kernel_function("dsvg_mha_bwd", _BWD_ARGTYPES)
     rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, n_heads, causal, is_f32, seed, thr,
-            kp, HEAD_DIM ** -0.5, stream)
+            kp, softmax_scale(d, n_heads), stream)
     _build.check_launch(rc, "mha_bwd")
     # nn.Linear layout [out, in]: dWqkv = dqkv^T x, dWo = g^T ctx
     dwqkv, dwo = weight_products(
@@ -201,7 +202,7 @@ def launch_backward(x, g, wqkv, bqkv, wo, mask, n_heads: int, causal: int, seed:
     # QKV head-major (the float32 attention's and the bfloat16 long form's
     # layout) and row-major (the bfloat16 attention backward's; in float32
     # only for a caller's view)
-    heads = empty(n_heads, rows, 3 * HEAD_DIM) if f32 or s > MAX_SEQ else None
+    heads = empty(n_heads, rows, 3 * head_dim(d, n_heads)) if f32 or s > MAX_SEQ else None
     qkv = empty(rows, 3 * d) if not f32 or parts is not None else None
     # the probabilities in float32 in both types: the softmax backward takes
     # them unrounded, as the JAX rule does
@@ -217,7 +218,8 @@ def launch_backward(x, g, wqkv, bqkv, wo, mask, n_heads: int, causal: int, seed:
     fn = _build.kernel_function(name, _HOPPER_BWD_ARGTYPES)
     ptrs = [None if t is None else t.data_ptr()
             for t in (x, g, *w, mask, heads, qkv, probs, ctx, dctx, dqkv, dx)]
-    _build.check_launch(fn(*ptrs, b, s, causal, seed, thr, kp, HEAD_DIM ** -0.5, stream), name)
+    _build.check_launch(fn(*ptrs, b, s, causal, seed, thr, kp, softmax_scale(d, n_heads),
+                           stream), name)
     # nn.Linear layout [out, in]: dWqkv = dqkv^T x, dWo = g^T ctx, and the
     # column sums of dqkv and g
     (dwqkv, dwo), (dbqkv, dbo) = weight_products_hopper(
@@ -235,15 +237,13 @@ class _FusedMHATrain(torch.autograd.Function):
         x = x.contiguous()
         mask = mask.to(torch.float32).contiguous()
         weights = [w.detach().contiguous() for w in (wqkv, bqkv, wo, bo)]
-        form = check_mha_inputs(x, *weights, mask, n_heads)
-        if x.shape[2] % 64:
-            raise ValueError(f"the attention training kernel takes D a multiple of 64, "
-                             f"got D={x.shape[2]}")
+        check_mha_inputs(x, *weights, mask, n_heads)
+        form = mha_train_form(x.dtype, x.shape[2], n_heads, x.shape[1])
         thr = drop_threshold(rate) if rate > 0.0 else 0
         kp = keep_scale(rate) if rate > 0.0 else 1.0
         out = launch_forward(x, *weights, mask, n_heads, causal, seed, thr, kp)
         if x.shape[0] > 0:
-            count_launch(fused_mha_train, form)
+            count_launch(fused_mha_train, form, x.dtype)
         ctx.save_for_backward(x, *weights[:3], mask)
         ctx.meta = (n_heads, int(causal), int(seed), thr, kp, form)
         return out
@@ -259,8 +259,21 @@ class _FusedMHATrain(torch.autograd.Function):
             fused_mha_train.backward_launches += 1
             fused_mha_train.float32_backward_launches += form == "f32"
             fused_mha_train.narrow_backward_launches += form == "narrow"
+            fused_mha_train.narrow_float32_backward_launches += (
+                form == "narrow" and x.dtype == torch.float32)
         return (dx, dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dwo.to(wo.dtype),
                 dbo.to(wo.dtype), None, None, None, None, None)
+
+
+def mha_train_form(dtype, d: int, n_heads: int, s: int) -> str:
+    """The kernels K11 runs on, forward and backward: those
+    :func:`~.attention.mha_form` names, where D is a multiple of 32 (the
+    older weight products' warp tiles, ``csrc/wgrad.cu``); raises
+    otherwise."""
+    form = mha_form(dtype, d, n_heads, s)
+    if d % 32:
+        raise ValueError(f"the attention training kernel takes D a multiple of 32, got D={d}")
+    return form
 
 
 def fused_mha_train(x, wqkv, bqkv, wo, bo, mask, seed: int, n_heads: int,
@@ -272,8 +285,8 @@ def fused_mha_train(x, wqkv, bqkv, wo, bo, mask, seed: int, n_heads: int,
 
     A CPU tensor takes :func:`ops.attention.mha_reference` under autograd; a
     CUDA tensor runs K11 (operands all bfloat16 or all float32, head dim 32,
-    D <= 256 a multiple of 64, 1 <= S <= 256; the Hopper forms at D=256) or
-    raises.
+    16 or 8, D <= 256 a multiple of 32, 1 <= S <= 256; the Hopper forms at
+    D=256 with 8 heads; :func:`mha_train_form` names them) or raises.
 
     The backward at D=256 keeps, for the length of its call, the
     probabilities in float32: a scratch of B * H * S^2 * 4 bytes (112 MB at
@@ -290,8 +303,10 @@ def fused_mha_train(x, wqkv, bqkv, wo, bo, mask, seed: int, n_heads: int,
 
 fused_mha_train.launches = 0            # forward calls (K10's launches with dropout)
 fused_mha_train.float32_launches = 0    # those of the float32 form
-fused_mha_train.narrow_launches = 0     # those of the first port's kernels (D < 256)
+fused_mha_train.narrow_launches = 0     # those of the first port's kernels (other widths)
 fused_mha_train.backward_launches = 0   # backward calls (at D=256: 6 launches in
                                         # bfloat16, 7 in float32)
 fused_mha_train.float32_backward_launches = 0   # those of the float32 form
-fused_mha_train.narrow_backward_launches = 0    # those of the first port's kernels (D < 256)
+fused_mha_train.narrow_backward_launches = 0    # those of the first port's kernels
+fused_mha_train.narrow_float32_launches = 0     # of the narrow ones, the float32 ones
+fused_mha_train.narrow_float32_backward_launches = 0

@@ -11,8 +11,10 @@
 // those forward launches in save mode, K4's saved-mode attention backward
 // and the wgmma row and weight products (layer_bwd.cu: dsvg_mha_bwd_bf16;
 // layer_f32_bwd.cu: dsvg_mha_bwd_f32). This file keeps the first port's
-// forward and backward for the other widths (D < 256, head dim 32), counted
-// under narrow_launches.
+// forward and backward for the other widths (D <= 256 with head dim 8, 16
+// or 32, a template parameter picked from D / H at the entry points; heads
+// below 16 columns padded with zero columns to a tensor-core tile in shared
+// memory), counted under narrow_launches.
 //
 // Forward at the other widths (K10, and K11's forward with dropout on the
 // probabilities), two launches:
@@ -120,11 +122,11 @@ __global__ void __launch_bounds__(NTHREADS) mha_qkv_kernel(MhaParams<T> p, T* qk
                            });
 }
 
-template <class T, int QROWS>
+template <class T, int QROWS, int HD>
 __global__ void __launch_bounds__(NTHREADS) mha_attn_kernel(MhaParams<T> p, const T* qkv) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = p.D, S = p.S;
-  const LongLayout<T, QROWS> lay(S, D, 0);
+  const LongLayout<T, QROWS, HD> lay(S, D, 0);
   T* ctx = reinterpret_cast<T*>(smem + lay.ctx);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* wscr = reinterpret_cast<float*>(smem + lay.scratch) + warp * 256;
@@ -134,7 +136,7 @@ __global__ void __launch_bounds__(NTHREADS) mha_attn_kernel(MhaParams<T> p, cons
   const int nq = min(QROWS, S - q0);
   const size_t tile_row0 = (size_t)b * S + q0;
 
-  attend_tile<T, QROWS>(qkv, p.mask + (size_t)b * S, b, q0, nq, S, D, p.H, p.causal, p.scale,
+  attend_tile<T, QROWS, HD>(qkv, p.mask + (size_t)b * S, b, q0, nq, S, D, p.H, p.causal, p.scale,
                         lay, smem, ctx, wscr, warp, lane, p.thr != 0u, p.seed, p.thr, p.kp,
                         nullptr);
   tile_gemm<T, QROWS, true>(ctx, lay.ldn, p.wo, D, D, D, wscr, warp, lane, nullptr,
@@ -148,6 +150,7 @@ __global__ void __launch_bounds__(NTHREADS) mha_attn_kernel(MhaParams<T> p, cons
 template <class T>
 int launch_forward(MhaParams<T> p, T* qkv, cudaStream_t stream) {
   constexpr int ROWS = Tile<T>::ROWS;
+  if (!narrow_head_dim(p.D, p.H)) return (int)cudaErrorInvalidValue;
   const size_t smem1 = (size_t)ROWS * (p.D + SPAD) * sizeof(T) + NWARPS * 256 * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(mha_qkv_kernel<T, ROWS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
@@ -156,13 +159,17 @@ int launch_forward(MhaParams<T> p, T* qkv, cudaStream_t stream) {
   mha_qkv_kernel<T, ROWS><<<(unsigned)((rows + ROWS - 1) / ROWS), NTHREADS, smem1, stream>>>(
       p, qkv);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t smem2 = LongLayout<T, ROWS>(p.S, p.D, 0).total;
-  err = cudaFuncSetAttribute(mha_attn_kernel<T, ROWS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)p.B * ((p.S + ROWS - 1) / ROWS);
-  mha_attn_kernel<T, ROWS><<<blocks, NTHREADS, smem2, stream>>>(p, qkv);
-  return (int)cudaGetLastError();
+  return with_head_dim(p.D, p.H, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    const size_t smem2 = LongLayout<T, ROWS, HD>(p.S, p.D, 0).total;
+    cudaError_t e2 = cudaFuncSetAttribute(mha_attn_kernel<T, ROWS, HD>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)smem2);
+    if (e2 != cudaSuccess) return (int)e2;
+    mha_attn_kernel<T, ROWS, HD><<<blocks, NTHREADS, smem2, stream>>>(p, qkv);
+    return (int)cudaGetLastError();
+  });
 }
 
 // ---- backward (a): QKV recompute, dctx = g Wo, column sums of g
@@ -201,15 +208,16 @@ __global__ void __launch_bounds__(NTHREADS) mha_bwd_rows_kernel(MhaBwdParams<T> 
                             });
 }
 
-// ---- backward (b): the attention of one (sequence, head)
-template <class T, int QT>
+// ---- backward (b): the attention of one (sequence, head) of HD columns,
+// its slices padded with zeros to head_pad(HD)
+template <class T, int QT, int HD>
 struct AttnBwdLayout {
   int spad, qpad, ldh, lds, ldp;
   size_t q, k, v, dc, sc, dp, scratch, total;
   __host__ __device__ AttnBwdLayout(int S) {
     spad = round16(S);
     qpad = (S + QT - 1) / QT * QT;
-    ldh = HEAD_DIM + HPAD;
+    ldh = head_pad(HD) + HPAD;
     lds = spad + 8;                                  // f32 elements a row of scores / dPe
     ldp = lds * (int)(sizeof(float) / sizeof(T));    // T elements a row of Pe / dS (in place)
     q = 0;
@@ -223,12 +231,14 @@ struct AttnBwdLayout {
   }
 };
 
-template <class T, int QT>
+template <class T, int QT, int HD>
 __global__ void __launch_bounds__(NTHREADS) mha_attn_bwd_kernel(MhaBwdParams<T> p) {
   typedef Mma<T> M;
+  constexpr int KD = (HD + M::K - 1) / M::K * M::K;   // the score products' depth
+  constexpr int NC = head_pad(HD) / 16;               // 16-column tiles of a head
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = p.D, S = p.S, H = p.H;
-  const AttnBwdLayout<T, QT> lay(S);
+  const AttnBwdLayout<T, QT, HD> lay(S);
   T* qs = reinterpret_cast<T*>(smem + lay.q);
   T* ks = reinterpret_cast<T*>(smem + lay.k);
   T* vs = reinterpret_cast<T*>(smem + lay.v);
@@ -247,16 +257,16 @@ __global__ void __launch_bounds__(NTHREADS) mha_attn_bwd_kernel(MhaBwdParams<T> 
   const unsigned key_ap = site_key(p.seed, SITE_ATTN_PROB);
   const size_t ld3 = 3 * (size_t)D;
 
-  load_head(p.qkv, seq_row0, S, lay.qpad, 3 * D, h * HEAD_DIM, qs, ldh);
-  load_head(p.qkv, seq_row0, S, lay.spad, 3 * D, D + h * HEAD_DIM, ks, ldh);
-  load_head(p.qkv, seq_row0, S, lay.spad, 3 * D, 2 * D + h * HEAD_DIM, vs, ldh);
+  load_head<HD>(p.qkv, seq_row0, S, lay.qpad, 3 * D, h * HD, qs, ldh);
+  load_head<HD>(p.qkv, seq_row0, S, lay.spad, 3 * D, D + h * HD, ks, ldh);
+  load_head<HD>(p.qkv, seq_row0, S, lay.spad, 3 * D, 2 * D + h * HD, vs, ldh);
 
-  // dK and dV of key tiles warp and warp + 8, columns 0-15 and 16-31
-  typename M::Acc dk[2][2], dv[2][2];
+  // dK and dV of key tiles warp and warp + 8, 16 columns a tile
+  typename M::Acc dk[2][NC], dv[2][NC];
 #pragma unroll
   for (int a = 0; a < 2; ++a)
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < NC; ++c) {
       wmma::fill_fragment(dk[a][c], 0.f);
       wmma::fill_fragment(dv[a][c], 0.f);
     }
@@ -265,7 +275,7 @@ __global__ void __launch_bounds__(NTHREADS) mha_attn_bwd_kernel(MhaBwdParams<T> 
     const int nq = min(QT, S - q0);
     const int kmax = p.causal ? q0 + nq : S;        // keys any query of the tile sees
     const int nk = round16(kmax);
-    load_head(p.dctx, seq_row0 + q0, nq, QT, D, h * HEAD_DIM, dcs, ldh);
+    load_head<HD>(p.dctx, seq_row0 + q0, nq, QT, D, h * HD, dcs, ldh);
     __syncthreads();
 
     // scores [QT][nk] = Q K^T and dPe [QT][nk] = dctx V^T (f32)
@@ -279,7 +289,7 @@ __global__ void __launch_bounds__(NTHREADS) mha_attn_bwd_kernel(MhaBwdParams<T> 
       typename M::Acc acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-      for (int k = 0; k < HEAD_DIM; k += M::K) {
+      for (int k = 0; k < KD; k += M::K) {
         typename M::ARow a;
         typename M::BCol bk;
         wmma::load_matrix_sync(a, a_src + k, ldh);
@@ -342,10 +352,10 @@ __global__ void __launch_bounds__(NTHREADS) mha_attn_bwd_kernel(MhaBwdParams<T> 
 
     // the context of the tile's rows, Pe V (rounded; the forward's, for dWo),
     // and dQ = dS K * scale (rounded), both written
-    for (int t = warp; t < 2 * (QT / 16) * (HEAD_DIM / 16); t += NWARPS) {
-      const bool grad = t >= (QT / 16) * (HEAD_DIM / 16);
-      const int tt = grad ? t - (QT / 16) * (HEAD_DIM / 16) : t;
-      const int i = tt / (HEAD_DIM / 16), c = tt - i * (HEAD_DIM / 16);
+    for (int t = warp; t < 2 * (QT / 16) * NC; t += NWARPS) {
+      const bool grad = t >= (QT / 16) * NC;
+      const int tt = grad ? t - (QT / 16) * NC : t;
+      const int i = tt / NC, c = tt - i * NC;
       const T* a_src = (grad ? dS : pes) + i * 16 * ldp;
       const T* b_src = (grad ? ks : vs) + c * 16;
       typename M::Acc acc;
@@ -363,9 +373,9 @@ __global__ void __launch_bounds__(NTHREADS) mha_attn_bwd_kernel(MhaBwdParams<T> 
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
         const int r = i * 16 + e / 16;
-        if (r < nq) {
+        if (r < nq && c * 16 + e % 16 < HD) {
           const size_t row = seq_row0 + q0 + r;
-          const int col = h * HEAD_DIM + c * 16 + e % 16;
+          const int col = h * HD + c * 16 + e % 16;
           if (grad)
             p.dqkv[row * ld3 + col] = from_f<T>(wscr[e] * p.scale);
           else
@@ -381,7 +391,7 @@ __global__ void __launch_bounds__(NTHREADS) mha_attn_bwd_kernel(MhaBwdParams<T> 
       const int kt16 = (warp + NWARPS * a) * 16;
       if (kt16 >= nk) continue;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
+      for (int c = 0; c < NC; ++c) {
         for (int k = 0; k < QT; k += M::K) {
           typename M::ACol pa, sa;
           typename M::BRow db, qb;
@@ -407,7 +417,7 @@ __global__ void __launch_bounds__(NTHREADS) mha_attn_bwd_kernel(MhaBwdParams<T> 
     const int kt16 = (warp + NWARPS * a) * 16;
     if (kt16 >= S) continue;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < NC; ++c) {
 #pragma unroll
       for (int which = 0; which < 2; ++which) {
         if (which)
@@ -417,8 +427,8 @@ __global__ void __launch_bounds__(NTHREADS) mha_attn_bwd_kernel(MhaBwdParams<T> 
         __syncwarp();
         for (int e = lane; e < 256; e += 32) {
           const int key = kt16 + e / 16;
-          if (key < S)
-            p.dqkv[(seq_row0 + key) * ld3 + (which ? 2 : 1) * D + h * HEAD_DIM + c * 16 +
+          if (key < S && c * 16 + e % 16 < HD)
+            p.dqkv[(seq_row0 + key) * ld3 + (which ? 2 : 1) * D + h * HD + c * 16 +
                    e % 16] = from_f<T>(which ? wscr[e] : wscr[e] * p.scale);
         }
         __syncwarp();
@@ -457,6 +467,7 @@ __global__ void __launch_bounds__(NTHREADS) mha_dx_kernel(MhaBwdParams<T> p, flo
 template <class T>
 int launch_backward(MhaBwdParams<T> p, cudaStream_t stream) {
   constexpr int ROWS = Tile<T>::ROWS;
+  if (!narrow_head_dim(p.D, p.H)) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)p.B * p.S;
   const unsigned row_blocks = (unsigned)((rows + ROWS - 1) / ROWS);
   size_t smem = 2 * (size_t)ROWS * (p.D + SPAD) * sizeof(T) + NWARPS * 256 * sizeof(float);
@@ -466,12 +477,17 @@ int launch_backward(MhaBwdParams<T> p, cudaStream_t stream) {
   mha_bwd_rows_kernel<T, ROWS><<<row_blocks, NTHREADS, smem, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  smem = AttnBwdLayout<T, ROWS>(p.S).total;
-  err = cudaFuncSetAttribute(mha_attn_bwd_kernel<T, ROWS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  mha_attn_bwd_kernel<T, ROWS><<<(unsigned)(p.B * p.H), NTHREADS, smem, stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int rc = with_head_dim(p.D, p.H, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    const size_t smem_b = AttnBwdLayout<T, ROWS, HD>(p.S).total;
+    cudaError_t e = cudaFuncSetAttribute(mha_attn_bwd_kernel<T, ROWS, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_b);
+    if (e != cudaSuccess) return (int)e;
+    mha_attn_bwd_kernel<T, ROWS, HD><<<(unsigned)(p.B * p.H), NTHREADS, smem_b, stream>>>(p);
+    return (int)cudaGetLastError();
+  });
+  if (rc != 0) return rc;
 
   smem = (size_t)ROWS * (3 * p.D + SPAD) * sizeof(T) + NWARPS * 256 * sizeof(float);
   err = cudaFuncSetAttribute(mha_dx_kernel<T, ROWS>,
@@ -544,11 +560,11 @@ extern "C" int dsvg_mha_rows(int is_f32) { return is_f32 ? Tile<float>::ROWS : T
 // `tensors`: x [B*S][D], wqkv [3D][D], bqkv [3D], wo [D][D], bo [D], mask
 // [B][S] (f32), out [B*S][D], and the scratch qkv [B*S][3D]; all of the
 // activation type (bf16, or float with is_f32) but the mask. 1 <= S <= 256,
-// D = 32 H <= 256.
+// D <= 256 with head dim D / H 8, 16 or 32.
 extern "C" int dsvg_mha_fwd(void* const* tensors, int B, int S, int D, int H, int causal,
                             int is_f32, int seed, int thr, float kp, float scale,
                             void* stream) {
-  if (S < 1 || S > MAX_SEQ_LONG || D != H * HEAD_DIM || D > 256)
+  if (S < 1 || S > MAX_SEQ_LONG || !narrow_head_dim(D, H) || D > 256)
     return (int)cudaErrorInvalidValue;
   if (is_f32)
     return launch_forward<float>(
@@ -565,7 +581,7 @@ extern "C" int dsvg_mha_fwd(void* const* tensors, int B, int S, int D, int H, in
 // [B*S][D], and the column sums [2 row blocks][4D] (f32).
 extern "C" int dsvg_mha_bwd(void* const* tensors, int B, int S, int D, int H, int causal,
                             int is_f32, int seed, int thr, float kp, float scale, void* stream) {
-  if (S < 1 || S > MAX_SEQ_LONG || D != H * HEAD_DIM || D > 256)
+  if (S < 1 || S > MAX_SEQ_LONG || !narrow_head_dim(D, H) || D > 256)
     return (int)cudaErrorInvalidValue;
   if (is_f32)
     return launch_backward<float>(

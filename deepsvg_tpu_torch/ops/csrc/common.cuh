@@ -6,6 +6,8 @@
 #include <math.h>
 #include <mma.h>
 
+#include <type_traits>
+
 typedef __nv_bfloat16 bf16;
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
@@ -128,9 +130,35 @@ struct Mma<float> {
 
 constexpr int SPAD = 8;          // row padding (elements) in shared memory
 constexpr float LN_EPS = 1e-5f;
-constexpr int HEAD_DIM = 32;
+constexpr int HEAD_DIM = 32;     // the head dim of the Hopper forms (D = 256, 8 heads)
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
+
+// ---- head dims of the first port's kernels (layer_fwd.cuh, layer_bwd.cuh,
+// layer_long.cuh, layer_long_train.cu, stack.cu, attention.cu, decode.cu):
+// a template parameter HD, 8, 16 or 32, picked at the C entry points from
+// D / H. The tensor-core tiles of their attention are 16 columns wide, so a
+// head's Q, K, V slices in shared memory are padded with zero columns to
+// head_pad(HD) (16 at HD = 8), whose products add nothing.
+__host__ __device__ constexpr int head_pad(int hd) { return hd < 16 ? 16 : hd; }
+
+// whether D / H is a head dim of those kernels (8, 16 or 32)
+inline bool narrow_head_dim(int D, int H) {
+  return H >= 1 && D % H == 0 && (D / H == 8 || D / H == 16 || D / H == 32);
+}
+
+// fn(std::integral_constant<int, HD>()) for the head dim D / H, or
+// cudaErrorInvalidValue where it is not 8, 16 or 32 or H does not divide D.
+template <class Fn>
+int with_head_dim(int D, int H, Fn&& fn) {
+  if (!narrow_head_dim(D, H)) return (int)cudaErrorInvalidValue;
+  switch (D / H) {
+    case 8: return fn(std::integral_constant<int, 8>());
+    case 16: return fn(std::integral_constant<int, 16>());
+    case 32: return fn(std::integral_constant<int, 32>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // out[ROWS][N] = A[ROWS][K] @ B, each element handed to `epi(r, n, v)`.
 // W_NK: B is given as W[N][K] (out = A @ W^T), else as W[K][N]. `ldw` is W's

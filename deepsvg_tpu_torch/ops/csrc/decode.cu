@@ -5,12 +5,14 @@
 // residual in shared memory. The four products of a layer run on the tensor
 // cores in m8n32k16 tiles (bf16, f32 accumulate), each warp a 32-column
 // strip of the output with the weights read from L2. The attention of a
-// (row, head) pair is one warp: it streams the head's [index, 32] key and
-// value slices of the row, four lanes per position with one 16-byte load of
-// each (eight positions per warp load, four loads of each in flight), and
-// folds the scores into a running (max, sum, context) per lane group; the
-// eight groups are merged by shuffles, then the token's own key and value as
-// one more term. Only the positions before `index` are read. 16 warps
+// (row, head) pair is one warp: it streams the head's [index, HD] key and
+// value slices of the row, HD / 8 lanes per position with one 16-byte load
+// of each (32 / (HD / 8) positions per warp load: 8 at head dim 32, 16 at 16,
+// 32 at 8; four loads of each in flight), and folds the scores into a
+// running (max, sum, context) per lane group; the groups are merged by
+// shuffles, then the token's own key and value as one more term. The head
+// dim HD (8, 16 or 32) is a template parameter, picked from D / H at the
+// entry point. Only the positions before `index` are read. 16 warps
 // rather than 8 keep twice the loads in flight (measured at N=1024: 0.41
 // against 0.55 ms at index 120, PERF.md); loading eight rounds ahead instead
 // of four gained less.
@@ -169,39 +171,43 @@ struct Online {
   }
 };
 
-// the 4 lanes of a position group sum their partial dot products
+// the Q lanes of a position group sum their partial dot products
+template <int Q>
 __device__ __forceinline__ float group_sum(float s) {
-  s += __shfl_xor_sync(FULL_MASK, s, 1);
-  return s + __shfl_xor_sync(FULL_MASK, s, 2);
+#pragma unroll
+  for (int o = 1; o < Q; o <<= 1) s += __shfl_xor_sync(FULL_MASK, s, o);
+  return s;
 }
 
-// context of row r, head h of layer l into ctx[r][h*32 ..]: lane = 4 x group
-// g (positions g, g+8, ...) + quarter qd (dimensions qd*8 .. qd*8+7)
-template <class T>
+// context of row r, head h of layer l into ctx[r][h*HD ..]: lane = Q x group
+// g (positions g, g+G, ...) + part qd (dimensions qd*8 .. qd*8+7), with Q =
+// HD / 8 lanes a position and G = 32 / Q groups
+template <class T, int HD>
 __device__ void attend(const DecodeParams<T>& p, int l, int row, int h, const float* qkv_r,
                        T* ctx_r, int lane) {
   constexpr int UNROLL = Dec<T>::UNROLL;
+  constexpr int Q = HD / 8, G = 32 / Q;
   typedef typename Dec<T>::Vec Vec;
   const int D = p.D, idx = p.index;
-  const int g = lane >> 2, qd = lane & 3;
+  const int g = lane / Q, qd = lane % Q;
   float q[8], kt[8], vt[8];
 #pragma unroll
   for (int d = 0; d < 8; ++d) {
-    q[d] = qkv_r[h * HEAD_DIM + qd * 8 + d] * p.scale;
-    kt[d] = qkv_r[D + h * HEAD_DIM + qd * 8 + d];
-    vt[d] = qkv_r[2 * D + h * HEAD_DIM + qd * 8 + d];
+    q[d] = qkv_r[h * HD + qd * 8 + d] * p.scale;
+    kt[d] = qkv_r[D + h * HD + qd * 8 + d];
+    vt[d] = qkv_r[2 * D + h * HD + qd * 8 + d];
   }
-  const size_t base = ((size_t)l * p.R + row) * p.T_ * D + h * HEAD_DIM + qd * 8;
+  const size_t base = ((size_t)l * p.R + row) * p.T_ * D + h * HD + qd * 8;
   const T* kb = p.kc + base;
   const T* vb = p.vc + base;
   const float* kp = p.key_pad + (size_t)row * p.T_;
   Online st;
   st.init();
-  for (int j0 = 0; j0 < idx; j0 += 8 * UNROLL) {
+  for (int j0 = 0; j0 < idx; j0 += G * UNROLL) {
     Vec ku[UNROLL], vu[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int j = j0 + 8 * u + g;
+      const int j = j0 + G * u + g;
       ku[u].zero();
       vu[u].zero();
       if (j < idx) {
@@ -211,20 +217,20 @@ __device__ void attend(const DecodeParams<T>& p, int l, int row, int h, const fl
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int j = j0 + 8 * u + g;
+      const int j = j0 + G * u + g;
       float kf[8], vf[8];
       ku[u].unpack(kf);
       vu[u].unpack(vf);
       float s = 0.f;
 #pragma unroll
       for (int d = 0; d < 8; ++d) s = fmaf(q[d], kf[d], s);
-      s = group_sum(s);
+      s = group_sum<Q>(s);
       if (j < idx) st.add(s + kp[j], vf);
     }
   }
-  // merge the eight position groups (lanes with the same quarter)
+  // merge the G position groups (lanes with the same part)
 #pragma unroll
-  for (int off = 4; off < 32; off <<= 1) {
+  for (int off = Q; off < 32; off <<= 1) {
     float acc2[8];
 #pragma unroll
     for (int d = 0; d < 8; ++d) acc2[d] = __shfl_xor_sync(FULL_MASK, st.acc[d], off);
@@ -236,12 +242,12 @@ __device__ void attend(const DecodeParams<T>& p, int l, int row, int h, const fl
   float s = 0.f;
 #pragma unroll
   for (int d = 0; d < 8; ++d) s = fmaf(q[d], kt[d], s);
-  s = group_sum(s);
+  s = group_sum<Q>(s);
   st.add(s + kp[idx], vt);
   if (g == 0) {
 #pragma unroll
     for (int d = 0; d < 8; ++d)
-      ctx_r[h * HEAD_DIM + qd * 8 + d] = from_f<T>(st.m == -INFINITY ? 0.f : st.acc[d] / st.l);
+      ctx_r[h * HD + qd * 8 + d] = from_f<T>(st.m == -INFINITY ? 0.f : st.acc[d] / st.l);
   }
 }
 
@@ -252,7 +258,7 @@ size_t decode_smem(int D, int F) {
          (size_t)DWARPS * 256 * sizeof(float);
 }
 
-template <class T>
+template <class T, int HD>
 __global__ void __launch_bounds__(DTHREADS) decode_kernel(DecodeParams<T> p) {
   constexpr int AROWS = Dec<T>::AROWS;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -307,7 +313,7 @@ __global__ void __launch_bounds__(DTHREADS) decode_kernel(DecodeParams<T> p) {
 
     for (int pair = warp; pair < nrows * H; pair += DWARPS) {
       const int r = pair / H, h = pair - r * H;
-      attend(p, l, row0 + r, h, qkv + r * 3 * D, ctx + r * ldn, lane);
+      attend<T, HD>(p, l, row0 + r, h, qkv + r * 3 * D, ctx + r * ldn, lane);
     }
     __syncthreads();
 
@@ -352,11 +358,15 @@ int launch_decode(const void* const* t, int R, int T_, int D, int F, int H, int 
   p.index = index;
   p.scale = scale;
   const size_t smem = decode_smem<T>(D, F);
-  cudaError_t err = cudaFuncSetAttribute(decode_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_kernel<T><<<(R + DROWS - 1) / DROWS, DTHREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  return with_head_dim(D, H, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    cudaError_t err = cudaFuncSetAttribute(decode_kernel<T, HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    decode_kernel<T, HD><<<(R + DROWS - 1) / DROWS, DTHREADS, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -365,8 +375,8 @@ int launch_decode(const void* const* t, int R, int T_, int D, int F, int H, int 
 // [L][3D]; wo [L][D][D]; bo [L][D]; w1 [L][F][D]; b1 [L][F]; w2 [L][D][F];
 // b2 [L][D]; lnf [2][D]; kc/vc [L][R][T][D]; key_pad [R][T] f32; y [R][D];
 // k_new/v_new [L][R][D]. All of the activation type (bf16, or float with
-// is_f32) but key_pad. D = 32 H <= 256, D and F multiples of 32,
-// 0 <= index < T.
+// is_f32) but key_pad. D <= 256 with head dim D / H 8, 16 or 32, D and F
+// multiples of 32, 0 <= index < T.
 extern "C" int dsvg_decode_step(const void* x, const void* seq_bias, const void* ln1,
                                 const void* wqkv, const void* bqkv, const void* wo,
                                 const void* bo, const void* ln2, const void* w1,
@@ -375,7 +385,7 @@ extern "C" int dsvg_decode_step(const void* x, const void* seq_bias, const void*
                                 const void* key_pad, void* y, void* k_new, void* v_new, int R,
                                 int T, int D, int F, int H, int L, int index, int is_f32,
                                 float scale, void* stream) {
-  if (D != H * HEAD_DIM || D > 256 || D % 32 || F % 32 || index < 0 || index >= T)
+  if (!narrow_head_dim(D, H) || D > 256 || D % 32 || F % 32 || index < 0 || index >= T)
     return (int)cudaErrorInvalidValue;
   const void* t[] = {x,  seq_bias, ln1, wqkv, bqkv, wo, bo,  ln2,   w1,   b1,
                      w2, b2,       lnf, kc,   vc,   key_pad, y, k_new, v_new};

@@ -1,11 +1,12 @@
 // K2 and the forward of K4, saved and recompute mode: one fused pre-LN
 // transformer layer per launch (see ops/layer.py and ops/layer_vjp.py). K2's
-// bfloat16 form is the wgmma kernel below, on layer_infer.cuh's device code;
-// K4's bfloat16 short form at D = 256 is the wgmma kernel after it, with
-// layer_train.cuh's additions. The float32 forms, and K4's bfloat16 forward
-// at the narrower widths, run the device code of layer_fwd.cuh, which K7's
-// stack forward (stack.cu) and K4's recompute backward (layer_bwd.cu) run
-// too.
+// bfloat16 form at D = 256 with 8 heads is the wgmma kernel below, on
+// layer_infer.cuh's device code; K4's bfloat16 short form at D = 256 is the
+// wgmma kernel after it, with layer_train.cuh's additions. The float32
+// forms, and both types at the other widths (head dim 8, 16 or 32: a
+// template parameter, picked from D / H at the entry points), run the
+// device code of layer_fwd.cuh, which K7's stack forward (stack.cu) and K4's
+// recompute backward (layer_bwd.cu) run too.
 #include "layer_fwd.cuh"
 #include "layer_train.cuh"
 
@@ -289,28 +290,36 @@ int launch_train(Params p, const layer_train::Train& t, const void* wqkv, const 
 
 namespace {
 
-template <class T, int ROWS, bool TRAIN, int MODE>
+template <class T, int ROWS, int HD, bool TRAIN, int MODE>
 __global__ void __launch_bounds__(NTHREADS) layer_kernel(LayerParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  layer_tile<T, ROWS, TRAIN, MODE>(p, smem);
+  layer_tile<T, ROWS, HD, TRAIN, MODE>(p, smem);
 }
 
+// the layer_fwd.cuh kernel at the head dim D / H (8, 16 or 32; any other is
+// refused)
 template <class T, int ROWS, bool TRAIN, int MODE = FWD_SAVE>
 int launch(LayerParams<T> p, cudaStream_t stream) {
   p.nseq = ROWS / p.S;
   const size_t smem = smem_bytes<T, ROWS>(p.D, p.F);
-  cudaError_t err = cudaFuncSetAttribute(layer_kernel<T, ROWS, TRAIN, MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (p.B + p.nseq - 1) / p.nseq;
-  layer_kernel<T, ROWS, TRAIN, MODE><<<blocks, NTHREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  return with_head_dim(p.D, p.H, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    cudaError_t err = cudaFuncSetAttribute(layer_kernel<T, ROWS, HD, TRAIN, MODE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (p.B + p.nseq - 1) / p.nseq;
+    layer_kernel<T, ROWS, HD, TRAIN, MODE><<<blocks, NTHREADS, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
 // Inference layer. is_f32: activations and weights are float (TF32 products),
-// else bf16 (D = 256, F a multiple of 64 up to 1024: layer_infer.cuh).
+// else bf16: at D = 256 with 8 heads (F a multiple of 64 up to 1024) the
+// wgmma kernel of layer_infer.cuh, at other widths (head dim 8, 16 or 32)
+// layer_fwd.cuh's on 64-row blocks.
 extern "C" int dsvg_layer(const void* x, const void* seq_bias, const void* ln1,
                           const void* wqkv, const void* bqkv, const void* wo,
                           const void* bo, const void* ln2, const void* w1,
@@ -323,7 +332,11 @@ extern "C" int dsvg_layer(const void* x, const void* seq_bias, const void* ln1,
         make_params<float>(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
                            mask, out, B, S, D, F, H, causal, scale),
         (cudaStream_t)stream);
-  if (D != layer_infer::DM || H != layer_infer::NH) return (int)cudaErrorInvalidValue;
+  if (D != layer_infer::DM || H != layer_infer::NH)
+    return launch<bf16, 64, false>(
+        make_params<bf16>(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, out,
+                          B, S, D, F, H, causal, scale),
+        (cudaStream_t)stream);
   return layer_infer::launch_short(
       layer_infer::make_params(x, seq_bias, ln1, bqkv, bo, ln2, b1, b2, mask, out, B, S, F,
                                causal, scale),

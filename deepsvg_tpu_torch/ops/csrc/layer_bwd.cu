@@ -752,28 +752,33 @@ int launch_mha_bwd(Bwd b, const void* wqkv, const void* wo, int causal, cudaStre
 
 namespace {
 
-template <class T, int ROWS, bool RECOMPUTE>
+template <class T, int ROWS, int HD, bool RECOMPUTE>
 __global__ void __launch_bounds__(NTHREADS) layer_bwd_kernel(BwdParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  layer_bwd_tile<T, ROWS, RECOMPUTE>(p, smem);
+  layer_bwd_tile<T, ROWS, HD, RECOMPUTE>(p, smem);
 }
 
+// the layer_bwd.cuh kernel at the head dim D / H (8, 16 or 32)
 template <class T, int ROWS, bool RECOMPUTE = false>
 int launch(BwdParams<T> p, cudaStream_t stream) {
   p.nseq = ROWS / p.S;
   const size_t smem = smem_bytes<T, ROWS>(p.D, p.F);
-  cudaError_t err = cudaFuncSetAttribute(layer_bwd_kernel<T, ROWS, RECOMPUTE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (p.B + p.nseq - 1) / p.nseq;
-  layer_bwd_kernel<T, ROWS, RECOMPUTE><<<blocks, NTHREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  return with_head_dim(p.D, p.H, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    cudaError_t err = cudaFuncSetAttribute(layer_bwd_kernel<T, ROWS, HD, RECOMPUTE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (p.B + p.nseq - 1) / p.nseq;
+    layer_bwd_kernel<T, ROWS, HD, RECOMPUTE><<<blocks, NTHREADS, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+  });
 }
 
-template <class T, int ROWS>
+template <class T, int ROWS, int HD>
 __global__ void __launch_bounds__(NTHREADS) workspace_kernel(layer_fwd::LayerParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  layer_fwd::layer_tile<T, ROWS, true, layer_fwd::FWD_WORKSPACE>(p, smem);
+  layer_fwd::layer_tile<T, ROWS, HD, true, layer_fwd::FWD_WORKSPACE>(p, smem);
 }
 
 // The recompute mode: the forward tile fills the workspace (QKV, context,
@@ -794,11 +799,16 @@ int launch_recompute(void* const* t, int B, int S, int D, int F, int H, int caus
   f.kp = kp;
   f.nseq = FROWS / S;
   const size_t smem = layer_fwd::smem_bytes<T, FROWS>(D, F);
-  cudaError_t err = cudaFuncSetAttribute(workspace_kernel<T, FROWS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  workspace_kernel<T, FROWS><<<(B + f.nseq - 1) / f.nseq, NTHREADS, smem, stream>>>(f);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int rc = with_head_dim(D, H, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    cudaError_t err = cudaFuncSetAttribute(workspace_kernel<T, FROWS, HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    workspace_kernel<T, FROWS, HD><<<(B + f.nseq - 1) / f.nseq, NTHREADS, smem, stream>>>(f);
+    return (int)cudaGetLastError();
+  });
+  if (rc != 0) return rc;
   BwdParams<T> p = make_params<T>(t, B, S, D, F, H, seed, thr, kp, scale);
   p.h32 = (const float*)t[23];
   p.mask = (const float*)t[29];

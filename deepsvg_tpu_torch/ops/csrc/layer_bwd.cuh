@@ -119,9 +119,9 @@ __device__ void reduce_warp_columns(const float (&acc)[N][8], float* stage, int 
   __syncthreads();
 }
 
-// One layer's backward on the sequences of block blockIdx.x. `smem` holds
-// smem_bytes<T, ROWS>(D, F) bytes.
-template <class T, int ROWS, bool RECOMPUTE = false>
+// One layer's backward on the sequences of block blockIdx.x, heads of HD
+// columns (8, 16 or 32). `smem` holds smem_bytes<T, ROWS>(D, F) bytes.
+template <class T, int ROWS, int HD, bool RECOMPUTE = false>
 __device__ __forceinline__ void layer_bwd_tile(const BwdParams<T>& p, unsigned char* smem) {
   const int D = p.D, F = p.F, S = p.S, H = p.H;
   const int ldn = D + SPAD, ldb = big_ld(D, F);
@@ -303,8 +303,9 @@ __device__ __forceinline__ void layer_bwd_tile(const BwdParams<T>& p, unsigned c
                             });
   __syncthreads();
 
-  // 7. attention backward, one warp per (sequence, head); lane j owns key j.
-  // dq, dk, dv overwrite q, k, v in big (each block of it belongs to one warp).
+  // 7. attention backward, one warp per (sequence, head); lane j owns key j,
+  // and lane c < HD sums column c of dq. dq, dk, dv overwrite q, k, v in big
+  // (each block of it belongs to one warp).
   for (int pair = warp; pair < nvalid * H; pair += NWARPS) {
     const int sq = pair / H, h = pair - sq * H;
     T* base = big + (size_t)sq * S * ldb;
@@ -312,27 +313,29 @@ __device__ __forceinline__ void layer_bwd_tile(const BwdParams<T>& p, unsigned c
     const int jr = has_key ? lane : 0;
     // RECOMPUTE: this lane's key (read before any of it is overwritten) and
     // mask, as the forward's attention holds them
-    const T* krow = base + (size_t)jr * ldb + D + h * HEAD_DIM;
+    const T* krow = base + (size_t)jr * ldb + D + h * HD;
+    const bool has_col = lane < HD;
+    const int col = has_col ? lane : 0;
     const float mval =
         RECOMPUTE && has_key ? p.mask[(size_t)(seq0 + sq) * S + lane] : -INFINITY;
-    float vf[HEAD_DIM], dk[HEAD_DIM], dv[HEAD_DIM];
+    float vf[HD], dk[HD], dv[HD];
 #pragma unroll
-    for (int d = 0; d < HEAD_DIM; ++d) {
-      vf[d] = has_key ? to_f(base[(size_t)jr * ldb + 2 * D + h * HEAD_DIM + d]) : 0.f;
+    for (int d = 0; d < HD; ++d) {
+      vf[d] = has_key ? to_f(base[(size_t)jr * ldb + 2 * D + h * HD + d]) : 0.f;
       dk[d] = 0.f;
       dv[d] = 0.f;
     }
     const size_t prow0 = ((size_t)(seq0 + sq) * H + h) * S;
     for (int i = 0; i < S; ++i) {
-      const T* dc = S2 + (size_t)(sq * S + i) * ldn + h * HEAD_DIM;
-      T* qr = base + (size_t)i * ldb + h * HEAD_DIM;
+      const T* dc = S2 + (size_t)(sq * S + i) * ldn + h * HD;
+      T* qr = base + (size_t)i * ldb + h * HD;
       float pr;
       if constexpr (RECOMPUTE) {
         // the forward's probability, f32: the same products and sums in the
         // same order as layer_fwd::attention
         float sc = 0.f;
 #pragma unroll
-        for (int d = 0; d < HEAD_DIM; ++d)
+        for (int d = 0; d < HD; ++d)
           sc = fmaf(to_f(qr[d]), has_key ? to_f(krow[d]) : 0.f, sc);
         sc = sc * p.scale + mval;
         if (!has_key || (p.causal && lane > i)) sc = -INFINITY;
@@ -350,7 +353,7 @@ __device__ __forceinline__ void layer_bwd_tile(const BwdParams<T>& p, unsigned c
       const float pe = round_to<T>(pr * km);
       float dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < HEAD_DIM; ++d) {
+      for (int d = 0; d < HD; ++d) {
         const float dcd = to_f(dc[d]);
         dp = fmaf(dcd, vf[d], dp);
         dv[d] = fmaf(pe, dcd, dv[d]);
@@ -360,18 +363,18 @@ __device__ __forceinline__ void layer_bwd_tile(const BwdParams<T>& p, unsigned c
       float dq = 0.f;
       for (int j = 0; j < S; ++j)
         dq = fmaf(__shfl_sync(FULL_MASK, ds, j),
-                  to_f(base[(size_t)j * ldb + D + h * HEAD_DIM + lane]), dq);
+                  to_f(base[(size_t)j * ldb + D + h * HD + col]), dq);
 #pragma unroll
-      for (int d = 0; d < HEAD_DIM; ++d) dk[d] = fmaf(ds, to_f(qr[d]), dk[d]);
+      for (int d = 0; d < HD; ++d) dk[d] = fmaf(ds, to_f(qr[d]), dk[d]);
       __syncwarp();  // every lane has read q_i
-      qr[lane] = from_f<T>(dq * p.scale);
+      if (has_col) qr[lane] = from_f<T>(dq * p.scale);
     }
     __syncwarp();  // every lane has read the keys
     if (has_key) {
 #pragma unroll
-      for (int d = 0; d < HEAD_DIM; ++d) {
-        base[(size_t)lane * ldb + D + h * HEAD_DIM + d] = from_f<T>(dk[d] * p.scale);
-        base[(size_t)lane * ldb + 2 * D + h * HEAD_DIM + d] = from_f<T>(dv[d]);
+      for (int d = 0; d < HD; ++d) {
+        base[(size_t)lane * ldb + D + h * HD + d] = from_f<T>(dk[d] * p.scale);
+        base[(size_t)lane * ldb + 2 * D + h * HD + d] = from_f<T>(dv[d]);
       }
     }
   }

@@ -14,9 +14,11 @@
 // The four products run on the tensor cores (wmma, bf16 or TF32, f32
 // accumulate); each warp owns a 16-column strip of the output over all rows,
 // so each weight fragment is read from L2 once per block. Attention runs one
-// (sequence, head) per warp: lane j holds key j (S <= 32, head dim 32 = one
-// lane per output column), the softmax subtracts the row max, and a query
-// whose keys are all masked gets zero probabilities.
+// (sequence, head) per warp: lane j holds key j (S <= 32), the softmax
+// subtracts the row max, and a query whose keys are all masked gets zero
+// probabilities. The head dim HD (8, 16 or 32) is a template parameter;
+// lane c < HD sums output column c of the context (at HD < 32 the other
+// lanes only hold their keys).
 //
 // TRAIN adds dropout at the four sites (attention probabilities, attention
 // output, FF hidden, FF output; masks from the hash in common.cuh). What a
@@ -106,9 +108,9 @@ __device__ void layer_norm_rows(float* xres, int D, const T* __restrict__ ln, T*
 }
 
 // ctx[seq, i, head] = softmax(q_i k^T * scale + mask) v, one warp per
-// (sequence, head); probabilities are rounded to T before the PV product.
-// SAVE_P: the probabilities before dropout go to p.p_s.
-template <class T, bool TRAIN, bool SAVE_P = TRAIN>
+// (sequence, head) of HD columns; probabilities are rounded to T before the
+// PV product. SAVE_P: the probabilities before dropout go to p.p_s.
+template <class T, int HD, bool TRAIN, bool SAVE_P = TRAIN>
 __device__ void attention(const LayerParams<T>& p, const T* qkv, int ldq, T* ctx,
                           int ldc, int seq0, int nvalid, int warp, int lane) {
   const int S = p.S, D = p.D, H = p.H;
@@ -117,18 +119,19 @@ __device__ void attention(const LayerParams<T>& p, const T* qkv, int ldq, T* ctx
     const int sq = pair / H, h = pair - sq * H;
     const T* base = qkv + (size_t)sq * S * ldq;
     const bool has_key = lane < S;
-    const T* kr = base + (size_t)(has_key ? lane : 0) * ldq + D + h * HEAD_DIM;
-    float kf[HEAD_DIM];
+    const T* kr = base + (size_t)(has_key ? lane : 0) * ldq + D + h * HD;
+    float kf[HD];
 #pragma unroll
-    for (int d = 0; d < HEAD_DIM; ++d) kf[d] = has_key ? to_f(kr[d]) : 0.f;
+    for (int d = 0; d < HD; ++d) kf[d] = has_key ? to_f(kr[d]) : 0.f;
     const float mval = has_key ? p.mask[(size_t)(seq0 + sq) * S + lane] : -INFINITY;
-    const T* vcol = base + 2 * D + h * HEAD_DIM + lane;
+    const bool has_col = lane < HD;   // the context column this lane sums
+    const T* vcol = base + 2 * D + h * HD + (has_col ? lane : 0);
     const size_t prow0 = ((size_t)(seq0 + sq) * H + h) * S;
     for (int i = 0; i < S; ++i) {
-      const T* qr = base + (size_t)i * ldq + h * HEAD_DIM;
+      const T* qr = base + (size_t)i * ldq + h * HD;
       float s = 0.f;
 #pragma unroll
-      for (int d = 0; d < HEAD_DIM; ++d) s = fmaf(to_f(qr[d]), kf[d], s);
+      for (int d = 0; d < HD; ++d) s = fmaf(to_f(qr[d]), kf[d], s);
       s = s * p.scale + mval;
       if (!has_key || (p.causal && lane > i)) s = -INFINITY;
       const float m = warp_max(s);  // the same in every lane
@@ -147,14 +150,15 @@ __device__ void attention(const LayerParams<T>& p, const T* qkv, int ldq, T* ctx
       float c = 0.f;
       for (int j = 0; j < S; ++j)
         c = fmaf(__shfl_sync(FULL_MASK, pr, j), to_f(vcol[(size_t)j * ldq]), c);
-      ctx[(size_t)(sq * S + i) * ldc + h * HEAD_DIM + lane] = from_f<T>(c);
+      if (has_col) ctx[(size_t)(sq * S + i) * ldc + h * HD + lane] = from_f<T>(c);
     }
   }
 }
 
 // One layer on the sequences of block blockIdx.x: x -> out (and, with TRAIN,
-// what MODE writes). `smem` holds smem_bytes<T, ROWS>(D, F) bytes.
-template <class T, int ROWS, bool TRAIN, int MODE = FWD_SAVE>
+// what MODE writes), heads of HD columns. `smem` holds smem_bytes<T, ROWS>(D,
+// F) bytes.
+template <class T, int ROWS, int HD, bool TRAIN, int MODE = FWD_SAVE>
 __device__ __forceinline__ void layer_tile(const LayerParams<T>& p, unsigned char* smem) {
   constexpr bool SAVE = TRAIN && MODE == FWD_SAVE;
   constexpr bool WORKSPACE = TRAIN && MODE == FWD_WORKSPACE;
@@ -198,7 +202,7 @@ __device__ __forceinline__ void layer_tile(const LayerParams<T>& p, unsigned cha
   __syncthreads();
 
   // 4. attention; the context overwrites xn
-  attention<T, TRAIN, SAVE>(p, big, ldb, xn, ldn, seq0, nvalid, warp, lane);
+  attention<T, HD, TRAIN, SAVE>(p, big, ldb, xn, ldn, seq0, nvalid, warp, lane);
   __syncthreads();
   if constexpr (SAVE || WORKSPACE) {
     for (int e = threadIdx.x; e < nrows * D; e += NTHREADS) {

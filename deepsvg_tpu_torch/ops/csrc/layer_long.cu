@@ -1100,9 +1100,11 @@ extern "C" int dsvg_layer_long_train_bf16(
                                                      (cudaStream_t)stream);
 }
 
-// S <= MAX_SEQ_LONG, head dim HEAD_DIM; qkv: scratch of B*S*3D elements of
-// the activation type. is_f32: activations and weights are float (TF32
-// products), else bf16 (D = 256, F a multiple of 64 up to 1024).
+// S <= MAX_SEQ_LONG; qkv: scratch of B*S*3D elements of the activation
+// type. is_f32: activations and weights are float (TF32 products), else
+// bf16: at D = 256 with 8 heads (F a multiple of 64 up to 1024) the wgmma
+// kernels of layer_infer.cuh, at other widths (head dim 8, 16 or 32)
+// layer_long.cuh's on 64-row tiles.
 extern "C" int dsvg_layer_long(const void* x, const void* seq_bias, const void* ln1,
                                const void* wqkv, const void* bqkv, const void* wo,
                                const void* bo, const void* ln2, const void* w1,
@@ -1116,7 +1118,11 @@ extern "C" int dsvg_layer_long(const void* x, const void* seq_bias, const void* 
         make_params<float>(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                            out, B, S, D, F, H, causal, scale),
         (float*)qkv, (cudaStream_t)stream);
-  if (D != layer_infer::DM || H != layer_infer::NH) return (int)cudaErrorInvalidValue;
+  if (D != layer_infer::DM || H != layer_infer::NH)
+    return launch_forward<bf16, 64, 64, false>(
+        make_params<bf16>(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
+                          out, B, S, D, F, H, causal, scale),
+        (bf16*)qkv, (cudaStream_t)stream);
   return layer_infer::launch_long(
       layer_infer::make_params(x, seq_bias, ln1, bqkv, bo, ln2, b1, b2, mask, out, B, S, F,
                                causal, scale),

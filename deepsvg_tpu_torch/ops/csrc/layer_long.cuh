@@ -82,17 +82,17 @@ __global__ void __launch_bounds__(NTHREADS) qkv_kernel(LayerParams<T> p, T* qkv)
 }
 
 // Shared memory of attn_ffn_kernel: the context (later LN2's output), then
-// one region used first by the attention (Q, K, V of a head, the scores and
-// probabilities) and then by the FF (f32 residual, hidden), then the wmma
-// scratch.
-template <class T, int QROWS>
+// one region used first by the attention (Q, K, V of a head of HD columns,
+// padded to head_pad(HD); the scores and probabilities) and then by the FF
+// (f32 residual, hidden), then the wmma scratch.
+template <class T, int QROWS, int HD>
 struct LongLayout {
   int ldn, ldh, lds, ldb, spad;
   size_t ctx, q, k, v, sc, xres, big, scratch, total;
   __host__ __device__ LongLayout(int S, int D, int F) {
     spad = round16(S);
     ldn = D + SPAD;
-    ldh = HEAD_DIM + HPAD;
+    ldh = head_pad(HD) + HPAD;
     lds = spad + 8;
     ldb = F + SPAD;
     ctx = 0;
@@ -110,18 +110,19 @@ struct LongLayout {
   }
 };
 
-// rows [0, nrows) x HEAD_DIM columns at column `col` of the rows `row0 + r`
-// of a row-major tensor with `ld` elements a row (zeros beyond nrows), into
-// dst [rows][ldh]
-template <class T>
+// rows [0, nrows) x HD columns at column `col` of the rows `row0 + r` of a
+// row-major tensor with `ld` elements a row, into dst [rows][ldh]: zeros
+// beyond nrows, and in the columns from HD up to head_pad(HD)
+template <int HD, class T>
 __device__ void load_head(const T* src, size_t row0, int nrows, int rows, int ld, int col,
                           T* dst, int ldh) {
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = HEAD_DIM / VEC;
+  constexpr int PER_ROW = head_pad(HD) / VEC;
   for (int e = threadIdx.x; e < rows * PER_ROW; e += NTHREADS) {
     const int r = e / PER_ROW, c = (e - r * PER_ROW) * VEC;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < nrows) val = *reinterpret_cast<const uint4*>(src + (row0 + r) * ld + col + c);
+    if (r < nrows && c < HD)
+      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * ld + col + c);
     *reinterpret_cast<uint4*>(dst + r * ldh + c) = val;
   }
 }
@@ -134,16 +135,20 @@ __device__ void load_head(const T* src, size_t row0, int nrows, int rows, int ld
 // P V on the tensor cores, rounded to T, into ctx [QROWS][ldn]. With `drop`,
 // the probabilities are dropped with the mask of SITE_ATTN_PROB at row
 // (b * H + h) * S + i, column j; with `p_save` ([B][H][S][S]), they are
-// saved before dropout. Shared by K2's and K4's long forms and by the
-// attention block alone (K10, K11; attention.cu).
-template <class T, int QROWS>
+// saved before dropout. Heads of HD columns (8, 16 or 32): the products
+// run over the head padded with zeros to a whole tensor-core tile, and only
+// the HD columns of the context are written. Shared by K2's and K4's long
+// forms and by the attention block alone (K10, K11; attention.cu).
+template <class T, int QROWS, int HD>
 __device__ __forceinline__ void attend_tile(const T* qkv, const float* mask, int b, int q0,
                                             int nq, int S, int D, int H, int causal,
-                                            float scale, const LongLayout<T, QROWS>& lay,
+                                            float scale, const LongLayout<T, QROWS, HD>& lay,
                                             unsigned char* smem, T* ctx, float* wscr,
                                             int warp, int lane, bool drop, int seed,
                                             unsigned thr, float kp, T* p_save) {
   typedef Mma<T> M;
+  constexpr int KD = (HD + M::K - 1) / M::K * M::K;   // the score products' depth
+  constexpr int NC = head_pad(HD) / 16;               // 16-column tiles of the context
   T* qs = reinterpret_cast<T*>(smem + lay.q);
   T* ks = reinterpret_cast<T*>(smem + lay.k);
   T* vs = reinterpret_cast<T*>(smem + lay.v);
@@ -157,9 +162,9 @@ __device__ __forceinline__ void attend_tile(const T* qkv, const float* mask, int
   const size_t tile_row0 = seq_row0 + q0;
 
   for (int h = 0; h < H; ++h) {
-    load_head(qkv, tile_row0, nq, QROWS, 3 * D, h * HEAD_DIM, qs, ldh);
-    load_head(qkv, seq_row0, kmax, nk, 3 * D, D + h * HEAD_DIM, ks, ldh);
-    load_head(qkv, seq_row0, kmax, nk, 3 * D, 2 * D + h * HEAD_DIM, vs, ldh);
+    load_head<HD>(qkv, tile_row0, nq, QROWS, 3 * D, h * HD, qs, ldh);
+    load_head<HD>(qkv, seq_row0, kmax, nk, 3 * D, D + h * HD, ks, ldh);
+    load_head<HD>(qkv, seq_row0, kmax, nk, 3 * D, 2 * D + h * HD, vs, ldh);
     __syncthreads();
 
     // scores [QROWS][nk] = Q K^T (f32)
@@ -169,7 +174,7 @@ __device__ __forceinline__ void attend_tile(const T* qkv, const float* mask, int
       typename M::Acc acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-      for (int k = 0; k < HEAD_DIM; k += M::K) {
+      for (int k = 0; k < KD; k += M::K) {
         typename M::ARow a;
         typename M::BCol bk;
         wmma::load_matrix_sync(a, qs + i * 16 * ldh + k, ldh);
@@ -217,9 +222,9 @@ __device__ __forceinline__ void attend_tile(const T* qkv, const float* mask, int
     }
     __syncthreads();
 
-    // context [QROWS][HEAD_DIM] = P V, rounded to T
-    for (int t = warp; t < (QROWS / 16) * (HEAD_DIM / 16); t += NWARPS) {
-      const int i = t / (HEAD_DIM / 16), c = t - i * (HEAD_DIM / 16);
+    // context [QROWS][HD] = P V, rounded to T
+    for (int t = warp; t < (QROWS / 16) * NC; t += NWARPS) {
+      const int i = t / NC, c = t - i * NC;
       typename M::Acc acc;
       wmma::fill_fragment(acc, 0.f);
       for (int k = 0; k < nk; k += M::K) {
@@ -234,20 +239,21 @@ __device__ __forceinline__ void attend_tile(const T* qkv, const float* mask, int
       wmma::store_matrix_sync(wscr, acc, 16, wmma::mem_row_major);
       __syncwarp();
       for (int e = lane; e < 256; e += 32)
-        ctx[(i * 16 + e / 16) * ldn + h * HEAD_DIM + c * 16 + e % 16] = from_f<T>(wscr[e]);
+        if (c * 16 + e % 16 < HD)
+          ctx[(i * 16 + e / 16) * ldn + h * HD + c * 16 + e % 16] = from_f<T>(wscr[e]);
       __syncwarp();
     }
     __syncthreads();
   }
 }
 
-template <class T, int QROWS, bool TRAIN, int MODE = FWD_SAVE>
+template <class T, int QROWS, int HD, bool TRAIN, int MODE = FWD_SAVE>
 __global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, const T* qkv) {
   constexpr bool SAVE = TRAIN && MODE == FWD_SAVE;
   constexpr bool WORKSPACE = TRAIN && MODE == FWD_WORKSPACE;
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = p.D, F = p.F, S = p.S, H = p.H;
-  const LongLayout<T, QROWS> lay(S, D, F);
+  const LongLayout<T, QROWS, HD> lay(S, D, F);
   T* ctx = reinterpret_cast<T*>(smem + lay.ctx);
   float* xres = reinterpret_cast<float*>(smem + lay.xres);
   T* big = reinterpret_cast<T*>(smem + lay.big);
@@ -262,7 +268,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, co
   const int nq = min(QROWS, S - q0);
   const size_t tile_row0 = (size_t)b * S + q0;
 
-  attend_tile<T, QROWS>(qkv, p.mask + (size_t)b * S, b, q0, nq, S, D, H, p.causal, p.scale,
+  attend_tile<T, QROWS, HD>(qkv, p.mask + (size_t)b * S, b, q0, nq, S, D, H, p.causal, p.scale,
                         lay, smem, ctx, wscr, warp, lane, drop, p.seed, p.thr, p.kp,
                         SAVE ? p.p_s : nullptr);
   if constexpr (SAVE || WORKSPACE) {
@@ -336,9 +342,11 @@ __global__ void __launch_bounds__(NTHREADS) attn_ffn_kernel(LayerParams<T> p, co
   for (int e = threadIdx.x * 2; e < nq * D; e += NTHREADS * 2) store2(out + e, xres[e], xres[e + 1]);
 }
 
-// Both launches on `stream`; qkv [B*S][3D] of the activation type.
+// Both launches on `stream`; qkv [B*S][3D] of the activation type; the
+// second at the head dim D / H (8, 16 or 32; any other is refused).
 template <class T, int ROWS, int QROWS, bool TRAIN, int MODE = FWD_SAVE>
 int launch_forward(LayerParams<T> p, T* qkv, cudaStream_t stream) {
+  if (!narrow_head_dim(p.D, p.H)) return (int)cudaErrorInvalidValue;
   const size_t smem1 = qkv_smem<T, ROWS>(p.D);
   cudaError_t err = cudaFuncSetAttribute(qkv_kernel<T, ROWS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
@@ -347,13 +355,17 @@ int launch_forward(LayerParams<T> p, T* qkv, cudaStream_t stream) {
   qkv_kernel<T, ROWS><<<(unsigned)((rows + ROWS - 1) / ROWS), NTHREADS, smem1, stream>>>(p, qkv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem2 = LongLayout<T, QROWS>(p.S, p.D, p.F).total;
-  err = cudaFuncSetAttribute(attn_ffn_kernel<T, QROWS, TRAIN, MODE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)p.B * ((p.S + QROWS - 1) / QROWS);
-  attn_ffn_kernel<T, QROWS, TRAIN, MODE><<<blocks, NTHREADS, smem2, stream>>>(p, qkv);
-  return (int)cudaGetLastError();
+  return with_head_dim(p.D, p.H, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    const size_t smem2 = LongLayout<T, QROWS, HD>(p.S, p.D, p.F).total;
+    cudaError_t e2 = cudaFuncSetAttribute(attn_ffn_kernel<T, QROWS, HD, TRAIN, MODE>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)smem2);
+    if (e2 != cudaSuccess) return (int)e2;
+    attn_ffn_kernel<T, QROWS, HD, TRAIN, MODE><<<blocks, NTHREADS, smem2, stream>>>(p, qkv);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace

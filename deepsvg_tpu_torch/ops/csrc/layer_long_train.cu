@@ -236,17 +236,18 @@ __global__ void __launch_bounds__(NTHREADS)
     p.small_part[(size_t)blockIdx.x * p.small_stride + e] = colsum[e];
 }
 
-// ---- (b): attention backward of one (sequence, head)
+// ---- (b): attention backward of one (sequence, head) of HD columns (8, 16
+// or 32), its Q, K, V and dctx slices padded with zeros to head_pad(HD)
 // RECOMPUTE: `pe` holds the f32 scores, then the rounded dropped
 // probabilities in their place (rows of ldp elements)
-template <class T, int QT, bool RECOMPUTE>
+template <class T, int QT, int HD, bool RECOMPUTE>
 struct AttnBwdLayout {
   int spad, qpad, ldh, lds, ldp;
   size_t q, k, v, dc, dp, pe, scratch, total;
   __host__ __device__ AttnBwdLayout(int S) {
     spad = round16(S);
     qpad = (S + QT - 1) / QT * QT;
-    ldh = HEAD_DIM + HPAD;
+    ldh = head_pad(HD) + HPAD;
     lds = spad + 8;                                  // f32 elements a row of dP
     ldp = lds * (int)(sizeof(float) / sizeof(T));    // T elements a row of dS (in place)
     q = 0;
@@ -260,13 +261,15 @@ struct AttnBwdLayout {
   }
 };
 
-template <class T, int QT, bool RECOMPUTE>
+template <class T, int QT, int HD, bool RECOMPUTE>
 __global__ void __launch_bounds__(NTHREADS)
     attn_bwd_kernel(BwdParams<T> p, const T* dctx, const float* dx1, int causal) {
   typedef Mma<T> M;
+  constexpr int KD = (HD + M::K - 1) / M::K * M::K;   // the score products' depth
+  constexpr int NC = head_pad(HD) / 16;               // 16-column tiles of a head
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = p.D, S = p.S, H = p.H;
-  const AttnBwdLayout<T, QT, RECOMPUTE> lay(S);
+  const AttnBwdLayout<T, QT, HD, RECOMPUTE> lay(S);
   T* qs = reinterpret_cast<T*>(smem + lay.q);
   T* ks = reinterpret_cast<T*>(smem + lay.k);
   T* vs = reinterpret_cast<T*>(smem + lay.v);
@@ -295,16 +298,16 @@ __global__ void __launch_bounds__(NTHREADS)
     }
   }
 
-  load_head(p.qkv_s, seq_row0, S, lay.qpad, 3 * D, h * HEAD_DIM, qs, ldh);
-  load_head(p.qkv_s, seq_row0, S, lay.spad, 3 * D, D + h * HEAD_DIM, ks, ldh);
-  load_head(p.qkv_s, seq_row0, S, lay.spad, 3 * D, 2 * D + h * HEAD_DIM, vs, ldh);
+  load_head<HD>(p.qkv_s, seq_row0, S, lay.qpad, 3 * D, h * HD, qs, ldh);
+  load_head<HD>(p.qkv_s, seq_row0, S, lay.spad, 3 * D, D + h * HD, ks, ldh);
+  load_head<HD>(p.qkv_s, seq_row0, S, lay.spad, 3 * D, 2 * D + h * HD, vs, ldh);
 
-  // dK and dV of key tiles warp and warp + 8, columns 0-15 and 16-31
-  typename M::Acc dk[2][2], dv[2][2];
+  // dK and dV of key tiles warp and warp + 8, 16 columns a tile
+  typename M::Acc dk[2][NC], dv[2][NC];
 #pragma unroll
   for (int a = 0; a < 2; ++a)
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < NC; ++c) {
       wmma::fill_fragment(dk[a][c], 0.f);
       wmma::fill_fragment(dv[a][c], 0.f);
     }
@@ -313,7 +316,7 @@ __global__ void __launch_bounds__(NTHREADS)
     const int nq = min(QT, S - q0);
     const int kmax = causal ? q0 + nq : S;          // keys any query of the tile sees
     const int nk = round16(kmax);
-    load_head(dctx, seq_row0 + q0, nq, QT, D, h * HEAD_DIM, dcs, ldh);
+    load_head<HD>(dctx, seq_row0 + q0, nq, QT, D, h * HD, dcs, ldh);
     __syncthreads();
 
     // dPe [QT][nk] = dctx V^T (f32), the gradient of the dropped
@@ -328,7 +331,7 @@ __global__ void __launch_bounds__(NTHREADS)
       typename M::Acc acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-      for (int k = 0; k < HEAD_DIM; k += M::K) {
+      for (int k = 0; k < KD; k += M::K) {
         typename M::ARow a;
         typename M::BCol bv;
         wmma::load_matrix_sync(a, a_src + k, ldh);
@@ -399,7 +402,7 @@ __global__ void __launch_bounds__(NTHREADS)
       const int kt16 = (warp + NWARPS * a) * 16;
       if (kt16 >= nk) continue;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
+      for (int c = 0; c < NC; ++c) {
         for (int k = 0; k < QT; k += M::K) {
           typename M::ACol pa, sa;
           typename M::BRow db, qb;
@@ -417,9 +420,9 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     }
 
-    // dQ [QT][HEAD_DIM] = dS K * scale, rounded, written
-    for (int t = warp; t < (QT / 16) * (HEAD_DIM / 16); t += NWARPS) {
-      const int i = t / (HEAD_DIM / 16), c = t - i * (HEAD_DIM / 16);
+    // dQ [QT][HD] = dS K * scale, rounded, written
+    for (int t = warp; t < (QT / 16) * NC; t += NWARPS) {
+      const int i = t / NC, c = t - i * NC;
       typename M::Acc acc;
       wmma::fill_fragment(acc, 0.f);
       for (int k = 0; k < nk; k += M::K) {
@@ -435,8 +438,8 @@ __global__ void __launch_bounds__(NTHREADS)
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
         const int r = i * 16 + e / 16;
-        if (r < nq)
-          p.dqkv_o[(seq_row0 + q0 + r) * ld3 + h * HEAD_DIM + c * 16 + e % 16] =
+        if (r < nq && c * 16 + e % 16 < HD)
+          p.dqkv_o[(seq_row0 + q0 + r) * ld3 + h * HD + c * 16 + e % 16] =
               from_f<T>(wscr[e] * p.scale);
       }
       __syncwarp();
@@ -450,7 +453,7 @@ __global__ void __launch_bounds__(NTHREADS)
     const int kt16 = (warp + NWARPS * a) * 16;
     if (kt16 >= S) continue;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < NC; ++c) {
 #pragma unroll
       for (int which = 0; which < 2; ++which) {
         if (which)
@@ -460,8 +463,8 @@ __global__ void __launch_bounds__(NTHREADS)
         __syncwarp();
         for (int e = lane; e < 256; e += 32) {
           const int key = kt16 + e / 16;
-          if (key < S)
-            p.dqkv_o[(seq_row0 + key) * ld3 + (which ? 2 : 1) * D + h * HEAD_DIM + c * 16 +
+          if (key < S && c * 16 + e % 16 < HD)
+            p.dqkv_o[(seq_row0 + key) * ld3 + (which ? 2 : 1) * D + h * HD + c * 16 +
                      e % 16] = from_f<T>(which ? wscr[e] : wscr[e] * p.scale);
         }
         __syncwarp();
@@ -567,6 +570,7 @@ __global__ void __launch_bounds__(NTHREADS) qkv_bwd_kernel(BwdParams<T> p, const
 
 template <class T, int QT, bool RECOMPUTE = false>
 int launch_backward(BwdParams<T> p, T* dctx, float* dx1, int causal, cudaStream_t stream) {
+  if (!narrow_head_dim(p.D, p.H)) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)p.B * p.S;
   const unsigned row_blocks = (unsigned)((rows + BWD_ROWS - 1) / BWD_ROWS);
   size_t smem = ffn_smem<T>(p.D, p.F);
@@ -576,13 +580,18 @@ int launch_backward(BwdParams<T> p, T* dctx, float* dx1, int causal, cudaStream_
   ffn_bwd_kernel<T, RECOMPUTE><<<row_blocks, NTHREADS, smem, stream>>>(p, dctx, dx1);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  smem = AttnBwdLayout<T, QT, RECOMPUTE>(p.S).total;
-  err = cudaFuncSetAttribute(attn_bwd_kernel<T, QT, RECOMPUTE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_kernel<T, QT, RECOMPUTE><<<(unsigned)(p.B * p.H), NTHREADS, smem, stream>>>(
-      p, dctx, dx1, causal);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int rc = with_head_dim(p.D, p.H, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    const size_t smem_b = AttnBwdLayout<T, QT, HD, RECOMPUTE>(p.S).total;
+    cudaError_t e = cudaFuncSetAttribute(attn_bwd_kernel<T, QT, HD, RECOMPUTE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_b);
+    if (e != cudaSuccess) return (int)e;
+    attn_bwd_kernel<T, QT, HD, RECOMPUTE><<<(unsigned)(p.B * p.H), NTHREADS, smem_b, stream>>>(
+        p, dctx, dx1, causal);
+    return (int)cudaGetLastError();
+  });
+  if (rc != 0) return rc;
 
   // (c) writes its column sums after (a)'s rows
   BwdParams<T> pc = p;

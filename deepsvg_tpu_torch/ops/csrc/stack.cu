@@ -1,8 +1,9 @@
 // K7's older kernels: an L-layer stack of fused training layers, forward in
 // one launch and the row-local part of the backward in one launch (see
 // ops/stack_vjp.py). The stack runs here only at widths the cluster kernels
-// (stack_cluster.cu) do not take: F not a multiple of D, or a cluster block
-// over the shared memory a block can use; the wrapper chooses from the
+// (stack_cluster.cu) do not take: head dims other than 32 (8 and 16 here, a
+// template parameter picked from D / H), F not a multiple of D, or a cluster
+// block over the shared memory a block can use; the wrapper chooses from the
 // shapes before the launch and counts these launches apart.
 //
 // Every part of a layer is local to a row except attention, which stays
@@ -23,7 +24,7 @@
 
 namespace {
 
-template <class T, int ROWS>
+template <class T, int ROWS, int HD>
 __global__ void __launch_bounds__(NTHREADS)
     stack_fwd_kernel(layer_fwd::LayerParams<T> base, T* xs, int L, int rows_pad, int seed) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -50,7 +51,7 @@ __global__ void __launch_bounds__(NTHREADS)
     p.x1_s = base.x1_s + l * rows * D;
     p.h_s = base.h_s + l * rows * F;
     p.seed = stack_layer_seed(seed, l);
-    layer_fwd::layer_tile<T, ROWS, true>(p, smem);
+    layer_fwd::layer_tile<T, ROWS, HD, true>(p, smem);
     __syncthreads();
   }
 }
@@ -66,7 +67,7 @@ struct StackBwd {
   int L, rows_pad, seed;
 };
 
-template <class T, int ROWS>
+template <class T, int ROWS, int HD>
 __global__ void __launch_bounds__(NTHREADS)
     stack_bwd_kernel(layer_bwd::BwdParams<T> base, StackBwd<T> st) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -99,7 +100,7 @@ __global__ void __launch_bounds__(NTHREADS)
     p.df_o = base.df_o + l * rp * D;
     p.small_part = base.small_part + l * (9 * D + F);
     p.seed = stack_layer_seed(st.seed, l);
-    layer_bwd::layer_bwd_tile<T, ROWS>(p, smem);
+    layer_bwd::layer_bwd_tile<T, ROWS, HD>(p, smem);
     __syncthreads();
   }
 }
@@ -119,14 +120,18 @@ int launch_fwd(void* const* t, int L, int B, int S, int D, int F, int H, int cau
   p.kp = kp;
   p.nseq = ROWS / S;
   const size_t smem = layer_fwd::smem_bytes<T, ROWS>(D, F);
-  cudaError_t err = cudaFuncSetAttribute(stack_fwd_kernel<T, ROWS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const int blocks = (B + p.nseq - 1) / p.nseq;
   const int rows_pad = (B * S + 15) / 16 * 16;
-  stack_fwd_kernel<T, ROWS><<<blocks, NTHREADS, smem, stream>>>(p, (T*)t[14], L, rows_pad,
-                                                                 seed);
-  return (int)cudaGetLastError();
+  return with_head_dim(D, H, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    cudaError_t err = cudaFuncSetAttribute(stack_fwd_kernel<T, ROWS, HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    stack_fwd_kernel<T, ROWS, HD><<<blocks, NTHREADS, smem, stream>>>(p, (T*)t[14], L,
+                                                                     rows_pad, seed);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <class T, int ROWS>
@@ -176,12 +181,16 @@ int launch_bwd(void* const* t, int L, int B, int S, int D, int F, int H, int see
   st.rows_pad = (B * S + 15) / 16 * 16;
   st.seed = seed;
   const size_t smem = layer_bwd::smem_bytes<T, ROWS>(D, F);
-  cudaError_t err = cudaFuncSetAttribute(stack_bwd_kernel<T, ROWS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const int blocks = (B + p.nseq - 1) / p.nseq;
-  stack_bwd_kernel<T, ROWS><<<blocks, NTHREADS, smem, stream>>>(p, st);
-  return (int)cudaGetLastError();
+  return with_head_dim(D, H, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    cudaError_t err = cudaFuncSetAttribute(stack_bwd_kernel<T, ROWS, HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    stack_bwd_kernel<T, ROWS, HD><<<blocks, NTHREADS, smem, stream>>>(p, st);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace

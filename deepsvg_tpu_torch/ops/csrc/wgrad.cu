@@ -9,9 +9,11 @@
 // matching input (LN1(x), ctx, LN2(x1), dropped FF hidden), both written by
 // the first launch. On the TPU the sequential grid accumulated these in one
 // VMEM block; here the rows are split over blockIdx.y, each block keeps a
-// 64x64 output tile in tensor-core accumulators over its rows and writes it to
-// its own slice of `part`, and dsvg_reduce_partials adds the slices in a fixed
-// order. No atomics: the result does not depend on the schedule.
+// 64x64 output tile in tensor-core accumulators over its rows (a 32x32
+// quarter a warp; at the edge of a product whose M or N is an odd multiple
+// of 32, the quarters outside it are skipped) and writes it to its own slice
+// of `part`, and dsvg_reduce_partials adds the slices in a fixed order. No
+// atomics: the result does not depend on the schedule.
 //
 // K4's bfloat16 short form at D = 256 (layer_train.cuh) takes the wgmma
 // launch at the end of this file instead: the same products and split, plus
@@ -47,9 +49,11 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WgradParams p) {
   while (q + 1 < p.nprob && (int)blockIdx.x >= p.tile0[q + 1]) ++q;
   const int t = blockIdx.x - p.tile0[q];
   const int nM = p.M[q], nN = p.N[q];
-  const int tn = t % (nN / WG_TILE), tm = t / (nN / WG_TILE);
+  const int tiles_n = (nN + WG_TILE - 1) / WG_TILE;
+  const int tn = t % tiles_n, tm = t / tiles_n;
   const int warp = threadIdx.x >> 5;
   const int m0 = tm * WG_TILE + (warp >> 1) * 32, n0 = tn * WG_TILE + (warp & 1) * 32;
+  if (m0 >= nM || n0 >= nN) return;   // the quarter lies outside the product
   const T* A = (const T*)p.a[q];
   const T* B = (const T*)p.b[q];
   const int k0 = blockIdx.y * p.rows_per_split;
@@ -96,7 +100,7 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part,
 }  // namespace
 
 // nprob products; a[q] is [rows_pad][M[q]], b[q] is [rows_pad][N[q]] (rows
-// beyond the batch are zero), M and N multiples of 64. part is
+// beyond the batch are zero), M and N multiples of 32. part is
 // [splits][sum M*N]; the q-th dW starts at sum_{<q} M*N within a slice.
 extern "C" int dsvg_wgrad(void* const* a, void* const* b, const int* M, const int* N,
                           int nprob, int rows_pad, int rows_per_split, int splits,
@@ -116,7 +120,7 @@ extern "C" int dsvg_wgrad(void* const* a, void* const* b, const int* M, const in
     p.N[q] = N[q];
     p.tile0[q] = tiles;
     p.out0[q] = total;
-    tiles += (M[q] / WG_TILE) * (N[q] / WG_TILE);
+    tiles += ((M[q] + WG_TILE - 1) / WG_TILE) * ((N[q] + WG_TILE - 1) / WG_TILE);
     total += (long long)M[q] * N[q];
   }
   p.tile0[nprob] = tiles;

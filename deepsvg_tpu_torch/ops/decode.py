@@ -60,7 +60,9 @@ How the data reach the SMs, at the flagship's width (D = 256, 8 heads;
 An H100 holds 66 such clusters at once, so the decode's 1,024 rows run in
 one wave. Other widths run the older kernel (``csrc/decode.cu``: a block of
 8 rows with every head, its weights read from L2 by each block), counted
-apart (``narrow_launches``).
+apart (``narrow_launches``), with the head dim (32, 16 or 8) a template
+parameter: a cached position takes 4, 2 or 1 lanes of a warp, 8, 16 or 32
+positions a warp load.
 
 A float32 model takes the float32 forms: float32 activations, weights and
 caches, the products in TF32. Its caches are twice the bytes: 1,007 MB a
@@ -74,7 +76,7 @@ import functools
 import torch
 
 from . import _build
-from .layer import HEAD_DIM, _layer_norm_f32, _mm
+from .layer import _layer_norm_f32, _mm, head_dim, softmax_scale
 
 MAX_D = 256       # the older kernel's widest row
 BLOCK_ROWS, CLUSTER = 8, 2   # csrc/decode_cluster.cu: ROWS, CLUSTER (blocks splitting the columns)
@@ -111,6 +113,20 @@ def decode_launch_plan(r: int, d: int, f: int, n_heads: int, dtype, wave: int = 
     return {"block_rows": BLOCK_ROWS, "cluster": CLUSTER, "clusters": clusters,
             "grid": clusters * CLUSTER, "smem": smem,
             "waves": -(-clusters // wave) if wave else None, "takes": takes}
+
+
+def decode_form(d: int, f: int, n_heads: int, dtype) -> str:
+    """The kernel K9 runs a step on, from its widths alone: ``"cluster"``
+    where :func:`decode_launch_plan` takes them (D=256, 8 heads of 32),
+    else ``"narrow"``, the older kernel of ``csrc/decode.cu`` at head dim
+    32, 16 or 8 (a template parameter: 4, 2 or 1 lanes a cached position).
+    Raises on any other widths, naming the limit."""
+    _build.kernel_dtype(torch.empty((), dtype=dtype), "x")
+    head_dim(d, n_heads)
+    if d > MAX_D or d % 32 or f % 32 or f < 32:
+        raise ValueError(f"decode kernel takes D <= {MAX_D} and D, F multiples of 32; got "
+                         f"D={d}, heads={n_heads}, F={f}")
+    return "cluster" if _cluster_smem(d, f, n_heads, dtype) else "narrow"
 
 
 @functools.lru_cache(maxsize=None)
@@ -184,9 +200,10 @@ def fused_decode_step(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s,
     The operator ``deepsvg::decode_step``: a CPU tensor takes
     :func:`decode_step_reference`; a CUDA tensor launches the kernel
     (activations, weights and caches all bfloat16 or all float32, head dim
-    32, D <= 256 and D, F multiples of 32) or raises: the cluster kernel
-    where :func:`decode_launch_plan` takes the widths, else the older one
-    (counted under ``narrow_launches``).
+    32, 16 or 8, D <= 256 and D, F multiples of 32) or raises: the cluster
+    kernel where :func:`decode_launch_plan` takes the widths, else the older
+    one (counted under ``narrow_launches``; :func:`decode_form` names the
+    kernel).
     """
     _build.check_device(x, "decode")
     tensors = (x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s, w2s, b2s, lnf,
@@ -200,6 +217,7 @@ fused_decode_step.launches = 0            # every launch
 fused_decode_step.float32_launches = 0    # those of its float32 form
 fused_decode_step.cluster_launches = 0    # those of the cluster kernel (both types)
 fused_decode_step.narrow_launches = 0     # those of the older kernel (other widths)
+fused_decode_step.narrow_float32_launches = 0   # of those, the float32 ones
 
 
 @torch.library.custom_op("deepsvg::decode_step", mutates_args=())
@@ -228,9 +246,7 @@ def _(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s, w2s, b2s, lnf, 
     n_layers, r, t, d = kcache.shape
     f = w1s.shape[1]
     dt = _build.kernel_dtype(x, "x")
-    if d != n_heads * HEAD_DIM or d > MAX_D or d % 32 or f % 32:
-        raise ValueError(f"decode kernel takes head dim {HEAD_DIM}, D <= {MAX_D} and D, F "
-                         f"multiples of 32; got D={d}, heads={n_heads}, F={f}")
+    form = decode_form(d, f, n_heads, dt)
     if not 0 <= index < t:
         raise ValueError(f"index {index} outside the cache length {t}")
     for name, tensor, shape in (
@@ -254,18 +270,19 @@ def _(x, seq_bias, ln1s, wqkvs, bqkvs, wos, bos, ln2s, w1s, b1s, w2s, b2s, lnf, 
                                      v_new)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     is_f32 = int(dt == torch.float32)
-    smem = _cluster_smem(d, f, n_heads, dt)
-    if smem:
+    scale = softmax_scale(d, n_heads)
+    if form == "cluster":
         fn = _build.kernel_function("dsvg_decode_cluster", _CLUSTER_ARGTYPES)
-        rc = fn(*ptrs, r, t, d, f, n_heads, n_layers, index, is_f32, smem, HEAD_DIM ** -0.5,
-                stream)
+        rc = fn(*ptrs, r, t, d, f, n_heads, n_layers, index, is_f32,
+                _cluster_smem(d, f, n_heads, dt), scale, stream)
         _build.check_launch(rc, "decode_cluster")
         fused_decode_step.cluster_launches += 1
     else:
         fn = _build.kernel_function("dsvg_decode_step", _ARGTYPES)
-        rc = fn(*ptrs, r, t, d, f, n_heads, n_layers, index, is_f32, HEAD_DIM ** -0.5, stream)
+        rc = fn(*ptrs, r, t, d, f, n_heads, n_layers, index, is_f32, scale, stream)
         _build.check_launch(rc, "decode")
         fused_decode_step.narrow_launches += 1
+        fused_decode_step.narrow_float32_launches += is_f32
     fused_decode_step.launches += 1
     fused_decode_step.float32_launches += is_f32
     return y, k_new, v_new

@@ -48,10 +48,19 @@ on ``mma.sync`` m16n8k8 with the exact softmax in registers; then the out
 projection onto the residual in the accumulators, LN2 and the FF over
 128-row tiles, as the bfloat16 form's second half. The activations are
 rounded to TF32 (to nearest) where they are written for a product, the
-weights once when first used (:func:`tf32_copy`). Other float32 widths keep
-the older code (``csrc/layer_fwd.cuh``, ``csrc/layer_long.cuh``, which K4
-and K7 share: a block owns whole sequences, ``nvcuda::wmma`` TF32 with the
-weights read from L2), counted apart (``narrow_launches``).
+weights once when first used (:func:`tf32_copy`).
+
+Other widths, in both types (head dim 8, 16 or 32 at any D up to what a
+block's shared memory holds; the test configs' D=32 with 4 heads of 8), keep
+the first port's code (``csrc/layer_fwd.cuh``, ``csrc/layer_long.cuh``,
+which K4 and K7 share: a block owns whole sequences, 64 rows in bfloat16 and
+32 in float32, ``nvcuda::wmma`` bf16 or TF32 with the weights read from L2;
+the attention of a (sequence, head) on one warp at S <= 32, on ``wmma``
+tiles over the head padded to 16 columns in the long form), with the head
+dim a template parameter; counted apart (``narrow_launches``).
+:func:`layer_form` names the form a shape takes, from the shape alone.
+Every launch passes the softmax scale ``(D / heads) ** -0.5``
+(:func:`softmax_scale`).
 
 The softmax subtracts the row maximum (the Pallas kernel clamps scores to
 +-75 instead, a TPU-only choice); a query whose keys are all masked gets
@@ -151,24 +160,104 @@ _LONG_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                                   ctypes.c_void_p]
 MAX_SEQ = 32
 MAX_SEQ_LONG = 256
-HEAD_DIM = 32
+HEAD_DIM = 32       # the head dim of the Hopper forms (D=256, 8 heads)
+HEAD_DIMS = (32, 16, 8)   # the head dims (D / heads) the first port's kernels take
 BF16_WIDTH = 256    # the D of the bfloat16 kernels (csrc/layer_infer.cuh)
 BF16_MAX_FF = 1024  # and their widest F
+HOPPER_HEADS = BF16_WIDTH // HEAD_DIM
+SMEM_LIMIT = 232448         # shared memory a block can use on the H100
+# The first port's layer forward's shared-memory plan (narrow_smem), a copy
+# of the C's that must change with it: a block's rows are the ROWS (QROWS) of
+# the launch<T, ROWS> calls in csrc/layer.cu (launch_forward in
+# csrc/layer_long.cu); SPAD and NWARPS are csrc/common.cuh's, HPAD
+# csrc/layer_long.cuh's. The launches refuse a larger plan on their own
+# (cudaFuncSetAttribute); this copy names the limit before one is tried.
+NARROW_ROWS = {torch.bfloat16: 64, torch.float32: 32}
+SPAD, HPAD, NWARPS = 8, 8, 8
+
+
+def head_dim(d: int, n_heads: int) -> int:
+    """``D / heads``; raise unless it is a head dim the kernels take (32,
+    16 or 8)."""
+    if n_heads < 1 or d % n_heads or d // n_heads not in HEAD_DIMS:
+        raise ValueError(f"the kernels take head dim 32, 16 or 8 (D / heads); got D={d}, "
+                         f"heads={n_heads}")
+    return d // n_heads
+
+
+def softmax_scale(d: int, n_heads: int) -> float:
+    """The softmax scale every attention launch passes: ``(D / heads) **
+    -0.5``, as the JAX kernels and the plain versions take it."""
+    return head_dim(d, n_heads) ** -0.5
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def narrow_smem(dtype, s: int, d: int, f: int, n_heads: int, long_form: bool) -> int:
+    """Shared-memory bytes of a block of the first port's layer forward:
+    ``smem_bytes`` of csrc/layer_fwd.cuh (the short form, whole sequences
+    in a block) or the long form's larger launch (``LongLayout`` of
+    csrc/layer_long.cuh; its head slices padded to ``head_pad``, 16
+    columns at least)."""
+    es = torch.empty((), dtype=dtype).element_size()
+    rows = NARROW_ROWS[dtype]
+    scratch = NWARPS * 256 * 4      # each warp's float32 wmma scratch
+    if not long_form:
+        return (rows * d * 4 + rows * (d + SPAD) * es + rows * (max(3 * d, f) + SPAD) * es
+                + scratch)
+    spad, ldh = _round16(s), max(d // n_heads, 16) + HPAD
+    region = rows * (d + SPAD) * es
+    attention = region + (rows + 2 * spad) * ldh * es + rows * (spad + 8) * 4
+    ffn = region + rows * d * 4 + rows * (f + SPAD) * es
+    return max(attention, ffn) + scratch
+
+
+def layer_form(dtype, d: int, f: int, n_heads: int, s: int) -> str:
+    """The kernels K2 runs a layer on, from its shape alone: at D=256 with
+    8 heads (F a multiple of 64 up to 1024) the Hopper forms, ``"bf16"`` (S
+    <= 32, one launch), ``"bf16_long"`` (S up to 256), ``"f32"`` / ``"f32_long"``
+    (the float32 ``wgmma`` launches, counted as the short or the long
+    form); at the other widths the first port's kernels, ``"narrow"`` (S <=
+    32) or ``"narrow_long"``, at head dim 32, 16 or 8 where a block's shared
+    memory holds them. Raises on any other shape, naming the limit (a
+    bfloat16 layer at D=256 with 8 heads and another F included)."""
+    _build.kernel_dtype(torch.empty((), dtype=dtype), "x")
+    head_dim(d, n_heads)
+    if not 1 <= s <= MAX_SEQ_LONG or d % 16 or f % 16 or f < 16:
+        raise ValueError(f"the layer kernels take 1 <= S <= {MAX_SEQ_LONG} and D, F multiples "
+                         f"of 16; got D={d}, S={s}, F={f}")
+    long_form = s > MAX_SEQ
+    suffix = "_long" if long_form else ""
+    if d == BF16_WIDTH and n_heads == HOPPER_HEADS:
+        if f % 64 == 0 and f <= BF16_MAX_FF:
+            return ("bf16" if dtype == torch.bfloat16 else "f32") + suffix
+        if dtype == torch.bfloat16:
+            raise ValueError(f"the bfloat16 layer kernels take D={BF16_WIDTH} and F a multiple "
+                             f"of 64 up to {BF16_MAX_FF} at {HOPPER_HEADS} heads; got D={d}, "
+                             f"F={f}")
+    smem = narrow_smem(dtype, s, d, f, n_heads, long_form)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the layer kernels at D={d}, F={f}, S={s} need {smem} bytes of shared "
+                         f"memory a block, over the {SMEM_LIMIT} a block can use")
+    return "narrow" + suffix
 
 
 def check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                        n_heads: int, max_seq: int = MAX_SEQ) -> None:
     """Raise unless the layer kernels take these CUDA tensors: activations
     and weights of one type (bfloat16 or float32), S <= ``max_seq``, head
-    dim 32."""
+    dim 32, 16 or 8."""
     dev, dt = x.device, x.dtype
     b, s, d = x.shape
     f = w1.shape[0]
     _build.kernel_dtype(x, "x")
-    if d != n_heads * HEAD_DIM or not 1 <= s <= max_seq or d % 16 or f % 16:
+    head_dim(d, n_heads)
+    if not 1 <= s <= max_seq or d % 16 or f % 16:
         raise ValueError(
-            f"layer kernel takes head dim {HEAD_DIM}, 1 <= S <= {max_seq} and "
-            f"D, F multiples of 16; got D={d}, heads={n_heads}, S={s}, F={f}")
+            f"layer kernel takes 1 <= S <= {max_seq} and D, F multiples of 16; got D={d}, "
+            f"heads={n_heads}, S={s}, F={f}")
     for name, t, shape in (
             ("x", x, (b, s, d)), ("ln1", ln1, (2, d)), ("wqkv", wqkv, (3 * d, d)),
             ("bqkv", bqkv, (3 * d,)), ("wo", wo, (d, d)), ("bo", bo, (d,)),
@@ -180,22 +269,11 @@ def check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2
         _build.require(seq_bias, "seq_bias", dev, dt, (b, d))
 
 
-def _check_bf16_widths(x, w1) -> None:
-    """Raise unless K2's bfloat16 kernels take these widths."""
-    d, f = x.shape[-1], w1.shape[0]
-    if x.dtype == torch.bfloat16 and (d != BF16_WIDTH or f % 64 or f > BF16_MAX_FF):
-        raise ValueError(f"the bfloat16 layer kernels take D={BF16_WIDTH} and F a multiple of "
-                         f"64 up to {BF16_MAX_FF}; got D={d}, F={f}")
-
-
 def f32_hopper_form(x, n_heads: int, f: int) -> bool:
     """Whether the float32 ``wgmma`` forms (``csrc/layer_f32.cu``) take this
-    CUDA layer: float32 and the widths ``dsvg_layer_f32_hopper`` takes (D=256
+    CUDA layer: :func:`layer_form` names ``"f32"`` or ``"f32_long"`` (D=256
     with 8 heads, F a multiple of 64 up to 1024, any S up to 256)."""
-    if x.dtype != torch.float32:
-        return False
-    rule = _build.kernel_function("dsvg_layer_f32_hopper", [ctypes.c_int] * 4)
-    return bool(rule(x.shape[2], f, n_heads, x.shape[1]))
+    return layer_form(x.dtype, x.shape[2], f, n_heads, x.shape[1]).startswith("f32")
 
 
 def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
@@ -209,8 +287,9 @@ def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
 
     A CPU tensor takes :func:`layer_reference`; a CUDA tensor launches the
     kernel (activations and weights both bfloat16 or both float32, head dim
-    32; S <= 32 the short form, up to 256 the long form,
-    :func:`fused_layer_long`) or raises. The operators: ``deepsvg::layer``
+    32, 16 or 8; S <= 32 the short form, up to 256 the long form,
+    :func:`fused_layer_long`; :func:`layer_form` names the kernels) or
+    raises. The operators: ``deepsvg::layer``
     (the short form), ``deepsvg::layer_f32`` (the float32 ``wgmma`` forms,
     where :func:`f32_hopper_form` takes the widths) and
     ``deepsvg::layer_long``.
@@ -229,7 +308,8 @@ def fused_layer(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
 
 fused_layer.launches = 0            # every layer of the short form on its wgmma kernels
 fused_layer.float32_launches = 0    # those of its float32 form
-fused_layer.narrow_launches = 0     # float32 layers at other widths, on the older code
+fused_layer.narrow_launches = 0     # layers at other widths (both types), on the older code
+fused_layer.narrow_float32_launches = 0   # those in float32
 
 
 def fused_layer_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
@@ -247,7 +327,8 @@ def fused_layer_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, 
 
 fused_layer_long.launches = 0           # every layer run by the long form's wgmma kernels
 fused_layer_long.float32_launches = 0   # those of its float32 form
-fused_layer_long.narrow_launches = 0    # float32 layers at other widths, on the older code
+fused_layer_long.narrow_launches = 0    # layers at other widths (both types), on the older code
+fused_layer_long.narrow_float32_launches = 0   # those in float32
 
 
 # The operators. Each takes the layer's thirteen tensors, then ``n_heads``
@@ -276,12 +357,12 @@ _layer_op.register_fake(_layer_fake)
 
 @_layer_op.register_kernel("cuda")
 def _(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, n_heads, causal):
-    """The short form: the bfloat16 ``wgmma`` kernels, or the older float32
-    code at widths the float32 ``wgmma`` forms do not take."""
+    """The short form: the bfloat16 ``wgmma`` kernels, or the older code at
+    the widths :func:`layer_form` names ``"narrow"``."""
     check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                        n_heads)
-    _check_bf16_widths(x, w1)
     b, s, d = x.shape
+    narrow = not layer_form(x.dtype, d, w1.shape[0], n_heads, s).startswith("bf16")
     out = torch.empty_like(x)
     if b == 0:
         return out
@@ -290,11 +371,12 @@ def _(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, n_heads, 
             bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln2.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             mask.data_ptr(), out.data_ptr(), b, s, d, w1.shape[0], n_heads, int(causal),
-            int(x.dtype == torch.float32), HEAD_DIM ** -0.5,
+            int(x.dtype == torch.float32), softmax_scale(d, n_heads),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(rc, "layer")
-    if x.dtype == torch.float32:
+    if narrow:
         fused_layer.narrow_launches += 1
+        fused_layer.narrow_float32_launches += x.dtype == torch.float32
     else:
         fused_layer.launches += 1
     return out
@@ -332,14 +414,15 @@ def _(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, n_heads, 
     out = torch.empty_like(x)
     if b == 0:
         return out
-    qkv = torch.empty((d // HEAD_DIM, b * s, 3 * HEAD_DIM), dtype=torch.float32, device=dev)
+    hd = head_dim(d, n_heads)
+    qkv = torch.empty((n_heads, b * s, 3 * hd), dtype=torch.float32, device=dev)
     ctx = torch.empty((b * s, d), dtype=torch.float32, device=dev)
     wqkv, wo, w1, w2 = (tf32_copy(w) for w in (wqkv, wo, w1, w2))
     fn = _build.kernel_function("dsvg_layer_f32", _F32_ARGTYPES)
     rc = fn(x.data_ptr(), _ptr(seq_bias), ln1.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), ln2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), mask.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
-            out.data_ptr(), b, s, w1.shape[0], int(causal), HEAD_DIM ** -0.5,
+            out.data_ptr(), b, s, w1.shape[0], int(causal), softmax_scale(d, n_heads),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "float32 layer")
     counter.launches += 1
@@ -362,12 +445,12 @@ _layer_long_op.register_fake(_layer_fake)
 
 @_layer_long_op.register_kernel("cuda")
 def _(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, n_heads, causal):
-    """The long form: the bfloat16 ``wgmma`` kernels, or the older float32
-    code at widths the float32 ``wgmma`` forms do not take."""
+    """The long form: the bfloat16 ``wgmma`` kernels, or the older code at
+    the widths :func:`layer_form` names ``"narrow"`` / ``"narrow_long"``."""
     check_layer_inputs(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
                        n_heads, MAX_SEQ_LONG)
-    _check_bf16_widths(x, w1)
     b, s, d = x.shape
+    narrow = not layer_form(x.dtype, d, w1.shape[0], n_heads, s).startswith("bf16")
     dev = x.device
     out = torch.empty_like(x)
     if b == 0:
@@ -378,11 +461,12 @@ def _(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask, n_heads, 
             bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln2.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             mask.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, s, d, w1.shape[0], n_heads,
-            int(causal), int(x.dtype == torch.float32), HEAD_DIM ** -0.5,
+            int(causal), int(x.dtype == torch.float32), softmax_scale(d, n_heads),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "long layer")
-    if x.dtype == torch.float32:
+    if narrow:
         fused_layer_long.narrow_launches += 1
+        fused_layer_long.narrow_float32_launches += x.dtype == torch.float32
     else:
         fused_layer_long.launches += 1
     return out

@@ -28,10 +28,12 @@ launches (``csrc/layer_f32.cu``, ``csrc/layer_f32_bwd.cu``; see *Long form*
 below) in both modes, counted under the short form's counters and apart
 under ``fused_layer_train.float32_launches`` / ``.float32_backward_launches``
 (their times at E2 above the stack gate, B=128, against the older form's:
-PERF.md §6). Narrower bfloat16 widths (counted apart:
-``fused_layer_train.narrow_launches``, ``.narrow_backward_launches``),
-and float32 at other widths run the older ``wmma`` form below
-(``csrc/layer_fwd.cuh``, ``csrc/layer_bwd.cuh``), which K7 shares.
+PERF.md §6). Other widths in both types (head dim 8, 16 or 32, D and F
+multiples of 32 up to D=256; counted apart:
+``fused_layer_train.narrow_launches``, ``.narrow_backward_launches``) run
+the older ``wmma`` form below (``csrc/layer_fwd.cuh``,
+``csrc/layer_bwd.cuh``), which K7 shares, with the head dim a template
+parameter; :func:`layer_train_form` names the form a shape takes.
 
 - *Modes.* ``save_residuals=True`` (the saved mode, what the model runs by
   default through :data:`SAVE_RESIDUALS_DEFAULT`): the forward saves to
@@ -134,7 +136,8 @@ from .dropout import (
     SITE_ATTN_OUT, SITE_ATTN_PROB, SITE_FF_HIDDEN, SITE_FF_OUT, drop_threshold,
     dropout_factor, keep_scale)
 from .layer import (
-    HEAD_DIM, MAX_SEQ, MAX_SEQ_LONG, _layer_norm_f32, _mm, check_layer_inputs, to_tf32)
+    BF16_MAX_FF, BF16_WIDTH, HOPPER_HEADS, MAX_SEQ, MAX_SEQ_LONG, SMEM_LIMIT, _layer_norm_f32,
+    _mm, check_layer_inputs, head_dim, narrow_smem, softmax_scale, to_tf32)
 
 # The mode the model's layers train in (``models/layers.py``), as the JAX
 # package's switch of the same name: True saves the forward's intermediates
@@ -247,26 +250,39 @@ WGRAD_ROWS_PER_SPLIT = 1024
 WGRAD_MAX_SPLITS = 16
 
 
-def _hopper_form(x, n_heads: int, f: int) -> bool:
-    """Whether K4's bfloat16 short form runs its wgmma kernels
-    (``csrc/layer_train.cuh``) on ``x`` with these widths, by the rule the C
-    entry points dispatch by; other bfloat16 widths run the older wmma
-    kernels, counted apart."""
-    b, s, d = x.shape
-    rule = _build.kernel_function("dsvg_layer_train_hopper", [ctypes.c_int] * 4)
-    return x.dtype == torch.bfloat16 and s <= MAX_SEQ and bool(rule(d, f, n_heads, s))
-
-
-def _long_hopper_form(x, n_heads: int, f: int) -> bool:
-    """Whether K4's long form runs its Hopper kernels on ``x``, by the rule
-    the C entry points take: D = 256 with 8 heads and F a multiple of 256
-    up to 1024 (bfloat16: ``csrc/layer_long.cu``'s training launches;
-    float32: ``csrc/layer_f32.cu``'s and ``csrc/layer_f32_bwd.cu``), whose
-    weight products take 128 x 256 tiles. Other widths run the older wmma
-    kernels, counted apart."""
-    b, s, d = x.shape
-    rule = _build.kernel_function("dsvg_layer_long_train_hopper", [ctypes.c_int] * 4)
-    return bool(rule(d, f, n_heads, s))
+def layer_train_form(dtype, d: int, f: int, n_heads: int, s: int,
+                     long_form: bool | None = None) -> str:
+    """The kernels K4 runs a layer on, from its shape alone (``long_form``:
+    the form the caller asked for; None, the one :func:`fused_layer_train`
+    picks by S). At D=256 with 8 heads and F a multiple of 256 up to 1024
+    (the widths of the weight products' 128 x 256 tiles), by the rules the C
+    entry points dispatch by (``dsvg_layer_train_hopper``,
+    ``dsvg_layer_long_train_hopper``): ``"hopper"`` (bfloat16, the short
+    form's ``wgmma`` kernels, ``csrc/layer_train.cuh``) or
+    ``"hopper_long"`` (the long form's Hopper launches, which float32's
+    short form runs too). Else the older ``wmma`` kernels at head dim 32,
+    16 or 8: ``"narrow"`` (a block holds whole sequences: S <= 32 in
+    bfloat16, 16 in float32) or ``"narrow_long"``. Raises on any other
+    shape, naming the limit: D and F multiples of 32 (the weight products'
+    warp tiles) with D <= 256."""
+    _build.kernel_dtype(torch.empty((), dtype=dtype), "x")
+    head_dim(d, n_heads)
+    if d % 32 or f % 32 or d > 256 or f < 32:
+        raise ValueError(f"the training layer kernel takes D, F multiples of 32 and "
+                         f"D <= 256; got D={d}, F={f}")
+    short = F32_MAX_SEQ if dtype == torch.float32 else MAX_SEQ
+    if long_form is None:
+        long_form = s > short
+    if not 1 <= s <= (MAX_SEQ_LONG if long_form else short):
+        raise ValueError(f"the {'long' if long_form else 'short'} training layer kernel takes "
+                         f"1 <= S <= {MAX_SEQ_LONG if long_form else short}, got S={s}")
+    if d == BF16_WIDTH and n_heads == HOPPER_HEADS and f % 256 == 0 and f <= BF16_MAX_FF:
+        return "hopper" if dtype == torch.bfloat16 and not long_form else "hopper_long"
+    smem = narrow_smem(dtype, s, d, f, n_heads, long_form)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the training layer kernels at D={d}, F={f}, S={s} need {smem} bytes "
+                         f"of shared memory a block, over the {SMEM_LIMIT} a block can use")
+    return "narrow_long" if long_form else "narrow"
 
 
 def _round_up(n: int, m: int) -> int:
@@ -300,15 +316,14 @@ def _used_weights(x, weights, weight_dtype):
     return [w.detach().to(weight_dtype).to(x.dtype).contiguous() for w in weights]
 
 
-def _check_train_inputs(x, seq_bias, used, mask, n_heads, max_seq):
+def _check_train_inputs(x, seq_bias, used, mask, n_heads, long_form):
+    """The bias and mask as the kernels read them, and the form
+    (:func:`layer_train_form`); raises on what no form takes."""
     bias = None if seq_bias is None else seq_bias.detach().to(x.dtype).contiguous()
     mask = mask.to(torch.float32).contiguous()
-    check_layer_inputs(x, bias, *used, mask, n_heads, max_seq)
-    d, f = x.shape[2], used[6].shape[0]
-    if d % 64 or f % 64 or d > 256:
-        raise ValueError(f"the training layer kernel takes D, F multiples of 64 and "
-                         f"D <= 256; got D={d}, F={f}")
-    return bias, mask
+    check_layer_inputs(x, bias, *used, mask, n_heads, MAX_SEQ_LONG if long_form else MAX_SEQ)
+    b, s, d = x.shape
+    return bias, mask, layer_train_form(x.dtype, d, used[6].shape[0], n_heads, s, long_form)
 
 
 def _workspace(x, f):
@@ -353,7 +368,7 @@ def _forward_launch(name, x, bias, used, mask, out, ptrs, n_heads, causal, seed,
     fn = _build.kernel_function(f"dsvg_{name}", _FWD_ARGTYPES)
     rc = fn(x.data_ptr(), _ptr(bias), *[w.data_ptr() for w in used], mask.data_ptr(),
             out.data_ptr(), *ptrs, b, s, d, used[6].shape[0], n_heads, int(causal),
-            int(x.dtype == torch.float32), int(seed), thr, kp, HEAD_DIM ** -0.5,
+            int(x.dtype == torch.float32), int(seed), thr, kp, softmax_scale(d, n_heads),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(rc, name)
 
@@ -376,7 +391,7 @@ def _backward_outputs(x, f, small_rows, small_width):
 def weight_products(problems, is_f32, stream):
     """``A^T @ B`` in float32 for each ``(A [rows_pad, M], B [rows_pad, N])``
     of ``problems`` (rows beyond the batch zero, ``rows_pad`` a multiple of
-    16, M and N multiples of 64): one ``wgrad`` launch split over the rows
+    16, M and N multiples of 32): one ``wgrad`` launch split over the rows
     into partial sums, and their fixed-order reduction. Returns the
     ``[M, N]`` products in order."""
     dev = problems[0][0].device
@@ -449,7 +464,8 @@ def _long_launch(x, bias, used, mask, seed, n_heads, causal, thr, kp, save):
     x1 = torch.empty((rows, d), dtype=torch.float32, device=dev)
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     if dt == torch.float32:
-        saved = (f32(n_heads, rows, 3 * HEAD_DIM), f32(b, n_heads, s, s) if save else None,
+        saved = (f32(n_heads, rows, 3 * head_dim(d, n_heads)),
+                 f32(b, n_heads, s, s) if save else None,
                  f32(rows, d), x1, f32(rows, f) if save else None)
         name, args = "dsvg_layer_f32_train", saved
         argtypes = _F32_FWD_ARGTYPES
@@ -465,11 +481,11 @@ def _long_launch(x, bias, used, mask, seed, n_heads, causal, thr, kp, save):
         _build.check_launch(
             fn(x.data_ptr(), _ptr(bias), *[w.data_ptr() for w in used], mask.data_ptr(),
                out.data_ptr(), *[_ptr(t) for t in args], b, s, f, int(causal), int(seed), thr,
-               kp, HEAD_DIM ** -0.5, stream), name)
+               kp, softmax_scale(d, n_heads), stream), name)
     return out, (saved if save else ())
 
 
-def _long_backward(x, g, used, saved, meta):
+def _long_backward(x, g, used, saved, n_heads, meta):
     """K4's long form on its Hopper kernels, saved-mode backward: three row
     launches (float32: ``csrc/layer_f32_bwd.cu``; bfloat16: the short form's
     ``csrc/layer_bwd.cu`` launches on 128-row tiles of all rows, with its
@@ -507,7 +523,7 @@ def _long_backward(x, g, used, saved, meta):
     ptrs = [t.data_ptr() for t in tensors]
     fn = _build.kernel_function(name, _LONG_HOPPER_BWD_ARGTYPES)
     _build.check_launch(fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, f, causal, seed, thr, kp,
-                           HEAD_DIM ** -0.5, stream), name)
+                           softmax_scale(d, n_heads), stream), name)
     (dwqkv, dwo, dw1, dw2), (dbqkv, dbo, db1, db2) = weight_products_hopper(
         ((dqkv, xn1), (da, ctx_s), (dhpre, xn2), (df, hd)), rows, stream)
     dln1, dln2 = reduce_partials(sums).split([2 * d, 2 * d])
@@ -552,15 +568,14 @@ class _FusedLayerTrain(torch.autograd.Function):
         dev, dt = x.device, x.dtype
         x = x.contiguous()
         used = _used_weights(x, (ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2), weight_dtype)
-        bias, mask = _check_train_inputs(x, seq_bias, used, mask, n_heads,
-                                         MAX_SEQ_LONG if long_form else MAX_SEQ)
         b, s, d = x.shape
-        f = used[6].shape[0]
         if not long_form and dt == torch.float32 and s > F32_MAX_SEQ:
             raise ValueError(f"the short float32 training layer kernel takes S <= "
                              f"{F32_MAX_SEQ} (its backward tiles hold {F32_MAX_SEQ} rows), "
                              f"got S={s}")
-        hopper = not long_form and _hopper_form(x, n_heads, f)
+        bias, mask, form = _check_train_inputs(x, seq_bias, used, mask, n_heads, long_form)
+        f = used[6].shape[0]
+        hopper = form == "hopper"
         thr = drop_threshold(rate) if rate > 0.0 else 0
         kp = keep_scale(rate) if rate > 0.0 else 1.0
         ctx.save_residuals = save
@@ -568,8 +583,7 @@ class _FusedLayerTrain(torch.autograd.Function):
                     seq_bias is not None, None if seq_bias is None else seq_bias.dtype)
         # the Hopper launches of the long form: the long form at its widths,
         # and the float32 short form (S <= 16) at the same, in both modes
-        ctx.long_hopper = ((long_form or dt == torch.float32)
-                           and _long_hopper_form(x, n_heads, f))
+        ctx.long_hopper = form == "hopper_long"
         if ctx.long_hopper:
             if dt == torch.float32:
                 # the weights as the TF32 products read them
@@ -599,8 +613,9 @@ class _FusedLayerTrain(torch.autograd.Function):
             name = ("layer_long_train_fwd" if long_form else "layer_train_fwd") \
                 + ("" if save else "_recompute")
             _forward_launch(name, x, bias, used, mask, out, ptrs, n_heads, causal, seed, thr, kp)
-            if long_form or (dt == torch.bfloat16 and not hopper):
+            if form.startswith("narrow"):
                 counter.narrow_launches += 1
+                counter.narrow_float32_launches += dt == torch.float32
             elif save:
                 counter.launches += 1
             else:
@@ -622,7 +637,7 @@ class _FusedLayerTrain(torch.autograd.Function):
                 # the recompute mode: the same forward again, saving, into
                 # this layer's workspace, freed when the backward returns
                 _, saved = _long_launch(x, bias, used, mask, seed, n_heads, causal, thr, kp, True)
-            dx, dbias, dws = _long_backward(x, g.to(x.dtype).contiguous(), used, saved,
+            dx, dbias, dws = _long_backward(x, g.to(x.dtype).contiguous(), used, saved, n_heads,
                                             (seed, thr, kp, causal))
             counter = fused_layer_train_long if long_form else fused_layer_train
             if save:
@@ -674,7 +689,7 @@ class _FusedLayerTrain(torch.autograd.Function):
             ptrs = [_ptr(t) for t in tensors + outs + scratch + extra]
             fn = _build.kernel_function(f"dsvg_layer_long_train_bwd{mode}", _LONG_BWD_ARGTYPES)
             rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, f, n_heads, causal, is_f32,
-                    seed, thr, kp, HEAD_DIM ** -0.5, stream)
+                    seed, thr, kp, softmax_scale(d, n_heads), stream)
             _build.check_launch(rc, f"layer_long_train_bwd{mode}")
         elif hopper:
             # the wgmma form: three row-local launches, one row of LayerNorm
@@ -689,7 +704,7 @@ class _FusedLayerTrain(torch.autograd.Function):
             ptrs = [_ptr(t) for t in tensors + outs + scratch]
             fn = _build.kernel_function("dsvg_layer_train_bwd", _BWD_ARGTYPES)
             _build.check_launch(fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, f, n_heads,
-                                   is_f32, seed, thr, kp, HEAD_DIM ** -0.5, stream),
+                                   is_f32, seed, thr, kp, softmax_scale(d, n_heads), stream),
                                 "layer_train_bwd")
         else:
             # one row of column sums per block of the first launch
@@ -699,16 +714,17 @@ class _FusedLayerTrain(torch.autograd.Function):
             if save:
                 fn = _build.kernel_function("dsvg_layer_train_bwd", _BWD_ARGTYPES)
                 rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, f, n_heads, is_f32, seed,
-                        thr, kp, HEAD_DIM ** -0.5, stream)
+                        thr, kp, softmax_scale(d, n_heads), stream)
             else:
                 fn = _build.kernel_function("dsvg_layer_train_bwd_recompute",
                                             _LONG_BWD_ARGTYPES)
                 rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), b, s, d, f, n_heads, causal,
-                        is_f32, seed, thr, kp, HEAD_DIM ** -0.5, stream)
+                        is_f32, seed, thr, kp, softmax_scale(d, n_heads), stream)
             _build.check_launch(rc, f"layer_train_bwd{mode}")
         counter = fused_layer_train_long if long_form else fused_layer_train
-        if save and (long_form or (not is_f32 and not hopper)):
+        if save and not hopper:
             counter.narrow_backward_launches += 1
+            counter.narrow_float32_backward_launches += bool(is_f32)
         elif save:
             counter.backward_launches += 1
         else:
@@ -765,7 +781,8 @@ def fused_layer_train(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
     :data:`SAVE_RESIDUALS_DEFAULT`.
 
     A CPU tensor takes :func:`layer_train_reference` under autograd; a CUDA
-    tensor launches the kernels (head dim 32, D <= 256) or raises: the short
+    tensor launches the kernels (head dim 32, 16 or 8, D and F multiples of
+    32, D <= 256; :func:`layer_train_form` names them) or raises: the short
     form for bfloat16 activations with S <= 32 and float32 activations with
     S <= 16 (the flagship's E2; at its widths on the long form's TF32
     launches), the long form
@@ -797,10 +814,13 @@ fused_layer_train.float32_launches = 0              # those of the float32 Hoppe
 fused_layer_train.float32_backward_launches = 0     # (the long form's TF32 launches)
 fused_layer_train.recompute_launches = 0            # recompute mode: forward launches
 fused_layer_train.recompute_backward_launches = 0   # its backward passes (five launches)
-# bfloat16 at widths the wgmma kernels do not take (D < 256), on the older
-# wmma kernels: forward launches of either mode, saved-mode backward passes
+# both types at the widths layer_train_form names "narrow" (head dim 8, 16
+# or 32 below the Hopper forms' widths), on the older wmma kernels: forward
+# launches of either mode, saved-mode backward passes
 fused_layer_train.narrow_launches = 0
 fused_layer_train.narrow_backward_launches = 0
+fused_layer_train.narrow_float32_launches = 0            # of those, the float32 ones
+fused_layer_train.narrow_float32_backward_launches = 0
 
 
 def fused_layer_train_long(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
@@ -825,7 +845,10 @@ fused_layer_train_long.float32_launches = 0              # those of the float32 
 fused_layer_train_long.float32_backward_launches = 0
 fused_layer_train_long.recompute_launches = 0            # recompute mode: forward passes
 fused_layer_train_long.recompute_backward_launches = 0   # its backward passes
-# float32 at widths the Hopper form does not take, on the older wmma
-# kernels: forward launches of either mode, saved-mode backward passes
+# both types at the widths layer_train_form names "narrow_long", on the
+# older wmma kernels: forward launches of either mode, saved-mode backward
+# passes
 fused_layer_train_long.narrow_launches = 0
 fused_layer_train_long.narrow_backward_launches = 0
+fused_layer_train_long.narrow_float32_launches = 0       # of those, the float32 ones
+fused_layer_train_long.narrow_float32_backward_launches = 0

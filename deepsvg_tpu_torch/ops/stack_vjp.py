@@ -44,8 +44,9 @@ busy, and how long its warps wait on weights from L2:
   rows unsplit); one fixed-order reduction of the column sums. No atomics:
   the gradients are bit-identical from run to run.
 
-Widths the cluster kernels do not take (F not a multiple of D, or a block
-over 227 KB of shared memory) run the older kernels of ``csrc/stack.cu``,
+Widths the cluster kernels do not take (head dims 8 and 16, F not a
+multiple of D, or a block over 227 KB of shared memory) run the older
+kernels of ``csrc/stack.cu`` (the head dim a template parameter),
 whose block of 64 (bf16) or 32 (float32) rows runs all L layers on K4's
 ``wmma`` tiles, with the older weight-product kernel where the products are
 not multiples of 128 x 256: chosen from the shapes before the launch and
@@ -60,9 +61,9 @@ import torch
 
 from . import _build
 from .dropout import drop_threshold, keep_scale, stack_layer_seed
-from .layer import HEAD_DIM, check_layer_inputs
+from .layer import HEAD_DIM, check_layer_inputs, head_dim, narrow_smem, softmax_scale
 from .layer_vjp import (
-    _WGRAD_ARGTYPES, _WGRAD_HOPPER_ARGTYPES, F32_MAX_SEQ, WGRAD_MAX_SPLITS,
+    _WGRAD_ARGTYPES, _WGRAD_HOPPER_ARGTYPES, F32_MAX_SEQ, SMEM_LIMIT, WGRAD_MAX_SPLITS,
     WGRAD_ROWS_PER_SPLIT, _round_up, layer_train_reference, reduce_partials)
 
 WEIGHT_NAMES = ("ln1", "wqkv", "bqkv", "wo", "bo", "ln2", "w1", "b1", "w2", "b2")
@@ -70,7 +71,6 @@ MAX_LAYERS = 8               # the weight-gradient launch takes 32 products
 TILE_ROWS = {torch.bfloat16: 32, torch.float32: 16}   # rows of a cluster's tile
 RING_STAGES, RING_STAGE_BYTES = 4, 20480   # csrc/stack_cluster.cu: NS, STAGE
 LAYER_VECTORS = 6 * 256      # a block's LN and bias values a layer: VEC_PER_THREAD x NTHREADS
-SMEM_LIMIT = 232448          # shared memory a block can use on the H100
 _FWD_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 10
                  + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 9
@@ -87,7 +87,8 @@ def _round128(n: int) -> int:
 
 def stack_launch_plan(b: int, s: int, d: int, f: int, n_heads: int, dtype) -> dict:
     """How K7's cluster kernels launch for B sequences of S rows at width D,
-    FF width F, ``n_heads`` heads of 32 and activation type ``dtype``:
+    FF width F, ``n_heads`` heads (of 32, the only head dim they take) and
+    activation type ``dtype``:
     ``tile_rows`` (whole sequences, ``seqs_per_tile`` of them), the
     ``cluster`` size (one block a head), the ``tiles`` and the ``grid`` (tiles
     x cluster blocks), and the shared-memory bytes of a forward and a
@@ -96,24 +97,52 @@ def stack_launch_plan(b: int, s: int, d: int, f: int, n_heads: int, dtype) -> di
     kernels do not take the shape; the older kernels run then."""
     esz = torch.empty((), dtype=dtype).element_size()
     pad = 16 // esz                     # a 16-byte pad a row
+    hd = d // n_heads
     rows = TILE_ROWS[dtype]
     ring = RING_STAGES * RING_STAGE_BYTES
     split = 2048 if rows == 16 else 0   # float32: the products' K halves added
     fwd = ring + split + sum(_round128(n) for n in (
         rows * d * 4, rows * d * 4, rows * (max(d, f) + pad) * esz, rows * (d + pad) * esz,
-        rows * (3 * HEAD_DIM + pad) * esz,
-        (4 * d + 5 * HEAD_DIM + f // n_heads) * 4))    # LN1, LN2 and the bias columns
+        rows * (3 * hd + pad) * esz,
+        (4 * d + 5 * hd + f // n_heads) * 4))    # LN1, LN2 and the bias columns
     bwd = ring + split + sum(_round128(n) for n in (
         rows * d * 4, rows * d * 4, rows * (max(3 * d, f) + pad) * esz, rows * (d + pad) * esz,
-        rows * (3 * HEAD_DIM + pad) * esz, rows * rows * esz, rows * (HEAD_DIM + pad) * esz,
+        rows * (3 * hd + pad) * esz, rows * rows * esz, rows * (hd + pad) * esz,
         4096, 4 * d * esz))       # 4096: the column sums' partial sums
     seqs = max(rows // s, 1)
     tiles = -(-b // seqs)
     takes = (d == n_heads * HEAD_DIM and 2 <= n_heads <= 8 and d % 64 == 0 and f % 64 == 0
              and f % d == 0 and s <= rows and max(fwd, bwd) <= SMEM_LIMIT
-             and 4 * d + 5 * HEAD_DIM + f // n_heads <= LAYER_VECTORS)
+             and 4 * d + 5 * hd + f // n_heads <= LAYER_VECTORS)
     return {"tile_rows": rows, "seqs_per_tile": seqs, "cluster": n_heads, "tiles": tiles,
             "grid": tiles * n_heads, "fwd_smem": fwd, "bwd_smem": bwd, "takes": takes}
+
+
+def stack_form(b: int, s: int, d: int, f: int, n_heads: int, dtype) -> str:
+    """The kernels K7 runs a stack on, from its shape alone: ``"cluster"``
+    where :func:`stack_launch_plan` takes it (head dim 32), else
+    ``"narrow"``, the older kernels of ``csrc/stack.cu`` at head dim 32, 16
+    or 8 (a block of whole sequences, K4's older device code). Raises on any
+    other shape, naming the limit: D and F multiples of 32 (the older weight
+    products' warp tiles) with D <= 256, S <= 32 in bfloat16 and 16 in
+    float32."""
+    _build.kernel_dtype(torch.empty((), dtype=dtype), "x")
+    head_dim(d, n_heads)
+    if d % 32 or f % 32 or d > 256 or f < 32:
+        raise ValueError(f"the stack kernel takes D, F multiples of 32 and D <= 256; "
+                         f"got D={d}, F={f}")
+    short = F32_MAX_SEQ if dtype == torch.float32 else TILE_ROWS[torch.bfloat16]
+    if not 1 <= s <= short:
+        raise ValueError(f"the {'float32' if dtype == torch.float32 else 'bfloat16'} stack "
+                         f"kernel takes 1 <= S <= {short} (its backward tiles hold {short} "
+                         f"rows), got S={s}")
+    if stack_launch_plan(b, s, d, f, n_heads, dtype)["takes"]:
+        return "cluster"
+    smem = narrow_smem(dtype, s, d, f, n_heads, False)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the stack kernel at D={d}, F={f} needs {smem} bytes of shared "
+                         f"memory a block, over the {SMEM_LIMIT} a block can use")
+    return "narrow"
 
 
 def stack_train_reference(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2, mask,
@@ -201,12 +230,7 @@ class _FusedStackTrain(torch.autograd.Function):
         n_layers = used[0].shape[0]
         b, s, d = x.shape
         f = used[6].shape[1]
-        if d % 64 or f % 64 or d > 256:
-            raise ValueError(f"the stack kernel takes D, F multiples of 64 and D <= 256; "
-                             f"got D={d}, F={f}")
-        if dt == torch.float32 and s > F32_MAX_SEQ:
-            raise ValueError(f"the float32 stack kernel takes S <= {F32_MAX_SEQ} "
-                             f"(its backward tiles hold {F32_MAX_SEQ} rows), got S={s}")
+        form = stack_form(b, s, d, f, n_heads, dt)
         plan = stack_launch_plan(b, s, d, f, n_heads, dt)
         rows = b * s
         out = torch.empty_like(x)
@@ -223,14 +247,15 @@ class _FusedStackTrain(torch.autograd.Function):
             ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
             stream = torch.cuda.current_stream(dev).cuda_stream
             args = (ptrs, n_layers, b, s, d, f, n_heads, int(causal), int(dt == torch.float32),
-                    int(seed), thr, kp, HEAD_DIM ** -0.5)
-            if plan["takes"]:
+                    int(seed), thr, kp, softmax_scale(d, n_heads))
+            if form == "cluster":
                 fn = _build.kernel_function("dsvg_stack_cluster_fwd", _CLUSTER_FWD_ARGTYPES)
                 _build.check_launch(fn(*args, plan["fwd_smem"], stream), "stack_cluster_fwd")
             else:
                 fn = _build.kernel_function("dsvg_stack_train_fwd", _FWD_ARGTYPES)
                 _build.check_launch(fn(*args, stream), "stack_train_fwd")
                 fused_stack_train.narrow_launches += 1
+                fused_stack_train.narrow_float32_launches += dt == torch.float32
             fused_stack_train.launches += 1
         ctx.save_for_backward(x, xs, *used, qkv_s, p_s, ctx_s, x1_s, h_s)
         ctx.meta = (n_heads, int(seed), thr, kp, seq_bias.dtype, plan)
@@ -256,7 +281,7 @@ class _FusedStackTrain(torch.autograd.Function):
         dqkv_o = _padded(n_layers, rows, 3 * d, dt, dev)
         dhpre_o, hd_o = (_padded(n_layers, rows, f, dt, dev) for _ in range(2))
         operands = (xn1_o, dqkv_o, da_o, xn2_o, dhpre_o, hd_o, df_o)
-        scalars = (seed, thr, kp, HEAD_DIM ** -0.5)
+        scalars = (seed, thr, kp, softmax_scale(d, n_heads))
         if plan["takes"]:
             small_part = torch.empty((plan["tiles"], n_layers * n_small), dtype=torch.float32,
                                      device=dev)
@@ -279,6 +304,7 @@ class _FusedStackTrain(torch.autograd.Function):
             _build.check_launch(fn(ptrs, n_layers, b, s, d, f, n_heads, is_f32, *scalars,
                                    stream), "stack_train_bwd")
             fused_stack_train.narrow_backward_launches += 1
+            fused_stack_train.narrow_float32_backward_launches += is_f32
         fused_stack_train.backward_launches += 1
 
         # dW = (output-side gradient)^T @ (input), nn.Linear layout [out, in];
@@ -344,7 +370,8 @@ def fused_stack_train(x, seq_bias, ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2,
 
     A CPU tensor takes :func:`stack_train_reference` under autograd; a CUDA
     tensor launches the kernels (bfloat16 activations with S <= 32, or
-    float32 activations with S <= 16; head dim 32, D <= 256, L <= 8) or
+    float32 activations with S <= 16; head dim 32, 16 or 8, D and F
+    multiples of 32, D <= 256, L <= 8; :func:`stack_form` names them) or
     raises.
     """
     weights = (ln1, wqkv, bqkv, wo, bo, ln2, w1, b1, w2, b2)
@@ -362,3 +389,5 @@ fused_stack_train.launches = 0            # forward launches (one per stack)
 fused_stack_train.backward_launches = 0   # backward passes (three launches each)
 fused_stack_train.narrow_launches = 0     # forward launches on the older kernels
 fused_stack_train.narrow_backward_launches = 0   # and backward passes
+fused_stack_train.narrow_float32_launches = 0    # of those, the float32 ones
+fused_stack_train.narrow_float32_backward_launches = 0

@@ -1,5 +1,5 @@
 """Small shared utilities, counterpart of ``deepsvg_tpu/utils/__init__.py``
-(its ``flops.py`` is not ported)."""
+(the analytic FLOP count for MFU reports is ``utils/flops.py``)."""
 from __future__ import annotations
 
 import contextlib

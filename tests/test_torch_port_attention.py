@@ -276,14 +276,18 @@ def test_wrappers_refuse_other_devices():
     (torch.bfloat16, 256, 8, 33, "bf16_long"), (torch.bfloat16, 256, 8, 256, "bf16_long"),
     (torch.float32, 256, 8, 1, "f32"), (torch.float32, 256, 8, 256, "f32"),
     (torch.bfloat16, 128, 4, 32, "narrow"), (torch.float32, 64, 2, 241, "narrow"),
-    (torch.bfloat16, 256, 16, 32, "head dim 32"), (torch.bfloat16, 256, 8, 257, "S <= 256"),
+    (torch.bfloat16, 256, 16, 32, "narrow"), (torch.bfloat16, 64, 4, 31, "narrow"),
+    (torch.float32, 32, 2, 8, "narrow"), (torch.float32, 32, 4, 40, "narrow"),
+    (torch.bfloat16, 256, 4, 32, "head dim 32"), (torch.bfloat16, 32, 8, 8, "head dim 32"),
+    (torch.bfloat16, 256, 8, 257, "S <= 256"),
     (torch.float32, 512, 16, 8, "D <= 256"), (torch.float16, 256, 8, 32, "dtype")])
 def test_mha_form_dispatch_rule(dtype, d, heads, s, form):
     """The rule by which the CUDA wrappers pick their kernels, from the
     dtype, D, the heads and S alone, before any launch: at D=256 with 8
     heads the Hopper forms (bf16 one launch up to S=32, three launches
-    above; float32 three), at narrower widths with head dim 32 the first
-    port's kernels; any other shape raises."""
+    above; float32 three), at the other widths with head dim 32, 16 or 8
+    (D=256 with 16 heads among them) the first port's kernels; any other
+    shape raises (head dims 64 and 4 here)."""
     if form in ("bf16_short", "bf16_long", "f32", "narrow"):
         assert port_attention.mha_form(dtype, d, heads, s) == form
     else:

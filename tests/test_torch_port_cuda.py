@@ -756,9 +756,11 @@ def test_layer_kernels_rerun_to_the_bit(cuda):
 
 
 def test_bf16_layer_refuses_other_widths(cuda):
-    """The bfloat16 kernels take D=256 and F a multiple of 64 up to 1024."""
+    """The bfloat16 Hopper kernels take D=256 with 8 heads and F a multiple
+    of 64 up to 1024; other F at those widths raise (other D and heads run
+    the first port's kernels)."""
     rng = np.random.default_rng(1)
-    for d, f, s in ((128, 512, 8), (D, 96, 8), (D, 2048, 40)):
+    for d, f, s in ((D, 96, 8), (D, 2048, 8), (D, 2048, 40)):
         ln = torch.stack([1 + _bf16(rng, cuda, d), _bf16(rng, cuda, d)]).contiguous()
         ws = (ln, _bf16(rng, cuda, 3 * d, d), _bf16(rng, cuda, 3 * d), _bf16(rng, cuda, d, d),
               _bf16(rng, cuda, d), ln, _bf16(rng, cuda, f, d), _bf16(rng, cuda, f),
@@ -1616,7 +1618,7 @@ def test_shared_device_code_keeps_its_bits(cuda):
 
 
 def test_mha_kernels_refuse_what_they_do_not_take(cuda):
-    """S = 257, head dim 16 and mixed types raise, in both wrappers."""
+    """S = 257, head dim 64 and mixed types raise, in both wrappers."""
     rng = np.random.default_rng(0)
     calls = (lambda x, w, mask, heads: attn_ops.fused_mha(x, *w, mask, heads),
              lambda x, w, mask, heads: attention_vjp.fused_mha_train(x, *w, mask, 0, heads))
@@ -1626,7 +1628,7 @@ def test_mha_kernels_refuse_what_they_do_not_take(cuda):
             fn(x, w, mask, H)
         x, w, mask = _mha_inputs(rng, cuda, BF16, 2, 16)
         with pytest.raises(ValueError, match="head dim 32"):
-            fn(x, w, mask, 2 * H)                          # head dim 16
+            fn(x, w, mask, H // 2)                         # head dim 64
         with pytest.raises(ValueError, match="dtype"):
             fn(x, [w[0].float(), *w[1:]], mask, H)
 
@@ -2176,3 +2178,93 @@ def test_finetune_keeps_the_live_cuda_session(cuda, tmp_path):
     assert torch.equal(session.encode_svg(svgs[0]), z0)
     assert any(not torch.equal(a, b) for a, b in zip(params, tuned.model.parameters()))
     assert tuned.device.type == "cuda"
+
+
+# ------------------------------------- head dims 8 and 16 on the first port's kernels
+
+# D, heads, F: head dims 8 and 16, then the other widths the routing rules
+# send to the first port's kernels (bfloat16 K2 at D=128 was refused before)
+NARROW_WIDTHS = [(32, 4, 64), (64, 4, 128), (128, 4, 512), (256, 16, 512)]
+NARROW_IDS = ["hd8", "hd16", "d128_hd32", "d256_hd16"]
+
+
+def test_routing_rules_match_the_c_entry_points(cuda):
+    """The pure-Python rules name the Hopper forms exactly where the C entry
+    points take them (``dsvg_layer_f32_hopper``, ``dsvg_layer_train_hopper``,
+    ``dsvg_layer_long_train_hopper``)."""
+    import ctypes
+
+    from deepsvg_tpu_torch.ops import _build
+    rules = {name: _build.kernel_function(name, [ctypes.c_int] * 4)
+             for name in ("dsvg_layer_f32_hopper", "dsvg_layer_train_hopper",
+                          "dsvg_layer_long_train_hopper")}
+
+    def form_of(rule, *shape):
+        try:
+            return rule(*shape)
+        except ValueError:      # no kernel takes the shape
+            return "none"
+    for d, heads in ((256, 8), (256, 16), (128, 4), (32, 4)):
+        for f in (64, 96, 256, 320, 512, 1024, 2048):
+            for s in (1, 8, 16, 32, 33, 241):
+                form = form_of(layer_ops.layer_form, torch.float32, d, f, heads, s)
+                assert form.startswith("f32") == bool(rules["dsvg_layer_f32_hopper"](
+                    d, f, heads, s)), (d, heads, f, s)
+                if s <= 32:
+                    short = form_of(layer_vjp.layer_train_form, BF16, d, f, heads, s, False)
+                    assert (short == "hopper") == bool(rules["dsvg_layer_train_hopper"](
+                        d, f, heads, s)), (d, heads, f, s)
+                long_ = form_of(layer_vjp.layer_train_form, BF16, d, f, heads, s, True)
+                assert (long_ == "hopper_long") == bool(
+                    rules["dsvg_layer_long_train_hopper"](d, f, heads, s)), (d, heads, f, s)
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d,heads,f", NARROW_WIDTHS, ids=NARROW_IDS)
+@pytest.mark.parametrize("s,causal", [(8, False), (32, False), (40, True)])
+def test_layer_at_the_narrow_widths(cuda, dtype, d, heads, f, s, causal):
+    """K2 at head dims 8 and 16 and the other narrow widths, both types,
+    short and long form, against the plain version within the layer limits;
+    counted under the form's ``narrow_launches``."""
+    rng = np.random.default_rng(d + s)
+    ws = _layer_weights(rng, cuda, dtype, d=d, f=f)
+    b = 64
+    x = _bf16(rng, cuda, b, s, d).to(dtype)
+    inputs = (x, _bf16(rng, cuda, b, d).to(dtype), *ws, _key_mask(rng, cuda, b, s), heads,
+              causal)
+    counter = layer_ops.fused_layer if s <= 32 else layer_ops.fused_layer_long
+    before = _counts(counter, "launches", "narrow_launches")
+    out = layer_ops.fused_layer(*inputs)
+    assert _counts(counter, "launches", "narrow_launches") == (before[0], before[1] + 1)
+    ref = layer_ops.layer_reference(*inputs)
+    atol, rtol = (TOL_F32_ATOL, TOL_F32_RTOL) if dtype == torch.float32 else (TOL_ATOL, TOL_RTOL)
+    assert torch.isfinite(out).all() and _rel_rms(out, ref) <= TOL_RMS
+    assert ((out.float() - ref.float()).abs() <= atol + rtol * ref.float().abs()).all()
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d,heads", [(64, 4), (32, 2), (32, 4), (128, 4), (256, 16)])
+@pytest.mark.parametrize("s", [8, 40])
+def test_mha_train_at_the_narrow_widths(cuda, dtype, d, heads, s):
+    """K11 (forward and backward) at the JAX tests' head-dim-8 and 16 widths
+    and the other narrow widths against ``mha_backward_reference``: counted
+    under ``narrow_launches``."""
+    rng = np.random.default_rng(3 * d + s + heads)
+    x = _bf16(rng, cuda, 16, s, d).to(dtype).requires_grad_()
+    w = [t.to(dtype).requires_grad_() for t in (
+        _bf16(rng, cuda, 3 * d, d, scale=d ** -0.5), _bf16(rng, cuda, 3 * d, scale=0.1),
+        _bf16(rng, cuda, d, d, scale=d ** -0.5), _bf16(rng, cuda, d, scale=0.1))]
+    mask = torch.zeros(16, s, device=cuda)
+    g = _bf16(rng, cuda, 16, s, d).to(dtype)
+    fn = attention_vjp.fused_mha_train
+    before = _counts(fn, "narrow_launches", "narrow_backward_launches")
+    out = fn(x, *w, mask, 11, heads, False, 0.1)
+    grads = torch.autograd.grad(out, [x, *w], g)
+    assert _counts(fn, "narrow_launches", "narrow_backward_launches") == (
+        before[0] + 1, before[1] + 1)
+    ref = attn_ops.mha_reference(x, *w, mask, heads, False, 0.1, 11)
+    assert _rel_rms(out, ref) <= TOL_RMS
+    plain = attention_vjp.mha_backward_reference(x.detach(), g, *[t.detach() for t in w[:3]],
+                                                 mask, heads, False, 0.1, 11)
+    for name, got, want in zip(("x", "wqkv", "bqkv", "wo", "bo"), grads, plain):
+        assert _rel_rms(got, want.to(got.dtype)) <= 4e-3, name
